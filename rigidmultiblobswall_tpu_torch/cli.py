@@ -1,0 +1,163 @@
+"""Command-line entry point:
+`python -m rigidmultiblobswall_tpu_torch.cli --input-file X.dat`.
+
+Counterpart of rigidmultiblobswall_tpu/cli.py for the ported modes, with
+the same input files and output formats:
+  - scheme 'mobility': one static solve, writes .velocity.dat and
+    .force.dat;
+  - the dynamic schemes of models/integrators.py: per-step .clones (or
+    one .config file with save_clones one_file), .info (iteration and
+    rejection counters) and .time.
+Every run also writes .inputfile and .bodies_info. Runs on the card in
+float32 by default (`--f64` for float64); `--device cpu` runs the plain
+PyTorch versions of the kernels.
+
+The other static modes, MCMC, lubrication, rollers, velocity-field
+output, .random_state and user_defined_functions.py hooks are still to
+be ported (ROADMAP Queue 1, items 11-18).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .io import input_file as input_mod, scene
+from .models import integrators, kinematics as kin, solvers
+
+
+def _refuse_user_functions(input_file):
+    for udf_dir in (os.getcwd(), os.path.dirname(os.path.abspath(input_file))):
+        udf = os.path.join(udf_dir, "user_defined_functions.py")
+        if os.path.isfile(udf):
+            raise SystemExit(
+                f"error: found {udf}, but the PyTorch port does not support "
+                "user_defined_functions.py hooks yet (ROADMAP Queue 1, item "
+                "18); it refuses to run rather than ignore them")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Rigid multiblob dynamics, PyTorch + CUDA port")
+    parser.add_argument("--input-file", dest="input_file", type=str,
+                        default="data.main")
+    parser.add_argument("--print-residual", action="store_true")
+    parser.add_argument("--f64", action="store_true",
+                        help="run in float64 (default float32)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda when available, "
+                             "else cpu)")
+    args = parser.parse_args(argv)
+
+    device = torch.device(args.device or (
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    dtype = torch.float64 if args.f64 else torch.float32
+
+    _refuse_user_functions(args.input_file)
+    cfg = input_mod.read_input(args.input_file)
+    shutil.copyfile(args.input_file, cfg.output_name + ".inputfile")
+    # scene-file paths resolve relative to the input file's directory
+    system, state = input_mod.build_system(
+        cfg, base_dir=os.path.dirname(os.path.abspath(args.input_file)),
+        dtype=dtype, device=device)
+
+    with open(cfg.output_name + ".bodies_info", "w") as f:
+        f.write("num_of_body_types  %d\n" % len(system.types))
+        f.write("body_names         %s\n" % [t.name for t in system.types])
+        f.write("body_types         %s\n" % [t.count for t in system.types])
+        f.write("num_bodies         %d\n" % system.num_bodies)
+        f.write("num_blobs          %d\n" % system.num_blobs)
+
+    start_time = time.time()
+    if cfg.scheme == "mobility":
+        force_torque = None
+        if cfg.force_file is not None:
+            force_torque = torch.as_tensor(
+                np.loadtxt(cfg.force_file).reshape(system.num_bodies, 6),
+                dtype=dtype, device=device)
+        sol = solvers.solve_mobility_problem(
+            system, state, force_torque=force_torque,
+            verbose=args.print_residual)
+        np.savetxt(cfg.output_name + ".velocity.dat",
+                   sol.velocities.cpu().numpy().reshape(-1, 6),
+                   delimiter="  ")
+        force = kin.KT_mul(system, state, sol.lam).cpu().numpy()
+        np.savetxt(cfg.output_name + ".force.dat", force, delimiter="  ")
+        print("Time to solve mobility problem =", time.time() - start_time)
+    elif cfg.scheme in ("resistance", "body_mobility", "body_mcmc", "MCMC",
+                        "body_mcmc_rejection") \
+            or cfg.scheme.startswith("lubrication") \
+            or cfg.scheme.endswith("_rollers"):
+        raise NotImplementedError(
+            f"scheme {cfg.scheme!r} is not ported yet (ROADMAP Queue 1, "
+            "items 11-18)")
+    else:
+        _run_dynamic(cfg, system, state, args, start_time)
+
+    with open(cfg.output_name + ".time", "w") as f:
+        f.write(str(time.time() - start_time) + "\n")
+    print("\n\n\n# End")
+
+
+def _run_dynamic(cfg, system, state, args, start_time):
+    generator = torch.Generator().manual_seed(
+        cfg.seed if cfg.seed is not None else 0)
+    gmres_maxiter = 1000
+    step = integrators.make_stepper(system, cfg.scheme, cfg.dt,
+                                    tolerance=cfg.solver_tolerance,
+                                    gmres_maxiter=gmres_maxiter,
+                                    update_PC=cfg.update_PC,
+                                    verbose=args.print_residual)
+    carry = integrators.init_carry(system, state=state)
+
+    def save_clones(step_idx, state):
+        offs = system.body_offsets
+        pos = state.pos.cpu().numpy()
+        quat = state.quat.cpu().numpy()
+        for i, t in enumerate(system.types):
+            pos_i, quat_i = pos[offs[i]:offs[i + 1]], quat[offs[i]:offs[i + 1]]
+            if cfg.save_clones == "one_file":
+                name = "%s.%s.config" % (cfg.output_name, t.name)
+                mode = "w" if step_idx == cfg.initial_step else "a"
+                with open(name, mode) as f:
+                    f.write("%d\n" % len(pos_i))
+                    for x, q in zip(pos_i, quat_i):
+                        f.write("%s %s %s %s %s %s %s\n" % (
+                            x[0], x[1], x[2], q[0], q[1], q[2], q[3]))
+            else:
+                scene.write_clones_file(
+                    "%s.%s.%08d.clones" % (cfg.output_name, t.name, step_idx),
+                    pos_i, quat_i)
+
+    det_iters = stoch_iters = rejections = unconverged_steps = 0
+    for step_idx in range(cfg.initial_step, cfg.n_steps):
+        if (step_idx % cfg.n_save) == 0 and step_idx >= 0:
+            print("Integrator = %s, step = %d, wallclock = %.2fs" % (
+                cfg.scheme, step_idx, time.time() - start_time))
+            save_clones(step_idx, state)
+        state, carry, aux = step(state, generator, carry)
+        det_iters += aux.det_iterations
+        stoch_iters += aux.stoch_iterations
+        rejections += aux.rejections
+        if not aux.solves_converged:
+            unconverged_steps += 1
+            print("WARNING: step %d had a GMRES solve stop before "
+                  "tolerance (maxiter=%d)" % (step_idx, gmres_maxiter),
+                  file=sys.stderr)
+    save_clones(cfg.n_steps, state)
+    with open(cfg.output_name + ".info", "w") as f:
+        f.write("invalid_configuration_count      %d\n" % rejections)
+        f.write("deterministic_iterations_count   %d\n" % det_iters)
+        f.write("stochastic_iterations_count      %d\n" % stoch_iters)
+        f.write("unconverged_solve_steps          %d\n" % unconverged_steps)
+        f.write("capacity_overflow_steps          %d\n" % 0)
+
+
+if __name__ == "__main__":
+    main()

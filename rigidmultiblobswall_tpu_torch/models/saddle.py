@@ -1,0 +1,215 @@
+"""Matrix-free saddle-point operator and block-diagonal preconditioner
+(PyTorch, pairwise domains).
+
+Counterpart of rigidmultiblobswall_tpu/models/saddle.py. Mobility problem
+for rigid multiblob suspensions (Delong et al. 2015):
+
+    |  M   -K | |lambda|   | slip |
+    | -K^T  0 | |  U   | = | -F   |
+
+solved by right-preconditioned GMRES with an exact per-body
+preconditioner. Bodies are batched per type: one batched Cholesky per
+type, and the preconditioner applies as batched matrix products. The
+Lanczos noise preconditioner P = U_chol^{-1}, M ~= U_chol^T U_chol,
+reuses the same factorization.
+
+Prescribed kinematics, articulated constraints and the spectral engines
+are still to be ported (ROADMAP Queue 1, items 15, 17-19).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import mobility as mob
+from . import kinematics as kin
+from .system import State, System
+
+
+def saddle_size(system: System) -> int:
+    return 3 * system.num_blobs + 6 * system.num_bodies
+
+
+def split_saddle_vector(system: System, vec):
+    """(..., n) -> lam (..., N, 3), U (..., B, 6)."""
+    n3 = 3 * system.num_blobs
+    batch = vec.shape[:-1]
+    lam = vec[..., :n3].reshape(*batch, system.num_blobs, 3)
+    U = vec[..., n3:n3 + 6 * system.num_bodies].reshape(
+        *batch, system.num_bodies, 6)
+    return lam, U
+
+
+def maybe_dense_mobility(system: System, r_blobs):
+    """The per-configuration mobility engine. The JAX package materializes
+    the (3N, 3N) operator through kernels K3/K4 when 9 N^2 floats fit its
+    budget; those kernels are not ported yet (ROADMAP Queue 1, item 10),
+    so the port always takes the matrix-free pairwise engine (None), the
+    branch the JAX package takes above the budget, e.g. at 49,152 blobs."""
+    return None
+
+
+def _mobility_apply(system, r_blobs, m_dense, lam):
+    """M lam for lam (N, 3) (or flat) -> (N, 3). m_dense is the engine
+    from maybe_dense_mobility: always None (matrix-free) until K3/K4."""
+    return mob.mobility_trans_times_force(
+        r_blobs, lam.reshape(-1, 3), system.eta, system.blob_radius,
+        domain=system.domain, periodic_length=system.periodic_length)
+
+
+def _mobility_apply_multi(system, r_blobs, m_dense, lam):
+    """Stacked M products, lam (b, N, 3) -> (b, N, 3), one pair sweep."""
+    return mob.pairwise_matvec_multi(
+        r_blobs, r_blobs, lam, system.eta, system.blob_radius,
+        coupling="tt", domain=system.domain,
+        periodic_length=system.periodic_length, self_interaction=True)
+
+
+def _finish(system, state, rel, vec, m_lam):
+    """[M lam - K U; -K^T lam] from the mobility product, for any leading
+    batch dimensions."""
+    lam, U = split_saddle_vector(system, vec)
+    res_blobs = m_lam - kin.K_mul(system, state, U, rel=rel)
+    res_bodies = -kin.KT_mul(system, state, lam, rel=rel)
+    batch = vec.shape[:-1]
+    return torch.cat([res_blobs.reshape(*batch, -1),
+                      res_bodies.reshape(*batch, -1)], dim=-1)
+
+
+def make_linear_operator(system: System, state: State, r_blobs=None,
+                         m_dense=None):
+    """vec -> saddle operator action (flat in, flat out)."""
+    rel = kin.all_rel_positions(system, state)
+    if r_blobs is None:
+        r_blobs = kin.blob_positions(system, state, rel=rel)
+
+    def operator(vec):
+        lam = split_saddle_vector(system, vec)[0]
+        return _finish(system, state, rel, vec,
+                       _mobility_apply(system, r_blobs, m_dense, lam))
+
+    return operator
+
+
+def make_lockstep_operator(system: System, state: State, r_blobs=None,
+                           m_dense=None):
+    """Saddle operator over a (nrhs, n) stack: ONE shared mobility sweep
+    feeds the per-RHS K algebra. Pairs with ops/gmres.gmres_lockstep."""
+    rel = kin.all_rel_positions(system, state)
+    if r_blobs is None:
+        r_blobs = kin.blob_positions(system, state, rel=rel)
+
+    def operator(Y):
+        lam = split_saddle_vector(system, Y)[0]
+        m_lam = _mobility_apply_multi(system, r_blobs, m_dense, lam)
+        return _finish(system, state, rel, Y, m_lam)
+
+    return operator
+
+
+class TypePC(NamedTuple):
+    """Per-type batched preconditioner factors."""
+
+    chol: torch.Tensor      # (c, 3nb, 3nb) upper Cholesky, M = U^T U
+    chol_inv: torch.Tensor  # (c, 3nb, 3nb) U^{-1}
+    m_inv: torch.Tensor     # (c, 3nb, 3nb)
+    K: torch.Tensor         # (c, 3nb, 6)
+    N_body: torch.Tensor    # (c, 6, 6) = (K^T M^{-1} K)^{-1}
+
+
+class BlockDiagPC(NamedTuple):
+    per_type: tuple
+
+
+def _collinear(ref_config) -> bool:
+    """True when the blobs of a reference configuration lie on one line
+    (K^T M^{-1} K is then rank 5 and needs the pseudo-inverse)."""
+    cfg = np.asarray(ref_config, np.float64)
+    cfg = cfg - cfg.mean(axis=0)
+    sv = np.linalg.svd(cfg, compute_uv=False) if len(cfg) > 1 else [0.0]
+    return len(sv) < 2 or sv[1] <= 1e-9 * max(sv[0], 1e-30)
+
+
+def build_block_diag_pc(system: System, state: State) -> BlockDiagPC:
+    """Factor every body's blob mobility (the dense single-body mobility
+    in the system's domain), batched per type."""
+    per_type = []
+    for i, t in enumerate(system.types):
+        rel = kin.blob_rel_positions(system, state, i)
+        pos, _ = kin.type_arrays(system, state, i)
+        M = mob.dense_mobility(rel + pos[:, None, :], system.eta,
+                               system.blob_radius, domain=system.domain)
+        chol = torch.linalg.cholesky(M, upper=True)
+        eye = torch.eye(3 * t.num_blobs, dtype=M.dtype,
+                        device=M.device).expand_as(M)
+        chol_inv = torch.linalg.solve_triangular(chol, eye, upper=True)
+        m_inv = torch.einsum("cij,ckj->cik", chol_inv, chol_inv)
+        K = kin.K_dense(system, state, i)
+        KtMinvK = torch.einsum("cni,cnm,cmj->cij", K, m_inv, K)
+        if t.num_blobs >= 3 and not _collinear(t.ref_config):
+            N_body = torch.linalg.inv(KtMinvK)
+        else:
+            N_body = torch.linalg.pinv(KtMinvK)
+        per_type.append(TypePC(chol=chol, chol_inv=chol_inv, m_inv=m_inv,
+                               K=K, N_body=N_body))
+    return BlockDiagPC(per_type=tuple(per_type))
+
+
+def apply_block_diag_pc(system: System, pc: BlockDiagPC, vec):
+    """Apply the saddle preconditioner to vec (..., n): per body, solve the
+    isolated mobility problem exactly."""
+    lam, F = split_saddle_vector(system, vec)
+    batch = vec.shape[:-1]
+    lam_out, body_out = [], []
+    for i, t in enumerate(system.types):
+        p = pc.per_type[i]
+        c, nb = t.count, t.num_blobs
+        slip = lam[..., system.blob_slice(i), :].reshape(*batch, c, 3 * nb)
+        Fb = F[..., system.body_slice(i), :]
+        lam_tilde = torch.einsum("cij,...cj->...ci", p.m_inv, slip)
+        rhs = -Fb - torch.einsum("cni,...cn->...ci", p.K, lam_tilde)
+        Y = torch.einsum("cij,...cj->...ci", p.N_body, rhs)
+        KY = torch.einsum("cni,...ci->...cn", p.K, Y)
+        lam_t = torch.einsum("cij,...cj->...ci", p.m_inv, slip + KY)
+        lam_out.append(lam_t.reshape(*batch, c * nb * 3))
+        body_out.append(Y.reshape(*batch, c * 6))
+    return torch.cat(lam_out + body_out, dim=-1)
+
+
+def make_noise_pc(system: System, state: State, pc: BlockDiagPC,
+                  r_blobs=None, m_dense=None):
+    """Operators for the preconditioned Lanczos noise:
+      mobility_pc(w) = P^T M P w   with per-body P = U_chol^{-1}
+      L_mult(w)      = U_chol^T w
+    so that L sqrt(P^T M P) z has covariance M."""
+    if r_blobs is None:
+        r_blobs = kin.blob_positions(system, state)
+
+    def _apply_per_body(vec, which):
+        out = []
+        for i, t in enumerate(system.types):
+            p = pc.per_type[i]
+            c, nb = t.count, t.num_blobs
+            w = vec.reshape(system.num_blobs, 3)[system.blob_slice(i)]
+            w = w.reshape(c, 3 * nb)
+            if which == "P":
+                r = torch.einsum("cij,cj->ci", p.chol_inv, w)
+            elif which == "PT":
+                r = torch.einsum("cji,cj->ci", p.chol_inv, w)
+            else:  # "L": U^T w
+                r = torch.einsum("cji,cj->ci", p.chol, w)
+            out.append(r.reshape(c * nb * 3))
+        return torch.cat(out)
+
+    def mobility_pc(w):
+        y = _apply_per_body(w, "P").reshape(system.num_blobs, 3)
+        my = _mobility_apply(system, r_blobs, m_dense, y)
+        return _apply_per_body(my.reshape(-1), "PT")
+
+    def L_mult(w):
+        return _apply_per_body(w, "L")
+
+    return mobility_pc, L_mult

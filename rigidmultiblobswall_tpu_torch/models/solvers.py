@@ -1,0 +1,131 @@
+"""Mobility solves: force assembly, right-hand side and preconditioned
+GMRES on the saddle system (PyTorch).
+
+Counterpart of rigidmultiblobswall_tpu/models/solvers.py:
+`force_torque_calculator`, `build_rhs`, `solve_mobility_problem` and
+`solve_mobility_problem_lockstep`. The dense-algebra utilities, the
+single-blob articulated solve and Krylov recycling are still to be
+ported (ROADMAP Queue 1, items 17-18).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops import forces as force_ops
+from ..ops.gmres import gmres, gmres_lockstep
+from . import kinematics as kin
+from . import saddle
+from .system import State, System
+
+
+class MobilitySolution(NamedTuple):
+    lam: torch.Tensor         # (N,3) constraint forces on blobs
+    velocities: torch.Tensor  # (B,6)
+    iterations: int
+    residual_norm: object
+    converged: object = True  # GMRES reached tolerance (every RHS)
+
+
+def force_torque_calculator(system: System, state: State, r_blobs):
+    """Default force assembly: one-blob external forces plus blob-blob
+    repulsion, aggregated through K^T. Returns (B,6)."""
+    f_blobs = force_ops.blob_external_forces(
+        r_blobs, g=system.g, blob_mass=1.0, blob_radius=system.blob_radius,
+        repulsion_strength_wall=system.repulsion_strength_wall,
+        debye_length_wall=system.debye_length_wall)
+    if system.blob_blob_force_method == "direct":
+        f_blobs = f_blobs + force_ops.blob_blob_forces(
+            r_blobs, repulsion_strength=system.repulsion_strength,
+            debye_length=system.debye_length,
+            blob_radius=system.blob_radius,
+            periodic_length=system.periodic_length)
+    return kin.KT_mul(system, state, f_blobs)
+
+
+def build_rhs(system: System, state: State, r_blobs, slip=None,
+              force_torque=None, noise_slip=None, noise_ft=None):
+    """RHS = [slip - noise, -(F + noise_FT)], flat."""
+    if slip is None:
+        slip = kin.active_slip(system, state)
+    slip = slip.reshape(system.num_blobs, 3)
+    if force_torque is None:
+        force_torque = force_torque_calculator(system, state, r_blobs)
+    force_torque = force_torque.reshape(system.num_bodies, 6)
+    if noise_ft is not None:
+        force_torque = force_torque + noise_ft.reshape(system.num_bodies, 6)
+    if noise_slip is not None:
+        slip = slip - noise_slip.reshape(system.num_blobs, 3)
+    return torch.cat([slip.reshape(-1), -force_torque.reshape(-1)])
+
+
+def solve_mobility_problem(system: System, state: State, *, rhs=None,
+                           slip=None, force_torque=None, noise_slip=None,
+                           noise_ft=None,
+                           pc: Optional[saddle.BlockDiagPC] = None, x0=None,
+                           tol: Optional[float] = None, restart: int = 60,
+                           maxiter: int = 1000, m_dense="auto",
+                           verbose: bool = False) -> MobilitySolution:
+    """Preconditioned GMRES solve of the saddle system on the unit-norm
+    right-hand side. x0 is in physical units (e.g. a previous solution
+    used as a warm start). m_dense: 'auto' asks
+    saddle.maybe_dense_mobility for the configuration's engine."""
+    r_blobs = kin.blob_positions(system, state)
+    if isinstance(m_dense, str) and m_dense == "auto":
+        m_dense = saddle.maybe_dense_mobility(system, r_blobs)
+    if rhs is None:
+        rhs = build_rhs(system, state, r_blobs, slip=slip,
+                        force_torque=force_torque, noise_slip=noise_slip,
+                        noise_ft=noise_ft)
+    if pc is None:
+        pc = saddle.build_block_diag_pc(system, state)
+    operator = saddle.make_linear_operator(system, state, r_blobs,
+                                           m_dense=m_dense)
+    tol = system.solver_tolerance if tol is None else tol
+    rhs_norm = torch.linalg.norm(rhs)
+    safe_norm = torch.where(rhs_norm > 0, rhs_norm, torch.ones_like(rhs_norm))
+    if x0 is not None:
+        x0 = x0 / safe_norm
+    result = gmres(operator, rhs / safe_norm, x0=x0, tol=tol,
+                   restart=restart, maxiter=maxiter, verbose=verbose,
+                   M=lambda v: saddle.apply_block_diag_pc(system, pc, v))
+    lam, U = saddle.split_saddle_vector(system, result.x * rhs_norm)
+    return MobilitySolution(lam=lam, velocities=U,
+                            iterations=result.iterations,
+                            residual_norm=result.residual_norm,
+                            converged=result.converged)
+
+
+def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
+                                    pc: Optional[saddle.BlockDiagPC] = None,
+                                    x0=None, tol: Optional[float] = None,
+                                    restart: int = 60, maxiter: int = 1000,
+                                    m_dense="auto") -> MobilitySolution:
+    """Solve the saddle system for a stack of right-hand sides (nrhs, n)
+    at one configuration, sharing every pair sweep across the stack.
+    Fields carry a leading nrhs axis; `iterations` counts batched
+    sweeps."""
+    r_blobs = kin.blob_positions(system, state)
+    if isinstance(m_dense, str) and m_dense == "auto":
+        m_dense = saddle.maybe_dense_mobility(system, r_blobs)
+    if pc is None:
+        pc = saddle.build_block_diag_pc(system, state)
+    operator = saddle.make_lockstep_operator(system, state, r_blobs,
+                                             m_dense=m_dense)
+    tol = system.solver_tolerance if tol is None else tol
+    rhs_norm = torch.linalg.norm(rhs, dim=1)
+    safe_norm = torch.where(rhs_norm > 0, rhs_norm, torch.ones_like(rhs_norm))
+    if x0 is not None:
+        x0 = x0 / safe_norm[:, None]
+    result = gmres_lockstep(
+        operator, rhs / safe_norm[:, None], x0=x0, tol=tol, restart=restart,
+        maxiter=maxiter,
+        M=lambda v: saddle.apply_block_diag_pc(system, pc, v))
+    lam, U = saddle.split_saddle_vector(system,
+                                        result.x * rhs_norm[:, None])
+    return MobilitySolution(lam=lam, velocities=U,
+                            iterations=result.iterations,
+                            residual_norm=result.residual_norm,
+                            converged=bool(result.converged.all()))

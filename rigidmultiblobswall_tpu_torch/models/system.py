@@ -1,0 +1,200 @@
+"""Static system description and dynamic state (PyTorch).
+
+Counterpart of rigidmultiblobswall_tpu/models/system.py. Frozen
+dataclasses take the place of the JAX pytrees:
+
+  * `BodyType` / `System` - static geometry and physics parameters, host
+    numpy and Python scalars, independent of device and dtype. Bodies are
+    grouped by type so per-body work batches over each group.
+  * `State` - body locations (B, 3) and unit quaternions (B, 4) as
+    tensors, in type-group order; the device and dtype of a run are the
+    state's.
+
+The port covers the wall-bounded and unbounded direct pairwise engine
+(`domain` 'single_wall' or 'no_wall', no periodic images, one blob
+radius) with the default force set. Fields the JAX System carries for
+other engines and models are not present; `from_reference` refuses a JAX
+system that sets them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+DOMAINS = ("single_wall", "no_wall")
+BLOB_BLOB_METHODS = ("direct", "none")
+
+
+def _freeze(arr):
+    a = np.asarray(arr, dtype=np.float64)
+    a.setflags(write=False)
+    return a
+
+
+@dataclasses.dataclass(frozen=True)
+class BodyType:
+    """A group of rigid bodies sharing one reference configuration:
+    ref_config (nb, 3) blob coordinates at orientation (1,0,0,0) about
+    the body center."""
+
+    name: str
+    ref_config: np.ndarray
+    count: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "ref_config",
+                           _freeze(np.reshape(self.ref_config, (-1, 3))))
+
+    @property
+    def num_blobs(self) -> int:
+        return self.ref_config.shape[0]
+
+    @property
+    def body_length(self) -> float:
+        """Max pairwise blob distance (the RFD length scale less 2a)."""
+        r = self.ref_config
+        return float(np.linalg.norm(r[:, None, :] - r[None, :, :],
+                                    axis=-1).max())
+
+
+@dataclasses.dataclass(frozen=True)
+class System:
+    """Immutable problem description."""
+
+    types: Tuple[BodyType, ...]
+    eta: float = 1.0
+    blob_radius: float = 1.0
+    kT: float = 0.0
+    g: float = 0.0
+    domain: str = "single_wall"
+    periodic_length: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    repulsion_strength: float = 0.0
+    debye_length: float = 1.0
+    repulsion_strength_wall: float = 0.0
+    debye_length_wall: float = 1.0
+    blob_blob_force_method: str = "direct"
+    solver_tolerance: float = 1e-8
+    rf_delta: float = 1e-3
+
+    def __post_init__(self):
+        object.__setattr__(self, "types", tuple(self.types))
+        object.__setattr__(self, "periodic_length",
+                           tuple(float(x) for x in self.periodic_length))
+        if self.domain not in DOMAINS:
+            raise NotImplementedError(
+                f"domain {self.domain!r}: the port covers {DOMAINS} so far "
+                "(other domains: ROADMAP Queue 1, items 4, 15 and 19)")
+        if any(L > 0 for L in self.periodic_length):
+            raise NotImplementedError(
+                "pseudo-periodic image boxes are not ported yet "
+                "(ROADMAP Queue 1, item 4)")
+        if self.blob_blob_force_method not in BLOB_BLOB_METHODS:
+            raise NotImplementedError(
+                f"blob_blob_force_method {self.blob_blob_force_method!r}: "
+                "the linked-cell method waits for kernel K5 (ROADMAP "
+                "Queue 1, item 14)")
+
+    @property
+    def num_bodies(self) -> int:
+        return sum(t.count for t in self.types)
+
+    @property
+    def num_blobs(self) -> int:
+        return sum(t.count * t.num_blobs for t in self.types)
+
+    @property
+    def body_offsets(self) -> Tuple[int, ...]:
+        offs = [0]
+        for t in self.types:
+            offs.append(offs[-1] + t.count)
+        return tuple(offs)
+
+    @property
+    def blob_offsets(self) -> Tuple[int, ...]:
+        offs = [0]
+        for t in self.types:
+            offs.append(offs[-1] + t.count * t.num_blobs)
+        return tuple(offs)
+
+    def body_slice(self, i: int) -> slice:
+        offs = self.body_offsets
+        return slice(offs[i], offs[i + 1])
+
+    def blob_slice(self, i: int) -> slice:
+        offs = self.blob_offsets
+        return slice(offs[i], offs[i + 1])
+
+
+@dataclasses.dataclass(frozen=True)
+class State:
+    """Dynamic state: all bodies concatenated in type-group order."""
+
+    pos: torch.Tensor   # (B, 3)
+    quat: torch.Tensor  # (B, 4), unit, scalar first
+
+
+def make_state(positions, quaternions, dtype=torch.float64,
+               device=None) -> State:
+    pos = torch.as_tensor(positions, dtype=dtype,
+                          device=device).reshape(-1, 3).contiguous()
+    quat = torch.as_tensor(quaternions, dtype=dtype,
+                           device=device).reshape(-1, 4).contiguous()
+    return State(pos=pos, quat=quat)
+
+
+def from_reference(ref_system, positions=None, quaternions=None, *,
+                   dtype=torch.float64, device=None):
+    """Carry a JAX-package `System` (and optionally its `State` arrays,
+    passed as numpy) across to the port's objects on `device`/`dtype`.
+
+    Reads the reference system's attributes without importing JAX.
+    Features the port does not cover yet raise NotImplementedError.
+    Returns the System, or (System, State) when positions are given."""
+    for t in ref_system.types:
+        radii = getattr(t, "blob_radii", None)
+        if radii is not None and not np.allclose(radii,
+                                                 ref_system.blob_radius):
+            raise NotImplementedError("per-blob radii (ROADMAP Queue 1, "
+                                      "item 4)")
+        if getattr(t, "slip_ref", None) is not None:
+            raise NotImplementedError("active slip (ROADMAP Queue 1, "
+                                      "item 18)")
+        if getattr(t, "prescribed_kinematics", False):
+            raise NotImplementedError("prescribed kinematics / obstacles "
+                                      "(ROADMAP Queue 1, item 17)")
+    for name in ("blob_force_fn", "body_force_torque_fn", "slip_fn"):
+        if getattr(ref_system, name, None) is not None:
+            raise NotImplementedError(f"user hook {name} (ROADMAP Queue 1, "
+                                      "item 18)")
+    if getattr(ref_system, "articulated", ()):
+        raise NotImplementedError("articulated bodies (ROADMAP Queue 1, "
+                                  "item 18)")
+    if getattr(ref_system, "body_body_force_method", "none") != "none":
+        raise NotImplementedError("body-body Yukawa forces (ROADMAP Queue 1, "
+                                  "item 18)")
+    system = System(
+        types=tuple(BodyType(name=t.name, ref_config=np.asarray(t.ref_config),
+                             count=int(t.count))
+                    for t in ref_system.types),
+        eta=float(ref_system.eta),
+        blob_radius=float(ref_system.blob_radius),
+        kT=float(ref_system.kT),
+        g=float(ref_system.g),
+        domain=ref_system.domain,
+        periodic_length=tuple(ref_system.periodic_length),
+        repulsion_strength=float(ref_system.repulsion_strength),
+        debye_length=float(ref_system.debye_length),
+        repulsion_strength_wall=float(ref_system.repulsion_strength_wall),
+        debye_length_wall=float(ref_system.debye_length_wall),
+        blob_blob_force_method=ref_system.blob_blob_force_method,
+        solver_tolerance=float(ref_system.solver_tolerance),
+        rf_delta=float(ref_system.rf_delta),
+    )
+    if positions is None:
+        return system
+    return system, make_state(positions, quaternions, dtype=dtype,
+                              device=device)

@@ -1,0 +1,116 @@
+"""The PyTorch port's CLI against the JAX package's CLI on one generated
+4-shell input file: same final .clones (1e-8) after a few
+stochastic_Slip_Trapz steps at kT = 0, same .velocity.dat for the
+'mobility' scheme, and the same output files."""
+
+import os
+
+import numpy as np
+import pytest
+
+from rigidmultiblobswall_tpu import cli as jcli
+from rigidmultiblobswall_tpu_torch import cli as tcli
+
+from torch_parity import shell_vertices
+
+N_STEPS = 3
+
+
+def _write_scene(d, scheme, n_bodies=4, kT=0.0, extra=""):
+    d.mkdir(parents=True, exist_ok=True)
+    ref = shell_vertices(12, 0.5)
+    with open(d / "shell.vertex", "w") as f:
+        f.write("12\n")
+        for x in ref:
+            f.write("%.16g %.16g %.16g\n" % tuple(x))
+    rng = np.random.default_rng(0)
+    pos = np.stack([1.6 * (np.arange(n_bodies) % 2),
+                    1.6 * (np.arange(n_bodies) // 2),
+                    np.full(n_bodies, 0.9)], axis=1)
+    quat = rng.normal(size=(n_bodies, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    with open(d / "shell.clones", "w") as f:
+        f.write("%d\n" % n_bodies)
+        for p, q in zip(pos, quat):
+            f.write(" ".join("%.16g" % v for v in (*p, *q)) + "\n")
+    with open(d / "input.dat", "w") as f:
+        f.write(f"""# generated {n_bodies}-shell scene
+scheme {scheme}
+dt 0.002
+n_steps {N_STEPS}
+n_save {N_STEPS}
+eta 1.0
+g 0.1
+blob_radius 0.131
+kT {kT}
+solver_tolerance 1e-12
+repulsion_strength_wall 0.2
+debye_length_wall 0.2
+repulsion_strength 0.2
+debye_length 0.2
+blob_blob_force_implementation python
+seed 1
+output_name run
+structure shell.vertex shell.clones
+{extra}""")
+    return d / "input.dat"
+
+
+def _run_both(tmp_path, monkeypatch, scheme, **kw):
+    out = {}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        d = tmp_path / name
+        inp = _write_scene(d, scheme, **kw)
+        monkeypatch.chdir(d)
+        main(["--input-file", str(inp)] + argv)
+        out[name] = d
+    return out
+
+
+def _clones(path):
+    return np.loadtxt(path, skiprows=1)
+
+
+def test_cli_slip_trapz_matches_jax(tmp_path, monkeypatch):
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz")
+    final = "run.shell.%08d.clones" % N_STEPS
+    ref = _clones(out["jax"] / final)
+    got = _clones(out["torch"] / final)
+    start = _clones(out["torch"] / "run.shell.00000000.clones")
+    assert np.abs(got[:, :3] - start[:, :3]).max() > 1e-4
+    np.testing.assert_allclose(got, ref, atol=1e-8, rtol=0)
+    for suffix in (".info", ".time", ".inputfile", ".bodies_info"):
+        assert (out["torch"] / ("run" + suffix)).is_file()
+    info = dict(line.split() for line in
+                open(out["torch"] / "run.info").read().splitlines())
+    info_jax = dict(line.split() for line in
+                    open(out["jax"] / "run.info").read().splitlines())
+    assert info == info_jax
+
+
+def test_cli_mobility_matches_jax(tmp_path, monkeypatch):
+    out = _run_both(tmp_path, monkeypatch, "mobility")
+    for name in ("run.velocity.dat", "run.force.dat"):
+        ref = np.loadtxt(out["jax"] / name)
+        got = np.loadtxt(out["torch"] / name)
+        np.testing.assert_allclose(got, ref, atol=1e-9 * np.abs(ref).max(),
+                                   rtol=0)
+
+
+def test_cli_refuses_user_defined_functions(tmp_path, monkeypatch):
+    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz")
+    (tmp_path / "user_defined_functions.py").write_text("x = 1\n")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="user_defined_functions"):
+        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "run.inputfile")
+
+
+def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
+    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz",
+                       extra="obstacle shell.vertex shell.clones\n")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="obstacles"):
+        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
