@@ -8,24 +8,35 @@ Phases (each prints its own lines; any failure raises, so the exit code
 is non-zero and no result line is printed):
   1. device: requires CUDA (never falls back to the CPU); prints the
      card's name and power limit from nvidia-smi;
-  2. build: compiles kernels K1 (csrc/pair_tt.cu) and K2
-     (csrc/blob_forces.cu) with nvcc into build/kernels/;
-  3. kernels against their plain PyTorch versions on the card: a random
-     ~3000-blob scene with blobs below a, and the 49,152-blob shape of
-     the main path; prints kernel and plain times;
-  4. slice parity: 8 shells, 3 Slip-Trapz steps at kT = 0, on the card
-     (kernels) against the CPU (plain versions, float64);
-  5. the CLI entry point on a generated 64-shell input file;
-  6. the main path at full width: bench.py's multibody configuration,
-     4096 twelve-blob shells = 49,152 blobs, stochastic_Slip_Trapz in
-     float32 through make_stepper/init_carry, one warm-up step and three
-     timed steps, with the kernels' launch counts over the run.
+  2. build: compiles kernel K1 (csrc/pair_tt.cu, csrc/pair_couplings.cu
+     on csrc/pair_blocks.cuh) and K2 (csrc/blob_forces.cu) with one nvcc
+     per source, all started together, into build/kernels/; prints the
+     ptxas registers and spills of every kernel instance;
+  3. kernels against their plain PyTorch versions on the card: every K1
+     coupling and template instance and K2 on a random ~3000-blob scene
+     with blobs below a, K1 tt and K2 at the 49,152-blob shape of the
+     Slip-Trapz path, and K1 tr/rt/rr/grand at the 32,768-roller shape
+     of the rollers path; prints kernel and plain times;
+  4. slice parity on the card (kernels) against the CPU (plain versions,
+     float64): 8 shells x 3 Slip-Trapz steps at kT = 0, and 16 rollers x
+     3 steps of deterministic and stochastic Adams-Bashforth;
+  5. the CLI entry point on a generated 64-shell input file and on a
+     generated 64-roller input file;
+  6. the Slip-Trapz path at full width: bench.py's multibody
+     configuration, 4096 twelve-blob shells = 49,152 blobs, float32
+     through make_stepper/init_carry, one warm-up step and three timed
+     steps, with the kernels' launch counts over the run;
+  7. the rollers path at full width: bench.py's rollers configuration,
+     32,768 rollers, stochastic_adams_bashforth_rollers in float32, one
+     warm-up step and three timed steps, with the launch count of every
+     K1 coupling and of K2 over the run.
 The line before the last holds the per-kernel JSON record; the last line
 is {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -36,8 +47,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_SHELLS = 4096
+N_ROLLERS = 32768
 DEVICE = "cuda"
 A_BENCH = 0.131
+A_ROLLER = 0.5
+# (coupling, B) of the K1 template instances besides tt's B = 1 and 2
+K1_COUPLING_INSTANCES = [("tr", 1), ("tr", 2), ("rt", 1), ("rr", 1),
+                         ("rr", 2), ("grand", 1)]
 
 
 def log(msg):
@@ -54,10 +70,11 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=True):
     """Mean device time of fn() over reps launches (CUDA events), after
-    one warm-up call."""
-    fn()
+    one warm-up call unless warmup is False."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -106,9 +123,75 @@ def bench_system(n_bodies, **overrides):
     return System(types=(t,), **kw)
 
 
+def roller_lattice(n, seed=0):
+    """bench.py's rollers lattice at z = 1.2 with in-plane jitter (float32
+    from numpy seed 0)."""
+    side = int(np.ceil(n ** 0.5))
+    idx = np.arange(n)
+    rng = np.random.default_rng(seed)
+    r0 = np.stack([(idx % side) * 1.6, (idx // side) * 1.6,
+                   np.full(n, 1.2)], axis=1).astype(np.float32)
+    r0[:, :2] += rng.uniform(-0.1, 0.1, size=(n, 2))
+    return r0
+
+
+def roller_suspension(n, **overrides):
+    """bench.py's rollers configuration for n rollers."""
+    from rigidmultiblobswall_tpu_torch.models.rollers import RollerSuspension
+
+    kw = dict(num_rollers=n, eta=1.0, blob_radius=A_ROLLER, kT=0.05, g=0.2,
+              domain="single_wall", repulsion_strength=0.2,
+              debye_length=0.2, repulsion_strength_wall=0.2,
+              debye_length_wall=0.2, solver_tolerance=2e-4,
+              free_kinematics=False, omega_one_roller=(0.0, 10.0, 0.0),
+              lanczos_max_iter=24)
+    kw.update(overrides)
+    return RollerSuspension(**kw)
+
+
+def ptxas_report(build_log):
+    """One line per compiled kernel instance: its (demangled) name,
+    registers, and spill stores/loads, from nvcc's -Xptxas=-v output."""
+    entries, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name is not None:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            entries.append((name, regs, spill))
+            name, spill = None, ""
+    if entries and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True)
+        if out.returncode == 0:
+            names = out.stdout.splitlines()
+            entries = [(n.replace("(anonymous namespace)::", "")
+                        .split("(", 1)[0], r, sp)
+                       for n, (_, r, sp) in zip(names, entries)]
+    return [f"{n}: {r}; {sp}" for n, r, sp in entries]
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+def k1_vs_plain(pk, coupling, qt, vt, wall):
+    """K1 against its plain version in float64 on a square scene;
+    returns (max err / max|ref|, timing text for float32)."""
+    kw = dict(coupling=coupling, wall=wall, self_interaction=True)
+    got = pk.pair_matvec(qt, qt, vt, **kw)
+    torch.cuda.synchronize()
+    ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
+    rel = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    times = ""
+    if qt.dtype == torch.float32:
+        ms = cuda_ms(lambda: pk.pair_matvec(qt, qt, vt, **kw), 10)
+        plain_ms = cuda_ms(lambda: pk.pair_plain(qt, qt, vt, **kw), 3)
+        times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
+    return rel, times
 
 
 def phase_kernels(pk, mc, mob, kin, make_state):
@@ -132,23 +215,29 @@ def phase_kernels(pk, mc, mob, kin, make_state):
             for dtype, bound in bounds.items():
                 qt = torch.as_tensor(q, dtype=dtype, device=dev)
                 vt = torch.as_tensor(v, dtype=dtype, device=dev)
-                got = pk.pair_tt(qt, qt, vt, wall=wall, self_interaction=True)
-                torch.cuda.synchronize()
-                ref = pk.pair_tt_plain(qt.double(), qt.double(), vt.double(),
-                                       wall=wall, self_interaction=True)
-                rel = ((got.double() - ref).abs().max()
-                       / ref.abs().max()).item()
-                times = ""
-                if dtype == torch.float32:
-                    ms = cuda_ms(lambda: pk.pair_tt(
-                        qt, qt, vt, wall=wall, self_interaction=True), 10)
-                    plain_ms = cuda_ms(lambda: pk.pair_tt_plain(
-                        qt, qt, vt, wall=wall, self_interaction=True), 3)
-                    times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
+                rel, times = k1_vs_plain(pk, "tt", qt, vt, wall)
                 log(f"K1 {n} blobs B={n_rhs} wall={wall} {dtype}: "
                     f"max err / max|ref| = {rel:.3e} (bound {bound:g})"
                     + times)
                 check(rel <= bound, f"K1 disagrees with plain ({rel:.3e})")
+    # the other couplings and their instances on the same scene, with a
+    # coincident distinct pair
+    rng_c = np.random.default_rng(1)
+    qc, rc = q_wall.copy(), r.copy()
+    qc[5], rc[5] = qc[4], rc[4]
+    for coupling, n_rhs in K1_COUPLING_INSTANCES:
+        v = rng_c.normal(size=(n, pk.NCOMP[coupling] * n_rhs))
+        for wall in (True, False):
+            q = qc if wall else rc / a
+            for dtype, bound in bounds.items():
+                qt = torch.as_tensor(q, dtype=dtype, device=dev)
+                vt = torch.as_tensor(v, dtype=dtype, device=dev)
+                rel, times = k1_vs_plain(pk, coupling, qt, vt, wall)
+                log(f"K1 {coupling} {n} blobs B={n_rhs} wall={wall} "
+                    f"{dtype}: max err / max|ref| = {rel:.3e} (bound "
+                    f"{bound:g})" + times)
+                check(rel <= bound, f"K1 {coupling} disagrees with plain "
+                      f"({rel:.3e})")
     kw = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=a)
     for dtype, bound in bounds.items():
         rt = torch.as_tensor(r, dtype=dtype, device=dev)
@@ -181,23 +270,21 @@ def phase_kernels(pk, mc, mob, kin, make_state):
     records = {}
     for n_rhs in (1, 2):
         v = torch.randn((nb, 3 * n_rhs), generator=g, device=dev)
-        got = pk.pair_tt(q, q, v, wall=True, self_interaction=True)
+        kw = dict(coupling="tt", wall=True, self_interaction=True)
+        got = pk.pair_matvec(q, q, v, **kw)
         torch.cuda.synchronize()
-        ref = pk.pair_tt_plain(q.double(), q[:sub].double(), v.double(),
-                               wall=True, self_interaction=True)
+        ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
         err = (got[:sub].double() - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        ms = cuda_ms(lambda: pk.pair_tt(q, q, v, wall=True,
-                                        self_interaction=True), 10)
-        plain_ms = cuda_ms(lambda: pk.pair_tt_plain(
-            q, q, v, wall=True, self_interaction=True), 1)
+        ms = cuda_ms(lambda: pk.pair_matvec(q, q, v, **kw), 10)
+        plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1)
         log(f"K1 {nb} blobs B={n_rhs} f32, first {sub} target rows vs plain "
             f"f64: max err {err:.3e}, / max|ref| = {rel:.3e} (bound "
             f"u32*sqrt(N) = {bound_main:.2e}); kernel {ms:.3f} ms, plain "
             f"f32 {plain_ms:.1f} ms")
         check(rel <= bound_main, f"K1 disagrees at {nb} blobs ({rel:.3e})")
         if n_rhs == 1:
-            records["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            records["tt"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     kw = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=A_BENCH)
     got = mc.blob_blob_forces(r_blobs, **kw)
     torch.cuda.synchronize()
@@ -211,6 +298,45 @@ def phase_kernels(pk, mc, mob, kin, make_state):
         f"{plain_ms:.1f} ms")
     check(rel <= bound_main, f"K2 disagrees at {nb} blobs ({rel:.3e})")
     records["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return records
+
+
+def phase_roller_kernels(pk, mob):
+    """Phase 3, rollers path shapes: K1 tr/rt/rr/grand on the 32,768
+    rollers of bench.py's lattice (heights shifted, units of a), float32,
+    first 1024 target rows against the plain version in float64. Returns
+    the records for the kernel JSON line."""
+    dev = torch.device(DEVICE)
+    r = torch.as_tensor(roller_lattice(N_ROLLERS), device=dev)
+    q = (mob.shift_heights(r, A_ROLLER) / A_ROLLER).contiguous()
+    n = q.shape[0]
+    g = torch.Generator(device=dev).manual_seed(2)
+    sub = 1024
+    bound = float(np.finfo(np.float32).eps / 2 * np.sqrt(n))
+    records = {}
+    for coupling, n_rhs in K1_COUPLING_INSTANCES:
+        kw = dict(coupling=coupling, wall=True, self_interaction=True)
+        v = torch.randn((n, pk.NCOMP[coupling] * n_rhs), generator=g,
+                        device=dev)
+        got = pk.pair_matvec(q, q, v, **kw)
+        torch.cuda.synchronize()
+        ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
+        err = (got[:sub].double() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ms = cuda_ms(lambda: pk.pair_matvec(q, q, v, **kw), 10)
+        times = f"kernel {ms:.3f} ms"
+        if n_rhs == 1:
+            # the plain version once per coupling at full size (seconds)
+            plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1,
+                               warmup=False)
+            times += f", plain f32 {plain_ms:.1f} ms"
+            records[coupling] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)
+        log(f"K1 {coupling} {n} rollers B={n_rhs} f32, first {sub} target "
+            f"rows vs plain f64: max err {err:.3e}, / max|ref| = {rel:.3e} "
+            f"(bound u32*sqrt(N) = {bound:.2e}); {times}")
+        check(rel <= bound, f"K1 {coupling} disagrees at {n} rollers "
+              f"({rel:.3e})")
     return records
 
 
@@ -248,6 +374,47 @@ def phase_slice_parity():
         f"{e64:.3e} (bound 1e-9), GPU f32 vs CPU f64 {e32:.3e} (bound "
         f"1e-2); gmres {aux.det_iterations}, lanczos {aux.stoch_iterations}")
     check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2, "slice parity")
+
+
+def run_roller_steps(sus, r0, scheme, dtype, device, n_steps=3):
+    from rigidmultiblobswall_tpu_torch.models import rollers
+
+    r = torch.as_tensor(r0, dtype=dtype, device=device)
+    step = rollers.make_stepper(sus, scheme, 1e-3)
+    carry = rollers.init_carry(sus, positions=r)
+    gen = torch.Generator().manual_seed(3)     # host: same noise everywhere
+    for _ in range(n_steps):
+        r, carry, aux = step(r, gen, carry)
+    return r.double().cpu().numpy(), aux
+
+
+def phase_roller_parity():
+    """Phase 4, rollers: 16 rollers x 3 steps of each Adams-Bashforth
+    scheme, GPU f64 against CPU f64 at kT = 0.05 (the same host-drawn
+    noise) and GPU f32 against CPU f64 at kT = 0."""
+    r0 = roller_lattice(16, seed=5).astype(np.float64)
+    for scheme in ("deterministic_adams_bashforth_rollers",
+                   "stochastic_adams_bashforth_rollers"):
+        sus64 = roller_suspension(16, solver_tolerance=1e-12)
+        ref, _ = run_roller_steps(sus64, r0, scheme, torch.float64, "cpu")
+        got64, aux = run_roller_steps(sus64, r0, scheme, torch.float64,
+                                      DEVICE)
+        sus0 = roller_suspension(16, kT=0.0, solver_tolerance=1e-12)
+        ref0, _ = run_roller_steps(sus0, r0, scheme, torch.float64, "cpu")
+        got32, _ = run_roller_steps(
+            roller_suspension(16, kT=0.0, solver_tolerance=1e-5), r0,
+            scheme, torch.float32, DEVICE)
+        disp, disp0 = np.abs(ref - r0).max(), np.abs(ref0 - r0).max()
+        e64 = np.abs(got64 - ref).max() / disp
+        e32 = np.abs(got32 - ref0).max() / disp0
+        log(f"rollers parity, 16 rollers x 3 steps of {scheme} (max "
+            f"displacement {disp:.3e} at kT = 0.05, {disp0:.3e} at kT = 0), "
+            f"max error / max displacement: GPU f64 vs CPU f64 {e64:.3e} "
+            f"(bound 1e-9), GPU f32 vs CPU f64 at kT = 0 {e32:.3e} (bound "
+            f"1e-2); gmres {aux.det_iterations}, lanczos "
+            f"{aux.stoch_iterations}")
+        check(disp > 0 and disp0 > 0 and e64 <= 1e-9 and e32 <= 1e-2,
+              f"rollers parity ({scheme})")
 
 
 def phase_cli():
@@ -292,6 +459,50 @@ def phase_cli():
     check(det > 0 and sto > 0, "CLI ran no solver iterations")
 
 
+def phase_roller_cli():
+    """Phase 5, rollers: the CLI on a generated 64-roller input file with
+    the options of examples/rollers/inputfile.dat, 3 steps."""
+    from rigidmultiblobswall_tpu_torch import cli
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    pos = roller_lattice(64, seed=0) * np.float32(2.0)   # spacing 3.2 a
+    pos[:, 2] = 1.2
+    quat = np.tile([1.0, 0.0, 0.0, 0.0], (64, 1))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "blob.vertex"), "w") as f:
+            f.write("1\n0 0 0\n")
+        scene.write_clones_file(os.path.join(d, "rollers.clones"), pos, quat)
+        inp = os.path.join(d, "input.dat")
+        with open(inp, "w") as f:
+            f.write("scheme stochastic_adams_bashforth_rollers\ndt 0.002\n"
+                    "n_steps 3\nn_save 3\neta 1.0\nblob_radius 1.0\n"
+                    "kT 0.05\ng 1.0\nrepulsion_strength_wall 1.0\n"
+                    "debye_length_wall 0.1\nrepulsion_strength 1.0\n"
+                    "debye_length 0.1\nfree_kinematics False\n"
+                    "omega_one_roller 0 10.0 0\nhydro_interactions 1\n"
+                    "seed 2\ndomain single_wall\noutput_name run_rollers\n"
+                    "structure blob.vertex rollers.clones\n")
+        os.chdir(d)
+        try:
+            t0 = time.perf_counter()
+            cli.main(["--input-file", inp, "--device", DEVICE])
+            secs = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        final = np.loadtxt(os.path.join(
+            d, "run_rollers.rollers.00000003.clones"), skiprows=1)
+        info = dict(line.split() for line in open(os.path.join(
+            d, "run_rollers.info")).read().splitlines())
+    log(f"rollers CLI 64 rollers x 3 steps: {secs:.2f} s, final clones "
+        f"{final.shape}, .info {info}")
+    check(final.shape == (64, 7) and np.all(np.isfinite(final)),
+          "rollers CLI clones not finite")
+    check(int(info["deterministic_iterations_count"]) > 0
+          and int(info["stochastic_iterations_count"]) > 0,
+          "rollers CLI ran no solver iterations")
+
+
 def phase_main_path(pk, mc):
     """Phase 6: bench.py's multibody step at 4096 shells, float32."""
     from rigidmultiblobswall_tpu_torch.models import integrators
@@ -308,7 +519,7 @@ def phase_main_path(pk, mc):
     carry = integrators.init_carry(system, state=state)
     gen = torch.Generator().manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    pk.LAUNCHES = 0
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
     t0 = time.perf_counter()
     state, carry, aux = step(state, gen, carry)       # warm-up
@@ -328,7 +539,7 @@ def phase_main_path(pk, mc):
         rej.append(aux.rejections)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
-    launches = {"K1": pk.LAUNCHES, "K2": mc.LAUNCHES}
+    launches = {"K1 tt": pk.LAUNCHES["tt"], "K2": mc.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     p = state.pos
     log(f"main path {system.num_blobs} blobs ({N_SHELLS} shells) "
@@ -340,6 +551,55 @@ def phase_main_path(pk, mc):
     check(min(det) > 0 and min(sto) > 0, "no GMRES or Lanczos iterations")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
+    return launches
+
+
+def phase_rollers_path(pk, mc):
+    """Phase 7: bench.py's rollers step at 32,768 rollers, float32."""
+    from rigidmultiblobswall_tpu_torch.models import rollers
+
+    dev = torch.device(DEVICE)
+    sus = roller_suspension(N_ROLLERS)
+    r = torch.as_tensor(roller_lattice(N_ROLLERS), device=dev)
+    step = rollers.make_stepper(sus, "stochastic_adams_bashforth_rollers",
+                                1e-3, max_rejections=3)
+    carry = rollers.init_carry(sus, positions=r)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r, carry, aux = step(r, gen, carry)               # warm-up
+    torch.cuda.synchronize()
+    log(f"rollers path warm-up step: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, rejections "
+        f"{aux.rejections}, wall overlaps {aux.wall_overlaps}")
+    n_timed = 3
+    det, sto, rej, ovl = [], [], [], []
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        r, carry, aux = step(r, gen, carry)
+        det.append(aux.det_iterations)
+        sto.append(aux.stoch_iterations)
+        rej.append(aux.rejections)
+        ovl.append(aux.wall_overlaps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = {f"K1 {c}": n for c, n in pk.LAUNCHES.items()}
+    launches["K2"] = mc.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"rollers path {N_ROLLERS} rollers stochastic_adams_bashforth_"
+        f"rollers f32: {ms:.1f} ms/step over {n_timed} steps; gmres sweeps "
+        f"{det}, lanczos {sto}, rejections {rej}, wall overlaps {ovl}, peak "
+        f"device memory {peak:.2f} GiB, launches over the 4 steps "
+        f"{launches}")
+    check(bool(torch.isfinite(r).all()), "roller positions not finite")
+    check(r.shape == (N_ROLLERS, 3), "roller positions shape")
+    check(min(det) > 0 and min(sto) > 0, "no GMRES or Lanczos iterations")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the rollers path: {launches}")
     return launches
 
 
@@ -366,25 +626,39 @@ def main():
     # phase 2: build
     t0 = time.perf_counter()
     _build.library()
-    regs = [l.split(":", 1)[1].strip() for l in _build.build_log.splitlines()
-            if "registers" in l]
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-        f"{_build.build_seconds:.2f} s), {len(regs)} kernel instances; "
-        f"ptxas: {regs[0] if regs else 'library reused'}")
+    report = ptxas_report(_build.build_log)
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, one process per "
+        f"source: {_build.build_seconds:.2f} s), {len(report)} kernel "
+        f"instances{'' if report else ' (library reused)'}")
+    for line in report:
+        log(f"  ptxas {line}")
 
     records = phase_kernels(pk, mc, mob, kin, make_state)   # phase 3
+    records.update(phase_roller_kernels(pk, mob))
     phase_slice_parity()                                    # phase 4
+    phase_roller_parity()
     phase_cli()                                             # phase 5
+    phase_roller_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
+    # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
+    # runs them too, and checks that) supplies the other couplings'
+    rollers_launches = phase_rollers_path(pk, mc)           # phase 7
+    launches.update({k: n for k, n in rollers_launches.items()
+                     if k not in launches})
 
-    src = {"K1": ("pair_tt", "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu",
-                  "rigidmultiblobswall_tpu/ops/pair_kernels.py:254"),
-           "K2": ("blob_forces",
-                  "rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
-                  "rigidmultiblobswall_tpu/ops/mobility_pallas.py:180")}
-    kernels = [dict(name=f"{k} {src[k][0]}", route="cuda", source=src[k][1],
-                    replaces=src[k][2], launches=launches[k], **records[k])
-               for k in ("K1", "K2")]
+    k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
+    kernels = [dict(name=f"K1 pair_{c}", route="cuda",
+                    source=k1_src.get(
+                        c, "rigidmultiblobswall_tpu_torch/csrc/"
+                        "pair_couplings.cu"),
+                    replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+                    launches=launches[f"K1 {c}"], **records[c])
+               for c in ("tt", "tr", "rt", "rr", "grand")]
+    kernels.append(dict(
+        name="K2 blob_forces", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
+        replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:180",
+        launches=launches["K2"], **records["K2"]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,19 @@ the same input files and output formats:
     .force.dat;
   - the dynamic schemes of models/integrators.py: per-step .clones (or
     one .config file with save_clones one_file), .info (iteration and
-    rejection counters) and .time.
+    rejection counters) and .time;
+  - the roller schemes (`*_rollers`, models/rollers.py; the reference's
+    main_rollers.py): options free_kinematics, omega_one_roller and
+    hydro_interactions, .clones every n_save steps and .info with the
+    invalid-configuration, deterministic and stochastic iteration, and
+    wall-overlap counters.
 Every run also writes .inputfile and .bodies_info. Runs on the card in
 float32 by default (`--f64` for float64); `--device cpu` runs the plain
 PyTorch versions of the kernels.
 
-The other static modes, MCMC, lubrication, rollers, velocity-field
-output, .random_state and user_defined_functions.py hooks are still to
-be ported (ROADMAP Queue 1, items 11-18).
+The other static modes, MCMC, lubrication, articulated rollers,
+velocity-field output, .random_state and user_defined_functions.py hooks
+are still to be ported (ROADMAP Queue 1, items 11-18).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from .io import input_file as input_mod, scene
-from .models import integrators, kinematics as kin, solvers
+from .models import integrators, kinematics as kin, rollers, solvers
 
 
 def _refuse_user_functions(input_file):
@@ -92,17 +97,65 @@ def main(argv=None):
         print("Time to solve mobility problem =", time.time() - start_time)
     elif cfg.scheme in ("resistance", "body_mobility", "body_mcmc", "MCMC",
                         "body_mcmc_rejection") \
-            or cfg.scheme.startswith("lubrication") \
-            or cfg.scheme.endswith("_rollers"):
+            or cfg.scheme.startswith("lubrication"):
         raise NotImplementedError(
             f"scheme {cfg.scheme!r} is not ported yet (ROADMAP Queue 1, "
             "items 11-18)")
+    elif (cfg.scheme.endswith("_rollers")
+          and not cfg.scheme.startswith("articulated_")):
+        _run_rollers(cfg, system, state)
     else:
         _run_dynamic(cfg, system, state, args, start_time)
 
     with open(cfg.output_name + ".time", "w") as f:
         f.write(str(time.time() - start_time) + "\n")
     print("\n\n\n# End")
+
+
+def _run_rollers(cfg, system, state):
+    """Minimally-resolved rollers: one single-blob body per roller."""
+    opts = cfg.options
+    sus = rollers.RollerSuspension(
+        num_rollers=system.num_bodies, eta=cfg.eta,
+        blob_radius=cfg.blob_radius, kT=cfg.kT, g=cfg.g, domain=cfg.domain,
+        periodic_length=tuple(cfg.periodic_length),
+        repulsion_strength=cfg.repulsion_strength,
+        debye_length=cfg.debye_length,
+        repulsion_strength_wall=cfg.repulsion_strength_wall,
+        debye_length_wall=cfg.debye_length_wall,
+        solver_tolerance=cfg.solver_tolerance, rf_delta=cfg.rf_delta,
+        free_kinematics=opts.get("free_kinematics", "True") == "True",
+        omega_one_roller=tuple(
+            float(x) for x in opts.get("omega_one_roller", "0 0 0").split()),
+        hydro_interactions=bool(int(opts.get("hydro_interactions", 1))))
+    generator = torch.Generator().manual_seed(
+        cfg.seed if cfg.seed is not None else 0)
+    step = rollers.make_stepper(sus, cfg.scheme, cfg.dt)
+    positions = state.pos
+    carry = rollers.init_carry(sus, positions=positions)
+    name = system.types[0].name
+    quat0 = state.quat.cpu().numpy()
+
+    def save(step_idx):
+        scene.write_clones_file(
+            "%s.%s.%08d.clones" % (cfg.output_name, name, step_idx),
+            positions.cpu().numpy(), quat0)
+
+    det_iters = stoch_iters = rejections = overlaps = 0
+    for step_idx in range(cfg.initial_step, cfg.n_steps):
+        if step_idx % cfg.n_save == 0:
+            save(step_idx)
+        positions, carry, aux = step(positions, generator, carry)
+        det_iters += aux.det_iterations
+        stoch_iters += aux.stoch_iterations
+        rejections += aux.rejections
+        overlaps += aux.wall_overlaps
+    save(cfg.n_steps)
+    with open(cfg.output_name + ".info", "w") as f:
+        f.write("invalid_configuration_count      %d\n" % rejections)
+        f.write("deterministic_iterations_count   %d\n" % det_iters)
+        f.write("stochastic_iterations_count      %d\n" % stoch_iters)
+        f.write("wall_overlaps                    %d\n" % overlaps)
 
 
 def _run_dynamic(cfg, system, state, args, start_time):

@@ -1,12 +1,13 @@
 """Build and load the package's hand-written CUDA kernels.
 
-All `csrc/*.cu` files compile with `nvcc` into one shared library with a
-plain C interface, loaded with `ctypes` (no PyTorch headers, so a build
-takes seconds). The library lands in `build/kernels/` at the checkout
-root, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing here runs at import:
-the first kernel launch triggers the build, so CPU-only installs import
-every module without `nvcc`.
+Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with `ctypes` (no PyTorch headers, so a build takes
+seconds). The library lands in `build/kernels/` at the checkout root,
+named by a hash of every source under `csrc/` (headers included) and the
+flags, so an edited source or header rebuilds and an unchanged tree is
+reused. Nothing here runs at import: the first kernel launch triggers the
+build, so CPU-only installs import every module without `nvcc`.
 
 Every C entry point returns `cudaGetLastError()` after its launch; the
 wrappers raise when it is not 0 (a refused launch never runs, and a
@@ -26,16 +27,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# C signatures of the entry points (csrc/pair_tt.cu, csrc/blob_forces.cu);
-# pointers and the stream MUST be c_void_p or ctypes truncates them
+# C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
+# csrc/blob_forces.cu); pointers and the stream MUST be c_void_p or ctypes
+# truncates them
+_PAIR = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 SIGNATURES = {
-    "pair_tt_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pair_tt_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    **{f"pair_{c}_{t}": _PAIR for c in ("tt", "tr", "rt", "rr", "grand")
+       for t in ("f32", "f64")},
     "blob_forces_f32": (_P, _P, _I, _D, _D, _D, _P),
     "blob_forces_f64": (_P, _P, _I, _D, _D, _D, _P),
 }
@@ -63,24 +66,16 @@ def library():
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
-    sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     target = BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _compile_and_link(sorted(CSRC.glob("*.cu")), target)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -88,6 +83,42 @@ def library():
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def _compile_and_link(sources, target):
+    """One `nvcc -c` per source, run in parallel, then one link into
+    `target`. Returns the compilers' output (ptxas reports); raises on a
+    failed step."""
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources:
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n" + "\n".join(log))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               + "\n".join(log))
+        os.replace(tmp, target)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "\n".join(log)
 
 
 def check(name, err):

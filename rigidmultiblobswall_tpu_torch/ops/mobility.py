@@ -1,11 +1,13 @@
-"""Blob-level translation mobility products and the dense mobility
-matrix (PyTorch).
+"""Blob-level mobility products and the dense mobility matrix (PyTorch).
 
-Counterpart of rigidmultiblobswall_tpu/ops/mobility.py for coupling 'tt'
-in the domains 'single_wall' and 'no_wall' without periodic images.
-Every O(N^2) product goes through `pair_kernels.pair_tt`: kernel K1 on a
-CUDA tensor, its plain PyTorch version (the JAX package's generic tiled
-path) on a CPU tensor. The SFM engine (mobility_sfm.py) is not ported.
+Counterpart of rigidmultiblobswall_tpu/ops/mobility.py for the couplings
+'tt', 'tr', 'rt', 'rr' and the grand (trans + rot) product, in the domains
+'single_wall' and 'no_wall' without periodic images. Every O(N^2) product
+goes through `pair_kernels.pair_matvec`: kernel K1 on a CUDA tensor, its
+plain PyTorch version (the JAX package's generic tiled path) on a CPU
+tensor. The SFM engine (mobility_sfm.py) is not ported; in_plane,
+free_surface, pseudo-periodic images and per-blob radii are still to be
+ported (ROADMAP Queue 1, item 4).
 
 Wall overlap regularization: products use z_eff = max(z, a) and
 M <- B^T M(z_eff) B with the diagonal damping B_ii = min(z_i/a, 1).
@@ -17,7 +19,9 @@ import math
 
 import torch
 
-from . import pair_kernels, rpy
+from . import pair_kernels
+
+_PREF_POW = {"tt": 1, "tr": 2, "rt": 2, "rr": 3}
 
 
 def shift_heights(r_vectors, blob_radius):
@@ -33,10 +37,8 @@ def damping_factors(r_vectors, blob_radius):
 
 
 def _check_supported(coupling, domain, periodic_length):
-    if coupling != "tt":
-        raise NotImplementedError(
-            f"coupling {coupling!r}: only 'tt' is ported (tr/rt/rr/grand "
-            "wait for K1's other couplings, ROADMAP Queue 2)")
+    if coupling not in _PREF_POW:
+        raise ValueError(f"unknown coupling {coupling!r}")
     if domain not in ("single_wall", "no_wall"):
         raise NotImplementedError(
             f"domain {domain!r} is not ported yet (ROADMAP Queue 1, item 4)")
@@ -49,10 +51,18 @@ def _block(coupling, domain, d, zt, zs, self_mask):
     """3x3 mobility block for d = (r_t - r_s)/a and heights zt, zs in
     units of a."""
     _check_supported(coupling, domain, ())
-    m = rpy.rpy_tt(d, self_mask)
-    if domain == "single_wall":
-        m = m + rpy.wall_tt(d[..., 0], d[..., 1], zt + zs, zs, self_mask)
-    return m
+    return pair_kernels.block(coupling, d, zt, zs, self_mask,
+                              wall=domain == "single_wall")
+
+
+def _normalized(r_vectors, a, wall, dtype):
+    """(q = r_eff / a contiguous, damping or None) for the kernel."""
+    r = r_vectors.to(dtype)
+    damp = None
+    if wall:
+        damp = damping_factors(r, a)
+        r = shift_heights(r, a)
+    return (r * (1.0 / a)).contiguous(), damp
 
 
 def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
@@ -65,21 +75,17 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     n_rhs, n_src = vec.shape[0], r_src.shape[0]
     n_tgt = r_tgt.shape[0]
     dtype = torch.promote_types(r_src.dtype, vec.dtype)
-    v = vec.reshape(n_rhs, n_src, 3).to(dtype)
-    r_src = r_src.to(dtype)
-    r_tgt = r_tgt.to(dtype)
     wall = domain == "single_wall"
+    q_src, damp_s = _normalized(r_src, a, wall, dtype)
+    q_tgt, damp_t = _normalized(r_tgt, a, wall, dtype)
+    v = vec.reshape(n_rhs, n_src, 3).to(dtype)
     if wall:
-        damp_t = damping_factors(r_tgt, a)
-        v = v * damping_factors(r_src, a)[None, :, None]
-        r_src = shift_heights(r_src, a)
-        r_tgt = shift_heights(r_tgt, a)
-    inva = 1.0 / a
+        v = v * damp_s[None, :, None]
     V = v.permute(1, 0, 2).reshape(n_src, 3 * n_rhs).contiguous()
-    out = pair_kernels.pair_tt((r_src * inva).contiguous(),
-                               (r_tgt * inva).contiguous(), V, wall=wall,
-                               self_interaction=self_interaction)
-    out = out * (1.0 / (8.0 * math.pi * eta * a))
+    out = pair_kernels.pair_matvec(q_src, q_tgt, V, coupling=coupling,
+                                   wall=wall,
+                                   self_interaction=self_interaction)
+    out = out * (1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling]))
     if wall:
         out = out * damp_t[:, None]
     return out.reshape(n_tgt, n_rhs, 3).permute(1, 0, 2)
@@ -88,7 +94,7 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
 def pairwise_matvec(r_src, r_tgt, vec, eta, a, *, coupling="tt",
                     domain="single_wall", periodic_length=(0.0, 0.0, 0.0),
                     self_interaction=True):
-    """u_i = sum_j M^tt_ij v_j over all (target, source) pairs.
+    """u_i = sum_j M^{coupling}_ij v_j over all (target, source) pairs.
 
     r_src (Ns,3), r_tgt (Nt,3), vec (Ns,3) -> (Nt,3). self_interaction
     must be True when r_src is r_tgt (square product)."""
@@ -99,10 +105,57 @@ def pairwise_matvec(r_src, r_tgt, vec, eta, a, *, coupling="tt",
         self_interaction=self_interaction)[0]
 
 
-def mobility_trans_times_force(r_vectors, vec, eta, a, **kw):
-    """Square translation product: blob velocities from blob forces."""
-    return pairwise_matvec(r_vectors, r_vectors, vec, eta, a,
-                           coupling="tt", self_interaction=True, **kw)
+def _square_product(coupling):
+    def product(r_vectors, vec, eta, a, **kw):
+        return pairwise_matvec(r_vectors, r_vectors, vec, eta, a,
+                               coupling=coupling, self_interaction=True, **kw)
+
+    return product
+
+
+mobility_trans_times_force = _square_product("tt")
+mobility_trans_times_torque = _square_product("tr")
+mobility_rot_times_force = _square_product("rt")
+mobility_rot_times_torque = _square_product("rr")
+
+
+def mobility_trans_times_force_torque(r_vectors, force, torque, eta, a, **kw):
+    return (mobility_trans_times_force(r_vectors, force, eta, a, **kw)
+            + mobility_trans_times_torque(r_vectors, torque, eta, a, **kw))
+
+
+def mobility_rot_times_force_torque(r_vectors, force, torque, eta, a, **kw):
+    return (mobility_rot_times_force(r_vectors, force, eta, a, **kw)
+            + mobility_rot_times_torque(r_vectors, torque, eta, a, **kw))
+
+
+def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
+                          domain="single_wall",
+                          periodic_length=(0.0, 0.0, 0.0)):
+    """(U, W) = M_grand (F, T) for single-blob bodies (rollers path): the
+    four coupling blocks in ONE K1 pass over the pair geometry
+    (mobility.py:386-409). T enters scaled by 1/a and W leaves scaled by
+    a, so the kernel's sums see magnitudes of one order."""
+    _check_supported("tt", domain, periodic_length)
+    n = r_vectors.shape[0]
+    dtype = torch.promote_types(r_vectors.dtype, force.dtype)
+    wall = domain == "single_wall"
+    q, damp = _normalized(r_vectors, a, wall, dtype)
+    F = force.reshape(n, 3).to(dtype)
+    T = torque.reshape(n, 3).to(dtype)
+    if wall:
+        F = F * damp[:, None]
+        T = T * damp[:, None]
+    vin = torch.cat([F, T * (1.0 / a)], dim=1).contiguous()
+    out = pair_kernels.pair_matvec(q, q, vin, coupling="grand", wall=wall,
+                                   self_interaction=True)
+    pref = 1.0 / (8.0 * math.pi * eta * a)
+    u = out[:, :3] * pref
+    w = out[:, 3:] * (pref / a)
+    if wall:
+        u = u * damp[:, None]
+        w = w * damp[:, None]
+    return u, w
 
 
 def dense_mobility(r_vectors, eta, a, domain="single_wall", coupling="tt"):
@@ -121,7 +174,7 @@ def dense_mobility(r_vectors, eta, a, domain="single_wall", coupling="tt"):
     zt = q[..., :, None, 2]
     zs = q[..., None, :, 2]
     m = _block(coupling, domain, d, zt, zs, self_mask.expand(d.shape[:-1]))
-    m = m * (1.0 / (8.0 * math.pi * eta * a))
+    m = m * (1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling]))
     if wall:
         m = m * damp[..., :, None, None, None] * damp[..., None, :, None, None]
     # (..., N, N, 3, 3) -> (..., 3N, 3N)

@@ -1,10 +1,12 @@
-"""Pairwise RPY / Rotne-Prager-Blake translation blocks (PyTorch).
+"""Pairwise RPY / Rotne-Prager-Blake mobility blocks (PyTorch).
 
-Counterpart of rigidmultiblobswall_tpu/ops/rpy.py (`_safe_r`, `_sym3`,
-`_mat3`, `rpy_tt`, `wall_tt`); the other couplings are still to be
-ported. Pure elementwise math mapping batched pair geometry to 3x3
-blocks (..., 3, 3), in units of the blob radius a; callers apply
-1/(8 pi eta a).
+Counterpart of rigidmultiblobswall_tpu/ops/rpy.py for the unbounded and
+single-wall blocks of every coupling: `rpy_tt`, `rpy_rr`, `rpy_cross`,
+`wall_tt`, `wall_rr`, `wall_rot_force`, `wall_trans_torque`. The in-plane,
+free-surface and per-blob-radii blocks are still to be ported (ROADMAP
+Queue 1, item 4). Pure elementwise math mapping batched pair geometry to
+3x3 blocks (..., 3, 3), in units of the blob radius a; callers apply
+1/(8 pi eta a^k), k = 1 (tt), 2 (tr, rt), 3 (rr).
 
 Conventions: `d` is (r_target - r_source)/a; `self_mask` marks a blob
 paired with itself; wall corrections take the in-plane displacement,
@@ -70,6 +72,57 @@ def rpy_tt(d, self_mask):
     return _sym3(mxx, c2 * dx * dy, c2 * dx * dz, myy, c2 * dy * dz, mzz)
 
 
+def rpy_rr(d, self_mask):
+    """Rotation-rotation RPY block (units of 1/(8 pi eta a^3)).
+
+    far (r>=2): c1 = -1/(2 r^3), c2 = 3/(2 r^5)
+    near:       c1 = 1 - 27 r/32 + 5 r^3/64, c2 = 9/(32 r) - 3 r/64
+    self:       I
+    """
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    r2 = dx * dx + dy * dy + dz * dz
+    zero = self_mask | (r2 == 0.0)
+    r = _safe_r(r2, zero)
+    invr = 1.0 / r
+    invr2 = invr * invr
+    invr3 = invr2 * invr
+
+    far = r >= 2.0
+    c1 = torch.where(far, -0.5 * invr3,
+                     1.0 - 0.84375 * r + 0.078125 * (r2 * r))
+    c2 = torch.where(far, 1.5 * invr2 * invr3, 0.28125 * invr - 0.046875 * r)
+    c1 = torch.where(zero, 0.0, c1)
+    c2 = torch.where(zero, 0.0, c2)
+    diag_self = self_mask.to(c1.dtype)
+
+    mxx = c1 + c2 * dx * dx + diag_self
+    myy = c1 + c2 * dy * dy + diag_self
+    mzz = c1 + c2 * dz * dz + diag_self
+    return _sym3(mxx, c2 * dx * dy, c2 * dx * dz, myy, c2 * dy * dz, mzz)
+
+
+def rpy_cross(d, self_mask):
+    """Trans-rot coupling block (units of 1/(8 pi eta a^2)), the same
+    antisymmetric c [d x] for U from T and for W from F.
+
+    far (r>=2): c = 1/r^3
+    near:       c = (1 - 3r/8)/2
+    self:       0
+    """
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    r2 = dx * dx + dy * dy + dz * dz
+    zero = self_mask | (r2 == 0.0)
+    r = _safe_r(r2, zero)
+    invr3 = 1.0 / (r2 * r + zero.to(r.dtype))
+    c = torch.where(r >= 2.0, invr3, 0.5 * (1.0 - 0.375 * r))
+    c = torch.where(zero, 0.0, c)
+    zeros = torch.zeros_like(c)
+    mxy = c * dz
+    mxz = -c * dy
+    myz = c * dx
+    return _mat3((zeros, mxy, mxz, -mxy, zeros, myz, -mxz, -myz, zeros))
+
+
 def wall_tt(dx, dy, rz, hs, self_mask):
     """Swan-Brady wall correction to the translation-translation block.
 
@@ -115,4 +168,93 @@ def wall_tt(dx, dy, rz, hs, self_mask):
     myz = torch.where(sm, zero, f2 * ey * ez + f3 * ey)
     mzx = torch.where(sm, zero, f2 * ez * ex + f4 * ex)
     mzy = torch.where(sm, zero, f2 * ez * ey + f4 * ey)
+    return _mat3((mxx, mxy, mxz, mxy, myy, myz, mzx, mzy, mzz))
+
+
+def _wall_cross_core(dx, dy, rz, h):
+    """Wall trans-torque correction in the UT component pattern (the
+    block is M -= corr); the rot-force pattern is its transpose. h is the
+    height argument in units of a."""
+    R2 = dx * dx + dy * dy + rz * rz
+    invR = 1.0 / torch.sqrt(torch.where(R2 == 0.0, torch.ones_like(R2), R2))
+    invR2 = invR * invR
+    invR4 = invR2 * invR2
+    ex = dx * invR
+    ey = dy * invR
+    ez = rz * invR
+    h_hat = h / rz
+
+    f1 = invR2
+    f2 = (6.0 * h_hat * ez * ez * invR2 + (1.0 - 10.0 * ez * ez) * invR4) * 2.0
+    f3 = -ez * (3.0 * h_hat * invR2 - 5.0 * invR4) * 2.0
+    f4 = -ez * (h_hat * invR2 - invR4) * 2.0
+
+    cxx = -f3 * ex * ey
+    cxy = -f1 * ez + f3 * ex * ex - f4
+    cxz = f1 * ey
+    cyx = f1 * ez - f3 * ey * ey + f4
+    cyy = f3 * ex * ey
+    cyz = -f1 * ex
+    czx = -f1 * ey - f2 * ey - f3 * ey * ez
+    czy = f1 * ex + f2 * ex + f3 * ex * ez
+    return _mat3((cxx, cxy, cxz, cyx, cyy, cyz, czx, czy,
+                  torch.zeros_like(f1)))
+
+
+def _cross_self(corr, self_mask, h, sign):
+    """Replace self pairs by the antisymmetric xy self coupling
+    sign * z^-4 / 8 (Mxy = +s, Myx = -s)."""
+    inv_z = 1.0 / torch.where(self_mask, h, torch.ones_like(h))
+    s = sign * 0.125 * inv_z ** 4
+    zero = torch.zeros_like(s)
+    self_block = _mat3((zero, s, zero, -s, zero, zero, zero, zero, zero))
+    return torch.where(self_mask[..., None, None], self_block, corr)
+
+
+def wall_rot_force(dx, dy, rz, hs, self_mask):
+    """Wall correction for the rot-trans block (W_i from F_j): the
+    transposed UT pattern at the source height hs = z_source/a, subtracted;
+    self pairs take Mxy = -z^-4/8."""
+    corr = -_wall_cross_core(dx, dy, rz, hs).transpose(-1, -2)
+    return _cross_self(corr, self_mask, hs, -1.0)
+
+
+def wall_trans_torque(dx, dy, rz, ht, self_mask):
+    """Wall correction for the trans-rot block (U_i from T_j): the UT
+    pattern at the reflected in-plane displacement and the target height
+    ht = z_target/a, subtracted; self pairs take Mxy = +z^-4/8."""
+    corr = -_wall_cross_core(-dx, -dy, rz, ht)
+    return _cross_self(corr, self_mask, ht, 1.0)
+
+
+def wall_rr(dx, dy, rz, hs, self_mask):
+    """Wall correction for the rotation-rotation block; hs = z_source/a
+    enters only the self term (-5/16 z^-3 in-plane, -1/8 z^-3 along z)."""
+    inv_z = 1.0 / torch.where(self_mask, hs, torch.ones_like(hs))
+    inv_z3 = inv_z ** 3
+    self_xx = -inv_z3 * 0.3125
+    self_zz = -inv_z3 * 0.125
+
+    R2 = dx * dx + dy * dy + rz * rz
+    invR = 1.0 / _safe_r(R2, self_mask)
+    invR3 = invR * invR * invR
+    ex = dx * invR
+    ey = dy * invR
+    ez = rz * invR
+
+    f1 = (1.0 - 6.0 * ez * ez) * invR3 * 0.5
+    f2 = -1.5 * invR3
+    f3 = 3.0 * invR3 * ez
+    f4 = 3.0 * invR3
+
+    sm = self_mask
+    zero = torch.zeros_like(f1)
+    mxx = torch.where(sm, self_xx, f1 + f2 * ex * ex + f4 * ey * ey)
+    myy = torch.where(sm, self_xx, f1 + f2 * ey * ey + f4 * ex * ex)
+    mzz = torch.where(sm, self_zz, f1 + f2 * ez * ez + f3 * ez)
+    mxy = torch.where(sm, zero, (f2 - f4) * ex * ey)
+    mxz = torch.where(sm, zero, f2 * ex * ez)
+    myz = torch.where(sm, zero, f2 * ey * ez)
+    mzx = torch.where(sm, zero, f2 * ez * ex + f3 * ex)
+    mzy = torch.where(sm, zero, f2 * ez * ey + f3 * ey)
     return _mat3((mxx, mxy, mxz, mxy, myy, myz, mzx, mzy, mzz))

@@ -1,9 +1,12 @@
 """The PyTorch port's CLI against the JAX package's CLI on one generated
 4-shell input file: same final .clones (1e-8) after a few
 stochastic_Slip_Trapz steps at kT = 0, same .velocity.dat for the
-'mobility' scheme, and the same output files."""
+'mobility' scheme, and the same output files; and on the example
+microroller input, the same .clones and .info."""
 
 import os
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -114,3 +117,41 @@ def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="obstacles"):
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+
+
+def test_cli_rollers_matches_jax(tmp_path, monkeypatch):
+    """The example microroller input (64 rollers, constrained omega,
+    stochastic_adams_bashforth_rollers) at kT = 0: the same .clones every
+    n_save steps and the same .info counters as the JAX CLI."""
+    src = Path(__file__).resolve().parents[1] / "examples" / "rollers"
+    edits = {"kT": "0.0", "n_steps": "3", "n_save": "2",
+             "solver_tolerance": "1e-10"}
+    out = {}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        d = tmp_path / name
+        d.mkdir()
+        for f in ("blob.vertex", "rollers.clones"):
+            shutil.copyfile(src / f, d / f)
+        lines = [ln for ln in (src / "inputfile.dat").read_text().splitlines()
+                 if not ln.split() or ln.split()[0] not in edits]
+        lines += [f"{k} {v}" for k, v in edits.items()]
+        (d / "input.dat").write_text("\n".join(lines) + "\n")
+        monkeypatch.chdir(d)
+        main(["--input-file", str(d / "input.dat")] + argv)
+        out[name] = d
+    start = _clones(src / "rollers.clones")
+    for k in (0, 2, 3):
+        final = "run_rollers.rollers.%08d.clones" % k
+        ref = _clones(out["jax"] / final)
+        got = _clones(out["torch"] / final)
+        disp = np.abs(ref[:, :3] - start[:, :3]).max()
+        np.testing.assert_allclose(got, ref, atol=1e-9 * max(disp, 1e-3),
+                                   rtol=0)
+    assert disp > 1e-4
+    info = dict(line.split() for line in
+                open(out["torch"] / "run_rollers.info").read().splitlines())
+    info_jax = dict(line.split() for line in
+                    open(out["jax"] / "run_rollers.info").read().splitlines())
+    assert info == info_jax and int(info["deterministic_iterations_count"]) > 0

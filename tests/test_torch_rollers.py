@@ -1,0 +1,210 @@
+"""Roller suspensions of the PyTorch port against the JAX package,
+float64 on the CPU (models/rollers.py; every hydrodynamic product runs
+K1's plain version here).
+
+- each of the nine schemes, hydro on and off, free_kinematics True and
+  False: 3 steps from the same start, solver tolerance 1e-10, final
+  positions agreeing to 1e-9 of the displacement and the same GMRES and
+  Lanczos iteration counts on every step. Stochastic schemes feed the
+  port's noise helper the normals the JAX stepper draws from its key;
+- the lockstep det+stochastic update equals the separate solves; the
+  torque solve meets the omega constraint; the wall-rejection retry is
+  bounded; `from_reference` carries a JAX suspension across; the
+  wall-spectral domain is refused.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rigidmultiblobswall_tpu.models import rollers as jrol
+from rigidmultiblobswall_tpu_torch.models import rollers as trol
+from rigidmultiblobswall_tpu_torch.ops import mobility as tmob
+
+from torch_parity import to_np
+
+TOL = 1e-9
+N = 5
+DT = 1e-3
+N_STEPS = 3
+
+
+def _suspensions(n=N, **kw):
+    base = dict(num_rollers=n, eta=0.9, blob_radius=0.3, kT=0.05, g=1.0,
+                repulsion_strength_wall=1.0, debye_length_wall=0.3,
+                repulsion_strength=0.5, debye_length=0.3,
+                solver_tolerance=1e-10, omega_one_roller=(0.3, 4.0, 0.0),
+                lanczos_max_iter=40)
+    base.update(kw)
+    jsus = jrol.RollerSuspension(**base)
+    return jsus, trol.from_reference(jsus)
+
+
+def _positions(n=N, seed=0):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(-1.5, 1.5, (n, 3))
+    r[:, 2] = rng.uniform(0.5, 1.5, n)
+    return r
+
+
+def _jax_normals(scheme, sus, key):
+    """The normals one attempt of the JAX stepper draws from its step key,
+    in the order the port draws them."""
+    _, sub = jax.random.split(key)            # make_stepper's attempt key
+    n = sus.num_rollers
+    hydro = sus.hydro_interactions
+    drift = sus.kT > 0 and sus.domain != "no_wall"
+    noise_shape = (3 * n,) if hydro else (n, 3)
+
+    def normal(k, shape):
+        return np.array(jax.random.normal(k, shape, dtype=jnp.float64))
+
+    if scheme.startswith("deterministic"):
+        return []
+    if scheme in ("stochastic_first_order_rollers",
+                  "stochastic_adams_bashforth_rollers",
+                  "stochastic_EM_rollers"):
+        k_noise, k_rfd = jax.random.split(jax.random.split(sub)[1])
+        if scheme == "stochastic_EM_rollers":
+            return [normal(k_noise, noise_shape)]
+        if sus.free_kinematics:
+            out = [normal(k_noise, noise_shape)]
+            return out + ([normal(k_rfd, (n, 3))] if hydro and drift else [])
+        # grand Lanczos noise, then one RFD displacement
+        return ([normal(k_noise, (6 * n,))]
+                + ([normal(k_rfd, (n, 3))] if drift else []))
+    if scheme == "stochastic_GDC_rollers":
+        return [normal(jax.random.split(sub)[0], noise_shape)]
+    keys = jax.random.split(sub, 3 if "mid_point" in scheme else 2)
+    out = [normal(keys[0], (n, 3))] if drift else []
+    return out + [normal(k, noise_shape) for k in keys[1:]]
+
+
+def _run_both(jsus, tsus, scheme, r0, monkeypatch, n_steps=N_STEPS):
+    keys = [jax.random.PRNGKey(100 + i) for i in range(n_steps)]
+    feed = iter([z for k in keys for z in _jax_normals(scheme, jsus, k)])
+
+    def jax_draws(generator, shape, like):
+        z = next(feed)
+        assert z.shape == tuple(shape)
+        return torch.as_tensor(z, dtype=like.dtype, device=like.device)
+
+    monkeypatch.setattr(trol, "draw_normal", jax_draws)
+    jstep = jax.jit(jrol.make_stepper(jsus, scheme, DT))
+    tstep = trol.make_stepper(tsus, scheme, DT)
+    jr, jc = jnp.asarray(r0), jrol.init_carry(jsus)
+    tr_ = torch.as_tensor(r0)
+    tc = trol.init_carry(tsus, positions=tr_)
+    gen = torch.Generator().manual_seed(0)
+    iters = []
+    for k in keys:
+        jr, jc, jaux = jstep(jr, k, jc)
+        tr_, tc, taux = tstep(tr_, gen, tc)
+        iters.append(((int(jaux.det_iterations), int(jaux.stoch_iterations),
+                       int(jaux.rejections), int(jaux.wall_overlaps)),
+                      (taux.det_iterations, taux.stoch_iterations,
+                       taux.rejections, taux.wall_overlaps)))
+    assert next(feed, None) is None   # the port drew every JAX normal
+    return np.asarray(jr), to_np(tr_), iters
+
+
+@pytest.mark.parametrize("free", [False, True])
+@pytest.mark.parametrize("hydro", [True, False])
+@pytest.mark.parametrize("scheme", jrol.available_schemes())
+def test_scheme_matches_jax(scheme, hydro, free, monkeypatch):
+    jsus, tsus = _suspensions(hydro_interactions=hydro,
+                              free_kinematics=free)
+    r0 = _positions(seed=1)
+    jfinal, tfinal, iters = _run_both(jsus, tsus, scheme, r0, monkeypatch)
+    disp = np.abs(jfinal - r0).max()
+    assert disp > 1e-4                       # the rollers really moved
+    np.testing.assert_allclose(tfinal, jfinal, atol=TOL * disp, rtol=0)
+    for jit, tit in iters:
+        assert tit == jit
+    if hydro and not (free and scheme.startswith("deterministic")):
+        assert any(j[0] + j[1] > 0 for j, _ in iters)
+
+
+def test_lockstep_matches_separate_solves():
+    """Mirrors tests/test_rollers.py: the fused constrained-omega update
+    (one lockstep M_rr Krylov loop, one shared M_tr sweep) equals
+    deterministic_velocity_and_torque + stochastic_velocity on the same
+    normals."""
+    _, sus = _suspensions(10, kT=0.2, free_kinematics=False,
+                          omega_one_roller=(0.0, 4.0, 0.0),
+                          solver_tolerance=1e-12)
+    r = torch.as_tensor(_positions(10, seed=3))
+    v_ref, t_ref, _ = trol.deterministic_velocity_and_torque(sus, r)
+    vs_ref, itl_ref, _ = trol.stochastic_velocity(
+        sus, r, torch.Generator().manual_seed(7), 1e-3)
+    v, t, vs, it, it_l = trol.det_stoch_velocity_lockstep(
+        sus, r, torch.Generator().manual_seed(7), 1e-3)
+    scale_v = float(v_ref.abs().max())
+    assert float((v - v_ref).abs().max()) < 1e-8 * scale_v
+    assert float((t - t_ref).abs().max()) < 1e-8 * float(t_ref.abs().max())
+    assert float((vs - vs_ref).abs().max()) < 1e-8 * max(
+        float(vs_ref.abs().max()), scale_v)
+    assert it_l == itl_ref and it > 0
+
+
+@pytest.mark.parametrize("domain", ["single_wall", "no_wall"])
+def test_torque_solve_meets_omega_constraint(domain):
+    _, sus = _suspensions(6, free_kinematics=False, domain=domain,
+                          solver_tolerance=1e-12)
+    r = torch.as_tensor(_positions(6, seed=4))
+    v, t, iters = trol.deterministic_velocity_and_torque(sus, r)
+    force = trol.roller_forces(sus, r)
+    kw = sus.mobility_kwargs
+    w = (tmob.mobility_rot_times_force(r, force, sus.eta, sus.blob_radius,
+                                       **kw)
+         + tmob.mobility_rot_times_torque(r, t, sus.eta, sus.blob_radius,
+                                          **kw))
+    omega = np.tile(sus.omega_one_roller, (6, 1))
+    np.testing.assert_allclose(to_np(w), omega, atol=1e-9, rtol=0)
+    assert iters > 0
+
+
+def test_wall_rejection_retries_are_bounded():
+    """A step that always crosses the wall retries max_rejections times
+    and reports it, as the JAX stepper does."""
+    _, sus = _suspensions(4, g=1e5)
+    r = torch.as_tensor(_positions(4, seed=5))
+    step = trol.make_stepper(sus, "stochastic_adams_bashforth_rollers", 1.0,
+                             max_rejections=3)
+    r1, _, aux = step(r, torch.Generator().manual_seed(0),
+                      trol.init_carry(sus, positions=r))
+    assert aux.rejections == 2
+    assert float(r1[:, 2].min()) < 0 and aux.wall_overlaps == 4
+
+
+def test_from_reference_and_refusals():
+    jsus, tsus = _suspensions(free_kinematics=False, kT=0.1)
+    for f in dataclasses.fields(tsus):
+        assert getattr(tsus, f.name) == getattr(jsus, f.name), f.name
+    with pytest.raises(NotImplementedError, match="torque_fn"):
+        trol.from_reference(dataclasses.replace(
+            jsus, torque_fn=lambda sus, r: r))
+    with pytest.raises(NotImplementedError, match="item 19"):
+        trol.from_reference(jrol.RollerSuspension(
+            num_rollers=N, domain="single_wall_spectral",
+            periodic_length=(8.0, 8.0, 0.0), spectral_wall_height=2.0))
+    with pytest.raises(NotImplementedError):
+        trol.RollerSuspension(num_rollers=N,
+                              periodic_length=(8.0, 8.0, 0.0))
+    with pytest.raises(ValueError):
+        trol.make_stepper(tsus, "no_such_scheme", DT)
+
+
+def test_simulate_saves_every_k_steps():
+    _, sus = _suspensions(4, kT=0.05)
+    r = torch.as_tensor(_positions(4, seed=6))
+    rf, traj, auxs = trol.simulate(
+        sus, r, torch.Generator().manual_seed(2),
+        scheme="stochastic_adams_bashforth_rollers", dt=DT, n_steps=4,
+        save_every=2)
+    assert traj.shape == (2, 4, 3) and len(auxs) == 2
+    assert torch.equal(traj[-1], rf) and bool(torch.isfinite(rf).all())

@@ -1,0 +1,105 @@
+"""Where the device time of one roller step of the PyTorch port goes.
+
+Drives chip_smoke.py's rollers configuration (bench.py's `rollers` path:
+32,768 rollers, stochastic_adams_bashforth_rollers, float32) on a CUDA
+card: one warm-up step, a few unprofiled steps timed on the host clock
+around `torch.cuda.synchronize()`, then one step under torch.profiler
+(CUDA activity). Prints the card's name and power limit, the unprofiled
+ms/step with iteration counts, and per-kernel device time, launch count
+and share of the profiled step; the device's busy time against the
+step's wall time gives its idle share.
+
+Usage: python3 tools/torch_profile_rollers.py [n_rollers] [--steps N]
+"""
+
+import argparse
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from rigidmultiblobswall_tpu_torch.models import rollers  # noqa: E402
+
+
+def _self_device_us(evt):
+    # the attribute's name changed across torch releases
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def _aux_line(aux):
+    return (f"gmres sweeps {aux.det_iterations}, lanczos "
+            f"{aux.stoch_iterations}, rejections {aux.rejections}")
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("n_rollers", type=int, nargs="?",
+                   default=chip_smoke.N_ROLLERS)
+    p.add_argument("--steps", type=int, default=3,
+                   help="unprofiled timed steps after the warm-up")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_rollers: needs a CUDA card")
+    print(chip_smoke.smi(), flush=True)
+
+    sus = chip_smoke.roller_suspension(args.n_rollers)
+    r = torch.as_tensor(chip_smoke.roller_lattice(args.n_rollers),
+                        device="cuda")
+    step = rollers.make_stepper(sus, "stochastic_adams_bashforth_rollers",
+                                1e-3, max_rejections=3)
+    carry = rollers.init_carry(sus, positions=r)
+    gen = torch.Generator().manual_seed(0)
+    r, carry, _ = step(r, gen, carry)           # warm-up and build
+    torch.cuda.synchronize()
+
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        r, carry, aux = step(r, gen, carry)
+        torch.cuda.synchronize()
+        print(f"unprofiled step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+              + _aux_line(aux), flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r, carry, aux = step(r, gen, carry)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # device kernels only: events with device time and no host time
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        dev_us = _self_device_us(evt)
+        if dev_us > 0 and evt.self_cpu_time_total == 0:
+            per_kernel[evt.key][0] += dev_us / 1e3
+            per_kernel[evt.key][1] += evt.count
+    busy_ms = sum(ms for ms, _ in per_kernel.values())
+    print(f"profiled step ({args.n_rollers} rollers): wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f} (an upper bound: the profiler slows "
+          f"the host); " + _aux_line(aux), flush=True)
+    if busy_ms == 0:
+        raise SystemExit("torch_profile_rollers: the profiler saw no device "
+                         "time")
+    rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    top, rest = rows[:12], rows[12:]
+    for name, (ms, count) in top:
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % {count:5d} x "
+              f"{name[:90]}")
+    rest_ms = sum(ms for _, (ms, _) in rest)
+    print(f"  {rest_ms:9.2f} ms {100 * rest_ms / busy_ms:5.1f} % "
+          f"{sum(c for _, (_, c) in rest):5d} x  ({len(rest)} other kernels)")
+
+
+if __name__ == "__main__":
+    main()
