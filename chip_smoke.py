@@ -29,9 +29,22 @@ is non-zero and no result line is printed):
   7. the rollers path at full width: bench.py's rollers configuration,
      32,768 rollers, stochastic_adams_bashforth_rollers in float32, one
      warm-up step and three timed steps, with the launch count of every
-     K1 coupling and of K2 over the run.
-The line before the last holds the per-kernel JSON record; the last line
-is {"ok": true, "device": {...}}.
+     K1 coupling and of K2 over the run;
+  8. the periodic spectral path at full width: bench.py's spectral
+     configuration, 8192 twelve-blob shells = 98,304 blobs in a periodic
+     box, the spectral Ewald engine with linked-cell forces, float32,
+     capacities sized at the start as bench.py sizes them; first K5 and
+     K6 at its shapes against their plain versions (the first 256 target
+     cells, float64), then one warm-up step and three timed steps with
+     the launch counts of K1, K2, K5 and K6 (B = 1 / 2) over the run;
+     last, the same configuration through the CLI (its ms per step).
+Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
+phase 4 the spectral slice (27 shells, Slip-Trapz) on the card against
+the CPU, and phase 5 the CLI on a generated periodic_spectral input.
+The line before the last holds the per-kernel JSON record (time, plain
+version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
+and the operations at 67 TFLOP/s, the H100's published float32 peak);
+the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -54,6 +67,23 @@ A_ROLLER = 0.5
 # (coupling, B) of the K1 template instances besides tt's B = 1 and 2
 K1_COUPLING_INSTANCES = [("tr", 1), ("tr", 2), ("rt", 1), ("rr", 1),
                          ("rr", 2), ("grand", 1)]
+# bench.py's spectral path: 8192 shells on the 21-per-side lattice
+N_SPECTRAL = 8192
+SPECTRAL_SIDE = 21
+L_SPECTRAL = SPECTRAL_SIDE * 1.6
+# the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# float32 operations per pair, counted from the kernels' sources (an FMA
+# as 2, a rsqrt or exp as 1): K1 condenses a block in ~70 and applies it
+# in ~10 per right-hand side (grand: four blocks from one geometry); K2
+# and K5 ~22 (distance, rsqrt, exp, three FMAs); K6, for each pair inside
+# r_cut, 8 for the distance, 6 + 6 K for the two Clenshaw series and 18
+# per right-hand side (pairs of the 27-cell stencil beyond r_cut are the
+# cell list's work, not the function's: they enter only the algorithm
+# bound that the log prints beside it)
+K1_PAIR_FLOPS = {"tt": 80, "tr": 80, "rt": 80, "rr": 80, "grand": 320}
+FORCE_PAIR_FLOPS = 22
 
 
 def log(msg):
@@ -178,6 +208,18 @@ def check(cond, what):
         raise AssertionError(f"chip_smoke: {what}")
 
 
+def bound_record(nbytes, flops):
+    """The least time the card could take, the larger of nbytes moved at
+    the memory rate and flops at the float32 peak, as the kernel record's
+    bound_ms / bound_by. No single PyTorch call computes these pair sums
+    (PERF.md), so library_ms is None."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+              else (t_ops, "operations"))
+    return dict(bound_ms=ms, bound_by=by, library_ms=None)
+
+
 def k1_vs_plain(pk, coupling, qt, vt, wall):
     """K1 against its plain version in float64 on a square scene;
     returns (max err / max|ref|, timing text for float32)."""
@@ -284,7 +326,10 @@ def phase_kernels(pk, mc, mob, kin, make_state):
             f"f32 {plain_ms:.1f} ms")
         check(rel <= bound_main, f"K1 disagrees at {nb} blobs ({rel:.3e})")
         if n_rhs == 1:
-            records["tt"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            records["tt"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound_record(4 * 3 * nb * 3,
+                               nb * nb * K1_PAIR_FLOPS["tt"]))
     kw = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=A_BENCH)
     got = mc.blob_blob_forces(r_blobs, **kw)
     torch.cuda.synchronize()
@@ -297,7 +342,9 @@ def phase_kernels(pk, mc, mob, kin, make_state):
         f"{rel:.3e} (bound {bound_main:.2e}); kernel {ms:.3f} ms, plain f32 "
         f"{plain_ms:.1f} ms")
     check(rel <= bound_main, f"K2 disagrees at {nb} blobs ({rel:.3e})")
-    records["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    records["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound_record(4 * 3 * nb * 2,
+                                        nb * nb * FORCE_PAIR_FLOPS))
     return records
 
 
@@ -330,8 +377,11 @@ def phase_roller_kernels(pk, mob):
             plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1,
                                warmup=False)
             times += f", plain f32 {plain_ms:.1f} ms"
-            records[coupling] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+            nc = pk.NCOMP[coupling]
+            records[coupling] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound_record(4 * n * (3 + 2 * nc),
+                               n * n * K1_PAIR_FLOPS[coupling]))
         log(f"K1 {coupling} {n} rollers B={n_rhs} f32, first {sub} target "
             f"rows vs plain f64: max err {err:.3e}, / max|ref| = {rel:.3e} "
             f"(bound u32*sqrt(N) = {bound:.2e}); {times}")
@@ -602,6 +652,400 @@ def phase_rollers_path(pk, mc):
           f"a kernel was not launched on the rollers path: {launches}")
     return launches
 
+def u32_sqrt(n_terms):
+    """f32 rounding of a sum of n_terms relative to its magnitude."""
+    return float(np.finfo(np.float32).eps / 2 * np.sqrt(n_terms))
+
+
+def k5_vs_plain(ck, pos, table, dims, box, cap, kw, cells_range=None):
+    """K5 against its plain version in float64 (on cells_range, or every
+    cell); returns (max abs error, max|ref|)."""
+    got = ck.nl_forces(pos, table, dims, box, cap, **kw)
+    torch.cuda.synchronize()
+    ref = ck.nl_forces_plain(pos.double(), table, dims, box, cap,
+                             cells_range=cells_range, **kw)
+    rows = _rows_of(table, pos.shape[0], cap, cells_range)
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    return err, ref[rows].abs().max().item()
+
+
+def k6_vs_plain(ck, plan, f, cells_range=None):
+    """K6 against its plain version in float64 on the plan's cells."""
+    p = plan.params
+    args = (plan.cell_table, plan.cell_dims, p.box, p.cell_capacity)
+    kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
+    got = ck.near_rpy(plan.positions, f, *args, plan.cheb, **kw)
+    torch.cuda.synchronize()
+    ref = ck.near_rpy_plain(plan.positions.double(), f.double(), *args,
+                            plan.cheb.double(), cells_range=cells_range,
+                            **kw)
+    rows = _rows_of(plan.cell_table, f.shape[0], p.cell_capacity,
+                    cells_range)
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    return err, ref[rows].abs().max().item()
+
+
+def _rows_of(table, n, cap, cells_range):
+    """Particle ids held by the cells of cells_range (every particle the
+    table holds when None)."""
+    lo, hi = cells_range if cells_range is not None else (
+        0, table.shape[0] // cap)
+    ids = table[lo * cap:hi * cap].long()
+    return ids[ids < n]
+
+
+def k6_flops(ck, plan, n_rhs):
+    """Operations of one K6 sweep at this plan's data (see
+    K1_PAIR_FLOPS): those of the function, counted on the pairs inside
+    r_cut, and those of the 27-cell algorithm, which also tests every
+    other candidate pair of the stencil (8 each). Returns (function
+    operations, algorithm operations, candidate pairs, inside pairs)."""
+    p = plan.params
+    cand, inside = ck.pair_counts(plan.positions, plan.cell_table,
+                                  plan.cell_dims, p.box, p.cell_capacity,
+                                  p.r_cut)
+    K = plan.cheb.shape[2]
+    flops = inside * (8 + 6 + 6 * K + 18 * n_rhs)
+    return flops, flops + 8 * (cand - inside), cand, inside
+
+
+def phase_cell_kernels(ck, cells, ewald):
+    """Phase 3, K5 and K6 on a random periodic box of 3000 blobs (a
+    coincident pair, blobs closer than 2a, capacity without overflow):
+    K6 with B = 1 and 2 and K5, float32 at 3e-6 x max|ref| and float64 at
+    1e-12 against the plain versions in float64."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(4)
+    n, L, a, cap = 3000, 14.0, 0.3, 48
+    r = rng.uniform(0, L, (n, 3))
+    r[7] = r[6]
+    r[9] = r[8] + 0.3 * a
+    f6 = rng.normal(size=(n, 6))
+    p = ewald.default_params(a, 1.0, (L, L, L), tol=1e-4, cell_capacity=cap)
+    box = (L, L, L)
+    kw5 = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * a)
+    dims5 = (7, 7, 7)
+    # f32 bound: the JAX package's own for its f32 kernels
+    for dtype, bound_rel in ((torch.float32, 3e-6), (torch.float64, 1e-12)):
+        pos = torch.as_tensor(r, dtype=dtype, device=dev)
+        plan = ewald.make_plan(p, pos)
+        check(int(plan.n_dropped_cells) == 0, "K6 scene overflows")
+        for n_rhs in (1, 2):
+            f = torch.as_tensor(f6[:, :3 * n_rhs], dtype=dtype,
+                                device=dev).contiguous()
+            err, scale = k6_vs_plain(ck, plan, f)
+            times = ""
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: ewald.real_matvec(plan, f), 10)
+                plain_ms = cuda_ms(lambda: ck.near_rpy_plain(
+                    plan.positions, f, plan.cell_table, plan.cell_dims, box,
+                    cap, plan.cheb, two_a=2 * a, r_cut=p.r_cut), 3)
+                times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
+            log(f"K6 {n} blobs cells {plan.cell_dims} cap {cap} B={n_rhs} "
+                f"{dtype}: max err / max|ref| = {err / scale:.3e} (bound "
+                f"{bound_rel:g})" + times)
+            check(err <= bound_rel * scale, f"K6 disagrees ({err / scale})")
+        table, _, _, dropped = cells.cell_bin(pos, box, dims5, cap)
+        check(int(dropped) == 0, "K5 scene overflows")
+        err, scale = k5_vs_plain(ck, pos, table, dims5, box, cap, kw5)
+        times = ""
+        if dtype == torch.float32:
+            ms = cuda_ms(lambda: ck.nl_forces(pos, table, dims5, box, cap,
+                                              **kw5), 10)
+            plain_ms = cuda_ms(lambda: ck.nl_forces_plain(
+                pos, table, dims5, box, cap, **kw5), 3)
+            times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
+        log(f"K5 {n} blobs cells {dims5} cap {cap} {dtype}: max err / "
+            f"max|ref| = {err / scale:.3e} (bound {bound_rel:g})" + times)
+        check(err <= bound_rel * scale, f"K5 disagrees ({err / scale})")
+
+
+def spectral_lattice(n_bodies, side, seed=0):
+    """bench.py's periodic lattice: spacing 1.6 from z0 = 0.8, jitter
+    +-0.25 on every axis, then the quaternions (float32, numpy seed)."""
+    idx = np.arange(n_bodies)
+    pos = np.stack([(idx % side) * 1.6, ((idx // side) % side) * 1.6,
+                    0.8 + (idx // (side * side)) * 1.6],
+                   axis=1).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    pos += rng.uniform(-0.25, 0.25, size=pos.shape).astype(np.float32)
+    quat = rng.normal(size=(n_bodies, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    return pos, quat
+
+
+def spectral_system(n_bodies, L, **overrides):
+    """bench.py's spectral configuration: a periodic box of twelve-blob
+    shells on the spectral Ewald engine, linked-cell repulsion."""
+    from rigidmultiblobswall_tpu_torch.models.system import BodyType, System
+
+    kw = dict(eta=1.0, blob_radius=A_BENCH, kT=0.05, g=0.0,
+              domain="periodic_spectral", periodic_length=(L, L, L),
+              spectral_tol=1e-4, spectral_grid_max=256,
+              repulsion_strength=0.2, debye_length=0.2,
+              blob_blob_force_method="neighbor_list",
+              blob_blob_cutoff=2 * A_BENCH + 12 * 0.2,
+              blob_blob_grid_dim=32, blob_blob_cell_capacity=96,
+              solver_tolerance=2e-4)
+    kw.update(overrides)
+    t = BodyType(name="shell12", ref_config=shell_vertices(), count=n_bodies)
+    return System(types=(t,), **kw)
+
+
+def phase_spectral_parity():
+    """Phase 4, spectral: 27 shells in a 4.8 box (6 near-field cells a
+    side; force cutoff 1.2 for 4 force cells) x 3 Slip-Trapz steps, GPU
+    f64 against CPU f64 at kT = 0.05 (the same host-drawn noise), GPU f32
+    against CPU f64 at kT = 0."""
+    pos, quat = spectral_lattice(27, 3, seed=5)
+    pos64, quat64 = pos.astype(np.float64), quat.astype(np.float64)
+    L = 3 * 1.6
+    out = {}
+    for kT in (0.05, 0.0):
+        for dtype, device, tol in ((torch.float64, "cpu", 1e-12),
+                                   (torch.float64, DEVICE, 1e-12),
+                                   (torch.float32, DEVICE, 1e-5)):
+            if kT > 0 and dtype == torch.float32:
+                continue
+            system = spectral_system(27, L, kT=kT, blob_blob_cutoff=1.2)
+            out[kT, dtype, device] = run_steps(system, pos64, quat64, dtype,
+                                               device, 3, tol)
+    ref, _ = out[0.05, torch.float64, "cpu"]
+    got64, aux = out[0.05, torch.float64, DEVICE]
+    ref0, _ = out[0.0, torch.float64, "cpu"]
+    got32, _ = out[0.0, torch.float32, DEVICE]
+    disp, disp0 = np.abs(ref - pos64).max(), np.abs(ref0 - pos64).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref0).max() / disp0
+    log(f"spectral parity, 27 shells x 3 Slip-Trapz steps (max displacement "
+        f"{disp:.3e} at kT = 0.05, {disp0:.3e} at kT = 0), max error / max "
+        f"displacement: GPU f64 vs CPU f64 {e64:.3e} (bound 1e-9), GPU f32 "
+        f"vs CPU f64 at kT = 0 {e32:.3e} (bound 1e-2); gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, overflows "
+        f"{aux.capacity_overflows}")
+    check(disp > 0 and disp0 > 0 and e64 <= 1e-9 and e32 <= 1e-2,
+          "spectral parity")
+
+
+def write_spectral_input(d, pos, quat, settings):
+    """A periodic_spectral input file of twelve-blob shells with tree
+    (linked-cell) blob forces in directory d; returns its path."""
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    with open(os.path.join(d, "shell.vertex"), "w") as f:
+        f.write("12\n")
+        for x in shell_vertices():
+            f.write("%.16g %.16g %.16g\n" % tuple(x))
+    scene.write_clones_file(os.path.join(d, "shell.clones"), pos, quat)
+    inp = os.path.join(d, "input.dat")
+    with open(inp, "w") as f:
+        f.write(settings + "scheme stochastic_Slip_Trapz\ndt 0.001\neta 1.0\n"
+                "g 0.0\nblob_radius 0.131\nkT 0.05\nsolver_tolerance 2e-4\n"
+                "repulsion_strength 0.2\ndomain periodic_spectral\n"
+                "spectral_tolerance 1e-4\nblob_blob_force_implementation "
+                "tree\nseed 1\noutput_name run\n"
+                "structure shell.vertex shell.clones\n")
+    return inp
+
+
+def run_spectral_cli(d, inp, n_steps, n_bodies):
+    """The CLI on inp, run from d on the card; checks the final clones
+    and .info and returns (seconds of cli.main, .info)."""
+    from rigidmultiblobswall_tpu_torch import cli
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["--input-file", inp, "--device", DEVICE])
+        secs = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    final = np.loadtxt(os.path.join(d, "run.shell.%08d.clones" % n_steps),
+                       skiprows=1)
+    info = dict(line.split() for line in
+                open(os.path.join(d, "run.info")).read().splitlines())
+    check(final.shape == (n_bodies, 7) and np.all(np.isfinite(final)),
+          "spectral CLI clones not finite")
+    check(int(info["deterministic_iterations_count"]) > 0
+          and int(info["capacity_overflow_steps"]) == 0,
+          "spectral CLI ran no solver iterations or overflowed")
+    return secs, info
+
+
+def phase_spectral_cli():
+    """Phase 5, spectral: the CLI on a generated 27-shell periodic_spectral
+    input with tree (linked-cell) blob forces, 3 steps on the card."""
+    pos, quat = spectral_lattice(27, 3, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        inp = write_spectral_input(d, pos, quat, (
+            "n_steps 3\nn_save 3\ndebye_length 0.03\n"
+            "periodic_length 4.8 4.8 4.8\n"))
+        secs, info = run_spectral_cli(d, inp, 3, 27)
+    log(f"spectral CLI 27 shells x 3 steps: {secs:.2f} s, .info {info}")
+
+
+def phase_spectral_cli_full():
+    """Phase 8, CLI: bench.py's spectral configuration through the CLI,
+    which draws its noise on the card. Its input file cannot name a force
+    cutoff, so the linked cells take the reference's default 2a + 30 b
+    (6.262 here, 5 force cells a side) in place of the 2a + 12 b of the
+    library run. Runs of 1 and 5 steps; a quarter of the difference of
+    their cli.main times is the CLI's time per step."""
+    pos, quat = spectral_lattice(N_SPECTRAL, SPECTRAL_SIDE)
+    secs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for n_steps in (1, 5):
+            inp = write_spectral_input(d, pos, quat, (
+                f"n_steps {n_steps}\nn_save {n_steps}\ndebye_length 0.2\n"
+                f"periodic_length {L_SPECTRAL!r} {L_SPECTRAL!r} "
+                f"{L_SPECTRAL!r}\nspectral_grid_max 256\n"))
+            secs[n_steps], info = run_spectral_cli(d, inp, n_steps,
+                                                   N_SPECTRAL)
+    ms = (secs[5] - secs[1]) / 4 * 1e3
+    log(f"spectral CLI {N_SPECTRAL} shells f32, force cutoff 2a + 30 b: "
+        f"cli.main {secs[1]:.2f} s for 1 step, {secs[5]:.2f} s for 5, "
+        f"{ms:.1f} ms/step; .info of the 5 steps {info}")
+
+
+def phase_spectral_path(pk, mc, ck):
+    """Phase 8: bench.py's spectral step at 8192 shells, float32. Checks
+    K5 and K6 at its shapes first, then drives the path."""
+    from rigidmultiblobswall_tpu_torch.models import integrators, saddle
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import cells, forces
+
+    dev = torch.device(DEVICE)
+    system = spectral_system(N_SPECTRAL, L_SPECTRAL)
+    pos, quat = spectral_lattice(N_SPECTRAL, SPECTRAL_SIDE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    system = saddle.auto_spectral_capacities(system, state, log=log)
+    r_blobs = kin.blob_positions(system, state)
+    system = forces.auto_force_cell_capacity(system, r_blobs, log=log)
+    log(f"spectral capacities sized in {time.perf_counter() - t0:.2f} s")
+    n = system.num_blobs
+    plan = saddle.maybe_dense_mobility(system, r_blobs)
+    p = plan.params
+    cap = p.cell_capacity
+    log(f"spectral plan: grid {p.grid}, r_cut {p.r_cut:.4f}, xi "
+        f"{p.xi:.4f}, support {p.support}, Chebyshev terms "
+        f"{plan.cheb.shape[2]}, cells {plan.cell_dims} x cap {cap}, "
+        f"dropped {int(plan.n_dropped_cells)}")
+
+    # K6 at the path's shape: the first 256 target cells against the plain
+    # version in float64; f32 sums of up to 27 cap terms
+    g = torch.Generator(device=dev).manual_seed(4)
+    sub = (0, 256)
+    records = {}
+    bound_rel = u32_sqrt(27 * cap)
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        err, scale = k6_vs_plain(ck, plan, f, cells_range=sub)
+        ms = cuda_ms(lambda: ck.near_rpy(
+            plan.positions, f, plan.cell_table, plan.cell_dims, p.box, cap,
+            plan.cheb, two_a=2 * p.a, r_cut=p.r_cut), 10)
+        plain_ms = cuda_ms(lambda: ck.near_rpy_plain(
+            plan.positions, f, plan.cell_table, plan.cell_dims, p.box, cap,
+            plan.cheb, two_a=2 * p.a, r_cut=p.r_cut), 1, warmup=False)
+        flops, algo_flops, cand, inside = k6_flops(ck, plan, n_rhs)
+        nbytes = 4 * (n * 3 + 2 * n * 3 * n_rhs) + plan.cell_table.numel() * 4
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bound_record(nbytes, flops))
+        algo = bound_record(nbytes, algo_flops)
+        log(f"K6 {n} blobs B={n_rhs} f32, first {sub[1]} target cells vs "
+            f"plain f64: max err {err:.3e}, / max|ref| = {err / scale:.3e} "
+            f"(bound u32*sqrt(27 cap) = {bound_rel:.2e}); kernel {ms:.3f} "
+            f"ms, plain f32 {plain_ms:.1f} ms; {cand} candidate pairs, "
+            f"{inside} inside r_cut; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; the 27-cell algorithm's "
+            f"{algo['bound_ms']:.4f} ms)")
+        check(err <= bound_rel * scale, f"K6 disagrees at {n} blobs")
+        if n_rhs == 1:
+            records["K6"] = rec
+
+    # K5 at the path's shape
+    L = system.periodic_length
+    rc = system.blob_blob_cutoff
+    dims = forces.neighbor_cell_dims(L, rc, system.blob_blob_grid_dim)
+    fcap = system.blob_blob_cell_capacity
+    box = torch.as_tensor(L, dtype=r_blobs.dtype, device=dev)
+    fpos = (r_blobs - torch.floor(r_blobs / box) * box).contiguous()
+    table, _, _, dropped = cells.cell_bin(fpos, box, dims, fcap)
+    check(int(dropped) == 0, "force cells overflow")
+    kw5 = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * A_BENCH)
+    err, scale = k5_vs_plain(ck, fpos, table, dims, L, fcap, kw5,
+                             cells_range=sub)
+    bound5 = u32_sqrt(27 * fcap)
+    ms = cuda_ms(lambda: ck.nl_forces(fpos, table, dims, L, fcap, **kw5), 10)
+    plain_ms = cuda_ms(lambda: ck.nl_forces_plain(fpos, table, dims, L, fcap,
+                                                  **kw5), 1, warmup=False)
+    cand, _ = ck.pair_counts(fpos, table, dims, L, fcap)
+    records["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound_record(4 * n * 6 + table.numel() * 4,
+                                        cand * FORCE_PAIR_FLOPS))
+    log(f"K5 {n} blobs f32 cells {dims} x cap {fcap}, first {sub[1]} target "
+        f"cells vs plain f64: max err {err:.3e}, / max|ref| = "
+        f"{err / scale:.3e} (bound u32*sqrt(27 cap) = {bound5:.2e}); "
+        f"kernel {ms:.3f} ms, plain "
+        f"f32 {plain_ms:.1f} ms; {cand} candidate pairs; bound "
+        f"{records['K5']['bound_ms']:.4f} ms ({records['K5']['bound_by']})")
+    check(err <= bound5 * scale, f"K5 disagrees at {n} blobs")
+    del plan
+
+    # the path: one warm-up step and three timed steps; the noise is drawn
+    # on the card (a host generator would draw the 3 x 256^3 grid noise
+    # on the CPU)
+    step = integrators.make_stepper(
+        system, "stochastic_Slip_Trapz", 1e-3, lanczos_tolerance=5e-4,
+        lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+        gmres_maxiter=300, max_rejections=3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    carry = integrators.init_carry(system, state=state)
+    state, carry, aux = step(state, gen, carry)           # warm-up
+    torch.cuda.synchronize()
+    log(f"spectral path plan + warm-up step: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, rejections "
+        f"{aux.rejections}, overflows {aux.capacity_overflows}")
+    n_timed = 3
+    det, sto, ovf = [], [], [aux.capacity_overflows]
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, carry, aux = step(state, gen, carry)
+        det.append(aux.det_iterations)
+        sto.append(aux.stoch_iterations)
+        ovf.append(aux.capacity_overflows)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = {"K5": ck.LAUNCHES["nl_forces"],
+                "K6 B=1": ck.LAUNCHES["near_rpy_b1"],
+                "K6 B=2": ck.LAUNCHES["near_rpy_b2"],
+                "K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p_out = state.pos
+    log(f"spectral path {n} blobs ({N_SPECTRAL} shells) stochastic_Slip_"
+        f"Trapz f32: {ms:.1f} ms/step over {n_timed} steps; gmres {det}, "
+        f"lanczos {sto}, capacity overflows {ovf}, peak device memory "
+        f"{peak:.2f} GiB, launches over the 4 steps {launches}")
+    check(bool(torch.isfinite(p_out).all()), "spectral positions not finite")
+    check(p_out.shape == (N_SPECTRAL, 3), "spectral positions shape")
+    check(min(det) > 0 and min(sto) > 0, "no GMRES or Lanczos iterations")
+    check(max(ovf) == 0, f"capacity overflows on the spectral path: {ovf}")
+    check(launches["K5"] > 0 and launches["K6 B=1"] > 0
+          and launches["K6 B=2"] > 0,
+          f"K5 or K6 not launched on the spectral path: {launches}")
+    records["K5"]["launches"] = launches["K5"]
+    records["K6"]["launches"] = launches["K6 B=1"] + launches["K6 B=2"]
+    return records
+
 
 def main():
     # phase 1: device
@@ -612,6 +1056,8 @@ def main():
     from rigidmultiblobswall_tpu_torch.models import kinematics as kin
     from rigidmultiblobswall_tpu_torch.models.system import make_state
     from rigidmultiblobswall_tpu_torch.ops import _build
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import cells, ewald
     from rigidmultiblobswall_tpu_torch.ops import mobility as mob
     from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
     from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
@@ -635,16 +1081,21 @@ def main():
 
     records = phase_kernels(pk, mc, mob, kin, make_state)   # phase 3
     records.update(phase_roller_kernels(pk, mob))
+    phase_cell_kernels(ck, cells, ewald)
     phase_slice_parity()                                    # phase 4
     phase_roller_parity()
+    phase_spectral_parity()
     phase_cli()                                             # phase 5
     phase_roller_cli()
+    phase_spectral_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
     rollers_launches = phase_rollers_path(pk, mc)           # phase 7
     launches.update({k: n for k, n in rollers_launches.items()
                      if k not in launches})
+    spectral = phase_spectral_path(pk, mc, ck)              # phase 8
+    phase_spectral_cli_full()
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     kernels = [dict(name=f"K1 pair_{c}", route="cuda",
@@ -659,6 +1110,16 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
         replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:180",
         launches=launches["K2"], **records["K2"]))
+    kernels.append(dict(
+        name="K5 nl_forces", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/nl_forces.cu",
+        replaces="rigidmultiblobswall_tpu/ops/forces.py:271",
+        **spectral["K5"]))
+    kernels.append(dict(
+        name="K6 near_rpy", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/near_rpy.cu",
+        replaces="rigidmultiblobswall_tpu/ops/ewald.py:1375",
+        **spectral["K6"]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

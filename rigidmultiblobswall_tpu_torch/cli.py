@@ -14,8 +14,11 @@ the same input files and output formats:
     invalid-configuration, deterministic and stochastic iteration, and
     wall-overlap counters.
 Every run also writes .inputfile and .bodies_info. Runs on the card in
-float32 by default (`--f64` for float64); `--device cpu` runs the plain
-PyTorch versions of the kernels.
+float32 by default (`--f64` for float64) and raises without CUDA;
+`--device cpu` runs the plain PyTorch versions of the kernels. Dynamic
+runs size the spectral engine's cell capacity and the linked-cell force
+capacity at the start, as the JAX CLI does, and report steps that still
+dropped particles in .info (capacity_overflow_steps).
 
 The other static modes, MCMC, lubrication, articulated rollers,
 velocity-field output, .random_state and user_defined_functions.py hooks
@@ -34,7 +37,9 @@ import numpy as np
 import torch
 
 from .io import input_file as input_mod, scene
-from .models import integrators, kinematics as kin, rollers, solvers
+from .models import integrators, kinematics as kin, rollers, saddle, solvers
+from .models.system import resolve_device
+from .ops import forces as force_ops
 
 
 def _refuse_user_functions(input_file):
@@ -55,13 +60,12 @@ def main(argv=None):
     parser.add_argument("--print-residual", action="store_true")
     parser.add_argument("--f64", action="store_true",
                         help="run in float64 (default float32)")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda when available, "
-                             "else cpu)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "plain PyTorch versions of the kernels)")
     args = parser.parse_args(argv)
 
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
 
     _refuse_user_functions(args.input_file)
@@ -112,6 +116,14 @@ def main(argv=None):
     print("\n\n\n# End")
 
 
+def _generator(cfg, state):
+    """The noise generator, seeded from the input file, on the state's
+    device: every draw happens where the simulation runs (on the card,
+    the spectral grid noise alone is 3 x 256^3 normals a step)."""
+    return torch.Generator(device=state.pos.device).manual_seed(
+        cfg.seed if cfg.seed is not None else 0)
+
+
 def _run_rollers(cfg, system, state):
     """Minimally-resolved rollers: one single-blob body per roller."""
     opts = cfg.options
@@ -128,8 +140,7 @@ def _run_rollers(cfg, system, state):
         omega_one_roller=tuple(
             float(x) for x in opts.get("omega_one_roller", "0 0 0").split()),
         hydro_interactions=bool(int(opts.get("hydro_interactions", 1))))
-    generator = torch.Generator().manual_seed(
-        cfg.seed if cfg.seed is not None else 0)
+    generator = _generator(cfg, state)
     step = rollers.make_stepper(sus, cfg.scheme, cfg.dt)
     positions = state.pos
     carry = rollers.init_carry(sus, positions=positions)
@@ -159,8 +170,12 @@ def _run_rollers(cfg, system, state):
 
 
 def _run_dynamic(cfg, system, state, args, start_time):
-    generator = torch.Generator().manual_seed(
-        cfg.seed if cfg.seed is not None else 0)
+    generator = _generator(cfg, state)
+    # fixed capacities sized from the initial occupancy (no-ops for the
+    # pairwise engine and the direct forces)
+    system = saddle.auto_spectral_capacities(system, state, log=print)
+    system = force_ops.auto_force_cell_capacity(
+        system, kin.blob_positions(system, state), log=print)
     gmres_maxiter = 1000
     step = integrators.make_stepper(system, cfg.scheme, cfg.dt,
                                     tolerance=cfg.solver_tolerance,
@@ -189,6 +204,7 @@ def _run_dynamic(cfg, system, state, args, start_time):
                     pos_i, quat_i)
 
     det_iters = stoch_iters = rejections = unconverged_steps = 0
+    overflow_steps = 0
     for step_idx in range(cfg.initial_step, cfg.n_steps):
         if (step_idx % cfg.n_save) == 0 and step_idx >= 0:
             print("Integrator = %s, step = %d, wallclock = %.2fs" % (
@@ -203,13 +219,19 @@ def _run_dynamic(cfg, system, state, args, start_time):
             print("WARNING: step %d had a GMRES solve stop before "
                   "tolerance (maxiter=%d)" % (step_idx, gmres_maxiter),
                   file=sys.stderr)
+        if aux.capacity_overflows > 0:
+            overflow_steps += 1
+            print("WARNING: step %d dropped %d entries from fixed-"
+                  "capacity layouts (grow spectral_cell_capacity or "
+                  "blob_blob_cell_capacity)"
+                  % (step_idx, aux.capacity_overflows), file=sys.stderr)
     save_clones(cfg.n_steps, state)
     with open(cfg.output_name + ".info", "w") as f:
         f.write("invalid_configuration_count      %d\n" % rejections)
         f.write("deterministic_iterations_count   %d\n" % det_iters)
         f.write("stochastic_iterations_count      %d\n" % stoch_iters)
         f.write("unconverged_solve_steps          %d\n" % unconverged_steps)
-        f.write("capacity_overflow_steps          %d\n" % 0)
+        f.write("capacity_overflow_steps          %d\n" % overflow_steps)
 
 
 if __name__ == "__main__":

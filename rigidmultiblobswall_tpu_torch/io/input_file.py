@@ -5,10 +5,12 @@ parses the whitespace-separated key-value format with '#' comments and
 repeated structure entries; `build_system` builds the port's System and
 initial State from the referenced .vertex/.clones files.
 
-Not ported yet, and refused with NotImplementedError: obstacles,
-articulated bodies, .slip and .Laplace files, per-blob radii, body-body
-forces and the linked-cell blob-blob forces (ROADMAP Queue 1, items 14,
-17 and 18).
+Domains: single_wall, no_wall and periodic_spectral (with
+spectral_tolerance, spectral_grid_max and spectral_cell_capacity); a
+tree/neighbor blob_blob_force_implementation selects the linked-cell
+forces. Not ported yet, and refused with NotImplementedError: obstacles,
+articulated bodies, .slip and .Laplace files, per-blob radii and
+body-body forces (ROADMAP Queue 1, items 4, 15, 17 and 18).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.system import BodyType, System, make_state
+from ..models.system import BodyType, System, make_state, resolve_device
 from . import scene
 
 
@@ -132,7 +134,9 @@ def read_input(path) -> InputConfig:
 def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                  device=None):
     """Build (System, State) from an InputConfig; each structure entry
-    becomes one BodyType group."""
+    becomes one BodyType group. The State lies on `device` (default the
+    card; device="cpu" runs on the CPU)."""
+    device = resolve_device(device)
     if cfg.obstacles:
         raise NotImplementedError("obstacles (prescribed kinematics) are not "
                                   "ported yet (ROADMAP Queue 1, item 17)")
@@ -163,9 +167,8 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
     if bb_impl == "None":
         bb_method = "none"
     elif "tree" in bb_impl or "neighbor" in bb_impl:
-        raise NotImplementedError(
-            "linked-cell blob-blob forces wait for kernel K5 (ROADMAP "
-            "Queue 1, item 14)")
+        # the reference's kd-tree backends map to the linked cells
+        bb_method = "neighbor_list"
     else:
         bb_method = "direct"
     if cfg.options.get("body_body_force_torque_implementation",
@@ -177,6 +180,10 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         types=tuple(types), eta=cfg.eta, blob_radius=cfg.blob_radius,
         kT=cfg.kT, g=cfg.g, domain=cfg.domain,
         periodic_length=tuple(cfg.periodic_length),
+        spectral_tol=float(cfg.options.get("spectral_tolerance", 1e-4)),
+        spectral_grid_max=int(cfg.options.get("spectral_grid_max", 256)),
+        spectral_cell_capacity=int(
+            cfg.options.get("spectral_cell_capacity", 0)),
         repulsion_strength=cfg.repulsion_strength,
         debye_length=cfg.debye_length,
         repulsion_strength_wall=cfg.repulsion_strength_wall,

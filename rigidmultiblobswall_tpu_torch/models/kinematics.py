@@ -115,9 +115,9 @@ def min_blob_height(system: System, state: State):
 
 
 def valid_configuration(system: System, state: State) -> bool:
-    """True when every blob lies above the wall (always for no_wall). A
-    host bool: the caller's retry loop branches on it."""
-    if system.domain == "no_wall":
+    """True when every blob lies above the wall (always for the domains
+    without one). A host bool: the caller's retry loop branches on it."""
+    if system.domain in ("no_wall", "periodic_spectral"):
         return True
     return bool(min_blob_height(system, state) > 0.0)
 

@@ -1,5 +1,5 @@
 """Matrix-free saddle-point operator and block-diagonal preconditioner
-(PyTorch, pairwise domains).
+(PyTorch).
 
 Counterpart of rigidmultiblobswall_tpu/models/saddle.py. Mobility problem
 for rigid multiblob suspensions (Delong et al. 2015):
@@ -13,20 +13,42 @@ type, and the preconditioner applies as batched matrix products. The
 Lanczos noise preconditioner P = U_chol^{-1}, M ~= U_chol^T U_chol,
 reuses the same factorization.
 
-Prescribed kinematics, articulated constraints and the spectral engines
-are still to be ported (ROADMAP Queue 1, items 15, 17-19).
+The mobility engine of a configuration is `m_dense`: None for the
+matrix-free pairwise engine, or an ops/ewald.SpectralPlan for domain
+'periodic_spectral', built once per configuration and refreshed for
+nearby ones. Prescribed kinematics, articulated constraints, the
+materialized engine and the wall spectral engine are still to be ported
+(ROADMAP Queue 1, items 10, 17-19).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..ops import cells, ewald
 from ..ops import mobility as mob
 from . import kinematics as kin
 from .system import State, System
+
+
+def is_spectral(system: System) -> bool:
+    """True for the engines that carry a positions plan."""
+    return system.domain == "periodic_spectral"
+
+
+def spectral_params(system: System):
+    """The ops/ewald parameters of a periodic_spectral System (host)."""
+    if not is_spectral(system):
+        return None
+    return ewald.default_params(
+        system.blob_radius, system.eta, system.periodic_length,
+        tol=system.spectral_tol, grid_max=system.spectral_grid_max,
+        cell_capacity=system.spectral_cell_capacity)
 
 
 def saddle_size(system: System) -> int:
@@ -44,24 +66,53 @@ def split_saddle_vector(system: System, vec):
 
 
 def maybe_dense_mobility(system: System, r_blobs):
-    """The per-configuration mobility engine. The JAX package materializes
-    the (3N, 3N) operator through kernels K3/K4 when 9 N^2 floats fit its
+    """The per-configuration mobility engine: a SpectralPlan for
+    periodic_spectral, else None. The JAX package materializes the
+    (3N, 3N) operator through kernels K3/K4 when 9 N^2 floats fit its
     budget; those kernels are not ported yet (ROADMAP Queue 1, item 10),
-    so the port always takes the matrix-free pairwise engine (None), the
-    branch the JAX package takes above the budget, e.g. at 49,152 blobs."""
+    so the pairwise domains always take the matrix-free engine (None),
+    the branch the JAX package takes above the budget, e.g. at 49,152
+    blobs."""
+    if is_spectral(system):
+        return ewald.make_plan(spectral_params(system), r_blobs)
     return None
 
 
+def refresh_dense_mobility(system: System, m_dense, r_new):
+    """The engine for a configuration near the one m_dense was built at:
+    a spectral plan refreshes (ops/ewald.update_plan, a full rebuild past
+    its drift budget); the pairwise domains stay matrix-free (None)."""
+    if is_spectral(system):
+        return ewald.update_plan(_plan(system, m_dense), r_new)
+    return None
+
+
+def _plan(system, m_dense):
+    """The spectral plan m_dense, which the caller resolves once per
+    configuration (the integrators at the step's start, solvers at
+    m_dense='auto'); nothing below builds one."""
+    if not isinstance(m_dense, ewald.SpectralPlan):
+        raise ValueError("periodic_spectral products need the "
+                         "configuration's plan as m_dense "
+                         "(saddle.maybe_dense_mobility), got "
+                         f"{type(m_dense).__name__}")
+    return m_dense
+
+
 def _mobility_apply(system, r_blobs, m_dense, lam):
-    """M lam for lam (N, 3) (or flat) -> (N, 3). m_dense is the engine
-    from maybe_dense_mobility: always None (matrix-free) until K3/K4."""
+    """M lam for lam (N, 3) (or flat) -> (N, 3) on the engine m_dense
+    (a SpectralPlan, or None for the matrix-free pairwise engine)."""
+    if is_spectral(system):
+        return ewald.matvec(_plan(system, m_dense), lam.reshape(-1, 3))
     return mob.mobility_trans_times_force(
         r_blobs, lam.reshape(-1, 3), system.eta, system.blob_radius,
         domain=system.domain, periodic_length=system.periodic_length)
 
 
 def _mobility_apply_multi(system, r_blobs, m_dense, lam):
-    """Stacked M products, lam (b, N, 3) -> (b, N, 3), one pair sweep."""
+    """Stacked M products, lam (b, N, 3) -> (b, N, 3), one engine sweep."""
+    if is_spectral(system):
+        return ewald.matvec_multi(_plan(system, m_dense), lam)
     return mob.pairwise_matvec_multi(
         r_blobs, r_blobs, lam, system.eta, system.blob_radius,
         coupling="tt", domain=system.domain,
@@ -135,13 +186,15 @@ def _collinear(ref_config) -> bool:
 
 def build_block_diag_pc(system: System, state: State) -> BlockDiagPC:
     """Factor every body's blob mobility (the dense single-body mobility
-    in the system's domain), batched per type."""
+    in the system's domain without images; periodic_spectral bodies take
+    the open-boundary blocks), batched per type."""
+    pc_domain = "no_wall" if is_spectral(system) else system.domain
     per_type = []
     for i, t in enumerate(system.types):
         rel = kin.blob_rel_positions(system, state, i)
         pos, _ = kin.type_arrays(system, state, i)
         M = mob.dense_mobility(rel + pos[:, None, :], system.eta,
-                               system.blob_radius, domain=system.domain)
+                               system.blob_radius, domain=pc_domain)
         chol = torch.linalg.cholesky(M, upper=True)
         eye = torch.eye(3 * t.num_blobs, dtype=M.dtype,
                         device=M.device).expand_as(M)
@@ -213,3 +266,53 @@ def make_noise_pc(system: System, state: State, pc: BlockDiagPC,
         return _apply_per_body(w, "L")
 
     return mobility_pc, L_mult
+
+
+def exact_spectral_capacities(system: System, state, *, margin=1.25,
+                              log=None):
+    """Size the spectral engine's near-field cell capacity from the actual
+    occupancy at this configuration (host numpy): max occupancy x margin,
+    rounded up to 8, when the System's is unset or smaller. `margin`
+    covers drift between full plan rebuilds. No-op for other domains."""
+    if not is_spectral(system):
+        return system
+    p = spectral_params(system)
+    r = np.asarray(kin.blob_positions(system, state).detach().cpu().numpy(),
+                   np.float64)
+    box = np.asarray(p.box)
+    pos = r - np.floor(r / box) * box
+    dims = tuple(max(int(L // p.r_cut), 1) for L in p.box)
+    occ = int(np.bincount(cells.host_cell_ids(pos, box, dims)).max())
+    cell_cap = -(-int(occ * margin) // 8) * 8
+    if log is not None:
+        log(f"exact capacities: cell max_occ={occ} -> cap={cell_cap}")
+    if 0 < system.spectral_cell_capacity >= cell_cap:
+        return system
+    return dataclasses.replace(
+        system, spectral_cell_capacity=max(cell_cap,
+                                           system.spectral_cell_capacity))
+
+
+def auto_spectral_capacities(system: System, state, *, max_rounds=5,
+                             log=None):
+    """Grow the spectral engine's cell capacity until a plan at this
+    configuration drops no particle (over-capacity cells would drop
+    near-field pairs): the exact host sizing first, then plans built and
+    checked, +8 slots a round. No-op for other domains."""
+    if not is_spectral(system):
+        return system
+    system = exact_spectral_capacities(system, state, log=log)
+    r_blobs = kin.blob_positions(system, state)
+    for _ in range(max_rounds):
+        plan = maybe_dense_mobility(system, r_blobs)
+        drops = int(plan.n_dropped_cells)
+        if log is not None:
+            log(f"spectral plan: grid={plan.params.grid} "
+                f"r_cut={plan.params.r_cut:.2f} "
+                f"cell_cap={plan.params.cell_capacity} dropped={drops}")
+        if drops == 0:
+            return system
+        system = dataclasses.replace(
+            system, spectral_cell_capacity=plan.params.cell_capacity + 8)
+    raise ValueError(f"spectral cell capacity still dropping {drops} "
+                     f"particles after {max_rounds} rounds of growth")

@@ -31,12 +31,22 @@ class MobilitySolution(NamedTuple):
 
 def force_torque_calculator(system: System, state: State, r_blobs):
     """Default force assembly: one-blob external forces plus blob-blob
-    repulsion, aggregated through K^T. Returns (B,6)."""
+    repulsion (direct sweep or linked cells), aggregated through K^T.
+    Returns (B,6)."""
     f_blobs = force_ops.blob_external_forces(
         r_blobs, g=system.g, blob_mass=1.0, blob_radius=system.blob_radius,
         repulsion_strength_wall=system.repulsion_strength_wall,
         debye_length_wall=system.debye_length_wall)
-    if system.blob_blob_force_method == "direct":
+    if system.blob_blob_force_method == "neighbor_list":
+        f_blobs = f_blobs + force_ops.blob_blob_forces_neighbor_list(
+            r_blobs, repulsion_strength=system.repulsion_strength,
+            debye_length=system.debye_length,
+            blob_radius=system.blob_radius,
+            periodic_length=system.periodic_length,
+            cutoff=system.blob_blob_cutoff or None,
+            grid_dim=system.blob_blob_grid_dim,
+            cell_capacity=system.blob_blob_cell_capacity)
+    elif system.blob_blob_force_method == "direct":
         f_blobs = f_blobs + force_ops.blob_blob_forces(
             r_blobs, repulsion_strength=system.repulsion_strength,
             debye_length=system.debye_length,
@@ -71,7 +81,8 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
     """Preconditioned GMRES solve of the saddle system on the unit-norm
     right-hand side. x0 is in physical units (e.g. a previous solution
     used as a warm start). m_dense: 'auto' asks
-    saddle.maybe_dense_mobility for the configuration's engine."""
+    saddle.maybe_dense_mobility for the configuration's engine; or pass
+    the engine (a spectral plan, or None for the pairwise engine)."""
     r_blobs = kin.blob_positions(system, state)
     if isinstance(m_dense, str) and m_dense == "auto":
         m_dense = saddle.maybe_dense_mobility(system, r_blobs)

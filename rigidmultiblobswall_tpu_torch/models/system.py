@@ -11,10 +11,15 @@ dataclasses take the place of the JAX pytrees:
     state's.
 
 The port covers the wall-bounded and unbounded direct pairwise engine
-(`domain` 'single_wall' or 'no_wall', no periodic images, one blob
-radius) with the default force set. Fields the JAX System carries for
-other engines and models are not present; `from_reference` refuses a JAX
-system that sets them.
+(`domain` 'single_wall' or 'no_wall', no periodic images) and the
+triply-periodic spectral Ewald engine (`domain` 'periodic_spectral'),
+one blob radius, with the default force set: direct or linked-cell
+blob-blob repulsion. Fields the JAX System carries for other engines and
+models are not present; `from_reference` refuses a JAX system that sets
+them.
+
+Entry points put their tensors on the card unless the caller passes
+device="cpu"; without CUDA they raise rather than fall back.
 """
 
 from __future__ import annotations
@@ -25,8 +30,20 @@ from typing import Tuple
 import numpy as np
 import torch
 
-DOMAINS = ("single_wall", "no_wall")
-BLOB_BLOB_METHODS = ("direct", "none")
+DOMAINS = ("single_wall", "no_wall", "periodic_spectral")
+BLOB_BLOB_METHODS = ("direct", "none", "neighbor_list")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of a run: the card unless the caller names another. No
+    silent fallback: asking for the card without CUDA raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device='cpu' (--device cpu on the "
+                           "command line) to run the plain PyTorch versions "
+                           "on the CPU")
+    return dev
 
 
 def _freeze(arr):
@@ -72,11 +89,23 @@ class System:
     g: float = 0.0
     domain: str = "single_wall"
     periodic_length: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # periodic_spectral engine (ops/ewald.default_params): accuracy
+    # target, per-axis FFT grid cap (r_cut inflates when it binds), and
+    # near-field slots per cell (0 = auto; overflow is counted)
+    spectral_tol: float = 1e-4
+    spectral_grid_max: int = 256
+    spectral_cell_capacity: int = 0
     repulsion_strength: float = 0.0
     debye_length: float = 1.0
     repulsion_strength_wall: float = 0.0
     debye_length_wall: float = 1.0
+    # blob-blob pair forces: 'direct' O(N^2) sweep, 'neighbor_list'
+    # linked cells (fully periodic boxes), or 'none'; neighbor-list
+    # cutoff (0 = 2a + 30 debye), cells per axis cap and slots per cell
     blob_blob_force_method: str = "direct"
+    blob_blob_cutoff: float = 0.0
+    blob_blob_grid_dim: int = 16
+    blob_blob_cell_capacity: int = 32
     solver_tolerance: float = 1e-8
     rf_delta: float = 1e-3
 
@@ -87,16 +116,25 @@ class System:
         if self.domain not in DOMAINS:
             raise NotImplementedError(
                 f"domain {self.domain!r}: the port covers {DOMAINS} so far "
-                "(other domains: ROADMAP Queue 1, items 4, 15 and 19)")
-        if any(L > 0 for L in self.periodic_length):
+                "(other domains: ROADMAP Queue 1, items 4 and 19)")
+        periodic = [L > 0 for L in self.periodic_length]
+        if self.domain == "periodic_spectral":
+            if not all(periodic):
+                raise ValueError("periodic_spectral needs periodic_length > "
+                                 "0 on all three axes")
+        elif any(periodic):
             raise NotImplementedError(
                 "pseudo-periodic image boxes are not ported yet "
                 "(ROADMAP Queue 1, item 4)")
         if self.blob_blob_force_method not in BLOB_BLOB_METHODS:
+            raise ValueError(f"blob_blob_force_method "
+                             f"{self.blob_blob_force_method!r}; one of "
+                             f"{BLOB_BLOB_METHODS}")
+        if (self.blob_blob_force_method == "neighbor_list"
+                and not all(periodic)):
             raise NotImplementedError(
-                f"blob_blob_force_method {self.blob_blob_force_method!r}: "
-                "the linked-cell method waits for kernel K5 (ROADMAP "
-                "Queue 1, item 14)")
+                "linked-cell blob forces in open or wall-slab boxes are not "
+                "ported yet (ROADMAP Queue 1, items 14 and 19)")
 
     @property
     def num_bodies(self) -> int:
@@ -139,6 +177,8 @@ class State:
 
 def make_state(positions, quaternions, dtype=torch.float64,
                device=None) -> State:
+    """State on `device` (default the card; see resolve_device)."""
+    device = resolve_device(device)
     pos = torch.as_tensor(positions, dtype=dtype,
                           device=device).reshape(-1, 3).contiguous()
     quat = torch.as_tensor(quaternions, dtype=dtype,
@@ -149,17 +189,28 @@ def make_state(positions, quaternions, dtype=torch.float64,
 def from_reference(ref_system, positions=None, quaternions=None, *,
                    dtype=torch.float64, device=None):
     """Carry a JAX-package `System` (and optionally its `State` arrays,
-    passed as numpy) across to the port's objects on `device`/`dtype`.
+    passed as numpy) across to the port's objects on `device` (default
+    the card) and `dtype`.
 
     Reads the reference system's attributes without importing JAX.
-    Features the port does not cover yet raise NotImplementedError.
-    Returns the System, or (System, State) when positions are given."""
+    Features the port does not cover yet raise NotImplementedError. The
+    JAX System's TPU gridding knobs (spectral_bucket_capacity,
+    spectral_plane_batch, spectral_precision) have no counterpart: the
+    port grids without segment layouts or matrix units, so they are
+    ignored. Returns the System, or (System, State) when positions are
+    given."""
+    if getattr(ref_system, "mesh", None) is not None:
+        raise NotImplementedError("multi-device meshes (ROADMAP Queue 1, "
+                                  "item 20)")
+    if ref_system.domain == "single_wall_spectral":
+        raise NotImplementedError("the wall spectral engine (ROADMAP Queue "
+                                  "1, item 19)")
     for t in ref_system.types:
         radii = getattr(t, "blob_radii", None)
         if radii is not None and not np.allclose(radii,
                                                  ref_system.blob_radius):
             raise NotImplementedError("per-blob radii (ROADMAP Queue 1, "
-                                      "item 4)")
+                                      "items 4 and 15)")
         if getattr(t, "slip_ref", None) is not None:
             raise NotImplementedError("active slip (ROADMAP Queue 1, "
                                       "item 18)")
@@ -186,11 +237,17 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         g=float(ref_system.g),
         domain=ref_system.domain,
         periodic_length=tuple(ref_system.periodic_length),
+        spectral_tol=float(ref_system.spectral_tol),
+        spectral_grid_max=int(ref_system.spectral_grid_max),
+        spectral_cell_capacity=int(ref_system.spectral_cell_capacity),
         repulsion_strength=float(ref_system.repulsion_strength),
         debye_length=float(ref_system.debye_length),
         repulsion_strength_wall=float(ref_system.repulsion_strength_wall),
         debye_length_wall=float(ref_system.debye_length_wall),
         blob_blob_force_method=ref_system.blob_blob_force_method,
+        blob_blob_cutoff=float(ref_system.blob_blob_cutoff),
+        blob_blob_grid_dim=int(ref_system.blob_blob_grid_dim),
+        blob_blob_cell_capacity=int(ref_system.blob_blob_cell_capacity),
         solver_tolerance=float(ref_system.solver_tolerance),
         rf_delta=float(ref_system.rf_delta),
     )

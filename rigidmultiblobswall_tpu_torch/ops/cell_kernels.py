@@ -1,0 +1,241 @@
+"""Kernels K5 and K6: pair sweeps over the 27-cell stencil of a periodic
+box, beside their plain PyTorch versions.
+
+- K5 `nl_forces`: the linked-cell soft blob-blob repulsion, counterpart
+  of rigidmultiblobswall_tpu/ops/forces.py (`_nl_force_kernel`, wrapper
+  `_neighbor_forces_pallas`); CUDA source `csrc/nl_forces.cu`.
+- K6 `near_rpy`: the near-field RPY remainder of the periodic spectral
+  engine, u_i = sum_j alpha(r) f_j + (beta(r)/r^2)(d.f_j) d over
+  0 < r < r_cut, with alpha and beta from a two-piece Chebyshev series
+  (pieces r < 2a and 2a <= r < r_cut); counterpart of
+  rigidmultiblobswall_tpu/ops/ewald.py (`_near_kernel`, wrapper
+  `_near_rows_pallas`); CUDA source `csrc/near_rpy.cu`. B = 1 and 2
+  right-hand sides stacked as b-major columns of (N, 3B).
+
+Both take positions wrapped into the box (or drifted from there by less
+than the plan's budget), the cell table of ops/cells.cell_bin and the
+cell dims (at least 4 a side, so the 27 stencil cells and their images
+are distinct), and return one row per particle: the sum over the
+particles of the 27 cells around its own, each at the periodic image the
+cell's wrap count gives. A particle dropped by cell overflow is neither
+a source nor a target: its row is zero, as in the JAX package's Pallas
+path. K5 has no cutoff test: the sum runs over the whole stencil, as
+both JAX paths do.
+
+On a CUDA tensor a wrapper launches its kernel and counts the launch in
+`LAUNCHES`; on a CPU tensor it runs the plain version, a cell-tiled
+dense sweep in PyTorch; any other case raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build, cells
+
+# kernel launches made by the wrappers in this process
+LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0}
+
+MAX_RHS = 2          # K6 template instances: B = 1 and B = 2
+MAX_CHEB = 32        # Chebyshev terms per piece the kernel's table holds
+_TILE_CELLS = 16     # plain versions: target cells per tile
+
+
+def _tiles(pos, cell_table, dims, box, cap, cells_range):
+    """Per tile of target cells: target ids (TC, cap), their validity and
+    positions, and the stencil's source ids (TC, 27, cap), validity and
+    image positions (TC, 27, cap, 3)."""
+    n = pos.shape[0]
+    n_cells = int(dims[0]) * int(dims[1]) * int(dims[2])
+    dev = pos.device
+    ids = cell_table.reshape(n_cells, cap).long()
+    valid = ids < n
+    ids_c = torch.where(valid, ids, torch.zeros_like(ids))
+    nbr = cells.neighbor_table(dims, device=dev)
+    shift = (cells.wrap_counts(dims, device=dev).to(pos.dtype)
+             * torch.as_tensor(box, dtype=pos.dtype, device=dev))
+    lo, hi = cells_range if cells_range is not None else (0, n_cells)
+    hi = min(hi, n_cells)
+    for c0 in range(lo, hi, _TILE_CELLS):
+        c = torch.arange(c0, min(c0 + _TILE_CELLS, hi), device=dev)
+        nb = nbr[c]
+        s_ids = ids_c[nb]
+        yield (ids_c[c], valid[c], pos[ids_c[c]], s_ids, valid[nb],
+               pos[s_ids] + shift[c][:, :, None, :])
+
+
+def _scatter_rows(out, t_ids, t_valid, rows):
+    out[t_ids[t_valid]] = rows[t_valid].to(out.dtype)
+
+
+def nl_forces_plain(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b,
+                    two_a, cells_range=None):
+    """Plain PyTorch K5: (N,3) repulsion per particle; rows outside
+    `cells_range` (a (first, last) range of target cells) stay zero."""
+    out = torch.zeros_like(pos)
+    for t_ids, t_valid, tp, _, s_valid, sp in _tiles(
+            pos, cell_table, dims, box, cap, cells_range):
+        d = tp[:, :, None, None, :] - sp[:, None]        # (TC,cap,27,cap,3)
+        r2 = torch.sum(d * d, dim=-1)
+        inside = (t_valid[:, :, None, None] & s_valid[:, None]
+                  & (r2 > 0))
+        r = torch.sqrt(torch.where(inside, r2, torch.ones_like(r2)))
+        mag = torch.where(r > two_a,
+                          eps_over_b * torch.exp((two_a - r) * inv_b) / r,
+                          eps_over_b / r)
+        mag = torch.where(inside, mag, torch.zeros_like(mag))
+        rows = torch.sum(mag[..., None] * d, dim=(2, 3))
+        _scatter_rows(out, t_ids, t_valid, rows)
+    return out
+
+
+def _clenshaw(coeffs, t):
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for c in coeffs.flip(0)[:-1]:
+        b1, b2 = 2.0 * t * b1 - b2 + c, b1
+    return t * b1 - b2 + coeffs[0]
+
+
+def near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb, *,
+                   two_a, r_cut, cells_range=None):
+    """Plain PyTorch K6 (the JAX package's XLA cell sweep,
+    ewald.py:1222-1344, single radius): (N, 3B) near-field rows without
+    the self term; rows outside `cells_range` stay zero."""
+    n = pos.shape[0]
+    f = forces.reshape(n, -1)
+    nc = f.shape[1]
+    out = torch.zeros((n, nc), dtype=pos.dtype, device=pos.device)
+    cheb = torch.as_tensor(cheb, dtype=pos.dtype, device=pos.device)
+    mids = (0.5 * two_a, 0.5 * (two_a + r_cut))
+    halfs = (0.5 * two_a, 0.5 * (r_cut - two_a))
+    for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
+            pos, cell_table, dims, box, cap, cells_range):
+        fs = f[s_ids].to(pos.dtype)                       # (TC,27,cap,nc)
+        d = tp[:, :, None, None, :] - sp[:, None]
+        r2 = torch.sum(d * d, dim=-1)                     # (TC,cap,27,cap)
+        inside = (t_valid[:, :, None, None] & s_valid[:, None]
+                  & (r2 > 0) & (r2 < r_cut * r_cut))
+        # the series only on the pairs inside r_cut; zero elsewhere
+        r2_in = r2[inside]
+        r = torch.sqrt(r2_in)
+        t0 = torch.clamp((r - mids[0]) / halfs[0], -1.0, 1.0)
+        t1 = torch.clamp((r - mids[1]) / halfs[1], -1.0, 1.0)
+        near = r < two_a
+        al = torch.zeros_like(r2)
+        bfac = torch.zeros_like(r2)
+        al[inside] = torch.where(near, _clenshaw(cheb[0, 0], t0),
+                                 _clenshaw(cheb[1, 0], t1))
+        bfac[inside] = torch.where(near, _clenshaw(cheb[0, 1], t0),
+                                   _clenshaw(cheb[1, 1], t1)) / r2_in
+        d = torch.where(inside[..., None], d, torch.zeros_like(d))
+        fs3 = fs.reshape(*fs.shape[:-1], nc // 3, 3)      # (TC,27,cap,B,3)
+        ddotf = torch.einsum("tiskc,tskbc->tiskb", d, fs3)
+        rows = (torch.einsum("tisk,tskbc->tibc", al, fs3)
+                + torch.einsum("tiskb,tiskc->tibc", bfac[..., None] * ddotf,
+                               d)).reshape(*t_ids.shape, nc)
+        _scatter_rows(out, t_ids, t_valid, rows)
+    return out
+
+
+def _check(what, pos, cell_table, dims, cap, extra=()):
+    if pos.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {pos.device}")
+    dtype = pos.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {dtype} (float32/float64 only)")
+    for name, t in (("pos", pos),) + tuple(extra):
+        if t.device != pos.device or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {pos.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+    if pos.ndim != 2 or pos.shape[1] != 3:
+        raise ValueError(f"{what}: pos must be (N,3), got "
+                         f"{tuple(pos.shape)}")
+    n_cells = int(dims[0]) * int(dims[1]) * int(dims[2])
+    if min(int(d) for d in dims) < 4:
+        raise ValueError(f"{what}: cell dims {tuple(dims)}; the stencil "
+                         "needs at least 4 cells a side")
+    if (cell_table.device != pos.device or cell_table.dtype != torch.int32
+            or not cell_table.is_contiguous()
+            or cell_table.shape != (n_cells * cap,)):
+        raise ValueError(f"{what}: cell_table must be a contiguous int32 "
+                         f"({n_cells * cap},) tensor on {pos.device}")
+    if max(n_cells * cap, 6 * pos.shape[0]) >= 2 ** 31:
+        raise ValueError(f"{what}: too many cells or rows for 32-bit "
+                         "indexing")
+
+
+def nl_forces(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b, two_a):
+    """K5 wrapper: the CUDA kernel for CUDA tensors, `nl_forces_plain` for
+    CPU tensors. pos (N,3) -> (N,3)."""
+    kw = dict(eps_over_b=eps_over_b, inv_b=inv_b, two_a=two_a)
+    if pos.device.type == "cpu":
+        return nl_forces_plain(pos, cell_table, dims, box, cap, **kw)
+    _check("nl_forces", pos, cell_table, dims, cap)
+    out = torch.zeros_like(pos)
+    if pos.shape[0] == 0:
+        return out
+    name = f"nl_forces_{'f32' if pos.dtype == torch.float32 else 'f64'}"
+    err = getattr(_build.library(), name)(
+        pos.data_ptr(), cell_table.data_ptr(), out.data_ptr(), pos.shape[0],
+        *(int(d) for d in dims), int(cap), *(float(L) for L in box),
+        float(eps_over_b), float(inv_b), float(two_a),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _build.check(name, err)
+    LAUNCHES["nl_forces"] += 1
+    return out
+
+
+def near_rpy(pos, forces, cell_table, dims, box, cap, cheb, *, two_a,
+             r_cut):
+    """K6 wrapper: the CUDA kernel for CUDA tensors, `near_rpy_plain` for
+    CPU tensors. pos (N,3), forces (N,3B), cheb (2 pieces, 2 functions, K)
+    -> (N,3B) without the self term."""
+    kw = dict(two_a=two_a, r_cut=r_cut)
+    if pos.device.type == "cpu":
+        return near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb,
+                              **kw)
+    _check("near_rpy", pos, cell_table, dims, cap,
+           (("forces", forces), ("cheb", cheb)))
+    n = pos.shape[0]
+    if (forces.ndim != 2 or forces.shape[0] != n or forces.shape[1] % 3
+            or not 1 <= forces.shape[1] // 3 <= MAX_RHS):
+        raise ValueError(f"near_rpy: forces must be (N, 3B) with B in 1.."
+                         f"{MAX_RHS}, got {tuple(forces.shape)}")
+    if cheb.ndim != 3 or cheb.shape[:2] != (2, 2) or not (
+            1 <= cheb.shape[2] <= MAX_CHEB):
+        raise ValueError(f"near_rpy: cheb must be (2, 2, K) with K <= "
+                         f"{MAX_CHEB}, got {tuple(cheb.shape)}")
+    n_rhs = forces.shape[1] // 3
+    out = torch.zeros_like(forces)
+    if n == 0:
+        return out
+    name = (f"near_rpy_{'f32' if pos.dtype == torch.float32 else 'f64'}"
+            f"_b{n_rhs}")
+    err = getattr(_build.library(), name)(
+        pos.data_ptr(), forces.data_ptr(), cell_table.data_ptr(),
+        cheb.data_ptr(), out.data_ptr(), n, *(int(d) for d in dims),
+        int(cap), int(cheb.shape[2]), *(float(L) for L in box),
+        float(two_a), float(r_cut),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _build.check(name, err)
+    LAUNCHES[f"near_rpy_b{n_rhs}"] += 1
+    return out
+
+
+def pair_counts(pos, cell_table, dims, box, cap, r_cut=math.inf):
+    """(candidate pairs, pairs with 0 < r < r_cut) of the stencil sweep:
+    the work a bound on the kernels' time counts."""
+    cand = inside = 0
+    for _, t_valid, tp, _, s_valid, sp in _tiles(pos, cell_table, dims, box,
+                                                 cap, None):
+        d = tp[:, :, None, None, :] - sp[:, None]
+        r2 = torch.sum(d * d, dim=-1)
+        live = t_valid[:, :, None, None] & s_valid[:, None]
+        cand += int(live.sum())
+        inside += int((live & (r2 > 0) & (r2 < r_cut * r_cut)).sum())
+    return cand, inside

@@ -1,0 +1,568 @@
+"""Spectral (Positively-Split) Ewald RPY mobility of a triply-periodic box:
+the O(N log N) engine of domain 'periodic_spectral' (PyTorch).
+
+Counterpart of rigidmultiblobswall_tpu/ops/ewald.py, single blob radius,
+one device. The mathematics (see the JAX module's docstring):
+
+* M f = u^w + u^r with a Hasimoto split of the periodic RPY k-sum. The
+  wave part, (1/V) sum_k sinc^2(ka) phi(k) / (eta k^2) (I - k^k^) e^{ik.x},
+  phi(k) = (1 + k^2/4xi^2) exp(-k^2/4xi^2), is applied on a grid: spread
+  the forces with an exponential-of-semicircle window, rFFT, scale by the
+  kernel and project, inverse rFFT, interpolate with the same window.
+* The real-space remainder alpha(r) I + beta(r) r^r^ is summed over the
+  pairs with r < r_cut of a linked-cell layout (kernel K6,
+  ops/cell_kernels.near_rpy), its scalars from a two-piece Chebyshev fit
+  of host quadrature tables; plus the self term.
+* Both parts are SPD, so the wave part has a closed-form square root
+  (wave_sqrt_noise) and Lanczos runs on the near field alone.
+
+The host-side parameter choice and quadrature (numpy, scipy) are copies
+of the JAX package's, so both pick the same grid, r_cut, xi, window
+support and Chebyshev coefficients. Gridding (`spread`, `interpolate`)
+is plain PyTorch on separable window weights: index_add_ to spread, a
+gather and a weighted sum to interpolate, in chunks of particles. A
+particle stamps, per axis, the grid points the JAX layout stamps: along
+x the P planes round(x/h) + (0..P-1) - P//2 of its sort-time position
+(the JAX segment layout keeps them across plan refreshes), along y and z
+every point within P h / 2 of its position; each weight is masked to
+|d| <= P h / 2. The JAX package's z-slab plane-matmul layout exists only
+because XLA on the TPU serializes colliding scatters and is not ported;
+a hand-written gridding kernel is later work (ROADMAP). Mixed radii
+(ROADMAP Queue 1, item 15) and the multi-device product (item 20) are not
+ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import cell_kernels, cells
+
+# ---------------------------------------------------------------------------
+# Host side: closed-form RPY and the quadrature-built remainder tables
+# ---------------------------------------------------------------------------
+
+
+def rpy_scalar_functions(r, a, eta):
+    """Unbounded RPY mobility scalars: M = alpha I + beta r^ r^^T.
+
+    r >= 2a: (1/(8 pi eta r)) [(1 + 2a^2/3r^2) I + (1 - 2a^2/r^2) rr];
+    r <  2a: (1/(6 pi eta a)) [(1 - 9r/32a) I + (3r/32a) rr]."""
+    r = np.asarray(r, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        far_a = (1.0 + 2.0 * a * a / (3.0 * r * r)) / (8 * np.pi * eta * r)
+        far_b = (1.0 - 2.0 * a * a / (r * r)) / (8 * np.pi * eta * r)
+    near_a = (1.0 - 9.0 * r / (32.0 * a)) / (6 * np.pi * eta * a)
+    near_b = (3.0 * r / (32.0 * a)) / (6 * np.pi * eta * a)
+    alpha = np.where(r >= 2 * a, far_a, near_a)
+    beta = np.where(r >= 2 * a, far_b, near_b)
+    return alpha, beta
+
+
+def _bessel_weights(x):
+    """(j0(x) - j1(x)/x, 2 j1(x)/x) with series near x=0."""
+    x = np.asarray(x, dtype=np.float64)
+    small = np.abs(x) < 1e-4
+    xs = np.where(small, 1.0, x)
+    j0 = np.sin(xs) / xs
+    j1_over_x = (np.sin(xs) / xs - np.cos(xs)) / (xs * xs)
+    perp = np.where(small, 2.0 / 3.0 - 2.0 * x * x / 15.0, j0 - j1_over_x)
+    par = np.where(small, 2.0 / 3.0 - x * x / 15.0, 2.0 * j1_over_x)
+    return perp, par
+
+
+def wave_freespace_scalars(r, a, eta, xi, *, n_k=4001):
+    """Free-space inverse transform of the wave-space kernel at radii r:
+    returns (c_perp, c_par) with M^w_free = c_perp (I - rr) + c_par rr,
+    by Simpson quadrature over k in [0, k_max]."""
+    from scipy.integrate import simpson
+
+    r = np.asarray(r, dtype=np.float64)
+    k_max = 2.0 * xi * math.sqrt(math.log(1e22))
+    k = np.linspace(0.0, k_max, n_k)
+    k[0] = 1e-30
+    sinc = np.sin(k * a) / (k * a)
+    phi = (1.0 + k * k / (4 * xi * xi)) * np.exp(-k * k / (4 * xi * xi))
+    g_times_k2 = sinc * sinc * phi / eta  # k^2 g(k)
+    x = np.outer(r, k)  # (nr, nk)
+    perp_w, par_w = _bessel_weights(x)
+    c_perp = simpson(g_times_k2[None, :] * perp_w, x=k, axis=1) / (
+        2 * np.pi**2)
+    c_par = simpson(g_times_k2[None, :] * par_w, x=k, axis=1) / (
+        2 * np.pi**2)
+    return c_perp, c_par
+
+
+def realspace_tables(a, eta, xi, r_max, *, n_points=2048):
+    """Radial tables of the real-space remainder scalars
+    (alpha_r, beta_r) with M^r(r) = alpha_r I + beta_r r^ r^^T =
+    RPY(r) - M^w_free(r), on r in [0, r_max]. Returns
+    (r_grid, alpha_r, beta_r, self_coeff) as float64 numpy arrays."""
+    r = np.linspace(0.0, r_max, n_points)
+    alpha, beta = rpy_scalar_functions(np.maximum(r, 1e-14), a, eta)
+    # r = 0 entry: pair functions continuous at 0 via the near form
+    alpha[0], beta[0] = 1.0 / (6 * np.pi * eta * a), 0.0
+    c_perp, c_par = wave_freespace_scalars(r, a, eta, xi)
+    # M^w_free = c_perp I + (c_par - c_perp) rr
+    alpha_r = alpha - c_perp
+    beta_r = beta - (c_par - c_perp)
+    self_coeff = 1.0 / (6 * np.pi * eta * a) - c_perp[0]
+    return r, alpha_r, beta_r, self_coeff
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EwaldParams:
+    """Static spectral-Ewald configuration for one (box, a, eta, accuracy)."""
+
+    a: float
+    eta: float
+    box: Tuple[float, float, float]
+    xi: float
+    r_cut: float
+    grid: Tuple[int, int, int]
+    support: int = 8           # window width P (grid points per axis)
+    es_beta_factor: float = 0.98  # beta = f * pi * P * (1 - 1/(2*gamma))
+    oversample: float = 1.5
+    n_table: int = 2048
+    # near-field cell-list slots per cell (0 = auto: mean occupancy +
+    # 4 sigma, rounded up to 8; make_plan stores the resolved value)
+    cell_capacity: int = 48
+    # Chebyshev terms per piece (0 = grow the degree until the fit error
+    # is well under tol)
+    n_cheb: int = 0
+    tol: float = 1e-4          # accuracy target the params were built for
+
+    @property
+    def spacing(self):
+        return tuple(L / n for L, n in zip(self.box, self.grid))
+
+    @property
+    def es_beta(self):
+        return (self.es_beta_factor * math.pi * self.support
+                * (1.0 - 0.5 / self.oversample))
+
+
+def _round_up_even(n):
+    n = int(math.ceil(n))
+    return n + (n % 2)
+
+
+def _fft_friendly(n):
+    """True when n has no prime factor beyond 7."""
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def _round_up_grid(n, *, zslab_pm=None):
+    """Round a per-axis grid size up to an even, FFT-friendly value; with
+    zslab_pm set (the z axis), also to one whose JAX z-slab block height
+    is at most 1.5 pm, as the JAX package's grid choice requires (the
+    port keeps the rule so both packages pick the same grid)."""
+    g = _round_up_even(n)
+    while True:
+        if _fft_friendly(g):
+            if zslab_pm is None:
+                return g
+            for m in range(max(g // (2 * zslab_pm), 1), 0, -1):
+                if g % (2 * m) == 0:
+                    zb = g // (2 * m)
+                    break
+            if zb <= (3 * zslab_pm) // 2:
+                return g
+        g += 2
+
+
+def default_params(a, eta, box, *, tol=1e-4, r_cut_factor=None,
+                   support=None, oversample=1.5, grid_max=256,
+                   **kw) -> EwaldParams:
+    """Heuristic parameter choice (the JAX package's): splitting error
+    ~ exp(-s^2) on both sides with s = xi r_cut = k_max/(2 xi); r_cut
+    defaults to ~6a, then xi = s/r_cut and the grid resolves
+    oversample * k_max. The window support follows the ES error model
+    err ~ exp(5.5 - 1.81 P) at oversample 1.5. When the grid would exceed
+    grid_max on an axis, r_cut is inflated so the grid stays bounded."""
+    if "radii" in kw:
+        raise NotImplementedError("mixed blob radii in the spectral engine "
+                                  "are not ported yet (ROADMAP Queue 1, "
+                                  "item 15)")
+    if support is None:
+        support = int(min(max(math.ceil(
+            (5.5 - math.log(0.3 * tol)) / 1.81), 6), 14))
+    s = math.sqrt(max(-math.log(tol * 0.002), 4.0))
+    box = tuple(float(b) for b in box)
+    r_cut = (r_cut_factor if r_cut_factor is not None else 6.0) * a
+    r_cut = min(r_cut, 0.45 * min(box))
+
+    pm = max(int(support) - 1, 8)
+
+    def _grid(rc):
+        k_max = 2.0 * s * s / rc
+        return tuple(max(_round_up_grid(oversample * k_max * L / math.pi,
+                                        zslab_pm=pm if d == 2 else None), 8)
+                     for d, L in enumerate(box))
+
+    grid = _grid(r_cut)
+    if grid_max and max(grid) > grid_max:
+        r_cut = min(r_cut * max(grid) / float(grid_max), 0.45 * min(box))
+        grid = _grid(r_cut)
+    xi = s / r_cut
+    return EwaldParams(a=float(a), eta=float(eta), box=box, xi=xi,
+                       r_cut=r_cut, grid=grid, support=int(support),
+                       oversample=float(oversample), tol=float(tol), **kw)
+
+
+@functools.lru_cache(maxsize=16)
+def _host_tables(params: EwaldParams):
+    """Host radial tables, one quadrature per parameter set."""
+    return realspace_tables(params.a, params.eta, params.xi, params.r_cut,
+                            n_points=params.n_table)
+
+
+@functools.lru_cache(maxsize=16)
+def _host_cheb(params: EwaldParams):
+    """Piecewise-Chebyshev fits of the real-space remainder scalars, two
+    pieces ([0, 2a] and [2a, r_cut]: the RPY scalars kink at r = 2a).
+    Returns (coeffs (2 pieces, 2 functions {alpha, beta}, K),
+    self_coeff)."""
+    from numpy.polynomial import chebyshev as npcheb
+
+    r, a_tab, b_tab, self_c = _host_tables(params)
+    edges = [(0.0, 2.0 * params.a), (2.0 * params.a, params.r_cut)]
+    scale = 1.0 / (6 * np.pi * params.eta * params.a)
+    target = 0.05 * params.tol
+    for K in ([params.n_cheb] if params.n_cheb
+              else (8, 10, 12, 14, 16, 20, 24, 28, 32)):
+        out = np.zeros((2, 2, K))
+        err = 0.0
+        for i, (lo, hi) in enumerate(edges):
+            m = (r >= lo) & (r <= hi)
+            t = (2.0 * r[m] - (hi + lo)) / (hi - lo)
+            for j, tab in enumerate((a_tab, b_tab)):
+                out[i, j] = npcheb.chebfit(t, tab[m], K - 1)
+                err = max(err, np.abs(
+                    npcheb.chebval(t, out[i, j]) - tab[m]).max() / scale)
+        if params.n_cheb or err < target:
+            break
+    return out, self_c
+
+
+def _axis_freqs(params: EwaldParams):
+    """Per-axis angular frequencies; the z axis is the rfft half-spectrum."""
+    (gx, gy, gz) = params.grid
+    (Lx, Ly, Lz) = params.box
+    return [2.0 * np.pi * np.fft.fftfreq(gx, d=Lx / gx),
+            2.0 * np.pi * np.fft.fftfreq(gy, d=Ly / gy),
+            2.0 * np.pi * np.fft.rfftfreq(gz, d=Lz / gz)]
+
+
+def _es_window_np(x, R, beta):
+    """Exponential-of-semicircle window on |x| <= R (numpy, host)."""
+    t = np.clip(np.asarray(x, np.float64) / R, -1.0, 1.0)
+    w = np.exp(beta * (np.sqrt(np.maximum(1.0 - t * t, 0.0)) - 1.0))
+    return np.where(np.abs(x) <= R, w, 0.0)
+
+
+def _es_window_hat(k, R, beta, *, n_quad=2000):
+    """w^(k) = 2 int_0^R w(x) cos(kx) dx by host quadrature."""
+    from scipy.integrate import simpson
+
+    x = np.linspace(0.0, R, n_quad)
+    w = _es_window_np(x, R, beta)
+    k = np.atleast_1d(np.asarray(k, np.float64))
+    integ = w[None, :] * np.cos(np.outer(k, x))
+    return 2.0 * simpson(integ, x=x, axis=1)
+
+
+@functools.lru_cache(maxsize=16)
+def _host_whats(params: EwaldParams):
+    """Per-axis window transforms w^(k) (host quadrature)."""
+    P = params.support
+    beta = params.es_beta
+    ks = _axis_freqs(params)
+    return tuple(_es_window_hat(kd, 0.5 * P * hd, beta)
+                 for kd, hd in zip(ks, params.spacing))
+
+
+def _device_kernel(params: EwaldParams, dtype, device):
+    """k-space multiplier (gx, gy, gz//2+1) and unit wave vectors
+    (3, gx, gy, gz//2+1) on the rfft half-spectrum, assembled on the
+    device from 1-D host inputs. The normalization h^3 / w^^2 assumes the
+    default "backward" FFT norm (1/n^3 on the inverse)."""
+    whats = _host_whats(params)
+    ks = [torch.as_tensor(kd, dtype=dtype, device=device)
+          for kd in _axis_freqs(params)]
+    kx = ks[0][:, None, None]
+    ky = ks[1][None, :, None]
+    kz = ks[2][None, None, :]
+    k2 = kx * kx + ky * ky + kz * kz
+    k2_safe = torch.where(k2 > 0, k2, torch.ones_like(k2))
+    k = torch.sqrt(k2_safe)
+    sinc2 = (torch.sin(k * params.a) / (k * params.a)) ** 2
+    phi = (1.0 + k2 / (4 * params.xi**2)) * torch.exp(
+        -k2 / (4 * params.xi**2))
+    h3 = float(np.prod(params.spacing))
+    w2 = [torch.as_tensor(w, dtype=dtype, device=device) ** 2 for w in whats]
+    what2 = w2[0][:, None, None] * w2[1][None, :, None] * w2[2][None, None, :]
+    kern = (sinc2 * phi / (params.eta * k2_safe)) * h3 / what2
+    kern[0, 0, 0] = 0.0
+    khat = torch.stack([(kx / k).expand(k2.shape), (ky / k).expand(k2.shape),
+                        (kz / k).expand(k2.shape)])
+    khat[:, 0, 0, 0] = 0.0
+    return kern, khat
+
+
+# ---------------------------------------------------------------------------
+# The plan: everything reusable across products at fixed positions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralPlan:
+    """Everything reusable across products at fixed positions."""
+
+    positions: torch.Tensor   # (N, 3) wrapped into the box (after a
+    #                           refresh: sort_pos plus the min-image drift)
+    sort_pos: torch.Tensor    # (N, 3) positions the cells were sorted at;
+    #                           update_plan measures drift against these
+    cheb: torch.Tensor        # (2 pieces, 2 functions, K) coefficients
+    self_coeff: float
+    cell_table: torch.Tensor  # (n_cells cap,) int32 particle ids (pad N)
+    cell_slot: torch.Tensor   # (N,) flat (cell, slot) row per particle
+    n_dropped_cells: torch.Tensor  # 0-d: cell-capacity overflows
+    cell_dims: Tuple[int, int, int]
+    kernel: torch.Tensor      # (gx, gy, gz//2+1) scalar k-space multiplier
+    khat: torch.Tensor        # (3, gx, gy, gz//2+1) unit wave vectors
+    params: EwaldParams
+
+
+def _box(params, like):
+    return torch.as_tensor(params.box, dtype=like.dtype, device=like.device)
+
+
+def make_plan(params: EwaldParams, positions) -> SpectralPlan:
+    """Build the reusable machinery for M v products at fixed positions
+    (one plan per configuration)."""
+    dtype, dev = positions.dtype, positions.device
+    box = _box(params, positions)
+    pos = (positions - torch.floor(positions / box) * box).contiguous()
+    cheb, self_c = _host_cheb(params)
+    dims = tuple(max(int(L // params.r_cut), 1) for L in params.box)
+    if min(dims) < 4:
+        raise ValueError(
+            f"box {params.box} too small for r_cut {params.r_cut}: "
+            "need >= 4 cells per periodic dim (use the direct pairwise "
+            "engine at this size)")
+    nx, ny, nz = dims
+    cap = params.cell_capacity
+    if cap <= 0:
+        # mean occupancy + 4 sigma (Poisson), rounded up to 8
+        mean_occ = pos.shape[0] / (nx * ny * nz)
+        cap = int(min(max(
+            -(-(mean_occ + 4.0 * math.sqrt(mean_occ)) // 8) * 8, 16), 128))
+    params = dataclasses.replace(params, cell_capacity=int(cap))
+    cell_table, cell_slot, _, n_dropped = cells.cell_bin(pos, box, dims,
+                                                         int(cap))
+    kern, khat = _device_kernel(params, dtype, dev)
+    return SpectralPlan(
+        positions=pos, sort_pos=pos,
+        cheb=torch.as_tensor(cheb, dtype=dtype, device=dev).contiguous(),
+        self_coeff=float(self_c), cell_table=cell_table,
+        cell_slot=cell_slot, n_dropped_cells=n_dropped, cell_dims=dims,
+        kernel=kern, khat=khat, params=params)
+
+
+def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
+    """The plan at positions near the ones it was sorted at: a refresh
+    (new positions, the same cells) while every particle's min-image drift
+    from sort_pos stays within half the cell slack (cell side - r_cut)
+    and half a grid spacing, a full rebuild past that. The near field
+    stays exact on the refresh branch (the old stencil still covers every
+    pair within r_cut); the gridding keeps each particle's sort-time x
+    planes, as the JAX package does. One host sync decides the branch."""
+    p = plan.params
+    box = _box(p, plan.positions)
+    pos_w = positions - torch.floor(positions / box) * box
+    delta = pos_w - plan.sort_pos
+    delta = delta - torch.round(delta / box) * box       # min-image drift
+    side = np.asarray(p.box, np.float64) / np.asarray(plan.cell_dims)
+    budget = 0.5 * np.minimum(side - p.r_cut,
+                              np.asarray(p.spacing, np.float64))
+    budget = torch.as_tensor(np.maximum(budget, 0.0), dtype=box.dtype,
+                             device=box.device)
+    if bool(torch.all(torch.amax(torch.abs(delta), dim=0) <= budget)):
+        return dataclasses.replace(
+            plan, positions=(plan.sort_pos + delta).contiguous())
+    return make_plan(p, positions)
+
+
+# ---------------------------------------------------------------------------
+# Wave-space product
+# ---------------------------------------------------------------------------
+
+
+def _es_window(d, r_win, beta):
+    """ES window of offsets d; 0 outside |d| <= r_win."""
+    t = torch.clamp(d / r_win, -1.0, 1.0)
+    w = torch.exp(beta * (torch.sqrt(torch.clamp(1.0 - t * t, min=0.0))
+                          - 1.0))
+    return torch.where(torch.abs(d) <= r_win, w, torch.zeros_like(w))
+
+
+def _axis_stamps(x, first, g, h, L, P, beta):
+    """Grid indices (m, P) along one axis starting at `first` (m,) and
+    the window weights of the (min-image) offsets from x."""
+    idx = torch.remainder(first[:, None] + torch.arange(P, device=x.device),
+                          g)
+    d = idx.to(x.dtype) * h - x[:, None]
+    d = d - L * torch.round(d / L)
+    return idx, _es_window(d, 0.5 * P * h, beta)
+
+
+def _stamps(plan: SpectralPlan, sl):
+    """Flat grid indices (m, P^3) and weights (m, P^3) of particles sl."""
+    p = plan.params
+    P = p.support
+    beta = p.es_beta
+    pos = plan.positions[sl]
+    idx, w = [], []
+    for ax in range(3):
+        g, L = p.grid[ax], p.box[ax]
+        h = L / g
+        if ax == 0:
+            # the sort-time planes round(x/h) + (0..P-1) - P//2
+            first = torch.round(plan.sort_pos[sl, 0] / h).long() - P // 2
+        else:
+            # every point with |d| <= P h / 2
+            first = torch.ceil(pos[:, ax] / h - 0.5 * P).long()
+        i, wt = _axis_stamps(pos[:, ax], first, g, h, L, P, beta)
+        idx.append(i)
+        w.append(wt)
+    gy, gz = p.grid[1], p.grid[2]
+    flat = ((idx[0][:, :, None, None] * gy + idx[1][:, None, :, None]) * gz
+            + idx[2][:, None, None, :])
+    wts = w[0][:, :, None, None] * w[1][:, None, :, None] * w[2][:, None,
+                                                                None, :]
+    m = pos.shape[0]
+    return flat.reshape(m, -1), wts.reshape(m, -1)
+
+
+def _chunks(plan: SpectralPlan):
+    """Particle slices whose stamp temporaries stay near 2^24 entries (a
+    few hundred MB at C = 6 in float32): few chunks, few launches."""
+    n = plan.positions.shape[0]
+    step = max(1, (1 << 24) // plan.params.support ** 3)
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def spread(plan: SpectralPlan, forces):
+    """S f: (N, C) forces -> (C, gx, gy, gz) grid (C = 3 per right-hand
+    side; stacked sides share the window weights)."""
+    gx, gy, gz = plan.params.grid
+    n = plan.positions.shape[0]
+    f = forces.reshape(n, -1)
+    grid = torch.zeros((gx * gy * gz, f.shape[1]), dtype=f.dtype,
+                       device=f.device)
+    for sl in _chunks(plan):
+        idx, w = _stamps(plan, sl)
+        vals = w[:, :, None] * f[sl][:, None, :]
+        grid.index_add_(0, idx.reshape(-1), vals.reshape(-1, f.shape[1]))
+    return grid.T.reshape(-1, gx, gy, gz)
+
+
+def interpolate(plan: SpectralPlan, ug):
+    """S^T u: (C, gx, gy, gz) grid -> (N, C), the transpose of `spread`."""
+    C = ug.shape[0]
+    rows = ug.reshape(C, -1).T.contiguous()              # (G, C)
+    out = torch.empty((plan.positions.shape[0], C), dtype=ug.dtype,
+                      device=ug.device)
+    for sl in _chunks(plan):
+        idx, w = _stamps(plan, sl)
+        out[sl] = torch.sum(w[:, :, None] * rows[idx], dim=1)
+    return out
+
+
+def k_scale(plan: SpectralPlan, gk):
+    """Project out khat and apply the scalar kernel on the rfft
+    half-spectrum; gk may carry C = 3 B channels (b-major)."""
+    shape = gk.shape
+    g = gk.reshape(-1, 3, *shape[1:])
+    kdotg = torch.sum(plan.khat[None] * g, dim=1, keepdim=True)
+    out = plan.kernel[None, None] * (g - plan.khat[None] * kdotg)
+    return out.reshape(shape)
+
+
+def wave_matvec(plan: SpectralPlan, forces):
+    """u^w = S^T F^{-1} B F S f (spread, rFFT, scale, irFFT, interpolate).
+    forces (N, C) with C = 3 B."""
+    grid = spread(plan, forces)
+    gk = torch.fft.rfftn(grid, dim=(1, 2, 3))
+    ug = torch.fft.irfftn(k_scale(plan, gk), s=plan.params.grid,
+                          dim=(1, 2, 3))
+    return interpolate(plan, ug)
+
+
+def wave_sqrt_noise(plan: SpectralPlan, w):
+    """u with Cov(u) = M_wave exactly, from real grid white noise w
+    (3, gx, gy, gz): u = S^T F^{-1} K^{1/2} F w (the PSE split of
+    Fiore/Balboa/Donev/Swan 2017; K^{1/2} is pointwise in k: the square
+    root of the scalar kernel times the projector)."""
+    gk = torch.fft.rfftn(w.to(plan.positions.dtype), dim=(1, 2, 3))
+    kdotg = torch.sum(plan.khat * gk, dim=0, keepdim=True)
+    uk = torch.sqrt(plan.kernel)[None] * (gk - plan.khat * kdotg)
+    ug = torch.fft.irfftn(uk, s=plan.params.grid, dim=(1, 2, 3))
+    return interpolate(plan, ug)
+
+
+# ---------------------------------------------------------------------------
+# Real-space product and the full product
+# ---------------------------------------------------------------------------
+
+
+def real_matvec(plan: SpectralPlan, forces):
+    """Near-field remainder (kernel K6) plus the self term, (N, 3B)."""
+    p = plan.params
+    n = plan.positions.shape[0]
+    f = forces.reshape(n, -1).contiguous()
+    rows = cell_kernels.near_rpy(
+        plan.positions, f, plan.cell_table, plan.cell_dims, p.box,
+        p.cell_capacity, plan.cheb, two_a=2.0 * p.a, r_cut=p.r_cut)
+    return rows + plan.self_coeff * f
+
+
+def _refuse_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError("the multi-device spectral product "
+                                  "(matvec_sharded) is not ported yet "
+                                  "(ROADMAP Queue 1, item 20)")
+
+
+def matvec(plan: SpectralPlan, forces, mesh=None):
+    """Full periodic RPY product M f, (N,3) -> (N,3)."""
+    _refuse_mesh(mesh)
+    return real_matvec(plan, forces) + wave_matvec(plan, forces)
+
+
+def matvec_multi(plan: SpectralPlan, forces, mesh=None):
+    """Stacked products M f_b, (B, N, 3) -> (B, N, 3), in one engine sweep:
+    the window weights and the near-field Chebyshev scalars are shared
+    across the B right-hand sides."""
+    _refuse_mesh(mesh)
+    B, n = forces.shape[0], forces.shape[1]
+    if B == 1:
+        return matvec(plan, forces[0])[None]
+    f = forces.permute(1, 0, 2).reshape(n, 3 * B)       # b-major channels
+    out = real_matvec(plan, f) + wave_matvec(plan, f)
+    return out.reshape(n, B, 3).permute(1, 0, 2)

@@ -1,8 +1,10 @@
 """The PyTorch port's CLI against the JAX package's CLI on one generated
 4-shell input file: same final .clones (1e-8) after a few
 stochastic_Slip_Trapz steps at kT = 0, same .velocity.dat for the
-'mobility' scheme, and the same output files; and on the example
-microroller input, the same .clones and .info."""
+'mobility' scheme, and the same output files; on a generated
+periodic_spectral input with tree (linked-cell) blob forces, the same
+.clones and .info; and on the example microroller input, the same
+.clones and .info."""
 
 import os
 import shutil
@@ -10,16 +12,19 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from rigidmultiblobswall_tpu import cli as jcli
 from rigidmultiblobswall_tpu_torch import cli as tcli
+from rigidmultiblobswall_tpu_torch.io import input_file as tinput
+from rigidmultiblobswall_tpu_torch.models import system as tsys
 
-from torch_parity import shell_vertices
+from torch_parity import shell_vertices, shells_scene
 
 N_STEPS = 3
 
 
-def _write_scene(d, scheme, n_bodies=4, kT=0.0, extra=""):
+def _write_scene(d, scheme, n_bodies=4, kT=0.0, extra="", pos=None):
     d.mkdir(parents=True, exist_ok=True)
     ref = shell_vertices(12, 0.5)
     with open(d / "shell.vertex", "w") as f:
@@ -27,9 +32,10 @@ def _write_scene(d, scheme, n_bodies=4, kT=0.0, extra=""):
         for x in ref:
             f.write("%.16g %.16g %.16g\n" % tuple(x))
     rng = np.random.default_rng(0)
-    pos = np.stack([1.6 * (np.arange(n_bodies) % 2),
-                    1.6 * (np.arange(n_bodies) // 2),
-                    np.full(n_bodies, 0.9)], axis=1)
+    if pos is None:
+        pos = np.stack([1.6 * (np.arange(n_bodies) % 2),
+                        1.6 * (np.arange(n_bodies) // 2),
+                        np.full(n_bodies, 0.9)], axis=1)
     quat = rng.normal(size=(n_bodies, 4))
     quat /= np.linalg.norm(quat, axis=1, keepdims=True)
     with open(d / "shell.clones", "w") as f:
@@ -93,6 +99,31 @@ def test_cli_slip_trapz_matches_jax(tmp_path, monkeypatch):
     assert info == info_jax
 
 
+def test_cli_periodic_spectral_matches_jax(tmp_path, monkeypatch):
+    """8 shells in a 3.2 box on the spectral engine (tolerance 0.2, a 32^3
+    grid) with tree blob forces (linked cells; debye length 0.015 keeps
+    4 cells of 2a + 30 b a side), 3 Slip-Trapz steps at kT = 0."""
+    idx = np.arange(8)
+    pos = np.stack([idx % 2, (idx // 2) % 2, idx // 4], axis=1) * 1.6 + 0.8
+    extra = ("domain periodic_spectral\nperiodic_length 3.2 3.2 3.2\n"
+             "spectral_tolerance 0.2\nspectral_grid_max 32\n"
+             "blob_blob_force_implementation tree\ndebye_length 0.015\n")
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                    n_bodies=8, extra=extra, pos=pos)
+    final = "run.shell.%08d.clones" % N_STEPS
+    ref = _clones(out["jax"] / final)
+    got = _clones(out["torch"] / final)
+    disp = np.abs(ref[:, :3] - pos).max()
+    assert disp > 1e-5
+    np.testing.assert_allclose(got, ref, atol=1e-9 * max(disp, 1e-3),
+                               rtol=0)
+    info = dict(line.split() for line in
+                open(out["torch"] / "run.info").read().splitlines())
+    info_jax = dict(line.split() for line in
+                    open(out["jax"] / "run.info").read().splitlines())
+    assert info == info_jax
+
+
 def test_cli_mobility_matches_jax(tmp_path, monkeypatch):
     out = _run_both(tmp_path, monkeypatch, "mobility")
     for name in ("run.velocity.dat", "run.force.dat"):
@@ -109,6 +140,25 @@ def test_cli_refuses_user_defined_functions(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="user_defined_functions"):
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
     assert not os.path.exists(tmp_path / "run.inputfile")
+
+
+def test_entry_points_need_the_card_unless_told_cpu(tmp_path, monkeypatch):
+    """Without CUDA the CLI and the library entry points raise unless the
+    caller asks for the CPU; nothing falls back quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    js, _, _, _, pos, quat = shells_scene(2)
+    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz")
+    monkeypatch.chdir(tmp_path)
+    for call in (lambda: tsys.make_state(pos, quat),
+                 lambda: tsys.from_reference(js, pos, quat),
+                 lambda: tinput.build_system(tinput.read_input(inp),
+                                             base_dir=tmp_path),
+                 lambda: tcli.main(["--input-file", str(inp)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not os.path.exists(tmp_path / "run.inputfile")
+    assert tsys.make_state(pos, quat, device="cpu").pos.device.type == "cpu"
 
 
 def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels K1 (every coupling) and K2 against their
-plain PyTorch versions, on the card. Every test here is marked `gpu` and
+"""Hand-written CUDA kernels K1 (every coupling), K2, K5 and K6 against
+their plain PyTorch versions, on the card. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+from rigidmultiblobswall_tpu_torch.ops import cells, ewald
 from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
 from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
 
@@ -150,3 +152,119 @@ def test_k1_coupling_wrappers_reject_bad_input(cuda, coupling):
         pk.pair_matvec(q.half(), q.half(),
                        torch.zeros((4, nc), device=cuda).half(),
                        coupling=coupling, wall=True, self_interaction=True)
+
+
+# ---------------------------------------------------------------------------
+# K5 (linked-cell forces) and K6 (near-field RPY) on the cells of a
+# periodic box
+# ---------------------------------------------------------------------------
+
+BOUNDS = [(torch.float32, 3e-6), (torch.float64, 1e-12)]
+
+
+def _cell_scene(cuda, n, L, dims, cap, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0, L, (n, 3))
+    r[7] = r[6]                              # a coincident pair
+    r[9] = r[8] + 0.05                       # closer than 2a
+    pos = torch.as_tensor(r, dtype=dtype, device=cuda)
+    table, slot, _, dropped = cells.cell_bin(pos, (L, L, L), dims, cap)
+    return pos, table, slot, int(dropped)
+
+
+def _k5(cuda, n, L, dims, cap, dtype, seed=0):
+    pos, table, slot, dropped = _cell_scene(cuda, n, L, dims, cap, dtype,
+                                            seed)
+    kw = dict(eps_over_b=0.2 / 0.25, inv_b=1 / 0.25, two_a=0.4)
+    before = ck.LAUNCHES["nl_forces"]
+    got = ck.nl_forces(pos, table, dims, (L, L, L), cap, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["nl_forces"] == before + 1
+    ref = ck.nl_forces_plain(pos.double(), table, dims, (L, L, L), cap,
+                             **kw)
+    err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+    return err, got, slot, dropped
+
+
+@pytest.mark.parametrize("dtype, bound", BOUNDS)
+@pytest.mark.parametrize("dims", [(6, 6, 6), (4, 4, 4)])
+def test_k5_matches_plain(cuda, dims, dtype, bound):
+    L = 12.0
+    err, _, _, dropped = _k5(cuda, 1500, L, dims, 64, dtype)
+    assert dropped == 0 and err <= bound
+
+
+def test_k5_overflowing_cell_rows_are_zero(cuda):
+    dims, cap = (5, 5, 5), 4
+    err, got, slot, dropped = _k5(cuda, 900, 10.0, dims, cap,
+                                  torch.float64, seed=1)
+    assert dropped > 0 and err <= 1e-12
+    gone = slot == 125 * cap
+    assert bool((got[gone] == 0).all())
+
+
+def _k6(cuda, n_rhs, dtype, n=1500, L=12.0, cap=64, seed=2):
+    p = ewald.default_params(0.3, 1.0, (L, L, L), tol=1e-4,
+                             cell_capacity=cap)     # r_cut 1.8
+    dims = tuple(int(L // p.r_cut) for _ in range(3))
+    pos, table, slot, dropped = _cell_scene(cuda, n, L, dims, cap, dtype,
+                                            seed)
+    cheb = torch.as_tensor(ewald._host_cheb(p)[0], dtype=dtype,
+                           device=cuda).contiguous()
+    f = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(n, 3 * n_rhs)), dtype=dtype, device=cuda)
+    kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
+    key = f"near_rpy_b{n_rhs}"
+    before = ck.LAUNCHES[key]
+    got = ck.near_rpy(pos, f, table, dims, p.box, cap, cheb, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[key] == before + 1
+    ref = ck.near_rpy_plain(pos.double(), f.double(), table, dims, p.box,
+                            cap, cheb.double(), **kw)
+    err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+    return err, got, slot, dropped, dims
+
+
+@pytest.mark.parametrize("dtype, bound", BOUNDS)
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_k6_matches_plain(cuda, n_rhs, dtype, bound):
+    err, _, _, dropped, dims = _k6(cuda, n_rhs, dtype)
+    assert dropped == 0 and min(dims) >= 4 and err <= bound
+
+
+def test_k6_exactly_four_cells_and_overflow(cuda):
+    err, got, slot, dropped, dims = _k6(cuda, 2, torch.float64, n=2500,
+                                        L=7.3, cap=6, seed=4)
+    assert dims == (4, 4, 4) and dropped > 0 and err <= 1e-12
+    assert bool((got[slot == 64 * 6] == 0).all())
+
+
+def test_cell_wrappers_reject_bad_input(cuda):
+    dims, cap, L = (4, 4, 4), 4, 8.0
+    pos, table, _, _ = _cell_scene(cuda, 50, L, dims, cap, torch.float32)
+    kw5 = dict(eps_over_b=1.0, inv_b=1.0, two_a=0.5)
+    with pytest.raises(ValueError):                    # wrong device
+        ck.nl_forces(pos.to("meta"), table, dims, (L,) * 3, cap, **kw5)
+    with pytest.raises(TypeError):                     # dtype
+        ck.nl_forces(pos.half(), table, dims, (L,) * 3, cap, **kw5)
+    with pytest.raises(ValueError):                    # table dtype
+        ck.nl_forces(pos, table.long(), dims, (L,) * 3, cap, **kw5)
+    with pytest.raises(ValueError):                    # too few cells
+        ck.nl_forces(pos, table[:27 * cap].contiguous(), (3, 3, 3),
+                     (L,) * 3, cap, **kw5)
+    with pytest.raises(ValueError):                    # not contiguous
+        ck.nl_forces(torch.zeros((3, 50), device=cuda).t(), table, dims,
+                     (L,) * 3, cap, **kw5)
+    cheb = torch.zeros((2, 2, 8), device=cuda)
+    kw6 = dict(two_a=0.5, r_cut=1.9)
+    for f in (torch.zeros((50, 9), device=cuda),          # B = 3
+              torch.zeros((50, 4), device=cuda),          # ragged
+              torch.zeros((49, 3), device=cuda),          # rows
+              torch.zeros((3, 50), device=cuda).t(),      # not contiguous
+              torch.zeros((50, 3), device=cuda).double()):  # mixed dtype
+        with pytest.raises(ValueError):
+            ck.near_rpy(pos, f, table, dims, (L,) * 3, cap, cheb, **kw6)
+    with pytest.raises(ValueError):                    # K > 32
+        ck.near_rpy(pos, torch.zeros((50, 3), device=cuda), table, dims,
+                    (L,) * 3, cap, torch.zeros((2, 2, 33), device=cuda),
+                    **kw6)

@@ -50,7 +50,7 @@ def shells_scene(n_bodies=3, seed=0, nb=12, **overrides):
                        count=n_bodies)
     jsystem = jsys.System(types=(jt,), **kw)
     jstate = jsys.make_state(pos, quat)
-    tsystem, tstate = tsys.from_reference(jsystem, pos, quat)
+    tsystem, tstate = tsys.from_reference(jsystem, pos, quat, device="cpu")
     return jsystem, jstate, tsystem, tstate, pos, quat
 
 
