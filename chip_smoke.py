@@ -9,7 +9,8 @@ is non-zero and no result line is printed):
   1. device: requires CUDA (never falls back to the CPU); prints the
      card's name and power limit from nvidia-smi;
   2. build: compiles kernel K1 (csrc/pair_tt.cu, csrc/pair_couplings.cu
-     on csrc/pair_blocks.cuh) and K2 (csrc/blob_forces.cu) with one nvcc
+     on csrc/pair_blocks.cuh), K2 (csrc/blob_forces.cu), K3
+     (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu), K5 and K6 with one nvcc
      per source, all started together, into build/kernels/; prints the
      ptxas registers and spills of every kernel instance;
   3. kernels against their plain PyTorch versions on the card: every K1
@@ -38,9 +39,21 @@ is non-zero and no result line is printed):
      cells, float64), then one warm-up step and three timed steps with
      the launch counts of K1, K2, K5 and K6 (B = 1 / 2) over the run;
      last, the same configuration through the CLI (its ms per step).
+  9. the materialized path at full width (multibody-12k-dense): 1024
+     twelve-blob shells = 12,288 blobs, bench.py's multibody physics,
+     float32; stochastic_Slip_Trapz and stochastic_adams_bashforth, one
+     warm-up and three timed steps each, on the materialized engine (K3
+     builds, K4 products) and again with MATERIALIZE_BUDGET_BYTES = 0
+     (matrix-free on K1); ms/step, solver counts, launches per step and
+     peak device memory of each.
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
-phase 4 the spectral slice (27 shells, Slip-Trapz) on the card against
-the CPU, and phase 5 the CLI on a generated periodic_spectral input.
+and K3 and K4 (float32 and float64, N below one tile and N off the tile
+edges; K4 bit-identical on repeat and blind to NaN in its strictly-lower
+tiles) at small N and at the 12,288 blobs of phase 9; phase 4 the
+spectral slice (27 shells, Slip-Trapz) on the card against the CPU (the
+8-shell slice runs on K3/K4); phase 5 the CLI on a generated
+periodic_spectral input and the body_mobility and resistance modes on a
+generated 64-shell input (card float64 against CPU float64).
 The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak);
@@ -84,6 +97,13 @@ PEAK_F32_FLOPS = 67e12
 # bound that the log prints beside it)
 K1_PAIR_FLOPS = {"tt": 80, "tr": 80, "rt": 80, "rr": 80, "grand": 320}
 FORCE_PAIR_FLOPS = 22
+# K3: tt's ~70 per pair to condense plus ~20 to expand and scale the 3x3
+# block; K4: two FMAs per matrix value read (the row and the transposed
+# product)
+K3_PAIR_FLOPS = 90
+# the materialized path: 1024 shells = 12,288 blobs, 5.06 GiB a matrix in
+# float32, within the 6 GiB budget
+N_DENSE = 1024
 
 
 def log(msg):
@@ -404,8 +424,10 @@ def run_steps(system, pos, quat, dtype, device, n_steps, tol):
     return state.pos.double().cpu().numpy(), aux
 
 
-def phase_slice_parity():
-    """Phase 4: 8 shells, kT = 0, 3 steps, card against CPU."""
+def phase_slice_parity(mc):
+    """Phase 4: 8 shells, kT = 0, 3 steps, card against CPU; the 96 blobs
+    take the materialized engine (K3, K4)."""
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
     pos, quat = lattice(8, seed=5)
     system = bench_system(8, kT=0.0)
     pos64, quat64 = pos.astype(np.float64), quat.astype(np.float64)
@@ -422,8 +444,11 @@ def phase_slice_parity():
     log(f"slice parity, 8 shells x 3 Slip-Trapz steps (max displacement "
         f"{disp:.3e}), max error / max displacement: GPU f64 vs CPU f64 "
         f"{e64:.3e} (bound 1e-9), GPU f32 vs CPU f64 {e32:.3e} (bound "
-        f"1e-2); gmres {aux.det_iterations}, lanczos {aux.stoch_iterations}")
+        f"1e-2); gmres {aux.det_iterations}, lanczos {aux.stoch_iterations}; "
+        f"launches {mc.DENSE_LAUNCHES}")
     check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2, "slice parity")
+    check(min(mc.DENSE_LAUNCHES.values()) > 0,
+          "the 8-shell slice did not run on K3/K4")
 
 
 def run_roller_steps(sus, r0, scheme, dtype, device, n_steps=3):
@@ -470,25 +495,13 @@ def phase_roller_parity():
 def phase_cli():
     """Phase 5: the CLI on a generated 64-shell input file, 3 steps."""
     from rigidmultiblobswall_tpu_torch import cli
-    from rigidmultiblobswall_tpu_torch.io import scene
 
     pos, quat = lattice(64, seed=0)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as d:
-        with open(os.path.join(d, "shell.vertex"), "w") as f:
-            f.write("12\n")
-            for x in shell_vertices():
-                f.write("%.16g %.16g %.16g\n" % tuple(x))
-        scene.write_clones_file(os.path.join(d, "shell.clones"), pos, quat)
-        inp = os.path.join(d, "input.dat")
-        with open(inp, "w") as f:
-            f.write("scheme stochastic_Slip_Trapz\ndt 0.001\nn_steps 3\n"
-                    "n_save 3\neta 1.0\ng 0.1\nblob_radius 0.131\nkT 0.05\n"
-                    "solver_tolerance 2e-4\nrepulsion_strength_wall 0.2\n"
-                    "debye_length_wall 0.2\nrepulsion_strength 0.2\n"
-                    "debye_length 0.2\nblob_blob_force_implementation "
-                    "python\nseed 1\noutput_name run\n"
-                    "structure shell.vertex shell.clones\n")
+        inp = write_shell_input(d, pos, quat, (
+            "scheme stochastic_Slip_Trapz\ndt 0.001\nn_steps 3\nn_save 3\n"
+            "solver_tolerance 2e-4\n"))
         os.chdir(d)
         try:
             t0 = time.perf_counter()
@@ -571,6 +584,7 @@ def phase_main_path(pk, mc):
     torch.cuda.reset_peak_memory_stats()
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
     t0 = time.perf_counter()
     state, carry, aux = step(state, gen, carry)       # warm-up
     torch.cuda.synchronize()
@@ -601,6 +615,9 @@ def phase_main_path(pk, mc):
     check(min(det) > 0 and min(sto) > 0, "no GMRES or Lanczos iterations")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
+    # 87 GB of matrix at 49,152 blobs: above the budget, matrix-free
+    check(max(mc.DENSE_LAUNCHES.values()) == 0,
+          f"K3/K4 launched above the budget: {mc.DENSE_LAUNCHES}")
     return launches
 
 
@@ -1047,6 +1064,309 @@ def phase_spectral_path(pk, mc, ck):
     return records
 
 
+def _nan_lower_tiles(m, tile):
+    """Overwrite the strictly-lower (3 tile)-edge tiles of m with NaN."""
+    t = 3 * tile
+    for i0 in range(t, m.shape[0], t):
+        m[i0:i0 + t, :i0] = float("nan")
+
+
+def _chunked_err(got, ref_fn, n_rows, chunk=3072):
+    """max |got - ref| over row chunks (ref_fn(r0, r1) gives the float64
+    reference rows) and max |ref|, without a full float64 copy."""
+    err = scale = 0.0
+    for r0 in range(0, n_rows, chunk):
+        r1 = min(r0 + chunk, n_rows)
+        ref = ref_fn(r0, r1)
+        err = max(err, (got[r0:r1].double() - ref).abs().max().item())
+        scale = max(scale, ref.abs().max().item())
+    return err, scale
+
+
+def phase_dense_kernels_small(mc):
+    """Phase 3, K3 and K4 at small N: 40 blobs (below one K4 tile and one
+    K3 block edge), 100 and 260 (off every tile edge), with blobs below a
+    and a coincident pair, wall and open, float32 at 3e-6 x max|ref| and
+    float64 at 1e-12 against the plain versions in float64; K4 with B = 1
+    and 2 twice on the same input bit-identical, and unchanged with its
+    strictly-lower tiles overwritten by NaN."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(8)
+    for n in (40, 100, 260):
+        r = np.empty((n, 3))
+        r[:, :2] = rng.uniform(0, 5, (n, 2))
+        r[:, 2] = rng.uniform(0.05, 4, n)
+        r[9] = r[8]
+        v = rng.normal(size=(n, 3))
+        v2 = rng.normal(size=(2, n, 3))
+        for dtype, bound in ((torch.float32, 3e-6), (torch.float64, 1e-12)):
+            rt = torch.as_tensor(r, dtype=dtype, device=dev)
+            vt = torch.as_tensor(v, dtype=dtype, device=dev)
+            v2t = torch.as_tensor(v2, dtype=dtype, device=dev)
+            for wall in (True, False):
+                m = mc.dense_tt(rt, 1.0, 0.3, wall=wall)
+                torch.cuda.synchronize()
+                ref = mc.dense_tt_plain(rt.double(), 1.0, 0.3, wall=wall)
+                e3 = ((m.double() - ref).abs().max() / ref.abs().max()).item()
+                u = mc.symm_matvec(m, vt)
+                torch.cuda.synchronize()
+                uref = mc.symm_matvec_plain(m.double(), vt.double())
+                e4 = ((u.double() - uref).abs().max()
+                      / uref.abs().max()).item()
+                u2 = mc.symm_matvec(m, v2t)            # B = 2
+                torch.cuda.synchronize()
+                uref2 = mc.symm_matvec_plain(m.double(), v2t.double())
+                e42 = ((u2.double() - uref2).abs().max()
+                       / uref2.abs().max()).item()
+                same = (torch.equal(mc.symm_matvec(m, vt), u)
+                        and torch.equal(mc.symm_matvec(m, v2t), u2))
+                _nan_lower_tiles(m, mc.SYMM_TILE)
+                blind = (torch.equal(mc.symm_matvec(m, vt), u)
+                         and torch.equal(mc.symm_matvec(m, v2t), u2))
+                log(f"K3/K4 {n} blobs wall={wall} {dtype}: max err / "
+                    f"max|ref| K3 {e3:.3e}, K4 {e4:.3e}, K4 B=2 {e42:.3e} "
+                    f"(bound {bound:g}); K4 repeat bit-identical {same}, NaN "
+                    f"lower tiles unchanged {blind}")
+                check(e3 <= bound and e4 <= bound and e42 <= bound,
+                      f"K3/K4 disagree with plain ({e3:.3e}, {e4:.3e}, "
+                      f"{e42:.3e})")
+                check(same and blind, "K4 not deterministic or read a "
+                      "strictly-lower tile")
+
+
+def phase_dense_kernels(pk, mc, mob, kin, make_state):
+    """Phase 3 at the materialized path's shape: 12,288 blobs of the
+    1024-shell lattice, float32. K3 against its plain version in float64,
+    K4 with B = 1 and B = 2 against the float64 product of the same
+    float32 matrix, both twice bit-identical and blind to NaN lower tiles
+    (3e-6 x max|ref|); the times of K3, K4, the
+    plain versions, torch.mv (K4's library call), K4 with B = 2 beside
+    torch.matmul on the same pair, and K1 tt at the same shape. Returns
+    the kernel records."""
+    dev = torch.device(DEVICE)
+    system = bench_system(N_DENSE)
+    pos, quat = lattice(N_DENSE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state).contiguous()
+    n = r.shape[0]
+    n3 = 3 * n
+    eta, a = system.eta, A_BENCH
+    records = {}
+    m = mc.dense_tt(r, eta, a, wall=True)
+    torch.cuda.synchronize()
+    ref = mc.dense_tt_plain(r.double(), eta, a, wall=True)
+    err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
+    del ref
+    ms = cuda_ms(lambda: mc.dense_tt(r, eta, a, wall=True), 5)
+    plain_ms = cuda_ms(lambda: mc.dense_tt_plain(r, eta, a, wall=True), 1,
+                       warmup=False)
+    records["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound_record(4 * (n3 * n3 + n3),
+                                        n * n * K3_PAIR_FLOPS))
+    log(f"K3 {n} blobs f32 vs plain f64: max err {err:.3e}, / max|ref| = "
+        f"{err / scale:.3e} (bound 3e-6); kernel {ms:.3f} ms, plain f32 "
+        f"{plain_ms:.1f} ms, bound {records['K3']['bound_ms']:.3f} ms "
+        f"({records['K3']['bound_by']}); matrix {m.numel() * 4 / 2**30:.2f} "
+        f"GiB")
+    check(err <= 3e-6 * scale, f"K3 disagrees at {n} blobs")
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    v = torch.randn((n, 3), generator=g, device=dev)
+    u = mc.symm_matvec(m, v)
+    torch.cuda.synchronize()
+    vd = v.double().reshape(-1)
+    err, scale = _chunked_err(u.reshape(-1, 1),
+                              lambda r0, r1: (m[r0:r1].double() @ vd)[:, None],
+                              n3)
+    # B = 2, the lockstep sweeps' instance, against the float64 product of
+    # the same float32 matrix with both columns
+    V2 = torch.randn((2, n, 3), generator=g, device=dev)
+    u2 = mc.symm_matvec(m, V2)
+    torch.cuda.synchronize()
+    V2d = V2.double().reshape(2, n3).T
+    err2, scale2 = _chunked_err(u2.reshape(2, n3).T,
+                                lambda r0, r1: m[r0:r1].double() @ V2d, n3)
+    ms = cuda_ms(lambda: mc.symm_matvec(m, v), 20)
+    plain_ms = cuda_ms(lambda: mc.symm_matvec_plain(m, v), 20)
+    lib_ms = cuda_ms(lambda: torch.mv(m, v.reshape(-1)), 20)
+    k4b2_ms = cuda_ms(lambda: mc.symm_matvec(m, V2), 20)
+    V2t = V2.reshape(2, n3).T
+    mm_ms = cuda_ms(lambda: torch.matmul(m, V2t), 20)
+    q = (mob.shift_heights(r, a) / a).contiguous()
+    k1_ms = cuda_ms(lambda: pk.pair_matvec(q, q, v, coupling="tt", wall=True,
+                                           self_interaction=True), 20)
+    upper = n3 * (n3 + 1) // 2
+    # max_abs_err is the larger of the B = 1 and B = 2 instances' errors
+    rec = dict(max_abs_err=max(err, err2), ms=ms, plain_ms=plain_ms,
+               **bound_record(4 * (upper + 2 * n3), 4 * upper))
+    rec["library_ms"] = lib_ms
+    records["K4"] = rec
+    same = (torch.equal(mc.symm_matvec(m, v), u)
+            and torch.equal(mc.symm_matvec(m, V2), u2))
+    _nan_lower_tiles(m, mc.SYMM_TILE)
+    blind = (torch.equal(mc.symm_matvec(m, v), u)
+             and torch.equal(mc.symm_matvec(m, V2), u2))
+    log(f"K4 {n} blobs f32 vs plain f64: max err {err:.3e}, / max|ref| = "
+        f"{err / scale:.3e}, B = 2 max err {err2:.3e}, / max|ref| = "
+        f"{err2 / scale2:.3e} (bound 3e-6); kernel {ms:.3f} ms, plain "
+        f"(torch.mv) {plain_ms:.3f} ms, library torch.mv {lib_ms:.3f} ms, "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}); B = 2: K4 "
+        f"{k4b2_ms:.3f} ms, torch.matmul {mm_ms:.3f} ms; K1 tt matrix-free "
+        f"product {k1_ms:.3f} ms; B = 1 and 2 "
+        f"repeat bit-identical {same}, NaN lower tiles unchanged {blind}")
+    check(err <= 3e-6 * scale and err2 <= 3e-6 * scale2,
+          f"K4 disagrees at {n} blobs (B = 1 {err / scale:.3e}, B = 2 "
+          f"{err2 / scale2:.3e})")
+    check(same and blind, "K4 not deterministic or read a lower tile")
+    return records
+
+
+def write_shell_input(d, pos, quat, settings):
+    """An input file of twelve-blob shells above the wall in directory d
+    with bench.py's multibody physics; returns its path."""
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    with open(os.path.join(d, "shell.vertex"), "w") as f:
+        f.write("12\n")
+        for x in shell_vertices():
+            f.write("%.16g %.16g %.16g\n" % tuple(x))
+    scene.write_clones_file(os.path.join(d, "shell.clones"), pos, quat)
+    inp = os.path.join(d, "input.dat")
+    with open(inp, "w") as f:
+        f.write(settings + "eta 1.0\ng 0.1\nblob_radius 0.131\nkT 0.05\n"
+                "repulsion_strength_wall 0.2\ndebye_length_wall 0.2\n"
+                "repulsion_strength 0.2\ndebye_length 0.2\n"
+                "blob_blob_force_implementation python\nseed 1\n"
+                "output_name run\nstructure shell.vertex shell.clones\n")
+    return inp
+
+
+def phase_dense_cli():
+    """Phase 5, the static dense modes: body_mobility and resistance on a
+    generated 64-shell input, on the card in float64 against the CPU in
+    float64 (1e-9 x max|ref|)."""
+    from rigidmultiblobswall_tpu_torch import cli
+
+    pos, quat = lattice(64, seed=2)
+    u = np.random.default_rng(9).normal(size=(64, 6))
+    cwd = os.getcwd()
+    outs = {}
+    with tempfile.TemporaryDirectory() as d:
+        np.savetxt(os.path.join(d, "velocity.dat"), u)
+        for scheme, names in (("body_mobility", ("body_mobility",
+                                                 "body_slip_mobility")),
+                              ("resistance", ("force",))):
+            inp = write_shell_input(d, pos, quat, (
+                f"scheme {scheme}\nvelocity_file velocity.dat\n"))
+            os.chdir(d)
+            try:
+                for device in (DEVICE, "cpu"):
+                    t0 = time.perf_counter()
+                    cli.main(["--input-file", inp, "--f64", "--device",
+                              device])
+                    secs = time.perf_counter() - t0
+                    for name in names:
+                        outs[name, device] = np.loadtxt(f"run.{name}.dat")
+                    log(f"CLI {scheme} 64 shells f64 on {device}: "
+                        f"{secs:.2f} s")
+            finally:
+                os.chdir(cwd)
+    for name in ("body_mobility", "body_slip_mobility", "force"):
+        got, ref = outs[name, DEVICE], outs[name, "cpu"]
+        rel = np.abs(got - ref).max() / np.abs(ref).max()
+        log(f"CLI .{name}.dat {got.shape}: card vs CPU max err / max|ref| "
+            f"= {rel:.3e} (bound 1e-9)")
+        check(np.all(np.isfinite(got)) and rel <= 1e-9,
+              f"CLI .{name}.dat card vs CPU")
+
+
+def run_dense_path(system, scheme, pos, quat, pk, mc, n_timed=3):
+    """One warm-up and n_timed steps of `scheme` at the configuration;
+    returns the per-step records and the kernels' launch counts."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    dev = torch.device(DEVICE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    step = integrators.make_stepper(
+        system, scheme, 1e-3, lanczos_tolerance=5e-4, lanczos_max_iter=32,
+        lanczos_check_every=4, gmres_restart=60, gmres_maxiter=300,
+        max_rejections=3)
+    carry = integrators.init_carry(system, state=state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    t0 = time.perf_counter()
+    state, carry, aux = step(state, gen, carry)           # warm-up
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    det, sto, rej = [aux.det_iterations], [aux.stoch_iterations], \
+        [aux.rejections]
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, carry, aux = step(state, gen, carry)
+        det.append(aux.det_iterations)
+        sto.append(aux.stoch_iterations)
+        rej.append(aux.rejections)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = dict(mc.DENSE_LAUNCHES, K1_tt=pk.LAUNCHES["tt"],
+                    K2=mc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(state.pos).all()),
+          f"{scheme}: positions not finite")
+    check(min(det) > 0 and min(sto) > 0, f"{scheme}: no solver iterations")
+    return dict(ms=ms, warm_ms=warm_ms, det=det, sto=sto, rej=rej,
+                peak=peak), launches
+
+
+def phase_dense_path(pk, mc):
+    """Phase 9, multibody-12k-dense: bench.py's multibody configuration at
+    1024 shells (12,288 blobs), float32, Slip-Trapz and stochastic AB on
+    the materialized engine and again matrix-free (budget 0). The engines'
+    GMRES sweeps agree within one per solve and their Lanczos iterations
+    within one check interval (4). Returns the launch counts of the
+    materialized Slip-Trapz run (4 steps)."""
+    from rigidmultiblobswall_tpu_torch.models import saddle
+
+    system = bench_system(N_DENSE)
+    pos, quat = lattice(N_DENSE)
+    budget = saddle.MATERIALIZE_BUDGET_BYTES
+    n_solves = {"stochastic_Slip_Trapz": 2, "stochastic_adams_bashforth": 3}
+    out = {}
+    try:
+        for scheme in n_solves:
+            for engine, b in (("materialized", budget), ("matrix-free", 0)):
+                saddle.MATERIALIZE_BUDGET_BYTES = b
+                rec, launches = run_dense_path(system, scheme, pos, quat, pk,
+                                               mc)
+                out[scheme, engine] = rec, launches
+                per_step = {k: v / 4 for k, v in launches.items()}
+                log(f"dense path {system.num_blobs} blobs ({N_DENSE} shells) "
+                    f"{scheme} f32, {engine}: {rec['ms']:.1f} ms/step over 3 "
+                    f"steps (warm-up {rec['warm_ms']:.1f} ms); gmres "
+                    f"{rec['det']}, lanczos {rec['sto']}, rejections "
+                    f"{rec['rej']}; launches per step {per_step}; peak "
+                    f"device memory {rec['peak']:.2f} GiB")
+    finally:
+        saddle.MATERIALIZE_BUDGET_BYTES = budget
+    for scheme, k in n_solves.items():
+        dense, free = out[scheme, "materialized"], out[scheme, "matrix-free"]
+        check(min(dense[1]["dense_tt"], dense[1]["symm_matvec"]) > 0,
+              f"{scheme}: K3/K4 not launched on the materialized path")
+        check(max(free[1]["dense_tt"], free[1]["symm_matvec"]) == 0,
+              f"{scheme}: K3/K4 launched with a zero budget")
+        dd = [abs(x - y) for x, y in zip(dense[0]["det"], free[0]["det"])]
+        ds = [abs(x - y) for x, y in zip(dense[0]["sto"], free[0]["sto"])]
+        check(max(dd) <= k and max(ds) <= 4,
+              f"{scheme}: engines' solver counts differ (gmres {dd}, "
+              f"lanczos {ds})")
+    return out["stochastic_Slip_Trapz", "materialized"][1]
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1082,12 +1402,15 @@ def main():
     records = phase_kernels(pk, mc, mob, kin, make_state)   # phase 3
     records.update(phase_roller_kernels(pk, mob))
     phase_cell_kernels(ck, cells, ewald)
-    phase_slice_parity()                                    # phase 4
+    phase_dense_kernels_small(mc)
+    records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
+    phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
+    phase_dense_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -1096,6 +1419,7 @@ def main():
                      if k not in launches})
     spectral = phase_spectral_path(pk, mc, ck)              # phase 8
     phase_spectral_cli_full()
+    dense_launches = phase_dense_path(pk, mc)               # phase 9
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     kernels = [dict(name=f"K1 pair_{c}", route="cuda",
@@ -1110,6 +1434,16 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
         replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:180",
         launches=launches["K2"], **records["K2"]))
+    kernels.append(dict(
+        name="K3 dense_tt", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/dense_tt.cu",
+        replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:81",
+        launches=dense_launches["dense_tt"], **records["K3"]))
+    kernels.append(dict(
+        name="K4 symm_planes", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/symm_planes.cu",
+        replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:259",
+        launches=dense_launches["symm_matvec"], **records["K4"]))
     kernels.append(dict(
         name="K5 nl_forces", route="cuda",
         source="rigidmultiblobswall_tpu_torch/csrc/nl_forces.cu",

@@ -5,9 +5,18 @@ Counterpart of rigidmultiblobswall_tpu/cli.py for the ported modes, with
 the same input files and output formats:
   - scheme 'mobility': one static solve, writes .velocity.dat and
     .force.dat;
+  - scheme 'resistance': the force-torques of prescribed body velocities
+    (velocity_file, zero without one), .force.dat;
+  - scheme 'body_mobility': the (6B, 6B) body mobility and the body slip
+    mobility N K^T M^{-1}, .body_mobility.dat and .body_slip_mobility.dat
+    (its .Laplace double-layer correction waits for ROADMAP Queue 1, item
+    18: input files with .Laplace files are refused);
   - the dynamic schemes of models/integrators.py: per-step .clones (or
     one .config file with save_clones one_file), .info (iteration and
-    rejection counters) and .time;
+    rejection counters) and .time; options save_blobs_mobility and
+    save_body_mobility dump the dense blob and body mobilities with every
+    saved frame; update_PC > 1 refactors the preconditioner every
+    update_PC steps;
   - the roller schemes (`*_rollers`, models/rollers.py; the reference's
     main_rollers.py): options free_kinematics, omega_one_roller and
     hydro_interactions, .clones every n_save steps and .info with the
@@ -20,7 +29,7 @@ runs size the spectral engine's cell capacity and the linked-cell force
 capacity at the start, as the JAX CLI does, and report steps that still
 dropped particles in .info (capacity_overflow_steps).
 
-The other static modes, MCMC, lubrication, articulated rollers,
+MCMC, lubrication, articulated rollers,
 velocity-field output, .random_state and user_defined_functions.py hooks
 are still to be ported (ROADMAP Queue 1, items 11-18).
 """
@@ -99,12 +108,33 @@ def main(argv=None):
         force = kin.KT_mul(system, state, sol.lam).cpu().numpy()
         np.savetxt(cfg.output_name + ".force.dat", force, delimiter="  ")
         print("Time to solve mobility problem =", time.time() - start_time)
-    elif cfg.scheme in ("resistance", "body_mobility", "body_mcmc", "MCMC",
-                        "body_mcmc_rejection") \
+    elif cfg.scheme == "resistance":
+        velocity = np.zeros((system.num_bodies, 6))
+        if cfg.velocity_file is not None:
+            velocity = np.loadtxt(cfg.velocity_file).reshape(
+                system.num_bodies, 6)
+        force = solvers.solve_resistance(
+            system, state, torch.as_tensor(velocity, dtype=dtype,
+                                           device=device))
+        np.savetxt(cfg.output_name + ".force.dat", force.cpu().numpy(),
+                   delimiter="  ")
+        print("Time to solve resistance problem =", time.time() - start_time)
+    elif cfg.scheme == "body_mobility":
+        N = solvers.solve_body_mobility(system, state)
+        np.savetxt(cfg.output_name + ".body_mobility.dat", N.cpu().numpy(),
+                   delimiter="  ")
+        # slip mobility N K^T M^{-1}
+        M = solvers.dense_blob_mobility(system, state)
+        K = solvers._dense_K(system, state)
+        slip_mob = N @ K.T @ torch.linalg.inv(M)
+        np.savetxt(cfg.output_name + ".body_slip_mobility.dat",
+                   slip_mob.cpu().numpy(), delimiter="  ")
+        print("Time to compute body mobility =", time.time() - start_time)
+    elif cfg.scheme in ("body_mcmc", "MCMC", "body_mcmc_rejection") \
             or cfg.scheme.startswith("lubrication"):
         raise NotImplementedError(
             f"scheme {cfg.scheme!r} is not ported yet (ROADMAP Queue 1, "
-            "items 11-18)")
+            "items 16 and 18)")
     elif (cfg.scheme.endswith("_rollers")
           and not cfg.scheme.startswith("articulated_")):
         _run_rollers(cfg, system, state)
@@ -182,7 +212,27 @@ def _run_dynamic(cfg, system, state, args, start_time):
                                     gmres_maxiter=gmres_maxiter,
                                     update_PC=cfg.update_PC,
                                     verbose=args.print_residual)
-    carry = integrators.init_carry(system, state=state)
+    carry = (integrators.init_carry_with_pc(system, state)
+             if cfg.update_PC > 1
+             else integrators.init_carry(system, state=state))
+
+    def save_mobilities(step_idx, state):
+        """The dense blob and body mobilities of a saved frame."""
+        want_blobs = cfg.options.get("save_blobs_mobility") == "True"
+        want_body = cfg.options.get("save_body_mobility") == "True"
+        if not (want_blobs or want_body):
+            return
+        M = solvers.dense_blob_mobility(system, state)
+        if want_blobs:
+            np.savetxt("%s.blobs_mobility.%08d.dat" % (cfg.output_name,
+                                                       step_idx),
+                       M.cpu().numpy(), delimiter="  ")
+        if want_body:
+            K = solvers._dense_K(system, state)
+            N = torch.linalg.pinv(K.T @ torch.linalg.inv(M) @ K)
+            np.savetxt("%s.body_mobility.%08d.dat" % (cfg.output_name,
+                                                      step_idx),
+                       N.cpu().numpy(), delimiter="  ")
 
     def save_clones(step_idx, state):
         offs = system.body_offsets
@@ -210,6 +260,7 @@ def _run_dynamic(cfg, system, state, args, start_time):
             print("Integrator = %s, step = %d, wallclock = %.2fs" % (
                 cfg.scheme, step_idx, time.time() - start_time))
             save_clones(step_idx, state)
+            save_mobilities(step_idx, state)
         state, carry, aux = step(state, generator, carry)
         det_iters += aux.det_iterations
         stoch_iters += aux.stoch_iterations
@@ -226,6 +277,7 @@ def _run_dynamic(cfg, system, state, args, start_time):
                   "blob_blob_cell_capacity)"
                   % (step_idx, aux.capacity_overflows), file=sys.stderr)
     save_clones(cfg.n_steps, state)
+    save_mobilities(cfg.n_steps, state)
     with open(cfg.output_name + ".info", "w") as f:
         f.write("invalid_configuration_count      %d\n" % rejections)
         f.write("deterministic_iterations_count   %d\n" % det_iters)

@@ -1,0 +1,151 @@
+// Kernel K3: materialize the tt mobility of one configuration (RPY core
+// plus the Swan-Brady wall terms) as the interleaved (3N, 3N) matrix
+// M[3i+a, 3j+b], with the overlap regularization folded in: heights
+// shifted to max(z, a), the factor 1/(8 pi eta a) and the damping
+// min(z_i/a, 1) min(z_j/a, 1), so the matrix is written once.
+//
+// Replaces the Pallas TPU kernel rigidmultiblobswall_tpu/ops/
+// mobility_pallas.py (_dense_kernel; wrapper dense_tt_pallas) together with
+// the scaling pass its caller applies (models/saddle.py:130-139). The TPU
+// writes (3,3,N,N) component planes to avoid padding a minor length-3 axis;
+// the interleaved layout here lets the stacked products run as one matmul.
+//
+// What bounds it on the H100: the bytes written, 9 N^2 values (5.4 GB in
+// float32 at 12,288 blobs, ~1.6 ms at 3.35 TB/s), against ~100 operations
+// per pair (~0.2 ms of float32 issue). Design: a block owns a 16-target by
+// 32-source tile; it stages the 48 blob coordinates (normalized and shifted
+// here) in shared memory, condenses every pair with pair_blocks.cuh's
+// tt_condense (the arithmetic of kernel K1 tt), expands the 3x3 blocks into
+// a 48 x 96 shared tile, and writes that tile row by row: each warp stores
+// 32 consecutive values of one matrix row. Ragged edges are masked by
+// index; blobs past the end are staged as (0, 0, 1), the padding of
+// dense_tt_pallas. The self pair (i == j) and coincident distinct blobs
+// take the rules of _core_fields (core 4/3 and 0), the wall terms at the
+// self geometry being the wall self-mobility.
+
+#include <cuda_runtime.h>
+
+#include "pair_blocks.cuh"
+
+namespace {
+
+constexpr int kTI = 16;              // target blobs of a block
+constexpr int kTJ = 32;              // source blobs of a block
+constexpr int kThreads = 256;
+constexpr int kRows = 3 * kTI;       // 48 matrix rows
+constexpr int kCols = 3 * kTJ;       // 96 matrix columns
+constexpr int kPitch = kCols + 1;
+
+// stage blob g: q = (x, y, max(z, a)) / a and its damping min(z/a, 1) (1
+// without the wall)
+template <typename T, bool WALL>
+__device__ __forceinline__ void stage(const T* __restrict__ r, int g, int n,
+                                      T a, T* q4) {
+  if (g >= n) {
+    q4[0] = T(0);
+    q4[1] = T(0);
+    q4[2] = T(1);
+    q4[3] = T(1);
+    return;
+  }
+  const T inv_a = T(1) / a;
+  const T z = r[3 * g + 2];
+  q4[0] = r[3 * g + 0] * inv_a;
+  q4[1] = r[3 * g + 1] * inv_a;
+  q4[2] = (WALL ? max(z, a) : z) * inv_a;
+  q4[3] = WALL ? min(z / a, T(1)) : T(1);
+}
+
+template <typename T, bool WALL>
+__global__ void __launch_bounds__(kThreads)
+dense_tt_kernel(const T* __restrict__ r, T* __restrict__ out, int n, T a,
+                T pref) {
+  // a pitch of 5 keeps the per-lane source reads free of bank conflicts
+  __shared__ T s_tgt[kTI][5];
+  __shared__ T s_src[kTJ][5];
+  __shared__ T s_m[kRows][kPitch];
+
+  const int i0 = blockIdx.y * kTI;
+  const int j0 = blockIdx.x * kTJ;
+  const int tid = threadIdx.x;
+  if (tid < kTI) stage<T, WALL>(r, i0 + tid, n, a, s_tgt[tid]);
+  else if (tid < kTI + kTJ)
+    stage<T, WALL>(r, j0 + tid - kTI, n, a, s_src[tid - kTI]);
+  __syncthreads();
+
+  for (int p = tid; p < kTI * kTJ; p += kThreads) {
+    const int li = p / kTJ;
+    const int lj = p % kTJ;
+    const T* t = s_tgt[li];
+    const T* s = s_src[lj];
+    pairk::Pair<T> pp;
+    pp.dx = t[0] - s[0];
+    pp.dy = t[1] - s[1];
+    pp.dz = t[2] - s[2];
+    pp.xy2 = pp.dx * pp.dx + pp.dy * pp.dy;
+    pp.r2 = pp.xy2 + pp.dz * pp.dz;
+    pp.self = (i0 + li == j0 + lj);
+    pp.zero = pp.self || (pp.r2 == T(0));
+    if (WALL) {
+      pp.zt = t[2];
+      pp.zs = s[2];
+      pp.Rz = t[2] + s[2];
+    }
+    const pairk::Diag<T> m = pairk::tt_condense<T, WALL>(pp);
+    const T scale = pref * t[3] * s[3];
+    // the 3x3 block of diag_apply: (m v)_x = dx (S (dx vx + dy vy) + P vz)
+    // + A vx, ..., (m v)_z = Q (dx vx + dy vy) + mzz vz
+    const T sdx = m.S * pp.dx, sdy = m.S * pp.dy;
+    T* row = &s_m[3 * li][3 * lj];
+    row[0] = (pp.dx * sdx + m.A) * scale;
+    row[1] = (pp.dx * sdy) * scale;
+    row[2] = (pp.dx * m.P) * scale;
+    row += kPitch;
+    row[0] = (pp.dy * sdx) * scale;
+    row[1] = (pp.dy * sdy + m.A) * scale;
+    row[2] = (pp.dy * m.P) * scale;
+    row += kPitch;
+    row[0] = (m.Q * pp.dx) * scale;
+    row[1] = (m.Q * pp.dy) * scale;
+    row[2] = m.mzz * scale;
+  }
+  __syncthreads();
+
+  const size_t ld = 3 * static_cast<size_t>(n);
+  for (int e = tid; e < kRows * kCols; e += kThreads) {
+    const int rr = e / kCols;
+    const int cc = e % kCols;
+    if (i0 + rr / 3 < n && j0 + cc / 3 < n)
+      out[(3 * static_cast<size_t>(i0) + rr) * ld + 3 * static_cast<size_t>(j0)
+          + cc] = s_m[rr][cc];
+  }
+}
+
+template <typename T>
+int launch(const T* r, T* out, int n, double a, double pref, int wall,
+           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kTJ - 1) / kTJ, (n + kTI - 1) / kTI);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (wall)
+    dense_tt_kernel<T, true><<<grid, kThreads, 0, s>>>(r, out, n, T(a),
+                                                       T(pref));
+  else
+    dense_tt_kernel<T, false><<<grid, kThreads, 0, s>>>(r, out, n, T(a),
+                                                        T(pref));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// r (n,3) raw blob positions, out (3n,3n) row-major; both contiguous on
+// the device, n > 0. Returns the CUDA error code of the launch.
+extern "C" int dense_tt_f32(const float* r, float* out, int n, double a,
+                            double pref, int wall, void* stream) {
+  return launch<float>(r, out, n, a, pref, wall, stream);
+}
+
+extern "C" int dense_tt_f64(const double* r, double* out, int n, double a,
+                            double pref, int wall, void* stream) {
+  return launch<double>(r, out, n, a, pref, wall, stream);
+}

@@ -58,6 +58,7 @@ class InputConfig:
     domain: str = "single_wall"
     save_clones: str = "one_file_per_step"
     force_file: Optional[str] = None
+    velocity_file: Optional[str] = None
 
 
 def read_input(path) -> InputConfig:
@@ -122,6 +123,7 @@ def read_input(path) -> InputConfig:
         cfg.domain = "single_wall"
     cfg.save_clones = str(g("save_clones") or "one_file_per_step")
     cfg.force_file = g("force_file")
+    cfg.velocity_file = g("velocity_file")
 
     # restart rewiring: start from the saved frame of initial_step
     if cfg.initial_step > 0:

@@ -8,18 +8,32 @@ in the bounded wall-rejection retry (a host loop in place of the JAX
 Ported schemes:
   deterministic_forward_euler
   deterministic_adams_bashforth
+  deterministic_midpoint
+  stochastic_EM
+  stochastic_adams_bashforth
   stochastic_Slip_Trapz          (the reference's recommended scheme)
-The others, `update_PC > 1` and Krylov recycling wait for ROADMAP
-Queue 1, item 17.
+  deterministic_forward_euler_dense_algebra
+  stochastic_first_order_RFD_dense_algebra
+  Fixman
+  stochastic_Slip_Mid_DLA
+and `update_PC > 1` (the preconditioner refactored every update_PC steps;
+the carry of `init_carry_with_pc`). The other schemes and Krylov recycling
+wait for ROADMAP Queue 1, items 17-18.
 
-On periodic_spectral the carry holds the engine's plan across steps:
-each step refreshes it at its start configuration (a full rebuild past
-the drift budget), the RFD product and the corrector use it refreshed at
-their own configurations, and the noise is the positively-split sample
-(closed-form wave part plus Lanczos on the near field alone).
+Each attempt takes its mobility engine at the step's start configuration
+(`_get_m_dense`): on periodic_spectral the carry holds the engine's plan
+across steps, each step refreshes it at its start configuration (a full
+rebuild past the drift budget), the RFD products and correctors use it
+refreshed at their own configurations, and the noise is the
+positively-split sample (closed-form wave part plus Lanczos on the near
+field alone). The pairwise domains build the materialized matrix within
+saddle.MATERIALIZE_BUDGET_BYTES (kernel K3), rebuild it at a corrector's
+configuration, and take the matrix-free sweep for single RFD products, as
+the JAX package does; the carry holds no matrix.
 
 All noise comes from `draw_normal` and an explicit torch.Generator, in
-the order W_slip, grid noise (spectral), Lanczos z.
+the order the JAX scheme splits its key (Slip-Trapz: W_slip, grid noise
+(spectral), Lanczos z).
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import torch
 
 from ..ops import ewald
 from ..ops import forces as force_ops
+from ..ops import quaternion as quat
 from ..ops.lanczos import stochastic_forcing_lanczos
 from . import kinematics as kin
 from . import saddle, solvers
@@ -42,12 +57,8 @@ _NOT_PORTED = (
     "articulated_deterministic_midpoint_rollers",
     "articulated_deterministic_forward_euler",
     "articulated_deterministic_midpoint",
-    "deterministic_forward_euler_dense_algebra",
-    "stochastic_adams_bashforth", "stochastic_first_order_RFD_dense_algebra",
-    "Fixman", "stochastic_GDC_RFD", "stochastic_Slip_Mid",
-    "stochastic_Slip_Mid_DLA", "stochastic_traction_AB",
-    "deterministic_midpoint", "stochastic_EM", "stochastic_first_order_RFD",
-    "stochastic_traction_EM",
+    "stochastic_GDC_RFD", "stochastic_Slip_Mid", "stochastic_traction_AB",
+    "stochastic_first_order_RFD", "stochastic_traction_EM",
 )
 
 
@@ -121,9 +132,50 @@ def _noise_slip(system, state, pc, generator, factor, tolerance, max_iter,
     return res.noise, res.iterations
 
 
+def body_lengths(system: System, like):
+    """(B,) RFD length scale per body (body length + 2a), on the device
+    and in the dtype of `like`."""
+    return torch.cat([
+        torch.full((t.count,), t.body_length + 2.0 * system.blob_radius,
+                   dtype=like.dtype, device=like.device)
+        for t in system.types])
+
+
+def _get_pc(system, state, pc):
+    """The stepper's cached preconditioner when update_PC > 1, else one
+    factored at this state."""
+    return pc if pc is not None else saddle.build_block_diag_pc(system, state)
+
+
+def _get_m_dense(system, r_blobs, plan):
+    """The step-start engine: the carried spectral plan (refreshed at this
+    configuration by the stepper), else built at r_blobs: the
+    materialized matrix within the budget, or None (matrix-free)."""
+    if plan is not None:
+        return plan
+    return saddle.maybe_dense_mobility(system, r_blobs)
+
+
+def _rfd_displacements(system, generator, state):
+    """The random body displacement W (B,6) of the RFD schemes with its
+    length-scaled displacement and conjugate force."""
+    W = draw_normal(generator, (system.num_bodies, 6), state.pos)
+    lengths = body_lengths(system, state.pos)[:, None]
+    disp = torch.cat([W[:, :3] * lengths, W[:, 3:]], dim=1)
+    force_rfd = torch.cat([W[:, :3] / lengths, W[:, 3:]], dim=1)
+    return W, disp, force_rfd
+
+
+def _displaced(state, W, disp, delta):
+    """The state moved by delta along the RFD displacement."""
+    return State(pos=state.pos + delta * disp[:, :3],
+                 quat=quat.step(state.quat, W[:, 3:], delta))
+
+
 def _deterministic_forward_euler(system, dt, solver_kw, lanczos_kw,
-                                 generator, state, carry, plan):
-    sol = solvers.solve_mobility_problem(system, state, m_dense=plan,
+                                 generator, state, carry, plan, pc):
+    m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
+    sol = solvers.solve_mobility_problem(system, state, m_dense=m_dense,
                                          **solver_kw)
     new_state = kin.advance(state, sol.velocities, dt)
     return (new_state, sol.velocities, sol.iterations, 0,
@@ -131,8 +183,9 @@ def _deterministic_forward_euler(system, dt, solver_kw, lanczos_kw,
 
 
 def _deterministic_adams_bashforth(system, dt, solver_kw, lanczos_kw,
-                                   generator, state, carry, plan):
-    sol = solvers.solve_mobility_problem(system, state, m_dense=plan,
+                                   generator, state, carry, plan, pc):
+    m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
+    sol = solvers.solve_mobility_problem(system, state, m_dense=m_dense,
                                          **solver_kw)
     v_ab = (sol.velocities if carry.first_step
             else 1.5 * sol.velocities - 0.5 * carry.velocities_prev)
@@ -141,41 +194,78 @@ def _deterministic_adams_bashforth(system, dt, solver_kw, lanczos_kw,
             kin.valid_configuration(system, new_state), sol.converged)
 
 
+def _deterministic_midpoint(system, dt, solver_kw, lanczos_kw, generator,
+                            state, carry, plan, pc):
+    pc = _get_pc(system, state, pc)
+    m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
+    sol1 = solvers.solve_mobility_problem(system, state, pc=pc,
+                                          m_dense=m_dense, **solver_kw)
+    mid = kin.advance(state, sol1.velocities, 0.5 * dt)
+    ok_mid = kin.valid_configuration(system, mid)
+    m_mid = saddle.refresh_dense_mobility(system, m_dense,
+                                          kin.blob_positions(system, mid))
+    x0 = torch.cat([sol1.lam.reshape(-1), sol1.velocities.reshape(-1)])
+    sol2 = solvers.solve_mobility_problem(system, mid, pc=pc, x0=x0,
+                                          m_dense=m_mid, **solver_kw)
+    new_state = kin.advance(state, sol2.velocities, dt)
+    ok = ok_mid and kin.valid_configuration(system, new_state)
+    return (new_state, sol2.velocities, sol1.iterations + sol2.iterations,
+            0, ok, bool(sol1.converged) and bool(sol2.converged))
+
+
+def _stochastic_EM(system, dt, solver_kw, lanczos_kw, generator, state,
+                   carry, plan, pc):
+    pc = _get_pc(system, state, pc)
+    factor = math.sqrt(2.0 * system.kT / dt)
+    # one engine per step, shared by the noise Lanczos and the solve
+    m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
+    noise, it_l = _noise_slip(system, state, pc, generator, factor,
+                              plan=m_dense, **lanczos_kw)
+    sol = solvers.solve_mobility_problem(system, state, pc=pc,
+                                         noise_slip=noise, m_dense=m_dense,
+                                         **solver_kw)
+    new_state = kin.advance(state, sol.velocities, dt)
+    return (new_state, sol.velocities, sol.iterations, it_l,
+            kin.valid_configuration(system, new_state), sol.converged)
+
+
 def _stochastic_slip_trapz(system, dt, solver_kw, lanczos_kw, generator,
-                           state, carry, plan):
+                           state, carry, plan, pc):
     """Stochastic trapezoidal with slip-level thermal drift: 3 rigid solves
     (the first two in one lockstep loop) + 1 Lanczos + 2 M products + 2
     K^T products."""
-    pc = saddle.build_block_diag_pc(system, state)
+    pc = _get_pc(system, state, pc)
     factor = math.sqrt(2.0 * system.kT / dt)
     kT_over_delta = 2.0 * system.kT / system.rf_delta
 
     W_slip = draw_normal(generator, (system.num_blobs, 3), state.pos)
     r_blobs = kin.blob_positions(system, state)
-    MxW = saddle._mobility_apply(system, r_blobs, plan, W_slip)
+    m_dense = _get_m_dense(system, r_blobs, plan)
+    MxW = saddle._mobility_apply(system, r_blobs, m_dense, W_slip)
     KTxW = kin.KT_mul(system, state, W_slip)
 
     noise1, it_l = _noise_slip(system, state, pc, generator, factor,
-                               plan=plan, **lanczos_kw)
+                               plan=m_dense, **lanczos_kw)
 
     # the rigid solve and the RFD solve share the configuration: one
-    # lockstep Krylov loop, one pair sweep per iteration for both columns
+    # lockstep Krylov loop, one engine sweep per iteration for both columns
     rhs1 = solvers.build_rhs(system, state, r_blobs, noise_slip=noise1)
     rhs_rfd = torch.zeros_like(rhs1)
     rhs_rfd[:3 * system.num_blobs] = -W_slip.reshape(-1)
     lock_kw = {k: v for k, v in solver_kw.items() if k != "verbose"}
     sol_pair = solvers.solve_mobility_problem_lockstep(
         system, state, rhs=torch.stack([rhs1, rhs_rfd]), pc=pc,
-        m_dense=plan, **lock_kw)
+        m_dense=m_dense, **lock_kw)
     lam1, v1 = sol_pair.lam[0], sol_pair.velocities[0]
     W_RFD = sol_pair.velocities[1]
 
     rfd_state = kin.advance(state, W_RFD, system.rf_delta)
-    # the RFD product at the rf_delta-displaced configuration on the same
-    # engine as MxW (a mismatch would be amplified by 1/rf_delta): the
-    # spectral plan refreshed there, else one matrix-free sweep
+    # the RFD product at the rf_delta-displaced configuration: the spectral
+    # plan refreshed there; the pairwise domains take one matrix-free
+    # sweep rather than a matrix built for one product
     r_rfd = kin.blob_positions(system, rfd_state)
-    m_rfd = saddle.refresh_dense_mobility(system, plan, r_rfd)
+    m_rfd = saddle.refresh_dense_mobility(system, m_dense, r_rfd,
+                                          build=False)
     M_rfd_xW = saddle._mobility_apply(system, r_rfd, m_rfd, W_slip)
     KT_rfd_xW = kin.KT_mul(system, rfd_state, W_slip)
 
@@ -184,10 +274,10 @@ def _stochastic_slip_trapz(system, dt, solver_kw, lanczos_kw, generator,
 
     predictor = kin.advance(state, v1, dt)
     ok_pred = kin.valid_configuration(system, predictor)
-    # warm-start the corrector from the predictor solution, on the
-    # step-start engine refreshed at the predictor
+    # warm-start the corrector from the predictor solution, on the engine
+    # rebuilt (spectral: refreshed) at the predictor
     m_pred = saddle.refresh_dense_mobility(
-        system, plan, kin.blob_positions(system, predictor))
+        system, m_dense, kin.blob_positions(system, predictor))
     x0 = torch.cat([lam1.reshape(-1), v1.reshape(-1)])
     sol2 = solvers.solve_mobility_problem(system, predictor, pc=pc,
                                           noise_slip=rand_slip_cor,
@@ -202,10 +292,190 @@ def _stochastic_slip_trapz(system, dt, solver_kw, lanczos_kw, generator,
             sol_pair.converged and bool(sol2.converged))
 
 
+def _dense_sqrt_mul(N, z, factor):
+    """factor N^{1/2} z by a dense eigendecomposition."""
+    w, q = torch.linalg.eigh(N)
+    w = torch.sqrt(torch.clamp(w, min=0.0))
+    return factor * (q @ (w * (q.T @ z)))
+
+
+def _stochastic_adams_bashforth(system, dt, solver_kw, lanczos_kw,
+                                generator, state, carry, plan, pc):
+    """AB2 deterministic + EM noise + RFD drift (two solves at the
+    +-delta/2 displaced configurations)."""
+    pc = _get_pc(system, state, pc)
+    factor = math.sqrt(2.0 * system.kT / dt)
+    n3 = 3 * system.num_blobs
+
+    r_blobs = kin.blob_positions(system, state)
+    # one engine at the step start, shared by the noise Lanczos and the
+    # lockstep solve
+    m_dense = _get_m_dense(system, r_blobs, plan)
+    noise, it_l = _noise_slip(system, state, pc, generator, factor,
+                              plan=m_dense, **lanczos_kw)
+    rhs_det = solvers.build_rhs(system, state, r_blobs)
+    rhs_stoch = torch.zeros_like(rhs_det)
+    rhs_stoch[:n3] = -noise.reshape(-1)
+    lock_kw = {k: v for k, v in solver_kw.items() if k != "verbose"}
+    sol_pair = solvers.solve_mobility_problem_lockstep(
+        system, state, rhs=torch.stack([rhs_stoch, rhs_det]), pc=pc,
+        m_dense=m_dense, **lock_kw)
+    v_stoch, v_det = sol_pair.velocities[0], sol_pair.velocities[1]
+
+    W, disp, force_rfd = _rfd_displacements(system, generator, state)
+    delta = system.rf_delta
+    rhs_rfd = torch.cat([torch.zeros_like(rhs_det[:n3]),
+                         -force_rfd.reshape(-1)])
+    # the +-delta/2 engines: spectral plans refresh; the pairwise domains
+    # build their own ("auto"), so at most two matrices are live
+    spectral = saddle.is_spectral(system)
+    state_minus = _displaced(state, W, disp, -0.5 * delta)
+    m_minus = (saddle.refresh_dense_mobility(
+        system, m_dense, kin.blob_positions(system, state_minus))
+        if spectral else "auto")
+    sol_minus = solvers.solve_mobility_problem(system, state_minus, pc=pc,
+                                               rhs=rhs_rfd, m_dense=m_minus,
+                                               **solver_kw)
+    state_plus = _displaced(state, W, disp, 0.5 * delta)
+    r_plus = kin.blob_positions(system, state_plus)
+    m_plus = (saddle.refresh_dense_mobility(system, m_dense, r_plus)
+              if spectral else None)
+    op_plus = saddle.make_linear_operator(system, state_plus, r_plus,
+                                          m_dense=m_plus)
+    x_minus = torch.cat([sol_minus.lam.reshape(-1),
+                         sol_minus.velocities.reshape(-1)])
+    # residual trick: N(x+) rhs - N(x-) rhs to O(delta)
+    sol_drift = solvers.solve_mobility_problem(
+        system, state_plus, pc=pc, rhs=rhs_rfd - op_plus(x_minus),
+        m_dense=m_plus if spectral else "auto", **solver_kw)
+    v_stoch = v_stoch + (system.kT / delta) * sol_drift.velocities
+
+    v_ab = (v_det if carry.first_step
+            else 1.5 * v_det - 0.5 * carry.velocities_prev)
+    new_state = kin.advance(state, v_ab + v_stoch, dt)
+    iters = (sol_pair.iterations + sol_minus.iterations
+             + sol_drift.iterations)
+    conv = (sol_pair.converged and bool(sol_minus.converged)
+            and bool(sol_drift.converged))
+    # the carry keeps the deterministic velocity alone
+    return (new_state, v_det, iters, it_l,
+            kin.valid_configuration(system, new_state), conv)
+
+
+def _deterministic_forward_euler_dense(system, dt, solver_kw, lanczos_kw,
+                                       generator, state, carry, plan, pc):
+    v, _ = solvers.solve_mobility_problem_dense(system, state)
+    new_state = kin.advance(state, v, dt)
+    return (new_state, v, 0, 0, kin.valid_configuration(system, new_state),
+            True)
+
+
+def _stochastic_first_order_RFD_dense(system, dt, solver_kw, lanczos_kw,
+                                      generator, state, carry, plan, pc):
+    """Dense-algebra RFD scheme: N^{1/2} noise and kT/delta (N(x + delta
+    W) - N(x)) F_rfd drift."""
+    v, N = solvers.solve_mobility_problem_dense(system, state)
+    z = draw_normal(generator, (6 * system.num_bodies,), state.pos)
+    v = v + _dense_sqrt_mul(N, z, math.sqrt(2.0 * system.kT / dt)).reshape(
+        system.num_bodies, 6)
+    W, disp, force_rfd = _rfd_displacements(system, generator, state)
+    delta = system.rf_delta
+    N_plus = solvers.solve_body_mobility(system,
+                                         _displaced(state, W, disp, delta))
+    v = v + (system.kT / delta) * ((N_plus - N) @ force_rfd.reshape(-1)
+                                   ).reshape(system.num_bodies, 6)
+    new_state = kin.advance(state, v, dt)
+    return (new_state, v, 0, 0, kin.valid_configuration(system, new_state),
+            True)
+
+
+def _dense_pieces(system, state):
+    """Dense solve ingredients of the DLA schemes: velocities and the dense
+    M, R = M^{-1}, K and N = pinv(K^T R K)."""
+    r_blobs = kin.blob_positions(system, state)
+    slip = kin.active_slip(system, state)
+    FT = solvers.force_torque_calculator(system, state, r_blobs)
+    M = solvers.dense_blob_mobility(system, state)
+    K = solvers._dense_K(system, state)
+    R = torch.linalg.inv(M)
+    N = torch.linalg.pinv(K.T @ (R @ K))
+    v = N @ (FT.reshape(-1) - K.T @ (R @ slip.reshape(-1)))
+    return v, N, M, R, K
+
+
+def _stochastic_slip_mid_dla(system, dt, solver_kw, lanczos_kw, generator,
+                             state, carry, plan, pc):
+    """Slip-midpoint scheme with dense linear algebra: predictor noise
+    N K^T M^{-1} M^{1/2} W1 at sqrt(4kT/dt), RFD displacement
+    W_RFD = N K^T M^{-1} W_slip probing the divergence of M and K^T, and a
+    corrector with the summed increment Wcor = W1 + W1'."""
+    B = system.num_bodies
+    n3 = 3 * system.num_blobs
+    delta = system.rf_delta
+    v_mid, N, M, R, K = _dense_pieces(system, state)
+
+    W1 = draw_normal(generator, (n3,), state.pos)
+    W_slip = draw_normal(generator, (n3,), state.pos)
+    Wcor = W1 + draw_normal(generator, (n3,), state.pos)
+
+    W_RFD = N @ (K.T @ (R @ W_slip))
+    MxW_slip = M @ W_slip
+    KTxW_slip = K.T @ W_slip
+    Mhalf_W1 = _dense_sqrt_mul(M, W1, 1.0)
+    Mhalf_Wcor = _dense_sqrt_mul(M, Wcor, 1.0)
+    v_mid = v_mid + math.sqrt(4.0 * system.kT / dt) * (
+        N @ (K.T @ (R @ Mhalf_W1)))
+
+    # the RFD configuration: displace by W_RFD delta and difference M, K^T
+    rfd_state = kin.advance(state, W_RFD.reshape(B, 6), delta)
+    DxM = solvers.dense_blob_mobility(system, rfd_state) @ W_slip - MxW_slip
+    DxKT = solvers._dense_K(system, rfd_state).T @ W_slip - KTxW_slip
+
+    mid = kin.advance(state, v_mid.reshape(B, 6), 0.5 * dt)
+    ok_mid = kin.valid_configuration(system, mid)
+    v_new, N2, _, R2, K2 = _dense_pieces(system, mid)
+    rhs_cor = (-(system.kT / delta) * DxKT
+               + K2.T @ (R2 @ (math.sqrt(system.kT / dt) * Mhalf_Wcor
+                               + (system.kT / delta) * DxM)))
+    v_new = (v_new + N2 @ rhs_cor).reshape(B, 6)
+    new_state = kin.advance(state, v_new, dt)
+    ok = ok_mid and kin.valid_configuration(system, new_state)
+    return new_state, v_new, 0, 0, ok, True
+
+
+def _fixman(system, dt, solver_kw, lanczos_kw, generator, state, carry,
+            plan, pc):
+    """Fixman midpoint with dense algebra."""
+    B = system.num_bodies
+    v_mid, N = solvers.solve_mobility_problem_dense(system, state)
+    W1 = draw_normal(generator, (6 * B,), state.pos)
+    W_cor = W1 + draw_normal(generator, (6 * B,), state.pos)
+    Nhalf_W1 = _dense_sqrt_mul(N, W1, math.sqrt(4.0 * system.kT / dt))
+    Nhalf_Wcor = _dense_sqrt_mul(N, W_cor, math.sqrt(system.kT / dt))
+    Ninvhalf_cor = torch.linalg.pinv(N) @ Nhalf_Wcor
+    v_mid = v_mid + Nhalf_W1.reshape(B, 6)
+    mid = kin.advance(state, v_mid, 0.5 * dt)
+    ok_mid = kin.valid_configuration(system, mid)
+    v_new, N_new = solvers.solve_mobility_problem_dense(system, mid)
+    v_new = v_new + (N_new @ Ninvhalf_cor).reshape(B, 6)
+    new_state = kin.advance(state, v_new, dt)
+    ok = ok_mid and kin.valid_configuration(system, new_state)
+    return new_state, v_new, 0, 0, ok, True
+
+
 _SCHEMES = {
     "deterministic_forward_euler": _deterministic_forward_euler,
     "deterministic_adams_bashforth": _deterministic_adams_bashforth,
+    "deterministic_midpoint": _deterministic_midpoint,
+    "stochastic_EM": _stochastic_EM,
+    "stochastic_adams_bashforth": _stochastic_adams_bashforth,
     "stochastic_Slip_Trapz": _stochastic_slip_trapz,
+    "deterministic_forward_euler_dense_algebra":
+        _deterministic_forward_euler_dense,
+    "stochastic_first_order_RFD_dense_algebra":
+        _stochastic_first_order_RFD_dense,
+    "Fixman": _fixman,
+    "stochastic_Slip_Mid_DLA": _stochastic_slip_mid_dla,
 }
 
 
@@ -224,7 +494,11 @@ def make_stepper(system: System, scheme: str, dt: float, *,
     The wall-rejection loop retries the whole step with fresh Brownian
     increments, at most max_rejections attempts; a scheme that still lands
     invalid returns its last candidate and reports the retries in
-    StepAux.rejections."""
+    StepAux.rejections. With update_PC > 1 the carry is
+    `init_carry_with_pc`'s (Carry, preconditioner, step index), and the
+    preconditioner is refactored at steps whose index is a multiple of
+    update_PC; the schemes that solve at several configurations reuse it
+    there."""
     if scheme in _NOT_PORTED:
         raise NotImplementedError(
             f"scheme {scheme!r} is not ported yet (ROADMAP Queue 1, "
@@ -232,9 +506,6 @@ def make_stepper(system: System, scheme: str, dt: float, *,
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; "
                          f"available: {sorted(_SCHEMES)}")
-    if update_PC != 1:
-        raise NotImplementedError("update_PC > 1 is not ported yet (ROADMAP "
-                                  "Queue 1, item 17)")
     body_fn = _SCHEMES[scheme]
     solver_kw = dict(tol=tolerance, restart=gmres_restart,
                      maxiter=gmres_maxiter)
@@ -243,9 +514,10 @@ def make_stepper(system: System, scheme: str, dt: float, *,
     lanczos_kw = dict(tolerance=lanczos_tolerance, max_iter=lanczos_max_iter,
                       check_every=lanczos_check_every)
 
-    def step(state: State, generator: torch.Generator, carry: Carry):
-        # the step's engine, resolved once here: the carried plan at this
-        # step's start configuration (built here when the carry has none)
+    def run(state: State, generator: torch.Generator, carry: Carry, pc):
+        # the spectral engine, resolved once here: the carried plan at this
+        # step's start configuration (built here when the carry has none);
+        # the pairwise engines are built by the attempt
         plan = None
         if saddle.is_spectral(system):
             r0 = kin.blob_positions(system, state)
@@ -257,7 +529,7 @@ def make_stepper(system: System, scheme: str, dt: float, *,
         while True:
             (new_state, velocities, det_it, st_it, ok,
              conv) = body_fn(system, dt, solver_kw, lanczos_kw, generator,
-                             state, carry, plan)
+                             state, carry, plan, pc)
             attempts += 1
             if ok or attempts >= max_rejections:
                 break
@@ -273,4 +545,24 @@ def make_stepper(system: System, scheme: str, dt: float, *,
                       capacity_overflows=overflows)
         return new_state, new_carry, aux
 
+    if update_PC > 1:
+        def step(state: State, generator: torch.Generator, carry):
+            inner, pc, step_idx = carry
+            if step_idx % update_PC == 0:
+                pc = saddle.build_block_diag_pc(system, state)
+            new_state, inner, aux = run(state, generator, inner, pc)
+            return new_state, (inner, pc, step_idx + 1), aux
+
+        return step
+
+    def step(state: State, generator: torch.Generator, carry: Carry):
+        return run(state, generator, carry, None)
+
     return step
+
+
+def init_carry_with_pc(system: System, state: State):
+    """Carry of a stepper built with update_PC > 1: (Carry, the
+    preconditioner factored at `state`, step index 0)."""
+    return (init_carry(system, state=state),
+            saddle.build_block_diag_pc(system, state), 0)

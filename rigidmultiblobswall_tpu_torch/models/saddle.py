@@ -13,12 +13,17 @@ type, and the preconditioner applies as batched matrix products. The
 Lanczos noise preconditioner P = U_chol^{-1}, M ~= U_chol^T U_chol,
 reuses the same factorization.
 
-The mobility engine of a configuration is `m_dense`: None for the
-matrix-free pairwise engine, or an ops/ewald.SpectralPlan for domain
-'periodic_spectral', built once per configuration and refreshed for
-nearby ones. Prescribed kinematics, articulated constraints, the
-materialized engine and the wall spectral engine are still to be ported
-(ROADMAP Queue 1, items 10, 17-19).
+The mobility engine of a configuration is `m_dense`:
+  - the materialized (3N, 3N) matrix of the pairwise domains when its
+    9 N^2 values fit MATERIALIZE_BUDGET_BYTES (kernel K3 builds it on the
+    card, ops/mobility.dense_mobility_tiled on the CPU; single products
+    and the stacked pairs of the lockstep solves run kernel K4);
+  - None for the matrix-free pairwise engine (kernel K1), above the
+    budget;
+  - an ops/ewald.SpectralPlan for domain 'periodic_spectral', built once
+    per configuration and refreshed for nearby ones.
+Prescribed kinematics, articulated constraints and the wall spectral
+engine are still to be ported (ROADMAP Queue 1, items 17-19).
 """
 
 from __future__ import annotations
@@ -26,12 +31,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from ..ops import cells, ewald
 from ..ops import mobility as mob
+from ..ops import mobility_cuda
 from . import kinematics as kin
 from .system import State, System
 
@@ -65,26 +72,46 @@ def split_saddle_vector(system: System, vec):
     return lam, U
 
 
+# budget for materializing (3N, 3N): a Slip-Trapz step keeps two
+# configurations' matrices live (the step start and the predictor); the
+# JAX package's default and variable (saddle.py:77-81). 6 GiB holds
+# 12,288 blobs in float32 (5.06 GiB a matrix).
+MATERIALIZE_BUDGET_BYTES = int(os.environ.get("RMW_MATERIALIZE_BUDGET",
+                                              6 << 30))
+
+
+def dense_mobility(system: System, r_blobs):
+    """The materialized (3N, 3N) mobility of a pairwise-domain
+    configuration, with no budget check: kernel K3 on the card, the plain
+    builder on the CPU."""
+    return mobility_cuda.dense_tt(r_blobs.contiguous(), system.eta,
+                                  system.blob_radius,
+                                  wall=system.domain == "single_wall")
+
+
 def maybe_dense_mobility(system: System, r_blobs):
     """The per-configuration mobility engine: a SpectralPlan for
-    periodic_spectral, else None. The JAX package materializes the
-    (3N, 3N) operator through kernels K3/K4 when 9 N^2 floats fit its
-    budget; those kernels are not ported yet (ROADMAP Queue 1, item 10),
-    so the pairwise domains always take the matrix-free engine (None),
-    the branch the JAX package takes above the budget, e.g. at 49,152
-    blobs."""
+    periodic_spectral; for the pairwise domains the materialized (3N, 3N)
+    matrix (dense_mobility) when its 9 N^2 values fit
+    MATERIALIZE_BUDGET_BYTES, else None, the matrix-free engine (e.g.
+    49,152 blobs: 87 GB in float32)."""
     if is_spectral(system):
         return ewald.make_plan(spectral_params(system), r_blobs)
-    return None
+    n = r_blobs.shape[0]
+    if 9 * n * n * r_blobs.element_size() > MATERIALIZE_BUDGET_BYTES:
+        return None
+    return dense_mobility(system, r_blobs)
 
 
-def refresh_dense_mobility(system: System, m_dense, r_new):
-    """The engine for a configuration near the one m_dense was built at:
-    a spectral plan refreshes (ops/ewald.update_plan, a full rebuild past
-    its drift budget); the pairwise domains stay matrix-free (None)."""
+def refresh_dense_mobility(system: System, m_dense, r_new, *, build=True):
+    """The engine for a configuration near the one m_dense was built at: a
+    spectral plan refreshes (ops/ewald.update_plan, a full rebuild past
+    its drift budget); the pairwise domains rebuild at r_new (build=True)
+    or take the matrix-free sweep (build=False, for a single product
+    that a build would not amortize)."""
     if is_spectral(system):
         return ewald.update_plan(_plan(system, m_dense), r_new)
-    return None
+    return maybe_dense_mobility(system, r_new) if build else None
 
 
 def _plan(system, m_dense):
@@ -101,9 +128,14 @@ def _plan(system, m_dense):
 
 def _mobility_apply(system, r_blobs, m_dense, lam):
     """M lam for lam (N, 3) (or flat) -> (N, 3) on the engine m_dense
-    (a SpectralPlan, or None for the matrix-free pairwise engine)."""
+    (a SpectralPlan, the materialized matrix, or None for the matrix-free
+    pairwise engine)."""
     if is_spectral(system):
         return ewald.matvec(_plan(system, m_dense), lam.reshape(-1, 3))
+    if m_dense is not None:
+        # kernel K4 on the card, in both dtypes (the JAX package's cut at
+        # n >= 1024 and float32, saddle.py:426-427, was the TPU's)
+        return mobility_cuda.symm_matvec(m_dense, lam.reshape(-1, 3))
     return mob.mobility_trans_times_force(
         r_blobs, lam.reshape(-1, 3), system.eta, system.blob_radius,
         domain=system.domain, periodic_length=system.periodic_length)
@@ -113,6 +145,12 @@ def _mobility_apply_multi(system, r_blobs, m_dense, lam):
     """Stacked M products, lam (b, N, 3) -> (b, N, 3), one engine sweep."""
     if is_spectral(system):
         return ewald.matvec_multi(_plan(system, m_dense), lam)
+    if m_dense is not None:
+        # kernel K4 with two right-hand sides a launch: one read of the
+        # upper triangle serves the lockstep pair (JAX's einsum,
+        # saddle.py:460-463; cuBLAS's n = 2 matmul of the full matrix
+        # measured 8x slower, PERF.md)
+        return mobility_cuda.symm_matvec(m_dense, lam)
     return mob.pairwise_matvec_multi(
         r_blobs, r_blobs, lam, system.eta, system.blob_radius,
         coupling="tt", domain=system.domain,

@@ -3,9 +3,13 @@ GMRES on the saddle system (PyTorch).
 
 Counterpart of rigidmultiblobswall_tpu/models/solvers.py:
 `force_torque_calculator`, `build_rhs`, `solve_mobility_problem` and
-`solve_mobility_problem_lockstep`. The dense-algebra utilities, the
-single-blob articulated solve and Krylov recycling are still to be
-ported (ROADMAP Queue 1, items 17-18).
+`solve_mobility_problem_lockstep` (m_dense='auto' takes the
+configuration's engine from saddle.maybe_dense_mobility: the materialized
+matrix within its budget), and the dense-algebra utilities of small
+systems: `dense_blob_mobility`, `solve_body_mobility`,
+`solve_mobility_problem_dense` and `solve_resistance`. The single-blob
+articulated solve and Krylov recycling are still to be ported (ROADMAP
+Queue 1, items 17-18).
 """
 
 from __future__ import annotations
@@ -82,7 +86,8 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
     right-hand side. x0 is in physical units (e.g. a previous solution
     used as a warm start). m_dense: 'auto' asks
     saddle.maybe_dense_mobility for the configuration's engine; or pass
-    the engine (a spectral plan, or None for the pairwise engine)."""
+    the engine (a spectral plan, the materialized matrix, or None for the
+    matrix-free pairwise engine)."""
     r_blobs = kin.blob_positions(system, state)
     if isinstance(m_dense, str) and m_dense == "auto":
         m_dense = saddle.maybe_dense_mobility(system, r_blobs)
@@ -140,3 +145,64 @@ def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
                             iterations=result.iterations,
                             residual_norm=result.residual_norm,
                             converged=bool(result.converged.all()))
+
+
+# ---------------------------------------------------------------------------
+# Dense-algebra solves (small systems, the static CLI modes and the
+# dense-algebra schemes); torch.linalg in place of jnp.linalg
+# ---------------------------------------------------------------------------
+
+
+def dense_blob_mobility(system: System, state: State):
+    """The (3N, 3N) blob mobility of the state (kernel K3 on the card)."""
+    return saddle.dense_mobility(system, kin.blob_positions(system, state))
+
+
+def _dense_K(system: System, state: State):
+    """Global dense K, (3N, 6B), block diagonal per body. Only the dense
+    utility solves use it; products use kin.K_mul / kin.KT_mul."""
+    K = torch.zeros((3 * system.num_blobs, 6 * system.num_bodies),
+                    dtype=state.pos.dtype, device=state.pos.device)
+    for i, t in enumerate(system.types):
+        Kt = kin.K_dense(system, state, i)  # (c, 3nb, 6)
+        b0 = system.body_offsets[i]
+        n0 = system.blob_offsets[i]
+        for c in range(t.count):
+            r0 = 3 * (n0 + c * t.num_blobs)
+            K[r0:r0 + 3 * t.num_blobs, 6 * (b0 + c):6 * (b0 + c + 1)] = Kt[c]
+    return K
+
+
+def solve_body_mobility(system: System, state: State):
+    """(6B, 6B) body mobility N = pinv(K^T M^{-1} K)."""
+    M = dense_blob_mobility(system, state)
+    K = _dense_K(system, state)
+    return torch.linalg.pinv(K.T @ torch.linalg.solve(M, K))
+
+
+def solve_mobility_problem_dense(system: System, state: State, slip=None,
+                                 force_torque=None):
+    """Dense-algebra mobility solve: (velocities (B,6), body mobility N
+    (6B,6B))."""
+    r_blobs = kin.blob_positions(system, state)
+    if slip is None:
+        slip = kin.active_slip(system, state)
+    if force_torque is None:
+        force_torque = force_torque_calculator(system, state, r_blobs)
+    M = dense_blob_mobility(system, state)
+    K = _dense_K(system, state)
+    FT = force_torque.reshape(-1) - K.T @ torch.linalg.solve(
+        M, slip.reshape(-1))
+    N = torch.linalg.pinv(K.T @ torch.linalg.solve(M, K))
+    return (N @ FT).reshape(system.num_bodies, 6), N
+
+
+def solve_resistance(system: System, state: State, velocities, slip=None):
+    """Resistance problem F = K^T M^{-1} (K U + slip); (B,6)
+    force-torques."""
+    if slip is None:
+        slip = kin.active_slip(system, state)
+    M = dense_blob_mobility(system, state)
+    KU = kin.K_mul(system, state, velocities.reshape(-1, 6))
+    lam = torch.linalg.solve(M, (KU + slip.reshape(-1, 3)).reshape(-1))
+    return kin.KT_mul(system, state, lam.reshape(-1, 3))

@@ -33,8 +33,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 # C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
-# csrc/blob_forces.cu, csrc/nl_forces.cu, csrc/near_rpy.cu); pointers and
-# the stream MUST be c_void_p or ctypes truncates them
+# csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
+# csrc/nl_forces.cu, csrc/near_rpy.cu); pointers and the stream MUST be
+# c_void_p or ctypes truncates them
 _PAIR = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _NL = (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P)
 _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
@@ -44,6 +45,10 @@ SIGNATURES = {
        for t in ("f32", "f64")},
     "blob_forces_f32": (_P, _P, _I, _D, _D, _D, _P),
     "blob_forces_f64": (_P, _P, _I, _D, _D, _D, _P),
+    "dense_tt_f32": (_P, _P, _I, _D, _D, _I, _P),
+    "dense_tt_f64": (_P, _P, _I, _D, _D, _I, _P),
+    "symm_matvec_f32": (_P, _P, _P, _P, _I, _I, _P),
+    "symm_matvec_f64": (_P, _P, _P, _P, _I, _I, _P),
     "nl_forces_f32": _NL,
     "nl_forces_f64": _NL,
     **{f"near_rpy_{t}_b{b}": _NEAR for t in ("f32", "f64") for b in (1, 2)},

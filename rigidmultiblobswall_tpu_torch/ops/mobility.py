@@ -5,7 +5,9 @@ Counterpart of rigidmultiblobswall_tpu/ops/mobility.py for the couplings
 'single_wall' and 'no_wall' without periodic images. Every O(N^2) product
 goes through `pair_kernels.pair_matvec`: kernel K1 on a CUDA tensor, its
 plain PyTorch version (the JAX package's generic tiled path) on a CPU
-tensor. The SFM engine (mobility_sfm.py) is not ported; in_plane,
+tensor. `dense_mobility_tiled` materializes the tt operator of one
+configuration (the plain version of kernel K3, ops/mobility_cuda.py).
+The SFM engine (mobility_sfm.py) is not ported; in_plane,
 free_surface, pseudo-periodic images and per-blob radii are still to be
 ported (ROADMAP Queue 1, item 4).
 
@@ -179,3 +181,41 @@ def dense_mobility(r_vectors, eta, a, domain="single_wall", coupling="tt"):
         m = m * damp[..., :, None, None, None] * damp[..., None, :, None, None]
     # (..., N, N, 3, 3) -> (..., 3N, 3N)
     return m.transpose(-3, -2).reshape(*batch, 3 * n, 3 * n)
+
+
+def dense_mobility_tiled(r_vectors, eta, a, *, domain="single_wall",
+                         coupling="tt", periodic_length=(0.0, 0.0, 0.0),
+                         row_tile=None):
+    """Materialize the mobility of one configuration, (N,3) -> (3N, 3N)
+    interleaved (row 3i+a, column 3j+b), with the overlap regularization,
+    the 1/(8 pi eta a^k) factor and the damping folded in, built in row
+    tiles so the peak memory beside the result stays bounded.
+
+    Counterpart of mobility.py:dense_mobility_tiled, which returns (3,3,N,N)
+    component planes: those avoid the TPU's padding of a minor length-3
+    axis; here the interleaved matrix serves the stacked products as one
+    matmul. The plain version of kernel K3 (ops/mobility_cuda.dense_tt).
+    Periodic images are not ported (ROADMAP Queue 1, item 4)."""
+    _check_supported(coupling, domain, periodic_length)
+    n = r_vectors.shape[0]
+    wall = domain == "single_wall"
+    q, damp = _normalized(r_vectors, a, wall, r_vectors.dtype)
+    if row_tile is None:
+        row_tile = pair_kernels._default_row_tile(n, n, q.element_size())
+    src_ids = torch.arange(n, device=q.device)
+    zs = q[:, 2][None, :]
+    pref = 1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling])
+    out = torch.empty((3 * n, 3 * n), dtype=q.dtype, device=q.device)
+    for i0 in range(0, n, row_tile):
+        qt = q[i0:i0 + row_tile]
+        rows = torch.arange(i0, i0 + qt.shape[0], device=q.device)
+        d = qt[:, None, :] - q[None, :, :]
+        self_mask = rows[:, None] == src_ids[None, :]
+        m = _block(coupling, domain, d, qt[:, 2][:, None], zs, self_mask)
+        m = m * pref
+        if wall:
+            m = (m * damp[i0:i0 + qt.shape[0], None, None, None]
+                 * damp[None, :, None, None])
+        out[3 * i0:3 * (i0 + qt.shape[0])] = m.transpose(1, 2).reshape(
+            3 * qt.shape[0], 3 * n)
+    return out

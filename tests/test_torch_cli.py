@@ -1,7 +1,9 @@
 """The PyTorch port's CLI against the JAX package's CLI on one generated
 4-shell input file: same final .clones (1e-8) after a few
 stochastic_Slip_Trapz steps at kT = 0, same .velocity.dat for the
-'mobility' scheme, and the same output files; on a generated
+'mobility' scheme, the same .body_mobility.dat, .body_slip_mobility.dat
+and resistance .force.dat (1e-10), the same mobility dumps and .clones
+with update_PC = 2, and the same output files; on a generated
 periodic_spectral input with tree (linked-cell) blob forces, the same
 .clones and .info; and on the example microroller input, the same
 .clones and .info."""
@@ -24,8 +26,11 @@ from torch_parity import shell_vertices, shells_scene
 N_STEPS = 3
 
 
-def _write_scene(d, scheme, n_bodies=4, kT=0.0, extra="", pos=None):
+def _write_scene(d, scheme, n_bodies=4, kT=0.0, extra="", pos=None,
+                 files=None):
     d.mkdir(parents=True, exist_ok=True)
+    for name, text in (files or {}).items():
+        (d / name).write_text(text)
     ref = shell_vertices(12, 0.5)
     with open(d / "shell.vertex", "w") as f:
         f.write("12\n")
@@ -131,6 +136,61 @@ def test_cli_mobility_matches_jax(tmp_path, monkeypatch):
         got = np.loadtxt(out["torch"] / name)
         np.testing.assert_allclose(got, ref, atol=1e-9 * np.abs(ref).max(),
                                    rtol=0)
+
+
+def _same_dat(out, name, tol=1e-10):
+    ref = np.loadtxt(out["jax"] / name)
+    got = np.loadtxt(out["torch"] / name)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=tol * np.abs(ref).max(),
+                               rtol=0)
+
+
+def test_cli_body_mobility_matches_jax(tmp_path, monkeypatch):
+    out = _run_both(tmp_path, monkeypatch, "body_mobility")
+    _same_dat(out, "run.body_mobility.dat")
+    _same_dat(out, "run.body_slip_mobility.dat")
+    assert np.loadtxt(out["torch"] / "run.body_mobility.dat").shape == (24,
+                                                                       24)
+
+
+def test_cli_resistance_matches_jax(tmp_path, monkeypatch):
+    u = np.random.default_rng(3).normal(size=(4, 6))
+    vel = "\n".join(" ".join("%.16g" % x for x in row) for row in u) + "\n"
+    out = _run_both(tmp_path, monkeypatch, "resistance",
+                    extra="velocity_file velocity.dat\n",
+                    files={"velocity.dat": vel})
+    _same_dat(out, "run.force.dat")
+    assert np.abs(np.loadtxt(out["torch"] / "run.force.dat")).max() > 0
+
+
+def test_cli_mobility_dumps_and_update_pc_match_jax(tmp_path, monkeypatch):
+    """Slip-Trapz with update_PC 2 and the save_blobs_mobility /
+    save_body_mobility dumps at every saved frame."""
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                    extra="update_PC 2\nsave_blobs_mobility True\n"
+                          "save_body_mobility True\n")
+    for k in (0, N_STEPS):
+        _same_dat(out, "run.blobs_mobility.%08d.dat" % k)
+        _same_dat(out, "run.body_mobility.%08d.dat" % k)
+    final = "run.shell.%08d.clones" % N_STEPS
+    np.testing.assert_allclose(_clones(out["torch"] / final),
+                               _clones(out["jax"] / final), atol=1e-8,
+                               rtol=0)
+
+
+def test_cli_body_mobility_refuses_laplace_files(tmp_path, monkeypatch):
+    """The .Laplace double-layer correction of body_mobility waits for the
+    phoretic model; an input that names a .Laplace file is refused."""
+    inp = _write_scene(tmp_path, "body_mobility",
+                       files={"shell.Laplace": "12\n"})
+    text = inp.read_text().replace(
+        "structure shell.vertex shell.clones",
+        "structure shell.vertex shell.clones shell.Laplace")
+    inp.write_text(text)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="Laplace"):
+        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
 
 
 def test_cli_refuses_user_defined_functions(tmp_path, monkeypatch):

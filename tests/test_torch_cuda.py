@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels K1 (every coupling), K2, K5 and K6 against
-their plain PyTorch versions, on the card. Every test here is marked `gpu` and
+"""Hand-written CUDA kernels K1 (every coupling), K2, K3, K4, K5 and K6
+against their plain PyTorch versions, on the card. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -268,3 +268,84 @@ def test_cell_wrappers_reject_bad_input(cuda):
         ck.near_rpy(pos, torch.zeros((50, 3), device=cuda), table, dims,
                     (L,) * 3, cap, torch.zeros((2, 2, 33), device=cuda),
                     **kw6)
+
+
+# ---------------------------------------------------------------------------
+# K3 (materialized tt mobility) and K4 (upper-triangle symmetric product)
+# ---------------------------------------------------------------------------
+
+
+def _dense_scene(cuda, n, dtype, seed=5):
+    """Raw blob positions (blobs below a, a coincident pair) on the card."""
+    r, _ = _scene(n, seed=seed)
+    r[:, :2] *= 0.25                     # denser: near pairs in every tile
+    if n > 9:
+        r[9] = r[8]
+    return torch.as_tensor(r, dtype=dtype, device=cuda)
+
+
+@pytest.mark.parametrize("dtype, bound", BOUNDS)
+@pytest.mark.parametrize("wall", [True, False])
+@pytest.mark.parametrize("n", [40, 100, 260])
+def test_k3_matches_plain(cuda, n, wall, dtype, bound):
+    """N below one 16 x 32 block, and N not a multiple of either edge."""
+    r = _dense_scene(cuda, n, dtype)
+    before = mc.DENSE_LAUNCHES["dense_tt"]
+    got = mc.dense_tt(r, 0.8, 0.3, wall=wall)
+    torch.cuda.synchronize()
+    assert mc.DENSE_LAUNCHES["dense_tt"] == before + 1
+    ref = mc.dense_tt_plain(r.double(), 0.8, 0.3, wall=wall)
+    assert got.shape == ref.shape == (3 * n, 3 * n)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= bound * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype, bound", BOUNDS)
+@pytest.mark.parametrize("n", [40, 100, 256, 260])
+def test_k4_matches_plain_reads_upper_tiles_only(cuda, n, dtype, bound):
+    """K4 against the full product for one right-hand side and a stack of
+    three (a B = 2 and a B = 1 launch), bit-identical on repeat, and blind
+    to the strictly-lower tiles (overwritten by NaN)."""
+    r = _dense_scene(cuda, n, dtype, seed=6)
+    m = mc.dense_tt(r, 1.0, 0.3, wall=True)
+    v = torch.as_tensor(np.random.default_rng(7).normal(size=(n, 3)),
+                        dtype=dtype, device=cuda)
+    before = mc.DENSE_LAUNCHES["symm_matvec"]
+    got = mc.symm_matvec(m, v)
+    torch.cuda.synchronize()
+    assert mc.DENSE_LAUNCHES["symm_matvec"] == before + 1
+    ref = mc.symm_matvec_plain(m.double(), v.double())
+    err = (got.double() - ref).abs().max().item()
+    assert got.shape == (n, 3) and err <= bound * ref.abs().max().item()
+    assert torch.equal(mc.symm_matvec(m, v), got)
+    v2 = torch.as_tensor(np.random.default_rng(8).normal(size=(3, n, 3)),
+                         dtype=dtype, device=cuda)
+    got2 = mc.symm_matvec(m, v2)             # launches of B = 2 and B = 1
+    ref2 = mc.symm_matvec_plain(m.double(), v2.double())
+    err2 = (got2.double() - ref2).abs().max().item()
+    assert got2.shape == (3, n, 3) and err2 <= bound * ref2.abs().max().item()
+    t = 3 * mc.SYMM_TILE
+    for i0 in range(t, 3 * n, t):
+        m[i0:i0 + t, :i0] = float("nan")
+    assert torch.equal(mc.symm_matvec(m, v), got)
+    assert torch.equal(mc.symm_matvec(m, v2), got2)
+
+
+def test_dense_wrappers_reject_bad_input(cuda):
+    r = torch.zeros((4, 3), device=cuda)
+    m = torch.zeros((12, 12), device=cuda)
+    with pytest.raises(TypeError):
+        mc.dense_tt(r.half(), 1.0, 1.0, wall=True)
+    with pytest.raises(ValueError):
+        mc.dense_tt(torch.zeros((3, 4), device=cuda).t(), 1.0, 1.0,
+                    wall=True)
+    with pytest.raises(ValueError):
+        mc.dense_tt(torch.zeros((4, 2), device=cuda), 1.0, 1.0, wall=True)
+    for mm, vv in ((m, r.double()),                          # mixed dtype
+                   (torch.zeros((12, 9), device=cuda), r),    # not square
+                   (m, torch.zeros((5, 3), device=cuda)),     # rows
+                   (torch.zeros((12, 24), device=cuda)[:, ::2], r)):
+        with pytest.raises(ValueError):
+            mc.symm_matvec(mm, vv)
+    with pytest.raises(ValueError):                          # wrong device
+        mc.symm_matvec(m.to("meta"), r.to("meta"))

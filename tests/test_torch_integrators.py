@@ -2,7 +2,8 @@
 the CPU: a few steps of each ported scheme from the same start, with
 solver tolerance 1e-12, final positions and orientations agreeing to
 1e-9. Stochastic steps feed the port's noise helper the normals the JAX
-stepper draws from its key."""
+stepper draws from its key. Both packages take the materialized engine
+at these sizes."""
 
 import jax
 import numpy as np
@@ -17,18 +18,22 @@ from torch_parity import shells_scene, to_np
 TOL = 1e-9
 
 
-def _run_jax(js, jst, scheme, n_steps, dt, keys):
-    step = jax.jit(jint.make_stepper(js, scheme, dt, lanczos_tolerance=1e-10))
-    carry = jint.init_carry(js, state=jst)
+def _run_jax(js, jst, scheme, n_steps, dt, keys, update_PC=1):
+    step = jax.jit(jint.make_stepper(js, scheme, dt, lanczos_tolerance=1e-10,
+                                     update_PC=update_PC))
+    carry = (jint.init_carry_with_pc(js, jst) if update_PC > 1
+             else jint.init_carry(js, state=jst))
     s = jst
     for k in keys[:n_steps]:
         s, carry, aux = step(s, k, carry)
     return s, aux
 
 
-def _run_port(ts, tst, scheme, n_steps, dt):
-    step = tint.make_stepper(ts, scheme, dt, lanczos_tolerance=1e-10)
-    carry = tint.init_carry(ts, state=tst)
+def _run_port(ts, tst, scheme, n_steps, dt, update_PC=1):
+    step = tint.make_stepper(ts, scheme, dt, lanczos_tolerance=1e-10,
+                             update_PC=update_PC)
+    carry = (tint.init_carry_with_pc(ts, tst) if update_PC > 1
+             else tint.init_carry(ts, state=tst))
     gen = torch.Generator().manual_seed(0)
     s = tst
     for _ in range(n_steps):
@@ -40,9 +45,12 @@ def _keys(n):
     return [jax.random.PRNGKey(100 + i) for i in range(n)]
 
 
-@pytest.mark.parametrize("scheme", ["deterministic_forward_euler",
-                                    "deterministic_adams_bashforth",
-                                    "stochastic_Slip_Trapz"])
+@pytest.mark.parametrize("scheme", [
+    "deterministic_forward_euler", "deterministic_adams_bashforth",
+    "stochastic_Slip_Trapz", "deterministic_midpoint", "stochastic_EM",
+    "stochastic_adams_bashforth", "deterministic_forward_euler_dense_algebra",
+    "stochastic_first_order_RFD_dense_algebra", "Fixman",
+    "stochastic_Slip_Mid_DLA"])
 def test_scheme_matches_jax_at_zero_temperature(scheme):
     js, jst, ts, tst, _, _ = shells_scene(3, seed=0)
     jfinal, jaux = _run_jax(js, jst, scheme, 3, 2e-3, _keys(3))
@@ -58,18 +66,32 @@ def test_scheme_matches_jax_at_zero_temperature(scheme):
     assert taux.rejections == 0 and taux.solves_converged
 
 
-def test_slip_trapz_matches_jax_with_jax_noise(monkeypatch):
-    """kT > 0: the port's draw_normal returns, in the port's draw order
-    (W_slip, then the Lanczos z), the normals the JAX step draws."""
-    js, jst, ts, tst, _, _ = shells_scene(3, seed=1, kT=0.05)
-    keys = _keys(2)
-    n = js.num_blobs
-    draws = []
-    for key in keys:
-        _, sub = jax.random.split(key)       # make_stepper's attempt key
-        k1, k2 = jax.random.split(sub)       # Slip-Trapz's noise keys
-        draws.append(np.array(jax.random.normal(k2, (n, 3))))
-        draws.append(np.array(jax.random.normal(k1, (3 * n,))))
+def _jax_normals(key, scheme, js):
+    """The normals a JAX attempt of `scheme` draws from its step key, in
+    the order the port's scheme asks draw_normal for them."""
+    _, sub = jax.random.split(key)           # make_stepper's attempt key
+    n3, b6 = 3 * js.num_blobs, (js.num_bodies, 6)
+    if scheme == "stochastic_Slip_Trapz":
+        k1, k2 = jax.random.split(sub)
+        return [(k2, (js.num_blobs, 3)), (k1, (n3,))]
+    if scheme == "stochastic_EM":
+        return [(sub, (n3,))]
+    if scheme == "stochastic_adams_bashforth":
+        k_noise, k_rfd = jax.random.split(sub)
+        return [(k_noise, (n3,)), (k_rfd, b6)]
+    if scheme == "stochastic_first_order_RFD_dense_algebra":
+        k_noise, k_rfd = jax.random.split(sub)
+        return [(k_noise, (6 * js.num_bodies,)), (k_rfd, b6)]
+    if scheme == "Fixman":
+        k1, k2 = jax.random.split(sub)
+        return [(k1, (6 * js.num_bodies,)), (k2, (6 * js.num_bodies,))]
+    assert scheme == "stochastic_Slip_Mid_DLA"
+    return [(k, (n3,)) for k in jax.random.split(sub, 3)]
+
+
+def _feed_jax_noise(monkeypatch, keys, scheme, js):
+    draws = [np.array(jax.random.normal(k, shape))
+             for key in keys for k, shape in _jax_normals(key, scheme, js)]
     feed = iter(draws)
 
     def jax_draws(generator, shape, like):
@@ -78,14 +100,57 @@ def test_slip_trapz_matches_jax_with_jax_noise(monkeypatch):
         return torch.as_tensor(z, dtype=like.dtype, device=like.device)
 
     monkeypatch.setattr(tint, "draw_normal", jax_draws)
-    jfinal, jaux = _run_jax(js, jst, "stochastic_Slip_Trapz", 2, 1e-3, keys)
-    tfinal, taux = _run_port(ts, tst, "stochastic_Slip_Trapz", 2, 1e-3)
-    assert int(jaux.rejections) == 0 and taux.rejections == 0
+
+
+def _assert_same_final(jfinal, tfinal, jst):
     disp = np.abs(np.asarray(jfinal.pos) - np.asarray(jst.pos)).max()
     np.testing.assert_allclose(to_np(tfinal.pos), np.asarray(jfinal.pos),
                                atol=TOL * disp, rtol=0)
     np.testing.assert_allclose(to_np(tfinal.quat), np.asarray(jfinal.quat),
                                atol=TOL, rtol=0)
+
+
+def test_slip_trapz_matches_jax_with_jax_noise(monkeypatch):
+    """kT > 0: the port's draw_normal returns, in the port's draw order
+    (W_slip, then the Lanczos z), the normals the JAX step draws."""
+    js, jst, ts, tst, _, _ = shells_scene(3, seed=1, kT=0.05)
+    keys = _keys(2)
+    _feed_jax_noise(monkeypatch, keys, "stochastic_Slip_Trapz", js)
+    jfinal, jaux = _run_jax(js, jst, "stochastic_Slip_Trapz", 2, 1e-3, keys)
+    tfinal, taux = _run_port(ts, tst, "stochastic_Slip_Trapz", 2, 1e-3)
+    assert int(jaux.rejections) == 0 and taux.rejections == 0
+    _assert_same_final(jfinal, tfinal, jst)
+
+
+@pytest.mark.parametrize("scheme", [
+    "stochastic_EM", "stochastic_adams_bashforth",
+    "stochastic_first_order_RFD_dense_algebra", "Fixman",
+    "stochastic_Slip_Mid_DLA"])
+def test_stochastic_scheme_matches_jax_with_jax_noise(monkeypatch, scheme):
+    """kT > 0, two steps, the JAX step's normals fed to the port."""
+    js, jst, ts, tst, _, _ = shells_scene(3, seed=3, kT=0.05)
+    keys = _keys(2)
+    _feed_jax_noise(monkeypatch, keys, scheme, js)
+    jfinal, jaux = _run_jax(js, jst, scheme, 2, 1e-3, keys)
+    tfinal, taux = _run_port(ts, tst, scheme, 2, 1e-3)
+    assert int(jaux.rejections) == 0 and taux.rejections == 0
+    assert taux.det_iterations == int(jaux.det_iterations)
+    _assert_same_final(jfinal, tfinal, jst)
+
+
+@pytest.mark.parametrize("scheme, kT", [("stochastic_Slip_Trapz", 0.05),
+                                        ("deterministic_midpoint", 0.0)])
+def test_update_pc_matches_jax(monkeypatch, scheme, kT):
+    """update_PC = 2 over 3 steps: the preconditioner of step 0 serves
+    step 1 and is refactored at step 2, in both packages."""
+    js, jst, ts, tst, _, _ = shells_scene(3, seed=4, kT=kT)
+    keys = _keys(3)
+    if kT > 0:
+        _feed_jax_noise(monkeypatch, keys, scheme, js)
+    jfinal, jaux = _run_jax(js, jst, scheme, 3, 1e-3, keys, update_PC=2)
+    tfinal, taux = _run_port(ts, tst, scheme, 3, 1e-3, update_PC=2)
+    assert taux.det_iterations == int(jaux.det_iterations)
+    _assert_same_final(jfinal, tfinal, jst)
 
 
 def test_wall_rejection_retries_are_bounded():
@@ -100,9 +165,11 @@ def test_wall_rejection_retries_are_bounded():
 
 def test_unported_schemes_and_options_raise():
     _, _, ts, _, _, _ = shells_scene(2)
-    with pytest.raises(NotImplementedError):
-        tint.make_stepper(ts, "stochastic_EM", 1e-3)
+    for scheme in ("stochastic_Slip_Mid", "stochastic_traction_EM",
+                   "stochastic_GDC_RFD", "articulated_deterministic_midpoint"):
+        with pytest.raises(NotImplementedError):
+            tint.make_stepper(ts, scheme, 1e-3)
     with pytest.raises(ValueError):
         tint.make_stepper(ts, "no_such_scheme", 1e-3)
-    with pytest.raises(NotImplementedError):
-        tint.make_stepper(ts, "stochastic_Slip_Trapz", 1e-3, update_PC=5)
+    with pytest.raises(TypeError):                  # Krylov recycling
+        tint.make_stepper(ts, "stochastic_Slip_Trapz", 1e-3, recycle_k=4)
