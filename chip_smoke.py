@@ -10,9 +10,11 @@ is non-zero and no result line is printed):
      card's name and power limit from nvidia-smi;
   2. build: compiles kernel K1 (csrc/pair_tt.cu, csrc/pair_couplings.cu
      on csrc/pair_blocks.cuh), K2 (csrc/blob_forces.cu), K3
-     (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu), K5 and K6 with one nvcc
-     per source, all started together, into build/kernels/; prints the
-     ptxas registers and spills of every kernel instance;
+     (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu), K5, K6 and K7
+     (csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu on
+     csrc/cell_sweep.cuh) with one nvcc per source, all started together,
+     into build/kernels/; prints the ptxas registers and spills of every
+     kernel instance;
   3. kernels against their plain PyTorch versions on the card: every K1
      coupling and template instance and K2 on a random ~3000-blob scene
      with blobs below a, K1 tt and K2 at the 49,152-blob shape of the
@@ -46,20 +48,33 @@ is non-zero and no result line is printed):
      builds, K4 products) and again with MATERIALIZE_BUDGET_BYTES = 0
      (matrix-free on K1); ms/step, solver counts, launches per step and
      peak device memory of each.
+ 10. the wall spectral path at full width: bench.py's spectral_wall
+     configuration, 8192 twelve-blob shells = 98,304 blobs in two layers
+     above the wall in an xy-periodic box, the spectral wall engine with
+     the wall-slab linked-cell forces, float32, slab height and
+     capacities sized as bench.py sizes them; the host tables (timed),
+     K7 (B = 1 and 2) and the wall-slab K5 at its shapes against their
+     plain versions (the first 256 cells, float64), then one warm-up step
+     and three timed steps with the launch counts, drops and clipped
+     blobs (which must be 0).
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
+K7 and the wall-slab K5 on a random ~3000-blob wall slab,
 and K3 and K4 (float32 and float64, N below one tile and N off the tile
 edges; K4 bit-identical on repeat and blind to NaN in its strictly-lower
 tiles) at small N and at the 12,288 blobs of phase 9; phase 4 the
-spectral slice (27 shells, Slip-Trapz) on the card against the CPU (the
-8-shell slice runs on K3/K4); phase 5 the CLI on a generated
-periodic_spectral input and the body_mobility and resistance modes on a
-generated 64-shell input (card float64 against CPU float64).
+spectral slice (27 shells, Slip-Trapz) and the wall spectral slice (8
+shells, on K7 and K5) on the card against the CPU (the 8-shell
+single_wall slice runs on K3/K4); phase 5 the CLI on generated
+periodic_spectral and single_wall_spectral inputs and the body_mobility
+and resistance modes on a generated 64-shell input (card float64 against
+CPU float64).
 The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak);
 the last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -84,6 +99,11 @@ K1_COUPLING_INSTANCES = [("tr", 1), ("tr", 2), ("rt", 1), ("rr", 1),
 N_SPECTRAL = 8192
 SPECTRAL_SIDE = 21
 L_SPECTRAL = SPECTRAL_SIDE * 1.6
+# bench.py's spectral_wall path: 8192 shells in two layers on a 64-per-side
+# square lattice above the wall
+N_WALL = 8192
+WALL_SIDE = 64
+L_WALL = WALL_SIDE * 1.6
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -97,6 +117,12 @@ PEAK_F32_FLOPS = 67e12
 # bound that the log prints beside it)
 K1_PAIR_FLOPS = {"tt": 80, "tr": 80, "rt": 80, "rr": 80, "grand": 320}
 FORCE_PAIR_FLOPS = 22
+# K7, for each pair inside r_cut, K6's count with the mirror (1 per
+# right-hand side); a pair with an image source adds the image series'
+# domain map (~12), ten Ki-term Clenshaw series (3 each a term) and, per
+# right-hand side, img_terms (its operations counted from
+# csrc/wall_img_terms.cuh, img_terms_flops()) and the prefactor (6)
+K7_IMG_PAIR_FLOPS = 12
 # K3: tt's ~70 per pair to condense plus ~20 to expand and scale the 3x3
 # block; K4: two FMAs per matrix value read (the row and the transposed
 # product)
@@ -726,6 +752,113 @@ def k6_flops(ck, plan, n_rhs):
     return flops, flops + 8 * (cand - inside), cand, inside
 
 
+def img_terms_flops():
+    """Operations of one img_terms call, counted from the generated
+    header: every binary + - * of its body (the header writes a sum or
+    difference with spaces, a product as * with or without them)."""
+    path = os.path.join(ROOT, "rigidmultiblobswall_tpu_torch", "csrc",
+                        "wall_img_terms.cuh")
+    body = open(path).read().split("{", 2)[2]
+    return sum(body.count(op) for op in (" + ", " - ", "*"))
+
+
+def k7_flops(ck, plan, n_rhs):
+    """Operations of one K7 sweep at this plan's data (see
+    K7_IMG_PAIR_FLOPS), counted on the real targets' pairs inside r_cut;
+    the 27-cell algorithm also tests every other candidate pair (8 each).
+    Returns (function operations, algorithm operations, candidate pairs,
+    inside pairs, pairs with an image source)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall
+
+    p = plan.params
+    args, _ = ewald_wall.near_args(plan)
+    cand, inside, img = ck.wall_pair_counts(plan.pos_all, *args[:4],
+                                            p.r_cut, p.z0)
+    K, Ki = args[4].shape[2], args[5].shape[2]
+    flops = (inside * (8 + 6 + 6 * K + 19 * n_rhs)
+             + img * (K7_IMG_PAIR_FLOPS + 30 * Ki
+                      + (img_terms_flops() + 6) * n_rhs))
+    return flops, flops + 8 * (cand - inside), cand, inside, img
+
+
+def k7_vs_plain(ck, plan, f, cells_range=None):
+    """K7 against its plain version in float64 on the plan's cells (the
+    real particles' rows there)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall
+
+    args, kw = ewald_wall.near_args(plan)
+    got = ck.wall_near(plan.pos_all, f, *args, cz_range=ewald_wall
+                       ._kept_layers(plan.params, plan.cell_dims), **kw)
+    torch.cuda.synchronize()
+    dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in args)
+    ref = ck.wall_near_plain(plan.pos_all.double(), f.double(), *dargs,
+                             cells_range=cells_range, **kw)
+    rows = _rows_of(plan.cell_table, plan.n_real, plan.params.cell_capacity,
+                    cells_range)
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    return err, ref[rows].abs().max().item()
+
+
+def phase_wall_kernels(ck):
+    """Phase 3, K7 and K5 on a random 14 x 14 wall slab of 3000 blobs
+    (blobs below a, blobs above the slab top that the plan clips, a
+    coincident pair, a pair closer than 2a): K7 with B = 1 and 2, float32
+    at 2e-5 x max|ref| (the JAX package's bound for its float32 K7) and
+    float64 at 1e-12, and K5 on the wall-slab forces' layout (z clipped
+    below an empty guard layer), float32 at 3e-6 and float64 at 1e-12,
+    against the plain versions in float64."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall, forces
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(12)
+    n, L, a, z_hi = 3000, 14.0, 0.3, 3.0
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, L, (n, 2))
+    r[:, 2] = rng.uniform(0.3 * a, 1.2 * z_hi, n)
+    r[7] = r[6]
+    r[9] = r[8] + 0.3 * a
+    f6 = rng.normal(size=(n, 6))
+    p = dataclasses.replace(ewald_wall.default_wall_params(
+        a, 1.0, (L, L), z_hi, tol=1e-4), cell_capacity=96)
+    for dtype, bound_rel in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        plan = ewald_wall.make_wall_plan(
+            p, torch.as_tensor(r, dtype=dtype, device=dev))
+        check(int(plan.n_dropped_cells) == 0 and int(plan.n_clipped) > 0,
+              "K7 scene overflows or clips nothing")
+        for n_rhs in (1, 2):
+            f = torch.as_tensor(f6[:, :3 * n_rhs], dtype=dtype,
+                                device=dev).contiguous()
+            err, scale = k7_vs_plain(ck, plan, f)
+            times = ""
+            if dtype == torch.float32:
+                args, kw = ewald_wall.near_args(plan)
+                ms = cuda_ms(lambda: ewald_wall.near_matvec(plan, f), 10)
+                plain_ms = cuda_ms(lambda: ck.wall_near_plain(
+                    plan.pos_all, f, *args, **kw), 3)
+                times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
+            log(f"K7 {n} blobs cells {plan.cell_dims} cap {p.cell_capacity} "
+                f"B={n_rhs} {dtype}: max err / max|ref| = {err / scale:.3e} "
+                f"(bound {bound_rel:g})" + times)
+            check(err <= bound_rel * scale, f"K7 disagrees ({err / scale})")
+    rc, fcap = 2 * a + 30 * 0.05, 64
+    kw5 = dict(eps_over_b=0.7 / 0.05, inv_b=1 / 0.05, two_a=2 * a)
+    for dtype, bound_rel in ((torch.float32, 3e-6), (torch.float64, 1e-12)):
+        pos, dims, box, table, dropped = forces._force_cells(
+            torch.as_tensor(r, dtype=dtype, device=dev), (L, L, 0.0), rc, 16,
+            fcap, z_hi)
+        check(int(dropped) == 0, "wall-slab K5 scene overflows")
+        got = ck.nl_forces(pos, table, dims, box, fcap, guard_z=True, **kw5)
+        torch.cuda.synchronize()
+        ref = ck.nl_forces_plain(pos.double(), table, dims, box, fcap, **kw5)
+        err, scale = (got.double() - ref).abs().max().item(), \
+            ref.abs().max().item()
+        log(f"K5 wall slab {n} blobs cells {dims} cap {fcap} {dtype}: max "
+            f"err / max|ref| = {err / scale:.3e} (bound {bound_rel:g})")
+        check(err <= bound_rel * scale, f"wall-slab K5 disagrees "
+              f"({err / scale})")
+
+
 def phase_cell_kernels(ck, cells, ewald):
     """Phase 3, K5 and K6 on a random periodic box of 3000 blobs (a
     coincident pair, blobs closer than 2a, capacity without overflow):
@@ -844,8 +977,9 @@ def phase_spectral_parity():
           "spectral parity")
 
 
-def write_spectral_input(d, pos, quat, settings):
-    """A periodic_spectral input file of twelve-blob shells with tree
+def write_spectral_input(d, pos, quat, settings,
+                         domain="periodic_spectral"):
+    """A spectral-domain input file of twelve-blob shells with tree
     (linked-cell) blob forces in directory d; returns its path."""
     from rigidmultiblobswall_tpu_torch.io import scene
 
@@ -858,7 +992,7 @@ def write_spectral_input(d, pos, quat, settings):
     with open(inp, "w") as f:
         f.write(settings + "scheme stochastic_Slip_Trapz\ndt 0.001\neta 1.0\n"
                 "g 0.0\nblob_radius 0.131\nkT 0.05\nsolver_tolerance 2e-4\n"
-                "repulsion_strength 0.2\ndomain periodic_spectral\n"
+                f"repulsion_strength 0.2\ndomain {domain}\n"
                 "spectral_tolerance 1e-4\nblob_blob_force_implementation "
                 "tree\nseed 1\noutput_name run\n"
                 "structure shell.vertex shell.clones\n")
@@ -1062,6 +1196,258 @@ def phase_spectral_path(pk, mc, ck):
     records["K5"]["launches"] = launches["K5"]
     records["K6"]["launches"] = launches["K6 B=1"] + launches["K6 B=2"]
     return records
+
+
+def wall_lattice(n_bodies, side, seed=0):
+    """bench.py's spectral_wall lattice: two layers at z = 0.8 and 2.0 of
+    spacing 1.6 with in-plane jitter +-0.25, then the quaternions
+    (float32, numpy seed)."""
+    idx = np.arange(n_bodies)
+    pos = np.stack([(idx % side) * 1.6, ((idx // side) % side) * 1.6,
+                    0.8 + (idx // (side * side)) * 1.2],
+                   axis=1).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    pos[:, :2] += rng.uniform(-0.25, 0.25,
+                              size=(n_bodies, 2)).astype(np.float32)
+    quat = rng.normal(size=(n_bodies, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    return pos, quat
+
+
+def wall_system(n_bodies, L, **overrides):
+    """bench.py's spectral_wall configuration: twelve-blob shells above the
+    wall in an xy-periodic box on the spectral wall engine, linked-cell
+    repulsion in the wall slab."""
+    from rigidmultiblobswall_tpu_torch.models.system import BodyType, System
+
+    kw = dict(eta=1.0, blob_radius=A_BENCH, kT=0.05, g=0.1,
+              domain="single_wall_spectral", periodic_length=(L, L, 0.0),
+              spectral_tol=1e-4, spectral_grid_max=512,
+              repulsion_strength=0.2, debye_length=0.2,
+              repulsion_strength_wall=0.2, debye_length_wall=0.2,
+              blob_blob_force_method="neighbor_list",
+              blob_blob_cutoff=2 * A_BENCH + 12 * 0.2,
+              blob_blob_grid_dim=32, blob_blob_cell_capacity=96,
+              solver_tolerance=2e-4)
+    kw.update(overrides)
+    t = BodyType(name="shell12", ref_config=shell_vertices(), count=n_bodies)
+    return System(types=(t,), **kw)
+
+
+def phase_wall_parity(ck):
+    """Phase 4, wall spectral: 8 shells in a 3.2 x 3.2 slab (4 near-field
+    cells a side at tolerance 1e-3; force cutoff 0.8 for 4 force cells) x
+    3 Slip-Trapz steps, GPU f64 against CPU f64 at kT = 0.05 (the same
+    host-drawn noise), GPU f32 against CPU f64 at kT = 0; K7 (B = 1 and
+    2) and K5 run on the card."""
+    pos, quat = wall_lattice(8, 2, seed=5)
+    pos64, quat64 = pos.astype(np.float64), quat.astype(np.float64)
+    out = {}
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    for kT in (0.05, 0.0):
+        for dtype, device, tol in ((torch.float64, "cpu", 1e-12),
+                                   (torch.float64, DEVICE, 1e-12),
+                                   (torch.float32, DEVICE, 1e-5)):
+            if kT > 0 and dtype == torch.float32:
+                continue
+            system = wall_system(8, 3.2, kT=kT, blob_blob_cutoff=0.8,
+                                 spectral_tol=1e-3, spectral_wall_height=3.25,
+                                 spectral_cell_capacity=32)
+            out[kT, dtype, device] = run_steps(system, pos64, quat64, dtype,
+                                               device, 3, tol)
+    ref, _ = out[0.05, torch.float64, "cpu"]
+    got64, aux = out[0.05, torch.float64, DEVICE]
+    ref0, _ = out[0.0, torch.float64, "cpu"]
+    got32, _ = out[0.0, torch.float32, DEVICE]
+    disp, disp0 = np.abs(ref - pos64).max(), np.abs(ref0 - pos64).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref0).max() / disp0
+    log(f"wall spectral parity, 8 shells x 3 Slip-Trapz steps (max "
+        f"displacement {disp:.3e} at kT = 0.05, {disp0:.3e} at kT = 0), max "
+        f"error / max displacement: GPU f64 vs CPU f64 {e64:.3e} (bound "
+        f"1e-9), GPU f32 vs CPU f64 at kT = 0 {e32:.3e} (bound 1e-2); gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, overflows "
+        f"{aux.capacity_overflows}; launches {ck.LAUNCHES}")
+    check(disp > 0 and disp0 > 0 and e64 <= 1e-9 and e32 <= 1e-2,
+          "wall spectral parity")
+    check(min(ck.LAUNCHES[k] for k in ("nl_forces", "wall_near_b1",
+                                       "wall_near_b2")) > 0,
+          "the wall slice did not run on K7 (B = 1 and 2) and K5")
+
+
+def phase_wall_cli():
+    """Phase 5, wall spectral: the CLI on a generated 8-shell
+    single_wall_spectral input (tolerance 1e-3) with tree (linked-cell)
+    blob forces (debye length 0.015: 4 force cells of 2a + 30 b), 3 steps
+    on the card."""
+    pos, quat = wall_lattice(8, 2, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        inp = write_spectral_input(d, pos, quat, (
+            "n_steps 3\nn_save 3\ndebye_length 0.015\n"
+            "periodic_length 3.2 3.2 0\nspectral_tolerance 1e-3\n"),
+            domain="single_wall_spectral")
+        secs, info = run_spectral_cli(d, inp, 3, 8)
+    log(f"wall spectral CLI 8 shells x 3 steps: {secs:.2f} s, .info {info}")
+
+
+def phase_wall_path(pk, mc, ck):
+    """Phase 10: bench.py's spectral_wall step at 8192 shells (98,304
+    blobs), float32. Sizes the slab height and capacities as bench.py
+    does, builds the host tables (timed), checks K7 (B = 1 and 2) and the
+    wall-slab K5 at the path's shapes, then drives the path: one warm-up
+    step and three timed steps."""
+    from rigidmultiblobswall_tpu_torch.models import integrators, saddle
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall, forces
+
+    dev = torch.device(DEVICE)
+    system = wall_system(N_WALL, L_WALL)
+    pos, quat = wall_lattice(N_WALL, WALL_SIDE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    system = saddle.auto_spectral_capacities(system, state, log=log)
+    r_blobs = kin.blob_positions(system, state)
+    system = forces.auto_force_cell_capacity(system, r_blobs, log=log)
+    log(f"wall slab height and capacities sized in "
+        f"{time.perf_counter() - t0:.2f} s")
+    n = system.num_blobs
+    t0 = time.perf_counter()
+    plan = saddle.maybe_dense_mobility(system, r_blobs)
+    p = plan.params
+    tables, near = plan.tables, plan.near_tables
+    factors = ewald_wall.noise_factors(p, torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"wall host tables (Chebyshev, polish kernels, noise factors) and "
+        f"device multipliers built in {time.perf_counter() - t0:.2f} s")
+    cap = p.cell_capacity
+    pz, pk_ = p.noise_orders()
+    log(f"wall plan: grid {p.grid}, r_cut {p.r_cut:.4f}, xi {p.xi:.4f}, "
+        f"support {p.support}, z_hi {p.z_hi:.4f}, Chebyshev terms "
+        f"{near.cheb.shape[2]} (image series {near.img_cheb.shape[2]}), "
+        f"cells {plan.cell_dims} x cap {cap}, target layers "
+        f"{ewald_wall._kept_layers(p, plan.cell_dims)}, dropped "
+        f"{int(plan.n_dropped_cells)}, clipped {int(plan.n_clipped)}; "
+        f"{tables.polish_idx.shape[0]} polish columns, noise orders "
+        f"({pz}, {pk_}), {factors[0].shape[0]} wave-noise modes")
+
+    # K7 at the path's shape: the first 256 cells against the plain
+    # version in float64
+    g = torch.Generator(device=dev).manual_seed(4)
+    sub = (0, 256)
+    records = {}
+    bound_rel = 2e-5
+    args, kw = ewald_wall.near_args(plan)
+    layers = ewald_wall._kept_layers(p, plan.cell_dims)
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        err, scale = k7_vs_plain(ck, plan, f, cells_range=sub)
+        ms = cuda_ms(lambda: ck.wall_near(plan.pos_all, f, *args,
+                                          cz_range=layers, **kw), 10)
+        plain_ms = cuda_ms(lambda: ck.wall_near_plain(
+            plan.pos_all, f, *args, **kw), 1, warmup=False)
+        flops, algo_flops, cand, inside, img = k7_flops(ck, plan, n_rhs)
+        nbytes = (4 * (2 * n * 3 + 2 * n * 3 * n_rhs)
+                  + plan.cell_table.numel() * 4
+                  + 4 * (near.cheb.numel() + near.img_cheb.numel()))
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bound_record(nbytes, flops))
+        algo = bound_record(nbytes, algo_flops)
+        log(f"K7 {n} blobs B={n_rhs} f32, first {sub[1]} cells vs plain "
+            f"f64: max err {err:.3e}, / max|ref| = {err / scale:.3e} (bound "
+            f"{bound_rel:g}); kernel {ms:.3f} ms, plain f32 {plain_ms:.1f} "
+            f"ms; {cand} candidate pairs of the real targets, {inside} "
+            f"inside r_cut, {img} of them with an image source; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; the 27-cell "
+            f"algorithm's {algo['bound_ms']:.4f} ms)")
+        check(err <= bound_rel * scale, f"K7 disagrees at {n} blobs")
+        records[f"K7 B={n_rhs}"] = rec
+
+    # K5 at the path's shape, on the wall slab
+    rc = system.blob_blob_cutoff
+    fcap = system.blob_blob_cell_capacity
+    fpos, dims, box, table, dropped = forces._force_cells(
+        r_blobs, system.periodic_length, rc, system.blob_blob_grid_dim, fcap,
+        forces.force_z_extent(system))
+    check(int(dropped) == 0, "wall-slab force cells overflow")
+    kw5 = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * A_BENCH)
+    got = ck.nl_forces(fpos, table, dims, box, fcap, guard_z=True, **kw5)
+    torch.cuda.synchronize()
+    ref = ck.nl_forces_plain(fpos.double(), table, dims, box, fcap,
+                             cells_range=sub, **kw5)
+    rows = _rows_of(table, n, fcap, sub)
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    scale = ref[rows].abs().max().item()
+    bound5 = u32_sqrt(27 * fcap)
+    ms5 = cuda_ms(lambda: ck.nl_forces(fpos, table, dims, box, fcap,
+                                       guard_z=True, **kw5), 10)
+    log(f"K5 wall slab {n} blobs f32 cells {dims} x cap {fcap}, first "
+        f"{sub[1]} target cells vs plain f64: max err / max|ref| = "
+        f"{err / scale:.3e} (bound u32*sqrt(27 cap) = {bound5:.2e}); kernel "
+        f"{ms5:.3f} ms")
+    check(err <= bound5 * scale, f"wall-slab K5 disagrees at {n} blobs")
+    del plan, fpos, table
+
+    # the path: one warm-up step and three timed steps, the noise drawn on
+    # the card
+    step = integrators.make_stepper(
+        system, "stochastic_Slip_Trapz", 1e-3, lanczos_tolerance=5e-4,
+        lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+        gmres_maxiter=300, max_rejections=3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    carry = integrators.init_carry(system, state=state)
+    state, carry, aux = step(state, gen, carry)           # warm-up
+    torch.cuda.synchronize()
+    log(f"wall path plan + warm-up step: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, rejections "
+        f"{aux.rejections}, overflows {aux.capacity_overflows}")
+    n_timed = 3
+    det, sto, ovf = [], [], [aux.capacity_overflows]
+    drops, clipped = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, carry, aux = step(state, gen, carry)
+        det.append(aux.det_iterations)
+        sto.append(aux.stoch_iterations)
+        ovf.append(aux.capacity_overflows)
+        drops.append(int(carry.plan.n_dropped_cells))
+        clipped.append(int(carry.plan.n_clipped))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = {"K7 B=1": ck.LAUNCHES["wall_near_b1"],
+                "K7 B=2": ck.LAUNCHES["wall_near_b2"],
+                "K5": ck.LAUNCHES["nl_forces"],
+                "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"],
+                "K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p_out = state.pos
+    log(f"wall path {n} blobs ({N_WALL} shells) stochastic_Slip_Trapz f32: "
+        f"{ms:.1f} ms/step over {n_timed} steps; gmres {det}, lanczos "
+        f"{sto}, near-field cell drops {drops}, clipped {clipped}, capacity "
+        f"overflows (drops + clipped + force cells) {ovf}, peak device "
+        f"memory {peak:.2f} GiB, launches over the 4 steps {launches}")
+    check(bool(torch.isfinite(p_out).all()), "wall positions not finite")
+    check(p_out.shape == (N_WALL, 3), "wall positions shape")
+    check(float(p_out[:, 2].min()) > 0, "a body crossed the wall")
+    check(min(det) > 0 and min(sto) > 0, "no GMRES or Lanczos iterations")
+    check(max(ovf) == 0 and max(drops) == 0 and max(clipped) == 0,
+          f"drops or clipped blobs on the wall path: {ovf}")
+    check(min(launches["K7 B=1"], launches["K7 B=2"], launches["K5"]) > 0,
+          f"K7 or K5 not launched on the wall path: {launches}")
+    check(launches["K6"] == 0 and launches["K1"] == 0 and launches["K2"] == 0,
+          f"another engine's kernel ran on the wall path: {launches}")
+    rec = records["K7 B=1"]
+    rec["max_abs_err"] = max(rec["max_abs_err"],
+                             records["K7 B=2"]["max_abs_err"])
+    rec["launches"] = launches["K7 B=1"] + launches["K7 B=2"]
+    return rec
 
 
 def _nan_lower_tiles(m, tile):
@@ -1402,14 +1788,17 @@ def main():
     records = phase_kernels(pk, mc, mob, kin, make_state)   # phase 3
     records.update(phase_roller_kernels(pk, mob))
     phase_cell_kernels(ck, cells, ewald)
+    phase_wall_kernels(ck)
     phase_dense_kernels_small(mc)
     records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
+    phase_wall_parity(ck)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
+    phase_wall_cli()
     phase_dense_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
@@ -1420,6 +1809,7 @@ def main():
     spectral = phase_spectral_path(pk, mc, ck)              # phase 8
     phase_spectral_cli_full()
     dense_launches = phase_dense_path(pk, mc)               # phase 9
+    k7 = phase_wall_path(pk, mc, ck)                        # phase 10
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     kernels = [dict(name=f"K1 pair_{c}", route="cuda",
@@ -1454,6 +1844,10 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/near_rpy.cu",
         replaces="rigidmultiblobswall_tpu/ops/ewald.py:1375",
         **spectral["K6"]))
+    kernels.append(dict(
+        name="K7 wall_near", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/wall_near.cu",
+        replaces="rigidmultiblobswall_tpu/ops/ewald_wall.py:942", **k7))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,11 @@ the same input files and output formats:
 Every run also writes .inputfile and .bodies_info. Runs on the card in
 float32 by default (`--f64` for float64) and raises without CUDA;
 `--device cpu` runs the plain PyTorch versions of the kernels. Dynamic
-runs size the spectral engine's cell capacity and the linked-cell force
+runs size the spectral engine's cell capacity (single_wall_spectral: after
+its slab height, saddle.auto_wall_height) and the linked-cell force
 capacity at the start, as the JAX CLI does, and report steps that still
-dropped particles in .info (capacity_overflow_steps).
+dropped particles, or clipped them at the wall slab's top, in .info
+(capacity_overflow_steps).
 
 MCMC, lubrication, articulated rollers,
 velocity-field output, .random_state and user_defined_functions.py hooks
@@ -201,8 +203,9 @@ def _run_rollers(cfg, system, state):
 
 def _run_dynamic(cfg, system, state, args, start_time):
     generator = _generator(cfg, state)
-    # fixed capacities sized from the initial occupancy (no-ops for the
-    # pairwise engine and the direct forces)
+    # the wall slab's height and the fixed capacities sized from the
+    # initial configuration (no-ops for the pairwise engine and the direct
+    # forces)
     system = saddle.auto_spectral_capacities(system, state, log=print)
     system = force_ops.auto_force_cell_capacity(
         system, kin.blob_positions(system, state), log=print)

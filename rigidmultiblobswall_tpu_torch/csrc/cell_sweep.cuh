@@ -1,6 +1,7 @@
 // The 27-cell walk shared by kernels K5 (nl_forces.cu, linked-cell blob
-// repulsion) and K6 (near_rpy.cu, near-field RPY remainder of the spectral
-// engine) over the fixed-capacity cell table of ops/cells.py.
+// repulsion), K6 (near_rpy.cu, near-field RPY remainder of the spectral
+// engine) and K7 (wall_near.cu, the spectral wall engine's near field)
+// over the fixed-capacity cell table of ops/cells.py.
 //
 // Replaces the TPU layout of rigidmultiblobswall_tpu/ops/cells.py: there
 // every cell's 27 neighbor cells are pre-gathered once per plan into a
@@ -13,7 +14,12 @@
 // Layout (cell_bin): cell c = (cx ny + cy) nz + cz holds particle ids in
 // table[c cap .. c cap + cap - 1]; the live slots are a prefix, the rest
 // hold the sentinel id n. The dims are at least 4 a side (the wrapper
-// checks), so the 27 stencil cells and their images are distinct.
+// checks), so the 27 stencil cells and their images are distinct. A wall
+// slab (K5's wall-slab forces, K7) may have 3 or 2 z layers when its top
+// layer is an empty guard: with 3 the z offsets -1, 0, +1 still name three
+// distinct layers; with 2 the offsets -1 and +1 of the data layer both
+// name the guard. Either way the z wrap lands only on the empty guard, so
+// no pair is counted twice and no wrap shift enters a pair.
 //
 // Design: one block per target cell. Its live slots are the targets; the
 // sources are the live slots of the 27 neighbor cells, staged through

@@ -5,10 +5,12 @@ parses the whitespace-separated key-value format with '#' comments and
 repeated structure entries; `build_system` builds the port's System and
 initial State from the referenced .vertex/.clones files.
 
-Domains: single_wall, no_wall and periodic_spectral (with
-spectral_tolerance, spectral_grid_max and spectral_cell_capacity); a
-tree/neighbor blob_blob_force_implementation selects the linked-cell
-forces. Not ported yet, and refused with NotImplementedError: obstacles,
+Domains: single_wall, no_wall, periodic_spectral and
+single_wall_spectral (periodic_length Lx Ly 0; both spectral domains read
+spectral_tolerance, spectral_grid_max and spectral_cell_capacity, and
+the wall slab's height is sized at the start of a run,
+saddle.auto_wall_height); a tree/neighbor blob_blob_force_implementation
+selects the linked-cell forces. Not ported yet, and refused with NotImplementedError: obstacles,
 articulated bodies, .slip and .Laplace files, per-blob radii and
 body-body forces (ROADMAP Queue 1, items 4, 15, 17 and 18).
 """

@@ -21,12 +21,15 @@ the carry of `init_carry_with_pc`). The other schemes and Krylov recycling
 wait for ROADMAP Queue 1, items 17-18.
 
 Each attempt takes its mobility engine at the step's start configuration
-(`_get_m_dense`): on periodic_spectral the carry holds the engine's plan
-across steps, each step refreshes it at its start configuration (a full
-rebuild past the drift budget), the RFD products and correctors use it
-refreshed at their own configurations, and the noise is the
-positively-split sample (closed-form wave part plus Lanczos on the near
-field alone). The pairwise domains build the materialized matrix within
+(`_get_m_dense`): on the spectral domains the carry holds the engine's
+plan across steps, each step refreshes it at its start configuration (a
+full rebuild past the drift budget), the RFD products and correctors use
+it refreshed at their own configurations, and the noise is the
+positively-split sample: on periodic_spectral the closed-form wave part
+plus Lanczos on the near field alone; on single_wall_spectral the
+closed-form sample of the wave modes' positive parts plus Lanczos on the
+near field less the sampler's defect, the carry holding the noise factor
+tables on the device. The pairwise domains build the materialized matrix within
 saddle.MATERIALIZE_BUDGET_BYTES (kernel K3), rebuild it at a corrector's
 configuration, and take the matrix-free sweep for single RFD products, as
 the JAX package does; the carry holds no matrix.
@@ -43,7 +46,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops import ewald
+from ..ops import ewald, ewald_wall
 from ..ops import forces as force_ops
 from ..ops import quaternion as quat
 from ..ops.lanczos import stochastic_forcing_lanczos
@@ -70,7 +73,9 @@ class StepAux(NamedTuple):
     solves_converged: bool = True
     capacity_overflows: int = 0  # particles the plan's cells (as of its
     #                              last full sort) and the linked-cell
-    #                              force layout drop at the step's start
+    #                              force layout drop at the step's start,
+    #                              plus, on the wall engine, the blobs its
+    #                              slab and force cells clip
 
 
 class Carry(NamedTuple):
@@ -78,23 +83,29 @@ class Carry(NamedTuple):
     first_step: bool
     plan: object = None   # the spectral engine's plan, carried across
     #                       steps (None for the pairwise engine)
+    noise_factors: object = None  # single_wall_spectral: the wave noise
+    #                       factor tables (ewald_wall.noise_factors), built
+    #                       once and kept on the device; None otherwise
 
 
 def init_carry(system: System, dtype=torch.float64, state=None,
                device=None) -> Carry:
-    """Carry of the first step; with `state`, on its device and dtype and
-    with the spectral plan built at its configuration."""
-    plan = None
+    """Carry of the first step; with `state`, on its device and dtype, with
+    the spectral plan built at its configuration and, on
+    single_wall_spectral at kT > 0, the noise factor tables."""
+    plan = factors = None
     if state is not None:
         dtype, device = state.pos.dtype, state.pos.device
         if saddle.is_spectral(system):
             plan = saddle.maybe_dense_mobility(
                 system, kin.blob_positions(system, state))
+        if saddle.is_wall_spectral(system) and system.kT > 0:
+            factors = ewald_wall.noise_factors(plan.params, dtype, device)
     else:
         device = resolve_device(device)
     return Carry(velocities_prev=torch.zeros((system.num_bodies, 6),
                                              dtype=dtype, device=device),
-                 first_step=True, plan=plan)
+                 first_step=True, plan=plan, noise_factors=factors)
 
 
 def draw_normal(generator, shape, like):
@@ -107,13 +118,37 @@ def draw_normal(generator, shape, like):
 
 
 def _noise_slip(system, state, pc, generator, factor, tolerance, max_iter,
-                check_every=1, plan=None):
+                check_every=1, plan=None, factors=None):
     """sqrt(2 kT/dt) M^{1/2} W by preconditioned Lanczos.
 
     periodic_spectral: the positively-split sample instead, the closed-form
     wave part (ewald.wave_sqrt_noise of grid white noise) plus Lanczos on
     the near-field operator alone of the step's plan; independent
-    parts add in covariance."""
+    parts add in covariance.
+    single_wall_spectral: the damped closed-form sample of the wave modes'
+    positive parts (ewald_wall.wave_sqrt_noise of (3 pz, gx, gy) white
+    noise, with the carry's factor tables) plus Lanczos on D (M_near -
+    Delta) D, Delta the sampler's defect: the covariances add to
+    D (M_near + M_wave) D, D the overlap damping."""
+    if saddle.is_wall_spectral(system):
+        p = plan.params
+        pz = p.noise_orders()[0]
+        d = plan.damp[:, None]
+        w = draw_normal(generator, (3 * pz, p.grid[0], p.grid[1]),
+                        state.pos)
+        uw = (d * ewald_wall.wave_sqrt_noise(plan, w, factors)).reshape(-1)
+        z = draw_normal(generator, (3 * system.num_blobs,), state.pos)
+
+        def near_minus_defect(f):
+            f3 = d * f.reshape(-1, 3)
+            out = (ewald_wall.near_matvec(plan, f3)
+                   - ewald_wall.wave_defect_matvec(plan, f3, factors))
+            return (d * out).reshape(-1)
+
+        res = stochastic_forcing_lanczos(
+            near_minus_defect, z, factor=factor, tolerance=tolerance,
+            max_iter=max_iter, check_every=check_every)
+        return res.noise + factor * uw, res.iterations
     if saddle.is_spectral(system):
         w = draw_normal(generator, (3, *plan.params.grid), state.pos)
         uw = ewald.wave_sqrt_noise(plan, w).reshape(-1)
@@ -220,7 +255,8 @@ def _stochastic_EM(system, dt, solver_kw, lanczos_kw, generator, state,
     # one engine per step, shared by the noise Lanczos and the solve
     m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
     noise, it_l = _noise_slip(system, state, pc, generator, factor,
-                              plan=m_dense, **lanczos_kw)
+                              plan=m_dense, factors=carry.noise_factors,
+                              **lanczos_kw)
     sol = solvers.solve_mobility_problem(system, state, pc=pc,
                                          noise_slip=noise, m_dense=m_dense,
                                          **solver_kw)
@@ -245,7 +281,8 @@ def _stochastic_slip_trapz(system, dt, solver_kw, lanczos_kw, generator,
     KTxW = kin.KT_mul(system, state, W_slip)
 
     noise1, it_l = _noise_slip(system, state, pc, generator, factor,
-                               plan=m_dense, **lanczos_kw)
+                               plan=m_dense, factors=carry.noise_factors,
+                               **lanczos_kw)
 
     # the rigid solve and the RFD solve share the configuration: one
     # lockstep Krylov loop, one engine sweep per iteration for both columns
@@ -312,7 +349,8 @@ def _stochastic_adams_bashforth(system, dt, solver_kw, lanczos_kw,
     # lockstep solve
     m_dense = _get_m_dense(system, r_blobs, plan)
     noise, it_l = _noise_slip(system, state, pc, generator, factor,
-                              plan=m_dense, **lanczos_kw)
+                              plan=m_dense, factors=carry.noise_factors,
+                              **lanczos_kw)
     rhs_det = solvers.build_rhs(system, state, r_blobs)
     rhs_stoch = torch.zeros_like(rhs_det)
     rhs_stoch[:n3] = -noise.reshape(-1)
@@ -517,7 +555,8 @@ def make_stepper(system: System, scheme: str, dt: float, *,
     def run(state: State, generator: torch.Generator, carry: Carry, pc):
         # the spectral engine, resolved once here: the carried plan at this
         # step's start configuration (built here when the carry has none);
-        # the pairwise engines are built by the attempt
+        # the pairwise engines are built by the attempt. The wall engine's
+        # noise factors likewise (its Lanczos needs them at kT = 0 too)
         plan = None
         if saddle.is_spectral(system):
             r0 = kin.blob_positions(system, state)
@@ -525,6 +564,9 @@ def make_stepper(system: System, scheme: str, dt: float, *,
                     if carry.plan is None
                     else saddle.refresh_dense_mobility(system, carry.plan,
                                                        r0))
+        if saddle.is_wall_spectral(system) and carry.noise_factors is None:
+            carry = carry._replace(noise_factors=ewald_wall.noise_factors(
+                plan.params, state.pos.dtype, state.pos.device))
         attempts = 0
         while True:
             (new_state, velocities, det_it, st_it, ok,
@@ -537,8 +579,10 @@ def make_stepper(system: System, scheme: str, dt: float, *,
             system, kin.blob_positions(system, state))
         if plan is not None:
             overflows += int(plan.n_dropped_cells)
+        if saddle.is_wall_spectral(system):
+            overflows += int(plan.n_clipped)      # blobs above the slab
         new_carry = Carry(velocities_prev=velocities, first_step=False,
-                          plan=plan)
+                          plan=plan, noise_factors=carry.noise_factors)
         aux = StepAux(velocities=velocities, det_iterations=int(det_it),
                       stoch_iterations=int(st_it), rejections=attempts - 1,
                       solves_converged=bool(conv),

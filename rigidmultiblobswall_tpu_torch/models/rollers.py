@@ -18,8 +18,8 @@ All nine schemes of the JAX package; `make_stepper` wraps each in the
 bounded wall-rejection retry on body centers z < 0, as a host loop. All
 noise comes from `draw_normal` and an explicit torch.Generator, drawn in
 the order the JAX package draws it from its key. The wall-spectral engine
-(domain "single_wall_spectral") waits for kernel K7 (ROADMAP Queue 1,
-item 19), and user force/torque hooks for ROADMAP Queue 1, item 18.
+(domain "single_wall_spectral") waits for its rot-coupling channels
+(ops/ewald_wall_rot.py, ROADMAP Queue 1, item 19), and user force/torque hooks for ROADMAP Queue 1, item 18.
 """
 
 from __future__ import annotations
@@ -67,8 +67,9 @@ class RollerSuspension:
                            tuple(float(x) for x in self.omega_one_roller))
         if self.domain == "single_wall_spectral":
             raise NotImplementedError(
-                "rollers on the wall-spectral engine wait for kernel K7 "
-                "(ROADMAP Queue 1, item 19)")
+                "rollers on the wall-spectral engine wait for its "
+                "rot-coupling channels (ops/ewald_wall_rot.py, ROADMAP "
+                "Queue 1, item 19)")
         if self.domain not in DOMAINS:
             raise NotImplementedError(
                 f"domain {self.domain!r}: the rollers port covers {DOMAINS}")

@@ -20,10 +20,11 @@ The mobility engine of a configuration is `m_dense`:
     and the stacked pairs of the lockstep solves run kernel K4);
   - None for the matrix-free pairwise engine (kernel K1), above the
     budget;
-  - an ops/ewald.SpectralPlan for domain 'periodic_spectral', built once
-    per configuration and refreshed for nearby ones.
-Prescribed kinematics, articulated constraints and the wall spectral
-engine are still to be ported (ROADMAP Queue 1, items 17-19).
+  - an ops/ewald.SpectralPlan for domain 'periodic_spectral', an
+    ops/ewald_wall.WallPlan for 'single_wall_spectral', built once per
+    configuration and refreshed for nearby ones.
+Prescribed kinematics and articulated constraints are still to be ported
+(ROADMAP Queue 1, items 17-18).
 """
 
 from __future__ import annotations
@@ -36,20 +37,38 @@ import os
 import numpy as np
 import torch
 
-from ..ops import cells, ewald
+from ..ops import cells, ewald, ewald_wall
 from ..ops import mobility as mob
 from ..ops import mobility_cuda
 from . import kinematics as kin
 from .system import State, System
 
 
+SPECTRAL_DOMAINS = ("periodic_spectral", "single_wall_spectral")
+
+
 def is_spectral(system: System) -> bool:
     """True for the engines that carry a positions plan."""
-    return system.domain == "periodic_spectral"
+    return system.domain in SPECTRAL_DOMAINS
+
+
+def is_wall_spectral(system: System) -> bool:
+    return system.domain == "single_wall_spectral"
 
 
 def spectral_params(system: System):
-    """The ops/ewald parameters of a periodic_spectral System (host)."""
+    """The parameters of a spectral System's engine (host): ops/ewald's
+    for periodic_spectral, ops/ewald_wall's for single_wall_spectral."""
+    if is_wall_spectral(system):
+        if system.spectral_wall_height <= 0:
+            raise ValueError(
+                "single_wall_spectral needs spectral_wall_height > 0 (slab "
+                "top; use saddle.auto_wall_height(system, state))")
+        return ewald_wall.default_wall_params(
+            system.blob_radius, system.eta, system.periodic_length[:2],
+            z_hi=system.spectral_wall_height, tol=system.spectral_tol,
+            grid_max=system.spectral_grid_max,
+            cell_capacity=system.spectral_cell_capacity)
     if not is_spectral(system):
         return None
     return ewald.default_params(
@@ -91,10 +110,12 @@ def dense_mobility(system: System, r_blobs):
 
 def maybe_dense_mobility(system: System, r_blobs):
     """The per-configuration mobility engine: a SpectralPlan for
-    periodic_spectral; for the pairwise domains the materialized (3N, 3N)
-    matrix (dense_mobility) when its 9 N^2 values fit
-    MATERIALIZE_BUDGET_BYTES, else None, the matrix-free engine (e.g.
-    49,152 blobs: 87 GB in float32)."""
+    periodic_spectral, a WallPlan for single_wall_spectral; for the
+    pairwise domains the materialized (3N, 3N) matrix (dense_mobility)
+    when its 9 N^2 values fit MATERIALIZE_BUDGET_BYTES, else None, the
+    matrix-free engine (e.g. 49,152 blobs: 87 GB in float32)."""
+    if is_wall_spectral(system):
+        return ewald_wall.make_wall_plan(spectral_params(system), r_blobs)
     if is_spectral(system):
         return ewald.make_plan(spectral_params(system), r_blobs)
     n = r_blobs.shape[0]
@@ -109,6 +130,8 @@ def refresh_dense_mobility(system: System, m_dense, r_new, *, build=True):
     its drift budget); the pairwise domains rebuild at r_new (build=True)
     or take the matrix-free sweep (build=False, for a single product
     that a build would not amortize)."""
+    if is_wall_spectral(system):
+        return ewald_wall.update_wall_plan(_plan(system, m_dense), r_new)
     if is_spectral(system):
         return ewald.update_plan(_plan(system, m_dense), r_new)
     return maybe_dense_mobility(system, r_new) if build else None
@@ -118,8 +141,10 @@ def _plan(system, m_dense):
     """The spectral plan m_dense, which the caller resolves once per
     configuration (the integrators at the step's start, solvers at
     m_dense='auto'); nothing below builds one."""
-    if not isinstance(m_dense, ewald.SpectralPlan):
-        raise ValueError("periodic_spectral products need the "
+    kind = (ewald_wall.WallPlan if is_wall_spectral(system)
+            else ewald.SpectralPlan)
+    if not isinstance(m_dense, kind):
+        raise ValueError(f"{system.domain} products need the "
                          "configuration's plan as m_dense "
                          "(saddle.maybe_dense_mobility), got "
                          f"{type(m_dense).__name__}")
@@ -130,6 +155,8 @@ def _mobility_apply(system, r_blobs, m_dense, lam):
     """M lam for lam (N, 3) (or flat) -> (N, 3) on the engine m_dense
     (a SpectralPlan, the materialized matrix, or None for the matrix-free
     pairwise engine)."""
+    if is_wall_spectral(system):
+        return ewald_wall.matvec(_plan(system, m_dense), lam.reshape(-1, 3))
     if is_spectral(system):
         return ewald.matvec(_plan(system, m_dense), lam.reshape(-1, 3))
     if m_dense is not None:
@@ -143,6 +170,8 @@ def _mobility_apply(system, r_blobs, m_dense, lam):
 
 def _mobility_apply_multi(system, r_blobs, m_dense, lam):
     """Stacked M products, lam (b, N, 3) -> (b, N, 3), one engine sweep."""
+    if is_wall_spectral(system):
+        return ewald_wall.matvec_multi(_plan(system, m_dense), lam)
     if is_spectral(system):
         return ewald.matvec_multi(_plan(system, m_dense), lam)
     if m_dense is not None:
@@ -225,8 +254,11 @@ def _collinear(ref_config) -> bool:
 def build_block_diag_pc(system: System, state: State) -> BlockDiagPC:
     """Factor every body's blob mobility (the dense single-body mobility
     in the system's domain without images; periodic_spectral bodies take
-    the open-boundary blocks), batched per type."""
-    pc_domain = "no_wall" if is_spectral(system) else system.domain
+    the open-boundary blocks, single_wall_spectral bodies the wall
+    blocks), batched per type."""
+    pc_domain = {"periodic_spectral": "no_wall",
+                 "single_wall_spectral": "single_wall"}.get(system.domain,
+                                                            system.domain)
     per_type = []
     for i, t in enumerate(system.types):
         rel = kin.blob_rel_positions(system, state, i)
@@ -311,15 +343,30 @@ def exact_spectral_capacities(system: System, state, *, margin=1.25,
     """Size the spectral engine's near-field cell capacity from the actual
     occupancy at this configuration (host numpy): max occupancy x margin,
     rounded up to 8, when the System's is unset or smaller. `margin`
-    covers drift between full plan rebuilds. No-op for other domains."""
+    covers drift between full plan rebuilds. The wall engine bins the
+    combined real + image set of its plan (ewald_wall.make_wall_plan).
+    No-op for other domains."""
     if not is_spectral(system):
         return system
     p = spectral_params(system)
     r = np.asarray(kin.blob_positions(system, state).detach().cpu().numpy(),
                    np.float64)
-    box = np.asarray(p.box)
-    pos = r - np.floor(r / box) * box
-    dims = tuple(max(int(L // p.r_cut), 1) for L in p.box)
+    if is_wall_spectral(system):
+        Lx, Ly = p.box_xy
+        xy = r[:, :2] - np.floor(r[:, :2] / [Lx, Ly]) * [Lx, Ly]
+        z = np.clip(r[:, 2], p.a, p.z_hi)
+        pos = np.concatenate([
+            np.concatenate([xy, (z - p.z0)[:, None]], axis=1),
+            np.concatenate([xy, (-z - p.z0)[:, None]], axis=1)])
+        csize_z = ewald_wall.Z_CELL_SLACK * p.r_cut
+        nz_data = max(int(np.ceil(p.data_extent / csize_z)), 2)
+        dims = (max(int(Lx // p.r_cut), 1), max(int(Ly // p.r_cut), 1),
+                nz_data + 1)
+        box = np.asarray([Lx, Ly, dims[2] * csize_z])
+    else:
+        box = np.asarray(p.box)
+        pos = r - np.floor(r / box) * box
+        dims = tuple(max(int(L // p.r_cut), 1) for L in p.box)
     occ = int(np.bincount(cells.host_cell_ids(pos, box, dims)).max())
     cell_cap = -(-int(occ * margin) // 8) * 8
     if log is not None:
@@ -331,14 +378,35 @@ def exact_spectral_capacities(system: System, state, *, margin=1.25,
                                            system.spectral_cell_capacity))
 
 
+def auto_wall_height(system: System, state, *, margin=1.3, log=None):
+    """Set a single_wall_spectral System's spectral_wall_height from the
+    current maximum blob height times a drift margin (host, at start-up).
+    No-op for other domains or when the height is already high enough."""
+    if not is_wall_spectral(system):
+        return system
+    z_max = float(kin.blob_positions(system, state)[:, 2].max())
+    z_hi = margin * max(z_max, 2.0 * system.blob_radius)
+    if system.spectral_wall_height >= z_hi:
+        return system
+    if log is not None:
+        log(f"wall slab: z_max {z_max:.3g} -> spectral_wall_height "
+            f"{z_hi:.3g}")
+    return dataclasses.replace(system, spectral_wall_height=z_hi)
+
+
 def auto_spectral_capacities(system: System, state, *, max_rounds=5,
                              log=None):
     """Grow the spectral engine's cell capacity until a plan at this
     configuration drops no particle (over-capacity cells would drop
-    near-field pairs): the exact host sizing first, then plans built and
-    checked, +8 slots a round. No-op for other domains."""
+    near-field pairs): the wall slab's height first (auto_wall_height),
+    the exact host sizing, then plans built and checked, +8 slots a round
+    (the wall engine: x 5/4 and at least +8, since slab layouts can
+    misestimate the occupied-cell mean). The port's gridding drops
+    nothing, so the cells are the only drop count. No-op for other
+    domains."""
     if not is_spectral(system):
         return system
+    system = auto_wall_height(system, state, log=log)
     system = exact_spectral_capacities(system, state, log=log)
     r_blobs = kin.blob_positions(system, state)
     for _ in range(max_rounds):
@@ -350,7 +418,10 @@ def auto_spectral_capacities(system: System, state, *, max_rounds=5,
                 f"cell_cap={plan.params.cell_capacity} dropped={drops}")
         if drops == 0:
             return system
+        cap_now = plan.params.cell_capacity
         system = dataclasses.replace(
-            system, spectral_cell_capacity=plan.params.cell_capacity + 8)
+            system, spectral_cell_capacity=(
+                -(-max(cap_now + 8, cap_now * 5 // 4) // 8) * 8
+                if is_wall_spectral(system) else cap_now + 8))
     raise ValueError(f"spectral cell capacity still dropping {drops} "
                      f"particles after {max_rounds} rounds of growth")

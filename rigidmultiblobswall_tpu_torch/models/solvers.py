@@ -35,8 +35,9 @@ class MobilitySolution(NamedTuple):
 
 def force_torque_calculator(system: System, state: State, r_blobs):
     """Default force assembly: one-blob external forces plus blob-blob
-    repulsion (direct sweep or linked cells), aggregated through K^T.
-    Returns (B,6)."""
+    repulsion (direct sweep or linked cells; on single_wall_spectral the
+    linked cells of the slab below spectral_wall_height), aggregated
+    through K^T. Returns (B,6)."""
     f_blobs = force_ops.blob_external_forces(
         r_blobs, g=system.g, blob_mass=1.0, blob_radius=system.blob_radius,
         repulsion_strength_wall=system.repulsion_strength_wall,
@@ -49,7 +50,8 @@ def force_torque_calculator(system: System, state: State, r_blobs):
             periodic_length=system.periodic_length,
             cutoff=system.blob_blob_cutoff or None,
             grid_dim=system.blob_blob_grid_dim,
-            cell_capacity=system.blob_blob_cell_capacity)
+            cell_capacity=system.blob_blob_cell_capacity,
+            z_extent=force_ops.force_z_extent(system))
     elif system.blob_blob_force_method == "direct":
         f_blobs = f_blobs + force_ops.blob_blob_forces(
             r_blobs, repulsion_strength=system.repulsion_strength,

@@ -11,10 +11,11 @@ dataclasses take the place of the JAX pytrees:
     state's.
 
 The port covers the wall-bounded and unbounded direct pairwise engine
-(`domain` 'single_wall' or 'no_wall', no periodic images) and the
-triply-periodic spectral Ewald engine (`domain` 'periodic_spectral'),
-one blob radius, with the default force set: direct or linked-cell
-blob-blob repulsion. Fields the JAX System carries for other engines and
+(`domain` 'single_wall' or 'no_wall', no periodic images), the
+triply-periodic spectral Ewald engine (`domain` 'periodic_spectral') and
+the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
+slab top `spectral_wall_height`), one blob radius, with the default force
+set: direct or linked-cell blob-blob repulsion. Fields the JAX System carries for other engines and
 models are not present; `from_reference` refuses a JAX system that sets
 them.
 
@@ -30,7 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-DOMAINS = ("single_wall", "no_wall", "periodic_spectral")
+DOMAINS = ("single_wall", "no_wall", "periodic_spectral",
+           "single_wall_spectral")
 BLOB_BLOB_METHODS = ("direct", "none", "neighbor_list")
 
 
@@ -89,12 +91,17 @@ class System:
     g: float = 0.0
     domain: str = "single_wall"
     periodic_length: Tuple[float, float, float] = (0.0, 0.0, 0.0)
-    # periodic_spectral engine (ops/ewald.default_params): accuracy
-    # target, per-axis FFT grid cap (r_cut inflates when it binds), and
-    # near-field slots per cell (0 = auto; overflow is counted)
+    # spectral engines (ops/ewald.default_params, ops/ewald_wall.
+    # default_wall_params): accuracy target, per-axis FFT grid cap (r_cut
+    # inflates when it binds), and near-field slots per cell (0 = auto;
+    # overflow is counted)
     spectral_tol: float = 1e-4
     spectral_grid_max: int = 256
     spectral_cell_capacity: int = 0
+    # single_wall_spectral slab top: the wall engine's z grid is static,
+    # so the maximum blob height is declared (saddle.auto_wall_height
+    # grows it; blobs above it are clipped and counted)
+    spectral_wall_height: float = 0.0
     repulsion_strength: float = 0.0
     debye_length: float = 1.0
     repulsion_strength_wall: float = 0.0
@@ -122,6 +129,11 @@ class System:
             if not all(periodic):
                 raise ValueError("periodic_spectral needs periodic_length > "
                                  "0 on all three axes")
+        elif self.domain == "single_wall_spectral":
+            if periodic != [True, True, False]:
+                raise ValueError("single_wall_spectral needs periodic_length "
+                                 "> 0 on x and y and 0 on z (the wall engine "
+                                 "is doubly periodic in-plane)")
         elif any(periodic):
             raise NotImplementedError(
                 "pseudo-periodic image boxes are not ported yet "
@@ -131,10 +143,12 @@ class System:
                              f"{self.blob_blob_force_method!r}; one of "
                              f"{BLOB_BLOB_METHODS}")
         if (self.blob_blob_force_method == "neighbor_list"
-                and not all(periodic)):
+                and not all(periodic)
+                and self.domain != "single_wall_spectral"):
             raise NotImplementedError(
-                "linked-cell blob forces in open or wall-slab boxes are not "
-                "ported yet (ROADMAP Queue 1, items 14 and 19)")
+                "linked-cell blob forces in open boxes are not ported yet "
+                "(ROADMAP Queue 1, item 14); the port covers periodic boxes "
+                "and the spectral wall engine's slab")
 
     @property
     def num_bodies(self) -> int:
@@ -202,9 +216,6 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
     if getattr(ref_system, "mesh", None) is not None:
         raise NotImplementedError("multi-device meshes (ROADMAP Queue 1, "
                                   "item 20)")
-    if ref_system.domain == "single_wall_spectral":
-        raise NotImplementedError("the wall spectral engine (ROADMAP Queue "
-                                  "1, item 19)")
     for t in ref_system.types:
         radii = getattr(t, "blob_radii", None)
         if radii is not None and not np.allclose(radii,
@@ -240,6 +251,7 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         spectral_tol=float(ref_system.spectral_tol),
         spectral_grid_max=int(ref_system.spectral_grid_max),
         spectral_cell_capacity=int(ref_system.spectral_cell_capacity),
+        spectral_wall_height=float(ref_system.spectral_wall_height),
         repulsion_strength=float(ref_system.repulsion_strength),
         debye_length=float(ref_system.debye_length),
         repulsion_strength_wall=float(ref_system.repulsion_strength_wall),

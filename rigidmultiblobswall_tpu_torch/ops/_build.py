@@ -34,12 +34,13 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
-# csrc/nl_forces.cu, csrc/near_rpy.cu); pointers and the stream MUST be
-# c_void_p or ctypes truncates them
+# csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu); pointers and the
+# stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _NL = (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P)
 _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
          _P)
+_WALL = (_P,) * 6 + (_I,) * 9 + (_D,) * 11 + (_P,)
 SIGNATURES = {
     **{f"pair_{c}_{t}": _PAIR for c in ("tt", "tr", "rt", "rr", "grand")
        for t in ("f32", "f64")},
@@ -52,6 +53,7 @@ SIGNATURES = {
     "nl_forces_f32": _NL,
     "nl_forces_f64": _NL,
     **{f"near_rpy_{t}_b{b}": _NEAR for t in ("f32", "f64") for b in (1, 2)},
+    **{f"wall_near_{t}_b{b}": _WALL for t in ("f32", "f64") for b in (1, 2)},
 }
 
 _lib = None

@@ -1,5 +1,5 @@
-"""Kernels K5 and K6: pair sweeps over the 27-cell stencil of a periodic
-box, beside their plain PyTorch versions.
+"""Kernels K5, K6 and K7: pair sweeps over the 27-cell stencil of a
+periodic box or a wall slab, beside their plain PyTorch versions.
 
 - K5 `nl_forces`: the linked-cell soft blob-blob repulsion, counterpart
   of rigidmultiblobswall_tpu/ops/forces.py (`_nl_force_kernel`, wrapper
@@ -11,16 +11,26 @@ box, beside their plain PyTorch versions.
   rigidmultiblobswall_tpu/ops/ewald.py (`_near_kernel`, wrapper
   `_near_rows_pallas`); CUDA source `csrc/near_rpy.cu`. B = 1 and 2
   right-hand sides stacked as b-major columns of (N, 3B).
+- K7 `wall_near`: the near field of the spectral wall engine over the
+  combined set of N real points and their N images (the RPY remainder
+  on mirrored strengths, plus the screened image channels of real
+  targets and image sources), rows of the real points only; counterpart
+  of rigidmultiblobswall_tpu/ops/ewald_wall.py (`_wall_near_kernel`,
+  wrapper `_wall_near_rows`; its plain version follows
+  `near_matvec_xla`); CUDA source `csrc/wall_near.cu`, B = 1 and 2.
 
-Both take positions wrapped into the box (or drifted from there by less
+All take positions wrapped into the box (or drifted from there by less
 than the plan's budget), the cell table of ops/cells.cell_bin and the
 cell dims (at least 4 a side, so the 27 stencil cells and their images
 are distinct), and return one row per particle: the sum over the
 particles of the 27 cells around its own, each at the periodic image the
-cell's wrap count gives. A particle dropped by cell overflow is neither
-a source nor a target: its row is zero, as in the JAX package's Pallas
-path. K5 has no cutoff test: the sum runs over the whole stencil, as
-both JAX paths do.
+cell's wrap count gives. A wall slab (`guard_z`: K5's wall-slab forces,
+K7) may have fewer z cells when the top z layer is an empty guard: the
+stencil's z wrap then lands only on that layer, and a z offset that
+repeats a cell repeats the empty guard. A particle dropped by cell
+overflow is neither a source nor a target: its row is zero, as in the
+JAX package's Pallas path. K5 has no cutoff test: the sum runs over the
+whole stencil, as both JAX paths do.
 
 On a CUDA tensor a wrapper launches its kernel and counts the launch in
 `LAUNCHES`; on a CPU tensor it runs the plain version, a cell-tiled
@@ -36,10 +46,11 @@ import torch
 from . import _build, cells
 
 # kernel launches made by the wrappers in this process
-LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0}
+LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
+            "wall_near_b1": 0, "wall_near_b2": 0}
 
-MAX_RHS = 2          # K6 template instances: B = 1 and B = 2
-MAX_CHEB = 32        # Chebyshev terms per piece the kernel's table holds
+MAX_RHS = 2          # K6 and K7 template instances: B = 1 and B = 2
+MAX_CHEB = 32        # Chebyshev terms per piece the kernels' tables hold
 _TILE_CELLS = 16     # plain versions: target cells per tile
 
 
@@ -140,7 +151,93 @@ def near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb, *,
     return out
 
 
-def _check(what, pos, cell_table, dims, cap, extra=()):
+def _clenshaw_rows(coeffs, t):
+    """Clenshaw sums of several series at once: coeffs (M, F, K) per
+    point, t (M,) -> (M, F)."""
+    b1 = torch.zeros(coeffs.shape[:2], dtype=t.dtype, device=t.device)
+    b2 = torch.zeros_like(b1)
+    t2 = 2.0 * t[:, None]
+    for k in range(coeffs.shape[2] - 1, 0, -1):
+        b1, b2 = t2 * b1 - b2 + coeffs[:, :, k], b1
+    return t[:, None] * b1 - b2 + coeffs[:, :, 0]
+
+
+def wall_near_plain(pos, forces, cell_table, dims, box, cap, cheb, img_cheb,
+                    *, two_a, r_cut, z0, a, pref_img, img_range,
+                    cells_range=None):
+    """Plain PyTorch K7 (the JAX package's XLA sweep, ewald_wall.py:753-872,
+    per pair inside r_cut): pos (2N, 3) grid-shifted reals then images,
+    forces (N, 3B) raw strengths -> (N, 3B) rows of the real particles
+    without the self term; rows outside `cells_range` stay zero."""
+    from . import _wall_channels_gen as gen
+
+    n = pos.shape[0] // 2
+    f = forces.reshape(n, -1).to(pos.dtype)
+    nc = f.shape[1]
+    B = nc // 3
+    out = torch.zeros((n, nc), dtype=pos.dtype, device=pos.device)
+    cheb = torch.as_tensor(cheb, dtype=pos.dtype, device=pos.device)
+    img_cheb = torch.as_tensor(img_cheb, dtype=pos.dtype, device=pos.device)
+    mids = (0.5 * two_a, 0.5 * (two_a + r_cut))
+    halfs = (0.5 * two_a, 0.5 * (r_cut - two_a))
+    ir_lo, ir_mid, ir_hi = img_range
+    mirror = torch.as_tensor([-1.0, -1.0, 1.0] * B, dtype=pos.dtype,
+                             device=pos.device)
+    for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
+            pos, cell_table, dims, box, cap, cells_range):
+        d = tp[:, :, None, None, :] - sp[:, None]        # (TC,cap,27,cap,3)
+        r2 = torch.sum(d * d, dim=-1)
+        inside = ((t_valid & (t_ids < n))[:, :, None, None]
+                  & s_valid[:, None] & (r2 > 0) & (r2 < r_cut * r_cut))
+        c, i, k, j = inside.nonzero(as_tuple=True)
+        tid, sid = t_ids[c, i], s_ids[c, k, j]
+        dv = d[c, i, k, j]                                # (M, 3)
+        r2_in = r2[c, i, k, j]
+        r = torch.sqrt(r2_in)
+        # ---- RPY remainder on mirrored strengths
+        near = r < two_a
+        t0 = torch.clamp((r - mids[0]) / halfs[0], -1.0, 1.0)
+        t1 = torch.clamp((r - mids[1]) / halfs[1], -1.0, 1.0)
+        al = torch.where(near, _clenshaw(cheb[0, 0], t0),
+                         _clenshaw(cheb[1, 0], t1))
+        bfac = torch.where(near, _clenshaw(cheb[0, 1], t0),
+                           _clenshaw(cheb[1, 1], t1)) / r2_in
+        f_raw = f[sid % n]
+        src_z = pos[sid, 2] + z0                          # physical z
+        src_img = src_z < 0.0
+        fm = torch.where(src_img[:, None], f_raw * mirror, f_raw)
+        fs3 = fm.reshape(-1, B, 3)
+        ddotf = torch.sum(dv[:, None, :] * fs3, dim=-1)   # (M, B)
+        rows = (al[:, None, None] * fs3
+                + (bfac[:, None] * ddotf)[..., None] * dv[:, None, :])
+        # ---- screened image channels: real target, image source
+        pair = src_img & (pos[tid, 2] + z0 > 0.0)
+        if bool(pair.any()):
+            q = pair.nonzero(as_tuple=True)[0]
+            rs = torch.clamp(r[q] / a, ir_lo, ir_hi)
+            p0 = rs < ir_mid
+            ti = torch.clamp(torch.where(
+                p0, (2.0 * rs - (ir_mid + ir_lo)) / (ir_mid - ir_lo),
+                (2.0 * rs - (ir_hi + ir_mid)) / (ir_hi - ir_mid)), -1.0, 1.0)
+            cv = _clenshaw_rows(img_cheb[torch.where(p0, 0, 1)], ti).unbind(1)
+            dq = dv[q] / a
+            hq = -src_z[q] / a
+            fr = f_raw[q].reshape(-1, B, 3)
+            for b in range(B):
+                ux, uy, uz = gen.img_terms(
+                    dq[:, 0], dq[:, 1], dq[:, 2], hq, fr[:, b, 0],
+                    fr[:, b, 1], fr[:, b, 2], 1.0, *cv)
+                rows[q, b] += pref_img * torch.stack([ux, uy, uz], dim=1)
+        out.index_add_(0, tid, rows.reshape(-1, nc))
+    return out
+
+
+def _check(what, pos, cell_table, dims, cap, extra=(), guard_z=False):
+    if min(int(d) for d in dims[:2]) < 4 or int(dims[2]) < (2 if guard_z
+                                                          else 4):
+        raise ValueError(f"{what}: cell dims {tuple(dims)}; the stencil "
+                         "needs at least 4 cells a side (2 on z below an "
+                         "empty guard layer)")
     if pos.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {pos.device}")
     dtype = pos.dtype
@@ -156,9 +253,6 @@ def _check(what, pos, cell_table, dims, cap, extra=()):
         raise ValueError(f"{what}: pos must be (N,3), got "
                          f"{tuple(pos.shape)}")
     n_cells = int(dims[0]) * int(dims[1]) * int(dims[2])
-    if min(int(d) for d in dims) < 4:
-        raise ValueError(f"{what}: cell dims {tuple(dims)}; the stencil "
-                         "needs at least 4 cells a side")
     if (cell_table.device != pos.device or cell_table.dtype != torch.int32
             or not cell_table.is_contiguous()
             or cell_table.shape != (n_cells * cap,)):
@@ -169,13 +263,15 @@ def _check(what, pos, cell_table, dims, cap, extra=()):
                          "indexing")
 
 
-def nl_forces(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b, two_a):
+def nl_forces(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b, two_a,
+              guard_z=False):
     """K5 wrapper: the CUDA kernel for CUDA tensors, `nl_forces_plain` for
-    CPU tensors. pos (N,3) -> (N,3)."""
+    CPU tensors. pos (N,3) -> (N,3); guard_z declares an empty top z
+    layer (the wall slab)."""
     kw = dict(eps_over_b=eps_over_b, inv_b=inv_b, two_a=two_a)
     if pos.device.type == "cpu":
         return nl_forces_plain(pos, cell_table, dims, box, cap, **kw)
-    _check("nl_forces", pos, cell_table, dims, cap)
+    _check("nl_forces", pos, cell_table, dims, cap, guard_z=guard_z)
     out = torch.zeros_like(pos)
     if pos.shape[0] == 0:
         return out
@@ -227,6 +323,59 @@ def near_rpy(pos, forces, cell_table, dims, box, cap, cheb, *, two_a,
     return out
 
 
+def wall_near(pos, forces, cell_table, dims, box, cap, cheb, img_cheb, *,
+              two_a, r_cut, z0, a, pref_img, img_range, cz_range):
+    """K7 wrapper: the CUDA kernel for CUDA tensors, `wall_near_plain` for
+    CPU tensors. pos (2N, 3) grid-shifted reals then images, forces
+    (N, 3B) raw strengths, cheb (2, 2, K), img_cheb (2, 10, Ki), img_range
+    the image series' (r_lo, r_mid, r_hi) / a, cz_range the z layers
+    (lo, hi) of the target cells (those that can hold real particles)
+    -> (N, 3B) without the self term."""
+    kw = dict(two_a=two_a, r_cut=r_cut, z0=z0, a=a, pref_img=pref_img,
+              img_range=img_range)
+    if pos.device.type == "cpu":
+        return wall_near_plain(pos, forces, cell_table, dims, box, cap, cheb,
+                               img_cheb, **kw)
+    _check("wall_near", pos, cell_table, dims, cap,
+           (("forces", forces), ("cheb", cheb), ("img_cheb", img_cheb)),
+           guard_z=True)
+    n = pos.shape[0] // 2
+    if (pos.shape[0] % 2 or forces.ndim != 2 or forces.shape[0] != n
+            or forces.shape[1] % 3
+            or not 1 <= forces.shape[1] // 3 <= MAX_RHS):
+        raise ValueError(f"wall_near: pos must be (2N, 3) and forces (N, 3B) "
+                         f"with B in 1..{MAX_RHS}, got {tuple(pos.shape)}, "
+                         f"{tuple(forces.shape)}")
+    if (cheb.ndim != 3 or cheb.shape[:2] != (2, 2)
+            or not 1 <= cheb.shape[2] <= MAX_CHEB or img_cheb.ndim != 3
+            or img_cheb.shape[:2] != (2, 10)
+            or not 1 <= img_cheb.shape[2] <= MAX_CHEB):
+        raise ValueError(f"wall_near: cheb (2, 2, K) and img_cheb (2, 10, Ki) "
+                         f"with K, Ki <= {MAX_CHEB}, got {tuple(cheb.shape)}, "
+                         f"{tuple(img_cheb.shape)}")
+    cz_lo, cz_hi = (int(c) for c in cz_range)
+    if not 0 <= cz_lo <= cz_hi < int(dims[2]):
+        raise ValueError(f"wall_near: z layers {cz_range} outside the "
+                         f"{int(dims[2])} of the cell grid")
+    n_rhs = forces.shape[1] // 3
+    out = torch.zeros_like(forces)
+    if n == 0:
+        return out
+    name = (f"wall_near_{'f32' if pos.dtype == torch.float32 else 'f64'}"
+            f"_b{n_rhs}")
+    err = getattr(_build.library(), name)(
+        pos.data_ptr(), forces.data_ptr(), cell_table.data_ptr(),
+        cheb.data_ptr(), img_cheb.data_ptr(), out.data_ptr(), n,
+        *(int(d) for d in dims), int(cap), int(cheb.shape[2]),
+        int(img_cheb.shape[2]), cz_lo, cz_hi, *(float(L) for L in box),
+        float(two_a), float(r_cut), float(z0), float(a), float(pref_img),
+        *(float(v) for v in img_range),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _build.check(name, err)
+    LAUNCHES[f"wall_near_b{n_rhs}"] += 1
+    return out
+
+
 def pair_counts(pos, cell_table, dims, box, cap, r_cut=math.inf):
     """(candidate pairs, pairs with 0 < r < r_cut) of the stencil sweep:
     the work a bound on the kernels' time counts."""
@@ -239,3 +388,21 @@ def pair_counts(pos, cell_table, dims, box, cap, r_cut=math.inf):
         cand += int(live.sum())
         inside += int((live & (r2 > 0) & (r2 < r_cut * r_cut)).sum())
     return cand, inside
+
+
+def wall_pair_counts(pos, cell_table, dims, box, cap, r_cut, z0):
+    """K7's work at these inputs: (candidate pairs of the real targets,
+    pairs inside r_cut, of those the pairs with an image source)."""
+    n = pos.shape[0] // 2
+    cand = inside = img = 0
+    for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
+            pos, cell_table, dims, box, cap, None):
+        d = tp[:, :, None, None, :] - sp[:, None]
+        r2 = torch.sum(d * d, dim=-1)
+        live = (t_valid & (t_ids < n))[:, :, None, None] & s_valid[:, None]
+        near = live & (r2 > 0) & (r2 < r_cut * r_cut)
+        src_img = (pos[s_ids, 2] + z0 < 0.0)[:, None]
+        cand += int(live.sum())
+        inside += int(near.sum())
+        img += int((near & src_img).sum())
+    return cand, inside, img

@@ -132,8 +132,12 @@ def test_open_boxes_and_small_boxes_raise():
     with pytest.raises(NotImplementedError, match="item 4"):
         tforces.blob_blob_forces_neighbor_list(r, **dict(FORCE_KW,
                                                          cutoff=3.0))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tforces.blob_blob_forces_neighbor_list(r, z_extent=2.0, **FORCE_KW)
+    # a z extent shapes only xy-periodic wall slabs (the wall-slab branch,
+    # tests/test_torch_wall_spectral.py); a periodic box ignores it, as
+    # the JAX package does
+    assert torch.equal(
+        tforces.blob_blob_forces_neighbor_list(r, z_extent=2.0, **FORCE_KW),
+        tforces.blob_blob_forces_neighbor_list(r, **FORCE_KW))
     with pytest.raises(NotImplementedError):
         tsys.System(types=(), domain="no_wall",
                     blob_blob_force_method="neighbor_list")

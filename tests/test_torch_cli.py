@@ -21,7 +21,7 @@ from rigidmultiblobswall_tpu_torch import cli as tcli
 from rigidmultiblobswall_tpu_torch.io import input_file as tinput
 from rigidmultiblobswall_tpu_torch.models import system as tsys
 
-from torch_parity import shell_vertices, shells_scene
+from torch_parity import jax_zdft64, shell_vertices, shells_scene
 
 N_STEPS = 3
 
@@ -115,6 +115,37 @@ def test_cli_periodic_spectral_matches_jax(tmp_path, monkeypatch):
              "blob_blob_force_implementation tree\ndebye_length 0.015\n")
     out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
                     n_bodies=8, extra=extra, pos=pos)
+    final = "run.shell.%08d.clones" % N_STEPS
+    ref = _clones(out["jax"] / final)
+    got = _clones(out["torch"] / final)
+    disp = np.abs(ref[:, :3] - pos).max()
+    assert disp > 1e-5
+    np.testing.assert_allclose(got, ref, atol=1e-9 * max(disp, 1e-3),
+                               rtol=0)
+    info = dict(line.split() for line in
+                open(out["torch"] / "run.info").read().splitlines())
+    info_jax = dict(line.split() for line in
+                    open(out["jax"] / "run.info").read().splitlines())
+    assert info == info_jax
+
+
+def test_cli_wall_spectral_matches_jax(tmp_path, monkeypatch):
+    """4 shells in a 3.2 x 3.2 wall slab on the spectral wall engine
+    (tolerance 1e-2; the slab height sized at the start, as both CLIs do)
+    with tree blob forces (linked cells of the wall slab; debye length
+    0.015 keeps 4 cells of 2a + 30 b a side), 3 Slip-Trapz steps at
+    kT = 0; the JAX wave side with float64 z-DFT matrices."""
+    from rigidmultiblobswall_tpu.ops import ewald_wall as jew
+
+    monkeypatch.setattr(jew, "_host_zdft", jax_zdft64)
+    pos = np.stack([1.6 * (np.arange(4) % 2) + 0.8,
+                    1.6 * (np.arange(4) // 2) + 0.8,
+                    [0.7, 0.9, 1.1, 0.8]], axis=1)
+    extra = ("domain single_wall_spectral\nperiodic_length 3.2 3.2 0\n"
+             "spectral_tolerance 1e-2\n"
+             "blob_blob_force_implementation tree\ndebye_length 0.015\n")
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                    extra=extra, pos=pos)
     final = "run.shell.%08d.clones" % N_STEPS
     ref = _clones(out["jax"] / final)
     got = _clones(out["torch"] / final)

@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels K1 (every coupling), K2, K3, K4, K5 and K6
-against their plain PyTorch versions, on the card. Every test here is marked `gpu` and
+"""Hand-written CUDA kernels K1 (every coupling), K2, K3, K4, K5, K6 and
+K7 against their plain PyTorch versions, on the card. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -349,3 +351,116 @@ def test_dense_wrappers_reject_bad_input(cuda):
             mc.symm_matvec(mm, vv)
     with pytest.raises(ValueError):                          # wrong device
         mc.symm_matvec(m.to("meta"), r.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# K7 (the spectral wall engine's near field) and K5 on a wall slab
+# ---------------------------------------------------------------------------
+
+# f32: the JAX package's own bound for its f32 K7 against its XLA sweep
+WALL_BOUNDS = [(torch.float32, 2e-5), (torch.float64, 1e-12)]
+
+
+def _wall_plan(cuda, dtype, cap, n=1500, seed=6):
+    """A 12 x 12 wall slab of n blobs, some below a and some above the
+    slab top (clipped), one coincident pair; the plan with cell capacity
+    cap."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+
+    a, L, z_hi = 0.3, 12.0, 3.0
+    rng = np.random.default_rng(seed)
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, L, (n, 2))
+    r[:, 2] = rng.uniform(0.3 * a, 1.2 * z_hi, n)
+    r[7] = r[6]
+    p = dataclasses.replace(ew.default_wall_params(a, 1.0, (L, L), z_hi),
+                            cell_capacity=cap)
+    return ew.make_wall_plan(p, torch.as_tensor(r, dtype=dtype, device=cuda))
+
+
+def _k7(cuda, n_rhs, dtype, cap=96, seed=6):
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+
+    plan = _wall_plan(cuda, dtype, cap, seed=seed)
+    args, kw = ew.near_args(plan)
+    n = plan.n_real
+    f = torch.as_tensor(np.random.default_rng(3).normal(size=(n, 3 * n_rhs)),
+                        dtype=dtype, device=cuda)
+    key = f"wall_near_b{n_rhs}"
+    before = ck.LAUNCHES[key]
+    got = ck.wall_near(plan.pos_all, f, *args, cz_range=ew._kept_layers(
+        plan.params, plan.cell_dims), **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[key] == before + 1
+    dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in args)
+    ref = ck.wall_near_plain(plan.pos_all.double(), f.double(), *dargs, **kw)
+    err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+    return err, got, plan
+
+
+@pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_k7_matches_plain(cuda, n_rhs, dtype, bound):
+    err, _, plan = _k7(cuda, n_rhs, dtype)
+    assert int(plan.n_dropped_cells) == 0 and int(plan.n_clipped) > 0
+    assert plan.cell_dims[2] >= 3 and err <= bound
+
+
+def test_k7_overflowing_cell_rows_are_zero(cuda):
+    err, got, plan = _k7(cuda, 2, torch.float64, cap=8, seed=1)
+    assert int(plan.n_dropped_cells) > 0 and err <= 1e-12
+    n = plan.n_real
+    gone = plan.cell_slot[:n] == plan.cell_table.shape[0]
+    assert bool(gone.any()) and bool((got[gone] == 0).all())
+
+
+def test_k7_wrapper_rejects_bad_input(cuda):
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+
+    plan = _wall_plan(cuda, torch.float32, 96, n=200)
+    args, kw = ew.near_args(plan)
+    n = plan.n_real
+    layers = ew._kept_layers(plan.params, plan.cell_dims)
+    for f in (torch.zeros((n, 9), device=cuda),           # B = 3
+              torch.zeros((n, 4), device=cuda),           # ragged
+              torch.zeros((n + 1, 3), device=cuda),       # rows
+              torch.zeros((n, 3), device=cuda).double()):  # mixed dtype
+        with pytest.raises(ValueError):
+            ck.wall_near(plan.pos_all, f, *args, cz_range=layers, **kw)
+    f = torch.zeros((n, 3), device=cuda)
+    with pytest.raises(ValueError):                       # z layers
+        ck.wall_near(plan.pos_all, f, *args,
+                     cz_range=(0, plan.cell_dims[2]), **kw)
+    long_img = torch.zeros((2, 10, 33), device=cuda)      # Ki > 32
+    with pytest.raises(ValueError):
+        ck.wall_near(plan.pos_all, f, *args[:5], long_img, cz_range=layers,
+                     **kw)
+
+
+@pytest.mark.parametrize("dtype, bound", BOUNDS)
+@pytest.mark.parametrize("z_extent", [3.0, 2.0])
+def test_k5_wall_slab_matches_plain(cuda, z_extent, dtype, bound):
+    """The wall-slab forces' layout (z clipped below an empty guard layer;
+    3 z cells at z_extent 3, 2 at z_extent 2) through K5 and its plain
+    version."""
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    rng = np.random.default_rng(11)
+    L, n, a, b = 12.0, 1200, 0.3, 0.05
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, L, (n, 2))
+    r[:, 2] = rng.uniform(0.2, z_extent + 0.5, n)        # some clipped
+    rc = 2 * a + 30 * b
+    pos, dims, box, table, dropped = forces._force_cells(
+        torch.as_tensor(r, dtype=dtype, device=cuda), (L, L, 0.0), rc, 16,
+        128, z_extent)
+    assert int(dropped) == 0 and dims[2] == (3 if z_extent == 3.0 else 2)
+    kw = dict(eps_over_b=0.7 / b, inv_b=1 / b, two_a=2 * a)
+    before = ck.LAUNCHES["nl_forces"]
+    got = ck.nl_forces(pos, table, dims, box, 128, guard_z=True, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["nl_forces"] == before + 1
+    ref = ck.nl_forces_plain(pos.double(), table, dims, box, 128, **kw)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= bound * ref.abs().max().item()

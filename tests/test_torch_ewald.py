@@ -269,8 +269,10 @@ def test_from_reference_carries_spectral_fields_and_refuses_the_rest():
     wall = dataclasses.replace(js, domain="single_wall_spectral",
                                periodic_length=(L_PATH, L_PATH, 0.0),
                                spectral_wall_height=2.0)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tsys.from_reference(wall, device="cpu")
+    # the wall spectral engine is carried across with its slab height
+    tw = tsys.from_reference(wall, device="cpu")
+    assert (tw.domain, tw.spectral_wall_height) == ("single_wall_spectral",
+                                                    2.0)
     radii = dataclasses.replace(js, types=(dataclasses.replace(
         js.types[0], blob_radii=np.linspace(0.1, 0.2, 12)),))
     with pytest.raises(NotImplementedError, match="15"):

@@ -13,7 +13,8 @@ import torch
 from rigidmultiblobswall_tpu.models import integrators as jint
 from rigidmultiblobswall_tpu_torch.models import integrators as tint
 
-from torch_parity import shells_scene, to_np
+from torch_parity import (jax_zdft64, shells_scene, to_np,
+                          wall_spectral_scene)
 
 TOL = 1e-9
 
@@ -151,6 +152,26 @@ def test_update_pc_matches_jax(monkeypatch, scheme, kT):
     tfinal, taux = _run_port(ts, tst, scheme, 3, 1e-3, update_PC=2)
     assert taux.det_iterations == int(jaux.det_iterations)
     _assert_same_final(jfinal, tfinal, jst)
+
+
+def test_wall_spectral_slip_trapz_matches_jax_at_zero_temperature(
+        monkeypatch):
+    """single_wall_spectral: 3 Slip-Trapz steps of four six-blob shells on
+    the wall engine (its plan carried and refreshed across steps; the
+    wall-block preconditioner), kT = 0; the JAX wave side with float64
+    z-DFT matrices."""
+    from rigidmultiblobswall_tpu.ops import ewald_wall as jew
+
+    monkeypatch.setattr(jew, "_host_zdft", jax_zdft64)
+    js, jst, ts, tst = wall_spectral_scene()
+    jfinal, jaux = _run_jax(js, jst, "stochastic_Slip_Trapz", 3, 2e-3,
+                            _keys(3))
+    tfinal, taux = _run_port(ts, tst, "stochastic_Slip_Trapz", 3, 2e-3)
+    disp = np.abs(np.asarray(jfinal.pos) - np.asarray(jst.pos)).max()
+    assert disp > 1e-4
+    _assert_same_final(jfinal, tfinal, jst)
+    assert taux.det_iterations == int(jaux.det_iterations)
+    assert taux.capacity_overflows == int(jaux.capacity_overflows) == 0
 
 
 def test_wall_rejection_retries_are_bounded():

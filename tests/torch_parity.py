@@ -3,10 +3,13 @@
 as JAX-package objects and as the port's objects, in float64 on the CPU.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from rigidmultiblobswall_tpu.models import system as jsys
+from rigidmultiblobswall_tpu.ops import ewald_wall as jew
 from rigidmultiblobswall_tpu_torch.models import system as tsys
 
 torch.set_num_threads(1)
@@ -52,6 +55,46 @@ def shells_scene(n_bodies=3, seed=0, nb=12, **overrides):
     jstate = jsys.make_state(pos, quat)
     tsystem, tstate = tsys.from_reference(jsystem, pos, quat, device="cpu")
     return jsystem, jstate, tsystem, tstate, pos, quat
+
+
+def wall_spectral_scene(kT=0.0, a=0.25, eta=0.9, box=6.5):
+    """Four six-blob shells above the wall in a 26 a box on the spectral
+    wall engine, tolerance 1e-3 (the Brownian-step scene of
+    tests/test_wall_spectral.py). Returns (jax_system, jax_state,
+    port_system, port_state)."""
+    rng = np.random.default_rng(6)
+    shell = rng.normal(size=(6, 3))
+    shell *= 0.5 * a / np.linalg.norm(shell, axis=1, keepdims=True)
+    t = jsys.BodyType(name="s6", ref_config=shell, count=4)
+    js = jsys.System(types=(t,), eta=eta, blob_radius=a, kT=kT, g=0.3,
+                     domain="single_wall_spectral",
+                     periodic_length=(box, box, 0.0),
+                     spectral_wall_height=5.0 * a, spectral_tol=1e-3,
+                     repulsion_strength_wall=0.2, debye_length_wall=0.3,
+                     solver_tolerance=1e-12)
+    pos = np.stack([rng.uniform(2 * a, box - 2 * a, 4),
+                    rng.uniform(2 * a, box - 2 * a, 4),
+                    rng.uniform(1.8 * a, 3.0 * a, 4)], axis=1)
+    quat = np.tile([1.0, 0, 0, 0], (4, 1))
+    ts, tst = tsys.from_reference(js, pos, quat, device="cpu")
+    return js, jsys.make_state(pos, quat), ts, tst
+
+
+@functools.lru_cache(maxsize=16)
+def jax_zdft64(params):
+    """The JAX wall engine's _host_zdft with float64 matrices: the JAX
+    package stores them in float32 (a TPU runtime limit), which caps its
+    float64 wave side near 1e-8; parity tests patch this in."""
+    gz = params.grid[2]
+    (da, db), (ia, ib), (ra, rb) = jew._z_plane_ranges(params)
+    kz = np.arange(gz)
+
+    def fwd(lo, hi):
+        m = np.exp(-2j * np.pi * np.outer(np.arange(lo, hi), kz) / gz)
+        return m.real, m.imag
+
+    wi = np.exp(2j * np.pi * np.outer(kz, np.arange(ra, rb)) / gz) / gz
+    return fwd(da, db), fwd(ia, ib), (wi.real, wi.imag)
 
 
 def to_np(x):
