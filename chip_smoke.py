@@ -17,9 +17,13 @@ is non-zero and no result line is printed):
      kernel instance;
   3. kernels against their plain PyTorch versions on the card: every K1
      coupling and template instance and K2 on a random ~3000-blob scene
-     with blobs below a, K1 tt and K2 at the 49,152-blob shape of the
-     Slip-Trapz path, and K1 tr/rt/rr/grand at the 32,768-roller shape
-     of the rollers path; prints kernel and plain times;
+     with blobs below a, K1 tt (B = 1 and 2) and K2 at the 49,152-blob
+     shape of the Slip-Trapz path, K1 tr/rt/rr/grand at the 32,768-roller
+     shape of the rollers path, and K1 tt at the 12,288 blobs of the
+     materialized path; each K1 instance at full size on the sweep it
+     takes (square tt and grand products: the symmetric sweep; the
+     others: the slice count S their plan chose), twice bit-identical;
+     prints kernel and plain times;
   4. slice parity on the card (kernels) against the CPU (plain versions,
      float64): 8 shells x 3 Slip-Trapz steps at kT = 0, and 16 rollers x
      3 steps of deterministic and stochastic Adams-Bashforth;
@@ -116,6 +120,11 @@ PEAK_F32_FLOPS = 67e12
 # cell list's work, not the function's: they enter only the algorithm
 # bound that the log prints beside it)
 K1_PAIR_FLOPS = {"tt": 80, "tr": 80, "rt": 80, "rr": 80, "grand": 320}
+# of which applying the condensed blocks to one right-hand side (~10 a
+# block): each further right-hand side adds it again, and the symmetric
+# sweep of tt and grand condenses each unordered pair once and applies it
+# both ways
+K1_APPLY_FLOPS = {"tt": 10, "tr": 10, "rt": 10, "rr": 10, "grand": 40}
 FORCE_PAIR_FLOPS = 22
 # K7, for each pair inside r_cut, K6's count with the mirror (1 per
 # right-hand side); a pair with an image source adds the image series'
@@ -267,19 +276,78 @@ def bound_record(nbytes, flops):
 
 
 def k1_vs_plain(pk, coupling, qt, vt, wall):
-    """K1 against its plain version in float64 on a square scene;
-    returns (max err / max|ref|, timing text for float32)."""
+    """K1 against its plain version in float64 on a square scene, called
+    as the paths call it (q_tgt None: tt and grand on their symmetric
+    sweep) and with two tensors (the sliced sweep); returns (max err /
+    max|ref|, timing text for float32)."""
     kw = dict(coupling=coupling, wall=wall, self_interaction=True)
-    got = pk.pair_matvec(qt, qt, vt, **kw)
-    torch.cuda.synchronize()
     ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
-    rel = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    rel = 0.0
+    for q_tgt in (None, qt):
+        got = pk.pair_matvec(qt, q_tgt, vt, **kw)
+        torch.cuda.synchronize()
+        rel = max(rel, ((got.double() - ref).abs().max()
+                        / ref.abs().max()).item())
     times = ""
     if qt.dtype == torch.float32:
-        ms = cuda_ms(lambda: pk.pair_matvec(qt, qt, vt, **kw), 10)
+        ms = cuda_ms(lambda: pk.pair_matvec(qt, None, vt, **kw), 10)
         plain_ms = cuda_ms(lambda: pk.pair_plain(qt, qt, vt, **kw), 3)
         times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
     return rel, times
+
+
+def k1_full_record(pk, coupling, q, v, sub, bound, what, plain=True):
+    """K1 at a path's full shape (float32, wall, self pairs): the first
+    `sub` target rows against the plain version in float64, twice
+    bit-identical, the kernel's time on the sweep it takes and the plain
+    version's; returns the kernel record. Its bound counts each
+    right-hand side's apply step beyond the first, and for the symmetric
+    sweep each unordered pair condensed once and applied both ways."""
+    n = q.shape[0]
+    nc = pk.NCOMP[coupling]
+    n_rhs = v.shape[1] // nc
+    kw = dict(coupling=coupling, wall=True, self_interaction=True)
+    apply = K1_APPLY_FLOPS[coupling]
+    per_pair = K1_PAIR_FLOPS[coupling] + apply * (n_rhs - 1)
+    if coupling in pk.SYMMETRIC:
+        # the group pairs of the upper triangle, summed over G slices
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_slices, tiles = pk.plan_groups(n, n_sm)
+        sweep = (f"the symmetric sweep ({n_slices} groups of {tiles} "
+                 f"tiles)")
+        per_pair = (K1_PAIR_FLOPS[coupling] - apply + 2 * apply * n_rhs) / 2
+    else:
+        n_slices, tiles = pk.launch_plan(coupling, q, q, v, wall=True)
+        sweep = f"S={n_slices} slices of {tiles} tiles"
+    # the square product, as the paths call it
+    got = pk.pair_matvec(q, None, v, **kw)
+    again = pk.pair_matvec(q, None, v, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
+    err = (got[:sub].double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    ms = cuda_ms(lambda: pk.pair_matvec(q, None, v, **kw), 10)
+    plain_ms = None
+    if plain:
+        # the plain version once at full size (seconds)
+        plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1,
+                           warmup=False)
+    flops = n * n * per_pair
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, slices=n_slices,
+               **bound_record(4 * n * (3 + 2 * nc * n_rhs), flops))
+    log(f"K1 {coupling} {what} B={n_rhs} f32, {sweep}: first {sub} "
+        f"target rows vs plain f64 max err "
+        f"{err:.3e}, / max|ref| = {rel:.3e} (bound u32*sqrt(N) = "
+        f"{bound:.2e}); repeat bit-identical {same}; kernel {ms:.3f} ms, "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.1%} of it)"
+        + ("" if plain_ms is None else f", plain f32 {plain_ms:.1f} ms"))
+    check(rel <= bound, f"K1 {coupling} B={n_rhs} disagrees at {what} "
+          f"({rel:.3e})")
+    check(same, f"K1 {coupling} B={n_rhs} not bit-identical on repeat at "
+          f"{what}")
+    return rec
 
 
 def phase_kernels(pk, mc, mob, kin, make_state):
@@ -358,24 +426,8 @@ def phase_kernels(pk, mc, mob, kin, make_state):
     records = {}
     for n_rhs in (1, 2):
         v = torch.randn((nb, 3 * n_rhs), generator=g, device=dev)
-        kw = dict(coupling="tt", wall=True, self_interaction=True)
-        got = pk.pair_matvec(q, q, v, **kw)
-        torch.cuda.synchronize()
-        ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
-        err = (got[:sub].double() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        ms = cuda_ms(lambda: pk.pair_matvec(q, q, v, **kw), 10)
-        plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1)
-        log(f"K1 {nb} blobs B={n_rhs} f32, first {sub} target rows vs plain "
-            f"f64: max err {err:.3e}, / max|ref| = {rel:.3e} (bound "
-            f"u32*sqrt(N) = {bound_main:.2e}); kernel {ms:.3f} ms, plain "
-            f"f32 {plain_ms:.1f} ms")
-        check(rel <= bound_main, f"K1 disagrees at {nb} blobs ({rel:.3e})")
-        if n_rhs == 1:
-            records["tt"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound_record(4 * 3 * nb * 3,
-                               nb * nb * K1_PAIR_FLOPS["tt"]))
+        rec = k1_full_record(pk, "tt", q, v, sub, bound_main, f"{nb} blobs")
+        records["tt" if n_rhs == 1 else "tt_b2"] = rec
     kw = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=A_BENCH)
     got = mc.blob_blob_forces(r_blobs, **kw)
     torch.cuda.synchronize()
@@ -408,31 +460,12 @@ def phase_roller_kernels(pk, mob):
     bound = float(np.finfo(np.float32).eps / 2 * np.sqrt(n))
     records = {}
     for coupling, n_rhs in K1_COUPLING_INSTANCES:
-        kw = dict(coupling=coupling, wall=True, self_interaction=True)
         v = torch.randn((n, pk.NCOMP[coupling] * n_rhs), generator=g,
                         device=dev)
-        got = pk.pair_matvec(q, q, v, **kw)
-        torch.cuda.synchronize()
-        ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
-        err = (got[:sub].double() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        ms = cuda_ms(lambda: pk.pair_matvec(q, q, v, **kw), 10)
-        times = f"kernel {ms:.3f} ms"
+        rec = k1_full_record(pk, coupling, q, v, sub, bound, f"{n} rollers",
+                             plain=n_rhs == 1)
         if n_rhs == 1:
-            # the plain version once per coupling at full size (seconds)
-            plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1,
-                               warmup=False)
-            times += f", plain f32 {plain_ms:.1f} ms"
-            nc = pk.NCOMP[coupling]
-            records[coupling] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound_record(4 * n * (3 + 2 * nc),
-                               n * n * K1_PAIR_FLOPS[coupling]))
-        log(f"K1 {coupling} {n} rollers B={n_rhs} f32, first {sub} target "
-            f"rows vs plain f64: max err {err:.3e}, / max|ref| = {rel:.3e} "
-            f"(bound u32*sqrt(N) = {bound:.2e}); {times}")
-        check(rel <= bound, f"K1 {coupling} disagrees at {n} rollers "
-              f"({rel:.3e})")
+            records[coupling] = rec
     return records
 
 
@@ -629,7 +662,8 @@ def phase_main_path(pk, mc):
         rej.append(aux.rejections)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
-    launches = {"K1 tt": pk.LAUNCHES["tt"], "K2": mc.LAUNCHES}
+    launches = {"K1 tt": pk.LAUNCHES["tt", 1],
+                "K1 tt B=2": pk.LAUNCHES["tt", 2], "K2": mc.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     p = state.pos
     log(f"main path {system.num_blobs} blobs ({N_SHELLS} shells) "
@@ -680,7 +714,7 @@ def phase_rollers_path(pk, mc):
         ovl.append(aux.wall_overlaps)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
-    launches = {f"K1 {c}": n for c, n in pk.LAUNCHES.items()}
+    launches = {f"K1 {c}": pk.launches(c) for c in pk.NCOMP}
     launches["K2"] = mc.LAUNCHES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"rollers path {N_ROLLERS} rollers stochastic_adams_bashforth_"
@@ -1579,8 +1613,8 @@ def phase_dense_kernels(pk, mc, mob, kin, make_state):
     V2t = V2.reshape(2, n3).T
     mm_ms = cuda_ms(lambda: torch.matmul(m, V2t), 20)
     q = (mob.shift_heights(r, a) / a).contiguous()
-    k1_ms = cuda_ms(lambda: pk.pair_matvec(q, q, v, coupling="tt", wall=True,
-                                           self_interaction=True), 20)
+    records["tt_12k"] = k1_full_record(pk, "tt", q, v, 1024, u32_sqrt(n),
+                                       f"{n} blobs")
     upper = n3 * (n3 + 1) // 2
     # max_abs_err is the larger of the B = 1 and B = 2 instances' errors
     rec = dict(max_abs_err=max(err, err2), ms=ms, plain_ms=plain_ms,
@@ -1598,7 +1632,7 @@ def phase_dense_kernels(pk, mc, mob, kin, make_state):
         f"(torch.mv) {plain_ms:.3f} ms, library torch.mv {lib_ms:.3f} ms, "
         f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}); B = 2: K4 "
         f"{k4b2_ms:.3f} ms, torch.matmul {mm_ms:.3f} ms; K1 tt matrix-free "
-        f"product {k1_ms:.3f} ms; B = 1 and 2 "
+        f"product {records['tt_12k']['ms']:.3f} ms; B = 1 and 2 "
         f"repeat bit-identical {same}, NaN lower tiles unchanged {blind}")
     check(err <= 3e-6 * scale and err2 <= 3e-6 * scale2,
           f"K4 disagrees at {n} blobs (B = 1 {err / scale:.3e}, B = 2 "
@@ -1699,7 +1733,7 @@ def run_dense_path(system, scheme, pos, quat, pk, mc, n_timed=3):
         rej.append(aux.rejections)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
-    launches = dict(mc.DENSE_LAUNCHES, K1_tt=pk.LAUNCHES["tt"],
+    launches = dict(mc.DENSE_LAUNCHES, K1_tt=pk.launches("tt"),
                     K2=mc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(bool(torch.isfinite(state.pos).all()),
@@ -1745,6 +1779,8 @@ def phase_dense_path(pk, mc):
               f"{scheme}: K3/K4 not launched on the materialized path")
         check(max(free[1]["dense_tt"], free[1]["symm_matvec"]) == 0,
               f"{scheme}: K3/K4 launched with a zero budget")
+        check(dense[1]["K1_tt"] > 0, f"{scheme}: K1 tt not launched on the "
+              "materialized path")
         dd = [abs(x - y) for x, y in zip(dense[0]["det"], free[0]["det"])]
         ds = [abs(x - y) for x, y in zip(dense[0]["sto"], free[0]["sto"])]
         check(max(dd) <= k and max(ds) <= 4,
@@ -1812,6 +1848,8 @@ def main():
     k7 = phase_wall_path(pk, mc, ck)                        # phase 10
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
+    # tt's two records count the launches of their own instance (B = 1,
+    # B = 2); each other coupling's record counts all of its launches
     kernels = [dict(name=f"K1 pair_{c}", route="cuda",
                     source=k1_src.get(
                         c, "rigidmultiblobswall_tpu_torch/csrc/"
@@ -1819,6 +1857,15 @@ def main():
                     replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
                     launches=launches[f"K1 {c}"], **records[c])
                for c in ("tt", "tr", "rt", "rr", "grand")]
+    kernels.append(dict(
+        name="K1 pair_tt B=2", route="cuda", source=k1_src["tt"],
+        replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+        launches=launches["K1 tt B=2"], **records["tt_b2"]))
+    kernels.append(dict(
+        name=f"K1 pair_tt at {N_DENSE * 12} blobs", route="cuda",
+        source=k1_src["tt"],
+        replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+        launches=dense_launches["K1_tt"], **records["tt_12k"]))
     kernels.append(dict(
         name="K2 blob_forces", route="cuda",
         source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",

@@ -15,7 +15,8 @@ the same input files and output formats:
     one .config file with save_clones one_file), .info (iteration and
     rejection counters) and .time; options save_blobs_mobility and
     save_body_mobility dump the dense blob and body mobilities with every
-    saved frame; update_PC > 1 refactors the preconditioner every
+    saved frame; save_velocities writes every step's body velocities to
+    .velocities.dat; update_PC > 1 refactors the preconditioner every
     update_PC steps;
   - the roller schemes (`*_rollers`, models/rollers.py; the reference's
     main_rollers.py): options free_kinematics, omega_one_roller and
@@ -31,9 +32,12 @@ capacity at the start, as the JAX CLI does, and report steps that still
 dropped particles, or clipped them at the wall slab's top, in .info
 (capacity_overflow_steps).
 
-MCMC, lubrication, articulated rollers,
-velocity-field output, .random_state and user_defined_functions.py hooks
-are still to be ported (ROADMAP Queue 1, items 11-18).
+MCMC, lubrication, articulated rollers, the .random_state restart,
+vtk field output (plot_velocity_field, plot_concentration_field,
+tracer_radius), call_HydroGrid structure factors and
+user_defined_functions.py hooks are still to be ported (ROADMAP Queue 1,
+items 11-18); an input that asks for one of them is refused, not
+ignored.
 """
 
 from __future__ import annotations
@@ -258,6 +262,8 @@ def _run_dynamic(cfg, system, state, args, start_time):
 
     det_iters = stoch_iters = rejections = unconverged_steps = 0
     overflow_steps = 0
+    save_velocities = cfg.options.get("save_velocities", "False") == "True"
+    velocities_log = []
     for step_idx in range(cfg.initial_step, cfg.n_steps):
         if (step_idx % cfg.n_save) == 0 and step_idx >= 0:
             print("Integrator = %s, step = %d, wallclock = %.2fs" % (
@@ -279,8 +285,13 @@ def _run_dynamic(cfg, system, state, args, start_time):
                   "capacity layouts (grow spectral_cell_capacity or "
                   "blob_blob_cell_capacity)"
                   % (step_idx, aux.capacity_overflows), file=sys.stderr)
+        if save_velocities:
+            velocities_log.append(aux.velocities.cpu().numpy())
     save_clones(cfg.n_steps, state)
     save_mobilities(cfg.n_steps, state)
+    if velocities_log:
+        np.savetxt(cfg.output_name + ".velocities.dat",
+                   np.stack(velocities_log).reshape(len(velocities_log), -1))
     with open(cfg.output_name + ".info", "w") as f:
         f.write("invalid_configuration_count      %d\n" % rejections)
         f.write("deterministic_iterations_count   %d\n" % det_iters)

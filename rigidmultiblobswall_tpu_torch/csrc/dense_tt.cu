@@ -15,7 +15,8 @@
 // per pair (~0.2 ms of float32 issue). Design: a block owns a 16-target by
 // 32-source tile; it stages the 48 blob coordinates (normalized and shifted
 // here) in shared memory, condenses every pair with pair_blocks.cuh's
-// tt_condense (the arithmetic of kernel K1 tt), expands the 3x3 blocks into
+// make_pair and tt_condense (the arithmetic of kernel K1 tt, without a
+// division), expands the 3x3 blocks into
 // a 48 x 96 shared tile, and writes that tile row by row: each warp stores
 // 32 consecutive values of one matrix row. Ragged edges are masked by
 // index; blobs past the end are staged as (0, 0, 1), the padding of
@@ -78,19 +79,8 @@ dense_tt_kernel(const T* __restrict__ r, T* __restrict__ out, int n, T a,
     const int lj = p % kTJ;
     const T* t = s_tgt[li];
     const T* s = s_src[lj];
-    pairk::Pair<T> pp;
-    pp.dx = t[0] - s[0];
-    pp.dy = t[1] - s[1];
-    pp.dz = t[2] - s[2];
-    pp.xy2 = pp.dx * pp.dx + pp.dy * pp.dy;
-    pp.r2 = pp.xy2 + pp.dz * pp.dz;
-    pp.self = (i0 + li == j0 + lj);
-    pp.zero = pp.self || (pp.r2 == T(0));
-    if (WALL) {
-      pp.zt = t[2];
-      pp.zs = s[2];
-      pp.Rz = t[2] + s[2];
-    }
+    const pairk::Pair<T> pp = pairk::make_pair<T, WALL>(
+        t[0], t[1], t[2], s[0], s[1], s[2], i0 + li == j0 + lj);
     const pairk::Diag<T> m = pairk::tt_condense<T, WALL>(pp);
     const T scale = pref * t[3] * s[3];
     // the 3x3 block of diag_apply: (m v)_x = dx (S (dx vx + dy vy) + P vz)

@@ -12,25 +12,54 @@
 // damping. csrc/pair_tt.cu instantiates the tt coupling, and
 // csrc/pair_couplings.cu the others; both include this header.
 //
-// What bounds it on the H100: FP32 issue rate, not bytes. Each pair costs
-// ~60-80 flops to condense a 3x3 block into a few scalars (two rsqrt, one
-// division, the wall polynomial set), ~10 per block and right-hand side to
-// apply it; grand condenses all four blocks (28 scalars) from one shared
-// geometry. A source tile of 128 blobs is read once from device memory per
-// block and then served from shared memory to all 128 targets of the block.
+// What bounds it on the H100: instruction issue, not bytes. The inputs
+// are 12-24 bytes a source against ~70 float operations a pair to
+// condense a 3x3 block into a few scalars (two rsqrt, the wall polynomial
+// set) and ~10 a block and right-hand side to apply it; grand condenses
+// all four blocks (28 scalars) from one shared geometry. So neither TMA
+// nor cp.async staging is a lever, and a per-pair nonlinear sum has no
+// matrix product for wgmma or the tensor cores. In the SASS the sliced tt
+// loop issues ~85 instructions a pair and grand's ~240, and the measured
+// rates (tools/torch_profile_k1.py, PERF.md) put both near the SMs' issue
+// rate: the lever is fewer instructions a pair, hence the symmetric sweep
+// (sym_kernel below) that every square tt and grand product of the paths
+// takes: it condenses each unordered pair once.
 //
-// Design: one thread per target row, sources streamed through shared
-// memory in tiles (the classic n-body pattern), sums kept in registers,
-// per-tile partial sums. Each pair is condensed once and the result applied
-// to every right-hand side, as the TPU kernel does. Ragged edges are masked
-// by index; there is no padding.
+// Design of the sliced sweep (pair_kernel), for a card of 132 SMs that one
+// thread per target cannot fill (49,152 targets are 384 blocks of 4
+// warps, ~12 warps an SM of 64):
+// - the grid is (target tiles x S source slices); each block sums its
+//   slice of whole 128-source tiles and writes one partial row per target
+//   into a workspace (S, Nt, nc B) that the wrapper allocates; a second
+//   small kernel adds the S partials in slice order. No atomics, so every
+//   instance is bit-identical on repeat. S comes from the wrapper's plan
+//   (ops/pair_kernels.py plan_slices) from Nt, Ns, the SM count and the
+//   resident blocks an SM holds (pair_*_shape below); S = 1 writes the
+//   output directly;
+// - one thread per target row, sources staged through shared memory a
+//   tile at a time as padded rows (position, then the vector),
+//   so a pair reads its source with broadcast 16-byte loads; per-tile
+//   partial sums keep the f32 rounding of an N-term sum near
+//   sqrt(N / 128) steps;
+// - no division in the pair loop: the wall coefficients are written on
+//   h e_z = h / R, h e_z^2 = h Rz / R^2, h(1 - h) e_z^2 = zs zt / R^2 and
+//   h^2 e_z^2 = zs^2 / R^2 (h = zs / Rz or zt / Rz), with the 1/3 factors
+//   folded into constants; one geometry a pair, with one rsqrt of r^2 and
+//   one of R^2 (rsqrt.approx.ftz in float32), serves every block; the
+//   near and self forms sit in one rarely entered branch;
+// - __launch_bounds__ asks for 8 resident blocks an SM in float32 (Shape
+//   below): 64 registers a thread at most (ptxas on sm_90a: tt 47 / 56
+//   with B = 1 / 2, grand 64, rr, tr and rt 38-54; sym_kernel tt and
+//   grand 64; no spills). float64 is not capped.
+// Ragged edges are masked by index; there is no padding of the inputs.
 //
-// Near/far switch: r > 2 for tt, r >= 2 for rr and the cross blocks.
-// Self pair (i == j with self_interaction) and coincident distinct blobs
-// (r^2 == 0, i != j): the tt core is 4/3 and 0, the rr core 1 and 0, the
-// cross core 0 and 0. The wall terms evaluated at the self geometry
-// (dx = dy = 0, Rz = 2z) ARE the wall self-mobility of every block and are
-// kept.
+// Near/far switch: the near forms for r <= 2 (the JAX package switches
+// rr and the cross blocks at r >= 2; both forms agree at r = 2), taken in
+// one rarely entered branch. Self pair (i == j with self_interaction) and
+// coincident distinct blobs (r^2 == 0, i != j): the tt core is 4/3 and 0,
+// the rr core 1 and 0, the cross core 0 and 0. The wall terms evaluated at
+// the self geometry (dx = dy = 0, Rz = 2z) ARE the wall self-mobility of
+// every block and are kept.
 
 #pragma once
 
@@ -40,24 +69,44 @@ namespace pairk {
 
 constexpr int kTile = 128;
 
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+// rsqrt.approx with denormals flushed: rsqrtf's own denormal scaling
+// costs four more instructions a call, and no pair geometry is denormal
+__device__ __forceinline__ float rsqrt_t(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 
 // geometry of one (target, source) pair, shared by every block
 template <typename T>
 struct Pair {
-  T dx, dy, dz, xy2, r2;
-  T invr;                 // 1/r, valid when !zero, set by with_rsqrt
-  bool self, zero;
+  T dx, dy, dz, r2;
+  T invr;                 // 1/r (inf when r == 0)
+  bool self, zero;        // zero: self pair or coincident blobs
+  bool near;              // r <= 2, zero pairs included: the rare branch
   T zt, zs, Rz, invR;     // wall image: Rz = zt + zs, invR = 1/|R|
 };
 
-// the two rsqrts the rr and cross blocks (and grand) share; tt takes
-// its own (see tt_condense)
 template <typename T, bool WALL>
-__device__ __forceinline__ Pair<T> with_rsqrt(Pair<T> p) {
-  p.invr = p.zero ? T(0) : rsqrt_t(p.r2);
-  if (WALL) p.invR = rsqrt_t(p.xy2 + p.Rz * p.Rz);
+__device__ __forceinline__ Pair<T> make_pair(T xt, T yt, T zt, T xs, T ys,
+                                             T zs, bool self) {
+  Pair<T> p;
+  p.dx = xt - xs;
+  p.dy = yt - ys;
+  p.dz = zt - zs;
+  const T xy2 = p.dx * p.dx + p.dy * p.dy;
+  p.r2 = xy2 + p.dz * p.dz;
+  p.self = self;
+  p.zero = self || (p.r2 == T(0));
+  p.near = !(p.r2 > T(4));
+  p.invr = rsqrt_t(p.r2);
+  if (WALL) {
+    p.zt = zt;
+    p.zs = zs;
+    p.Rz = zt + zs;
+    p.invR = rsqrt_t(p.Rz * p.Rz + xy2);
+  }
   return p;
 }
 
@@ -74,72 +123,61 @@ struct Cross {
   T c, cxx, cxy, cxz, cyx, cyy, cyz, czx, czy;
 };
 
-// tt takes its rsqrts inside its own branches, not from with_rsqrt: so
-// the tt kernel's per-pair code is the one it had before the other
-// couplings joined, its results bit-identical (checked on the H100).
-// Grand evaluates the same rsqrt arguments again here.
 template <typename T, bool WALL>
 __device__ __forceinline__ Diag<T> tt_condense(const Pair<T>& p) {
-  const T one = T(1), two = T(2), three = T(3);
-  const T four_thirds = T(4.0 / 3.0);
-  // unbounded RPY core: m_ab = c1 delta_ab + c2 d_a d_b
-  T c1, c2;
-  if (p.zero) {
-    c1 = p.self ? four_thirds : T(0);
-    c2 = T(0);
-  } else {
-    const T invr = rsqrt_t(p.r2);
-    const T invr2 = invr * invr;
-    const T r = p.r2 * invr;
-    if (r > two) {
-      c1 = (one + T(2.0 / 3.0) * invr2) * invr;
-      c2 = (one - two * invr2) * invr2 * invr;
-    } else {
-      c1 = four_thirds * (one - T(0.28125) * r);
-      c2 = four_thirds * T(0.09375) * invr;
+  // unbounded RPY core: m_ab = c1 delta_ab + c2 d_a d_b, the far form
+  // replaced in the rare near branch
+  const T invr = p.invr;
+  const T invr2 = invr * invr;
+  T c1 = (T(1) + T(2.0 / 3.0) * invr2) * invr;
+  T c2 = (T(1) - T(2) * invr2) * invr2 * invr;
+  if (__builtin_expect(p.near, 0)) {
+    if (p.zero) {
+      c1 = p.self ? T(4.0 / 3.0) : T(0);
+      c2 = T(0);
+    } else {  // 4/3 (1 - 9 r / 32), (4/3) (3/32) / r
+      c1 = T(4.0 / 3.0) - T(0.375) * (p.r2 * invr);
+      c2 = T(0.125) * invr;
     }
   }
   Diag<T> m;
   if (WALL) {
-    // Swan-Brady image system on raw (dx, dy, Rz) products
-    const T Rz = p.Rz, zs = p.zs;
-    const T R2 = p.xy2 + Rz * Rz;
-    const T invR = rsqrt_t(R2);
-    const T invR2 = invR * invR;
-    const T invR3 = invR * invR2;
-    const T invR5 = invR3 * invR2;
-    const T ez = Rz * invR;
-    const T ez2 = ez * ez;
-    const T h_hat = zs / Rz;
-    const T hh = h_hat * (one - h_hat);
-    const T f1 = -(three * (one + two * hh * ez2) * invR +
-                   two * (one - three * ez2) * invR3 -
-                   two * (one - T(5) * ez2) * invR5) /
-                 three;
-    const T f2 = -(three * (one - T(6) * hh * ez2) * invR -
-                   T(6) * (one - T(5) * ez2) * invR3 +
-                   T(10) * (one - T(7) * ez2) * invR5) /
-                 three;
-    const T f3 =
-        ez *
-        (three * h_hat * (one - T(6) * (one - h_hat) * ez2) * invR -
-         T(6) * (one - T(5) * ez2) * invR3 +
-         T(10) * (two - T(7) * ez2) * invR5) *
-        T(2.0 / 3.0);
-    const T f4 = ez * (three * h_hat * invR - T(10) * invR5) * T(2.0 / 3.0);
-    const T f5 = -(three * h_hat * h_hat * ez2 * invR +
-                   three * ez2 * invR3 + (two - T(15) * ez2) * invR5) *
-                 T(4.0 / 3.0);
-    const T g2 = f2 * invR2;
-    const T g3 = f3 * invR;
-    const T g4 = f4 * invR;
-    const T dz = p.dz;
-    m.A = c1 + f1;
+    // Swan-Brady image system of ops/rpy.py's wall_tt on raw (dx, dy, Rz)
+    // products, with W = 1/R, u = 1/R^2, e = e_z^2, k = h(1 - h) e_z^2
+    // = zs zt u and s = h e_z / R = zs u for h = zs / Rz, the 1/3 factors
+    // folded into constants and every step a multiply-add:
+    //   f1 = -W n1, f2 = -W n2, f5 = -W n5, g2 = f2 u, g3 = W f3, g4 = W f4
+    const T Rz = p.Rz, W = p.invR, dz = p.dz;
+    const T u = W * W;
+    const T Ru = Rz * u;
+    const T e = Ru * Rz;
+    const T k = p.zs * p.zt * u;
+    const T s = p.zs * u;
+    const T s2 = s + s;
+    const T n1 = u * ((e * T(10.0 / 3.0) - T(2.0 / 3.0)) * u +
+                      (T(2.0 / 3.0) - T(2) * e)) +
+                 (T(2) * k + T(1));
+    const T n2 = (T(1) - T(6) * k) -
+                 u * ((e * T(70.0 / 3.0) - T(10.0 / 3.0)) * u +
+                      (T(2) - T(10) * e));
+    const T f3 = Ru * (T(-12) * k +
+                       u * ((T(40.0 / 3.0) - e * T(140.0 / 3.0)) * u +
+                            (e * T(20) - T(4)))) +
+                 s2;
+    const T f4 = (Ru * u) * (T(-20.0 / 3.0) * u) + s2;
+    const T n5 = (p.zs * s) * T(4) +
+                 u * ((T(8.0 / 3.0) - e * T(20)) * u + T(4) * e);
+    const T g2 = -(W * u) * n2;
+    const T g3 = W * f3;
+    const T g4 = W * f4;
+    const T c2dz = c2 * dz;
+    const T g2Rz = g2 * Rz;
+    m.A = c1 - W * n1;
     m.S = c2 + g2;
-    const T base_pq = c2 * dz + g2 * Rz;
+    const T base_pq = c2dz + g2Rz;
     m.P = base_pq + g3;
     m.Q = base_pq + g4;
-    m.mzz = m.A + c2 * dz * dz + g2 * Rz * Rz + (g3 + g4) * Rz + f5;
+    m.mzz = (m.A + c2dz * dz) + Rz * (g2Rz + g3 + g4) - W * n5;
   } else {
     m.A = c1;
     m.S = c2;
@@ -152,19 +190,17 @@ __device__ __forceinline__ Diag<T> tt_condense(const Pair<T>& p) {
 
 template <typename T, bool WALL>
 __device__ __forceinline__ Diag<T> rr_condense(const Pair<T>& p) {
-  T c1, c2;
-  if (p.zero) {
-    c1 = p.self ? T(1) : T(0);
-    c2 = T(0);
-  } else {
-    const T invr = p.invr;
-    const T invr2 = invr * invr;
-    const T invr3 = invr2 * invr;
-    const T r = p.r2 * invr;
-    if (r >= T(2)) {
-      c1 = T(-0.5) * invr3;
-      c2 = T(1.5) * invr2 * invr3;
+  const T invr = p.invr;
+  const T invr2 = invr * invr;
+  const T invr3 = invr2 * invr;
+  T c1 = T(-0.5) * invr3;
+  T c2 = T(1.5) * invr2 * invr3;
+  if (__builtin_expect(p.near, 0)) {  // the two forms agree at r = 2
+    if (p.zero) {
+      c1 = p.self ? T(1) : T(0);
+      c2 = T(0);
     } else {
+      const T r = p.r2 * invr;
       c1 = T(1) - T(0.84375) * r + T(0.078125) * (p.r2 * r);
       c2 = T(0.28125) * invr - T(0.046875) * r;
     }
@@ -204,29 +240,21 @@ __device__ __forceinline__ Diag<T> rr_condense(const Pair<T>& p) {
 template <typename T, bool WALL, bool IS_TR>
 __device__ __forceinline__ Cross<T> cross_condense(const Pair<T>& p) {
   Cross<T> m;
-  if (p.zero) {
-    m.c = T(0);
-  } else {
-    const T invr = p.invr;
-    const T r = p.r2 * invr;
-    m.c = r >= T(2) ? invr * invr * invr : T(0.5) * (T(1) - T(0.375) * r);
-  }
+  m.c = p.invr * p.invr * p.invr;
+  if (__builtin_expect(p.near, 0))  // the two forms agree at r = 2
+    m.c = p.zero ? T(0) : T(0.5) * (T(1) - T(0.375) * (p.r2 * p.invr));
   if (WALL) {
-    // rpy._wall_cross_core folded onto raw (dx, dy, Rz):
-    // F1 = f1 / R, F2 = f2 / R, G3 = f3 / R^2
-    const T Rz = p.Rz, invR = p.invR;
+    // rpy._wall_cross_core folded onto raw (dx, dy, Rz), with W = 1/R,
+    // u = 1/R^2, e = e_z^2 and h_hat e_z = h W: F1 = f1 / R = W u,
+    // F2 = f2 / R, G3 = f3 / R^2
+    const T Rz = p.Rz, W = p.invR;
     const T h = IS_TR ? p.zt : p.zs;
-    const T invR2 = invR * invR;
-    const T invR4 = invR2 * invR2;
-    const T ez = Rz * invR;
-    const T ez2 = ez * ez;
-    const T h_hat = h / Rz;
-    const T F1 = invR2 * invR;
-    const T F2 =
-        (T(6) * h_hat * ez2 * invR2 + (T(1) - T(10) * ez2) * invR4) * T(2) *
-        invR;
-    const T G3 = -ez * (T(3) * h_hat * invR2 - T(5) * invR4) * T(2) * invR2;
-    const T f4 = -ez * (h_hat * invR2 - invR4) * T(2);
+    const T u = W * W;
+    const T e = Rz * Rz * u;
+    const T F1 = W * u;
+    const T F2 = T(2) * F1 * u * (T(6) * h * Rz + T(1) - T(10) * e);
+    const T G3 = T(-2) * F1 * u * (T(3) * h - T(5) * Rz * u);
+    const T f4 = T(-2) * F1 * (h - Rz * u);
     const T ux = IS_TR ? -p.dx : p.dx;
     const T uy = IS_TR ? -p.dy : p.dy;
     m.cxx = -G3 * ux * uy;
@@ -241,57 +269,82 @@ __device__ __forceinline__ Cross<T> cross_condense(const Pair<T>& p) {
   return m;
 }
 
+// the apply steps add into the sums by multiply-adds, two a component
 template <typename T>
 __device__ __forceinline__ void diag_apply(const Diag<T>& m, T dx, T dy,
-                                           T vx, T vy, T vz, T& ox, T& oy,
-                                           T& oz) {
-  const T w = dx * vx + dy * vy;
-  const T u = m.S * w + m.P * vz;
-  ox = dx * u + m.A * vx;
-  oy = dy * u + m.A * vy;
-  oz = m.Q * w + m.mzz * vz;
+                                           const T* v, T* acc) {
+  const T w = dx * v[0] + dy * v[1];
+  const T u = m.S * w + m.P * v[2];
+  acc[0] = dx * u + (m.A * v[0] + acc[0]);
+  acc[1] = dy * u + (m.A * v[1] + acc[1]);
+  acc[2] = m.Q * w + (m.mzz * v[2] + acc[2]);
 }
 
-template <typename T, bool WALL, bool IS_TR>
-__device__ __forceinline__ void cross_apply(const Cross<T>& m, const Pair<T>& p,
-                                            T vx, T vy, T vz, T& ox, T& oy,
-                                            T& oz) {
-  ox = m.c * (p.dz * vy - p.dy * vz);
-  oy = m.c * (p.dx * vz - p.dz * vx);
-  oz = m.c * (p.dy * vx - p.dx * vy);
+// the transposed block, M^T v: P and Q trade places (the tt mobility is
+// symmetric, M_ji = M_ij^T, so this is the source's share of a pair)
+template <typename T>
+__device__ __forceinline__ void diag_apply_t(const Diag<T>& m, T dx, T dy,
+                                             const T* v, T* acc) {
+  const T w = dx * v[0] + dy * v[1];
+  const T u = m.S * w + m.Q * v[2];
+  acc[0] = dx * u + (m.A * v[0] + acc[0]);
+  acc[1] = dy * u + (m.A * v[1] + acc[1]);
+  acc[2] = m.P * w + (m.mzz * v[2] + acc[2]);
+}
+
+// TRANSPOSE applies the block's transpose: the core c [d x] changes sign
+// and the wall pattern flips between UT and its transpose
+template <typename T, bool WALL, bool IS_TR, bool TRANSPOSE = false>
+__device__ __forceinline__ void cross_apply(const Cross<T>& m,
+                                            const Pair<T>& p, const T* v,
+                                            T* acc) {
+  const T vx = v[0], vy = v[1], vz = v[2];
+  const T c = TRANSPOSE ? -m.c : m.c;
+  T ox = c * (p.dz * vy - p.dy * vz) + acc[0];
+  T oy = c * (p.dx * vz - p.dz * vx) + acc[1];
+  T oz = c * (p.dy * vx - p.dx * vy) + acc[2];
   if (WALL) {
-    if (IS_TR) {
-      ox -= m.cxx * vx + m.cxy * vy + m.cxz * vz;
-      oy -= m.cyx * vx + m.cyy * vy + m.cyz * vz;
-      oz -= m.czx * vx + m.czy * vy;
-    } else {  // rt: transposed pattern
-      ox -= m.cxx * vx + m.cyx * vy + m.czx * vz;
-      oy -= m.cxy * vx + m.cyy * vy + m.czy * vz;
-      oz -= m.cxz * vx + m.cyz * vy;
+    if (IS_TR != TRANSPOSE) {
+      ox = ox - m.cxx * vx - m.cxy * vy - m.cxz * vz;
+      oy = oy - m.cyx * vx - m.cyy * vy - m.cyz * vz;
+      oz = oz - m.czx * vx - m.czy * vy;
+    } else {  // rt, or tr transposed: the transposed pattern
+      ox = ox - m.cxx * vx - m.cyx * vy - m.czx * vz;
+      oy = oy - m.cxy * vx - m.cyy * vy - m.czy * vz;
+      oz = oz - m.cxz * vx - m.cyz * vy;
     }
   }
+  acc[0] = ox;
+  acc[1] = oy;
+  acc[2] = oz;
 }
 
 // Couplings: input/output components per right-hand side, the largest B
-// the paths launch (the template instances), and the per-pair update of
-// the partial sums from the shared-memory source tile.
+// the paths launch (the template instances), the float32 launch shape,
+// and the per-pair update of the partial sums from one source's vector
+// entries v (b-major, kComp a right-hand side); tt and grand, whose
+// mobilities are symmetric (M_ji = M_ij^T), also give the source's share
+// of the pair from the target's entries (accumulate_both, for sym_kernel).
 struct TT {
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = 2;
   template <typename T, int B, bool WALL>
-  __device__ static void accumulate(const Pair<T>& p,
-                                    T (*sv)[kTile], int k, T* part) {
+  __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
+    const Diag<T> m = tt_condense<T, WALL>(p);
+#pragma unroll
+    for (int b = 0; b < B; ++b) diag_apply(m, p.dx, p.dy, v + 3 * b,
+                                           part + 3 * b);
+  }
+  // both shares of a pair: M_ij v_j to the target, M_ij^T v_i to the
+  // source
+  template <typename T, int B, bool WALL>
+  __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
+                                         T* acc_i, const T* vi, T* acc_j) {
     const Diag<T> m = tt_condense<T, WALL>(p);
 #pragma unroll
     for (int b = 0; b < B; ++b) {
-      const T vx = sv[3 * b + 0][k];
-      const T vy = sv[3 * b + 1][k];
-      const T vz = sv[3 * b + 2][k];
-      const T w = p.dx * vx + p.dy * vy;
-      const T u = m.S * w + m.P * vz;
-      part[3 * b + 0] += p.dx * u + m.A * vx;
-      part[3 * b + 1] += p.dy * u + m.A * vy;
-      part[3 * b + 2] += m.Q * w + m.mzz * vz;
+      diag_apply(m, p.dx, p.dy, vj + 3 * b, acc_i + 3 * b);
+      diag_apply_t(m, p.dx, p.dy, vi + 3 * b, acc_j + 3 * b);
     }
   }
 };
@@ -300,19 +353,11 @@ struct RR {
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = 2;
   template <typename T, int B, bool WALL>
-  __device__ static void accumulate(const Pair<T>& p0,
-                                    T (*sv)[kTile], int k, T* part) {
-    const Pair<T> p = with_rsqrt<T, WALL>(p0);
+  __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
     const Diag<T> m = rr_condense<T, WALL>(p);
 #pragma unroll
-    for (int b = 0; b < B; ++b) {
-      T ox, oy, oz;
-      diag_apply(m, p.dx, p.dy, sv[3 * b][k], sv[3 * b + 1][k],
-                 sv[3 * b + 2][k], ox, oy, oz);
-      part[3 * b + 0] += ox;
-      part[3 * b + 1] += oy;
-      part[3 * b + 2] += oz;
-    }
+    for (int b = 0; b < B; ++b) diag_apply(m, p.dx, p.dy, v + 3 * b,
+                                           part + 3 * b);
   }
 };
 
@@ -321,19 +366,11 @@ struct CrossCoupling {
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = MAX_RHS;
   template <typename T, int B, bool WALL>
-  __device__ static void accumulate(const Pair<T>& p0,
-                                    T (*sv)[kTile], int k, T* part) {
-    const Pair<T> p = with_rsqrt<T, WALL>(p0);
+  __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
     const Cross<T> m = cross_condense<T, WALL, IS_TR>(p);
 #pragma unroll
-    for (int b = 0; b < B; ++b) {
-      T ox, oy, oz;
-      cross_apply<T, WALL, IS_TR>(m, p, sv[3 * b][k], sv[3 * b + 1][k],
-                                  sv[3 * b + 2][k], ox, oy, oz);
-      part[3 * b + 0] += ox;
-      part[3 * b + 1] += oy;
-      part[3 * b + 2] += oz;
-    }
+    for (int b = 0; b < B; ++b)
+      cross_apply<T, WALL, IS_TR>(m, p, v + 3 * b, part + 3 * b);
   }
 };
 using TR = CrossCoupling<true, 2>;
@@ -343,49 +380,105 @@ struct Grand {
   static constexpr int kComp = 6;
   static constexpr int kMaxRhs = 1;
   template <typename T, int B, bool WALL>
-  __device__ static void accumulate(const Pair<T>& p0,
-                                    T (*sv)[kTile], int k, T* part) {
-    const Pair<T> p = with_rsqrt<T, WALL>(p0);
+  __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
     const Diag<T> mtt = tt_condense<T, WALL>(p);
     const Cross<T> mtr = cross_condense<T, WALL, true>(p);
     const Cross<T> mrt = cross_condense<T, WALL, false>(p);
     const Diag<T> mrr = rr_condense<T, WALL>(p);
 #pragma unroll
     for (int b = 0; b < B; ++b) {
-      const T fx = sv[6 * b + 0][k], fy = sv[6 * b + 1][k],
-              fz = sv[6 * b + 2][k];
-      const T tx = sv[6 * b + 3][k], ty = sv[6 * b + 4][k],
-              tz = sv[6 * b + 5][k];
-      T ax, ay, az, bx, by, bz;
-      // U = M_tt F + M_tr T
-      diag_apply(mtt, p.dx, p.dy, fx, fy, fz, ax, ay, az);
-      cross_apply<T, WALL, true>(mtr, p, tx, ty, tz, bx, by, bz);
-      part[6 * b + 0] += ax + bx;
-      part[6 * b + 1] += ay + by;
-      part[6 * b + 2] += az + bz;
-      // W = M_rt F + M_rr T
-      cross_apply<T, WALL, false>(mrt, p, fx, fy, fz, ax, ay, az);
-      diag_apply(mrr, p.dx, p.dy, tx, ty, tz, bx, by, bz);
-      part[6 * b + 3] += ax + bx;
-      part[6 * b + 4] += ay + by;
-      part[6 * b + 5] += az + bz;
+      const T* f = v + 6 * b;      // F
+      const T* t = f + 3;          // T / a
+      T* out_u = part + 6 * b;     // U = M_tt F + M_tr T
+      T* out_w = out_u + 3;        // W a = M_rt F + M_rr T
+      diag_apply(mtt, p.dx, p.dy, f, out_u);
+      cross_apply<T, WALL, true>(mtr, p, t, out_u);
+      cross_apply<T, WALL, false>(mrt, p, f, out_w);
+      diag_apply(mrr, p.dx, p.dy, t, out_w);
+    }
+  }
+  // both shares of a pair; the source's is M_ij^T (F_i, T_i / a):
+  // U_j += tt^T F_i + rt^T T_i / a, W_j a += tr^T F_i + rr^T T_i / a
+  template <typename T, int B, bool WALL>
+  __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
+                                         T* acc_i, const T* vi, T* acc_j) {
+    const Diag<T> mtt = tt_condense<T, WALL>(p);
+    const Cross<T> mtr = cross_condense<T, WALL, true>(p);
+    const Cross<T> mrt = cross_condense<T, WALL, false>(p);
+    const Diag<T> mrr = rr_condense<T, WALL>(p);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const T* f = vj + 6 * b;
+      const T* t = f + 3;
+      diag_apply(mtt, p.dx, p.dy, f, acc_i + 6 * b);
+      cross_apply<T, WALL, true>(mtr, p, t, acc_i + 6 * b);
+      cross_apply<T, WALL, false>(mrt, p, f, acc_i + 6 * b + 3);
+      diag_apply(mrr, p.dx, p.dy, t, acc_i + 6 * b + 3);
+      const T* fi = vi + 6 * b;
+      const T* ti = fi + 3;
+      diag_apply_t(mtt, p.dx, p.dy, fi, acc_j + 6 * b);
+      cross_apply<T, WALL, false, true>(mrt, p, ti, acc_j + 6 * b);
+      cross_apply<T, WALL, true, true>(mtr, p, fi, acc_j + 6 * b + 3);
+      diag_apply_t(mrr, p.dx, p.dy, ti, acc_j + 6 * b + 3);
     }
   }
 };
 
+// resident blocks an SM that __launch_bounds__ asks for: 8 in float32 (64
+// registers a thread at most), none in float64 (off the hot paths)
+template <typename T>
+struct Shape {
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 8 : 1;
+};
+
+// a staged source row: x, y, z and the NV vector entries, padded to whole
+// 16-byte vectors (four floats, two doubles)
+template <typename T, int NV>
+struct RowLen {
+  static constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  static constexpr int value = ((3 + NV + kPer - 1) / kPer) * kPer;
+};
+
+template <int L>
+__device__ __forceinline__ void load_row(const float* row, float* dst) {
+#pragma unroll
+  for (int c = 0; c < L; c += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(row + c);
+    dst[c] = q.x;
+    dst[c + 1] = q.y;
+    dst[c + 2] = q.z;
+    dst[c + 3] = q.w;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void load_row(const double* row, double* dst) {
+#pragma unroll
+  for (int c = 0; c < L; c += 2) {
+    const double2 q = *reinterpret_cast<const double2*>(row + c);
+    dst[c] = q.x;
+    dst[c + 1] = q.y;
+  }
+}
+
+// One block: 128 target rows against the sources of slice blockIdx.y,
+// sources [blockIdx.y * tiles_per_slice * 128, +tiles_per_slice * 128)
+// clipped to n_src. Writes out[blockIdx.y][i][:] (the workspace when
+// S > 1).
 template <typename T, typename C, int B, bool WALL>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kTile, (Shape<T>::kMinBlocks))
 pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
             const T* __restrict__ vec, T* __restrict__ out, int n_src,
-            int n_tgt, int self_interaction) {
+            int n_tgt, int tiles_per_slice, int self_interaction) {
   constexpr int NV = C::kComp * B;
-  __shared__ T s_pos[3][kTile];
-  __shared__ T s_vec[NV][kTile];
+  constexpr int L = RowLen<T, NV>::value;
+  __shared__ __align__(16) T s_src[kTile][L];
 
   const int i = blockIdx.x * kTile + threadIdx.x;
-  const bool active = i < n_tgt;
+  const int j_begin = blockIdx.y * tiles_per_slice * kTile;
+  const int j_end = min(n_src, j_begin + tiles_per_slice * kTile);
   T xt = T(0), yt = T(0), zt = T(1);
-  if (active) {
+  if (i < n_tgt) {
     xt = q_tgt[3 * i + 0];
     yt = q_tgt[3 * i + 1];
     zt = q_tgt[3 * i + 2];
@@ -394,106 +487,411 @@ pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
 #pragma unroll
   for (int c = 0; c < NV; ++c) acc[c] = T(0);
 
-  for (int base = 0; base < n_src; base += kTile) {
-    const int j_load = base + threadIdx.x;
-    if (j_load < n_src) {
-      s_pos[0][threadIdx.x] = q_src[3 * j_load + 0];
-      s_pos[1][threadIdx.x] = q_src[3 * j_load + 1];
-      s_pos[2][threadIdx.x] = q_src[3 * j_load + 2];
+  for (int base = j_begin; base < j_end; base += kTile) {
+    const int j = base + threadIdx.x;
+    if (j < j_end) {
+      T* row = s_src[threadIdx.x];
+      row[0] = q_src[3 * j + 0];
+      row[1] = q_src[3 * j + 1];
+      row[2] = q_src[3 * j + 2];
 #pragma unroll
-      for (int c = 0; c < NV; ++c)
-        s_vec[c][threadIdx.x] = vec[(size_t)j_load * NV + c];
+      for (int c = 0; c < NV; ++c) row[3 + c] = vec[(size_t)j * NV + c];
     }
     __syncthreads();
-    const int count = min(kTile, n_src - base);
-    if (active) {
-      // per-tile partial sums, added once per tile: keeps f32 rounding
-      // of the N-term sum near sqrt(N / kTile) instead of sqrt(N) steps
-      T part[NV];
+    const int count = min(kTile, j_end - base);
+    // the tile index of the target's self pair (never matched when the
+    // target is not in this tile)
+    const int self_k = self_interaction ? i - base : -1;
+    // per-tile partial sums, added once per tile
+    T part[NV];
 #pragma unroll
-      for (int c = 0; c < NV; ++c) part[c] = T(0);
-      for (int k = 0; k < count; ++k) {
-        const T xs = s_pos[0][k], ys = s_pos[1][k], zs = s_pos[2][k];
-        Pair<T> p;
-        p.dx = xt - xs;
-        p.dy = yt - ys;
-        p.dz = zt - zs;
-        p.xy2 = p.dx * p.dx + p.dy * p.dy;
-        p.r2 = p.xy2 + p.dz * p.dz;
-        p.self = self_interaction && (base + k == i);
-        p.zero = p.self || (p.r2 == T(0));
-        if (WALL) {
-          p.zt = zt;
-          p.zs = zs;
-          p.Rz = zt + zs;
+    for (int c = 0; c < NV; ++c) part[c] = T(0);
+    for (int k = 0; k < count; ++k) {
+      T src[L];
+      load_row<L>(s_src[k], src);
+      const Pair<T> p = make_pair<T, WALL>(xt, yt, zt, src[0], src[1],
+                                           src[2], k == self_k);
+      C::template accumulate<T, B, WALL>(p, src + 3, part);
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c) acc[c] += part[c];
+    __syncthreads();
+  }
+  if (i < n_tgt) {
+    T* o = out + (size_t)blockIdx.y * n_tgt * NV + (size_t)i * NV;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) o[c] = acc[c];
+  }
+}
+
+// out[i] = sum over s of ws[s][i], in slice order (bit-identical on
+// repeat), by runs of 16 slices so the rounding of hundreds of slices
+// grows like their square root
+template <typename T>
+__global__ void __launch_bounds__(256)
+slice_sum_kernel(const T* __restrict__ ws, T* __restrict__ out,
+                 int n_slices, long long n) {
+  const long long idx = blockIdx.x * 256LL + threadIdx.x;
+  if (idx >= n) return;
+  T s = T(0);
+  for (int k0 = 0; k0 < n_slices; k0 += 16) {
+    T run = ws[k0 * n + idx];
+    for (int k = k0 + 1; k < min(k0 + 16, n_slices); ++k)
+      run += ws[k * n + idx];
+    s += run;
+  }
+  out[idx] = s;
+}
+
+// The symmetric sweep of a square product (targets = sources) for the
+// symmetric couplings (tt, grand): each unordered pair is condensed once
+// and applied both ways, halving the condensing that bounds the sliced
+// sweep.
+// - The 128-blob tiles fall into G groups of tiles_per_group tiles; a
+//   block takes one pair of groups (GA, GB), GA <= GB, of the upper
+//   triangle and sweeps its tile pairs (a, b), a in GA and b in GB (b >= a
+//   when GA = GB). Off the diagonal each warp holds 32 targets of tile a
+//   and, for each 32-source quarter of b, one source a lane: 32 steps
+//   rotate the sources (and their running sums M_ij^T v_i) one lane down
+//   with shuffles, so every (target, source) pair of the warp meets once
+//   and each source's sum comes back to its lane; the four warps' source
+//   sums are added in shared memory in warp order. A diagonal tile pair
+//   (a, a) runs the directed sweep over its own tile, self pairs included
+//   when self_interaction is set.
+// - The workspace (G, N, nc B) holds one slice a group: the block owns
+//   slice GB of the rows of group GA (target-side sums) and slice GA of
+//   the rows of group GB (source-side sums). It zeroes them and adds each
+//   tile pair's sums in sweep order, every row by the thread of its
+//   position in the tile. Each (slice, row) entry belongs to one block, no
+//   atomics, and the slice sum adds the G slices of every row in order, so
+//   the product is bit-identical on repeat. G comes from the wrapper's
+//   plan (ops/pair_kernels.py plan_groups), which fills the card whatever
+//   N is: the workspace grows with N, not with N^2.
+constexpr int kLanes = 32;
+constexpr int kWarps = kTile / kLanes;
+
+// (A, B) of upper-triangle pair p in row-major order over n groups
+__device__ __forceinline__ void group_pair(long long p, int n, int& a,
+                                           int& b) {
+  auto start = [n](long long row) { return row * n - row * (row - 1) / 2; };
+  const double t = 2.0 * n + 1.0;
+  int r = static_cast<int>((t - sqrt(t * t - 8.0 * p)) * 0.5);
+  while (r > 0 && start(r) > p) --r;
+  while (r + 1 < n && start(r + 1) <= p) ++r;
+  a = r;
+  b = r + static_cast<int>(p - start(r));
+}
+
+// adds the block's four warps' source-side sums s_sum[w][t] to row
+// `row` of slice `dst` (the calling thread's own row)
+template <typename T, int NV>
+__device__ __forceinline__ void add_source_sums(T (*s_sum)[kTile][NV], T* dst,
+                                                int row, int n) {
+  if (row >= n) return;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    T sum = s_sum[0][threadIdx.x][c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) sum += s_sum[w][threadIdx.x][c];
+    dst[(size_t)row * NV + c] += sum;
+  }
+}
+
+template <typename T, typename C, int B, bool WALL>
+__global__ void __launch_bounds__(kTile, (Shape<T>::kMinBlocks))
+sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
+           T* __restrict__ ws, int n, int n_groups, int tiles_per_group,
+           int self_interaction) {
+  constexpr int NV = C::kComp * B;
+  constexpr int L = RowLen<T, NV>::value;
+  __shared__ __align__(16) T s_src[kTile][L];
+  __shared__ T s_sum[kWarps][kTile][NV];
+
+  int ga, gb;
+  group_pair(blockIdx.x, n_groups, ga, gb);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int a_begin = ga * tiles_per_group;
+  const int a_end = min(n_tiles, a_begin + tiles_per_group);
+  const int b_begin = gb * tiles_per_group;
+  const int b_end = min(n_tiles, b_begin + tiles_per_group);
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  T* ws_a = ws + (size_t)gb * n * NV;  // target-side sums of group GA
+  T* ws_b = ws + (size_t)ga * n * NV;  // source-side sums of group GB
+#pragma unroll 1
+  for (int t = 0; t < tiles_per_group; ++t) {
+    const int ra = (a_begin + t) * kTile + threadIdx.x;
+    const int rb = (b_begin + t) * kTile + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      if (ra < n) ws_a[(size_t)ra * NV + c] = T(0);
+      if (rb < n) ws_b[(size_t)rb * NV + c] = T(0);
+    }
+  }
+
+#pragma unroll 1
+  for (int ta = a_begin; ta < a_end; ++ta) {
+    const int i = ta * kTile + threadIdx.x;
+    T xi = T(0), yi = T(0), zi = T(1), vi[NV], acc[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      vi[c] = T(0);
+      acc[c] = T(0);
+    }
+    if (i < n) {
+      xi = q[3 * i + 0];
+      yi = q[3 * i + 1];
+      zi = q[3 * i + 2];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) vi[c] = vec[(size_t)i * NV + c];
+    }
+#pragma unroll 1
+    for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
+      if (tb == ta) {  // the diagonal tile: every ordered pair
+        __syncthreads();  // s_src may still be read for the previous tile
+        T* row = s_src[threadIdx.x];
+        row[0] = xi;
+        row[1] = yi;
+        row[2] = zi;
+#pragma unroll
+        for (int c = 0; c < NV; ++c) row[3 + c] = vi[c];
+        __syncthreads();
+        const int count = min(kTile, n - ta * kTile);
+        const int self_k = self_interaction ? static_cast<int>(threadIdx.x)
+                                            : -1;
+        for (int k = 0; k < count; ++k) {
+          T src[L];
+          load_row<L>(s_src[k], src);
+          const Pair<T> p = make_pair<T, WALL>(xi, yi, zi, src[0], src[1],
+                                               src[2], k == self_k);
+          C::template accumulate<T, B, WALL>(p, src + 3, acc);
         }
-        C::template accumulate<T, B, WALL>(p, s_vec, k, part);
+        continue;
       }
+      // off the diagonal: each quarter of tile b rotates through the warp
+#pragma unroll 1
+      for (int quarter = 0; quarter < kWarps; ++quarter) {
+        const int j = tb * kTile + quarter * kLanes + lane;
+        T xj = T(0), yj = T(0), zj = T(1), vj[NV], accj[NV];
 #pragma unroll
-      for (int c = 0; c < NV; ++c) acc[c] += part[c];
+        for (int c = 0; c < NV; ++c) {
+          vj[c] = T(0);
+          accj[c] = T(0);
+        }
+        if (j < n) {
+          xj = q[3 * j + 0];
+          yj = q[3 * j + 1];
+          zj = q[3 * j + 2];
+#pragma unroll
+          for (int c = 0; c < NV; ++c) vj[c] = vec[(size_t)j * NV + c];
+        }
+        const int next = (lane + 1) % kLanes;
+#pragma unroll 2
+        for (int step = 0; step < kLanes; ++step) {
+          const Pair<T> p = make_pair<T, WALL>(xi, yi, zi, xj, yj, zj, false);
+          C::template accumulate_both<T, B, WALL>(p, vj, acc, vi, accj);
+          xj = __shfl_sync(0xffffffffu, xj, next);
+          yj = __shfl_sync(0xffffffffu, yj, next);
+          zj = __shfl_sync(0xffffffffu, zj, next);
+#pragma unroll
+          for (int c = 0; c < NV; ++c) {
+            vj[c] = __shfl_sync(0xffffffffu, vj[c], next);
+            accj[c] = __shfl_sync(0xffffffffu, accj[c], next);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+          s_sum[warp][quarter * kLanes + lane][c] = accj[c];
+      }
+      __syncthreads();
+      add_source_sums<T, NV>(s_sum, ws_b, tb * kTile + threadIdx.x, n);
+      __syncthreads();  // s_sum is refilled by the next tile pair
     }
-    __syncthreads();
-  }
-  if (active) {
+    if (i < n) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) out[(size_t)i * NV + c] = acc[c];
+      for (int c = 0; c < NV; ++c) ws_a[(size_t)i * NV + c] += acc[c];
+    }
   }
+}
+
+template <typename T, typename C, int B, bool WALL>
+int launch_bw(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
+              int n_src, int n_tgt, int n_slices, int tiles_per_slice,
+              int self_interaction, cudaStream_t s) {
+  const dim3 grid((n_tgt + kTile - 1) / kTile, n_slices);
+  pair_kernel<T, C, B, WALL><<<grid, kTile, 0, s>>>(
+      q_src, q_tgt, vec, n_slices > 1 ? ws : out, n_src, n_tgt,
+      tiles_per_slice, self_interaction);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(n_tgt) * C::kComp * B;
+  slice_sum_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      ws, out, n_slices, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename C, int B>
-void launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out,
-              int n_src, int n_tgt, int wall, int self_interaction,
-              cudaStream_t stream) {
-  const dim3 grid((n_tgt + kTile - 1) / kTile);
-  if (wall)
-    pair_kernel<T, C, B, true><<<grid, kTile, 0, stream>>>(
-        q_src, q_tgt, vec, out, n_src, n_tgt, self_interaction);
-  else
-    pair_kernel<T, C, B, false><<<grid, kTile, 0, stream>>>(
-        q_src, q_tgt, vec, out, n_src, n_tgt, self_interaction);
+int launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
+             int n_src, int n_tgt, int n_slices, int tiles_per_slice,
+             int wall, int self_interaction, cudaStream_t s) {
+  return wall ? launch_bw<T, C, B, true>(q_src, q_tgt, vec, out, ws, n_src,
+                                         n_tgt, n_slices, tiles_per_slice,
+                                         self_interaction, s)
+              : launch_bw<T, C, B, false>(q_src, q_tgt, vec, out, ws, n_src,
+                                          n_tgt, n_slices, tiles_per_slice,
+                                          self_interaction, s);
 }
 
 // q_src (n_src,3), q_tgt (n_tgt,3), vec (n_src, kComp*n_rhs) b-major
-// columns, out (n_tgt, kComp*n_rhs); all contiguous on the device;
-// 1 <= n_rhs <= kMaxRhs, n_src, n_tgt > 0. Returns the CUDA error code of
-// the launch (0 on success).
+// columns, out (n_tgt, kComp*n_rhs), ws (n_slices, n_tgt, kComp*n_rhs)
+// when n_slices > 1 (else unused); all contiguous on the device;
+// 1 <= n_rhs <= kMaxRhs, n_src, n_tgt > 0, slices of tiles_per_slice
+// 128-source tiles covering n_src. Returns the CUDA error code of the
+// launches (0 on success).
 template <typename T, typename C>
-int launch(const T* q_src, const T* q_tgt, const T* vec, T* out, int n_src,
-           int n_tgt, int n_rhs, int wall, int self_interaction,
+int launch(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
+           int n_src, int n_tgt, int n_rhs, int n_slices,
+           int tiles_per_slice, int wall, int self_interaction,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rhs == 1) {
-    launch_b<T, C, 1>(q_src, q_tgt, vec, out, n_src, n_tgt, wall,
-                      self_interaction, s);
-  } else if constexpr (C::kMaxRhs >= 2) {
-    if (n_rhs != 2) return static_cast<int>(cudaErrorInvalidValue);
-    launch_b<T, C, 2>(q_src, q_tgt, vec, out, n_src, n_tgt, wall,
-                      self_interaction, s);
-  } else {
+  if (n_slices < 1 || n_slices > 65535 || tiles_per_slice < 1 ||
+      static_cast<long long>(n_slices) * tiles_per_slice * kTile < n_src ||
+      (n_slices > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rhs == 1)
+    return launch_b<T, C, 1>(q_src, q_tgt, vec, out, ws, n_src, n_tgt,
+                             n_slices, tiles_per_slice, wall,
+                             self_interaction, s);
+  if constexpr (C::kMaxRhs >= 2) {
+    if (n_rhs == 2)
+      return launch_b<T, C, 2>(q_src, q_tgt, vec, out, ws, n_src, n_tgt,
+                               n_slices, tiles_per_slice, wall,
+                               self_interaction, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename K>
+int resident(K kernel, int* blocks_per_sm) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kTile, 0));
+}
+
+// the launch shape the wrapper plans with: resident blocks an SM holds of
+// the instance
+template <typename T, typename C>
+int shape(int n_rhs, int wall, int* blocks_per_sm) {
+  if (n_rhs == 1)
+    return wall ? resident(pair_kernel<T, C, 1, true>, blocks_per_sm)
+                : resident(pair_kernel<T, C, 1, false>, blocks_per_sm);
+  if constexpr (C::kMaxRhs >= 2) {
+    if (n_rhs == 2)
+      return wall ? resident(pair_kernel<T, C, 2, true>, blocks_per_sm)
+                  : resident(pair_kernel<T, C, 2, false>, blocks_per_sm);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, typename C, int B, bool WALL>
+int launch_sym_bw(const T* q, const T* vec, T* out, T* ws, int n,
+                  int n_groups, int tiles_per_group, int self_interaction,
+                  cudaStream_t s) {
+  const long long n_pairs =
+      static_cast<long long>(n_groups) * (n_groups + 1) / 2;
+  sym_kernel<T, C, B, WALL><<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
+      q, vec, ws, n, n_groups, tiles_per_group, self_interaction);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long len = static_cast<long long>(n) * C::kComp * B;
+  slice_sum_kernel<T><<<static_cast<unsigned>((len + 255) / 256), 256, 0, s>>>(
+      ws, out, n_groups, len);
   return static_cast<int>(cudaGetLastError());
+}
+
+// q (n,3), vec (n, kComp*n_rhs) b-major columns, out (n, kComp*n_rhs), ws
+// (n_groups, n, kComp*n_rhs); all contiguous on the device; n > 0,
+// 1 <= n_rhs <= kMaxRhs, groups of tiles_per_group 128-blob tiles
+// covering n. Returns the CUDA error code of the launches.
+template <typename T, typename C>
+int launch_sym(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
+               int n_groups, int tiles_per_group, int wall,
+               int self_interaction, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || ws == nullptr || n_groups < 1 || n_groups > 65535 ||
+      tiles_per_group < 1 ||
+      static_cast<long long>(n_groups) * tiles_per_group * kTile < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rhs == 1)
+    return wall ? launch_sym_bw<T, C, 1, true>(q, vec, out, ws, n, n_groups,
+                                               tiles_per_group,
+                                               self_interaction, s)
+                : launch_sym_bw<T, C, 1, false>(q, vec, out, ws, n, n_groups,
+                                                tiles_per_group,
+                                                self_interaction, s);
+  if constexpr (C::kMaxRhs >= 2) {
+    if (n_rhs == 2)
+      return wall ? launch_sym_bw<T, C, 2, true>(q, vec, out, ws, n, n_groups,
+                                                 tiles_per_group,
+                                                 self_interaction, s)
+                  : launch_sym_bw<T, C, 2, false>(q, vec, out, ws, n,
+                                                  n_groups, tiles_per_group,
+                                                  self_interaction, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace pairk
 
-// one f32 and one f64 C entry point per coupling, all with the signature
-// (q_src, q_tgt, vec, out, n_src, n_tgt, n_rhs, wall, self_interaction,
-// stream)
+// per coupling: one f32 and one f64 C entry point with the signature
+// (q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,
+// tiles_per_slice, wall, self_interaction, stream), and
+// NAME_shape(f64, n_rhs, wall, &blocks_per_sm)
 #define PAIRK_ENTRY(NAME, COUPLING)                                          \
   extern "C" int NAME##_f32(const float* q_src, const float* q_tgt,          \
-                            const float* vec, float* out, int n_src,         \
-                            int n_tgt, int n_rhs, int wall,                  \
+                            const float* vec, float* out, float* ws,         \
+                            int n_src, int n_tgt, int n_rhs, int n_slices,   \
+                            int tiles_per_slice, int wall,                   \
                             int self_interaction, void* stream) {            \
-    return pairk::launch<float, COUPLING>(q_src, q_tgt, vec, out, n_src,     \
-                                          n_tgt, n_rhs, wall,                \
+    return pairk::launch<float, COUPLING>(q_src, q_tgt, vec, out, ws, n_src, \
+                                          n_tgt, n_rhs, n_slices,            \
+                                          tiles_per_slice, wall,             \
                                           self_interaction, stream);         \
   }                                                                          \
   extern "C" int NAME##_f64(const double* q_src, const double* q_tgt,        \
-                            const double* vec, double* out, int n_src,       \
-                            int n_tgt, int n_rhs, int wall,                  \
+                            const double* vec, double* out, double* ws,      \
+                            int n_src, int n_tgt, int n_rhs, int n_slices,   \
+                            int tiles_per_slice, int wall,                   \
                             int self_interaction, void* stream) {            \
-    return pairk::launch<double, COUPLING>(q_src, q_tgt, vec, out, n_src,    \
-                                           n_tgt, n_rhs, wall,               \
+    return pairk::launch<double, COUPLING>(q_src, q_tgt, vec, out, ws,       \
+                                           n_src, n_tgt, n_rhs, n_slices,    \
+                                           tiles_per_slice, wall,            \
                                            self_interaction, stream);        \
+  }                                                                          \
+  extern "C" int NAME##_shape(int f64, int n_rhs, int wall,                  \
+                              int* blocks_per_sm) {                          \
+    return f64 ? pairk::shape<double, COUPLING>(n_rhs, wall, blocks_per_sm)  \
+               : pairk::shape<float, COUPLING>(n_rhs, wall, blocks_per_sm);  \
+  }
+
+// the symmetric sweep of a square product: NAME_f32 / NAME_f64 (q, vec,
+// out, ws, n, n_rhs, n_groups, tiles_per_group, wall, self_interaction,
+// stream)
+#define PAIRK_SYM_ENTRY(NAME, COUPLING)                                      \
+  extern "C" int NAME##_f32(const float* q, const float* vec, float* out,    \
+                            float* ws, int n, int n_rhs, int n_groups,       \
+                            int tiles_per_group, int wall,                   \
+                            int self_interaction, void* stream) {            \
+    return pairk::launch_sym<float, COUPLING>(q, vec, out, ws, n, n_rhs,     \
+                                              n_groups, tiles_per_group,     \
+                                              wall, self_interaction,        \
+                                              stream);                       \
+  }                                                                          \
+  extern "C" int NAME##_f64(const double* q, const double* vec, double* out, \
+                            double* ws, int n, int n_rhs, int n_groups,      \
+                            int tiles_per_group, int wall,                   \
+                            int self_interaction, void* stream) {            \
+    return pairk::launch_sym<double, COUPLING>(q, vec, out, ws, n, n_rhs,    \
+                                               n_groups, tiles_per_group,    \
+                                               wall, self_interaction,       \
+                                               stream);                      \
   }

@@ -21,3 +21,5 @@ PAIRK_ENTRY(pair_rt, pairk::RT)
 PAIRK_ENTRY(pair_rr, pairk::RR)
 // vec (n_src,6) = (F, T/a) -> out (n_tgt,6) = (U, W a) before prefactors
 PAIRK_ENTRY(pair_grand, pairk::Grand)
+// the symmetric sweep of the square grand product (the rollers' Lanczos)
+PAIRK_SYM_ENTRY(pair_grand_sym, pairk::Grand)

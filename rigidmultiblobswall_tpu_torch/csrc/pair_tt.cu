@@ -1,13 +1,21 @@
 // Kernel K1, coupling tt: the translation-translation mobility product
 // (RPY core plus Swan-Brady single-wall corrections) for B = 1 or 2
-// stacked right-hand sides. The per-pair math and the kernel template are
-// in pair_blocks.cuh, shared with the other couplings (pair_couplings.cu).
+// stacked right-hand sides. The per-pair math and the sliced sweep are in
+// pair_blocks.cuh, shared with the other couplings (pair_couplings.cu).
 //
 // Replaces the Pallas TPU kernel rigidmultiblobswall_tpu/ops/pair_kernels.py
 // (_pair_kernel, coupling "tt"; wrapper pair_matvec_pallas).
+//
+// The square product (targets = sources), which is every tt product of
+// the paths, also has the symmetric sweep of
+// pair_blocks.cuh (sym_kernel): the tt mobility is symmetric, so each
+// unordered pair is condensed once and applied both ways.
 
 #include "pair_blocks.cuh"
 
 // pair_tt_f32 / pair_tt_f64: q_src (n_src,3), q_tgt (n_tgt,3),
-// vec (n_src,3*n_rhs) b-major columns, out (n_tgt,3*n_rhs); n_rhs 1 or 2
+// vec (n_src,3*n_rhs) b-major columns, out (n_tgt,3*n_rhs), the slice
+// workspace; n_rhs 1 or 2; pair_tt_shape: the launch shape
 PAIRK_ENTRY(pair_tt, pairk::TT)
+// pair_tt_sym_f32 / _f64: the symmetric sweep, n_rhs 1 or 2
+PAIRK_SYM_ENTRY(pair_tt_sym, pairk::TT)

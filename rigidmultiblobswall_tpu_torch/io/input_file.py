@@ -10,9 +10,14 @@ single_wall_spectral (periodic_length Lx Ly 0; both spectral domains read
 spectral_tolerance, spectral_grid_max and spectral_cell_capacity, and
 the wall slab's height is sized at the start of a run,
 saddle.auto_wall_height); a tree/neighbor blob_blob_force_implementation
-selects the linked-cell forces. Not ported yet, and refused with NotImplementedError: obstacles,
-articulated bodies, .slip and .Laplace files, per-blob radii and
-body-body forces (ROADMAP Queue 1, items 4, 15, 17 and 18).
+selects the linked-cell forces. `save_velocities True` makes a dynamic
+run write .velocities.dat (cli.py). Not ported yet, and refused with
+NotImplementedError rather than ignored: obstacles, articulated bodies,
+.slip and .Laplace files, per-blob radii and body-body forces (ROADMAP
+Queue 1, items 4, 15, 17 and 18), and the options random_state,
+plot_velocity_field, plot_concentration_field, tracer_radius and
+call_HydroGrid True (item 11; the fields with item 18's
+models/fields.py), which `read_input` refuses.
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ def read_input(path) -> InputConfig:
         tail = ntpath.split(files[1])[1]
         return tail[:-7] if tail.endswith(".clones") else tail
 
+    _refuse_unported_options(options)
     cfg = InputConfig(options=options, structures=structures,
                       structures_ID=[_id(s) for s in structures],
                       obstacles=obstacles, articulated=articulated)
@@ -133,6 +139,32 @@ def read_input(path) -> InputConfig:
             struct[1] = (f"{cfg.output_name}.{cfg.structures_ID[k]}."
                          f"{str(cfg.initial_step).zfill(8)}.clones")
     return cfg
+
+
+# options the JAX CLI acts on that the port does not support yet, and the
+# ROADMAP item that ports each
+_UNPORTED_OPTIONS = {
+    "random_state": "the .random_state restart (ROADMAP Queue 1, item 11)",
+    "plot_velocity_field": "vtk velocity fields (ROADMAP Queue 1, item 11, "
+                           "with item 18's models/fields.py)",
+    "plot_concentration_field": "vtk concentration fields (ROADMAP Queue 1, "
+                                "item 11, with item 18's models/fields.py)",
+    "tracer_radius": "the tracers of the vtk velocity field (ROADMAP Queue "
+                     "1, item 11, with item 18's models/fields.py)",
+}
+
+
+def _refuse_unported_options(options):
+    for key, what in _UNPORTED_OPTIONS.items():
+        if key in options:
+            raise NotImplementedError(
+                f"input option {key!r}: {what} is not ported yet; the "
+                "PyTorch port refuses it rather than ignore it")
+    if options.get("call_HydroGrid", "False") == "True":
+        raise NotImplementedError(
+            "input option 'call_HydroGrid True': the structure factors are "
+            "not ported yet (ROADMAP Queue 1, item 11); the PyTorch port "
+            "refuses it rather than ignore it")
 
 
 def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,

@@ -172,7 +172,7 @@ class _DirectEngine:
     def _multi(self, coupling, T):
         """(B, n, 3) -> (B, n, 3) products in one condensed sweep."""
         return mob.pairwise_matvec_multi(
-            self.r, self.r, T, self.sus.eta, self.sus.blob_radius,
+            self.r, None, T, self.sus.eta, self.sus.blob_radius,
             coupling=coupling, self_interaction=True, **self.kw)
 
     def rr_multi(self, T):

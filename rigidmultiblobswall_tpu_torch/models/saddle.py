@@ -181,7 +181,7 @@ def _mobility_apply_multi(system, r_blobs, m_dense, lam):
         # measured 8x slower, PERF.md)
         return mobility_cuda.symm_matvec(m_dense, lam)
     return mob.pairwise_matvec_multi(
-        r_blobs, r_blobs, lam, system.eta, system.blob_radius,
+        r_blobs, None, lam, system.eta, system.blob_radius,
         coupling="tt", domain=system.domain,
         periodic_length=system.periodic_length, self_interaction=True)
 

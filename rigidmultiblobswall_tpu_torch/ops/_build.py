@@ -36,7 +36,8 @@ _D = ctypes.c_double
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
 # csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu); pointers and the
 # stream MUST be c_void_p or ctypes truncates them
-_PAIR = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
+_PI = ctypes.POINTER(ctypes.c_int)
 _NL = (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P)
 _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
          _P)
@@ -44,6 +45,10 @@ _WALL = (_P,) * 6 + (_I,) * 9 + (_D,) * 11 + (_P,)
 SIGNATURES = {
     **{f"pair_{c}_{t}": _PAIR for c in ("tt", "tr", "rt", "rr", "grand")
        for t in ("f32", "f64")},
+    **{f"pair_{c}_shape": (_I, _I, _I, _PI)
+       for c in ("tt", "tr", "rt", "rr", "grand")},
+    **{f"pair_{c}_sym_{t}": (_P,) * 4 + (_I,) * 6 + (_P,)
+       for c in ("tt", "grand") for t in ("f32", "f64")},
     "blob_forces_f32": (_P, _P, _I, _D, _D, _D, _P),
     "blob_forces_f64": (_P, _P, _I, _D, _D, _D, _P),
     "dense_tt_f32": (_P, _P, _I, _D, _D, _I, _P),

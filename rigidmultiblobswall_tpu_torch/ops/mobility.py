@@ -72,14 +72,16 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
                           periodic_length=(0.0, 0.0, 0.0),
                           self_interaction=True):
     """Stacked products u_b = M v_b, vec (B, Ns, 3) -> (B, Nt, 3), sharing
-    one pair sweep across the B right-hand sides."""
+    one pair sweep across the B right-hand sides. r_tgt None: the square
+    product, targets = sources (K1 tt then takes its symmetric sweep)."""
     _check_supported(coupling, domain, periodic_length)
     n_rhs, n_src = vec.shape[0], r_src.shape[0]
-    n_tgt = r_tgt.shape[0]
+    n_tgt = n_src if r_tgt is None else r_tgt.shape[0]
     dtype = torch.promote_types(r_src.dtype, vec.dtype)
     wall = domain == "single_wall"
     q_src, damp_s = _normalized(r_src, a, wall, dtype)
-    q_tgt, damp_t = _normalized(r_tgt, a, wall, dtype)
+    q_tgt, damp_t = ((None, damp_s) if r_tgt is None
+                     else _normalized(r_tgt, a, wall, dtype))
     v = vec.reshape(n_rhs, n_src, 3).to(dtype)
     if wall:
         v = v * damp_s[None, :, None]
@@ -98,8 +100,8 @@ def pairwise_matvec(r_src, r_tgt, vec, eta, a, *, coupling="tt",
                     self_interaction=True):
     """u_i = sum_j M^{coupling}_ij v_j over all (target, source) pairs.
 
-    r_src (Ns,3), r_tgt (Nt,3), vec (Ns,3) -> (Nt,3). self_interaction
-    must be True when r_src is r_tgt (square product)."""
+    r_src (Ns,3), r_tgt (Nt,3) or None for the square product (targets =
+    sources), vec (Ns,3) -> (Nt,3)."""
     v = vec.reshape(1, r_src.shape[0], 3)
     return pairwise_matvec_multi(
         r_src, r_tgt, v, eta, a, coupling=coupling, domain=domain,
@@ -109,7 +111,7 @@ def pairwise_matvec(r_src, r_tgt, vec, eta, a, *, coupling="tt",
 
 def _square_product(coupling):
     def product(r_vectors, vec, eta, a, **kw):
-        return pairwise_matvec(r_vectors, r_vectors, vec, eta, a,
+        return pairwise_matvec(r_vectors, None, vec, eta, a,
                                coupling=coupling, self_interaction=True, **kw)
 
     return product
@@ -149,7 +151,7 @@ def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
         F = F * damp[:, None]
         T = T * damp[:, None]
     vin = torch.cat([F, T * (1.0 / a)], dim=1).contiguous()
-    out = pair_kernels.pair_matvec(q, q, vin, coupling="grand", wall=wall,
+    out = pair_kernels.pair_matvec(q, None, vin, coupling="grand", wall=wall,
                                    self_interaction=True)
     pref = 1.0 / (8.0 * math.pi * eta * a)
     u = out[:, :3] * pref

@@ -12,7 +12,13 @@ as b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
 - on a CUDA tensor it launches the hand-written kernel of the coupling
   (`csrc/pair_tt.cu`, `csrc/pair_couplings.cu`, both on
   `csrc/pair_blocks.cuh`; float32 or float64) and counts the launch in
-  `LAUNCHES[coupling]`;
+  `LAUNCHES[coupling, B]`. A square tt or grand product (q_tgt None:
+  the targets are the sources) takes the symmetric sweep, which condenses
+  each unordered pair once over `plan_groups`' groups of tiles; every
+  other product takes the sliced sweep, which splits the sources into S
+  slices of whole 128-source tiles (`plan_slices`, so that the card
+  fills). Both write partial sums into a workspace that the wrapper
+  allocates, and a second kernel adds them in a fixed order;
 - on a CPU tensor it runs `pair_plain`, the row-tiled sum of the blocks
   of ops/rpy.py (the JAX package's generic tiled path,
   mobility.py:228-284, without periodic images). Tests and the chip
@@ -21,6 +27,10 @@ as b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from . import _build, rpy
@@ -28,13 +38,110 @@ from . import _build, rpy
 # components per right-hand side
 NCOMP = {"tt": 3, "tr": 3, "rt": 3, "rr": 3, "grand": 6}
 
-# number of K1 launches per coupling made by `pair_matvec` in this process
-LAUNCHES = dict.fromkeys(NCOMP, 0)
-
 # right-hand sides per launch (the kernels' template set): B = 1 for the
 # single products, B = 2 for the lockstep solves (tt: det+RFD of
 # Slip-Trapz; rr and tr: the rollers' det+stochastic torque solve)
 MAX_RHS = {"tt": 2, "tr": 2, "rt": 1, "rr": 2, "grand": 1}
+
+# K1 launches made by `pair_matvec` in this process, by (coupling, B)
+LAUNCHES = {(c, b): 0 for c in NCOMP for b in range(1, MAX_RHS[c] + 1)}
+
+
+def launches(coupling):
+    """K1 launches of `coupling` in this process, every B."""
+    return sum(n for (c, _), n in LAUNCHES.items() if c == coupling)
+
+
+# sources a tile of the sweep (csrc/pair_blocks.cuh kTile); a slice is a
+# run of whole tiles
+TILE = 128
+# the slice workspace (S, Nt, nc B) stays within this many bytes
+WORKSPACE_LIMIT_BYTES = 1 << 26
+# waves of blocks the plans aim for: more, smaller blocks balance the SMs
+# better (tools/torch_profile_k1.py on the H100: tt at 49,152 blobs 11.9
+# ms in one slice, 10.6 ms at ~1.5 waves, 9.9 ms at 8 and more)
+PLAN_WAVES = 8
+# the couplings whose mobility is symmetric (M_ji = M_ij^T): their square
+# products take the symmetric sweep
+SYMMETRIC = ("tt", "grand")
+# resident blocks an SM that the float32 sweeps ask for
+# (csrc/pair_blocks.cuh Shape)
+MIN_BLOCKS_F32 = 8
+
+
+@functools.lru_cache(maxsize=512)
+def plan_groups(n, n_sm):
+    """Tile groups of the symmetric sweep over n blobs: (G,
+    tiles_per_group), group g covering tiles [g t, min(n_tiles, (g + 1) t))
+    for t = tiles_per_group, every group non-empty.
+
+    The grid is the G (G + 1) / 2 group pairs of the upper triangle. The
+    plan takes the fewest tiles a group that keep G at most the g whose
+    g (g + 1) / 2 pairs make PLAN_WAVES waves of MIN_BLOCKS_F32 blocks on
+    n_sm SMs (130 on 132 SMs), one tile a group when there are fewer tiles.
+    The workspace holds G slices of n rows, so it grows like n."""
+    tiles = max(-(-n // TILE), 1)
+    want = PLAN_WAVES * n_sm * MIN_BLOCKS_F32
+    g = math.isqrt(2 * want)
+    while g * (g + 1) // 2 < want:
+        g += 1
+    per = -(-tiles // min(g, tiles))
+    return -(-tiles // per), per
+
+
+@functools.lru_cache(maxsize=512)
+def plan_slices(n_tgt, n_src, n_sm, blocks_per_sm, row_bytes=0,
+                limit=WORKSPACE_LIMIT_BYTES):
+    """Source slices of the K1 sweep: (S, tiles_per_slice), slice s
+    covering sources [s t 128, min(n_src, (s + 1) t 128)) for
+    t = tiles_per_slice, every slice non-empty.
+
+    The grid is ceil(n_tgt / 128) x S blocks, of which the card
+    holds n_sm x blocks_per_sm at a time. The plan takes the fewest slices
+    of whole tiles that give PLAN_WAVES such waves, at most one tile a
+    slice and at most what keeps the workspace, S n_tgt row_bytes, within
+    `limit`: S = 1 when the target blocks alone fill the waves."""
+    t_blocks = -(-n_tgt // TILE)
+    s_tiles = max(-(-n_src // TILE), 1)
+    want = -(-PLAN_WAVES * n_sm * blocks_per_sm // t_blocks)
+    if row_bytes:
+        want = min(want, limit // (n_tgt * row_bytes))
+    tiles = -(-s_tiles // max(min(want, s_tiles), 1))
+    return -(-s_tiles // tiles), tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(coupling, f64, n_rhs, wall):
+    """Resident blocks an SM holds of a compiled K1 instance, from the
+    CUDA occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    name = f"pair_{coupling}_shape"
+    _build.check(name, getattr(_build.library(), name)(
+        int(f64), n_rhs, int(bool(wall)), ctypes.byref(blocks)))
+    if blocks.value < 1:
+        raise RuntimeError(f"{name}: the instance does not fit an SM")
+    return blocks.value
+
+
+def _n_sm(t):
+    index = t.device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def launch_plan(coupling, q_src, q_tgt, vec, *, wall):
+    """(S, tiles_per_slice) of the sliced sweep `pair_matvec` launches on
+    these CUDA tensors."""
+    n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
+    n_rhs = vec.shape[1] // NCOMP[coupling]
+    blocks = _resident_blocks(coupling, vec.dtype == torch.float64, n_rhs,
+                              wall)
+    return plan_slices(n_tgt, n_src, _n_sm(vec), blocks,
+                       vec.shape[1] * vec.element_size())
 
 
 def _default_row_tile(n_src, n_tgt, itemsize, ncomp=3, budget_bytes=1 << 26):
@@ -103,10 +210,16 @@ def pair_plain(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
 
 def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
     """K1 wrapper: the CUDA kernel of `coupling` for CUDA tensors,
-    `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt (Nt,3), vec (Ns,nc B)
-    -> (Nt,nc B)."""
+    `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt (Nt,3) or None for
+    the square product (the targets are the sources), vec (Ns,nc B) ->
+    (Nt,nc B). On the card a square tt or grand product takes the
+    symmetric sweep over `plan_groups`' groups, every other product the
+    sliced sweep over `launch_plan`'s slices."""
     if coupling not in NCOMP:
         raise ValueError(f"unknown coupling {coupling!r}")
+    square = q_tgt is None
+    if square:
+        q_tgt = q_src
     if q_src.device.type == "cpu":
         return pair_plain(q_src, q_tgt, vec, coupling=coupling, wall=wall,
                           self_interaction=self_interaction)
@@ -118,14 +231,28 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
                       device=vec.device)
     if n_tgt == 0 or n_src == 0:
         return out.zero_()
-    name = f"pair_{coupling}_{'f32' if vec.dtype == torch.float32 else 'f64'}"
-    fn = getattr(_build.library(), name)
-    err = fn(q_src.data_ptr(), q_tgt.data_ptr(), vec.data_ptr(),
-             out.data_ptr(), n_src, n_tgt, n_rhs, int(bool(wall)),
-             int(bool(self_interaction)),
-             torch.cuda.current_stream(vec.device).cuda_stream)
+    suffix = "f32" if vec.dtype == torch.float32 else "f64"
+    stream = torch.cuda.current_stream(vec.device).cuda_stream
+    if square and coupling in SYMMETRIC:
+        name = f"pair_{coupling}_sym_{suffix}"
+        groups, per = plan_groups(n_src, _n_sm(vec))
+        ws = torch.empty((groups, n_src, nc * n_rhs), dtype=vec.dtype,
+                         device=vec.device)
+        args = (q_src.data_ptr(), vec.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), n_src, n_rhs, groups, per, int(bool(wall)),
+                int(bool(self_interaction)), stream)
+    else:
+        name = f"pair_{coupling}_{suffix}"
+        n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, wall=wall)
+        ws = (torch.empty((n_slices, n_tgt, nc * n_rhs), dtype=vec.dtype,
+                          device=vec.device) if n_slices > 1 else None)
+        args = (q_src.data_ptr(), q_tgt.data_ptr(), vec.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), n_src,
+                n_tgt, n_rhs, n_slices, tiles, int(bool(wall)),
+                int(bool(self_interaction)), stream)
+    err = getattr(_build.library(), name)(*args)
     _build.check(name, err)
-    LAUNCHES[coupling] += 1
+    LAUNCHES[coupling, n_rhs] += 1
     return out
 
 

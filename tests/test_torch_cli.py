@@ -296,3 +296,37 @@ def test_cli_rollers_matches_jax(tmp_path, monkeypatch):
     info_jax = dict(line.split() for line in
                     open(out["jax"] / "run_rollers.info").read().splitlines())
     assert info == info_jax and int(info["deterministic_iterations_count"]) > 0
+
+
+def test_cli_save_velocities_matches_jax(tmp_path, monkeypatch):
+    """save_velocities True: every step's body velocities, stacked as
+    (steps, 6 bodies), in .velocities.dat, as the JAX CLI writes them."""
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                    extra="save_velocities True\n")
+    _same_dat(out, "run.velocities.dat")
+    got = np.loadtxt(out["torch"] / "run.velocities.dat")
+    assert got.shape == (N_STEPS, 6 * 4) and np.abs(got).max() > 0
+
+
+@pytest.mark.parametrize("line, item", [
+    ("random_state run.random_state", "item 11"),
+    ("plot_velocity_field -2 2 5 -2 2 5 1 3 3", "item 18"),
+    ("plot_concentration_field -2 2 5 -2 2 5 1 3 3", "item 18"),
+    ("tracer_radius 0.1", "item 18"),
+    ("call_HydroGrid True", "item 11"),
+])
+def test_cli_refuses_unported_options(tmp_path, monkeypatch, line, item):
+    """Options the JAX CLI acts on and the port does not support yet are
+    refused, naming the ROADMAP item that ports them, not ignored."""
+    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz", extra=line + "\n")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=item):
+        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "run.inputfile")
+
+
+def test_read_input_accepts_hydrogrid_off(tmp_path):
+    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz",
+                       extra="call_HydroGrid False\nsave_velocities False\n")
+    cfg = tinput.read_input(inp)
+    assert cfg.options["call_HydroGrid"] == "False"

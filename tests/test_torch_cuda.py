@@ -48,11 +48,11 @@ def _k1_vs_plain(cuda, coupling, n_rhs, wall, dtype, q_src, q_tgt,
     qs = torch.as_tensor(q_src, dtype=dtype, device=cuda)
     qt = torch.as_tensor(q_tgt, dtype=dtype, device=cuda)
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
-    before = pk.LAUNCHES[coupling]
+    before = pk.launches(coupling)
     got = pk.pair_matvec(qs, qt, vt, coupling=coupling, wall=wall,
                          self_interaction=self_interaction)
     torch.cuda.synchronize()
-    assert pk.LAUNCHES[coupling] == before + 1
+    assert pk.launches(coupling) == before + 1
     ref = pk.pair_plain(qs.double(), qt.double(), vt.double(),
                         coupling=coupling, wall=wall,
                         self_interaction=self_interaction)
@@ -103,6 +103,147 @@ def test_k1_couplings_ragged_source_target(cuda, coupling, n_rhs):
     _, q = _scene(301, seed=3)
     assert _k1_vs_plain(cuda, coupling, n_rhs, True, torch.float64, q,
                         q[:77], False) <= 1e-12
+
+
+def _k1_rel(cuda, coupling, n_rhs, dtype, q_src, q_tgt, square, sub=None,
+            self_interaction=True, wall=True, seed=1):
+    """K1 (square: the call with q_tgt None) against its plain version in
+    float64 on the first `sub` target rows."""
+    nc = pk.NCOMP[coupling]
+    v = np.random.default_rng(seed).normal(size=(q_src.shape[0], nc * n_rhs))
+    qs = torch.as_tensor(q_src, dtype=dtype, device=cuda)
+    qt = torch.as_tensor(q_tgt, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling=coupling, wall=wall, self_interaction=self_interaction)
+    got = pk.pair_matvec(qs, None if square else qt, vt, **kw)
+    torch.cuda.synchronize()
+    sub = qt.shape[0] if sub is None else sub
+    ref = pk.pair_plain(qs.double(), qt[:sub].double(), vt.double(), **kw)
+    return ((got[:sub].double() - ref).abs().max().item()
+            / ref.abs().max().item())
+
+
+def _plan(cuda, coupling, n_rhs, dtype, n_src, n_tgt):
+    q = torch.ones((n_src, 3), dtype=dtype, device=cuda)
+    v = torch.ones((n_src, pk.NCOMP[coupling] * n_rhs), dtype=dtype,
+                   device=cuda)
+    return pk.launch_plan(coupling, q, q[:n_tgt], v, wall=True)
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("n, n_slices", [(77, 1), (384, 3), (1000, 8)])
+@pytest.mark.parametrize("coupling, n_rhs", INSTANCES)
+def test_k1_instances_across_slices(cuda, coupling, n_rhs, n, n_slices,
+                                    square, dtype, bound):
+    """Every K1 instance with N below one tile, on slice edges (384
+    sources in three one-tile slices) and off them (1000 in eight, 104 in
+    the last), self_interaction across slices, blobs below a (heights
+    exactly a after the shift) and a coincident pair; the square call
+    (tt and grand: the symmetric sweep) and the call with two tensors
+    (the sliced sweep)."""
+    _, q = _scene(n, seed=9)
+    q[5] = q[4]
+    assert _plan(cuda, coupling, n_rhs, dtype, n, n)[0] == n_slices
+    assert _k1_rel(cuda, coupling, n_rhs, dtype, q, q, square) <= bound
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("coupling, n_rhs", INSTANCES)
+def test_k1_slices_of_several_tiles(cuda, coupling, n_rhs, dtype, bound):
+    """17,000 blobs, the sliced sweep: slices of several tiles, the last
+    ragged, self pairs across slices."""
+    _, q = _scene(17000, seed=6, a=0.05)
+    n_slices, tiles = _plan(cuda, coupling, n_rhs, dtype, 17000, 17000)
+    assert n_slices > 1 and tiles > 1
+    assert _k1_rel(cuda, coupling, n_rhs, dtype, q, q, False,
+                   sub=256) <= bound
+
+
+@pytest.mark.parametrize("coupling, n_rhs", INSTANCES)
+def test_k1_ragged_across_slices(cuda, coupling, n_rhs):
+    """Nt != Ns, neither a multiple of the tile, sources in three
+    slices."""
+    _, q = _scene(301, seed=3)
+    assert _plan(cuda, coupling, n_rhs, torch.float64, 301, 77)[0] == 3
+    assert _k1_rel(cuda, coupling, n_rhs, torch.float64, q, q[:77],
+                   False) <= 1e-12
+
+
+@pytest.mark.parametrize("coupling", ["tt", "grand"])
+def test_k1_bit_identical_on_repeat(cuda, coupling):
+    """17,000 blobs, square: the symmetric sweep (groups of two tiles)
+    and the sliced sweep sum their slices in a fixed order, so two
+    launches of each agree bit for bit; the two sweeps agree within the
+    f32 bound."""
+    _, q = _scene(17000, seed=5, a=0.05)
+    qt = torch.as_tensor(q, dtype=torch.float32, device=cuda)
+    vt = torch.randn((17000, pk.NCOMP[coupling]), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    kw = dict(coupling=coupling, wall=True, self_interaction=True)
+    a = pk.pair_matvec(qt, None, vt, **kw)
+    b = pk.pair_matvec(qt, None, vt, **kw)
+    sliced = pk.pair_matvec(qt, qt, vt, **kw)
+    again = pk.pair_matvec(qt, qt, vt, **kw)
+    assert torch.equal(a, b) and torch.equal(sliced, again)
+    assert (a - sliced).abs().max().item() <= (
+        3e-6 * sliced.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("self_interaction", [True, False])
+@pytest.mark.parametrize("wall", [True, False])
+@pytest.mark.parametrize("n", [77, 128, 300, 1000, 17000])
+@pytest.mark.parametrize("coupling, n_rhs", [("tt", 1), ("tt", 2),
+                                             ("grand", 1)])
+def test_k1_symmetric_sweep(cuda, coupling, n_rhs, n, wall, self_interaction,
+                            dtype, bound):
+    """The square tt and grand products (q_tgt None) on the symmetric
+    sweep: N below a tile, on a tile edge and off it, and 17,000 blobs in
+    groups of two tiles (the last group one tile, ragged); blobs below
+    a, a coincident pair in the same tile and one across tiles; with and
+    without self pairs; against the plain version on the first 512
+    targets, and against the sliced sweep on all."""
+    r, q = _scene(n, seed=11, a=0.3 if n < 10000 else 0.05)
+    q = q if wall else r / 0.3
+    q[5] = q[4]
+    q[n - 1] = q[3]
+    if n == 17000:
+        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert pk.plan_groups(n, n_sm)[1] > 1
+    qt = torch.as_tensor(q, dtype=dtype, device=cuda)
+    v = np.random.default_rng(2).normal(size=(n, pk.NCOMP[coupling] * n_rhs))
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling=coupling, wall=wall, self_interaction=self_interaction)
+    before = pk.LAUNCHES[coupling, n_rhs]
+    got = pk.pair_matvec(qt, None, vt, **kw)
+    sliced = pk.pair_matvec(qt, qt, vt, **kw)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES[coupling, n_rhs] == before + 2
+    sub = min(n, 512)
+    ref = pk.pair_plain(qt.double(), qt[:sub].double(), vt.double(), **kw)
+    scale = ref.abs().max().item()
+    assert (got[:sub].double() - ref).abs().max().item() <= bound * scale
+    scale = sliced.double().abs().max().item()
+    assert (got.double() - sliced.double()).abs().max().item() <= (
+        bound * scale)
+
+
+def test_k1_never_takes_the_plain_path(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("pair_plain called for a CUDA tensor")
+
+    monkeypatch.setattr(pk, "pair_plain", refuse)
+    q = torch.rand((300, 3), device=cuda) * 10 + 1
+    for coupling, n_rhs in INSTANCES:
+        v = torch.rand((300, pk.NCOMP[coupling] * n_rhs), device=cuda)
+        for q_tgt in (q, None):
+            pk.pair_matvec(q, q_tgt, v, coupling=coupling, wall=True,
+                           self_interaction=True)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),

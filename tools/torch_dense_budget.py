@@ -52,7 +52,7 @@ def main(argv):
         k3 = cs.cuda_ms(lambda: mc.dense_tt(r, system.eta, system.blob_radius,
                                             wall=True), 3, warmup=False)
         k4 = cs.cuda_ms(lambda: mc.symm_matvec(m, v), 10)
-        k1 = cs.cuda_ms(lambda: pk.pair_matvec(q, q, v, coupling="tt",
+        k1 = cs.cuda_ms(lambda: pk.pair_matvec(q, None, v, coupling="tt",
                                                wall=True,
                                                self_interaction=True), 10)
         del m
