@@ -44,7 +44,10 @@ is non-zero and no result line is printed):
      box, the spectral Ewald engine with linked-cell forces, float32,
      capacities sized at the start as bench.py sizes them; first K5 and
      K6 at its shapes against their plain versions (the first 256 target
-     cells, float64), then one warm-up step and three timed steps with
+     cells, float64) and twice bit-identical, K5's bound the larger of its
+     float32 operations and its special functions (an rsqrt and an exp2
+     a candidate pair at 16 a clock an SM), then one warm-up step and
+     three timed steps with
      the launch counts of K1, K2, K5 and K6 (B = 1 / 2) over the run;
      last, the same configuration through the CLI (its ms per step).
   9. the materialized path at full width (multibody-12k-dense): 1024
@@ -62,12 +65,14 @@ is non-zero and no result line is printed):
      K7 (B = 1 and 2, twice bit-identical, float32 and float64; its
      bound on the pairs inside r_cut (the record's) and, in the log only,
      the 27-cell algorithm's)
-     and the wall-slab K5 at its shapes against their plain versions (the
-     first 256 cells, float64), then one warm-up step
+     and the wall-slab K5 (its own record, bound and launches) at its
+     shapes against their plain versions (the first 256 cells, float64),
+     each twice bit-identical, then one warm-up step
      and three timed steps with the launch counts, drops and clipped
      blobs (which must be 0).
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
-K7 and the wall-slab K5 on a random ~3000-blob wall slab,
+K7 and the wall-slab K5 on a random ~3000-blob wall slab (K5, K6 and K7
+twice bit-identical),
 and K3 and K4 (float32 and float64, N below one tile and N off the tile
 edges; K4 bit-identical on repeat and blind to NaN in its strictly-lower
 tiles) at small N and at the 12,288 blobs of phase 9; phase 4 the
@@ -79,7 +84,8 @@ and resistance modes on a generated 64-shell input (card float64 against
 CPU float64).
 The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
-and the operations at 67 TFLOP/s, the H100's published float32 peak; K2
+and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
+K5 its special functions at 16 a clock an SM, whichever is larger; K2
 and K7 also name their design);
 the last line is {"ok": true, "device": {...}}.
 """
@@ -117,6 +123,10 @@ L_WALL = WALL_SIDE * 1.6
 # the H100 SXM's published peaks (NVIDIA data sheet; 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the special-function unit (MUFU: rsqrt, exp2): 16 results a clock an SM
+# (the CUDA programming guide's throughput table, compute capability 9.0)
+# on 132 SMs at the H100 SXM's 1.98 GHz boost clock
+PEAK_SFU_PER_S = 16 * 132 * 1.98e9
 # float32 operations per pair, counted from the kernels' sources (an FMA
 # as 2, a rsqrt or exp as 1): K1 condenses a block in ~70 and applies it
 # in ~10 per right-hand side (grand: four blocks from one geometry); K2
@@ -135,6 +145,10 @@ FORCE_PAIR_FLOPS = 22
 # of which applying the magnitude to one blob (three FMAs): K2's symmetric
 # sweep forms each unordered pair's magnitude once and applies it to both
 FORCE_APPLY_FLOPS = 6
+# special functions of a K2 or K5 pair's magnitude: one rsqrt and one exp2
+# (both sums are antisymmetric, so the function needs one magnitude an
+# unordered pair)
+FORCE_PAIR_MUFU = 2
 # K7, for each pair inside r_cut, K6's count with the mirror (1 per
 # right-hand side); a pair with an image source adds the image series'
 # domain map (~12), ten Ki-term Clenshaw series (3 each a term) and, per
@@ -272,16 +286,38 @@ def check(cond, what):
         raise AssertionError(f"chip_smoke: {what}")
 
 
-def bound_record(nbytes, flops):
-    """The least time the card could take, the larger of nbytes moved at
-    the memory rate and flops at the float32 peak, as the kernel record's
-    bound_ms / bound_by. No single PyTorch call computes these pair sums
-    (PERF.md), so library_ms is None."""
+def bound_record(nbytes, flops, mufu=0):
+    """The least time the card could take, the largest of nbytes moved at
+    the memory rate, flops at the float32 peak and mufu special functions
+    at the special-function unit's rate, as the kernel record's bound_ms /
+    bound_by (operations for either of the last two). No single PyTorch
+    call computes these pair sums (PERF.md), so library_ms is None."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS, mufu / PEAK_SFU_PER_S) * 1e3
     ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
               else (t_ops, "operations"))
     return dict(bound_ms=ms, bound_by=by, library_ms=None)
+
+
+def k5_bound(n, table, cand, nonself):
+    """K5's bound record at this layout (positions in, forces out, the
+    table) and its log text. The sum is antisymmetric, so the function
+    needs one magnitude a pair of distinct blobs of the stencil (nonself /
+    2 of the nonself directed pairs), applied to both; the log adds the
+    float32 and special-function times and the bound of the cand directed
+    candidate pairs that the full-stencil sweep evaluates."""
+    nbytes = 4 * n * 6 + table.numel() * 4
+    pairs = nonself // 2
+    rec = bound_record(nbytes, pairs * (FORCE_PAIR_FLOPS + FORCE_APPLY_FLOPS),
+                       pairs * FORCE_PAIR_MUFU)
+    directed = bound_record(nbytes, cand * FORCE_PAIR_FLOPS,
+                            cand * FORCE_PAIR_MUFU)
+    f32_ms = pairs * (FORCE_PAIR_FLOPS + FORCE_APPLY_FLOPS) / PEAK_F32_FLOPS
+    sfu_ms = pairs * FORCE_PAIR_MUFU / PEAK_SFU_PER_S
+    return rec, (f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                 f"{pairs} unordered pairs: float32 {f32_ms * 1e3:.4f} ms, "
+                 f"special functions {sfu_ms * 1e3:.4f} ms; directed "
+                 f"candidate pairs {directed['bound_ms']:.4f} ms)")
 
 
 def k1_vs_plain(pk, coupling, qt, vt, wall):
@@ -451,9 +487,12 @@ def phase_kernels(pk, mc, mob, kin, make_state):
     # applied to both blobs; the directed pairs' bound beside it
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     groups, per = pk.plan_groups(nb, n_sm)
-    rec = bound_record(4 * 3 * nb * 2, nb * (nb - 1) // 2
-                       * (FORCE_PAIR_FLOPS + FORCE_APPLY_FLOPS))
-    directed = bound_record(4 * 3 * nb * 2, nb * nb * FORCE_PAIR_FLOPS)
+    pairs = nb * (nb - 1) // 2
+    rec = bound_record(4 * 3 * nb * 2,
+                       pairs * (FORCE_PAIR_FLOPS + FORCE_APPLY_FLOPS),
+                       pairs * FORCE_PAIR_MUFU)
+    directed = bound_record(4 * 3 * nb * 2, nb * nb * FORCE_PAIR_FLOPS,
+                            nb * nb * FORCE_PAIR_MUFU)
     log(f"K2 {nb} blobs f32, the symmetric sweep ({groups} groups of {per} "
         f"tiles), vs plain f64: max err {err:.3e}, / max|ref| = {rel:.3e} "
         f"(bound {bound_main:.2e}); repeat bit-identical {same}; kernel "
@@ -756,24 +795,32 @@ def u32_sqrt(n_terms):
     return float(np.finfo(np.float32).eps / 2 * np.sqrt(n_terms))
 
 
-def k5_vs_plain(ck, pos, table, dims, box, cap, kw, cells_range=None):
+def k5_vs_plain(ck, pos, table, dims, box, cap, kw, cells_range=None,
+                guard_z=False):
     """K5 against its plain version in float64 (on cells_range, or every
-    cell); returns (max abs error, max|ref|)."""
-    got = ck.nl_forces(pos, table, dims, box, cap, **kw)
+    cell), and a second launch against the first; returns (max abs error,
+    max|ref|, bit-identical on repeat)."""
+    got = ck.nl_forces(pos, table, dims, box, cap, guard_z=guard_z, **kw)
+    same = torch.equal(got, ck.nl_forces(pos, table, dims, box, cap,
+                                         guard_z=guard_z, **kw))
     torch.cuda.synchronize()
     ref = ck.nl_forces_plain(pos.double(), table, dims, box, cap,
                              cells_range=cells_range, **kw)
     rows = _rows_of(table, pos.shape[0], cap, cells_range)
     err = (got.double()[rows] - ref[rows]).abs().max().item()
-    return err, ref[rows].abs().max().item()
+    return err, ref[rows].abs().max().item(), same
 
 
 def k6_vs_plain(ck, plan, f, cells_range=None):
-    """K6 against its plain version in float64 on the plan's cells."""
+    """K6 against its plain version in float64 on the plan's cells, and a
+    second launch against the first; returns (max abs error, max|ref|,
+    bit-identical on repeat)."""
     p = plan.params
     args = (plan.cell_table, plan.cell_dims, p.box, p.cell_capacity)
     kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
     got = ck.near_rpy(plan.positions, f, *args, plan.cheb, **kw)
+    same = torch.equal(got, ck.near_rpy(plan.positions, f, *args, plan.cheb,
+                                        **kw))
     torch.cuda.synchronize()
     ref = ck.near_rpy_plain(plan.positions.double(), f.double(), *args,
                             plan.cheb.double(), cells_range=cells_range,
@@ -781,7 +828,7 @@ def k6_vs_plain(ck, plan, f, cells_range=None):
     rows = _rows_of(plan.cell_table, f.shape[0], p.cell_capacity,
                     cells_range)
     err = (got.double()[rows] - ref[rows]).abs().max().item()
-    return err, ref[rows].abs().max().item()
+    return err, ref[rows].abs().max().item(), same
 
 
 def _rows_of(table, n, cap, cells_range):
@@ -905,14 +952,18 @@ def phase_wall_kernels(ck):
             fcap, z_hi)
         check(int(dropped) == 0, "wall-slab K5 scene overflows")
         got = ck.nl_forces(pos, table, dims, box, fcap, guard_z=True, **kw5)
+        same = torch.equal(got, ck.nl_forces(pos, table, dims, box, fcap,
+                                             guard_z=True, **kw5))
         torch.cuda.synchronize()
         ref = ck.nl_forces_plain(pos.double(), table, dims, box, fcap, **kw5)
         err, scale = (got.double() - ref).abs().max().item(), \
             ref.abs().max().item()
         log(f"K5 wall slab {n} blobs cells {dims} cap {fcap} {dtype}: max "
-            f"err / max|ref| = {err / scale:.3e} (bound {bound_rel:g})")
+            f"err / max|ref| = {err / scale:.3e} (bound {bound_rel:g}); "
+            f"repeat bit-identical {same}")
         check(err <= bound_rel * scale, f"wall-slab K5 disagrees "
               f"({err / scale})")
+        check(same, "wall-slab K5 not bit-identical on repeat")
 
 
 def phase_cell_kernels(ck, cells, ewald):
@@ -939,7 +990,7 @@ def phase_cell_kernels(ck, cells, ewald):
         for n_rhs in (1, 2):
             f = torch.as_tensor(f6[:, :3 * n_rhs], dtype=dtype,
                                 device=dev).contiguous()
-            err, scale = k6_vs_plain(ck, plan, f)
+            err, scale, same = k6_vs_plain(ck, plan, f)
             times = ""
             if dtype == torch.float32:
                 ms = cuda_ms(lambda: ewald.real_matvec(plan, f), 10)
@@ -949,11 +1000,12 @@ def phase_cell_kernels(ck, cells, ewald):
                 times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
             log(f"K6 {n} blobs cells {plan.cell_dims} cap {cap} B={n_rhs} "
                 f"{dtype}: max err / max|ref| = {err / scale:.3e} (bound "
-                f"{bound_rel:g})" + times)
+                f"{bound_rel:g}); repeat bit-identical {same}" + times)
             check(err <= bound_rel * scale, f"K6 disagrees ({err / scale})")
+            check(same, f"K6 B={n_rhs} not bit-identical on repeat")
         table, _, _, dropped = cells.cell_bin(pos, box, dims5, cap)
         check(int(dropped) == 0, "K5 scene overflows")
-        err, scale = k5_vs_plain(ck, pos, table, dims5, box, cap, kw5)
+        err, scale, same = k5_vs_plain(ck, pos, table, dims5, box, cap, kw5)
         times = ""
         if dtype == torch.float32:
             ms = cuda_ms(lambda: ck.nl_forces(pos, table, dims5, box, cap,
@@ -962,8 +1014,10 @@ def phase_cell_kernels(ck, cells, ewald):
                 pos, table, dims5, box, cap, **kw5), 3)
             times = f"; kernel {ms:.3f} ms, plain {plain_ms:.2f} ms"
         log(f"K5 {n} blobs cells {dims5} cap {cap} {dtype}: max err / "
-            f"max|ref| = {err / scale:.3e} (bound {bound_rel:g})" + times)
+            f"max|ref| = {err / scale:.3e} (bound {bound_rel:g}); repeat "
+            f"bit-identical {same}" + times)
         check(err <= bound_rel * scale, f"K5 disagrees ({err / scale})")
+        check(same, "K5 not bit-identical on repeat")
 
 
 def spectral_lattice(n_bodies, side, seed=0):
@@ -1149,7 +1203,7 @@ def phase_spectral_path(pk, mc, ck):
     bound_rel = u32_sqrt(27 * cap)
     for n_rhs in (1, 2):
         f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
-        err, scale = k6_vs_plain(ck, plan, f, cells_range=sub)
+        err, scale, same = k6_vs_plain(ck, plan, f, cells_range=sub)
         ms = cuda_ms(lambda: ck.near_rpy(
             plan.positions, f, plan.cell_table, plan.cell_dims, p.box, cap,
             plan.cheb, two_a=2 * p.a, r_cut=p.r_cut), 10)
@@ -1163,12 +1217,15 @@ def phase_spectral_path(pk, mc, ck):
         algo = bound_record(nbytes, algo_flops)
         log(f"K6 {n} blobs B={n_rhs} f32, first {sub[1]} target cells vs "
             f"plain f64: max err {err:.3e}, / max|ref| = {err / scale:.3e} "
-            f"(bound u32*sqrt(27 cap) = {bound_rel:.2e}); kernel {ms:.3f} "
+            f"(bound u32*sqrt(27 cap) = {bound_rel:.2e}); repeat "
+            f"bit-identical {same}; kernel {ms:.3f} "
             f"ms, plain f32 {plain_ms:.1f} ms; {cand} candidate pairs, "
             f"{inside} inside r_cut; bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}; the 27-cell algorithm's "
             f"{algo['bound_ms']:.4f} ms)")
         check(err <= bound_rel * scale, f"K6 disagrees at {n} blobs")
+        check(same, f"K6 B={n_rhs} not bit-identical on repeat at {n} "
+              "blobs")
         if n_rhs == 1:
             records["K6"] = rec
 
@@ -1182,23 +1239,22 @@ def phase_spectral_path(pk, mc, ck):
     table, _, _, dropped = cells.cell_bin(fpos, box, dims, fcap)
     check(int(dropped) == 0, "force cells overflow")
     kw5 = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * A_BENCH)
-    err, scale = k5_vs_plain(ck, fpos, table, dims, L, fcap, kw5,
-                             cells_range=sub)
+    err, scale, same = k5_vs_plain(ck, fpos, table, dims, L, fcap, kw5,
+                                   cells_range=sub)
     bound5 = u32_sqrt(27 * fcap)
     ms = cuda_ms(lambda: ck.nl_forces(fpos, table, dims, L, fcap, **kw5), 10)
     plain_ms = cuda_ms(lambda: ck.nl_forces_plain(fpos, table, dims, L, fcap,
                                                   **kw5), 1, warmup=False)
-    cand, _ = ck.pair_counts(fpos, table, dims, L, fcap)
-    records["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         **bound_record(4 * n * 6 + table.numel() * 4,
-                                        cand * FORCE_PAIR_FLOPS))
+    cand, nonself = ck.pair_counts(fpos, table, dims, L, fcap)
+    rec5, bound_text = k5_bound(n, table, cand, nonself)
+    records["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **rec5)
     log(f"K5 {n} blobs f32 cells {dims} x cap {fcap}, first {sub[1]} target "
         f"cells vs plain f64: max err {err:.3e}, / max|ref| = "
-        f"{err / scale:.3e} (bound u32*sqrt(27 cap) = {bound5:.2e}); "
-        f"kernel {ms:.3f} ms, plain "
-        f"f32 {plain_ms:.1f} ms; {cand} candidate pairs; bound "
-        f"{records['K5']['bound_ms']:.4f} ms ({records['K5']['bound_by']})")
+        f"{err / scale:.3e} (bound u32*sqrt(27 cap) = {bound5:.2e}); repeat "
+        f"bit-identical {same}; kernel {ms:.3f} ms, plain "
+        f"f32 {plain_ms:.1f} ms; {cand} candidate pairs; {bound_text}")
     check(err <= bound5 * scale, f"K5 disagrees at {n} blobs")
+    check(same, f"K5 not bit-identical on repeat at {n} blobs")
     del plan
 
     # the path: one warm-up step and three timed steps; the noise is drawn
@@ -1443,21 +1499,23 @@ def phase_wall_path(pk, mc, ck):
         forces.force_z_extent(system))
     check(int(dropped) == 0, "wall-slab force cells overflow")
     kw5 = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * A_BENCH)
-    got = ck.nl_forces(fpos, table, dims, box, fcap, guard_z=True, **kw5)
-    torch.cuda.synchronize()
-    ref = ck.nl_forces_plain(fpos.double(), table, dims, box, fcap,
-                             cells_range=sub, **kw5)
-    rows = _rows_of(table, n, fcap, sub)
-    err = (got.double()[rows] - ref[rows]).abs().max().item()
-    scale = ref[rows].abs().max().item()
+    err, scale, same = k5_vs_plain(ck, fpos, table, dims, box, fcap, kw5,
+                                   cells_range=sub, guard_z=True)
     bound5 = u32_sqrt(27 * fcap)
     ms5 = cuda_ms(lambda: ck.nl_forces(fpos, table, dims, box, fcap,
                                        guard_z=True, **kw5), 10)
+    plain5 = cuda_ms(lambda: ck.nl_forces_plain(fpos, table, dims, box, fcap,
+                                                **kw5), 1, warmup=False)
+    cand, nonself = ck.pair_counts(fpos, table, dims, box, fcap)
+    rec5, bound_text = k5_bound(n, table, cand, nonself)
+    k5_wall = dict(max_abs_err=err, ms=ms5, plain_ms=plain5, **rec5)
     log(f"K5 wall slab {n} blobs f32 cells {dims} x cap {fcap}, first "
         f"{sub[1]} target cells vs plain f64: max err / max|ref| = "
-        f"{err / scale:.3e} (bound u32*sqrt(27 cap) = {bound5:.2e}); kernel "
-        f"{ms5:.3f} ms")
+        f"{err / scale:.3e} (bound u32*sqrt(27 cap) = {bound5:.2e}); repeat "
+        f"bit-identical {same}; kernel {ms5:.3f} ms, plain f32 "
+        f"{plain5:.1f} ms; {cand} candidate pairs; {bound_text}")
     check(err <= bound5 * scale, f"wall-slab K5 disagrees at {n} blobs")
+    check(same, f"wall-slab K5 not bit-identical on repeat at {n} blobs")
     del plan, fpos, table
 
     # the path: one warm-up step and three timed steps, the noise drawn on
@@ -1520,7 +1578,8 @@ def phase_wall_path(pk, mc, ck):
                              records["K7 B=2"]["max_abs_err"])
     rec["launches"] = launches["K7 B=1"] + launches["K7 B=2"]
     rec["design"] = "compacted walk (redesigned)"
-    return rec
+    k5_wall["launches"] = launches["K5"]
+    return rec, k5_wall
 
 
 def _nan_lower_tiles(m, tile):
@@ -1884,7 +1943,7 @@ def main():
     spectral = phase_spectral_path(pk, mc, ck)              # phase 8
     phase_spectral_cli_full()
     dense_launches = phase_dense_path(pk, mc)               # phase 9
-    k7 = phase_wall_path(pk, mc, ck)                        # phase 10
+    k7, k5_wall = phase_wall_path(pk, mc, ck)               # phase 10
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # tt's two records count the launches of their own instance (B = 1,
@@ -1925,6 +1984,10 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/nl_forces.cu",
         replaces="rigidmultiblobswall_tpu/ops/forces.py:271",
         **spectral["K5"]))
+    kernels.append(dict(
+        name="K5 nl_forces wall slab", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/nl_forces.cu",
+        replaces="rigidmultiblobswall_tpu/ops/forces.py:271", **k5_wall))
     kernels.append(dict(
         name="K6 near_rpy", route="cuda",
         source="rigidmultiblobswall_tpu_torch/csrc/near_rpy.cu",

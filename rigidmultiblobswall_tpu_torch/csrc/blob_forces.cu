@@ -9,13 +9,9 @@
 // What bounds it on the H100: instruction issue and the special-function
 // unit, not bytes (12 bytes a blob in and out against ~20 operations a
 // directed pair, two of them on MUFU, which runs at an eighth of the FP32
-// rate). The law is written branch-free with one MUFU.EX2 of a folded
-// argument,
-//   mag = (eps/b) r^-1 2^min(c 2a - c r, 0),   c = log2(e) / b,
-// which is (eps/b) / r within 2a (2^0 = 1) and the exponential beyond;
-// r^-1 is rsqrt.approx.ftz in float32 (csrc/pair_blocks.cuh). A self pair
-// and coincident blobs have r^2 == 0 and take mag = 0 by a select, so no
-// pair tests an index.
+// rate). The law, shared with K5, is branch-free with one MUFU.EX2 of a folded
+// argument (csrc/force_law.cuh); r^-1 is rsqrt.approx.ftz in float32
+// (csrc/pair_blocks.cuh).
 //
 // Design: the force is antisymmetric (F_ji = -F_ij with one magnitude a
 // pair), so the sweep is K1's symmetric one (csrc/pair_blocks.cuh,
@@ -31,6 +27,7 @@
 // past N sits at far_coord, so far from every blob that its magnitude is
 // 0.
 
+#include "force_law.cuh"
 #include "pair_blocks.cuh"
 
 namespace {
@@ -39,12 +36,7 @@ using pairk::kLanes;
 using pairk::kTile;
 using pairk::kWarps;
 
-__device__ __forceinline__ float exp2_t(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ double exp2_t(double x) { return exp2(x); }
+using forcek::Law;
 
 // a coordinate for the blobs past N: its pairs with any blob have r^2 near
 // 3e36 (finite in float32), r^-1 near 1e-18 and an exponent of -1e18 c, so
@@ -54,20 +46,9 @@ __device__ __forceinline__ T far_coord() {
   return T(1e18);
 }
 
-// eps/b, c = log2(e)/b and c 2a of the folded law
-template <typename T>
-struct Law {
-  T eob, c, c2a;
-};
-
 template <typename T>
 __device__ __forceinline__ T magnitude(const Law<T>& law, T r2) {
-  const T invr = pairk::rsqrt_t(r2);
-  const T r = r2 * invr;
-  // r^2 == 0: r is NaN and fmin returns 0; the select below drops the pair
-  const T e = exp2_t(fmin(law.c2a - law.c * r, T(0)));
-  const T mag = (law.eob * invr) * e;
-  return r2 > T(0) ? mag : T(0);
+  return forcek::magnitude(law, r2, pairk::rsqrt_t(r2));
 }
 
 template <typename T>
@@ -203,7 +184,7 @@ int launch(const T* q, T* out, T* ws, int n, int n_groups,
 // r (n,3), out (n,3), ws (n_groups, n, 3), all contiguous on the device;
 // n > 0, groups of tiles_per_group 128-blob tiles covering n (ops/
 // pair_kernels.py plan_groups); the law's eps / b, c = log2(e) / b and
-// c 2a (ops/mobility_cuda.py force_law). Returns the CUDA error code of
+// c 2a (ops/mobility_cuda.py fold_law). Returns the CUDA error code of
 // the launches (0 on success).
 #define FORCE_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const T* r, T* out, T* ws, int n, int n_groups,        \

@@ -21,22 +21,22 @@
 // name the guard. Either way the z wrap lands only on the empty guard, so
 // no pair is counted twice and no wrap shift enters a pair.
 //
-// Design: one block per target cell. Its live slots are the targets; the
-// sources are the live slots of the 27 neighbor cells, staged through
-// shared memory in tiles of kTile particles (positions, and the
-// per-source vector for K6). Positions enter the pair loop in the block's
-// local frame, relative to the target cell's corner: target - corner and
-// source + shift - corner are formed in double and rounded once, so a
-// float32 displacement carries the rounding of coordinates of a few cell
-// sides, not of the box (at a 33.6 box, absolute float32 coordinates and
-// their shifted images round at up to 4e-6). kLanes threads share a
-// target: each sums every kLanes-th source of a tile into its own partial
-// sums, then the
-// lanes reduce in a fixed shuffle tree, so the result is deterministic
-// and needs no atomics. One thread per target would leave most of a block
-// idle at the ~20-60 targets a cell holds. The row of a target is written
-// once, through its particle id; a particle dropped by overflow is in no
-// cell and its row stays as the wrapper initialized it (zero).
+// The pieces every kernel of the walk takes: one block per target cell
+// (load_stencil); its stencil's sources staged once into shared memory in
+// tiles (stage_sources: the block's warps walk the 27 cells, so no source
+// searches for its cell), and the cell's targets in chunks of kTgt
+// (stage_targets), both in the block's local frame, relative to the target
+// cell's corner: target - corner and source + shift - corner are formed in
+// double and rounded once, so a float32 displacement carries the rounding
+// of coordinates of a few cell sides, not of the box (at a 33.6 box,
+// absolute float32 coordinates and their shifted images round at up to
+// 4e-6). K6 and K7 then filter the candidates a warp-step at a time
+// (candidate), queue the pairs inside r_cut into rings in shared memory
+// (append), and evaluate the RPY remainder of a pair (Remainder) from a
+// two-piece Chebyshev table staged as rows that one 16-byte load reads
+// (stage_cheb).
+// A particle dropped by overflow is in no cell and its row stays as the
+// wrapper initialized it (zero).
 
 #pragma once
 
@@ -44,15 +44,66 @@
 
 namespace cellk {
 
-constexpr int kThreads = 256;                 // threads per block
-constexpr int kLanes = 8;                     // threads per target
-constexpr int kTargets = kThreads / kLanes;   // targets per pass
-constexpr int kTile = kThreads;               // sources staged per tile
+constexpr int kThreads = 256;   // the most threads a block of the walk has
+constexpr int kTgt = 128;       // targets a block stages at a time
+constexpr int kMaxCheb = 32;    // Chebyshev terms per piece of a table
+// shared-memory rows of a remainder table: the (a_k, b_k) pairs of a piece,
+// padded so that a piece starts on 16 bytes and the two pieces' rows of one
+// k fall in different banks
+constexpr int kChebPiece = 2 * kMaxCheb + 4;
 
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ float rsqrt_t(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-__device__ __forceinline__ float exp_t(float x) { return expf(x); }
-__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+
+// sources a kernel's block stages a tile, in float32 and in float64
+template <typename T, int F32, int F64>
+struct Walk {
+  static constexpr int kSrc = sizeof(T) == 4 ? F32 : F64;
+};
+
+// target rows a block stages at a time: a cell holds at most cap
+__host__ __device__ __forceinline__ int target_slots(int cap) {
+  return cap < kTgt ? cap : kTgt;
+}
+
+// resident blocks an SM that a kernel's __launch_bounds__ asks for: f32 in
+// float32, uncapped in float64 (off the hot paths)
+template <typename T>
+constexpr int min_blocks(int f32) {
+  return sizeof(T) == 8 ? 1 : f32;
+}
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// L values from 16-byte shared-memory loads (L a multiple of 16 bytes)
+template <int L>
+__device__ __forceinline__ void load_vec(const float* src, float* dst) {
+#pragma unroll
+  for (int c = 0; c < L; c += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + c);
+    dst[c] = v.x;
+    dst[c + 1] = v.y;
+    dst[c + 2] = v.z;
+    dst[c + 3] = v.w;
+  }
+}
+template <int L>
+__device__ __forceinline__ void load_vec(const double* src, double* dst) {
+#pragma unroll
+  for (int c = 0; c < L; c += 2) {
+    const double2 v = *reinterpret_cast<const double2*>(src + c);
+    dst[c] = v.x;
+    dst[c + 1] = v.y;
+  }
+}
 
 struct Grid {
   int n;            // particles; the table's sentinel id
@@ -70,13 +121,25 @@ struct Stencil {
                         // less the corner
 };
 
-// Fill the stencil of cell c (all threads call; ends in a barrier).
+// Whether cell c holds no particle (its first slot holds the sentinel):
+// a block of such a target cell returns before it loads its stencil.
+__device__ __forceinline__ bool empty_cell(const int* __restrict__ table,
+                                           int c, const Grid& g) {
+  return table[static_cast<size_t>(c) * g.cap] >= g.n;
+}
+
+// Fill the stencil of cell c (all threads call; ends in a barrier). Each
+// stencil cell's count of live slots (a prefix) comes from an 8-ary search
+// by a group of 8 threads: a round loads 8 sample slots in parallel and
+// narrows the interval eightfold, so a cap of 64 takes two dependent
+// rounds of loads where a binary search takes seven.
 __device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
-                             int c, const Grid& g, double Lx, double Ly,
-                             double Lz) {
+                                    int c, const Grid& g, double Lx,
+                                    double Ly, double Lz) {
   __shared__ int count[27];
-  const int k = threadIdx.x;
-  if (k < 27) {
+  const int member = threadIdx.x % 8;
+  const unsigned group = 0xffu << (threadIdx.x % 32 / 8 * 8);
+  for (int k = threadIdx.x / 8; k < 27; k += blockDim.x / 8) {
     const int c3[3] = {c / (g.ny * g.nz), (c / g.nz) % g.ny, c % g.nz};
     const int dims[3] = {g.nx, g.ny, g.nz};
     const int off[3] = {k / 9 - 1, (k / 3) % 3 - 1, k % 3 - 1};
@@ -87,100 +150,208 @@ __device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
       const int wrap = raw < 0 ? -1 : (raw >= dims[a] ? 1 : 0);
       nb[a] = raw - wrap * dims[a];
       const double corner = c3[a] * (box[a] / dims[a]);
-      st.offset[k][a] = wrap * box[a] - corner;
-      if (k == 13) st.corner[a] = corner;
+      if (member == 0) st.offset[k][a] = wrap * box[a] - corner;
+      if (member == 0 && k == 13) st.corner[a] = corner;
     }
     const int cell = (nb[0] * g.ny + nb[1]) * g.nz + nb[2];
-    // the live slots are a prefix: binary search for the first sentinel
+    // slots below lo are live, slots from hi on hold the sentinel; lo and
+    // hi are uniform across the group
     const int* row = table + static_cast<size_t>(cell) * g.cap;
     int lo = 0, hi = g.cap;
     while (lo < hi) {
-      const int mid = (lo + hi) / 2;
-      if (row[mid] < g.n) lo = mid + 1; else hi = mid;
+      const int step = (hi - lo + 7) / 8;
+      const int p = lo + member * step;
+      const bool live = p < hi && row[p] < g.n;
+      // the live samples are a prefix of the group's
+      const int n_live = __popc(__ballot_sync(group, live));
+      hi = min(hi, lo + n_live * step);
+      if (n_live > 0) lo += (n_live - 1) * step + 1;
     }
-    st.cell[k] = cell;
-    count[k] = lo;
+    if (member == 0) {
+      st.cell[k] = cell;
+      count[k] = lo;
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int j = 0; j < 27; ++j) {
-      st.start[j] = acc;
-      acc += count[j];
+  if (threadIdx.x < 32) {   // start: an inclusive scan of the counts
+    const int lane = threadIdx.x;
+    int v = lane < 27 ? count[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
     }
-    st.start[27] = acc;
+    if (lane < 27) st.start[lane + 1] = v;
+    if (lane == 0) st.start[0] = 0;
   }
   __syncthreads();
 }
 
-// Sweep the block's target cell against its stencil. NF source components
-// are staged per source from src_vec (n, NF) (none for NF = 0); Op
-// accumulates one pair into NOUT sums: op(dx, dy, dz, s_vec, j, acc) with
-// d = target - source image and s_vec[c][j] the staged component c of
-// source j. Writes out (n, NOUT).
-template <typename T, int NF, int NOUT, typename Op>
-__device__ void cell_sweep(const Stencil& st,
-                           const int* __restrict__ table,
-                           const T* __restrict__ pos,
-                           const T* __restrict__ src_vec,
-                           T* __restrict__ out, const Grid& g, const Op& op) {
-  __shared__ T s_pos[3][kTile];
-  __shared__ T s_vec[NF > 0 ? NF : 1][kTile];
-  const int* own = table + static_cast<size_t>(st.cell[13]) * g.cap;
-  const int n_tgt = st.start[14] - st.start[13];
-  const int total = st.start[27];
-  const int t_local = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  for (int t0 = 0; t0 < n_tgt; t0 += kTargets) {
-    const int ti = t0 + t_local;
-    const bool active = ti < n_tgt;
-    int tid = 0;
-    T tx = T(0), ty = T(0), tz = T(0);
-    if (active) {
-      tid = own[ti];
-      tx = T(double(pos[3 * tid + 0]) - st.corner[0]);
-      ty = T(double(pos[3 * tid + 1]) - st.corner[1]);
-      tz = T(double(pos[3 * tid + 2]) - st.corner[2]);
-    }
-    T acc[NOUT];
-    for (int c = 0; c < NOUT; ++c) acc[c] = T(0);
-    for (int s0 = 0; s0 < total; s0 += kTile) {
-      const int s = s0 + threadIdx.x;
-      if (s < total) {
-        int k = 0;
-        while (st.start[k + 1] <= s) ++k;
-        const int sid = table[static_cast<size_t>(st.cell[k]) * g.cap +
-                              (s - st.start[k])];
-        for (int a = 0; a < 3; ++a)
-          s_pos[a][threadIdx.x] =
-              T(double(pos[3 * sid + a]) + st.offset[k][a]);
-        for (int c = 0; c < NF; ++c)
-          s_vec[c][threadIdx.x] = src_vec[static_cast<size_t>(NF) * sid + c];
-      }
-      __syncthreads();
-      if (active) {
-        // per-tile partial sums keep the f32 rounding of long sums down
-        T part[NOUT];
-        for (int c = 0; c < NOUT; ++c) part[c] = T(0);
-        const int m = min(kTile, total - s0);
-        for (int j = lane; j < m; j += kLanes)
-          op(tx - s_pos[0][j], ty - s_pos[1][j], tz - s_pos[2][j], s_vec, j,
-             part);
-        for (int c = 0; c < NOUT; ++c) acc[c] += part[c];
-      }
-      __syncthreads();
-    }
-    // the kLanes lanes of a target sit in one warp: a fixed xor tree
-    for (int c = 0; c < NOUT; ++c) {
-      T v = acc[c];
-      for (int o = kLanes / 2; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-      acc[c] = v;
-    }
-    if (active && lane == 0)
-      for (int c = 0; c < NOUT; ++c)
-        out[static_cast<size_t>(NOUT) * tid + c] = acc[c];
+// Stage the sources s0 .. s0 + m - 1 of the stencil (in its order):
+// put(s, id, k) receives tile slot s, the particle id and its stencil cell
+// k. Warp w of the block walks the stencil cells k = w, w + warps, ..., its
+// lanes the cell's live slots inside the window, so no source searches for
+// its cell. No barrier: the caller ends the staging with one.
+template <typename Put>
+__device__ __forceinline__ void stage_sources(const Stencil& st,
+                                              const int* __restrict__ table,
+                                              const Grid& g, int s0, int m,
+                                              const Put& put) {
+  const int warps = blockDim.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int k = threadIdx.x / 32; k < 27; k += warps) {
+    const int first = st.start[k];
+    const int lo = max(first, s0), hi = min(st.start[k + 1], s0 + m);
+    const int* ids = table + static_cast<size_t>(st.cell[k]) * g.cap;
+    for (int s = lo + lane; s < hi; s += 32) put(s - s0, ids[s - first], k);
   }
+}
+
+// A source's position in the block's local frame: rounded once from
+// position + shift - corner in double.
+template <typename T>
+__device__ __forceinline__ void local_source(const Stencil& st,
+                                             const T* __restrict__ pos,
+                                             int id, int k, T* row) {
+  for (int a = 0; a < 3; ++a)
+    row[a] = T(double(pos[3 * id + a]) + st.offset[k][a]);
+}
+
+// Stage nt targets (ids own[0 .. nt - 1]) as rows (x, y, z, 0) in the local
+// frame and their ids. No barrier.
+template <typename T>
+__device__ __forceinline__ void stage_targets(const Stencil& st,
+                                              const int* __restrict__ own,
+                                              int nt,
+                                              const T* __restrict__ pos,
+                                              T* rows, int* ids) {
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+    const int id = own[t];
+    for (int a = 0; a < 3; ++a)
+      rows[4 * t + a] = T(double(pos[3 * id + a]) - st.corner[a]);
+    rows[4 * t + 3] = T(0);
+    ids[t] = id;
+  }
+}
+
+// A coordinate for the rows that pad a staged tile: its pairs with any
+// particle have r^2 near 3e36 (finite in float32), so they never lie
+// inside r_cut, and K5's law gives them magnitude 0.
+template <typename T>
+__device__ __forceinline__ T far_coord() {
+  return T(1e18);
+}
+
+// Fill rows m .. pad - 1 of a staged tile (x, y, z, w) with far rows, so
+// that a warp-step over a whole group of candidates needs no bounds test.
+// No barrier.
+template <typename T>
+__device__ __forceinline__ void pad_rows(T* rows, int m, int pad) {
+  for (int s = m + threadIdx.x; s < pad; s += blockDim.x)
+    for (int a = 0; a < 4; ++a) rows[4 * s + a] = far_coord<T>();
+}
+
+// Whether candidate j of the staged rows (x, y, z, w) lies inside r_cut of
+// the target (0 < r^2 < rc2; a far row never does); src receives its row.
+template <typename T>
+__device__ __forceinline__ bool candidate(const T* rows, int j, T tx, T ty,
+                                          T tz, T rc2, T* src) {
+  load_vec<4>(rows + 4 * j, src);
+  const T dx = tx - src[0], dy = ty - src[1], dz = tz - src[2];
+  const T r2 = dx * dx + dy * dy + dz * dz;
+  return r2 > T(0) && r2 < rc2;
+}
+
+// A ring's slots in shared memory: R (a power of two), then one scratch
+// slot a lane that takes the stores of the lanes that append nothing, so
+// an append has no branch.
+template <int R>
+__host__ __device__ constexpr int ring_slots() {
+  return R + 32;
+}
+
+// Append `value` of every lane that keeps one to a warp's ring of R slots
+// (ring_slots<R>() in memory) at `tail`, in lane order (below: the mask of
+// the lanes before this one); the other lanes store into their scratch
+// slots. Returns the new tail, uniform across the warp.
+template <int R, typename E>
+__device__ __forceinline__ unsigned append(E* ring, unsigned tail, bool keep,
+                                           E value, unsigned below) {
+  const unsigned mask = __ballot_sync(0xffffffffu, keep);
+  const unsigned slot = (tail + __popc(mask & below)) % R;
+  ring[keep ? slot : R + threadIdx.x % 32] = value;
+  return tail + __popc(mask);
+}
+
+// Terms of a staged remainder table: K rounded up to even (the padding
+// coefficient is zero, and a Clenshaw step on zeros leaves zeros).
+__host__ __device__ __forceinline__ int even_terms(int K) {
+  return K + (K & 1);
+}
+
+// Stage the remainder's table cheb (2 pieces, 2 functions, K) as rows
+// (piece, k, function), zero-padded to even_terms(K) terms. No barrier.
+template <typename T>
+__device__ __forceinline__ void stage_cheb(const T* __restrict__ cheb, int K,
+                                           T* rows) {
+  const int K2 = even_terms(K);
+  for (int i = threadIdx.x; i < 4 * K2; i += blockDim.x) {
+    const int p = i / (2 * K2), k = (i / 2) % K2, fn = i % 2;
+    rows[p * kChebPiece + 2 * k + fn] =
+        k < K ? cheb[(2 * p + fn) * K + k] : T(0);
+  }
+}
+
+// The RPY remainder's two-piece Chebyshev series: piece 0 on r < 2a,
+// piece 1 on 2a <= r < r_cut, t = (r - mid) / half in [-1, 1]. The piece
+// is an address, not a branch; (a_k, b_k, a_k+1, b_k+1) come in one
+// 16-byte load in float32 (two in float64).
+template <typename T>
+struct Remainder {
+  int K2;                                     // even_terms(K)
+  T rc2, two_a, mid0, inv_h0, mid1, inv_h1;
+
+  // alpha(r) and beta(r) / r^2 at r (invr = 1 / r), from the staged rows
+  __device__ __forceinline__ void eval(const T* cheb, T r, T invr, T& al,
+                                       T& bfac) const {
+    const bool near = r < two_a;
+    const T* ab = cheb + (near ? 0 : kChebPiece);
+    const T ts = near ? (r - mid0) * inv_h0 : (r - mid1) * inv_h1;
+    const T t2 = ts + ts;
+    // a step is fma(t2, b1, c - b2): c - b2 is known a step ahead, so the
+    // recurrence's dependent chain is one multiply-add a term
+    T a1 = T(0), a2 = T(0), b1 = T(0), b2 = T(0);
+    T c[4];
+    for (int k = K2 - 2; k > 0; k -= 2) {
+      load_vec<4>(ab + 2 * k, c);
+      T an = fma_t(t2, a1, c[2] - a2);
+      T bn = fma_t(t2, b1, c[3] - b2);
+      a2 = a1;
+      a1 = an;
+      b2 = b1;
+      b1 = bn;
+      an = fma_t(t2, a1, c[0] - a2);
+      bn = fma_t(t2, b1, c[1] - b2);
+      a2 = a1;
+      a1 = an;
+      b2 = b1;
+      b1 = bn;
+    }
+    load_vec<4>(ab, c);
+    const T an = fma_t(t2, a1, c[2] - a2);
+    const T bn = fma_t(t2, b1, c[3] - b2);
+    al = fma_t(ts, an, c[0] - a1);
+    bfac = fma_t(ts, bn, c[1] - b1) * invr * invr;
+  }
+};
+
+// (mid, 1 / half) of the two pieces: piece 0 mid = half = a; piece 1
+// mid = (2a + r_cut) / 2, half = (r_cut - 2a) / 2
+template <typename T>
+Remainder<T> make_remainder(int K, double two_a, double r_cut) {
+  return Remainder<T>{even_terms(K),          T(r_cut * r_cut),
+                      T(two_a),               T(0.5 * two_a),
+                      T(2.0 / two_a),         T(0.5 * (two_a + r_cut)),
+                      T(2.0 / (r_cut - two_a))};
 }
 
 }  // namespace cellk

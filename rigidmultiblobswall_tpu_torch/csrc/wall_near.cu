@@ -31,10 +31,13 @@
 // the remainder and takes the image branch in more than half of its
 // warp-steps for a single lane.
 //
-// Design, a compacted walk: one block per target cell of the layers that
-// can hold real particles ([cz_lo, cz_hi]); the image-only layers are never
-// launched. The real targets are a prefix of a cell's live slots (cell_bin
-// keeps ids in ascending order and the reals are ids < n_real).
+// Design, a compacted walk on cell_sweep.cuh's pieces (the stencil and
+// target staging, the candidate test and ring append, the remainder
+// series), which K6 (near_rpy.cu) shares: one block per target cell of the
+// layers that can hold real particles ([cz_lo, cz_hi]); the image-only
+// layers are never launched. The real targets are a prefix of a cell's
+// live slots (cell_bin keeps ids in ascending order and the reals are ids
+// < n_real).
 // - The stencil's sources are staged in shared memory in tiles of kSrc
 //   (every stencil of the bench-size slab fits one tile) in the block's
 //   local frame, relative to the target cell's corner (formed in double,
@@ -61,10 +64,11 @@
 //   order depends only on the data: no atomics, bit-identical on repeat. A
 //   stencil longer than one tile adds its rows one tile at a time.
 // The Chebyshev tables sit in shared memory, loaded once a block, as rows
-// that one 16-byte load reads ((a_k, b_k) of the remainder; the ten image
-// coefficients of order k); a piece is an address, not a branch. The z
-// wrap of the stencil only reaches the empty guard layer on top of the slab
-// (ops/ewald_wall.make_wall_plan), so the wrap shift never enters a pair.
+// that one 16-byte load reads ((a_k, b_k, a_k+1, b_k+1) of the remainder;
+// the ten image coefficients of order k); a piece is an address, not a
+// branch. The z wrap of the stencil only reaches the empty guard layer on
+// top of the slab (ops/ewald_wall.make_wall_plan), so the wrap shift never
+// enters a pair.
 
 #include "cell_sweep.cuh"
 #include "wall_img_terms.cuh"
@@ -72,16 +76,18 @@
 namespace {
 
 using cellk::Grid;
+using cellk::kChebPiece;
+using cellk::kMaxCheb;
+using cellk::kTgt;
+constexpr int kRing = 128;     // a warp's ring: < 32 left + 64 appended a step
+constexpr int kRingSlots = cellk::ring_slots<kRing>();
+using cellk::load_vec;
 
-constexpr int kMaxCheb = 32;   // terms per piece of either table
 constexpr int kImg = 10;       // radial series of the image channels
 constexpr int kWarps = cellk::kThreads / 32;
-constexpr int kRing = 128;     // slots of a ring: < 32 left + 64 appended
-constexpr int kTgt = 128;      // targets a block stages at a time
-// shared-memory rows of the tables: (a_k, b_k) pairs of a remainder piece
-// and the ten image coefficients of order k padded to 12; the pieces are
-// padded so that the two pieces' rows of one k fall in different banks
-constexpr int kChebPiece = 2 * kMaxCheb + 2;
+// shared-memory rows of the image table: the ten image coefficients of
+// order k padded to 12; the pieces are padded so that the two pieces' rows
+// of one k fall in different banks
 constexpr int kImgRow = 12;
 constexpr int kImgPiece = kMaxCheb * kImgRow + 4;
 
@@ -89,71 +95,23 @@ constexpr int kImgPiece = kMaxCheb * kImgRow + 4;
 // slab (at most ~1,230 sources) in one tile; float64 (off the hot paths)
 // fewer
 template <typename T>
-struct Walk {
-  static constexpr int kSrc = sizeof(T) == 4 ? 1408 : 1024;
-};
+using Walk = cellk::Walk<T, 1408, 1024>;
 
-// resident blocks an SM that __launch_bounds__ asks for: float32 B = 1
+// resident blocks an SM that __launch_bounds__ asks for in float32: B = 1
 // three (80 registers, no spills), B = 2 two (112 registers: at 80 it
-// spills, and ran ~2 % slower); float64 uncapped
-template <typename T, int B>
-constexpr int min_blocks() {
-  return sizeof(T) == 8 ? 1 : (B == 1 ? 3 : 2);
-}
-
-// targets a block stages at a time: a cell holds at most cap
-__host__ __device__ __forceinline__ int target_slots(int cap) {
-  return cap < kTgt ? cap : kTgt;
-}
+// spills, and ran ~2 % slower)
+template <int B>
+constexpr int kMinBlocksF32 = B == 1 ? 3 : 2;
 
 // dynamic shared memory of a launch: tables, the staged tile, a chunk of
 // the cell's targets, the two rings of every warp, the target ids
 template <typename T, int B>
 size_t smem_bytes(int cap) {
-  const int nt = target_slots(cap);
+  const int nt = cellk::target_slots(cap);
   return sizeof(T) * (2 * kChebPiece + 2 * kImgPiece +
                       (4 + 3 * B) * Walk<T>::kSrc + 4 * nt) +
-         (sizeof(unsigned) + sizeof(unsigned short)) * kWarps * kRing +
+         (sizeof(unsigned) + sizeof(unsigned short)) * kWarps * kRingSlots +
          sizeof(int) * nt;
-}
-
-__device__ __forceinline__ float rsqrt_t(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-
-// L values from 16-byte shared-memory loads (L a multiple of 16 bytes)
-template <int L>
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-#pragma unroll
-  for (int c = 0; c < L; c += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src + c);
-    dst[c] = v.x;
-    dst[c + 1] = v.y;
-    dst[c + 2] = v.z;
-    dst[c + 3] = v.w;
-  }
-}
-template <int L>
-__device__ __forceinline__ void load_vec(const double* src, double* dst) {
-#pragma unroll
-  for (int c = 0; c < L; c += 2) {
-    const double2 v = *reinterpret_cast<const double2*>(src + c);
-    dst[c] = v.x;
-    dst[c + 1] = v.y;
-  }
-}
-__device__ __forceinline__ void load_pair(const float* src, float* dst) {
-  const float2 v = *reinterpret_cast<const float2*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-}
-__device__ __forceinline__ void load_pair(const double* src, double* dst) {
-  const double2 v = *reinterpret_cast<const double2*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
 }
 
 template <typename T>
@@ -164,7 +122,7 @@ __device__ __forceinline__ T clamp_t(T x, T lo, T hi) {
 template <typename T>
 struct WallScalars {
   int K, Ki;                                   // terms per piece
-  T rc2, two_a, mid0, inv_h0, mid1, inv_h1;    // RPY remainder pieces
+  cellk::Remainder<T> rem;                     // RPY remainder pieces
   T inv_a, pref_img;
   T ir_lo, ir_mid, ir_hi, mid_i0, inv_hi0, mid_i1, inv_hi1;  // image r / a
 };
@@ -179,28 +137,11 @@ __device__ __forceinline__ void wall_pair(const WallScalars<T>& sc,
                                           T dy, T dz, T zabs, const T* f,
                                           T* acc) {
   const T r2 = dx * dx + dy * dy + dz * dz;
-  const T invr = rsqrt_t(r2);
+  const T invr = cellk::rsqrt_t(r2);
   const T r = r2 * invr;
   // ---- RPY remainder on mirrored strengths
-  const bool near = r < sc.two_a;
-  const T* ab = cheb + (near ? 0 : kChebPiece);
-  const T ts = near ? (r - sc.mid0) * sc.inv_h0 : (r - sc.mid1) * sc.inv_h1;
-  const T t2 = ts + ts;
-  T a1 = T(0), a2 = T(0), b1 = T(0), b2 = T(0);
-  for (int k = sc.K - 1; k > 0; --k) {
-    T c[2];
-    load_pair(ab + 2 * k, c);
-    const T an = t2 * a1 - a2 + c[0];
-    const T bn = t2 * b1 - b2 + c[1];
-    a2 = a1;
-    a1 = an;
-    b2 = b1;
-    b1 = bn;
-  }
-  T c0[2];
-  load_pair(ab, c0);
-  const T al = ts * a1 - a2 + c0[0];
-  const T bfac = (ts * b1 - b2 + c0[1]) * invr * invr;
+  T al, bfac;
+  sc.rem.eval(cheb, r, invr, al, bfac);
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     constexpr int kS = Walk<T>::kSrc;
@@ -266,23 +207,18 @@ struct Tile {
   const int* id;
 };
 
-// Whether candidate j (< m) of the tile lies inside r_cut of the target, as
-// a real-source or an image-source pair.
+// Whether candidate j of the tile lies inside r_cut of the target, as a
+// real-source or an image-source pair (a far row, physical z far above the
+// wall, is neither).
 template <typename T>
-__device__ __forceinline__ void classify(const T* src_rows, int j, int m,
-                                         T tx, T ty, T tz, T rc2, bool& in_r,
+__device__ __forceinline__ void classify(const T* src_rows, int j, T tx,
+                                         T ty, T tz, T rc2, bool& in_r,
                                          bool& in_i) {
-  in_r = in_i = false;
-  if (j < m) {
-    T src[4];
-    load_vec<4>(src_rows + 4 * j, src);
-    const T dx = tx - src[0], dy = ty - src[1], dz = tz - src[2];
-    const T r2 = dx * dx + dy * dy + dz * dz;
-    const bool in = r2 > T(0) && r2 < rc2;
-    const bool image = src[3] < T(0);
-    in_r = in && !image;
-    in_i = in && image;
-  }
+  T src[4];
+  const bool in = cellk::candidate(src_rows, j, tx, ty, tz, rc2, src);
+  const bool image = in && src[3] < T(0);
+  in_r = in && !image;
+  in_i = image;
 }
 
 // Evaluate source j of the tile against the target into acc.
@@ -339,7 +275,8 @@ __device__ __forceinline__ void drain_images(const WallScalars<T>& sc,
 }
 
 template <typename T, int B>
-__global__ void __launch_bounds__(cellk::kThreads, (min_blocks<T, B>()))
+__global__ void __launch_bounds__(cellk::kThreads,
+                                  (cellk::min_blocks<T>(kMinBlocksF32<B>)))
 wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
                  const int* __restrict__ table, const T* __restrict__ cheb,
                  const T* __restrict__ img, T* __restrict__ out, Grid g,
@@ -347,6 +284,7 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
                  double Lz, double z0, WallScalars<T> sc) {
   constexpr int NF = 3 * B;
   constexpr int kSrc = Walk<T>::kSrc;
+  static_assert(kSrc % 64 == 0, "a padded tile holds whole 64-steps");
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_cheb = reinterpret_cast<T*>(smem);
   T* s_img = s_cheb + 2 * kChebPiece;
@@ -354,24 +292,22 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   T* s_f = s_src + 4 * kSrc;                  // (NF, kSrc)
   T* s_tgt = s_f + NF * kSrc;                 // (target_slots, 4)
   unsigned* s_ring_i =
-      reinterpret_cast<unsigned*>(s_tgt + 4 * target_slots(g.cap));
+      reinterpret_cast<unsigned*>(s_tgt + 4 * cellk::target_slots(g.cap));
   unsigned short* s_ring_r =
-      reinterpret_cast<unsigned short*>(s_ring_i + kWarps * kRing);
-  int* s_id = reinterpret_cast<int*>(s_ring_r + kWarps * kRing);
+      reinterpret_cast<unsigned short*>(s_ring_i + kWarps * kRingSlots);
+  int* s_id = reinterpret_cast<int*>(s_ring_r + kWarps * kRingSlots);
   __shared__ cellk::Stencil st;
   __shared__ int s_ntgt;
 
-  for (int i = threadIdx.x; i < 4 * sc.K; i += blockDim.x) {
-    // cheb (2 pieces, 2 functions, K) -> (piece, k, function) rows
-    const int p = i / (2 * sc.K), fn = (i / sc.K) % 2, k = i % sc.K;
-    s_cheb[p * kChebPiece + 2 * k + fn] = cheb[i];
-  }
+  cellk::stage_cheb(cheb, sc.K, s_cheb);
   for (int i = threadIdx.x; i < 2 * kImg * sc.Ki; i += blockDim.x) {
     // img (2 pieces, 10 series, Ki) -> (piece, k, series) rows
     const int p = i / (kImg * sc.Ki), q = (i / sc.Ki) % kImg, k = i % sc.Ki;
     s_img[p * kImgPiece + k * kImgRow + q] = img[i];
   }
   const int c = (blockIdx.x / nkz) * g.nz + cz_lo + blockIdx.x % nkz;
+  // no real target (the reals are a prefix of the live slots): uniform
+  if (table[static_cast<size_t>(c) * g.cap] >= n_real) return;
   cellk::load_stencil(st, table, c, g, Lx, Ly, Lz);   // ends in a barrier
   const int* own = table + static_cast<size_t>(st.cell[13]) * g.cap;
   if (threadIdx.x == 0) {
@@ -390,42 +326,27 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   const int warp = threadIdx.x / 32;
   const unsigned lane = threadIdx.x % 32;
   const unsigned below = (1u << lane) - 1u;   // the lanes before this one
-  unsigned short* ring_r = s_ring_r + warp * kRing;   // real sources
-  unsigned* ring_i = s_ring_i + warp * kRing;         // image sources
+  unsigned short* ring_r = s_ring_r + warp * kRingSlots;   // real sources
+  unsigned* ring_i = s_ring_i + warp * kRingSlots;         // image sources
   const Tile<T> tile{s_src, s_f, s_tgt, s_id};
 
   // the cell's targets kTgt at a time; the barrier that ends the last
   // tile of a chunk comes before the next chunk is staged
   for (int t0 = 0; t0 < n_tgt; t0 += kTgt) {
     const int nt = min(kTgt, n_tgt - t0);
-    for (int t = threadIdx.x; t < nt; t += blockDim.x) {
-      const int id = own[t0 + t];
-      for (int a = 0; a < 3; ++a)
-        s_tgt[4 * t + a] = T(double(pos[3 * id + a]) - st.corner[a]);
-      s_tgt[4 * t + 3] = T(0);
-      s_id[t] = id;
-    }
+    cellk::stage_targets(st, own + t0, nt, pos, s_tgt, s_id);
     for (int s0 = 0; s0 < total; s0 += kSrc) {
       const int m = min(kSrc, total - s0);
-      for (int s = threadIdx.x; s < m; s += blockDim.x) {
-        // the stencil cell of source s0 + s: the last k with start[k] <= it
-        const int gs = s0 + s;
-        int lo = 0, hi = 26;
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) / 2;
-          if (st.start[mid] <= gs) lo = mid; else hi = mid - 1;
-        }
-        const int sid = table[static_cast<size_t>(st.cell[lo]) * g.cap +
-                              (gs - st.start[lo])];
+      cellk::stage_sources(st, table, g, s0, m, [&](int s, int sid, int k) {
         T* row = s_src + 4 * s;
-        for (int a = 0; a < 3; ++a)
-          row[a] = T(double(pos[3 * sid + a]) + st.offset[lo][a]);
+        cellk::local_source(st, pos, sid, k, row);
         row[3] = T(double(pos[3 * sid + 2]) + z0);
         // an image row reuses its real twin's raw strengths
         const int src = sid < n_real ? sid : sid - n_real;
         for (int q = 0; q < NF; ++q)
           s_f[q * kSrc + s] = f[static_cast<size_t>(NF) * src + q];
-      }
+      });
+      cellk::pad_rows(s_src, m, (m + 63) / 64 * 64);   // whole 64-steps
       __syncthreads();
       // ring heads and tails are uniform across the warp; the image ring
       // carries over from one of the warp's targets to the next
@@ -448,29 +369,20 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
           const bool last = c0 >= mt;
           if (!last) {
             bool ra, ia, rb, ib;
-            classify(s_src, c0 + lane, mt, tgt[0], tgt[1], tgt[2], sc.rc2,
+            classify(s_src, c0 + lane, tgt[0], tgt[1], tgt[2], sc.rem.rc2,
                      ra, ia);
-            classify(s_src, c0 + 32 + lane, mt, tgt[0], tgt[1], tgt[2],
-                     sc.rc2, rb, ib);
-            const unsigned m_ra = __ballot_sync(0xffffffffu, ra);
-            const unsigned m_ia = __ballot_sync(0xffffffffu, ia);
-            const unsigned m_rb = __ballot_sync(0xffffffffu, rb);
-            const unsigned m_ib = __ballot_sync(0xffffffffu, ib);
+            classify(s_src, c0 + 32 + lane, tgt[0], tgt[1], tgt[2],
+                     sc.rem.rc2, rb, ib);
             const unsigned key = static_cast<unsigned>(t) << 16;
-            if (ra)
-              ring_r[(r_tail + __popc(m_ra & below)) % kRing] = c0 + lane;
-            if (ia)
-              ring_i[(i_tail + __popc(m_ia & below)) % kRing] =
-                  key | (c0 + lane);
-            r_tail += __popc(m_ra);
-            i_tail += __popc(m_ia);
-            if (rb)
-              ring_r[(r_tail + __popc(m_rb & below)) % kRing] = c0 + 32 + lane;
-            if (ib)
-              ring_i[(i_tail + __popc(m_ib & below)) % kRing] =
-                  key | (c0 + 32 + lane);
-            r_tail += __popc(m_rb);
-            i_tail += __popc(m_ib);
+            using u16 = unsigned short;
+            r_tail = cellk::append<kRing>(ring_r, r_tail, ra, u16(c0 + lane),
+                                          below);
+            i_tail = cellk::append<kRing>(ring_i, i_tail, ia,
+                                          key | (c0 + lane), below);
+            r_tail = cellk::append<kRing>(ring_r, r_tail, rb,
+                                          u16(c0 + 32 + lane), below);
+            i_tail = cellk::append<kRing>(ring_i, i_tail, ib,
+                                          key | (c0 + 32 + lane), below);
             __syncwarp();
           }
           // full batches of the real ring, lane k on entry k into its own
@@ -534,11 +446,9 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
       static_cast<int>(bytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Grid g{2 * n_real, nx, ny, nz, cap};
-  // piece 0: mid = half = a; piece 1: mid = (2a + r_cut) / 2,
-  // half = (r_cut - 2a) / 2; the image pieces split [ir_lo, ir_hi] at ir_mid
+  // the image pieces split [ir_lo, ir_hi] at ir_mid
   const WallScalars<T> sc{
-      K, Ki, T(r_cut * r_cut), T(two_a), T(0.5 * two_a), T(2.0 / two_a),
-      T(0.5 * (two_a + r_cut)), T(2.0 / (r_cut - two_a)), T(1.0 / a),
+      K, Ki, cellk::make_remainder<T>(K, two_a, r_cut), T(1.0 / a),
       T(pref_img), T(ir_lo), T(ir_mid), T(ir_hi), T(0.5 * (ir_mid + ir_lo)),
       T(2.0 / (ir_mid - ir_lo)), T(0.5 * (ir_hi + ir_mid)),
       T(2.0 / (ir_hi - ir_mid))};

@@ -43,7 +43,7 @@ import math
 
 import torch
 
-from . import _build, cells
+from . import _build, cells, mobility_cuda
 
 # kernel launches made by the wrappers in this process
 LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
@@ -291,7 +291,7 @@ def nl_forces(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b, two_a,
     err = getattr(_build.library(), name)(
         pos.data_ptr(), cell_table.data_ptr(), out.data_ptr(), pos.shape[0],
         *(int(d) for d in dims), int(cap), *(float(L) for L in box),
-        float(eps_over_b), float(inv_b), float(two_a),
+        *mobility_cuda.fold_law(eps_over_b, inv_b, two_a),
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES["nl_forces"] += 1

@@ -64,12 +64,18 @@ def blob_blob_forces_plain(r_vectors, *, repulsion_strength, debye_length,
     return out
 
 
-def force_law(repulsion_strength, debye_length, blob_radius):
-    """K2's folded law (csrc/blob_forces.cu): mag = eob r^-1
+def fold_law(eps_over_b, inv_b, two_a):
+    """The folded law of K2 and K5 (csrc/force_law.cuh): mag = eob r^-1
     2^min(c2a - c r, 0) with (eob, c, c2a) = (eps/b, log2(e)/b, 2a c)."""
-    c = math.log2(math.e) / float(debye_length)
-    return (float(repulsion_strength) / float(debye_length), c,
-            2.0 * float(blob_radius) * c)
+    c = math.log2(math.e) * float(inv_b)
+    return float(eps_over_b), c, float(two_a) * c
+
+
+def force_law(repulsion_strength, debye_length, blob_radius):
+    """K2's folded law from the repulsion's own parameters (fold_law)."""
+    b = float(debye_length)
+    return fold_law(float(repulsion_strength) / b, 1.0 / b,
+                    2.0 * float(blob_radius))
 
 
 def blob_blob_forces(r_vectors, *, repulsion_strength, debye_length,

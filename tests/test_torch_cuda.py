@@ -427,6 +427,178 @@ def test_k6_exactly_four_cells_and_overflow(cuda):
     assert bool((got[slot == 64 * 6] == 0).all())
 
 
+def _u32_bound(cap):
+    """float32 rounding of a row summed over a stencil of 27 cap sources,
+    relative to its magnitude."""
+    return float(np.finfo(np.float32).eps / 2 * np.sqrt(27 * cap))
+
+
+def _dense_cells(cuda, dtype, n, L, dims, cap, cluster=0, seed=7):
+    """n random blobs in a periodic box (a coincident pair, a pair closer
+    than 2a), the first `cluster` packed into one 0.5-wide cube; the cell
+    table at cap (no blob dropped)."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0, L, (n, 3))
+    if n > 9:
+        r[7] = r[6]
+        r[9] = r[8] + 0.05
+    if cluster:
+        r[:cluster] = [1.0, 1.0, 1.0] + rng.uniform(-0.25, 0.25,
+                                                   (cluster, 3))
+    pos = torch.as_tensor(r, dtype=dtype, device=cuda)
+    table, _, _, dropped = cells.cell_bin(pos, (L, L, L), dims, cap)
+    assert int(dropped) == 0
+    ids = table.reshape(-1, cap).long()
+    live = (ids < n).sum(1)
+    stencil = live[cells.neighbor_table(dims, device=cuda)].sum(1)
+    return pos, table, int(live.max()), int(stencil.max())
+
+
+def _k6_vs_plain_twice(cuda, pos, table, dims, L, cap, n_rhs, dtype):
+    """K6 against its plain version in float64, and a second launch
+    bit-identical to the first; returns max err / max|ref|."""
+    p = ewald.default_params(0.3, 1.0, (L, L, L), tol=1e-4,
+                             cell_capacity=cap)
+    assert min(L / d for d in dims) >= p.r_cut
+    cheb = torch.as_tensor(ewald._host_cheb(p)[0], dtype=dtype,
+                           device=cuda).contiguous()
+    f = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(pos.shape[0], 3 * n_rhs)), dtype=dtype, device=cuda)
+    kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
+    got = ck.near_rpy(pos, f, table, dims, p.box, cap, cheb, **kw)
+    again = ck.near_rpy(pos, f, table, dims, p.box, cap, cheb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = ck.near_rpy_plain(pos.double(), f.double(), table, dims, p.box,
+                            cap, cheb.double(), **kw)
+    return _rel_err(got, ref)
+
+
+def _rel_err(got, ref):
+    """max err / max|ref| (the max error itself when every row is 0)."""
+    err = (got.double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def _k5_vs_plain_twice(cuda, pos, table, dims, box, cap, guard_z=False):
+    kw = dict(eps_over_b=0.2 / 0.25, inv_b=1 / 0.25, two_a=0.4)
+    got = ck.nl_forces(pos, table, dims, box, cap, guard_z=guard_z, **kw)
+    again = ck.nl_forces(pos, table, dims, box, cap, guard_z=guard_z, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = ck.nl_forces_plain(pos.double(), table, dims, box, cap, **kw)
+    return _rel_err(got, ref)
+
+
+def _cell_bound(dtype, cap):
+    return _u32_bound(cap) if dtype == torch.float32 else 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_k6_dense_cells_and_long_stencils(cuda, n_rhs, dtype):
+    """12,000 blobs in 6^3 cells at cap 128: ~56 targets a cell, far more
+    than a block has warps, and stencils longer than one staged tile (768
+    sources in float32, 512 in float64); against the float64 plain version
+    and twice bit-identical."""
+    L, dims, cap = 12.0, (6, 6, 6), 128
+    pos, table, most, longest = _dense_cells(cuda, dtype, 12000, L, dims,
+                                             cap)
+    assert most > 8 and longest > 1024
+    err = _k6_vs_plain_twice(cuda, pos, table, dims, L, cap, n_rhs, dtype)
+    assert err <= _cell_bound(dtype, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_k6_cells_beyond_one_target_chunk(cuda, n_rhs, dtype):
+    """300 blobs packed into one cell: a block stages its targets in
+    chunks (kTgt of csrc/cell_sweep.cuh, 128) and walks its stencil once a
+    chunk; against the plain version and twice bit-identical."""
+    L, dims, cap = 12.0, (6, 6, 6), 320
+    pos, table, most, _ = _dense_cells(cuda, dtype, 1500, L, dims, cap,
+                                       cluster=300)
+    assert most > 2 * 128
+    err = _k6_vs_plain_twice(cuda, pos, table, dims, L, cap, n_rhs, dtype)
+    assert err <= _cell_bound(dtype, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 77, 1001])
+def test_k6_ragged_n(cuda, n, dtype):
+    """Blob counts that fill no tile, warp or target pair evenly."""
+    L, dims, cap = 12.0, (6, 6, 6), 64
+    pos, table, _, _ = _dense_cells(cuda, dtype, n, L, dims, cap)
+    for n_rhs in (1, 2):
+        if n == 1:                       # no pair: the rows stay zero
+            p = ewald.default_params(0.3, 1.0, (L, L, L), tol=1e-4,
+                                     cell_capacity=cap)
+            cheb = torch.as_tensor(ewald._host_cheb(p)[0], dtype=dtype,
+                                   device=cuda).contiguous()
+            got = ck.near_rpy(pos, torch.ones((1, 3 * n_rhs), dtype=dtype,
+                                              device=cuda), table, dims,
+                              p.box, cap, cheb, two_a=2 * p.a,
+                              r_cut=p.r_cut)
+            assert bool((got == 0).all())
+            continue
+        err = _k6_vs_plain_twice(cuda, pos, table, dims, L, cap, n_rhs,
+                                 dtype)
+        assert err <= _cell_bound(dtype, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_dense_cells_and_long_stencils(cuda, dtype):
+    """12,000 blobs in 4^3 cells at cap 256: ~190 targets a cell (more
+    than one target chunk) and stencils of ~5,000 sources, longer than one
+    staged tile (2048 in float32, 1024 in float64); twice bit-identical."""
+    L, dims, cap = 12.0, (4, 4, 4), 256
+    pos, table, most, longest = _dense_cells(cuda, dtype, 12000, L, dims,
+                                             cap)
+    assert most > 128 and longest > 2048
+    err = _k5_vs_plain_twice(cuda, pos, table, dims, (L, L, L), cap)
+    assert err <= _cell_bound(dtype, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 77, 1001])
+def test_k5_ragged_n(cuda, n, dtype):
+    """Blob counts that fill no tile, warp or target pair evenly (odd
+    cells pair their last target with a far one)."""
+    L, dims, cap = 12.0, (6, 6, 6), 64
+    pos, table, _, _ = _dense_cells(cuda, dtype, n, L, dims, cap)
+    if n == 1:                           # no pair: the row stays zero
+        got = ck.nl_forces(pos, table, dims, (L, L, L), cap,
+                           eps_over_b=1.0, inv_b=4.0, two_a=0.4)
+        assert bool((got == 0).all())
+        return
+    err = _k5_vs_plain_twice(cuda, pos, table, dims, (L, L, L), cap)
+    assert err <= _cell_bound(dtype, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_wall_slab_dense_and_repeat(cuda, dtype):
+    """The wall-slab layout (z clipped below an empty guard layer) with
+    dense cells and stencils longer than one tile, twice bit-identical."""
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    rng = np.random.default_rng(13)
+    L, n, cap = 12.0, 9000, 512
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, L, (n, 2))
+    r[:, 2] = rng.uniform(0.2, 3.5, n)
+    pos, dims, box, table, dropped = forces._force_cells(
+        torch.as_tensor(r, dtype=dtype, device=cuda), (L, L, 0.0), 2.1, 16,
+        cap, 3.0)
+    assert int(dropped) == 0 and dims[2] == 3
+    ids = table.reshape(-1, cap).long()
+    stencil = (ids < n).sum(1)[cells.neighbor_table(dims,
+                                                    device=cuda)].sum(1)
+    assert int(stencil.max()) > 2048
+    err = _k5_vs_plain_twice(cuda, pos, table, dims, box, cap, guard_z=True)
+    assert err <= _cell_bound(dtype, cap)
+
+
 def test_cell_wrappers_reject_bad_input(cuda):
     dims, cap, L = (4, 4, 4), 4, 8.0
     pos, table, _, _ = _cell_scene(cuda, 50, L, dims, cap, torch.float32)

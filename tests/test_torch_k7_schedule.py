@@ -41,10 +41,10 @@ LANES = 32
 
 
 def _kernel_constants():
-    """kSrc (float32, float64), kRing and the warps a block of
-    csrc/wall_near.cu and csrc/cell_sweep.cuh."""
+    """kSrc (float32, float64) and kRing of csrc/wall_near.cu, and the
+    warps a block of csrc/cell_sweep.cuh (the walk's shared pieces)."""
     text = (CSRC / "wall_near.cu").read_text()
-    tile = re.search(r"kSrc = sizeof\(T\) == 4 \? (\d+) : (\d+);", text)
+    tile = re.search(r"cellk::Walk<T, (\d+), (\d+)>", text)
     ring = re.search(r"constexpr int kRing = (\d+);", text)
     threads = re.search(r"constexpr int kThreads = (\d+);",
                         (CSRC / "cell_sweep.cuh").read_text())
@@ -52,8 +52,9 @@ def _kernel_constants():
 
 
 def _target_chunk():
-    """kTgt of csrc/wall_near.cu: the targets a block stages at a time."""
-    text = (CSRC / "wall_near.cu").read_text()
+    """kTgt of csrc/cell_sweep.cuh: the targets a block stages at a
+    time."""
+    text = (CSRC / "cell_sweep.cuh").read_text()
     return int(re.search(r"constexpr int kTgt = (\d+);", text)[1])
 
 

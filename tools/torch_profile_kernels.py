@@ -1,6 +1,6 @@
-"""Kernels K1, K2 and K7 at the main paths' shapes on a CUDA card.
+"""Kernels K1, K2, K5, K6 and K7 at the main paths' shapes on a CUDA card.
 
-    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k7]
+    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -15,6 +15,16 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   slice count); but for --baseline also on the sliced sweep at a list of
   slice counts, with the largest difference to the path's call;
 - k2 (csrc/blob_forces.cu): 49,152 blobs, 12,288 blobs, 32,768 rollers;
+- k5 (csrc/nl_forces.cu): the periodic spectral path's force cells (98,304
+  blobs, chip_smoke.py phase 8) and the wall path's wall-slab force cells
+  (phase 10); but for --baseline also each layout's work (candidate pairs,
+  targets a cell, stencils against the staged tile, kSrc read from the
+  source), the error of the kernel and of the float32 plain version
+  against the float64 plain version on the first 256 cells, and whether
+  two launches are bit-identical;
+- k6 (csrc/near_rpy.cu): B = 1 and 2 at the periodic spectral path's plan
+  (98,304 blobs, phase 8); but for --baseline also the plan's work (as
+  k5's, and the pairs inside r_cut), and the errors and repeat as k5's;
 - k7 (csrc/wall_near.cu): B = 1 and 2 at the wall path's plan (98,304
   blobs, chip_smoke.py phase 10); but for --baseline also the plan's work
   (candidates, pairs inside r_cut, image pairs), its stencils against the
@@ -31,6 +41,7 @@ versions are chip_smoke.py's and the card tests'.
 """
 
 import argparse
+import math
 import re
 import shutil
 import subprocess
@@ -45,6 +56,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # functions); K3 shares K1's tt condensing
 INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
              "k2": ("force_",),
+             "k5": ("nl_forces",),
+             "k6": ("near_rpy",),
              "k7": ("wall_near",)}
 
 # slice counts K1's sliced sweep is timed at, per shape
@@ -166,17 +179,154 @@ def profile_k2(cs, dev, detail):
         print(f"  K2 {tag} {r.shape[0]} blobs f32: {ms:.3f} ms", flush=True)
 
 
-# ---------------------------------------------------------------- K7
+# ----------------------------------------------------------- K5 and K6
 
 
-def k7_tile_f32():
-    """Sources a float32 K7 block stages a tile: Walk<float>::kSrc of
-    csrc/wall_near.cu in the checkout that runs."""
+def tile_f32(source):
+    """Sources a float32 block of csrc/<source> stages a tile:
+    Walk<float>::kSrc in the checkout that runs."""
     from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
 
     text = (Path(ck.__file__).resolve().parents[1] / "csrc"
-            / "wall_near.cu").read_text()
-    return int(re.search(r"kSrc = sizeof\(T\) == 4 \? (\d+) :", text)[1])
+            / source).read_text()
+    return int(re.search(r"cellk::Walk<T, (\d+), \d+>", text)[1])
+
+
+def periodic_scene(cs, dev):
+    """The periodic spectral path's plan (K6) and force cells (K5) at its
+    first configuration, float32, sized as chip_smoke.py phase 8 sizes
+    them: (plan, (pos, table, dims, box, cap) of the force cells)."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models import saddle
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    system = cs.spectral_system(cs.N_SPECTRAL, cs.L_SPECTRAL)
+    pos, quat = cs.spectral_lattice(cs.N_SPECTRAL, cs.SPECTRAL_SIDE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    system = saddle.auto_spectral_capacities(system, state)
+    r = kin.blob_positions(system, state)
+    system = forces.auto_force_cell_capacity(system, r)
+    fcap = system.blob_blob_cell_capacity
+    fpos, dims, box, table, _ = forces._force_cells(
+        r, system.periodic_length, system.blob_blob_cutoff,
+        system.blob_blob_grid_dim, fcap)
+    return saddle.maybe_dense_mobility(system, r), (fpos, table, dims, box,
+                                                    fcap)
+
+
+def wall_force_scene(cs, dev):
+    """The wall path's wall-slab force cells at its first configuration,
+    float32, sized as chip_smoke.py phase 10 sizes them."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models import saddle
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    system = cs.wall_system(cs.N_WALL, cs.L_WALL)
+    pos, quat = cs.wall_lattice(cs.N_WALL, cs.WALL_SIDE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    system = saddle.auto_wall_height(system, state)
+    r = kin.blob_positions(system, state)
+    system = forces.auto_force_cell_capacity(system, r)
+    fcap = system.blob_blob_cell_capacity
+    fpos, dims, box, table, _ = forces._force_cells(
+        r, system.periodic_length, system.blob_blob_cutoff,
+        system.blob_blob_grid_dim, fcap, forces.force_z_extent(system))
+    return fpos, table, dims, box, fcap
+
+
+def print_cells(tag, pos, table, dims, box, cap, tile, r_cut=math.inf):
+    """A layout's work: targets a cell, stencils against the float32 tile,
+    candidate pairs (and those inside r_cut)."""
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import cells
+
+    ids = table.reshape(-1, cap).long()
+    live = (ids < pos.shape[0]).sum(1)
+    stencil = live[cells.neighbor_table(dims, device=ids.device)].sum(1)
+    cand, inside = ck.pair_counts(pos, table, dims, box, cap, r_cut)
+    print(f"  {tag}: cells {tuple(dims)} x cap {cap}; targets a cell mean "
+          f"{live.float().mean().item():.1f}, max {int(live.max())}; "
+          f"stencil sources mean {stencil.float().mean().item():.1f}, max "
+          f"{int(stencil.max())}, over one tile ({tile}): "
+          f"{int((stencil > tile).sum())} cells; {cand} candidate pairs"
+          + (f", {inside} inside r_cut" if math.isfinite(r_cut) else ""),
+          flush=True)
+
+
+def error_line(got, ref, plain32, rows):
+    scale = ref[rows].abs().max().item()
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    err32 = (plain32.double()[rows] - ref[rows]).abs().max().item()
+    return (f"; first 256 cells vs plain f64: kernel f32 {err / scale:.3e},"
+            f" plain f32 {err32 / scale:.3e} x max|ref|")
+
+
+def profile_k5(cs, dev, detail):
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+
+    _, periodic = periodic_scene(cs, dev)
+    kw = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * cs.A_BENCH)
+    sub = (0, 256)
+    for tag, (pos, table, dims, box, cap), guard in (
+            ("periodic box", periodic, False),
+            ("wall slab", wall_force_scene(cs, dev), True)):
+        run = (lambda: ck.nl_forces(pos, table, dims, box, cap,
+                                    guard_z=guard, **kw))
+        ms = cs.cuda_ms(run, 10)
+        line = f"  K5 {tag} {pos.shape[0]} blobs f32: {ms:.3f} ms"
+        if detail:
+            print_cells(f"K5 {tag}", pos, table, dims, box, cap,
+                        tile_f32("nl_forces.cu"))
+            got = run()
+            same = torch.equal(got, run())
+            ref = ck.nl_forces_plain(pos.double(), table, dims, box, cap,
+                                     cells_range=sub, **kw)
+            plain32 = ck.nl_forces_plain(pos, table, dims, box, cap,
+                                         cells_range=sub, **kw)
+            rows = cs._rows_of(table, pos.shape[0], cap, sub)
+            line += (error_line(got, ref, plain32, rows)
+                     + f"; repeat bit-identical {same}")
+        print(line, flush=True)
+
+
+def profile_k6(cs, dev, detail):
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+
+    plan, _ = periodic_scene(cs, dev)
+    p = plan.params
+    cap = p.cell_capacity
+    args = (plan.cell_table, plan.cell_dims, p.box, cap, plan.cheb)
+    kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
+    if detail:
+        print(f"  K6 plan: K {plan.cheb.shape[2]}, r_cut {p.r_cut:.4f}",
+              flush=True)
+        print_cells("K6", plan.positions, *args[:4],
+                    tile_f32("near_rpy.cu"), p.r_cut)
+    n = plan.positions.shape[0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    sub = (0, 256)
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        run = (lambda: ck.near_rpy(plan.positions, f, *args, **kw))
+        ms = cs.cuda_ms(run, 10)
+        line = f"  K6 {n} blobs B={n_rhs} f32: {ms:.3f} ms"
+        if detail:
+            got = run()
+            same = torch.equal(got, run())
+            dargs = args[:4] + (plan.cheb.double(),)
+            ref = ck.near_rpy_plain(plan.positions.double(), f.double(),
+                                    *dargs, cells_range=sub, **kw)
+            plain32 = ck.near_rpy_plain(plan.positions, f, *args,
+                                        cells_range=sub, **kw)
+            rows = cs._rows_of(plan.cell_table, n, cap, sub)
+            line += (error_line(got, ref, plain32, rows)
+                     + f"; repeat bit-identical {same}")
+        print(line, flush=True)
+
+
+# ---------------------------------------------------------------- K7
 
 
 def wall_plan(cs, dev):
@@ -210,7 +360,7 @@ def print_k7_plan(plan):
     cz = torch.arange(ids.shape[0], device=ids.device) % dims[2]
     keep = (cz >= lo) & (cz <= hi)
     stencil, targets = stencil[keep], (ids < plan.n_real).sum(1)[keep]
-    tile = k7_tile_f32()
+    tile = tile_f32("wall_near.cu")
     print(f"  K7 plan: cells {dims} x cap {cap}, K "
           f"{plan.near_tables.cheb.shape[2]}, Ki "
           f"{plan.near_tables.img_cheb.shape[2]}, {stencil.numel()} target "
@@ -257,7 +407,8 @@ def profile_k7(cs, dev, detail):
         print(line, flush=True)
 
 
-PROFILES = {"k1": profile_k1, "k2": profile_k2, "k7": profile_k7}
+PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
+            "k6": profile_k6, "k7": profile_k7}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -318,8 +469,8 @@ def sass_counts(lib_path, kernels, out_path):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
-    p.add_argument("--kernels", default="k1,k2,k7",
-                   help="comma-separated subset of k1, k2, k7")
+    p.add_argument("--kernels", default="k1,k2,k5,k6,k7",
+                   help="comma-separated subset of k1, k2, k5, k6, k7")
     p.add_argument("--baseline", action="store_true",
                    help="only the times of the paths' calls")
     p.add_argument("--sass-out",
