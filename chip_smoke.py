@@ -9,10 +9,11 @@ is non-zero and no result line is printed):
   1. device: requires CUDA (never falls back to the CPU); prints the
      card's name and power limit from nvidia-smi;
   2. build: compiles kernel K1 (csrc/pair_tt.cu, csrc/pair_couplings.cu
-     on csrc/pair_blocks.cuh), K2 (csrc/blob_forces.cu), K3
-     (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu), K5, K6 and K7
-     (csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu on
-     csrc/cell_sweep.cuh) with one nvcc per source, all started together,
+     on csrc/pair_blocks.cuh), K2 and its periodic instance
+     (csrc/blob_forces.cu), K3 (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu),
+     K5, K6, K7 and K8 (csrc/nl_forces.cu, csrc/near_rpy.cu,
+     csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) with
+     one nvcc per source, all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
   3. kernels against their plain PyTorch versions on the card: every K1
@@ -70,15 +71,30 @@ is non-zero and no result line is printed):
      each twice bit-identical, then one warm-up step
      and three timed steps with the launch counts, drops and clipped
      blobs (which must be 0).
+ 11. the rollers on the wall engine at full width: bench.py's rollers
+     configuration with BENCH_ROLLER_DOMAIN=single_wall_spectral, 32,768
+     rollers in a 291.2 x 291.2 box, slab top 1.8, tolerance 1e-4, grid at
+     most 512 (cell capacity 64), float32; the plan and rot tables
+     (timed), K8 (each variant of present forces and torques, the cells of
+     the first 256 xy columns against the float64 plain version, the
+     float32 plain version's error beside it, twice bit-identical) and
+     periodic K2 (the first 1024 rows against the float64 plain version
+     over every image box) at its shapes, then one warm-up step and three
+     timed steps through make_stepper: ms/step, solver counts,
+     rejections, overlaps, plan drops (0), peak device memory and the
+     launches of K8, K7 and periodic K2 (each must run; no other engine's
+     kernel may).
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
-K7 and the wall-slab K5 on a random ~3000-blob wall slab (K5, K6 and K7
-twice bit-identical),
+K7, K8 and the wall-slab K5 on a random ~3000-blob wall slab (K5, K6, K7
+and K8 twice bit-identical), periodic K2 on 1001 blobs in small boxes
+(all 9 or 27 image boxes),
 and K3 and K4 (float32 and float64, N below one tile and N off the tile
 edges; K4 bit-identical on repeat and blind to NaN in its strictly-lower
 tiles) at small N and at the 12,288 blobs of phase 9; phase 4 the
 spectral slice (27 shells, Slip-Trapz) and the wall spectral slice (8
 shells, on K7 and K5) on the card against the CPU (the 8-shell
-single_wall slice runs on K3/K4); phase 5 the CLI on generated
+single_wall slice runs on K3/K4) and 16 rollers on the wall engine (K8,
+K7 and periodic K2); phase 5 the CLI on generated
 periodic_spectral and single_wall_spectral inputs and the body_mobility
 and resistance modes on a generated 64-shell input (card float64 against
 CPU float64).
@@ -86,7 +102,7 @@ The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
 K5 its special functions at 16 a clock an SM, whichever is larger; K2
-and K7 also name their design);
+and K7 also name their design; K8 has a record per variant);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -153,8 +169,24 @@ FORCE_PAIR_MUFU = 2
 # right-hand side); a pair with an image source adds the image series'
 # domain map (~12), ten Ki-term Clenshaw series (3 each a term) and, per
 # right-hand side, img_terms (its operations counted from
-# csrc/wall_img_terms.cuh, img_terms_flops()) and the prefactor (6)
+# csrc/wall_img_terms.cuh, header_flops()) and the prefactor (6)
 K7_IMG_PAIR_FLOPS = 12
+# K8, for each real-source pair inside r_cut: the distance and the piece
+# map (10), the K-term Clenshaw series (3 each a term; gamma_r alone
+# without torques, gamma_r, alpha_r and beta_r with them), with forces the
+# cross product and its scaling (12), with torques the cross product (12)
+# and the rr block (18); for each image-source pair: the distance (8),
+# the image series' domain map (K7_IMG_PAIR_FLOPS), three Ki-term series
+# (the channels read c2_1..c2_3 only) and the generated channels
+# (img_terms_rt with forces, img_terms_tr and img_terms_rr with torques;
+# counted from csrc/wall_img_terms.cuh) with their prefactors (6 each)
+K8_REAL_PAIR_FLOPS = 10
+# periodic K2: the minimum image (a division, a truncation and a
+# multiply-add on each axis, ~4 each) before the boxes' magnitudes
+K2_MIN_IMAGE_FLOPS = 12
+# bench.py's rollers path on the wall-spectral engine (BENCH_ROLLER_DOMAIN
+# =single_wall_spectral): 32,768 rollers in a 291.2 x 291.2 box (182 a
+# side at spacing 1.6), slab top 1.8, tolerance 1e-4, grid at most 512
 # K3: tt's ~70 per pair to condense plus ~20 to expand and scale the 3x3
 # block; K4: two FMAs per matrix value read (the row and the transposed
 # product)
@@ -790,6 +822,19 @@ def phase_rollers_path(pk, mc):
           f"a kernel was not launched on the rollers path: {launches}")
     return launches
 
+def wall_roller_suspension(n, **overrides):
+    """bench.py's rollers configuration on domain single_wall_spectral for
+    n rollers; the near-field cell capacity 64 (the automatic rule gives
+    48 and drops ~380 of the 65,536 points of the starting lattice)."""
+    side = int(np.ceil(n ** 0.5))
+    kw = dict(domain="single_wall_spectral",
+              periodic_length=(side * 1.6, side * 1.6, 0.0),
+              spectral_wall_height=1.8, spectral_tol=1e-4,
+              spectral_grid_max=512, spectral_cell_capacity=64)
+    kw.update(overrides)
+    return roller_suspension(n, **kw)
+
+
 def u32_sqrt(n_terms):
     """f32 rounding of a sum of n_terms relative to its magnitude."""
     return float(np.finfo(np.float32).eps / 2 * np.sqrt(n_terms))
@@ -855,13 +900,15 @@ def k6_flops(ck, plan, n_rhs):
     return flops, flops + 8 * (cand - inside), cand, inside
 
 
-def img_terms_flops():
-    """Operations of one img_terms call, counted from the generated
-    header: every binary + - * of its body (the header writes a sum or
-    difference with spaces, a product as * with or without them)."""
+def header_flops(name="img_terms"):
+    """Operations of one call of the generated function `name`, counted
+    from csrc/wall_img_terms.cuh: every binary + - * of its body (the
+    header writes a sum or difference with spaces, a product as * with or
+    without them)."""
     path = os.path.join(ROOT, "rigidmultiblobswall_tpu_torch", "csrc",
                         "wall_img_terms.cuh")
-    body = open(path).read().split("{", 2)[2]
+    body = open(path).read().split(f"void {name}(", 1)[1]
+    body = body.split("{", 1)[1].split("\n}", 1)[0]
     return sum(body.count(op) for op in (" + ", " - ", "*"))
 
 
@@ -880,7 +927,7 @@ def k7_flops(ck, plan, n_rhs):
     K, Ki = args[4].shape[2], args[5].shape[2]
     flops = (inside * (8 + 6 + 6 * K + 19 * n_rhs)
              + img * (K7_IMG_PAIR_FLOPS + 30 * Ki
-                      + (img_terms_flops() + 6) * n_rhs))
+                      + (header_flops() + 6) * n_rhs))
     return flops, flops + 8 * (cand - inside), cand, inside, img
 
 
@@ -1582,6 +1629,420 @@ def phase_wall_path(pk, mc, ck):
     return rec, k5_wall
 
 
+K8_VARIANTS = {"ft": (True, True), "f": (True, False), "t": (False, True)}
+
+
+def k8_flops(ck, plan, cheb, which):
+    """Operations of one K8 sweep at this plan's data (see
+    K8_REAL_PAIR_FLOPS), counted on the real targets' pairs inside r_cut;
+    the 27-cell algorithm also tests every other candidate pair (8 each).
+    Returns (function operations, algorithm operations, candidate pairs,
+    inside pairs, pairs with an image source)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    p = plan.params
+    args, _ = ewr.near_args(plan, cheb)
+    cand, inside, img = ck.wall_pair_counts(plan.pos_all, *args[:4],
+                                            p.r_cut, p.z0)
+    K, Ki = args[4].shape[2], args[5].shape[2]
+    has_f, has_t = K8_VARIANTS[which]
+    per_real = (K8_REAL_PAIR_FLOPS + (9 if has_t else 3) * K
+                + (12 if has_f else 0) + (30 if has_t else 0))
+    per_img = (8 + K7_IMG_PAIR_FLOPS + 9 * Ki
+               + ((header_flops("img_terms_rt") + 6) if has_f else 0)
+               + ((header_flops("img_terms_tr") + header_flops("img_terms_rr")
+                   + 12) if has_t else 0))
+    flops = (inside - img) * per_real + img * per_img
+    return flops, flops + 8 * (cand - inside), cand, inside, img
+
+
+def k8_vs_plain(ck, plan, cheb, which, g, cells_range=None):
+    """K8 (variant `which`) against its plain version in float64 on the
+    cells of cells_range (every cell when None), on random strengths:
+    (max abs error, max|ref|, the float32 plain version's max abs error
+    against the same reference, bit-identical on repeat, the kernel's
+    call)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    dev = plan.pos_all.device
+    dtype = plan.pos_all.dtype
+    n = plan.n_real
+    has_f, has_t = K8_VARIANTS[which]
+    f, t = (torch.randn((n, 3), generator=g, device=dev, dtype=dtype)
+            if has else None for has in (has_f, has_t))
+    args, kw = ewr.near_args(plan, cheb)
+    layers = ew._kept_layers(plan.params, plan.cell_dims)
+
+    def call():
+        return ck.wall_rot_near(plan.pos_all, f, t, *args, cz_range=layers,
+                                **kw)
+
+    got = call()
+    same = torch.equal(got, call())
+    torch.cuda.synchronize()
+    dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in args)
+    ref = ck.wall_rot_near_plain(
+        plan.pos_all.double(), None if f is None else f.double(),
+        None if t is None else t.double(), *dargs, cells_range=cells_range,
+        **kw)
+    rows = _rows_of(plan.cell_table, n, plan.params.cell_capacity,
+                    cells_range)
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    err_plain = err
+    if dtype == torch.float32:
+        plain32 = ck.wall_rot_near_plain(plan.pos_all, f, t, *args,
+                                         cells_range=cells_range, **kw)
+        err_plain = (plain32.double()[rows] - ref[rows]).abs().max().item()
+    return err, ref[rows].abs().max().item(), err_plain, same, call
+
+
+def periodic_scene(n, box, seed=3):
+    """n blobs for periodic K2 checks: each periodic coordinate a random
+    fraction below 0.45 of the box plus a random whole box in {-1, 0, 1}
+    (so every pair's minimum image is needed, and none lies near half a
+    box, where the image chosen by a rounding decides which boxes are
+    summed); open axes uniform in [-2, 6); one coincident pair."""
+    rng = np.random.default_rng(seed)
+    L = np.asarray(box, dtype=np.float64)
+    frac = rng.uniform(0.0, 0.45, (n, 3)) + rng.integers(-1, 2, (n, 3))
+    r = np.where(L > 0, frac * L, rng.uniform(-2.0, 6.0, (n, 3)))
+    if n > 5:
+        r[5] = r[4]
+    return r
+
+
+def force_abs_scale(mc, r, rows, *, repulsion_strength, debye_length,
+                    blob_radius, periodic_length):
+    """max over the rows of sum_j |F_ij| (every image box), float64: the
+    scale of a force sum's rounding where its terms cancel (a lattice's
+    neighbors nearly balance, so max|F_i| alone understates it). A pair's
+    |F| is (eps/b) exp(-max(r - 2a, 0)/b), 0 at r = 0."""
+    r = r.double()
+    L = torch.as_tensor(periodic_length, dtype=r.dtype, device=r.device)
+    eob = repulsion_strength / debye_length
+    scale = 0.0
+    for i0 in range(rows.start, rows.stop, 128):
+        d0 = mc.min_image(r[i0:min(i0 + 128, rows.stop), None] - r[None],
+                          periodic_length)
+        total = torch.zeros(d0.shape[0], dtype=r.dtype, device=r.device)
+        for box in mc.box_offsets(periodic_length):
+            rn = torch.linalg.norm(d0 + torch.as_tensor(
+                box, dtype=r.dtype, device=r.device) * L, dim=-1)
+            mag = eob * torch.exp(-torch.clamp(rn - 2 * blob_radius, min=0)
+                                  / debye_length)
+            total += torch.where(rn > 0, mag, torch.zeros_like(mag)).sum(1)
+        scale = max(scale, total.max().item())
+    return scale
+
+
+def phase_rot_kernels(ck, mc):
+    """Phase 3, K8 and periodic K2 on small scenes: K8 (each variant of
+    present forces and torques) on the random 3000-blob wall slab of
+    phase_wall_kernels, float32 at 2e-5 x max|ref| (K7's bound on the same
+    image series) and float64 at 1e-12 against the plain version in
+    float64, twice bit-identical; periodic K2 with 1001 blobs in a small
+    box (1.5 x 1.5, Debye length 1: all nine image boxes) and fully
+    periodic (27 boxes), float32 at 3e-6 and float64 at 1e-12."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(12)
+    n, L, a, z_hi = 3000, 14.0, 0.3, 3.0
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, L, (n, 2))
+    r[:, 2] = rng.uniform(0.3 * a, 1.2 * z_hi, n)
+    r[7] = r[6]
+    r[9] = r[8] + 0.3 * a
+    p = dataclasses.replace(ew.default_wall_params(a, 1.0, (L, L), z_hi,
+                                                   tol=1e-4),
+                            cell_capacity=96)
+    cheb, _ = ewr._host_cheb_rot(p)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for dtype, bound_rel in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        plan = ew.make_wall_plan(p, torch.as_tensor(r, dtype=dtype,
+                                                    device=dev))
+        cheb_d = torch.as_tensor(cheb, dtype=dtype, device=dev)
+        check(int(plan.n_dropped_cells) == 0, "K8 scene overflows")
+        for which in K8_VARIANTS:
+            err, scale, err32, same, _ = k8_vs_plain(ck, plan, cheb_d, which,
+                                                     g)
+            log(f"K8 {n} blobs cells {plan.cell_dims} cap {p.cell_capacity} "
+                f"({which}) {dtype}: max err / max|ref| = {err / scale:.3e} "
+                f"(bound {bound_rel:g}; plain version in the same dtype "
+                f"{err32 / scale:.3e}); repeat bit-identical {same}")
+            check(err <= bound_rel * scale, f"K8 ({which}) disagrees "
+                  f"({err / scale})")
+            check(same, f"K8 ({which}) not bit-identical on repeat")
+    for box, b in (((1.5, 1.5, 0.0), 1.0), ((1.6, 1.4, 1.5), 0.8)):
+        r = periodic_scene(1001, box)
+        kw = dict(repulsion_strength=0.7, debye_length=b, blob_radius=0.3,
+                  periodic_length=box)
+        for dtype, bound_rel in ((torch.float32, 3e-6),
+                                 (torch.float64, 1e-12)):
+            rt = torch.as_tensor(r, dtype=dtype, device=dev)
+            got = mc.blob_blob_forces(rt, **kw)
+            same = torch.equal(got, mc.blob_blob_forces(rt, **kw))
+            ref = mc.blob_blob_forces_plain(rt.double(), **kw)
+            err = (got.double() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            n_boxes = len(mc.image_boxes(box, b, 0.3, dtype))
+            log(f"K2 periodic 1001 blobs box {box} ({n_boxes} boxes) "
+                f"{dtype}: max err / max|ref| = {err / scale:.3e} (bound "
+                f"{bound_rel:g}); repeat bit-identical {same}")
+            check(err <= bound_rel * scale, f"periodic K2 disagrees in box "
+                  f"{box} ({err / scale})")
+            check(same, "periodic K2 not bit-identical on repeat")
+
+
+def phase_wall_roller_parity():
+    """Phase 4, rollers on the wall-spectral engine: 16 rollers in a 14 x
+    14 box (tests/test_torch_rollers.py's scene, tolerance 1e-3) x 3 steps
+    of stochastic_adams_bashforth_rollers, GPU f64 against CPU f64 at
+    kT = 2e-3 (the same host-drawn noise) and GPU f32 against CPU f64 at
+    kT = 0; K8 and periodic K2 run on the card."""
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+
+    n, L = 16, 14.0
+    rng = np.random.default_rng(11)
+    r0 = np.stack([rng.uniform(0, L, n), rng.uniform(0, L, n),
+                   rng.uniform(0.55, 1.2, n)], axis=1)
+    common = dict(eta=0.9, blob_radius=0.5, g=0.05, repulsion_strength=0.1,
+                  debye_length=0.2, repulsion_strength_wall=0.1,
+                  debye_length_wall=0.2, omega_one_roller=(0.0, 4.0, 0.0),
+                  lanczos_max_iter=12, periodic_length=(L, L, 0.0),
+                  spectral_tol=1e-3, spectral_wall_height=1.4,
+                  spectral_cell_capacity=0)
+    scheme = "stochastic_adams_bashforth_rollers"
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    mc.PERIODIC_LAUNCHES = 0
+    sus64 = wall_roller_suspension(n, kT=2e-3, solver_tolerance=1e-12,
+                                   **common)
+    ref, _ = run_roller_steps(sus64, r0, scheme, torch.float64, "cpu")
+    got64, aux = run_roller_steps(sus64, r0, scheme, torch.float64, DEVICE)
+    sus0 = wall_roller_suspension(n, kT=0.0, solver_tolerance=1e-12,
+                                  **common)
+    ref0, _ = run_roller_steps(sus0, r0, scheme, torch.float64, "cpu")
+    got32, _ = run_roller_steps(
+        wall_roller_suspension(n, kT=0.0, solver_tolerance=1e-5, **common),
+        r0, scheme, torch.float32, DEVICE)
+    disp, disp0 = np.abs(ref - r0).max(), np.abs(ref0 - r0).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref0).max() / disp0
+    launches = {k: ck.LAUNCHES[k] for k in (
+        "wall_near_b1", "wall_rot_near_ft", "wall_rot_near_f",
+        "wall_rot_near_t")}
+    launches["K2 periodic"] = mc.PERIODIC_LAUNCHES
+    log(f"wall-spectral rollers parity, 16 rollers x 3 steps of {scheme} "
+        f"(max displacement {disp:.3e} at kT = 2e-3, {disp0:.3e} at kT = "
+        f"0), max error / max displacement: GPU f64 vs CPU f64 {e64:.3e} "
+        f"(bound 1e-9), GPU f32 vs CPU f64 at kT = 0 {e32:.3e} (bound "
+        f"1e-2); gmres {aux.det_iterations}, lanczos {aux.stoch_iterations};"
+        f" launches {launches}")
+    check(disp > 0 and disp0 > 0 and e64 <= 1e-9 and e32 <= 1e-2,
+          "wall-spectral rollers parity")
+    check(min(launches.values()) > 0, "the wall-spectral rollers slice did "
+          f"not run on K7 (B = 1), K8 (every variant) and periodic K2: "
+          f"{launches}")
+
+
+def phase_wall_rollers_path(pk, mc, ck):
+    """Phase 11: bench.py's rollers step on the wall-spectral engine at
+    32,768 rollers, float32. Builds the plan and the host and device
+    tables (timed), checks K8 (each variant) and periodic K2 at the path's
+    shapes, then drives the path through make_stepper: one warm-up step
+    and three timed steps. Returns the kernel records."""
+    from rigidmultiblobswall_tpu_torch.models import rollers
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    dev = torch.device(DEVICE)
+    sus = wall_roller_suspension(N_ROLLERS)
+    r = torch.as_tensor(roller_lattice(N_ROLLERS), device=dev)
+    n = N_ROLLERS
+    t0 = time.perf_counter()
+    carry = rollers.init_carry(sus, positions=r)
+    plan, tables = carry.plan, carry.rot_tables
+    torch.cuda.synchronize()
+    t_rot = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tt_tables = plan.tables
+    torch.cuda.synchronize()
+    t_tt = time.perf_counter() - t0
+    p = plan.params
+    log(f"wall rollers plan: grid {p.grid}, r_cut {p.r_cut:.4f} "
+        f"({p.r_cut / p.a:.1f} a), xi {p.xi:.4f}, support {p.support}, cells "
+        f"{plan.cell_dims} x cap {p.cell_capacity}, dropped "
+        f"{int(plan.n_dropped_cells)}, clipped {int(plan.n_clipped)}; rot "
+        f"remainder terms {tables.cheb.shape[2]}, image series "
+        f"{plan.near_tables.img_cheb.shape[2]}, "
+        f"{tt_tables.polish_idx.shape[0]} polish columns; image multiplier "
+        f"columns rt {len(tables.mult_rt)}, tr {len(tables.mult_tr)}, rr "
+        f"{len(tables.mult_rr)}; rot tables {tables.nbytes() / 2 ** 30:.2f} "
+        f"GiB on the device; plan + rot tables built in {t_rot:.2f} s "
+        f"(host Chebyshev fit and polish kernels included), tt tables in "
+        f"{t_tt:.2f} s")
+    check(int(plan.n_dropped_cells) == 0, "wall rollers plan drops points")
+    # bench.py runs this configuration with the automatic cell capacity
+    # (both packages' rule): what that capacity drops at the lattice
+    auto = ewald_wall.make_wall_plan(
+        dataclasses.replace(p, cell_capacity=0), r)
+    log(f"wall rollers plan at the automatic cell capacity "
+        f"{auto.params.cell_capacity}: dropped "
+        f"{int(auto.n_dropped_cells)} of {2 * n} points (the path runs at "
+        f"{p.cell_capacity})")
+    del auto
+
+    # K8 at the path's plan: the cells of the first 256 xy columns (the
+    # reals and images share the lowest z layer) against the plain version
+    # in float64, each variant
+    g = torch.Generator(device=dev).manual_seed(5)
+    sub = (0, 256 * plan.cell_dims[2])
+    records = {}
+    bound_rel = 2e-5
+    nbytes0 = (4 * 2 * n * 3 + 4 * n * 6 + plan.cell_table.numel() * 4
+               + 4 * (tables.cheb.numel() + plan.near_tables.img_cheb.numel()))
+    for which, (has_f, has_t) in K8_VARIANTS.items():
+        err, scale, err32, same, call = k8_vs_plain(ck, plan, tables.cheb,
+                                                    which, g,
+                                                    cells_range=sub)
+        ms = cuda_ms(call, 10)
+        f_, t_ = (torch.randn((n, 3), generator=g, device=dev)
+                  if has else None for has in (has_f, has_t))
+        args, kw = ewr.near_args(plan, tables.cheb)
+        plain_ms = cuda_ms(lambda: ck.wall_rot_near_plain(
+            plan.pos_all, f_, t_, *args, **kw), 1, warmup=False)
+        flops, algo_flops, cand, inside, img = k8_flops(ck, plan,
+                                                        tables.cheb, which)
+        nbytes = nbytes0 + 4 * n * 3 * (has_f + has_t)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bound_record(nbytes, flops))
+        algo = bound_record(nbytes, algo_flops)
+        log(f"K8 ({which}) {n} rollers f32, first {sub[1]} cells vs plain "
+            f"f64: max err {err:.3e}, / max|ref| = {err / scale:.3e} (bound "
+            f"{bound_rel:g}; plain f32 {err32 / scale:.3e}); repeat "
+            f"bit-identical {same}; kernel {ms:.3f} ms, plain f32 "
+            f"{plain_ms:.1f} ms; {cand} candidate pairs of the real targets, "
+            f"{inside} inside r_cut, {img} of them with an image source; "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / ms:.1%} of it; the 27-cell algorithm's "
+            f"{algo['bound_ms']:.4f} ms)")
+        check(err <= bound_rel * scale, f"K8 ({which}) disagrees at {n} "
+              "rollers")
+        check(same, f"K8 ({which}) not bit-identical on repeat at {n} "
+              "rollers")
+        records[f"K8 {which}"] = rec
+
+    # periodic K2 at the path's shape: the first 1024 rows against the
+    # plain version in float64 (every image box; the kernel sums those of
+    # image_boxes)
+    kw2 = dict(repulsion_strength=sus.repulsion_strength,
+               debye_length=sus.debye_length, blob_radius=sus.blob_radius,
+               periodic_length=sus.periodic_length)
+    got = mc.blob_blob_forces(r, **kw2)
+    same = torch.equal(got, mc.blob_blob_forces(r, **kw2))
+    rows = range(0, 1024)
+    ref = mc.blob_blob_forces_plain(r.double(), rows=rows, **kw2)[:1024]
+    err = (got[:1024].double() - ref).abs().max().item()
+    # the lattice's neighbor forces nearly cancel: the rounding scale is
+    # the sum of the pair forces' sizes, not max|F|; and a pair across the
+    # periodic edge takes its float32 displacement from coordinates and a
+    # box near L: its rounding, ~u32 2 L, moves the force by that over b
+    scale = force_abs_scale(mc, r, rows, **kw2)
+    rel = err / scale
+    ref32 = mc.blob_blob_forces_plain(r, rows=rows, **kw2)[:1024]
+    rel32 = (ref32.double() - ref).abs().max().item() / scale
+    bound_k2 = float(np.finfo(np.float32).eps / 2) * 4 * max(
+        sus.periodic_length) / sus.debye_length
+    ms = cuda_ms(lambda: mc.blob_blob_forces(r, **kw2), 10)
+    plain_ms = cuda_ms(lambda: mc.blob_blob_forces_plain(r, **kw2), 1,
+                       warmup=False)
+    n_boxes = len(mc.image_boxes(sus.periodic_length, sus.debye_length,
+                                 sus.blob_radius, torch.float32))
+    pairs = n * (n - 1) // 2 * n_boxes
+    rec = bound_record(4 * 3 * n * 2,
+                       pairs * (FORCE_PAIR_FLOPS + FORCE_APPLY_FLOPS)
+                       + n * (n - 1) // 2 * K2_MIN_IMAGE_FLOPS,
+                       pairs * FORCE_PAIR_MUFU)
+    log(f"K2 periodic {n} rollers f32 box {sus.periodic_length} ({n_boxes} "
+        f"of {len(mc.box_offsets(sus.periodic_length))} image boxes summed), "
+        f"first 1024 rows vs plain f64 (every box): max err {err:.3e}, / "
+        f"max_i sum_j |F_ij| = {rel:.3e} (bound u32 4 L / b = "
+        f"{bound_k2:.2e}; the plain version in f32 {rel32:.3e}; / max|ref| "
+        f"{err / ref.abs().max().item():.3e}); repeat bit-identical "
+        f"{same}; kernel {ms:.3f} ms, plain f32 {plain_ms:.1f} ms; bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.1%} of it)")
+    check(rel <= bound_k2, f"periodic K2 disagrees at {n} rollers")
+    check(same, f"periodic K2 not bit-identical on repeat at {n} rollers")
+    records["K2 periodic"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  **rec)
+
+    # the path: one warm-up step and three timed steps
+    step = rollers.make_stepper(sus, "stochastic_adams_bashforth_rollers",
+                                1e-3, max_rejections=3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.PERIODIC_LAUNCHES = 0
+    t0 = time.perf_counter()
+    r, carry, aux = step(r, gen, carry)               # warm-up
+    torch.cuda.synchronize()
+    log(f"wall rollers path warm-up step: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, rejections "
+        f"{aux.rejections}, wall overlaps {aux.wall_overlaps}")
+    n_timed = 3
+    det, sto, rej, ovl = [aux.det_iterations], [aux.stoch_iterations], \
+        [aux.rejections], [aux.wall_overlaps]
+    drops = [aux.plan_drops]
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        r, carry, aux = step(r, gen, carry)
+        det.append(aux.det_iterations)
+        sto.append(aux.stoch_iterations)
+        rej.append(aux.rejections)
+        ovl.append(aux.wall_overlaps)
+        drops.append(aux.plan_drops)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    drops.append(int(carry.plan.n_dropped_cells))     # at the last positions
+    launches = {f"K8 {w}": ck.LAUNCHES[f"wall_rot_near_{w}"]
+                for w in K8_VARIANTS}
+    launches["K7"] = ck.LAUNCHES["wall_near_b1"] + ck.LAUNCHES["wall_near_b2"]
+    launches["K2 periodic"] = mc.PERIODIC_LAUNCHES
+    others = {"K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES,
+              "K5": ck.LAUNCHES["nl_forces"],
+              "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"wall rollers path {n} rollers stochastic_adams_bashforth_rollers "
+        f"f32: {ms:.1f} ms/step over {n_timed} steps (after a warm-up); "
+        f"gmres sweeps {det}, lanczos {sto}, rejections {rej}, wall "
+        f"overlaps {ovl}, plan drops {drops} (RollerAux.plan_drops from "
+        f"the warm-up on, then the final plan's), peak device "
+        f"memory {peak:.2f} GiB, launches over the 4 steps {launches}, "
+        f"other engines' kernels {others}")
+    check(bool(torch.isfinite(r).all()), "wall roller positions not finite")
+    check(r.shape == (n, 3), "wall roller positions shape")
+    check(min(det) > 0 and min(sto) > 0 and max(sto) <= sus.lanczos_max_iter,
+          "GMRES or Lanczos iterations out of range")
+    check(max(drops) == 0, f"plan drops on the wall rollers path: {drops}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the wall rollers path: {launches}")
+    check(all(v == 0 for v in others.values()),
+          f"another engine's kernel ran on the wall rollers path: {others}")
+    for which in K8_VARIANTS:
+        records[f"K8 {which}"]["launches"] = launches[f"K8 {which}"]
+    records["K2 periodic"]["launches"] = launches["K2 periodic"]
+    return records
+
+
 def _nan_lower_tiles(m, tile):
     """Overwrite the strictly-lower (3 tile)-edge tiles of m with NaN."""
     t = 3 * tile
@@ -1923,12 +2384,14 @@ def main():
     records.update(phase_roller_kernels(pk, mob))
     phase_cell_kernels(ck, cells, ewald)
     phase_wall_kernels(ck)
+    phase_rot_kernels(ck, mc)
     phase_dense_kernels_small(mc)
     records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
     phase_wall_parity(ck)
+    phase_wall_roller_parity()
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
@@ -1944,6 +2407,7 @@ def main():
     phase_spectral_cli_full()
     dense_launches = phase_dense_path(pk, mc)               # phase 9
     k7, k5_wall = phase_wall_path(pk, mc, ck)               # phase 10
+    rot = phase_wall_rollers_path(pk, mc, ck)               # phase 11
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # tt's two records count the launches of their own instance (B = 1,
@@ -1997,6 +2461,17 @@ def main():
         name="K7 wall_near", route="cuda",
         source="rigidmultiblobswall_tpu_torch/csrc/wall_near.cu",
         replaces="rigidmultiblobswall_tpu/ops/ewald_wall.py:942", **k7))
+    for which, label in (("ft", "(f, t)"), ("f", "(f)"), ("t", "(t)")):
+        kernels.append(dict(
+            name=f"K8 wall_rot_near {label}", route="cuda",
+            source="rigidmultiblobswall_tpu_torch/csrc/wall_rot_near.cu",
+            replaces="rigidmultiblobswall_tpu/ops/ewald_wall_rot.py:153",
+            **rot[f"K8 {which}"]))
+    kernels.append(dict(
+        name="K2 blob_forces periodic", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
+        replaces="rigidmultiblobswall_tpu/ops/forces.py:48",
+        **rot["K2 periodic"]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

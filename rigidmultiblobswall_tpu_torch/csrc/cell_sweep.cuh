@@ -1,7 +1,8 @@
 // The 27-cell walk shared by kernels K5 (nl_forces.cu, linked-cell blob
 // repulsion), K6 (near_rpy.cu, near-field RPY remainder of the spectral
-// engine) and K7 (wall_near.cu, the spectral wall engine's near field)
-// over the fixed-capacity cell table of ops/cells.py.
+// engine), K7 (wall_near.cu, the spectral wall engine's near field) and
+// K8 (wall_rot_near.cu, its rot couplings) over the fixed-capacity cell
+// table of ops/cells.py.
 //
 // Replaces the TPU layout of rigidmultiblobswall_tpu/ops/cells.py: there
 // every cell's 27 neighbor cells are pre-gathered once per plan into a
@@ -15,7 +16,7 @@
 // table[c cap .. c cap + cap - 1]; the live slots are a prefix, the rest
 // hold the sentinel id n. The dims are at least 4 a side (the wrapper
 // checks), so the 27 stencil cells and their images are distinct. A wall
-// slab (K5's wall-slab forces, K7) may have 3 or 2 z layers when its top
+// slab (K5's wall-slab forces, K7, K8) may have 3 or 2 z layers when its top
 // layer is an empty guard: with 3 the z offsets -1, 0, +1 still name three
 // distinct layers; with 2 the offsets -1 and +1 of the data layer both
 // name the guard. Either way the z wrap lands only on the empty guard, so
@@ -30,11 +31,12 @@
 // double and rounded once, so a float32 displacement carries the rounding
 // of coordinates of a few cell sides, not of the box (at a 33.6 box,
 // absolute float32 coordinates and their shifted images round at up to
-// 4e-6). K6 and K7 then filter the candidates a warp-step at a time
+// 4e-6). K6, K7 and K8 then filter the candidates a warp-step at a time
 // (candidate), queue the pairs inside r_cut into rings in shared memory
 // (append), and evaluate the RPY remainder of a pair (Remainder) from a
 // two-piece Chebyshev table staged as rows that one 16-byte load reads
-// (stage_cheb).
+// (stage_cheb); K7 and K8 share the whole compacted walk of a staged tile
+// (compacted_walk), each with its own pair evaluations.
 // A particle dropped by overflow is in no cell and its row stays as the
 // wrapper initialized it (zero).
 
@@ -280,6 +282,155 @@ __device__ __forceinline__ unsigned append(E* ring, unsigned tail, bool keep,
   const unsigned slot = (tail + __popc(mask & below)) % R;
   ring[keep ? slot : R + threadIdx.x % 32] = value;
   return tail + __popc(mask);
+}
+
+// Whether candidate j of the staged rows lies inside r_cut of the target,
+// as a real-source or an image-source pair of the wall engine's combined
+// set (the row's w holds the source's physical z, negative at an image; a
+// far row is neither). K7 and K8.
+template <typename T>
+__device__ __forceinline__ void classify(const T* rows, int j, T tx, T ty,
+                                         T tz, T rc2, bool& in_r,
+                                         bool& in_i) {
+  T src[4];
+  const bool in = candidate(rows, j, tx, ty, tz, rc2, src);
+  const bool image = in && src[3] < T(0);
+  in_r = in && !image;
+  in_i = image;
+}
+
+// One batch of `count` (<= 32) image-ring entries (target << 16 | source)
+// of a warp's ring of R slots, lane k taking entry k: image(te, j, u)
+// evaluates source j against staged target te into u[NO] (zeroed). The
+// entries come in target order, so the batch holds runs of one target
+// each: every run is summed in a fixed xor tree and added into its
+// target's row (ids[te]) of out by lane 0; components below Q0 are never
+// written (always zero).
+template <int R, int NO, int Q0, typename T, typename Image>
+__device__ __forceinline__ void drain_images(const unsigned* ring,
+                                             unsigned head, unsigned count,
+                                             unsigned lane, const int* ids,
+                                             T* out, const Image& image) {
+  T u[NO];
+#pragma unroll
+  for (int q = 0; q < NO; ++q) u[q] = T(0);
+  int te = -1;
+  if (lane < count) {
+    const unsigned e = ring[(head + lane) % R];
+    te = static_cast<int>(e >> 16);
+    image(te, static_cast<int>(e & 0xffffu), u);
+  }
+  unsigned pending = __ballot_sync(0xffffffffu, lane < count);
+  while (pending) {
+    const int t0 = __shfl_sync(0xffffffffu, te, __ffs(pending) - 1);
+    const bool mine = te == t0;
+    pending &= ~__ballot_sync(0xffffffffu, mine);
+    T* row = out + static_cast<size_t>(NO) * ids[t0];
+#pragma unroll
+    for (int q = Q0; q < NO; ++q) {
+      T v = mine ? u[q] : T(0);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) row[q] += v;
+    }
+  }
+}
+
+// The compacted walk of K7 and K8 over one staged tile of m sources (rows
+// (x, y, z, physical z) padded with far rows to whole 64-steps) for the nt
+// staged targets (tgt (nt, 4), ids their particle ids). A warp takes its
+// targets one at a time (t = warp, warp + warps, ...), tests 64
+// candidates a step as two independent halves of 32 and appends the pairs
+// inside r_cut, with ballot and popc prefixes, in the stencil's order to
+// two rings of R slots (ring_slots<R>() in memory): the target's
+// real-source pairs (real(j, tgt, acc) into the lane's own sums acc[NO])
+// and the warp's image-source pairs, which carry their target and run on
+// across the warp's targets (image(te, j, u), drained by drain_images).
+// Whenever a ring holds 32 pairs the warp evaluates them with every lane
+// busy; the real ring's partial batch runs after the target's last step,
+// then the lanes reduce in a fixed xor tree and lane 0 adds the row; the
+// image ring's partial batch drains after the warp's last target. Each
+// row belongs to one warp at a time; every order depends only on the
+// data: no atomics, bit-identical on repeat. Components below Q0 are
+// never written. No barrier.
+template <int R, int NO, int Q0, typename T, typename Real, typename Image>
+__device__ __forceinline__ void compacted_walk(
+    const T* src_rows, const T* tgt_rows, const int* ids, int m, int nt,
+    T rc2, unsigned short* ring_r, unsigned* ring_i, T* out, const Real& real,
+    const Image& image) {
+  const int warps = kThreads / 32;
+  const int warp = threadIdx.x / 32;
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  // ring heads and tails are uniform across the warp; the image ring
+  // carries over from one of the warp's targets to the next
+  unsigned i_head = 0, i_tail = 0;
+  // one pass past the warp's last target flushes the image ring (one call
+  // site per ring keeps each evaluation's code once in the instruction
+  // cache)
+  for (int t = warp;; t += warps) {
+    const bool done = t >= nt;
+    const int mt = done ? 0 : m;
+    T tgt[4] = {T(0), T(0), T(0), T(0)};
+    if (!done) load_vec<4>(tgt_rows + 4 * t, tgt);
+    T acc[NO];
+#pragma unroll
+    for (int q = 0; q < NO; ++q) acc[q] = T(0);
+    unsigned r_head = 0, r_tail = 0;
+    // 64 candidates a step, as two independent halves; one step past the
+    // tile drains the real ring's last partial batch
+    for (int c0 = 0;; c0 += 64) {
+      const bool last = c0 >= mt;
+      if (!last) {
+        bool ra, ia, rb, ib;
+        classify(src_rows, c0 + lane, tgt[0], tgt[1], tgt[2], rc2, ra, ia);
+        classify(src_rows, c0 + 32 + lane, tgt[0], tgt[1], tgt[2], rc2, rb,
+                 ib);
+        const unsigned key = static_cast<unsigned>(t) << 16;
+        using u16 = unsigned short;
+        r_tail = append<R>(ring_r, r_tail, ra, u16(c0 + lane), below);
+        i_tail = append<R>(ring_i, i_tail, ia, key | (c0 + lane), below);
+        r_tail = append<R>(ring_r, r_tail, rb, u16(c0 + 32 + lane), below);
+        i_tail = append<R>(ring_i, i_tail, ib, key | (c0 + 32 + lane),
+                           below);
+        __syncwarp();
+      }
+      // full batches of the real ring, lane k on entry k into its own
+      // sums; after the target's last step its partial batch
+      for (;;) {
+        const unsigned nr = r_tail - r_head;
+        if (nr < 32 && !(last && nr > 0)) break;
+        if (lane < nr) real(int(ring_r[(r_head + lane) % R]), tgt, acc);
+        r_head += min(nr, 32u);
+      }
+      // full batches of the image ring; its partial batch once the warp's
+      // targets are done
+      for (;;) {
+        const unsigned ni = i_tail - i_head;
+        if (ni < 32 && !(done && ni > 0)) break;
+        drain_images<R, NO, Q0>(ring_i, i_head, min(ni, 32u), lane, ids,
+                                out, image);
+        i_head += min(ni, 32u);
+      }
+      __syncwarp();   // drained slots are read before they are refilled
+      if (last) break;
+    }
+    if (done) break;
+    // the real sources' sums: a fixed xor tree over the warp's 32 lanes
+#pragma unroll
+    for (int q = Q0; q < NO; ++q) {
+      T v = acc[q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      acc[q] = v;
+    }
+    if (lane == 0) {
+      T* row = out + static_cast<size_t>(NO) * ids[t];
+      for (int q = Q0; q < NO; ++q) row[q] += acc[q];
+    }
+  }
 }
 
 // Terms of a staged remainder table: K rounded up to even (the padding

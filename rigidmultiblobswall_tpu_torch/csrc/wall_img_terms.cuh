@@ -1,14 +1,15 @@
 // GENERATED by rigidmultiblobswall_tpu_torch/ops/_emit_wall_cuh.py from
-// ops/_wall_channels_gen.py (img_terms) -- do not edit.
-//
-// (T0 + h T1 + h^2 T2) f of the Swan-Brady image channels at the image
-// displacement (dx, dy, rz), source height h, equal radii A2, from the
-// ten radial values c4_0..c4_4, c2_0..c2_4 (see the Python docstring).
+// ops/_wall_channels_gen.py (img_terms, img_terms_rt, img_terms_tr, img_terms_rr)
+// -- do not edit. See the Python docstrings.
 
 #pragma once
 
 namespace wallk {
 
+// img_terms (kernel K7): (T0 + h T1 + h^2 T2) f of the Swan-Brady image
+// channels at the image displacement (dx, dy, rz), source height h, equal
+// radii A2; of the ten radial values c4_0..c4_4, c2_0..c2_4 it reads c4_1,
+// c4_2, c4_3, c4_4, c2_0, c2_1, c2_2, c2_3, c2_4.
 template <typename T>
 __device__ __forceinline__ void img_terms(T dx, T dy, T rz, T h, T fx, T fy, T fz, T A2, T c4_0, T c4_1, T c4_2, T c4_3, T c4_4, T c2_0, T c2_1, T c2_2, T c2_3, T c2_4,
     T& ux_out, T& uy_out, T& uz_out) {
@@ -96,6 +97,89 @@ __device__ __forceinline__ void img_terms(T dx, T dy, T rz, T h, T fx, T fy, T f
   ux_out = ux;
   uy_out = uy;
   uz_out = uz;
+}
+
+// img_terms_rt (kernel K8): angular velocity from an image force, (C0 + h
+// C1) f at the image displacement (dx, dy, rz), h the SOURCE height; of the
+// ten radial values c4_0..c4_4, c2_0..c2_4 it reads c2_1, c2_2, c2_3.
+template <typename T>
+__device__ __forceinline__ void img_terms_rt(T dx, T dy, T rz, T h, T fx, T fy, T fz, T c4_0, T c4_1, T c4_2, T c4_3, T c4_4, T c2_0, T c2_1, T c2_2, T c2_3, T c2_4,
+    T& wx_out, T& wy_out, T& wz_out) {
+  const T t0 = (T(2.0) * c2_1);
+  const T t1 = (c2_1 * fy);
+  const T t2 = (T(4.0) * h);
+  const T t3 = (T((8.0 / 3.0)) * c2_2);
+  const T t4 = (fy * rz);
+  const T t5 = ((T(8.0) * c2_2) * h);
+  const T t6 = (fx * rz);
+  const T t7 = (T((16.0 / 3.0)) * c2_3);
+  const T t8 = (t6 * t7);
+  const T t9 = (dx * dy);
+  const T t10 = (dy*dy);
+  const T t11 = (fy * t5);
+  const T t12 = (rz*rz);
+  const T t13 = (t4 * t7);
+  const T t14 = (dx * fz);
+  const T t15 = (dx*dx);
+  const T wx = (((((((((((((T(2.0) * c2_1) * fy) * rz) + (((((T(8.0) * c2_2) * dy) * fz) * h) * rz)) + (((T((8.0 / 3.0)) * c2_2) * dy) * fz)) + ((((T((16.0 / 3.0)) * c2_3) * dy) * fz) * t12)) - (((dx * dy) * fx) * t5)) - ((dy * fz) * t0)) - (t1 * t2)) - (t10 * t11)) - (t10 * t13)) - (t3 * t4)) - (t8 * t9));
+  const T wy = ((((((((((((c2_1 * fx) * t2) + ((fx * t15) * t5)) - ((rz * t14) * t5)) + (t0 * t14)) - (t0 * t6)) + (t11 * t9)) - ((t12 * t14) * t7)) + (t13 * t9)) - (t14 * t3)) + (t15 * t8)) + (t3 * t6));
+  const T wz = ((((T(2.0) * c2_1) * dy) * fx) - ((T(2.0) * dx) * t1));
+  wx_out = wx;
+  wy_out = wy;
+  wz_out = wz;
+}
+
+// img_terms_tr (kernel K8): velocity from an image torque, W_rt(-dx, -dy,
+// rz, h)^T t, h the TARGET height; of the ten radial values c4_0..c4_4,
+// c2_0..c2_4 it reads c2_1, c2_2, c2_3.
+template <typename T>
+__device__ __forceinline__ void img_terms_tr(T dx, T dy, T rz, T h, T tx, T ty, T tz, T c4_0, T c4_1, T c4_2, T c4_3, T c4_4, T c2_0, T c2_1, T c2_2, T c2_3, T c2_4,
+    T& ux_out, T& uy_out, T& uz_out) {
+  const T t0 = (T(2.0) * c2_1);
+  const T t1 = (t0 * tz);
+  const T t2 = (rz * ty);
+  const T t3 = (h * tx);
+  const T t4 = (T(8.0) * c2_2);
+  const T t5 = (t3 * t4);
+  const T t6 = (dx * dy);
+  const T t7 = (rz * tx);
+  const T t8 = (T((16.0 / 3.0)) * c2_3);
+  const T t9 = (t7 * t8);
+  const T t10 = (dx*dx);
+  const T t11 = (T((8.0 / 3.0)) * c2_2);
+  const T t12 = (dy*dy);
+  const T t13 = (dy * tx);
+  const T t14 = (rz*rz);
+  const T ux = ((((((((((T(4.0) * c2_1) * h) * ty) + ((((T(8.0) * c2_2) * h) * t10) * ty)) + (((T((8.0 / 3.0)) * c2_2) * rz) * ty)) + ((((T((16.0 / 3.0)) * c2_3) * rz) * t10) * ty)) - (dy * t1)) - (t0 * t2)) - (t5 * t6)) - (t6 * t9));
+  const T uy = (((((((((T(-4.0) * c2_1) * t3) + (dx * t1)) + (((h * t4) * t6) * ty)) + (t0 * t7)) - (t11 * t7)) - (t12 * t5)) - (t12 * t9)) + ((t2 * t6) * t8));
+  const T uz = ((((((((((T(2.0) * c2_1) * dy) * tx) + (((((T(8.0) * c2_2) * dx) * h) * rz) * ty)) + (((T((8.0 / 3.0)) * c2_2) * dx) * ty)) + ((((T((16.0 / 3.0)) * c2_3) * dx) * t14) * ty)) - ((dx * t0) * ty)) - ((dy * rz) * t5)) - (t11 * t13)) - ((t13 * t14) * t8));
+  ux_out = ux;
+  uy_out = uy;
+  uz_out = uz;
+}
+
+// img_terms_rr (kernel K8): angular velocity from an image torque (height
+// independent); of the ten radial values c4_0..c4_4, c2_0..c2_4 it reads
+// c2_1, c2_2.
+template <typename T>
+__device__ __forceinline__ void img_terms_rr(T dx, T dy, T rz, T tx, T ty, T tz, T c4_0, T c4_1, T c4_2, T c4_3, T c4_4, T c2_0, T c2_1, T c2_2, T c2_3, T c2_4,
+    T& wx_out, T& wy_out, T& wz_out) {
+  const T t0 = (T(7.0) * c2_1);
+  const T t1 = (c2_2 * ty);
+  const T t2 = (T(6.0) * t1);
+  const T t3 = (dx * dy);
+  const T t4 = ((T(2.0) * c2_2) * tz);
+  const T t5 = (rz * t4);
+  const T t6 = (c2_2 * tx);
+  const T t7 = (T(6.0) * t6);
+  const T t8 = (rz*rz);
+  const T t9 = (T(8.0) * t8);
+  const T wx = ((((((-(dx*dx)) * t7) - (dx * t5)) - (t0 * tx)) - (t2 * t3)) - (t6 * t9));
+  const T wy = ((((((-(dy*dy)) * t2) - (dy * t5)) - (t0 * ty)) - (t1 * t9)) - (t3 * t7));
+  const T wz = (((((-c2_1) * tz) + ((((T(2.0) * c2_2) * dx) * rz) * tx)) + ((((T(2.0) * c2_2) * dy) * rz) * ty)) - (t4 * t8));
+  wx_out = wx;
+  wy_out = wy;
+  wz_out = wz;
 }
 
 }  // namespace wallk

@@ -33,8 +33,10 @@
 //
 // Design, a compacted walk on cell_sweep.cuh's pieces (the stencil and
 // target staging, the candidate test and ring append, the remainder
-// series), which K6 (near_rpy.cu) shares: one block per target cell of the
-// layers that can hold real particles ([cz_lo, cz_hi]); the image-only
+// series, which K6 (near_rpy.cu) shares, and the walk of a staged tile,
+// compacted_walk, which K8 (wall_rot_near.cu) shares): one block per
+// target cell of the layers that can hold real particles ([cz_lo,
+// cz_hi]); the image-only
 // layers are never launched. The real targets are a prefix of a cell's
 // live slots (cell_bin keeps ids in ascending order and the reals are ids
 // < n_real).
@@ -196,82 +198,18 @@ __device__ __forceinline__ void wall_pair(const WallScalars<T>& sc,
   }
 }
 
-// The staged tile: src (kSrc, 4) rows of local x, y, z and physical z; f
-// (3B, kSrc) raw strengths; tgt (nt, 4) a chunk of the cell's real targets
-// in the local frame, id their particle ids.
-template <typename T>
-struct Tile {
-  const T* src;
-  const T* f;
-  const T* tgt;
-  const int* id;
-};
-
-// Whether candidate j of the tile lies inside r_cut of the target, as a
-// real-source or an image-source pair (a far row, physical z far above the
-// wall, is neither).
-template <typename T>
-__device__ __forceinline__ void classify(const T* src_rows, int j, T tx,
-                                         T ty, T tz, T rc2, bool& in_r,
-                                         bool& in_i) {
-  T src[4];
-  const bool in = cellk::candidate(src_rows, j, tx, ty, tz, rc2, src);
-  const bool image = in && src[3] < T(0);
-  in_r = in && !image;
-  in_i = image;
-}
-
-// Evaluate source j of the tile against the target into acc.
+// Evaluate source j of the staged tile (src (kSrc, 4) rows of local x, y,
+// z and physical z; f (3B, kSrc) raw strengths) against the target
+// (tgt: local x, y, z) into acc.
 template <typename T, int B, bool IMG>
 __device__ __forceinline__ void eval_entry(const WallScalars<T>& sc,
                                            const T* cheb, const T* img,
-                                           const Tile<T>& tile, int j, T tx,
-                                           T ty, T tz, T* acc) {
+                                           const T* src_rows, const T* f,
+                                           int j, const T* tgt, T* acc) {
   T src[4];
-  load_vec<4>(tile.src + 4 * j, src);
-  wall_pair<T, B, IMG>(sc, cheb, img, tx - src[0], ty - src[1], tz - src[2],
-                       src[3], tile.f + j, acc);
-}
-
-// One batch of `count` (<= 32) image-ring entries (target << 16 | source),
-// lane k taking entry k. The entries come in target order, so the batch
-// holds runs of one target each: every run is summed in a fixed xor tree
-// and added into its target's row by lane 0.
-template <typename T, int B>
-__device__ __forceinline__ void drain_images(const WallScalars<T>& sc,
-                                             const T* cheb, const T* img,
-                                             const Tile<T>& tile,
-                                             const unsigned* ring,
-                                             unsigned head, unsigned count,
-                                             unsigned lane, T* out) {
-  constexpr int NF = 3 * B;
-  T u[NF];
-#pragma unroll
-  for (int q = 0; q < NF; ++q) u[q] = T(0);
-  int te = -1;
-  if (lane < count) {
-    const unsigned e = ring[(head + lane) % kRing];
-    te = static_cast<int>(e >> 16);
-    T tgt[4];
-    load_vec<4>(tile.tgt + 4 * te, tgt);
-    eval_entry<T, B, true>(sc, cheb, img, tile, static_cast<int>(e & 0xffffu),
-                           tgt[0], tgt[1], tgt[2], u);
-  }
-  unsigned pending = __ballot_sync(0xffffffffu, lane < count);
-  while (pending) {
-    const int t0 = __shfl_sync(0xffffffffu, te, __ffs(pending) - 1);
-    const bool mine = te == t0;
-    pending &= ~__ballot_sync(0xffffffffu, mine);
-    T* row = out + static_cast<size_t>(NF) * tile.id[t0];
-#pragma unroll
-    for (int q = 0; q < NF; ++q) {
-      T v = mine ? u[q] : T(0);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) row[q] += v;
-    }
-  }
+  load_vec<4>(src_rows + 4 * j, src);
+  wall_pair<T, B, IMG>(sc, cheb, img, tgt[0] - src[0], tgt[1] - src[1],
+                       tgt[2] - src[2], src[3], f + j, acc);
 }
 
 template <typename T, int B>
@@ -324,11 +262,8 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   if (n_tgt == 0) return;                     // uniform across the block
   const int total = st.start[27];
   const int warp = threadIdx.x / 32;
-  const unsigned lane = threadIdx.x % 32;
-  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
   unsigned short* ring_r = s_ring_r + warp * kRingSlots;   // real sources
   unsigned* ring_i = s_ring_i + warp * kRingSlots;         // image sources
-  const Tile<T> tile{s_src, s_f, s_tgt, s_id};
 
   // the cell's targets kTgt at a time; the barrier that ends the last
   // tile of a chunk comes before the next chunk is staged
@@ -348,81 +283,17 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
       });
       cellk::pad_rows(s_src, m, (m + 63) / 64 * 64);   // whole 64-steps
       __syncthreads();
-      // ring heads and tails are uniform across the warp; the image ring
-      // carries over from one of the warp's targets to the next
-      unsigned i_head = 0, i_tail = 0;
-      // one pass past the warp's last target flushes the image ring (one
-      // call site per ring keeps the image evaluation's code once in the
-      // instruction cache)
-      for (int t = warp;; t += kWarps) {
-        const bool done = t >= nt;
-        const int mt = done ? 0 : m;
-        T tgt[4] = {T(0), T(0), T(0), T(0)};
-        if (!done) load_vec<4>(s_tgt + 4 * t, tgt);
-        T acc[NF];
-#pragma unroll
-        for (int q = 0; q < NF; ++q) acc[q] = T(0);
-        unsigned r_head = 0, r_tail = 0;
-        // 64 candidates a step, as two independent halves; one step past
-        // the tile drains the real ring's last partial batch
-        for (int c0 = 0;; c0 += 64) {
-          const bool last = c0 >= mt;
-          if (!last) {
-            bool ra, ia, rb, ib;
-            classify(s_src, c0 + lane, tgt[0], tgt[1], tgt[2], sc.rem.rc2,
-                     ra, ia);
-            classify(s_src, c0 + 32 + lane, tgt[0], tgt[1], tgt[2],
-                     sc.rem.rc2, rb, ib);
-            const unsigned key = static_cast<unsigned>(t) << 16;
-            using u16 = unsigned short;
-            r_tail = cellk::append<kRing>(ring_r, r_tail, ra, u16(c0 + lane),
-                                          below);
-            i_tail = cellk::append<kRing>(ring_i, i_tail, ia,
-                                          key | (c0 + lane), below);
-            r_tail = cellk::append<kRing>(ring_r, r_tail, rb,
-                                          u16(c0 + 32 + lane), below);
-            i_tail = cellk::append<kRing>(ring_i, i_tail, ib,
-                                          key | (c0 + 32 + lane), below);
-            __syncwarp();
-          }
-          // full batches of the real ring, lane k on entry k into its own
-          // sums; after the target's last step its partial batch
-          for (;;) {
-            const unsigned nr = r_tail - r_head;
-            if (nr < 32 && !(last && nr > 0)) break;
-            if (lane < nr)
-              eval_entry<T, B, false>(sc, s_cheb, s_img, tile,
-                                      ring_r[(r_head + lane) % kRing], tgt[0],
-                                      tgt[1], tgt[2], acc);
-            r_head += min(nr, 32u);
-          }
-          // full batches of the image ring; its partial batch once the
-          // warp's targets are done
-          for (;;) {
-            const unsigned ni = i_tail - i_head;
-            if (ni < 32 && !(done && ni > 0)) break;
-            drain_images<T, B>(sc, s_cheb, s_img, tile, ring_i, i_head,
-                               min(ni, 32u), lane, out);
-            i_head += min(ni, 32u);
-          }
-          __syncwarp();   // drained slots are read before they are refilled
-          if (last) break;
-        }
-        if (done) break;
-        // the real sources' sums: a fixed xor tree over the warp's 32 lanes
-#pragma unroll
-        for (int q = 0; q < NF; ++q) {
-          T v = acc[q];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, o);
-          acc[q] = v;
-        }
-        if (lane == 0) {
-          T* row = out + static_cast<size_t>(NF) * s_id[t];
-          for (int q = 0; q < NF; ++q) row[q] += acc[q];
-        }
-      }
+      cellk::compacted_walk<kRing, NF, 0>(
+          s_src, s_tgt, s_id, m, nt, sc.rem.rc2, ring_r, ring_i, out,
+          [&](int j, const T* tgt, T* acc) {
+            eval_entry<T, B, false>(sc, s_cheb, s_img, s_src, s_f, j, tgt,
+                                    acc);
+          },
+          [&](int te, int j, T* u) {
+            T tgt[4];
+            load_vec<4>(s_tgt + 4 * te, tgt);
+            eval_entry<T, B, true>(sc, s_cheb, s_img, s_src, s_f, j, tgt, u);
+          });
       __syncthreads();   // the tile is restaged
     }
   }

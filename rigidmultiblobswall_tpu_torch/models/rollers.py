@@ -1,15 +1,27 @@
 """Minimally-resolved roller suspensions (PyTorch): one blob per body
 with grand (trans-rot) mobility coupling.
 
-Counterpart of rigidmultiblobswall_tpu/models/rollers.py on the direct
-O(N^2) engine. State is the blob positions (N,3); bodies spin either
-freely (free_kinematics=True, zero torque) or with a prescribed angular
-velocity, in which case the torque solves M_rr T = omega - M_rt F by
-unpreconditioned GMRES. Every hydrodynamic product is kernel K1
-(ops/pair_kernels.py) in one of its couplings: grand in each Lanczos
-iteration, rr (B = 2) in each lockstep GMRES iteration, tr (B = 2) for
-the torque velocities, rt for the omega right-hand side and the RFD
-drift, tt for the force velocities; the blob-blob forces are kernel K2.
+Counterpart of rigidmultiblobswall_tpu/models/rollers.py. State is the
+blob positions (N,3); bodies spin either freely (free_kinematics=True,
+zero torque) or with a prescribed angular velocity, in which case the
+torque solves M_rr T = omega - M_rt F by unpreconditioned GMRES.
+
+Two product engines, as in the JAX package:
+- the direct O(N^2) engine (domains single_wall and no_wall): every
+  hydrodynamic product is kernel K1 (ops/pair_kernels.py) in one of its
+  couplings: grand in each Lanczos iteration, rr (B = 2) in each lockstep
+  GMRES iteration, tr (B = 2) for the torque velocities, rt for the omega
+  right-hand side and the RFD drift, tt for the force velocities; the
+  blob-blob forces are kernel K2;
+- the O(N log N) wall-spectral engine (domain single_wall_spectral,
+  periodic_length (Lx, Ly, 0) and a slab top spectral_wall_height): tt by
+  ops/ewald_wall.py (near field kernel K7), the rot blocks by
+  ops/ewald_wall_rot.py (near field kernel K8), one right-hand side a
+  product (the lockstep solves' rr and tr run one product per side); the
+  blob-blob forces are K2's periodic instance (minimum image and image
+  boxes). The plan (cells, gridding planes) is carried across steps in
+  RollerCarry and refreshed at each configuration, as the JAX package
+  carries it; the rot tables ride along.
 
 With hydro_interactions off, the closed-form Swan-Brady self mobilities
 with wall damping are used instead.
@@ -17,9 +29,9 @@ with wall damping are used instead.
 All nine schemes of the JAX package; `make_stepper` wraps each in the
 bounded wall-rejection retry on body centers z < 0, as a host loop. All
 noise comes from `draw_normal` and an explicit torch.Generator, drawn in
-the order the JAX package draws it from its key. The wall-spectral engine
-(domain "single_wall_spectral") waits for its rot-coupling channels
-(ops/ewald_wall_rot.py, ROADMAP Queue 1, item 19), and user force/torque hooks for ROADMAP Queue 1, item 18.
+the order the JAX package draws it from its key. User force/torque hooks
+wait for ROADMAP Queue 1, item 18, and pseudo-periodic image boxes of
+the direct engine for item 4.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from ..ops import ewald_wall, ewald_wall_rot
 from ..ops import forces as force_ops
 from ..ops import mobility as mob
 from ..ops.gmres import gmres, gmres_lockstep
@@ -40,7 +53,12 @@ from .system import DOMAINS
 
 @dataclasses.dataclass(frozen=True)
 class RollerSuspension:
-    """Static description of a roller suspension (N single-blob bodies)."""
+    """Static description of a roller suspension (N single-blob bodies).
+
+    domain="single_wall_spectral" routes every product through the wall
+    engine (ops/ewald_wall.py, ops/ewald_wall_rot.py); it needs
+    periodic_length x, y > 0 and spectral_wall_height > 0, checked when
+    the engine is first built, as in the JAX package."""
 
     num_rollers: int
     eta: float = 1.0
@@ -48,6 +66,10 @@ class RollerSuspension:
     kT: float = 0.0
     g: float = 0.0
     domain: str = "single_wall"
+    spectral_tol: float = 1e-4
+    spectral_grid_max: int = 512
+    spectral_wall_height: float = 0.0
+    spectral_cell_capacity: int = 0
     periodic_length: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     repulsion_strength: float = 0.0
     debye_length: float = 1.0
@@ -65,17 +87,14 @@ class RollerSuspension:
                            tuple(float(x) for x in self.periodic_length))
         object.__setattr__(self, "omega_one_roller",
                            tuple(float(x) for x in self.omega_one_roller))
-        if self.domain == "single_wall_spectral":
-            raise NotImplementedError(
-                "rollers on the wall-spectral engine wait for its "
-                "rot-coupling channels (ops/ewald_wall_rot.py, ROADMAP "
-                "Queue 1, item 19)")
         if self.domain not in DOMAINS:
             raise NotImplementedError(
                 f"domain {self.domain!r}: the rollers port covers {DOMAINS}")
-        if any(L > 0 for L in self.periodic_length):
-            raise NotImplementedError("pseudo-periodic image boxes are not "
-                                      "ported yet (ROADMAP Queue 1, item 4)")
+        if (self.domain != "single_wall_spectral"
+                and any(L > 0 for L in self.periodic_length)):
+            raise NotImplementedError("pseudo-periodic image boxes of the "
+                                      "direct engine are not ported yet "
+                                      "(ROADMAP Queue 1, item 4)")
 
     @property
     def mobility_kwargs(self):
@@ -89,27 +108,45 @@ class RollerAux(NamedTuple):
     stoch_iterations: int
     rejections: int
     wall_overlaps: int
+    # wall-spectral domain: points the near-field plan at the step's
+    # configuration left out of full cells (their near field is missing);
+    # must be 0, else raise spectral_cell_capacity
+    plan_drops: int = 0
 
 
 class RollerCarry(NamedTuple):
     velocities_prev: torch.Tensor
     first_step: bool
+    # the wall-spectral engine's plan, carried across steps and refreshed
+    # at each accepted configuration, and its rot tables
+    plan: object = None
+    rot_tables: object = None
 
 
 def init_carry(sus: RollerSuspension, dtype=torch.float64, positions=None,
                device=None) -> RollerCarry:
+    """The first step's carry; for the wall-spectral domain with positions,
+    the engine's plan at them and its rot tables (host tables built once
+    per params)."""
+    plan = tables = None
     if positions is not None:
         dtype, device = positions.dtype, positions.device
+        if sus.domain == "single_wall_spectral":
+            params = _roller_spectral_params(sus)
+            plan = ewald_wall.make_wall_plan(params, positions)
+            tables = ewald_wall_rot.rot_tables(params, dtype, device)
     return RollerCarry(
         velocities_prev=torch.zeros((sus.num_rollers, 3), dtype=dtype,
                                     device=device),
-        first_step=True)
+        first_step=True, plan=plan, rot_tables=tables)
 
 
 def from_reference(ref_sus) -> RollerSuspension:
-    """Carry a JAX-package `RollerSuspension` across to the port's. The
-    device mesh is dropped (one card); force and torque hooks are not
-    ported yet."""
+    """Carry a JAX-package `RollerSuspension` across to the port's, its
+    spectral fields included. The device mesh is dropped (one card), as
+    is spectral_bucket_capacity, a TPU gridding knob without counterpart
+    here (the port grids without segment layouts); force and torque hooks
+    are not ported yet."""
     for hook in ("torque_fn", "force_fn"):
         if getattr(ref_sus, hook, None) is not None:
             raise NotImplementedError(f"roller hook {hook} (ROADMAP Queue 1, "
@@ -137,6 +174,27 @@ def roller_forces(sus: RollerSuspension, r):
 
 def roller_torques(sus: RollerSuspension, r):
     return torch.zeros((sus.num_rollers, 3), dtype=r.dtype, device=r.device)
+
+
+# ---------------------------------------------------------------------------
+# Grand-mobility product engines (direct O(N^2) vs wall-spectral)
+# ---------------------------------------------------------------------------
+
+
+def _roller_spectral_params(sus: RollerSuspension):
+    """The wall engine's parameters of a single_wall_spectral suspension
+    (the JAX package's rules and messages)."""
+    Lx, Ly = sus.periodic_length[0], sus.periodic_length[1]
+    if not (Lx > 0 and Ly > 0):
+        raise ValueError("single_wall_spectral rollers need "
+                         "periodic_length > 0 on x and y")
+    if sus.spectral_wall_height <= 0:
+        raise ValueError("single_wall_spectral rollers need "
+                         "spectral_wall_height > 0 (slab top)")
+    return ewald_wall.default_wall_params(
+        sus.blob_radius, sus.eta, (Lx, Ly), z_hi=sus.spectral_wall_height,
+        tol=sus.spectral_tol, grid_max=sus.spectral_grid_max,
+        cell_capacity=sus.spectral_cell_capacity)
 
 
 class _DirectEngine:
@@ -180,6 +238,64 @@ class _DirectEngine:
 
     def tr_multi(self, T):
         return self._multi("tr", T)
+
+
+class _WallSpectralEngine:
+    """Product closures on the O(N log N) wall engine at configuration r:
+    a plan (built at r, or a caller's) and the rot tables."""
+
+    def __init__(self, sus, r, plan=None, tables=None):
+        self.sus = sus
+        params = _roller_spectral_params(sus)
+        self.plan = (plan if plan is not None
+                     else ewald_wall.make_wall_plan(params, r))
+        self.tables = (tables if tables is not None
+                       else ewald_wall_rot.rot_tables(params, r.dtype,
+                                                      r.device))
+
+    def at(self, r_new):
+        return _WallSpectralEngine(
+            self.sus, r_new,
+            plan=ewald_wall.update_wall_plan(self.plan, r_new),
+            tables=self.tables)
+
+    def tt(self, f):
+        return ewald_wall.matvec(self.plan, f)
+
+    # tr, rt and rr use one output of the grand product; the JAX package
+    # forms the other (and rt's tt product) and discards it
+    def tr(self, t):
+        return ewald_wall_rot.grand_matvec(self.plan, None, t, self.tables,
+                                           want_w=False)[0]
+
+    def rt(self, f):
+        return ewald_wall_rot.grand_matvec(self.plan, f, None, self.tables,
+                                           want_v=False)[1]
+
+    def rr(self, t):
+        return ewald_wall_rot.grand_matvec(self.plan, None, t, self.tables,
+                                           want_v=False)[1]
+
+    def grand(self, f, t):
+        return ewald_wall_rot.grand_matvec(self.plan, f, t, self.tables)
+
+    def rr_multi(self, T):
+        return torch.stack([self.rr(T[b]) for b in range(T.shape[0])])
+
+    def tr_multi(self, T):
+        return torch.stack([self.tr(T[b]) for b in range(T.shape[0])])
+
+
+def _engine(sus: RollerSuspension, r, carry=None):
+    """The product engine at r: the wall-spectral one (on the carry's plan
+    refreshed at r, when the carry holds one) or the direct one."""
+    if sus.domain == "single_wall_spectral":
+        plan = getattr(carry, "plan", None)
+        if plan is not None:
+            plan = ewald_wall.update_wall_plan(plan, r)
+        return _WallSpectralEngine(sus, r, plan=plan,
+                                   tables=getattr(carry, "rot_tables", None))
+    return _DirectEngine(sus, r)
 
 
 def swan_brady_self_mobilities(sus: RollerSuspension, z):
@@ -232,7 +348,7 @@ def deterministic_velocity_and_torque(sus: RollerSuspension, r, *,
     if not sus.hydro_interactions:
         return _deterministic_uncorrelated(sus, r, force)
     if eng is None:
-        eng = _DirectEngine(sus, r)
+        eng = _engine(sus, r)
 
     if not sus.free_kinematics:
         rhs = (_omega(sus, r) - eng.rt(force)).reshape(-1)
@@ -322,7 +438,7 @@ def stochastic_velocity(sus: RollerSuspension, r, generator, dt, *,
     (v_stoch, lanczos_iters, gmres_iters)."""
     n = sus.num_rollers
     if eng is None:
-        eng = _DirectEngine(sus, r)
+        eng = _engine(sus, r)
     noise_t, noise_r, div_M_tt, div_M_rt, it_l = _grand_noise_and_drift(
         sus, r, generator, dt, eng)
 
@@ -355,7 +471,7 @@ def det_stoch_velocity_lockstep(sus: RollerSuspension, r, generator, dt, *,
     n = sus.num_rollers
     force = roller_forces(sus, r)
     if eng is None:
-        eng = _DirectEngine(sus, r)
+        eng = _engine(sus, r)
     noise_t, noise_r, div_M_tt, div_M_rt, it_l = _grand_noise_and_drift(
         sus, r, generator, dt, eng)
 
@@ -395,7 +511,7 @@ def stochastic_linear_velocity(sus: RollerSuspension, r, generator, dt, *,
         return v, 0
 
     if eng is None:
-        eng = _DirectEngine(sus, r)
+        eng = _engine(sus, r)
     z = draw_normal(generator, (3 * n,), r)
     noise = stochastic_forcing_lanczos(
         lambda f: eng.tt(f.reshape(-1, 3)).reshape(-1), z,
@@ -418,37 +534,46 @@ def _adams_bashforth(v, carry):
     return v if carry.first_step else 1.5 * v - 0.5 * carry.velocities_prev
 
 
+def _carried_engine(sus, r, carry):
+    """The engine the JAX package's first-order and Adams-Bashforth
+    schemes build from the carry (hydrodynamics on)."""
+    return _engine(sus, r, carry) if sus.hydro_interactions else None
+
+
 def _scheme_forward_euler(sus, dt, generator, r, carry):
-    v, t, it = deterministic_velocity_and_torque(sus, r)
+    v, t, it = deterministic_velocity_and_torque(
+        sus, r, eng=_carried_engine(sus, r, carry))
     return r + dt * v, v, t, it, 0
 
 
 def _scheme_adams_bashforth(sus, dt, generator, r, carry):
-    v, t, it = deterministic_velocity_and_torque(sus, r)
+    v, t, it = deterministic_velocity_and_torque(
+        sus, r, eng=_carried_engine(sus, r, carry))
     return r + dt * _adams_bashforth(v, carry), v, t, it, 0
 
 
-def _det_and_stoch(sus, dt, generator, r):
+def _det_and_stoch(sus, dt, generator, r, carry):
     """Deterministic and stochastic velocities of the first-order and
     Adams-Bashforth schemes: (v, t, vs, det_iters, stoch_iters)."""
+    eng = _carried_engine(sus, r, carry)
     if sus.free_kinematics:
-        v, t, it = deterministic_velocity_and_torque(sus, r)
-        vs, it_l = stochastic_linear_velocity(sus, r, generator, dt)
+        v, t, it = deterministic_velocity_and_torque(sus, r, eng=eng)
+        vs, it_l = stochastic_linear_velocity(sus, r, generator, dt, eng=eng)
         return v, t, vs, it, it_l
     if sus.hydro_interactions:
-        return det_stoch_velocity_lockstep(sus, r, generator, dt)
+        return det_stoch_velocity_lockstep(sus, r, generator, dt, eng=eng)
     v, t, it = deterministic_velocity_and_torque(sus, r)
     vs, it_l, it_g = stochastic_velocity(sus, r, generator, dt)
     return v, t, vs, it + it_g, it_l
 
 
 def _scheme_stochastic_first_order(sus, dt, generator, r, carry):
-    v, t, vs, it, it_l = _det_and_stoch(sus, dt, generator, r)
+    v, t, vs, it, it_l = _det_and_stoch(sus, dt, generator, r, carry)
     return r + dt * (v + vs), v, t, it, it_l
 
 
 def _scheme_stochastic_adams_bashforth(sus, dt, generator, r, carry):
-    v, t, vs, it, it_l = _det_and_stoch(sus, dt, generator, r)
+    v, t, vs, it, it_l = _det_and_stoch(sus, dt, generator, r, carry)
     return r + dt * (_adams_bashforth(v, carry) + vs), v, t, it, it_l
 
 
@@ -458,7 +583,7 @@ def _thermal_drift(sus, r, generator):
     if sus.kT <= 0 or sus.domain == "no_wall":
         return torch.zeros_like(r)
     dx = draw_normal(generator, tuple(r.shape), r)
-    eng = _DirectEngine(sus, r)
+    eng = _engine(sus, r)
     return _rfd_div(sus, r, dx, lambda rr, d: eng.at(rr).tt(d))
 
 
@@ -472,7 +597,7 @@ def _noise_velocity(sus, r, z, dt_eff):
     z has `_noise_shape(sus)`. Returns (noise (n, 3), lanczos_iters)."""
     if not sus.hydro_interactions:
         return _uncorrelated_noise(sus, r, z, dt_eff), 0
-    eng = _DirectEngine(sus, r)
+    eng = _engine(sus, r)
     res = stochastic_forcing_lanczos(
         lambda f: eng.tt(f.reshape(-1, 3)).reshape(-1), z,
         factor=math.sqrt(2.0 * sus.kT / dt_eff),
@@ -566,14 +691,22 @@ def make_stepper(sus: RollerSuspension, scheme: str, dt: float, *,
     """step(positions (N,3), generator, carry) -> (positions, carry,
     RollerAux). A step whose roller centers end below the wall retries
     with fresh noise, at most max_rejections attempts; the last candidate
-    is returned and the retries reported in RollerAux.rejections."""
+    is returned and the retries reported in RollerAux.rejections. On the
+    wall-spectral domain the carry holds the plan (built at r when it
+    holds none), refreshed at the accepted positions; its cell drops at
+    r are reported in RollerAux.plan_drops."""
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown roller scheme {scheme!r}; "
                          f"available: {sorted(_SCHEMES)}")
     body_fn = _SCHEMES[scheme]
-    wall = sus.domain == "single_wall"
+    wall = sus.domain in ("single_wall", "single_wall_spectral")
 
     def step(r, generator: torch.Generator, carry: RollerCarry):
+        if sus.domain == "single_wall_spectral" and carry.plan is None:
+            built = init_carry(sus, positions=r)
+            carry = carry._replace(plan=built.plan,
+                                   rot_tables=built.rot_tables)
+        drops = 0 if carry.plan is None else int(carry.plan.n_dropped_cells)
         attempts = 0
         while True:
             r_new, v, t, det_it, st_it = body_fn(sus, dt, generator, r,
@@ -586,8 +719,13 @@ def make_stepper(sus: RollerSuspension, scheme: str, dt: float, *,
                     if wall else 0)
         aux = RollerAux(velocities=v, torques=t, det_iterations=int(det_it),
                         stoch_iterations=int(st_it), rejections=attempts - 1,
-                        wall_overlaps=overlaps)
-        return r_new, RollerCarry(velocities_prev=v, first_step=False), aux
+                        wall_overlaps=overlaps, plan_drops=drops)
+        plan = carry.plan
+        if plan is not None:
+            # next step's refresh then measures one step's drift only
+            plan = ewald_wall.update_wall_plan(plan, r_new)
+        return r_new, RollerCarry(velocities_prev=v, first_step=False,
+                                  plan=plan, rot_tables=carry.rot_tables), aux
 
     return step
 

@@ -34,14 +34,17 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
-# csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu); pointers and the
+# csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu,
+# csrc/wall_rot_near.cu); pointers and the
 # stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
 _PI = ctypes.POINTER(ctypes.c_int)
+_PD = ctypes.POINTER(ctypes.c_double)
 _NL = (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P)
 _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
          _P)
 _WALL = (_P,) * 6 + (_I,) * 9 + (_D,) * 11 + (_P,)
+_ROT = (_P,) * 7 + (_I,) * 9 + (_D,) * 12 + (_P,)
 SIGNATURES = {
     **{f"pair_{c}_{t}": _PAIR for c in ("tt", "tr", "rt", "rr", "grand")
        for t in ("f32", "f64")},
@@ -51,6 +54,8 @@ SIGNATURES = {
        for c in ("tt", "grand") for t in ("f32", "f64")},
     **{f"blob_forces_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3 + (_P,)
        for t in ("f32", "f64")},
+    **{f"blob_forces_periodic_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3
+       + (_PD, _I, _PD, _P) for t in ("f32", "f64")},
     "dense_tt_f32": (_P, _P, _I, _D, _D, _I, _P),
     "dense_tt_f64": (_P, _P, _I, _D, _D, _I, _P),
     "symm_matvec_f32": (_P, _P, _P, _P, _I, _I, _P),
@@ -59,6 +64,8 @@ SIGNATURES = {
     "nl_forces_f64": _NL,
     **{f"near_rpy_{t}_b{b}": _NEAR for t in ("f32", "f64") for b in (1, 2)},
     **{f"wall_near_{t}_b{b}": _WALL for t in ("f32", "f64") for b in (1, 2)},
+    **{f"wall_rot_near_{t}_{w}": _ROT for t in ("f32", "f64")
+       for w in ("ft", "f", "t")},
 }
 
 _lib = None

@@ -18,6 +18,13 @@ periodic box or a wall slab, beside their plain PyTorch versions.
   of rigidmultiblobswall_tpu/ops/ewald_wall.py (`_wall_near_kernel`,
   wrapper `_wall_near_rows`; its plain version follows
   `near_matvec_xla`); CUDA source `csrc/wall_near.cu`, B = 1 and 2.
+- K8 `wall_rot_near`: the rot-coupling near field of the same engine
+  (ops/ewald_wall_rot.py): for real targets, the rot remainders (gamma_r,
+  alpha_r, beta_r) of real sources and the screened image rot channels
+  (img_terms_rt / _tr / _rr) of image sources, on damped forces f and
+  torques t, either of which may be absent; rows (v, w). Counterpart of
+  rigidmultiblobswall_tpu/ops/ewald_wall_rot.py (`grand_near_xla`, an XLA
+  sweep); CUDA source `csrc/wall_rot_near.cu`.
 
 All take positions wrapped into the box (or drifted from there by less
 than the plan's budget), the cell table of ops/cells.cell_bin and the
@@ -47,10 +54,12 @@ from . import _build, cells, mobility_cuda
 
 # kernel launches made by the wrappers in this process
 LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
-            "wall_near_b1": 0, "wall_near_b2": 0}
+            "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_ft": 0,
+            "wall_rot_near_f": 0, "wall_rot_near_t": 0}
 
 MAX_RHS = 2          # K6 and K7 template instances: B = 1 and B = 2
 MAX_CHEB = 32        # Chebyshev terms per piece the kernels' tables hold
+MAX_CHEB_ROT = 48    # K8's rot remainder table (csrc/wall_rot_near.cu)
 _TILE_CELLS = 16     # plain versions: target cells per tile
 
 
@@ -244,6 +253,100 @@ def wall_near_plain(pos, forces, cell_table, dims, box, cap, cheb, img_cheb,
     return out
 
 
+def wall_rot_pair_rows(dv, src_z, tgt_z, f_src, t_src, cheb, img_cheb, *,
+                       two_a, r_cut, a, pref_c, pref_r, img_range):
+    """K8's pairs inside r_cut one by one: displacements dv (M, 3) =
+    target - source, the source's and target's physical z (M,), the
+    source's damped strengths f_src and t_src (M, 3), either None ->
+    (M, 6) contributions (v, w) to the target's row: the rot remainders
+    for a real source, the screened image rot channels for an image
+    source (the JAX package's grand_near_xla, ewald_wall_rot.py:235-304)."""
+    from . import _wall_channels_gen as gen
+
+    out = dv.new_zeros((dv.shape[0], 6))
+    r2 = torch.sum(dv * dv, dim=-1)
+    r = torch.sqrt(r2)
+    # ---- rot remainders (real sources)
+    q = (src_z > 0.0).nonzero(as_tuple=True)[0]
+    if q.numel():
+        d, rq = dv[q], r[q]
+        near = rq < two_a
+        t0 = torch.clamp((rq - 0.5 * two_a) / (0.5 * two_a), -1.0, 1.0)
+        t1 = torch.clamp((rq - 0.5 * (two_a + r_cut)) / (0.5 * (r_cut - two_a)),
+                         -1.0, 1.0)
+        gam, alp, bet = (torch.where(near, _clenshaw(cheb[0, i], t0),
+                                     _clenshaw(cheb[1, i], t1))
+                         for i in range(3))
+        rows = out.new_zeros((q.numel(), 6))
+        if t_src is not None:
+            tq = t_src[q]
+            rows[:, :3] += gam[:, None] * torch.linalg.cross(tq, d)
+            rows[:, 3:] += (alp[:, None] * tq
+                            + (bet * torch.sum(d * tq, -1) / r2[q])[:, None]
+                            * d)
+        if f_src is not None:
+            rows[:, 3:] += gam[:, None] * torch.linalg.cross(f_src[q], d)
+        out[q] += rows
+    # ---- screened image rot channels (image sources, real targets)
+    q = ((src_z < 0.0) & (tgt_z > 0.0)).nonzero(as_tuple=True)[0]
+    if q.numel():
+        ir_lo, ir_mid, ir_hi = img_range
+        rs = torch.clamp(r[q] / a, ir_lo, ir_hi)
+        p0 = rs < ir_mid
+        ti = torch.clamp(torch.where(
+            p0, (2.0 * rs - (ir_mid + ir_lo)) / (ir_mid - ir_lo),
+            (2.0 * rs - (ir_hi + ir_mid)) / (ir_hi - ir_mid)), -1.0, 1.0)
+        cv = _clenshaw_rows(img_cheb[torch.where(p0, 0, 1)], ti).unbind(1)
+        dq = (dv[q] / a).unbind(1)
+        rows = out.new_zeros((q.numel(), 6))
+        if f_src is not None:
+            w = gen.img_terms_rt(*dq, -src_z[q] / a, *f_src[q].unbind(1),
+                                 *cv)
+            rows[:, 3:] += pref_c * torch.stack(w, dim=1)
+        if t_src is not None:
+            tq = t_src[q].unbind(1)
+            u = gen.img_terms_tr(*dq, tgt_z[q] / a, *tq, *cv)
+            rows[:, :3] += pref_c * torch.stack(u, dim=1)
+            w = gen.img_terms_rr(*dq, *tq, *cv)
+            rows[:, 3:] += pref_r * torch.stack(w, dim=1)
+        out[q] += rows
+    return out
+
+
+def wall_rot_near_plain(pos, f, t, cell_table, dims, box, cap, cheb,
+                        img_cheb, *, two_a, r_cut, z0, a, pref_c, pref_r,
+                        img_range, cells_range=None):
+    """Plain PyTorch K8 (the JAX package's XLA sweep, ewald_wall_rot.py:
+    153-322, per pair inside r_cut): pos (2N, 3) grid-shifted reals then
+    images, f and t (N, 3) damped strengths (either None), cheb (2, 3, K)
+    the rot remainders, img_cheb (2, 10, Ki) the image series -> (N, 6)
+    rows (v, w) of the real particles without the rr self term; rows
+    outside `cells_range` stay zero."""
+    n = pos.shape[0] // 2
+    out = torch.zeros((n, 6), dtype=pos.dtype, device=pos.device)
+    cheb = torch.as_tensor(cheb, dtype=pos.dtype, device=pos.device)
+    img_cheb = torch.as_tensor(img_cheb, dtype=pos.dtype, device=pos.device)
+    f = None if f is None else f.reshape(n, 3).to(pos.dtype)
+    t = None if t is None else t.reshape(n, 3).to(pos.dtype)
+    kw = dict(two_a=two_a, r_cut=r_cut, a=a, pref_c=pref_c, pref_r=pref_r,
+              img_range=img_range)
+    for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
+            pos, cell_table, dims, box, cap, cells_range):
+        d = tp[:, :, None, None, :] - sp[:, None]        # (TC,cap,27,cap,3)
+        r2 = torch.sum(d * d, dim=-1)
+        inside = ((t_valid & (t_ids < n))[:, :, None, None]
+                  & s_valid[:, None] & (r2 > 0) & (r2 < r_cut * r_cut))
+        c, i, k, j = inside.nonzero(as_tuple=True)
+        tid, sid = t_ids[c, i], s_ids[c, k, j]
+        src = sid % n
+        rows = wall_rot_pair_rows(
+            d[c, i, k, j], pos[sid, 2] + z0, pos[tid, 2] + z0,
+            None if f is None else f[src], None if t is None else t[src],
+            cheb, img_cheb, **kw)
+        out.index_add_(0, tid, rows)
+    return out
+
+
 def _check(what, pos, cell_table, dims, cap, extra=(), guard_z=False):
     if min(int(d) for d in dims[:2]) < 4 or int(dims[2]) < (2 if guard_z
                                                           else 4):
@@ -385,6 +488,62 @@ def wall_near(pos, forces, cell_table, dims, box, cap, cheb, img_cheb, *,
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES[f"wall_near_b{n_rhs}"] += 1
+    return out
+
+
+def wall_rot_near(pos, f, t, cell_table, dims, box, cap, cheb, img_cheb, *,
+                  two_a, r_cut, z0, a, pref_c, pref_r, img_range, cz_range):
+    """K8 wrapper: the CUDA kernel for CUDA tensors, `wall_rot_near_plain`
+    for CPU tensors. pos (2N, 3) grid-shifted reals then images, f and t
+    (N, 3) damped forces and torques (either None, not both), cheb
+    (2, 3, K) the rot remainders, img_cheb (2, 10, Ki) the image series,
+    img_range their (r_lo, r_mid, r_hi) / a, cz_range the z layers (lo, hi)
+    of the target cells -> (N, 6) rows (v, w) without the rr self term."""
+    kw = dict(two_a=two_a, r_cut=r_cut, z0=z0, a=a, pref_c=pref_c,
+              pref_r=pref_r, img_range=img_range)
+    if f is None and t is None:
+        raise ValueError("wall_rot_near: neither forces nor torques")
+    if pos.device.type == "cpu":
+        return wall_rot_near_plain(pos, f, t, cell_table, dims, box, cap,
+                                   cheb, img_cheb, **kw)
+    strengths = tuple((name, x) for name, x in (("f", f), ("t", t))
+                      if x is not None)
+    _check("wall_rot_near", pos, cell_table, dims, cap,
+           strengths + (("cheb", cheb), ("img_cheb", img_cheb)),
+           guard_z=True)
+    n = pos.shape[0] // 2
+    if pos.shape[0] % 2 or any(x.shape != (n, 3) for _, x in strengths):
+        raise ValueError(f"wall_rot_near: pos must be (2N, 3) and f, t "
+                         f"(N, 3), got {tuple(pos.shape)}, "
+                         f"{[tuple(x.shape) for _, x in strengths]}")
+    if (cheb.ndim != 3 or cheb.shape[:2] != (2, 3)
+            or not 1 <= cheb.shape[2] <= MAX_CHEB_ROT or img_cheb.ndim != 3
+            or img_cheb.shape[:2] != (2, 10)
+            or not 1 <= img_cheb.shape[2] <= MAX_CHEB):
+        raise ValueError(f"wall_rot_near: cheb (2, 3, K <= {MAX_CHEB_ROT}) "
+                         f"and img_cheb (2, 10, Ki <= {MAX_CHEB}), got "
+                         f"{tuple(cheb.shape)}, {tuple(img_cheb.shape)}")
+    cz_lo, cz_hi = (int(c) for c in cz_range)
+    if not 0 <= cz_lo <= cz_hi < int(dims[2]):
+        raise ValueError(f"wall_rot_near: z layers {cz_range} outside the "
+                         f"{int(dims[2])} of the cell grid")
+    out = torch.zeros((n, 6), dtype=pos.dtype, device=pos.device)
+    if n == 0:
+        return out
+    which = ("f" if f is not None else "") + ("t" if t is not None else "")
+    name = (f"wall_rot_near_{'f32' if pos.dtype == torch.float32 else 'f64'}"
+            f"_{which}")
+    err = getattr(_build.library(), name)(
+        pos.data_ptr(), None if f is None else f.data_ptr(),
+        None if t is None else t.data_ptr(), cell_table.data_ptr(),
+        cheb.data_ptr(), img_cheb.data_ptr(), out.data_ptr(), n,
+        *(int(d) for d in dims), int(cap), int(cheb.shape[2]),
+        int(img_cheb.shape[2]), cz_lo, cz_hi, *(float(L) for L in box),
+        float(two_a), float(r_cut), float(z0), float(a), float(pref_c),
+        float(pref_r), *(float(v) for v in img_range),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _build.check(name, err)
+    LAUNCHES[f"wall_rot_near_{which}"] += 1
     return out
 
 

@@ -116,6 +116,94 @@ def realspace_tables(a, eta, xi, r_max, *, n_points=2048):
     return r, alpha_r, beta_r, self_coeff
 
 
+def rot_scalar_functions(r, a, eta):
+    """Unbounded RPY rot-block scalars: the cross block M_UT = M_WF =
+    gamma(r) [r x] (gamma multiplies the unnormalized displacement) and
+    the rr block M_WT = alpha_rr I + beta_rr r^ r^^T; the far forms for
+    r >= 2a, the RPY overlap forms under."""
+    r = np.asarray(r, dtype=np.float64)
+    rs = np.maximum(r, 1e-14)
+    pref2 = 1.0 / (8 * np.pi * eta * a**3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        gamma_far = 1.0 / (8 * np.pi * eta * rs**3)
+        a_far = -0.5 * pref2 * (a / rs) ** 3
+        b_far = 1.5 * pref2 * (a / rs) ** 3
+    x = rs / a
+    gamma_near = pref2 * 0.5 * (1.0 - 0.375 * x)
+    # near rr: c1 + c2 * d d (d scaled) -> alpha = c1, beta = c2 * x^2
+    c1 = pref2 * (1.0 - 0.84375 * x + 0.078125 * x**3)
+    c2x2 = pref2 * (0.28125 / np.maximum(x, 1e-14) - 0.046875 * x) * x * x
+    gamma = np.where(r >= 2 * a, gamma_far, gamma_near)
+    alpha_rr = np.where(r >= 2 * a, a_far, c1)
+    beta_rr = np.where(r >= 2 * a, b_far, c2x2)
+    return gamma, alpha_rr, beta_rr
+
+
+def _w_r(x):
+    """RPY rotlet window 3 j1(x)/x with series near 0."""
+    x = np.asarray(x, dtype=np.float64)
+    small = np.abs(x) < 1e-4
+    xs = np.where(small, 1.0, x)
+    j1_over_x = (np.sin(xs) / xs - np.cos(xs)) / (xs * xs)
+    return np.where(small, 1.0 - x * x / 10.0, 3.0 * j1_over_x)
+
+
+def rot_wave_freespace_scalars(r, a, eta, xi, *, n_k=4001):
+    """Free-space inverse transforms of the wave-space rot kernels: the
+    cross gamma_w(r) (M_w = gamma_w [r x]) and the rr (c_perp, c_par),
+    M_w_rr = c_perp (I - rr) + c_par rr, of the wave multipliers
+    -(i k x)/(2 eta k^2) sinc(ka) w_r(ka) phi(k) and
+    (w_r(ka)^2 phi(k) / (4 eta)) (I - k^k^)."""
+    from scipy.integrate import simpson
+
+    r = np.asarray(r, dtype=np.float64)
+    k_max = 2.0 * xi * math.sqrt(math.log(1e22))
+    k = np.linspace(0.0, k_max, n_k)
+    k[0] = 1e-30
+    sinc = np.sin(k * a) / (k * a)
+    wr = _w_r(k * a)
+    phi = (1.0 + k * k / (4 * xi * xi)) * np.exp(-k * k / (4 * xi * xi))
+    # gamma_w(r) r_k = rhat_k d/dr IFT[-(sinc wr phi)/(2 eta k^2)]
+    #   => gamma_w = (1/(4 pi^2 eta r)) Int k sinc wr phi j1(kr) dk
+    x = np.outer(r, k)
+    small = np.abs(x) < 1e-6
+    xs = np.where(small, 1.0, x)
+    j1 = np.where(small, x / 3.0, np.sin(xs) / (xs * xs) - np.cos(xs) / xs)
+    rs = np.maximum(r, 1e-14)
+    gamma_w = simpson((k * sinc * wr * phi)[None, :] * j1, x=k,
+                      axis=1) / (4 * np.pi**2 * eta * rs)
+    # r = 0: gamma_w multiplies r_k, so its value is irrelevant; keep the
+    # finite limit
+    gamma_w = np.where(r < 1e-12,
+                       simpson(k * k * sinc * wr * phi / 3.0, x=k)
+                       / (4 * np.pi**2 * eta), gamma_w)
+    g_rr_times_k2 = k * k * wr * wr * phi / (4 * eta)
+    perp_w, par_w = _bessel_weights(x)
+    c_perp = simpson(g_rr_times_k2[None, :] * perp_w, x=k, axis=1) / (
+        2 * np.pi**2)
+    c_par = simpson(g_rr_times_k2[None, :] * par_w, x=k, axis=1) / (
+        2 * np.pi**2)
+    return gamma_w, c_perp, c_par
+
+
+def rot_realspace_tables(a, eta, xi, r_max, *, n_points=2048):
+    """Radial tables of the rot-block real-space remainder scalars on
+    r in [0, r_max]: (r, gamma_r, alpha_rr_r, beta_rr_r, self_rr), the
+    cross remainder gamma_r [r x], the rr remainder alpha_rr_r I +
+    beta_rr_r r^r^ and self_rr, the RPY rr self term 1/(8 pi eta a^3) less
+    the wave self term."""
+    r = np.linspace(0.0, r_max, n_points)
+    gamma, alpha_rr, beta_rr = rot_scalar_functions(r, a, eta)
+    alpha_rr[0] = 1.0 / (8 * np.pi * eta * a**3)
+    beta_rr[0] = 0.0
+    gamma_w, c_perp, c_par = rot_wave_freespace_scalars(r, a, eta, xi)
+    gamma_r = gamma - gamma_w
+    alpha_rr_r = alpha_rr - c_perp
+    beta_rr_r = beta_rr - (c_par - c_perp)
+    self_rr = 1.0 / (8 * np.pi * eta * a**3) - c_perp[0]
+    return r, gamma_r, alpha_rr_r, beta_rr_r, self_rr
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """Blob force kernels (PyTorch).
 
 Counterpart of rigidmultiblobswall_tpu/ops/forces.py:
-`blob_external_forces`, the direct `blob_blob_forces` and the linked-cell
-`blob_blob_forces_neighbor_list` of a fully periodic box or an
-xy-periodic wall slab, with its overflow count and start-up capacity
-sizing. The direct pair sweep runs kernel K2 (ops/mobility_cuda.py) and
+`blob_external_forces`, the direct `blob_blob_forces` (open or with
+periodic images) and the linked-cell `blob_blob_forces_neighbor_list` of
+a fully periodic box or an xy-periodic wall slab, with its overflow count
+and start-up capacity sizing. The direct pair sweep runs kernel K2
+(ops/mobility_cuda.py; its periodic instance with periodic images) and
 the linked-cell sweep kernel K5 (ops/cell_kernels.py) on a CUDA tensor,
-their plain versions on a CPU tensor. Body-body Yukawa forces, periodic
-images of the direct sweep, and neighbor lists in open boxes are still
-to be ported (ROADMAP Queue 1, items 4, 14 and 18).
+their plain versions on a CPU tensor. Body-body Yukawa forces, the
+linked-cell path's fallback to the direct periodic sweep in boxes under
+4 cells, and neighbor lists in open boxes are still to be ported
+(ROADMAP Queue 1, items 4, 14 and 18).
 
 Physics: gravity plus the wall repulsion of
 U(z) = U0 + U0 (a-z)/b for z < a, U0 exp(-(z-a)/b) otherwise, and the
@@ -42,16 +44,15 @@ def blob_external_forces(r_vectors, *, g=0.0, blob_mass=1.0, blob_radius=1.0,
 
 def blob_blob_forces(r_vectors, *, repulsion_strength=0.0, debye_length=1.0,
                      blob_radius=1.0, periodic_length=(0.0, 0.0, 0.0)):
-    """Pairwise soft repulsion, direct O(N^2) sweep, (N,3) -> (N,3)."""
+    """Pairwise soft repulsion, direct O(N^2) sweep, (N,3) -> (N,3); with
+    a periodic_length, the minimum image plus the image boxes of
+    mobility_cuda.box_offsets (the JAX package's forces.py:48-109)."""
     if repulsion_strength == 0.0:
         return torch.zeros_like(r_vectors)
-    if any(float(L) > 0 for L in periodic_length):
-        raise NotImplementedError("periodic images of the direct blob-blob "
-                                  "sweep are not ported yet (ROADMAP Queue 1, "
-                                  "item 4)")
     return mobility_cuda.blob_blob_forces(
         r_vectors.contiguous(), repulsion_strength=repulsion_strength,
-        debye_length=debye_length, blob_radius=blob_radius)
+        debye_length=debye_length, blob_radius=blob_radius,
+        periodic_length=periodic_length)
 
 
 def _cutoff(blob_radius, debye_length, cutoff):

@@ -4,7 +4,9 @@ plain PyTorch versions.
 Counterpart of rigidmultiblobswall_tpu/ops/mobility_pallas.py, all three
 of its kernels:
   K2 `blob_blob_forces`: the blob-blob repulsion (`blob_blob_forces_pallas`
-     there, `csrc/blob_forces.cu` here);
+     there, `csrc/blob_forces.cu` here), with a periodic instance for the
+     minimum-image sweep over image boxes of rigidmultiblobswall_tpu/ops/
+     forces.py's `blob_blob_forces` (XLA there);
   K3 `dense_tt`: the tt mobility of one configuration, materialized as the
      interleaved (3N, 3N) matrix with the height shift, 1/(8 pi eta a) and
      the wall damping folded in (`dense_tt_pallas` and its caller
@@ -22,6 +24,7 @@ segments and whose plain product is one matmul.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -29,8 +32,14 @@ import torch
 from . import _build, pair_kernels
 from . import mobility as mob
 
-# number of K2 launches made by `blob_blob_forces` in this process
+# number of K2 launches made by `blob_blob_forces` in this process: the
+# open domain's instance and the periodic one
 LAUNCHES = 0
+PERIODIC_LAUNCHES = 0
+# (r - 2a) / b beyond which exp(-(r - 2a)/b) is 0 in the dtype: below half
+# the smallest subnormal (float32 exp(-103.98), float64 exp(-745.13)), with
+# a margin for the exponential's own rounding
+UNDERFLOW = {torch.float32: 110.0, torch.float64: 750.0}
 # number of K3 / K4 launches made by `dense_tt` / `symm_matvec`
 DENSE_LAUNCHES = {"dense_tt": 0, "symm_matvec": 0}
 # K4's tile edge in blobs (csrc/symm_planes.cu kBlobs): the kernel reads
@@ -38,29 +47,89 @@ DENSE_LAUNCHES = {"dense_tt": 0, "symm_matvec": 0}
 SYMM_TILE = 64
 
 
+def box_offsets(periodic_length):
+    """The image boxes (b_x, b_y, b_z) of the direct periodic sweep, b in
+    {-1, 0, 1} on each periodic axis (L > 0), (0, 0, 0) first (the JAX
+    package's ops/mobility.py _box_offsets)."""
+    axes = [(-1, 0, 1) if float(L) > 0 else (0,) for L in periodic_length]
+    return [(0, 0, 0)] + [(bx, by, bz) for bx in axes[0] for by in axes[1]
+                          for bz in axes[2] if (bx, by, bz) != (0, 0, 0)]
+
+
+def min_image(d, periodic_length):
+    """Displacements into the extended unit cell, truncation form
+    d - trunc(d/L + sign(d)/2) L on each periodic axis (the JAX package's
+    ops/mobility.py _min_image)."""
+    d = d.clone()
+    for axis, L in enumerate(float(x) for x in periodic_length):
+        if L > 0:
+            comp = d[..., axis]
+            d[..., axis] = comp - torch.trunc(
+                comp / L + 0.5 * torch.sign(comp)) * L
+    return d
+
+
+def image_boxes(periodic_length, debye_length, blob_radius, dtype):
+    """The image boxes the periodic kernel sums: every box of box_offsets,
+    or the home box alone when every pair of every other box has a
+    magnitude that underflows to 0 in dtype. That skip is exact: after
+    the minimum image |d_a| <= L_a / 2 on each periodic axis, so a pair in
+    a box with b_a != 0 lies at r >= L_a / 2 (less a rounding margin),
+    and (r - 2a) / b beyond UNDERFLOW[dtype] makes exp(-(r - 2a)/b) == 0
+    there, in the plain version and in the kernel's exp2."""
+    boxes = box_offsets(periodic_length)
+    periodic = [float(L) for L in periodic_length if float(L) > 0]
+    if periodic:
+        r_min = 0.5 * min(periodic) * (1.0 - 1e-6)
+        if (r_min - 2.0 * blob_radius) / debye_length > UNDERFLOW[dtype]:
+            return boxes[:1]
+    return boxes
+
+
 def blob_blob_forces_plain(r_vectors, *, repulsion_strength, debye_length,
-                           blob_radius):
-    """Plain PyTorch K2: row-tiled O(N^2) soft repulsion, (N,3) -> (N,3)
-    (forces.py:48-109 without periodic images)."""
+                           blob_radius, periodic_length=(0.0, 0.0, 0.0),
+                           rows=None):
+    """Plain PyTorch K2: the row-tiled O(N^2) soft repulsion of
+    forces.py:48-109, (N,3) -> (N,3), with every image box of a periodic
+    box (minimum image, then box_offsets; the self pair skipped in the
+    home box only). `rows` (a range of target rows) limits the rows
+    computed; the others stay zero."""
     n = r_vectors.shape[0]
+    dev, dtype = r_vectors.device, r_vectors.dtype
     row_tile = int(min(max((1 << 26) // (max(n, 1) * 8), 8), max(n, 1)))
     eps_over_b = repulsion_strength / debye_length
     two_a = 2.0 * blob_radius
-    ids = torch.arange(n, device=r_vectors.device)
-    out = torch.empty_like(r_vectors)
-    for i0 in range(0, n, row_tile):
-        ri = r_vectors[i0:i0 + row_tile]
-        rows = torch.arange(i0, i0 + ri.shape[0], device=r_vectors.device)
-        d = ri[:, None, :] - r_vectors[None, :, :]
-        r2 = torch.sum(d * d, dim=-1)
-        skip = (rows[:, None] == ids[None, :]) | (r2 == 0.0)
-        rnorm = torch.sqrt(torch.where(skip, torch.ones_like(r2), r2))
-        mag = torch.where(
-            rnorm > two_a,
-            eps_over_b * torch.exp(-(rnorm - two_a) / debye_length) / rnorm,
-            eps_over_b / rnorm)
-        mag = torch.where(skip, torch.zeros_like(mag), mag)
-        out[i0:i0 + ri.shape[0]] = torch.sum(mag[..., None] * d, dim=1)
+    offsets = box_offsets(periodic_length)
+    L = torch.as_tensor([float(x) for x in periodic_length], dtype=dtype,
+                        device=dev)
+    ids = torch.arange(n, device=dev)
+    out = torch.zeros_like(r_vectors)
+    lo, hi = (0, n) if rows is None else (rows.start, min(rows.stop, n))
+    for i0 in range(lo, hi, row_tile):
+        ri = r_vectors[i0:min(i0 + row_tile, hi)]
+        rids = torch.arange(i0, i0 + ri.shape[0], device=dev)
+        d0 = min_image(ri[:, None, :] - r_vectors[None, :, :],
+                       periodic_length)
+        acc = torch.zeros_like(ri)
+        for box in offsets:
+            if box == (0, 0, 0):
+                skip = rids[:, None] == ids[None, :]
+                d = d0
+            else:
+                skip = torch.zeros((ri.shape[0], n), dtype=torch.bool,
+                                   device=dev)
+                d = d0 + torch.as_tensor(box, dtype=dtype, device=dev) * L
+            r2 = torch.sum(d * d, dim=-1)
+            rnorm = torch.sqrt(torch.where(skip | (r2 == 0.0),
+                                           torch.ones_like(r2), r2))
+            mag = torch.where(
+                rnorm > two_a,
+                eps_over_b * torch.exp(-(rnorm - two_a) / debye_length)
+                / rnorm, eps_over_b / rnorm)
+            mag = torch.where(skip, torch.zeros_like(mag), mag)
+            # force on blob i from j points along r_i - r_j (repulsion)
+            acc += torch.sum(mag[..., None] * d, dim=1)
+        out[i0:i0 + ri.shape[0]] = acc
     return out
 
 
@@ -79,16 +148,20 @@ def force_law(repulsion_strength, debye_length, blob_radius):
 
 
 def blob_blob_forces(r_vectors, *, repulsion_strength, debye_length,
-                     blob_radius):
+                     blob_radius, periodic_length=(0.0, 0.0, 0.0)):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. r_vectors (N,3) -> (N,3), non-periodic. On the card the
-    kernel takes K1's symmetric sweep over `pair_kernels.plan_groups`'
+    CPU tensors. r_vectors (N,3) -> (N,3); a periodic_length with an axis
+    L > 0 takes the periodic instance over image_boxes' boxes. On the card
+    the kernel takes K1's symmetric sweep over `pair_kernels.plan_groups`'
     tile groups, into a workspace (G, N, 3) summed in a fixed order."""
+    global LAUNCHES, PERIODIC_LAUNCHES
+    periodic_length = tuple(float(x) for x in periodic_length)
+    periodic = any(L > 0 for L in periodic_length)
+    law = dict(repulsion_strength=repulsion_strength,
+               debye_length=debye_length, blob_radius=blob_radius)
     if r_vectors.device.type == "cpu":
-        return blob_blob_forces_plain(
-            r_vectors, repulsion_strength=repulsion_strength,
-            debye_length=debye_length, blob_radius=blob_radius)
-    global LAUNCHES
+        return blob_blob_forces_plain(r_vectors, **law,
+                                      periodic_length=periodic_length)
     r = r_vectors
     if r.device.type != "cuda":
         raise ValueError(f"blob_blob_forces: unsupported device {r.device}")
@@ -107,14 +180,23 @@ def blob_blob_forces(r_vectors, *, repulsion_strength, debye_length,
     n = r.shape[0]
     groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(r))
     ws = torch.empty((groups, n, 3), dtype=r.dtype, device=r.device)
-    name = ("blob_forces_f32" if r.dtype == torch.float32
-            else "blob_forces_f64")
-    fn = getattr(_build.library(), name)
-    err = fn(r.data_ptr(), out.data_ptr(), ws.data_ptr(), n, groups, per,
-             *force_law(repulsion_strength, debye_length, blob_radius),
-             torch.cuda.current_stream(r.device).cuda_stream)
+    suffix = "f32" if r.dtype == torch.float32 else "f64"
+    name = f"blob_forces_{'periodic_' if periodic else ''}{suffix}"
+    args = [r.data_ptr(), out.data_ptr(), ws.data_ptr(), n, groups, per,
+            *force_law(repulsion_strength, debye_length, blob_radius)]
+    if periodic:
+        boxes = image_boxes(periodic_length, debye_length, blob_radius,
+                            r.dtype)
+        off = [b * L for box in boxes for b, L in zip(box, periodic_length)]
+        args += [(ctypes.c_double * 3)(*periodic_length), len(boxes),
+                 (ctypes.c_double * len(off))(*off)]
+    err = getattr(_build.library(), name)(
+        *args, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(name, err)
-    LAUNCHES += 1
+    if periodic:
+        PERIODIC_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

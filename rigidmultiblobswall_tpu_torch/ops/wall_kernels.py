@@ -21,10 +21,11 @@ Physics source: the Blake/Swan-Brady image system of the reference
 (mobility/mobility_numba.py:1553-1647), rederived in operator form by
 tools/gen_wall_channels.py.
 
-The PyTorch port's copy (host numpy, verbatim) of the trans-trans part of
+The PyTorch port's copy (host numpy, verbatim) of
 rigidmultiblobswall_tpu/ops/wall_kernels.py, so that both packages build
-the same tables; the rot-coupling builders (build_polish_kernels_rot and
-its helpers) wait for the rot slice (ROADMAP "Open items" 1).
+the same tables: the trans-trans tables of ops/ewald_wall.py and the
+rot-coupling ones (build_polish_kernels_rot and its helpers) of
+ops/ewald_wall_rot.py.
 """
 
 from __future__ import annotations
@@ -400,6 +401,264 @@ def build_polish_kernels(modes_kxky, dz_grid, *, a, eta, xi, hx, hy, hz,
         block = np.einsum("cfq,qd->cfd", rows, exp_mat,
                           optimize=True) * (hz / (2 * np.pi))
         out[sel] = block.reshape(C, 4, 3, 3, nd)
+    return out
+
+
+def _w_r_np(x):
+    """RPY rotlet window 3 j1(x)/x with series near 0 (ewald._w_r)."""
+    x = np.asarray(x, np.float64)
+    small = np.abs(x) < 1e-4
+    xs = np.where(small, 1.0, x)
+    j1_over_x = (np.sin(xs) / xs - np.cos(xs)) / (xs * xs)
+    return np.where(small, 1.0 - x * x / 10.0, 3.0 * j1_over_x)
+
+
+def rot_channel_entry_np(table, i, j, kx, ky, kz, phi, a):
+    """(i, j) entry of a rot-coupling channel k-multiplier (table =
+    list of (op, base=2, p, fr) from gen.CHANNELS_RT[m] / CHANNELS_RR),
+    evaluated at PHYSICAL wavenumbers. The rot tables are fitted in
+    a-scaled lengths (their rational coefficients are only
+    dimensionally consistent there), so factors evaluate at k*a; the
+    result carries NO 1/(8 pi eta a^n) prefactor (caller applies it)."""
+    kx = np.asarray(kx, np.float64)
+    ks = (a * kx, a * ky, a * kz)
+    k2s = ks[0] * ks[0] + ks[1] * ks[1] + ks[2] * ks[2]
+    k2s = np.where(k2s > 0, k2s, 1.0)
+    f2 = phi * (4.0 * np.pi) / k2s
+    out = np.zeros(np.broadcast(kx, ky, kz).shape, complex)
+    for (op, base, p, fr) in table:
+        assert base == 2, (op, base)
+        fac = _term_entry_factor(op, i, j, *ks)
+        if np.isscalar(fac) and fac == 0.0:
+            continue
+        out = out + float(fr) * fac * f2 * (1j * ks[2]) ** p
+    return out
+
+
+def rot_channel_laurent_k0(table, i, j):
+    """Laurent coefficients (c2, c1) of the (i, j) entry of a rot
+    channel multiplier at k_par = 0 around (scaled) k_z = 0, in the
+    SCALED variables (entry ~ c2/kz_s^2 + c1/kz_s + regular, kz_s =
+    a kz). The tensor factor at kx = ky = 0 is a monomial c (i kz)^nz;
+    c and nz are extracted numerically (exact for monomials)."""
+    c2 = 0.0 + 0.0j
+    c1 = 0.0 + 0.0j
+    for (op, base, p, fr) in table:
+        assert base == 2
+        f1 = _term_entry_factor(op, i, j, 0.0, 0.0, 1.0)
+        if np.isscalar(f1) and f1 == 0.0:
+            continue
+        f2v = _term_entry_factor(op, i, j, 0.0, 0.0, 2.0)
+        f1 = complex(f1)
+        f2v = complex(f2v)
+        if abs(f1) < 1e-300:
+            continue
+        nz = int(round(math.log2(abs(f2v) / abs(f1))))
+        c = f1 / (1j) ** nz
+        pole = 2 - p - nz
+        coef = float(fr) * c * 4.0 * np.pi * (1j) ** (p + nz)
+        if pole == 2:
+            c2 += coef
+        elif pole == 1:
+            c1 += coef
+        elif pole > 2:
+            raise RuntimeError(f"unexpected pole {pole} for {(op, p)}")
+    return c2, c1
+
+
+# rot polish channel list: (name, input field, output field)
+#   inputs: D = real-spread torque, C = real-spread force,
+#           E = image-spread torque, B0/B1 = image-spread (f, (h/a) f)
+#   outputs: V = velocity field, V1 = velocity field to be scaled by
+#            the target height h_t/a at interpolation, W = angular
+#            velocity field
+ROT_POLISH_CHANNELS = (
+    "tr_pair",    # 0: D -> V    cross pair  u = gamma_w (t x d)
+    "rr_pair",    # 1: D -> W    rr pair
+    "rt_pair",    # 2: C -> W    cross pair  w = gamma_w (f x d)
+    "tr_img0",    # 3: E -> V    image tr, m = 0 (transposed-reflected RT)
+    "tr_img1",    # 4: E -> V1   image tr, m = 1
+    "rt_img0",    # 5: B0 -> W   image rt, m = 0
+    "rt_img1",    # 6: B1 -> W   image rt, m = 1
+    "rr_img",     # 7: E -> W    image rr
+)
+
+
+def build_polish_kernels_rot(modes_kxky, dz_grid, *, a, eta, xi, hx, hy,
+                             hz, support, es_beta, what_x, what_y, tol,
+                             n_quad=4097):
+    """Rot-coupling analog of build_polish_kernels: dense z-convolution
+    Toeplitz kernels for the polish modes over the 8 rot channel blocks
+    of ROT_POLISH_CHANNELS. Same conventions (continuous k_z quadrature,
+    window-deconvolution normalization, screened pole finite parts at
+    k_par = 0). Units: rt/tr blocks carry 1/(8 pi eta a^2), rr blocks
+    1/(8 pi eta a^3) — i.e. the kernels act on RAW torque/force fields
+    and produce physical velocity / angular-velocity fields.
+
+    Returns complex128 (P, 8, 3, 3, nd)."""
+    from scipy.special import erf as _erf
+
+    P = len(modes_kxky)
+    nd = len(dz_grid)
+    kz = np.linspace(-np.pi / hz, np.pi / hz, n_quad)
+    mid = n_quad // 2
+    assert kz[mid] == 0.0
+    kz_s = np.where(kz == 0, 1.0, kz)
+    u_pole = kz * kz / (4 * xi * xi)
+    phi_pole = (1.0 + u_pole) * np.exp(-u_pole)
+    # SCALED poles: 1/(a kz)^{1,2} with closed-form 1-D IFTs in the
+    # physical variable: IFT[phi/(a kz)^2] = fp2/a^2, IFT[phi/(a kz)]
+    # = fp1/a (fp as in build_polish_kernels)
+    sdz = xi * dz_grid
+    fp2 = (-(dz_grid / 2) * _erf(sdz)
+           - np.exp(-sdz * sdz) / (4 * xi * np.sqrt(np.pi)))
+    fp1 = 1j * (_erf(sdz) / 2
+                + (sdz / (2 * np.sqrt(np.pi))) * np.exp(-sdz * sdz))
+    wz = _es_window_hat_np(np.abs(kz), 0.5 * support * hz, es_beta)
+    hvol = hx * hy * hz
+    swts = np.ones(n_quad)
+    swts[1:-1:2] = 4.0
+    swts[2:-1:2] = 2.0
+    swts *= (kz[1] - kz[0]) / 3.0
+    exp_mat = np.exp(1j * np.outer(kz, dz_grid)) * swts[:, None]
+
+    # physical k-multiplier of a scaled-fit channel: W_phys(R) =
+    # pref_n W~(R/a)  =>  W^_phys(k) = pref_n a^3 W~^(a k) — the a^3 is
+    # the Fourier measure of the length rescaling (the near evaluators,
+    # which work directly in scaled lengths, carry pref_n alone)
+    pref_c = (1.0 / (8 * np.pi * eta * a * a)) * a ** 3   # rt/tr
+    pref_r = pref_c / a                                   # rr
+    NCH = len(ROT_POLISH_CHANNELS)
+    out = np.zeros((P, NCH, 3, 3, nd), complex)
+    eps = _EPS3
+
+    def mode_rows(KXv, KYv, KZv, norm, batched):
+        """(C?, NCH*9, nq) integrand rows at k_par > 0 (no poles)."""
+        k2 = KXv * KXv + KYv * KYv + KZv * KZv
+        k2s = np.where(k2 > 0, k2, 1.0)
+        k = np.sqrt(k2s)
+        phi = (1.0 + k2 / (4 * xi * xi)) * np.exp(-k2 / (4 * xi * xi))
+        sinc = np.sin(k * a) / (k * a)
+        wr = _w_r_np(k * a)
+        shape = np.broadcast(KXv, KYv, KZv).shape
+        if batched:
+            rows = np.zeros((shape[0], NCH * 9, shape[-1]), complex)
+        else:
+            rows = np.zeros((NCH * 9, shape[-1]), complex)
+        kvec = (KXv + 0 * KZv, KYv + 0 * KZv, 0 * KXv + KZv)
+        # pair cross: u_hat = +i (k x t_hat) sinc wr phi/(2 eta k^2)
+        #   M_il = i eps_{ilm}... as matrix: M[i][j] = i eps_{i j'?}
+        # (M t)_i = i eps_{imj} k_m t_j  (from u = +i k x t * pref)
+        pc = sinc * wr * phi / (2 * eta * k2s) * norm
+        for i in range(3):
+            for j in range(3):
+                ent = 0.0
+                for m in range(3):
+                    if eps[i, m, j]:
+                        ent = ent + float(eps[i, m, j]) * 1j * kvec[m]
+                if np.isscalar(ent):
+                    continue
+                v = ent * pc
+                rows[..., 0 * 9 + 3 * i + j, :] = v   # tr_pair
+                rows[..., 2 * 9 + 3 * i + j, :] = v   # rt_pair
+        # pair rr: (wr^2 phi / (4 eta)) (I - khat khat)
+        pr = wr * wr * phi / (4 * eta) * norm
+        for i in range(3):
+            for j in range(3):
+                ent = ((1.0 if i == j else 0.0)
+                       - kvec[i] * kvec[j] / k2s)
+                rows[..., 1 * 9 + 3 * i + j, :] = ent * pr
+        # image channels (scaled factors at k a)
+        for i in range(3):
+            for j in range(3):
+                e_tr0 = rot_channel_entry_np(
+                    gen.CHANNELS_RT[0], j, i, -KXv, -KYv, KZv, phi, a)
+                e_tr1 = rot_channel_entry_np(
+                    gen.CHANNELS_RT[1], j, i, -KXv, -KYv, KZv, phi, a)
+                e_rt0 = rot_channel_entry_np(
+                    gen.CHANNELS_RT[0], i, j, KXv, KYv, KZv, phi, a)
+                e_rt1 = rot_channel_entry_np(
+                    gen.CHANNELS_RT[1], i, j, KXv, KYv, KZv, phi, a)
+                e_rr = rot_channel_entry_np(
+                    gen.CHANNELS_RR, i, j, KXv, KYv, KZv, phi, a)
+                rows[..., 3 * 9 + 3 * i + j, :] = e_tr0 * norm * pref_c
+                rows[..., 4 * 9 + 3 * i + j, :] = e_tr1 * norm * pref_c
+                rows[..., 5 * 9 + 3 * i + j, :] = e_rt0 * norm * pref_c
+                rows[..., 6 * 9 + 3 * i + j, :] = e_rt1 * norm * pref_c
+                rows[..., 7 * 9 + 3 * i + j, :] = e_rr * norm * pref_r
+        return rows
+
+    kx_all = modes_kxky[:, 0]
+    ky_all = modes_kxky[:, 1]
+    k0_mask = (kx_all == 0.0) & (ky_all == 0.0)
+
+    # ---- k_par = 0 mode: pole subtraction. Live poles:
+    #  - pair cross entries (0,1)/(1,0): +-i phi (sinc wr)/ (2 eta kz)
+    #    -> c1 = +-i norm0/(2 eta), remainder O(kz) regular;
+    #  - image rot channels: generic scaled Laurent (pole order <= 1
+    #    for every table; asserted).
+    for ip in np.nonzero(k0_mask)[0]:
+        norm0 = hvol / (what_x[ip] ** 2 * what_y[ip] ** 2 * wz ** 2)
+        phi = phi_pole
+        sinc = np.where(kz == 0, 1.0, np.sin(kz_s * a) / (kz_s * a))
+        wr = _w_r_np(kz * a)
+        rows = np.zeros((NCH * 9, n_quad), complex)
+        fins = np.zeros((NCH * 9, nd), complex)
+        # pair cross (i eps_{imj} kz for m = z): entries (0,1) = -i kz,
+        # (1,0) = +i kz  [eps_{0 2 1} = -1, eps_{1 2 0} = +1]
+        for (i, j, sgn) in ((0, 1, -1.0), (1, 0, 1.0)):
+            full = sgn * 1j * kz * sinc * wr * phi / (
+                2 * eta * np.where(kz == 0, 1.0, kz * kz)) * norm0
+            c1 = sgn * 1j / (2 * eta) * norm0[mid]
+            ent = full - c1 * phi / kz_s
+            ent[mid] = 0.5 * (ent[mid - 1] + ent[mid + 1])
+            fins_term = 2 * np.pi * c1 * fp1
+            for ch in (0, 2):
+                rows[ch * 9 + 3 * i + j] = ent
+                fins[ch * 9 + 3 * i + j] += fins_term
+        # pair rr: regular; zz entry is exactly 0 at k_par = 0
+        pr = wr * wr * phi / (4 * eta) * norm0
+        rows[1 * 9 + 3 * 0 + 0] = pr
+        rows[1 * 9 + 3 * 1 + 1] = pr
+        # image channels
+        tabs = [(3, gen.CHANNELS_RT[0], True, pref_c),
+                (4, gen.CHANNELS_RT[1], True, pref_c),
+                (5, gen.CHANNELS_RT[0], False, pref_c),
+                (6, gen.CHANNELS_RT[1], False, pref_c),
+                (7, gen.CHANNELS_RR, False, pref_r)]
+        for ch, tab, transpose, pref in tabs:
+            for i in range(3):
+                for j in range(3):
+                    ii, jj = (j, i) if transpose else (i, j)
+                    ent = rot_channel_entry_np(tab, ii, jj, 0.0, 0.0,
+                                               kz, phi, a) * norm0 * pref
+                    c2, c1 = rot_channel_laurent_k0(tab, ii, jj)
+                    assert abs(c2) == 0.0, (ch, i, j, c2)
+                    if c1 != 0.0:
+                        # scaled pole phi/(a kz), coefficient frozen at
+                        # the smooth norm's kz = 0 value (tt pattern);
+                        # physical 1-D IFT of phi/kz is fp1
+                        cc = c1 * norm0[mid] * pref / a
+                        ent = ent - cc * phi / kz_s
+                        fins[ch * 9 + 3 * i + j] += 2 * np.pi * cc * fp1
+                    ent[mid] = 0.5 * (ent[mid - 1] + ent[mid + 1])
+                    rows[ch * 9 + 3 * i + j] = ent
+        block = (rows @ exp_mat + fins) * (hz / (2 * np.pi))
+        out[ip] = block.reshape(NCH, 3, 3, nd)
+
+    # ---- k_par > 0 modes, batched
+    rest = np.nonzero(~k0_mask)[0]
+    KZb = kz[None, :]
+    for c0 in range(0, len(rest), 64):
+        sel = rest[c0:c0 + 64]
+        KXb = kx_all[sel][:, None]
+        KYb = ky_all[sel][:, None]
+        norm = hvol / (what_x[sel][:, None] ** 2
+                       * what_y[sel][:, None] ** 2 * wz[None, :] ** 2)
+        rows = mode_rows(KXb, KYb, KZb, norm, batched=True)
+        block = np.einsum("cfq,qd->cfd", rows, exp_mat,
+                          optimize=True) * (hz / (2 * np.pi))
+        out[sel] = block.reshape(len(sel), NCH, 3, 3, nd)
     return out
 
 

@@ -298,6 +298,31 @@ def test_cli_rollers_matches_jax(tmp_path, monkeypatch):
     assert info == info_jax and int(info["deterministic_iterations_count"]) > 0
 
 
+def test_cli_rollers_wall_spectral_fails_like_jax(tmp_path, monkeypatch):
+    """A rollers input with domain single_wall_spectral: the JAX CLI's
+    rollers branch passes neither the spectral fields nor positions to
+    init_carry, so its first step raises the engine's ValueError (no slab
+    top); the port's CLI raises the same."""
+    src = Path(__file__).resolve().parents[1] / "examples" / "rollers"
+    edits = {"domain": "single_wall_spectral",
+             "periodic_length": "40.0 40.0 0", "n_steps": "1",
+             "n_save": "1", "kT": "0.0"}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        d = tmp_path / name
+        d.mkdir()
+        for f in ("blob.vertex", "rollers.clones"):
+            shutil.copyfile(src / f, d / f)
+        lines = [ln for ln in (src / "inputfile.dat").read_text().splitlines()
+                 if not ln.split() or ln.split()[0] not in edits]
+        lines += [f"{k} {v}" for k, v in edits.items()]
+        (d / "input.dat").write_text("\n".join(lines) + "\n")
+        monkeypatch.chdir(d)
+        with pytest.raises(ValueError, match="spectral_wall_height > 0"):
+            main(["--input-file", str(d / "input.dat")] + argv)
+
+
 def test_cli_save_velocities_matches_jax(tmp_path, monkeypatch):
     """save_velocities True: every step's body velocities, stacked as
     (steps, 6 bodies), in .velocities.dat, as the JAX CLI writes them."""

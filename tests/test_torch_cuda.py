@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels K1 (every coupling), K2, K3, K4, K5, K6 and
-K7 against their plain PyTorch versions, on the card. Every test here is marked `gpu` and
+"""Hand-written CUDA kernels K1 (every coupling), K2 (open and periodic),
+K3, K4, K5, K6, K7 and K8 against their plain PyTorch versions, on the
+card. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -732,7 +733,8 @@ def _wall_plan(cuda, dtype, cap, n=1500, seed=6, cluster=0):
     r = np.empty((n, 3))
     r[:, :2] = rng.uniform(0, L, (n, 2))
     r[:, 2] = rng.uniform(0.3 * a, 1.2 * z_hi, n)
-    r[7] = r[6]
+    if n > 7:
+        r[7] = r[6]
     if cluster:
         r[:cluster] = [5.0, 5.0, 1.0] + rng.uniform(-0.25, 0.25,
                                                    (cluster, 3))
@@ -874,3 +876,170 @@ def test_k5_wall_slab_matches_plain(cuda, z_extent, dtype, bound):
     ref = ck.nl_forces_plain(pos.double(), table, dims, box, 128, **kw)
     err = (got.double() - ref).abs().max().item()
     assert err <= bound * ref.abs().max().item()
+
+
+# K8: the rot near field of the wall engine, per variant of present
+# strengths: (forces, torques)
+ROT_VARIANTS = {"ft": (True, True), "f": (True, False), "t": (False, True)}
+
+
+def _k8(cuda, which, dtype, cap=96, seed=6, n=1500, cluster=0):
+    """K8 on _wall_plan's slab against its plain version in float64:
+    (max err / max|ref|, the kernel's rows, the plan, a relaunch)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    plan = _wall_plan(cuda, dtype, cap, n=n, seed=seed, cluster=cluster)
+    cheb, _ = ewr._host_cheb_rot(plan.params)
+    args, kw = ewr.near_args(plan, torch.as_tensor(cheb, dtype=dtype,
+                                                   device=cuda))
+    rng = np.random.default_rng(3)
+    has_f, has_t = ROT_VARIANTS[which]
+    f, t = (torch.as_tensor(rng.normal(size=(plan.n_real, 3)), dtype=dtype,
+                            device=cuda) if has else None
+            for has in (has_f, has_t))
+    layers = ew._kept_layers(plan.params, plan.cell_dims)
+    key = f"wall_rot_near_{which}"
+    before = ck.LAUNCHES[key]
+    got = ck.wall_rot_near(plan.pos_all, f, t, *args, cz_range=layers, **kw)
+    again = ck.wall_rot_near(plan.pos_all, f, t, *args, cz_range=layers,
+                             **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[key] == before + 2
+    dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in args)
+    ref = ck.wall_rot_near_plain(
+        plan.pos_all.double(), None if f is None else f.double(),
+        None if t is None else t.double(), *dargs, **kw)
+    if not has_t:
+        assert bool((got[:, :3] == 0).all())
+    err = (got.double() - ref).abs().max().item() / max(
+        ref.abs().max().item(), 1e-300)
+    return err, got, plan, again
+
+
+@pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
+@pytest.mark.parametrize("which", sorted(ROT_VARIANTS))
+def test_k8_matches_plain(cuda, which, dtype, bound):
+    err, got, plan, again = _k8(cuda, which, dtype)
+    assert int(plan.n_dropped_cells) == 0 and int(plan.n_clipped) > 0
+    assert err <= bound and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
+@pytest.mark.parametrize("which", sorted(ROT_VARIANTS))
+def test_k8_dense_cells_and_long_stencils(cuda, which, dtype, bound):
+    """6000 blobs at cap 256: cells with many more real targets than a
+    block has warps, stencils longer than one staged tile (1408 sources in
+    float32, 1024 in float64); against the plain version and twice
+    bit-identical."""
+    err, got, plan, again = _k8(cuda, which, dtype, cap=256, n=6000)
+    dims, cap = plan.cell_dims, plan.params.cell_capacity
+    ids = plan.cell_table.reshape(-1, cap).long()
+    stencil = (ids < 2 * plan.n_real).sum(1)[
+        cells.neighbor_table(dims, device=cuda)].sum(1)
+    assert int(plan.n_dropped_cells) == 0 and int(stencil.max()) > 2048
+    assert err <= bound and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
+@pytest.mark.parametrize("which", sorted(ROT_VARIANTS))
+def test_k8_cells_beyond_one_target_chunk(cuda, which, dtype, bound):
+    """327 real targets in one cell (a block stages them in chunks of
+    128) at cap 400."""
+    err, got, plan, again = _k8(cuda, which, dtype, cap=400, cluster=300)
+    ids = plan.cell_table.reshape(-1, 400).long()
+    assert int((ids < plan.n_real).sum(1).max()) > 2 * 128
+    assert int(plan.n_dropped_cells) == 0 and err <= bound
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 77])
+def test_k8_ragged_n(cuda, n, dtype):
+    """A handful of rollers: mostly empty cells, targets alone in their
+    cells; every variant against the plain version."""
+    bound = dict(WALL_BOUNDS)[dtype]
+    for which in ROT_VARIANTS:
+        err, got, plan, again = _k8(cuda, which, dtype, n=n, seed=n)
+        assert got.shape == (n, 6) and torch.equal(got, again)
+        assert err <= bound
+
+
+def test_k8_launch_error_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (K above its table's 48 terms, let
+    through the wrapper's check) raises; nothing falls back to the plain
+    version."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("wall_rot_near_plain called for CUDA tensors")
+
+    plan = _wall_plan(cuda, torch.float32, 96, n=200)
+    args, kw = ewr.near_args(plan, torch.zeros((2, 3, 60), device=cuda))
+    t = torch.zeros((plan.n_real, 3), device=cuda)
+    layers = ew._kept_layers(plan.params, plan.cell_dims)
+    with pytest.raises(ValueError):                       # K > 48
+        ck.wall_rot_near(plan.pos_all, None, t, *args, cz_range=layers,
+                         **kw)
+    monkeypatch.setattr(ck, "MAX_CHEB_ROT", 64)
+    monkeypatch.setattr(ck, "wall_rot_near_plain", refuse)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ck.wall_rot_near(plan.pos_all, None, t, *args, cz_range=layers,
+                         **kw)
+    with pytest.raises(ValueError):                       # rows
+        ck.wall_rot_near(plan.pos_all, None, t[1:], *args[:4],
+                         args[4][..., :24], args[5], cz_range=layers, **kw)
+
+
+# periodic K2: boxes where the kernel sums the home box alone (large), all
+# nine xy boxes (small, long Debye length) and all 27 (fully periodic)
+PERIODIC_BOXES = {"large_xy": ((60.0, 60.0, 0.0), 0.25),
+                  "small_xy": ((1.5, 1.5, 0.0), 1.0),
+                  "small_xyz": ((1.6, 1.4, 1.5), 0.8)}
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n", [1, 2, 77, 129, 1000])
+@pytest.mark.parametrize("box", sorted(PERIODIC_BOXES))
+def test_k2_periodic_matches_plain(cuda, box, n, dtype, bound):
+    """K2's periodic instance: ragged N (below a tile, off a tile edge),
+    blobs outside the box, a coincident pair (a blob on another's periodic
+    image is left out: its rounded minimum image, of any sign, decides the
+    direction of a force of full size, as does a pair at half a box);
+    against the plain version (every box) and twice bit-identical."""
+    L, b = PERIODIC_BOXES[box]
+    rng = np.random.default_rng(n)
+    # each periodic coordinate below 0.45 of the box plus a whole box in
+    # {-1, 0, 1}: every minimum image is needed and none is near half a
+    # box, where the image a rounding picks decides the boxes summed
+    Lv = np.asarray(L)
+    frac = rng.uniform(0.0, 0.45, (n, 3)) + rng.integers(-1, 2, (n, 3))
+    r = np.where(Lv > 0, frac * Lv, rng.uniform(-2.0, 6.0, (n, 3)))
+    if n > 5:
+        r[5] = r[4]
+    rt = torch.as_tensor(r, dtype=dtype, device=cuda)
+    kw = dict(repulsion_strength=0.7, debye_length=b, blob_radius=0.3,
+              periodic_length=L)
+    before = mc.PERIODIC_LAUNCHES
+    got = mc.blob_blob_forces(rt, **kw)
+    again = mc.blob_blob_forces(rt, **kw)
+    torch.cuda.synchronize()
+    assert mc.PERIODIC_LAUNCHES == before + 2 and torch.equal(got, again)
+    ref = mc.blob_blob_forces_plain(rt.double(), **kw)
+    err = (got.double() - ref).abs().max().item()
+    # one blob: the kernel skips the self pair in every box, the plain
+    # version sums its images, which cancel to rounding; measure both
+    # against the law's scale eps/b
+    scale = ref.abs().max().item() if n > 1 else 0.7 / b
+    if dtype == torch.float32:
+        # a float32 displacement rounds at u32 |r|, coordinates up to ~1.45
+        # L here; the force moves by that over b (K2's 3e-6 holds at
+        # coordinates of a few b)
+        bound = max(bound, float(np.finfo(np.float32).eps / 2) * 4
+                    * float(np.abs(r).max()) / b)
+    assert err <= bound * scale
+    if n == 1:
+        assert bool((got == 0).all())

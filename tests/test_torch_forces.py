@@ -52,9 +52,87 @@ def test_blob_external_forces_match_jax(g, eps_wall):
 
 
 def test_zero_strength_and_periodic():
+    """Zero strength gives zero forces, with or without periodic images;
+    a fully periodic box takes the periodic sweep (formerly refused), the
+    JAX package's own at 1e-12."""
     r = torch.as_tensor(_blobs())
     assert torch.all(tforces.blob_blob_forces(
         r, repulsion_strength=0.0) == 0)
-    with pytest.raises(NotImplementedError):
-        tforces.blob_blob_forces(r, repulsion_strength=1.0,
-                                 periodic_length=(4.0, 4.0, 4.0))
+    assert torch.all(tforces.blob_blob_forces(
+        r, repulsion_strength=0.0, periodic_length=(4.0, 4.0, 4.0)) == 0)
+    kw = dict(KW, periodic_length=(4.0, 4.0, 4.0))
+    ref = jforces.blob_blob_forces(jnp.asarray(to_np(r)), **kw)
+    assert rel_err(tforces.blob_blob_forces(r, **kw), ref) < 1e-12
+
+
+# periodic cases: a large xy box (the rollers' layout, images far beyond
+# the force's range) and a small one (L ~ 5 a, a long Debye length) where
+# the image boxes carry a large share of the force
+PERIODIC_CASES = {
+    "large_xy": ((60.0, 60.0, 0.0), dict(KW)),
+    "small_xy": ((1.5, 1.5, 0.0), dict(KW, debye_length=1.0)),
+    "small_xyz": ((1.6, 1.4, 1.5), dict(KW, debye_length=0.8)),
+}
+
+
+def _periodic_blobs(L, n=37, seed=5):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(-0.5, 1.5, (n, 3)) * np.where(np.asarray(L) > 0, L,
+                                                  4.0)
+    r[7] = r[6]                      # coincident pair
+    r[9] = r[8] + [L[0], 0.0, 0.0]   # a blob on another's periodic image
+    return r
+
+
+@pytest.mark.parametrize("case", sorted(PERIODIC_CASES))
+def test_periodic_blob_blob_forces_match_jax(case):
+    L, kw = PERIODIC_CASES[case]
+    r = _periodic_blobs(L)
+    ref = np.asarray(jforces.blob_blob_forces(jnp.asarray(r),
+                                              periodic_length=L, **kw))
+    got = tforces.blob_blob_forces(torch.as_tensor(r), periodic_length=L,
+                                   **kw)
+    assert rel_err(got, ref) < 1e-12
+    # the kernel sums the home box alone only in the large box
+    boxes = tmc.image_boxes(L, kw["debye_length"], kw["blob_radius"],
+                            torch.float32)
+    assert len(boxes) == (1 if case == "large_xy" else
+                          len(tmc.box_offsets(L)))
+
+
+def _home_box_sweep(r, L, kw):
+    """The plain sweep's home box alone: the minimum image, no other
+    box."""
+    n = r.shape[0]
+    d = tmc.min_image(r[:, None, :] - r[None, :, :], L)
+    r2 = torch.sum(d * d, -1)
+    skip = torch.eye(n, dtype=torch.bool)
+    rn = torch.sqrt(torch.where(skip | (r2 == 0), 1.0, r2))
+    eob, b = kw["repulsion_strength"] / kw["debye_length"], kw["debye_length"]
+    two_a = 2 * kw["blob_radius"]
+    mag = torch.where(rn > two_a, eob * torch.exp(-(rn - two_a) / b) / rn,
+                      eob / rn)
+    return torch.sum(torch.where(skip, 0.0, mag)[..., None] * d, 1)
+
+
+def test_periodic_image_skip_is_exact():
+    """The boxes image_boxes drops contribute exactly 0 in float32: in
+    the large box the home box alone equals the sweep over all nine
+    boxes bit for bit; in the small box the images change the forces."""
+    for case, same in (("large_xy", True), ("small_xy", False)):
+        L, kw = PERIODIC_CASES[case]
+        r = torch.as_tensor(_periodic_blobs(L), dtype=torch.float32)
+        full = tmc.blob_blob_forces_plain(r, periodic_length=L, **kw)
+        assert torch.equal(_home_box_sweep(r, L, kw), full) == same, case
+
+
+def test_periodic_forces_row_subset():
+    """The plain version's `rows` option (chip_smoke's check at full size)
+    computes the same rows as the full sweep."""
+    L, kw = PERIODIC_CASES["small_xy"]
+    r = torch.as_tensor(_periodic_blobs(L))
+    full = tmc.blob_blob_forces_plain(r, periodic_length=L, **kw)
+    part = tmc.blob_blob_forces_plain(r, periodic_length=L, rows=range(5, 17),
+                                      **kw)
+    assert torch.equal(part[5:17], full[5:17])
+    assert torch.all(part[:5] == 0) and torch.all(part[17:] == 0)

@@ -9,8 +9,13 @@ K1's plain version here).
   port's noise helper the normals the JAX stepper draws from its key;
 - the lockstep det+stochastic update equals the separate solves; the
   torque solve meets the omega constraint; the wall-rejection retry is
-  bounded; `from_reference` carries a JAX suspension across; the
-  wall-spectral domain is refused.
+  bounded; `from_reference` carries a JAX suspension across, its spectral
+  fields included; periodic boxes of the direct engine are refused;
+- the wall-spectral domain (16 rollers in a 14 x 14 box,
+  stochastic_adams_bashforth_rollers, constrained omega): 2 steps from the
+  same start with the JAX stepper's normals fed in, final positions to
+  1e-8 of the displacement and the same solver counts, the carried plan
+  refreshed as the JAX package refreshes it.
 """
 
 import dataclasses
@@ -188,11 +193,24 @@ def test_from_reference_and_refusals():
     with pytest.raises(NotImplementedError, match="torque_fn"):
         trol.from_reference(dataclasses.replace(
             jsus, torque_fn=lambda sus, r: r))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        trol.from_reference(jrol.RollerSuspension(
-            num_rollers=N, domain="single_wall_spectral",
-            periodic_length=(8.0, 8.0, 0.0), spectral_wall_height=2.0))
-    with pytest.raises(NotImplementedError):
+    # the wall-spectral domain (formerly refused) carries across with its
+    # spectral fields; its engine needs a slab top, as in the JAX package
+    jspec = jrol.RollerSuspension(
+        num_rollers=N, domain="single_wall_spectral",
+        periodic_length=(8.0, 8.0, 0.0), spectral_wall_height=2.0,
+        spectral_tol=1e-3, spectral_grid_max=64, spectral_cell_capacity=24,
+        spectral_bucket_capacity=16)
+    tspec = trol.from_reference(jspec)
+    for f in dataclasses.fields(tspec):
+        assert getattr(tspec, f.name) == getattr(jspec, f.name), f.name
+    assert trol._roller_spectral_params(tspec).cell_capacity == 24
+    # the TPU gridding knob has no counterpart and is dropped
+    assert not hasattr(tspec, "spectral_bucket_capacity")
+    with pytest.raises(ValueError, match="spectral_wall_height"):
+        trol._roller_spectral_params(dataclasses.replace(
+            tspec, spectral_wall_height=0.0))
+    # the direct engine's periodic image boxes are not ported
+    with pytest.raises(NotImplementedError, match="item 4"):
         trol.RollerSuspension(num_rollers=N,
                               periodic_length=(8.0, 8.0, 0.0))
     with pytest.raises(ValueError):
@@ -208,3 +226,89 @@ def test_simulate_saves_every_k_steps():
         save_every=2)
     assert traj.shape == (2, 4, 3) and len(auxs) == 2
     assert torch.equal(traj[-1], rf) and bool(torch.isfinite(rf).all())
+
+
+def test_wall_spectral_step_matches_jax(monkeypatch):
+    """16 rollers on domain single_wall_spectral (the scene of
+    tests/test_wall_rot_engine.py's rollers case, tolerance 1e-3 to keep
+    the JAX compile short): 2 steps of stochastic_adams_bashforth_rollers
+    through make_stepper with the carried plan, the JAX normals fed in;
+    final positions to 1e-8 of the displacement, the same GMRES and
+    Lanczos counts, no rejections."""
+    from rigidmultiblobswall_tpu.ops import ewald_wall as jew
+    from rigidmultiblobswall_tpu.ops import ewald_wall_rot as jewr
+
+    from test_torch_wall_rot import _jax_zdft_real64
+    from torch_parity import jax_zdft64
+
+    monkeypatch.setattr(jew, "_host_zdft", jax_zdft64)
+    monkeypatch.setattr(jewr, "_host_zdft_real", _jax_zdft_real64)
+    n, L = 16, 14.0
+    rng = np.random.default_rng(11)
+    r0 = np.stack([rng.uniform(0, L, n), rng.uniform(0, L, n),
+                   rng.uniform(0.55, 1.2, n)], axis=1)
+    jsus = jrol.RollerSuspension(
+        num_rollers=n, eta=0.9, blob_radius=0.5, kT=2e-3, g=0.05,
+        repulsion_strength=0.1, debye_length=0.2,
+        repulsion_strength_wall=0.1, debye_length_wall=0.2,
+        solver_tolerance=1e-8, free_kinematics=False,
+        omega_one_roller=(0.0, 4.0, 0.0), lanczos_max_iter=12,
+        periodic_length=(L, L, 0.0), domain="single_wall_spectral",
+        spectral_tol=1e-3, spectral_wall_height=1.4)
+    tsus = trol.from_reference(jsus)
+    scheme = "stochastic_adams_bashforth_rollers"
+    keys = [jax.random.PRNGKey(100 + i) for i in range(2)]
+    feed = iter([z for k in keys for z in _jax_normals(scheme, jsus, k)])
+
+    def jax_draws(generator, shape, like):
+        z = next(feed)
+        assert z.shape == tuple(shape)
+        return torch.as_tensor(z, dtype=like.dtype, device=like.device)
+
+    monkeypatch.setattr(trol, "draw_normal", jax_draws)
+    jstep = jax.jit(jrol.make_stepper(jsus, scheme, DT))
+    tstep = trol.make_stepper(tsus, scheme, DT)
+    jr = jnp.asarray(r0)
+    jc = jrol.init_carry(jsus, dtype=jnp.float64, positions=jr)
+    tr_ = torch.as_tensor(r0)
+    tc = trol.init_carry(tsus, positions=tr_)
+    assert tc.plan.params.grid == jc.plan.params.grid
+    gen = torch.Generator().manual_seed(0)
+    for k in keys:
+        jr, jc, jaux = jstep(jr, k, jc)
+        tr_, tc, taux = tstep(tr_, gen, tc)
+        assert (taux.det_iterations, taux.stoch_iterations, taux.rejections,
+                taux.wall_overlaps) == (
+            int(jaux.det_iterations), int(jaux.stoch_iterations),
+            int(jaux.rejections), int(jaux.wall_overlaps))
+        assert taux.det_iterations > 0 and taux.rejections == 0
+        assert taux.plan_drops == 0 == int(jc.plan.n_dropped_cells)
+    assert next(feed, None) is None
+    disp = np.abs(np.asarray(jr) - r0).max()
+    assert disp > 1e-4
+    np.testing.assert_allclose(to_np(tr_), np.asarray(jr), atol=1e-8 * disp,
+                               rtol=0)
+    vel = np.asarray(jaux.velocities)
+    assert np.abs(to_np(taux.velocities) - vel).max() <= 1e-8 * np.abs(
+        vel).max()
+
+
+def test_wall_spectral_step_reports_plan_drops():
+    """A wall-spectral step on a carry without a plan builds one at r, and
+    reports the points its full cells left out (here a capacity of 1)."""
+    n, L = 16, 14.0
+    rng = np.random.default_rng(11)
+    r0 = torch.as_tensor(np.stack([rng.uniform(0, L, n), rng.uniform(0, L, n),
+                                   rng.uniform(0.55, 1.2, n)], axis=1))
+    sus = trol.RollerSuspension(
+        num_rollers=n, eta=0.9, blob_radius=0.5, g=0.05,
+        free_kinematics=False, omega_one_roller=(0.0, 4.0, 0.0),
+        periodic_length=(L, L, 0.0), domain="single_wall_spectral",
+        spectral_tol=1e-3, spectral_wall_height=1.4, spectral_cell_capacity=1)
+    want = int(trol.init_carry(sus, positions=r0).plan.n_dropped_cells)
+    assert want > 0
+    step = trol.make_stepper(sus, "deterministic_forward_euler_rollers", DT)
+    r1, carry, aux = step(r0, torch.Generator(),
+                          trol.init_carry(sus, device="cpu"))
+    assert aux.plan_drops == want and carry.plan is not None
+    assert bool(torch.isfinite(r1).all())
