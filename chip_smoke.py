@@ -20,18 +20,24 @@ is non-zero and no result line is printed):
      coupling and template instance and K2 on a random ~3000-blob scene
      with blobs below a, K1 tt (B = 1 and 2) and K2 at the 49,152-blob
      shape of the Slip-Trapz path, K1 tr/rt/rr/grand at the 32,768-roller
-     shape of the rollers path, and K1 tt at the 12,288 blobs of the
-     materialized path; each K1 instance at full size on the sweep it
+     shape of the rollers path, K1 tt at the 12,288 blobs of the
+     materialized path, and K1 grand and K2 at the 4096 spheres of the
+     lubrication path; each K1 instance at full size on the sweep it
      takes (square tt and grand products: the symmetric sweep; the
      others: the slice count S their plan chose), twice bit-identical;
      K2 at full size on its symmetric sweep, twice bit-identical, its
      bound on the unordered pairs (the record's) and, in the log only,
      the directed pairs'; prints kernel and plain times;
   4. slice parity on the card (kernels) against the CPU (plain versions,
-     float64): 8 shells x 3 Slip-Trapz steps at kT = 0, and 16 rollers x
-     3 steps of deterministic and stochastic Adams-Bashforth;
-  5. the CLI entry point on a generated 64-shell input file and on a
-     generated 64-roller input file;
+     float64): 8 shells x 3 Slip-Trapz steps at kT = 0, 16 rollers x 3
+     steps of deterministic and stochastic Adams-Bashforth, and 16
+     spheres x 3 lubrication trapezoidal steps (omega, cut_torque) with
+     the same normals fed to every run (float64 to 1e-9 of the
+     displacement, float32 to 1e-2);
+  5. the CLI entry point on a generated 64-shell input file, on a
+     generated 64-roller input file and on a generated 16-sphere
+     lubrication input with the firm terms on (card float64 against CPU
+     float64 at kT = 0);
   6. the Slip-Trapz path at full width: bench.py's multibody
      configuration, 4096 twelve-blob shells = 49,152 blobs, float32
      through make_stepper/init_carry, one warm-up step and three timed
@@ -74,7 +80,7 @@ is non-zero and no result line is printed):
  11. the rollers on the wall engine at full width: bench.py's rollers
      configuration with BENCH_ROLLER_DOMAIN=single_wall_spectral, 32,768
      rollers in a 291.2 x 291.2 box, slab top 1.8, tolerance 1e-4, grid at
-     most 512 (cell capacity 64), float32; the plan and rot tables
+     most 512, the automatic cell capacity, float32; the plan and rot tables
      (timed), K8 (each variant of present forces and torques, the cells of
      the first 256 xy columns against the float64 plain version, the
      float32 plain version's error beside it, twice bit-identical) and
@@ -84,6 +90,15 @@ is non-zero and no result line is printed):
      rejections, overlaps, plan drops (0), peak device memory and the
      launches of K8, K7 and periodic K2 (each must run; no other engine's
      kernel may).
+ 12. the lubrication path at full width (lubrication-4k): bench.py's
+     lubrication configuration (BASELINE config 5), 4096 spheres of radius
+     1 on a 64 x 64 lattice at spacing 2.4 and height 1.3, Uniform_Rollers
+     physics, neighbor-list Delta_R (12 a sphere), tolerance 2e-4, float32;
+     one Delta_R assembly timed by CUDA events, then one warm-up step and
+     three timed steps of step_trapezoidal with omega 25 and cut_torque
+     0.2: ms/step, GMRES and Lanczos iterations, rejections, neighbor
+     overflow (0), peak device memory and the launches of K1 grand and K2
+     (each must run; no other engine's kernel may).
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
 K7, K8 and the wall-slab K5 on a random ~3000-blob wall slab (K5, K6, K7
 and K8 twice bit-identical), periodic K2 on 1001 blobs in small boxes
@@ -194,6 +209,13 @@ K3_PAIR_FLOPS = 90
 # the materialized path: 1024 shells = 12,288 blobs, 5.06 GiB a matrix in
 # float32, within the 6 GiB budget
 N_DENSE = 1024
+# bench.py's lubrication path (BASELINE config 5, the reference's
+# Uniform_Rollers): 4096 spheres of radius 1 on a 64 x 64 lattice at
+# spacing 2.4 a and height 1.3 a, with the Uniform_Rollers forces
+N_LUB = 4096
+LUB_FORCES = dict(g=0.0025395, repulsion_strength=0.0165677856,
+                  debye_length=0.1, repulsion_strength_wall=0.0165677856,
+                  debye_length_wall=0.1)
 
 
 def log(msg):
@@ -287,6 +309,38 @@ def roller_suspension(n, **overrides):
               lanczos_max_iter=24)
     kw.update(overrides)
     return RollerSuspension(**kw)
+
+
+def lub_lattice(n, seed=0):
+    """bench.py's lubrication lattice: spacing 2.4 a, height 1.3 a, with
+    +-0.05 a in-plane jitter (float32 from numpy seed 0)."""
+    side = int(np.ceil(n ** 0.5))
+    idx = np.arange(n)
+    rng = np.random.default_rng(seed)
+    pos = np.stack([(idx % side) * 2.4, (idx // side) * 2.4,
+                    np.full(n, 1.3)], axis=1).astype(np.float32)
+    pos[:, :2] += rng.uniform(-0.05, 0.05, size=(n, 2))
+    return pos
+
+
+def lub_solver(n, device, **overrides):
+    """bench.py's lubrication solver (Uniform_Rollers physics, tolerance
+    2e-4, 12 neighbors a sphere) for n spheres on `device`."""
+    from rigidmultiblobswall_tpu_torch.models.lubrication import LubSolver
+
+    kw = dict(num_bodies=n, eta=0.957e-3, a=1.0, kT=0.0041419464, dt=1e-3,
+              cutoff=4.5, cutoff_wall=4.5, debye_cut=1e-2, rf_delta=1e-3,
+              solver_tolerance=2e-4, max_neighbors=12, device=device)
+    kw.update(overrides)
+    return LubSolver(**kw)
+
+
+def lub_ft_calc(**overrides):
+    """bench.py's lubrication forces (bench.py:276-283): gravity, wall
+    Yukawa and K2's pair repulsion on the sphere centers."""
+    from rigidmultiblobswall_tpu_torch.models.lubrication import make_ft_calc
+
+    return make_ft_calc(a=1.0, **dict(LUB_FORCES, **overrides))
 
 
 def ptxas_report(build_log):
@@ -506,37 +560,47 @@ def phase_kernels(pk, mc, mob, kin, make_state):
         rec = k1_full_record(pk, "tt", q, v, sub, bound_main, f"{nb} blobs")
         records["tt" if n_rhs == 1 else "tt_b2"] = rec
     kw = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=A_BENCH)
-    got = mc.blob_blob_forces(r_blobs, **kw)
-    again = mc.blob_blob_forces(r_blobs, **kw)
+    records["K2"] = k2_full_record(pk, mc, r_blobs, kw, bound_main,
+                                   f"{nb} blobs")
+    return records
+
+
+def k2_full_record(pk, mc, r, kw, bound, what):
+    """K2 at a path's full shape (float32, no periodic box): against the
+    plain version in float64, twice bit-identical, the kernel's time on
+    its symmetric sweep and the plain version's; returns the kernel
+    record. Its bound counts each unordered pair's magnitude once,
+    applied to both blobs; the log prints the directed pairs' beside
+    it."""
+    n = r.shape[0]
+    got = mc.blob_blob_forces(r, **kw)
+    again = mc.blob_blob_forces(r, **kw)
     torch.cuda.synchronize()
     same = torch.equal(got, again)
-    ref = mc.blob_blob_forces_plain(r_blobs.double(), **kw)
+    ref = mc.blob_blob_forces_plain(r.double(), **kw)
     err = (got.double() - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    ms = cuda_ms(lambda: mc.blob_blob_forces(r_blobs, **kw), 10)
-    plain_ms = cuda_ms(lambda: mc.blob_blob_forces_plain(r_blobs, **kw), 1)
-    # the symmetric sweep's work: each unordered pair's magnitude once,
-    # applied to both blobs; the directed pairs' bound beside it
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups, per = pk.plan_groups(nb, n_sm)
-    pairs = nb * (nb - 1) // 2
-    rec = bound_record(4 * 3 * nb * 2,
+    ms = cuda_ms(lambda: mc.blob_blob_forces(r, **kw), 10)
+    plain_ms = cuda_ms(lambda: mc.blob_blob_forces_plain(r, **kw), 1)
+    n_sm = torch.cuda.get_device_properties(r.device).multi_processor_count
+    groups, per = pk.plan_groups(n, n_sm)
+    pairs = n * (n - 1) // 2
+    rec = bound_record(4 * 3 * n * 2,
                        pairs * (FORCE_PAIR_FLOPS + FORCE_APPLY_FLOPS),
                        pairs * FORCE_PAIR_MUFU)
-    directed = bound_record(4 * 3 * nb * 2, nb * nb * FORCE_PAIR_FLOPS,
-                            nb * nb * FORCE_PAIR_MUFU)
-    log(f"K2 {nb} blobs f32, the symmetric sweep ({groups} groups of {per} "
+    directed = bound_record(4 * 3 * n * 2, n * n * FORCE_PAIR_FLOPS,
+                            n * n * FORCE_PAIR_MUFU)
+    log(f"K2 {what} f32, the symmetric sweep ({groups} groups of {per} "
         f"tiles), vs plain f64: max err {err:.3e}, / max|ref| = {rel:.3e} "
-        f"(bound {bound_main:.2e}); repeat bit-identical {same}; kernel "
+        f"(bound {bound:.2e}); repeat bit-identical {same}; kernel "
         f"{ms:.3f} ms, plain f32 {plain_ms:.1f} ms; bound "
         f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
         f"{rec['bound_ms'] / ms:.1%} of it; directed pairs "
         f"{directed['bound_ms']:.3f} ms)")
-    check(rel <= bound_main, f"K2 disagrees at {nb} blobs ({rel:.3e})")
-    check(same, f"K2 not bit-identical on repeat at {nb} blobs")
-    records["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         design="symmetric sweep (redesigned)", **rec)
-    return records
+    check(rel <= bound, f"K2 disagrees at {what} ({rel:.3e})")
+    check(same, f"K2 not bit-identical on repeat at {what}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                design="symmetric sweep (redesigned)", **rec)
 
 
 def phase_roller_kernels(pk, mob):
@@ -560,6 +624,85 @@ def phase_roller_kernels(pk, mob):
         if n_rhs == 1:
             records[coupling] = rec
     return records
+
+
+def phase_lub_kernels(pk, mc, mob):
+    """Phase 3, lubrication path shapes: K1 grand and K2 on the 4096
+    spheres of bench.py's lubrication lattice (heights shifted, units of
+    a = 1), float32, against their plain versions in float64 (K1 grand
+    the first 1024 target rows). Returns the records for the kernel JSON
+    line."""
+    dev = torch.device(DEVICE)
+    r = torch.as_tensor(lub_lattice(N_LUB), device=dev)
+    q = (mob.shift_heights(r, 1.0) / 1.0).contiguous()
+    g = torch.Generator(device=dev).manual_seed(6)
+    bound = u32_sqrt(N_LUB)
+    v = torch.randn((N_LUB, pk.NCOMP["grand"]), generator=g, device=dev)
+    what = f"{N_LUB} spheres"
+    grand = k1_full_record(pk, "grand", q, v, 1024, bound, what)
+    kw = dict(repulsion_strength=LUB_FORCES["repulsion_strength"],
+              debye_length=LUB_FORCES["debye_length"], blob_radius=1.0)
+    return {"grand_lub": grand,
+            "K2_lub": k2_full_record(pk, mc, r, kw, bound, what)}
+
+
+def host_normals(seed):
+    """A draw_normal that takes every normal from one host generator in
+    float64 and casts it to the caller's dtype and device: the same
+    numbers reach a float32 and a float64 run."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(generator, shape, like):
+        z = torch.randn(shape, generator=gen, dtype=torch.float64)
+        return z.to(dtype=like.dtype, device=like.device)
+
+    return draw
+
+
+def run_lub_steps(dtype, device, tol, n=16, n_steps=3):
+    """n spheres of bench.py's lubrication lattice (float64 start), three
+    stochastic trapezoidal steps with omega 25 and cut_torque 0.2, the
+    normals of host_normals(7). Returns (start, final positions, aux)."""
+    from rigidmultiblobswall_tpu_torch.models import lubrication as lub
+
+    pos = lub_lattice(n, seed=5).astype(np.float64)
+    sol = lub_solver(n, device, solver_tolerance=tol)
+    ft_calc = lub_ft_calc()
+    p = torch.as_tensor(pos, dtype=dtype, device=device)
+    qt = torch.tensor([[1.0, 0.0, 0.0, 0.0]] * n, dtype=dtype,
+                      device=device)
+    draw, lub.draw_normal = lub.draw_normal, host_normals(7)
+    try:
+        for _ in range(n_steps):
+            p, qt, aux = lub.step_trapezoidal(sol, p, qt, None, ft_calc,
+                                              omega=25.0, cut_torque=0.2)
+    finally:
+        lub.draw_normal = draw
+    return pos, p.double().cpu().numpy(), aux
+
+
+def phase_lub_parity(pk, mc):
+    """Phase 4, lubrication: 16 spheres x 3 trapezoidal steps with omega
+    and cut_torque, the same normals fed to every run: card float64
+    against CPU float64 (bound 1e-9 of the displacement) and card float32
+    against CPU float64 (1e-2); K1 grand and K2 run on the card."""
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    pos, ref, _ = run_lub_steps(torch.float64, "cpu", 1e-12)
+    _, got64, aux = run_lub_steps(torch.float64, DEVICE, 1e-12)
+    _, got32, _ = run_lub_steps(torch.float32, DEVICE, 1e-5)
+    launches = {"K1 grand": pk.launches("grand"), "K2": mc.LAUNCHES}
+    disp = np.abs(ref - pos).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref).max() / disp
+    log(f"lubrication parity, 16 spheres x 3 trapezoidal steps (omega 25, "
+        f"cut_torque 0.2; max displacement {disp:.3e}), max error / max "
+        f"displacement: GPU f64 vs CPU f64 {e64:.3e} (bound 1e-9), GPU f32 "
+        f"vs CPU f64 {e32:.3e} (bound 1e-2); gmres {aux.det_iterations}, "
+        f"lanczos {aux.stoch_iterations}; launches {launches}")
+    check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2, "lubrication parity")
+    check(min(launches.values()) > 0, "the lubrication slice did not run "
+          f"on K1 grand and K2: {launches}")
 
 
 def run_steps(system, pos, quat, dtype, device, n_steps, tol):
@@ -718,6 +861,69 @@ def phase_roller_cli():
           "rollers CLI ran no solver iterations")
 
 
+def phase_lub_cli():
+    """Phase 5, lubrication: the CLI on a generated 16-sphere lubrication
+    input (trapezoidal, omega 25 and cut_torque 0.2, the firm terms on) at
+    kT = 0, 3 steps, card float64 against CPU float64: the same .clones
+    (1e-9 of the displacement) and deterministic .info counts."""
+    from rigidmultiblobswall_tpu_torch import cli
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    pos = lub_lattice(16, seed=1).astype(np.float64)
+    pos[:, 2] = 1.2
+    quat = np.tile([1.0, 0.0, 0.0, 0.0], (16, 1))
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, device in (("host", "cpu"), ("card", DEVICE)):
+            dd = os.path.join(d, name)
+            os.makedirs(dd)
+            with open(os.path.join(dd, "sphere.vertex"), "w") as f:
+                f.write("1\n0 0 0\n")
+            scene.write_clones_file(os.path.join(dd, "spheres.clones"), pos,
+                                    quat)
+            inp = os.path.join(dd, "input.dat")
+            with open(inp, "w") as f:
+                f.write("scheme lubrication_trapezoidal\ndt 0.001\n"
+                        "n_steps 3\nn_save 3\neta 0.957e-3\n"
+                        "blob_radius 1.0\nkT 0.0\ng 0.0025395\n"
+                        "repulsion_strength 0.0165677856\ndebye_length 0.1\n"
+                        "repulsion_strength_wall 0.0165677856\n"
+                        "debye_length_wall 0.1\nsolver_tolerance 1e-12\n"
+                        "seed 0\nomega 25.0\ncut_torque 0.2\n"
+                        "max_neighbors 12\nLub_Cut 4.5\n"
+                        "repulsion_strength_firm 0.0163\nfirm_delta 1e-2\n"
+                        "output_name run\n"
+                        "structure sphere.vertex spheres.clones\n")
+            os.chdir(dd)
+            try:
+                t0 = time.perf_counter()
+                cli.main(["--input-file", inp, "--device", device, "--f64"])
+                secs = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            final = np.loadtxt(os.path.join(dd, "run.spheres.00000003.clones"),
+                               skiprows=1)
+            info = dict(line.split() for line in open(os.path.join(
+                dd, "run.info")).read().splitlines())
+            out[name] = (final, info, secs)
+    (ref, info_ref, _), (got, info, secs) = out["host"], out["card"]
+    disp = np.abs(ref[:, :3] - pos).max()
+    err = np.abs(got - ref).max() / disp
+    log(f"lubrication CLI 16 spheres x 3 steps (firm terms on, kT = 0): "
+        f"{secs:.2f} s on the card, max error / max displacement GPU f64 vs "
+        f"CPU f64 {err:.3e} (bound 1e-9; displacement {disp:.3e}), .info "
+        f"{info} (CPU {info_ref})")
+    check(got.shape == (16, 7) and np.all(np.isfinite(got)),
+          "lubrication CLI clones not finite")
+    check(disp > 0 and err <= 1e-9, "lubrication CLI card vs CPU")
+    for key in ("num_rejections_wall", "num_rejections_jump",
+                "deterministic_iterations_count"):
+        check(info[key] == info_ref[key], f"lubrication CLI {key}")
+    check(int(info["deterministic_iterations_count"]) > 0,
+          "lubrication CLI ran no GMRES iterations")
+
+
 def phase_main_path(pk, mc):
     """Phase 6: bench.py's multibody step at 4096 shells, float32."""
     from rigidmultiblobswall_tpu_torch.models import integrators
@@ -824,13 +1030,12 @@ def phase_rollers_path(pk, mc):
 
 def wall_roller_suspension(n, **overrides):
     """bench.py's rollers configuration on domain single_wall_spectral for
-    n rollers; the near-field cell capacity 64 (the automatic rule gives
-    48 and drops ~380 of the 65,536 points of the starting lattice)."""
+    n rollers, at the automatic near-field cell capacity."""
     side = int(np.ceil(n ** 0.5))
     kw = dict(domain="single_wall_spectral",
               periodic_length=(side * 1.6, side * 1.6, 0.0),
               spectral_wall_height=1.8, spectral_tol=1e-4,
-              spectral_grid_max=512, spectral_cell_capacity=64)
+              spectral_grid_max=512)
     kw.update(overrides)
     return roller_suspension(n, **kw)
 
@@ -1856,7 +2061,6 @@ def phase_wall_rollers_path(pk, mc, ck):
     shapes, then drives the path through make_stepper: one warm-up step
     and three timed steps. Returns the kernel records."""
     from rigidmultiblobswall_tpu_torch.models import rollers
-    from rigidmultiblobswall_tpu_torch.ops import ewald_wall
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
 
     dev = torch.device(DEVICE)
@@ -1885,16 +2089,8 @@ def phase_wall_rollers_path(pk, mc, ck):
         f"GiB on the device; plan + rot tables built in {t_rot:.2f} s "
         f"(host Chebyshev fit and polish kernels included), tt tables in "
         f"{t_tt:.2f} s")
-    check(int(plan.n_dropped_cells) == 0, "wall rollers plan drops points")
-    # bench.py runs this configuration with the automatic cell capacity
-    # (both packages' rule): what that capacity drops at the lattice
-    auto = ewald_wall.make_wall_plan(
-        dataclasses.replace(p, cell_capacity=0), r)
-    log(f"wall rollers plan at the automatic cell capacity "
-        f"{auto.params.cell_capacity}: dropped "
-        f"{int(auto.n_dropped_cells)} of {2 * n} points (the path runs at "
-        f"{p.cell_capacity})")
-    del auto
+    check(int(plan.n_dropped_cells) == 0, "wall rollers plan drops points "
+          f"at the automatic cell capacity {p.cell_capacity}")
 
     # K8 at the path's plan: the cells of the first 256 xy columns (the
     # reals and images share the lowest z layer) against the plain version
@@ -2041,6 +2237,90 @@ def phase_wall_rollers_path(pk, mc, ck):
         records[f"K8 {which}"]["launches"] = launches[f"K8 {which}"]
     records["K2 periodic"]["launches"] = launches["K2 periodic"]
     return records
+
+
+def phase_lub_path(pk, mc, ck):
+    """Phase 12: bench.py's lubrication step (BASELINE config 5) at 4096
+    spheres, float32: one Delta_R assembly timed by CUDA events, then one
+    warm-up step and three timed steps of step_trapezoidal with omega 25
+    and cut_torque 0.2 through the library entry points. Fails on a
+    neighbor overflow, non-finite positions or a step without GMRES
+    iterations (bench.py's _INVALID conditions), or when K1 grand or K2
+    did not run or another engine's kernel did. Returns the launches."""
+    from rigidmultiblobswall_tpu_torch.models import lubrication as lub
+
+    dev = torch.device(DEVICE)
+    sol = lub_solver(N_LUB, dev)
+    ft_calc = lub_ft_calc()
+    p = torch.as_tensor(lub_lattice(N_LUB), device=dev)
+    qt = torch.tensor([[1.0, 0.0, 0.0, 0.0]] * N_LUB, dtype=torch.float32,
+                      device=dev)
+    blocks = lub.compute_blocks(sol, p)
+    overflow0 = int(blocks.overflow)
+    n_pairs = int(blocks.mask.sum())
+    del blocks
+    assembly_ms = cuda_ms(lambda: lub.compute_blocks(sol, p), 3)
+    log(f"lubrication Delta_R assembly at {N_LUB} spheres (neighbor list, "
+        f"K = {sol.max_neighbors}): {assembly_ms:.3f} ms between CUDA events "
+        f"(the host's launch gaps included), "
+        f"{n_pairs} directed pairs inside the cutoff, overflow {overflow0}")
+
+    def step(p, qt, gen):
+        return lub.step_trapezoidal(sol, p, qt, gen, ft_calc, omega=25.0,
+                                    cut_torque=0.2)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the earlier phases' cached device tables stay allocated
+    base = torch.cuda.memory_allocated()
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.PERIODIC_LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    t0 = time.perf_counter()
+    p, qt, aux = step(p, qt, gen)                     # warm-up
+    torch.cuda.synchronize()
+    log(f"lubrication path warm-up step: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}")
+    auxes = [aux]
+    n_timed = 3
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        p, qt, aux = step(p, qt, gen)
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    det = [a.det_iterations for a in auxes]
+    sto = [a.stoch_iterations for a in auxes]
+    rej = [int(a.rejections_wall) + int(a.rejections_jump) for a in auxes]
+    ovf = [int(a.neighbor_overflow) for a in auxes]
+    launches = {"K1 grand": pk.launches("grand"), "K2": mc.LAUNCHES}
+    others = {"K1 other couplings": sum(
+        n for (c, _), n in pk.LAUNCHES.items() if c != "grand"),
+        "K2 periodic": mc.PERIODIC_LAUNCHES,
+        "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+        "K5-K8": sum(ck.LAUNCHES.values())}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"lubrication path {N_LUB} spheres step_trapezoidal (omega 25, "
+        f"cut_torque 0.2) f32: {ms:.1f} ms/step over {n_timed} steps "
+        f"(after a warm-up); gmres {det}, lanczos {sto}, rejections {rej}, "
+        f"neighbor overflow {ovf} (warm-up first), peak device memory "
+        f"{peak:.2f} GiB above the {base / 2 ** 30:.2f} GiB held at the "
+        f"phase's start, launches over the 4 steps {launches}, other "
+        f"engines' kernels {others}")
+    check(bool(torch.isfinite(p).all()), "lubrication positions not finite")
+    check(p.shape == (N_LUB, 3), "lubrication positions shape")
+    check(min(det) > 0, "a lubrication step ran no GMRES iterations")
+    check(overflow0 == 0 and max(ovf) == 0,
+          f"neighbor overflow on the lubrication path: {ovf}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the lubrication path: {launches}")
+    check(all(v == 0 for v in others.values()),
+          f"another engine's kernel ran on the lubrication path: {others}")
+    return launches
 
 
 def _nan_lower_tiles(m, tile):
@@ -2382,6 +2662,7 @@ def main():
 
     records = phase_kernels(pk, mc, mob, kin, make_state)   # phase 3
     records.update(phase_roller_kernels(pk, mob))
+    records.update(phase_lub_kernels(pk, mc, mob))
     phase_cell_kernels(ck, cells, ewald)
     phase_wall_kernels(ck)
     phase_rot_kernels(ck, mc)
@@ -2392,11 +2673,13 @@ def main():
     phase_spectral_parity()
     phase_wall_parity(ck)
     phase_wall_roller_parity()
+    phase_lub_parity(pk, mc)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
     phase_wall_cli()
     phase_dense_cli()
+    phase_lub_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -2408,6 +2691,7 @@ def main():
     dense_launches = phase_dense_path(pk, mc)               # phase 9
     k7, k5_wall = phase_wall_path(pk, mc, ck)               # phase 10
     rot = phase_wall_rollers_path(pk, mc, ck)               # phase 11
+    lub_launches = phase_lub_path(pk, mc, ck)               # phase 12
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # tt's two records count the launches of their own instance (B = 1,
@@ -2472,6 +2756,16 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
         replaces="rigidmultiblobswall_tpu/ops/forces.py:48",
         **rot["K2 periodic"]))
+    kernels.append(dict(
+        name=f"K1 pair_grand at {N_LUB} spheres", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/pair_couplings.cu",
+        replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+        launches=lub_launches["K1 grand"], **records["grand_lub"]))
+    kernels.append(dict(
+        name=f"K2 blob_forces at {N_LUB} spheres", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
+        replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:180",
+        launches=lub_launches["K2"], **records["K2_lub"]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,17 @@ the same input files and output formats:
     main_rollers.py): options free_kinematics, omega_one_roller and
     hydro_interactions, .clones every n_save steps and .info with the
     invalid-configuration, deterministic and stochastic iteration, and
-    wall-overlap counters.
+    wall-overlap counters;
+  - the lubrication schemes (models/lubrication.py, the reference's
+    Lubrication_Examples scripts, e.g. Uniform_Rollers; a `lubrication*`
+    scheme whose name holds "euler" takes the Euler-Maruyama step, any
+    other the stochastic trapezoidal one): single spheres of radius
+    blob_radius, options omega and cut_torque (trapezoidal only),
+    Lub_Cut or lub_cutoff, lub_cutoff_wall, max_neighbors, firm_delta,
+    repulsion_strength_firm and lubrication_tables_dir; .clones every
+    n_save steps and .info with the wall and jump rejection and the
+    iteration counters. A periodic box is refused (ROADMAP Queue 1, item
+    4).
 Every run also writes .inputfile and .bodies_info. Runs on the card in
 float32 by default (`--f64` for float64) and raises without CUDA;
 `--device cpu` runs the plain PyTorch versions of the kernels. Dynamic
@@ -32,7 +42,7 @@ capacity at the start, as the JAX CLI does, and report steps that still
 dropped particles, or clipped them at the wall slab's top, in .info
 (capacity_overflow_steps).
 
-MCMC, lubrication, articulated rollers, the .random_state restart,
+MCMC, articulated rollers, the .random_state restart,
 vtk field output (plot_velocity_field, plot_concentration_field,
 tracer_radius), call_HydroGrid structure factors and
 user_defined_functions.py hooks are still to be ported (ROADMAP Queue 1,
@@ -52,7 +62,8 @@ import numpy as np
 import torch
 
 from .io import input_file as input_mod, scene
-from .models import integrators, kinematics as kin, rollers, saddle, solvers
+from .models import integrators, kinematics as kin, lubrication as lub
+from .models import rollers, saddle, solvers
 from .models.system import resolve_device
 from .ops import forces as force_ops
 
@@ -136,11 +147,12 @@ def main(argv=None):
         np.savetxt(cfg.output_name + ".body_slip_mobility.dat",
                    slip_mob.cpu().numpy(), delimiter="  ")
         print("Time to compute body mobility =", time.time() - start_time)
-    elif cfg.scheme in ("body_mcmc", "MCMC", "body_mcmc_rejection") \
-            or cfg.scheme.startswith("lubrication"):
+    elif cfg.scheme in ("body_mcmc", "MCMC", "body_mcmc_rejection"):
         raise NotImplementedError(
             f"scheme {cfg.scheme!r} is not ported yet (ROADMAP Queue 1, "
-            "items 16 and 18)")
+            "item 18)")
+    elif cfg.scheme.startswith("lubrication"):
+        _run_lubrication(cfg, system, state, args)
     elif (cfg.scheme.endswith("_rollers")
           and not cfg.scheme.startswith("articulated_")):
         _run_rollers(cfg, system, state)
@@ -203,6 +215,79 @@ def _run_rollers(cfg, system, state):
         f.write("deterministic_iterations_count   %d\n" % det_iters)
         f.write("stochastic_iterations_count      %d\n" % stoch_iters)
         f.write("wall_overlaps                    %d\n" % overlaps)
+
+
+def _run_lubrication(cfg, system, state, args):
+    """Lubrication-corrected spheres (the JAX CLI's lubrication branch):
+    bodies are single spheres of radius blob_radius."""
+    opts = cfg.options
+    tables = lub.LubricationTables.load(opts.get("lubrication_tables_dir"))
+    max_nb = opts.get("max_neighbors")
+    # the reference's option name is Lub_Cut (read_input.py:96, default
+    # 4.5); lub_cutoff[_wall] are the JAX CLI's aliases
+    lub_cut = float(opts.get("Lub_Cut", opts.get("lub_cutoff", 4.5)))
+    firm_delta = float(opts.get("firm_delta", 1e-2))
+    sol = lub.LubSolver(
+        num_bodies=system.num_bodies, eta=cfg.eta, a=cfg.blob_radius,
+        kT=cfg.kT, dt=cfg.dt, cutoff=lub_cut,
+        cutoff_wall=float(opts.get("lub_cutoff_wall", lub_cut)),
+        debye_cut=firm_delta, rf_delta=cfg.rf_delta,
+        periodic_length=tuple(cfg.periodic_length),
+        solver_tolerance=cfg.solver_tolerance,
+        max_neighbors=int(max_nb) if max_nb is not None else None,
+        tables=tables, device=state.pos.device)
+    omega = float(opts["omega"]) if "omega" in opts else None
+    cut_torque = (float(opts["cut_torque"]) if "cut_torque" in opts
+                  else None)
+    ft_calc = lub.make_ft_calc(
+        a=cfg.blob_radius, g=cfg.g,
+        repulsion_strength=cfg.repulsion_strength,
+        debye_length=cfg.debye_length,
+        repulsion_strength_wall=cfg.repulsion_strength_wall,
+        debye_length_wall=cfg.debye_length_wall,
+        repulsion_strength_firm=float(opts.get("repulsion_strength_firm",
+                                               0.0)),
+        firm_delta=firm_delta)
+    if "euler" in cfg.scheme:
+        def step(pos, quats, generator):
+            return lub.step_euler_maruyama(sol, pos, quats, generator,
+                                           ft_calc)
+    else:
+        def step(pos, quats, generator):
+            return lub.step_trapezoidal(sol, pos, quats, generator, ft_calc,
+                                        omega=omega, cut_torque=cut_torque)
+
+    generator = _generator(cfg, state)
+    pos, quats = state.pos, state.quat
+    name = system.types[0].name
+
+    def save(step_idx):
+        scene.write_clones_file(
+            "%s.%s.%08d.clones" % (cfg.output_name, name, step_idx),
+            pos.cpu().numpy(), quats.cpu().numpy())
+
+    det_iters = stoch_iters = rej_wall = rej_jump = 0
+    for step_idx in range(cfg.initial_step, cfg.n_steps):
+        if (step_idx % cfg.n_save) == 0 and step_idx >= 0:
+            save(step_idx)
+        pos, quats, aux = step(pos, quats, generator)
+        det_iters += aux.det_iterations
+        stoch_iters += aux.stoch_iterations
+        rej_wall += int(aux.rejections_wall)
+        rej_jump += int(aux.rejections_jump)
+        overflow = int(aux.neighbor_overflow)
+        if overflow > 0:
+            print("WARNING: step %d dropped %d neighbors past max_neighbors"
+                  % (step_idx, overflow), file=sys.stderr)
+        if args.print_residual:
+            print("lubrication step %d: gmres its %d, lanczos its %d"
+                  % (step_idx, aux.det_iterations, aux.stoch_iterations))
+    save(cfg.n_steps)
+    with open(cfg.output_name + ".info", "w") as f:
+        f.write("num_rejections_wall              %d\n" % rej_wall)
+        f.write("num_rejections_jump              %d\n" % rej_jump)
+        f.write("deterministic_iterations_count   %d\n" % det_iters)
+        f.write("stochastic_iterations_count      %d\n" % stoch_iters)
 
 
 def _run_dynamic(cfg, system, state, args, start_time):

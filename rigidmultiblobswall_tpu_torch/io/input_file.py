@@ -11,7 +11,11 @@ spectral_tolerance, spectral_grid_max and spectral_cell_capacity, and
 the wall slab's height is sized at the start of a run,
 saddle.auto_wall_height); a tree/neighbor blob_blob_force_implementation
 selects the linked-cell forces. `save_velocities True` makes a dynamic
-run write .velocities.dat (cli.py). Not ported yet, and refused with
+run write .velocities.dat (cli.py). The lubrication schemes' options
+(omega, cut_torque, Lub_Cut or lub_cutoff, lub_cutoff_wall,
+max_neighbors, firm_delta, repulsion_strength_firm and
+lubrication_tables_dir) stay in `options`, read by the CLI's lubrication
+branch as the JAX CLI reads them. Not ported yet, and refused with
 NotImplementedError rather than ignored: obstacles, articulated bodies,
 .slip and .Laplace files, per-blob radii and body-body forces (ROADMAP
 Queue 1, items 4, 15, 17 and 18), and the options random_state,

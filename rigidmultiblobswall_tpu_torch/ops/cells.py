@@ -37,12 +37,7 @@ def cell_bin(pos, box, dims, cap):
     n = pos.shape[0]
     n_cells = nx * ny * nz
     dev = pos.device
-    box_t = torch.as_tensor(box, dtype=pos.dtype, device=dev)
-    dims_t = torch.tensor((nx, ny, nz), dtype=torch.int64, device=dev)
-    csize = box_t / dims_t.to(pos.dtype)
-    c3 = torch.minimum(torch.clamp((pos / csize).to(torch.int64), min=0),
-                       dims_t - 1)
-    cid = (c3[:, 0] * ny + c3[:, 1]) * nz + c3[:, 2]
+    cid = cell_ids(pos, box, dims)
     order = torch.sort(cid, stable=True).indices
     sc = cid[order]
     slot = torch.arange(n, device=dev) - torch.searchsorted(sc, sc)
@@ -59,6 +54,18 @@ def cell_bin(pos, box, dims, cap):
                             torch.full_like(cid, n_cells * cap))
     n_dropped = torch.sum(~in_cap)
     return cell_table, cell_slot, cid, n_dropped
+
+
+def cell_ids(pos, box, dims):
+    """(N,) int64 cell id of each wrapped position (N,3), on its device."""
+    nx, ny, nz = (int(d) for d in dims)
+    dev = pos.device
+    box_t = torch.as_tensor(box, dtype=pos.dtype, device=dev)
+    dims_t = torch.tensor((nx, ny, nz), dtype=torch.int64, device=dev)
+    csize = box_t / dims_t.to(pos.dtype)
+    c3 = torch.minimum(torch.clamp((pos / csize).to(torch.int64), min=0),
+                       dims_t - 1)
+    return (c3[:, 0] * ny + c3[:, 1]) * nz + c3[:, 2]
 
 
 def host_cell_ids(pos, box, dims):

@@ -32,8 +32,10 @@ grid, r_cut and tables. The JAX package's pre-gathered near-field layout,
 its real/imaginary split of complex constants (a TPU runtime limit) and
 its z-DFT matrices are not ported: the wave side keeps complex tensors
 and transforms z with torch.fft over the padded axis, restricted to the
-occupied planes as the JAX matrices are. The multi-device product (item
-20) is not ported.
+occupied planes as the JAX matrices are. The automatic near-field cell
+capacity counts the binned cells (`auto_cell_capacity`), where the JAX
+package takes a mean over the data slab's z layers and drops points of
+a roller monolayer. The multi-device product (item 20) is not ported.
 """
 
 from __future__ import annotations
@@ -76,8 +78,8 @@ class WallParams:
     es_beta_factor: float = 0.98
     oversample: float = 1.5
     n_table: int = 2048
-    # near-field slots per cell (0 = auto; make_wall_plan stores the
-    # resolved value)
+    # near-field slots per cell (0 = auto_cell_capacity at the plan's
+    # first build; make_wall_plan stores the resolved value)
     cell_capacity: int = 0
     n_cheb: int = 0
     z_pad_factor: float = 2.0
@@ -603,13 +605,28 @@ def _kept_layers(p: WallParams, dims):
     return lo, hi
 
 
+def auto_cell_capacity(pos_all, box, dims):
+    """The near-field cells' automatic capacity at these binned points:
+    the fullest cell's count plus a drift slack of 4 sqrt(mean count over
+    the occupied cells), rounded up to 8, at least 16. One host read per
+    plan build. Counting the binned cells (not a mean over the data
+    slab's z layers, the JAX package's rule) holds a roller monolayer,
+    whose reals and images share one z layer, without drops; K7 and K8
+    stage a cell's targets 128 at a time, so no capacity is refused."""
+    counts = torch.bincount(cells.cell_ids(pos_all, box, dims),
+                            minlength=int(np.prod(dims)))
+    fullest, occupied = torch.stack(
+        [counts.max(), torch.count_nonzero(counts)]).tolist()
+    mean_occ = pos_all.shape[0] / max(occupied, 1)
+    return int(max(-(-(fullest + 4.0 * math.sqrt(mean_occ)) // 8) * 8, 16))
+
+
 def make_wall_plan(params: WallParams, positions) -> WallPlan:
     """The plan at (N, 3) PHYSICAL blob positions (wall at z = 0). The
     near-field cells bin the data slab plus one empty guard layer (not the
     padded FFT box), so the stencil's z wrap only meets empty cells; the
     z cells carry drift slack (Z_CELL_SLACK) for update_wall_plan."""
     p = params
-    n = positions.shape[0]
     pos_all, heights, damp, n_clipped = _wall_points(p, positions)
     Lx, Ly = p.box_xy
     csize_z = Z_CELL_SLACK * p.r_cut
@@ -621,11 +638,7 @@ def make_wall_plan(params: WallParams, positions) -> WallPlan:
                          f"{p.r_cut}: need >= 4 xy cells")
     cap = p.cell_capacity
     if cap <= 0:
-        # occupied-cell mean: the 2N points fill nz_data layers
-        mean_occ = 2 * n / (dims[0] * dims[1] * nz_data)
-        cap = int(min(max(
-            -(-(mean_occ + 4.0 * math.sqrt(max(mean_occ, 1.0))) // 8) * 8,
-            16), 256))
+        cap = auto_cell_capacity(pos_all, _bin_box(p, dims), dims)
     p = dataclasses.replace(p, cell_capacity=int(cap))
     cell_table, cell_slot, _, n_dropped = cells.cell_bin(
         pos_all, _bin_box(p, dims), dims, int(cap))

@@ -5,8 +5,9 @@ stochastic_Slip_Trapz steps at kT = 0, same .velocity.dat for the
 and resistance .force.dat (1e-10), the same mobility dumps and .clones
 with update_PC = 2, and the same output files; on a generated
 periodic_spectral input with tree (linked-cell) blob forces, the same
-.clones and .info; and on the example microroller input, the same
-.clones and .info."""
+.clones and .info; on the example microroller input, the same
+.clones and .info; and on tests/test_cli.py's 4-sphere lubrication
+input at kT = 0, the same .clones and deterministic .info counts."""
 
 import os
 import shutil
@@ -355,3 +356,121 @@ def test_read_input_accepts_hydrogrid_off(tmp_path):
                        extra="call_HydroGrid False\nsave_velocities False\n")
     cfg = tinput.read_input(inp)
     assert cfg.options["call_HydroGrid"] == "False"
+
+
+def _write_lubrication_scene(d, kT=0.0, extra=""):
+    """tests/test_cli.py's generated 4-sphere lubrication input (trapezoidal,
+    omega 25 with cut_torque 0.2, max_neighbors 3, Lub_Cut 4, the firm
+    terms on), at solver tolerance 1e-10."""
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "sphere.vertex").write_text("1\n0. 0. 0.\n")
+    (d / "spheres.clones").write_text(
+        "4\n0 0 1.2 1 0 0 0\n2.5 0 1.2 1 0 0 0\n"
+        "0 2.5 1.2 1 0 0 0\n2.5 2.5 1.2 1 0 0 0\n")
+    (d / "input.dat").write_text(f"""
+scheme                lubrication_trapezoidal
+n_steps               3
+n_save                3
+dt                    0.001
+eta                   0.957e-3
+blob_radius           1.0
+kT                    {kT}
+g                     0.0025
+repulsion_strength    0.016
+debye_length          0.1
+repulsion_strength_wall 0.016
+debye_length_wall     0.1
+solver_tolerance      1e-10
+seed                  0
+omega                 25.0
+cut_torque            0.2
+max_neighbors         3
+Lub_Cut               4.0
+repulsion_strength_firm 0.0163
+firm_delta            1e-2
+output_name           run
+structure             sphere.vertex spheres.clones
+{extra}""")
+    return d / "input.dat"
+
+
+def _info(path):
+    return dict(line.split() for line in open(path).read().splitlines())
+
+
+def test_cli_lubrication_matches_jax(tmp_path, monkeypatch):
+    """The lubrication branch at kT = 0 (no noise enters the step): the
+    same .clones at steps 0 and 3 (1e-9 of the displacement) and the same
+    rejection and deterministic iteration counts in .info as the JAX
+    CLI."""
+    out = {}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        inp = _write_lubrication_scene(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        main(["--input-file", str(inp)] + argv)
+        out[name] = tmp_path / name
+    start = _clones(out["jax"] / "spheres.clones")
+    for k in (0, 3):
+        final = "run.spheres.%08d.clones" % k
+        ref = _clones(out["jax"] / final)
+        got = _clones(out["torch"] / final)
+        disp = np.abs(ref[:, :3] - start[:, :3]).max()
+        np.testing.assert_allclose(got, ref, atol=1e-9 * max(disp, 1e-3),
+                                   rtol=0)
+    assert disp > 1e-4
+    # prescribed spin about +y near the wall rolls the spheres in +x
+    assert np.mean(got[:, 0] - start[:, 0]) > 0
+    info, info_jax = (_info(out[k] / "run.info") for k in ("torch", "jax"))
+    for key in ("num_rejections_wall", "num_rejections_jump",
+                "deterministic_iterations_count"):
+        assert info[key] == info_jax[key], key
+    assert int(info["deterministic_iterations_count"]) > 0
+    for suffix in (".time", ".inputfile", ".bodies_info"):
+        assert (out["torch"] / ("run" + suffix)).is_file()
+
+
+def test_cli_lubrication_brownian_and_refusals(tmp_path, monkeypatch,
+                                               capsys):
+    """At kT > 0 the run writes the four .info counters and, with
+    --print-residual, one line a step; a periodic box is refused before
+    the run (K1's image boxes, ROADMAP item 4)."""
+    inp = _write_lubrication_scene(tmp_path / "b", kT=0.004)
+    monkeypatch.chdir(tmp_path / "b")
+    tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu",
+               "--print-residual"])
+    info = _info(tmp_path / "b" / "run.info")
+    assert list(info) == ["num_rejections_wall", "num_rejections_jump",
+                          "deterministic_iterations_count",
+                          "stochastic_iterations_count"]
+    assert int(info["stochastic_iterations_count"]) > 0
+    assert capsys.readouterr().out.count("lubrication step") == 3
+    pos = _clones(tmp_path / "b" / "run.spheres.00000003.clones")
+    assert pos.shape == (4, 7) and np.all(np.isfinite(pos))
+    inp = _write_lubrication_scene(tmp_path / "p",
+                                   extra="periodic_length 10 10 0\n")
+    monkeypatch.chdir(tmp_path / "p")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+    assert not (tmp_path / "p" / "run.spheres.00000000.clones").exists()
+
+
+def test_cli_lubrication_example_runs_on_cpu(tmp_path, monkeypatch):
+    """examples/lubrication_rollers/inputfile.dat (9 spheres, 10 steps,
+    float32) through the port's CLI with --device cpu."""
+    src = Path(__file__).resolve().parents[1] / "examples" / \
+        "lubrication_rollers"
+    for f in ("inputfile.dat", "sphere.vertex", "spheres.clones"):
+        shutil.copyfile(src / f, tmp_path / f)
+    monkeypatch.chdir(tmp_path)
+    tcli.main(["--input-file", str(tmp_path / "inputfile.dat"), "--device",
+               "cpu"])
+    start = _clones(src / "spheres.clones")
+    for k in (0, 5, 10):
+        pos = _clones(tmp_path / ("run.spheres.%08d.clones" % k))
+        assert pos.shape == start.shape and np.all(np.isfinite(pos))
+    assert np.abs(pos[:, :3] - start[:, :3]).max() > 1e-4
+    info = _info(tmp_path / "run.info")
+    assert int(info["deterministic_iterations_count"]) > 0
+    assert int(info["num_rejections_wall"]) == 0

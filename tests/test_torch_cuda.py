@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels K1 (every coupling), K2 (open and periodic),
 K3, K4, K5, K6, K7 and K8 against their plain PyTorch versions, on the
-card. Every test here is marked `gpu` and
+card, and the 16-sphere lubrication step on K1 grand and K2 against the
+CPU. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -1043,3 +1044,50 @@ def test_k2_periodic_matches_plain(cuda, box, n, dtype, bound):
     assert err <= bound * scale
     if n == 1:
         assert bool((got == 0).all())
+
+
+def _lub_run(device, dtype, n_steps=3, tol=1e-12, kT=0.0041419464):
+    """16 spheres near the wall (spacing 2.1 a, heights 1.08-1.23 a), the
+    Uniform_Rollers physics: n_steps stochastic trapezoidal steps with
+    omega 25 and cut_torque 0.2, the noise drawn on the host (the same on
+    both devices). Returns the final positions (float64, host)."""
+    from rigidmultiblobswall_tpu_torch.models import lubrication as lub
+
+    rng = np.random.default_rng(9)
+    idx = np.arange(16)
+    pos = np.stack([(idx % 4) * 2.1, (idx // 4) * 2.1, np.full(16, 1.08)],
+                   axis=1)
+    pos[:, :2] += rng.uniform(-0.04, 0.04, (16, 2))
+    pos[:, 2] += rng.uniform(0.0, 0.15, 16)
+    sol = lub.LubSolver(num_bodies=16, eta=0.957e-3, a=1.0,
+                        kT=kT, dt=1e-3, solver_tolerance=tol,
+                        max_neighbors=12, device=device)
+    ft_calc = lub.make_ft_calc(
+        a=1.0, g=0.0025395, repulsion_strength=0.0165677856,
+        debye_length=0.1, repulsion_strength_wall=0.0165677856,
+        debye_length_wall=0.1, repulsion_strength_firm=0.0163)
+    p = torch.as_tensor(pos, dtype=dtype, device=device)
+    q = torch.tensor([[1.0, 0, 0, 0]] * 16, dtype=dtype, device=device)
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(n_steps):
+        p, q, aux = lub.step_trapezoidal(sol, p, q, gen, ft_calc,
+                                         omega=25.0, cut_torque=0.2)
+        assert aux.det_iterations > 0 and int(aux.neighbor_overflow) == 0
+    return pos, p.double().cpu().numpy()
+
+
+def test_lubrication_step_on_card_matches_cpu(cuda):
+    """The 16-sphere lubrication step on the card (K1 grand, K2) against
+    the CPU's plain versions: float64 to 1e-9 of the displacement (the
+    same host-drawn noise), float32 at kT = 0 to 1e-2 of it (float32 draws
+    differ); both kernels launched."""
+    pos, ref = _lub_run("cpu", torch.float64)
+    grand, k2 = pk.launches("grand"), mc.LAUNCHES
+    _, got64 = _lub_run(cuda, torch.float64)
+    assert pk.launches("grand") > grand and mc.LAUNCHES > k2
+    _, ref0 = _lub_run("cpu", torch.float64, kT=0.0)
+    _, got32 = _lub_run(cuda, torch.float32, tol=1e-5, kT=0.0)
+    disp, disp0 = np.abs(ref - pos).max(), np.abs(ref0 - pos).max()
+    assert disp > 1e-5 and disp0 > 1e-5
+    assert np.abs(got64 - ref).max() <= 1e-9 * disp
+    assert np.abs(got32 - ref0).max() <= 1e-2 * disp0

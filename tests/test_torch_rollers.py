@@ -312,3 +312,42 @@ def test_wall_spectral_step_reports_plan_drops():
                           trol.init_carry(sus, device="cpu"))
     assert aux.plan_drops == want and carry.plan is not None
     assert bool(torch.isfinite(r1).all())
+
+
+def test_wall_plan_auto_capacity_bins_bench_lattice():
+    """bench.py's wall rollers (32,768 rollers at z = 1.2 on a 1.6-spaced
+    lattice with 0.1 jitter, box 291.2, slab top 1.8, tolerance 1e-4, grid
+    at most 512) at the automatic cell capacity: the plan bins all 65,536
+    real and image points (a mean over the data slab's z layers gave 48
+    and dropped 378: the reals and images share one z layer). A plan
+    build on the CPU; no product is evaluated. A rebuild keeps the
+    capacity."""
+    from rigidmultiblobswall_tpu_torch.ops import cells as tcells
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as tew
+
+    n = 32768
+    side = int(np.ceil(n ** 0.5))
+    idx = np.arange(n)
+    rng = np.random.default_rng(0)
+    r0 = np.stack([(idx % side) * 1.6, (idx // side) * 1.6,
+                   np.full(n, 1.2)], axis=1).astype(np.float32)
+    r0[:, :2] += rng.uniform(-0.1, 0.1, size=(n, 2))
+    sus = trol.RollerSuspension(
+        num_rollers=n, blob_radius=0.5, domain="single_wall_spectral",
+        periodic_length=(side * 1.6, side * 1.6, 0.0),
+        spectral_wall_height=1.8, spectral_tol=1e-4, spectral_grid_max=512)
+    params = trol._roller_spectral_params(sus)
+    assert params.cell_capacity == 0
+    r = torch.as_tensor(r0)
+    plan = tew.make_wall_plan(params, r)
+    cap = plan.params.cell_capacity
+    counts = torch.bincount(tcells.cell_ids(
+        plan.pos_all, tew._bin_box(plan.params, plan.cell_dims),
+        plan.cell_dims))
+    assert int(plan.n_dropped_cells) == 0
+    assert cap % 8 == 0 and cap >= int(counts.max()) + 16
+    # a rebuild past the drift budget keeps the resolved capacity
+    moved = tew.update_wall_plan(plan, r + torch.tensor([3.0, 0.0, 0.0]))
+    assert moved.sort_pos is not plan.sort_pos
+    assert moved.params.cell_capacity == cap
+    assert int(moved.n_dropped_cells) == 0

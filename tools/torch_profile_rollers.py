@@ -41,12 +41,14 @@ def _self_device_us(evt):
 
 
 # kernel-name fragments -> what runs them (the port's kernels by their
-# CUDA names; PyTorch's own by the operation)
+# CUDA names; PyTorch's own by the operation); tools/
+# torch_profile_lubrication.py groups with these too
 GROUPS = (("wall_rot_near", "K8 rot near field"),
           ("wall_near", "K7 tt near field"),
           ("force_sym_kernel", "K2 blob forces"),
           ("slice_sum", "K1/K2 slice sums"),
           ("pair_", "K1 pair products"),
+          ("pairk::", "K1 pair products"),
           ("addcmul", "image multipliers (addcmul_)"),
           ("indexfunc", "gridding: spread (index_add_)"),
           ("index_elementwise", "gridding: interpolate (gather)"),
@@ -55,6 +57,12 @@ GROUPS = (("wall_rot_near", "K8 rot near field"),
           ("r2c", "FFTs (cuFFT)"),
           ("c2r", "FFTs (cuFFT)"),
           ("fill", "zero fills"),
+          ("sort", "sorts (neighbor selection)"),
+          ("getr", "batched LU inverses (12x12)"),
+          ("potr", "batched Cholesky (6x6, 3x3)"),
+          ("trsm", "batched triangular solves"),
+          ("magma", "batched dense algebra (MAGMA)"),
+          ("catarray", "concatenations"),
           ("reduce", "reductions"),
           ("gemm", "matrix products"),
           ("gemv", "matrix products"),
@@ -110,30 +118,49 @@ def main():
         print(f"unprofiled step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
               + _aux_line(aux), flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    def profiled():
+        nonlocal r, carry
         r, carry, aux = step(r, gen, carry)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return _aux_line(aux)
 
-    # device kernels only: events with device time and no host time
+    profile_step(profiled, f"{args.n_rollers} rollers, {args.domain}")
+
+
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
+
+
+def device_kernels(prof):
+    """{kernel name: [device ms, launches]} of a profile: the events with
+    device time and no host time."""
     per_kernel = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():
         dev_us = _self_device_us(evt)
         if dev_us > 0 and evt.self_cpu_time_total == 0:
             per_kernel[evt.key][0] += dev_us / 1e3
             per_kernel[evt.key][1] += evt.count
+    return per_kernel
+
+
+def profile_step(run, label):
+    """Run one step (run() -> a text of its solver counts) under
+    torch.profiler (CUDA activity) and print its wall and device busy
+    time, idle share, top kernels and the kernels grouped by what runs
+    them."""
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        counts = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    per_kernel = device_kernels(prof)
     busy_ms = sum(ms for ms, _ in per_kernel.values())
-    print(f"profiled step ({args.n_rollers} rollers, {args.domain}): wall "
-          f"{wall_ms:.1f} ms, "
+    print(f"profiled step ({label}): wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} (an upper bound: the profiler slows "
-          f"the host); " + _aux_line(aux), flush=True)
+          f"the host); " + counts, flush=True)
     if busy_ms == 0:
-        raise SystemExit("torch_profile_rollers: the profiler saw no device "
-                         "time")
+        raise SystemExit("profile_step: the profiler saw no device time")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     top, rest = rows[:12], rows[12:]
     for name, (ms, count) in top:
@@ -147,9 +174,9 @@ def main():
         groups[_group(name)][0] += ms
         groups[_group(name)][1] += count
     print("by what runs them:")
-    for label, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+    for what, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % {count:5d} x "
-              f"{label}")
+              f"{what}")
 
 
 if __name__ == "__main__":
