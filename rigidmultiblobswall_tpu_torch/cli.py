@@ -33,7 +33,9 @@ the same input files and output formats:
     n_save steps and .info with the wall and jump rejection and the
     iteration counters. A periodic box is refused (ROADMAP Queue 1, item
     4).
-Every run also writes .inputfile and .bodies_info. Runs on the card in
+Every run also writes .inputfile, .git (the package's commit, from `git
+rev-parse HEAD`; empty outside a git checkout, absent where git cannot
+run) and .bodies_info. Runs on the card in
 float32 by default (`--f64` for float64) and raises without CUDA;
 `--device cpu` runs the plain PyTorch versions of the kernels. Dynamic
 runs size the spectral engine's cell capacity (single_wall_spectral: after
@@ -55,6 +57,7 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+import subprocess
 import sys
 import time
 
@@ -78,6 +81,21 @@ def _refuse_user_functions(input_file):
                 "18); it refuses to run rather than ignore them")
 
 
+def _write_git_commit(path):
+    """Stamp the package's git commit (`git rev-parse HEAD` run in this
+    package's directory; empty outside a checkout) into `path`, for
+    provenance, as the JAX CLI and the reference's multi_bodies.py do;
+    every failure is ignored."""
+    try:
+        commit = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True,
+            cwd=os.path.dirname(os.path.abspath(__file__))).stdout.decode()
+        with open(path, "w") as f:
+            f.write(commit)
+    except Exception:
+        pass
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Rigid multiblob dynamics, PyTorch + CUDA port")
@@ -97,6 +115,7 @@ def main(argv=None):
     _refuse_user_functions(args.input_file)
     cfg = input_mod.read_input(args.input_file)
     shutil.copyfile(args.input_file, cfg.output_name + ".inputfile")
+    _write_git_commit(cfg.output_name + ".git")
     # scene-file paths resolve relative to the input file's directory
     system, state = input_mod.build_system(
         cfg, base_dir=os.path.dirname(os.path.abspath(args.input_file)),

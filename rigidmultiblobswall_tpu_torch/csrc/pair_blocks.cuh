@@ -22,8 +22,10 @@
 // loop issues ~85 instructions a pair and grand's ~240, and the measured
 // rates (tools/torch_profile_kernels.py, PERF.md) put both near the SMs' issue
 // rate: the lever is fewer instructions a pair, hence the symmetric sweep
-// (sym_kernel below) that every square tt and grand product of the paths
-// takes: it condenses each unordered pair once.
+// (sym_kernel below) that every square product takes (ops/pair_kernels.py
+// pair_matvec with q_tgt None): it condenses each unordered pair once,
+// and for tr and rt also the other cross block of the pair, which shares
+// all of its terms but three FMAs (cross_shared).
 //
 // Design of the sliced sweep (pair_kernel), for a card of 132 SMs that one
 // thread per target cannot fill (49,152 targets are 384 blocks of 4
@@ -48,9 +50,8 @@
 //   one of R^2 (rsqrt.approx.ftz in float32), serves every block; the
 //   near and self forms sit in one rarely entered branch;
 // - __launch_bounds__ asks for 8 resident blocks an SM in float32 (Shape
-//   below): 64 registers a thread at most (ptxas on sm_90a: tt 47 / 56
-//   with B = 1 / 2, grand 64, rr, tr and rt 38-54; sym_kernel tt and
-//   grand 64; no spills). float64 is not capped.
+//   below): 64 registers a thread at most (ptxas on sm_90a, PERF.md §6
+//   lists each instance's count). float64 is not capped.
 // Ragged edges are masked by index; there is no padding of the inputs.
 //
 // Near/far switch: the near forms for r <= 2 (the JAX package switches
@@ -101,9 +102,9 @@ __device__ __forceinline__ Pair<T> make_pair(T xt, T yt, T zt, T xs, T ys,
   p.zero = self || (p.r2 == T(0));
   p.near = !(p.r2 > T(4));
   p.invr = rsqrt_t(p.r2);
+  p.zt = zt;
+  p.zs = zs;
   if (WALL) {
-    p.zt = zt;
-    p.zs = zs;
     p.Rz = zt + zs;
     p.invR = rsqrt_t(p.Rz * p.Rz + xy2);
   }
@@ -116,11 +117,11 @@ struct Diag {
   T A, S, P, Q, mzz;
 };
 
-// condensed cross block (tr, rt): core coefficient plus the 8 wall
-// entries of the UT pattern (subtracted; rt applies the transpose)
+// condensed cross block (tr, rt): the core coefficient c and the wall
+// terms F1, K, G3, H (cross_condense below)
 template <typename T>
 struct Cross {
-  T c, cxx, cxy, cxz, cyx, cyy, cyz, czx, czy;
+  T c, F1, K, G3, H;
 };
 
 template <typename T, bool WALL>
@@ -235,38 +236,71 @@ __device__ __forceinline__ Diag<T> rr_condense(const Pair<T>& p) {
   return m;
 }
 
+// The cross blocks. The wall part of tr's block is -Mw and of rt's -Mw^T,
+// Mw the UT pattern of rpy._wall_cross_core in the in-plane displacement
+// u (-d for tr, d for rt) and the wall height h (zt for tr, zs for rt).
+// Folded onto raw (dx, dy, Rz) with W = 1/R, u2 = 1/R^2, e = e_z^2 and
+// h_hat e_z = h W (F1 = f1 / R = W u2, F2 = f2 / R, G3 = f3 / R^2), every
+// entry of Mw comes from F1 and three functions of h, each one FMA from
+// terms of the pair alone:
+//   K = F1 Rz + f4 = F1 Rz (1 + 2 u2) - 2 F1 h
+//   G3 = -2 F1 u2 (3 h - 5 Rz u2) = -6 F1 u2 h + 10 F1 u2^2 Rz
+//   H = F1 + F2 + G3 Rz = F1 (1 + 2 u2 (1 - 5 e)) + 6 F1 u2 Rz h
+// and with w = ux vy - uy vx, pr = ux vx + uy vy
+//   -Mw v   = (K vy - F1 uy vz - G3 ux w, -K vx + F1 ux vz - G3 uy w, -H w)
+//   -Mw^T v = (G3 uy pr - K vy + H uy vz, -G3 ux pr + K vx - H ux vz, F1 w).
+// The two cross blocks of one pair (tr's and rt's) share all but K, G3
+// and H: CrossShared holds what they share, cross_block adds a height.
+template <typename T>
+struct CrossShared {
+  T c, F1;           // the core coefficient, W u2
+  T K0, Kh;          // K = K0 + Kh h
+  T G0, Gh;          // G3 = G0 + Gh h
+  T H0, Hh;          // H = H0 + Hh h
+};
+
+template <typename T, bool WALL>
+__device__ __forceinline__ CrossShared<T> cross_shared(const Pair<T>& p) {
+  CrossShared<T> s{};
+  s.c = p.invr * p.invr * p.invr;
+  if (__builtin_expect(p.near, 0))  // the two forms agree at r = 2
+    s.c = p.zero ? T(0) : T(0.5) * (T(1) - T(0.375) * (p.r2 * p.invr));
+  if (WALL) {
+    const T Rz = p.Rz, W = p.invR;
+    const T u2 = W * W;
+    const T e = Rz * Rz * u2;
+    s.F1 = W * u2;
+    const T F1u2 = s.F1 * u2;
+    s.K0 = s.F1 * Rz * (T(1) + T(2) * u2);
+    s.Kh = T(-2) * s.F1;
+    s.G0 = T(10) * F1u2 * (Rz * u2);
+    s.Gh = T(-6) * F1u2;
+    s.H0 = s.F1 + T(2) * F1u2 * (T(1) - T(5) * e);
+    s.Hh = T(6) * F1u2 * Rz;
+  }
+  return s;
+}
+
+// the block at wall height h (tr: zt, rt: zs)
+template <typename T, bool WALL>
+__device__ __forceinline__ Cross<T> cross_block(const CrossShared<T>& s,
+                                                T h) {
+  Cross<T> m{};
+  m.c = s.c;
+  if (WALL) {
+    m.F1 = s.F1;
+    m.K = s.Kh * h + s.K0;
+    m.G3 = s.Gh * h + s.G0;
+    m.H = s.Hh * h + s.H0;
+  }
+  return m;
+}
+
 // IS_TR: tr, U from T, wall height z_target and reflected in-plane
 // displacement; otherwise rt, W from F, wall height z_source
 template <typename T, bool WALL, bool IS_TR>
 __device__ __forceinline__ Cross<T> cross_condense(const Pair<T>& p) {
-  Cross<T> m;
-  m.c = p.invr * p.invr * p.invr;
-  if (__builtin_expect(p.near, 0))  // the two forms agree at r = 2
-    m.c = p.zero ? T(0) : T(0.5) * (T(1) - T(0.375) * (p.r2 * p.invr));
-  if (WALL) {
-    // rpy._wall_cross_core folded onto raw (dx, dy, Rz), with W = 1/R,
-    // u = 1/R^2, e = e_z^2 and h_hat e_z = h W: F1 = f1 / R = W u,
-    // F2 = f2 / R, G3 = f3 / R^2
-    const T Rz = p.Rz, W = p.invR;
-    const T h = IS_TR ? p.zt : p.zs;
-    const T u = W * W;
-    const T e = Rz * Rz * u;
-    const T F1 = W * u;
-    const T F2 = T(2) * F1 * u * (T(6) * h * Rz + T(1) - T(10) * e);
-    const T G3 = T(-2) * F1 * u * (T(3) * h - T(5) * Rz * u);
-    const T f4 = T(-2) * F1 * (h - Rz * u);
-    const T ux = IS_TR ? -p.dx : p.dx;
-    const T uy = IS_TR ? -p.dy : p.dy;
-    m.cxx = -G3 * ux * uy;
-    m.cxy = -F1 * Rz + G3 * ux * ux - f4;
-    m.cxz = F1 * uy;
-    m.cyx = F1 * Rz - G3 * uy * uy + f4;
-    m.cyy = G3 * ux * uy;
-    m.cyz = -F1 * ux;
-    m.czx = -(F1 + F2) * uy - G3 * uy * Rz;
-    m.czy = (F1 + F2) * ux + G3 * ux * Rz;
-  }
-  return m;
+  return cross_block<T, WALL>(cross_shared<T, WALL>(p), IS_TR ? p.zt : p.zs);
 }
 
 // the apply steps add into the sums by multiply-adds, two a component
@@ -293,7 +327,7 @@ __device__ __forceinline__ void diag_apply_t(const Diag<T>& m, T dx, T dy,
 }
 
 // TRANSPOSE applies the block's transpose: the core c [d x] changes sign
-// and the wall pattern flips between UT and its transpose
+// and the wall pattern flips between -Mw and -Mw^T (cross_shared above)
 template <typename T, bool WALL, bool IS_TR, bool TRANSPOSE = false>
 __device__ __forceinline__ void cross_apply(const Cross<T>& m,
                                             const Pair<T>& p, const T* v,
@@ -304,14 +338,18 @@ __device__ __forceinline__ void cross_apply(const Cross<T>& m,
   T oy = c * (p.dx * vz - p.dz * vx) + acc[1];
   T oz = c * (p.dy * vx - p.dx * vy) + acc[2];
   if (WALL) {
-    if (IS_TR != TRANSPOSE) {
-      ox = ox - m.cxx * vx - m.cxy * vy - m.cxz * vz;
-      oy = oy - m.cyx * vx - m.cyy * vy - m.cyz * vz;
-      oz = oz - m.czx * vx - m.czy * vy;
-    } else {  // rt, or tr transposed: the transposed pattern
-      ox = ox - m.cxx * vx - m.cyx * vy - m.czx * vz;
-      oy = oy - m.cxy * vx - m.cyy * vy - m.czy * vz;
-      oz = oz - m.cxz * vx - m.cyz * vy;
+    const T ux = IS_TR ? -p.dx : p.dx;
+    const T uy = IS_TR ? -p.dy : p.dy;
+    if (IS_TR != TRANSPOSE) {  // -Mw v: tr, or rt transposed
+      const T w = ux * vy - uy * vx;
+      ox = ox + m.K * vy - (m.F1 * uy) * vz - (m.G3 * ux) * w;
+      oy = oy - m.K * vx + (m.F1 * ux) * vz - (m.G3 * uy) * w;
+      oz = oz - m.H * w;
+    } else {  // -Mw^T v: rt, or tr transposed
+      const T pr = ux * vx + uy * vy;
+      ox = ox + (m.G3 * uy) * pr - m.K * vy + (m.H * uy) * vz;
+      oy = oy - (m.G3 * ux) * pr + m.K * vx - (m.H * ux) * vz;
+      oz = oz + m.F1 * (ux * vy - uy * vx);
     }
   }
   acc[0] = ox;
@@ -320,27 +358,36 @@ __device__ __forceinline__ void cross_apply(const Cross<T>& m,
 }
 
 // Couplings: input/output components per right-hand side, the largest B
-// the paths launch (the template instances), the float32 launch shape,
-// and the per-pair update of the partial sums from one source's vector
-// entries v (b-major, kComp a right-hand side); tt and grand, whose
-// mobilities are symmetric (M_ji = M_ij^T), also give the source's share
-// of the pair from the target's entries (accumulate_both, for sym_kernel).
-struct TT {
+// the paths launch (the template instances), and the per-pair update of
+// the partial sums from one source's vector entries v (b-major, kComp a
+// right-hand side); each also gives both shares of a pair, the target's
+// from the source's entries and the source's from the target's
+// (accumulate_both, for sym_kernel), from the blocks of (i, j) alone:
+// M_tt and M_rr are symmetric (M(j,i) = M(i,j)^T), and the cross blocks
+// trade places, M_tr(j,i) = M_rt(i,j)^T.
+template <bool IS_RR>
+struct DiagCoupling {
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = 2;
+  template <typename T, bool WALL>
+  __device__ __forceinline__ static Diag<T> condense(const Pair<T>& p) {
+    if constexpr (IS_RR)
+      return rr_condense<T, WALL>(p);
+    else
+      return tt_condense<T, WALL>(p);
+  }
   template <typename T, int B, bool WALL>
   __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
-    const Diag<T> m = tt_condense<T, WALL>(p);
+    const Diag<T> m = condense<T, WALL>(p);
 #pragma unroll
     for (int b = 0; b < B; ++b) diag_apply(m, p.dx, p.dy, v + 3 * b,
                                            part + 3 * b);
   }
-  // both shares of a pair: M_ij v_j to the target, M_ij^T v_i to the
-  // source
+  // M_ij v_j to the target, M_ij^T v_i to the source, from one Diag
   template <typename T, int B, bool WALL>
   __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
                                          T* acc_i, const T* vi, T* acc_j) {
-    const Diag<T> m = tt_condense<T, WALL>(p);
+    const Diag<T> m = condense<T, WALL>(p);
 #pragma unroll
     for (int b = 0; b < B; ++b) {
       diag_apply(m, p.dx, p.dy, vj + 3 * b, acc_i + 3 * b);
@@ -348,18 +395,8 @@ struct TT {
     }
   }
 };
-
-struct RR {
-  static constexpr int kComp = 3;
-  static constexpr int kMaxRhs = 2;
-  template <typename T, int B, bool WALL>
-  __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
-    const Diag<T> m = rr_condense<T, WALL>(p);
-#pragma unroll
-    for (int b = 0; b < B; ++b) diag_apply(m, p.dx, p.dy, v + 3 * b,
-                                           part + 3 * b);
-  }
-};
+using TT = DiagCoupling<false>;
+using RR = DiagCoupling<true>;
 
 template <bool IS_TR, int MAX_RHS>
 struct CrossCoupling {
@@ -372,6 +409,22 @@ struct CrossCoupling {
     for (int b = 0; b < B; ++b)
       cross_apply<T, WALL, IS_TR>(m, p, v + 3 * b, part + 3 * b);
   }
+  // the coupling's block of (i, j) to the target; to the source the other
+  // cross block of (i, j), transposed (tr: M_tr(j,i) T_i = M_rt(i,j)^T
+  // T_i; rt: M_rt(j,i) F_i = M_tr(i,j)^T F_i), both from one CrossShared
+  template <typename T, int B, bool WALL>
+  __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
+                                         T* acc_i, const T* vi, T* acc_j) {
+    const CrossShared<T> s = cross_shared<T, WALL>(p);
+    const Cross<T> own = cross_block<T, WALL>(s, IS_TR ? p.zt : p.zs);
+    const Cross<T> other = cross_block<T, WALL>(s, IS_TR ? p.zs : p.zt);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      cross_apply<T, WALL, IS_TR>(own, p, vj + 3 * b, acc_i + 3 * b);
+      cross_apply<T, WALL, !IS_TR, true>(other, p, vi + 3 * b,
+                                         acc_j + 3 * b);
+    }
+  }
 };
 using TR = CrossCoupling<true, 2>;
 using RT = CrossCoupling<false, 1>;
@@ -382,8 +435,9 @@ struct Grand {
   template <typename T, int B, bool WALL>
   __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
     const Diag<T> mtt = tt_condense<T, WALL>(p);
-    const Cross<T> mtr = cross_condense<T, WALL, true>(p);
-    const Cross<T> mrt = cross_condense<T, WALL, false>(p);
+    const CrossShared<T> s = cross_shared<T, WALL>(p);
+    const Cross<T> mtr = cross_block<T, WALL>(s, p.zt);
+    const Cross<T> mrt = cross_block<T, WALL>(s, p.zs);
     const Diag<T> mrr = rr_condense<T, WALL>(p);
 #pragma unroll
     for (int b = 0; b < B; ++b) {
@@ -403,8 +457,9 @@ struct Grand {
   __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
                                          T* acc_i, const T* vi, T* acc_j) {
     const Diag<T> mtt = tt_condense<T, WALL>(p);
-    const Cross<T> mtr = cross_condense<T, WALL, true>(p);
-    const Cross<T> mrt = cross_condense<T, WALL, false>(p);
+    const CrossShared<T> s = cross_shared<T, WALL>(p);
+    const Cross<T> mtr = cross_block<T, WALL>(s, p.zt);
+    const Cross<T> mrt = cross_block<T, WALL>(s, p.zs);
     const Diag<T> mrr = rr_condense<T, WALL>(p);
 #pragma unroll
     for (int b = 0; b < B; ++b) {
@@ -543,9 +598,9 @@ slice_sum_kernel(const T* __restrict__ ws, T* __restrict__ out,
   out[idx] = s;
 }
 
-// The symmetric sweep of a square product (targets = sources) for the
-// symmetric couplings (tt, grand): each unordered pair is condensed once
-// and applied both ways, halving the condensing that bounds the sliced
+// The symmetric sweep of a square product (targets = sources), for every
+// coupling (accumulate_both): each unordered pair is condensed once and
+// applied both ways, halving the condensing that bounds the sliced
 // sweep.
 // - The 128-blob tiles fall into G groups of tiles_per_group tiles; a
 //   block takes one pair of groups (GA, GB), GA <= GB, of the upper

@@ -11,7 +11,9 @@
 // Template instances are the ones the rollers path launches: tr and rr
 // with B = 1 or 2 (the lockstep torque solve and its trailing M_tr
 // products), rt and grand with B = 1; each with and without the wall, in
-// float32 and float64.
+// float32 and float64, on the sliced sweep (a product with its own target
+// set) and on the symmetric sweep (the square product, which is every
+// product of the rollers path).
 
 #include "pair_blocks.cuh"
 
@@ -21,5 +23,9 @@ PAIRK_ENTRY(pair_rt, pairk::RT)
 PAIRK_ENTRY(pair_rr, pairk::RR)
 // vec (n_src,6) = (F, T/a) -> out (n_tgt,6) = (U, W a) before prefactors
 PAIRK_ENTRY(pair_grand, pairk::Grand)
-// the symmetric sweep of the square grand product (the rollers' Lanczos)
+// the symmetric sweep of the square products: tr and rr n_rhs 1 or 2, rt
+// and grand (the rollers' Lanczos) 1
+PAIRK_SYM_ENTRY(pair_tr_sym, pairk::TR)
+PAIRK_SYM_ENTRY(pair_rt_sym, pairk::RT)
+PAIRK_SYM_ENTRY(pair_rr_sym, pairk::RR)
 PAIRK_SYM_ENTRY(pair_grand_sym, pairk::Grand)

@@ -51,11 +51,13 @@ SIGNATURES = {
     **{f"pair_{c}_shape": (_I, _I, _I, _PI)
        for c in ("tt", "tr", "rt", "rr", "grand")},
     **{f"pair_{c}_sym_{t}": (_P,) * 4 + (_I,) * 6 + (_P,)
-       for c in ("tt", "grand") for t in ("f32", "f64")},
+       for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
     **{f"blob_forces_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3 + (_P,)
        for t in ("f32", "f64")},
     **{f"blob_forces_periodic_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3
        + (_PD, _I, _PD, _P) for t in ("f32", "f64")},
+    **{f"blob_forces_one_box_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3
+       + (_PD, _P) for t in ("f32", "f64")},
     "dense_tt_f32": (_P, _P, _I, _D, _D, _I, _P),
     "dense_tt_f64": (_P, _P, _I, _D, _D, _I, _P),
     "symm_matvec_f32": (_P, _P, _P, _P, _I, _I, _P),

@@ -4,9 +4,10 @@ plain PyTorch versions.
 Counterpart of rigidmultiblobswall_tpu/ops/mobility_pallas.py, all three
 of its kernels:
   K2 `blob_blob_forces`: the blob-blob repulsion (`blob_blob_forces_pallas`
-     there, `csrc/blob_forces.cu` here), with a periodic instance for the
-     minimum-image sweep over image boxes of rigidmultiblobswall_tpu/ops/
-     forces.py's `blob_blob_forces` (XLA there);
+     there, `csrc/blob_forces.cu` here), with two periodic instances for
+     the minimum-image sweep of rigidmultiblobswall_tpu/ops/forces.py's
+     `blob_blob_forces` (XLA there): over the image boxes, and over the
+     home box alone where `image_boxes` finds the others' forces zero;
   K3 `dense_tt`: the tt mobility of one configuration, materialized as the
      interleaved (3N, 3N) matrix with the height shift, 1/(8 pi eta a) and
      the wall damping folded in (`dense_tt_pallas` and its caller
@@ -33,9 +34,11 @@ from . import _build, pair_kernels
 from . import mobility as mob
 
 # number of K2 launches made by `blob_blob_forces` in this process: the
-# open domain's instance and the periodic one
+# open domain's instance and the periodic ones, of which the one-box
+# instance's
 LAUNCHES = 0
 PERIODIC_LAUNCHES = 0
+ONE_BOX_LAUNCHES = 0
 # (r - 2a) / b beyond which exp(-(r - 2a)/b) is 0 in the dtype: below half
 # the smallest subnormal (float32 exp(-103.98), float64 exp(-745.13)), with
 # a margin for the exponential's own rounding
@@ -76,7 +79,17 @@ def image_boxes(periodic_length, debye_length, blob_radius, dtype):
     the minimum image |d_a| <= L_a / 2 on each periodic axis, so a pair in
     a box with b_a != 0 lies at r >= L_a / 2 (less a rounding margin),
     and (r - 2a) / b beyond UNDERFLOW[dtype] makes exp(-(r - 2a)/b) == 0
-    there, in the plain version and in the kernel's exp2."""
+    there, in the plain version and in the kernel's exp2.
+
+    With one box the kernel takes its one-box instance, whose minimum
+    image d - round(d (1/L)) L (csrc/blob_forces.cu OneBoxPairs; 1/L
+    rounded to d's dtype, ties to even) may pick the other image than
+    min_image's for a pair whose d/L lies within a few ulps of a
+    half-integer. Both images then lie at r >= L/2 (1 - 2^-21 |d/L|) and
+    take a zero magnitude as well: UNDERFLOW sits more than 6 above the
+    exponent where exp underflows (103.97 in float32, 745.13 in float64),
+    which covers that margin (and the 1e-6 below) while
+    2^-21 |d/L| (110 + 2a/b) < 6, e.g. |d| < 10^4 L for 2a/b < 1000."""
     boxes = box_offsets(periodic_length)
     periodic = [float(L) for L in periodic_length if float(L) > 0]
     if periodic:
@@ -151,10 +164,12 @@ def blob_blob_forces(r_vectors, *, repulsion_strength, debye_length,
                      blob_radius, periodic_length=(0.0, 0.0, 0.0)):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. r_vectors (N,3) -> (N,3); a periodic_length with an axis
-    L > 0 takes the periodic instance over image_boxes' boxes. On the card
-    the kernel takes K1's symmetric sweep over `pair_kernels.plan_groups`'
-    tile groups, into a workspace (G, N, 3) summed in a fixed order."""
-    global LAUNCHES, PERIODIC_LAUNCHES
+    L > 0 takes a periodic instance: over image_boxes' boxes, or its
+    one-box instance when image_boxes keeps the home box alone. On the
+    card the kernel takes K1's symmetric sweep over
+    `pair_kernels.plan_groups`' tile groups, into a workspace (G, N, 3)
+    summed in a fixed order."""
+    global LAUNCHES, PERIODIC_LAUNCHES, ONE_BOX_LAUNCHES
     periodic_length = tuple(float(x) for x in periodic_length)
     periodic = any(L > 0 for L in periodic_length)
     law = dict(repulsion_strength=repulsion_strength,
@@ -181,20 +196,28 @@ def blob_blob_forces(r_vectors, *, repulsion_strength, debye_length,
     groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(r))
     ws = torch.empty((groups, n, 3), dtype=r.dtype, device=r.device)
     suffix = "f32" if r.dtype == torch.float32 else "f64"
-    name = f"blob_forces_{'periodic_' if periodic else ''}{suffix}"
+    name = f"blob_forces_{suffix}"
     args = [r.data_ptr(), out.data_ptr(), ws.data_ptr(), n, groups, per,
             *force_law(repulsion_strength, debye_length, blob_radius)]
+    one_box = False
     if periodic:
         boxes = image_boxes(periodic_length, debye_length, blob_radius,
                             r.dtype)
-        off = [b * L for box in boxes for b, L in zip(box, periodic_length)]
-        args += [(ctypes.c_double * 3)(*periodic_length), len(boxes),
-                 (ctypes.c_double * len(off))(*off)]
+        args.append((ctypes.c_double * 3)(*periodic_length))
+        one_box = len(boxes) == 1
+        if one_box:
+            name = f"blob_forces_one_box_{suffix}"
+        else:
+            name = f"blob_forces_periodic_{suffix}"
+            off = [b * L for box in boxes
+                   for b, L in zip(box, periodic_length)]
+            args += [len(boxes), (ctypes.c_double * len(off))(*off)]
     err = getattr(_build.library(), name)(
         *args, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(name, err)
     if periodic:
         PERIODIC_LAUNCHES += 1
+        ONE_BOX_LAUNCHES += one_box
     else:
         LAUNCHES += 1
     return out

@@ -12,12 +12,14 @@ as b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
 - on a CUDA tensor it launches the hand-written kernel of the coupling
   (`csrc/pair_tt.cu`, `csrc/pair_couplings.cu`, both on
   `csrc/pair_blocks.cuh`; float32 or float64) and counts the launch in
-  `LAUNCHES[coupling, B]`. A square tt or grand product (q_tgt None:
-  the targets are the sources) takes the symmetric sweep, which condenses
-  each unordered pair once over `plan_groups`' groups of tiles; every
-  other product takes the sliced sweep, which splits the sources into S
-  slices of whole 128-source tiles (`plan_slices`, so that the card
-  fills). Both write partial sums into a workspace that the wrapper
+  `LAUNCHES[coupling, B]`. A square product (q_tgt None: the targets
+  are the sources) takes the symmetric sweep, which condenses each
+  unordered pair once over `plan_groups`' groups of tiles and applies it
+  both ways (counted also in `SYM_LAUNCHES`): tt, rr and grand are
+  symmetric, M_ji = M_ij^T, and tr and rt trade places, M_tr(j,i) =
+  M_rt(i,j)^T. A two-tensor product takes the sliced sweep, which splits
+  the sources into S slices of whole 128-source tiles (`plan_slices`, so
+  that the card fills). Both write partial sums into a workspace that the wrapper
   allocates, and a second kernel adds them in a fixed order;
 - on a CPU tensor it runs `pair_plain`, the row-tiled sum of the blocks
   of ops/rpy.py (the JAX package's generic tiled path,
@@ -43,8 +45,10 @@ NCOMP = {"tt": 3, "tr": 3, "rt": 3, "rr": 3, "grand": 6}
 # Slip-Trapz; rr and tr: the rollers' det+stochastic torque solve)
 MAX_RHS = {"tt": 2, "tr": 2, "rt": 1, "rr": 2, "grand": 1}
 
-# K1 launches made by `pair_matvec` in this process, by (coupling, B)
+# K1 launches made by `pair_matvec` in this process, by (coupling, B),
+# and those of them on the symmetric sweep
 LAUNCHES = {(c, b): 0 for c in NCOMP for b in range(1, MAX_RHS[c] + 1)}
+SYM_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
 def launches(coupling):
@@ -61,9 +65,6 @@ WORKSPACE_LIMIT_BYTES = 1 << 26
 # better (tools/torch_profile_kernels.py on the H100: tt at 49,152 blobs 11.9
 # ms in one slice, 10.6 ms at ~1.5 waves, 9.9 ms at 8 and more)
 PLAN_WAVES = 8
-# the couplings whose mobility is symmetric (M_ji = M_ij^T): their square
-# products take the symmetric sweep
-SYMMETRIC = ("tt", "grand")
 # resident blocks an SM that the float32 sweeps ask for
 # (csrc/pair_blocks.cuh Shape)
 MIN_BLOCKS_F32 = 8
@@ -212,9 +213,9 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
     """K1 wrapper: the CUDA kernel of `coupling` for CUDA tensors,
     `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt (Nt,3) or None for
     the square product (the targets are the sources), vec (Ns,nc B) ->
-    (Nt,nc B). On the card a square tt or grand product takes the
-    symmetric sweep over `plan_groups`' groups, every other product the
-    sliced sweep over `launch_plan`'s slices."""
+    (Nt,nc B). On the card a square product takes the symmetric sweep
+    over `plan_groups`' groups, a two-tensor product the sliced sweep
+    over `launch_plan`'s slices."""
     if coupling not in NCOMP:
         raise ValueError(f"unknown coupling {coupling!r}")
     square = q_tgt is None
@@ -233,7 +234,7 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
         return out.zero_()
     suffix = "f32" if vec.dtype == torch.float32 else "f64"
     stream = torch.cuda.current_stream(vec.device).cuda_stream
-    if square and coupling in SYMMETRIC:
+    if square:
         name = f"pair_{coupling}_sym_{suffix}"
         groups, per = plan_groups(n_src, _n_sm(vec))
         ws = torch.empty((groups, n_src, nc * n_rhs), dtype=vec.dtype,
@@ -253,6 +254,8 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
     err = getattr(_build.library(), name)(*args)
     _build.check(name, err)
     LAUNCHES[coupling, n_rhs] += 1
+    if square:
+        SYM_LAUNCHES[coupling, n_rhs] += 1
     return out
 
 

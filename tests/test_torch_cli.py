@@ -474,3 +474,18 @@ def test_cli_lubrication_example_runs_on_cpu(tmp_path, monkeypatch):
     info = _info(tmp_path / "run.info")
     assert int(info["deterministic_iterations_count"]) > 0
     assert int(info["num_rejections_wall"]) == 0
+
+
+def test_cli_writes_the_files_jax_writes(tmp_path, monkeypatch):
+    """One Slip-Trapz run of each CLI on the same input writes the same set
+    of files, the provenance stamp .git (`git rev-parse HEAD` in the
+    package's directory) included, with the same content. The JAX CLI's
+    .random_state (its PRNG key at the end of the run) is the one file the
+    port does not write yet (ROADMAP Queue 1, item 11)."""
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz")
+    names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
+    assert "run.git" in names["jax"]
+    assert names["jax"] - names["torch"] == {"run.random_state"}
+    assert names["torch"] - names["jax"] == set()
+    assert ((out["torch"] / "run.git").read_text()
+            == (out["jax"] / "run.git").read_text())

@@ -143,8 +143,8 @@ def test_k1_instances_across_slices(cuda, coupling, n_rhs, n, n_slices,
     sources in three one-tile slices) and off them (1000 in eight, 104 in
     the last), self_interaction across slices, blobs below a (heights
     exactly a after the shift) and a coincident pair; the square call
-    (tt and grand: the symmetric sweep) and the call with two tensors
-    (the sliced sweep)."""
+    (the symmetric sweep) and the call with two tensors (the sliced
+    sweep)."""
     _, q = _scene(n, seed=9)
     q[5] = q[4]
     assert _plan(cuda, coupling, n_rhs, dtype, n, n)[0] == n_slices
@@ -174,7 +174,7 @@ def test_k1_ragged_across_slices(cuda, coupling, n_rhs):
                    False) <= 1e-12
 
 
-@pytest.mark.parametrize("coupling", ["tt", "grand"])
+@pytest.mark.parametrize("coupling", ["tt", "tr", "rt", "rr", "grand"])
 def test_k1_bit_identical_on_repeat(cuda, coupling):
     """17,000 blobs, square: the symmetric sweep (groups of two tiles)
     and the sliced sweep sum their slices in a fixed order, so two
@@ -199,12 +199,11 @@ def test_k1_bit_identical_on_repeat(cuda, coupling):
 @pytest.mark.parametrize("self_interaction", [True, False])
 @pytest.mark.parametrize("wall", [True, False])
 @pytest.mark.parametrize("n", [77, 128, 300, 1000, 17000])
-@pytest.mark.parametrize("coupling, n_rhs", [("tt", 1), ("tt", 2),
-                                             ("grand", 1)])
+@pytest.mark.parametrize("coupling, n_rhs", INSTANCES)
 def test_k1_symmetric_sweep(cuda, coupling, n_rhs, n, wall, self_interaction,
                             dtype, bound):
-    """The square tt and grand products (q_tgt None) on the symmetric
-    sweep: N below a tile, on a tile edge and off it, and 17,000 blobs in
+    """The square products (q_tgt None) of every coupling and B on the
+    symmetric sweep: N below a tile, on a tile edge and off it, and 17,000 blobs in
     groups of two tiles (the last group one tile, ragged); blobs below
     a, a coincident pair in the same tile and one across tiles; with and
     without self pairs; against the plain version on the first 512
@@ -221,10 +220,12 @@ def test_k1_symmetric_sweep(cuda, coupling, n_rhs, n, wall, self_interaction,
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
     kw = dict(coupling=coupling, wall=wall, self_interaction=self_interaction)
     before = pk.LAUNCHES[coupling, n_rhs]
+    sym_before = pk.SYM_LAUNCHES[coupling, n_rhs]
     got = pk.pair_matvec(qt, None, vt, **kw)
     sliced = pk.pair_matvec(qt, qt, vt, **kw)
     torch.cuda.synchronize()
     assert pk.LAUNCHES[coupling, n_rhs] == before + 2
+    assert pk.SYM_LAUNCHES[coupling, n_rhs] == sym_before + 1
     sub = min(n, 512)
     ref = pk.pair_plain(qt.double(), qt[:sub].double(), vt.double(), **kw)
     scale = ref.abs().max().item()
@@ -994,9 +995,11 @@ def test_k8_launch_error_raises(cuda, monkeypatch):
                          args[4][..., :24], args[5], cz_range=layers, **kw)
 
 
-# periodic K2: boxes where the kernel sums the home box alone (large), all
-# nine xy boxes (small, long Debye length) and all 27 (fully periodic)
+# periodic K2: boxes where the kernel sums the home box alone (large; in
+# float32 its one-box instance, in float64 all boxes), all nine xy boxes
+# (small, long Debye length) and all 27 (fully periodic)
 PERIODIC_BOXES = {"large_xy": ((60.0, 60.0, 0.0), 0.25),
+                  "large_xyz": ((60.0, 60.0, 60.0), 0.25),
                   "small_xy": ((1.5, 1.5, 0.0), 1.0),
                   "small_xyz": ((1.6, 1.4, 1.5), 0.8)}
 
@@ -1024,11 +1027,13 @@ def test_k2_periodic_matches_plain(cuda, box, n, dtype, bound):
     rt = torch.as_tensor(r, dtype=dtype, device=cuda)
     kw = dict(repulsion_strength=0.7, debye_length=b, blob_radius=0.3,
               periodic_length=L)
-    before = mc.PERIODIC_LAUNCHES
+    before, one_before = mc.PERIODIC_LAUNCHES, mc.ONE_BOX_LAUNCHES
     got = mc.blob_blob_forces(rt, **kw)
     again = mc.blob_blob_forces(rt, **kw)
     torch.cuda.synchronize()
     assert mc.PERIODIC_LAUNCHES == before + 2 and torch.equal(got, again)
+    one_box = len(mc.image_boxes(L, b, 0.3, dtype)) == 1
+    assert mc.ONE_BOX_LAUNCHES == one_before + 2 * one_box
     ref = mc.blob_blob_forces_plain(rt.double(), **kw)
     err = (got.double() - ref).abs().max().item()
     # one blob: the kernel skips the self pair in every box, the plain
@@ -1044,6 +1049,39 @@ def test_k2_periodic_matches_plain(cuda, box, n, dtype, bound):
     assert err <= bound * scale
     if n == 1:
         assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [(400.0, 400.0, 0.0), (400.0, 400.0, 400.0)])
+def test_k2_one_box_at_half_a_box(cuda, L, dtype):
+    """The one-box instance (an open z axis, and fully periodic) on pairs
+    at half a box and a few ulps either way, where its minimum image picks
+    another image than the division's (tests/test_torch_forces.py's
+    scene): the same forces as the plain version within the K2 bound,
+    twice bit-identical."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    up = down = np_dtype(L[0] / 2)
+    xs = [up]
+    for _ in range(3):
+        up = np.nextafter(up, np_dtype(np.inf))
+        down = np.nextafter(down, np_dtype(0))
+        xs += [up, down]
+    rows = []
+    for k, x in enumerate(xs):
+        rows += [(0.0, 0.1 * k, 1.0), (x, 0.1 * k, 1.0),
+                 (0.4, 0.1 * k + 0.1, 1.1)]
+    r = torch.as_tensor(np.asarray(rows, dtype=np_dtype), device=cuda)
+    kw = dict(repulsion_strength=0.7, debye_length=0.25, blob_radius=0.3,
+              periodic_length=L)
+    assert mc.image_boxes(L, 0.25, 0.3, dtype) == [(0, 0, 0)]
+    before = mc.ONE_BOX_LAUNCHES
+    got = mc.blob_blob_forces(r, **kw)
+    again = mc.blob_blob_forces(r, **kw)
+    torch.cuda.synchronize()
+    assert mc.ONE_BOX_LAUNCHES == before + 2 and torch.equal(got, again)
+    ref = mc.blob_blob_forces_plain(r.double(), **kw)
+    bound = 3e-6 if dtype == torch.float32 else 1e-12
+    assert (got.double() - ref).abs().max() <= bound * ref.abs().max()
 
 
 def _lub_run(device, dtype, n_steps=3, tol=1e-12, kT=0.0041419464):

@@ -136,3 +136,87 @@ def test_periodic_forces_row_subset():
                                       **kw)
     assert torch.equal(part[5:17], full[5:17])
     assert torch.all(part[:5] == 0) and torch.all(part[17:] == 0)
+
+
+def _half_box_scene(L, dtype, n_ulps=3):
+    """Pairs of blobs whose x separation is half the box and a few ulps
+    either way (the separations the minimum image's rounding decides),
+    each beside a third blob inside 2a of the first."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    half = np_dtype(L[0] / 2)
+    xs, up, down = [half], half, half
+    for _ in range(n_ulps):
+        up, down = np.nextafter(up, np_dtype(np.inf)), np.nextafter(
+            down, np_dtype(0))
+        xs += [up, down]
+    rows = []
+    for k, x in enumerate(xs):
+        y = np_dtype(0.1 * k)
+        rows += [(0.0, y, 1.0), (x, y, 1.0), (0.4, y + 0.1, 1.1)]
+    return torch.as_tensor(np.asarray(rows, dtype=np_dtype))
+
+
+def _one_box_image(d, L):
+    """The one-box kernel's minimum image (csrc/blob_forces.cu
+    OneBoxPairs): d - round(d (1/L)) L on each periodic axis, 1/L rounded
+    to d's dtype, round to the nearest with ties to even."""
+    d = d.clone()
+    for axis, L_a in enumerate(L):
+        if L_a > 0:
+            inv_L = torch.tensor(1.0 / L_a, dtype=d.dtype)
+            d[..., axis] = d[..., axis] - torch.round(
+                d[..., axis] * inv_L) * L_a
+    return d
+
+
+def _forces_of_images(d0, L, debye_length):
+    """blob_blob_forces_plain's law written out over the image boxes,
+    from the home box's displacements d0 (N, N, 3) in one row tile."""
+    eps_over_b = KW["repulsion_strength"] / debye_length
+    two_a = 2.0 * KW["blob_radius"]
+    self_pair = torch.eye(d0.shape[0], dtype=torch.bool)
+    acc = torch.zeros_like(d0[:, 0])
+    for box in tmc.box_offsets(L):
+        home = box == (0, 0, 0)
+        skip = self_pair if home else torch.zeros_like(self_pair)
+        d = d0 if home else d0 + torch.as_tensor(
+            box, dtype=d0.dtype) * torch.as_tensor(L, dtype=d0.dtype)
+        r2 = torch.sum(d * d, dim=-1)
+        rnorm = torch.sqrt(torch.where(skip | (r2 == 0.0),
+                                       torch.ones_like(r2), r2))
+        mag = torch.where(
+            rnorm > two_a,
+            eps_over_b * torch.exp(-(rnorm - two_a) / debye_length) / rnorm,
+            eps_over_b / rnorm)
+        mag = torch.where(skip, torch.zeros_like(mag), mag)
+        acc += torch.sum(mag[..., None] * d, dim=1)
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_box_minimum_image_at_half_a_box(dtype):
+    """The one-box kernel's minimum image, d - round(d (1/L)) L, picks
+    another image than the JAX package's d - trunc(d/L + sign(d)/2) L for
+    pairs at half a box; in a box where image_boxes keeps the home box
+    alone, both images of such a pair lie beyond the force's range, so
+    the forces are the same bit for bit. In a small box, where every box
+    is summed and the kernel keeps the division, they differ."""
+    for case, (L, b) in (("one_box", ((400.0, 400.0, 0.0), 0.25)),
+                         ("small", ((1.5, 1.5, 0.0), 1.0))):
+        r = _half_box_scene(L, dtype)
+        d = r[:, None, :] - r[None, :, :]
+        picked = _one_box_image(d, L)
+        assert not torch.equal(picked, tmc.min_image(d, L))
+        kw = dict(KW, debye_length=b, periodic_length=L)
+        boxes = tmc.image_boxes(L, b, KW["blob_radius"], dtype)
+        by_division = tmc.blob_blob_forces_plain(r, **kw)
+        by_reciprocal = _forces_of_images(picked, L, b)
+        if case == "one_box":
+            assert boxes == [(0, 0, 0)]
+            assert torch.abs(by_division).max() > 0
+            assert torch.equal(by_reciprocal, by_division)
+        else:
+            assert len(boxes) == 9
+            assert torch.equal(_forces_of_images(tmc.min_image(d, L), L, b),
+                               by_division)
+            assert not torch.allclose(by_reciprocal, by_division)

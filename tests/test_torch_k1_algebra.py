@@ -1,20 +1,24 @@
 """Kernel K1's pair algebra and launch plan, on the CPU.
 
 - The division-free wall coefficients of csrc/pair_blocks.cuh
-  (`tt_condense`, `cross_condense`), written out here in float64 numpy as
-  the kernel forms them, expanded to 3x3 blocks the way `diag_apply` and
-  `cross_apply` apply them, against the JAX package's `wall_tt`,
-  `wall_trans_torque` and `wall_rot_force` (rigidmultiblobswall_tpu/ops/
-  rpy.py) and the port's copies, at random geometries, a source far below
-  its target, both blobs on the wall after the height shift, R -> 2 and
-  self pairs; 1e-13 of each block's largest entry.
-- The symmetric sweep's premise on those formulas (the tt block of
-  (i, j) is the transpose of (j, i)'s, tr's of (i, j) that of rt's of
-  (j, i)); its schedule of group pairs, written out here as the kernel
-  walks it, visits every unordered tile pair once, gives every workspace
-  entry one owner and sums to M v; the group plan fills the card with a
-  workspace that grows like N; the square call (q_tgt None) is the same
-  product as the call with two tensors.
+  (`tt_condense`, `rr_condense`, and `cross_shared` with `cross_block`),
+  written out here in float64 numpy as the kernel forms them, expanded to
+  3x3 blocks the way `diag_apply` and `cross_apply` apply them, against
+  the JAX package's `wall_tt`, `wall_rr`, `wall_trans_torque` and
+  `wall_rot_force` (rigidmultiblobswall_tpu/ops/rpy.py) and the port's
+  copies, at random geometries, a source far below its target, both blobs
+  on the wall after the height shift, R -> 2 and self pairs; 1e-13 of
+  each block's largest entry.
+- The symmetric sweep's premise on those formulas (the tt and rr blocks
+  of (i, j) are the transposes of (j, i)'s, tr's of (i, j) that of rt's
+  of (j, i), and the transposed applies of sym_kernel's source share give
+  the (j, i) blocks); its schedule of group pairs, written out here as the
+  kernel walks it, visits every unordered tile pair once, gives every
+  workspace entry one owner and sums to M v, for a symmetric M and for the
+  cross products, whose source share comes from the other block's
+  transpose; the group plan fills the card with a workspace that grows
+  like N; the square call (q_tgt None) is the same product as the call
+  with two tensors.
 - The slice plan of ops/pair_kernels.py: every source in exactly one
   slice of whole 128-source tiles, one slice up to 128 sources or when
   the target blocks alone fill the plan's waves, and the workspace within
@@ -76,25 +80,65 @@ def _diag_block(dx, dy, m):
         np.stack([Q * dx, Q * dy, mzz], -1)], -2)
 
 
-def _cross_wall(dx, dy, zt, zs, is_tr):
-    """cross_condense's wall entries, as the block cross_apply adds (tr:
-    -UT pattern; rt: its transpose)."""
+def _rr_wall(dx, dy, zt, zs):
+    """rr_condense's wall terms (core off), as (A, S, P, Q, mzz)."""
     Rz = zt + zs
-    h = zt if is_tr else zs
+    invR = 1.0 / np.sqrt(dx * dx + dy * dy + Rz * Rz)
+    invR2 = invR * invR
+    invR3 = invR * invR2
+    ez2 = Rz * Rz * invR2
+    f1 = 0.5 * (1.0 - 6.0 * ez2) * invR3
+    f2 = -1.5 * invR3
+    f4 = 3.0 * invR3
+    g3 = (3.0 * invR3 * Rz * invR) * invR
+    G2 = f2 * invR2
+    G24 = (f2 - f4) * invR2
+    P = G2 * Rz
+    return (f1 + f4 * (1.0 - ez2), G24, P, P + g3,
+            f1 + G2 * Rz * Rz + g3 * Rz)
+
+
+def _diag_block_t(dx, dy, m):
+    """The block that diag_apply_t applies: P and Q trade places."""
+    A, S, P, Q, mzz = m
+    return _diag_block(dx, dy, (A, S, Q, P, mzz))
+
+
+def _cross_terms(dx, dy, zt, zs, h):
+    """cross_shared and cross_block's wall terms at height h: (F1, K,
+    G3, H)."""
+    Rz = zt + zs
     W = 1.0 / np.sqrt(dx * dx + dy * dy + Rz * Rz)
-    u = W * W
-    e = Rz * Rz * u
-    F1 = W * u
-    F2 = 2.0 * F1 * u * (6.0 * h * Rz + 1.0 - 10.0 * e)
-    G3 = -2.0 * F1 * u * (3.0 * h - 5.0 * Rz * u)
-    f4 = -2.0 * F1 * (h - Rz * u)
+    u2 = W * W
+    e = Rz * Rz * u2
+    F1 = W * u2
+    F1u2 = F1 * u2
+    K0, Kh = F1 * Rz * (1.0 + 2.0 * u2), -2.0 * F1
+    G0, Gh = 10.0 * F1u2 * (Rz * u2), -6.0 * F1u2
+    H0, Hh = F1 + 2.0 * F1u2 * (1.0 - 5.0 * e), 6.0 * F1u2 * Rz
+    return F1, Kh * h + K0, Gh * h + G0, Hh * h + H0
+
+
+def _cross_wall(dx, dy, zt, zs, is_tr, transpose=False):
+    """The wall part of the block cross_apply<IS_TR, TRANSPOSE> adds (tr:
+    -Mw at height zt; rt: -Mw^T at height zs; TRANSPOSE: the block's
+    transpose), its columns from applying the condensed terms to e_x, e_y,
+    e_z as cross_apply does."""
+    F1, K, G3, H = _cross_terms(dx, dy, zt, zs, zt if is_tr else zs)
     ux, uy = (-dx, -dy) if is_tr else (dx, dy)
-    c = np.stack([
-        np.stack([-G3 * ux * uy, -F1 * Rz + G3 * ux * ux - f4, F1 * uy], -1),
-        np.stack([F1 * Rz - G3 * uy * uy + f4, G3 * ux * uy, -F1 * ux], -1),
-        np.stack([-(F1 + F2) * uy - G3 * uy * Rz,
-                  (F1 + F2) * ux + G3 * ux * Rz, 0.0 * F1], -1)], -2)
-    return -c if is_tr else -np.swapaxes(c, -1, -2)
+    cols = []
+    for vx, vy, vz in np.eye(3):
+        if is_tr != transpose:                   # -Mw v
+            w = ux * vy - uy * vx
+            out = (K * vy - F1 * uy * vz - G3 * ux * w,
+                   -K * vx + F1 * ux * vz - G3 * uy * w, -H * w)
+        else:                                    # -Mw^T v
+            pr = ux * vx + uy * vy
+            out = (G3 * uy * pr - K * vy + H * uy * vz,
+                   -G3 * ux * pr + K * vx - H * ux * vz,
+                   F1 * (ux * vy - uy * vx))
+        cols.append(np.stack(out, -1))
+    return np.stack(cols, -1)
 
 
 def _geometries(case):
@@ -127,11 +171,11 @@ CASES = ["random", "far_below", "on_wall", "R_to_2", "self"]
 
 def _refs(block, dx, dy, zt, zs, self_mask):
     """The JAX package's and the port's wall block on the geometry."""
-    h = {"tt": zs, "tr": zt, "rt": zs}[block]
-    jfn = {"tt": jrpy.wall_tt, "tr": jrpy.wall_trans_torque,
-           "rt": jrpy.wall_rot_force}[block]
-    tfn = {"tt": trpy.wall_tt, "tr": trpy.wall_trans_torque,
-           "rt": trpy.wall_rot_force}[block]
+    h = {"tt": zs, "rr": zs, "tr": zt, "rt": zs}[block]
+    jfn = {"tt": jrpy.wall_tt, "rr": jrpy.wall_rr,
+           "tr": jrpy.wall_trans_torque, "rt": jrpy.wall_rot_force}[block]
+    tfn = {"tt": trpy.wall_tt, "rr": trpy.wall_rr,
+           "tr": trpy.wall_trans_torque, "rt": trpy.wall_rot_force}[block]
     rz = zt + zs
     ref_j = np.asarray(jfn(*map(jnp.asarray, (dx, dy, rz, h)),
                            jnp.asarray(self_mask)))
@@ -141,11 +185,13 @@ def _refs(block, dx, dy, zt, zs, self_mask):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("block", ["tt", "tr", "rt"])
+@pytest.mark.parametrize("block", ["tt", "tr", "rt", "rr"])
 def test_division_free_wall_terms_match_rpy(block, case):
     dx, dy, zt, zs, self_mask = _geometries(case)
     if block == "tt":
         got = _diag_block(dx, dy, _tt_wall(dx, dy, zt, zs))
+    elif block == "rr":
+        got = _diag_block(dx, dy, _rr_wall(dx, dy, zt, zs))
     else:
         got = _cross_wall(dx, dy, zt, zs, block == "tr")
     for ref in _refs(block, dx, dy, zt, zs, self_mask):
@@ -158,16 +204,30 @@ def test_division_free_wall_terms_match_rpy(block, case):
 @pytest.mark.parametrize("case", CASES[:4])
 def test_wall_terms_are_symmetric(case):
     """The symmetric sweep's premise on the kernels' own formulas: the tt
-    block of (target i, source j) is the transpose of (j, i)'s, and the
-    tr block of (i, j) the transpose of rt's of (j, i)."""
+    and rr blocks of (target i, source j) are the transposes of (j, i)'s,
+    and the tr block of (i, j) the transpose of rt's of (j, i); and what
+    sym_kernel applies to the source from the (i, j) pair alone is the
+    (j, i) block: diag_apply_t of tt and rr, and for tr (rt) the rt (tr)
+    block of (i, j) applied transposed."""
     dx, dy, zt, zs, _ = _geometries(case)
     tt_ij = _diag_block(dx, dy, _tt_wall(dx, dy, zt, zs))
     tt_ji = _diag_block(-dx, -dy, _tt_wall(-dx, -dy, zs, zt))
+    rr_ij = _diag_block(dx, dy, _rr_wall(dx, dy, zt, zs))
+    rr_ji = _diag_block(-dx, -dy, _rr_wall(-dx, -dy, zs, zt))
     tr_ij = _cross_wall(dx, dy, zt, zs, True)
     rt_ji = _cross_wall(-dx, -dy, zs, zt, False)
-    for a, b in ((tt_ij, tt_ji), (tr_ij, rt_ji)):
+    for a, b in ((tt_ij, tt_ji), (rr_ij, rr_ji), (tr_ij, rt_ji)):
         scale = np.abs(a).max(axis=(-2, -1), keepdims=True)
         assert (np.abs(a - np.swapaxes(b, -1, -2)) / scale).max() <= 1e-13
+    shares = (
+        (_diag_block_t(dx, dy, _tt_wall(dx, dy, zt, zs)), tt_ji),
+        (_diag_block_t(dx, dy, _rr_wall(dx, dy, zt, zs)), rr_ji),
+        (_cross_wall(dx, dy, zt, zs, False, transpose=True),
+         _cross_wall(-dx, -dy, zs, zt, True)),
+        (_cross_wall(dx, dy, zt, zs, True, transpose=True), rt_ji))
+    for got, want in shares:
+        scale = np.abs(want).max(axis=(-2, -1), keepdims=True)
+        assert (np.abs(got - want) / scale).max() <= 1e-13
 
 
 def _group_pair(p, n):
@@ -246,6 +306,29 @@ def test_symmetric_schedule_sums_to_the_product(n, groups, per):
             if ta != tb:
                 ws[ga, rb] += m[ra, rb].T @ v[ra]
     np.testing.assert_allclose(ws.sum(0), m @ v, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("n, groups, per", [(1000, 4, 2), (1000, 3, 3),
+                                            (700, 6, 1)])
+def test_symmetric_schedule_sums_cross_products(n, groups, per):
+    """The walk of a square tr product, whose matrix is not symmetric:
+    target-side sums of m_tr[ra, rb] v[rb], source-side sums from the
+    other block of the same pairs, m_rt[ra, rb]^T v[ra] (m_rt(i, j) =
+    m_tr(j, i)^T), and the diagonal tile directed on m_tr; the slices
+    added give m_tr v."""
+    rng = np.random.default_rng(5)
+    m_tr = rng.normal(size=(n, n))
+    m_rt = m_tr.T
+    v = rng.normal(size=n)
+    ws = np.zeros((groups, n))
+    for ga, gb, block, _ in _sym_schedule(n, groups, per):
+        for ta, tb in block:
+            ra = slice(ta * pk.TILE, min(n, (ta + 1) * pk.TILE))
+            rb = slice(tb * pk.TILE, min(n, (tb + 1) * pk.TILE))
+            ws[gb, ra] += m_tr[ra, rb] @ v[rb]
+            if ta != tb:
+                ws[ga, rb] += m_rt[ra, rb].T @ v[ra]
+    np.testing.assert_allclose(ws.sum(0), m_tr @ v, rtol=0, atol=1e-10)
 
 
 def test_group_plan_fills_the_card_with_a_linear_workspace():

@@ -9,12 +9,18 @@
 
 Times are CUDA events, the mean of 10 launches after a warm-up, float32:
 - k1 (csrc/pair_blocks.cuh): tt at 49,152 blobs (B = 1 and 2) and at
-  12,288 blobs, and grand, rr, tr and rt at 32,768 rollers, as the paths
-  call them (tt and grand on the symmetric sweep over ops/pair_kernels.py
-  plan_groups' groups, the others on the sliced sweep at launch_plan's
-  slice count); but for --baseline also on the sliced sweep at a list of
-  slice counts, with the largest difference to the path's call;
-- k2 (csrc/blob_forces.cu): 49,152 blobs, 12,288 blobs, 32,768 rollers;
+  12,288 blobs, and grand, rr, tr and rt (rr and tr with B = 1 and 2) at
+  32,768 rollers, as the paths call them (the square product, on the
+  symmetric sweep over ops/pair_kernels.py plan_groups' groups); but for
+  --baseline also on the sliced sweep at
+  launch_plan's slice count (the two-tensor call) and at a list of slice
+  counts, with the largest difference to the path's call;
+- k2 (csrc/blob_forces.cu): 49,152 blobs, 12,288 blobs, 32,768 rollers,
+  and the periodic instance at the wall rollers' 32,768 in their box
+  (chip_smoke.py phase 11) as the path calls it; but for --baseline also
+  the image boxes' instance with the home box alone at the same shape
+  (the minimum image by division), with its difference to the path's
+  call;
 - k5 (csrc/nl_forces.cu): the periodic spectral path's force cells (98,304
   blobs, chip_smoke.py phase 8) and the wall path's wall-slab force cells
   (phase 10); but for --baseline also each layout's work (candidate pairs,
@@ -34,8 +40,9 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
 But for --baseline it prints the ptxas registers and spills of the chosen
 kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
-(cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions and the
-subroutine calls; --sass-out (default build/kernels_sass.txt) receives
+(cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
+and F2I conversions (which run at the MUFU's rate) and the subroutine
+calls; --sass-out (default build/kernels_sass.txt) receives
 the counts and those instances' listing. Checks against the plain
 versions are chip_smoke.py's and the card tests'.
 """
@@ -134,16 +141,19 @@ def profile_k1(cs, dev, detail):
         if not detail:
             print(f"{head}: {ms:.3f} ms", flush=True)
             continue
-        if coupling in pk.SYMMETRIC:
-            n_sm = torch.cuda.get_device_properties(
-                q.device).multi_processor_count
-            g, per = pk.plan_groups(q.shape[0], n_sm)
-            label = f"symmetric sweep, {g} groups of {per} tiles"
-        else:
-            s, tiles = pk.launch_plan(coupling, q, q, v, wall=True)
-            label = f"plan S={s} ({tiles} tiles a slice)"
-        print(f"{head} {label}: {ms:.3f} ms", flush=True)
+        n_sm = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        g, per = pk.plan_groups(q.shape[0], n_sm)
+        print(f"{head} symmetric sweep, {g} groups of {per} tiles: "
+              f"{ms:.3f} ms", flush=True)
         path = pk.pair_matvec(q, None, v, **kw).double()
+        s, tiles = pk.launch_plan(coupling, q, q, v, wall=True)
+        ms = cs.cuda_ms(lambda: pk.pair_matvec(q, q, v, **kw), 10)
+        rel = ((pk.pair_matvec(q, q, v, **kw).double() - path).abs()
+               .max() / path.abs().max()).item()
+        print(f"{head} sliced sweep at the plan's S={s} ({tiles} tiles "
+              f"a slice): {ms:.3f} ms, max diff to the path's call / "
+              f"max {rel:.2e}", flush=True)
         lib = pk._build.library()
         for want in SWEEP.get(tag, ()):
             ms = cs.cuda_ms(lambda: sliced(pk, lib, coupling, q, v, want),
@@ -177,6 +187,49 @@ def profile_k2(cs, dev, detail):
         ms = cs.cuda_ms(lambda: mc.blob_blob_forces(r, blob_radius=a, **kw),
                         10)
         print(f"  K2 {tag} {r.shape[0]} blobs f32: {ms:.3f} ms", flush=True)
+    # periodic: the wall rollers' box, as phase 11 calls it
+    sus = cs.wall_roller_suspension(cs.N_ROLLERS)
+    kw = dict(repulsion_strength=sus.repulsion_strength,
+              debye_length=sus.debye_length, blob_radius=sus.blob_radius,
+              periodic_length=sus.periodic_length)
+    r = torch.as_tensor(cs.roller_lattice(cs.N_ROLLERS), device=dev)
+    n_boxes = len(mc.image_boxes(sus.periodic_length, sus.debye_length,
+                                 sus.blob_radius, torch.float32))
+    ms = cs.cuda_ms(lambda: mc.blob_blob_forces(r, **kw), 10)
+    head = (f"  K2 periodic wall-rollers {r.shape[0]} f32 box "
+            f"{sus.periodic_length} ({n_boxes} box)")
+    print(f"{head}, the path's call: {ms:.3f} ms", flush=True)
+    if detail:
+        path = mc.blob_blob_forces(r, **kw).double()
+        ms = cs.cuda_ms(lambda: boxes_instance(mc, r, kw), 10)
+        rel = ((boxes_instance(mc, r, kw).double() - path).abs().max()
+               / path.abs().max()).item()
+        print(f"{head}, the image boxes' instance with the home box alone "
+              f"(division): {ms:.3f} ms, max diff to the path's call / max "
+              f"{rel:.2e}", flush=True)
+
+
+def boxes_instance(mc, r, kw):
+    """K2's image-boxes instance over the home box alone, launched
+    through its C entry point."""
+    import ctypes
+
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    n = r.shape[0]
+    groups, per = pk.plan_groups(n, pk._n_sm(r))
+    out = torch.empty_like(r)
+    ws = torch.empty((groups, n, 3), dtype=r.dtype, device=r.device)
+    law = mc.force_law(kw["repulsion_strength"], kw["debye_length"],
+                       kw["blob_radius"])
+    L = (ctypes.c_double * 3)(*kw["periodic_length"])
+    err = mc._build.library().blob_forces_periodic_f32(
+        r.data_ptr(), out.data_ptr(), ws.data_ptr(), n, groups, per, *law,
+        L, 1, (ctypes.c_double * 3)(0.0, 0.0, 0.0),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"blob_forces_periodic_f32: CUDA error {err}")
+    return out
 
 
 # ----------------------------------------------------------- K5 and K6
@@ -421,8 +474,8 @@ def ptxas_lines(cs, build_log, kernels):
 
 
 def sass_counts(lib_path, kernels, out_path):
-    """Per instance of the chosen kernels: MUFU.EX2, MUFU.RSQ, MUFU.RCP and
-    CALL counts in the library's SASS; writes the counts and those
+    """Per instance of the chosen kernels: MUFU.EX2, MUFU.RSQ, MUFU.RCP,
+    FRND, F2I and CALL counts in the library's SASS; writes the counts and those
     instances' listing to out_path and returns the count lines."""
     frags = [f for k in kernels for f in INSTANCES[k]]
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -455,7 +508,9 @@ def sass_counts(lib_path, kernels, out_path):
         counts.append(
             f"{name}: ex2 {sum('MUFU.EX2' in ln for ln in body)}, rsq "
             f"{sum('MUFU.RSQ' in ln for ln in body)}, rcp "
-            f"{sum('MUFU.RCP' in ln for ln in body)}, calls "
+            f"{sum('MUFU.RCP' in ln for ln in body)}, frnd "
+            f"{sum('FRND' in ln for ln in body)}, f2i "
+            f"{sum('F2I' in ln for ln in body)}, calls "
             f"{sum('CALL' in ln for ln in body)} {calls}")
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
