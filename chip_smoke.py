@@ -197,15 +197,16 @@ FORCE_PAIR_MUFU = 2
 # right-hand side, img_terms (its operations counted from
 # csrc/wall_img_terms.cuh, header_flops()) and the prefactor (6)
 K7_IMG_PAIR_FLOPS = 12
-# K8, for each real-source pair inside r_cut: the distance and the piece
-# map (10), the K-term Clenshaw series (3 each a term; gamma_r alone
-# without torques, gamma_r, alpha_r and beta_r with them), with forces the
-# cross product and its scaling (12), with torques the cross product (12)
-# and the rr block (18); for each image-source pair: the distance (8),
-# the image series' domain map (K7_IMG_PAIR_FLOPS), three Ki-term series
-# (the channels read c2_1..c2_3 only) and the generated channels
-# (img_terms_rt with forces, img_terms_tr and img_terms_rr with torques;
-# counted from csrc/wall_img_terms.cuh) with their prefactors (6 each)
+# K8, each instance counting its own products' work (K8_INSTANCES): for
+# each real-source pair inside r_cut the distance and the piece map (10),
+# the K-term Clenshaw series its products read (3 each a term: gamma_r
+# for tr and rt, alpha_r and beta_r for rr), rt's cross product and its
+# scaling (12), tr's (12) and the rr block (18); for each image-source
+# pair the distance (8), the image series' domain map
+# (K7_IMG_PAIR_FLOPS), the Ki-term series its channels read (c2_1 and
+# c2_2 for rr, c2_1..c2_3 for rt and tr) and the generated channels
+# (img_terms_rt, _tr, _rr; counted from csrc/wall_img_terms.cuh) with
+# their prefactors (6 each)
 K8_REAL_PAIR_FLOPS = 10
 # periodic K2's one-box instance: the minimum image d - round(d (1/L)) L
 # on each periodic axis, a multiply, two adds and a multiply-add (5 with
@@ -1890,15 +1891,25 @@ def phase_wall_path(pk, mc, ck):
     return rec, k5_wall
 
 
-K8_VARIANTS = {"ft": (True, True), "f": (True, False), "t": (False, True)}
+# K8's instances: (forces, torques, want_v, want_w) of the call each
+# forms, its real-pair operations beyond the series (K8_REAL_PAIR_FLOPS),
+# the rot and image series it reads and the generated channels
+K8_INSTANCES = {"grand": (True, True, True, True),
+                "rt": (True, False, False, True),
+                "tr": (False, True, True, False),
+                "rr": (False, True, False, True)}
+K8_WORK = {"grand": (42, 3, 3, ("rt", "tr", "rr")),
+           "rt": (12, 1, 3, ("rt",)),
+           "tr": (12, 1, 3, ("tr",)),
+           "rr": (18, 2, 2, ("rr",))}
 
 
-def k8_flops(ck, plan, cheb, which):
-    """Operations of one K8 sweep at this plan's data (see
-    K8_REAL_PAIR_FLOPS), counted on the real targets' pairs inside r_cut;
-    the 27-cell algorithm also tests every other candidate pair (8 each).
-    Returns (function operations, algorithm operations, candidate pairs,
-    inside pairs, pairs with an image source)."""
+def k8_flops(ck, plan, cheb, inst):
+    """Operations of one launch of K8's instance `inst` at this plan's data
+    (see K8_REAL_PAIR_FLOPS), counted on the real targets' pairs inside
+    r_cut; the 27-cell algorithm also tests every other candidate pair (8
+    each). Returns (function operations, algorithm operations, candidate
+    pairs, inside pairs, pairs with an image source)."""
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
 
     p = plan.params
@@ -1906,42 +1917,51 @@ def k8_flops(ck, plan, cheb, which):
     cand, inside, img = ck.wall_pair_counts(plan.pos_all, *args[:4],
                                             p.r_cut, p.z0)
     K, Ki = args[4].shape[2], args[5].shape[2]
-    has_f, has_t = K8_VARIANTS[which]
-    per_real = (K8_REAL_PAIR_FLOPS + (9 if has_t else 3) * K
-                + (12 if has_f else 0) + (30 if has_t else 0))
-    per_img = (8 + K7_IMG_PAIR_FLOPS + 9 * Ki
-               + ((header_flops("img_terms_rt") + 6) if has_f else 0)
-               + ((header_flops("img_terms_tr") + header_flops("img_terms_rr")
-                   + 12) if has_t else 0))
+    extra, n_rot, n_img, channels = K8_WORK[inst]
+    per_real = K8_REAL_PAIR_FLOPS + 3 * K * n_rot + extra
+    per_img = (8 + K7_IMG_PAIR_FLOPS + 3 * Ki * n_img
+               + sum(header_flops(f"img_terms_{c}") + 6 for c in channels))
     flops = (inside - img) * per_real + img * per_img
     return flops, flops + 8 * (cand - inside), cand, inside, img
 
 
-def k8_vs_plain(ck, plan, cheb, which, g, cells_range=None):
-    """K8 (variant `which`) against its plain version in float64 on the
-    cells of cells_range (every cell when None), on random strengths:
-    (max abs error, max|ref|, the float32 plain version's max abs error
-    against the same reference, bit-identical on repeat, the kernel's
-    call)."""
+def k8_vs_plain(ck, plan, cheb, inst, g, cells_range=None):
+    """K8's instance `inst`, called as its product calls it (want_v,
+    want_w), against the plain version in float64 on the cells of
+    cells_range (every cell when None), on random strengths: (max abs
+    error, max|ref|, the float32 plain version's max abs error against the
+    same reference, bit-identical on repeat, the kernel's call). Fails
+    unless the call launched `inst` alone and left the half of the rows it
+    does not form zero."""
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
 
     dev = plan.pos_all.device
     dtype = plan.pos_all.dtype
     n = plan.n_real
-    has_f, has_t = K8_VARIANTS[which]
+    has_f, has_t, want_v, want_w = K8_INSTANCES[inst]
     f, t = (torch.randn((n, 3), generator=g, device=dev, dtype=dtype)
             if has else None for has in (has_f, has_t))
     args, kw = ewr.near_args(plan, cheb)
+    kw.update(want_v=want_v, want_w=want_w)
     layers = ew._kept_layers(plan.params, plan.cell_dims)
 
     def call():
         return ck.wall_rot_near(plan.pos_all, f, t, *args, cz_range=layers,
                                 **kw)
 
+    before = dict(ck.LAUNCHES)
     got = call()
+    launched = {k: v - before[k] for k, v in ck.LAUNCHES.items()
+                if v != before[k]}
+    check(launched == {f"wall_rot_near_{inst}": 1},
+          f"K8 ({inst}) launched {launched}")
     same = torch.equal(got, call())
     torch.cuda.synchronize()
+    lo, hi = (0 if want_v else 3), (6 if want_w else 3)
+    rest = torch.cat([got[:, :lo], got[:, hi:]], dim=1)
+    check(bool(got[:, lo:hi].any()) and not bool(rest.any()),
+          f"K8 ({inst}) formed the wrong half of the rows")
     dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
                   else x for x in args)
     ref = ck.wall_rot_near_plain(
@@ -1999,8 +2019,8 @@ def force_abs_scale(mc, r, rows, *, repulsion_strength, debye_length,
 
 
 def phase_rot_kernels(ck, mc):
-    """Phase 3, K8 and periodic K2 on small scenes: K8 (each variant of
-    present forces and torques) on the random 3000-blob wall slab of
+    """Phase 3, K8 and periodic K2 on small scenes: K8 (each instance:
+    grand, rt, tr, rr) on the random 3000-blob wall slab of
     phase_wall_kernels, float32 at 2e-5 x max|ref| (K7's bound on the same
     image series) and float64 at 1e-12 against the plain version in
     float64, twice bit-identical; periodic K2 with 1001 blobs in a small
@@ -2031,16 +2051,16 @@ def phase_rot_kernels(ck, mc):
                                                     device=dev))
         cheb_d = torch.as_tensor(cheb, dtype=dtype, device=dev)
         check(int(plan.n_dropped_cells) == 0, "K8 scene overflows")
-        for which in K8_VARIANTS:
-            err, scale, err32, same, _ = k8_vs_plain(ck, plan, cheb_d, which,
+        for inst in K8_INSTANCES:
+            err, scale, err32, same, _ = k8_vs_plain(ck, plan, cheb_d, inst,
                                                      g)
             log(f"K8 {n} blobs cells {plan.cell_dims} cap {p.cell_capacity} "
-                f"({which}) {dtype}: max err / max|ref| = {err / scale:.3e} "
+                f"({inst}) {dtype}: max err / max|ref| = {err / scale:.3e} "
                 f"(bound {bound_rel:g}; plain version in the same dtype "
                 f"{err32 / scale:.3e}); repeat bit-identical {same}")
-            check(err <= bound_rel * scale, f"K8 ({which}) disagrees "
+            check(err <= bound_rel * scale, f"K8 ({inst}) disagrees "
                   f"({err / scale})")
-            check(same, f"K8 ({which}) not bit-identical on repeat")
+            check(same, f"K8 ({inst}) not bit-identical on repeat")
     for box, b in (((1.5, 1.5, 0.0), 1.0), ((1.6, 1.4, 1.5), 0.8),
                    ((60.0, 60.0, 60.0), 0.25)):
         r = periodic_scene(1001, box)
@@ -2111,9 +2131,8 @@ def phase_wall_roller_parity():
     disp, disp0 = np.abs(ref - r0).max(), np.abs(ref0 - r0).max()
     e64 = np.abs(got64 - ref).max() / disp
     e32 = np.abs(got32 - ref0).max() / disp0
-    launches = {k: ck.LAUNCHES[k] for k in (
-        "wall_near_b1", "wall_rot_near_ft", "wall_rot_near_f",
-        "wall_rot_near_t")}
+    launches = {k: ck.LAUNCHES[k] for k in ("wall_near_b1", *(
+        f"wall_rot_near_{inst}" for inst in K8_INSTANCES))}
     launches["K2 periodic"] = mc.PERIODIC_LAUNCHES
     log(f"wall-spectral rollers parity, 16 rollers x 3 steps of {scheme} "
         f"(max displacement {disp:.3e} at kT = 2e-3, {disp0:.3e} at kT = "
@@ -2124,14 +2143,14 @@ def phase_wall_roller_parity():
     check(disp > 0 and disp0 > 0 and e64 <= 1e-9 and e32 <= 1e-2,
           "wall-spectral rollers parity")
     check(min(launches.values()) > 0, "the wall-spectral rollers slice did "
-          f"not run on K7 (B = 1), K8 (every variant) and periodic K2: "
+          f"not run on K7 (B = 1), K8 (every instance) and periodic K2: "
           f"{launches}")
 
 
 def phase_wall_rollers_path(pk, mc, ck):
     """Phase 11: bench.py's rollers step on the wall-spectral engine at
     32,768 rollers, float32. Builds the plan and the host and device
-    tables (timed), checks K8 (each variant) and periodic K2 at the path's
+    tables (timed), checks K8 (each instance) and periodic K2 at the path's
     shapes, then drives the path through make_stepper: one warm-up step
     and three timed steps. Returns the kernel records."""
     from rigidmultiblobswall_tpu_torch.models import rollers
@@ -2168,30 +2187,34 @@ def phase_wall_rollers_path(pk, mc, ck):
 
     # K8 at the path's plan: the cells of the first 256 xy columns (the
     # reals and images share the lowest z layer) against the plain version
-    # in float64, each variant
+    # in float64, each instance as its product calls it
     g = torch.Generator(device=dev).manual_seed(5)
     sub = (0, 256 * plan.cell_dims[2])
     records = {}
     bound_rel = 2e-5
     nbytes0 = (4 * 2 * n * 3 + 4 * n * 6 + plan.cell_table.numel() * 4
                + 4 * (tables.cheb.numel() + plan.near_tables.img_cheb.numel()))
-    for which, (has_f, has_t) in K8_VARIANTS.items():
+    for inst, (has_f, has_t, want_v, want_w) in K8_INSTANCES.items():
         err, scale, err32, same, call = k8_vs_plain(ck, plan, tables.cheb,
-                                                    which, g,
+                                                    inst, g,
                                                     cells_range=sub)
         ms = cuda_ms(call, 10)
         f_, t_ = (torch.randn((n, 3), generator=g, device=dev)
                   if has else None for has in (has_f, has_t))
         args, kw = ewr.near_args(plan, tables.cheb)
         plain_ms = cuda_ms(lambda: ck.wall_rot_near_plain(
-            plan.pos_all, f_, t_, *args, **kw), 1, warmup=False)
+            plan.pos_all, f_, t_, *args, want_v=want_v, want_w=want_w,
+            **kw), 1, warmup=False)
         flops, algo_flops, cand, inside, img = k8_flops(ck, plan,
-                                                        tables.cheb, which)
-        nbytes = nbytes0 + 4 * n * 3 * (has_f + has_t)
+                                                        tables.cheb, inst)
+        # positions, the strengths read, the table and tables in; the
+        # half of the rows formed out
+        nbytes = (nbytes0 - 4 * n * 3 * (2 - want_v - want_w)
+                  + 4 * n * 3 * (has_f + has_t))
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    **bound_record(nbytes, flops))
         algo = bound_record(nbytes, algo_flops)
-        log(f"K8 ({which}) {n} rollers f32, first {sub[1]} cells vs plain "
+        log(f"K8 ({inst}) {n} rollers f32, first {sub[1]} cells vs plain "
             f"f64: max err {err:.3e}, / max|ref| = {err / scale:.3e} (bound "
             f"{bound_rel:g}; plain f32 {err32 / scale:.3e}); repeat "
             f"bit-identical {same}; kernel {ms:.3f} ms, plain f32 "
@@ -2200,11 +2223,11 @@ def phase_wall_rollers_path(pk, mc, ck):
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
             f"{rec['bound_ms'] / ms:.1%} of it; the 27-cell algorithm's "
             f"{algo['bound_ms']:.4f} ms)")
-        check(err <= bound_rel * scale, f"K8 ({which}) disagrees at {n} "
+        check(err <= bound_rel * scale, f"K8 ({inst}) disagrees at {n} "
               "rollers")
-        check(same, f"K8 ({which}) not bit-identical on repeat at {n} "
+        check(same, f"K8 ({inst}) not bit-identical on repeat at {n} "
               "rollers")
-        records[f"K8 {which}"] = rec
+        records[f"K8 {inst}"] = rec
 
     # periodic K2 at the path's shape: the first 1024 rows against the
     # plain version in float64 (every image box; the kernel sums those of
@@ -2289,8 +2312,8 @@ def phase_wall_rollers_path(pk, mc, ck):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
     drops.append(int(carry.plan.n_dropped_cells))     # at the last positions
-    launches = {f"K8 {w}": ck.LAUNCHES[f"wall_rot_near_{w}"]
-                for w in K8_VARIANTS}
+    launches = {f"K8 {inst}": ck.LAUNCHES[f"wall_rot_near_{inst}"]
+                for inst in K8_INSTANCES}
     launches["K7"] = ck.LAUNCHES["wall_near_b1"] + ck.LAUNCHES["wall_near_b2"]
     launches["K2 periodic"] = mc.PERIODIC_LAUNCHES
     others = {"K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES,
@@ -2316,8 +2339,8 @@ def phase_wall_rollers_path(pk, mc, ck):
     check(mc.ONE_BOX_LAUNCHES == mc.PERIODIC_LAUNCHES,
           f"periodic K2 left its one-box instance on the wall rollers path "
           f"({mc.ONE_BOX_LAUNCHES} of {mc.PERIODIC_LAUNCHES})")
-    for which in K8_VARIANTS:
-        records[f"K8 {which}"]["launches"] = launches[f"K8 {which}"]
+    for inst in K8_INSTANCES:
+        records[f"K8 {inst}"]["launches"] = launches[f"K8 {inst}"]
     records["K2 periodic"]["launches"] = launches["K2 periodic"]
     return records
 
@@ -2829,12 +2852,12 @@ def main():
         name="K7 wall_near", route="cuda",
         source="rigidmultiblobswall_tpu_torch/csrc/wall_near.cu",
         replaces="rigidmultiblobswall_tpu/ops/ewald_wall.py:942", **k7))
-    for which, label in (("ft", "(f, t)"), ("f", "(f)"), ("t", "(t)")):
+    for inst in K8_INSTANCES:
         kernels.append(dict(
-            name=f"K8 wall_rot_near {label}", route="cuda",
+            name=f"K8 wall_rot_near {inst}", route="cuda",
             source="rigidmultiblobswall_tpu_torch/csrc/wall_rot_near.cu",
             replaces="rigidmultiblobswall_tpu/ops/ewald_wall_rot.py:153",
-            **rot[f"K8 {which}"]))
+            **rot[f"K8 {inst}"]))
     kernels.append(dict(
         name="K2 blob_forces periodic", route="cuda",
         source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",

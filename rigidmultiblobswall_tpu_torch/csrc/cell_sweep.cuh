@@ -35,8 +35,10 @@
 // (candidate), queue the pairs inside r_cut into rings in shared memory
 // (append), and evaluate the RPY remainder of a pair (Remainder) from a
 // two-piece Chebyshev table staged as rows that one 16-byte load reads
-// (stage_cheb); K7 and K8 share the whole compacted walk of a staged tile
-// (compacted_walk), each with its own pair evaluations.
+// (stage_cheb); K7 walks a staged tile in the stencil's order
+// (compacted_walk), K8 with its real and image sources staged apart
+// (split_reals, stage_split, split_walk), each with its own pair
+// evaluations.
 // A particle dropped by overflow is in no cell and its row stays as the
 // wrapper initialized it (zero).
 
@@ -130,11 +132,47 @@ __device__ __forceinline__ bool empty_cell(const int* __restrict__ table,
   return table[static_cast<size_t>(c) * g.cap] >= g.n;
 }
 
+// The count of the prefix of row[0 .. n) whose ids are below `bound` (the
+// ids ascend), by an 8-ary search of a group of 8 threads (member 0..7 of
+// the group, whose lanes `group` masks): a round loads 8 sample slots in
+// parallel and narrows the interval eightfold, so a cap of 64 takes two
+// dependent rounds of loads where a binary search takes seven.
+__device__ __forceinline__ int prefix_below(const int* __restrict__ row,
+                                            int n, int bound, int member,
+                                            unsigned group) {
+  // slots below lo are in the prefix, slots from hi on are not; lo and hi
+  // are uniform across the group
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int step = (hi - lo + 7) / 8;
+    const int p = lo + member * step;
+    const bool in = p < hi && row[p] < bound;
+    // the samples in the prefix are a prefix of the group's
+    const int n_in = __popc(__ballot_sync(group, in));
+    hi = min(hi, lo + n_in * step);
+    if (n_in > 0) lo += (n_in - 1) * step + 1;
+  }
+  return lo;
+}
+
+// start[0 .. 27] = the exclusive prefix sums of count[0 .. 26] (the first
+// warp scans; the caller's barriers bracket it).
+__device__ __forceinline__ void scan27(const int* count, int* start) {
+  if (threadIdx.x < 32) {   // an inclusive scan of the counts
+    const int lane = threadIdx.x;
+    int v = lane < 27 ? count[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane < 27) start[lane + 1] = v;
+    if (lane == 0) start[0] = 0;
+  }
+}
+
 // Fill the stencil of cell c (all threads call; ends in a barrier). Each
-// stencil cell's count of live slots (a prefix) comes from an 8-ary search
-// by a group of 8 threads: a round loads 8 sample slots in parallel and
-// narrows the interval eightfold, so a cap of 64 takes two dependent
-// rounds of loads where a binary search takes seven.
+// stencil cell's count of live slots (a prefix) comes from prefix_below,
+// one group of 8 threads a cell.
 __device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
                                     int c, const Grid& g, double Lx,
                                     double Ly, double Lz) {
@@ -156,35 +194,36 @@ __device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
       if (member == 0 && k == 13) st.corner[a] = corner;
     }
     const int cell = (nb[0] * g.ny + nb[1]) * g.nz + nb[2];
-    // slots below lo are live, slots from hi on hold the sentinel; lo and
-    // hi are uniform across the group
-    const int* row = table + static_cast<size_t>(cell) * g.cap;
-    int lo = 0, hi = g.cap;
-    while (lo < hi) {
-      const int step = (hi - lo + 7) / 8;
-      const int p = lo + member * step;
-      const bool live = p < hi && row[p] < g.n;
-      // the live samples are a prefix of the group's
-      const int n_live = __popc(__ballot_sync(group, live));
-      hi = min(hi, lo + n_live * step);
-      if (n_live > 0) lo += (n_live - 1) * step + 1;
-    }
+    const int lo = prefix_below(table + static_cast<size_t>(cell) * g.cap,
+                                g.cap, g.n, member, group);
     if (member == 0) {
       st.cell[k] = cell;
       count[k] = lo;
     }
   }
   __syncthreads();
-  if (threadIdx.x < 32) {   // start: an inclusive scan of the counts
-    const int lane = threadIdx.x;
-    int v = lane < 27 ? count[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
-    }
-    if (lane < 27) st.start[lane + 1] = v;
-    if (lane == 0) st.start[0] = 0;
+  scan27(count, st.start);
+  __syncthreads();
+}
+
+// The real particles (ids below n_real) of each stencil cell: a prefix of
+// its live slots (cell_bin keeps a cell's ids ascending, and the reals are
+// the ids below n_real). start_r[0 .. 27] receives their prefix sums over
+// the stencil (all threads call, after load_stencil; ends in a barrier).
+__device__ inline void split_reals(const Stencil& st,
+                                   const int* __restrict__ table,
+                                   const Grid& g, int n_real, int* start_r) {
+  __shared__ int count[27];
+  const int member = threadIdx.x % 8;
+  const unsigned group = 0xffu << (threadIdx.x % 32 / 8 * 8);
+  for (int k = threadIdx.x / 8; k < 27; k += blockDim.x / 8) {
+    const int n = prefix_below(
+        table + static_cast<size_t>(st.cell[k]) * g.cap,
+        st.start[k + 1] - st.start[k], n_real, member, group);
+    if (member == 0) count[k] = n;
   }
+  __syncthreads();
+  scan27(count, start_r);
   __syncthreads();
 }
 
@@ -205,6 +244,32 @@ __device__ __forceinline__ void stage_sources(const Stencil& st,
     const int lo = max(first, s0), hi = min(st.start[k + 1], s0 + m);
     const int* ids = table + static_cast<size_t>(st.cell[k]) * g.cap;
     for (int s = lo + lane; s < hi; s += 32) put(s - s0, ids[s - first], k);
+  }
+}
+
+// stage_sources in the split order of split_reals: the stencil's real
+// sources first (in the stencil's order), then its image sources, so that
+// slot s of the stencil's nr = start_r[27] real sources and image slot
+// nr + i follow the stencil's cells. Stages the window s0 .. s0 + m - 1
+// of that order; no barrier.
+template <typename Put>
+__device__ __forceinline__ void stage_split(const Stencil& st,
+                                            const int* start_r,
+                                            const int* __restrict__ table,
+                                            const Grid& g, int s0, int m,
+                                            const Put& put) {
+  const int warps = blockDim.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nr = start_r[27];
+  for (int k = threadIdx.x / 32; k < 27; k += warps) {
+    const int* ids = table + static_cast<size_t>(st.cell[k]) * g.cap;
+    const int r0 = start_r[k], n_r = start_r[k + 1] - r0;
+    const int i0 = nr + st.start[k] - r0;         // the cell's first image
+    const int n_i = st.start[k + 1] - st.start[k] - n_r;
+    for (int s = max(0, s0 - r0) + lane; s < min(n_r, s0 + m - r0); s += 32)
+      put(r0 + s - s0, ids[s], k);
+    for (int s = max(0, s0 - i0) + lane; s < min(n_i, s0 + m - i0); s += 32)
+      put(i0 + s - s0, ids[n_r + s], k);
   }
 }
 
@@ -287,7 +352,7 @@ __device__ __forceinline__ unsigned append(E* ring, unsigned tail, bool keep,
 // Whether candidate j of the staged rows lies inside r_cut of the target,
 // as a real-source or an image-source pair of the wall engine's combined
 // set (the row's w holds the source's physical z, negative at an image; a
-// far row is neither). K7 and K8.
+// far row is neither). K7.
 template <typename T>
 __device__ __forceinline__ void classify(const T* rows, int j, T tx, T ty,
                                          T tz, T rc2, bool& in_r,
@@ -304,9 +369,9 @@ __device__ __forceinline__ void classify(const T* rows, int j, T tx, T ty,
 // evaluates source j against staged target te into u[NO] (zeroed). The
 // entries come in target order, so the batch holds runs of one target
 // each: every run is summed in a fixed xor tree and added into its
-// target's row (ids[te]) of out by lane 0; components below Q0 are never
-// written (always zero).
-template <int R, int NO, int Q0, typename T, typename Image>
+// target's row of out (STRIDE values a row, at out + STRIDE ids[te]) by
+// lane 0.
+template <int R, int NO, int STRIDE, typename T, typename Image>
 __device__ __forceinline__ void drain_images(const unsigned* ring,
                                              unsigned head, unsigned count,
                                              unsigned lane, const int* ids,
@@ -325,9 +390,9 @@ __device__ __forceinline__ void drain_images(const unsigned* ring,
     const int t0 = __shfl_sync(0xffffffffu, te, __ffs(pending) - 1);
     const bool mine = te == t0;
     pending &= ~__ballot_sync(0xffffffffu, mine);
-    T* row = out + static_cast<size_t>(NO) * ids[t0];
+    T* row = out + static_cast<size_t>(STRIDE) * ids[t0];
 #pragma unroll
-    for (int q = Q0; q < NO; ++q) {
+    for (int q = 0; q < NO; ++q) {
       T v = mine ? u[q] : T(0);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -337,7 +402,7 @@ __device__ __forceinline__ void drain_images(const unsigned* ring,
   }
 }
 
-// The compacted walk of K7 and K8 over one staged tile of m sources (rows
+// The compacted walk of K7 over one staged tile of m sources (rows
 // (x, y, z, physical z) padded with far rows to whole 64-steps) for the nt
 // staged targets (tgt (nt, 4), ids their particle ids). A warp takes its
 // targets one at a time (t = warp, warp + warps, ...), tests 64
@@ -352,9 +417,8 @@ __device__ __forceinline__ void drain_images(const unsigned* ring,
 // then the lanes reduce in a fixed xor tree and lane 0 adds the row; the
 // image ring's partial batch drains after the warp's last target. Each
 // row belongs to one warp at a time; every order depends only on the
-// data: no atomics, bit-identical on repeat. Components below Q0 are
-// never written. No barrier.
-template <int R, int NO, int Q0, typename T, typename Real, typename Image>
+// data: no atomics, bit-identical on repeat. No barrier.
+template <int R, int NO, typename T, typename Real, typename Image>
 __device__ __forceinline__ void compacted_walk(
     const T* src_rows, const T* tgt_rows, const int* ids, int m, int nt,
     T rc2, unsigned short* ring_r, unsigned* ring_i, T* out, const Real& real,
@@ -409,7 +473,7 @@ __device__ __forceinline__ void compacted_walk(
       for (;;) {
         const unsigned ni = i_tail - i_head;
         if (ni < 32 && !(done && ni > 0)) break;
-        drain_images<R, NO, Q0>(ring_i, i_head, min(ni, 32u), lane, ids,
+        drain_images<R, NO, NO>(ring_i, i_head, min(ni, 32u), lane, ids,
                                 out, image);
         i_head += min(ni, 32u);
       }
@@ -419,7 +483,7 @@ __device__ __forceinline__ void compacted_walk(
     if (done) break;
     // the real sources' sums: a fixed xor tree over the warp's 32 lanes
 #pragma unroll
-    for (int q = Q0; q < NO; ++q) {
+    for (int q = 0; q < NO; ++q) {
       T v = acc[q];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -428,9 +492,135 @@ __device__ __forceinline__ void compacted_walk(
     }
     if (lane == 0) {
       T* row = out + static_cast<size_t>(NO) * ids[t];
-      for (int q = Q0; q < NO; ++q) row[q] += acc[q];
+      for (int q = 0; q < NO; ++q) row[q] += acc[q];
     }
   }
+}
+
+// Whether candidate j of the staged rows lies inside r_cut of the target
+// (tgt: x, y, z) and, for a real part (REAL), whether it is a real source
+// (physical z > 0: the rows past a real part hold images or far rows).
+template <bool REAL, typename T>
+__device__ __forceinline__ bool in_part(const T* rows, int j, const T* tgt,
+                                        T rc2) {
+  T src[4];
+  const bool in = candidate(rows, j, tgt[0], tgt[1], tgt[2], rc2, src);
+  return REAL ? in && src[3] > T(0) : in;
+}
+
+// The split walk of K8 over one staged tile of m sources in the order of
+// stage_split: rows [0, re) real sources, rows [re, m) image sources (rows
+// (x, y, z, physical z), far rows past m up to whole 64-steps of each
+// part: split_pad), for the nt staged targets (tgt (nt, 4), ids their
+// particle ids). A warp takes its targets one at a time (t = warp, warp +
+// warps, ...) and walks each part 64 candidates a step, as two
+// independent halves of 32, appending the pairs inside r_cut, with ballot
+// and popc prefixes, to the part's ring of R slots (ring_slots<R>() in
+// memory): over the real part the target's real-source pairs (real(j,
+// tgt, acc) into the lane's own sums acc[NO]), over the image part the
+// warp's image-source pairs, which carry their target and run on across
+// the warp's targets (image(te, j, u), drained by drain_images). A step
+// appends to one ring and tests no kind. Whenever a ring holds 32 pairs
+// the warp evaluates them with every lane busy; the real ring's partial
+// batch runs after the real part, then the lanes reduce in a fixed xor
+// tree and lane 0 adds the row; the image ring's partial batch drains
+// after the warp's last target. A row holds STRIDE values, the walk's NO
+// from out on. Each row belongs to one warp at a time; every order
+// depends only on the data: no atomics, bit-identical on repeat. No
+// barrier.
+template <int R, int NO, int STRIDE, typename T, typename Real,
+          typename Image>
+__device__ __forceinline__ void split_walk(
+    const T* src_rows, const T* tgt_rows, const int* ids, int m, int re,
+    int nt, T rc2, unsigned short* ring_r, unsigned* ring_i, T* out,
+    const Real& real, const Image& image) {
+  using u16 = unsigned short;
+  const int warps = kThreads / 32;
+  const int warp = threadIdx.x / 32;
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  // the image ring's head and tail are uniform across the warp and carry
+  // over from one of its targets to the next
+  unsigned i_head = 0, i_tail = 0;
+  // one pass past the warp's last target flushes the image ring (one call
+  // site per ring keeps each evaluation's code once in the instruction
+  // cache)
+  for (int t = warp;; t += warps) {
+    const bool done = t >= nt;
+    T tgt[4] = {T(0), T(0), T(0), T(0)};
+    if (!done) load_vec<4>(tgt_rows + 4 * t, tgt);
+    T acc[NO];
+#pragma unroll
+    for (int q = 0; q < NO; ++q) acc[q] = T(0);
+    // the real part; one step past it drains the real ring's partial batch
+    unsigned r_head = 0, r_tail = 0;
+    const int r_end = done ? 0 : re;
+    for (int c0 = 0;; c0 += 64) {
+      const bool last = c0 >= r_end;
+      if (!last) {
+        const bool a = in_part<true>(src_rows, c0 + lane, tgt, rc2);
+        const bool b = in_part<true>(src_rows, c0 + 32 + lane, tgt, rc2);
+        r_tail = append<R>(ring_r, r_tail, a, u16(c0 + lane), below);
+        r_tail = append<R>(ring_r, r_tail, b, u16(c0 + 32 + lane), below);
+        __syncwarp();
+      }
+      for (;;) {
+        const unsigned nr = r_tail - r_head;
+        if (nr < 32 && !(last && nr > 0)) break;
+        if (lane < nr) real(int(ring_r[(r_head + lane) % R]), tgt, acc);
+        r_head += min(nr, 32u);
+      }
+      __syncwarp();   // drained slots are read before they are refilled
+      if (last) break;
+    }
+    if (!done) {
+      // the real sources' sums: a fixed xor tree over the warp's 32 lanes
+#pragma unroll
+      for (int q = 0; q < NO; ++q) {
+        T v = acc[q];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        acc[q] = v;
+      }
+      if (lane == 0) {
+        T* row = out + static_cast<size_t>(STRIDE) * ids[t];
+        for (int q = 0; q < NO; ++q) row[q] += acc[q];
+      }
+    }
+    // the image part; past the warp's last target its partial batch
+    const int i_end = done ? re : m;
+    const unsigned key = static_cast<unsigned>(t) << 16;
+    for (int c0 = re;; c0 += 64) {
+      const bool last = c0 >= i_end;
+      if (!last) {
+        const bool a = in_part<false>(src_rows, c0 + lane, tgt, rc2);
+        const bool b = in_part<false>(src_rows, c0 + 32 + lane, tgt, rc2);
+        i_tail = append<R>(ring_i, i_tail, a, key | (c0 + lane), below);
+        i_tail = append<R>(ring_i, i_tail, b, key | (c0 + 32 + lane),
+                           below);
+        __syncwarp();
+      }
+      for (;;) {
+        const unsigned ni = i_tail - i_head;
+        if (ni < 32 && !(done && ni > 0)) break;
+        drain_images<R, NO, STRIDE>(ring_i, i_head, min(ni, 32u), lane, ids,
+                                    out, image);
+        i_head += min(ni, 32u);
+      }
+      __syncwarp();
+      if (last) break;
+    }
+    if (done) break;
+  }
+}
+
+// The rows a split tile pads to: whole 64-steps of its real part [0, re)
+// and of its image part [re, m).
+__host__ __device__ __forceinline__ int split_pad(int m, int re) {
+  const int r_pad = (re + 63) / 64 * 64;
+  const int i_pad = re + (m - re + 63) / 64 * 64;
+  return r_pad > i_pad ? r_pad : i_pad;
 }
 
 // Terms of a staged remainder table: K rounded up to even (the padding

@@ -283,7 +283,7 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
       });
       cellk::pad_rows(s_src, m, (m + 63) / 64 * 64);   // whole 64-steps
       __syncthreads();
-      cellk::compacted_walk<kRing, NF, 0>(
+      cellk::compacted_walk<kRing, NF>(
           s_src, s_tgt, s_id, m, nt, sc.rem.rc2, ring_r, ring_i, out,
           [&](int j, const T* tgt, T* acc) {
             eval_entry<T, B, false>(sc, s_cheb, s_img, s_src, s_f, j, tgt,

@@ -67,7 +67,7 @@ SIGNATURES = {
     **{f"near_rpy_{t}_b{b}": _NEAR for t in ("f32", "f64") for b in (1, 2)},
     **{f"wall_near_{t}_b{b}": _WALL for t in ("f32", "f64") for b in (1, 2)},
     **{f"wall_rot_near_{t}_{w}": _ROT for t in ("f32", "f64")
-       for w in ("ft", "f", "t")},
+       for w in ("grand", "rt", "tr", "rr")},
 }
 
 _lib = None

@@ -22,9 +22,11 @@ periodic box or a wall slab, beside their plain PyTorch versions.
   (ops/ewald_wall_rot.py): for real targets, the rot remainders (gamma_r,
   alpha_r, beta_r) of real sources and the screened image rot channels
   (img_terms_rt / _tr / _rr) of image sources, on damped forces f and
-  torques t, either of which may be absent; rows (v, w). Counterpart of
-  rigidmultiblobswall_tpu/ops/ewald_wall_rot.py (`grand_near_xla`, an XLA
-  sweep); CUDA source `csrc/wall_rot_near.cu`.
+  torques t, either of which may be absent; rows (v, w), of which a call
+  forms the outputs it asks for (`want_v`, `want_w`): one instance a
+  product (tr: v from t; rt: w from f; rr: w from t) or all three
+  (grand). Counterpart of rigidmultiblobswall_tpu/ops/ewald_wall_rot.py
+  (`grand_near_xla`, an XLA sweep); CUDA source `csrc/wall_rot_near.cu`.
 
 All take positions wrapped into the box (or drifted from there by less
 than the plan's budget), the cell table of ops/cells.cell_bin and the
@@ -54,12 +56,14 @@ from . import _build, cells, mobility_cuda
 
 # kernel launches made by the wrappers in this process
 LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
-            "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_ft": 0,
-            "wall_rot_near_f": 0, "wall_rot_near_t": 0}
+            "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_grand": 0,
+            "wall_rot_near_rt": 0, "wall_rot_near_tr": 0,
+            "wall_rot_near_rr": 0}
 
 MAX_RHS = 2          # K6 and K7 template instances: B = 1 and B = 2
 MAX_CHEB = 32        # Chebyshev terms per piece the kernels' tables hold
 MAX_CHEB_ROT = 48    # K8's rot remainder table (csrc/wall_rot_near.cu)
+ROT_GROUP = 8        # K8 stages its series zero-padded to whole groups
 _TILE_CELLS = 16     # plain versions: target cells per tile
 
 
@@ -117,6 +121,35 @@ def _clenshaw(coeffs, t):
     for c in coeffs.flip(0)[:-1]:
         b1, b2 = 2.0 * t * b1 - b2 + c, b1
     return t * b1 - b2 + coeffs[0]
+
+
+def pad_terms(coeffs, group=ROT_GROUP):
+    """A Chebyshev table (..., K) zero-padded at the top to whole groups of
+    `group` terms, as K8 stages it: a leading zero coefficient leaves the
+    Clenshaw state exactly zero, so every sum of the padded table equals
+    the unpadded one bit for bit."""
+    k = coeffs.shape[-1]
+    pad = -k % group
+    if pad == 0:
+        return coeffs
+    return torch.cat([coeffs, coeffs.new_zeros(coeffs.shape[:-1] + (pad,))],
+                     dim=-1)
+
+
+def rot_products(has_f, has_t, want_v=True, want_w=True):
+    """The rot products a K8 call forms, in the order it forms them: tr (v
+    from torques), rt (w from forces), rr (w from torques)."""
+    return tuple(name for name, on in (("tr", want_v and has_t),
+                                       ("rt", want_w and has_f),
+                                       ("rr", want_w and has_t)) if on)
+
+
+def rot_instances(has_f, has_t, want_v=True, want_w=True):
+    """K8's launches for a call: the grand instance when it forms all three
+    products, else one instance a product (each adds into its own half of
+    the rows)."""
+    prods = rot_products(has_f, has_t, want_v, want_w)
+    return ("grand",) if len(prods) == 3 else prods
 
 
 def near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb, *,
@@ -254,19 +287,28 @@ def wall_near_plain(pos, forces, cell_table, dims, box, cap, cheb, img_cheb,
 
 
 def wall_rot_pair_rows(dv, src_z, tgt_z, f_src, t_src, cheb, img_cheb, *,
-                       two_a, r_cut, a, pref_c, pref_r, img_range):
+                       two_a, r_cut, a, pref_c, pref_r, img_range,
+                       want_v=True, want_w=True):
     """K8's pairs inside r_cut one by one: displacements dv (M, 3) =
     target - source, the source's and target's physical z (M,), the
     source's damped strengths f_src and t_src (M, 3), either None ->
     (M, 6) contributions (v, w) to the target's row: the rot remainders
     for a real source, the screened image rot channels for an image
-    source (the JAX package's grand_near_xla, ewald_wall_rot.py:235-304)."""
+    source (the JAX package's grand_near_xla, ewald_wall_rot.py:235-304).
+    Only the products of the outputs asked for (rot_products) are formed;
+    the other half stays zero. The series run on K8's padded tables
+    (pad_terms)."""
     from . import _wall_channels_gen as gen
 
+    prods = rot_products(f_src is not None, t_src is not None, want_v,
+                         want_w)
     out = dv.new_zeros((dv.shape[0], 6))
     r2 = torch.sum(dv * dv, dim=-1)
     r = torch.sqrt(r2)
-    # ---- rot remainders (real sources)
+    cheb = pad_terms(cheb)
+    img_cheb = pad_terms(img_cheb)
+    # ---- rot remainders (real sources): gamma_r for tr and rt, alpha_r
+    # and beta_r for rr
     q = (src_z > 0.0).nonzero(as_tuple=True)[0]
     if q.numel():
         d, rq = dv[q], r[q]
@@ -274,18 +316,23 @@ def wall_rot_pair_rows(dv, src_z, tgt_z, f_src, t_src, cheb, img_cheb, *,
         t0 = torch.clamp((rq - 0.5 * two_a) / (0.5 * two_a), -1.0, 1.0)
         t1 = torch.clamp((rq - 0.5 * (two_a + r_cut)) / (0.5 * (r_cut - two_a)),
                          -1.0, 1.0)
-        gam, alp, bet = (torch.where(near, _clenshaw(cheb[0, i], t0),
-                                     _clenshaw(cheb[1, i], t1))
-                         for i in range(3))
+
+        def series(i):
+            return torch.where(near, _clenshaw(cheb[0, i], t0),
+                               _clenshaw(cheb[1, i], t1))
+
         rows = out.new_zeros((q.numel(), 6))
-        if t_src is not None:
+        if "tr" in prods or "rt" in prods:
+            gam = series(0)[:, None]
+        if "tr" in prods:
+            rows[:, :3] += gam * torch.linalg.cross(t_src[q], d)
+        if "rt" in prods:
+            rows[:, 3:] += gam * torch.linalg.cross(f_src[q], d)
+        if "rr" in prods:
             tq = t_src[q]
-            rows[:, :3] += gam[:, None] * torch.linalg.cross(tq, d)
-            rows[:, 3:] += (alp[:, None] * tq
-                            + (bet * torch.sum(d * tq, -1) / r2[q])[:, None]
-                            * d)
-        if f_src is not None:
-            rows[:, 3:] += gam[:, None] * torch.linalg.cross(f_src[q], d)
+            rows[:, 3:] += (series(1)[:, None] * tq
+                            + (series(2) * torch.sum(d * tq, -1)
+                               / r2[q])[:, None] * d)
         out[q] += rows
     # ---- screened image rot channels (image sources, real targets)
     q = ((src_z < 0.0) & (tgt_z > 0.0)).nonzero(as_tuple=True)[0]
@@ -299,15 +346,15 @@ def wall_rot_pair_rows(dv, src_z, tgt_z, f_src, t_src, cheb, img_cheb, *,
         cv = _clenshaw_rows(img_cheb[torch.where(p0, 0, 1)], ti).unbind(1)
         dq = (dv[q] / a).unbind(1)
         rows = out.new_zeros((q.numel(), 6))
-        if f_src is not None:
+        if "rt" in prods:
             w = gen.img_terms_rt(*dq, -src_z[q] / a, *f_src[q].unbind(1),
                                  *cv)
             rows[:, 3:] += pref_c * torch.stack(w, dim=1)
-        if t_src is not None:
-            tq = t_src[q].unbind(1)
-            u = gen.img_terms_tr(*dq, tgt_z[q] / a, *tq, *cv)
+        if "tr" in prods:
+            u = gen.img_terms_tr(*dq, tgt_z[q] / a, *t_src[q].unbind(1), *cv)
             rows[:, :3] += pref_c * torch.stack(u, dim=1)
-            w = gen.img_terms_rr(*dq, *tq, *cv)
+        if "rr" in prods:
+            w = gen.img_terms_rr(*dq, *t_src[q].unbind(1), *cv)
             rows[:, 3:] += pref_r * torch.stack(w, dim=1)
         out[q] += rows
     return out
@@ -315,13 +362,15 @@ def wall_rot_pair_rows(dv, src_z, tgt_z, f_src, t_src, cheb, img_cheb, *,
 
 def wall_rot_near_plain(pos, f, t, cell_table, dims, box, cap, cheb,
                         img_cheb, *, two_a, r_cut, z0, a, pref_c, pref_r,
-                        img_range, cells_range=None):
+                        img_range, cells_range=None, want_v=True,
+                        want_w=True):
     """Plain PyTorch K8 (the JAX package's XLA sweep, ewald_wall_rot.py:
     153-322, per pair inside r_cut): pos (2N, 3) grid-shifted reals then
     images, f and t (N, 3) damped strengths (either None), cheb (2, 3, K)
     the rot remainders, img_cheb (2, 10, Ki) the image series -> (N, 6)
-    rows (v, w) of the real particles without the rr self term; rows
-    outside `cells_range` stay zero."""
+    rows (v, w) of the real particles without the rr self term, the
+    outputs not asked for (want_v, want_w) zero; rows outside
+    `cells_range` stay zero."""
     n = pos.shape[0] // 2
     out = torch.zeros((n, 6), dtype=pos.dtype, device=pos.device)
     cheb = torch.as_tensor(cheb, dtype=pos.dtype, device=pos.device)
@@ -329,7 +378,7 @@ def wall_rot_near_plain(pos, f, t, cell_table, dims, box, cap, cheb,
     f = None if f is None else f.reshape(n, 3).to(pos.dtype)
     t = None if t is None else t.reshape(n, 3).to(pos.dtype)
     kw = dict(two_a=two_a, r_cut=r_cut, a=a, pref_c=pref_c, pref_r=pref_r,
-              img_range=img_range)
+              img_range=img_range, want_v=want_v, want_w=want_w)
     for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
             pos, cell_table, dims, box, cap, cells_range):
         d = tp[:, :, None, None, :] - sp[:, None]        # (TC,cap,27,cap,3)
@@ -492,20 +541,25 @@ def wall_near(pos, forces, cell_table, dims, box, cap, cheb, img_cheb, *,
 
 
 def wall_rot_near(pos, f, t, cell_table, dims, box, cap, cheb, img_cheb, *,
-                  two_a, r_cut, z0, a, pref_c, pref_r, img_range, cz_range):
+                  two_a, r_cut, z0, a, pref_c, pref_r, img_range, cz_range,
+                  want_v=True, want_w=True):
     """K8 wrapper: the CUDA kernel for CUDA tensors, `wall_rot_near_plain`
     for CPU tensors. pos (2N, 3) grid-shifted reals then images, f and t
     (N, 3) damped forces and torques (either None, not both), cheb
     (2, 3, K) the rot remainders, img_cheb (2, 10, Ki) the image series,
     img_range their (r_lo, r_mid, r_hi) / a, cz_range the z layers (lo, hi)
-    of the target cells -> (N, 6) rows (v, w) without the rr self term."""
+    of the target cells -> (N, 6) rows (v, w) without the rr self term; an
+    output not asked for (want_v, want_w) is not formed and stays zero.
+    The call launches rot_instances' instances into one output (v comes
+    from torques alone, so a product of forces alone forms w)."""
     kw = dict(two_a=two_a, r_cut=r_cut, z0=z0, a=a, pref_c=pref_c,
               pref_r=pref_r, img_range=img_range)
     if f is None and t is None:
         raise ValueError("wall_rot_near: neither forces nor torques")
     if pos.device.type == "cpu":
         return wall_rot_near_plain(pos, f, t, cell_table, dims, box, cap,
-                                   cheb, img_cheb, **kw)
+                                   cheb, img_cheb, want_v=want_v,
+                                   want_w=want_w, **kw)
     strengths = tuple((name, x) for name, x in (("f", f), ("t", t))
                       if x is not None)
     _check("wall_rot_near", pos, cell_table, dims, cap,
@@ -530,20 +584,21 @@ def wall_rot_near(pos, f, t, cell_table, dims, box, cap, cheb, img_cheb, *,
     out = torch.zeros((n, 6), dtype=pos.dtype, device=pos.device)
     if n == 0:
         return out
-    which = ("f" if f is not None else "") + ("t" if t is not None else "")
-    name = (f"wall_rot_near_{'f32' if pos.dtype == torch.float32 else 'f64'}"
-            f"_{which}")
-    err = getattr(_build.library(), name)(
-        pos.data_ptr(), None if f is None else f.data_ptr(),
-        None if t is None else t.data_ptr(), cell_table.data_ptr(),
-        cheb.data_ptr(), img_cheb.data_ptr(), out.data_ptr(), n,
-        *(int(d) for d in dims), int(cap), int(cheb.shape[2]),
-        int(img_cheb.shape[2]), cz_lo, cz_hi, *(float(L) for L in box),
-        float(two_a), float(r_cut), float(z0), float(a), float(pref_c),
-        float(pref_r), *(float(v) for v in img_range),
-        torch.cuda.current_stream(pos.device).cuda_stream)
-    _build.check(name, err)
-    LAUNCHES[f"wall_rot_near_{which}"] += 1
+    lib = _build.library()
+    prec = "f32" if pos.dtype == torch.float32 else "f64"
+    for inst in rot_instances(f is not None, t is not None, want_v, want_w):
+        name = f"wall_rot_near_{prec}_{inst}"
+        err = getattr(lib, name)(
+            pos.data_ptr(), None if f is None else f.data_ptr(),
+            None if t is None else t.data_ptr(), cell_table.data_ptr(),
+            cheb.data_ptr(), img_cheb.data_ptr(), out.data_ptr(), n,
+            *(int(d) for d in dims), int(cap), int(cheb.shape[2]),
+            int(img_cheb.shape[2]), cz_lo, cz_hi, *(float(L) for L in box),
+            float(two_a), float(r_cut), float(z0), float(a), float(pref_c),
+            float(pref_r), *(float(v) for v in img_range),
+            torch.cuda.current_stream(pos.device).cuda_stream)
+        _build.check(name, err)
+        LAUNCHES[f"wall_rot_near_{inst}"] += 1
     return out
 
 

@@ -250,18 +250,22 @@ def near_args(plan: ew.WallPlan, cheb):
     return args, kw
 
 
-def grand_near(plan: ew.WallPlan, f, t, tables: RotTables):
+def grand_near(plan: ew.WallPlan, f, t, tables: RotTables, *, want_v=True,
+               want_w=True):
     """Rot-block near field of damped f, t (N, 3), either None: the pair
     remainders of real sources and the screened image rot channels of
     image sources, by kernel K8, plus the rr self term. Returns (v, w),
     the tr part of the velocities and the rt + rr parts of the angular
-    velocities; tt is not included."""
+    velocities; tt is not included. An output not asked for (want_v,
+    want_w) is not formed: K8 runs only the products of the other, and the
+    output returned in its place is zero."""
     args, kw = near_args(plan, tables.cheb)
     rows = cell_kernels.wall_rot_near(
         plan.pos_all, f, t, *args,
-        cz_range=ew._kept_layers(plan.params, plan.cell_dims), **kw)
+        cz_range=ew._kept_layers(plan.params, plan.cell_dims),
+        want_v=want_v, want_w=want_w, **kw)
     v, w = rows[:, :3], rows[:, 3:]
-    if t is not None:
+    if t is not None and want_w:
         w = w + tables.self_rr * t
     return v, w
 
@@ -394,13 +398,13 @@ def grand_matvec(plan: ew.WallPlan, f, t, tables: RotTables, *,
     ops/ewald_wall.matvec, the rot blocks by the near and wave stages
     above, with the overlap damping B on inputs and outputs. A caller that
     uses one output alone (the rr, tr and rt products) passes want_v or
-    want_w False: tt and the wave stage's fields of the other are then not
-    formed, and that output is None."""
+    want_w False: tt, K8's products and the wave stage's fields of the
+    other are then not formed, and that output is None."""
     dtype = plan.pos_all.dtype
     damp = plan.damp[:, None]
     fd = None if f is None else (f * damp).to(dtype)
     td = None if t is None else (t * damp).to(dtype)
-    nv, nw = grand_near(plan, fd, td, tables)
+    nv, nw = grand_near(plan, fd, td, tables, want_v=want_v, want_w=want_w)
     wv, ww = rot_wave(plan, fd, td, tables, want_v=want_v, want_w=want_w)
     v = w = None
     if want_v:

@@ -880,14 +880,19 @@ def test_k5_wall_slab_matches_plain(cuda, z_extent, dtype, bound):
     assert err <= bound * ref.abs().max().item()
 
 
-# K8: the rot near field of the wall engine, per variant of present
-# strengths: (forces, torques)
-ROT_VARIANTS = {"ft": (True, True), "f": (True, False), "t": (False, True)}
+# K8: the rot near field of the wall engine, per instance: (forces,
+# torques, want_v, want_w) of the call that forms it
+ROT_INSTANCES = {"grand": (True, True, True, True),
+                 "rt": (True, False, False, True),
+                 "tr": (False, True, True, False),
+                 "rr": (False, True, False, True)}
 
 
 def _k8(cuda, which, dtype, cap=96, seed=6, n=1500, cluster=0):
-    """K8 on _wall_plan's slab against its plain version in float64:
-    (max err / max|ref|, the kernel's rows, the plan, a relaunch)."""
+    """K8's instance `which` on _wall_plan's slab against its plain version
+    in float64 with the same outputs asked for: (max err / max|ref|, the
+    kernel's rows, the plan, a relaunch). The call launches that instance
+    alone, and the half of the rows it does not form stays zero."""
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
 
@@ -896,32 +901,35 @@ def _k8(cuda, which, dtype, cap=96, seed=6, n=1500, cluster=0):
     args, kw = ewr.near_args(plan, torch.as_tensor(cheb, dtype=dtype,
                                                    device=cuda))
     rng = np.random.default_rng(3)
-    has_f, has_t = ROT_VARIANTS[which]
+    has_f, has_t, want_v, want_w = ROT_INSTANCES[which]
+    kw.update(want_v=want_v, want_w=want_w)
     f, t = (torch.as_tensor(rng.normal(size=(plan.n_real, 3)), dtype=dtype,
                             device=cuda) if has else None
             for has in (has_f, has_t))
     layers = ew._kept_layers(plan.params, plan.cell_dims)
-    key = f"wall_rot_near_{which}"
-    before = ck.LAUNCHES[key]
+    before = dict(ck.LAUNCHES)
     got = ck.wall_rot_near(plan.pos_all, f, t, *args, cz_range=layers, **kw)
     again = ck.wall_rot_near(plan.pos_all, f, t, *args, cz_range=layers,
                              **kw)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES[key] == before + 2
+    assert {k: v - before[k] for k, v in ck.LAUNCHES.items()
+            if v != before[k]} == {f"wall_rot_near_{which}": 2}
     dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
                   else x for x in args)
     ref = ck.wall_rot_near_plain(
         plan.pos_all.double(), None if f is None else f.double(),
         None if t is None else t.double(), *dargs, **kw)
-    if not has_t:
+    if not want_v:
         assert bool((got[:, :3] == 0).all())
+    if not want_w:
+        assert bool((got[:, 3:] == 0).all())
     err = (got.double() - ref).abs().max().item() / max(
         ref.abs().max().item(), 1e-300)
     return err, got, plan, again
 
 
 @pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
-@pytest.mark.parametrize("which", sorted(ROT_VARIANTS))
+@pytest.mark.parametrize("which", sorted(ROT_INSTANCES))
 def test_k8_matches_plain(cuda, which, dtype, bound):
     err, got, plan, again = _k8(cuda, which, dtype)
     assert int(plan.n_dropped_cells) == 0 and int(plan.n_clipped) > 0
@@ -929,12 +937,11 @@ def test_k8_matches_plain(cuda, which, dtype, bound):
 
 
 @pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
-@pytest.mark.parametrize("which", sorted(ROT_VARIANTS))
+@pytest.mark.parametrize("which", sorted(ROT_INSTANCES))
 def test_k8_dense_cells_and_long_stencils(cuda, which, dtype, bound):
     """6000 blobs at cap 256: cells with many more real targets than a
-    block has warps, stencils longer than one staged tile (1408 sources in
-    float32, 1024 in float64); against the plain version and twice
-    bit-identical."""
+    block has warps, stencils longer than one staged tile (1024 sources);
+    against the plain version and twice bit-identical."""
     err, got, plan, again = _k8(cuda, which, dtype, cap=256, n=6000)
     dims, cap = plan.cell_dims, plan.params.cell_capacity
     ids = plan.cell_table.reshape(-1, cap).long()
@@ -945,7 +952,7 @@ def test_k8_dense_cells_and_long_stencils(cuda, which, dtype, bound):
 
 
 @pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
-@pytest.mark.parametrize("which", sorted(ROT_VARIANTS))
+@pytest.mark.parametrize("which", sorted(ROT_INSTANCES))
 def test_k8_cells_beyond_one_target_chunk(cuda, which, dtype, bound):
     """327 real targets in one cell (a block stages them in chunks of
     128) at cap 400."""
@@ -960,12 +967,54 @@ def test_k8_cells_beyond_one_target_chunk(cuda, which, dtype, bound):
 @pytest.mark.parametrize("n", [1, 2, 3, 77])
 def test_k8_ragged_n(cuda, n, dtype):
     """A handful of rollers: mostly empty cells, targets alone in their
-    cells; every variant against the plain version."""
+    cells; every instance against the plain version."""
     bound = dict(WALL_BOUNDS)[dtype]
-    for which in ROT_VARIANTS:
+    for which in ROT_INSTANCES:
         err, got, plan, again = _k8(cuda, which, dtype, n=n, seed=n)
         assert got.shape == (n, 6) and torch.equal(got, again)
         assert err <= bound
+
+
+@pytest.mark.parametrize("dtype, bound", WALL_BOUNDS)
+@pytest.mark.parametrize("which", ["ft", "t"])
+def test_k8_calls_of_two_products(cuda, which, dtype, bound):
+    """A call with torques that asks for both outputs launches tr and rr
+    (or, with forces too, grand); the rows against the plain version and
+    against the sum of the one-output calls (each adds into its own half,
+    so the sum is exact)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    plan = _wall_plan(cuda, dtype, 96, n=1500, seed=6)
+    cheb, _ = ewr._host_cheb_rot(plan.params)
+    args, kw = ewr.near_args(plan, torch.as_tensor(cheb, dtype=dtype,
+                                                   device=cuda))
+    kw["cz_range"] = ew._kept_layers(plan.params, plan.cell_dims)
+    rng = np.random.default_rng(5)
+    f = torch.as_tensor(rng.normal(size=(plan.n_real, 3)), dtype=dtype,
+                        device=cuda) if which == "ft" else None
+    t = torch.as_tensor(rng.normal(size=(plan.n_real, 3)), dtype=dtype,
+                        device=cuda)
+    before = dict(ck.LAUNCHES)
+    got = ck.wall_rot_near(plan.pos_all, f, t, *args, **kw)
+    launched = {k: v - before[k] for k, v in ck.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == ({"wall_rot_near_grand": 1} if f is not None else
+                        {"wall_rot_near_tr": 1, "wall_rot_near_rr": 1})
+    v = ck.wall_rot_near(plan.pos_all, f, t, *args, want_w=False, **kw)
+    w = ck.wall_rot_near(plan.pos_all, f, t, *args, want_v=False, **kw)
+    assert not v[:, 3:].any() and not w[:, :3].any()
+    if f is None:
+        assert torch.equal(got, v + w)
+    kw.pop("cz_range")
+    dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in args)
+    ref = ck.wall_rot_near_plain(
+        plan.pos_all.double(), None if f is None else f.double(), t.double(),
+        *dargs, **kw)
+    for rows in (got, v + w):
+        err = (rows.double() - ref).abs().max().item()
+        assert err <= bound * ref.abs().max().item()
 
 
 def test_k8_launch_error_raises(cuda, monkeypatch):

@@ -6,15 +6,21 @@ tests/test_wall_rot_engine.py (9 x 9 box, a = 0.3) at tolerance 1e-4:
 - the host tables (the rot remainders' Chebyshev fit and self term, the
   rot polish kernels) equal the JAX package's to 1e-12;
 - grand_near (K8's plain version plus the rr self term) against
-  grand_near_xla for (f, t), (f, None) and (None, t), 1e-10 x max|ref|;
+  grand_near_xla for (f, t), (f, None) and (None, t), 1e-10 x max|ref|,
+  and with each output selection (want_v / want_w): the kept half at
+  1e-10, the other exactly zero;
 - rot_wave and grand_matvec against the JAX package's, 1e-9 x max|ref|
   (the JAX package's float32 z-DFT matrices swapped for float64 ones, as
-  tests/test_torch_wall_spectral.py does); grand_matvec's symmetry and
-  its single-block products;
+  tests/test_torch_wall_spectral.py does), grand_matvec with each output
+  selection; grand_matvec's symmetry and its single-block products;
 - the generated header csrc/wall_img_terms.cuh equals a fresh emission,
   and the rot channels read only the radial values K8 stages;
-- a CPU model of K8's compacted walk (csrc/wall_rot_near.cu) reproduces
-  the plain sweep at 1e-12 and evaluates each pair inside r_cut once.
+- K8's padded Clenshaw series (tables zero-padded to whole groups of
+  kGroup terms) equal the unpadded ones bit for bit, in float32 and
+  float64, in the plain version's order and in the kernel's;
+- a CPU model of K8's split walk (csrc/wall_rot_near.cu on
+  csrc/cell_sweep.cuh's split_walk) reproduces the plain sweep at 1e-12
+  for each instance and evaluates each pair inside r_cut once.
 """
 
 import functools
@@ -41,6 +47,10 @@ A, ETA, LBOX = 0.3, 1.2, 9.0
 CSRC = Path(ck.__file__).resolve().parents[1] / "csrc"
 LANES = 32
 VARIANTS = {"ft": (True, True), "f": (True, False), "t": (False, True)}
+# output selections (want_v, want_w) of each variant that form an output
+SELECTIONS = [(which, want) for which in sorted(VARIANTS)
+              for want in ("v", "w", "vw")
+              if ck.rot_products(*VARIANTS[which], "v" in want, "w" in want)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,6 +120,21 @@ def test_grand_near_matches_jax(scene, which):
     assert _rel(got, ref) <= 1e-10
 
 
+@pytest.mark.parametrize("which, want", SELECTIONS)
+def test_grand_near_output_selection_matches_jax(scene, which, want):
+    """The kept half against grand_near_xla at 1e-10 x its max; the half
+    not asked for exactly zero."""
+    ref = jewr.grand_near_xla(scene["jplan"], *_args(scene, which, False),
+                              scene["jtab"])
+    got = tewr.grand_near(scene["tplan"], *_args(scene, which, True),
+                          scene["ttab"], want_v="v" in want,
+                          want_w="w" in want)
+    kept = [k for k, name in enumerate("vw") if name in want]
+    assert _rel([got[k] for k in kept], [ref[k] for k in kept]) <= 1e-10
+    for k in set(range(2)) - set(kept):
+        assert bool((got[k] == 0).all())
+
+
 @pytest.mark.parametrize("which", sorted(VARIANTS))
 def test_rot_wave_matches_jax(scene, which):
     ref = jewr.rot_wave(scene["jplan"], *_args(scene, which, False),
@@ -127,6 +152,23 @@ def test_grand_matvec_matches_jax(scene):
     for g, r in zip(got, ref):
         r = np.asarray(r)
         assert np.abs(to_np(g) - r).max() <= 1e-9 * np.abs(r).max()
+
+
+@pytest.mark.parametrize("which, want", [
+    sel for sel in SELECTIONS if sel[1] != "vw"])
+def test_grand_matvec_output_selection_matches_jax(scene, which, want):
+    """A product that forms one output (the rollers' tr, rt and rr, and
+    the others the flags allow) against the same output of the JAX
+    package's full product, 1e-9 x its max; the other output is None."""
+    ref = jewr.grand_matvec(scene["jplan"], *_args(scene, which, False),
+                            scene["jtab"])
+    got = tewr.grand_matvec(scene["tplan"], *_args(scene, which, True),
+                            scene["ttab"], want_v=want == "v",
+                            want_w=want == "w")
+    k = "vw".index(want)
+    assert got[1 - k] is None
+    r = np.asarray(ref[k])
+    assert np.abs(to_np(got[k]) - r).max() <= 1e-9 * np.abs(r).max()
 
 
 def test_grand_matvec_symmetry_and_blocks(scene):
@@ -178,13 +220,55 @@ def test_emitted_header_is_fresh():
 
 
 # ---------------------------------------------------------------------------
-# K8's compacted walk, modelled on the CPU
+# K8's padded Clenshaw series
+# ---------------------------------------------------------------------------
+
+
+def _clenshaw_kernel_order(coeffs, t, group):
+    """K8's Clenshaw (csrc/wall_rot_near.cu clenshaw): the table zero-padded
+    to whole groups, the groups from the top, b = 2t b1 + (c_k - b2) a term
+    (the kernel's fma rounds the product and the sum once; this model
+    rounds both), closed by t b1 + (c_0 - b2)."""
+    c = ck.pad_terms(coeffs, group)
+    t2 = t + t
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for k in range(c.shape[-1] - 1, 0, -1):
+        b1, b2 = t2 * b1 + (c[k] - b2), b1
+    return t * b1 + (c[0] - b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [24, 32, 40, 48])
+def test_padded_clenshaw_is_bit_identical(K, dtype):
+    """A table zero-padded at the top to whole groups of kGroup terms gives
+    the unpadded sums bit for bit: at the rot fit's K (already whole
+    groups) and at K - 1, K - 3 and K - 7 terms (padded by 1, 3 and 7),
+    at t over [-1, 1] and its ends, in the plain version's order
+    (_clenshaw) and in the kernel's (fma order, rounded twice)."""
+    rng = np.random.default_rng(K)
+    t = torch.as_tensor(np.concatenate([rng.uniform(-1, 1, 4000),
+                                        [-1.0, 1.0, 0.0, -0.0]]), dtype=dtype)
+    for k in (K, K - 1, K - 3, K - 7):
+        c = torch.as_tensor(rng.normal(size=k) * 0.5 ** np.arange(k),
+                            dtype=dtype)
+        padded = ck.pad_terms(c, GROUP)
+        assert padded.shape[-1] % GROUP == 0
+        assert padded.shape[-1] - k == -k % GROUP
+        assert torch.equal(ck._clenshaw(padded, t), ck._clenshaw(c, t))
+        assert torch.equal(_clenshaw_kernel_order(c, t, GROUP),
+                           _clenshaw_kernel_order(c, t, 1))
+
+
+# ---------------------------------------------------------------------------
+# K8's split walk, modelled on the CPU
 # ---------------------------------------------------------------------------
 
 
 def _kernel_constants():
-    """kSrc (float64), kRing and kMaxRot of csrc/wall_rot_near.cu, kTgt and
-    the warps a block of csrc/cell_sweep.cuh."""
+    """kSrc (float64), kRing, kMaxRot and kGroup of
+    csrc/wall_rot_near.cu, kTgt and the warps a block of
+    csrc/cell_sweep.cuh."""
     text = (CSRC / "wall_rot_near.cu").read_text()
     sweep = (CSRC / "cell_sweep.cuh").read_text()
     tile = re.search(r"cellk::Walk<T, (\d+), (\d+)>", text)
@@ -193,10 +277,16 @@ def _kernel_constants():
             int(re.search(r"constexpr int kMaxRot = (\d+);", text)[1]),
             int(re.search(r"constexpr int kTgt = (\d+);", sweep)[1]),
             int(re.search(r"constexpr int kThreads = (\d+);", sweep)[1])
-            // 32)
+            // 32,
+            int(re.search(r"constexpr int kGroup = (\d+);", text)[1]))
 
 
-TILE, RING, MAX_ROT, CHUNK, WARPS = _kernel_constants()
+TILE, RING, MAX_ROT, CHUNK, WARPS, GROUP = _kernel_constants()
+# K8's instances: (forces, torques, want_v, want_w) of the call each forms
+INSTANCES = {"grand": (True, True, True, True),
+             "rt": (True, False, False, True),
+             "tr": (False, True, True, False),
+             "rr": (False, True, False, True)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,14 +318,25 @@ def _xor_tree(v):
     return v[0]
 
 
-def _walk(which, tile=TILE, chunk=CHUNK):
-    """K8's schedule on the slab: (rows (N, 6), evaluated (target, source)
-    pairs). The schedule records its batches; the pairs are evaluated in
-    one call and the batches replayed in order."""
+def _split_stencil(ids, nbr, shift, pos, c, n, n2):
+    """The stencil of cell c in stage_split's order: the real sources of
+    its 27 cells (in the stencil's order), then their image sources; the
+    ids, positions at the cells' shifts and the count of reals."""
+    live = [ids[nb][ids[nb] < n2] for nb in nbr[c]]
+    parts = [[(s[s < n], k) for k, s in enumerate(live)],
+             [(s[s >= n], k) for k, s in enumerate(live)]]
+    s_ids = np.concatenate([s for part in parts for s, _ in part])
+    s_pos = np.concatenate([pos[s] + shift[c, k] for part in parts
+                            for s, k in part])
+    return s_ids, s_pos, sum(s.size for s, _ in parts[0])
+
+
+def _walk_instance(inst, tile, chunk):
+    """One K8 instance's schedule on the slab: (rows (N, 6), evaluated
+    (target, source) pairs). The schedule records its batches; the pairs
+    are evaluated in one call and the batches replayed in order."""
     plan, cheb, ft = _slab()
-    has_f, has_t = VARIANTS[which]
-    f = ft[:, :3] if has_f else None
-    t = ft[:, 3:] if has_t else None
+    has_f, has_t, want_v, want_w = INSTANCES[inst]
     args, kw = tewr.near_args(plan, cheb)
     table, dims, box, cap, cheb, img_cheb = args
     z0 = kw.pop("z0")
@@ -253,20 +354,25 @@ def _walk(which, tile=TILE, chunk=CHUNK):
         targets = ids[c][ids[c] < n]
         if targets.size == 0:
             continue
-        live = [ids[nb][ids[nb] < n2] for nb in nbr[c]]
-        s_ids = np.concatenate(live)
-        s_pos = np.concatenate([pos[s] + shift[c, k]
-                                for k, s in enumerate(live)])
+        s_ids, s_pos, n_r = _split_stencil(ids, nbr, shift, pos, c, n, n2)
         for t0 in range(0, targets.size, chunk):
             t_chunk = targets[t0:t0 + chunk]
             for s0 in range(0, s_ids.size, tile):
                 sid, spos = s_ids[s0:s0 + tile], s_pos[s0:s0 + tile]
                 m = sid.size
+                re_ = min(max(n_r - s0, 0), m)
                 image = pos[sid, 2] + z0 < 0
+                assert not image[:re_].any() and image[re_:].all()
 
                 def entry(tid, j):
                     entries.append((tid, sid[j], spos[j]))
                     return len(entries) - 1
+
+                def steps(start, end):
+                    """The halves of 32 candidates of a part's 64-steps."""
+                    for c0 in range(start, end, 2 * LANES):
+                        yield [np.arange(h, min(h + LANES, m))
+                               for h in (c0, c0 + LANES)]
 
                 for warp in range(WARPS):
                     ring_i = []
@@ -274,27 +380,32 @@ def _walk(which, tile=TILE, chunk=CHUNK):
                         tid = int(t_chunk[tt])
                         r2 = ((pos[tid] - spos) ** 2).sum(-1)
                         inside = (r2 > 0) & (r2 < rc2)
+                        # the real part: a real step's rows past re_ are
+                        # images, which its z test drops
                         ring_r = []
-                        for c0 in range(0, m, 2 * LANES):
-                            for half in (c0, c0 + LANES):
-                                j = np.arange(half, min(half + LANES, m))
+                        for halves in steps(0, re_):
+                            for j in halves:
                                 ring_r += j[inside[j] & ~image[j]].tolist()
-                                ring_i += [(tid, jj) for jj in
-                                           j[inside[j] & image[j]].tolist()]
-                            assert len(ring_r) <= RING and len(ring_i) <= RING
+                            assert len(ring_r) <= RING
                             while len(ring_r) >= LANES:
                                 events.append(("real", tid, [
                                     entry(tid, j) for j in ring_r[:LANES]]))
                                 del ring_r[:LANES]
+                        if ring_r:
+                            events.append(("real", tid, [entry(tid, j)
+                                                         for j in ring_r]))
+                        events.append(("done", tid))
+                        # the image part
+                        for halves in steps(re_, m):
+                            for j in halves:
+                                ring_i += [(tid, jj) for jj in
+                                           j[inside[j]].tolist()]
+                            assert len(ring_i) <= RING
                             while len(ring_i) >= LANES:
                                 events.append(("image", [
                                     (t_, entry(t_, j)) for t_, j in
                                     ring_i[:LANES]]))
                                 del ring_i[:LANES]
-                        if ring_r:
-                            events.append(("real", tid, [entry(tid, j)
-                                                         for j in ring_r]))
-                        events.append(("done", tid))
                     if ring_i:
                         events.append(("image", [(t_, entry(t_, j))
                                                  for t_, j in ring_i]))
@@ -304,8 +415,10 @@ def _walk(which, tile=TILE, chunk=CHUNK):
     twin = torch.as_tensor(src % n)
     rows = ck.wall_rot_pair_rows(
         torch.as_tensor(pos[tgt] - src_pos), torch.as_tensor(pos[src, 2] + z0),
-        torch.as_tensor(pos[tgt, 2] + z0), None if f is None else f[twin],
-        None if t is None else t[twin], cheb, img_cheb, **kw).numpy()
+        torch.as_tensor(pos[tgt, 2] + z0),
+        ft[:, :3][twin] if has_f else None,
+        ft[:, 3:][twin] if has_t else None, cheb, img_cheb, want_v=want_v,
+        want_w=want_w, **kw).numpy()
     out = np.zeros((n, 6))
     acc = {}
     for ev in events:
@@ -327,19 +440,51 @@ def _walk(which, tile=TILE, chunk=CHUNK):
     return out, list(zip(tgt.tolist(), src.tolist()))
 
 
-def _plain(which):
+def _walk(which, tile=TILE, chunk=CHUNK, want="vw"):
+    """A K8 call on the slab, strengths `which`, outputs `want`: the
+    schedules of its instances (ck.rot_instances), each adding into its own
+    half of the rows. Returns (rows, the pairs each instance evaluated)."""
+    has_f, has_t = VARIANTS[which]
+    out, visits = 0.0, []
+    for inst in ck.rot_instances(has_f, has_t, "v" in want, "w" in want):
+        rows, pairs = _walk_instance(inst, tile, chunk)
+        out, visits = out + rows, visits + [pairs]
+    return out, visits
+
+
+def _plain(which, want="vw"):
     plan, cheb, ft = _slab()
     has_f, has_t = VARIANTS[which]
     args, kw = tewr.near_args(plan, cheb)
     return ck.wall_rot_near_plain(plan.pos_all,
                                   ft[:, :3] if has_f else None,
                                   ft[:, 3:] if has_t else None, *args,
+                                  want_v="v" in want, want_w="w" in want,
                                   **kw).numpy()
 
 
 def test_model_reads_the_kernel_constants():
     assert (TILE, RING, MAX_ROT, CHUNK, WARPS) == (1024, 128, 48, 128, 8)
     assert ck.MAX_CHEB_ROT == MAX_ROT
+    assert GROUP == ck.ROT_GROUP == 8
+    src = (CSRC / "wall_rot_near.cu").read_text()
+    names = re.findall(r"ROT_ENTRY\(wall_rot_near_f32_(\w+),", src)
+    assert names == list(INSTANCES)
+    assert {f"wall_rot_near_{i}" for i in INSTANCES} <= set(ck.LAUNCHES)
+
+
+def _check_walk(which, tile, chunk, want="vw"):
+    ref = _plain(which, want)
+    plan, _, _ = _slab()
+    args, _ = tew.near_args(plan)
+    _, inside, img = ck.wall_pair_counts(plan.pos_all, *args[:4],
+                                         plan.params.r_cut, plan.params.z0)
+    out, visits = _walk(which, tile, chunk, want)
+    assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
+    for pairs in visits:
+        assert len(pairs) == len(set(pairs)) == inside
+        assert sum(1 for _, s in pairs if s >= plan.n_real) == img > 0
+    return out
 
 
 @pytest.mark.parametrize("which, tile, chunk", [
@@ -347,15 +492,23 @@ def test_model_reads_the_kernel_constants():
     ("ft", 96, 8)])
 def test_walk_reproduces_the_plain_sweep(which, tile, chunk):
     """The walk at the float64 kernel's tile, and at a tile of 96 sources
-    with chunks of 8 targets (stencils in several tiles, cells in several
-    chunks), against the plain sweep at 1e-12; each pair inside r_cut
-    once."""
-    ref = _plain(which)
-    plan, _, _ = _slab()
-    args, _ = tew.near_args(plan)
-    _, inside, img = ck.wall_pair_counts(plan.pos_all, *args[:4],
-                                         plan.params.r_cut, plan.params.z0)
-    out, visits = _walk(which, tile, chunk)
-    assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
-    assert len(visits) == len(set(visits)) == inside
-    assert sum(1 for _, s in visits if s >= plan.n_real) == img > 0
+    with chunks of 8 targets (stencils in several tiles, real and image
+    parts split across tiles, cells in several chunks), against the plain
+    sweep at 1e-12; each pair inside r_cut once an instance."""
+    _check_walk(which, tile, chunk)
+
+
+@pytest.mark.parametrize("inst", sorted(INSTANCES))
+def test_walk_per_instance(inst):
+    """Each instance alone (the calls the wall rollers' products make), at
+    a tile of 96 sources and chunks of 8 targets, against the plain sweep
+    with the same outputs asked for; the half it does not form is zero."""
+    has_f, has_t, want_v, want_w = INSTANCES[inst]
+    which = "ft" if has_f and has_t else ("f" if has_f else "t")
+    want = "v" * want_v + "w" * want_w
+    assert ck.rot_instances(has_f, has_t, want_v, want_w) == (inst,)
+    out = _check_walk(which, 96, 8, want)
+    if not want_v:
+        assert not out[:, :3].any()
+    if not want_w:
+        assert not out[:, 3:].any()

@@ -1,6 +1,7 @@
-"""Kernels K1, K2, K5, K6 and K7 at the main paths' shapes on a CUDA card.
+"""Kernels K1, K2, K5, K6, K7 and K8 at the main paths' shapes on a CUDA
+card.
 
-    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7]
+    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7,k8]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -36,23 +37,42 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   (candidates, pairs inside r_cut, image pairs), its stencils against the
   staged tile (kSrc, read from the source), and on the first 256 cells
   the error of the kernel and of the float32 plain version against the
-  float64 plain version (what the float32 formulation alone costs).
+  float64 plain version (what the float32 formulation alone costs);
+- k8 (csrc/wall_rot_near.cu): each product of the wall rollers' engine
+  (grand, rt, tr, rr) at the path's plan (32,768 rollers, chip_smoke.py
+  phase 11, the automatic cell capacity; K and Ki printed), as the path
+  calls it (the wrapper) and its kernel alone (the C entry point, 20
+  launches, free of the wrapper's host time); with a checkout whose
+  wrapper takes no output flags, the instance of the strengths present:
+  (f, t), (f), (t), (t). But for --baseline also the plan's work, the
+  kernel with no pair inside r_cut (the stencil, the staging and the
+  candidate filter alone) and with the images out of reach (real pairs
+  only), the host's time to enqueue the path's call, the kernel at other
+  series lengths (the rot table zero-padded or cut to K' terms, the image
+  series to Ki'), whose slopes are the cost of one Clenshaw term, and,
+  where `ncu` is on the machine, its warp stall reasons of one launch of
+  each product.
 But for --baseline it prints the ptxas registers and spills of the chosen
 kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
 (cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
 and F2I conversions (which run at the MUFU's rate) and the subroutine
-calls; --sass-out (default build/kernels_sass.txt) receives
+calls (for k8 also the LDS, FFMA, FADD and FMUL of each loop of its
+instances' SASS: the Clenshaw loops); --sass-out (default
+build/kernels_sass.txt) receives
 the counts and those instances' listing. Checks against the plain
 versions are chip_smoke.py's and the card tests'.
 """
 
 import argparse
+import inspect
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -65,7 +85,8 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
              "k2": ("force_",),
              "k5": ("nl_forces",),
              "k6": ("near_rpy",),
-             "k7": ("wall_near",)}
+             "k7": ("wall_near",),
+             "k8": ("wall_rot_near",)}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -460,8 +481,181 @@ def profile_k7(cs, dev, detail):
         print(line, flush=True)
 
 
+# ---------------------------------------------------------------- K8
+
+# the wall rollers' products: (forces, torques, want_v, want_w)
+K8_PRODUCTS = {"grand": (True, True, True, True),
+               "rt": (True, False, False, True),
+               "tr": (False, True, True, False),
+               "rr": (False, True, False, True)}
+
+
+def wall_rollers_plan(cs, dev):
+    """The wall rollers' plan and rot tables at the path's first
+    configuration (chip_smoke.py phase 11), float32."""
+    from rigidmultiblobswall_tpu_torch.models import rollers
+
+    sus = cs.wall_roller_suspension(cs.N_ROLLERS)
+    r = torch.as_tensor(cs.roller_lattice(cs.N_ROLLERS), device=dev)
+    carry = rollers.init_carry(sus, positions=r)
+    return carry.plan, carry.rot_tables
+
+
+def k8_products(cs, dev):
+    """(plan, tables, {product: (path, raw)}) at the wall rollers' plan:
+    path() calls K8 as the path calls that product (the wrapper, with its
+    checks and output allocation), raw(cheb, img, pos, r_cut) launches the
+    product's instance alone through its C entry point (into one output
+    that it adds into), on the given tables, positions and cutoff."""
+    from rigidmultiblobswall_tpu_torch.ops import _build
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall as ew
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+
+    plan, tables = wall_rollers_plan(cs, dev)
+    args, kw = ewr.near_args(plan, tables.cheb)
+    table, dims, box, cap = args[:4]
+    kw["cz_range"] = ew._kept_layers(plan.params, plan.cell_dims)
+    # a checkout whose wrapper takes no output flags has one instance a
+    # set of strengths
+    flags = "want_v" in inspect.signature(ck.wall_rot_near).parameters
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = plan.n_real
+    f, t = (torch.randn((n, 3), generator=g, device=dev) for _ in range(2))
+    out = torch.zeros((n, 6), device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for prod, (has_f, has_t, want_v, want_w) in K8_PRODUCTS.items():
+        extra = dict(want_v=want_v, want_w=want_w) if flags else {}
+        inst = prod if flags else "f" * has_f + "t" * has_t
+        fn = getattr(lib, f"wall_rot_near_f32_{inst}")
+
+        def path(has_f=has_f, has_t=has_t, extra=extra):
+            return ck.wall_rot_near(plan.pos_all, f if has_f else None,
+                                    t if has_t else None, *args, **kw,
+                                    **extra)
+
+        def raw(cheb, img, pos=plan.pos_all, r_cut=kw["r_cut"], fn=fn,
+                has_f=has_f, has_t=has_t):
+            err = fn(pos.data_ptr(), f.data_ptr() if has_f else None,
+                     t.data_ptr() if has_t else None, table.data_ptr(),
+                     cheb.data_ptr(), img.data_ptr(), out.data_ptr(), n,
+                     *(int(d) for d in dims), int(cap), cheb.shape[2],
+                     img.shape[2], *kw["cz_range"], *(float(L) for L in box),
+                     kw["two_a"], r_cut, kw["z0"], kw["a"], kw["pref_c"],
+                     kw["pref_r"], *kw["img_range"], stream)
+            if err:
+                raise RuntimeError(f"K8 {prod}: CUDA error {err}")
+        calls[prod] = (path, raw)
+    return plan, tables, args, calls
+
+
+def series(table, k):
+    """A Chebyshev table (pieces, series, K) cut or zero-padded to k
+    terms."""
+    out = table.new_zeros(table.shape[:2] + (k,))
+    m = min(k, table.shape[2])
+    out[..., :m] = table[..., :m]
+    return out.contiguous()
+
+
+def profile_k8(cs, dev, detail):
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+
+    plan, tables, args, calls = k8_products(cs, dev)
+    p = plan.params
+    cheb, img = args[4], args[5]
+    K, Ki = cheb.shape[2], img.shape[2]
+    n = plan.n_real
+    if detail:
+        cand, inside, n_img = ck.wall_pair_counts(plan.pos_all, *args[:4],
+                                                  p.r_cut, p.z0)
+        cap = p.cell_capacity
+        ids = plan.cell_table.reshape(-1, cap).long()
+        targets = (ids < n).sum(1)
+        print(f"  K8 plan: cells {plan.cell_dims} x cap {cap}, K {K}, Ki "
+              f"{Ki}; {int((targets > 0).sum())} cells with real targets, "
+              f"mean {targets[targets > 0].float().mean().item():.1f}, max "
+              f"{int(targets.max())}; {cand} candidate pairs of the real "
+              f"targets, {inside} inside r_cut, {n_img} with an image "
+              f"source", flush=True)
+    # the images moved out of every real target's reach (real pairs only)
+    far = plan.pos_all.clone()
+    far[n:, 2] -= 1e4
+    for prod, (path, raw) in calls.items():
+        ms = cs.cuda_ms(path, 10)
+        alone = cs.cuda_ms(lambda: raw(cheb, img), 20)
+        line = (f"  K8 {prod} {n} rollers f32 (K {K}, Ki {Ki}): the path's "
+                f"call {ms:.3f} ms, the kernel alone {alone:.3f} ms")
+        if detail:
+            # where the kernel's time goes: no pair inside r_cut (the
+            # stencil, the staging and the candidate filter alone), real
+            # pairs only; and the host's time to enqueue the path's call
+            none = cs.cuda_ms(lambda: raw(cheb, img, r_cut=1e-3), 20)
+            reals = cs.cuda_ms(lambda: raw(cheb, img, pos=far), 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                path()
+            host = (time.perf_counter() - t0) / 10 * 1e3
+            torch.cuda.synchronize()
+            line += (f"; no pair {none:.3f} ms, real pairs only "
+                     f"{reals:.3f} ms, the path's call enqueued in "
+                     f"{host:.3f} ms")
+            # the cost of a Clenshaw term: the kernel at other series
+            # lengths (the tables' values matter only to the results)
+            kt = {k: series(cheb, k) for k in (8, 16, 48)}
+            it = {k: series(img, k) for k in (4, 12, 32)}
+            kt = {k: cs.cuda_ms(lambda: raw(c, img), 20)
+                  for k, c in kt.items()}
+            it = {k: cs.cuda_ms(lambda: raw(cheb, c), 20)
+                  for k, c in it.items()}
+            line += ("; K' " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in kt.items())
+                     + f" ms ({(kt[48] - kt[8]) / 40 * 1e3:.2f} us a term);"
+                     " Ki' " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in it.items())
+                     + f" ms ({(it[32] - it[4]) / 28 * 1e3:.2f} us a term)")
+        print(line, flush=True)
+    if detail:
+        k8_stalls()
+
+
+def k8_stalls():
+    """Where `ncu` is on the machine: the warp stall reasons of one launch
+    of each product (a child process of this tool under ncu)."""
+    tool = shutil.which("ncu") or "/usr/local/cuda/bin/ncu"
+    if not os.path.exists(tool):
+        print("  K8 warp stall reasons: no ncu on this machine", flush=True)
+        return
+    cmd = [tool, "--kernel-name", "regex:wall_rot_near", "--launch-count",
+           str(len(K8_PRODUCTS)), "--section", "WarpStateStats",
+           sys.executable, __file__, "--kernels", "k8", "--ncu-child"]
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600)
+        text = out.stdout + out.stderr
+    except subprocess.TimeoutExpired:
+        text = "ncu timed out"
+    keep = [ln for ln in text.splitlines()
+            if "wall_rot_near" in ln or "Stall" in ln or "stall" in ln
+            or "==ERROR==" in ln or "==WARNING==" in ln]
+    print("  K8 warp stall reasons (ncu):", flush=True)
+    for ln in keep[:80] or text.splitlines()[-10:]:
+        print(f"    {ln.strip()}", flush=True)
+
+
+def k8_ncu_child(cs, dev):
+    """One launch of each product, for ncu."""
+    _, _, _, calls = k8_products(cs, dev)
+    for path, _ in calls.values():
+        path()
+    torch.cuda.synchronize()
+
+
 PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
-            "k6": profile_k6, "k7": profile_k7}
+            "k6": profile_k6, "k7": profile_k7, "k8": profile_k8}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -499,6 +693,7 @@ def sass_counts(lib_path, kernels, out_path):
         names = [d.replace("(anonymous namespace)::", "").split("(", 1)[0]
                  for d in dem.splitlines()]
     counts, listing = [], []
+    loops_of = set(INSTANCES["k8"]) if "k8" in kernels else set()
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
             continue
@@ -512,6 +707,8 @@ def sass_counts(lib_path, kernels, out_path):
             f"{sum('FRND' in ln for ln in body)}, f2i "
             f"{sum('F2I' in ln for ln in body)}, calls "
             f"{sum('CALL' in ln for ln in body)} {calls}")
+        if any(f in name for f in loops_of):
+            counts += [f"  {ln}" for ln in sass_loops(body)]
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
         counts = [f"no instance found (cuobjdump exit {out.returncode}: "
@@ -521,11 +718,47 @@ def sass_counts(lib_path, kernels, out_path):
     return counts
 
 
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+LOOP_OPS = ("LDS", "FFMA", "FADD", "FMUL", "MUFU")
+
+
+def sass_loops(body):
+    """The loops of a SASS listing that load shared memory and multiply-add
+    (backward branches; the Clenshaw loops among them): per loop its
+    length in instructions and its LDS (by width), FFMA, FADD, FMUL and
+    MUFU counts."""
+    instrs = []
+    for ln in body:
+        m = SASS_LINE.search(ln)
+        if m:
+            instrs.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = []
+    for addr, op, rest in instrs:
+        if op != "BRA":
+            continue
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if target is None or int(target.group(1), 16) > addr:
+            continue
+        lo = int(target.group(1), 16)
+        ops = [o for a, o, _ in instrs if lo <= a <= addr]
+        hist = {k: sum(o.split(".")[0] == k for o in ops) for k in LOOP_OPS}
+        if hist["LDS"] == 0 or hist["FFMA"] == 0:
+            continue
+        widths = sorted({o for o in ops if o.startswith("LDS")})
+        out.append(f"loop {lo:#x}-{addr:#x}: {len(ops)} instructions, "
+                   + ", ".join(f"{k} {v}" for k, v in hist.items())
+                   + f" ({', '.join(widths)})")
+    return out or ["no loop with LDS and FFMA"]
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
-    p.add_argument("--kernels", default="k1,k2,k5,k6,k7",
-                   help="comma-separated subset of k1, k2, k5, k6, k7")
+    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8",
+                   help="comma-separated subset of k1, k2, k5, k6, k7, k8")
+    p.add_argument("--ncu-child", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",
                    help="only the times of the paths' calls")
     p.add_argument("--sass-out",
@@ -547,6 +780,9 @@ def main():
           flush=True)
     dev = torch.device("cuda")
     lib = _build.library()
+    if args.ncu_child:
+        k8_ncu_child(cs, dev)
+        return
     detail = not args.baseline
     if detail:
         if _build.build_log:
