@@ -104,6 +104,25 @@ is non-zero and no result line is printed):
      0.2: ms/step, GMRES and Lanczos iterations, rejections, neighbor
      overflow (0), peak device memory and the launches of K1 grand and K2
      (each must run; no other engine's kernel may).
+ 13. the remaining multibody schemes, obstacles and Krylov recycling at
+     full width (multibody-49k-schemes): bench.py's multibody
+     configuration (4096 shells, 49,152 blobs, float32, matrix-free) with
+     phase 6's Lanczos and GMRES settings; stochastic first-order RFD,
+     traction EM and AB, Slip-Mid and GDC-RFD, one warm-up and two timed
+     steps each (ms/step, GMRES and Lanczos counts, rejections, the
+     launches of K1 tt B = 1 and 2 and of K2: each kernel of the scheme
+     must run, K3 and K4 must not); 512 of the shells an obstacle type
+     under Slip-Mid and GDC-RFD, two steps each (the obstacles
+     bit-identical, the free shells moved); and deterministic
+     Adams-Bashforth at kT = 0 for 6 steps with recycle_k = 6 and without
+     (each step's GMRES sweeps; steps 2-6 must take fewer recycled; the
+     refresh timed, three K1 tt B = 2 launches; the final positions
+     within 10 x the solver tolerance of the displacement).
+Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
+at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
+GDC-RFD (the obstacles unchanged) on the card against the CPU with the
+same normals fed, and phase 5 a generated input with an `obstacle` entry
+through the CLI, card float64 against CPU float64.
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
 K7, K8 and the wall-slab K5 on a random ~3000-blob wall slab (K5, K6, K7
 and K8 twice bit-identical), periodic K2 on 1001 blobs in small boxes
@@ -2734,6 +2753,297 @@ def phase_dense_path(pk, mc):
     return out["stochastic_Slip_Trapz", "materialized"][1]
 
 
+# ---------------------------------------------------------------------------
+# The remaining multibody schemes, obstacles and Krylov recycling (ROADMAP
+# Queue 1, item 17): phase 4's parity, phase 5's obstacle CLI, phase 13
+# ---------------------------------------------------------------------------
+
+ITEM17_SCHEMES = ("stochastic_first_order_RFD", "stochastic_traction_EM",
+                  "stochastic_traction_AB", "stochastic_Slip_Mid",
+                  "stochastic_GDC_RFD")
+# the schemes whose paired solves share a lockstep loop (K1 tt B = 2)
+LOCKSTEP_SCHEMES = ("stochastic_traction_AB", "stochastic_Slip_Mid")
+# phase 13's obstacles: the last 512 of the 4096 shells
+N_OBSTACLES = 512
+
+
+def obstacle_system(n_free, n_obst, **overrides):
+    """bench_system's physics with the last n_obst shells an obstacle type
+    (prescribed zero velocity)."""
+    from rigidmultiblobswall_tpu_torch.models.system import BodyType
+
+    system = bench_system(n_free, **overrides)
+    obst = BodyType(name="obstacle", ref_config=shell_vertices(),
+                    count=n_obst, prescribed_kinematics=True,
+                    is_obstacle=True)
+    return dataclasses.replace(system, types=system.types + (obst,))
+
+
+def run_scheme_steps(system, scheme, pos, quat, dtype, device, n_steps,
+                     tol):
+    """n_steps of `scheme` from (pos, quat) with every normal drawn by
+    host_normals(11) (the same numbers in float32 and float64, on the
+    card and the CPU). Returns the final state as float64 numpy and the
+    last StepAux."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    state = make_state(pos, quat, dtype=dtype, device=device)
+    step = integrators.make_stepper(system, scheme, 1e-3, tolerance=tol,
+                                    lanczos_tolerance=1e-8)
+    carry = integrators.init_carry(system, state=state)
+    draw, integrators.draw_normal = (integrators.draw_normal,
+                                     host_normals(11))
+    try:
+        for _ in range(n_steps):
+            state, carry, aux = step(state, None, carry)
+    finally:
+        integrators.draw_normal = draw
+    return (state.pos.double().cpu().numpy(),
+            state.quat.double().cpu().numpy(), aux)
+
+
+def scheme_parity_case(system, scheme, what, n_free=None):
+    """3 steps card f64 and card f32 against CPU f64, the same normals fed
+    to every run; errors over the largest displacement. With n_free, the
+    bodies past it are obstacles: their positions and orientations must
+    come back unchanged."""
+    n = system.num_bodies
+    pos, quat = lattice(n, seed=5)
+    pos64, quat64 = pos.astype(np.float64), quat.astype(np.float64)
+    ref, ref_q, _ = run_scheme_steps(system, scheme, pos64, quat64,
+                                     torch.float64, "cpu", 3, 1e-12)
+    got64, got64_q, aux = run_scheme_steps(system, scheme, pos64, quat64,
+                                           torch.float64, DEVICE, 3, 1e-12)
+    got32, _, _ = run_scheme_steps(system, scheme, pos64, quat64,
+                                   torch.float32, DEVICE, 3, 1e-5)
+    disp = np.abs(ref - pos64).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref).max() / disp
+    log(f"{what} parity, {scheme} x 3 steps (max displacement {disp:.3e}), "
+        f"max error / max displacement: GPU f64 vs CPU f64 {e64:.3e} (bound "
+        f"1e-9), GPU f32 vs CPU f64 {e32:.3e} (bound 1e-2); gmres "
+        f"{aux.det_iterations}, lanczos {aux.stoch_iterations}, rejections "
+        f"{aux.rejections}")
+    check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2,
+          f"{what} parity ({scheme})")
+    if n_free is not None:
+        for name, got, start in (("card", got64, pos64), ("CPU", ref, pos64),
+                                 ("card", got64_q, quat64),
+                                 ("CPU", ref_q, quat64)):
+            check(np.array_equal(got[n_free:], start[n_free:]),
+                  f"{what}: an obstacle moved ({scheme}, {name})")
+
+
+def phase_scheme_parity(pk, mc):
+    """Phase 4, item 17: 8 shells x 3 steps of each of the five schemes at
+    kT = 0.05 (the materialized engine, K3 and K4, with K1 tt for the
+    matrix-free RFD products and K2 for the forces), and 6 free shells
+    beside 2 obstacle shells under Slip-Mid and GDC-RFD."""
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    for scheme in ITEM17_SCHEMES:
+        scheme_parity_case(bench_system(8), scheme, "8 shells")
+    for scheme in ("stochastic_Slip_Mid", "stochastic_GDC_RFD"):
+        scheme_parity_case(obstacle_system(6, 2), scheme,
+                           "6 shells + 2 obstacles", n_free=6)
+    launches = dict(mc.DENSE_LAUNCHES, K1_tt=pk.launches("tt"),
+                    K2=mc.LAUNCHES)
+    log(f"item-17 parity launches {launches}")
+    check(min(launches.values()) > 0,
+          f"the item-17 parity did not run on K1 tt, K2, K3 and K4: "
+          f"{launches}")
+
+
+def phase_obstacle_cli():
+    """Phase 5, obstacles: the CLI on a generated input of 6 shells and an
+    `obstacle` entry of 2 shells, stochastic_Slip_Mid at kT = 0, 3 steps,
+    card float64 against CPU float64: the same .clones of both IDs (1e-9
+    of the displacement) and the obstacles where they started."""
+    from rigidmultiblobswall_tpu_torch import cli
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    pos, quat = lattice(8, seed=4)
+    pos, quat = pos.astype(np.float64), quat.astype(np.float64)
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, device in (("host", "cpu"), ("card", DEVICE)):
+            dd = os.path.join(d, name)
+            os.makedirs(dd)
+            inp = write_shell_input(dd, pos[:6], quat[:6], (
+                "scheme stochastic_Slip_Mid\ndt 0.001\nn_steps 3\n"
+                "n_save 3\nsolver_tolerance 1e-12\n"
+                "obstacle shell.vertex wall.clones\n"))
+            scene.write_clones_file(os.path.join(dd, "wall.clones"),
+                                    pos[6:], quat[6:])
+            with open(inp) as f:
+                text = f.read().replace("kT 0.05", "kT 0.0")
+            with open(inp, "w") as f:
+                f.write(text)
+            os.chdir(dd)
+            try:
+                t0 = time.perf_counter()
+                cli.main(["--input-file", inp, "--device", device, "--f64"])
+                secs = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            out[name] = {(sid, i): np.loadtxt(os.path.join(
+                dd, f"run.{sid}.{i:08d}.clones"), skiprows=1)
+                for sid in ("shell", "wall") for i in (0, 3)}, secs
+    (ref, _), (got, secs) = out["host"], out["card"]
+    disp = np.abs(ref["shell", 3][:, :3] - ref["shell", 0][:, :3]).max()
+    err = max(np.abs(got[k] - ref[k]).max() for k in got) / disp
+    log(f"obstacle CLI 6 shells + 2 obstacles x 3 Slip-Mid steps (kT = 0): "
+        f"{secs:.2f} s on the card, max error / max displacement GPU f64 vs "
+        f"CPU f64 {err:.3e} (bound 1e-9; displacement {disp:.3e})")
+    check(disp > 0 and err <= 1e-9, "obstacle CLI card vs CPU")
+    for k in ("host", "card"):
+        check(np.array_equal(out[k][0]["wall", 3], out[k][0]["wall", 0]),
+              f"obstacle CLI ({k}): an obstacle moved")
+
+
+def run_scheme_path(system, scheme, state, pk, mc, n_steps, recycle_k=0,
+                    warmup=True):
+    """bench.py's multibody stepper settings (phase 6's Lanczos and GMRES)
+    on `scheme` from `state`: with warmup one untimed step first, then
+    n_steps timed. Returns the final state, the per-step (GMRES, Lanczos,
+    rejections) of the timed steps, ms per timed step, and the launches
+    over all of them (the warm-up included)."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+
+    step = integrators.make_stepper(
+        system, scheme, 1e-3, lanczos_tolerance=5e-4, lanczos_max_iter=32,
+        lanczos_check_every=4, gmres_restart=60, gmres_maxiter=300,
+        max_rejections=3, recycle_k=recycle_k)
+    carry = integrators.init_carry(system, state=state)
+    gen = torch.Generator(device=state.pos.device).manual_seed(0)
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    if warmup:
+        state, carry, _ = step(state, gen, carry)
+    torch.cuda.synchronize()
+    counts = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, carry, aux = step(state, gen, carry)
+        counts.append((aux.det_iterations, aux.stoch_iterations,
+                       aux.rejections))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    launches = {"K1 tt": pk.LAUNCHES["tt", 1],
+                "K1 tt B=2": pk.LAUNCHES["tt", 2], "K2": mc.LAUNCHES,
+                **mc.DENSE_LAUNCHES}
+    check(bool(torch.isfinite(state.pos).all()),
+          f"{scheme}: positions not finite")
+    return state, counts, ms, launches, carry
+
+
+def phase_item17_path(pk, mc):
+    """Phase 13, multibody-49k-schemes: bench.py's multibody configuration
+    (4096 twelve-blob shells, 49,152 blobs, float32, matrix-free) through
+    make_stepper/init_carry: each of the five schemes (one warm-up and two
+    timed steps); 512 of the shells an obstacle type under Slip-Mid and
+    GDC-RFD (two steps each; the obstacles bit-identical); and
+    deterministic Adams-Bashforth at kT = 0 (BASELINE config 3's physics)
+    for 6 steps with recycle_k = 6 and without."""
+    from rigidmultiblobswall_tpu_torch.models import saddle, solvers
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    pos, quat = lattice(N_SHELLS)
+    system = bench_system(N_SHELLS)
+    out = {}
+    for scheme in ITEM17_SCHEMES:
+        state = make_state(pos, quat, dtype=torch.float32, device=dev)
+        _, counts, ms, launches, _ = run_scheme_path(system, scheme, state,
+                                                     pk, mc, 2)
+        out[scheme] = ms
+        log(f"item-17 path {system.num_blobs} blobs {scheme} f32: {ms:.1f} "
+            f"ms/step over 2 steps; (gmres, lanczos, rejections) per step "
+            f"{counts}; launches over the 3 steps {launches}")
+        want = ["K1 tt", "K2"] + (["K1 tt B=2"] if scheme in LOCKSTEP_SCHEMES
+                                  else [])
+        check(all(launches[k] > 0 for k in want),
+              f"{scheme}: a kernel of its path did not run: {launches}")
+        check(mc.DENSE_LAUNCHES["dense_tt"] == 0
+              and mc.DENSE_LAUNCHES["symm_matvec"] == 0,
+              f"{scheme}: K3/K4 launched above the budget")
+        check(min(c[0] for c in counts) > 0, f"{scheme}: no GMRES iterations")
+
+    n_free = N_SHELLS - N_OBSTACLES
+    osys = obstacle_system(n_free, N_OBSTACLES)
+    for scheme in ("stochastic_Slip_Mid", "stochastic_GDC_RFD"):
+        state0 = make_state(pos, quat, dtype=torch.float32, device=dev)
+        state, counts, ms, launches, _ = run_scheme_path(
+            osys, scheme, state0, pk, mc, 2, warmup=False)
+        still = (torch.equal(state.pos[n_free:], state0.pos[n_free:])
+                 and torch.equal(state.quat[n_free:], state0.quat[n_free:]))
+        moved = float((state.pos[:n_free] - state0.pos[:n_free]).abs().max())
+        log(f"item-17 obstacles {n_free} shells + {N_OBSTACLES} obstacles "
+            f"{scheme} f32: {ms:.1f} ms/step over 2 steps; (gmres, lanczos, "
+            f"rejections) per step {counts}; obstacles bit-identical "
+            f"{still}, free bodies' largest move {moved:.3e}; launches "
+            f"{launches}")
+        check(still, f"{scheme}: an obstacle moved")
+        check(moved > 0, f"{scheme}: the free bodies did not move")
+        check(launches["K1 tt"] > 0 and launches["K2"] > 0,
+              f"{scheme} with obstacles: K1 tt or K2 did not run")
+
+    det_system = bench_system(N_SHELLS, kT=0.0)
+    runs = {}
+    for k in (6, 0):
+        state = make_state(pos, quat, dtype=torch.float32, device=dev)
+        state, counts, ms, launches, carry = run_scheme_path(
+            det_system, "deterministic_adams_bashforth", state, pk, mc, 6,
+            recycle_k=k, warmup=False)
+        runs[k] = state, [c[0] for c in counts], ms, launches, carry
+        log(f"item-17 recycling deterministic_adams_bashforth kT = 0 "
+            f"recycle_k = {k}: {ms:.1f} ms/step over 6 steps; GMRES sweeps "
+            f"per step {runs[k][1]}; launches {launches}")
+    rec_state, rec_its, _, rec_launches, rec_carry = runs[6]
+    plain_state, plain_its, _, _, _ = runs[0]
+    # the refresh of the last recycle state at the final configuration:
+    # one 6-column lockstep sweep (three K1 tt B = 2 launches) and a QR and
+    # SVD on the card, timed by CUDA events; and the 6-column mobility
+    # product alone
+    r = kin.blob_positions(det_system, rec_state)
+    before = pk.LAUNCHES["tt", 2]
+    refresh_ms = cuda_ms(lambda: solvers.refresh_recycle(
+        det_system, rec_state, rec_carry.recycle, m_dense=None), 3)
+    refresh_launches = (pk.LAUNCHES["tt", 2] - before) // 4
+    lam6 = rec_carry.recycle.U[:, :3 * det_system.num_blobs].reshape(
+        6, -1, 3).contiguous()
+    multi_ms = cuda_ms(lambda: saddle._mobility_apply_multi(
+        det_system, r, None, lam6), 3)
+    single_ms = cuda_ms(lambda: saddle._mobility_apply(
+        det_system, r, None, lam6[0]), 3)
+    disp = float((plain_state.pos - torch.as_tensor(
+        pos, device=dev)).abs().max())
+    diff = float((rec_state.pos - plain_state.pos).abs().max())
+    tol = det_system.solver_tolerance
+    log(f"item-17 recycling: GMRES sweeps over steps 2-6 {sum(rec_its[1:])} "
+        f"recycled against {sum(plain_its[1:])} plain; the refresh "
+        f"{refresh_ms:.3f} ms with {refresh_launches} K1 tt B=2 launches "
+        f"(the 6-column mobility product {multi_ms:.3f} ms, one B = 1 "
+        f"product {single_ms:.3f} ms); final position difference "
+        f"{diff:.3e} = {diff / disp:.3e} of the displacement {disp:.3e} "
+        f"(solver tolerance {tol:g}; bound 10 x that, as the JAX package's "
+        f"own recycling test holds it)")
+    check(sum(rec_its[1:]) < sum(plain_its[1:]),
+          "recycling did not cut the GMRES sweeps over steps 2-6")
+    check(refresh_launches == 3 and rec_launches["K1 tt B=2"] > 0,
+          f"the refresh did not run as three K1 tt B = 2 launches "
+          f"({refresh_launches})")
+    check(diff <= 10 * tol * disp, "the recycled run left the plain one")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2780,12 +3090,14 @@ def main():
     phase_wall_parity(ck)
     phase_wall_roller_parity()
     phase_lub_parity(pk, mc)
+    phase_scheme_parity(pk, mc)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
     phase_wall_cli()
     phase_dense_cli()
     phase_lub_cli()
+    phase_obstacle_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -2798,6 +3110,7 @@ def main():
     k7, k5_wall = phase_wall_path(pk, mc, ck)               # phase 10
     rot = phase_wall_rollers_path(pk, mc, ck)               # phase 11
     lub_launches = phase_lub_path(pk, mc, ck)               # phase 12
+    phase_item17_path(pk, mc)                               # phase 13
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand

@@ -11,11 +11,13 @@ the same input files and output formats:
     mobility N K^T M^{-1}, .body_mobility.dat and .body_slip_mobility.dat
     (its .Laplace double-layer correction waits for ROADMAP Queue 1, item
     18: input files with .Laplace files are refused);
-  - the dynamic schemes of models/integrators.py: per-step .clones (or
-    one .config file with save_clones one_file), .info (iteration and
-    rejection counters) and .time; options save_blobs_mobility and
-    save_body_mobility dump the dense blob and body mobilities with every
-    saved frame; save_velocities writes every step's body velocities to
+  - the dynamic schemes of models/integrators.py (every multibody scheme
+    of the JAX package but the articulated ones): per-step .clones (or
+    one .config file with save_clones one_file) for each structure and
+    obstacle ID (`obstacle` entries stay at their prescribed, zero,
+    velocity), .info (iteration and rejection counters) and .time;
+    options save_blobs_mobility and save_body_mobility dump the dense
+    blob and body mobilities with every saved frame; save_velocities writes every step's body velocities to
     .velocities.dat; update_PC > 1 refactors the preconditioner every
     update_PC steps;
   - the roller schemes (`*_rollers`, models/rollers.py; the reference's

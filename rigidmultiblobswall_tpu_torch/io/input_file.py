@@ -15,10 +15,13 @@ run write .velocities.dat (cli.py). The lubrication schemes' options
 (omega, cut_torque, Lub_Cut or lub_cutoff, lub_cutoff_wall,
 max_neighbors, firm_delta, repulsion_strength_firm and
 lubrication_tables_dir) stay in `options`, read by the CLI's lubrication
-branch as the JAX CLI reads them. Not ported yet, and refused with
-NotImplementedError rather than ignored: obstacles, articulated bodies,
-.slip and .Laplace files, per-blob radii and body-body forces (ROADMAP
-Queue 1, items 4, 15, 17 and 18), and the options random_state,
+branch as the JAX CLI reads them. `obstacle` entries become body types
+with prescribed kinematics (zero velocity) after the free structures,
+and a scheme the reference does not run with obstacles is refused with
+the JAX package's ValueError. Not ported yet, and refused with
+NotImplementedError rather than ignored: articulated bodies, .slip and
+.Laplace files, per-blob radii and body-body forces (ROADMAP Queue 1,
+items 4, 15 and 18), and the options random_state,
 plot_velocity_field, plot_concentration_field, tracer_radius and
 call_HydroGrid True (item 11; the fields with item 18's
 models/fields.py), which `read_input` refuses.
@@ -44,6 +47,7 @@ class InputConfig:
     structures: List[List[str]]          # [vertex, clones, (extras)]
     structures_ID: List[str]
     obstacles: List[List[str]]
+    obstacles_ID: List[str]
     articulated: List[List[str]]
 
     # scalars with the reference defaults
@@ -99,7 +103,9 @@ def read_input(path) -> InputConfig:
     _refuse_unported_options(options)
     cfg = InputConfig(options=options, structures=structures,
                       structures_ID=[_id(s) for s in structures],
-                      obstacles=obstacles, articulated=articulated)
+                      obstacles=obstacles,
+                      obstacles_ID=[_id(s) for s in obstacles],
+                      articulated=articulated)
     g = options.get
     cfg.n_steps = int(g("n_steps") or 0)
     cfg.initial_step = int(g("initial_step") or 0)
@@ -142,7 +148,23 @@ def read_input(path) -> InputConfig:
         for k, struct in enumerate(cfg.structures):
             struct[1] = (f"{cfg.output_name}.{cfg.structures_ID[k]}."
                          f"{str(cfg.initial_step).zfill(8)}.clones")
+
+    # schemes the reference does not run with obstacles
+    if cfg.obstacles and cfg.scheme in _NO_OBSTACLE_SCHEMES:
+        raise ValueError(
+            f"Obstacles are not implemented for scheme: {cfg.scheme}")
     return cfg
+
+
+_NO_OBSTACLE_SCHEMES = (
+    "deterministic_forward_euler_dense_algebra",
+    "stochastic_first_order_RFD",
+    "stochastic_adams_bashforth",
+    "stochastic_first_order_RFD_dense_algebra",
+    "stochastic_traction_EM",
+    "Fixman",
+    "stochastic_traction_AB",
+    "stochastic_Slip_Mid_DLA")
 
 
 # options the JAX CLI acts on that the port does not support yet, and the
@@ -174,12 +196,10 @@ def _refuse_unported_options(options):
 def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                  device=None):
     """Build (System, State) from an InputConfig; each structure entry
-    becomes one BodyType group. The State lies on `device` (default the
+    becomes one BodyType group, and then each obstacle entry one with
+    prescribed kinematics. The State lies on `device` (default the
     card; device="cpu" runs on the CPU)."""
     device = resolve_device(device)
-    if cfg.obstacles:
-        raise NotImplementedError("obstacles (prescribed kinematics) are not "
-                                  "ported yet (ROADMAP Queue 1, item 17)")
     if cfg.articulated:
         raise NotImplementedError("articulated bodies are not ported yet "
                                   "(ROADMAP Queue 1, item 18)")
@@ -188,7 +208,11 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         return p if os.path.isabs(p) else os.path.join(base_dir, p)
 
     types, locations, quaternions = [], [], []
-    for files, name in zip(cfg.structures, cfg.structures_ID):
+    entries = ([(f, n, False) for f, n in zip(cfg.structures,
+                                              cfg.structures_ID)]
+               + [(f, n, True) for f, n in zip(cfg.obstacles,
+                                               cfg.obstacles_ID)])
+    for files, name, is_obstacle in entries:
         if files[2:]:
             raise NotImplementedError(
                 f"structure {name}: extra files {files[2:]} (.slip/.Laplace) "
@@ -199,7 +223,9 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                 f"structure {name}: per-blob radii are not ported yet "
                 "(ROADMAP Queue 1, item 4)")
         nbod, loc, quat = scene.read_clones_file(_resolve(files[1]))
-        types.append(BodyType(name=name, ref_config=ref[:, :3], count=nbod))
+        types.append(BodyType(name=name, ref_config=ref[:, :3], count=nbod,
+                              prescribed_kinematics=is_obstacle,
+                              is_obstacle=is_obstacle))
         locations.append(loc)
         quaternions.append(quat)
 

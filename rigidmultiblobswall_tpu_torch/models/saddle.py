@@ -23,8 +23,10 @@ The mobility engine of a configuration is `m_dense`:
   - an ops/ewald.SpectralPlan for domain 'periodic_spectral', an
     ops/ewald_wall.WallPlan for 'single_wall_spectral', built once per
     configuration and refreshed for nearby ones.
-Prescribed kinematics and articulated constraints are still to be ported
-(ROADMAP Queue 1, items 17-18).
+Bodies with prescribed kinematics (obstacles) get an identity row on
+their U and their K U moved back out of the blob rows, and the
+preconditioner's exact resistance solve for their type. Articulated
+constraints are still to be ported (ROADMAP Queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -186,12 +188,38 @@ def _mobility_apply_multi(system, r_blobs, m_dense, lam):
         periodic_length=system.periodic_length, self_interaction=True)
 
 
-def _finish(system, state, rel, vec, m_lam):
+def blob_prescribed_mask(system: System) -> np.ndarray:
+    """(N,) 1.0 where the parent body has prescribed kinematics (host)."""
+    mask = np.zeros(system.num_blobs)
+    for i, t in enumerate(system.types):
+        if t.prescribed_kinematics:
+            mask[system.blob_slice(i)] = 1.0
+    return mask
+
+
+def _prescribed_masks(system: System, like):
+    """The blob (N, 1) and body (B, 1) masks of the prescribed rows on
+    the device and in the dtype of `like`, or None without any."""
+    if not system.prescribed_body_mask.any():
+        return None
+    kw = dict(dtype=like.dtype, device=like.device)
+    return (torch.tensor(blob_prescribed_mask(system), **kw)[:, None],
+            torch.tensor(system.prescribed_body_mask, **kw)[:, None])
+
+
+def _finish(system, state, rel, vec, m_lam, prescribed=None):
     """[M lam - K U; -K^T lam] from the mobility product, for any leading
-    batch dimensions."""
+    batch dimensions; with `prescribed` (_prescribed_masks) the prescribed
+    bodies' rows become an identity on U and their K U leaves the blob
+    rows."""
     lam, U = split_saddle_vector(system, vec)
-    res_blobs = m_lam - kin.K_mul(system, state, U, rel=rel)
+    KU = kin.K_mul(system, state, U, rel=rel)
+    res_blobs = m_lam - KU
     res_bodies = -kin.KT_mul(system, state, lam, rel=rel)
+    if prescribed is not None:
+        blob_mask, body_mask = prescribed
+        res_blobs = res_blobs + blob_mask * KU
+        res_bodies = res_bodies + body_mask * U
     batch = vec.shape[:-1]
     return torch.cat([res_blobs.reshape(*batch, -1),
                       res_bodies.reshape(*batch, -1)], dim=-1)
@@ -203,11 +231,13 @@ def make_linear_operator(system: System, state: State, r_blobs=None,
     rel = kin.all_rel_positions(system, state)
     if r_blobs is None:
         r_blobs = kin.blob_positions(system, state, rel=rel)
+    prescribed = _prescribed_masks(system, state.pos)
 
     def operator(vec):
         lam = split_saddle_vector(system, vec)[0]
         return _finish(system, state, rel, vec,
-                       _mobility_apply(system, r_blobs, m_dense, lam))
+                       _mobility_apply(system, r_blobs, m_dense, lam),
+                       prescribed)
 
     return operator
 
@@ -219,11 +249,12 @@ def make_lockstep_operator(system: System, state: State, r_blobs=None,
     rel = kin.all_rel_positions(system, state)
     if r_blobs is None:
         r_blobs = kin.blob_positions(system, state, rel=rel)
+    prescribed = _prescribed_masks(system, state.pos)
 
     def operator(Y):
         lam = split_saddle_vector(system, Y)[0]
         m_lam = _mobility_apply_multi(system, r_blobs, m_dense, lam)
-        return _finish(system, state, rel, Y, m_lam)
+        return _finish(system, state, rel, Y, m_lam, prescribed)
 
     return operator
 
@@ -282,8 +313,16 @@ def build_block_diag_pc(system: System, state: State) -> BlockDiagPC:
 
 
 def apply_block_diag_pc(system: System, pc: BlockDiagPC, vec):
-    """Apply the saddle preconditioner to vec (..., n): per body, solve the
-    isolated mobility problem exactly."""
+    """Apply the saddle preconditioner to vec (..., n) = [slip, F]: per
+    body, solve the isolated mobility problem exactly. A prescribed body's
+    block is [[M, 0], [-K^T, I]] (saddle._finish), solved exactly:
+    lambda = M^{-1} slip, U = F + K^T lambda. The JAX package drops the F
+    (saddle.py:678-682), which leaves A P singular on the prescribed
+    bodies' rows: a cold-start solve never has anything there and takes
+    the same steps either way, but a warm start whose U holds the
+    prescribed velocity (the Slip-Trapz and Slip-Mid correctors) puts a
+    residual there that the JAX solve cannot reduce, and it stops at
+    maxiter unconverged."""
     lam, F = split_saddle_vector(system, vec)
     batch = vec.shape[:-1]
     lam_out, body_out = [], []
@@ -292,14 +331,37 @@ def apply_block_diag_pc(system: System, pc: BlockDiagPC, vec):
         c, nb = t.count, t.num_blobs
         slip = lam[..., system.blob_slice(i), :].reshape(*batch, c, 3 * nb)
         Fb = F[..., system.body_slice(i), :]
-        lam_tilde = torch.einsum("cij,...cj->...ci", p.m_inv, slip)
-        rhs = -Fb - torch.einsum("cni,...cn->...ci", p.K, lam_tilde)
-        Y = torch.einsum("cij,...cj->...ci", p.N_body, rhs)
-        KY = torch.einsum("cni,...ci->...cn", p.K, Y)
-        lam_t = torch.einsum("cij,...cj->...ci", p.m_inv, slip + KY)
+        if t.prescribed_kinematics:
+            lam_t = torch.einsum("cij,...cj->...ci", p.m_inv, slip)
+            Y = Fb + torch.einsum("cni,...cn->...ci", p.K, lam_t)
+        else:
+            lam_tilde = torch.einsum("cij,...cj->...ci", p.m_inv, slip)
+            rhs = -Fb - torch.einsum("cni,...cn->...ci", p.K, lam_tilde)
+            Y = torch.einsum("cij,...cj->...ci", p.N_body, rhs)
+            KY = torch.einsum("cni,...ci->...cn", p.K, Y)
+            lam_t = torch.einsum("cij,...cj->...ci", p.m_inv, slip + KY)
         lam_out.append(lam_t.reshape(*batch, c * nb * 3))
         body_out.append(Y.reshape(*batch, c * 6))
     return torch.cat(lam_out + body_out, dim=-1)
+
+
+def apply_identity_saddle_solver(system: System, state: State, vec):
+    """Exact per-body solve of the saddle system with M = I, [I -K; -K^T
+    0] [lam; U] = [slip; -F]: the unconstrained mobility solver of the
+    GDC-RFD scheme. vec = [slip, F] flat; returns [lam, U]."""
+    lam, F = split_saddle_vector(system, vec)
+    lam_out, body_out = [], []
+    for i, t in enumerate(system.types):
+        c, nb = t.count, t.num_blobs
+        slip = lam[system.blob_slice(i)].reshape(c, 3 * nb)
+        Fb = F[system.body_slice(i)]
+        K = kin.K_dense(system, state, i)
+        N = torch.linalg.pinv(torch.einsum("cni,cnj->cij", K, K))
+        rhs = -Fb - torch.einsum("cni,cn->ci", K, slip)
+        Y = torch.einsum("cij,cj->ci", N, rhs)
+        lam_out.append((slip + torch.einsum("cni,ci->cn", K, Y)).reshape(-1))
+        body_out.append(Y.reshape(-1))
+    return torch.cat(lam_out + body_out)
 
 
 def make_noise_pc(system: System, state: State, pc: BlockDiagPC,

@@ -7,18 +7,22 @@ Counterpart of rigidmultiblobswall_tpu/models/solvers.py:
 configuration's engine from saddle.maybe_dense_mobility: the materialized
 matrix within its budget), and the dense-algebra utilities of small
 systems: `dense_blob_mobility`, `solve_body_mobility`,
-`solve_mobility_problem_dense` and `solve_resistance`. The single-blob
-articulated solve and Krylov recycling are still to be ported (ROADMAP
-Queue 1, items 17-18).
+`solve_mobility_problem_dense` and `solve_resistance`, with bodies of
+prescribed kinematics (the right-hand side's rewrite, the prescribed
+velocity written over the solution) and Krylov recycling (`recycle=` and
+`collect_recycle=` on both solves, `refresh_recycle`). The single-blob
+articulated solve is still to be ported (ROADMAP Queue 1, item 18).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops import forces as force_ops
+from ..ops import gmres as gmres_mod
 from ..ops.gmres import gmres, gmres_lockstep
 from . import kinematics as kin
 from . import saddle
@@ -31,6 +35,8 @@ class MobilitySolution(NamedTuple):
     iterations: int
     residual_norm: object
     converged: object = True  # GMRES reached tolerance (every RHS)
+    recycle: object = None    # the harvested ops/gmres.RecycleState
+    #                           (collect_recycle)
 
 
 def force_torque_calculator(system: System, state: State, r_blobs):
@@ -63,7 +69,9 @@ def force_torque_calculator(system: System, state: State, r_blobs):
 
 def build_rhs(system: System, state: State, r_blobs, slip=None,
               force_torque=None, noise_slip=None, noise_ft=None):
-    """RHS = [slip - noise, -(F + noise_FT)], flat."""
+    """RHS = [slip - noise, -(F + noise_FT)], flat. A prescribed body's
+    rows take its K U in the slip and a zero force (the operator's
+    prescribed rows, saddle._finish)."""
     if slip is None:
         slip = kin.active_slip(system, state)
     slip = slip.reshape(system.num_blobs, 3)
@@ -72,9 +80,29 @@ def build_rhs(system: System, state: State, r_blobs, slip=None,
     force_torque = force_torque.reshape(system.num_bodies, 6)
     if noise_ft is not None:
         force_torque = force_torque + noise_ft.reshape(system.num_bodies, 6)
+    prescribed = saddle._prescribed_masks(system, state.pos)
+    if prescribed is not None:
+        blob_mask, body_mask = prescribed
+        KU = kin.K_mul(system, state, _prescribed_velocities(system, slip))
+        slip = slip + blob_mask * KU
+        force_torque = torch.where(body_mask > 0, 0.0, force_torque)
     if noise_slip is not None:
         slip = slip - noise_slip.reshape(system.num_blobs, 3)
     return torch.cat([slip.reshape(-1), -force_torque.reshape(-1)])
+
+
+def _prescribed_velocities(system: System, like):
+    return torch.tensor(system.prescribed_velocities, dtype=like.dtype,
+                        device=like.device)
+
+
+def _impose_prescribed(system: System, U):
+    """The solution's velocities U (..., B, 6) with the prescribed bodies'
+    rows set to their prescribed velocity."""
+    if not system.prescribed_body_mask.any():
+        return U
+    mask = torch.tensor(system.prescribed_body_mask, device=U.device)[:, None]
+    return torch.where(mask, _prescribed_velocities(system, U), U)
 
 
 def solve_mobility_problem(system: System, state: State, *, rhs=None,
@@ -83,13 +111,17 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
                            pc: Optional[saddle.BlockDiagPC] = None, x0=None,
                            tol: Optional[float] = None, restart: int = 60,
                            maxiter: int = 1000, m_dense="auto",
-                           verbose: bool = False) -> MobilitySolution:
+                           verbose: bool = False, recycle=None,
+                           collect_recycle: bool = False
+                           ) -> MobilitySolution:
     """Preconditioned GMRES solve of the saddle system on the unit-norm
     right-hand side. x0 is in physical units (e.g. a previous solution
     used as a warm start). m_dense: 'auto' asks
     saddle.maybe_dense_mobility for the configuration's engine; or pass
     the engine (a spectral plan, the materialized matrix, or None for the
-    matrix-free pairwise engine)."""
+    matrix-free pairwise engine). recycle: an ops/gmres.RecycleState for
+    GCRO deflation (ops/gmres.gmres_deflated); collect_recycle also
+    harvests the next state from this solve (returned in .recycle)."""
     r_blobs = kin.blob_positions(system, state)
     if isinstance(m_dense, str) and m_dense == "auto":
         m_dense = saddle.maybe_dense_mobility(system, r_blobs)
@@ -106,25 +138,40 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
     safe_norm = torch.where(rhs_norm > 0, rhs_norm, torch.ones_like(rhs_norm))
     if x0 is not None:
         x0 = x0 / safe_norm
-    result = gmres(operator, rhs / safe_norm, x0=x0, tol=tol,
-                   restart=restart, maxiter=maxiter, verbose=verbose,
-                   M=lambda v: saddle.apply_block_diag_pc(system, pc, v))
+    rec_new = None
+
+    def pc_apply(v):
+        return saddle.apply_block_diag_pc(system, pc, v)
+
+    if recycle is not None:
+        result, rec_new = gmres_mod.gmres_deflated(
+            operator, rhs / safe_norm, recycle, x0=x0, tol=tol,
+            restart=restart, maxiter=maxiter, M=pc_apply,
+            collect_basis=collect_recycle)
+    else:
+        result = gmres(operator, rhs / safe_norm, x0=x0, tol=tol,
+                       restart=restart, maxiter=maxiter, verbose=verbose,
+                       M=pc_apply)
     lam, U = saddle.split_saddle_vector(system, result.x * rhs_norm)
-    return MobilitySolution(lam=lam, velocities=U,
+    return MobilitySolution(lam=lam, velocities=_impose_prescribed(system, U),
                             iterations=result.iterations,
                             residual_norm=result.residual_norm,
-                            converged=result.converged)
+                            converged=result.converged, recycle=rec_new)
 
 
 def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
                                     pc: Optional[saddle.BlockDiagPC] = None,
                                     x0=None, tol: Optional[float] = None,
                                     restart: int = 60, maxiter: int = 1000,
-                                    m_dense="auto") -> MobilitySolution:
+                                    m_dense="auto", recycle=None,
+                                    collect_recycle: bool = False
+                                    ) -> MobilitySolution:
     """Solve the saddle system for a stack of right-hand sides (nrhs, n)
     at one configuration, sharing every pair sweep across the stack.
     Fields carry a leading nrhs axis; `iterations` counts batched
-    sweeps."""
+    sweeps. recycle warm-starts every column from the recycle directions;
+    with collect_recycle the next state is harvested from column 0's
+    last Krylov cycle."""
     r_blobs = kin.blob_positions(system, state)
     if isinstance(m_dense, str) and m_dense == "auto":
         m_dense = saddle.maybe_dense_mobility(system, r_blobs)
@@ -137,16 +184,44 @@ def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
     safe_norm = torch.where(rhs_norm > 0, rhs_norm, torch.ones_like(rhs_norm))
     if x0 is not None:
         x0 = x0 / safe_norm[:, None]
+    collect = recycle is not None and collect_recycle
     result = gmres_lockstep(
         operator, rhs / safe_norm[:, None], x0=x0, tol=tol, restart=restart,
         maxiter=maxiter,
-        M=lambda v: saddle.apply_block_diag_pc(system, pc, v))
+        M=lambda v: saddle.apply_block_diag_pc(system, pc, v),
+        recycle=recycle, collect_basis=collect)
+    rec_new = None
+    if collect:
+        result, (V0, Hraw0, j_used) = result
+        k = recycle.U.shape[0]
+        rec_new = gmres_mod.harvest_recycle(
+            recycle, V0, Hraw0, np.zeros((Hraw0.shape[1], k)), j_used, k)
     lam, U = saddle.split_saddle_vector(system,
                                         result.x * rhs_norm[:, None])
-    return MobilitySolution(lam=lam, velocities=U,
+    return MobilitySolution(lam=lam, velocities=_impose_prescribed(system, U),
                             iterations=result.iterations,
                             residual_norm=result.residual_norm,
-                            converged=bool(result.converged.all()))
+                            converged=bool(result.converged.all()),
+                            recycle=rec_new)
+
+
+def refresh_recycle(system: System, state: State, rec, *, pc=None,
+                    m_dense="auto"):
+    """Re-biorthonormalize a RecycleState at this configuration with one
+    lockstep sweep of its k columns (ops/gmres.refresh_recycle): k / 2
+    K1 tt launches on the matrix-free engine. An invalid state (no harvest
+    yet) comes back as it is."""
+    if not rec.valid:
+        return rec
+    r_blobs = kin.blob_positions(system, state)
+    if isinstance(m_dense, str) and m_dense == "auto":
+        m_dense = saddle.maybe_dense_mobility(system, r_blobs)
+    if pc is None:
+        pc = saddle.build_block_diag_pc(system, state)
+    operator = saddle.make_lockstep_operator(system, state, r_blobs,
+                                             m_dense=m_dense)
+    return gmres_mod.refresh_recycle(
+        lambda Y: operator(saddle.apply_block_diag_pc(system, pc, Y)), rec)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,10 @@ The port covers the wall-bounded and unbounded direct pairwise engine
 triply-periodic spectral Ewald engine (`domain` 'periodic_spectral') and
 the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
 slab top `spectral_wall_height`), one blob radius, with the default force
-set: direct or linked-cell blob-blob repulsion. Fields the JAX System carries for other engines and
-models are not present; `from_reference` refuses a JAX system that sets
-them.
+set: direct or linked-cell blob-blob repulsion, and bodies with
+prescribed kinematics (obstacles). Fields the JAX System carries for
+other engines and models are not present; `from_reference` refuses a
+JAX system that sets them.
 
 Entry points put their tensors on the card unless the caller passes
 device="cpu"; without CUDA they raise rather than fall back.
@@ -26,7 +27,7 @@ device="cpu"; without CUDA they raise rather than fall back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,15 +59,25 @@ def _freeze(arr):
 class BodyType:
     """A group of rigid bodies sharing one reference configuration:
     ref_config (nb, 3) blob coordinates at orientation (1,0,0,0) about
-    the body center."""
+    the body center. A type with prescribed kinematics (an obstacle of an
+    input file) moves with prescribed_velocity (count, 6), zero when
+    None, whatever the forces on it."""
 
     name: str
     ref_config: np.ndarray
     count: int
+    prescribed_kinematics: bool = False
+    prescribed_velocity: Optional[np.ndarray] = None
+    is_obstacle: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "ref_config",
                            _freeze(np.reshape(self.ref_config, (-1, 3))))
+        if self.prescribed_velocity is not None:
+            object.__setattr__(
+                self, "prescribed_velocity",
+                _freeze(np.reshape(self.prescribed_velocity,
+                                   (self.count, 6))))
 
     @property
     def num_blobs(self) -> int:
@@ -180,6 +191,26 @@ class System:
         offs = self.blob_offsets
         return slice(offs[i], offs[i + 1])
 
+    @property
+    def prescribed_body_mask(self) -> np.ndarray:
+        """(B,) bool: bodies with prescribed kinematics (obstacles)."""
+        mask = np.zeros(self.num_bodies, dtype=bool)
+        for i, t in enumerate(self.types):
+            if t.prescribed_kinematics:
+                mask[self.body_slice(i)] = True
+        mask.setflags(write=False)
+        return mask
+
+    @property
+    def prescribed_velocities(self) -> np.ndarray:
+        """(B, 6) prescribed velocities (zero for free bodies)."""
+        v = np.zeros((self.num_bodies, 6))
+        for i, t in enumerate(self.types):
+            if t.prescribed_velocity is not None:
+                v[self.body_slice(i)] = t.prescribed_velocity
+        v.setflags(write=False)
+        return v
+
 
 @dataclasses.dataclass(frozen=True)
 class State:
@@ -225,9 +256,6 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         if getattr(t, "slip_ref", None) is not None:
             raise NotImplementedError("active slip (ROADMAP Queue 1, "
                                       "item 18)")
-        if getattr(t, "prescribed_kinematics", False):
-            raise NotImplementedError("prescribed kinematics / obstacles "
-                                      "(ROADMAP Queue 1, item 17)")
     for name in ("blob_force_fn", "body_force_torque_fn", "slip_fn"):
         if getattr(ref_system, name, None) is not None:
             raise NotImplementedError(f"user hook {name} (ROADMAP Queue 1, "
@@ -239,9 +267,14 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         raise NotImplementedError("body-body Yukawa forces (ROADMAP Queue 1, "
                                   "item 18)")
     system = System(
-        types=tuple(BodyType(name=t.name, ref_config=np.asarray(t.ref_config),
-                             count=int(t.count))
-                    for t in ref_system.types),
+        types=tuple(BodyType(
+            name=t.name, ref_config=np.asarray(t.ref_config),
+            count=int(t.count),
+            prescribed_kinematics=bool(getattr(t, "prescribed_kinematics",
+                                               False)),
+            prescribed_velocity=getattr(t, "prescribed_velocity", None),
+            is_obstacle=bool(getattr(t, "is_obstacle", False)))
+            for t in ref_system.types),
         eta=float(ref_system.eta),
         blob_radius=float(ref_system.blob_radius),
         kT=float(ref_system.kT),

@@ -73,7 +73,10 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
                           self_interaction=True):
     """Stacked products u_b = M v_b, vec (B, Ns, 3) -> (B, Nt, 3), sharing
     one pair sweep across the B right-hand sides. r_tgt None: the square
-    product, targets = sources (K1 tt then takes its symmetric sweep)."""
+    product, targets = sources (K1 tt then takes its symmetric sweep). A
+    stack wider than the kernel's instances (pair_kernels.MAX_RHS, e.g.
+    the k columns of a Krylov recycle refresh) runs as consecutive groups
+    of MAX_RHS right-hand sides, in order, one K1 launch each."""
     _check_supported(coupling, domain, periodic_length)
     n_rhs, n_src = vec.shape[0], r_src.shape[0]
     n_tgt = n_src if r_tgt is None else r_tgt.shape[0]
@@ -85,10 +88,13 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     v = vec.reshape(n_rhs, n_src, 3).to(dtype)
     if wall:
         v = v * damp_s[None, :, None]
-    V = v.permute(1, 0, 2).reshape(n_src, 3 * n_rhs).contiguous()
-    out = pair_kernels.pair_matvec(q_src, q_tgt, V, coupling=coupling,
-                                   wall=wall,
-                                   self_interaction=self_interaction)
+    V = v.permute(1, 0, 2).reshape(n_src, 3 * n_rhs)
+    group = 3 * pair_kernels.MAX_RHS[coupling]
+    out = torch.cat([
+        pair_kernels.pair_matvec(
+            q_src, q_tgt, V[:, c0:c0 + group].contiguous(),
+            coupling=coupling, wall=wall, self_interaction=self_interaction)
+        for c0 in range(0, 3 * n_rhs, group)], dim=1)
     out = out * (1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling]))
     if wall:
         out = out * damp_t[:, None]

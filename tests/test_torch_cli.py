@@ -254,11 +254,45 @@ def test_entry_points_need_the_card_unless_told_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
+    """Articulated bodies (ROADMAP Queue 1, item 18) are refused, not
+    ignored (obstacles, refused before, now run:
+    test_cli_obstacles_match_jax)."""
     inp = _write_scene(tmp_path, "stochastic_Slip_Trapz",
-                       extra="obstacle shell.vertex shell.clones\n")
+                       extra="articulated shell.vertex shell.clones "
+                             "shell.const\n")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="obstacles"):
+    with pytest.raises(NotImplementedError, match="articulated"):
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("scheme", ["stochastic_GDC_RFD",
+                                    "deterministic_forward_euler"])
+def test_cli_obstacles_match_jax(tmp_path, monkeypatch, scheme):
+    """An input with an `obstacle` line (two shells held in place beside
+    four free ones) at kT = 0: both CLIs write the same files, one
+    .clones per structure ID, with the same free bodies' motion (1e-8)
+    and the obstacles where they started."""
+    obst = "".join("%.16g %.16g %.16g 1 0 0 0\n" % (x, 3.2, 0.9)
+                   for x in (0.0, 1.6))
+    out = _run_both(tmp_path, monkeypatch, scheme,
+                    extra="obstacle shell.vertex wall.clones\n",
+                    files={"wall.clones": "2\n" + obst})
+    names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
+    assert names["jax"] - names["torch"] == {"run.random_state"}
+    assert names["torch"] - names["jax"] == set()
+    for sid, n in (("shell", 4), ("wall", 2)):
+        final = "run.%s.%08d.clones" % (sid, N_STEPS)
+        got, ref = _clones(out["torch"] / final), _clones(out["jax"] / final)
+        start = _clones(out["torch"] / ("run.%s.00000000.clones" % sid))
+        assert got.shape == (n, 7)
+        np.testing.assert_allclose(got, ref, atol=1e-8, rtol=0)
+        moved = np.abs(got[:, :3] - start[:, :3]).max()
+        assert moved > 1e-4 if sid == "shell" else moved == 0.0
+    info = [dict(line.split() for line in
+                 open(out[k] / "run.info").read().splitlines())
+            for k in ("torch", "jax")]
+    assert (info[0]["deterministic_iterations_count"]
+            == info[1]["deterministic_iterations_count"])
 
 
 def test_cli_rollers_matches_jax(tmp_path, monkeypatch):

@@ -86,6 +86,30 @@ def test_k1_couplings_match_plain(cuda, coupling, n_rhs, wall, dtype,
                         True) <= bound
 
 
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+def test_pairwise_matvec_multi_six_columns(cuda, dtype, bound):
+    """A stack of 6 right-hand sides (a Krylov recycle refresh's k
+    columns) runs as three K1 tt B = 2 launches, in order, and equals the
+    plain version column by column."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    r, _ = _scene(1000)
+    v = np.random.default_rng(2).normal(size=(6, 1000, 3))
+    rt = torch.as_tensor(r, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    before = dict(pk.LAUNCHES)
+    got = mob.pairwise_matvec_multi(rt, None, vt, 1.0, 0.3)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["tt", 2] == before["tt", 2] + 3
+    assert pk.LAUNCHES["tt", 1] == before["tt", 1]
+    ref = mob.pairwise_matvec_multi(rt.double().cpu(), None,
+                                    vt.double().cpu(), 1.0, 0.3)
+    assert got.shape == (6, 1000, 3)
+    assert ((got.double().cpu() - ref).abs().max() / ref.abs().max()
+            <= bound)
+
+
 def test_k1_ragged_source_target(cuda):
     _, q = _scene(300, seed=2)
     qt = torch.as_tensor(q, device=cuda)

@@ -13,7 +13,8 @@ against the JAX package on the CPU.
   grid noise, to 1e-11 relative; update_plan takes the refresh and the
   rebuild branch where JAX does.
 - The path: Slip-Trapz with neighbor-list forces, 2 steps in float64 at
-  kT = 0 and at kT = 0.05 fed JAX's normals, and forward Euler, against
+  kT = 0 and at kT = 0.05 fed JAX's normals, traction EM at kT = 0.05
+  fed JAX's normals, and forward Euler, against
   integrators.make_stepper, final positions to 1e-9 of the displacement
   with equal GMRES and Lanczos counts and equal capacity overflows; a
   step whose carry has no plan builds it once at its start, and the
@@ -253,6 +254,33 @@ def test_spectral_slip_trapz_matches_jax_with_jax_noise(monkeypatch):
 
     monkeypatch.setattr(tint, "draw_normal", jax_draws)
     _steps(js, jst, ts, tst, "stochastic_Slip_Trapz", 2, dt=1e-3)
+
+
+def test_spectral_traction_em_matches_jax_with_jax_noise(monkeypatch):
+    """stochastic_traction_EM on the spectral engine, kT > 0, the JAX
+    step's normals fed in the port's order: W_slip (k_rfd), the grid
+    noise (kw of k_noise), the Lanczos z (kr of k_noise); the RFD product
+    on the plan refreshed at the displaced configuration."""
+    js, jst, ts, tst = _path_scene(kT=0.05)
+    p = tsad.spectral_params(ts)
+    n = js.num_blobs
+    draws = []
+    for i in range(2):
+        _, sub = jax.random.split(jax.random.PRNGKey(100 + i))
+        k_noise, k_rfd = jax.random.split(sub)
+        kw, kr = jax.random.split(k_noise)
+        draws += [jax.random.normal(k_rfd, (n, 3)),
+                  jax.random.normal(kw, (3,) + p.grid),
+                  jax.random.normal(kr, (3 * n,))]
+    feed = iter(np.asarray(d) for d in draws)
+
+    def jax_draws(generator, shape, like):
+        z = next(feed)
+        assert z.shape == tuple(shape)
+        return torch.as_tensor(z, dtype=like.dtype, device=like.device)
+
+    monkeypatch.setattr(tint, "draw_normal", jax_draws)
+    _steps(js, jst, ts, tst, "stochastic_traction_EM", 2, dt=1e-3)
 
 
 def test_from_reference_carries_spectral_fields_and_refuses_the_rest():

@@ -15,6 +15,7 @@ from rigidmultiblobswall_tpu_torch.models import integrators as tint
 
 from torch_parity import (jax_zdft64, shells_scene, to_np,
                           wall_spectral_scene)
+from torch_parity import feed_jax_noise as _feed_jax_noise
 
 TOL = 1e-9
 
@@ -65,42 +66,6 @@ def test_scheme_matches_jax_at_zero_temperature(scheme):
     assert taux.det_iterations == int(jaux.det_iterations)
     assert taux.stoch_iterations == int(jaux.stoch_iterations)
     assert taux.rejections == 0 and taux.solves_converged
-
-
-def _jax_normals(key, scheme, js):
-    """The normals a JAX attempt of `scheme` draws from its step key, in
-    the order the port's scheme asks draw_normal for them."""
-    _, sub = jax.random.split(key)           # make_stepper's attempt key
-    n3, b6 = 3 * js.num_blobs, (js.num_bodies, 6)
-    if scheme == "stochastic_Slip_Trapz":
-        k1, k2 = jax.random.split(sub)
-        return [(k2, (js.num_blobs, 3)), (k1, (n3,))]
-    if scheme == "stochastic_EM":
-        return [(sub, (n3,))]
-    if scheme == "stochastic_adams_bashforth":
-        k_noise, k_rfd = jax.random.split(sub)
-        return [(k_noise, (n3,)), (k_rfd, b6)]
-    if scheme == "stochastic_first_order_RFD_dense_algebra":
-        k_noise, k_rfd = jax.random.split(sub)
-        return [(k_noise, (6 * js.num_bodies,)), (k_rfd, b6)]
-    if scheme == "Fixman":
-        k1, k2 = jax.random.split(sub)
-        return [(k1, (6 * js.num_bodies,)), (k2, (6 * js.num_bodies,))]
-    assert scheme == "stochastic_Slip_Mid_DLA"
-    return [(k, (n3,)) for k in jax.random.split(sub, 3)]
-
-
-def _feed_jax_noise(monkeypatch, keys, scheme, js):
-    draws = [np.array(jax.random.normal(k, shape))
-             for key in keys for k, shape in _jax_normals(key, scheme, js)]
-    feed = iter(draws)
-
-    def jax_draws(generator, shape, like):
-        z = next(feed)
-        assert z.shape == tuple(shape)
-        return torch.as_tensor(z, dtype=like.dtype, device=like.device)
-
-    monkeypatch.setattr(tint, "draw_normal", jax_draws)
 
 
 def _assert_same_final(jfinal, tfinal, jst):
@@ -185,12 +150,19 @@ def test_wall_rejection_retries_are_bounded():
 
 
 def test_unported_schemes_and_options_raise():
+    """Only the articulated schemes (ROADMAP Queue 1, item 18) are still
+    refused; every other JAX scheme and Krylov recycling build a
+    stepper."""
     _, _, ts, _, _, _ = shells_scene(2)
-    for scheme in ("stochastic_Slip_Mid", "stochastic_traction_EM",
-                   "stochastic_GDC_RFD", "articulated_deterministic_midpoint"):
-        with pytest.raises(NotImplementedError):
+    for scheme in ("articulated_deterministic_forward_euler_rollers",
+                   "articulated_deterministic_midpoint_rollers",
+                   "articulated_deterministic_forward_euler",
+                   "articulated_deterministic_midpoint"):
+        with pytest.raises(NotImplementedError, match="item 18"):
             tint.make_stepper(ts, scheme, 1e-3)
+    for scheme in set(jint.available_schemes()) - set(tint._NOT_PORTED):
+        assert callable(tint.make_stepper(ts, scheme, 1e-3))
     with pytest.raises(ValueError):
         tint.make_stepper(ts, "no_such_scheme", 1e-3)
-    with pytest.raises(TypeError):                  # Krylov recycling
-        tint.make_stepper(ts, "stochastic_Slip_Trapz", 1e-3, recycle_k=4)
+    assert callable(tint.make_stepper(ts, "stochastic_Slip_Trapz", 1e-3,
+                                      recycle_k=4))

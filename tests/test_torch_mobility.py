@@ -3,8 +3,9 @@
 - float64: the rpy.py blocks of every coupling, and the port's mobility
   products (CPU tensors take K1's plain version) against
   mobility.pairwise_matvec(method="generic") at 1e-12 relative, couplings
-  tt/tr/rt/rr, wall and no_wall, one and two right-hand sides, and the
-  grand product against grand_mobility_matvec;
+  tt/tr/rt/rr, wall and no_wall, one and two right-hand sides (tt also
+  five and six, which run in groups of two), and the grand product
+  against grand_mobility_matvec;
 - float32: K1's plain version of every coupling against the Pallas
   kernel run in interpret mode, at the JAX package's own f32 bound
   (3e-6 x max|ref|, tests/test_pair_kernels.py).
@@ -27,7 +28,8 @@ from torch_parity import random_blobs, rel_err, to_np
 A, ETA = 0.3, 0.9
 
 
-@pytest.mark.parametrize("n_rhs", [1, 2])
+# 5 and 6: stacks wider than K1's instances run in groups of two
+@pytest.mark.parametrize("n_rhs", [1, 2, 5, 6])
 @pytest.mark.parametrize("domain", ["single_wall", "no_wall"])
 def test_pairwise_matvec_matches_jax_generic(domain, n_rhs):
     r, _ = random_blobs()

@@ -106,3 +106,62 @@ def to_np(x):
 def rel_err(got, ref):
     got, ref = to_np(got), to_np(ref)
     return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def jax_normals(key, scheme, js):
+    """The normals a JAX attempt of `scheme` on a pairwise domain draws
+    from its step key, in the order the port's scheme asks draw_normal
+    for them."""
+    import jax
+
+    _, sub = jax.random.split(key)           # make_stepper's attempt key
+    n3, b6 = 3 * js.num_blobs, (js.num_bodies, 6)
+    if scheme == "stochastic_Slip_Trapz":
+        k1, k2 = jax.random.split(sub)
+        return [(k2, (js.num_blobs, 3)), (k1, (n3,))]
+    if scheme == "stochastic_EM":
+        return [(sub, (n3,))]
+    if scheme in ("stochastic_adams_bashforth", "stochastic_first_order_RFD"):
+        k_noise, k_rfd = jax.random.split(sub)
+        return [(k_noise, (n3,)), (k_rfd, b6)]
+    if scheme == "stochastic_traction_EM":
+        k_noise, k_rfd = jax.random.split(sub)
+        return [(k_rfd, (js.num_blobs, 3)), (k_noise, (n3,))]
+    if scheme == "stochastic_traction_AB":
+        k_rfd, k_noise = jax.random.split(sub)
+        return [(k_rfd, b6), (k_noise, (n3,))]
+    if scheme == "stochastic_GDC_RFD":
+        # the midpoint noise takes z's key again: the same z, not a draw
+        k_w, k_rfd = jax.random.split(sub)
+        return [(k_w, (n3,)), (k_rfd, b6)]
+    if scheme == "stochastic_Slip_Mid":
+        k1, k2, k3 = jax.random.split(sub, 3)
+        return [(k2, (js.num_blobs, 3)), (k1, (n3,)), (k3, (n3,))]
+    if scheme == "stochastic_first_order_RFD_dense_algebra":
+        k_noise, k_rfd = jax.random.split(sub)
+        return [(k_noise, (6 * js.num_bodies,)), (k_rfd, b6)]
+    if scheme == "Fixman":
+        k1, k2 = jax.random.split(sub)
+        return [(k1, (6 * js.num_bodies,)), (k2, (6 * js.num_bodies,))]
+    assert scheme == "stochastic_Slip_Mid_DLA"
+    return [(k, (n3,)) for k in jax.random.split(sub, 3)]
+
+
+def feed_jax_noise(monkeypatch, keys, scheme, js):
+    """Make the port's integrators.draw_normal return, in order, the
+    normals the JAX steps of `keys` draw (jax_normals); a draw the JAX
+    step does not make, or one of another shape, fails."""
+    import jax
+
+    from rigidmultiblobswall_tpu_torch.models import integrators as tint
+
+    draws = [np.array(jax.random.normal(k, shape))
+             for key in keys for k, shape in jax_normals(key, scheme, js)]
+    feed = iter(draws)
+
+    def jax_draws(generator, shape, like):
+        z = next(feed)
+        assert z.shape == tuple(shape)
+        return torch.as_tensor(z, dtype=like.dtype, device=like.device)
+
+    monkeypatch.setattr(tint, "draw_normal", jax_draws)

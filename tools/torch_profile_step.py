@@ -1,4 +1,5 @@
-"""Where the device time of one Slip-Trapz step of the PyTorch port goes.
+"""Where the device time of one multibody step of the PyTorch port goes
+(Slip-Trapz, or the scheme --scheme names).
 
 Drives chip_smoke.py's main-path configuration (bench.py's `multibody`
 scene, 4096 twelve-blob shells = 49,152 blobs, float32) on a CUDA card:
@@ -10,6 +11,7 @@ and share of the profiled step; the device's busy time against the
 step's wall time gives its idle share.
 
 Usage: python3 tools/torch_profile_step.py [n_shells] [--steps N]
+       [--scheme NAME]
 """
 
 import argparse
@@ -41,6 +43,8 @@ def main():
     p.add_argument("n_shells", type=int, nargs="?", default=chip_smoke.N_SHELLS)
     p.add_argument("--steps", type=int, default=3,
                    help="unprofiled timed steps after the warm-up")
+    p.add_argument("--scheme", default="stochastic_Slip_Trapz",
+                   help="the integrators scheme to profile")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
@@ -51,7 +55,7 @@ def main():
     pos, quat = chip_smoke.lattice(args.n_shells)
     state = make_state(pos, quat, dtype=torch.float32, device=dev)
     step = integrators.make_stepper(
-        system, "stochastic_Slip_Trapz", 1e-3, lanczos_tolerance=5e-4,
+        system, args.scheme, 1e-3, lanczos_tolerance=5e-4,
         lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
         gmres_maxiter=300, max_rejections=3)
     carry = integrators.init_carry(system, state=state)
@@ -83,7 +87,8 @@ def main():
             per_kernel[evt.key][0] += dev_us / 1e3
             per_kernel[evt.key][1] += evt.count
     busy_ms = sum(ms for ms, _ in per_kernel.values())
-    print(f"profiled step ({system.num_blobs} blobs): wall {wall_ms:.1f} ms, "
+    print(f"profiled {args.scheme} step ({system.num_blobs} blobs): wall "
+          f"{wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}"
           f" (an upper bound: the profiler slows the host); gmres "
           f"{aux.det_iterations}, "
