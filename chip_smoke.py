@@ -118,11 +118,36 @@ is non-zero and no result line is printed):
      (each step's GMRES sweeps; steps 2-6 must take fewer recycled; the
      refresh timed, three K1 tt B = 2 launches; the final positions
      within 10 x the solver tolerance of the displacement).
+ 14. articulated bodies, active slip and body-body forces at full width,
+     float32, one warm-up and three timed steps each at phase 6's solver
+     settings: multibody-49k-articulated (1024 chains of four twelve-blob
+     shells, 4096 shells, 49,152 blobs, 3072 ball joints, direct blob
+     forces, matrix-free: K1 tt and K2, not K3/K4) under
+     articulated_deterministic_forward_euler and _midpoint, the midpoint
+     again with the chains' first joint breathing in t (.const
+     expressions); rollers-32k-articulated (16,384 single-blob dumbbells,
+     32,768 rollers, the articulated_dumbbells example's physics: K1
+     grand) under both roller schemes; multibody-49k-active (4096 squirmer
+     shells, the slip B1 sin(theta) read from a generated .slip file, the
+     Yukawa body-body force) under deterministic_adams_bashforth at kT =
+     0. Each logs ms/step, GMRES sweeps per step and per solve,
+     Gauss-Newton iterations per projection, the largest constraint
+     violation after the last projection (within the bound that float32
+     rounding of the state leaves), the launches, finite positions and 0
+     rejections. Phase 3 holds K1 tt and K2 at the chains' 49,152 blobs
+     and K1 grand at the dumbbells' 32,768 rollers to their plain
+     versions for phase 14's three kernel records.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
 same normals fed, and phase 5 a generated input with an `obstacle` entry
-through the CLI, card float64 against CPU float64.
+through the CLI, card float64 against CPU float64. Phase 4 runs 8
+four-shell chains (K3/K4, K2) under both multibody articulated schemes
+(the midpoint also with the breathing joint) and 16 dumbbells (K1 grand)
+under both roller schemes, 3 steps, card f64 and f32 against CPU f64;
+phase 5 runs the articulated_dumbbells example (10 steps) and a generated
+8-squirmer input with a .slip file and the Yukawa force through the CLI,
+card float64 against CPU float64.
 Phase 3 also checks K5 and K6 on a random periodic box of ~3000 blobs,
 K7, K8 and the wall-slab K5 on a random ~3000-blob wall slab (K5, K6, K7
 and K8 twice bit-identical), periodic K2 on 1001 blobs in small boxes
@@ -3044,6 +3069,459 @@ def phase_item17_path(pk, mc):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Articulated bodies, active slip and body-body forces (ROADMAP Queue 1,
+# item 18): phase 4's parity, phase 5's CLIs, phase 14 with its kernel
+# records
+# ---------------------------------------------------------------------------
+
+# multibody-49k-articulated: 1024 chains of four shells (4096 shells,
+# 49,152 blobs, 3072 ball joints), the shells on bench.py's lattice
+# spacing, each chain along x
+N_CHAINS = 1024
+CHAIN_BODIES = 4
+CHAIN_LINKS = np.array([[0.8, 0, 0, -0.8, 0, 0]] * (CHAIN_BODIES - 1))
+# the time-dependent run: the chains' first joint breathes in t (its six
+# link components and their derivatives, as a .const line writes them)
+BREATHING_LINK = ["0.8 + 0.05*sin(20*t)", "0", "0", "-0.8", "0", "0",
+                  "cos(20*t)", "0", "0", "0", "0", "0"]
+# rollers-32k-articulated: 16,384 single-blob dumbbells (32,768 rollers)
+# with the articulated_dumbbells example's physics
+N_DUMBBELLS = 16384
+DUMBBELL_LINK = 2.5
+# the squirmer's tangential slip amplitude B1 (slip B1 sin(theta) e_theta)
+SQUIRMER_B1 = 1.0
+# what float32 rounding of a projected state leaves in a constraint
+# g = x_p + R_p l_p - x_q - R_q l_q, evaluated in float64 from the float32
+# state: half an ulp of each position (2^-24 |x| relative, two of them)
+# and of each quaternion component, R quadratic in q (at most 4 half-ulps
+# of |l| a side), over the projection's own tolerance (1e-8, met before
+# theta is renormalized: 1e-7 with the link lengths here)
+U32_HALF = 2.0 ** -24
+
+
+def violation_bound(state, links):
+    x = float(state.pos.abs().max())
+    return U32_HALF * (2 * x + 8 * float(np.abs(links).max())) + 1e-7
+
+
+def chain_system(n_chains, moving=False, **overrides):
+    """bench_system's physics on n_chains chains of four twelve-blob
+    shells joined by ball joints (sub-body j of every chain one type); with
+    moving, the first joint's length oscillates in t."""
+    from rigidmultiblobswall_tpu_torch.io.input_file import compile_links_fn
+    from rigidmultiblobswall_tpu_torch.models.articulated import (
+        ArticulatedType)
+    from rigidmultiblobswall_tpu_torch.models.system import BodyType
+
+    base = bench_system(1, **overrides)
+    types = tuple(BodyType(name=f"chain_sub{j}", ref_config=shell_vertices(),
+                           count=n_chains) for j in range(CHAIN_BODIES))
+    extra = [BREATHING_LINK] + [[]] * (CHAIN_BODIES - 2)
+    art = ArticulatedType(
+        name="chain", count=n_chains, sub_type_indices=tuple(range(4)),
+        pairs_local=np.array([[j, j + 1] for j in range(CHAIN_BODIES - 1)]),
+        links=CHAIN_LINKS,
+        links_fn=compile_links_fn(extra, CHAIN_LINKS) if moving else None)
+    return dataclasses.replace(base, types=types, articulated=(art,))
+
+
+def chain_lattice(n_chains):
+    """The chains' positions, type-major (sub-body j of every chain, then
+    j + 1), on bench.py's lattice spacing 1.6 from height 2: four chains a
+    row along x, rows along y, layers along z; identity orientations, so
+    the body-frame links are the lab-frame ones."""
+    idx = np.arange(n_chains)
+    side = int(np.ceil(np.sqrt(n_chains / 4)))
+    origin = np.stack([(idx % 4) * CHAIN_BODIES * 1.6,
+                       ((idx // 4) % side) * 1.6,
+                       2.0 + (idx // (4 * side)) * 1.6], axis=1)
+    pos = np.concatenate([origin + [1.6 * j, 0, 0]
+                          for j in range(CHAIN_BODIES)])
+    quat = np.tile([1.0, 0, 0, 0], (len(pos), 1))
+    return pos, quat
+
+
+def dumbbell_system(n, **overrides):
+    """The articulated_dumbbells example's physics (a = 0.5, link 2.5,
+    g = 1, wall repulsion 1.0 / 0.2, no blob-blob forces) on n
+    single-blob dumbbells, phase 6's solver tolerance."""
+    from rigidmultiblobswall_tpu_torch.models.articulated import (
+        ArticulatedType)
+    from rigidmultiblobswall_tpu_torch.models.system import BodyType, System
+
+    kw = dict(eta=1.0, blob_radius=A_ROLLER, kT=0.0, g=1.0,
+              domain="single_wall", repulsion_strength_wall=1.0,
+              debye_length_wall=0.2, blob_blob_force_method="none",
+              solver_tolerance=2e-4)
+    kw.update(overrides)
+    links = np.array([[DUMBBELL_LINK / 2, 0, 0, -DUMBBELL_LINK / 2, 0, 0]])
+    types = tuple(BodyType(name=f"dumbbell_sub{j}",
+                           ref_config=np.zeros((1, 3)), count=n)
+                  for j in range(2))
+    art = ArticulatedType(name="dumbbell", count=n, sub_type_indices=(0, 1),
+                          pairs_local=np.array([[0, 1]]), links=links)
+    return System(types=types, articulated=(art,), **kw)
+
+
+def dumbbell_lattice(n, seed=0):
+    """n dumbbells along x on a square lattice (4.0 along x, 1.6 along y)
+    at height 1.5 with +-0.1 in-plane jitter, type-major."""
+    side = int(np.ceil(np.sqrt(n)))
+    idx = np.arange(n)
+    rng = np.random.default_rng(seed)
+    p0 = np.stack([(idx % side) * 4.0, (idx // side) * 1.6,
+                   np.full(n, 1.5)], axis=1)
+    p0[:, :2] += rng.uniform(-0.1, 0.1, size=(n, 2))
+    pos = np.concatenate([p0, p0 + [DUMBBELL_LINK, 0, 0]])
+    return pos, np.tile([1.0, 0, 0, 0], (2 * n, 1))
+
+
+def squirmer_slip(ref, b1=SQUIRMER_B1):
+    """The tangential squirmer slip B1 sin(theta) e_theta of a shell about
+    its z axis, in the body frame."""
+    r = ref / np.linalg.norm(ref, axis=1, keepdims=True)
+    theta = np.arccos(np.clip(r[:, 2], -1, 1))
+    phi = np.arctan2(r[:, 1], r[:, 0])
+    e_theta = np.stack([np.cos(theta) * np.cos(phi),
+                        np.cos(theta) * np.sin(phi), -np.sin(theta)], axis=1)
+    return b1 * np.sin(theta)[:, None] * e_theta
+
+
+def write_slip_file(path, slip):
+    with open(path, "w") as f:
+        f.write(f"{len(slip)}\n")
+        for s in slip:
+            f.write("%.16g %.16g %.16g\n" % tuple(s))
+
+
+def active_system(n, **overrides):
+    """bench_system at kT = 0 with the body-body Yukawa force and every
+    shell a squirmer, its slip read back from a generated .slip file."""
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "shell.slip")
+        write_slip_file(path, squirmer_slip(shell_vertices()))
+        slip = scene.read_slip_file(path)
+    system = bench_system(n, kT=0.0, body_body_force_method="yukawa",
+                          **overrides)
+    return dataclasses.replace(system, types=(dataclasses.replace(
+        system.types[0], slip_ref=slip),))
+
+
+def run_articulated_steps(system, scheme, pos, quat, dtype, device, n_steps,
+                          tol, dt=1e-3):
+    """n_steps of a deterministic scheme from (pos, quat); returns the
+    final positions as float64 numpy and the last StepAux."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    state = make_state(pos, quat, dtype=dtype, device=device)
+    step = integrators.make_stepper(system, scheme, dt, tolerance=tol)
+    carry = integrators.init_carry(system, state=state)
+    for _ in range(n_steps):
+        state, carry, aux = step(state, None, carry)
+    return state.pos.double().cpu().numpy(), aux
+
+
+def articulated_parity_case(system, scheme, pos, quat, what, dt=1e-3):
+    """3 steps card f64 and card f32 against CPU f64; errors over the
+    largest displacement."""
+    ref, _ = run_articulated_steps(system, scheme, pos, quat, torch.float64,
+                                   "cpu", 3, 1e-12, dt)
+    got64, aux = run_articulated_steps(system, scheme, pos, quat,
+                                       torch.float64, DEVICE, 3, 1e-12, dt)
+    got32, _ = run_articulated_steps(system, scheme, pos, quat,
+                                     torch.float32, DEVICE, 3, 1e-5, dt)
+    disp = np.abs(ref - pos).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref).max() / disp
+    log(f"{what} parity, {scheme} x 3 steps (max displacement {disp:.3e}), "
+        f"max error / max displacement: GPU f64 vs CPU f64 {e64:.3e} (bound "
+        f"1e-9), GPU f32 vs CPU f64 {e32:.3e} (bound 1e-2); gmres "
+        f"{aux.det_iterations}, rejections {aux.rejections}")
+    check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2,
+          f"{what} parity ({scheme})")
+
+
+def phase_articulated_parity(pk, mc):
+    """Phase 4, item 18: 8 four-shell chains (384 blobs: the materialized
+    engine, K3 and K4, and K2) under both multibody articulated schemes,
+    the midpoint also with the breathing joint, and 16 single-blob
+    dumbbells (K1 grand) under both roller schemes, 3 steps each."""
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    pos, quat = chain_lattice(8)
+    for scheme, moving in (("articulated_deterministic_forward_euler", False),
+                           ("articulated_deterministic_midpoint", False),
+                           ("articulated_deterministic_midpoint", True)):
+        articulated_parity_case(chain_system(8, moving=moving, kT=0.0),
+                                scheme, pos, quat, "8 chains"
+                                + (" (breathing joint)" if moving else ""))
+    pos, quat = dumbbell_lattice(16, seed=5)
+    for scheme in ("articulated_deterministic_forward_euler_rollers",
+                   "articulated_deterministic_midpoint_rollers"):
+        articulated_parity_case(dumbbell_system(16), scheme, pos, quat,
+                                "16 dumbbells", dt=1e-2)
+    launches = dict(mc.DENSE_LAUNCHES, K1_grand=pk.launches("grand"),
+                    K2=mc.LAUNCHES)
+    log(f"articulated parity launches {launches}")
+    check(min(launches.values()) > 0,
+          f"the articulated parity did not run on K1 grand, K2, K3 and K4: "
+          f"{launches}")
+
+
+def run_cli_pair(make_inputs, argv_extra=()):
+    """The port's CLI in float64 on the CPU and on the card, each in its
+    own copy of the inputs that make_inputs(d) writes (returning the
+    input file's name), run from that directory. Returns {name: (dir's
+    files as {file: text}, seconds)}."""
+    from rigidmultiblobswall_tpu_torch import cli
+
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, device in (("host", "cpu"), ("card", DEVICE)):
+            dd = os.path.join(d, name)
+            os.makedirs(dd)
+            inp = make_inputs(dd)
+            os.chdir(dd)
+            try:
+                t0 = time.perf_counter()
+                cli.main(["--input-file", inp, "--device", device, "--f64",
+                          *argv_extra])
+                secs = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            out[name] = ({f: open(os.path.join(dd, f)).read()
+                          for f in os.listdir(dd)}, secs)
+    return out
+
+
+def clones_error(out, files, start):
+    """The largest card-vs-CPU difference over the .clones files, and the
+    CPU run's largest displacement from `start`."""
+    err = disp = 0.0
+    for f in files:
+        ref = np.loadtxt(out["host"][0][f].splitlines(), skiprows=1)
+        got = np.loadtxt(out["card"][0][f].splitlines(), skiprows=1)
+        err = max(err, np.abs(got - ref).max())
+        disp = max(disp, np.abs(ref[:, :3] - start[:, :3]).max())
+    return err, disp
+
+
+def phase_articulated_cli():
+    """Phase 5, item 18: the articulated_dumbbells example (its own
+    rollers scheme, n_steps cut to 10, saved every 5) through the CLI
+    from a copy of its directory (its .list_vertex resolves against the
+    working directory), card float64 against CPU float64: the same
+    .clones of the articulated ID and .info counters."""
+    src = os.path.join(ROOT, "examples", "articulated_dumbbells")
+
+    def inputs(dd):
+        for f in os.listdir(src):
+            shutil.copyfile(os.path.join(src, f), os.path.join(dd, f))
+        with open(os.path.join(dd, "inputfile.dat")) as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.split()[:1] not in (["n_steps"], ["n_save"])]
+        with open(os.path.join(dd, "inputfile.dat"), "w") as f:
+            f.write("\n".join(lines + ["n_steps 10", "n_save 5"]) + "\n")
+        return "inputfile.dat"
+
+    out = run_cli_pair(inputs)
+    start = np.loadtxt(os.path.join(src, "dumbbells.clones"), skiprows=1)
+    files = [f"run_dumbbells.dumbbells.{k:08d}.clones" for k in (0, 5, 10)]
+    err, disp = clones_error(out, files, start)
+    info = out["card"][0]["run_dumbbells.info"]
+    log(f"articulated_dumbbells CLI (10 steps): {out['card'][1]:.2f} s on "
+        f"the card, max error / max displacement GPU f64 vs CPU f64 "
+        f"{err / disp:.3e} (bound 1e-9; displacement {disp:.3e}); .info "
+        f"equal {info == out['host'][0]['run_dumbbells.info']}")
+    check(disp > 0 and err <= 1e-9 * disp, "articulated CLI card vs CPU")
+    check(info == out["host"][0]["run_dumbbells.info"],
+          "articulated CLI .info differs between the card and the CPU")
+
+
+def phase_slip_cli():
+    """Phase 5, active slip: a generated input of 8 squirmer shells (a
+    generated .slip file) with the body-body Yukawa force,
+    deterministic_adams_bashforth at kT = 0, 3 steps, card float64 against
+    CPU float64."""
+    pos, quat = lattice(8, seed=6)
+    pos, quat = pos.astype(np.float64), quat.astype(np.float64)
+
+    def inputs(dd):
+        write_slip_file(os.path.join(dd, "shell.slip"),
+                        squirmer_slip(shell_vertices()))
+        inp = write_shell_input(dd, pos, quat, (
+            "scheme deterministic_adams_bashforth\ndt 0.01\nn_steps 3\n"
+            "n_save 3\nsolver_tolerance 1e-12\n"
+            "body_body_force_torque_implementation python\n"))
+        with open(inp) as f:
+            text = f.read().replace("kT 0.05", "kT 0.0").replace(
+                "structure shell.vertex shell.clones",
+                "structure shell.vertex shell.clones shell.slip")
+        with open(inp, "w") as f:
+            f.write(text)
+        return inp
+
+    out = run_cli_pair(inputs)
+    err, disp = clones_error(out, ["run.shell.00000003.clones"],
+                             np.concatenate([pos, quat], axis=1))
+    log(f"squirmer CLI 8 shells x 3 AB steps (.slip, Yukawa): "
+        f"{out['card'][1]:.2f} s on the card, max error / max displacement "
+        f"GPU f64 vs CPU f64 {err / disp:.3e} (bound 1e-9; displacement "
+        f"{disp:.3e})")
+    check(disp > 1e-3 and err <= 1e-9 * disp, "squirmer CLI card vs CPU")
+
+
+def phase_articulated_kernels(pk, mc, mob, kin, make_state):
+    """Phase 3 at phase 14's shapes: K1 tt and K2 at the 1024 chains'
+    49,152 blobs and K1 grand at the 16,384 dumbbells' 32,768 rollers, as
+    the paths call them, against their plain versions (k1_full_record,
+    k2_full_record). Returns the records."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(14)
+    pos, quat = chain_lattice(N_CHAINS)
+    system = chain_system(N_CHAINS)
+    r = kin.blob_positions(system, make_state(pos, quat, dtype=torch.float32,
+                                              device=dev)).contiguous()
+    n = r.shape[0]
+    bound = u32_sqrt(n)
+    q = (mob.shift_heights(r, A_BENCH) / A_BENCH).contiguous()
+    v = torch.randn((n, 3), generator=g, device=dev)
+    records = {"tt": k1_full_record(pk, "tt", q, v, 1024, bound,
+                                    f"{n} blobs in chains")}
+    kw = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=A_BENCH)
+    records["K2"] = k2_full_record(pk, mc, r, kw, bound,
+                                   f"{n} blobs in chains")
+    pos, _ = dumbbell_lattice(N_DUMBBELLS)
+    r = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    q = (mob.shift_heights(r, A_ROLLER) / A_ROLLER).contiguous()
+    v = torch.randn((q.shape[0], 6), generator=g, device=dev)
+    records["grand"] = k1_full_record(pk, "grand", q, v, 1024,
+                                      u32_sqrt(q.shape[0]),
+                                      f"{q.shape[0]} rollers in dumbbells")
+    return records
+
+
+def run_articulated_path(system, scheme, pos, quat, pk, mc, n_timed=3):
+    """One warm-up and n_timed timed steps of `scheme` at phase 6's solver
+    settings in float32 from (pos, quat). Returns (final state, per timed
+    step (GMRES sweeps, rejections), ms/step, Gauss-Newton iterations of
+    every projection over the run, launches over the run)."""
+    from rigidmultiblobswall_tpu_torch.models import articulated as art
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    state = make_state(pos, quat, dtype=torch.float32,
+                       device=torch.device(DEVICE))
+    step = integrators.make_stepper(system, scheme, 1e-3, gmres_restart=60,
+                                    gmres_maxiter=300, max_rejections=3)
+    carry = integrators.init_carry(system, state=state)
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    art.GN_ITERATIONS.clear()
+    state, carry, _ = step(state, None, carry)
+    torch.cuda.synchronize()
+    counts = []
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, carry, aux = step(state, None, carry)
+        counts.append((aux.det_iterations, aux.rejections))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    launches = {"K1 tt": pk.LAUNCHES["tt", 1], "K1 grand": pk.launches(
+        "grand"), "K1 other": sum(n for (c, b), n in pk.LAUNCHES.items()
+                                  if c not in ("tt", "grand") or b != 1),
+                "K2": mc.LAUNCHES, **mc.DENSE_LAUNCHES}
+    check(bool(torch.isfinite(state.pos).all()
+               and torch.isfinite(state.quat).all()),
+          f"{scheme}: positions not finite")
+    check(all(c[1] == 0 for c in counts), f"{scheme}: rejections {counts}")
+    return state, counts, ms, list(art.GN_ITERATIONS), launches, carry
+
+
+def phase_articulated_path(pk, mc):
+    """Phase 14, item 18 at full width, float32, one warm-up and three
+    timed steps each: multibody-49k-articulated (1024 four-shell chains,
+    49,152 blobs, 3072 ball joints; FE and midpoint, the midpoint again
+    with the breathing joint), rollers-32k-articulated (16,384 dumbbells,
+    32,768 rollers; FE and midpoint rollers) and multibody-49k-active
+    (4096 squirmer shells with the Yukawa body-body force,
+    deterministic_adams_bashforth at kT = 0). Returns the launches of K1
+    tt, K1 grand and K2 over the phase."""
+    from rigidmultiblobswall_tpu_torch.models import articulated as art
+    from rigidmultiblobswall_tpu_torch.models.system import State
+
+    t_phase = time.perf_counter()
+    total = {"K1 tt": 0, "K1 grand": 0, "K2": 0}
+    chains = ("multibody-49k-articulated", chain_system, chain_lattice,
+              N_CHAINS, ("K1 tt", "K2"))
+    rollers = ("rollers-32k-articulated", dumbbell_system, dumbbell_lattice,
+               N_DUMBBELLS, ("K1 grand",))
+    # (cell, scheme, the breathing joint, solves a step)
+    runs = [(chains, "articulated_deterministic_forward_euler", False, 1),
+            (chains, "articulated_deterministic_midpoint", False, 2),
+            (chains, "articulated_deterministic_midpoint", True, 2),
+            (rollers, "articulated_deterministic_forward_euler_rollers",
+             False, 1),
+            (rollers, "articulated_deterministic_midpoint_rollers", False,
+             2)]
+    for (cell, make_system, make_pos, n, want), scheme, moving, solves in runs:
+        system = make_system(n, moving=True) if moving else make_system(n)
+        pos, quat = make_pos(n)
+        state, counts, ms, gn, launches, carry = run_articulated_path(
+            system, scheme, pos, quat, pk, mc)
+        t_end = carry.step_idx * 1e-3
+        st64 = State(pos=state.pos.double(), quat=state.quat.double())
+        viol = float(art.constraint_violation(system, st64, t_end)
+                     .abs().max())
+        links = art.links_at_time(system.articulated[0], t_end, st64.pos)[0]
+        bound = violation_bound(state, links.cpu().numpy())
+        log(f"{cell} {scheme}{' (breathing joint)' if moving else ''} f32: "
+            f"{ms:.1f} ms/step over 3 steps; GMRES sweeps per step "
+            f"{[c[0] for c in counts]} ({solves} solve(s) a step: "
+            f"{[c[0] / solves for c in counts]} a solve); Gauss-Newton "
+            f"iterations per projection over the 4 steps {gn}; largest "
+            f"constraint violation {viol:.3e} (bound from float32 rounding "
+            f"{bound:.3e}); rejections {[c[1] for c in counts]}; launches "
+            f"{launches}")
+        check(viol <= bound, f"{cell} {scheme}: constraint violation "
+              f"{viol:.3e} above {bound:.3e}")
+        check(all(launches[k] > 0 for k in want),
+              f"{cell} {scheme}: a kernel of its path did not run: "
+              f"{launches}")
+        check(launches["dense_tt"] == 0 and launches["symm_matvec"] == 0,
+              f"{cell} {scheme}: K3/K4 launched above the budget")
+        check(max(gn) < 20, f"{cell} {scheme}: a projection did not "
+              f"converge ({gn})")
+        for k in total:
+            total[k] += launches[k]
+    # multibody-49k-active: AB at kT = 0 from bench.py's lattice
+    system = active_system(N_SHELLS)
+    pos, quat = lattice(N_SHELLS)
+    state, counts, ms, _, launches, _ = run_articulated_path(
+        system, "deterministic_adams_bashforth", pos, quat, pk, mc)
+    moved = float((state.pos - torch.as_tensor(pos, device=state.pos.device))
+                  .abs().max())
+    log(f"multibody-49k-active deterministic_adams_bashforth (squirmer slip "
+        f"B1 = {SQUIRMER_B1}, Yukawa body-body forces) f32: {ms:.1f} "
+        f"ms/step over 3 steps; GMRES sweeps per step "
+        f"{[c[0] for c in counts]}; largest move over the 4 steps "
+        f"{moved:.3e}; launches {launches}")
+    check(launches["K1 tt"] > 0 and launches["K2"] > 0,
+          f"multibody-49k-active: K1 tt or K2 did not run: {launches}")
+    check(moved > 0, "multibody-49k-active: the squirmers did not move")
+    for k in ("K1 tt", "K2"):
+        total[k] += launches[k]
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3084,6 +3562,7 @@ def main():
     phase_rot_kernels(ck, mc)
     phase_dense_kernels_small(mc)
     records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
+    art_records = phase_articulated_kernels(pk, mc, mob, kin, make_state)
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
@@ -3091,6 +3570,7 @@ def main():
     phase_wall_roller_parity()
     phase_lub_parity(pk, mc)
     phase_scheme_parity(pk, mc)
+    phase_articulated_parity(pk, mc)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
@@ -3098,6 +3578,8 @@ def main():
     phase_dense_cli()
     phase_lub_cli()
     phase_obstacle_cli()
+    phase_articulated_cli()
+    phase_slip_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -3111,6 +3593,7 @@ def main():
     rot = phase_wall_rollers_path(pk, mc, ck)               # phase 11
     lub_launches = phase_lub_path(pk, mc, ck)               # phase 12
     phase_item17_path(pk, mc)                               # phase 13
+    art_launches = phase_articulated_path(pk, mc)           # phase 14
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -3186,6 +3669,22 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
         replaces="rigidmultiblobswall_tpu/ops/mobility_pallas.py:180",
         launches=lub_launches["K2"], **records["K2_lub"]))
+    # phase 14's kernels, measured at its chains' and dumbbells' shapes,
+    # with their launches over the phase (K1 tt and K2: the chains and the
+    # squirmers)
+    for name, key, src, rep_line, launch in (
+            ("K1 pair_tt in chains", "tt", k1_src["tt"],
+             "pair_kernels.py:254", "K1 tt"),
+            ("K2 blob_forces in chains", "K2",
+             "rigidmultiblobswall_tpu_torch/csrc/blob_forces.cu",
+             "mobility_pallas.py:180", "K2"),
+            ("K1 pair_grand in dumbbells", "grand",
+             "rigidmultiblobswall_tpu_torch/csrc/pair_couplings.cu",
+             "pair_kernels.py:254", "K1 grand")):
+        kernels.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"rigidmultiblobswall_tpu/ops/{rep_line}",
+            launches=art_launches[launch], **art_records[key]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

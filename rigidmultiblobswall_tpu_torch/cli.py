@@ -12,10 +12,13 @@ the same input files and output formats:
     (its .Laplace double-layer correction waits for ROADMAP Queue 1, item
     18: input files with .Laplace files are refused);
   - the dynamic schemes of models/integrators.py (every multibody scheme
-    of the JAX package but the articulated ones): per-step .clones (or
-    one .config file with save_clones one_file) for each structure and
-    obstacle ID (`obstacle` entries stay at their prescribed, zero,
-    velocity), .info (iteration and rejection counters) and .time;
+    of the JAX package, the articulated ones and the articulated rollers
+    included): per-step .clones (or one .config file with save_clones
+    one_file) for each structure, obstacle and articulated ID
+    (`obstacle` entries stay at their prescribed, zero, velocity; an
+    articulated ID's file holds its bodies in the clones file's order,
+    instance by instance), .info (iteration and rejection counters) and
+    .time;
     options save_blobs_mobility and save_body_mobility dump the dense
     blob and body mobilities with every saved frame; save_velocities writes every step's body velocities to
     .velocities.dat; update_PC > 1 refactors the preconditioner every
@@ -46,12 +49,11 @@ capacity at the start, as the JAX CLI does, and report steps that still
 dropped particles, or clipped them at the wall slab's top, in .info
 (capacity_overflow_steps).
 
-MCMC, articulated rollers, the .random_state restart,
-vtk field output (plot_velocity_field, plot_concentration_field,
-tracer_radius), call_HydroGrid structure factors and
-user_defined_functions.py hooks are still to be ported (ROADMAP Queue 1,
-items 11-18); an input that asks for one of them is refused, not
-ignored.
+MCMC, the .random_state restart, vtk field output (plot_velocity_field,
+plot_concentration_field, tracer_radius), call_HydroGrid structure
+factors, .Laplace files and user_defined_functions.py hooks are still to
+be ported (ROADMAP Queue 1, items 11-18); an input that asks for one of
+them is refused, not ignored.
 """
 
 from __future__ import annotations
@@ -347,14 +349,31 @@ def _run_dynamic(cfg, system, state, args, start_time):
                                                       step_idx),
                        N.cpu().numpy(), delimiter="  ")
 
-    def save_clones(step_idx, state):
+    # articulated groups are stored type-major (sub-body j of every
+    # instance is one type); their files hold one ID's bodies in the
+    # clones file's order, instance-major, as the JAX CLI writes them
+    art_sub_types = {i for art in system.articulated
+                     for i in art.sub_type_indices}
+
+    def frames(state):
         offs = system.body_offsets
         pos = state.pos.cpu().numpy()
         quat = state.quat.cpu().numpy()
         for i, t in enumerate(system.types):
-            pos_i, quat_i = pos[offs[i]:offs[i + 1]], quat[offs[i]:offs[i + 1]]
+            if i not in art_sub_types:
+                sl = slice(offs[i], offs[i + 1])
+                yield t.name, pos[sl], quat[sl]
+        for art in system.articulated:
+            p = np.stack([pos[offs[i]:offs[i + 1]]
+                          for i in art.sub_type_indices], axis=1)
+            q = np.stack([quat[offs[i]:offs[i + 1]]
+                          for i in art.sub_type_indices], axis=1)
+            yield art.name, p.reshape(-1, 3), q.reshape(-1, 4)
+
+    def save_clones(step_idx, state):
+        for name_i, pos_i, quat_i in frames(state):
             if cfg.save_clones == "one_file":
-                name = "%s.%s.config" % (cfg.output_name, t.name)
+                name = "%s.%s.config" % (cfg.output_name, name_i)
                 mode = "w" if step_idx == cfg.initial_step else "a"
                 with open(name, mode) as f:
                     f.write("%d\n" % len(pos_i))
@@ -363,7 +382,7 @@ def _run_dynamic(cfg, system, state, args, start_time):
                             x[0], x[1], x[2], q[0], q[1], q[2], q[3]))
             else:
                 scene.write_clones_file(
-                    "%s.%s.%08d.clones" % (cfg.output_name, t.name, step_idx),
+                    "%s.%s.%08d.clones" % (cfg.output_name, name_i, step_idx),
                     pos_i, quat_i)
 
     det_iters = stoch_iters = rejections = unconverged_steps = 0

@@ -18,10 +18,17 @@ lubrication_tables_dir) stay in `options`, read by the CLI's lubrication
 branch as the JAX CLI reads them. `obstacle` entries become body types
 with prescribed kinematics (zero velocity) after the free structures,
 and a scheme the reference does not run with obstacles is refused with
-the JAX package's ValueError. Not ported yet, and refused with
-NotImplementedError rather than ignored: articulated bodies, .slip and
-.Laplace files, per-blob radii and body-body forces (ROADMAP Queue 1,
-items 4, 15 and 18), and the options random_state,
+the JAX package's ValueError. `articulated` entries (list_vertex clones
+const [slip]) become one body type per sub-body after the obstacles,
+stored type-major as the JAX package stores them (sub-body j of every
+instance is one type), with their links and, where a .const line carries
+twelve expressions in t, its time-dependent links (compile_links_fn);
+.slip files on structure and articulated entries give the types an
+active slip; the options nonlinear_solver_tolerance and
+body_body_force_torque_implementation (any value but None turns the
+body-body Yukawa force on) are read. Not ported yet, and refused with
+NotImplementedError rather than ignored: .Laplace files and per-blob
+radii (ROADMAP Queue 1, items 4, 15 and 18), and the options random_state,
 plot_velocity_field, plot_concentration_field, tracer_radius and
 call_HydroGrid True (item 11; the fields with item 18's
 models/fields.py), which `read_input` refuses.
@@ -49,6 +56,7 @@ class InputConfig:
     obstacles: List[List[str]]
     obstacles_ID: List[str]
     articulated: List[List[str]]
+    articulated_ID: List[str]
 
     # scalars with the reference defaults
     n_steps: int = 0
@@ -105,7 +113,8 @@ def read_input(path) -> InputConfig:
                       structures_ID=[_id(s) for s in structures],
                       obstacles=obstacles,
                       obstacles_ID=[_id(s) for s in obstacles],
-                      articulated=articulated)
+                      articulated=articulated,
+                      articulated_ID=[_id(s) for s in articulated])
     g = options.get
     cfg.n_steps = int(g("n_steps") or 0)
     cfg.initial_step = int(g("initial_step") or 0)
@@ -193,19 +202,70 @@ def _refuse_unported_options(options):
             "refuses it rather than ignore it")
 
 
+# the names of the link expressions' math environment (the JAX
+# package's, on numpy in place of jax.numpy, at a host float t)
+_LINK_ENV = {name: getattr(np, name) for name in
+             ("sin", "cos", "tan", "exp", "sqrt", "abs", "arctan2", "where")}
+_LINK_ENV["pi"] = np.pi
+
+
+def compile_links_fn(extra, links):
+    """The time hook of a .const file's link expressions: extra holds,
+    per constraint, its strings after the six links; a constraint with
+    twelve (six link components and their six time derivatives, in t)
+    follows them, one with fewer keeps its constant links. Returns
+    links_fn(t) -> (links (nc, 6), deriv (nc, 6)) as float64 arrays,
+    evaluated on the host float t."""
+    compiled = [[compile(e, f"<link{k}>", "eval") for e in exprs[:12]]
+                if len(exprs) >= 12 else None
+                for k, exprs in enumerate(extra)]
+    links = np.asarray(links, np.float64).reshape(-1, 6)
+
+    def links_fn(t):
+        out_l, out_d = links.copy(), np.zeros_like(links)
+        for k, exprs in enumerate(compiled):
+            if exprs is not None:
+                vals = [float(eval(e, dict(_LINK_ENV), {"t": t}))
+                        for e in exprs]
+                out_l[k], out_d[k] = vals[:6], vals[6:12]
+        return out_l, out_d
+
+    return links_fn
+
+
+def _slip(files, resolve):
+    """The body-frame slip of an entry's extra files (its first .slip),
+    or None; a .Laplace file is refused."""
+    for f in files:
+        if f.endswith(".Laplace"):
+            raise NotImplementedError(
+                f"{f}: .Laplace files (phoretic slip) are not ported yet "
+                "(ROADMAP Queue 1, item 18)")
+    slips = [f for f in files if f.endswith(".slip")]
+    return scene.read_slip_file(resolve(slips[0])) if slips else None
+
+
 def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                  device=None):
     """Build (System, State) from an InputConfig; each structure entry
-    becomes one BodyType group, and then each obstacle entry one with
-    prescribed kinematics. The State lies on `device` (default the
-    card; device="cpu" runs on the CPU)."""
+    becomes one BodyType group, then each obstacle entry one with
+    prescribed kinematics, then each articulated entry one group per
+    sub-body. Scene files resolve against base_dir; the vertex files
+    that a .list_vertex file names resolve against the working directory
+    (scene.read_vertex_file_list). The State lies on `device` (default
+    the card; device="cpu" runs on the CPU)."""
+    from ..models.articulated import ArticulatedType
+
     device = resolve_device(device)
-    if cfg.articulated:
-        raise NotImplementedError("articulated bodies are not ported yet "
-                                  "(ROADMAP Queue 1, item 18)")
 
     def _resolve(p):
         return p if os.path.isabs(p) else os.path.join(base_dir, p)
+
+    def _check_radii(ref, name):
+        if ref.shape[1] == 4 and not np.allclose(ref[:, 3], cfg.blob_radius):
+            raise NotImplementedError(
+                f"structure {name}: per-blob radii are not ported yet "
+                "(ROADMAP Queue 1, item 4)")
 
     types, locations, quaternions = [], [], []
     entries = ([(f, n, False) for f, n in zip(cfg.structures,
@@ -213,21 +273,40 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                + [(f, n, True) for f, n in zip(cfg.obstacles,
                                                cfg.obstacles_ID)])
     for files, name, is_obstacle in entries:
-        if files[2:]:
-            raise NotImplementedError(
-                f"structure {name}: extra files {files[2:]} (.slip/.Laplace) "
-                "are not ported yet (ROADMAP Queue 1, item 18)")
         ref = scene.read_vertex_file(_resolve(files[0]))
-        if ref.shape[1] == 4 and not np.allclose(ref[:, 3], cfg.blob_radius):
-            raise NotImplementedError(
-                f"structure {name}: per-blob radii are not ported yet "
-                "(ROADMAP Queue 1, item 4)")
+        _check_radii(ref, name)
         nbod, loc, quat = scene.read_clones_file(_resolve(files[1]))
         types.append(BodyType(name=name, ref_config=ref[:, :3], count=nbod,
                               prescribed_kinematics=is_obstacle,
-                              is_obstacle=is_obstacle))
+                              is_obstacle=is_obstacle,
+                              slip_ref=_slip(files[2:], _resolve)))
         locations.append(loc)
         quaternions.append(quat)
+
+    articulated = []
+    for files, name in zip(cfg.articulated, cfg.articulated_ID):
+        refs = scene.read_vertex_file_list(_resolve(files[0]))
+        n_total, locs, quats = scene.read_clones_file(_resolve(files[1]))
+        nb_art, _, pairs, links, extra = scene.read_constraints_file(
+            _resolve(files[2]))
+        slip = _slip(files[3:], _resolve)
+        n_inst = n_total // nb_art
+        locs = locs.reshape(n_inst, nb_art, 3)
+        quats = quats.reshape(n_inst, nb_art, 4)
+        sub = []
+        for j in range(nb_art):
+            _check_radii(refs[j], name)
+            sub.append(len(types))
+            types.append(BodyType(name=f"{name}_sub{j}",
+                                  ref_config=refs[j][:, :3], count=n_inst,
+                                  slip_ref=slip))
+            locations.append(locs[:, j])
+            quaternions.append(quats[:, j])
+        articulated.append(ArticulatedType(
+            name=name, count=n_inst, sub_type_indices=tuple(sub),
+            pairs_local=pairs, links=links,
+            links_fn=(compile_links_fn(extra, links) if any(extra)
+                      else None)))
 
     bb_impl = cfg.options.get("blob_blob_force_implementation", "None")
     if bb_impl == "None":
@@ -237,10 +316,7 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         bb_method = "neighbor_list"
     else:
         bb_method = "direct"
-    if cfg.options.get("body_body_force_torque_implementation",
-                       "None") != "None":
-        raise NotImplementedError("body-body forces are not ported yet "
-                                  "(ROADMAP Queue 1, item 18)")
+    bbody = cfg.options.get("body_body_force_torque_implementation", "None")
 
     system = System(
         types=tuple(types), eta=cfg.eta, blob_radius=cfg.blob_radius,
@@ -255,7 +331,11 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         repulsion_strength_wall=cfg.repulsion_strength_wall,
         debye_length_wall=cfg.debye_length_wall,
         blob_blob_force_method=bb_method,
-        solver_tolerance=cfg.solver_tolerance, rf_delta=cfg.rf_delta)
+        body_body_force_method="none" if bbody == "None" else "yukawa",
+        solver_tolerance=cfg.solver_tolerance, rf_delta=cfg.rf_delta,
+        articulated=tuple(articulated),
+        nonlinear_solver_tolerance=float(
+            cfg.options.get("nonlinear_solver_tolerance", 1e-8)))
     state = make_state(np.concatenate(locations, axis=0),
                        np.concatenate(quaternions, axis=0), dtype=dtype,
                        device=device)

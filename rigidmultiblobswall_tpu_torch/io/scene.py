@@ -1,9 +1,8 @@
-"""Scene-file readers and writers: the reference's .vertex and .clones
-formats, unchanged.
+"""Scene-file readers and writers: the reference's .vertex, .clones,
+.slip, .const and .list_vertex formats, unchanged.
 
-Counterpart of rigidmultiblobswall_tpu/io/scene.py (vertex and clones
-read/write). The .slip, .const and .list_vertex readers are still to be
-ported with the features that use them (ROADMAP Queue 1, item 18).
+Counterpart of rigidmultiblobswall_tpu/io/scene.py (the velocity-file
+reader stays with the CLI, which reads velocity files with np.loadtxt).
 """
 
 from __future__ import annotations
@@ -40,6 +39,44 @@ def read_clones_file(path):
                      for l in lines[1:n + 1]])
     q = data[:, 3:7]
     return n, data[:, 0:3], q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def read_slip_file(path):
+    """Active slip in the body reference frame, (Nblobs, 3)."""
+    lines = list(_data_lines(path))
+    n = int(lines[0].split()[0])
+    return np.array([np.array(l.split(), dtype=np.float64)[:3]
+                     for l in lines[1:n + 1]])
+
+
+def read_constraints_file(path):
+    """Articulated-body constraints. Format:
+      line0: number of rigid bodies
+      line1: number of constraints
+      then per constraint: body_i body_j  link (6 floats)  [extra...]
+    Returns (num_bodies, num_constraints, indices (C,2) int, links (C,6)
+    float, extra: per constraint the list of its further strings, the
+    time-dependent link expressions)."""
+    lines = list(_data_lines(path))
+    num_bodies = int(lines[0].split()[0])
+    num_constraints = int(lines[1].split()[0])
+    indices, links, extra = [], [], []
+    for l in lines[2:2 + num_constraints]:
+        parts = l.split()
+        indices.append([int(parts[0]), int(parts[1])])
+        links.append([float(x) for x in parts[2:8]])
+        extra.append(parts[8:])
+    return (num_bodies, num_constraints, np.array(indices, dtype=int),
+            np.array(links, dtype=float), extra)
+
+
+def read_vertex_file_list(path):
+    """A .list_vertex file: one vertex-file path per line; returns the
+    list of reference configurations. The paths inside resolve against
+    the working directory, not the list file's directory, as the JAX
+    package and the reference resolve them: run from the directory the
+    list was written for."""
+    return [read_vertex_file(l.split()[0]) for l in _data_lines(path)]
 
 
 def write_clones_file(path, locations, quaternions):

@@ -21,13 +21,27 @@ Ported schemes:
   stochastic_first_order_RFD_dense_algebra
   Fixman
   stochastic_Slip_Mid_DLA
+  articulated_deterministic_forward_euler
+  articulated_deterministic_midpoint
+  articulated_deterministic_forward_euler_rollers   (single-blob bodies)
+  articulated_deterministic_midpoint_rollers
 with bodies of prescribed kinematics (obstacles), `update_PC > 1` (the
 preconditioner refactored every update_PC steps; the carry of
 `init_carry_with_pc`) and Krylov recycling (`init_carry(recycle_k=k)`,
 or `make_stepper(recycle_k=k)`: the carry holds an ops/gmres.RecycleState
 that deterministic forward Euler and Adams-Bashforth and Slip-Trapz
-refresh once a step, deflate their solves with and harvest anew). The
-articulated schemes wait for ROADMAP Queue 1, item 18.
+refresh once a step, deflate their solves with and harvest anew).
+
+The articulated schemes solve with the constraint rows, move the bodies,
+re-centre each instance (articulated.correct_center_of_mass) and project
+it onto its constraints (articulated.nonlinear_projection). The carry's
+step_idx (0 at the start, one more each step, also under update_PC > 1)
+gives time-dependent links their time: t = step_idx dt at the step's
+start, + dt/2 at the midpoint and + dt after. As in the JAX package they
+factor their own preconditioner at the solve's time, also under
+update_PC > 1 (whose cached preconditioner, factored at t = 0 links, they
+leave unused), and the rollers' schemes solve on the grand mobility
+(solvers.solve_mobility_problem_single_blob).
 
 `simulate` runs the time loop (the JAX package's lax.scan, a host loop
 here). Each attempt takes its mobility engine at the step's start
@@ -64,17 +78,10 @@ from ..ops import forces as force_ops
 from ..ops.gmres import RecycleState
 from ..ops import quaternion as quat
 from ..ops.lanczos import stochastic_forcing_lanczos
+from . import articulated as art_mod
 from . import kinematics as kin
 from . import saddle, solvers
 from .system import State, System, resolve_device
-
-# schemes of the JAX package that the port has not taken over yet
-_NOT_PORTED = (
-    "articulated_deterministic_forward_euler_rollers",
-    "articulated_deterministic_midpoint_rollers",
-    "articulated_deterministic_forward_euler",
-    "articulated_deterministic_midpoint",
-)
 
 
 class StepAux(NamedTuple):
@@ -101,6 +108,7 @@ class Carry(NamedTuple):
     recycle: object = None  # the Krylov recycle state (ops/gmres.
     #                       RecycleState) carried across steps; None when
     #                       recycling is off
+    step_idx: int = 0     # steps taken, for time-dependent constraints
 
 
 def init_carry(system: System, dtype=torch.float64, state=None,
@@ -645,9 +653,9 @@ def _stochastic_GDC_RFD(system, dt, solver_kw, lanczos_kw, generator, state,
     m_start = _get_m_dense(system, kin.blob_positions(system, state), plan)
     noise_n, it1, z = _unpc_noise(system, state, generator, factor,
                                   plan=m_start, **lanczos_kw)
-    _, U_n = saddle.split_saddle_vector(
+    U_n = saddle.split_saddle_vector(
         system, saddle.apply_identity_saddle_solver(
-            system, state, torch.cat([-noise_n, zeros_b])))
+            system, state, torch.cat([-noise_n, zeros_b])))[1]
 
     # one-sided RFD of the unconstrained velocity's divergence, the same
     # z at the displaced configuration
@@ -666,9 +674,9 @@ def _stochastic_GDC_RFD(system, dt, solver_kw, lanczos_kw, generator, state,
 
     res_rfd = stochastic_forcing_lanczos(mtt_rfd, z, factor=factor,
                                          **lanczos_kw)
-    _, U_rfd = saddle.split_saddle_vector(
+    U_rfd = saddle.split_saddle_vector(
         system, saddle.apply_identity_saddle_solver(
-            system, rfd_state, torch.cat([-res_rfd.noise, zeros_b])))
+            system, rfd_state, torch.cat([-res_rfd.noise, zeros_b])))[1]
     dU = U_rfd - U_n
     div = (torch.sum(dU[:, :3] * W[:, :3] / (delta * lengths))
            + torch.sum(dU[:, 3:] * W[:, 3:]) / delta)
@@ -867,6 +875,80 @@ def _fixman(system, dt, solver_kw, lanczos_kw, generator, state, carry,
     return new_state, v_new, 0, 0, ok, True
 
 
+def _articulated_update(system, state, velocities, dt, t_end, fraction=1.0):
+    """Advance state by velocities over fraction dt, re-centre each
+    articulated instance and project it onto its constraints at t_end."""
+    moved = kin.advance(state, velocities, fraction * dt)
+    moved = art_mod.correct_center_of_mass(system, moved, state, velocities,
+                                           dt, time=t_end,
+                                           midpoint_fraction=fraction)
+    return art_mod.nonlinear_projection(
+        system, moved, time=t_end, tol=system.nonlinear_solver_tolerance)
+
+
+def _articulated_deterministic_forward_euler(system, dt, solver_kw,
+                                             lanczos_kw, generator, state,
+                                             carry, plan, pc):
+    """Forward Euler for articulated bodies: the constrained solve at t,
+    the update at t + dt."""
+    t_now = carry.step_idx * dt
+    m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
+    sol = solvers.solve_mobility_problem(system, state, time=t_now,
+                                         m_dense=m_dense, **solver_kw)
+    new = _articulated_update(system, state, sol.velocities, dt, t_now + dt)
+    return (new, sol.velocities, sol.iterations, 0,
+            kin.valid_configuration(system, new), sol.converged)
+
+
+def _articulated_deterministic_midpoint(system, dt, solver_kw, lanczos_kw,
+                                        generator, state, carry, plan, pc):
+    """Midpoint for articulated bodies: the half step's configuration is
+    re-centred and projected at t + dt/2, its solve warm-started from the
+    first one's [lam, U, phi]."""
+    t_now = carry.step_idx * dt
+    m_dense = _get_m_dense(system, kin.blob_positions(system, state), plan)
+    sol1 = solvers.solve_mobility_problem(system, state, time=t_now,
+                                          m_dense=m_dense, **solver_kw)
+    mid = _articulated_update(system, state, sol1.velocities, dt,
+                              t_now + 0.5 * dt, fraction=0.5)
+    x0 = torch.cat([sol1.lam.reshape(-1), sol1.velocities.reshape(-1),
+                    sol1.phi.reshape(-1)])
+    m_mid = saddle.refresh_dense_mobility(system, m_dense,
+                                          kin.blob_positions(system, mid))
+    sol2 = solvers.solve_mobility_problem(system, mid, time=t_now + 0.5 * dt,
+                                          x0=x0, m_dense=m_mid, **solver_kw)
+    new = _articulated_update(system, state, sol2.velocities, dt, t_now + dt)
+    return (new, sol2.velocities, sol1.iterations + sol2.iterations, 0,
+            kin.valid_configuration(system, new),
+            bool(sol1.converged) and bool(sol2.converged))
+
+
+def _articulated_single_blob_scheme(midpoint):
+    """Forward Euler or midpoint of articulated single-blob bodies (the
+    articulated rollers): the articulated update driven by the constrained
+    solve on the grand mobility. Every body type must hold one blob."""
+
+    def scheme(system, dt, solver_kw, lanczos_kw, generator, state, carry,
+               plan, pc):
+        t_now = carry.step_idx * dt
+        sol = solvers.solve_mobility_problem_single_blob(
+            system, state, time=t_now, **solver_kw)
+        iters, conv = sol.iterations, bool(sol.converged)
+        if midpoint:
+            mid = _articulated_update(system, state, sol.velocities, dt,
+                                      t_now + 0.5 * dt, fraction=0.5)
+            sol = solvers.solve_mobility_problem_single_blob(
+                system, mid, time=t_now + 0.5 * dt, **solver_kw)
+            iters += sol.iterations
+            conv = conv and bool(sol.converged)
+        new = _articulated_update(system, state, sol.velocities, dt,
+                                  t_now + dt)
+        return (new, sol.velocities, iters, 0,
+                kin.valid_configuration(system, new), conv)
+
+    return scheme
+
+
 _SCHEMES = {
     "deterministic_forward_euler": _deterministic_forward_euler,
     "deterministic_adams_bashforth": _deterministic_adams_bashforth,
@@ -885,6 +967,14 @@ _SCHEMES = {
         _stochastic_first_order_RFD_dense,
     "Fixman": _fixman,
     "stochastic_Slip_Mid_DLA": _stochastic_slip_mid_dla,
+    "articulated_deterministic_forward_euler":
+        _articulated_deterministic_forward_euler,
+    "articulated_deterministic_midpoint":
+        _articulated_deterministic_midpoint,
+    "articulated_deterministic_forward_euler_rollers":
+        _articulated_single_blob_scheme(midpoint=False),
+    "articulated_deterministic_midpoint_rollers":
+        _articulated_single_blob_scheme(midpoint=True),
 }
 
 
@@ -913,10 +1003,6 @@ def make_stepper(system: System, scheme: str, dt: float, *,
     starts an empty one of k directions at the first step. Every attempt
     of a step starts from the step's recycle state, and the carry keeps
     the last attempt's."""
-    if scheme in _NOT_PORTED:
-        raise NotImplementedError(
-            f"scheme {scheme!r} is not ported yet (ROADMAP Queue 1, "
-            "item 18); ported: " + ", ".join(_SCHEMES))
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; "
                          f"available: {sorted(_SCHEMES)}")
@@ -965,7 +1051,7 @@ def make_stepper(system: System, scheme: str, dt: float, *,
             overflows += int(plan.n_clipped)      # blobs above the slab
         new_carry = Carry(velocities_prev=velocities, first_step=False,
                           plan=plan, noise_factors=carry.noise_factors,
-                          recycle=rec_out)
+                          recycle=rec_out, step_idx=carry.step_idx + 1)
         aux = StepAux(velocities=velocities, det_iterations=int(det_it),
                       stoch_iterations=int(st_it), rejections=attempts - 1,
                       solves_converged=bool(conv),

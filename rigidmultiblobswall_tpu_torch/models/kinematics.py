@@ -104,10 +104,22 @@ def K_dense(system: System, state: State, i: int):
 
 
 def active_slip(system: System, state: State, dtype=None):
-    """Prescribed active slip in the lab frame, (N, 3): zero, since the
-    port's BodyType carries no slip yet (ROADMAP Queue 1, item 18)."""
-    return torch.zeros((system.num_blobs, 3), dtype=dtype or state.pos.dtype,
-                       device=state.pos.device)
+    """Prescribed active slip rotated to the lab frame, (N, 3): each
+    type's body-frame slip_ref (a .slip file) turned by its bodies'
+    orientations, zero for a type without one."""
+    dtype = dtype or state.pos.dtype
+    out = []
+    for i, t in enumerate(system.types):
+        if t.slip_ref is None:
+            out.append(torch.zeros((t.count * t.num_blobs, 3), dtype=dtype,
+                                   device=state.pos.device))
+            continue
+        _, q = type_arrays(system, state, i)
+        slip = torch.einsum("cij,nj->cni", quat.rotation_matrix(q).to(dtype),
+                            torch.tensor(np.array(t.slip_ref), dtype=dtype,
+                                         device=state.pos.device))
+        out.append(slip.reshape(t.count * t.num_blobs, 3))
+    return torch.cat(out, dim=0)
 
 
 def min_blob_height(system: System, state: State):

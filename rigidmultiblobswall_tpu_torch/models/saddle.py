@@ -4,14 +4,17 @@
 Counterpart of rigidmultiblobswall_tpu/models/saddle.py. Mobility problem
 for rigid multiblob suspensions (Delong et al. 2015):
 
-    |  M   -K | |lambda|   | slip |
-    | -K^T  0 | |  U   | = | -F   |
+    |  M   -K    0  | |lambda|   | slip |
+    | -K^T  0   C^T | |  U   | = | -F   |
+    |  0    C    0  | | phi  |   |  B   |
 
 solved by right-preconditioned GMRES with an exact per-body
-preconditioner. Bodies are batched per type: one batched Cholesky per
-type, and the preconditioner applies as batched matrix products. The
-Lanczos noise preconditioner P = U_chol^{-1}, M ~= U_chol^T U_chol,
-reuses the same factorization.
+preconditioner; the constraint rows C and their forces phi exist for
+articulated bodies (models/articulated.py) only, whose preconditioner
+adds each instance's constraint resistance G = pinv(C N C^T). Bodies are
+batched per type: one batched Cholesky per type, and the preconditioner
+applies as batched matrix products. The Lanczos noise preconditioner
+P = U_chol^{-1}, M ~= U_chol^T U_chol, reuses the same factorization.
 
 The mobility engine of a configuration is `m_dense`:
   - the materialized (3N, 3N) matrix of the pairwise domains when its
@@ -25,8 +28,9 @@ The mobility engine of a configuration is `m_dense`:
     configuration and refreshed for nearby ones.
 Bodies with prescribed kinematics (obstacles) get an identity row on
 their U and their K U moved back out of the blob rows, and the
-preconditioner's exact resistance solve for their type. Articulated
-constraints are still to be ported (ROADMAP Queue 1, item 18).
+preconditioner's exact resistance solve for their type. The constraint
+rows, the right-hand side's B and the articulated preconditioner take
+the links at a `time=` (time-dependent links).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 from ..ops import cells, ewald, ewald_wall
 from ..ops import mobility as mob
 from ..ops import mobility_cuda
+from . import articulated as art_mod
 from . import kinematics as kin
 from .system import State, System
 
@@ -80,17 +85,20 @@ def spectral_params(system: System):
 
 
 def saddle_size(system: System) -> int:
-    return 3 * system.num_blobs + 6 * system.num_bodies
+    return (3 * system.num_blobs + 6 * system.num_bodies
+            + 3 * art_mod.num_constraints(system))
 
 
 def split_saddle_vector(system: System, vec):
-    """(..., n) -> lam (..., N, 3), U (..., B, 6)."""
+    """(..., n) -> lam (..., N, 3), U (..., B, 6), phi (..., C, 3) (C = 0
+    without articulated bodies)."""
     n3 = 3 * system.num_blobs
+    nb6 = 6 * system.num_bodies
     batch = vec.shape[:-1]
     lam = vec[..., :n3].reshape(*batch, system.num_blobs, 3)
-    U = vec[..., n3:n3 + 6 * system.num_bodies].reshape(
-        *batch, system.num_bodies, 6)
-    return lam, U
+    U = vec[..., n3:n3 + nb6].reshape(*batch, system.num_bodies, 6)
+    phi = vec[..., n3 + nb6:].reshape(*batch, -1, 3)
+    return lam, U, phi
 
 
 # budget for materializing (3N, 3N): a Slip-Trapz step keeps two
@@ -207,54 +215,72 @@ def _prescribed_masks(system: System, like):
             torch.tensor(system.prescribed_body_mask, **kw)[:, None])
 
 
-def _finish(system, state, rel, vec, m_lam, prescribed=None):
-    """[M lam - K U; -K^T lam] from the mobility product, for any leading
-    batch dimensions; with `prescribed` (_prescribed_masks) the prescribed
-    bodies' rows become an identity on U and their K U leaves the blob
-    rows."""
-    lam, U = split_saddle_vector(system, vec)
+def _finish(system, state, rel, vec, m_lam, prescribed=None, links=None):
+    """[M lam - K U; -K^T lam + C^T phi; C U] from the mobility product,
+    for any leading batch dimensions (the constraint rows with `links`,
+    art_mod.operator_links, when the system has articulated bodies); with
+    `prescribed` (_prescribed_masks) the prescribed bodies' rows become an
+    identity on U and their K U leaves the blob rows."""
+    lam, U, phi = split_saddle_vector(system, vec)
     KU = kin.K_mul(system, state, U, rel=rel)
     res_blobs = m_lam - KU
     res_bodies = -kin.KT_mul(system, state, lam, rel=rel)
+    parts = [res_blobs, res_bodies]
+    if links is not None:
+        parts = [res_blobs,
+                 res_bodies + art_mod.CT_mul(system, state, phi,
+                                             links=links),
+                 art_mod.C_mul(system, state, U, links=links)]
     if prescribed is not None:
         blob_mask, body_mask = prescribed
-        res_blobs = res_blobs + blob_mask * KU
-        res_bodies = res_bodies + body_mask * U
+        parts[0] = parts[0] + blob_mask * KU
+        parts[1] = parts[1] + body_mask * U
     batch = vec.shape[:-1]
-    return torch.cat([res_blobs.reshape(*batch, -1),
-                      res_bodies.reshape(*batch, -1)], dim=-1)
+    return torch.cat([p.reshape(*batch, -1) for p in parts], dim=-1)
+
+
+def _constraint_links(system, state, time):
+    """The lab-frame links of the operator's constraint rows at `time`, or
+    None without articulated bodies."""
+    if not art_mod.num_constraints(system):
+        return None
+    return art_mod.operator_links(system, state, time)
 
 
 def make_linear_operator(system: System, state: State, r_blobs=None,
-                         m_dense=None):
-    """vec -> saddle operator action (flat in, flat out)."""
+                         m_dense=None, time=0.0):
+    """vec -> saddle operator action (flat in, flat out); the constraint
+    rows take the links at `time`."""
     rel = kin.all_rel_positions(system, state)
     if r_blobs is None:
         r_blobs = kin.blob_positions(system, state, rel=rel)
     prescribed = _prescribed_masks(system, state.pos)
+    links = _constraint_links(system, state, time)
 
     def operator(vec):
         lam = split_saddle_vector(system, vec)[0]
         return _finish(system, state, rel, vec,
                        _mobility_apply(system, r_blobs, m_dense, lam),
-                       prescribed)
+                       prescribed, links)
 
     return operator
 
 
 def make_lockstep_operator(system: System, state: State, r_blobs=None,
-                           m_dense=None):
+                           m_dense=None, time=0.0):
     """Saddle operator over a (nrhs, n) stack: ONE shared mobility sweep
-    feeds the per-RHS K algebra. Pairs with ops/gmres.gmres_lockstep."""
+    feeds the per-RHS K and C algebra. Pairs with
+    ops/gmres.gmres_lockstep."""
     rel = kin.all_rel_positions(system, state)
     if r_blobs is None:
         r_blobs = kin.blob_positions(system, state, rel=rel)
     prescribed = _prescribed_masks(system, state.pos)
+    links = _constraint_links(system, state, time)
 
     def operator(Y):
         lam = split_saddle_vector(system, Y)[0]
         m_lam = _mobility_apply_multi(system, r_blobs, m_dense, lam)
-        return _finish(system, state, rel, Y, m_lam, prescribed)
+        return _finish(system, state, rel, Y, m_lam, prescribed, links)
 
     return operator
 
@@ -269,8 +295,16 @@ class TypePC(NamedTuple):
     N_body: torch.Tensor    # (c, 6, 6) = (K^T M^{-1} K)^{-1}
 
 
+class ArticulatedPC(NamedTuple):
+    """Per articulated-type batched constraint factors."""
+
+    C: torch.Tensor  # (count, 3nc, 6nb)
+    G: torch.Tensor  # (count, 3nc, 3nc) = pinv(C N C^T)
+
+
 class BlockDiagPC(NamedTuple):
     per_type: tuple
+    per_articulated: tuple = ()
 
 
 def _collinear(ref_config) -> bool:
@@ -282,11 +316,31 @@ def _collinear(ref_config) -> bool:
     return len(sv) < 2 or sv[1] <= 1e-9 * max(sv[0], 1e-30)
 
 
-def build_block_diag_pc(system: System, state: State) -> BlockDiagPC:
+def _build_articulated_pc(system: System, state: State, per_type,
+                          time=0.0):
+    """The constraint resistance G = pinv(C N C^T) of every articulated
+    instance, N the block-diagonal body mobility of its sub-bodies,
+    batched per articulated type. pinv, not inv: a redundant link set
+    makes C N C^T exactly singular (art_mod.pinv_like_jax)."""
+    out = []
+    for art in system.articulated:
+        C = art_mod.dense_C_per_instance(system, art, state, time)
+        CN = torch.cat([
+            torch.einsum("cik,ckl->cil", C[:, :, 6 * j:6 * j + 6],
+                         per_type[tj].N_body)
+            for j, tj in enumerate(art.sub_type_indices)], dim=-1)
+        G = art_mod.pinv_like_jax(torch.einsum("cik,cjk->cij", CN, C))
+        out.append(ArticulatedPC(C=C, G=G))
+    return tuple(out)
+
+
+def build_block_diag_pc(system: System, state: State,
+                        time=0.0) -> BlockDiagPC:
     """Factor every body's blob mobility (the dense single-body mobility
     in the system's domain without images; periodic_spectral bodies take
     the open-boundary blocks, single_wall_spectral bodies the wall
-    blocks), batched per type."""
+    blocks), batched per type; with articulated bodies, each instance's
+    constraint resistance at the links of `time`."""
     pc_domain = {"periodic_spectral": "no_wall",
                  "single_wall_spectral": "single_wall"}.get(system.domain,
                                                             system.domain)
@@ -309,7 +363,9 @@ def build_block_diag_pc(system: System, state: State) -> BlockDiagPC:
             N_body = torch.linalg.pinv(KtMinvK)
         per_type.append(TypePC(chol=chol, chol_inv=chol_inv, m_inv=m_inv,
                                K=K, N_body=N_body))
-    return BlockDiagPC(per_type=tuple(per_type))
+    per_art = (_build_articulated_pc(system, state, per_type, time)
+               if system.articulated else ())
+    return BlockDiagPC(per_type=tuple(per_type), per_articulated=per_art)
 
 
 def apply_block_diag_pc(system: System, pc: BlockDiagPC, vec):
@@ -322,8 +378,13 @@ def apply_block_diag_pc(system: System, pc: BlockDiagPC, vec):
     the same steps either way, but a warm start whose U holds the
     prescribed velocity (the Slip-Trapz and Slip-Mid correctors) puts a
     residual there that the JAX solve cannot reduce, and it stops at
-    maxiter unconverged."""
-    lam, F = split_saddle_vector(system, vec)
+    maxiter unconverged.
+
+    With articulated bodies (pc.per_articulated), each instance's
+    unconstrained velocities U are then corrected by its constraint
+    forces Phi = G (B - C U): the bodies by N C^T Phi and the blobs by
+    M^{-1} K N C^T Phi."""
+    lam, F, B = split_saddle_vector(system, vec)
     batch = vec.shape[:-1]
     lam_out, body_out = [], []
     for i, t in enumerate(system.types):
@@ -342,14 +403,44 @@ def apply_block_diag_pc(system: System, pc: BlockDiagPC, vec):
             lam_t = torch.einsum("cij,...cj->...ci", p.m_inv, slip + KY)
         lam_out.append(lam_t.reshape(*batch, c * nb * 3))
         body_out.append(Y.reshape(*batch, c * 6))
-    return torch.cat(lam_out + body_out, dim=-1)
+    if not pc.per_articulated:
+        return torch.cat(lam_out + body_out, dim=-1)
+    lam_full = torch.cat(lam_out, dim=-1).reshape(*batch, system.num_blobs,
+                                                  3)
+    body_full = torch.cat(body_out, dim=-1).reshape(*batch,
+                                                    system.num_bodies, 6)
+    phi_out = []
+    offs = art_mod.constraint_offsets(system)
+    for ia, art in enumerate(system.articulated):
+        apc = pc.per_articulated[ia]
+        nb_a, nc_a = art.num_bodies, art.num_constraints
+        U_unc = art_mod._instance_bodies(system, art, body_full).reshape(
+            *batch, art.count, 6 * nb_a)
+        CU = torch.einsum("cij,...cj->...ci", apc.C, U_unc)
+        B_a = B[..., offs[ia]:offs[ia + 1], :].reshape(*batch, art.count,
+                                                        3 * nc_a)
+        Phi = torch.einsum("cij,...cj->...ci", apc.G, B_a - CU)
+        Fc = torch.einsum("cji,...cj->...ci", apc.C, Phi).reshape(
+            *batch, art.count, nb_a, 6)
+        for j, tj in enumerate(art.sub_type_indices):
+            p = pc.per_type[tj]
+            NFc = torch.einsum("cij,...cj->...ci", p.N_body, Fc[..., j, :])
+            body_full[..., system.body_slice(tj), :] += NFc
+            lam_corr = torch.einsum(
+                "cij,...cj->...ci", p.m_inv,
+                torch.einsum("cni,...ci->...cn", p.K, NFc))
+            lam_full[..., system.blob_slice(tj), :] += lam_corr.reshape(
+                *batch, -1, 3)
+        phi_out.append(Phi.reshape(*batch, -1))
+    return torch.cat([lam_full.reshape(*batch, -1),
+                      body_full.reshape(*batch, -1)] + phi_out, dim=-1)
 
 
 def apply_identity_saddle_solver(system: System, state: State, vec):
     """Exact per-body solve of the saddle system with M = I, [I -K; -K^T
     0] [lam; U] = [slip; -F]: the unconstrained mobility solver of the
     GDC-RFD scheme. vec = [slip, F] flat; returns [lam, U]."""
-    lam, F = split_saddle_vector(system, vec)
+    lam, F, _ = split_saddle_vector(system, vec)
     lam_out, body_out = [], []
     for i, t in enumerate(system.types):
         c, nb = t.count, t.num_blobs

@@ -10,12 +10,17 @@ systems: `dense_blob_mobility`, `solve_body_mobility`,
 `solve_mobility_problem_dense` and `solve_resistance`, with bodies of
 prescribed kinematics (the right-hand side's rewrite, the prescribed
 velocity written over the solution) and Krylov recycling (`recycle=` and
-`collect_recycle=` on both solves, `refresh_recycle`). The single-blob
-articulated solve is still to be ported (ROADMAP Queue 1, item 18).
+`collect_recycle=` on both solves, `refresh_recycle`), articulated
+bodies (the constraint rows at `time=`, their forces in
+MobilitySolution.phi) and the single-blob articulated solve on the grand
+mobility (`solve_mobility_problem_single_blob`, kernel K1 grand on the
+card). Active slip (BodyType.slip_ref) enters the right-hand side, and
+the body-body Yukawa force the force assembly.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,7 +28,9 @@ import torch
 
 from ..ops import forces as force_ops
 from ..ops import gmres as gmres_mod
+from ..ops import mobility as mob
 from ..ops.gmres import gmres, gmres_lockstep
+from . import articulated as art_mod
 from . import kinematics as kin
 from . import saddle
 from .system import State, System
@@ -37,13 +44,15 @@ class MobilitySolution(NamedTuple):
     converged: object = True  # GMRES reached tolerance (every RHS)
     recycle: object = None    # the harvested ops/gmres.RecycleState
     #                           (collect_recycle)
+    phi: torch.Tensor = None  # (C,3) articulated constraint forces
 
 
 def force_torque_calculator(system: System, state: State, r_blobs):
     """Default force assembly: one-blob external forces plus blob-blob
     repulsion (direct sweep or linked cells; on single_wall_spectral the
     linked cells of the slab below spectral_wall_height), aggregated
-    through K^T. Returns (B,6)."""
+    through K^T, plus the body-body Yukawa force between body centers
+    when body_body_force_method asks for it. Returns (B,6)."""
     f_blobs = force_ops.blob_external_forces(
         r_blobs, g=system.g, blob_mass=1.0, blob_radius=system.blob_radius,
         repulsion_strength_wall=system.repulsion_strength_wall,
@@ -64,14 +73,22 @@ def force_torque_calculator(system: System, state: State, r_blobs):
             debye_length=system.debye_length,
             blob_radius=system.blob_radius,
             periodic_length=system.periodic_length)
-    return kin.KT_mul(system, state, f_blobs)
+    ft = kin.KT_mul(system, state, f_blobs)
+    if system.body_body_force_method != "none":
+        ft = ft + force_ops.body_body_forces_torques(
+            state.pos, repulsion_strength=system.repulsion_strength,
+            debye_length=system.debye_length,
+            periodic_length=system.periodic_length)
+    return ft
 
 
 def build_rhs(system: System, state: State, r_blobs, slip=None,
-              force_torque=None, noise_slip=None, noise_ft=None):
-    """RHS = [slip - noise, -(F + noise_FT)], flat. A prescribed body's
-    rows take its K U in the slip and a zero force (the operator's
-    prescribed rows, saddle._finish)."""
+              force_torque=None, noise_slip=None, noise_ft=None, time=0.0):
+    """RHS = [slip - noise, -(F + noise_FT), B], flat; B, the prescribed
+    link velocities at `time`, only with articulated bodies. The slip
+    defaults to the bodies' active slip. A prescribed body's rows take its
+    K U in the slip and a zero force (the operator's prescribed rows,
+    saddle._finish)."""
     if slip is None:
         slip = kin.active_slip(system, state)
     slip = slip.reshape(system.num_blobs, 3)
@@ -88,7 +105,9 @@ def build_rhs(system: System, state: State, r_blobs, slip=None,
         force_torque = torch.where(body_mask > 0, 0.0, force_torque)
     if noise_slip is not None:
         slip = slip - noise_slip.reshape(system.num_blobs, 3)
-    return torch.cat([slip.reshape(-1), -force_torque.reshape(-1)])
+    return torch.cat([slip.reshape(-1), -force_torque.reshape(-1),
+                      art_mod.constraint_rhs(system, state,
+                                             time).reshape(-1)])
 
 
 def _prescribed_velocities(system: System, like):
@@ -112,11 +131,13 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
                            tol: Optional[float] = None, restart: int = 60,
                            maxiter: int = 1000, m_dense="auto",
                            verbose: bool = False, recycle=None,
-                           collect_recycle: bool = False
+                           collect_recycle: bool = False, time=0.0
                            ) -> MobilitySolution:
     """Preconditioned GMRES solve of the saddle system on the unit-norm
     right-hand side. x0 is in physical units (e.g. a previous solution
-    used as a warm start). m_dense: 'auto' asks
+    [lam, U, phi] used as a warm start). The constraint rows, their
+    right-hand side and the preconditioner take the links at `time`.
+    m_dense: 'auto' asks
     saddle.maybe_dense_mobility for the configuration's engine; or pass
     the engine (a spectral plan, the materialized matrix, or None for the
     matrix-free pairwise engine). recycle: an ops/gmres.RecycleState for
@@ -128,11 +149,11 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
     if rhs is None:
         rhs = build_rhs(system, state, r_blobs, slip=slip,
                         force_torque=force_torque, noise_slip=noise_slip,
-                        noise_ft=noise_ft)
+                        noise_ft=noise_ft, time=time)
     if pc is None:
-        pc = saddle.build_block_diag_pc(system, state)
+        pc = saddle.build_block_diag_pc(system, state, time=time)
     operator = saddle.make_linear_operator(system, state, r_blobs,
-                                           m_dense=m_dense)
+                                           m_dense=m_dense, time=time)
     tol = system.solver_tolerance if tol is None else tol
     rhs_norm = torch.linalg.norm(rhs)
     safe_norm = torch.where(rhs_norm > 0, rhs_norm, torch.ones_like(rhs_norm))
@@ -152,11 +173,12 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
         result = gmres(operator, rhs / safe_norm, x0=x0, tol=tol,
                        restart=restart, maxiter=maxiter, verbose=verbose,
                        M=pc_apply)
-    lam, U = saddle.split_saddle_vector(system, result.x * rhs_norm)
+    lam, U, phi = saddle.split_saddle_vector(system, result.x * rhs_norm)
     return MobilitySolution(lam=lam, velocities=_impose_prescribed(system, U),
                             iterations=result.iterations,
                             residual_norm=result.residual_norm,
-                            converged=result.converged, recycle=rec_new)
+                            converged=result.converged, recycle=rec_new,
+                            phi=phi)
 
 
 def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
@@ -196,13 +218,13 @@ def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
         k = recycle.U.shape[0]
         rec_new = gmres_mod.harvest_recycle(
             recycle, V0, Hraw0, np.zeros((Hraw0.shape[1], k)), j_used, k)
-    lam, U = saddle.split_saddle_vector(system,
-                                        result.x * rhs_norm[:, None])
+    lam, U, phi = saddle.split_saddle_vector(system,
+                                             result.x * rhs_norm[:, None])
     return MobilitySolution(lam=lam, velocities=_impose_prescribed(system, U),
                             iterations=result.iterations,
                             residual_norm=result.residual_norm,
                             converged=bool(result.converged.all()),
-                            recycle=rec_new)
+                            recycle=rec_new, phi=phi)
 
 
 def refresh_recycle(system: System, state: State, rec, *, pc=None,
@@ -222,6 +244,103 @@ def refresh_recycle(system: System, state: State, rec, *, pc=None,
                                              m_dense=m_dense)
     return gmres_mod.refresh_recycle(
         lambda Y: operator(saddle.apply_block_diag_pc(system, pc, Y)), rec)
+
+
+def _self_mobility(system: System, like):
+    """(6,) the free-space self grand mobility's diagonal, 1/(6 pi eta a)
+    three times and 1/(8 pi eta a^3) three times."""
+    eta, a = system.eta, system.blob_radius
+    f_tt = 1.0 / (6.0 * math.pi * eta * a)
+    f_rr = 1.0 / (8.0 * math.pi * eta * a ** 3)
+    return torch.tensor([f_tt] * 3 + [f_rr] * 3, dtype=like.dtype,
+                        device=like.device)
+
+
+def _single_blob_articulated_pc(system: System, state: State, time=0.0):
+    """The constraint resistance G = pinv(C N0 C^T) of every instance, N0
+    the diagonal free-space self grand mobility; one (count, 3nc, 3nc)
+    tensor per articulated type."""
+    n0 = _self_mobility(system, state.pos)
+    Gs = []
+    for art in system.articulated:
+        C = art_mod.dense_C_per_instance(system, art, state, time)
+        n0_full = n0.repeat(art.num_bodies)
+        Gs.append(art_mod.pinv_like_jax(
+            torch.einsum("kij,j,kmj->kim", C, n0_full, C)))
+    return Gs
+
+
+def _grand_matvec(system: System, r, ft):
+    """M_grand (F, T) for single-blob bodies at r, ft (B, 6) -> (B, 6):
+    kernel K1 grand on the card."""
+    u, w = mob.grand_mobility_matvec(
+        r, ft[:, 0:3], ft[:, 3:6], system.eta, system.blob_radius,
+        domain=system.domain, periodic_length=system.periodic_length)
+    return torch.cat([u, w], dim=1)
+
+
+def solve_mobility_problem_single_blob(system: System, state: State, *,
+                                       tol=None, restart: int = 60,
+                                       maxiter: int = 1000, time=0.0,
+                                       verbose: bool = False
+                                       ) -> MobilitySolution:
+    """Constrained mobility solve of articulated single-blob bodies (the
+    articulated rollers). A single blob has no torque arm, so the
+    blob-level saddle operator loses the rotational coupling; the solve
+    takes the 6N grand mobility instead. Unknowns x = (phi, U):
+
+        U + M_grand C^T phi = M_grand F_ext
+        C U                 = B
+
+    preconditioned by each instance's constraint resistance
+    G = pinv(C N0 C^T), N0 the diagonal self mobility. Every product is
+    one K1 grand launch on the card."""
+    r = state.pos
+    nb = system.num_bodies
+    nc3 = 3 * art_mod.num_constraints(system)
+    offs = art_mod.constraint_offsets(system)
+    links = art_mod.operator_links(system, state, time)
+
+    ft = force_torque_calculator(system, state, r)
+    U_unc = _grand_matvec(system, r, ft)
+    B = art_mod.constraint_rhs(system, state, time)
+    rhs = torch.cat([U_unc.reshape(-1), B.reshape(-1)])
+
+    def operator(vec):
+        phi = vec[:nc3].reshape(-1, 3)
+        U = vec[nc3:].reshape(nb, 6)
+        Fc = art_mod.CT_mul(system, state, phi, links=links)
+        res_U = _grand_matvec(system, r, Fc) + U
+        res_C = art_mod.C_mul(system, state, U, links=links)
+        return torch.cat([res_U.reshape(-1), res_C.reshape(-1)])
+
+    Gs = _single_blob_articulated_pc(system, state, time)
+    m0 = _self_mobility(system, r)
+
+    def pc(vec):
+        rU = vec[:6 * nb].reshape(nb, 6)
+        rB = vec[6 * nb:].reshape(-1, 3)
+        CU = art_mod.C_mul(system, state, rU, links=links) - rB
+        phi = torch.cat([
+            torch.einsum("kij,kj->ki", Gs[ia], CU[offs[ia]:offs[ia + 1]]
+                         .reshape(art.count, -1)).reshape(-1, 3)
+            for ia, art in enumerate(system.articulated)], dim=0)
+        U = rU - m0[None, :] * art_mod.CT_mul(system, state, phi,
+                                              links=links)
+        return torch.cat([phi.reshape(-1), U.reshape(-1)])
+
+    tol = system.solver_tolerance if tol is None else tol
+    rhs_norm = torch.linalg.norm(rhs)
+    safe_norm = torch.where(rhs_norm > 0, rhs_norm, torch.ones_like(rhs_norm))
+    result = gmres(operator, rhs / safe_norm, tol=tol, restart=restart,
+                   maxiter=maxiter, verbose=verbose, M=pc)
+    sol = result.x * rhs_norm
+    return MobilitySolution(lam=r.new_zeros((nb, 3)),
+                            velocities=sol[nc3:].reshape(nb, 6),
+                            iterations=result.iterations,
+                            residual_norm=result.residual_norm,
+                            converged=result.converged,
+                            phi=sol[:nc3].reshape(-1, 3))
 
 
 # ---------------------------------------------------------------------------

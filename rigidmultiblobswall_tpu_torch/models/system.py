@@ -15,10 +15,12 @@ The port covers the wall-bounded and unbounded direct pairwise engine
 triply-periodic spectral Ewald engine (`domain` 'periodic_spectral') and
 the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
 slab top `spectral_wall_height`), one blob radius, with the default force
-set: direct or linked-cell blob-blob repulsion, and bodies with
-prescribed kinematics (obstacles). Fields the JAX System carries for
-other engines and models are not present; `from_reference` refuses a
-JAX system that sets them.
+set: direct or linked-cell blob-blob repulsion and the body-body Yukawa
+force, bodies with prescribed kinematics (obstacles), active slip
+(`BodyType.slip_ref`) and articulated bodies (`System.articulated`, a
+tuple of models/articulated.ArticulatedType). Fields the JAX System
+carries for other engines and models are not present; `from_reference`
+refuses a JAX system that sets them.
 
 Entry points put their tensors on the card unless the caller passes
 device="cpu"; without CUDA they raise rather than fall back.
@@ -35,6 +37,8 @@ import torch
 DOMAINS = ("single_wall", "no_wall", "periodic_spectral",
            "single_wall_spectral")
 BLOB_BLOB_METHODS = ("direct", "none", "neighbor_list")
+# 'python' is the reference's backend name; both select the one Yukawa law
+BODY_BODY_METHODS = ("none", "python", "yukawa")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,7 +65,8 @@ class BodyType:
     ref_config (nb, 3) blob coordinates at orientation (1,0,0,0) about
     the body center. A type with prescribed kinematics (an obstacle of an
     input file) moves with prescribed_velocity (count, 6), zero when
-    None, whatever the forces on it."""
+    None, whatever the forces on it. slip_ref (nb, 3) is an active slip
+    in the body frame (a .slip file), rotated with the body."""
 
     name: str
     ref_config: np.ndarray
@@ -69,10 +74,14 @@ class BodyType:
     prescribed_kinematics: bool = False
     prescribed_velocity: Optional[np.ndarray] = None
     is_obstacle: bool = False
+    slip_ref: Optional[np.ndarray] = None
 
     def __post_init__(self):
         object.__setattr__(self, "ref_config",
                            _freeze(np.reshape(self.ref_config, (-1, 3))))
+        if self.slip_ref is not None:
+            object.__setattr__(self, "slip_ref",
+                               _freeze(np.reshape(self.slip_ref, (-1, 3))))
         if self.prescribed_velocity is not None:
             object.__setattr__(
                 self, "prescribed_velocity",
@@ -124,11 +133,24 @@ class System:
     blob_blob_cutoff: float = 0.0
     blob_blob_grid_dim: int = 16
     blob_blob_cell_capacity: int = 32
+    # body-body Yukawa force between body centers ('none', the reference's
+    # default, or 'yukawa' / 'python'), with repulsion_strength and
+    # debye_length
+    body_body_force_method: str = "none"
     solver_tolerance: float = 1e-8
     rf_delta: float = 1e-3
+    # articulated-body constraint groups (models/articulated.
+    # ArticulatedType) and the tolerance of their nonlinear projection
+    articulated: Tuple = ()
+    nonlinear_solver_tolerance: float = 1e-8
 
     def __post_init__(self):
         object.__setattr__(self, "types", tuple(self.types))
+        object.__setattr__(self, "articulated", tuple(self.articulated))
+        if self.body_body_force_method not in BODY_BODY_METHODS:
+            raise ValueError(f"body_body_force_method "
+                             f"{self.body_body_force_method!r}; one of "
+                             f"{BODY_BODY_METHODS}")
         object.__setattr__(self, "periodic_length",
                            tuple(float(x) for x in self.periodic_length))
         if self.domain not in DOMAINS:
@@ -238,7 +260,10 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
     the card) and `dtype`.
 
     Reads the reference system's attributes without importing JAX.
-    Features the port does not cover yet raise NotImplementedError. The
+    Features the port does not cover yet raise NotImplementedError, and
+    so does an articulated type with a `links_fn`: a JAX-traced closure
+    the port cannot read (time-dependent links come to each package from
+    its own build_system and one .const file). The
     JAX System's TPU gridding knobs (spectral_bucket_capacity,
     spectral_plane_batch, spectral_precision) have no counterpart: the
     port grids without segment layouts or matrix units, so they are
@@ -253,19 +278,24 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
                                                  ref_system.blob_radius):
             raise NotImplementedError("per-blob radii (ROADMAP Queue 1, "
                                       "items 4 and 15)")
-        if getattr(t, "slip_ref", None) is not None:
-            raise NotImplementedError("active slip (ROADMAP Queue 1, "
-                                      "item 18)")
     for name in ("blob_force_fn", "body_force_torque_fn", "slip_fn"):
         if getattr(ref_system, name, None) is not None:
             raise NotImplementedError(f"user hook {name} (ROADMAP Queue 1, "
                                       "item 18)")
-    if getattr(ref_system, "articulated", ()):
-        raise NotImplementedError("articulated bodies (ROADMAP Queue 1, "
-                                  "item 18)")
-    if getattr(ref_system, "body_body_force_method", "none") != "none":
-        raise NotImplementedError("body-body Yukawa forces (ROADMAP Queue 1, "
-                                  "item 18)")
+    from .articulated import ArticulatedType
+
+    articulated = []
+    for a in getattr(ref_system, "articulated", ()):
+        if getattr(a, "links_fn", None) is not None:
+            raise NotImplementedError(
+                f"articulated type {a.name}: its links_fn is a JAX-traced "
+                "closure; build time-dependent links from the .const file "
+                "with the port's io/input_file.build_system")
+        articulated.append(ArticulatedType(
+            name=a.name, count=int(a.count),
+            sub_type_indices=tuple(int(i) for i in a.sub_type_indices),
+            pairs_local=np.asarray(a.pairs_local),
+            links=np.asarray(a.links)))
     system = System(
         types=tuple(BodyType(
             name=t.name, ref_config=np.asarray(t.ref_config),
@@ -273,7 +303,8 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
             prescribed_kinematics=bool(getattr(t, "prescribed_kinematics",
                                                False)),
             prescribed_velocity=getattr(t, "prescribed_velocity", None),
-            is_obstacle=bool(getattr(t, "is_obstacle", False)))
+            is_obstacle=bool(getattr(t, "is_obstacle", False)),
+            slip_ref=getattr(t, "slip_ref", None))
             for t in ref_system.types),
         eta=float(ref_system.eta),
         blob_radius=float(ref_system.blob_radius),
@@ -293,8 +324,13 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         blob_blob_cutoff=float(ref_system.blob_blob_cutoff),
         blob_blob_grid_dim=int(ref_system.blob_blob_grid_dim),
         blob_blob_cell_capacity=int(ref_system.blob_blob_cell_capacity),
+        body_body_force_method=getattr(ref_system, "body_body_force_method",
+                                       "none"),
         solver_tolerance=float(ref_system.solver_tolerance),
         rf_delta=float(ref_system.rf_delta),
+        articulated=tuple(articulated),
+        nonlinear_solver_tolerance=float(getattr(
+            ref_system, "nonlinear_solver_tolerance", 1e-8)),
     )
     if positions is None:
         return system

@@ -7,10 +7,11 @@ a fully periodic box or an xy-periodic wall slab, with its overflow count
 and start-up capacity sizing. The direct pair sweep runs kernel K2
 (ops/mobility_cuda.py; its periodic instance with periodic images) and
 the linked-cell sweep kernel K5 (ops/cell_kernels.py) on a CUDA tensor,
-their plain versions on a CPU tensor. Body-body Yukawa forces, the
-linked-cell path's fallback to the direct periodic sweep in boxes under
-4 cells, and neighbor lists in open boxes are still to be ported
-(ROADMAP Queue 1, items 4, 14 and 18).
+their plain versions on a CPU tensor; `body_body_forces_torques`, the
+Yukawa force between body centers, is plain PyTorch on both (XLA in the
+JAX package too). The linked-cell path's fallback to the direct periodic
+sweep in boxes under 4 cells, and neighbor lists in open boxes, are
+still to be ported (ROADMAP Queue 1, items 4 and 14).
 
 Physics: gravity plus the wall repulsion of
 U(z) = U0 + U0 (a-z)/b for z < a, U0 exp(-(z-a)/b) otherwise, and the
@@ -53,6 +54,31 @@ def blob_blob_forces(r_vectors, *, repulsion_strength=0.0, debye_length=1.0,
         r_vectors.contiguous(), repulsion_strength=repulsion_strength,
         debye_length=debye_length, blob_radius=blob_radius,
         periodic_length=periodic_length)
+
+
+def body_body_forces_torques(locations, *, repulsion_strength=0.0,
+                             debye_length=1.0,
+                             periodic_length=(0.0, 0.0, 0.0)):
+    """The Yukawa force between body centers (zero torque), (B, 6) as
+    (force, torque): on body i, sum over j of (eps/b + eps/r) exp(-r/b)
+    d / r^2 with d = x_i - x_j at its minimum image and r = |d|; pairs
+    at r = 0 add nothing."""
+    nb = locations.shape[0]
+    out = locations.new_zeros((nb, 6))
+    if repulsion_strength == 0.0 or nb < 2:
+        return out
+    d = mobility_cuda.min_image(locations[:, None, :] - locations[None, :, :],
+                                periodic_length)
+    r2 = torch.sum(d * d, dim=-1)
+    skip = (torch.eye(nb, dtype=torch.bool, device=locations.device)
+            | (r2 == 0.0))
+    r2 = torch.where(skip, torch.ones_like(r2), r2)
+    r = torch.sqrt(r2)
+    eps, b = repulsion_strength, debye_length
+    mag = ((eps / b) + (eps / r)) * torch.exp(-r / b) / r2
+    mag = torch.where(skip, torch.zeros_like(mag), mag)
+    out[:, :3] = torch.sum(mag[..., None] * d, dim=1)
+    return out
 
 
 def _cutoff(blob_radius, debye_length, cutoff):

@@ -254,15 +254,63 @@ def test_entry_points_need_the_card_unless_told_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
-    """Articulated bodies (ROADMAP Queue 1, item 18) are refused, not
-    ignored (obstacles, refused before, now run:
-    test_cli_obstacles_match_jax)."""
+    """A structure's .Laplace file (phoretic slip, ROADMAP Queue 1, item
+    18) is refused in a dynamic run, not ignored (articulated bodies and
+    .slip files, refused before, now run: test_cli_articulated_matches_jax
+    and tests/test_torch_active.py)."""
     inp = _write_scene(tmp_path, "stochastic_Slip_Trapz",
-                       extra="articulated shell.vertex shell.clones "
-                             "shell.const\n")
+                       files={"shell.Laplace": "12\n"})
+    inp.write_text(inp.read_text().replace(
+        "structure shell.vertex shell.clones",
+        "structure shell.vertex shell.clones shell.Laplace"))
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="articulated"):
+    with pytest.raises(NotImplementedError, match="Laplace"):
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("scheme", [
+    "articulated_deterministic_forward_euler_rollers",
+    "articulated_deterministic_midpoint_rollers"])
+def test_cli_articulated_matches_jax(tmp_path, monkeypatch, scheme):
+    """The articulated_dumbbells example (8 single-blob bodies in four
+    dumbbells) through both CLIs, 4 steps saved every 2, run from the
+    example's copy (its .list_vertex names blob.vertex relative to the
+    working directory): the same set of files (the JAX .random_state
+    excepted, ROADMAP Queue 1, item 11), the same .clones of the
+    articulated ID in the clones file's order to 1e-9 of the
+    displacement, and the same .info, .bodies_info, .inputfile and
+    .git."""
+    src = Path(__file__).resolve().parents[1] / "examples" / (
+        "articulated_dumbbells")
+    edits = {"n_steps": "4", "n_save": "2", "scheme": scheme,
+             "solver_tolerance": "1e-10"}
+    out = {}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        lines = [ln for ln in (src / "inputfile.dat").read_text().splitlines()
+                 if not ln.split() or ln.split()[0] not in edits]
+        lines += [f"{k} {v}" for k, v in edits.items()]
+        (d / "input.dat").write_text("\n".join(lines) + "\n")
+        monkeypatch.chdir(d)
+        main(["--input-file", str(d / "input.dat")] + argv)
+        out[name] = d
+    names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
+    assert names["jax"] - names["torch"] == {"run_dumbbells.random_state"}
+    assert names["torch"] - names["jax"] == set()
+    start = _clones(src / "dumbbells.clones")
+    for k in (0, 2, 4):
+        f = "run_dumbbells.dumbbells.%08d.clones" % k
+        ref, got = _clones(out["jax"] / f), _clones(out["torch"] / f)
+        disp = np.abs(ref[:, :3] - start[:, :3]).max()
+        np.testing.assert_allclose(got, ref, atol=1e-9 * max(disp, 1e-3),
+                                   rtol=0)
+    assert disp > 1e-4
+    for f in ("run_dumbbells.info", "run_dumbbells.bodies_info",
+              "run_dumbbells.inputfile", "run_dumbbells.git"):
+        assert (out["torch"] / f).read_text() == (out["jax"] / f).read_text()
 
 
 @pytest.mark.parametrize("scheme", ["stochastic_GDC_RFD",

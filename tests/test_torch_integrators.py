@@ -150,17 +150,13 @@ def test_wall_rejection_retries_are_bounded():
 
 
 def test_unported_schemes_and_options_raise():
-    """Only the articulated schemes (ROADMAP Queue 1, item 18) are still
-    refused; every other JAX scheme and Krylov recycling build a
-    stepper."""
+    """Every scheme of the JAX package builds a stepper, the four
+    articulated ones included (tests/test_torch_articulated.py and
+    tests/test_torch_articulated_rollers.py run them); an unknown scheme
+    raises, and Krylov recycling builds one."""
     _, _, ts, _, _, _ = shells_scene(2)
-    for scheme in ("articulated_deterministic_forward_euler_rollers",
-                   "articulated_deterministic_midpoint_rollers",
-                   "articulated_deterministic_forward_euler",
-                   "articulated_deterministic_midpoint"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            tint.make_stepper(ts, scheme, 1e-3)
-    for scheme in set(jint.available_schemes()) - set(tint._NOT_PORTED):
+    assert set(jint.available_schemes()) == set(tint._SCHEMES)
+    for scheme in jint.available_schemes():
         assert callable(tint.make_stepper(ts, scheme, 1e-3))
     with pytest.raises(ValueError):
         tint.make_stepper(ts, "no_such_scheme", 1e-3)

@@ -2,13 +2,19 @@
 (Slip-Trapz, or the scheme --scheme names).
 
 Drives chip_smoke.py's main-path configuration (bench.py's `multibody`
-scene, 4096 twelve-blob shells = 49,152 blobs, float32) on a CUDA card:
+scene, 4096 twelve-blob shells = 49,152 blobs, float32; for the
+articulated multibody schemes chip_smoke.py's phase 14 chains, the
+shells in four-shell chains) on a CUDA card:
 one warm-up step, a few unprofiled steps timed on the host clock around
 `torch.cuda.synchronize()`, then one step under torch.profiler (CUDA
 activity). Prints the card's name and power limit, the unprofiled
 ms/step with iteration counts, and per-kernel device time, launch count
 and share of the profiled step; the device's busy time against the
-step's wall time gives its idle share.
+step's wall time gives its idle share. For the articulated schemes it
+first times the parts of a forward Euler step on the host clock, each
+bracketed by `torch.cuda.synchronize()`: the preconditioner's build, the
+constrained GMRES solve, the update with the centre-of-mass correction,
+and the nonlinear projection.
 
 Usage: python3 tools/torch_profile_step.py [n_shells] [--steps N]
        [--scheme NAME]
@@ -26,7 +32,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from rigidmultiblobswall_tpu_torch.models import articulated  # noqa: E402
 from rigidmultiblobswall_tpu_torch.models import integrators  # noqa: E402
+from rigidmultiblobswall_tpu_torch.models import kinematics  # noqa: E402
+from rigidmultiblobswall_tpu_torch.models import saddle, solvers  # noqa: E402
 from rigidmultiblobswall_tpu_torch.models.system import make_state  # noqa: E402
 
 
@@ -36,6 +45,33 @@ def _self_device_us(evt):
         if hasattr(evt, name):
             return getattr(evt, name)
     return 0.0
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def articulated_parts(system, state, dt=1e-3):
+    """Host-clock times of an articulated forward Euler step's parts at
+    `state`, with the Gauss-Newton iterations of its projection."""
+    pc, pc_ms = _timed(lambda: saddle.build_block_diag_pc(system, state))
+    sol, solve_ms = _timed(lambda: solvers.solve_mobility_problem(
+        system, state, pc=pc, m_dense=None, maxiter=300))
+    moved, com_ms = _timed(lambda: articulated.correct_center_of_mass(
+        system, kinematics.advance(state, sol.velocities, dt), state,
+        sol.velocities, dt, time=dt))
+    articulated.GN_ITERATIONS.clear()
+    _, proj_ms = _timed(lambda: articulated.nonlinear_projection(
+        system, moved, time=dt, tol=system.nonlinear_solver_tolerance))
+    print(f"articulated FE step parts (host clock): PC build {pc_ms:.1f} ms, "
+          f"solve {solve_ms:.1f} ms ({sol.iterations} GMRES sweeps), "
+          f"update and centre-of-mass correction {com_ms:.1f} ms, "
+          f"projection {proj_ms:.1f} ms (Gauss-Newton iterations "
+          f"{list(articulated.GN_ITERATIONS)})", flush=True)
 
 
 def main():
@@ -51,8 +87,13 @@ def main():
     print(chip_smoke.smi(), flush=True)
 
     dev = torch.device("cuda")
-    system = chip_smoke.bench_system(args.n_shells)
-    pos, quat = chip_smoke.lattice(args.n_shells)
+    if args.scheme.startswith("articulated_"):
+        n_chains = args.n_shells // chip_smoke.CHAIN_BODIES
+        system = chip_smoke.chain_system(n_chains)
+        pos, quat = chip_smoke.chain_lattice(n_chains)
+    else:
+        system = chip_smoke.bench_system(args.n_shells)
+        pos, quat = chip_smoke.lattice(args.n_shells)
     state = make_state(pos, quat, dtype=torch.float32, device=dev)
     step = integrators.make_stepper(
         system, args.scheme, 1e-3, lanczos_tolerance=5e-4,
@@ -63,6 +104,9 @@ def main():
     state, carry, _ = step(state, gen, carry)          # warm-up and build
     torch.cuda.synchronize()
 
+    if args.scheme.startswith("articulated_"):
+        for _ in range(2):
+            articulated_parts(system, state)
     for _ in range(args.steps):
         t0 = time.perf_counter()
         state, carry, aux = step(state, gen, carry)
