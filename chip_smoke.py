@@ -12,7 +12,8 @@ is non-zero and no result line is printed):
      on csrc/pair_blocks.cuh), K2 and its periodic instance
      (csrc/blob_forces.cu), K3 (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu),
      K5, K6, K7 and K8 (csrc/nl_forces.cu, csrc/near_rpy.cu,
-     csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) with
+     csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) and
+     L1, the Laplace layer sums (csrc/laplace_layers.cu), with
      one nvcc per source, all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
@@ -137,6 +138,40 @@ is non-zero and no result line is printed):
      rejections. Phase 3 holds K1 tt and K2 at the chains' 49,152 blobs
      and K1 grand at the dumbbells' 32,768 rollers to their plain
      versions for phase 14's three kernel records.
+ 15. the phoretic path at full width (multibody-49k-phoretic): phase 6's
+     scene (4096 shells, 49,152 blobs, direct forces, tolerance 2e-4,
+     float32) with every shell a Janus particle (a generated .Laplace
+     chemistry: radial normals, weights 4 pi (0.5)^2 / 12, k = 5 and q = 0
+     above the body-frame equator, k = 0 and q = 1 below, surface
+     mobility 5; background_Laplace 1) under deterministic forward Euler
+     and stochastic Slip-Trapz, one warm-up and three timed steps each:
+     ms/step, the Stokes GMRES sweeps and Lanczos iterations, the
+     Laplace GMRES iterations of every solve (each must converge below
+     maxiter 1000), peak device memory and the launches (L1's BVP
+     operator, single layer and surface gradient, K1 tt and K2 must run;
+     K1's other couplings, K3/K4 and K5-K8 must not); one phoretic_slip
+     call read directly, and the concentration field on a 64 x 64 x 8
+     grid over the suspension through L1 with the self mask off, timed.
+     Phase 3 checks every L1 operator (S, D, dD, T, the fused BVP
+     operator and surface gradient) against its float64 plain version on
+     a random ~3000-blob scene above the wall (wall on and off, self mask
+     on and off, float32 and float64, twice bit-identical; float32 within
+     u32 sqrt(N) or twice the float32 plain version's error, which it
+     prints beside it) and at phase 15's shapes (every target of the
+     fused sums, the first 1024 of the others), with five kernel records
+     (the BVP operator, the right-hand side's single layer, the surface
+     gradient, and the concentration field's double and single layers at
+     its 32,768 grid points), each bound the larger of its float32
+     operations at 67 TFLOP/s and its rsqrts at 16 a clock an SM, on the
+     unordered pairs where the targets are the sources; phase 4 runs 8 Janus shells x 3 steps of forward
+     Euler (kT 0) and Slip-Trapz (kT 0.05, the same normals fed) and 16
+     rollers with a torque_fn hook, card against CPU (float64 to 1e-9 of
+     the displacement, float32 to 1e-2); phase 5 runs generated inputs
+     through the CLI, card float64 against CPU float64: Janus shells under
+     forward Euler, body_mobility with a .Laplace file, mobility with
+     plot_velocity_field, tracer_radius and plot_concentration_field (the
+     VTK files' numbers), and a torch user_defined_functions.py with
+     body_force_torque_fn and postprocess.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -166,8 +201,9 @@ CPU float64).
 The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
-K5 its special functions at 16 a clock an SM, whichever is larger; K2
-and K7 also name their design; K8 has a record per variant);
+K5 and L1 their special functions at 16 a clock an SM, whichever is
+larger; K2 and K7 also name their design; K8 and L1 have a record per
+instance);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -3522,6 +3558,627 @@ def phase_articulated_path(pk, mc):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The user hooks and the phoretic path (ROADMAP Queue 1, item 18, bullets
+# 1-3): phase 3's L1 checks and records, phase 4's parity, phase 5's CLIs,
+# phase 15
+# ---------------------------------------------------------------------------
+
+L1_OPS = ("S", "D", "dD", "T", "bvp", "grad")
+# float32 operations of a pair's term (an FMA as 2), counted from the JAX
+# package's formulas (ops/laplace.py, models/phoretic.py): the geometry,
+# the displacement and |d|^2 (8) for the real pair, and z_i + z_j and
+# |R|^2 from the real pair's dx^2 + dy^2 (3) for its image; then each
+# operator's work, split into what depends only on the pair (the same for
+# (i, j) and (j, i)) and what each direction adds. S: the multiply-add
+# (0 + 2); D: 1/r^3 (2) + r.n, its scale and the multiply-add (8); bvp:
+# D's and S's on one 1/r (2 + 10); T: 1/r^3 (2) + the scaled field and
+# three multiply-adds (7); dD: 1/r^2, 1/r^3, -3/r^2 and the five L
+# components with L_zz (19) + L n and three multiply-adds (21); grad: dD's
+# and T's on one 1/r^3 (19 + 28). One rsqrt a pair (MUFU.RSQ), the real
+# pair's and the image's.
+L1_REAL_GEOM_FLOPS = 8
+L1_IMAGE_GEOM_FLOPS = 3
+L1_PAIR_FLOPS = {"S": 0, "D": 2, "bvp": 2, "T": 2, "dD": 19, "grad": 19}
+L1_DIR_FLOPS = {"S": 2, "D": 8, "bvp": 10, "T": 7, "dD": 21, "grad": 28}
+# bytes a source and a target of each operator (float32): positions 12,
+# normals 12 (D, dD, bvp, grad), the field and the weights 8, the rates 4
+# each (bvp k; grad k and q); a target's position (12, not re-read by the
+# fused sums, whose targets are the sources) and its 1 or 3 outputs
+L1_SRC_BYTES = {"S": 20, "D": 32, "dD": 32, "T": 20, "bvp": 36, "grad": 40}
+L1_TGT_BYTES = {"S": 16, "D": 16, "dD": 24, "T": 24, "bvp": 4, "grad": 12}
+# the Janus chemistry of phase 15's shells (examples/phoretic_janus'
+# split): the upper half (body-frame z >= 0) reacts, the lower half emits
+JANUS_MOBILITY = 5.0
+# phase 15's concentration grid: 64 x 64 x 8 cells over the 4096-shell
+# lattice (x, y in [0, 24], z in [2, 26])
+CONC_GRID = (-1.0, 25.0, 64, -1.0, 25.0, 64, 1.0, 27.0, 8)
+# phase 15's Laplace GMRES: the JAX package's maxiter and restart
+LAPLACE_MAXITER = 1000
+
+
+def write_laplace_file(path, ref, mobility=JANUS_MOBILITY):
+    """A .Laplace file for a shell of blobs ref (nb, 3): radial normals,
+    weights 4 pi R^2 / nb, k = 5 and q = 0 above the body-frame equator,
+    k = 0 and q = 1 below it, surface mobility `mobility`."""
+    R = np.linalg.norm(ref, axis=1)
+    n = ref / R[:, None]
+    w = 4 * np.pi * R.mean() ** 2 / len(ref)
+    with open(path, "w") as f:
+        for ni in n:
+            k, q = (5.0, 0.0) if ni[2] >= 0 else (0.0, 1.0)
+            f.write(" ".join("%.16g" % v for v in (*ni, k, q, mobility, w))
+                    + "\n")
+
+
+def janus_config(ref=None, background=(1.0,)):
+    """The port's PhoreticConfig of a generated Janus .Laplace file for the
+    shell ref (bench.py's shell by default), read back as build_system
+    reads one."""
+    from rigidmultiblobswall_tpu_torch.models import phoretic
+
+    ref = shell_vertices() if ref is None else ref
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "shell.Laplace")
+        write_laplace_file(path, ref)
+        chem = phoretic.Chemistry.from_laplace_file(path)
+    bg = np.hstack([background, np.zeros(9 - len(background))])
+    return phoretic.PhoreticConfig(chemistry=(chem,), background=bg,
+                                   diffusion_coefficient=1.0)
+
+
+def phoretic_system(n, **overrides):
+    """bench_system with every shell a Janus particle: the System's
+    slip_fn is the phoretic slip (models/phoretic.make_slip_fn)."""
+    from rigidmultiblobswall_tpu_torch.models import phoretic
+
+    cfg = janus_config()
+    system = bench_system(n, **overrides)
+    return dataclasses.replace(system, slip_fn=phoretic.make_slip_fn(cfg)), \
+        cfg
+
+
+def l1_call(lap, op, r, tgt, nrm, c, w, k, q, *, wall, self_interaction,
+            plain=False, rows=None):
+    """L1's operator `op` as the path calls it (the fused sums on the blobs
+    with the self mask on), or its plain version; `rows` limits the plain
+    versions of the unfused operators to the first targets."""
+    dc = 1.0
+    if op == "bvp":
+        fn = lap.bvp_operator_plain if plain else lap.bvp_operator
+        return fn(r, c, w, nrm, k, dc, wall=wall)
+    if op == "grad":
+        fn = lap.surface_gradient_plain if plain else lap.surface_gradient
+        return fn(r, c, w, nrm, k, q, dc, wall=wall)
+    name = {"S": "single_layer", "D": "double_layer",
+            "dD": "deriv_double_layer", "T": "dipole"}[op]
+    extra = (nrm,) if op in ("D", "dD") else ()
+    if plain:
+        t = tgt if rows is None else tgt[:rows]
+        return getattr(lap, name + "_plain")(
+            r, t, c, w, *extra, wall=wall, self_interaction=self_interaction)
+    return getattr(lap, name)(r, tgt, c, w, *extra, wall=wall,
+                              self_interaction=self_interaction)
+
+
+def l1_pair_work(op, ns, nt, wall, on_surface):
+    """(float32 operations, rsqrts) that L1's operator `op` needs over nt
+    targets and ns sources, with each pair's real term and, with wall, its
+    image term (the masked pairs are a handful). On the surface (targets
+    are the sources, the self mask on) 1/r, 1/R and |d|^2 are symmetric in
+    (i, j): each unordered pair's geometry and rsqrt count once, real and
+    image, its per-direction work twice, and each blob's own image once;
+    off the surface every (target, source) pair counts."""
+    real = L1_REAL_GEOM_FLOPS + L1_PAIR_FLOPS[op]
+    image = L1_IMAGE_GEOM_FLOPS + L1_PAIR_FLOPS[op]
+    per_dir = L1_DIR_FLOPS[op]
+    if not on_surface:
+        pairs = nt * ns
+        flops = pairs * (real + per_dir)
+        if wall:
+            flops += pairs * (image + per_dir)
+        return flops, pairs * (2 if wall else 1)
+    pairs = ns * (ns - 1) // 2
+    flops = pairs * (real + 2 * per_dir)
+    rsqrt = pairs
+    if wall:
+        flops += pairs * (image + 2 * per_dir) + ns * (image + per_dir)
+        rsqrt += pairs + ns
+    return flops, rsqrt
+
+
+def l1_bound(op, ns, nt, wall, on_surface):
+    """L1's bound record for `op` (l1_pair_work): the larger of its float32
+    operations at 67 TFLOP/s and its rsqrts at 16 a clock an SM, or its
+    bytes at 3.35 TB/s."""
+    nbytes = ns * L1_SRC_BYTES[op] + nt * L1_TGT_BYTES[op]
+    return bound_record(nbytes, *l1_pair_work(op, ns, nt, wall, on_surface))
+
+
+def l1_inputs(r, nrm, g):
+    """The fields of an L1 check on blobs r with normals nrm: a
+    concentration near 1, the weights and rates of the Janus chemistry
+    (tiled), all on r's device and dtype."""
+    n = r.shape[0]
+    up = nrm[:, 2] >= 0
+    like = dict(dtype=r.dtype, device=r.device)
+    c = 1.0 + 0.1 * torch.randn(n, generator=g, device=r.device).to(r.dtype)
+    w = torch.full((n,), float(4 * np.pi * 0.25 / 12), **like)
+    k = torch.where(up, 5.0, 0.0).to(r.dtype)
+    q = torch.where(up, 0.0, 1.0).to(r.dtype)
+    return c, w, k, q
+
+
+def l1_check(lap, op, args, wall, self_interaction, what, rows=None):
+    """One L1 instance against its float64 plain version (every target, or
+    the first `rows`), twice bit-identical; float64 runs within 1e-12,
+    float32 within u32 sqrt(Ns) or twice the float32 plain version's own
+    error, both times max|ref|. Returns (max abs error, the float32 plain
+    version's, ref scale)."""
+    kw = dict(wall=wall, self_interaction=self_interaction)
+    got = l1_call(lap, op, *args, **kw)
+    again = l1_call(lap, op, *args, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    ref = l1_call(lap, op, *[a.double() for a in args], **kw, plain=True,
+                  rows=rows)
+    sub = ref.shape[0]
+    scale = float(ref.abs().max())
+    err = float((got[:sub].double() - ref).abs().max())
+    f32 = args[0].dtype == torch.float32
+    plain_err = None
+    bound = 1e-12
+    if f32:
+        plain = l1_call(lap, op, *args, **kw, plain=True, rows=rows)
+        plain_err = float((plain.double() - ref).abs().max())
+        bound = max(2 ** -24 * args[0].shape[0] ** 0.5,
+                    2 * plain_err / scale)
+    log(f"L1 {op} {what} wall={wall} self={self_interaction} "
+        f"{args[0].dtype}: first {sub} targets vs plain f64 max err "
+        f"{err:.3e}, / max|ref| = {err / scale:.3e} (bound {bound:.2e})"
+        + (f"; float32 plain version {plain_err / scale:.3e}" if f32
+           else "") + f"; repeat bit-identical {same}")
+    check(err <= bound * scale, f"L1 {op} disagrees at {what} (wall={wall}"
+          f", self={self_interaction}, {args[0].dtype}): {err / scale:.3e}")
+    check(same, f"L1 {op} not bit-identical on repeat at {what}")
+    return err, plain_err, scale
+
+
+def phase_l1_kernels():
+    """Phase 3, L1: every operator on a random ~3000-blob scene above the
+    wall (a blob on the wall, a coincident pair, off-surface targets for
+    the unfused operators), wall on and off, self mask on and off,
+    float32 and float64; then at phase 15's 49,152 blobs (every target of
+    the fused sums, the first 1024 of the others), each instance as the
+    path calls it, timed with its plain version and its bound: the BVP operator, the single layer of the
+    right-hand side and the surface gradient (the self mask on), and the
+    double and single layers of the concentration field at its 32,768
+    grid points (the self mask off). Returns the records."""
+    from rigidmultiblobswall_tpu_torch.models import fields
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models import phoretic
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+    from rigidmultiblobswall_tpu_torch.ops.pair_kernels import _n_sm
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(15)
+    n, n_off = 3000, 1200
+    r = rng.uniform(0, 20, (n, 3))
+    r[:, 2] = rng.uniform(0, 4, n)
+    r[0, 2] = 0.0
+    r[1] = r[2]
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tgt = rng.uniform(0, 20, (n_off, 3))
+    tgt[7] = r[11]
+    g = torch.Generator(device=dev).manual_seed(15)
+    for dtype in (torch.float32, torch.float64):
+        rt, tt, nt_ = (torch.as_tensor(x, dtype=dtype, device=dev)
+                       for x in (r, tgt, nrm))
+        args = (rt, tt, nt_, *l1_inputs(rt, nt_, g))
+        for op in L1_OPS:
+            for wall in (True, False):
+                for self_interaction in ((True,) if op in ("bvp", "grad")
+                                         else (True, False)):
+                    l1_check(lap, op, args, wall, self_interaction,
+                             f"{n} blobs")
+
+    # phase 15's shapes: the 4096 Janus shells' blobs and lab normals, and
+    # the concentration grid
+    system, cfg = phoretic_system(N_SHELLS)
+    pos, quat = lattice(N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    rb = kin.blob_positions(system, state).contiguous()
+    nb = phoretic.lab_normals(system, state, cfg.chemistry).contiguous()
+    grid = torch.as_tensor(fields.velocity_field_grid(CONC_GRID)[0],
+                           dtype=torch.float32, device=dev)
+    args = (rb, grid, nb, *l1_inputs(rb, nb, g))
+    ns = rb.shape[0]
+    records = {}
+    for op, self_interaction, key in (("bvp", True, "bvp"), ("S", True, "S"),
+                                      ("grad", True, "grad"),
+                                      ("D", False, "D_off"),
+                                      ("S", False, "S_off"),
+                                      ("dD", True, None), ("T", True, None)):
+        off = not self_interaction
+        what = (f"{ns} blobs, {grid.shape[0]} grid points" if off
+                else f"{ns} blobs")
+        a = args if off else (rb, rb) + args[2:]
+        fused = op in ("bvp", "grad")
+        err, _, scale = l1_check(lap, op, a, True, self_interaction, what,
+                                 rows=None if fused else 1024)
+        kw = dict(wall=True, self_interaction=self_interaction)
+        ms = cuda_ms(lambda: l1_call(lap, op, *a, **kw), 10)
+        nt = a[1].shape[0]
+        bound = l1_bound(op, ns, nt, True, not off)
+        # the directed bound: every (target, source) pair evaluated, as
+        # the kernel's sweep does
+        directed = l1_bound(op, ns, nt, True, False)["bound_ms"]
+        if key is None:      # not on the path: its time in the log only
+            log(f"L1 {op} {what} f32 (not on the path): kernel {ms:.3f} ms, "
+                f"bound {bound['bound_ms']:.3f} ms (directed "
+                f"{directed:.3f} ms)")
+            continue
+        plain_ms = cuda_ms(lambda: l1_call(lap, op, *a, **kw, plain=True),
+                           1, warmup=False)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+        log(f"L1 {op} {what} f32: kernel {ms:.3f} ms, bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / ms:.1%} of it; directed {directed:.3f} ms, "
+            f"{directed / ms:.1%}), plain f32 {plain_ms:.1f} ms"
+            f"; {lap.plan_slices(nt, ns, _n_sm(rb))} (slices, tiles a "
+            f"slice); max|ref| {scale:.3e}")
+        records[key] = rec
+    return records
+
+
+def run_phoretic_steps(system, scheme, pos, quat, dtype, device, tol,
+                       n_steps=3):
+    """n_steps of `scheme` on a phoretic system from (pos, quat), the
+    normals of host_normals(11) (the same numbers on the CPU and the
+    card). Returns the final positions as float64 numpy and the last
+    aux."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system = dataclasses.replace(system, solver_tolerance=tol)
+    state = make_state(pos, quat, dtype=dtype, device=device)
+    step = integrators.make_stepper(system, scheme, 1e-2, tolerance=tol,
+                                    lanczos_tolerance=1e-8)
+    carry = integrators.init_carry(system, state=state)
+    draw, integrators.draw_normal = (integrators.draw_normal,
+                                     host_normals(11))
+    try:
+        for _ in range(n_steps):
+            state, carry, aux = step(state, None, carry)
+    finally:
+        integrators.draw_normal = draw
+    return state.pos.double().cpu().numpy(), aux
+
+
+def phase_phoretic_parity(pk, mc):
+    """Phase 4, item 18: 8 Janus shells above the wall (96 blobs, the
+    materialized engine and L1) x 3 steps of deterministic forward Euler
+    at kT = 0 and of stochastic Slip-Trapz at kT = 0.05, the same normals
+    fed; and 16 rollers with a torque_fn hook under stochastic
+    Adams-Bashforth (free kinematics). Card float64 against CPU float64
+    (1e-9 of the displacement) and card float32 against CPU float64
+    (1e-2)."""
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    for key in lap.LAUNCHES:
+        lap.LAUNCHES[key] = 0
+    pos, quat = lattice(8, seed=7)
+    pos, quat = pos.astype(np.float64), quat.astype(np.float64)
+    for scheme, kT in (("deterministic_forward_euler", 0.0),
+                       ("stochastic_Slip_Trapz", 0.05)):
+        system, _ = phoretic_system(8, kT=kT)
+        ref, _ = run_phoretic_steps(system, scheme, pos, quat,
+                                    torch.float64, "cpu", 1e-12)
+        got64, aux = run_phoretic_steps(system, scheme, pos, quat,
+                                        torch.float64, DEVICE, 1e-12)
+        got32, _ = run_phoretic_steps(system, scheme, pos, quat,
+                                      torch.float32, DEVICE, 1e-5)
+        disp = np.abs(ref - pos).max()
+        e64 = np.abs(got64 - ref).max() / disp
+        e32 = np.abs(got32 - ref).max() / disp
+        log(f"phoretic parity, 8 Janus shells x 3 {scheme} steps (kT {kT}; "
+            f"max displacement {disp:.3e}), max error / max displacement: "
+            f"GPU f64 vs CPU f64 {e64:.3e} (bound 1e-9), GPU f32 vs CPU f64 "
+            f"{e32:.3e} (bound 1e-2); gmres {aux.det_iterations}")
+        check(disp > 1e-3 and e64 <= 1e-9 and e32 <= 1e-2,
+              f"phoretic parity ({scheme})")
+    launches = {op: lap.launches(op) for op in ("bvp", "S", "grad")}
+    log(f"phoretic parity L1 launches {launches}")
+    check(min(launches.values()) > 0, f"the phoretic slice did not run on "
+          f"L1: {launches}")
+
+    def torque_fn(sus, r):
+        zero = 0.0 * r[:, 0]
+        return torch.stack([zero, 20.0 + 2.0 * r[:, 2], zero], dim=1)
+
+    r0 = roller_lattice(16, seed=5).astype(np.float64)
+    scheme = "stochastic_adams_bashforth_rollers"
+    sus64 = roller_suspension(16, solver_tolerance=1e-12,
+                              free_kinematics=True, torque_fn=torque_fn)
+    ref, _ = run_roller_steps(sus64, r0, scheme, torch.float64, "cpu")
+    got64, _ = run_roller_steps(sus64, r0, scheme, torch.float64, DEVICE)
+    sus0 = dataclasses.replace(sus64, kT=0.0)
+    ref0, _ = run_roller_steps(sus0, r0, scheme, torch.float64, "cpu")
+    got32, _ = run_roller_steps(dataclasses.replace(sus0,
+                                                    solver_tolerance=1e-5),
+                                r0, scheme, torch.float32, DEVICE)
+    disp, disp0 = np.abs(ref - r0).max(), np.abs(ref0 - r0).max()
+    e64 = np.abs(got64 - ref).max() / disp
+    e32 = np.abs(got32 - ref0).max() / disp0
+    log(f"roller hook parity, 16 rollers x 3 steps of {scheme} with a "
+        f"torque_fn (max displacement {disp:.3e} at kT = 0.05, {disp0:.3e} "
+        f"at kT = 0), max error / max "
+        f"displacement: GPU f64 vs CPU f64 {e64:.3e} (bound 1e-9), GPU f32 "
+        f"vs CPU f64 at kT = 0 {e32:.3e} (bound 1e-2)")
+    check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2, "roller hook parity")
+
+
+def read_vtk_text(text):
+    """The numbers of a legacy-VTK rectilinear grid's text, in order."""
+    nums = []
+    for line in text.splitlines()[4:]:
+        for tok in line.split():
+            try:
+                nums.append(float(tok))
+            except ValueError:
+                pass
+    return np.array(nums)
+
+
+def phoretic_inputs(dd, pos, quat, settings, hooks=None):
+    """write_shell_input with a Janus .Laplace file on the structure (and
+    a user_defined_functions.py)."""
+    write_laplace_file(os.path.join(dd, "shell.Laplace"), shell_vertices())
+    if hooks is not None:
+        with open(os.path.join(dd, "user_defined_functions.py"), "w") as f:
+            f.write(hooks)
+    inp = write_shell_input(dd, pos, quat, settings)
+    with open(inp) as f:
+        text = f.read().replace(
+            "structure shell.vertex shell.clones",
+            "structure shell.vertex shell.clones shell.Laplace")
+    with open(inp, "w") as f:
+        f.write(text)
+    return inp
+
+
+HOOKS_TORCH = """import dataclasses
+
+import torch
+
+
+def body_force_torque_fn(system, state, r_blobs):
+    z = state.pos[:, 2]
+    zero = 0.0 * z
+    return torch.stack([zero, 0.02 * z, zero, zero, zero, 0.3 + 0.1 * z],
+                       dim=1)
+
+
+def postprocess(system, state, step):
+    pos = state.pos.clone()
+    pos[:, 0] += 1e-3 * (step + 1)
+    return dataclasses.replace(state, pos=pos)
+"""
+
+
+def phase_phoretic_cli():
+    """Phase 5, item 18: generated inputs through the CLI, card float64
+    against CPU float64: 8 Janus shells (a .Laplace file) x 3 forward
+    Euler steps at kT = 0; body_mobility with the .Laplace file (its
+    double-layer slip mobility); mobility with plot_velocity_field,
+    tracer_radius and plot_concentration_field (the VTK files' numbers);
+    and 8 plain shells x 3 Slip-Trapz steps at kT = 0 with a torch
+    user_defined_functions.py defining body_force_torque_fn and
+    postprocess."""
+    pos, quat = lattice(8, seed=8)
+    pos, quat = pos.astype(np.float64), quat.astype(np.float64)
+    start = np.concatenate([pos, quat], axis=1)
+    grid = "plot_velocity_field -1 5 6 -1 5 6 0.5 4.5 4\n" \
+        "plot_concentration_field -1 5 6 -1 5 6 0.5 4.5 4\n"
+    cases = [
+        ("Janus shells x 3 forward Euler steps", lambda dd: phoretic_inputs(
+            dd, pos, quat, "scheme deterministic_forward_euler\ndt 0.01\n"
+            "n_steps 3\nn_save 3\nsolver_tolerance 1e-12\n"
+            "background_Laplace 1\n"), ["run.shell.00000003.clones"]),
+        ("body_mobility with a .Laplace file", lambda dd: phoretic_inputs(
+            dd, pos, quat, "scheme body_mobility\nsolver_tolerance 1e-12\n"),
+         ["run.body_slip_mobility_double_layer.dat"]),
+        ("mobility with the velocity and concentration fields",
+         lambda dd: phoretic_inputs(
+             dd, pos, quat, "scheme mobility\nsolver_tolerance 1e-12\n"
+             "tracer_radius 0.1\nbackground_Laplace 1 0.1\n" + grid),
+         ["run.velocity_field.vtk", "run.concentration_field.vtk"]),
+        ("user_defined_functions.py x 3 Slip-Trapz steps",
+         lambda dd: phoretic_hook_input(dd, pos, quat),
+         ["run.shell.00000003.clones"])]
+    for what, make, files in cases:
+        out = run_cli_pair(make)
+        for f in files:
+            a, b = out["card"][0][f], out["host"][0][f]
+            if f.endswith(".clones"):
+                err, disp = clones_error(out, [f], start)
+                rel = err / disp
+                ok = disp > 1e-3 and rel <= 1e-9
+            else:
+                x = (read_vtk_text(a) if f.endswith(".vtk")
+                     else np.loadtxt(a.splitlines()))
+                y = (read_vtk_text(b) if f.endswith(".vtk")
+                     else np.loadtxt(b.splitlines()))
+                # the VTK writer keeps six digits (%g)
+                tol = 1e-5 if f.endswith(".vtk") else 1e-9
+                rel = np.abs(x - y).max() / np.abs(y).max()
+                ok = x.shape == y.shape and rel <= tol
+            log(f"phoretic CLI, {what}: {f} GPU f64 vs CPU f64 relative "
+                f"error {rel:.3e} ({out['card'][1]:.2f} s on the card)")
+            check(ok, f"phoretic CLI card vs CPU ({what}, {f})")
+
+
+def phoretic_hook_input(dd, pos, quat):
+    with open(os.path.join(dd, "user_defined_functions.py"), "w") as f:
+        f.write(HOOKS_TORCH)
+    inp = write_shell_input(dd, pos, quat, (
+        "scheme stochastic_Slip_Trapz\ndt 0.002\nn_steps 3\nn_save 3\n"
+        "solver_tolerance 1e-12\n"))
+    with open(inp) as f:
+        text = f.read().replace("kT 0.05", "kT 0.0")
+    with open(inp, "w") as f:
+        f.write(text)
+    return inp
+
+
+def run_phoretic_path(system, scheme, pos, quat, pk, mc, solves):
+    """One warm-up and three timed steps of `scheme` on the phoretic
+    system, float32, phase 6's solver settings; each Laplace GMRES solve's
+    (iterations, converged) recorded. Returns (state, per timed step
+    (Stokes sweeps, Lanczos iterations, rejections), ms/step, Laplace
+    solves over the run, launches, peak GiB)."""
+    from rigidmultiblobswall_tpu_torch.models import integrators, phoretic
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    dev = torch.device(DEVICE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    step = integrators.make_stepper(
+        system, scheme, 1e-3, lanczos_tolerance=5e-4, lanczos_max_iter=32,
+        lanczos_check_every=4, gmres_restart=60, gmres_maxiter=300,
+        max_rejections=3)
+    carry = integrators.init_carry(system, state=state)
+    gen = torch.Generator().manual_seed(0)
+    laplace_solves = []
+    gmres = phoretic.gmres
+
+    def recorded(*a, **kw):
+        res = gmres(*a, **kw)
+        laplace_solves.append((res.iterations, bool(res.converged)))
+        return res
+
+    phoretic.gmres = recorded
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+        mc.LAUNCHES = mc.PERIODIC_LAUNCHES = 0
+        mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+        ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+        for key in lap.LAUNCHES:
+            lap.LAUNCHES[key] = 0
+        state, carry, _ = step(state, gen, carry)          # warm-up
+        torch.cuda.synchronize()
+        counts = []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, carry, aux = step(state, gen, carry)
+            counts.append((aux.det_iterations, aux.stoch_iterations,
+                           aux.rejections))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+    finally:
+        phoretic.gmres = gmres
+    launches = {"L1 bvp": lap.launches("bvp"), "L1 S": lap.launches("S"),
+                "L1 grad": lap.launches("grad"),
+                "L1 other": lap.launches("D") + lap.launches("dD")
+                + lap.launches("T"),
+                "K1 tt": pk.LAUNCHES["tt", 1], "K1 tt B=2": pk.LAUNCHES["tt", 2],
+                "K1 other": sum(n for (c, _), n in pk.LAUNCHES.items()
+                                if c != "tt"),
+                "K2": mc.LAUNCHES, "K2 periodic": mc.PERIODIC_LAUNCHES,
+                "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+                "K5-K8": sum(ck.LAUNCHES.values())}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(state.pos).all()
+               and torch.isfinite(state.quat).all()),
+          f"phoretic {scheme}: positions not finite")
+    check(all(c[2] == 0 for c in counts), f"phoretic {scheme}: rejections "
+          f"{counts}")
+    check(len(laplace_solves) == 4 * solves, f"phoretic {scheme}: "
+          f"{len(laplace_solves)} Laplace solves over 4 steps, not "
+          f"{4 * solves}")
+    check(all(ok and it < LAPLACE_MAXITER for it, ok in laplace_solves),
+          f"phoretic {scheme}: a Laplace solve did not converge: "
+          f"{laplace_solves}")
+    want = ("L1 bvp", "L1 S", "L1 grad", "K1 tt", "K2")
+    check(all(launches[k] > 0 for k in want)
+          and all(launches[k] == 0 for k in ("L1 other", "K1 other",
+                                             "K2 periodic", "K3/K4",
+                                             "K5-K8")),
+          f"phoretic {scheme}: launches {launches}")
+    return state, counts, ms, laplace_solves, launches, peak
+
+
+def phase_phoretic_path(pk, mc):
+    """Phase 15, multibody-49k-phoretic: phase 6's scene (4096 shells,
+    49,152 blobs above the wall, direct forces, tolerance 2e-4, float32)
+    with every shell a Janus particle (a generated .Laplace chemistry,
+    background_Laplace 1): deterministic forward Euler (one phoretic solve
+    a step) and stochastic Slip-Trapz (two), one warm-up and three timed
+    steps each; one phoretic_slip call read directly; the concentration
+    field on a 64 x 64 x 8 grid through L1 with the self mask off.
+    Returns the launches over the phase."""
+    from rigidmultiblobswall_tpu_torch.models import fields, phoretic
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    t_phase = time.perf_counter()
+    pos, quat = lattice(N_SHELLS)
+    total = {}
+    for scheme, solves, kT in (("deterministic_forward_euler", 1, 0.0),
+                               ("stochastic_Slip_Trapz", 2, 0.05)):
+        system, cfg = phoretic_system(N_SHELLS, kT=kT)
+        state, counts, ms, solves_log, launches, peak = run_phoretic_path(
+            system, scheme, pos, quat, pk, mc, solves)
+        moved = float((state.pos - torch.as_tensor(
+            pos, device=state.pos.device)).abs().max())
+        log(f"multibody-49k-phoretic {scheme} (kT {kT}) f32: {ms:.1f} "
+            f"ms/step over 3 steps; Stokes GMRES sweeps and Lanczos "
+            f"iterations per timed step {[c[:2] for c in counts]}; Laplace "
+            f"GMRES iterations of each solve over the 4 steps "
+            f"{[it for it, _ in solves_log]} (maxiter {LAPLACE_MAXITER}, all "
+            f"converged); largest move {moved:.3e}; peak device memory "
+            f"{peak:.2f} GiB; launches over the 4 steps {launches}")
+        check(moved > 0, f"phoretic {scheme}: the shells did not move")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    # one phoretic_slip call read directly, at the final state
+    t0 = time.perf_counter()
+    slip, c, iters = phoretic.phoretic_slip(system, state, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"phoretic_slip at 49,152 blobs: {iters} GMRES iterations, "
+        f"{secs * 1e3:.1f} ms; |slip| max {float(slip.abs().max()):.3e}, "
+        f"c in [{float(c.min()):.3f}, {float(c.max()):.3f}]")
+    check(0 < iters < LAPLACE_MAXITER and bool(torch.isfinite(slip).all()),
+          "phoretic_slip did not converge at 49,152 blobs")
+    # the concentration field on the grid, the self mask off
+    off = (lap.LAUNCHES["D", False], lap.LAUNCHES["S", False])
+    coords = fields.velocity_field_grid(CONC_GRID)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_grid, _ = phoretic.concentration_field(system, state, cfg, coords,
+                                             c=c)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = (lap.LAUNCHES["D", False] - off[0],
+                lap.LAUNCHES["S", False] - off[1])
+    log(f"concentration field on {coords.shape[0]} grid points (64 x 64 x "
+        f"8): {secs * 1e3:.1f} ms; c in [{float(c_grid.min()):.3f}, "
+        f"{float(c_grid.max()):.3f}]; L1 D and S with the self mask off "
+        f"launched {launched}")
+    check(c_grid.shape == (coords.shape[0],)
+          and bool(torch.isfinite(c_grid).all()),
+          "the concentration field is not finite")
+    check(launched == (1, 1), "the concentration field did not run on L1")
+    total["L1 D off"], total["L1 S off"] = launched
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3563,6 +4220,7 @@ def main():
     phase_dense_kernels_small(mc)
     records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
     art_records = phase_articulated_kernels(pk, mc, mob, kin, make_state)
+    l1_records = phase_l1_kernels()
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
@@ -3571,6 +4229,7 @@ def main():
     phase_lub_parity(pk, mc)
     phase_scheme_parity(pk, mc)
     phase_articulated_parity(pk, mc)
+    phase_phoretic_parity(pk, mc)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
@@ -3580,6 +4239,7 @@ def main():
     phase_obstacle_cli()
     phase_articulated_cli()
     phase_slip_cli()
+    phase_phoretic_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -3594,6 +4254,7 @@ def main():
     lub_launches = phase_lub_path(pk, mc, ck)               # phase 12
     phase_item17_path(pk, mc)                               # phase 13
     art_launches = phase_articulated_path(pk, mc)           # phase 14
+    l1_launches = phase_phoretic_path(pk, mc)               # phase 15
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -3685,6 +4346,24 @@ def main():
             name=name, route="cuda", source=src,
             replaces=f"rigidmultiblobswall_tpu/ops/{rep_line}",
             launches=art_launches[launch], **art_records[key]))
+    # L1's instances on phase 15's path, timed at its shapes, with their
+    # launches over the phase
+    lap_src = "rigidmultiblobswall_tpu/ops/laplace.py"
+    for key, name, rep_line, launch in (
+            ("bvp", "L1 laplace bvp_operator",
+             "rigidmultiblobswall_tpu/models/phoretic.py:115", "L1 bvp"),
+            ("S", "L1 laplace single_layer", f"{lap_src}:28", "L1 S"),
+            ("grad", "L1 laplace surface_gradient",
+             "rigidmultiblobswall_tpu/models/phoretic.py:126", "L1 grad"),
+            ("D_off", "L1 laplace double_layer off-surface",
+             f"{lap_src}:46", "L1 D off"),
+            ("S_off", "L1 laplace single_layer off-surface",
+             f"{lap_src}:28", "L1 S off")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="rigidmultiblobswall_tpu_torch/csrc/laplace_layers.cu",
+            replaces=rep_line, launches=l1_launches[launch],
+            **l1_records[key]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,16 @@
 Counterpart of rigidmultiblobswall_tpu/cli.py for the ported modes, with
 the same input files and output formats:
   - scheme 'mobility': one static solve, writes .velocity.dat and
-    .force.dat;
+    .force.dat, and with plot_velocity_field (and tracer_radius) the
+    .velocity_field.vtk of the solve's blob forces, with
+    plot_concentration_field and a .Laplace file the
+    .concentration_field.vtk (models/fields.py);
   - scheme 'resistance': the force-torques of prescribed body velocities
     (velocity_file, zero without one), .force.dat;
   - scheme 'body_mobility': the (6B, 6B) body mobility and the body slip
-    mobility N K^T M^{-1}, .body_mobility.dat and .body_slip_mobility.dat
-    (its .Laplace double-layer correction waits for ROADMAP Queue 1, item
-    18: input files with .Laplace files are refused);
+    mobility N K^T M^{-1}, .body_mobility.dat and .body_slip_mobility.dat,
+    and with a .Laplace file (its normals and weights) the double-layer
+    correction N K^T M^{-1} (I/2 + D), .body_slip_mobility_double_layer.dat;
   - the dynamic schemes of models/integrators.py (every multibody scheme
     of the JAX package, the articulated ones and the articulated rollers
     included): per-step .clones (or one .config file with save_clones
@@ -18,7 +21,9 @@ the same input files and output formats:
     (`obstacle` entries stay at their prescribed, zero, velocity; an
     articulated ID's file holds its bodies in the clones file's order,
     instance by instance), .info (iteration and rejection counters) and
-    .time;
+    .time; a phoretic run (.Laplace files) solves the Laplace BVP every
+    step (kernel L1 on the card) and, with plot_concentration_field,
+    writes .<step>.concentration_field.vtk with every saved frame;
     options save_blobs_mobility and save_body_mobility dump the dense
     blob and body mobilities with every saved frame; save_velocities writes every step's body velocities to
     .velocities.dat; update_PC > 1 refactors the preconditioner every
@@ -49,16 +54,27 @@ capacity at the start, as the JAX CLI does, and report steps that still
 dropped particles, or clipped them at the wall slab's top, in .info
 (capacity_overflow_steps).
 
-MCMC, the .random_state restart, vtk field output (plot_velocity_field,
-plot_concentration_field, tracer_radius), call_HydroGrid structure
-factors, .Laplace files and user_defined_functions.py hooks are still to
-be ported (ROADMAP Queue 1, items 11-18); an input that asks for one of
-them is refused, not ignored.
+A user_defined_functions.py in the working directory, or else in the
+input file's directory, may define torch hooks on the port's System and
+State, called where the JAX CLI calls its own:
+  blob_force_fn(system, state, r_blobs) -> (N, 3) extra blob forces,
+  body_force_torque_fn(system, state, r_blobs) -> (B, 6) extra body forces
+    and torques (it replaces the built-in body-body Yukawa force),
+  slip_fn(system, state) -> (N, 3) slip added to the active slip,
+  preprocess(system, state, step) -> State and postprocess(system, state,
+    step) -> State around each step of a dynamic run.
+A file written for the JAX package (it imports jax) or for the reference
+ends the run with a pointer to these signatures.
+
+MCMC, the .random_state restart and call_HydroGrid structure factors are
+still to be ported (ROADMAP Queue 1, items 11 and 18); an input that asks
+for one of them is refused, not ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -70,19 +86,78 @@ import torch
 
 from .io import input_file as input_mod, scene
 from .models import integrators, kinematics as kin, lubrication as lub
-from .models import rollers, saddle, solvers
+from .models import fields, phoretic, rollers, saddle, solvers
 from .models.system import resolve_device
 from .ops import forces as force_ops
+from .ops import stokes_layers
 
 
-def _refuse_user_functions(input_file):
+HOOK_SIGNATURES = (
+    "the PyTorch port's hooks are torch functions of its System and State: "
+    "blob_force_fn(system, state, r_blobs) -> (N, 3), "
+    "body_force_torque_fn(system, state, r_blobs) -> (B, 6), "
+    "slip_fn(system, state) -> (N, 3), and preprocess / postprocess("
+    "system, state, step) -> State (see the docstring of "
+    "rigidmultiblobswall_tpu_torch/cli.py)")
+# modules whose import marks a hook file written for another package: the
+# JAX package's (kept from loading here even where they are installed), or
+# the reference's hook API
+_JAX_MODULES = ("jax", "jaxlib", "rigidmultiblobswall_tpu")
+_FOREIGN_MODULES = _JAX_MODULES + ("multi_bodies_functions", "numexpr",
+                                   "pycuda", "body", "mobility")
+
+
+def load_user_functions(system, input_file):
+    """The user_defined_functions.py of the working directory, or else of
+    the input file's directory, loaded as the JAX CLI loads it: its
+    blob_force_fn, body_force_torque_fn and slip_fn go onto the System (a
+    body_force_torque_fn turns the body-body Yukawa force off, as the
+    reference's override replaces it). Returns (system, module or None).
+    A file that imports jax, the JAX package or the reference's modules
+    ends in SystemExit with the port's hook signatures."""
+    import importlib.util
+
     for udf_dir in (os.getcwd(), os.path.dirname(os.path.abspath(input_file))):
         udf = os.path.join(udf_dir, "user_defined_functions.py")
-        if os.path.isfile(udf):
-            raise SystemExit(
-                f"error: found {udf}, but the PyTorch port does not support "
-                "user_defined_functions.py hooks yet (ROADMAP Queue 1, item "
-                "18); it refuses to run rather than ignore them")
+        if not os.path.isfile(udf):
+            continue
+        spec = importlib.util.spec_from_file_location(
+            "user_defined_functions", udf)
+        module = importlib.util.module_from_spec(spec)
+        # a JAX module already imported in this process (the tests import
+        # the JAX package), or any of its submodules, must fail to import
+        # here as well
+        blocked = {name: sys.modules.get(name) for name in list(sys.modules)
+                   if name.split(".")[0] in _JAX_MODULES}
+        blocked.update({name: None for name in _JAX_MODULES
+                        if name not in blocked})
+        try:
+            for name in blocked:
+                sys.modules[name] = None
+            spec.loader.exec_module(module)
+        except ImportError as e:
+            if e.name is not None and e.name.split(".")[0] in _FOREIGN_MODULES:
+                raise SystemExit(
+                    f"error: could not load {udf}: it imports {e.name}, "
+                    f"which the PyTorch port does not run; {HOOK_SIGNATURES}")
+            raise SystemExit(f"error: could not load {udf}: {e}")
+        finally:
+            for name, mod in blocked.items():
+                if mod is None:
+                    sys.modules.pop(name, None)
+                else:
+                    sys.modules[name] = mod
+        sys.modules[spec.name] = module
+        hooks = {name: getattr(module, name)
+                 for name in ("blob_force_fn", "body_force_torque_fn",
+                              "slip_fn") if hasattr(module, name)}
+        if "body_force_torque_fn" in hooks:
+            hooks["body_body_force_method"] = "none"
+        if hooks:
+            system = dataclasses.replace(system, **hooks)
+        print("Loaded user_defined_functions from", udf)
+        return system, module
+    return system, None
 
 
 def _write_git_commit(path):
@@ -116,7 +191,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
 
-    _refuse_user_functions(args.input_file)
     cfg = input_mod.read_input(args.input_file)
     shutil.copyfile(args.input_file, cfg.output_name + ".inputfile")
     _write_git_commit(cfg.output_name + ".git")
@@ -124,6 +198,7 @@ def main(argv=None):
     system, state = input_mod.build_system(
         cfg, base_dir=os.path.dirname(os.path.abspath(args.input_file)),
         dtype=dtype, device=device)
+    system, user_mod = load_user_functions(system, args.input_file)
 
     with open(cfg.output_name + ".bodies_info", "w") as f:
         f.write("num_of_body_types  %d\n" % len(system.types))
@@ -148,6 +223,15 @@ def main(argv=None):
         force = kin.KT_mul(system, state, sol.lam).cpu().numpy()
         np.savetxt(cfg.output_name + ".force.dat", force, delimiter="  ")
         print("Time to solve mobility problem =", time.time() - start_time)
+        if cfg.plot_velocity_field is not None:
+            fields.plot_velocity_field_to_vtk(
+                cfg.plot_velocity_field, system, state, sol.lam,
+                cfg.output_name, tracer_radius=cfg.tracer_radius)
+        if (cfg.plot_concentration_field is not None
+                and cfg.phoretic_cfg is not None):
+            fields.plot_concentration_field_to_vtk(
+                cfg.plot_concentration_field, system, state,
+                cfg.phoretic_cfg, cfg.output_name)
     elif cfg.scheme == "resistance":
         velocity = np.zeros((system.num_bodies, 6))
         if cfg.velocity_file is not None:
@@ -169,6 +253,21 @@ def main(argv=None):
         slip_mob = N @ K.T @ torch.linalg.inv(M)
         np.savetxt(cfg.output_name + ".body_slip_mobility.dat",
                    slip_mob.cpu().numpy(), delimiter="  ")
+        if cfg.phoretic_cfg is not None:
+            # the double-layer slip correction of a .Laplace file's normals
+            # and weights
+            pcfg = cfg.phoretic_cfg
+            r_blobs = kin.blob_positions(system, state)
+            normals = phoretic.lab_normals(system, state, pcfg.chemistry)
+            weights = phoretic._gather(system, pcfg.chemistry, "weights",
+                                       r_blobs.dtype, r_blobs.device)
+            D = stokes_layers.double_layer_dense(r_blobs, r_blobs, normals,
+                                                 weights)
+            I2pD = 0.5 * torch.eye(D.shape[0], dtype=D.dtype,
+                                   device=D.device) + D
+            np.savetxt(cfg.output_name
+                       + ".body_slip_mobility_double_layer.dat",
+                       (slip_mob @ I2pD).cpu().numpy(), delimiter="  ")
         print("Time to compute body mobility =", time.time() - start_time)
     elif cfg.scheme in ("body_mcmc", "MCMC", "body_mcmc_rejection"):
         raise NotImplementedError(
@@ -180,7 +279,7 @@ def main(argv=None):
           and not cfg.scheme.startswith("articulated_")):
         _run_rollers(cfg, system, state)
     else:
-        _run_dynamic(cfg, system, state, args, start_time)
+        _run_dynamic(cfg, system, state, args, start_time, user_mod)
 
     with open(cfg.output_name + ".time", "w") as f:
         f.write(str(time.time() - start_time) + "\n")
@@ -313,7 +412,7 @@ def _run_lubrication(cfg, system, state, args):
         f.write("stochastic_iterations_count      %d\n" % stoch_iters)
 
 
-def _run_dynamic(cfg, system, state, args, start_time):
+def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
     generator = _generator(cfg, state)
     # the wall slab's height and the fixed capacities sized from the
     # initial configuration (no-ops for the pairwise engine and the direct
@@ -385,6 +484,15 @@ def _run_dynamic(cfg, system, state, args, start_time):
                     "%s.%s.%08d.clones" % (cfg.output_name, name_i, step_idx),
                     pos_i, quat_i)
 
+    def save_concentration_field(step_idx, state):
+        """The off-surface concentration of a phoretic run's saved frame."""
+        if (cfg.plot_concentration_field is not None
+                and cfg.phoretic_cfg is not None):
+            fields.plot_concentration_field_to_vtk(
+                cfg.plot_concentration_field, system, state,
+                cfg.phoretic_cfg, cfg.output_name,
+                suffix=".%08d" % step_idx)
+
     det_iters = stoch_iters = rejections = unconverged_steps = 0
     overflow_steps = 0
     save_velocities = cfg.options.get("save_velocities", "False") == "True"
@@ -394,8 +502,13 @@ def _run_dynamic(cfg, system, state, args, start_time):
             print("Integrator = %s, step = %d, wallclock = %.2fs" % (
                 cfg.scheme, step_idx, time.time() - start_time))
             save_clones(step_idx, state)
+            save_concentration_field(step_idx, state)
             save_mobilities(step_idx, state)
+        if user_mod is not None and hasattr(user_mod, "preprocess"):
+            state = user_mod.preprocess(system, state, step_idx)
         state, carry, aux = step(state, generator, carry)
+        if user_mod is not None and hasattr(user_mod, "postprocess"):
+            state = user_mod.postprocess(system, state, step_idx)
         det_iters += aux.det_iterations
         stoch_iters += aux.stoch_iterations
         rejections += aux.rejections

@@ -26,12 +26,18 @@ twelve expressions in t, its time-dependent links (compile_links_fn);
 .slip files on structure and articulated entries give the types an
 active slip; the options nonlinear_solver_tolerance and
 body_body_force_torque_implementation (any value but None turns the
-body-body Yukawa force on) are read. Not ported yet, and refused with
-NotImplementedError rather than ignored: .Laplace files and per-blob
-radii (ROADMAP Queue 1, items 4, 15 and 18), and the options random_state,
-plot_velocity_field, plot_concentration_field, tracer_radius and
-call_HydroGrid True (item 11; the fields with item 18's
-models/fields.py), which `read_input` refuses.
+body-body Yukawa force on) are read. A structure or obstacle entry's
+.Laplace file gives its type a chemistry (models/phoretic.Chemistry);
+with any, build_system sets the System's slip_fn to the phoretic slip
+and the config's phoretic_cfg, with the options background_Laplace (at
+most 9 values) and diffusion_coefficient. The options plot_velocity_field,
+plot_concentration_field (9 values: x0 x1 nx y0 y1 ny z0 z1 nz) and
+tracer_radius are read for the CLI's VTK fields (models/fields.py). Not
+ported yet, and refused with NotImplementedError rather than ignored:
+per-blob radii (ROADMAP Queue 1, items 4 and 15), a .Laplace file on an
+articulated entry (the JAX package reads only its .slip), and the options
+random_state and call_HydroGrid True (item 11), which `read_input`
+refuses.
 """
 
 from __future__ import annotations
@@ -82,6 +88,15 @@ class InputConfig:
     save_clones: str = "one_file_per_step"
     force_file: Optional[str] = None
     velocity_file: Optional[str] = None
+    tracer_radius: float = 0.0
+    plot_velocity_field: Optional[np.ndarray] = None
+    plot_concentration_field: Optional[np.ndarray] = None
+    # phoretic coupling: the background concentration's 9 coefficients and
+    # the diffusion coefficient Dc
+    background_laplace: Optional[np.ndarray] = None
+    diffusion_coefficient: float = 1.0
+    # set by build_system when any structure carries a .Laplace file
+    phoretic_cfg: object = None
 
 
 def read_input(path) -> InputConfig:
@@ -151,6 +166,20 @@ def read_input(path) -> InputConfig:
     cfg.save_clones = str(g("save_clones") or "one_file_per_step")
     cfg.force_file = g("force_file")
     cfg.velocity_file = g("velocity_file")
+    cfg.tracer_radius = float(g("tracer_radius") or 0.0)
+    if g("plot_velocity_field"):
+        cfg.plot_velocity_field = _floats(g("plot_velocity_field"))
+    if g("plot_concentration_field"):
+        cfg.plot_concentration_field = _floats(g("plot_concentration_field"))
+    background = _floats(g("background_Laplace") or "")
+    if background.size > 9:
+        raise ValueError(
+            "background_Laplace takes at most 9 values "
+            f"(got {background.size}): constant, gradient (3), "
+            "upper-triangular Hessian (5)")
+    cfg.background_laplace = np.hstack([background,
+                                        np.zeros(9 - background.size)])
+    cfg.diffusion_coefficient = float(g("diffusion_coefficient") or 1.0)
 
     # restart rewiring: start from the saved frame of initial_step
     if cfg.initial_step > 0:
@@ -163,6 +192,10 @@ def read_input(path) -> InputConfig:
         raise ValueError(
             f"Obstacles are not implemented for scheme: {cfg.scheme}")
     return cfg
+
+
+def _floats(text):
+    return np.array([float(x) for x in text.split()], dtype=np.float64)
 
 
 _NO_OBSTACLE_SCHEMES = (
@@ -180,12 +213,6 @@ _NO_OBSTACLE_SCHEMES = (
 # ROADMAP item that ports each
 _UNPORTED_OPTIONS = {
     "random_state": "the .random_state restart (ROADMAP Queue 1, item 11)",
-    "plot_velocity_field": "vtk velocity fields (ROADMAP Queue 1, item 11, "
-                           "with item 18's models/fields.py)",
-    "plot_concentration_field": "vtk concentration fields (ROADMAP Queue 1, "
-                                "item 11, with item 18's models/fields.py)",
-    "tracer_radius": "the tracers of the vtk velocity field (ROADMAP Queue "
-                     "1, item 11, with item 18's models/fields.py)",
 }
 
 
@@ -233,14 +260,30 @@ def compile_links_fn(extra, links):
     return links_fn
 
 
+def _extras(files, resolve):
+    """The body-frame slip (the last .slip) and the chemistry (the last
+    .Laplace) of a structure entry's extra files, each None without one,
+    as the JAX package reads them."""
+    slip = chem = None
+    for f in files:
+        if f.endswith(".slip"):
+            slip = scene.read_slip_file(resolve(f))
+        elif f.endswith(".Laplace"):
+            from ..models.phoretic import Chemistry
+
+            chem = Chemistry.from_laplace_file(resolve(f))
+    return slip, chem
+
+
 def _slip(files, resolve):
-    """The body-frame slip of an entry's extra files (its first .slip),
-    or None; a .Laplace file is refused."""
+    """The body-frame slip of an articulated entry's extra files (its
+    first .slip), or None; a .Laplace file is refused (the JAX package
+    ignores it there)."""
     for f in files:
         if f.endswith(".Laplace"):
             raise NotImplementedError(
-                f"{f}: .Laplace files (phoretic slip) are not ported yet "
-                "(ROADMAP Queue 1, item 18)")
+                f"{f}: a .Laplace file on an articulated entry; the phoretic "
+                "slip applies to structure and obstacle entries")
     slips = [f for f in files if f.endswith(".slip")]
     return scene.read_slip_file(resolve(slips[0])) if slips else None
 
@@ -267,7 +310,7 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                 f"structure {name}: per-blob radii are not ported yet "
                 "(ROADMAP Queue 1, item 4)")
 
-    types, locations, quaternions = [], [], []
+    types, locations, quaternions, chemistries = [], [], [], []
     entries = ([(f, n, False) for f, n in zip(cfg.structures,
                                               cfg.structures_ID)]
                + [(f, n, True) for f, n in zip(cfg.obstacles,
@@ -276,10 +319,11 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         ref = scene.read_vertex_file(_resolve(files[0]))
         _check_radii(ref, name)
         nbod, loc, quat = scene.read_clones_file(_resolve(files[1]))
+        slip, chem = _extras(files[2:], _resolve)
         types.append(BodyType(name=name, ref_config=ref[:, :3], count=nbod,
                               prescribed_kinematics=is_obstacle,
-                              is_obstacle=is_obstacle,
-                              slip_ref=_slip(files[2:], _resolve)))
+                              is_obstacle=is_obstacle, slip_ref=slip))
+        chemistries.append(chem)
         locations.append(loc)
         quaternions.append(quat)
 
@@ -336,6 +380,18 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         articulated=tuple(articulated),
         nonlinear_solver_tolerance=float(
             cfg.options.get("nonlinear_solver_tolerance", 1e-8)))
+    if any(c is not None for c in chemistries):
+        # the phoretic coupling: every step solves the Laplace BVP and
+        # adds its slip
+        from ..models import phoretic
+
+        chemistries += [None] * (len(types) - len(chemistries))
+        pcfg = phoretic.PhoreticConfig(
+            chemistry=tuple(chemistries), background=cfg.background_laplace,
+            diffusion_coefficient=cfg.diffusion_coefficient)
+        system = dataclasses.replace(system,
+                                     slip_fn=phoretic.make_slip_fn(pcfg))
+        cfg.phoretic_cfg = pcfg
     state = make_state(np.concatenate(locations, axis=0),
                        np.concatenate(quaternions, axis=0), dtype=dtype,
                        device=device)

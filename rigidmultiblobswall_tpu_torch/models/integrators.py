@@ -806,6 +806,8 @@ def _dense_pieces(system, state):
     M, R = M^{-1}, K and N = pinv(K^T R K)."""
     r_blobs = kin.blob_positions(system, state)
     slip = kin.active_slip(system, state)
+    if system.slip_fn is not None:
+        slip = slip + system.slip_fn(system, state).reshape(slip.shape)
     FT = solvers.force_torque_calculator(system, state, r_blobs)
     M = solvers.dense_blob_mobility(system, state)
     K = solvers._dense_K(system, state)

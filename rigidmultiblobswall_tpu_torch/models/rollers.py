@@ -29,16 +29,18 @@ with wall damping are used instead.
 All nine schemes of the JAX package; `make_stepper` wraps each in the
 bounded wall-rejection retry on body centers z < 0, as a host loop. All
 noise comes from `draw_normal` and an explicit torch.Generator, drawn in
-the order the JAX package draws it from its key. User force/torque hooks
-wait for ROADMAP Queue 1, item 18, and pseudo-periodic image boxes of
-the direct engine for item 4.
+the order the JAX package draws it from its key. The hooks force_fn(sus,
+r) and torque_fn(sus, r) (torch functions, (N, 3) each) add blob forces
+and prescribe the torques where the JAX package applies its own.
+Pseudo-periodic image boxes of the direct engine wait for ROADMAP Queue
+1, item 4.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -81,6 +83,11 @@ class RollerSuspension:
     omega_one_roller: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     hydro_interactions: bool = True
     lanczos_max_iter: int = 64
+    # hooks, torch functions of the suspension and the positions r (N, 3):
+    # the prescribed torque torque_fn(sus, r) -> (N, 3) (zero without one)
+    # and extra blob forces force_fn(sus, r) -> (N, 3)
+    torque_fn: Optional[Callable] = None
+    force_fn: Optional[Callable] = None
 
     def __post_init__(self):
         object.__setattr__(self, "periodic_length",
@@ -145,14 +152,19 @@ def from_reference(ref_sus) -> RollerSuspension:
     """Carry a JAX-package `RollerSuspension` across to the port's, its
     spectral fields included. The device mesh is dropped (one card), as
     is spectral_bucket_capacity, a TPU gridding knob without counterpart
-    here (the port grids without segment layouts); force and torque hooks
-    are not ported yet."""
+    here (the port grids without segment layouts). A suspension with a
+    force or torque hook is refused: its hook is a JAX-traced closure the
+    port cannot run (the port's RollerSuspension takes torch hooks of its
+    own)."""
     for hook in ("torque_fn", "force_fn"):
         if getattr(ref_sus, hook, None) is not None:
-            raise NotImplementedError(f"roller hook {hook} (ROADMAP Queue 1, "
-                                      "item 18)")
+            raise NotImplementedError(
+                f"roller hook {hook}: the JAX suspension's hook is a "
+                "JAX-traced closure the port cannot run; give the port's "
+                f"RollerSuspension its own torch hook ({hook}=...)")
     fields = {f.name: getattr(ref_sus, f.name)
-              for f in dataclasses.fields(RollerSuspension)}
+              for f in dataclasses.fields(RollerSuspension)
+              if f.name not in ("torque_fn", "force_fn")}
     return RollerSuspension(**fields)
 
 
@@ -166,13 +178,18 @@ def roller_forces(sus: RollerSuspension, r):
         r, g=sus.g, blob_mass=1.0, blob_radius=sus.blob_radius,
         repulsion_strength_wall=sus.repulsion_strength_wall,
         debye_length_wall=sus.debye_length_wall)
-    return f + force_ops.blob_blob_forces(
+    f = f + force_ops.blob_blob_forces(
         r, repulsion_strength=sus.repulsion_strength,
         debye_length=sus.debye_length, blob_radius=sus.blob_radius,
         periodic_length=sus.periodic_length)
+    if sus.force_fn is not None:
+        f = f + sus.force_fn(sus, r)
+    return f
 
 
 def roller_torques(sus: RollerSuspension, r):
+    if sus.torque_fn is not None:
+        return sus.torque_fn(sus, r).reshape(sus.num_rollers, 3)
     return torch.zeros((sus.num_rollers, 3), dtype=r.dtype, device=r.device)
 
 

@@ -14,8 +14,9 @@ velocity written over the solution) and Krylov recycling (`recycle=` and
 bodies (the constraint rows at `time=`, their forces in
 MobilitySolution.phi) and the single-blob articulated solve on the grand
 mobility (`solve_mobility_problem_single_blob`, kernel K1 grand on the
-card). Active slip (BodyType.slip_ref) enters the right-hand side, and
-the body-body Yukawa force the force assembly.
+card). Active slip (BodyType.slip_ref) and the slip_fn hook enter the
+right-hand side, and the body-body Yukawa force and the blob_force_fn and
+body_force_torque_fn hooks the force assembly.
 """
 
 from __future__ import annotations
@@ -50,9 +51,10 @@ class MobilitySolution(NamedTuple):
 def force_torque_calculator(system: System, state: State, r_blobs):
     """Default force assembly: one-blob external forces plus blob-blob
     repulsion (direct sweep or linked cells; on single_wall_spectral the
-    linked cells of the slab below spectral_wall_height), aggregated
-    through K^T, plus the body-body Yukawa force between body centers
-    when body_body_force_method asks for it. Returns (B,6)."""
+    linked cells of the slab below spectral_wall_height) and the
+    blob_force_fn hook, aggregated through K^T, plus the body-body Yukawa
+    force between body centers when body_body_force_method asks for it
+    and the body_force_torque_fn hook. Returns (B,6)."""
     f_blobs = force_ops.blob_external_forces(
         r_blobs, g=system.g, blob_mass=1.0, blob_radius=system.blob_radius,
         repulsion_strength_wall=system.repulsion_strength_wall,
@@ -73,12 +75,16 @@ def force_torque_calculator(system: System, state: State, r_blobs):
             debye_length=system.debye_length,
             blob_radius=system.blob_radius,
             periodic_length=system.periodic_length)
+    if system.blob_force_fn is not None:
+        f_blobs = f_blobs + system.blob_force_fn(system, state, r_blobs)
     ft = kin.KT_mul(system, state, f_blobs)
     if system.body_body_force_method != "none":
         ft = ft + force_ops.body_body_forces_torques(
             state.pos, repulsion_strength=system.repulsion_strength,
             debye_length=system.debye_length,
             periodic_length=system.periodic_length)
+    if system.body_force_torque_fn is not None:
+        ft = ft + system.body_force_torque_fn(system, state, r_blobs)
     return ft
 
 
@@ -86,11 +92,15 @@ def build_rhs(system: System, state: State, r_blobs, slip=None,
               force_torque=None, noise_slip=None, noise_ft=None, time=0.0):
     """RHS = [slip - noise, -(F + noise_FT), B], flat; B, the prescribed
     link velocities at `time`, only with articulated bodies. The slip
-    defaults to the bodies' active slip. A prescribed body's rows take its
+    defaults to the bodies' active slip plus the slip_fn hook's. A
+    prescribed body's rows take its
     K U in the slip and a zero force (the operator's prescribed rows,
     saddle._finish)."""
     if slip is None:
         slip = kin.active_slip(system, state)
+        if system.slip_fn is not None:
+            slip = slip + system.slip_fn(system, state).reshape(
+                system.num_blobs, 3)
     slip = slip.reshape(system.num_blobs, 3)
     if force_torque is None:
         force_torque = force_torque_calculator(system, state, r_blobs)

@@ -17,8 +17,11 @@ the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
 slab top `spectral_wall_height`), one blob radius, with the default force
 set: direct or linked-cell blob-blob repulsion and the body-body Yukawa
 force, bodies with prescribed kinematics (obstacles), active slip
-(`BodyType.slip_ref`) and articulated bodies (`System.articulated`, a
-tuple of models/articulated.ArticulatedType). Fields the JAX System
+(`BodyType.slip_ref`), articulated bodies (`System.articulated`, a
+tuple of models/articulated.ArticulatedType) and the user hooks
+(`blob_force_fn`, `body_force_torque_fn`, `slip_fn`: torch functions of
+the port's System and State, called where the JAX package calls its
+own). Fields the JAX System
 carries for other engines and models are not present; `from_reference`
 refuses a JAX system that sets them.
 
@@ -29,7 +32,7 @@ device="cpu"; without CUDA they raise rather than fall back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +146,15 @@ class System:
     # ArticulatedType) and the tolerance of their nonlinear projection
     articulated: Tuple = ()
     nonlinear_solver_tolerance: float = 1e-8
+    # user hooks, optional callables on the port's System and State and
+    # torch tensors: blob_force_fn(system, state, r_blobs) -> (N, 3) extra
+    # blob forces, body_force_torque_fn(system, state, r_blobs) -> (B, 6)
+    # extra body forces and torques, slip_fn(system, state) -> (N, 3) slip
+    # added to the active slip (the phoretic slip: models/phoretic.
+    # make_slip_fn)
+    blob_force_fn: Optional[Callable] = None
+    body_force_torque_fn: Optional[Callable] = None
+    slip_fn: Optional[Callable] = None
 
     def __post_init__(self):
         object.__setattr__(self, "types", tuple(self.types))
@@ -261,10 +273,11 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
 
     Reads the reference system's attributes without importing JAX.
     Features the port does not cover yet raise NotImplementedError, and
-    so does an articulated type with a `links_fn`: a JAX-traced closure
-    the port cannot read (time-dependent links come to each package from
-    its own build_system and one .const file). The
-    JAX System's TPU gridding knobs (spectral_bucket_capacity,
+    so do a user hook (blob_force_fn, body_force_torque_fn, slip_fn) and
+    an articulated type with a `links_fn`: JAX-traced closures the port
+    cannot run (the port's System takes torch hooks of its own;
+    time-dependent links come to each package from its own build_system
+    and one .const file). The JAX System's TPU gridding knobs (spectral_bucket_capacity,
     spectral_plane_batch, spectral_precision) have no counterpart: the
     port grids without segment layouts or matrix units, so they are
     ignored. Returns the System, or (System, State) when positions are
@@ -280,8 +293,10 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
                                       "items 4 and 15)")
     for name in ("blob_force_fn", "body_force_torque_fn", "slip_fn"):
         if getattr(ref_system, name, None) is not None:
-            raise NotImplementedError(f"user hook {name} (ROADMAP Queue 1, "
-                                      "item 18)")
+            raise NotImplementedError(
+                f"user hook {name}: the JAX system's hook is a JAX-traced "
+                "closure the port cannot run; give the port's System its "
+                f"own torch hook (System(..., {name}=...))")
     from .articulated import ArticulatedType
 
     articulated = []

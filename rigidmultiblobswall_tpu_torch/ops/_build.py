@@ -35,7 +35,7 @@ _D = ctypes.c_double
 # C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
 # csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu,
-# csrc/wall_rot_near.cu); pointers and the
+# csrc/wall_rot_near.cu, csrc/laplace_layers.cu); pointers and the
 # stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -68,6 +68,8 @@ SIGNATURES = {
     **{f"wall_near_{t}_b{b}": _WALL for t in ("f32", "f64") for b in (1, 2)},
     **{f"wall_rot_near_{t}_{w}": _ROT for t in ("f32", "f64")
        for w in ("grand", "rt", "tr", "rr")},
+    **{f"laplace_layers_{t}": (_I,) * 3 + (_P,) * 7 + (_D,) + (_I,) * 4
+       + (_P,) * 3 for t in ("f32", "f64")},
 }
 
 _lib = None

@@ -7,9 +7,11 @@ goes through `pair_kernels.pair_matvec`: kernel K1 on a CUDA tensor, its
 plain PyTorch version (the JAX package's generic tiled path) on a CPU
 tensor. `dense_mobility_tiled` materializes the tt operator of one
 configuration (the plain version of kernel K3, ops/mobility_cuda.py).
-The SFM engine (mobility_sfm.py) is not ported; in_plane,
-free_surface, pseudo-periodic images and per-blob radii are still to be
-ported (ROADMAP Queue 1, item 4).
+`source_target_matvec` is the source-target product of velocity fields,
+with per-blob radii, image boxes and the free surface (plain PyTorch, as
+it is XLA there). The SFM engine (mobility_sfm.py) is not ported;
+in_plane, free_surface, pseudo-periodic images and per-blob radii of the
+pair products are still to be ported (ROADMAP Queue 1, item 4).
 
 Wall overlap regularization: products use z_eff = max(z, a) and
 M <- B^T M(z_eff) B with the diagonal damping B_ii = min(z_i/a, 1).
@@ -21,7 +23,7 @@ import math
 
 import torch
 
-from . import pair_kernels
+from . import pair_kernels, rpy
 
 _PREF_POW = {"tt": 1, "tr": 2, "rt": 2, "rr": 3}
 
@@ -226,4 +228,86 @@ def dense_mobility_tiled(r_vectors, eta, a, *, domain="single_wall",
                  * damp[None, :, None, None])
         out[3 * i0:3 * (i0 + qt.shape[0])] = m.transpose(1, 2).reshape(
             3 * qt.shape[0], 3 * n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Source-target products with per-blob radii (velocity fields)
+# ---------------------------------------------------------------------------
+
+
+def source_target_matvec(r_src, r_tgt, vec, radius_src, radius_tgt, eta, *,
+                         wall=True, domain=None,
+                         periodic_length=(0.0, 0.0, 0.0), row_tile=None):
+    """u_i = sum_j M_tt(target_i, source_j) f_j with per-blob radii: the
+    physical-units RPY of unequal radii plus, for domain 'single_wall', the
+    finite-size wall image system with per-blob-radius overlap
+    regularization (targets of zero radius, tracers, are never damped), or
+    for domain 'free_surface' the reflected image; summed over the image
+    boxes of periodic_length after the minimum image.
+
+    Counterpart of the JAX package's source_target_matvec, whose lax.map
+    row tiles become chunks of row_tile targets (default: a (chunk, Ns, 3,
+    3) block within 64 MiB). Plain PyTorch, as it is XLA there."""
+    from .mobility_cuda import box_offsets, min_image
+
+    if domain is not None:
+        wall = domain == "single_wall"
+    else:
+        domain = "single_wall" if wall else "no_wall"
+    free_surface = domain == "free_surface"
+    periodic_length = tuple(float(x) for x in periodic_length)
+    n_src, n_tgt = r_src.shape[0], r_tgt.shape[0]
+    dtype = torch.promote_types(r_src.dtype, vec.dtype)
+    dev = r_src.device
+    vec = vec.reshape(n_src, 3).to(dtype)
+    r_src, r_tgt = r_src.to(dtype), r_tgt.to(dtype)
+    radius_src = torch.broadcast_to(
+        torch.as_tensor(radius_src, dtype=dtype, device=dev), (n_src,))
+    radius_tgt = torch.broadcast_to(
+        torch.as_tensor(radius_tgt, dtype=dtype, device=dev), (n_tgt,))
+
+    if wall:
+        damp_s = torch.clamp(r_src[:, 2] / radius_src, max=1.0)
+        pos = radius_tgt > 0
+        damp_t = torch.where(pos, torch.clamp(
+            r_tgt[:, 2] / torch.where(pos, radius_tgt, 1.0), max=1.0), 1.0)
+        r_src = torch.cat([r_src[:, :2], torch.maximum(
+            r_src[:, 2], radius_src)[:, None]], dim=1)
+        r_tgt = torch.cat([r_tgt[:, :2], torch.maximum(
+            r_tgt[:, 2], radius_tgt)[:, None]], dim=1)
+        vec = vec * damp_s[:, None]
+
+    if row_tile is None:
+        row_tile = pair_kernels._default_row_tile(n_src, n_tgt,
+                                                  torch.finfo(dtype).bits // 8)
+    offsets = box_offsets(periodic_length)
+    Lvec = torch.tensor(periodic_length, dtype=dtype, device=dev)
+    zs = r_src[:, 2]
+    bs = radius_src[None, :]
+    refl = torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=dev)
+    out = torch.empty((n_tgt, 3), dtype=dtype, device=dev)
+    for i0 in range(0, n_tgt, row_tile):
+        rt = r_tgt[i0:i0 + row_tile]
+        at = radius_tgt[i0:i0 + row_tile][:, None]
+        d0 = min_image(rt[:, None, :] - r_src[None, :, :], periodic_length)
+        acc = torch.zeros((rt.shape[0], 3), dtype=dtype, device=dev)
+        for box in offsets:
+            d = d0 if box == (0, 0, 0) else d0 + torch.tensor(
+                box, dtype=dtype, device=dev) * Lvec
+            m = rpy.rpy_tt_radii(d, at, bs)
+            if wall:
+                rz = rt[:, 2][:, None] + zs[None, :]
+                m = m + rpy.wall_tt_radii(d[..., 0], d[..., 1], rz,
+                                          rt[:, 2][:, None], zs[None, :],
+                                          at, bs)
+            elif free_surface:
+                rz = rt[:, 2][:, None] + zs[None, :]
+                d_img = torch.cat([d[..., :2], rz[..., None]], dim=-1)
+                m = m + rpy.rpy_tt_radii(d_img, at, bs) * refl
+            acc = acc + torch.einsum("tsab,sb->ta", m, vec)
+        out[i0:i0 + rt.shape[0]] = acc
+    out = out / (8.0 * math.pi * eta)
+    if wall:
+        out = out * damp_t[:, None]
     return out

@@ -2,11 +2,13 @@
 
 Counterpart of rigidmultiblobswall_tpu/ops/rpy.py for the unbounded and
 single-wall blocks of every coupling: `rpy_tt`, `rpy_rr`, `rpy_cross`,
-`wall_tt`, `wall_rr`, `wall_rot_force`, `wall_trans_torque`. The in-plane,
-free-surface and per-blob-radii blocks are still to be ported (ROADMAP
-Queue 1, item 4). Pure elementwise math mapping batched pair geometry to
-3x3 blocks (..., 3, 3), in units of the blob radius a; callers apply
-1/(8 pi eta a^k), k = 1 (tt), 2 (tr, rt), 3 (rr).
+`wall_tt`, `wall_rr`, `wall_rot_force`, `wall_trans_torque`, and the
+different-radii blocks of the source-target product, `rpy_tt_radii` and
+`wall_tt_radii` (physical units). The in-plane and free-surface blocks of
+the pair products are still to be ported (ROADMAP Queue 1, item 4).
+Pure elementwise math mapping batched pair geometry to 3x3 blocks
+(..., 3, 3), in units of the blob radius a (the radii blocks excepted);
+callers apply 1/(8 pi eta a^k), k = 1 (tt), 2 (tr, rt), 3 (rr).
 
 Conventions: `d` is (r_target - r_source)/a; `self_mask` marks a blob
 paired with itself; wall corrections take the in-plane displacement,
@@ -258,3 +260,140 @@ def wall_rr(dx, dy, rz, hs, self_mask):
     mzx = torch.where(sm, zero, f2 * ez * ex + f3 * ex)
     mzy = torch.where(sm, zero, f2 * ez * ey + f3 * ey)
     return _mat3((mxx, mxy, mxz, mxy, myy, myz, mzx, mzy, mzz))
+
+
+# ---------------------------------------------------------------------------
+# Different radii (source radius b, target radius a), physical units,
+# prefactor 1/(8 pi eta): the source-target product of velocity fields
+# (ops/mobility.py source_target_matvec)
+# ---------------------------------------------------------------------------
+
+
+def rpy_tt_radii(d, a_tgt, b_src):
+    """TT block for blobs of different radii; d is the PHYSICAL displacement
+    (target - source), a_tgt/b_src broadcastable radii."""
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    r2_raw = dx * dx + dy * dy + dz * dz
+    zero = r2_raw == 0.0
+    # safe denominators; zero pairs take the near branch
+    r2 = torch.where(zero, 1.0, r2_raw)
+    r = torch.sqrt(r2)
+    r3 = r2 * r
+    a = a_tgt
+    b = b_src
+    a2 = a * a
+    b2 = b * b
+    s2 = a2 + b2
+
+    c1_far = (1.0 + s2 / (3.0 * r2)) / r
+    c2_far = ((1.0 - s2 / r2) / r2) / r
+    four_thirds = 4.0 / 3.0
+    dd2 = (b - a) ** 2
+    c1_mid = ((16.0 * (b + a) * r3 - (dd2 + 3.0 * r2) ** 2)
+              / (32.0 * r3)) * four_thirds / (b * a)
+    c2_mid = (((3.0 * (dd2 - r2) ** 2 / (32.0 * r3)) / r2) * four_thirds
+              / (b * a))
+    c1_near = four_thirds / torch.maximum(a, b)
+
+    far = (~zero) & (r > (a + b))
+    mid = (~zero) & (~far) & (r > torch.abs(b - a))
+    c1 = torch.where(far, c1_far, torch.where(mid, c1_mid, c1_near))
+    c2 = torch.where(far, c2_far, torch.where(mid, c2_mid, 0.0))
+
+    mxx = c1 + c2 * dx * dx
+    myy = c1 + c2 * dy * dy
+    mzz = c1 + c2 * dz * dz
+    mxy = c2 * dx * dy
+    mxz = c2 * dx * dz
+    myz = c2 * dy * dz
+    return _sym3(mxx, mxy, mxz, myy, myz, mzz)
+
+
+def wall_tt_radii(dx, dy, rz, x3, y3, a_tgt, b_src):
+    """Finite-size wall image correction for different radii, physical
+    units. dx, dy: in-plane displacement;
+    rz = z_tgt + z_src; x3 = z_tgt; y3 = z_src."""
+    a2 = a_tgt * a_tgt
+    b2 = b_src * b_src
+    r2 = dx * dx + dy * dy + rz * rz
+    r = torch.sqrt(torch.where(r2 == 0.0, 1.0, r2))
+    inv_r = 1.0 / r
+    inv_r2 = inv_r * inv_r
+    inv_r3 = inv_r2 * inv_r
+    inv_r5 = inv_r3 * inv_r2
+    inv_r7 = inv_r5 * inv_r2
+    inv_r9 = inv_r7 * inv_r2
+    s2 = a2 + b2
+
+    # term 1: image RPY-like (negated stokeslet with sign flips on z column)
+    t1c1 = (1.0 + s2 / (3.0 * r2)) * inv_r
+    t1c2 = (1.0 - s2 / r2) * inv_r2 * inv_r
+    xx = -(t1c1 + t1c2 * dx * dx)
+    xy = -(t1c2 * dx * dy)
+    xz = +(t1c2 * dx * rz)
+    yx = -(t1c2 * dy * dx)
+    yy = -(t1c1 + t1c2 * dy * dy)
+    yz = +(t1c2 * dy * rz)
+    zx = -(t1c2 * rz * dx)
+    zy = -(t1c2 * rz * dy)
+    zz = +(t1c1 + t1c2 * rz * rz)
+
+    # term 2: Stokes doublet + source dipole pieces with x3*y3 prefactor
+    xy3 = x3 * y3
+    xx += -2.0 * (xy3 * (inv_r3 - 3.0 * dx * dx * inv_r5))
+    xy += -2.0 * (xy3 * (-3.0 * dx * dy * inv_r5))
+    xz += 2.0 * (-dx * x3 * inv_r3 + xy3 * (-3.0 * dx * rz * inv_r5))
+    yx += -2.0 * (xy3 * (-3.0 * dy * dx * inv_r5))
+    yy += -2.0 * (xy3 * (inv_r3 - 3.0 * dy * dy * inv_r5))
+    yz += 2.0 * (-dy * x3 * inv_r3 + xy3 * (-3.0 * dy * rz * inv_r5))
+    zx += -2.0 * (-y3 * dx * inv_r3 + xy3 * (-3.0 * rz * dx * inv_r5))
+    zy += -2.0 * (-y3 * dy * inv_r3 + xy3 * (-3.0 * rz * dy * inv_r5))
+    zz += 2.0 * (-inv_r - rz * x3 * inv_r3 - y3 * rz * inv_r3
+                 + xy3 * (inv_r3 - 3.0 * rz * rz * inv_r5))
+
+    # term 3: finite-size (a^2) correction
+    ca = 2.0 * a2 / 3.0
+    xx += -ca * (-y3 * (3.0 * rz * inv_r5 - 15.0 * rz * dx * dx * inv_r7))
+    xy += -ca * (-y3 * (-15.0 * rz * dx * dy * inv_r7))
+    xz += ca * (3.0 * dx * rz * inv_r5
+                - y3 * (3.0 * dx * inv_r5 - 15.0 * rz * dx * rz * inv_r7))
+    yx += -ca * (-y3 * (-15.0 * rz * dy * dx * inv_r7))
+    yy += -ca * (-y3 * (3.0 * rz * inv_r5 - 15.0 * rz * dy * dy * inv_r7))
+    yz += ca * (3.0 * dy * rz * inv_r5
+                - y3 * (3.0 * dy * inv_r5 - 15.0 * rz * dy * rz * inv_r7))
+    zx += -ca * (-y3 * (3.0 * dx * inv_r5 - 15.0 * rz * rz * dx * inv_r7))
+    zy += -ca * (-y3 * (3.0 * dy * inv_r5 - 15.0 * rz * rz * dy * inv_r7))
+    zz += ca * (-inv_r3 + 3.0 * rz * rz * inv_r5
+                - y3 * (9.0 * rz * inv_r5 - 15.0 * rz**3 * inv_r7))
+
+    # term 4: finite-size (b^2) correction
+    cb = 2.0 * b2 / 3.0
+    xx += -cb * (-x3 * (3.0 * rz * inv_r5 - 15.0 * rz * dx * dx * inv_r7))
+    xy += -cb * (-x3 * (-15.0 * rz * dx * dy * inv_r7))
+    xz += cb * (-x3 * (3.0 * dx * inv_r5 - 15.0 * rz * dx * rz * inv_r7))
+    yx += -cb * (-x3 * (-15.0 * rz * dy * dx * inv_r7))
+    yy += -cb * (-x3 * (3.0 * rz * inv_r5 - 15.0 * rz * dy * dy * inv_r7))
+    yz += cb * (-x3 * (3.0 * dy * inv_r5 - 15.0 * rz * dy * rz * inv_r7))
+    zx += -cb * (3.0 * rz * dx * inv_r5
+                 - x3 * (3.0 * dx * inv_r5 - 15.0 * rz * rz * dx * inv_r7))
+    zy += -cb * (3.0 * rz * dy * inv_r5
+                 - x3 * (3.0 * dy * inv_r5 - 15.0 * rz * rz * dy * inv_r7))
+    zz += cb * (-inv_r3 + 3.0 * rz * rz * inv_r5
+                - x3 * (9.0 * rz * inv_r5 - 15.0 * rz**3 * inv_r7))
+
+    # term 5: a^2 b^2 source-dipole-of-image correction
+    cab = 2.0 * a2 * b2 / 3.0
+    xx += -cab * (-inv_r5 + 5.0 * rz * rz * inv_r7 + 5.0 * dx * dx * inv_r7
+                  - 35.0 * rz * rz * dx * dx * inv_r9)
+    xy += -cab * (5.0 * dx * dy * inv_r7 - 35.0 * rz * rz * dx * dy * inv_r9)
+    xz += cab * (15.0 * dx * rz * inv_r7 - 35.0 * rz**3 * dx * inv_r9)
+    yx += -cab * (5.0 * dy * dx * inv_r7 - 35.0 * rz * rz * dy * dx * inv_r9)
+    yy += -cab * (-inv_r5 + 5.0 * rz * rz * inv_r7 + 5.0 * dy * dy * inv_r7
+                  - 35.0 * rz * rz * dy * dy * inv_r9)
+    yz += cab * (15.0 * dy * rz * inv_r7 - 35.0 * rz**3 * dy * inv_r9)
+    zx += -cab * (15.0 * rz * dx * inv_r7 - 35.0 * rz**3 * dx * inv_r9)
+    zy += -cab * (15.0 * rz * dy * inv_r7 - 35.0 * rz**3 * dy * inv_r9)
+    zz += cab * (-3.0 * inv_r5 + 30.0 * rz * rz * inv_r7
+                 - 35.0 * rz**4 * inv_r9)
+
+    return _mat3((xx, xy, xz, yx, yy, yz, zx, zy, zz))

@@ -6,8 +6,15 @@ and resistance .force.dat (1e-10), the same mobility dumps and .clones
 with update_PC = 2, and the same output files; on a generated
 periodic_spectral input with tree (linked-cell) blob forces, the same
 .clones and .info; on the example microroller input, the same
-.clones and .info; and on tests/test_cli.py's 4-sphere lubrication
-input at kT = 0, the same .clones and deterministic .info counts."""
+.clones and .info; on tests/test_cli.py's 4-sphere lubrication
+input at kT = 0, the same .clones and deterministic .info counts; with
+a Janus .Laplace file, the same body_mobility double-layer .dat, VTK
+velocity and concentration fields (parsed) and phoretic .clones; the
+phoretic_janus example with a generated vertex file, the same .config;
+a user_defined_functions.py with body_force_torque_fn and postprocess
+(jax.numpy for the JAX CLI, torch for the port's), the same .clones;
+and a hook file importing jax ends the port's run with the pointer to
+its hook signatures."""
 
 import os
 import shutil
@@ -211,27 +218,130 @@ def test_cli_mobility_dumps_and_update_pc_match_jax(tmp_path, monkeypatch):
                                rtol=0)
 
 
-def test_cli_body_mobility_refuses_laplace_files(tmp_path, monkeypatch):
-    """The .Laplace double-layer correction of body_mobility waits for the
-    phoretic model; an input that names a .Laplace file is refused."""
-    inp = _write_scene(tmp_path, "body_mobility",
-                       files={"shell.Laplace": "12\n"})
-    text = inp.read_text().replace(
+def janus_laplace(ref, mobility=5.0):
+    """A .Laplace file's text for a shell of blobs ref (nb, 3): radial
+    normals, weights 4 pi R^2 / nb, and a Janus split on the body-frame z
+    as in examples/phoretic_janus/shell12_janus.Laplace (the upper half
+    reacts, k = 5 and q = 0; the lower half emits, k = 0 and q = 1)."""
+    R = np.linalg.norm(ref, axis=1)
+    n = ref / R[:, None]
+    w = 4 * np.pi * R.mean() ** 2 / len(ref)
+    rows = [(*ni, 5.0, 0.0, mobility, w) if ni[2] >= 0 else
+            (*ni, 0.0, 1.0, mobility, w) for ni in n]
+    return "".join(" ".join("%.16g" % v for v in row) + "\n" for row in rows)
+
+
+def _with_laplace(inp):
+    inp.write_text(inp.read_text().replace(
         "structure shell.vertex shell.clones",
-        "structure shell.vertex shell.clones shell.Laplace")
-    inp.write_text(text)
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Laplace"):
-        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+        "structure shell.vertex shell.clones shell.Laplace"))
+
+
+def _run_laplace(tmp_path, monkeypatch, scheme, extra=""):
+    """_run_both on the 4-shell scene with a Janus .Laplace file."""
+    out = {}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        d = tmp_path / name
+        inp = _write_scene(d, scheme, extra=extra, files={
+            "shell.Laplace": janus_laplace(shell_vertices(12, 0.5))})
+        _with_laplace(inp)
+        monkeypatch.chdir(d)
+        main(["--input-file", str(inp)] + argv)
+        out[name] = d
+    return out
+
+
+def test_cli_body_mobility_refuses_laplace_files(tmp_path, monkeypatch):
+    """body_mobility with a .Laplace file: the double-layer slip mobility
+    N K^T M^{-1} (I/2 + D) of its normals and weights, as the JAX CLI
+    writes it, beside the plain mobilities."""
+    out = _run_laplace(tmp_path, monkeypatch, "body_mobility")
+    for name in ("run.body_mobility.dat", "run.body_slip_mobility.dat",
+                 "run.body_slip_mobility_double_layer.dat"):
+        _same_dat(out, name)
+    dl = np.loadtxt(out["torch"] / "run.body_slip_mobility_double_layer.dat")
+    plain = np.loadtxt(out["torch"] / "run.body_slip_mobility.dat")
+    assert dl.shape == plain.shape == (24, 144)
+    assert np.abs(dl - 0.5 * plain).max() > 1e-3
+
+
+HOOKS_JAX = """import jax.numpy as jnp
+
+
+def body_force_torque_fn(system, state, r_blobs):
+    z = state.pos[:, 2]
+    zero = 0.0 * z
+    return jnp.stack([zero, 0.02 * z, zero, zero, zero, 0.3 + 0.1 * z],
+                     axis=1)
+
+
+def postprocess(system, state, step):
+    return state._replace(pos=state.pos.at[:, 0].add(1e-3 * (step + 1)))
+"""
+HOOKS_TORCH = """import dataclasses
+
+import torch
+
+
+def body_force_torque_fn(system, state, r_blobs):
+    z = state.pos[:, 2]
+    zero = 0.0 * z
+    return torch.stack([zero, 0.02 * z, zero, zero, zero, 0.3 + 0.1 * z],
+                       dim=1)
+
+
+def postprocess(system, state, step):
+    pos = state.pos.clone()
+    pos[:, 0] += 1e-3 * (step + 1)
+    return dataclasses.replace(state, pos=pos)
+"""
 
 
 def test_cli_refuses_user_defined_functions(tmp_path, monkeypatch):
-    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz")
-    (tmp_path / "user_defined_functions.py").write_text("x = 1\n")
+    """A user_defined_functions.py with body_force_torque_fn (which turns
+    the body-body Yukawa force off) and postprocess, written in jax.numpy
+    for the JAX CLI and in torch for the port's, in the run's directory:
+    the same .clones and .info after 3 Slip-Trapz steps at kT = 0."""
+    out = {}
+    for name, main, argv, hooks in (
+            ("jax", jcli.main, [], HOOKS_JAX),
+            ("torch", tcli.main, ["--f64", "--device", "cpu"], HOOKS_TORCH)):
+        d = tmp_path / name
+        inp = _write_scene(d, "stochastic_Slip_Trapz", extra=(
+            "body_body_force_torque_implementation python\n"),
+            files={"user_defined_functions.py": hooks})
+        monkeypatch.chdir(d)
+        main(["--input-file", str(inp)] + argv)
+        out[name] = d
+    final = "run.shell.%08d.clones" % N_STEPS
+    ref = _clones(out["jax"] / final)
+    got = _clones(out["torch"] / final)
+    start = _clones(out["torch"] / "run.shell.00000000.clones")
+    disp = np.abs(ref[:, :3] - start[:, :3]).max()
+    assert disp > 6e-3                    # the postprocess shifts alone
+    np.testing.assert_allclose(got, ref, atol=1e-9 * disp, rtol=0)
+    assert _info(out["torch"] / "run.info") == _info(out["jax"] / "run.info")
+
+
+@pytest.mark.parametrize("line", ["import jax\n",
+                                  "import jax.numpy as jnp\n",
+                                  "from rigidmultiblobswall_tpu.models "
+                                  "import system\n"])
+def test_cli_user_functions_importing_jax_end_with_the_pointer(
+        tmp_path, monkeypatch, line):
+    """A hook file written for the JAX package ends the port's run with a
+    SystemExit that names the port's torch hook signatures."""
+    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz", files={
+        "user_defined_functions.py": line + "def slip_fn(s, t):\n"
+                                            "    return None\n"})
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="user_defined_functions"):
+    with pytest.raises(SystemExit, match="torch functions.*blob_force_fn"):
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "run.inputfile")
+    import jax                               # still importable afterwards
+
+    assert jax.numpy is not None
 
 
 def test_entry_points_need_the_card_unless_told_cpu(tmp_path, monkeypatch):
@@ -254,18 +364,42 @@ def test_entry_points_need_the_card_unless_told_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
-    """A structure's .Laplace file (phoretic slip, ROADMAP Queue 1, item
-    18) is refused in a dynamic run, not ignored (articulated bodies and
-    .slip files, refused before, now run: test_cli_articulated_matches_jax
-    and tests/test_torch_active.py)."""
-    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz",
-                       files={"shell.Laplace": "12\n"})
-    inp.write_text(inp.read_text().replace(
-        "structure shell.vertex shell.clones",
-        "structure shell.vertex shell.clones shell.Laplace"))
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Laplace"):
-        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+    """examples/phoretic_janus (formerly refused) through both CLIs, its
+    structure line pointed at a generated vertex file, R = 0.7921 times its
+    .Laplace normals: the same .config frames to 1e-9 of the
+    displacement, the phoretic slip driving the Janus shell."""
+    src = Path(__file__).resolve().parent.parent / "examples" / \
+        "phoretic_janus"
+    laplace = np.loadtxt(src / "shell12_janus.Laplace")
+    out = {}
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        with open(d / "shell12.vertex", "w") as f:
+            f.write("12\n")
+            for x in 0.7921 * laplace[:, :3]:
+                f.write("%.16g %.16g %.16g\n" % tuple(x))
+        text = (d / "inputfile.dat").read_text().splitlines()
+        text = [("structure shell12.vertex shell.clones "
+                 "shell12_janus.Laplace") if ln.startswith("structure")
+                else ln for ln in text]
+        (d / "inputfile.dat").write_text("\n".join(text) + "\n")
+        monkeypatch.chdir(d)
+        main(["--input-file", str(d / "inputfile.dat")] + argv)
+        out[name] = d
+
+    def frames(d):
+        rows = [ln.split() for ln in (d / "run.shell.config").read_text()
+                .splitlines()]
+        return np.array([r for r in rows if len(r) == 7], dtype=float)
+
+    ref, got = frames(out["jax"]), frames(out["torch"])
+    assert ref.shape == got.shape == (3, 7)      # steps 0, 2 and 4
+    disp = np.abs(ref[:, :3] - ref[0, :3]).max()
+    assert disp > 1e-3
+    np.testing.assert_allclose(got, ref, atol=1e-9 * disp, rtol=0)
 
 
 @pytest.mark.parametrize("scheme", [
@@ -418,9 +552,6 @@ def test_cli_save_velocities_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("line, item", [
     ("random_state run.random_state", "item 11"),
-    ("plot_velocity_field -2 2 5 -2 2 5 1 3 3", "item 18"),
-    ("plot_concentration_field -2 2 5 -2 2 5 1 3 3", "item 18"),
-    ("tracer_radius 0.1", "item 18"),
     ("call_HydroGrid True", "item 11"),
 ])
 def test_cli_refuses_unported_options(tmp_path, monkeypatch, line, item):
@@ -431,6 +562,68 @@ def test_cli_refuses_unported_options(tmp_path, monkeypatch, line, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
     assert not os.path.exists(tmp_path / "run.inputfile")
+
+
+def _same_vtk(out, name, tol=1e-5):
+    """The two CLIs' VTK files of `name`, parsed, agree (%g keeps six
+    digits)."""
+    from test_torch_phoretic import read_vtk
+
+    a = read_vtk(out["torch"] / name)
+    b = read_vtk(out["jax"] / name)
+    assert a.keys() == b.keys()
+    for key in a:
+        assert a[key].shape == b[key].shape
+        assert np.abs(a[key] - b[key]).max() <= tol * np.abs(b[key]).max()
+    return a
+
+
+GRID = "-1 3 4 -1 3 4 0.2 2.2 2"
+
+
+@pytest.mark.parametrize("tracer", ["", "tracer_radius 0.1\n"])
+def test_cli_mobility_velocity_field_matches_jax(tmp_path, monkeypatch,
+                                                tracer):
+    """scheme mobility with plot_velocity_field (point tracers, and tracers
+    of radius 0.1): the same .velocity_field.vtk as the JAX CLI's."""
+    out = _run_both(tmp_path, monkeypatch, "mobility",
+                    extra=f"plot_velocity_field {GRID}\n{tracer}")
+    v = _same_vtk(out, "run.velocity_field.vtk")
+    assert v["velocity"].shape == (32, 3) and np.abs(v["velocity"]).max() > 0
+
+
+def test_cli_mobility_concentration_field_matches_jax(tmp_path, monkeypatch):
+    """scheme mobility of Janus shells (a .Laplace file) with
+    plot_velocity_field and plot_concentration_field: both VTK files and
+    .velocity.dat as the JAX CLI writes them."""
+    out = _run_laplace(tmp_path, monkeypatch, "mobility", extra=(
+        f"plot_velocity_field {GRID}\nplot_concentration_field {GRID}\n"
+        "background_Laplace 1 0.1\n"))
+    _same_dat(out, "run.velocity.dat")
+    _same_vtk(out, "run.velocity_field.vtk")
+    c = _same_vtk(out, "run.concentration_field.vtk")
+    assert c["concentration"].shape == (32, 1)
+
+
+def test_cli_phoretic_run_writes_concentration_frames_like_jax(
+        tmp_path, monkeypatch):
+    """A dynamic phoretic run (Janus shells, 3 Slip-Trapz steps at kT =
+    0, saved every step) with plot_concentration_field: a
+    .<step>.concentration_field.vtk with every saved frame, and the same
+    .clones, as the JAX CLI writes them."""
+    out = _run_laplace(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                       extra=f"plot_concentration_field {GRID}\n"
+                             "n_save 1\n")
+    for k in range(N_STEPS):
+        _same_vtk(out, "run.%08d.concentration_field.vtk" % k)
+    names = {p.name for p in out["torch"].iterdir()}
+    assert "run.%08d.concentration_field.vtk" % N_STEPS not in names
+    final = "run.shell.%08d.clones" % N_STEPS
+    ref = _clones(out["jax"] / final)
+    start = _clones(out["jax"] / "run.shell.00000000.clones")
+    disp = np.abs(ref[:, :3] - start[:, :3]).max()
+    np.testing.assert_allclose(_clones(out["torch"] / final), ref,
+                               atol=1e-9 * disp, rtol=0)
 
 
 def test_read_input_accepts_hydrogrid_off(tmp_path):

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels K1 (every coupling), K2 (open and periodic),
-K3, K4, K5, K6, K7 and K8 against their plain PyTorch versions, on the
-card, and the 16-sphere lubrication step on K1 grand and K2 against the
-CPU. Every test here is marked `gpu` and
+K3, K4, K5, K6, K7, K8 and L1 (every Laplace operator) against their
+plain PyTorch versions, on the card, and the 16-sphere lubrication step
+on K1 grand and K2 against the CPU. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -1262,3 +1262,85 @@ def test_articulated_forward_euler_on_card_matches_cpu(cuda):
     disp = np.abs(ref - pos).max()
     assert disp > 1e-4
     assert np.abs(got - ref).max() <= 1e-9 * disp
+
+
+# kernel L1 (csrc/laplace_layers.cu): every operator against its plain
+# version, wall and self mask on and off, float32 and float64
+L1_OPS = ("S", "D", "dD", "T", "bvp", "grad")
+
+
+def _l1_inputs(device, dtype, n=1500, n_off=700, seed=11):
+    """Blobs above the wall (one on it, two coincident), unit normals, the
+    fields and off-surface targets (one on a blob)."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0, 12, (n, 3))
+    r[:, 2] = rng.uniform(0, 4, n)
+    r[0, 2] = 0.0
+    r[1] = r[2]
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tgt = rng.uniform(0, 12, (n_off, 3))
+    tgt[5] = r[9]
+    cols = (r, tgt, nrm, rng.normal(size=n), rng.uniform(0.1, 1, n),
+            rng.uniform(0, 5, n), rng.uniform(0, 1, n))
+    return [torch.as_tensor(x, dtype=dtype, device=device) for x in cols]
+
+
+def _l1_call(lap, op, r, tgt, nrm, c, w, k, q, *, wall, self_interaction,
+             plain=False):
+    sfx = "_plain" if plain else ""
+    if op == "bvp":
+        return getattr(lap, "bvp_operator" + sfx)(r, c, w, nrm, k, 0.7,
+                                                  wall=wall)
+    if op == "grad":
+        return getattr(lap, "surface_gradient" + sfx)(r, c, w, nrm, k, q,
+                                                      0.7, wall=wall)
+    fn = {"S": "single_layer", "D": "double_layer",
+          "dD": "deriv_double_layer", "T": "dipole"}[op] + sfx
+    extra = (nrm,) if op in ("D", "dD") else ()
+    return getattr(lap, fn)(r, tgt, c, w, *extra, wall=wall,
+                            self_interaction=self_interaction)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", L1_OPS)
+def test_l1_matches_plain_bit_identical_on_repeat(cuda, op, dtype):
+    """Each L1 instance (wall on and off, self mask on and off; the fused
+    sums take the blobs as targets with the self mask on) against its
+    plain version in float64: float64 within 1e-12, float32 within
+    u32 sqrt(N) or twice the float32 plain version's own error, whichever
+    is larger, both times max|ref|; twice bit-identical; one launch
+    counted a call."""
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    args = _l1_inputs(cuda, dtype)
+    ref_args = [a.double() for a in args]
+    bound = 1e-12 if dtype == torch.float64 else 2 ** -24 * 1500 ** 0.5
+    fused = op in ("bvp", "grad")
+    for wall in (False, True):
+        for self_interaction in ((True,) if fused else (True, False)):
+            kw = dict(wall=wall, self_interaction=self_interaction)
+            before = lap.launches(op)
+            got = _l1_call(lap, op, *args, **kw)
+            again = _l1_call(lap, op, *args, **kw)
+            torch.cuda.synchronize()
+            assert lap.launches(op) == before + 2
+            assert torch.equal(got, again)
+            ref = _l1_call(lap, op, *ref_args, **kw, plain=True)
+            scale = ref.abs().max()
+            err = (got.double() - ref).abs().max() / scale
+            tol = bound
+            if dtype == torch.float32:
+                plain = _l1_call(lap, op, *args, **kw, plain=True)
+                tol = max(bound, 2 * float((plain.double() - ref).abs().max()
+                                           / scale))
+            assert err <= tol, (op, wall, self_interaction, float(err))
+
+
+def test_l1_refuses_mixed_dtypes(cuda):
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    r, tgt, nrm, c, w, k, q = _l1_inputs(cuda, torch.float32, n=200,
+                                         n_off=10)
+    with pytest.raises(ValueError, match="mixed"):
+        lap.single_layer(r, tgt, c.double(), w)

@@ -190,7 +190,8 @@ def test_from_reference_and_refusals():
     jsus, tsus = _suspensions(free_kinematics=False, kT=0.1)
     for f in dataclasses.fields(tsus):
         assert getattr(tsus, f.name) == getattr(jsus, f.name), f.name
-    with pytest.raises(NotImplementedError, match="torque_fn"):
+    with pytest.raises(NotImplementedError,
+                       match="torque_fn.*JAX-traced.*own torch hook"):
         trol.from_reference(dataclasses.replace(
             jsus, torque_fn=lambda sus, r: r))
     # the wall-spectral domain (formerly refused) carries across with its

@@ -1,5 +1,6 @@
 """Where the device time of one multibody step of the PyTorch port goes
-(Slip-Trapz, or the scheme --scheme names).
+(Slip-Trapz, or the scheme --scheme names; with --phoretic every shell a
+Janus particle, chip_smoke.py's phase 15, its Laplace solves on L1).
 
 Drives chip_smoke.py's main-path configuration (bench.py's `multibody`
 scene, 4096 twelve-blob shells = 49,152 blobs, float32; for the
@@ -17,7 +18,7 @@ constrained GMRES solve, the update with the centre-of-mass correction,
 and the nonlinear projection.
 
 Usage: python3 tools/torch_profile_step.py [n_shells] [--steps N]
-       [--scheme NAME]
+       [--scheme NAME] [--phoretic]
 """
 
 import argparse
@@ -81,6 +82,8 @@ def main():
                    help="unprofiled timed steps after the warm-up")
     p.add_argument("--scheme", default="stochastic_Slip_Trapz",
                    help="the integrators scheme to profile")
+    p.add_argument("--phoretic", action="store_true",
+                   help="Janus shells: the phoretic slip every step")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
@@ -91,6 +94,10 @@ def main():
         n_chains = args.n_shells // chip_smoke.CHAIN_BODIES
         system = chip_smoke.chain_system(n_chains)
         pos, quat = chip_smoke.chain_lattice(n_chains)
+    elif args.phoretic:
+        kT = 0.0 if args.scheme.startswith("deterministic") else 0.05
+        system, _ = chip_smoke.phoretic_system(args.n_shells, kT=kT)
+        pos, quat = chip_smoke.lattice(args.n_shells)
     else:
         system = chip_smoke.bench_system(args.n_shells)
         pos, quat = chip_smoke.lattice(args.n_shells)
