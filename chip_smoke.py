@@ -152,18 +152,25 @@ is non-zero and no result line is printed):
      K1's other couplings, K3/K4 and K5-K8 must not); one phoretic_slip
      call read directly, and the concentration field on a 64 x 64 x 8
      grid over the suspension through L1 with the self mask off, timed.
+     Every L1 launch whose targets are its sources (the BVP operator,
+     the single layer of the right-hand side, the surface gradient) must
+     take L1's symmetric sweep (ops/laplace.py SYM_LAUNCHES), the
+     field's must not.
      Phase 3 checks every L1 operator (S, D, dD, T, the fused BVP
      operator and surface gradient) against its float64 plain version on
      a random ~3000-blob scene above the wall (wall on and off, self mask
      on and off, float32 and float64, twice bit-identical; float32 within
      u32 sqrt(N) or twice the float32 plain version's error, which it
-     prints beside it) and at phase 15's shapes (every target of the
-     fused sums, the first 1024 of the others), with five kernel records
-     (the BVP operator, the right-hand side's single layer, the surface
-     gradient, and the concentration field's double and single layers at
-     its 32,768 grid points), each bound the larger of its float32
-     operations at 67 TFLOP/s and its rsqrts at 16 a clock an SM, on the
-     unordered pairs where the targets are the sources; phase 4 runs 8 Janus shells x 3 steps of forward
+     prints beside it), S, D, dD and T both with off-surface targets (the
+     directed sweep) and with the blobs as targets (the symmetric sweep),
+     and at phase 15's shapes (every target of the fused sums, the first
+     1024 of the others), with five kernel records (the BVP operator, the
+     right-hand side's single layer, the surface gradient, and the
+     concentration field's double and single layers at its 32,768 grid
+     points), each naming its design and plan (tile groups or source
+     slices), each bound the larger of its float32 operations at 67
+     TFLOP/s and its rsqrts at 16 a clock an SM, on the unordered pairs
+     where the targets are the sources; phase 4 runs 8 Janus shells x 3 steps of forward
      Euler (kT 0) and Slip-Trapz (kT 0.05, the same normals fed) and 16
      rollers with a torque_fn hook, card against CPU (float64 to 1e-9 of
      the displacement, float32 to 1e-2); phase 5 runs generated inputs
@@ -202,8 +209,8 @@ The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
 K5 and L1 their special functions at 16 a clock an SM, whichever is
-larger; K2 and K7 also name their design; K8 and L1 have a record per
-instance);
+larger; K2, K7 and L1 also name their design, L1 its plan; K8 and L1
+have a record per instance);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -3747,7 +3754,8 @@ def l1_check(lap, op, args, wall, self_interaction, what, rows=None):
 def phase_l1_kernels():
     """Phase 3, L1: every operator on a random ~3000-blob scene above the
     wall (a blob on the wall, a coincident pair, off-surface targets for
-    the unfused operators), wall on and off, self mask on and off,
+    the unfused operators on the directed sweep and the blobs themselves
+    on the symmetric sweep), wall on and off, self mask on and off,
     float32 and float64; then at phase 15's 49,152 blobs (every target of
     the fused sums, the first 1024 of the others), each instance as the
     path calls it, timed with its plain version and its bound: the BVP operator, the single layer of the
@@ -3759,7 +3767,8 @@ def phase_l1_kernels():
     from rigidmultiblobswall_tpu_torch.models import phoretic
     from rigidmultiblobswall_tpu_torch.models.system import make_state
     from rigidmultiblobswall_tpu_torch.ops import laplace as lap
-    from rigidmultiblobswall_tpu_torch.ops.pair_kernels import _n_sm
+    from rigidmultiblobswall_tpu_torch.ops.pair_kernels import _n_sm, \
+        plan_groups
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(15)
@@ -3777,12 +3786,17 @@ def phase_l1_kernels():
         rt, tt, nt_ = (torch.as_tensor(x, dtype=dtype, device=dev)
                        for x in (r, tgt, nrm))
         args = (rt, tt, nt_, *l1_inputs(rt, nt_, g))
+        on_surface = (rt, rt) + args[2:]
         for op in L1_OPS:
+            fused = op in ("bvp", "grad")
             for wall in (True, False):
-                for self_interaction in ((True,) if op in ("bvp", "grad")
-                                         else (True, False)):
+                for self_interaction in ((True,) if fused else (True, False)):
                     l1_check(lap, op, args, wall, self_interaction,
-                             f"{n} blobs")
+                             f"{n} blobs" + ("" if fused else
+                                             f", {n_off} targets"))
+                    if not fused:   # the blobs as targets: symmetric
+                        l1_check(lap, op, on_surface, wall,
+                                 self_interaction, f"{n} blobs")
 
     # phase 15's shapes: the 4096 Janus shells' blobs and lab normals, and
     # the concentration grid
@@ -3822,13 +3836,21 @@ def phase_l1_kernels():
             continue
         plain_ms = cuda_ms(lambda: l1_call(lap, op, *a, **kw, plain=True),
                            1, warmup=False)
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
-        log(f"L1 {op} {what} f32: kernel {ms:.3f} ms, bound "
-            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        if off:
+            design = "directed sweep, one target a thread (redesigned)"
+            plan = "%d slices of %d tiles" % lap.plan_slices(nt, ns,
+                                                             _n_sm(rb))
+        else:
+            design = ("symmetric sweep, sources broadcast from shared "
+                      "memory, reduce-scatter of their sums (redesigned)")
+            plan = "%d groups of %d tiles" % plan_groups(ns, _n_sm(rb))
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, design=design,
+                   plan=plan, **bound)
+        log(f"L1 {op} {what} f32, {design}, {plan}: kernel {ms:.3f} ms, "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
             f"{rec['bound_ms'] / ms:.1%} of it; directed {directed:.3f} ms, "
             f"{directed / ms:.1%}), plain f32 {plain_ms:.1f} ms"
-            f"; {lap.plan_slices(nt, ns, _n_sm(rb))} (slices, tiles a "
-            f"slice); max|ref| {scale:.3e}")
+            f"; max|ref| {scale:.3e}")
         records[key] = rec
     return records
 
@@ -4068,7 +4090,7 @@ def run_phoretic_path(system, scheme, pos, quat, pk, mc, solves):
         mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
         ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
         for key in lap.LAUNCHES:
-            lap.LAUNCHES[key] = 0
+            lap.LAUNCHES[key] = lap.SYM_LAUNCHES[key] = 0
         state, carry, _ = step(state, gen, carry)          # warm-up
         torch.cuda.synchronize()
         counts = []
@@ -4090,7 +4112,8 @@ def run_phoretic_path(system, scheme, pos, quat, pk, mc, solves):
                                 if c != "tt"),
                 "K2": mc.LAUNCHES, "K2 periodic": mc.PERIODIC_LAUNCHES,
                 "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
-                "K5-K8": sum(ck.LAUNCHES.values())}
+                "K5-K8": sum(ck.LAUNCHES.values()),
+                "L1 symmetric": sum(lap.SYM_LAUNCHES.values())}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(bool(torch.isfinite(state.pos).all()
                and torch.isfinite(state.quat).all()),
@@ -4103,6 +4126,9 @@ def run_phoretic_path(system, scheme, pos, quat, pk, mc, solves):
     check(all(ok and it < LAPLACE_MAXITER for it, ok in laplace_solves),
           f"phoretic {scheme}: a Laplace solve did not converge: "
           f"{laplace_solves}")
+    check(launches["L1 symmetric"] == launches["L1 bvp"] + launches["L1 S"]
+          + launches["L1 grad"], f"phoretic {scheme}: an L1 launch on the "
+          f"blobs left the symmetric sweep: {launches}")
     want = ("L1 bvp", "L1 S", "L1 grad", "K1 tt", "K2")
     check(all(launches[k] > 0 for k in want)
           and all(launches[k] == 0 for k in ("L1 other", "K1 other",
@@ -4157,6 +4183,7 @@ def phase_phoretic_path(pk, mc):
           "phoretic_slip did not converge at 49,152 blobs")
     # the concentration field on the grid, the self mask off
     off = (lap.LAUNCHES["D", False], lap.LAUNCHES["S", False])
+    sym = sum(lap.SYM_LAUNCHES.values())
     coords = fields.velocity_field_grid(CONC_GRID)[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4174,6 +4201,8 @@ def phase_phoretic_path(pk, mc):
           and bool(torch.isfinite(c_grid).all()),
           "the concentration field is not finite")
     check(launched == (1, 1), "the concentration field did not run on L1")
+    check(sum(lap.SYM_LAUNCHES.values()) == sym, "the concentration field "
+          "took L1's symmetric sweep")
     total["L1 D off"], total["L1 S off"] = launched
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return total

@@ -70,6 +70,8 @@ SIGNATURES = {
        for w in ("grand", "rt", "tr", "rr")},
     **{f"laplace_layers_{t}": (_I,) * 3 + (_P,) * 7 + (_D,) + (_I,) * 4
        + (_P,) * 3 for t in ("f32", "f64")},
+    **{f"laplace_layers_sym_{t}": (_I,) * 2 + (_P,) * 6 + (_D,) + (_I,) * 3
+       + (_P,) * 3 for t in ("f32", "f64")},
 }
 
 _lib = None

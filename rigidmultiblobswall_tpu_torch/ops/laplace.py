@@ -12,8 +12,14 @@ its quadrature weight, with prefactor 1/(4 pi).
 Each function launches kernel L1 (`csrc/laplace_layers.cu`, float32 or
 float64, counted in `LAUNCHES[op, self_interaction]`) for CUDA tensors
 and runs its plain PyTorch version (`*_plain`) for CPU tensors; any other
-device raises. The JAX package forms these sums as XLA on materialized
-(Nt, Ns, 3) pair tensors; the plain versions keep its masks and order
+device raises. Where the targets are the sources (the fused sums, and
+r_tgt the same tensor as r_src) L1 takes its symmetric sweep, which forms
+each unordered pair once over `pair_kernels.plan_groups`' tile groups and
+adds its terms to both ends (counted also in `SYM_LAUNCHES`); other
+targets take the directed sweep over `plan_slices`' source slices.
+
+The JAX package forms these sums as XLA on materialized (Nt, Ns, 3)
+pair tensors; the plain versions keep its masks and order
 term for term but take the targets in chunks, so that no (chunk, Ns, 3)
 temporary exceeds `PLAIN_CHUNK_BYTES`. The fused plain versions compose
 the unfused ones in the JAX package's order (models/phoretic.py there).
@@ -36,12 +42,15 @@ from . import _build, pair_kernels
 # output components of each
 OPS = {"S": 0, "D": 1, "dD": 2, "T": 3, "bvp": 4, "grad": 5}
 NOUT = {"S": 1, "D": 1, "dD": 3, "T": 3, "bvp": 1, "grad": 3}
-# L1 launches in this process by (operator, self_interaction)
+# L1 launches in this process by (operator, self_interaction), and those
+# of them on the symmetric sweep
 LAUNCHES = {(op, s): 0 for op in OPS for s in (True, False)}
+SYM_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # the largest (chunk, Ns, 3) pair temporary of a plain version
 PLAIN_CHUNK_BYTES = 1 << 27
-# float32 blocks of L1 an SM holds at a time (128 threads, __launch_bounds__
-# (128); the slice plan aims for pair_kernels.PLAN_WAVES waves of them)
+# float32 blocks of L1 an SM holds at a time (128 threads,
+# __launch_bounds__(128, 8): pairk::Shape; the slice plan aims for
+# pair_kernels.PLAN_WAVES waves of them)
 BLOCKS_PER_SM = 8
 
 _FOUR_PI = 4.0 * math.pi
@@ -210,8 +219,10 @@ def plan_slices(n_tgt, n_src, n_sm):
 
 def _launch(op, r_src, r_tgt, *, c, w, normals=None, k=None, q=None,
             dc=1.0, wall, self_interaction):
-    """Kernel L1 for operator `op` on CUDA tensors; returns (Nt,) or
-    (Nt, 3)."""
+    """Kernel L1 for operator `op` on CUDA tensors, on the symmetric sweep
+    when r_tgt is r_src (the self mask is then implied: i == j is a zero
+    distance), else on the directed sweep; returns (Nt,) or (Nt, 3)."""
+    symmetric = r_tgt is r_src
     tensors = [r_src, r_tgt, c, w] + [t for t in (normals, k, q)
                                       if t is not None]
     t0 = tensors[0]
@@ -229,7 +240,8 @@ def _launch(op, r_src, r_tgt, *, c, w, normals=None, k=None, q=None,
         raise ValueError(f"laplace {op}: positions must be (N, 3)")
     if 3 * max(ns, nt) >= 2 ** 31:
         raise ValueError(f"laplace {op}: too many rows for 32-bit indexing")
-    r_src, r_tgt, c, w = (x.contiguous() for x in (r_src, r_tgt, c, w))
+    r_src, c, w = (x.contiguous() for x in (r_src, c, w))
+    r_tgt = r_src if symmetric else r_tgt.contiguous()
     normals, k, q = (None if x is None else x.contiguous()
                      for x in (normals, k, q))
     if c.shape != (ns,) or w.shape != (ns,):
@@ -241,23 +253,36 @@ def _launch(op, r_src, r_tgt, *, c, w, normals=None, k=None, q=None,
         return out
     if ns == 0:
         return out.zero_()
-    slices, per = plan_slices(nt, ns, pair_kernels._n_sm(t0))
-    ws = torch.empty((slices, nt, nout), dtype=torch.float64,
-                     device=t0.device)
     suffix = "f32" if t0.dtype == torch.float32 else "f64"
-    name = f"laplace_layers_{suffix}"
+    n_sm = pair_kernels._n_sm(t0)
+    stream = torch.cuda.current_stream(t0.device).cuda_stream
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = getattr(_build.library(), name)(
-        OPS[op], int(bool(wall)), int(bool(self_interaction)),
-        r_src.data_ptr(), r_tgt.data_ptr(), ptr(normals), c.data_ptr(),
-        w.data_ptr(), ptr(k), ptr(q), float(dc), ns, nt, slices, per,
-        ws.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(t0.device).cuda_stream)
+    if symmetric:
+        groups, per = pair_kernels.plan_groups(ns, n_sm)
+        ws = torch.empty((groups, ns, nout), dtype=torch.float64,
+                         device=t0.device)
+        name = f"laplace_layers_sym_{suffix}"
+        err = getattr(_build.library(), name)(
+            OPS[op], int(bool(wall)), r_src.data_ptr(), ptr(normals),
+            c.data_ptr(), w.data_ptr(), ptr(k), ptr(q), float(dc), ns,
+            groups, per, ws.data_ptr(), out.data_ptr(), stream)
+    else:
+        slices, per = plan_slices(nt, ns, n_sm)
+        ws = torch.empty((slices, nt, nout), dtype=torch.float64,
+                         device=t0.device)
+        name = f"laplace_layers_{suffix}"
+        err = getattr(_build.library(), name)(
+            OPS[op], int(bool(wall)), int(bool(self_interaction)),
+            r_src.data_ptr(), r_tgt.data_ptr(), ptr(normals), c.data_ptr(),
+            w.data_ptr(), ptr(k), ptr(q), float(dc), ns, nt, slices, per,
+            ws.data_ptr(), out.data_ptr(), stream)
     _build.check(name, err)
     LAUNCHES[op, bool(self_interaction)] += 1
+    if symmetric:
+        SYM_LAUNCHES[op, bool(self_interaction)] += 1
     return out
 
 

@@ -1344,3 +1344,92 @@ def test_l1_refuses_mixed_dtypes(cuda):
                                          n_off=10)
     with pytest.raises(ValueError, match="mixed"):
         lap.single_layer(r, tgt, c.double(), w)
+
+
+def _l1_sym_inputs(device, dtype, n, seed=12):
+    """_l1_inputs' blobs (one on the wall, a coincident pair in its first
+    tile) with two more coincident blobs in the first and last tiles (in
+    different tile groups when there are several) and two on the wall at
+    the same x, y (a zero image distance between distinct blobs)."""
+    r, _, nrm, c, w, k, q = _l1_inputs("cpu", torch.float64, n=n, n_off=8,
+                                       seed=seed)
+    r[5] = r[n - 3]
+    r[10] = r[n - 20]
+    r[10, 2] = r[n - 20, 2] = 0.0
+    return [x.to(device=device, dtype=dtype) for x in (r, nrm, c, w, k, q)]
+
+
+def _l1_tol(lap, op, args, kw, ref, dtype, n):
+    """Today's bound: float64 1e-12, float32 u32 sqrt(N) or twice the
+    float32 plain version's own error, both times max|ref|."""
+    if dtype == torch.float64:
+        return 1e-12
+    plain = _l1_call(lap, op, *args, **kw, plain=True)
+    scale = ref.abs().max()
+    return max(2 ** -24 * n ** 0.5,
+               2 * float((plain.double() - ref).abs().max() / scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [100, 1500, 20000])
+@pytest.mark.parametrize("op", L1_OPS)
+def test_l1_symmetric_matches_plain_bit_identical_on_repeat(cuda, op, n,
+                                                            dtype):
+    """The symmetric sweep (the fused sums, and S, D, dD and T called with
+    r_tgt the same tensor as r_src) at N of one tile group (100), of
+    several ragged groups of one tile (1500) and of ragged groups of two
+    tiles (20,000 on 132 SMs), with coincident blobs in different groups
+    and distinct blobs at a zero image distance: against the float64
+    plain version within today's bounds, wall and self mask on and off,
+    twice bit-identical, every launch on the symmetric sweep."""
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    r, nrm, c, w, k, q = _l1_sym_inputs(cuda, dtype, n)
+    args = (r, r, nrm, c, w, k, q)
+    ref_r = r.double()
+    ref_args = (ref_r, ref_r) + tuple(a.double() for a in args[2:])
+    fused = op in ("bvp", "grad")
+    for wall in (False, True):
+        for self_interaction in ((True,) if fused else (True, False)):
+            kw = dict(wall=wall, self_interaction=self_interaction)
+            before = sum(lap.SYM_LAUNCHES.values())
+            got = _l1_call(lap, op, *args, **kw)
+            again = _l1_call(lap, op, *args, **kw)
+            torch.cuda.synchronize()
+            assert sum(lap.SYM_LAUNCHES.values()) == before + 2
+            assert torch.equal(got, again)
+            ref = _l1_call(lap, op, *ref_args, **kw, plain=True)
+            err = (got.double() - ref).abs().max() / ref.abs().max()
+            tol = _l1_tol(lap, op, args, kw, ref, dtype, n)
+            assert err <= tol, (op, n, wall, self_interaction, float(err))
+
+
+def test_l1_takes_the_symmetric_sweep_for_the_same_tensor_only(cuda):
+    """r_tgt is r_src takes the symmetric sweep; an equal copy of the
+    blobs as targets takes the directed sweep, and the two agree within
+    the float32 bound."""
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    n = 1500
+    r, nrm, c, w, k, q = _l1_sym_inputs(cuda, torch.float32, n)
+    copy = r.clone()
+    for op in L1_OPS:
+        kw = dict(wall=True, self_interaction=True)
+        sym, total = sum(lap.SYM_LAUNCHES.values()), lap.launches(op)
+        got = _l1_call(lap, op, r, r, nrm, c, w, k, q, **kw)
+        assert sum(lap.SYM_LAUNCHES.values()) == sym + 1
+        assert lap.launches(op) == total + 1
+        if op in ("bvp", "grad"):
+            continue
+        directed = _l1_call(lap, op, r, copy, nrm, c, w, k, q, **kw)
+        torch.cuda.synchronize()
+        assert sum(lap.SYM_LAUNCHES.values()) == sym + 1
+        assert lap.launches(op) == total + 2
+        ref = _l1_call(lap, op, *(a.double() for a in (r, r, nrm, c, w, k,
+                                                        q)), **kw,
+                       plain=True)
+        scale = ref.abs().max()
+        tol = _l1_tol(lap, op, (r, r, nrm, c, w, k, q), kw, ref,
+                      torch.float32, n)
+        assert (got.double() - directed.double()).abs().max() / scale \
+            <= 2 * tol

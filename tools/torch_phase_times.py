@@ -1,0 +1,76 @@
+"""Step times of chip_smoke.py's phase 6 (multibody-49k, Slip-Trapz) and
+phase 15 (multibody-49k-phoretic: forward Euler and Slip-Trapz, the
+concentration field) on a CUDA card, for the package and chip_smoke.py of
+one checkout, in one process:
+
+    python3 tools/torch_phase_times.py [--root DIR] [--phases 6,15]
+
+DIR defaults to this checkout; another one (e.g. the parent commit
+unpacked with `git archive` into a directory that .gitignore lists)
+builds its own kernels into its own build/kernels/. Each phase runs as
+chip_smoke.py runs it, with its checks; its log lines, which carry the
+ms/step, the solver counts and the launches, are printed as they come,
+then one summary line `phase times <root>: ...`. To compare two
+checkouts, run them in turns in one chip call (parent, change, change,
+parent): step times are host-clock and spread between calls.
+"""
+
+import argparse
+import os
+import re
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=str(ROOT))
+    p.add_argument("--phases", default="6,15",
+                   help="comma-separated subset of 6 and 15")
+    args = p.parse_args()
+    phases = [x.strip() for x in args.phases.split(",") if x.strip()]
+    if not set(phases) <= {"6", "15"}:
+        raise SystemExit(f"torch_phase_times: unknown phases {phases}")
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_phase_times: needs a CUDA card")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from rigidmultiblobswall_tpu_torch.ops import _build
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(msg, flush=True)
+
+    cs.log = log
+    log(cs.smi())
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"package from {root}: library ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if "6" in phases:
+        cs.phase_main_path(pk, mc)
+    if "15" in phases:
+        cs.phase_phoretic_path(pk, mc)
+    summary = []
+    for line in lines:
+        m = re.match(r"(main path|multibody-49k-phoretic \w+) .*?: "
+                     r"([0-9.]+) ms/step", line)
+        if m:
+            summary.append(f"{m.group(1)} {m.group(2)}")
+    print(f"phase times {root}: " + "; ".join(summary) + " ms/step",
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,7 @@
-"""Kernels K1, K2, K5, K6, K7 and K8 at the main paths' shapes on a CUDA
-card.
+"""Kernels K1, K2, K5, K6, K7, K8 and L1 at the main paths' shapes on a
+CUDA card.
 
-    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7,k8]
+    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7,k8,l1]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -51,14 +51,24 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   series lengths (the rot table zero-padded or cut to K' terms, the image
   series to Ki'), whose slopes are the cost of one Clenshaw term, and,
   where `ncu` is on the machine, its warp stall reasons of one launch of
-  each product.
+  each product;
+- l1 (csrc/laplace_layers.cu): each instance of the phoretic path at
+  chip_smoke.py phase 15's shapes (49,152 blobs, the 64 x 64 x 8
+  concentration grid, the wall on), as the path calls it: the BVP
+  operator, the single layer and the surface gradient on the symmetric
+  sweep, the field's D and S on the directed sweep; but for --baseline
+  also each one's plan and bound, and dD and T (not on the path) on the
+  symmetric sweep.
 But for --baseline it prints the ptxas registers and spills of the chosen
 kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
 (cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
 and F2I conversions (which run at the MUFU's rate) and the subroutine
 calls (for k8 also the LDS, FFMA, FADD and FMUL of each loop of its
-instances' SASS: the Clenshaw loops); --sass-out (default
+instances' SASS: the Clenshaw loops; for l1, of the path's float32 wall
+instances, each pair loop's MUFU, SHFL, LDS, FFMA,
+FADD, FMUL and FSEL a pair, a pair counted by its two MUFU.RSQ, the real
+source's and the image's); --sass-out (default
 build/kernels_sass.txt) receives
 the counts and those instances' listing. Checks against the plain
 versions are chip_smoke.py's and the card tests'.
@@ -86,7 +96,14 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
              "k5": ("nl_forces",),
              "k6": ("near_rpy",),
              "k7": ("wall_near",),
-             "k8": ("wall_rot_near",)}
+             "k8": ("wall_rot_near",),
+             # the path's float32 wall instances: the symmetric sweep's BVP
+             # operator (4), single layer (0) and gradient (5), the
+             # directed sweep's D (1) and S without the mask
+             "l1": ("l1_sym<float, 4, true", "l1_sym<float, 0, true",
+                    "l1_sym<float, 5, true",
+                    "l1_directed<float, 1, true, false",
+                    "l1_directed<float, 0, true, false")}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -654,8 +671,69 @@ def k8_ncu_child(cs, dev):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------- L1
+
+# (operator, targets the sources) of the phoretic path's L1 calls
+L1_PATH = (("bvp", True), ("S", True), ("grad", True), ("D", False),
+           ("S", False))
+
+
+def l1_scene(cs, dev):
+    """chip_smoke.py phase 15's shapes, as its phase_l1_kernels makes
+    them: the 4096 Janus shells' blobs and lab normals, the 64 x 64 x 8
+    concentration grid and the fields, float32."""
+    from rigidmultiblobswall_tpu_torch.models import fields
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models import phoretic
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system, cfg = cs.phoretic_system(cs.N_SHELLS)
+    pos, quat = cs.lattice(cs.N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    rb = kin.blob_positions(system, state).contiguous()
+    nb = phoretic.lab_normals(system, state, cfg.chemistry).contiguous()
+    grid = torch.as_tensor(fields.velocity_field_grid(cs.CONC_GRID)[0],
+                           dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(15)
+    return rb, nb, grid, cs.l1_inputs(rb, nb, g)
+
+
+def profile_l1(cs, dev, detail):
+    """Prints each path instance's time as the path calls it and, with
+    detail, its plan and bound (and dD and T on the symmetric sweep)."""
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    rb, nb, grid, (c, w, k, q) = l1_scene(cs, dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ns = rb.shape[0]
+    cases = L1_PATH + ((("dD", True), ("T", True)) if detail else ())
+    for op, on_surface in cases:
+        tgt = rb if on_surface else grid
+        kw = dict(wall=True, self_interaction=on_surface)
+        a = (rb, tgt, nb, c, w, k, q)
+        head = (f"  L1 {op} {ns} blobs" if on_surface else
+                f"  L1 {op} {ns} blobs, {tgt.shape[0]} grid points")
+        ms = cs.cuda_ms(lambda: cs.l1_call(lap, op, *a, **kw), 10)
+        if not detail:
+            print(f"{head}: {ms:.3f} ms", flush=True)
+            continue
+        bound = cs.l1_bound(op, ns, tgt.shape[0], True, on_surface)
+        share = (f"bound {bound['bound_ms']:.3f} ms, "
+                 f"{bound['bound_ms'] / ms:.1%}")
+        if not on_surface:
+            s, per = lap.plan_slices(tgt.shape[0], ns, n_sm)
+            print(f"{head}, directed sweep, {s} slices of {per} tiles: "
+                  f"{ms:.3f} ms, {share}", flush=True)
+            continue
+        g, per = pk.plan_groups(ns, n_sm)
+        print(f"{head}, symmetric sweep, {g} groups of {per} tiles: "
+              f"{ms:.3f} ms, {share}", flush=True)
+
+
 PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
-            "k6": profile_k6, "k7": profile_k7, "k8": profile_k8}
+            "k6": profile_k6, "k7": profile_k7, "k8": profile_k8,
+            "l1": profile_l1}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -693,7 +771,7 @@ def sass_counts(lib_path, kernels, out_path):
         names = [d.replace("(anonymous namespace)::", "").split("(", 1)[0]
                  for d in dem.splitlines()]
     counts, listing = [], []
-    loops_of = set(INSTANCES["k8"]) if "k8" in kernels else set()
+    loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1") if k in kernels}
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
             continue
@@ -707,8 +785,10 @@ def sass_counts(lib_path, kernels, out_path):
             f"{sum('FRND' in ln for ln in body)}, f2i "
             f"{sum('F2I' in ln for ln in body)}, calls "
             f"{sum('CALL' in ln for ln in body)} {calls}")
-        if any(f in name for f in loops_of):
+        if any(f in name for f in loops_of.get("k8", ())):
             counts += [f"  {ln}" for ln in sass_loops(body)]
+        if any(f in name for f in loops_of.get("l1", ())):
+            counts += [f"  {ln}" for ln in sass_pair_loops(body)]
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
         counts = [f"no instance found (cuobjdump exit {out.returncode}: "
@@ -752,11 +832,48 @@ def sass_loops(body):
     return out or ["no loop with LDS and FFMA"]
 
 
+PAIR_OPS = ("MUFU", "SHFL", "LDS", "FFMA", "FADD", "FMUL", "FSEL")
+
+
+def sass_pair_loops(body):
+    """The pair loops of an L1 instance's SASS (backward branches over
+    MUFU.RSQ): per loop its instructions and its PAIR_OPS a pair, a pair
+    counted by its two MUFU.RSQ (the real source's and the image's), and
+    the LDS widths."""
+    instrs = []
+    for ln in body:
+        m = SASS_LINE.search(ln)
+        if m:
+            instrs.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = []
+    for addr, op, rest in instrs:
+        if op != "BRA":
+            continue
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if target is None or int(target.group(1), 16) > addr:
+            continue
+        lo = int(target.group(1), 16)
+        ops = [o for a, o, _ in instrs if lo <= a <= addr]
+        rsq = sum(o.startswith("MUFU.RSQ") for o in ops)
+        if rsq == 0:
+            continue
+        pairs = rsq / 2
+        hist = {k: sum(o.split(".")[0] == k for o in ops) / pairs
+                for k in PAIR_OPS}
+        widths = sorted({o for o in ops if o.startswith("LDS")})
+        out.append(f"loop {lo:#x}-{addr:#x}: {pairs:g} pairs, "
+                   f"{len(ops) / pairs:.1f} instructions a pair: "
+                   + ", ".join(f"{k} {v:.2f}" for k, v in hist.items())
+                   + f" ({', '.join(widths)})")
+    return out or ["no loop with MUFU.RSQ"]
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
-    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8",
-                   help="comma-separated subset of k1, k2, k5, k6, k7, k8")
+    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1",
+                   help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
+                        "l1")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",
