@@ -13,8 +13,9 @@ is non-zero and no result line is printed):
      (csrc/blob_forces.cu), K3 (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu),
      K5, K6, K7 and K8 (csrc/nl_forces.cu, csrc/near_rpy.cu,
      csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) and
-     L1, the Laplace layer sums (csrc/laplace_layers.cu), with
-     one nvcc per source, all started together,
+     L1, the Laplace layer sums (csrc/laplace_layers.cu), and M1, the
+     MCMC pair energy (csrc/blob_energy.cu), with one nvcc per source,
+     all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
   3. kernels against their plain PyTorch versions on the card: every K1
@@ -179,6 +180,35 @@ is non-zero and no result line is printed):
      plot_velocity_field, tracer_radius and plot_concentration_field (the
      VTK files' numbers), and a torch user_defined_functions.py with
      body_force_torque_fn and postprocess.
+ 16. the MCMC path at full width (multibody-49k-mcmc): phase 6's scene
+     (4096 shells, 49,152 blobs above the wall, bench.py's physics at kT
+     0.05) in float32: run_mcmc with 100 adaptive burn-in steps and 200
+     chain steps saved every 20, under torch.cuda.set_sync_debug_mode(
+     "error") (no host sync in the run): ms per step, acceptance, the
+     final proposal size, M1's launches (one a step and one at the start;
+     no other kernel), and the final energy against the plain version's
+     energy of the final state (float64 sums on the same float32 blobs,
+     within the rounding of the terms' inputs or twice the float32 plain
+     version's error of the pair energy); then run_rejection_sampler on one shell (kT 1) with
+     n_estimate 100,000 and 20,000 proposals in batches of 4096:
+     proposals per second and M1's launches. Phase 3 checks M1 against its
+     float64 plain version on the random ~3000-blob scene (a coincident
+     distinct pair) in the open domain, an xy-periodic and a fully
+     periodic box, both mask flavours (a coincident pair dropped, as
+     forces.blob_blob_energy, or at r = 1, as mcmc.total_energy), float64
+     to 1e-12 and float32 within the rounding of its terms' inputs
+     (2^-22 (2 + |r - 2a| / b) of each term, summed) or twice the float32
+     plain version's error (each printed), twice bit-identical; and at
+     phase 16's shapes, the 49,152 blobs (128 groups of 3 tiles) and a
+     batch of 4096 twelve-blob configurations, float32 and float64 (to
+     1e-12) alike, each timed in float32 with its plain version and its
+     bound (two kernel records); phase 4 runs a 64-shell chain (10 burn-in and 40
+     steps) card float64 against CPU float64 on the same draws fed (1e-9);
+     phase 5 runs body_mcmc, MCMC and body_mcmc_rejection on generated
+     inputs through the CLI, card float64 against CPU float64 on the same
+     seed (the same files under the JAX CLI's names, frame counts and
+     shapes, .MCMC_info fields), and examples/mcmc/inputMCMC.dat on the
+     card with generated vertex and clones files.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -208,9 +238,9 @@ CPU float64).
 The line before the last holds the per-kernel JSON record (time, plain
 version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
-K5 and L1 their special functions at 16 a clock an SM, whichever is
-larger; K2, K7 and L1 also name their design, L1 its plan; K8 and L1
-have a record per instance);
+K5, L1 and M1 their special functions at 16 a clock an SM, whichever
+is larger; K2, K7, L1 and M1 also name their design, L1 its plan; K8,
+L1 and M1 have a record per instance);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -4208,6 +4238,470 @@ def phase_phoretic_path(pk, mc):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The MCMC sampler and its pair energy, kernel M1 (ROADMAP Queue 1, item 18;
+# Queue 2, M1): phase 3's M1 checks and records, phase 4's chain card
+# against CPU, phase 5's MCMC modes through the CLI and phase 16
+# ---------------------------------------------------------------------------
+
+# float32 operations of an M1 unordered pair (csrc/blob_energy.cu
+# pair_energy with forcek::energy), an FMA as 2 and a rsqrt or exp2 as 1:
+# the difference (3), r^2 (5), the rsqrt and r = r^2 rsqrt (2), 2a - r (1),
+# c t and its min (2), the exp2 (1), t / b and its max (2), the add and
+# the product by eps (2), the tile sum (1)
+ENERGY_PAIR_FLOPS = 19
+# the truncation-form minimum image on each periodic axis: a division, the
+# half's add, the truncation and the multiply-add back (5)
+ENERGY_IMAGE_FLOPS = 5
+# its special functions: one rsqrt and one exp2 an unordered pair
+ENERGY_PAIR_MUFU = 2
+# the rejection sampler's batch (models/mcmc.py REJECTION_BATCH): 4096
+# proposals of one twelve-blob shell
+N_MCMC_BATCH = 4096
+# phase 3's boxes on the ~3000-blob scene (20 x 20 in-plane, heights to 4)
+M1_BOXES = {"open": (0.0, 0.0, 0.0), "xy periodic": (20.0, 20.0, 0.0),
+            "periodic": (20.0, 20.0, 8.0)}
+
+
+def m1_bound(n, n_conf, box=(0.0, 0.0, 0.0)):
+    """M1's bound record for n_conf configurations of n blobs (positions
+    in, one float64 energy out; each unordered pair's law once) and its
+    unordered pairs."""
+    pairs = n_conf * n * (n - 1) // 2
+    axes = sum(1 for L in box if L > 0)
+    rec = bound_record(
+        4 * 3 * n * n_conf + 8 * n_conf,
+        pairs * (ENERGY_PAIR_FLOPS + ENERGY_IMAGE_FLOPS * axes),
+        pairs * ENERGY_PAIR_MUFU)
+    return rec, pairs
+
+
+def m1_term_bound(mc, r, kw):
+    """What float32 rounding of each term's inputs allows M1 on each
+    configuration of r (P, n, 3), (P,) float64: 2^-22 (the relative error
+    of ex2.approx and of r from rsqrt.approx) of each term times (2 + its
+    exponent's magnitude |r - 2a| / b), summed over the unordered pairs in
+    float64 (tests/test_torch_cuda.py _m1_term_bound), in the plain
+    version's chunks."""
+    r = r.double()
+    n_conf, n = r.shape[0], r.shape[1]
+    eps, b = kw["repulsion_strength"], kw["debye_length"]
+    two_a = 2.0 * kw["blob_radius"]
+    box = kw.get("periodic_length", (0.0, 0.0, 0.0))
+    per, tile = mc._energy_rows(n, n_conf)
+    ids = torch.arange(n, device=r.device)
+    out = torch.zeros(n_conf, dtype=torch.float64, device=r.device)
+    for p0 in range(0, n_conf, per):
+        rp = r[p0:p0 + per]
+        for i0 in range(0, n, tile):
+            ri = rp[:, i0:i0 + tile]
+            dist = mc.min_image(ri[:, :, None, :] - rp[:, None, :, :],
+                                box).norm(dim=-1)
+            u = torch.where(dist > two_a, eps * torch.exp(-(dist - two_a) / b),
+                            eps + eps * (two_a - dist) / b)
+            term = u * (2.0 + (dist - two_a).abs() / b)
+            live = ids[None, :] > ids[i0:i0 + ri.shape[1], None]
+            out[p0:p0 + per] += torch.where(live, term, 0.0).sum(dim=(1, 2))
+    return out * 2.0 ** -22
+
+
+def m1_vs_plain(mc, r, kw):
+    """M1 on r (P, n, 3) against its float64 plain version, twice
+    bit-identical; float64 within 1e-12, float32 within the rounding of
+    its terms' inputs (m1_term_bound) or twice the float32 plain
+    version's error, each relative to the largest energy. Returns (max
+    abs err, relative err, bound, repeat bit-identical, text of the
+    float32 bound's parts)."""
+    got = mc.blob_pair_energy(r, **kw)
+    again = mc.blob_pair_energy(r, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    ref = mc.blob_blob_energy_plain(r.double(), **kw)
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    plain_txt = ""
+    if r.dtype == torch.float32:
+        plain_rel = ((mc.blob_blob_energy_plain(r, **kw) - ref).abs().max()
+                     .item() / scale)
+        term_rel = m1_term_bound(mc, r, kw).max().item() / scale
+        bound = max(term_rel, 2 * plain_rel)
+        plain_txt = (f", term rounding {term_rel:.3e}, plain f32 "
+                     f"{plain_rel:.3e}")
+    else:
+        bound = 1e-12
+    return err, err / scale, bound, same, plain_txt
+
+
+def shell_batch(n_conf, seed=0):
+    """n_conf random configurations of one bench.py shell (positions
+    uniform in the rejection sampler's box, uniform orientations), their
+    blobs (n_conf, 12, 3) in float32 on the card."""
+    from rigidmultiblobswall_tpu_torch.ops import quaternion as quat
+
+    rng = np.random.default_rng(seed)
+    box = 5.0 * (2 * 0.5 + 2 * A_BENCH)
+    pos = torch.as_tensor(rng.uniform(0, box, (n_conf, 1, 3)))
+    q = torch.as_tensor(rng.normal(size=(n_conf, 4)))
+    R = quat.rotation_matrix(q / q.norm(dim=1, keepdim=True))
+    blobs = pos + torch.einsum("pij,nj->pni", R,
+                               torch.as_tensor(shell_vertices()))
+    return blobs.to(torch.float32).to(DEVICE).contiguous()
+
+
+def phase_m1_kernels(pk, mc, kin, make_state):
+    """Phase 3, M1: the pair energy against its float64 plain version on a
+    random ~3000-blob scene (blobs below a, a coincident distinct pair) in
+    the open domain (the wall's instance too), an xy-periodic and a fully
+    periodic box, both mask flavours, float32 and float64, twice
+    bit-identical; then at phase 16's shapes in total_energy's flavour,
+    float32 as the chain calls it and float64: the 49,152 blobs of phase
+    6's scene (several tiles a group) and the rejection sampler's batch of
+    4096 twelve-blob configurations, each timed in float32 with its plain
+    version and its bound. Returns the two records."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(0)
+    n = 3000
+    r = np.empty((1, n, 3))
+    r[0, :, :2] = rng.uniform(0, 20, (n, 2))
+    r[0, :, 2] = rng.uniform(0.05, 4, n)
+    r[0, 5] = r[0, 4]
+    law = dict(repulsion_strength=0.2, debye_length=0.2, blob_radius=0.3)
+    for box_name, box in M1_BOXES.items():
+        for coincident in mc.COINCIDENT:
+            kw = dict(law, periodic_length=box, coincident=coincident)
+            for dtype in (torch.float32, torch.float64):
+                rt = torch.as_tensor(r, dtype=dtype, device=dev)
+                err, rel, bound, same, plain_txt = m1_vs_plain(mc, rt, kw)
+                log(f"M1 {n} blobs {box_name} coincident={coincident} "
+                    f"{dtype}: max err {err:.3e}, / max|ref| = {rel:.3e} "
+                    f"(bound {bound:.2e}{plain_txt}); repeat bit-identical "
+                    f"{same}")
+                check(rel <= bound, f"M1 disagrees with plain at {n} blobs "
+                      f"{box_name} {coincident} {dtype} ({rel:.3e})")
+                check(same, f"M1 not bit-identical on repeat ({box_name}, "
+                      f"{coincident}, {dtype})")
+
+    system = bench_system(N_SHELLS)
+    pos, quat = lattice(N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r_main = kin.blob_positions(system, state)[None].contiguous()
+    shapes = (("M1", r_main, f"{r_main.shape[1]} blobs"),
+              ("M1_batch", shell_batch(N_MCMC_BATCH),
+               f"{N_MCMC_BATCH} x 12 blobs"))
+    records = {}
+    kw = dict(repulsion_strength=0.2, debye_length=0.2,
+              blob_radius=A_BENCH, coincident="one")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key, rb, what in shapes:
+        n_conf, nb = rb.shape[0], rb.shape[1]
+        err, rel, bound, same, plain_txt = m1_vs_plain(mc, rb, kw)
+        ms = cuda_ms(lambda: mc.blob_pair_energy(rb, **kw), 10)
+        plain_ms = cuda_ms(lambda: mc.blob_blob_energy_plain(rb, **kw), 1)
+        rec, pairs = m1_bound(nb, n_conf)
+        groups, per = pk.plan_groups(nb, n_sm)
+        f32_ms = pairs * ENERGY_PAIR_FLOPS / PEAK_F32_FLOPS * 1e3
+        sfu_ms = pairs * ENERGY_PAIR_MUFU / PEAK_SFU_PER_S * 1e3
+        log(f"M1 {what} f32 ({groups} tile groups of {per} tiles, "
+            f"{groups * (groups + 1) // 2} group pairs x {n_conf} "
+            f"configurations) vs plain f64: max err {err:.3e}, / max|ref| "
+            f"= {rel:.3e} (bound {bound:.2e}{plain_txt}); repeat "
+            f"bit-identical {same}; kernel {ms:.3f} ms, plain f32 "
+            f"{plain_ms:.1f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {pairs} unordered pairs: float32 "
+            f"{f32_ms:.4f} ms at {ENERGY_PAIR_FLOPS} a pair, special "
+            f"functions {sfu_ms:.4f} ms at {ENERGY_PAIR_MUFU} a pair; "
+            f"{rec['bound_ms'] / ms:.1%} of it)")
+        check(rel <= bound, f"M1 disagrees at {what} ({rel:.3e})")
+        check(same, f"M1 not bit-identical on repeat at {what}")
+        # the float64 instance on the same blobs: at 49,152 blobs the only
+        # shape whose groups hold several tiles
+        err64, rel64, bound64, same64, _ = m1_vs_plain(mc, rb.double(), kw)
+        log(f"M1 {what} f64 vs plain f64: max err {err64:.3e}, / max|ref| "
+            f"= {rel64:.3e} (bound {bound64:.0e}); repeat bit-identical "
+            f"{same64}")
+        check(rel64 <= bound64, f"M1 f64 disagrees at {what} ({rel64:.3e})")
+        check(same64, f"M1 f64 not bit-identical on repeat at {what}")
+        records[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            design="symmetric sweep over tile groups, "
+                                   "fixed-order float64 sums", **rec)
+    return records
+
+
+def phase_mcmc_parity(mc):
+    """Phase 4, MCMC: 64 shells of phase 6's lattice, 10 adaptive burn-in
+    steps and a 40-step chain saved every 10, on the same draws fed (made
+    on the CPU from a seed), the card (M1) in float64 against the CPU (the
+    plain version) in float64: the same accepts, frames and energies to
+    1e-9."""
+    from rigidmultiblobswall_tpu_torch.models import mcmc
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system = bench_system(64)
+    pos, quat = lattice(64, seed=4)
+    gen = torch.Generator().manual_seed(4)
+    draws = [mcmc.draw(system, gen, torch.float64, "cpu") for _ in range(50)]
+    out = {}
+    for dev in ("cpu", DEVICE):
+        state = make_state(pos.astype(np.float64), quat.astype(np.float64),
+                           device=dev)
+        fed = [mcmc.Draws(*(x.to(dev) for x in d)) for d in draws]
+        before = mc.ENERGY_LAUNCHES
+        t0 = time.perf_counter()
+        out[dev] = mcmc.run_mcmc(system, state, n_steps=40, save_every=10,
+                                 initial_step=-10, draws=fed)
+        out[dev + " s"] = time.perf_counter() - t0
+        out[dev + " launches"] = mc.ENERGY_LAUNCHES - before
+    (cm, ct, ce), (gm, gt, ge) = out["cpu"], out[DEVICE]
+    err = max((gt.pos.cpu() - ct.pos).abs().max().item(),
+              (gt.quat.cpu() - ct.quat).abs().max().item())
+    e_err = ((ge.cpu() - ce).abs() / ce.abs()).max().item()
+    moved = (ct.pos[-1] - torch.as_tensor(pos, dtype=torch.float64)
+             ).abs().max().item()
+    log(f"MCMC 64 shells x (10 burn-in + 40) steps, same draws, card f64 "
+        f"({out[DEVICE + ' s']:.2f} s, {out[DEVICE + ' launches']} M1 "
+        f"launches) vs CPU f64 ({out['cpu s']:.2f} s): accepted "
+        f"{int(gm.accepted)} / {int(cm.accepted)}, frames {tuple(gt.pos.shape)}"
+        f", max frame error {err:.3e} (bound 1e-9), energy relative error "
+        f"{e_err:.3e} (bound 1e-9), largest move {moved:.3e}")
+    check(int(gm.accepted) == int(cm.accepted) > 0, "MCMC accepts differ")
+    check(out[DEVICE + " launches"] == 51, "MCMC chain did not run on M1")
+    check(err <= 1e-9 and e_err <= 1e-9 and moved > 0, "MCMC card vs CPU")
+
+
+def mcmc_inputs(scheme, save_clones, n_bodies, n_steps, kT):
+    """make_inputs for run_cli_pair: a generated input of n_bodies shells
+    of phase 6's physics (kT given) under an MCMC scheme, 10 burn-in steps
+    then n_steps saved every 10 (n_estimate 2000 for the rejection
+    sampler)."""
+    pos, quat = lattice(n_bodies, seed=5)
+
+    def inputs(dd):
+        inp = write_shell_input(dd, pos, quat, (
+            f"scheme {scheme}\nn_steps {n_steps}\nn_save 10\n"
+            f"initial_step -10\nsave_clones {save_clones}\n"
+            "n_estimate 2000\n"))
+        with open(inp) as f:
+            text = f.read().replace("kT 0.05", f"kT {kT}")
+        with open(inp, "w") as f:
+            f.write(text)
+        return inp
+    return inputs
+
+
+def config_frames(text):
+    """A .config file's frames, [(n, 7) arrays]."""
+    lines = text.splitlines()
+    frames, i = [], 0
+    while i < len(lines):
+        n = int(lines[i])
+        frames.append(np.array([ln.split() for ln in lines[i + 1:i + 1 + n]],
+                               dtype=float).reshape(n, 7))
+        i += 1 + n
+    return frames
+
+
+def phase_mcmc_cli(mc):
+    """Phase 5, MCMC: body_mcmc (one .config file) and MCMC (.clones
+    files) on a generated 16-shell input, 10 burn-in and 40 chain steps,
+    and body_mcmc_rejection (2 shells, 400 proposals, kT 1) through the
+    CLI, card float64 against CPU float64 on the same seed
+    (the two devices' generators draw differently): the same files
+    (JAX's names: <output>.<type>.config or .<type>.<step>.clones, and
+    .MCMC_info), frames (count, shape, finite, above the wall) and
+    .MCMC_info fields; then examples/mcmc/inputMCMC.dat on the card in
+    float32, its structure line pointed at a generated vertex file (a
+    twelve-blob shell of radius 1) and clones file (16 shells)."""
+    from rigidmultiblobswall_tpu_torch import cli
+
+    for scheme, save, n_bodies, n_steps, kT in (
+            ("body_mcmc", "one_file", 16, 40, 0.05),
+            ("MCMC", "one_file_per_step", 16, 40, 0.05),
+            ("body_mcmc_rejection", "one_file", 2, 400, 1.0)):
+        out = run_cli_pair(mcmc_inputs(scheme, save, n_bodies, n_steps, kT))
+        names = {k: set(v[0]) for k, v in out.items()}
+        info = {k: dict(ln.split(" = ") for ln in
+                        v[0]["run.MCMC_info"].splitlines())
+                for k, v in out.items()}
+        frames = {}
+        for k, (files, _) in out.items():
+            if save == "one_file":
+                frames[k] = config_frames(files["run.shell.config"])
+            else:
+                frames[k] = [np.loadtxt(files[f].splitlines(), skiprows=1)
+                             for f in sorted(files) if f.endswith(".clones")
+                             and f.startswith("run.shell.")]
+        want = {"MCMC": ["run.shell.%08d.clones" % s for s in (0, 10, 20,
+                                                             30)]}
+        log(f"MCMC CLI {scheme} {n_bodies} shells: {out['card'][1]:.2f} s "
+            f"on the "
+            f"card, {out['host'][1]:.2f} s on the CPU; frames "
+            f"{len(frames['card'])} / {len(frames['host'])}; MCMC_info card "
+            f"{info['card']}, CPU {info['host']}")
+        check(names["card"] == names["host"], f"MCMC CLI {scheme}: files "
+              f"{names['card'] ^ names['host']}")
+        check(all(n in names["card"] for n in want.get(scheme, [])),
+              f"MCMC CLI {scheme}: .clones names")
+        check(list(info["card"]) == list(info["host"]),
+              f"MCMC CLI {scheme}: .MCMC_info fields")
+        if scheme != "body_mcmc_rejection":
+            check(len(frames["card"]) == len(frames["host"]) == 4,
+                  f"MCMC CLI {scheme}: frame count")
+        check(len(frames["card"]) > 0 and all(
+            f.shape == (n_bodies, 7) and np.all(np.isfinite(f)) and
+            np.all(f[:, 2] > 0) for f in frames["card"]),
+            f"MCMC CLI {scheme}: frames")
+    # the example input, on the card in float32
+    src = os.path.join(ROOT, "examples", "mcmc", "inputMCMC.dat")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        with open(src) as f:
+            text = [("structure shell.vertex shell.clones")
+                    if ln.startswith("structure") else ln
+                    for ln in f.read().splitlines()]
+        with open(os.path.join(d, "inputMCMC.dat"), "w") as f:
+            f.write("\n".join(text) + "\n")
+        with open(os.path.join(d, "shell.vertex"), "w") as f:
+            f.write("12\n")
+            for x in shell_vertices(12, 1.0):
+                f.write("%.16g %.16g %.16g\n" % tuple(x))
+        with open(os.path.join(d, "shell.clones"), "w") as f:
+            f.write("16\n")
+            for i in range(16):
+                f.write("%g %g 1.5 1 0 0 0\n" % (3.0 * (i % 4),
+                                                  3.0 * (i // 4)))
+        os.chdir(d)
+        try:
+            before = mc.ENERGY_LAUNCHES
+            t0 = time.perf_counter()
+            cli.main(["--input-file", "inputMCMC.dat", "--device", DEVICE])
+            secs = time.perf_counter() - t0
+            launches = mc.ENERGY_LAUNCHES - before
+        finally:
+            os.chdir(cwd)
+        frames = config_frames(open(os.path.join(d, "run.shell.config"))
+                               .read())
+        info = open(os.path.join(d, "run.MCMC_info")).read()
+    log(f"examples/mcmc/inputMCMC.dat on the card (f32, generated vertex "
+        f"and clones files, 16 shells): {secs:.2f} s, {len(frames)} frames, "
+        f"{launches} M1 launches; {' '.join(info.split())}")
+    check(len(frames) == 10 and all(f.shape == (16, 7) and
+                                    np.all(np.isfinite(f)) for f in frames),
+          "the MCMC example's frames")
+    check(launches == 301, f"the MCMC example made {launches} M1 launches")
+
+
+def phase_mcmc_path(pk, mc):
+    """Phase 16, multibody-49k-mcmc: the MCMC path at full width, phase
+    6's scene (4096 shells, 49,152 blobs above the wall, bench.py's
+    physics, kT 0.05) in float32 on the card: run_mcmc with 100 adaptive
+    burn-in steps and 200 chain steps saved every 20, under
+    torch.cuda.set_sync_debug_mode("error") (the chain makes no host sync
+    between saved frames, nor anywhere in the run); ms per step,
+    acceptance, the final d, M1's launches (one a step and one at the
+    start; no other kernel), and the final energy against the plain
+    version's energy of the final state (float64 sums on the same float32
+    blobs; within the rounding of the terms' inputs, m1_term_bound, or
+    twice the float32 plain version's error). Then run_rejection_sampler on one shell (kT 1) with
+    n_estimate 100,000 and 20,000 proposals, in float32: proposals per
+    second. Returns M1's launches of each."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models import mcmc
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    system = bench_system(N_SHELLS)
+    pos, quat = lattice(N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_burn, n_chain, save = 100, 200, 20
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.LAUNCHES = mc.PERIODIC_LAUNCHES = mc.ENERGY_LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, traj, energies = mcmc.run_mcmc(
+            system, state, gen, n_steps=n_chain, save_every=save,
+            initial_step=-n_burn)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = mc.ENERGY_LAUNCHES
+    others = {"K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES
+              + mc.PERIODIC_LAUNCHES, "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+              "K5-K8": sum(ck.LAUNCHES.values())}
+    moves = n_burn + n_chain
+    accepted = int(final.accepted)
+    # the plain version's energy of the final state, on the chain's own
+    # float32 blobs: the one-body terms and the pair sum in float64
+    energy = mcmc._Energy(system)
+    rb = kin.blob_positions(system, final.state)
+    kw = dict(repulsion_strength=system.repulsion_strength,
+              debye_length=system.debye_length,
+              blob_radius=system.blob_radius, coincident="one")
+    one_body = float(energy.one_body(rb[None])[0])
+    pair_ref = float(mc.blob_blob_energy_plain(rb[None].double(), **kw)[0])
+    pair_f32 = float(mc.blob_blob_energy_plain(rb[None], **kw)[0])
+    e_chain = float(final.energy)
+    e_ref = one_body + pair_ref
+    rel = abs(e_chain - e_ref) / abs(pair_ref)
+    term = float(m1_term_bound(mc, rb[None], kw)[0])
+    bound = max(term, 2 * abs(pair_f32 - pair_ref)) / abs(pair_ref)
+    z_min = float(traj.pos[..., 2].min())
+    log(f"multibody-49k-mcmc {system.num_blobs} blobs f32: {moves} steps "
+        f"({n_burn} burn-in) in {secs:.3f} s, {secs / moves * 1e3:.3f} ms "
+        f"per step; acceptance {accepted / moves:.4f} ({accepted} moves); "
+        f"final d {float(final.max_translation):.6g} (start "
+        f"{0.1 * system.blob_radius:.6g}); frames {tuple(traj.pos.shape)}, "
+        f"lowest center {z_min:.4f}; M1 launches {launches} (other kernels "
+        f"{others}); no host sync in the run; final energy {e_chain:.10g} "
+        f"against the plain version's {e_ref:.10g} (one-body {one_body:.10g}"
+        f", pairs {pair_ref:.10g}): relative to the pair energy {rel:.3e} "
+        f"(bound {bound:.2e}: term rounding {term / abs(pair_ref):.3e}, "
+        f"plain f32 pairs {pair_f32:.10g})")
+    check(launches == moves + 1, f"M1 launched {launches} times over "
+          f"{moves} MCMC steps (one a step and one at the start)")
+    check(all(v == 0 for v in others.values()), f"MCMC launched {others}")
+    check(0 < accepted < moves, f"MCMC accepted {accepted} of {moves}")
+    check(traj.pos.shape == (n_chain // save, N_SHELLS, 3)
+          and bool(torch.isfinite(traj.pos).all())
+          and bool(torch.isfinite(energies).all()), "MCMC frames")
+    check(rel <= bound, f"MCMC final energy {e_chain} against the plain "
+          f"version's {e_ref} ({rel:.3e})")
+
+    # the rejection sampler on one shell, 4096 proposals a launch
+    one = bench_system(1, kT=1.0)
+    n_est, n_prop = 100000, 20000
+    before = mc.ENERGY_LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(mcmc.REJECTION_BATCH == N_MCMC_BATCH, "the rejection sampler's "
+          f"batch is {mcmc.REJECTION_BATCH}, phase 3 timed {N_MCMC_BATCH}")
+    res = mcmc.run_rejection_sampler(
+        one, torch.Generator(device=dev).manual_seed(1), n_steps=n_prop,
+        n_estimate=n_est, dtype=torch.float32, device=dev)
+    n_acc = int(res.accepted.sum())
+    secs_rej = time.perf_counter() - t0
+    batch_launches = mc.ENERGY_LAUNCHES - before
+    want = -(-n_est // N_MCMC_BATCH) + -(-n_prop // N_MCMC_BATCH)
+    log(f"rejection sampler, one shell, n_estimate {n_est}, {n_prop} "
+        f"proposals, batches of {N_MCMC_BATCH}: {secs_rej:.3f} s, "
+        f"{(n_est + n_prop) / secs_rej:.0f} proposals per second, "
+        f"{batch_launches} M1 launches, accepted {n_acc}, minimum energy "
+        f"{float(res.minimum_energy):.6g}")
+    check(batch_launches == want, f"the rejection sampler made "
+          f"{batch_launches} M1 launches, not {want}")
+    check(0 < n_acc < n_prop and bool(torch.isfinite(res.energies).all()),
+          "the rejection sampler's result")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return {"M1": launches, "M1_batch": batch_launches}
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4250,6 +4744,7 @@ def main():
     records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
     art_records = phase_articulated_kernels(pk, mc, mob, kin, make_state)
     l1_records = phase_l1_kernels()
+    m1_records = phase_m1_kernels(pk, mc, kin, make_state)
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
@@ -4259,6 +4754,7 @@ def main():
     phase_scheme_parity(pk, mc)
     phase_articulated_parity(pk, mc)
     phase_phoretic_parity(pk, mc)
+    phase_mcmc_parity(mc)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
@@ -4269,6 +4765,7 @@ def main():
     phase_articulated_cli()
     phase_slip_cli()
     phase_phoretic_cli()
+    phase_mcmc_cli(mc)
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -4284,6 +4781,7 @@ def main():
     phase_item17_path(pk, mc)                               # phase 13
     art_launches = phase_articulated_path(pk, mc)           # phase 14
     l1_launches = phase_phoretic_path(pk, mc)               # phase 15
+    m1_launches = phase_mcmc_path(pk, mc)                   # phase 16
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -4393,6 +4891,18 @@ def main():
             source="rigidmultiblobswall_tpu_torch/csrc/laplace_layers.cu",
             replaces=rep_line, launches=l1_launches[launch],
             **l1_records[key]))
+    # M1 on phase 16's path: the chain at 49,152 blobs and the rejection
+    # sampler's batches, with their launches over the phase
+    for key, name, rep_line in (
+            ("M1", "M1 blob_energy",
+             "rigidmultiblobswall_tpu/ops/forces.py:506"),
+            ("M1_batch", f"M1 blob_energy batch {N_MCMC_BATCH} x 12",
+             "rigidmultiblobswall_tpu/models/mcmc.py:25")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="rigidmultiblobswall_tpu_torch/csrc/blob_energy.cu",
+            replaces=rep_line, launches=m1_launches[key],
+            **m1_records[key]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,19 @@ the same input files and output formats:
     step (kernel L1 on the card) and, with plot_concentration_field,
     writes .<step>.concentration_field.vtk with every saved frame;
     options save_blobs_mobility and save_body_mobility dump the dense
-    blob and body mobilities with every saved frame; save_velocities writes every step's body velocities to
-    .velocities.dat; update_PC > 1 refactors the preconditioner every
-    update_PC steps;
+    blob and body mobilities with every saved frame; save_velocities
+    writes every step's body velocities to .velocities.dat; update_PC > 1
+    refactors the preconditioner every update_PC steps; call_HydroGrid
+    True samples the blobs' two-species structure factors
+    (utils/analysis.StructureFactor on cells and green_particles) every
+    sample_HydroGrid steps and writes .structure_factors.dat every
+    save_HydroGrid steps and at the end;
+  - schemes 'body_mcmc' / 'MCMC': Metropolis-Hastings sampling
+    (models/mcmc.py, the pair energy on kernel M1), adaptive burn-in for a
+    negative initial_step, frames every n_save moves in .config
+    (save_clones one_file) or .clones files, and .MCMC_info; scheme
+    'body_mcmc_rejection': the rejection sampler (option n_estimate), the
+    accepted proposals in .config and .MCMC_info;
   - the roller schemes (`*_rollers`, models/rollers.py; the reference's
     main_rollers.py): options free_kinematics, omega_one_roller and
     hydro_interactions, .clones every n_save steps and .info with the
@@ -66,9 +76,8 @@ State, called where the JAX CLI calls its own:
 A file written for the JAX package (it imports jax) or for the reference
 ends the run with a pointer to these signatures.
 
-MCMC, the .random_state restart and call_HydroGrid structure factors are
-still to be ported (ROADMAP Queue 1, items 11 and 18); an input that asks
-for one of them is refused, not ignored.
+The .random_state restart is still to be ported (ROADMAP Queue 1, item
+11); an input that asks for it is refused, not ignored.
 """
 
 from __future__ import annotations
@@ -86,10 +95,11 @@ import torch
 
 from .io import input_file as input_mod, scene
 from .models import integrators, kinematics as kin, lubrication as lub
-from .models import fields, phoretic, rollers, saddle, solvers
+from .models import fields, mcmc, phoretic, rollers, saddle, solvers
 from .models.system import resolve_device
 from .ops import forces as force_ops
 from .ops import stokes_layers
+from .utils.analysis import StructureFactor
 
 
 HOOK_SIGNATURES = (
@@ -269,10 +279,10 @@ def main(argv=None):
                        + ".body_slip_mobility_double_layer.dat",
                        (slip_mob @ I2pD).cpu().numpy(), delimiter="  ")
         print("Time to compute body mobility =", time.time() - start_time)
-    elif cfg.scheme in ("body_mcmc", "MCMC", "body_mcmc_rejection"):
-        raise NotImplementedError(
-            f"scheme {cfg.scheme!r} is not ported yet (ROADMAP Queue 1, "
-            "item 18)")
+    elif cfg.scheme in ("body_mcmc", "MCMC"):
+        _run_mcmc(cfg, system, state)
+    elif cfg.scheme == "body_mcmc_rejection":
+        _run_rejection(cfg, system, state)
     elif cfg.scheme.startswith("lubrication"):
         _run_lubrication(cfg, system, state, args)
     elif (cfg.scheme.endswith("_rollers")
@@ -292,6 +302,74 @@ def _generator(cfg, state):
     the spectral grid noise alone is 3 x 256^3 normals a step)."""
     return torch.Generator(device=state.pos.device).manual_seed(
         cfg.seed if cfg.seed is not None else 0)
+
+
+def _write_config_frame(f, pos, quat):
+    """One frame of a .config file: the body count, then x y z and the
+    quaternion of each body."""
+    f.write("%d\n" % len(pos))
+    for x, q in zip(pos, quat):
+        f.write("%s %s %s %s %s %s %s\n" % (
+            x[0], x[1], x[2], q[0], q[1], q[2], q[3]))
+
+
+def _run_mcmc(cfg, system, state):
+    """Metropolis-Hastings sampling (the JAX CLI's body_mcmc / MCMC
+    branch): a negative initial_step runs adaptive burn-in; frames every
+    n_save moves into .<type>.config (save_clones one_file) or
+    .<type>.<step>.clones, and .MCMC_info."""
+    mc, traj, energies = mcmc.run_mcmc(
+        system, state, _generator(cfg, state), n_steps=cfg.n_steps,
+        save_every=cfg.n_save, initial_step=min(cfg.initial_step, 0))
+    pos, quat = traj.pos.cpu().numpy(), traj.quat.cpu().numpy()
+    offs = system.body_offsets
+    for s_idx in range(energies.shape[0]):
+        for i, t in enumerate(system.types):
+            pos_i = pos[s_idx, offs[i]:offs[i + 1]]
+            quat_i = quat[s_idx, offs[i]:offs[i + 1]]
+            if cfg.save_clones == "one_file":
+                name = "%s.%s.config" % (cfg.output_name, t.name)
+                with open(name, "w" if s_idx == 0 else "a") as f:
+                    _write_config_frame(f, pos_i, quat_i)
+            else:
+                scene.write_clones_file(
+                    "%s.%s.%08d.clones" % (cfg.output_name, t.name,
+                                           s_idx * cfg.n_save),
+                    pos_i, quat_i)
+    n_total = cfg.n_steps - min(cfg.initial_step, 0)
+    with open(cfg.output_name + ".MCMC_info", "w") as f:
+        f.write("acceptance ratio = %s\n"
+                % (int(mc.accepted) / max(n_total, 1)))
+        f.write("accepted_moves = %d\n" % int(mc.accepted))
+        f.write("final max_translation = %s\n" % float(mc.max_translation))
+        f.write("final energy = %s\n" % float(mc.energy))
+
+
+def _run_rejection(cfg, system, state):
+    """The independent-sample rejection sampler (the JAX CLI's
+    body_mcmc_rejection branch): the accepted proposals into
+    .<type>.config, and .MCMC_info. Option n_estimate, default
+    max(n_steps // 100, 100000)."""
+    n_estimate = int(cfg.options.get(
+        "n_estimate", max(cfg.n_steps // 100, 100000)))
+    res = mcmc.run_rejection_sampler(
+        system, _generator(cfg, state), n_steps=cfg.n_steps,
+        n_estimate=n_estimate, dtype=state.pos.dtype,
+        device=state.pos.device)
+    accepted = res.accepted.cpu().numpy()
+    pos = res.states.pos.cpu().numpy()
+    quat = res.states.quat.cpu().numpy()
+    offs = system.body_offsets
+    for i, t in enumerate(system.types):
+        with open("%s.%s.config" % (cfg.output_name, t.name), "w") as f:
+            for s_idx in np.nonzero(accepted)[0]:
+                _write_config_frame(f, pos[s_idx, offs[i]:offs[i + 1]],
+                                    quat[s_idx, offs[i]:offs[i + 1]])
+    with open(cfg.output_name + ".MCMC_info", "w") as f:
+        f.write("acceptance ratio = %s\n"
+                % (accepted.sum() / max(cfg.n_steps, 1)))
+        f.write("accepted_moves = %d\n" % accepted.sum())
+        f.write("minimum_energy = %s\n" % float(res.minimum_energy))
 
 
 def _run_rollers(cfg, system, state):
@@ -475,10 +553,7 @@ def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
                 name = "%s.%s.config" % (cfg.output_name, name_i)
                 mode = "w" if step_idx == cfg.initial_step else "a"
                 with open(name, mode) as f:
-                    f.write("%d\n" % len(pos_i))
-                    for x, q in zip(pos_i, quat_i):
-                        f.write("%s %s %s %s %s %s %s\n" % (
-                            x[0], x[1], x[2], q[0], q[1], q[2], q[3]))
+                    _write_config_frame(f, pos_i, quat_i)
             else:
                 scene.write_clones_file(
                     "%s.%s.%08d.clones" % (cfg.output_name, name_i, step_idx),
@@ -493,6 +568,20 @@ def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
                 cfg.phoretic_cfg, cfg.output_name,
                 suffix=".%08d" % step_idx)
 
+    # the structure factors of the call_HydroGrid option (the reference's
+    # HydroGrid coupling, read_input.py:86-93 option names)
+    sk = None
+    if cfg.options.get("call_HydroGrid", "False") == "True":
+        cells = [int(x) for x in cfg.options.get("cells", "1 1").split()]
+        green = [int(x) for x in
+                 cfg.options.get("green_particles", "0 0").split()]
+        sk = StructureFactor(system.periodic_length[0],
+                             system.periodic_length[1], cells, green,
+                             system.num_blobs)
+    sk_sample = int(cfg.options.get("sample_HydroGrid", 1))
+    sk_save = int(cfg.options.get("save_HydroGrid", 0))
+    sk_name = cfg.output_name + ".structure_factors.dat"
+
     det_iters = stoch_iters = rejections = unconverged_steps = 0
     overflow_steps = 0
     save_velocities = cfg.options.get("save_velocities", "False") == "True"
@@ -504,6 +593,10 @@ def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
             save_clones(step_idx, state)
             save_concentration_field(step_idx, state)
             save_mobilities(step_idx, state)
+        if sk is not None and (step_idx % sk_sample) == 0:
+            sk.sample(kin.blob_positions(system, state).cpu().numpy())
+            if sk_save > 0 and step_idx > 0 and step_idx % sk_save == 0:
+                sk.save(sk_name)
         if user_mod is not None and hasattr(user_mod, "preprocess"):
             state = user_mod.preprocess(system, state, step_idx)
         state, carry, aux = step(state, generator, carry)
@@ -527,6 +620,8 @@ def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
             velocities_log.append(aux.velocities.cpu().numpy())
     save_clones(cfg.n_steps, state)
     save_mobilities(cfg.n_steps, state)
+    if sk is not None and sk.n_samples > 0:
+        sk.save(sk_name)
     if velocities_log:
         np.savetxt(cfg.output_name + ".velocities.dat",
                    np.stack(velocities_log).reshape(len(velocities_log), -1))

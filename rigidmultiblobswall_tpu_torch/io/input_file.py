@@ -35,9 +35,10 @@ plot_concentration_field (9 values: x0 x1 nx y0 y1 ny z0 z1 nz) and
 tracer_radius are read for the CLI's VTK fields (models/fields.py). Not
 ported yet, and refused with NotImplementedError rather than ignored:
 per-blob radii (ROADMAP Queue 1, items 4 and 15), a .Laplace file on an
-articulated entry (the JAX package reads only its .slip), and the options
-random_state and call_HydroGrid True (item 11), which `read_input`
-refuses.
+articulated entry (the JAX package reads only its .slip), and the option
+random_state (item 11), which `read_input` refuses. The options
+call_HydroGrid, cells, green_particles, sample_HydroGrid and
+save_HydroGrid stay in `options`, read by the CLI's dynamic loop.
 """
 
 from __future__ import annotations
@@ -222,11 +223,6 @@ def _refuse_unported_options(options):
             raise NotImplementedError(
                 f"input option {key!r}: {what} is not ported yet; the "
                 "PyTorch port refuses it rather than ignore it")
-    if options.get("call_HydroGrid", "False") == "True":
-        raise NotImplementedError(
-            "input option 'call_HydroGrid True': the structure factors are "
-            "not ported yet (ROADMAP Queue 1, item 11); the PyTorch port "
-            "refuses it rather than ignore it")
 
 
 # the names of the link expressions' math environment (the JAX

@@ -1,8 +1,8 @@
 """Scene-file readers and writers: the reference's .vertex, .clones,
-.slip, .const and .list_vertex formats, unchanged.
+.slip, velocity, .const and .list_vertex formats, unchanged.
 
-Counterpart of rigidmultiblobswall_tpu/io/scene.py (the velocity-file
-reader stays with the CLI, which reads velocity files with np.loadtxt).
+Counterpart of rigidmultiblobswall_tpu/io/scene.py (the CLI reads its
+velocity_file with np.loadtxt, as the JAX CLI does).
 """
 
 from __future__ import annotations
@@ -46,6 +46,14 @@ def read_slip_file(path):
     lines = list(_data_lines(path))
     n = int(lines[0].split()[0])
     return np.array([np.array(l.split(), dtype=np.float64)[:3]
+                     for l in lines[1:n + 1]])
+
+
+def read_velocity_file(path):
+    """Prescribed body velocities, (Nbodies, 6)."""
+    lines = list(_data_lines(path))
+    n = int(lines[0].split()[0])
+    return np.array([np.array(l.split(), dtype=np.float64)[:6]
                      for l in lines[1:n + 1]])
 
 

@@ -980,6 +980,11 @@ _SCHEMES = {
 }
 
 
+def available_schemes():
+    """The names of the multibody schemes make_stepper runs."""
+    return tuple(_SCHEMES)
+
+
 def make_stepper(system: System, scheme: str, dt: float, *,
                  tolerance: float = None,
                  lanczos_tolerance: float = 1e-6,

@@ -22,34 +22,43 @@ from .system import State, System
 
 
 def type_arrays(system: System, state: State, i: int):
-    """(pos, quat) slices of type group i, shapes (c,3), (c,4)."""
+    """(pos, quat) slices of type group i, shapes (..., c, 3), (..., c,
+    4) for a state with leading batch dimensions (..., B, 3)."""
     sl = system.body_slice(i)
-    return state.pos[sl], state.quat[sl]
+    return state.pos[..., sl, :], state.quat[..., sl, :]
 
 
-def blob_rel_positions(system: System, state: State, i: int):
-    """Blob positions relative to body centers for type i: (c, nb, 3)."""
+def blob_rel_positions(system: System, state: State, i: int, ref=None):
+    """Blob positions relative to body centers for type i: (..., c, nb,
+    3). `ref` is the type's reference blobs (nb, 3) in the state's dtype
+    and on its device, copied from the host when None."""
     _, q = type_arrays(system, state, i)
     R = quat.rotation_matrix(q)
-    ref = torch.as_tensor(np.array(system.types[i].ref_config),
-                          dtype=state.pos.dtype, device=state.pos.device)
-    return torch.einsum("cij,nj->cni", R, ref)
+    if ref is None:
+        ref = torch.as_tensor(np.array(system.types[i].ref_config),
+                              dtype=state.pos.dtype, device=state.pos.device)
+    return torch.einsum("...cij,nj->...cni", R, ref)
 
 
-def all_rel_positions(system: System, state: State):
-    """Tuple of blob_rel_positions for every type."""
-    return tuple(blob_rel_positions(system, state, i)
+def all_rel_positions(system: System, state: State, refs=None):
+    """Tuple of blob_rel_positions for every type (`refs` one reference
+    tensor a type, or None)."""
+    return tuple(blob_rel_positions(system, state, i,
+                                    None if refs is None else refs[i])
                  for i in range(len(system.types)))
 
 
-def blob_positions(system: System, state: State, rel=None):
-    """All blob coordinates, (N, 3), in type-group order."""
-    rel = all_rel_positions(system, state) if rel is None else rel
+def blob_positions(system: System, state: State, rel=None, refs=None):
+    """All blob coordinates, (..., N, 3) in type-group order, for a state
+    with leading batch dimensions (..., B, 3) or none; `refs` as in
+    all_rel_positions."""
+    rel = all_rel_positions(system, state, refs) if rel is None else rel
     out = []
     for i, t in enumerate(system.types):
         p, _ = type_arrays(system, state, i)
-        out.append((p[:, None, :] + rel[i]).reshape(t.count * t.num_blobs, 3))
-    return torch.cat(out, dim=0)
+        out.append((p[..., :, None, :] + rel[i]).reshape(
+            *p.shape[:-2], t.count * t.num_blobs, 3))
+    return torch.cat(out, dim=-2)
 
 
 def K_mul(system: System, state: State, U, rel=None):

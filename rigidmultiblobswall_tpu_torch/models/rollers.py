@@ -703,6 +703,11 @@ _SCHEMES = {
 }
 
 
+def available_schemes():
+    """The names of the roller schemes make_stepper runs."""
+    return tuple(_SCHEMES)
+
+
 def make_stepper(sus: RollerSuspension, scheme: str, dt: float, *,
                  max_rejections: int = 50):
     """step(positions (N,3), generator, carry) -> (positions, carry,

@@ -84,9 +84,14 @@ def spectral_params(system: System):
         cell_capacity=system.spectral_cell_capacity)
 
 
+def num_constraints(system: System) -> int:
+    """Articulated constraints of the system (models/articulated.py)."""
+    return art_mod.num_constraints(system)
+
+
 def saddle_size(system: System) -> int:
     return (3 * system.num_blobs + 6 * system.num_bodies
-            + 3 * art_mod.num_constraints(system))
+            + 3 * num_constraints(system))
 
 
 def split_saddle_vector(system: System, vec):

@@ -35,8 +35,8 @@ _D = ctypes.c_double
 # C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
 # csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu,
-# csrc/wall_rot_near.cu, csrc/laplace_layers.cu); pointers and the
-# stream MUST be c_void_p or ctypes truncates them
+# csrc/wall_rot_near.cu, csrc/laplace_layers.cu, csrc/blob_energy.cu);
+# pointers and the stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
 _PI = ctypes.POINTER(ctypes.c_int)
 _PD = ctypes.POINTER(ctypes.c_double)
@@ -72,6 +72,8 @@ SIGNATURES = {
        + (_P,) * 3 for t in ("f32", "f64")},
     **{f"laplace_layers_sym_{t}": (_I,) * 2 + (_P,) * 6 + (_D,) + (_I,) * 3
        + (_P,) * 3 for t in ("f32", "f64")},
+    **{f"blob_energy_{t}": (_P,) * 3 + (_I,) * 4 + (_D,) * 4 + (_PD, _I, _P)
+       for t in ("f32", "f64")},
 }
 
 _lib = None

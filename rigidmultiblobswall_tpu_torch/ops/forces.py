@@ -9,9 +9,10 @@ and start-up capacity sizing. The direct pair sweep runs kernel K2
 the linked-cell sweep kernel K5 (ops/cell_kernels.py) on a CUDA tensor,
 their plain versions on a CPU tensor; `body_body_forces_torques`, the
 Yukawa force between body centers, is plain PyTorch on both (XLA in the
-JAX package too). The linked-cell path's fallback to the direct periodic
-sweep in boxes under 4 cells, and neighbor lists in open boxes, are
-still to be ported (ROADMAP Queue 1, items 4 and 14).
+JAX package too); `blob_blob_energy`, the repulsion's pair energy of the
+MCMC sampler, runs kernel M1 (XLA there). The linked-cell path's fallback
+to the direct periodic sweep in boxes under 4 cells, and neighbor lists
+in open boxes, are still to be ported (ROADMAP Queue 1, items 4 and 14).
 
 Physics: gravity plus the wall repulsion of
 U(z) = U0 + U0 (a-z)/b for z < a, U0 exp(-(z-a)/b) otherwise, and the
@@ -79,6 +80,24 @@ def body_body_forces_torques(locations, *, repulsion_strength=0.0,
     mag = torch.where(skip, torch.zeros_like(mag), mag)
     out[:, :3] = torch.sum(mag[..., None] * d, dim=1)
     return out
+
+
+def blob_blob_energy(r_vectors, *, repulsion_strength=0.0, debye_length=1.0,
+                     blob_radius=1.0, periodic_length=(0.0, 0.0, 0.0),
+                     coincident="zero"):
+    """Total pair potential energy (the MCMC sampler's), sum over i < j of
+    U(r_ij) with r_ij under the minimum image on the periodic axes, in
+    float64: r_vectors (N, 3) -> a scalar, or a batch (P, N, 3) -> (P,).
+    Kernel M1 on a CUDA tensor, its plain version on a CPU tensor
+    (mobility_cuda.blob_pair_energy). coincident 'zero' drops a pair of
+    distinct coincident blobs, as the JAX package's blob_blob_energy does;
+    'one' counts it at r = 1, as its mcmc.total_energy does."""
+    r = r_vectors[None] if r_vectors.ndim == 2 else r_vectors
+    e = mobility_cuda.blob_pair_energy(
+        r, repulsion_strength=repulsion_strength, debye_length=debye_length,
+        blob_radius=blob_radius, periodic_length=periodic_length,
+        coincident=coincident)
+    return e[0] if r_vectors.ndim == 2 else e
 
 
 def _cutoff(blob_radius, debye_length, cutoff):

@@ -193,6 +193,49 @@ def dense_mobility(r_vectors, eta, a, domain="single_wall", coupling="tt"):
     return m.transpose(-3, -2).reshape(*batch, 3 * n, 3 * n)
 
 
+def rotne_prager_tensor(r_vectors, eta, a):
+    """Dense unbounded RPY trans-trans mobility (3N, 3N)."""
+    return dense_mobility(r_vectors, eta, a, domain="no_wall")
+
+
+def single_wall_fluid_mobility(r_vectors, eta, a):
+    """Dense single-wall (Swan-Brady) trans-trans mobility (3N, 3N),
+    including the overlap regularization."""
+    return dense_mobility(r_vectors, eta, a, domain="single_wall")
+
+
+def single_wall_self_mobility_with_rotation(height, eta, a):
+    """6x6 single-blob self mobility (translation and rotation blocks with
+    their coupling) above the wall, from the Swan-Brady expansions (the
+    reference's mobility.py:739-774); height a tensor of z coordinates
+    (...) -> (..., 6, 6), or a number (float64)."""
+    if not isinstance(height, torch.Tensor):
+        height = torch.as_tensor(height, dtype=torch.float64)
+    h = height / a
+    he = torch.clamp(h, min=1.0)
+    damp = torch.clamp(h, 0.0, 1.0)
+    f_tt = 1.0 / (6.0 * math.pi * eta * a)
+    f_rr = 1.0 / (6.0 * math.pi * eta * a ** 3)
+    f_rt = 1.0 / (6.0 * math.pi * eta * a ** 2)
+    tt_para = f_tt * (1 - 9 / (16 * he) + 2 / (16 * he ** 3)
+                      - 1 / (16 * he ** 5)) * damp
+    tt_perp = f_tt * (1 - 9 / (8 * he) + 1 / (2 * he ** 3)
+                      - 1 / (8 * he ** 5)) * damp
+    rr_para = f_rr * (0.75 - 15 / (64 * he ** 3)) * damp
+    rr_perp = f_rr * (0.75 - 3 / (32 * he ** 3)) * damp
+    rt_para = f_rt * (3 / (32 * he ** 4)) * damp
+    z = torch.zeros_like(he)
+    rows = [
+        torch.stack([tt_para, z, z, z, rt_para, z], dim=-1),
+        torch.stack([z, tt_para, z, -rt_para, z, z], dim=-1),
+        torch.stack([z, z, tt_perp, z, z, z], dim=-1),
+        torch.stack([z, -rt_para, z, rr_para, z, z], dim=-1),
+        torch.stack([rt_para, z, z, z, rr_para, z], dim=-1),
+        torch.stack([z, z, z, z, z, rr_perp], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
 def dense_mobility_tiled(r_vectors, eta, a, *, domain="single_wall",
                          coupling="tt", periodic_length=(0.0, 0.0, 0.0),
                          row_tile=None):

@@ -2,7 +2,7 @@
 plain PyTorch versions.
 
 Counterpart of rigidmultiblobswall_tpu/ops/mobility_pallas.py, all three
-of its kernels:
+of its kernels, and of the MCMC pair energy (M1):
   K2 `blob_blob_forces`: the blob-blob repulsion (`blob_blob_forces_pallas`
      there, `csrc/blob_forces.cu` here), with two periodic instances for
      the minimum-image sweep of rigidmultiblobswall_tpu/ops/forces.py's
@@ -14,7 +14,12 @@ of its kernels:
      models/saddle.py:130-139 there, `csrc/dense_tt.cu` here);
   K4 `symm_matvec`: u = M v from the upper-triangle tiles of that matrix,
      for one right-hand side or the lockstep solves' pairs
-     (`symm_planes_matvec` there, `csrc/symm_planes.cu` here).
+     (`symm_planes_matvec` there, `csrc/symm_planes.cu` here);
+  M1 `blob_pair_energy`: the repulsion's energy summed over the unordered
+     pairs of each configuration of a batch, under the minimum image on the
+     periodic axes (XLA in the JAX package: ops/forces.py:506
+     blob_blob_energy and models/mcmc.py:25 total_energy;
+     `csrc/blob_energy.cu` here), in float64.
 Each wrapper launches its kernel for CUDA tensors (float32 or float64) and
 runs its plain PyTorch version for CPU tensors; any other device raises.
 The (3,3,N,N) component planes of the JAX package exist to avoid the
@@ -43,6 +48,15 @@ ONE_BOX_LAUNCHES = 0
 # the smallest subnormal (float32 exp(-103.98), float64 exp(-745.13)), with
 # a margin for the exponential's own rounding
 UNDERFLOW = {torch.float32: 110.0, torch.float64: 750.0}
+# number of M1 launches made by `blob_pair_energy`
+ENERGY_LAUNCHES = 0
+# the two mask flavours of a pair of distinct coincident blobs (r^2 = 0):
+# 'zero' adds nothing (the JAX package's forces.blob_blob_energy), 'one'
+# adds u(r = 1) (its mcmc.total_energy, which masks only the diagonal)
+COINCIDENT = ("zero", "one")
+# values of the plain energy's largest (configurations, rows, n, 3)
+# difference tensor
+ENERGY_CHUNK_VALUES = 1 << 24
 # number of K3 / K4 launches made by `dense_tt` / `symm_matvec`
 DENSE_LAUNCHES = {"dense_tt": 0, "symm_matvec": 0}
 # K4's tile edge in blobs (csrc/symm_planes.cu kBlobs): the kernel reads
@@ -220,6 +234,119 @@ def blob_blob_forces(r_vectors, *, repulsion_strength, debye_length,
         ONE_BOX_LAUNCHES += one_box
     else:
         LAUNCHES += 1
+    return out
+
+
+def energy_law(repulsion_strength, debye_length, blob_radius):
+    """M1's folded energy law (csrc/force_law.cuh energy): u = eps
+    (2^min(c (2a - r), 0) + max((2a - r)/b, 0)) with (eps, c, 2a, 1/b) and
+    c = log2(e)/b."""
+    b = float(debye_length)
+    return (float(repulsion_strength), math.log2(math.e) / b,
+            2.0 * float(blob_radius), 1.0 / b)
+
+
+def _energy_rows(n, n_conf):
+    """(configurations, target rows) a chunk of the plain energy, so that
+    one (configurations, rows, n, 3) difference tensor holds about
+    ENERGY_CHUNK_VALUES values: whole configurations when one fits, else
+    row tiles of one."""
+    per_conf = max(n * n * 3, 1)
+    if per_conf <= ENERGY_CHUNK_VALUES:
+        return max(min(n_conf, ENERGY_CHUNK_VALUES // per_conf), 1), max(n, 1)
+    return 1, max(min(ENERGY_CHUNK_VALUES // (3 * n), n), 1)
+
+
+def blob_blob_energy_plain(r_vectors, *, repulsion_strength, debye_length,
+                           blob_radius, periodic_length=(0.0, 0.0, 0.0),
+                           coincident="zero"):
+    """Plain PyTorch M1: the pair energy sum over i < j of u(r_ij) of each
+    configuration of r_vectors (P, n, 3), (P,) in float64, with u = eps
+    exp(-(r - 2a)/b) for r > 2a and eps + eps (2a - r)/b otherwise, r
+    under min_image. Chunked over configurations and target rows
+    (`_energy_rows`); each chunk's terms are formed in r_vectors' dtype
+    and summed in float64. coincident: COINCIDENT's flavour of a pair at
+    r^2 = 0."""
+    if coincident not in COINCIDENT:
+        raise ValueError(f"coincident {coincident!r}; one of {COINCIDENT}")
+    n_conf, n = r_vectors.shape[0], r_vectors.shape[1]
+    dev = r_vectors.device
+    out = torch.zeros(n_conf, dtype=torch.float64, device=dev)
+    eps, b = float(repulsion_strength), float(debye_length)
+    two_a = 2.0 * float(blob_radius)
+    per, tile = _energy_rows(n, n_conf)
+    ids = torch.arange(n, device=dev)
+    for p0 in range(0, n_conf, per):
+        r = r_vectors[p0:p0 + per]
+        for i0 in range(0, n, tile):
+            ri = r[:, i0:i0 + tile]
+            d = min_image(ri[:, :, None, :] - r[:, None, :, :],
+                          periodic_length)
+            r2 = torch.sum(d * d, dim=-1)
+            # the upper triangle j > i: each unordered pair once
+            live = ids[None, :] > ids[i0:i0 + ri.shape[1], None]
+            zero = r2 == 0.0
+            rr = torch.sqrt(torch.where(zero, torch.ones_like(r2), r2))
+            u = torch.where(rr > two_a, eps * torch.exp(-(rr - two_a) / b),
+                            eps + eps * (two_a - rr) / b)
+            if coincident == "zero":
+                live = live & ~zero
+            u = torch.where(live, u, torch.zeros_like(u))
+            out[p0:p0 + per] += u.sum(dim=(1, 2), dtype=torch.float64)
+    return out
+
+
+def blob_pair_energy(r_vectors, *, repulsion_strength, debye_length,
+                     blob_radius, periodic_length=(0.0, 0.0, 0.0),
+                     coincident="zero"):
+    """M1 wrapper: the pair energy of each configuration of r_vectors (P,
+    n, 3) (blob_blob_energy_plain), (P,) in float64. The CUDA kernel for
+    CUDA tensors (float32 or float64 positions), the plain version for CPU
+    tensors; no pair (n < 2) or no repulsion gives zeros without a launch.
+    On the card the kernel sweeps each configuration's unordered pairs
+    over `pair_kernels.plan_groups`' tile groups, one partial a block,
+    summed in a fixed order."""
+    global ENERGY_LAUNCHES
+    periodic_length = tuple(float(x) for x in periodic_length)
+    law = dict(repulsion_strength=repulsion_strength,
+               debye_length=debye_length, blob_radius=blob_radius,
+               periodic_length=periodic_length)
+    if coincident not in COINCIDENT:
+        raise ValueError(f"coincident {coincident!r}; one of {COINCIDENT}")
+    r = r_vectors
+    if r.ndim != 3 or r.shape[2] != 3:
+        raise ValueError("blob_pair_energy: r_vectors must be (P, n, 3), "
+                         f"got {tuple(r.shape)}")
+    n_conf, n = r.shape[0], r.shape[1]
+    if n < 2 or float(repulsion_strength) == 0.0 or n_conf == 0:
+        return torch.zeros(n_conf, dtype=torch.float64, device=r.device)
+    if r.device.type == "cpu":
+        return blob_blob_energy_plain(r, **law, coincident=coincident)
+    if r.device.type != "cuda":
+        raise ValueError(f"blob_pair_energy: unsupported device {r.device}")
+    if r.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"blob_pair_energy: dtype {r.dtype} "
+                        "(float32/float64 only)")
+    if 3 * n >= 2 ** 31:
+        raise ValueError("blob_pair_energy: too many blobs for 32-bit "
+                         "indexing")
+    r = r.contiguous()
+    groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(r))
+    partials = torch.empty((n_conf, groups * (groups + 1) // 2),
+                           dtype=torch.float64, device=r.device)
+    out = torch.empty(n_conf, dtype=torch.float64, device=r.device)
+    box = None
+    if any(L > 0 for L in periodic_length):
+        box = (ctypes.c_double * 3)(*periodic_length)
+    name = ("blob_energy_f32" if r.dtype == torch.float32
+            else "blob_energy_f64")
+    err = getattr(_build.library(), name)(
+        r.data_ptr(), partials.data_ptr(), out.data_ptr(), n_conf, n, groups,
+        per, *energy_law(repulsion_strength, debye_length, blob_radius), box,
+        int(coincident == "one"),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(name, err)
+    ENERGY_LAUNCHES += 1
     return out
 
 

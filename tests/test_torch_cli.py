@@ -27,6 +27,7 @@ import torch
 from rigidmultiblobswall_tpu import cli as jcli
 from rigidmultiblobswall_tpu_torch import cli as tcli
 from rigidmultiblobswall_tpu_torch.io import input_file as tinput
+from rigidmultiblobswall_tpu_torch.io import scene as tscene
 from rigidmultiblobswall_tpu_torch.models import system as tsys
 
 from torch_parity import jax_zdft64, shell_vertices, shells_scene
@@ -552,7 +553,6 @@ def test_cli_save_velocities_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("line, item", [
     ("random_state run.random_state", "item 11"),
-    ("call_HydroGrid True", "item 11"),
 ])
 def test_cli_refuses_unported_options(tmp_path, monkeypatch, line, item):
     """Options the JAX CLI acts on and the port does not support yet are
@@ -764,3 +764,126 @@ def test_cli_writes_the_files_jax_writes(tmp_path, monkeypatch):
     assert names["torch"] - names["jax"] == set()
     assert ((out["torch"] / "run.git").read_text()
             == (out["jax"] / "run.git").read_text())
+
+
+def _mcmc_info(path):
+    """.MCMC_info as {key: value}."""
+    return dict(line.split(" = ") for line in
+                open(path).read().splitlines())
+
+
+def _config_frames(path):
+    """A .config file as its frames: [(n, rows (n, 7))]."""
+    lines = open(path).read().splitlines()
+    frames, i = [], 0
+    while i < len(lines):
+        n = int(lines[i])
+        rows = np.array([ln.split() for ln in lines[i + 1:i + 1 + n]],
+                        dtype=float)
+        assert rows.shape == (n, 7)
+        frames.append(rows)
+        i += 1 + n
+    return frames
+
+
+@pytest.mark.parametrize("scheme, save_clones", [
+    ("body_mcmc", "one_file"), ("MCMC", "one_file_per_step"),
+    ("body_mcmc_rejection", "one_file")])
+def test_cli_mcmc_modes_write_what_jax_writes(tmp_path, monkeypatch, scheme,
+                                              save_clones):
+    """The three MCMC modes through both CLIs on the generated 4-shell
+    input (20 steps saved every 5 after 10 adaptive burn-in steps; the
+    rejection sampler 200 proposals with n_estimate 500 at g 0.001): the
+    same file names,
+    the same .config / .clones layout and frame count, and the same
+    .MCMC_info fields. The draws differ (torch's against JAX's), so the
+    values are held to their ranges: frames above the wall, an acceptance
+    ratio in (0, 1], and accepted_moves equal to it times the moves."""
+    rejection = scheme == "body_mcmc_rejection"
+    moves = 200 if rejection else 30
+    extra = (f"n_steps {200 if rejection else 20}\nn_save 5\n"
+             f"initial_step -10\nsave_clones {save_clones}\n"
+             "n_estimate 500\n" + ("g 0.001\n" if rejection else ""))
+    out = _run_both(tmp_path, monkeypatch, scheme, kT=1.0, extra=extra)
+    names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
+    assert names["torch"] == names["jax"] - {"run.random_state"}
+    if scheme == "MCMC":
+        clones = sorted(n for n in names["torch"] if n.endswith(".clones")
+                        and n.startswith("run.shell."))
+        assert clones == ["run.shell.%08d.clones" % s for s in (0, 5, 10,
+                                                                15)]
+        for name in clones:
+            n, locs, _ = tscene.read_clones_file(out["torch"] / name)
+            assert n == 4 and np.all(locs[:, 2] > 0)
+    else:
+        got = _config_frames(out["torch"] / "run.shell.config")
+        ref = _config_frames(out["jax"] / "run.shell.config")
+        if scheme == "body_mcmc":
+            assert len(got) == len(ref) == 4
+        else:
+            assert len(got) > 0 and len(ref) > 0
+        for frame in got:
+            assert frame.shape == (4, 7) and np.all(np.isfinite(frame))
+    info = _mcmc_info(out["torch"] / "run.MCMC_info")
+    info_jax = _mcmc_info(out["jax"] / "run.MCMC_info")
+    assert list(info) == list(info_jax)
+    ratio = float(info["acceptance ratio"])
+    assert 0 < ratio <= 1
+    assert int(info["accepted_moves"]) == round(ratio * moves)
+    for key, value in info.items():
+        assert np.isfinite(float(value)), key
+
+
+def test_cli_mcmc_example_runs_on_cpu(tmp_path, monkeypatch):
+    """examples/mcmc/inputMCMC.dat through the port's CLI on the CPU, its
+    structure line pointed at generated vertex and clones files (16
+    twelve-blob shells of radius 1, a = 0.25): 200 steps after 100 burn-in
+    steps, saved every 20: 10 frames in the .config file (moves 1, 21, ...,
+    181), and the MCMC info."""
+    src = Path(__file__).resolve().parent.parent / "examples" / "mcmc"
+    text = (src / "inputMCMC.dat").read_text().splitlines()
+    text = [("structure shell.vertex shell.clones")
+            if ln.startswith("structure") else ln for ln in text]
+    (tmp_path / "inputMCMC.dat").write_text("\n".join(text) + "\n")
+    with open(tmp_path / "shell.vertex", "w") as f:
+        f.write("12\n")
+        for x in shell_vertices(12, 1.0):
+            f.write("%.16g %.16g %.16g\n" % tuple(x))
+    idx = np.arange(16)
+    with open(tmp_path / "shell.clones", "w") as f:
+        f.write("16\n")
+        for i in idx:
+            f.write("%g %g 1.5 1 0 0 0\n" % (3.0 * (i % 4), 3.0 * (i // 4)))
+    monkeypatch.chdir(tmp_path)
+    tcli.main(["--input-file", str(tmp_path / "inputMCMC.dat"), "--f64",
+               "--device", "cpu"])
+    frames = _config_frames(tmp_path / "run.shell.config")
+    assert len(frames) == 10
+    assert all(f.shape == (16, 7) for f in frames)
+    info = _mcmc_info(tmp_path / "run.MCMC_info")
+    assert 0 < float(info["acceptance ratio"]) <= 1
+    assert float(info["final max_translation"]) != 0.025
+
+
+def test_cli_hydrogrid_matches_jax(tmp_path, monkeypatch):
+    """call_HydroGrid True on tests' periodic_spectral input (8 shells in a
+    3.2 box, 3 Slip-Trapz steps at kT = 0), 4 x 4 cells with the first 48
+    blobs green, sampled every step and saved every 2: the same
+    .structure_factors.dat as the JAX CLI's (kT = 0: no draw enters)."""
+    idx = np.arange(8)
+    pos = np.stack([idx % 2, (idx // 2) % 2, idx // 4], axis=1) * 1.6 + 0.8
+    extra = ("domain periodic_spectral\nperiodic_length 3.2 3.2 3.2\n"
+             "spectral_tolerance 0.2\nspectral_grid_max 32\n"
+             "blob_blob_force_implementation tree\ndebye_length 0.015\n"
+             "call_HydroGrid True\ncells 4 4\ngreen_particles 0 48\n"
+             "sample_HydroGrid 1\nsave_HydroGrid 2\n")
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                    n_bodies=8, extra=extra, pos=pos)
+    name = "run.structure_factors.dat"
+    head = [(out[k] / name).read_text().splitlines()[0] for k in out]
+    assert head[0] == head[1] and "3 samples" in head[0]
+    got = np.loadtxt(out["torch"] / name)
+    ref = np.loadtxt(out["jax"] / name)
+    assert got.shape == ref.shape and got.shape[1] == 4
+    assert np.abs(ref[:, 1:]).max() > 0
+    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)

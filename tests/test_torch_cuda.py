@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels K1 (every coupling), K2 (open and periodic),
-K3, K4, K5, K6, K7, K8 and L1 (every Laplace operator) against their
-plain PyTorch versions, on the card, and the 16-sphere lubrication step
-on K1 grand and K2 against the CPU. Every test here is marked `gpu` and
+K3, K4, K5, K6, K7, K8, L1 (every Laplace operator) and M1 (the MCMC pair
+energy, both mask flavours, batches) against their plain PyTorch
+versions, on the card, and the 16-sphere lubrication step on K1 grand
+and K2 and an MCMC chain on M1 against the CPU. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -1433,3 +1434,173 @@ def test_l1_takes_the_symmetric_sweep_for_the_same_tensor_only(cuda):
                       torch.float32, n)
         assert (got.double() - directed.double()).abs().max() / scale \
             <= 2 * tol
+
+
+# M1, the MCMC pair energy: open, the wall slab periodic in x and y, and a
+# fully periodic box
+M1_BOXES = {"open": (0.0, 0.0, 0.0), "xy": (7.0, 7.0, 0.0),
+            "xyz": (7.0, 6.0, 5.0)}
+M1_LAW = dict(repulsion_strength=0.7, debye_length=0.25, blob_radius=0.2)
+
+
+def _m1_scene(cuda, n, n_conf=1, seed=0):
+    """n_conf random configurations of n blobs in a 7 x 7 x 4 box with a
+    coincident distinct pair (when n > 5)."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0, 7, (n_conf, n, 3))
+    r[..., 2] *= 4 / 7
+    if n > 5:
+        r[:, 5] = r[:, 4]
+    return torch.as_tensor(r, device=cuda)
+
+
+def _m1_term_bound(r, kw):
+    """What float32 rounding of each term's inputs allows M1: 2^-22 (the
+    relative error of ex2.approx and of r from rsqrt.approx) of each term
+    times (2 + its exponent's magnitude ln 2), summed over the unordered
+    pairs of r (1, n, 3) in float64."""
+    d = mc.min_image(r[0][:, None, :] - r[0][None, :, :],
+                     kw["periodic_length"])
+    iu = torch.triu_indices(r.shape[1], r.shape[1], 1, device=r.device)
+    dist = d.norm(dim=-1)[iu[0], iu[1]]
+    eps, b, two_a = (kw["repulsion_strength"], kw["debye_length"],
+                     2 * kw["blob_radius"])
+    u = torch.where(dist > two_a, eps * torch.exp(-(dist - two_a) / b),
+                    eps + eps * (two_a - dist) / b)
+    expo = (dist - two_a).abs() / b
+    return float((u * (2 + expo)).sum()) * 2.0 ** -22
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("coincident", ["zero", "one"])
+@pytest.mark.parametrize("n", [2, 77, 129, 1000, 3000])
+@pytest.mark.parametrize("box", sorted(M1_BOXES))
+def test_m1_matches_plain_bit_identical_on_repeat(cuda, box, n, coincident,
+                                                  dtype):
+    """M1 against its float64 plain version: float64 to 1e-12 relative,
+    float32 within u32 sqrt(pairs), twice the float32 plain version's
+    error or the rounding of its terms' inputs (_m1_term_bound); float64
+    out, twice bit-identical, one launch a call."""
+    r = _m1_scene(cuda, n).to(dtype)
+    kw = dict(M1_LAW, periodic_length=M1_BOXES[box], coincident=coincident)
+    before = mc.ENERGY_LAUNCHES
+    got = mc.blob_pair_energy(r, **kw)
+    again = mc.blob_pair_energy(r, **kw)
+    torch.cuda.synchronize()
+    assert mc.ENERGY_LAUNCHES == before + 2
+    assert got.dtype == torch.float64 and got.shape == (1,)
+    assert torch.equal(got, again)
+    ref = mc.blob_blob_energy_plain(r.double(), **kw)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if dtype == torch.float64:
+        assert err <= 1e-12
+    else:
+        plain = float((mc.blob_blob_energy_plain(r, **kw) - ref).abs().max()
+                      / ref.abs().max())
+        pairs = n * (n - 1) / 2
+        bound = max(2 ** -24 * pairs ** 0.5, 2 * plain,
+                    _m1_term_bound(r.double(), kw) / float(ref.abs().max()))
+        assert err <= bound, (err, plain, bound)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("coincident", ["zero", "one"])
+@pytest.mark.parametrize("per", [2, 3])
+@pytest.mark.parametrize("box", sorted(M1_BOXES))
+def test_m1_multi_tile_groups_match_plain(cuda, box, per, coincident, dtype,
+                                          monkeypatch):
+    """Groups of several tiles, as at 49,152 blobs (128 groups of 3): 1000
+    blobs in groups of 2 tiles (4 groups) or 3 (3 groups, the last of 2
+    tiles), so a block sweeps several tile pairs and a diagonal group
+    pair starts each row at its own tile; float64 to 1e-12 relative,
+    float32 within the rounding of its terms' inputs (_m1_term_bound) or
+    twice the float32 plain version's error."""
+    n = 1000
+    plans = []
+
+    def plan(n_blobs, n_sm):
+        tiles = -(-n_blobs // 128)
+        plans.append((-(-tiles // per), per))
+        return plans[-1]
+
+    monkeypatch.setattr(pk, "plan_groups", plan)
+    r = _m1_scene(cuda, n, seed=per).to(dtype)
+    kw = dict(M1_LAW, periodic_length=M1_BOXES[box], coincident=coincident)
+    got = mc.blob_pair_energy(r, **kw)
+    again = mc.blob_pair_energy(r, **kw)
+    torch.cuda.synchronize()
+    assert plans == [(4 if per == 2 else 3, per)] * 2
+    assert torch.equal(got, again)
+    ref = mc.blob_blob_energy_plain(r.double(), **kw)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if dtype == torch.float64:
+        assert err <= 1e-12
+    else:
+        plain = float((mc.blob_blob_energy_plain(r, **kw) - ref).abs().max()
+                      / ref.abs().max())
+        bound = max(2 * plain,
+                    _m1_term_bound(r.double(), kw) / float(ref.abs().max()))
+        assert err <= bound, (err, plain, bound)
+
+
+@pytest.mark.parametrize("n_conf, n", [(4096, 12), (70000, 3), (3, 300)])
+def test_m1_batches_match_plain(cuda, n_conf, n):
+    """Batches of configurations (the rejection sampler's 4096 shells, one
+    past the grid's 65,535 rows, a few of several tiles) against the plain
+    version, float64 to 1e-12 of each configuration's energy."""
+    r = _m1_scene(cuda, n, n_conf, seed=n_conf)
+    kw = dict(M1_LAW, periodic_length=M1_BOXES["xy"], coincident="one")
+    got = mc.blob_pair_energy(r, **kw)
+    ref = mc.blob_blob_energy_plain(r, **kw)
+    assert got.shape == (n_conf,)
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1e-300)).max()) \
+        <= 1e-12
+
+
+def test_m1_launch_error_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (tile groups that do not cover the
+    blobs) raises; nothing falls back to the plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("blob_blob_energy_plain called for CUDA "
+                             "tensors")
+
+    monkeypatch.setattr(mc, "blob_blob_energy_plain", refuse)
+    monkeypatch.setattr(pk, "plan_groups", lambda n, n_sm: (1, 1))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mc.blob_pair_energy(_m1_scene(cuda, 300), **M1_LAW)
+
+
+def test_mcmc_chain_on_card_matches_cpu(cuda):
+    """20 burn-in and 20 chain steps of 8 shells above the wall on the
+    same draws fed, card float64 against the CPU: the same accepts, and
+    frames and energies to 1e-9."""
+    from rigidmultiblobswall_tpu_torch.models import mcmc
+    from rigidmultiblobswall_tpu_torch.models.system import (BodyType,
+                                                             System,
+                                                             make_state)
+
+    rng = np.random.default_rng(3)
+    ref = rng.normal(size=(12, 3))
+    ref *= 0.5 / np.linalg.norm(ref, axis=1, keepdims=True)
+    system = System(types=(BodyType(name="s", ref_config=ref, count=8),),
+                    blob_radius=0.2, kT=0.3, g=0.5,
+                    repulsion_strength_wall=0.4, debye_length_wall=0.3,
+                    repulsion_strength=0.7, debye_length=0.25)
+    pos = np.stack([1.1 * np.arange(8), np.zeros(8), np.full(8, 0.8)], 1)
+    quat = np.tile([1.0, 0, 0, 0], (8, 1))
+    gen = torch.Generator().manual_seed(0)
+    draws = [mcmc.draw(system, gen, torch.float64, "cpu") for _ in range(40)]
+    out = {}
+    for dev in ("cpu", cuda):
+        state = make_state(pos, quat, device=dev)
+        fed = [mcmc.Draws(*(x.to(dev) for x in d)) for d in draws]
+        before = mc.ENERGY_LAUNCHES
+        out[str(dev)] = mcmc.run_mcmc(system, state, n_steps=20,
+                                      save_every=5, initial_step=-20,
+                                      draws=fed)
+        if dev == cuda:
+            assert mc.ENERGY_LAUNCHES == before + 41
+    (cm, ct, ce), (gm, gt, ge) = out["cpu"], out[str(cuda)]
+    assert int(gm.accepted) == int(cm.accepted) > 0
+    assert torch.allclose(gt.pos.cpu(), ct.pos, rtol=0, atol=1e-9)
+    assert torch.allclose(ge.cpu(), ce, rtol=1e-9, atol=0)

@@ -17,8 +17,13 @@ bracketed by `torch.cuda.synchronize()`: the preconditioner's build, the
 constrained GMRES solve, the update with the centre-of-mass correction,
 and the nonlinear projection.
 
+With --mcmc it profiles the MCMC chain of chip_smoke.py's phase 16
+instead (the same scene, kT 0.05, every body moved a step): ten warm-up
+moves, --steps moves timed on the host clock, then --steps moves under
+the profiler, with each kernel's launches a move.
+
 Usage: python3 tools/torch_profile_step.py [n_shells] [--steps N]
-       [--scheme NAME] [--phoretic]
+       [--scheme NAME] [--phoretic | --mcmc]
 """
 
 import argparse
@@ -75,6 +80,75 @@ def articulated_parts(system, state, dt=1e-3):
           f"{list(articulated.GN_ITERATIONS)})", flush=True)
 
 
+def _device_kernels(prof):
+    """{kernel name: [device ms, launches]} of the profiled region: the
+    events with device time and no host time."""
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        dev_us = _self_device_us(evt)
+        if dev_us > 0 and evt.self_cpu_time_total == 0:
+            per_kernel[evt.key][0] += dev_us / 1e3
+            per_kernel[evt.key][1] += evt.count
+    return per_kernel
+
+
+def _print_kernels(per_kernel, busy_ms, per=1):
+    """The eight largest kernels by device time, then the rest, with
+    their launches divided by `per`."""
+    rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    top, rest = rows[:8], rows[8:]
+    for name, (ms, count) in top:
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % "
+              f"{count / per:7.2f} x {name[:90]}")
+    rest_ms = sum(ms for _, (ms, _) in rest)
+    print(f"  {rest_ms:9.2f} ms {100 * rest_ms / busy_ms:5.1f} % "
+          f"{sum(c for _, (_, c) in rest) / per:7.2f} x  ({len(rest)} other "
+          "kernels)")
+
+
+def mcmc_profile(n_shells, steps, dev):
+    """Host-clock ms a move of the MCMC chain on phase 16's scene, then
+    `steps` moves under the profiler: device busy time and idle share,
+    launches a move."""
+    from rigidmultiblobswall_tpu_torch.models import mcmc
+
+    system = chip_smoke.bench_system(n_shells)
+    pos, quat = chip_smoke.lattice(n_shells)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernel = mcmc.make_mcmc_kernel(system)
+    mc = mcmc.init_mcmc(system, state, energy=kernel.energy)
+    for _ in range(10):
+        mc = kernel(mc, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        mc = kernel(mc, gen)
+    torch.cuda.synchronize()
+    print(f"unprofiled MCMC ({system.num_blobs} blobs f32): "
+          f"{(time.perf_counter() - t0) * 1e3 / steps:.3f} ms a move over "
+          f"{steps} moves", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            mc = kernel(mc, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = _device_kernels(prof)
+    busy_ms = sum(ms for ms, _ in per_kernel.values())
+    launches = sum(c for _, c in per_kernel.values())
+    print(f"profiled MCMC, {steps} moves: wall {wall_ms / steps:.3f} ms a "
+          f"move, device busy {busy_ms / steps:.3f} ms a move, idle share "
+          f"{1 - busy_ms / wall_ms:.3f} (an upper bound: the profiler slows "
+          f"the host); {launches / steps:.2f} device launches a move "
+          f"({len(per_kernel)} kernels)", flush=True)
+    if busy_ms == 0:
+        raise SystemExit("torch_profile_step: the profiler saw no device time")
+    _print_kernels(per_kernel, busy_ms, per=steps)
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("n_shells", type=int, nargs="?", default=chip_smoke.N_SHELLS)
@@ -84,12 +158,17 @@ def main():
                    help="the integrators scheme to profile")
     p.add_argument("--phoretic", action="store_true",
                    help="Janus shells: the phoretic slip every step")
+    p.add_argument("--mcmc", action="store_true",
+                   help="phase 16's MCMC chain, --steps moves a run")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
     print(chip_smoke.smi(), flush=True)
 
     dev = torch.device("cuda")
+    if args.mcmc:
+        mcmc_profile(args.n_shells, args.steps, dev)
+        return
     if args.scheme.startswith("articulated_"):
         n_chains = args.n_shells // chip_smoke.CHAIN_BODIES
         system = chip_smoke.chain_system(n_chains)
@@ -130,13 +209,7 @@ def main():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device kernels only: events with device time and no host time
-    per_kernel = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
-        dev_us = _self_device_us(evt)
-        if dev_us > 0 and evt.self_cpu_time_total == 0:
-            per_kernel[evt.key][0] += dev_us / 1e3
-            per_kernel[evt.key][1] += evt.count
+    per_kernel = _device_kernels(prof)
     busy_ms = sum(ms for ms, _ in per_kernel.values())
     print(f"profiled {args.scheme} step ({system.num_blobs} blobs): wall "
           f"{wall_ms:.1f} ms, "
@@ -146,14 +219,7 @@ def main():
           f"lanczos {aux.stoch_iterations}", flush=True)
     if busy_ms == 0:
         raise SystemExit("torch_profile_step: the profiler saw no device time")
-    rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-    top, rest = rows[:8], rows[8:]
-    for name, (ms, count) in top:
-        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % {count:5d} x "
-              f"{name[:90]}")
-    rest_ms = sum(ms for _, (ms, _) in rest)
-    print(f"  {rest_ms:9.2f} ms {100 * rest_ms / busy_ms:5.1f} % "
-          f"{sum(c for _, (_, c) in rest):5d} x  ({len(rest)} other kernels)")
+    _print_kernels(per_kernel, busy_ms)
 
 
 if __name__ == "__main__":
