@@ -209,6 +209,29 @@ is non-zero and no result line is printed):
      seed (the same files under the JAX CLI's names, frame counts and
      shapes, .MCMC_info fields), and examples/mcmc/inputMCMC.dat on the
      card with generated vertex and clones files.
+ 17. the inextensible fibers (models/fibers.py) at full width, float32:
+     17a, fibers-4k-batched, the fibers example's twin
+     (rigidmultiblobswall_tpu_torch.examples.fibers_run) at 4096 free
+     fibers of 31 links (131,072 blobs), per-fiber hydrodynamics, no
+     wall, backward-Euler noise, its kT, k_bend and dt: the twin's own
+     run (4 steps, its end-to-end file), then one warm-up and three timed
+     steps: ms per step, peak device memory, |t| - 1 under 1e-5, and no K
+     kernel launched (batched per-fiber matrices, LU and Cholesky); 17b,
+     fibers-carpet-32k, a 32 x 32 carpet of fibers of 31 links clamped
+     above the wall (32,768 blobs; length 2, a = ds / 2, spacing 0.5,
+     bases at 1.5 a, t_fix +z, each tilted 0.3 rad off +z), full
+     hydrodynamics, Crank-Nicolson noise, 17a's kT, k_bend and dt,
+     tolerance 1e-4: one warm-up and three timed steps, ms per step,
+     GMRES and Lanczos iterations and K1 tt launches per step, every
+     solve converged, every K1 tt launch on the symmetric sweep
+     (pair_kernels.SYM_LAUNCHES), no other kernel, finite positions,
+     unmoved clamped bases, unit tangents, the lowest blob. Phase 3 holds
+     K1 tt at the carpet's 32,768 blobs to its plain version (the kernel
+     record "K1 pair_tt in fibers"); phase 4 runs one deterministic
+     full-mode step of an 8 x 8 carpet card float32 against CPU float64;
+     phase 5 runs the periodic suspension example's twin
+     (rigidmultiblobswall_tpu_torch.examples.periodic_suspension_run) at
+     its default 64 bodies and 50 steps.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -4702,6 +4725,281 @@ def phase_mcmc_path(pk, mc):
     return {"M1": launches, "M1_batch": batch_launches}
 
 
+# ---------------------------------------------------------------------------
+# The inextensible fibers (ROADMAP Queue 1, item 18): phase 3's K1 tt
+# record at the carpet's shape, phase 4's carpet card against CPU, phase
+# 5's periodic suspension twin, phase 17
+# ---------------------------------------------------------------------------
+
+# the fibers example's physics (examples/fibers/run.py): fibers of length
+# 2 and 31 links, a = ds / 2, kT 0.004142, k_bend = 4 x 2 x kT, dt = ds^3 /
+# (m0 k_bend)
+FIBER_LINKS = 31
+FIBER_KT = 0.004142
+# 17a: 4096 free fibers, 131,072 blobs
+N_FREE_FIBERS = 4096
+# 17b: a carpet of 32 x 32 fibers clamped above the wall, 32,768 blobs, at
+# lattice spacing 0.5 with bases at 1.5 a, each tilted 0.3 rad off +z
+CARPET_SIDE = 32
+CARPET_SPACING = 0.5
+CARPET_TILT = 0.3
+# phase 4's carpet (8 x 8, 2048 blobs) and its solver tolerance
+CARPET_PARITY_SIDE = 8
+CARPET_PARITY_TOL = 1e-5
+
+
+def carpet(side, dtype, device, **overrides):
+    """(suspension, state, dt) of a side x side carpet of clamped fibers
+    above the wall in the fibers example's physics: full hydrodynamics,
+    Crank-Nicolson noise, tolerance 1e-4."""
+    from rigidmultiblobswall_tpu_torch.models import fibers as fib
+
+    ds = 2.0 / FIBER_LINKS
+    a = ds / 2.0
+    kw = dict(num_fibers=side * side, num_links=FIBER_LINKS, ds=ds, a=a,
+              k_bend=8.0 * FIBER_KT, kT=FIBER_KT, impl_c=0.5, clamp=True,
+              t_fix=(0.0, 0.0, 1.0), hydrodynamics="full",
+              domain="single_wall", solver_tolerance=1e-4)
+    kw.update(overrides)
+    sus = fib.FiberSuspension(**kw)
+    idx = np.arange(side * side)
+    x0 = np.stack([(idx % side) * CARPET_SPACING,
+                   (idx // side) * CARPET_SPACING,
+                   np.full(side * side, 1.5 * a)], axis=1)
+    tilt = [np.sin(CARPET_TILT), 0.0, np.cos(CARPET_TILT)]
+    state = fib.straight_fiber_state(sus, x0, tilt, dtype=dtype,
+                                     device=device)
+    return sus, state, (ds ** 3 / sus.m0) / sus.k_bend
+
+
+def phase_fiber_kernels(pk, mob):
+    """Phase 3 at phase 17b's shape: K1 tt at the carpet's 32,768 blobs
+    (lengths in units of the fibers' a, the wall's shifted heights), as
+    the full mode calls it (the square product), against its plain
+    version (k1_full_record). Returns the record."""
+    from rigidmultiblobswall_tpu_torch.models import fibers as fib
+
+    dev = torch.device(DEVICE)
+    sus, state, _ = carpet(CARPET_SIDE, torch.float32, dev)
+    r = fib.blob_positions(sus, state).reshape(-1, 3)
+    q = (mob.shift_heights(r, sus.a) / sus.a).contiguous()
+    g = torch.Generator(device=dev).manual_seed(17)
+    v = torch.randn((q.shape[0], 3), generator=g, device=dev)
+    return k1_full_record(pk, "tt", q, v, 1024, u32_sqrt(q.shape[0]),
+                          f"{q.shape[0]} blobs in fibers")
+
+
+def fiber_step_positions(dtype, device):
+    """One deterministic full-mode step of phase 4's carpet at tolerance
+    CARPET_PARITY_TOL: (start, end) blob positions as float64 numpy, and
+    the step's aux."""
+    from rigidmultiblobswall_tpu_torch.models import fibers as fib
+
+    sus, state, dt = carpet(CARPET_PARITY_SIDE, dtype, device, kT=0.0,
+                            solver_tolerance=CARPET_PARITY_TOL)
+    new, aux = fib.make_stepper(sus, dt)(state)
+    return (fib.blob_positions(sus, state).double().cpu().numpy(),
+            fib.blob_positions(sus, new).double().cpu().numpy(), aux)
+
+
+def phase_fiber_parity():
+    """Phase 4, fibers: one deterministic full-mode step of an 8 x 8
+    carpet (2048 blobs, K1 tt on the card), card float32 against CPU
+    float64. The bound on the largest position error: each position a
+    sum of L + 1 = 32 float32 terms (x0 and the links), rounded at most
+    half an ulp of max|x| a term, in the start and the end state (2^-24
+    max|x| 2 (L + 1)), plus the solve's accuracy, 10 x the tolerance of
+    the largest displacement."""
+    start64, end64, aux64 = fiber_step_positions(torch.float64, "cpu")
+    start32, end32, aux32 = fiber_step_positions(torch.float32, DEVICE)
+    disp = np.abs(end64 - start64).max()
+    err = np.abs(end32 - end64).max()
+    bound = (2.0 ** -24 * np.abs(end64).max() * 2 * (FIBER_LINKS + 1)
+             + 10 * CARPET_PARITY_TOL * disp)
+    side = CARPET_PARITY_SIDE
+    log(f"fibers parity, {side} x {side} clamped carpet "
+        f"({side ** 2 * (FIBER_LINKS + 1)} blobs), one deterministic "
+        f"full-mode step at tolerance {CARPET_PARITY_TOL}: max displacement "
+        f"{disp:.4e}, card f32 vs CPU f64 max error {err:.3e} = "
+        f"{err / disp:.3e} of it (bound {bound:.3e} = {bound / disp:.3e} "
+        f"of it); GMRES "
+        f"{aux32.iterations} (f64 {aux64.iterations}), converged "
+        f"{aux32.converged}")
+    check(disp > 0 and err <= bound and aux32.converged and aux64.converged,
+          f"fibers parity: error {err:.3e} above {bound:.3e}")
+
+
+def phase_twin_cli():
+    """Phase 5, the periodic suspension example's twin at its default size
+    (64 shells, 50 Slip-Trapz steps on the spectral engine) through its
+    main(): its two summary lines, finite counts."""
+    import contextlib
+    import io
+
+    from rigidmultiblobswall_tpu_torch.examples import periodic_suspension_run
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        periodic_suspension_run.main([])
+    lines = buf.getvalue().splitlines()
+    log(f"periodic_suspension_run (64 shells, 50 steps) on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {lines[-2]}; {lines[-1]}")
+    check(lines[-2].startswith("64 bodies, 50 steps: det iters ")
+          and lines[-1].startswith("g(r): first peak at r = "),
+          f"periodic_suspension_run printed {lines[-2:]}")
+
+
+def _reset_counts(pk, mc, ck, lap):
+    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    pk.SYM_LAUNCHES.update(dict.fromkeys(pk.SYM_LAUNCHES, 0))
+    mc.LAUNCHES = mc.PERIODIC_LAUNCHES = mc.ENERGY_LAUNCHES = 0
+    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    lap.LAUNCHES.update(dict.fromkeys(lap.LAUNCHES, 0))
+
+
+def _other_launches(pk, mc, ck, lap, allowed=()):
+    """Launches of every kernel but those in `allowed` ((coupling, B) keys
+    of K1)."""
+    return {"K1": sum(n for k, n in pk.LAUNCHES.items() if k not in allowed),
+            "K2": mc.LAUNCHES + mc.PERIODIC_LAUNCHES,
+            "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+            "K5-K8": sum(ck.LAUNCHES.values()),
+            "L1": sum(lap.LAUNCHES.values()), "M1": mc.ENERGY_LAUNCHES}
+
+
+def _timed_steps(step, state, gen, n):
+    """Host-clock ms of n steps, each bracketed by torch.cuda.synchronize(),
+    with the last (state, aux) appended."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times + [(state, aux)]
+
+
+def _fmt(times):
+    return ", ".join(f"{t:.1f}" for t in times)
+
+
+def phase_fiber_path(pk, mc):
+    """Phase 17: 17a, the fibers example's twin at 4096 free fibers
+    (batched hydrodynamics: no K kernel), and 17b, the 32 x 32 clamped
+    carpet on full hydrodynamics (K1 tt on its symmetric sweep in every
+    product), float32, one warm-up and three timed steps each. Returns
+    K1 tt's launches over 17b's steps."""
+    from rigidmultiblobswall_tpu_torch.examples import fibers_run
+    from rigidmultiblobswall_tpu_torch.models import fibers as fib
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    # 17a: the twin's own run, then its stepper timed
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "end_to_end_distances.txt")
+        t0 = time.perf_counter()
+        fibers_run.main(["--fibers", str(N_FREE_FIBERS), "--links",
+                         str(FIBER_LINKS), "--steps", "4", "--save-every",
+                         "2", "--output", out])
+        twin_s = time.perf_counter() - t0
+        e2e = np.loadtxt(out)
+    check(e2e.shape == (2, N_FREE_FIBERS) and np.isfinite(e2e).all()
+          and e2e.max() <= 2.0 + 1e-4, f"fibers_run wrote {e2e.shape}")
+    sus, state, dt = fibers_run.build(N_FREE_FIBERS, FIBER_LINKS, FIBER_KT,
+                                      dtype=torch.float32, device=dev)
+    step = fib.make_stepper(sus, dt)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    _reset_counts(pk, mc, ck, lap)
+    held = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, gen)
+    step_ms = _timed_steps(step, state, gen, 3)
+    state, aux = step_ms.pop()
+    ms_a = sum(step_ms) / 3
+    peak_a = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    # the same steps with the caching allocator emptied: earlier phases
+    # leave it holding blocks of their own sizes
+    torch.cuda.empty_cache()
+    empty_ms = _timed_steps(step, state, gen, 3)
+    state, aux = empty_ms.pop()
+    others = _other_launches(pk, mc, ck, lap)
+    unit = float((torch.linalg.norm(state.t, dim=-1) - 1).abs().max())
+    pos = fib.blob_positions(sus, state)
+    log(f"fibers-4k-batched (17a) {sus.num_blobs} blobs f32, the fibers "
+        f"example's physics (backward-Euler noise, dt {dt:.4e}): the twin's "
+        f"4-step run {twin_s:.1f} s (mean end-to-end {e2e[-1].mean():.4f}); "
+        f"{ms_a:.1f} ms/step over 3 steps ({_fmt(step_ms)}; after "
+        f"torch.cuda.empty_cache() {_fmt(empty_ms)}), peak device memory "
+        f"{peak_a:.2f} GiB above the {held / 2 ** 30:.2f} GiB earlier phases "
+        f"hold ({reserved:.2f} GiB reserved), max ||t| - 1| {unit:.2e}, "
+        f"residual {float(aux.residual):.2e}, launches {others}")
+    check(unit < 1e-5 and bool(torch.isfinite(pos).all())
+          and bool(aux.converged), "fibers-4k-batched: state or solve")
+    check(all(n == 0 for n in others.values()),
+          f"fibers-4k-batched launched {others}")
+
+    # 17b: the carpet on K1 tt
+    sus, state, dt = carpet(CARPET_SIDE, torch.float32, dev)
+    step = fib.make_stepper(sus, dt)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x0 = state.x0.clone()
+    _reset_counts(pk, mc, ck, lap)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, aux = step(state, gen)                       # warm-up
+    warm = pk.LAUNCHES["tt", 1]
+    torch.cuda.synchronize()
+    per_step = []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        before = pk.LAUNCHES["tt", 1]
+        state, aux = step(state, gen)
+        per_step.append((aux.iterations, aux.lanczos_iterations,
+                         bool(aux.converged),
+                         pk.LAUNCHES["tt", 1] - before))
+    torch.cuda.synchronize()
+    ms_b = (time.perf_counter() - t0) / 3 * 1e3
+    peak_b = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launches = pk.LAUNCHES["tt", 1]
+    sym = pk.SYM_LAUNCHES["tt", 1]
+    others = _other_launches(pk, mc, ck, lap, allowed=(("tt", 1),))
+    pos = fib.blob_positions(sus, state)
+    unit = float((torch.linalg.norm(state.t, dim=-1) - 1).abs().max())
+    z_min = float(pos[..., 2].min())
+    log(f"fibers-carpet-32k (17b) {sus.num_blobs} blobs f32, {CARPET_SIDE} "
+        f"x {CARPET_SIDE} clamped fibers, full hydrodynamics, "
+        f"Crank-Nicolson, tolerance {sus.solver_tolerance}: {ms_b:.1f} ms/step over 3 steps; (GMRES, "
+        f"Lanczos iterations, converged, K1 tt launches) per step "
+        f"{per_step}, warm-up {warm} launches; K1 tt {launches} launches "
+        f"over the 4 steps, {sym} on the symmetric sweep; other kernels "
+        f"{others}; peak device memory {peak_b:.2f} GiB above what earlier "
+        f"phases hold; max ||t| - 1| "
+        f"{unit:.2e}; lowest blob {z_min:.4f} (a = {sus.a:.4f})")
+    check(all(c for _, _, c, _ in per_step), "fibers-carpet-32k: a solve "
+          f"did not converge: {per_step}")
+    check(all(k == 3 + g + lz for g, lz, _, k in per_step),
+          f"fibers-carpet-32k: K1 tt launches a step {per_step} are not "
+          "the right-hand side, both Lanczos chains, the two RFD products "
+          "and the GMRES iterations")
+    check(launches > 0 and sym == launches, f"fibers-carpet-32k: {sym} of "
+          f"{launches} K1 tt launches on the symmetric sweep")
+    check(all(n == 0 for n in others.values()),
+          f"fibers-carpet-32k launched {others}")
+    check(bool(torch.isfinite(pos).all()) and unit < 1e-5 and z_min > 0,
+          "fibers-carpet-32k: state")
+    check(torch.equal(state.x0, x0), "fibers-carpet-32k: a clamped base "
+          "moved")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return {"K1 tt": launches}
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4745,6 +5043,7 @@ def main():
     art_records = phase_articulated_kernels(pk, mc, mob, kin, make_state)
     l1_records = phase_l1_kernels()
     m1_records = phase_m1_kernels(pk, mc, kin, make_state)
+    fiber_record = phase_fiber_kernels(pk, mob)
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
@@ -4755,6 +5054,7 @@ def main():
     phase_articulated_parity(pk, mc)
     phase_phoretic_parity(pk, mc)
     phase_mcmc_parity(mc)
+    phase_fiber_parity()
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
@@ -4766,6 +5066,7 @@ def main():
     phase_slip_cli()
     phase_phoretic_cli()
     phase_mcmc_cli(mc)
+    phase_twin_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -4782,6 +5083,7 @@ def main():
     art_launches = phase_articulated_path(pk, mc)           # phase 14
     l1_launches = phase_phoretic_path(pk, mc)               # phase 15
     m1_launches = phase_mcmc_path(pk, mc)                   # phase 16
+    fiber_launches = phase_fiber_path(pk, mc)               # phase 17
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -4903,6 +5205,12 @@ def main():
             source="rigidmultiblobswall_tpu_torch/csrc/blob_energy.cu",
             replaces=rep_line, launches=m1_launches[key],
             **m1_records[key]))
+    # K1 tt on phase 17b's carpet, timed at its 32,768 blobs, with its
+    # launches over 17b's four steps
+    kernels.append(dict(
+        name="K1 pair_tt in fibers", route="cuda", source=k1_src["tt"],
+        replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+        launches=fiber_launches["K1 tt"], **fiber_record))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

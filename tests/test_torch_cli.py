@@ -14,7 +14,8 @@ phoretic_janus example with a generated vertex file, the same .config;
 a user_defined_functions.py with body_force_torque_fn and postprocess
 (jax.numpy for the JAX CLI, torch for the port's), the same .clones;
 and a hook file importing jax ends the port's run with the pointer to
-its hook signatures."""
+its hook signatures; the port's twin of examples/periodic_suspension/
+run.py runs the JAX script's scene on the CPU."""
 
 import os
 import shutil
@@ -887,3 +888,39 @@ def test_cli_hydrogrid_matches_jax(tmp_path, monkeypatch):
     assert got.shape == ref.shape and got.shape[1] == 4
     assert np.abs(ref[:, 1:]).max() > 0
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
+
+
+def test_periodic_suspension_twin_runs_on_cpu(tmp_path, monkeypatch, capsys):
+    """The port's twin of examples/periodic_suspension/run.py at 8 bodies
+    x 5 steps on the CPU: the JAX script's scene (its shell and lattice),
+    the integrators' stochastic_Slip_Trapz on the spectral engine, and
+    its two summary lines with finite counts and a g(r) peak."""
+    import importlib.util
+    import re
+
+    from rigidmultiblobswall_tpu_torch.examples import periodic_suspension_run
+
+    path = (Path(__file__).resolve().parents[1] / "examples"
+            / "periodic_suspension" / "run.py")
+    spec = importlib.util.spec_from_file_location("jax_periodic_run", path)
+    jrun = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jrun)
+    np.testing.assert_array_equal(periodic_suspension_run.shell(),
+                                  jrun.shell())
+    system, state, L = periodic_suspension_run.build(8, device="cpu")
+    assert system.domain == "periodic_spectral" and L == 2 * 1.6
+    assert system.periodic_length == (L, L, L)
+    idx = np.arange(8)
+    lattice = np.stack([idx % 2, (idx // 2) % 2, idx // 4], axis=1) * 1.6
+    np.testing.assert_allclose(state.pos.numpy(), lattice + 0.8, rtol=1e-7)
+
+    monkeypatch.chdir(tmp_path)
+    periodic_suspension_run.main(["8", "5", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    m = re.fullmatch(r"8 bodies, 5 steps: det iters (\d+), stoch iters "
+                     r"(\d+), rejections (\d+)", lines[-2])
+    assert m and int(m.group(1)) > 0 and int(m.group(2)) > 0
+    m = re.fullmatch(r"g\(r\): first peak at r = ([0-9.]+) \(body spacing "
+                     r"1\.60\)", lines[-1])
+    assert m and 0.0 < float(m.group(1)) < L
+    assert list(tmp_path.iterdir()) == []

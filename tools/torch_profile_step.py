@@ -22,8 +22,15 @@ instead (the same scene, kT 0.05, every body moved a step): ten warm-up
 moves, --steps moves timed on the host clock, then --steps moves under
 the profiler, with each kernel's launches a move.
 
+With --fibers it profiles a step of chip_smoke.py's phase 17 instead:
+17b's 32 x 32 clamped carpet (32,768 blobs, full hydrodynamics,
+Crank-Nicolson), then 17a's 4096 free fibers (131,072 blobs, batched
+hydrodynamics, backward Euler), one warm-up and --steps timed steps each,
+then one step under the profiler: busy and idle share, and the shares of
+K1, the batched LU (factor and solves) and the batched Cholesky.
+
 Usage: python3 tools/torch_profile_step.py [n_shells] [--steps N]
-       [--scheme NAME] [--phoretic | --mcmc]
+       [--scheme NAME] [--phoretic | --mcmc | --fibers]
 """
 
 import argparse
@@ -149,6 +156,61 @@ def mcmc_profile(n_shells, steps, dev):
     _print_kernels(per_kernel, busy_ms, per=steps)
 
 
+# kernel-name fragments of each share the fibers profile reports: K1's
+# sweeps and its slice sum, the batched LU's factor, pivots and
+# triangular solves, the batched Cholesky
+FIBER_SHARES = {"K1": ("sym_kernel", "pair_kernel", "slice_sum_kernel"),
+                "batched LU": ("getrf", "getrs", "laswp", "trsm", "lu_"),
+                "batched Cholesky": ("potrf",)}
+
+
+def fibers_profile(steps, dev):
+    """Host-clock ms a step and one profiled step of phase 17b's carpet and
+    phase 17a's free fibers: busy time, idle share, and the shares of K1,
+    the batched LU and the batched Cholesky."""
+    from rigidmultiblobswall_tpu_torch.examples import fibers_run
+    from rigidmultiblobswall_tpu_torch.models import fibers as fib
+
+    cells = [("fibers-carpet-32k (17b)", lambda: chip_smoke.carpet(
+        chip_smoke.CARPET_SIDE, torch.float32, dev)),
+        ("fibers-4k-batched (17a)", lambda: fibers_run.build(
+            chip_smoke.N_FREE_FIBERS, chip_smoke.FIBER_LINKS,
+            chip_smoke.FIBER_KT, dtype=torch.float32, device=dev))]
+    for cell, build in cells:
+        sus, state, dt = build()
+        step = fib.make_stepper(sus, dt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state, _ = step(state, gen)
+        for _ in range(steps):
+            (state, aux), ms = _timed(lambda: step(state, gen))
+            print(f"unprofiled {cell} step: {ms:.1f} ms, gmres "
+                  f"{aux.iterations}, lanczos {aux.lanczos_iterations}",
+                  flush=True)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state, aux = step(state, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        per_kernel = _device_kernels(prof)
+        busy_ms = sum(ms for ms, _ in per_kernel.values())
+        if busy_ms == 0:
+            raise SystemExit("torch_profile_step: the profiler saw no "
+                             "device time")
+        shares = {k: sum(ms for name, (ms, _) in per_kernel.items()
+                         if any(f in name.lower() for f in frags))
+                  for k, frags in FIBER_SHARES.items()}
+        print(f"profiled {cell} step ({sus.num_blobs} blobs f32): wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f} (an upper bound: the profiler "
+              f"slows the host); gmres {aux.iterations}, lanczos "
+              f"{aux.lanczos_iterations}; "
+              + ", ".join(f"{k} {ms:.2f} ms ({100 * ms / busy_ms:.1f} %)"
+                          for k, ms in shares.items()), flush=True)
+        _print_kernels(per_kernel, busy_ms)
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("n_shells", type=int, nargs="?", default=chip_smoke.N_SHELLS)
@@ -160,6 +222,8 @@ def main():
                    help="Janus shells: the phoretic slip every step")
     p.add_argument("--mcmc", action="store_true",
                    help="phase 16's MCMC chain, --steps moves a run")
+    p.add_argument("--fibers", action="store_true",
+                   help="phase 17's carpet and free fibers, a step each")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
@@ -168,6 +232,9 @@ def main():
     dev = torch.device("cuda")
     if args.mcmc:
         mcmc_profile(args.n_shells, args.steps, dev)
+        return
+    if args.fibers:
+        fibers_profile(args.steps, dev)
         return
     if args.scheme.startswith("articulated_"):
         n_chains = args.n_shells // chip_smoke.CHAIN_BODIES
