@@ -13,8 +13,10 @@ is non-zero and no result line is printed):
      (csrc/blob_forces.cu), K3 (csrc/dense_tt.cu), K4 (csrc/symm_planes.cu),
      K5, K6, K7 and K8 (csrc/nl_forces.cu, csrc/near_rpy.cu,
      csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) and
-     L1, the Laplace layer sums (csrc/laplace_layers.cu), and M1, the
-     MCMC pair energy (csrc/blob_energy.cu), with one nvcc per source,
+     L1, the Laplace layer sums (csrc/laplace_layers.cu), M1, the
+     MCMC pair energy (csrc/blob_energy.cu), P1, the radii pair product
+     (csrc/pair_radii.cu), and P2, the mixed-radii near field
+     (csrc/near_rpy.cu's radii instance), with one nvcc per source,
      all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
@@ -232,6 +234,36 @@ is non-zero and no result line is printed):
      phase 5 runs the periodic suspension example's twin
      (rigidmultiblobswall_tpu_torch.examples.periodic_suspension_run) at
      its default 64 bodies and 50 steps.
+ 18. per-blob radii at full width (multibody-49k-radii): phase 6's
+     lattice and physics (4096 shells above the wall, 49,152 blobs, direct
+     forces, tolerance 2e-4, float32) with bench.py's shell (radius 0.5,
+     blob radius 0.131) and a 1.2x shell (radius 0.6, blob radius 0.157)
+     alternating on the lattice, each read from a four-column .vertex
+     file; deterministic forward Euler and stochastic Slip-Trapz, one
+     warm-up and three timed steps each: ms/step, GMRES sweeps, Lanczos
+     iterations, rejections (0), peak device memory and the launches (P1,
+     B = 1 and for Slip-Trapz B = 2, and K2 must run; K1, K3 and K4 must
+     not); the smallest blob surface gap of the scene. Phase 3 holds P1,
+     the radii pair product (csrc/pair_radii.cu), to its float64 plain
+     version on a random ~3000-blob scene with radii in [0.08, 0.3] (wall
+     on and off, every RPY regime: far, overlapping, one blob inside
+     another, coincident; B = 1 and 2; float32 within 3e-6 x max|ref| or
+     twice the float32 plain version's error, float64 to 1e-12; twice
+     bit-identical) and at phase 18's 49,152 blobs (two kernel records,
+     B = 1 and 2); phase 4 runs 8 shells of the mixture x 3 steps of
+     forward Euler and Slip-Trapz card against CPU, phase 5 a four-column
+     input through the CLI (Slip-Trapz, mobility, body_mobility).
+ 19. mixed radii on the spectral engine at full width
+     (spectral-98k-radii): phase 8's box (8192 shells, 98,304 blobs, L =
+     33.6, tolerance 1e-4, grid at most 256, linked-cell forces, float32)
+     with phase 18's mixture, two radius groups; the plan's host tables
+     timed, P2 (the mixed-radii near field, csrc/near_rpy.cu's radii
+     instance) at its shape against its float64 plain version (the first
+     256 target cells, B = 1 and 2, twice bit-identical; a kernel record),
+     then one warm-up and three timed Slip-Trapz steps: ms/step,
+     iterations, overflows (0), peak device memory and the launches (P2
+     and K5 must run, K6 must not). Phase 3 also holds P2 on a random
+     3000-blob periodic box of three radius groups.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -263,7 +295,8 @@ version's time, and the bound: the larger of the bytes moved at 3.35 TB/s
 and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
 K5, L1 and M1 their special functions at 16 a clock an SM, whichever
 is larger; K2, K7, L1 and M1 also name their design, L1 its plan; K8,
-L1 and M1 have a record per instance);
+L1 and M1 have a record per instance; P1 and P2 name their plan and
+registers, P1 with a record per B);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -4852,6 +4885,7 @@ def phase_twin_cli():
 
 def _reset_counts(pk, mc, ck, lap):
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    mc.RADII_LAUNCHES.update(dict.fromkeys(mc.RADII_LAUNCHES, 0))
     pk.SYM_LAUNCHES.update(dict.fromkeys(pk.SYM_LAUNCHES, 0))
     mc.LAUNCHES = mc.PERIODIC_LAUNCHES = mc.ENERGY_LAUNCHES = 0
     mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
@@ -4866,7 +4900,8 @@ def _other_launches(pk, mc, ck, lap, allowed=()):
             "K2": mc.LAUNCHES + mc.PERIODIC_LAUNCHES,
             "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
             "K5-K8": sum(ck.LAUNCHES.values()),
-            "L1": sum(lap.LAUNCHES.values()), "M1": mc.ENERGY_LAUNCHES}
+            "L1": sum(lap.LAUNCHES.values()), "M1": mc.ENERGY_LAUNCHES,
+            "P1": sum(mc.RADII_LAUNCHES.values())}
 
 
 def _timed_steps(step, state, gen, n):
@@ -5000,6 +5035,571 @@ def phase_fiber_path(pk, mc):
     return {"K1 tt": launches}
 
 
+# ---------------------------------------------------------------------------
+# Per-blob and mixed blob radii (ROADMAP Queue 1, items 4 and 15): phase
+# 3's P1 and P2 against their plain versions, phase 4's bidisperse slice,
+# phase 5's four-column CLI inputs, phases 18 and 19
+# ---------------------------------------------------------------------------
+
+# the two shells of the mixture: bench.py's (radius 0.5, blob radius
+# 0.131) and a 1.2x one (radius 0.6, blob radius 0.157)
+RADII_SHELLS = ((0.5, A_BENCH), (0.6, 0.157))
+# P1's float32 operations per unordered pair, counted from
+# csrc/pair_radii.cu's condense (an FMA as 2): the three RPY regimes ~56,
+# the five wall terms ~124 more; applying the condensed block both ways
+# (diag_apply and diag_apply_t, 18 each) per right-hand side; and its
+# special functions: two rsqrt and the reciprocal of a b
+P1_PAIR_FLOPS = {True: 180, False: 56}
+P1_APPLY_FLOPS = 36
+P1_PAIR_MUFU = 3
+# P2 beyond K6's per-pair count: the piece map (two compares, a select and
+# the (mid, 2 / width) multiply-add)
+P2_PIECE_FLOPS = 6
+
+
+def instance_registers(report, *needles):
+    """The ptxas line of the kernel instance whose name holds every needle
+    (the registers and spills of the build), or "not in this build's
+    report" when the library was reused."""
+    for line in report:
+        if all(n in line for n in needles):
+            return line.split(": ", 1)[1]
+    return "not in this build's report"
+
+
+def radii_vertex_files(d):
+    """The mixture's two four-column .vertex files in directory d; returns
+    their paths (small, big)."""
+    paths = []
+    for name, (radius, a) in zip(("small", "big"), RADII_SHELLS):
+        path = os.path.join(d, f"{name}.vertex")
+        with open(path, "w") as f:
+            f.write("12\n")
+            for x in shell_vertices(12, radius):
+                f.write("%.16g %.16g %.16g %.16g\n" % (*x, a))
+        paths.append(path)
+    return paths
+
+
+def radii_system(n_bodies, **overrides):
+    """bench_system's physics with the mixture, read from its four-column
+    .vertex files: the first n_bodies // 2 bodies the small shells, the
+    rest the big ones."""
+    from rigidmultiblobswall_tpu_torch.io import scene
+    from rigidmultiblobswall_tpu_torch.models.system import BodyType
+
+    system = bench_system(n_bodies, **overrides)
+    n_small = n_bodies - n_bodies // 2
+    with tempfile.TemporaryDirectory() as d:
+        refs = [scene.read_vertex_file(p) for p in radii_vertex_files(d)]
+    types = tuple(BodyType(name=name, ref_config=ref[:, :3], count=count,
+                           blob_radii=ref[:, 3])
+                  for name, ref, count in zip(
+                      ("shell", "big"), refs, (n_small, n_bodies - n_small)))
+    return dataclasses.replace(system, types=types)
+
+
+def alternate(pos, quat):
+    """A lattice's bodies in the mixture's type order: the even sites (the
+    small shells) first, then the odd ones, so neighbors alternate."""
+    order = np.concatenate([np.arange(0, len(pos), 2),
+                            np.arange(1, len(pos), 2)])
+    return pos[order], quat[order]
+
+
+def min_blob_gap(r, radii):
+    """The smallest surface gap r_ij - a_i - a_j over the distinct blob
+    pairs (negative where blobs overlap), in row chunks on the card."""
+    gap = float("inf")
+    for i0 in range(0, r.shape[0], 4096):
+        d = torch.cdist(r[i0:i0 + 4096].double(), r.double())
+        d = d - radii[i0:i0 + 4096, None].double() - radii[None].double()
+        idx = torch.arange(i0, min(i0 + 4096, r.shape[0]), device=r.device)
+        d[idx - i0, idx] = float("inf")
+        gap = min(gap, float(d.min()))
+    return gap
+
+
+def p1_vs_plain(mc, r, v, radii, wall, sub=None):
+    """P1 against its float64 plain version (the source-target product,
+    the first `sub` targets), twice bit-identical; with float32 inputs also
+    the float32 plain version's error. Returns (max err, max|ref|, plain
+    f32 err or None, bit-identical)."""
+    got = mc.radii_matvec(r, v, radii, 1.0, wall=wall)
+    same = torch.equal(got, mc.radii_matvec(r, v, radii, 1.0, wall=wall))
+    torch.cuda.synchronize()
+    rt = r if sub is None else r[:sub]
+    at = radii if sub is None else radii[:sub]
+
+    def plain(dtype):
+        from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+        return torch.stack([mob.source_target_matvec(
+            r.to(dtype), rt.to(dtype), vb.to(dtype), radii.to(dtype),
+            at.to(dtype), 1.0, wall=wall) for vb in v])
+
+    ref = plain(torch.float64)
+    got = got if sub is None else got[:, :sub]
+    err = (got.double() - ref).abs().max().item()
+    p32 = None
+    if r.dtype == torch.float32:
+        p32 = (plain(torch.float32).double() - ref).abs().max().item()
+    return err, ref.abs().max().item(), p32, same
+
+
+def phase_radii_kernels(mc, report):
+    """Phase 3, P1 and P2. P1 against its float64 plain version on a random
+    ~3000-blob scene above the wall with radii in [0.08, 0.3] (blobs below
+    their radius; a coincident pair of unequal radii, one blob inside
+    another, overlapping pairs), wall on and off, B = 1 and 2, float64 to
+    1e-12 and float32 within 3e-6 x max|ref| or twice the float32 plain
+    version's error (printed beside it), each twice bit-identical; then at
+    phase 18's shape (49,152 blobs, the first 1024 targets), B = 1 and 2,
+    timed with its plain version and its bound. P2 against its float64
+    plain version on a small G = 3 periodic box and at phase 19's shape
+    (the first 256 target cells). Returns P1's two records (P2's comes
+    from phase 19)."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(0)
+    n = 3000
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, 20, (n, 2))
+    r[:, 2] = rng.uniform(0.05, 4, n)
+    rad = rng.uniform(0.08, 0.3, n)
+    r[5] = r[4]                                  # coincident, unequal radii
+    r[7], rad[6], rad[7] = r[6] + 0.01, 0.1, 0.3  # one inside the other
+    r[9] = r[8] + 0.2                            # overlapping
+    for n_rhs in (1, 2):
+        v = rng.normal(size=(n_rhs, n, 3))
+        for wall in (True, False):
+            for dtype in (torch.float32, torch.float64):
+                args = [torch.as_tensor(x, dtype=dtype, device=dev)
+                        for x in (r, v, rad)]
+                err, scale, p32, same = p1_vs_plain(mc, args[0], args[1],
+                                                    args[2], wall)
+                bound = (1e-12 if dtype == torch.float64
+                         else max(3e-6, 2 * p32 / scale))
+                plain_txt = ("" if p32 is None else
+                             f", the f32 plain version's {p32 / scale:.3e}")
+                log(f"P1 {n} blobs B={n_rhs} wall={wall} {dtype}: max err / "
+                    f"max|ref| = {err / scale:.3e} (bound {bound:.2e}"
+                    f"{plain_txt}); repeat bit-identical {same}")
+                check(err <= bound * scale, f"P1 disagrees with plain "
+                      f"({err / scale:.3e}, B={n_rhs}, wall={wall}, {dtype})")
+                check(same, f"P1 not bit-identical on repeat (B={n_rhs}, "
+                      f"wall={wall}, {dtype})")
+
+    # phase 18's shape
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    system = radii_system(N_SHELLS)
+    pos, quat = alternate(*lattice(N_SHELLS))
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    rb = kin.blob_positions(system, state).contiguous()
+    radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
+    nb = rb.shape[0]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups, per = pk.plan_groups(nb, n_sm)
+    g = torch.Generator(device=dev).manual_seed(18)
+    sub = 1024
+    records = {}
+    for n_rhs in (1, 2):
+        v = torch.randn((n_rhs, nb, 3), generator=g, device=dev)
+        err, scale, p32, same = p1_vs_plain(mc, rb, v, radii, True, sub)
+        bound = max(u32_sqrt(nb), 2 * p32 / scale)
+        ms = cuda_ms(lambda: mc.radii_matvec(rb, v, radii, 1.0, wall=True),
+                     10)
+        plain_ms = cuda_ms(lambda: mc.radii_matvec_plain(
+            rb, v, radii, 1.0, wall=True), 1, warmup=False)
+        pairs = nb * (nb + 1) // 2
+        flops = pairs * (P1_PAIR_FLOPS[True] + P1_APPLY_FLOPS * n_rhs)
+        nbytes = 4 * nb * (4 + 2 * 3 * n_rhs)
+        rec = bound_record(nbytes, flops, pairs * P1_PAIR_MUFU)
+        regs = instance_registers(report, "radii_sym_kernel",
+                                  f"<float, {n_rhs}, true>")
+        plan = f"{groups} tile groups of {per} tiles"
+        log(f"P1 {nb} blobs (phase 18's mixture) B={n_rhs} f32, the "
+            f"symmetric sweep ({plan}): first {sub} target rows vs plain "
+            f"f64 max err {err:.3e}, / max|ref| = {err / scale:.3e} (bound "
+            f"{bound:.2e}: u32 sqrt(N) or twice the f32 plain version's "
+            f"{p32 / scale:.3e}); repeat bit-identical {same}; kernel "
+            f"{ms:.3f} ms, plain f32 {plain_ms:.1f} ms; bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, {pairs} unordered "
+            f"pairs at {P1_PAIR_FLOPS[True] + P1_APPLY_FLOPS * n_rhs} "
+            f"operations and {P1_PAIR_MUFU} special functions; "
+            f"{rec['bound_ms'] / ms:.1%} of it); ptxas {regs}")
+        check(err <= bound * scale, f"P1 disagrees at {nb} blobs B={n_rhs}")
+        check(same, f"P1 not bit-identical on repeat at {nb} blobs")
+        records[n_rhs] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              registers=regs, plan=plan, **rec)
+    return records
+
+
+def p2_vs_plain(ck, plan, f, cells_range=None):
+    """P2 against its float64 plain version on the plan's cells (or
+    cells_range), twice bit-identical; with float32 inputs also the
+    float32 plain version's error. Returns (max err, max|ref|, plain f32
+    err or None, bit-identical)."""
+    p = plan.params
+    args = (plan.cell_table, plan.cell_dims, p.box, p.cell_capacity)
+    got = ck.near_rpy_radii(plan.positions, f, plan.group_of, *args,
+                            plan.cheb_radii, plan.radii_edges, r_cut=p.r_cut)
+    same = torch.equal(got, ck.near_rpy_radii(
+        plan.positions, f, plan.group_of, *args, plan.cheb_radii,
+        plan.radii_edges, r_cut=p.r_cut))
+    torch.cuda.synchronize()
+    def plain(dtype):
+        return ck.near_rpy_radii_plain(
+            plan.positions.to(dtype), f.to(dtype), plan.group_of, *args,
+            plan.cheb_radii.to(dtype), plan.radii_edges, r_cut=p.r_cut,
+            cells_range=cells_range)
+
+    ref = plain(torch.float64)
+    rows = _rows_of(plan.cell_table, f.shape[0], p.cell_capacity,
+                    cells_range)
+    err = (got.double()[rows] - ref[rows]).abs().max().item()
+    p32 = None
+    if f.dtype == torch.float32:
+        p32 = (plain(torch.float32).double()[rows]
+               - ref[rows]).abs().max().item()
+    return err, ref[rows].abs().max().item(), p32, same
+
+
+def phase_p2_small(ck, ewald):
+    """Phase 3, P2 on a random periodic box of 3000 blobs in three radius
+    groups (a coincident pair, a pair one inside the other): B = 1 and 2,
+    float32 at 3e-6 x max|ref| (or twice the float32 plain version's
+    error, printed beside it) and float64 at 1e-12 against the plain
+    version in float64, twice bit-identical."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(5)
+    n, L = 3000, 14.0
+    r = rng.uniform(0, L, (n, 3))
+    r[7] = r[6]
+    r[9] = r[8] + 0.05
+    groups = rng.integers(0, 3, n).astype(np.int32)
+    p = ewald.default_params(0.45, 1.0, (L, L, L), tol=1e-4,
+                             cell_capacity=64, radii=(0.2, 0.3, 0.45))
+    f6 = rng.normal(size=(n, 6))
+    for dtype, bound in ((torch.float32, 3e-6), (torch.float64, 1e-12)):
+        plan = ewald.make_plan(p, torch.as_tensor(r, dtype=dtype,
+                                                  device=dev),
+                               group_of=torch.as_tensor(groups, device=dev))
+        check(int(plan.n_dropped_cells) == 0, "P2 scene overflows")
+        for n_rhs in (1, 2):
+            f = torch.as_tensor(f6[:, :3 * n_rhs], dtype=dtype,
+                                device=dev).contiguous()
+            err, scale, p32, same = p2_vs_plain(ck, plan, f)
+            bound_b = bound if p32 is None else max(bound, 2 * p32 / scale)
+            plain_txt = ("" if p32 is None else
+                         f", the f32 plain version's {p32 / scale:.3e}")
+            log(f"P2 {n} blobs G=3 cells {plan.cell_dims} B={n_rhs} {dtype}"
+                f" (K={plan.cheb_radii.shape[-1]}): max err / max|ref| = "
+                f"{err / scale:.3e} (bound {bound_b:.2e}{plain_txt}); repeat "
+                f"bit-identical {same}")
+            check(err <= bound_b * scale, f"P2 disagrees ({err / scale:.3e})")
+            check(same, f"P2 B={n_rhs} {dtype} not bit-identical on repeat")
+
+
+def phase_radii_parity(mc):
+    """Phase 4, radii: 8 shells of the mixture above the wall x 3 steps of
+    forward Euler and Slip-Trapz, card f64 and f32 against CPU f64 with the
+    same normals fed (scheme_parity_case: 1e-9 and 1e-2 of the
+    displacement); P1 runs on the card."""
+    before = sum(mc.RADII_LAUNCHES.values())
+    for scheme in ("deterministic_forward_euler", "stochastic_Slip_Trapz"):
+        scheme_parity_case(radii_system(8), scheme, "bidisperse 8 shells")
+    launches = sum(mc.RADII_LAUNCHES.values()) - before
+    log(f"bidisperse parity: P1 launched {launches} times")
+    check(launches > 0, "the bidisperse slice did not run on P1")
+
+
+def write_radii_input(d, pos, quat, settings):
+    """A bench.py-physics input of the mixture in directory d: two
+    structure lines, each with its four-column .vertex file; returns its
+    path."""
+    from rigidmultiblobswall_tpu_torch.io import scene
+
+    radii_vertex_files(d)
+    half = len(pos) - len(pos) // 2
+    for name, sl in (("small", slice(0, half)), ("big", slice(half, None))):
+        scene.write_clones_file(os.path.join(d, f"{name}.clones"), pos[sl],
+                                quat[sl])
+    inp = os.path.join(d, "input.dat")
+    with open(inp, "w") as f:
+        f.write(settings + "eta 1.0\ng 0.1\nblob_radius 0.131\n"
+                "repulsion_strength_wall 0.2\ndebye_length_wall 0.2\n"
+                "repulsion_strength 0.2\ndebye_length 0.2\n"
+                "blob_blob_force_implementation python\nseed 1\n"
+                "output_name run\nstructure small.vertex small.clones\n"
+                "structure big.vertex big.clones\n")
+    return inp
+
+
+def phase_radii_cli():
+    """Phase 5, radii: the CLI on a generated 16-shell input of the mixture
+    (four-column .vertex files): 3 Slip-Trapz steps at kT = 0, mobility
+    and body_mobility, card float64 against CPU float64 (the .clones to
+    1e-9 of the displacement, the .dat files to 1e-9 x max|ref|)."""
+    from rigidmultiblobswall_tpu_torch import cli
+
+    pos, quat = alternate(*lattice(16, seed=3))
+    pos = pos.astype(np.float64)
+    cwd = os.getcwd()
+    outs = {}
+    runs = (("stochastic_Slip_Trapz", "dt 0.002\nn_steps 3\nn_save 3\n"
+             "kT 0.0\nsolver_tolerance 1e-12\n",
+             ("small.00000003.clones", "big.00000003.clones")),
+            ("mobility", "kT 0.0\nsolver_tolerance 1e-12\n",
+             ("velocity.dat",)),
+            ("body_mobility", "kT 0.0\n", ("body_mobility.dat",)))
+    with tempfile.TemporaryDirectory() as d:
+        for scheme, settings, names in runs:
+            inp = write_radii_input(d, pos, quat,
+                                    f"scheme {scheme}\n" + settings)
+            os.chdir(d)
+            try:
+                for device in (DEVICE, "cpu"):
+                    t0 = time.perf_counter()
+                    cli.main(["--input-file", inp, "--f64", "--device",
+                              device])
+                    secs = time.perf_counter() - t0
+                    for name in names:
+                        outs[name, device] = np.loadtxt(
+                            f"run.{name}",
+                            skiprows=1 if name.endswith("clones") else 0)
+                    log(f"CLI {scheme} 16 shells of the mixture f64 on "
+                        f"{device}: {secs:.2f} s")
+            finally:
+                os.chdir(cwd)
+    half = len(pos) - len(pos) // 2
+    disp = max(np.abs(outs["small.00000003.clones", "cpu"][:, :3]
+                      - pos[:half]).max(),
+               np.abs(outs["big.00000003.clones", "cpu"][:, :3]
+                      - pos[half:]).max())
+    for name in ("small.00000003.clones", "big.00000003.clones",
+                 "velocity.dat", "body_mobility.dat"):
+        got, ref = outs[name, DEVICE], outs[name, "cpu"]
+        scale = disp if name.endswith("clones") else np.abs(ref).max()
+        rel = np.abs(got - ref).max() / scale
+        log(f"CLI radii {name} {got.shape}: card vs CPU max err / "
+            f"{'max displacement' if name.endswith('clones') else 'max|ref|'}"
+            f" = {rel:.3e} (bound 1e-9)")
+        check(np.all(np.isfinite(got)) and scale > 0 and rel <= 1e-9,
+              f"CLI radii {name} card vs CPU")
+
+
+def phase_radii_path(pk, mc, ck, lap):
+    """Phase 18, multibody-49k-radii: phase 6's lattice and physics (4096
+    shells above the wall, direct forces, tolerance 2e-4, float32) with
+    the mixture alternating on the lattice, from its four-column .vertex
+    files; deterministic forward Euler and stochastic Slip-Trapz, one
+    warm-up and three timed steps each, matrix-free on P1 (B = 1, and B = 2
+    for Slip-Trapz's lockstep pair) and K2, never K1 tt, K3 or K4. Returns
+    P1's launches over the phase by B."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    system = radii_system(N_SHELLS)
+    pos, quat = alternate(*lattice(N_SHELLS))
+    state0 = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r0 = kin.blob_positions(system, state0)
+    radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
+    gap = min_blob_gap(r0, radii)
+    log(f"multibody-49k-radii: {system.num_blobs} blobs, {N_SHELLS // 2} "
+        f"shells (blob radius {RADII_SHELLS[0][1]}) and {N_SHELLS // 2} 1.2x "
+        f"shells (blob radius {RADII_SHELLS[1][1]}) alternating on phase 6's "
+        f"lattice; smallest blob surface gap {gap:.4f}")
+    total = {1: 0, 2: 0}
+    for scheme in ("deterministic_forward_euler", "stochastic_Slip_Trapz"):
+        step = integrators.make_stepper(
+            system, scheme, 1e-3, lanczos_tolerance=5e-4,
+            lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+            gmres_maxiter=300, max_rejections=3)
+        state = state0
+        carry = integrators.init_carry(system, state=state)
+        gen = torch.Generator().manual_seed(0)
+        _reset_counts(pk, mc, ck, lap)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, carry, aux = step(state, gen, carry)     # warm-up
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        det, sto, rej, times = [], [], [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, carry, aux = step(state, gen, carry)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            det.append(aux.det_iterations)
+            sto.append(aux.stoch_iterations)
+            rej.append(aux.rejections)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        p1 = dict(mc.RADII_LAUNCHES)
+        others = _other_launches(pk, mc, ck, lap)
+        log(f"multibody-49k-radii {scheme} f32: {sum(times) / 3:.1f} ms/step "
+            f"over 3 steps ({_fmt(times)}; warm-up {warm_ms:.1f}); gmres "
+            f"{det}, lanczos {sto}, rejections {rej}; peak device memory "
+            f"{peak:.2f} GiB above what earlier phases hold; launches over "
+            f"the 4 steps P1 {p1}, other kernels {others}")
+        check(bool(torch.isfinite(state.pos).all()),
+              f"multibody-49k-radii {scheme}: positions not finite")
+        check(min(det) > 0 and max(rej) == 0,
+              f"multibody-49k-radii {scheme}: gmres {det}, rejections {rej}")
+        check(p1[1] > 0 and others["K2"] > 0, f"multibody-49k-radii "
+              f"{scheme}: P1 or K2 not launched ({p1}, {others})")
+        check(others["K1"] == 0 and others["K3/K4"] == 0,
+              f"multibody-49k-radii {scheme}: K1 or K3/K4 launched "
+              f"({others})")
+        if scheme == "stochastic_Slip_Trapz":
+            check(min(sto) > 0 and p1[2] > 0, "multibody-49k-radii: no "
+                  f"Lanczos iterations or no P1 B = 2 launch ({sto}, {p1})")
+        for b in total:
+            total[b] += p1[b]
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def radii_spectral_system(n_bodies, L, **overrides):
+    """spectral_system's physics (phase 8) with the mixture: the first
+    n_bodies // 2 bodies the small shells, the rest the big ones."""
+    system = spectral_system(n_bodies, L, **overrides)
+    mix = radii_system(n_bodies)
+    return dataclasses.replace(system, types=mix.types)
+
+
+def phase_radii_spectral_path(pk, mc, ck, lap, report):
+    """Phase 19, spectral-98k-radii: phase 8's box (8192 shells, 98,304
+    blobs, L = 33.6, tolerance 1e-4, grid at most 256, linked-cell forces)
+    with the mixture alternating on its lattice, G = 2, float32: the plan
+    and its host tables (timed), P2 at its shape against the float64 plain
+    version (the first 256 target cells, B = 1 and 2, float32 within u32
+    sqrt(27 cap) or twice the float32 plain version's error, twice
+    bit-identical; B = 1 timed with its plain version and bound), then one
+    warm-up and three timed Slip-Trapz steps: ms/step, iterations, peak
+    memory, launches (P2 and K5 must run, K6 must not). Returns P2's record
+    with its launches over the steps."""
+    from rigidmultiblobswall_tpu_torch.models import integrators, saddle
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    system = radii_spectral_system(N_SPECTRAL, L_SPECTRAL)
+    pos, quat = alternate(*spectral_lattice(N_SPECTRAL, SPECTRAL_SIDE))
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    system = saddle.auto_spectral_capacities(system, state, log=log)
+    r_blobs = kin.blob_positions(system, state)
+    system = forces.auto_force_cell_capacity(system, r_blobs, log=log)
+    log(f"spectral-98k-radii: capacities and the radii plan's host tables "
+        f"in {time.perf_counter() - t0:.2f} s")
+    n = system.num_blobs
+    plan = saddle.maybe_dense_mobility(system, r_blobs)
+    p = plan.params
+    log(f"spectral-98k-radii plan: radii {p.radii}, grid {p.grid}, r_cut "
+        f"{p.r_cut:.4f}, Chebyshev terms {plan.cheb_radii.shape[-1]} a piece, "
+        f"cells {plan.cell_dims} x cap {p.cell_capacity}, dropped "
+        f"{int(plan.n_dropped_cells)}")
+    g = torch.Generator(device=dev).manual_seed(19)
+    sub = (0, 256)
+    record = None
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        err, scale, p32, same = p2_vs_plain(ck, plan, f, cells_range=sub)
+        bound_rel = max(u32_sqrt(27 * p.cell_capacity), 2 * p32 / scale)
+        log(f"P2 {n} blobs B={n_rhs} f32, first {sub[1]} target cells vs "
+            f"plain f64: max err {err:.3e}, / max|ref| = {err / scale:.3e} "
+            f"(bound {bound_rel:.2e}: u32 sqrt(27 cap) or twice the f32 "
+            f"plain version's {p32 / scale:.3e}); repeat bit-identical "
+            f"{same}")
+        check(err <= bound_rel * scale, f"P2 disagrees at {n} blobs")
+        check(same, f"P2 B={n_rhs} not bit-identical on repeat at {n} blobs")
+        if n_rhs == 1:
+            args = (plan.positions, f, plan.group_of, plan.cell_table,
+                    plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
+                    plan.radii_edges)
+            ms = cuda_ms(lambda: ck.near_rpy_radii(*args, r_cut=p.r_cut), 10)
+            plain_ms = cuda_ms(lambda: ck.near_rpy_radii_plain(
+                *args, r_cut=p.r_cut), 1, warmup=False)
+            cand, inside = ck.pair_counts(plan.positions, plan.cell_table,
+                                          plan.cell_dims, p.box,
+                                          p.cell_capacity, p.r_cut)
+            K = plan.cheb_radii.shape[-1]
+            flops = inside * (8 + P2_PIECE_FLOPS + 6 + 6 * K + 18)
+            nbytes = (4 * (n * 3 + 2 * n * 3) + 4 * n
+                      + plan.cell_table.numel() * 4)
+            rec = bound_record(nbytes, flops)
+            regs = instance_registers(report, "near_rpy_kernel",
+                                      "<float, 1, true>")
+            log(f"P2 {n} blobs B=1 f32: kernel {ms:.3f} ms, plain f32 "
+                f"{plain_ms:.1f} ms; {cand} candidate pairs, {inside} inside "
+                f"r_cut; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                f"{rec['bound_ms'] / ms:.1%} of it); ptxas {regs}")
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          registers=regs,
+                          plan=f"one block a target cell, {plan.cell_dims} "
+                               f"cells x cap {p.cell_capacity}, G = "
+                               f"{len(p.radii)}", **rec)
+    del plan
+
+    step = integrators.make_stepper(
+        system, "stochastic_Slip_Trapz", 1e-3, lanczos_tolerance=5e-4,
+        lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+        gmres_maxiter=300, max_rejections=3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _reset_counts(pk, mc, ck, lap)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    carry = integrators.init_carry(system, state=state)
+    state, carry, aux = step(state, gen, carry)           # warm-up
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    det, sto, ovf, times = [], [], [aux.capacity_overflows], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, carry, aux = step(state, gen, carry)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        det.append(aux.det_iterations)
+        sto.append(aux.stoch_iterations)
+        ovf.append(aux.capacity_overflows)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launches = {"P2 B=1": ck.LAUNCHES["near_rpy_radii_b1"],
+                "P2 B=2": ck.LAUNCHES["near_rpy_radii_b2"],
+                "K5": ck.LAUNCHES["nl_forces"],
+                "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"]}
+    others = _other_launches(pk, mc, ck, lap)
+    log(f"spectral-98k-radii stochastic_Slip_Trapz f32: "
+        f"{sum(times) / 3:.1f} ms/step over 3 steps ({_fmt(times)}; plan + "
+        f"warm-up {warm_ms:.1f}); gmres {det}, lanczos {sto}, capacity "
+        f"overflows {ovf}; peak device memory {peak:.2f} GiB above what "
+        f"earlier phases hold; launches over the 4 steps {launches}, all "
+        f"kernels {others}")
+    check(bool(torch.isfinite(state.pos).all()),
+          "spectral-98k-radii: positions not finite")
+    check(min(det) > 0 and min(sto) > 0 and max(ovf) == 0,
+          f"spectral-98k-radii: gmres {det}, lanczos {sto}, overflows {ovf}")
+    check(launches["P2 B=1"] > 0 and launches["K5"] > 0,
+          f"spectral-98k-radii: P2 or K5 not launched ({launches})")
+    check(launches["K6"] == 0, f"spectral-98k-radii: K6 launched "
+          f"({launches})")
+    record["launches"] = launches["P2 B=1"] + launches["P2 B=2"]
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -5044,6 +5644,8 @@ def main():
     l1_records = phase_l1_kernels()
     m1_records = phase_m1_kernels(pk, mc, kin, make_state)
     fiber_record = phase_fiber_kernels(pk, mob)
+    p1_records = phase_radii_kernels(mc, report)
+    phase_p2_small(ck, ewald)
     phase_slice_parity(mc)                                  # phase 4
     phase_roller_parity()
     phase_spectral_parity()
@@ -5055,6 +5657,7 @@ def main():
     phase_phoretic_parity(pk, mc)
     phase_mcmc_parity(mc)
     phase_fiber_parity()
+    phase_radii_parity(mc)
     phase_cli()                                             # phase 5
     phase_roller_cli()
     phase_spectral_cli()
@@ -5067,6 +5670,7 @@ def main():
     phase_phoretic_cli()
     phase_mcmc_cli(mc)
     phase_twin_cli()
+    phase_radii_cli()
     launches = phase_main_path(pk, mc)                      # phase 6
     # K1 tt and K2 keep their Slip-Trapz counts; the rollers path (which
     # runs them too, and checks that) supplies the other couplings'
@@ -5084,6 +5688,9 @@ def main():
     l1_launches = phase_phoretic_path(pk, mc)               # phase 15
     m1_launches = phase_mcmc_path(pk, mc)                   # phase 16
     fiber_launches = phase_fiber_path(pk, mc)               # phase 17
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
+    p1_launches = phase_radii_path(pk, mc, ck, lap)         # phase 18
+    p2_record = phase_radii_spectral_path(pk, mc, ck, lap, report)  # 19
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -5211,6 +5818,19 @@ def main():
         name="K1 pair_tt in fibers", route="cuda", source=k1_src["tt"],
         replaces="rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
         launches=fiber_launches["K1 tt"], **fiber_record))
+    # P1 at phase 18's shape (B = 1 and 2) with its launches over phase 18,
+    # and P2 at phase 19's with its launches over phase 19's steps
+    for n_rhs in (1, 2):
+        kernels.append(dict(
+            name="P1 pair_radii" + ("" if n_rhs == 1 else " B=2"),
+            route="cuda",
+            source="rigidmultiblobswall_tpu_torch/csrc/pair_radii.cu",
+            replaces="rigidmultiblobswall_tpu/ops/mobility.py:540",
+            launches=p1_launches[n_rhs], **p1_records[n_rhs]))
+    kernels.append(dict(
+        name="P2 near_rpy_radii", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/near_rpy.cu",
+        replaces="rigidmultiblobswall_tpu/ops/ewald.py:1222", **p2_record))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -642,6 +642,39 @@ __device__ __forceinline__ void stage_cheb(const T* __restrict__ cheb, int K,
   }
 }
 
+// The two K2-term Chebyshev series of a staged piece (rows (a_k, b_k),
+// a_k+1, b_k+1 in one 16-byte load in float32, two in float64) at ts in
+// [-1, 1]: al = sum a_k T_k(ts), be = sum b_k T_k(ts). A step is fma(t2,
+// b1, c - b2): c - b2 is known a step ahead, so the recurrence's dependent
+// chain is one multiply-add a term.
+template <typename T>
+__device__ __forceinline__ void series2(const T* ab, int K2, T ts, T& al,
+                                        T& be) {
+  const T t2 = ts + ts;
+  T a1 = T(0), a2 = T(0), b1 = T(0), b2 = T(0);
+  T c[4];
+  for (int k = K2 - 2; k > 0; k -= 2) {
+    load_vec<4>(ab + 2 * k, c);
+    T an = fma_t(t2, a1, c[2] - a2);
+    T bn = fma_t(t2, b1, c[3] - b2);
+    a2 = a1;
+    a1 = an;
+    b2 = b1;
+    b1 = bn;
+    an = fma_t(t2, a1, c[0] - a2);
+    bn = fma_t(t2, b1, c[1] - b2);
+    a2 = a1;
+    a1 = an;
+    b2 = b1;
+    b1 = bn;
+  }
+  load_vec<4>(ab, c);
+  const T an = fma_t(t2, a1, c[2] - a2);
+  const T bn = fma_t(t2, b1, c[3] - b2);
+  al = fma_t(ts, an, c[0] - a1);
+  be = fma_t(ts, bn, c[1] - b1);
+}
+
 // The RPY remainder's two-piece Chebyshev series: piece 0 on r < 2a,
 // piece 1 on 2a <= r < r_cut, t = (r - mid) / half in [-1, 1]. The piece
 // is an address, not a branch; (a_k, b_k, a_k+1, b_k+1) come in one
@@ -657,31 +690,9 @@ struct Remainder {
     const bool near = r < two_a;
     const T* ab = cheb + (near ? 0 : kChebPiece);
     const T ts = near ? (r - mid0) * inv_h0 : (r - mid1) * inv_h1;
-    const T t2 = ts + ts;
-    // a step is fma(t2, b1, c - b2): c - b2 is known a step ahead, so the
-    // recurrence's dependent chain is one multiply-add a term
-    T a1 = T(0), a2 = T(0), b1 = T(0), b2 = T(0);
-    T c[4];
-    for (int k = K2 - 2; k > 0; k -= 2) {
-      load_vec<4>(ab + 2 * k, c);
-      T an = fma_t(t2, a1, c[2] - a2);
-      T bn = fma_t(t2, b1, c[3] - b2);
-      a2 = a1;
-      a1 = an;
-      b2 = b1;
-      b1 = bn;
-      an = fma_t(t2, a1, c[0] - a2);
-      bn = fma_t(t2, b1, c[1] - b2);
-      a2 = a1;
-      a1 = an;
-      b2 = b1;
-      b1 = bn;
-    }
-    load_vec<4>(ab, c);
-    const T an = fma_t(t2, a1, c[2] - a2);
-    const T bn = fma_t(t2, b1, c[3] - b2);
-    al = fma_t(ts, an, c[0] - a1);
-    bfac = fma_t(ts, bn, c[1] - b1) * invr * invr;
+    T be;
+    series2(ab, K2, ts, al, be);
+    bfac = be * invr * invr;
   }
 };
 

@@ -32,10 +32,11 @@ with any, build_system sets the System's slip_fn to the phoretic slip
 and the config's phoretic_cfg, with the options background_Laplace (at
 most 9 values) and diffusion_coefficient. The options plot_velocity_field,
 plot_concentration_field (9 values: x0 x1 nx y0 y1 ny z0 z1 nz) and
-tracer_radius are read for the CLI's VTK fields (models/fields.py). Not
-ported yet, and refused with NotImplementedError rather than ignored:
-per-blob radii (ROADMAP Queue 1, items 4 and 15), a .Laplace file on an
-articulated entry (the JAX package reads only its .slip), and the option
+tracer_radius are read for the CLI's VTK fields (models/fields.py). A
+four-column .vertex file (structure, obstacle or articulated sub-body)
+gives its type per-blob radii (BodyType.blob_radii). Not ported yet, and
+refused with NotImplementedError rather than ignored: a .Laplace file on
+an articulated entry (the JAX package reads only its .slip), and the option
 random_state (item 11), which `read_input` refuses. The options
 call_HydroGrid, cells, green_particles, sample_HydroGrid and
 save_HydroGrid stay in `options`, read by the CLI's dynamic loop.
@@ -300,11 +301,9 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
     def _resolve(p):
         return p if os.path.isabs(p) else os.path.join(base_dir, p)
 
-    def _check_radii(ref, name):
-        if ref.shape[1] == 4 and not np.allclose(ref[:, 3], cfg.blob_radius):
-            raise NotImplementedError(
-                f"structure {name}: per-blob radii are not ported yet "
-                "(ROADMAP Queue 1, item 4)")
+    def _radii(ref):
+        # a four-column .vertex file's last column: the blobs' radii
+        return ref[:, 3] if ref.shape[1] == 4 else None
 
     types, locations, quaternions, chemistries = [], [], [], []
     entries = ([(f, n, False) for f, n in zip(cfg.structures,
@@ -313,12 +312,12 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
                                                cfg.obstacles_ID)])
     for files, name, is_obstacle in entries:
         ref = scene.read_vertex_file(_resolve(files[0]))
-        _check_radii(ref, name)
         nbod, loc, quat = scene.read_clones_file(_resolve(files[1]))
         slip, chem = _extras(files[2:], _resolve)
         types.append(BodyType(name=name, ref_config=ref[:, :3], count=nbod,
                               prescribed_kinematics=is_obstacle,
-                              is_obstacle=is_obstacle, slip_ref=slip))
+                              is_obstacle=is_obstacle, slip_ref=slip,
+                              blob_radii=_radii(ref)))
         chemistries.append(chem)
         locations.append(loc)
         quaternions.append(quat)
@@ -335,11 +334,10 @@ def build_system(cfg: InputConfig, base_dir=".", dtype=torch.float64,
         quats = quats.reshape(n_inst, nb_art, 4)
         sub = []
         for j in range(nb_art):
-            _check_radii(refs[j], name)
             sub.append(len(types))
             types.append(BodyType(name=f"{name}_sub{j}",
                                   ref_config=refs[j][:, :3], count=n_inst,
-                                  slip_ref=slip))
+                                  slip_ref=slip, blob_radii=_radii(refs[j])))
             locations.append(locs[:, j])
             quaternions.append(quats[:, j])
         articulated.append(ArticulatedType(

@@ -40,13 +40,16 @@ def velocity_field_grid(grid_spec):
 def evaluate_velocity_field(system: System, state: State, lam, grid_coords,
                             tracer_radius=0.0):
     """Velocity at grid_coords (P, 3) induced by blob forces lam (N, 3),
-    on the state's device and dtype."""
+    each blob a source of its own radius (System.blob_radii), on the
+    state's device and dtype."""
     r_blobs = kin.blob_positions(system, state)
     tgt = torch.as_tensor(grid_coords, dtype=r_blobs.dtype,
                           device=r_blobs.device)
+    radius_src = torch.tensor(system.blob_radii, dtype=r_blobs.dtype,
+                              device=r_blobs.device)
     return mob.source_target_matvec(
-        r_blobs, tgt, lam.reshape(-1, 3), system.blob_radius,
-        tracer_radius, system.eta, wall=system.domain == "single_wall",
+        r_blobs, tgt, lam.reshape(-1, 3), radius_src, tracer_radius,
+        system.eta, wall=system.domain == "single_wall",
         periodic_length=system.periodic_length)
 
 

@@ -26,6 +26,11 @@ The mobility engine of a configuration is `m_dense`:
   - an ops/ewald.SpectralPlan for domain 'periodic_spectral', an
     ops/ewald_wall.WallPlan for 'single_wall_spectral', built once per
     configuration and refreshed for nearby ones.
+With mixed blob radii (System.has_mixed_radii) the pairwise domains are
+always matrix-free, on kernel P1 (ops/mobility.mobility_radii_multi), and
+periodic_spectral builds the mixed-radii plan (per-group shape factors,
+ops/ewald with group_of); single_wall_spectral refuses them, as the JAX
+package does.
 Bodies with prescribed kinematics (obstacles) get an identity row on
 their U and their K U moved back out of the blob rows, and the
 preconditioner's exact resistance solve for their type. The constraint
@@ -43,7 +48,7 @@ import os
 import numpy as np
 import torch
 
-from ..ops import cells, ewald, ewald_wall
+from ..ops import cell_kernels, cells, ewald, ewald_wall
 from ..ops import mobility as mob
 from ..ops import mobility_cuda
 from . import articulated as art_mod
@@ -78,10 +83,30 @@ def spectral_params(system: System):
             cell_capacity=system.spectral_cell_capacity)
     if not is_spectral(system):
         return None
+    radii_kw, a_eff = {}, system.blob_radius
+    if system.has_mixed_radii:
+        vals, _ = radii_groups(system)
+        # r_cut and the grid sized by the largest radius
+        radii_kw, a_eff = {"radii": vals}, max(vals)
     return ewald.default_params(
-        system.blob_radius, system.eta, system.periodic_length,
+        a_eff, system.eta, system.periodic_length,
         tol=system.spectral_tol, grid_max=system.spectral_grid_max,
-        cell_capacity=system.spectral_cell_capacity)
+        cell_capacity=system.spectral_cell_capacity, **radii_kw)
+
+
+def radii_groups(system: System):
+    """(distinct blob radii rounded to 10 digits, per-blob group index
+    (N,) int32) of the mixed-radii spectral engine (host numpy)."""
+    vals, groups = np.unique(np.round(system.blob_radii, 10),
+                             return_inverse=True)
+    # one block of wave channels a radius, and P2's table, take at most
+    # cell_kernels.MAX_GROUPS (the JAX package's limit)
+    if len(vals) > cell_kernels.MAX_GROUPS:
+        raise NotImplementedError(
+            f"{len(vals)} distinct blob radii: the spectral mixed-radii "
+            "engine carries one wave channel block per distinct radius; "
+            "use the pairwise domains for continuously-distributed radii")
+    return tuple(float(v) for v in vals), groups.astype(np.int32)
 
 
 def num_constraints(system: System) -> int:
@@ -128,11 +153,26 @@ def maybe_dense_mobility(system: System, r_blobs):
     periodic_spectral, a WallPlan for single_wall_spectral; for the
     pairwise domains the materialized (3N, 3N) matrix (dense_mobility)
     when its 9 N^2 values fit MATERIALIZE_BUDGET_BYTES, else None, the
-    matrix-free engine (e.g. 49,152 blobs: 87 GB in float32)."""
+    matrix-free engine (e.g. 49,152 blobs: 87 GB in float32). With mixed
+    radii: the mixed-radii plan on periodic_spectral, None (kernel P1) on
+    the pairwise domains whatever the budget, and the JAX package's
+    refusal on single_wall_spectral."""
+    if system.has_mixed_radii and is_wall_spectral(system):
+        raise NotImplementedError(
+            "per-blob radii are not supported by the WALL spectral engine "
+            "yet (nor by the JAX package's); use domain='periodic_spectral' "
+            "or the pairwise domains (single_wall/no_wall)")
     if is_wall_spectral(system):
         return ewald_wall.make_wall_plan(spectral_params(system), r_blobs)
     if is_spectral(system):
-        return ewald.make_plan(spectral_params(system), r_blobs)
+        group_of = None
+        if system.has_mixed_radii:
+            group_of = torch.as_tensor(radii_groups(system)[1],
+                                       device=r_blobs.device)
+        return ewald.make_plan(spectral_params(system), r_blobs,
+                               group_of=group_of)
+    if system.has_mixed_radii:
+        return None
     n = r_blobs.shape[0]
     if 9 * n * n * r_blobs.element_size() > MATERIALIZE_BUDGET_BYTES:
         return None
@@ -178,6 +218,8 @@ def _mobility_apply(system, r_blobs, m_dense, lam):
         # kernel K4 on the card, in both dtypes (the JAX package's cut at
         # n >= 1024 and float32, saddle.py:426-427, was the TPU's)
         return mobility_cuda.symm_matvec(m_dense, lam.reshape(-1, 3))
+    if system.has_mixed_radii:
+        return _radii_product(system, r_blobs, lam.reshape(1, -1, 3))[0]
     return mob.mobility_trans_times_force(
         r_blobs, lam.reshape(-1, 3), system.eta, system.blob_radius,
         domain=system.domain, periodic_length=system.periodic_length)
@@ -195,10 +237,23 @@ def _mobility_apply_multi(system, r_blobs, m_dense, lam):
         # saddle.py:460-463; cuBLAS's n = 2 matmul of the full matrix
         # measured 8x slower, PERF.md)
         return mobility_cuda.symm_matvec(m_dense, lam)
+    if system.has_mixed_radii:
+        # kernel P1 takes the lockstep pair in one launch (the JAX package
+        # vmaps one product a right-hand side)
+        return _radii_product(system, r_blobs, lam)
     return mob.pairwise_matvec_multi(
         r_blobs, None, lam, system.eta, system.blob_radius,
         coupling="tt", domain=system.domain,
         periodic_length=system.periodic_length, self_interaction=True)
+
+
+def _radii_product(system, r_blobs, lam):
+    """The matrix-free products with per-blob radii, lam (b, N, 3)."""
+    radii = torch.tensor(system.blob_radii, dtype=r_blobs.dtype,
+                         device=r_blobs.device)
+    return mob.mobility_radii_multi(r_blobs, lam, radii, system.eta,
+                                    domain=system.domain,
+                                    periodic_length=system.periodic_length)
 
 
 def blob_prescribed_mask(system: System) -> np.ndarray:
@@ -344,8 +399,10 @@ def build_block_diag_pc(system: System, state: State,
     """Factor every body's blob mobility (the dense single-body mobility
     in the system's domain without images; periodic_spectral bodies take
     the open-boundary blocks, single_wall_spectral bodies the wall
-    blocks), batched per type; with articulated bodies, each instance's
-    constraint resistance at the links of `time`."""
+    blocks), batched per type, a type with radii of its own other than
+    blob_radius on its per-blob radii (mob.dense_mobility_radii); with
+    articulated bodies, each instance's constraint resistance at the links
+    of `time`."""
     pc_domain = {"periodic_spectral": "no_wall",
                  "single_wall_spectral": "single_wall"}.get(system.domain,
                                                             system.domain)
@@ -353,8 +410,16 @@ def build_block_diag_pc(system: System, state: State,
     for i, t in enumerate(system.types):
         rel = kin.blob_rel_positions(system, state, i)
         pos, _ = kin.type_arrays(system, state, i)
-        M = mob.dense_mobility(rel + pos[:, None, :], system.eta,
-                               system.blob_radius, domain=pc_domain)
+        r_body = rel + pos[:, None, :]
+        if (t.blob_radii is not None
+                and not np.allclose(t.blob_radii, system.blob_radius)):
+            M = mob.dense_mobility_radii(
+                r_body, torch.tensor(t.blob_radii, dtype=r_body.dtype,
+                                     device=r_body.device),
+                system.eta, domain=pc_domain)
+        else:
+            M = mob.dense_mobility(r_body, system.eta, system.blob_radius,
+                                   domain=pc_domain)
         chol = torch.linalg.cholesky(M, upper=True)
         eye = torch.eye(3 * t.num_blobs, dtype=M.dtype,
                         device=M.device).expand_as(M)

@@ -360,8 +360,16 @@ def solve_mobility_problem_single_blob(system: System, state: State, *,
 
 
 def dense_blob_mobility(system: System, state: State):
-    """The (3N, 3N) blob mobility of the state (kernel K3 on the card)."""
-    return saddle.dense_mobility(system, kin.blob_positions(system, state))
+    """The (3N, 3N) blob mobility of the state: kernel K3 on the card, or
+    with mixed blob radii mob.dense_mobility_radii (plain PyTorch, as the
+    JAX package builds it in XLA)."""
+    r_blobs = kin.blob_positions(system, state)
+    if system.has_mixed_radii:
+        return mob.dense_mobility_radii(
+            r_blobs, torch.tensor(system.blob_radii, dtype=r_blobs.dtype,
+                                  device=r_blobs.device),
+            system.eta, domain=system.domain)
+    return saddle.dense_mobility(system, r_blobs)
 
 
 def _dense_K(system: System, state: State):

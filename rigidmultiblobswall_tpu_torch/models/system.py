@@ -14,8 +14,10 @@ The port covers the wall-bounded and unbounded direct pairwise engine
 (`domain` 'single_wall' or 'no_wall', no periodic images), the
 triply-periodic spectral Ewald engine (`domain` 'periodic_spectral') and
 the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
-slab top `spectral_wall_height`), one blob radius, with the default force
-set: direct or linked-cell blob-blob repulsion and the body-body Yukawa
+slab top `spectral_wall_height`), with per-blob radii on the pairwise
+domains and the periodic spectral engine (`BodyType.blob_radii`; the
+mobility takes them, the forces keep `blob_radius`), with the default
+force set: direct or linked-cell blob-blob repulsion and the body-body Yukawa
 force, bodies with prescribed kinematics (obstacles), active slip
 (`BodyType.slip_ref`), articulated bodies (`System.articulated`, a
 tuple of models/articulated.ArticulatedType) and the user hooks
@@ -69,7 +71,9 @@ class BodyType:
     the body center. A type with prescribed kinematics (an obstacle of an
     input file) moves with prescribed_velocity (count, 6), zero when
     None, whatever the forces on it. slip_ref (nb, 3) is an active slip
-    in the body frame (a .slip file), rotated with the body."""
+    in the body frame (a .slip file), rotated with the body. blob_radii
+    (nb,) are the blobs' hydrodynamic radii (a .vertex file's fourth
+    column), the System's blob_radius when None."""
 
     name: str
     ref_config: np.ndarray
@@ -78,10 +82,14 @@ class BodyType:
     prescribed_velocity: Optional[np.ndarray] = None
     is_obstacle: bool = False
     slip_ref: Optional[np.ndarray] = None
+    blob_radii: Optional[np.ndarray] = None
 
     def __post_init__(self):
         object.__setattr__(self, "ref_config",
                            _freeze(np.reshape(self.ref_config, (-1, 3))))
+        if self.blob_radii is not None:
+            object.__setattr__(self, "blob_radii",
+                               _freeze(np.reshape(self.blob_radii, (-1,))))
         if self.slip_ref is not None:
             object.__setattr__(self, "slip_ref",
                                _freeze(np.reshape(self.slip_ref, (-1, 3))))
@@ -245,6 +253,27 @@ class System:
         v.setflags(write=False)
         return v
 
+    @property
+    def blob_radii(self) -> np.ndarray:
+        """(N,) per-blob radii (blob_radius where a type sets none)."""
+        out = np.empty(self.num_blobs)
+        for i, t in enumerate(self.types):
+            rad = (t.blob_radii if t.blob_radii is not None
+                   else np.full(t.num_blobs, self.blob_radius))
+            out[self.blob_slice(i)] = np.tile(rad, t.count)
+        out.setflags(write=False)
+        return out
+
+    @property
+    def has_mixed_radii(self) -> bool:
+        """True when a type carries blob radii other than blob_radius: the
+        mobility then takes the per-radius products (kernel P1 on the
+        pairwise domains, the mixed-radii spectral engine on
+        periodic_spectral), as the JAX package decides."""
+        return any(t.blob_radii is not None
+                   and not np.allclose(t.blob_radii, self.blob_radius)
+                   for t in self.types)
+
 
 @dataclasses.dataclass(frozen=True)
 class State:
@@ -271,8 +300,9 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
     passed as numpy) across to the port's objects on `device` (default
     the card) and `dtype`.
 
-    Reads the reference system's attributes without importing JAX.
-    Features the port does not cover yet raise NotImplementedError, and
+    Reads the reference system's attributes without importing JAX; each
+    type's blob_radii come across. Features the port does not cover yet
+    raise NotImplementedError, and
     so do a user hook (blob_force_fn, body_force_torque_fn, slip_fn) and
     an articulated type with a `links_fn`: JAX-traced closures the port
     cannot run (the port's System takes torch hooks of its own;
@@ -285,12 +315,6 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
     if getattr(ref_system, "mesh", None) is not None:
         raise NotImplementedError("multi-device meshes (ROADMAP Queue 1, "
                                   "item 20)")
-    for t in ref_system.types:
-        radii = getattr(t, "blob_radii", None)
-        if radii is not None and not np.allclose(radii,
-                                                 ref_system.blob_radius):
-            raise NotImplementedError("per-blob radii (ROADMAP Queue 1, "
-                                      "items 4 and 15)")
     for name in ("blob_force_fn", "body_force_torque_fn", "slip_fn"):
         if getattr(ref_system, name, None) is not None:
             raise NotImplementedError(
@@ -315,6 +339,7 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         types=tuple(BodyType(
             name=t.name, ref_config=np.asarray(t.ref_config),
             count=int(t.count),
+            blob_radii=getattr(t, "blob_radii", None),
             prescribed_kinematics=bool(getattr(t, "prescribed_kinematics",
                                                False)),
             prescribed_velocity=getattr(t, "prescribed_velocity", None),

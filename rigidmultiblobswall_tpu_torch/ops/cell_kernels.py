@@ -11,6 +11,13 @@ periodic box or a wall slab, beside their plain PyTorch versions.
   rigidmultiblobswall_tpu/ops/ewald.py (`_near_kernel`, wrapper
   `_near_rows_pallas`); CUDA source `csrc/near_rpy.cu`. B = 1 and 2
   right-hand sides stacked as b-major columns of (N, 3B).
+- P2 `near_rpy_radii`: K6's sum with mixed blob radii, alpha and beta
+  from the series of the pair's radius groups (g, h), three pieces on
+  (0, e1), [e1, e2), [e2, r_cut) with e1 = max(|a_g - a_h|, 1e-3 r_cut)
+  and e2 = a_g + a_h; counterpart of the radii branch of
+  rigidmultiblobswall_tpu/ops/ewald.py's XLA cell sweep
+  (`_xla_near_tile_fn`, ewald.py:1222-1345; the JAX package has no Pallas
+  kernel for it); CUDA source `csrc/near_rpy.cu`, B = 1 and 2.
 - K7 `wall_near`: the near field of the spectral wall engine over the
   combined set of N real points and their N images (the RPY remainder
   on mirrored strengths, plus the screened image channels of real
@@ -56,6 +63,7 @@ from . import _build, cells, mobility_cuda
 
 # kernel launches made by the wrappers in this process
 LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
+            "near_rpy_radii_b1": 0, "near_rpy_radii_b2": 0,
             "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_grand": 0,
             "wall_rot_near_rt": 0, "wall_rot_near_tr": 0,
             "wall_rot_near_rr": 0}
@@ -63,6 +71,7 @@ LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
 MAX_RHS = 2          # K6 and K7 template instances: B = 1 and B = 2
 MAX_CHEB = 32        # Chebyshev terms per piece the kernels' tables hold
 MAX_CHEB_ROT = 48    # K8's rot remainder table (csrc/wall_rot_near.cu)
+MAX_GROUPS = 8       # P2's radius groups (its table: G^2 x 3 pieces)
 ROT_GROUP = 8        # K8 stages its series zero-padded to whole groups
 _TILE_CELLS = 16     # plain versions: target cells per tile
 
@@ -183,6 +192,66 @@ def near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb, *,
                                  _clenshaw(cheb[1, 0], t1))
         bfac[inside] = torch.where(near, _clenshaw(cheb[0, 1], t0),
                                    _clenshaw(cheb[1, 1], t1)) / r2_in
+        d = torch.where(inside[..., None], d, torch.zeros_like(d))
+        fs3 = fs.reshape(*fs.shape[:-1], nc // 3, 3)      # (TC,27,cap,B,3)
+        ddotf = torch.einsum("tiskc,tskbc->tiskb", d, fs3)
+        rows = (torch.einsum("tisk,tskbc->tibc", al, fs3)
+                + torch.einsum("tiskb,tiskc->tibc", bfac[..., None] * ddotf,
+                               d)).reshape(*t_ids.shape, nc)
+        _scatter_rows(out, t_ids, t_valid, rows)
+    return out
+
+
+def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
+                         cheb_radii, edges, *, r_cut, cells_range=None):
+    """Plain PyTorch P2 (the radii branch of the JAX package's XLA cell
+    sweep, ewald.py:1260-1290): (N, 3B) near-field rows without the self
+    term. Each group pair's three pieces are all evaluated at the clipped
+    t of each piece and the one the radius falls in (r < e1, r < e2) is
+    selected, as there; edges (G, G, 8) from ewald.radii_edge_table."""
+    n = pos.shape[0]
+    f = forces.reshape(n, -1)
+    nc = f.shape[1]
+    out = torch.zeros((n, nc), dtype=pos.dtype, device=pos.device)
+    cheb_radii = torch.as_tensor(cheb_radii, dtype=pos.dtype,
+                                 device=pos.device)
+    edges = torch.as_tensor(edges, dtype=torch.float64).cpu()
+    grp = group_of.long()
+    G = cheb_radii.shape[0]
+    for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
+            pos, cell_table, dims, box, cap, cells_range):
+        fs = f[s_ids].to(pos.dtype)                       # (TC,27,cap,nc)
+        d = tp[:, :, None, None, :] - sp[:, None]
+        r2 = torch.sum(d * d, dim=-1)                     # (TC,cap,27,cap)
+        inside = (t_valid[:, :, None, None] & s_valid[:, None]
+                  & (r2 > 0) & (r2 < r_cut * r_cut))
+        r2_in = r2[inside]
+        r = torch.sqrt(r2_in)
+        gt = grp[t_ids][:, :, None, None].expand_as(r2)[inside]
+        gs = grp[s_ids][:, None].expand_as(r2)[inside]
+        al_in = torch.zeros_like(r)
+        be_in = torch.zeros_like(r)
+        for g in range(G):
+            for h in range(g, G):
+                mask = ((gt == g) & (gs == h)) | ((gt == h) & (gs == g))
+                e1, e2 = float(edges[g, h, 0]), float(edges[g, h, 1])
+                lims = (0.0, e1, e2, r_cut)
+                vals = []
+                for i in range(3):
+                    lo, hi = lims[i], lims[i + 1]
+                    t = torch.clamp((2.0 * r - (hi + lo)) / (hi - lo),
+                                    -1.0, 1.0)
+                    vals.append((_clenshaw(cheb_radii[g, h, i, 0], t),
+                                 _clenshaw(cheb_radii[g, h, i, 1], t)))
+                in1, in2 = r < e1, r < e2
+                for j, acc in enumerate((al_in, be_in)):
+                    q = torch.where(in1, vals[0][j],
+                                    torch.where(in2, vals[1][j], vals[2][j]))
+                    acc += torch.where(mask, q, torch.zeros_like(q))
+        al = torch.zeros_like(r2)
+        bfac = torch.zeros_like(r2)
+        al[inside] = al_in
+        bfac[inside] = be_in / r2_in
         d = torch.where(inside[..., None], d, torch.zeros_like(d))
         fs3 = fs.reshape(*fs.shape[:-1], nc // 3, 3)      # (TC,27,cap,B,3)
         ddotf = torch.einsum("tiskc,tskbc->tiskb", d, fs3)
@@ -484,6 +553,55 @@ def near_rpy(pos, forces, cell_table, dims, box, cap, cheb, *, two_a,
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES[f"near_rpy_b{n_rhs}"] += 1
+    return out
+
+
+def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
+                   cheb_radii, edges, *, r_cut):
+    """P2 wrapper: the CUDA kernel for CUDA tensors,
+    `near_rpy_radii_plain` for CPU tensors. pos (N,3), forces (N,3B),
+    group_of (N,) int32 radius groups, cheb_radii (G, G, 3 pieces, 2
+    functions, K), edges (G, G, 8) (ewald.radii_edge_table) -> (N,3B)
+    without the self term."""
+    if pos.device.type == "cpu":
+        return near_rpy_radii_plain(pos, forces, group_of, cell_table, dims,
+                                    box, cap, cheb_radii, edges,
+                                    r_cut=r_cut)
+    _check("near_rpy_radii", pos, cell_table, dims, cap,
+           (("forces", forces), ("cheb_radii", cheb_radii),
+            ("edges", edges)))
+    n = pos.shape[0]
+    if (forces.ndim != 2 or forces.shape[0] != n or forces.shape[1] % 3
+            or not 1 <= forces.shape[1] // 3 <= MAX_RHS):
+        raise ValueError(f"near_rpy_radii: forces must be (N, 3B) with B in "
+                         f"1..{MAX_RHS}, got {tuple(forces.shape)}")
+    G = cheb_radii.shape[0]
+    if (cheb_radii.ndim != 5 or cheb_radii.shape[:4] != (G, G, 3, 2)
+            or not 1 <= G <= MAX_GROUPS
+            or not 1 <= cheb_radii.shape[4] <= MAX_CHEB
+            or edges.shape != (G, G, 8)):
+        raise ValueError(f"near_rpy_radii: cheb_radii must be (G, G, 3, 2, K) "
+                         f"with G <= {MAX_GROUPS}, K <= {MAX_CHEB}, edges "
+                         f"(G, G, 8); got {tuple(cheb_radii.shape)}, "
+                         f"{tuple(edges.shape)}")
+    if (group_of.device != pos.device or group_of.dtype != torch.int32
+            or group_of.shape != (n,) or not group_of.is_contiguous()):
+        raise ValueError("near_rpy_radii: group_of must be a contiguous "
+                         f"int32 ({n},) tensor on {pos.device}")
+    n_rhs = forces.shape[1] // 3
+    out = torch.zeros_like(forces)
+    if n == 0:
+        return out
+    name = (f"near_rpy_radii_{'f32' if pos.dtype == torch.float32 else 'f64'}"
+            f"_b{n_rhs}")
+    err = getattr(_build.library(), name)(
+        pos.data_ptr(), forces.data_ptr(), cell_table.data_ptr(),
+        group_of.data_ptr(), cheb_radii.data_ptr(), edges.data_ptr(),
+        out.data_ptr(), n, *(int(d) for d in dims), int(cap),
+        int(cheb_radii.shape[4]), G, *(float(L) for L in box), float(r_cut),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _build.check(name, err)
+    LAUNCHES[f"near_rpy_radii_b{n_rhs}"] += 1
     return out
 
 

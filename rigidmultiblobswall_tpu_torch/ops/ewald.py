@@ -27,9 +27,15 @@ x the P planes round(x/h) + (0..P-1) - P//2 of its sort-time position
 every point within P h / 2 of its position; each weight is masked to
 |d| <= P h / 2. The JAX package's z-slab plane-matmul layout exists only
 because XLA on the TPU serializes colliding scatters and is not ported;
-a hand-written gridding kernel is later work (ROADMAP). Mixed radii
-(ROADMAP Queue 1, item 15) and the multi-device product (item 20) are not
-ported.
+a hand-written gridding kernel is later work (ROADMAP). The multi-device
+product (ROADMAP Queue 1, item 20) is not ported.
+
+Mixed radii (`EwaldParams.radii`, `make_plan(group_of=...)`): the wave
+kernel carries per-group shape factors sinc(k a_g), each group's
+particles gridded on channels of their own (exact polydisperse PSE, SPD
+by congruence), the near field takes per-group-pair three-piece
+Chebyshev series (kernel P2, ops/cell_kernels.near_rpy_radii), and the
+self term is per particle, as in the JAX package's mixed-radii mode.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -204,6 +211,64 @@ def rot_realspace_tables(a, eta, xi, r_max, *, n_points=2048):
     return r, gamma_r, alpha_rr_r, beta_rr_r, self_rr
 
 
+def rpy_radii_scalar_functions(r, ag, ah, eta):
+    """Unequal-radii RPY tt scalars (alpha, beta), M = alpha I + beta
+    r^ r^^T (numpy mirror of ops/rpy.rpy_tt_radii): the far form for r >
+    ag + ah, the overlap form for |ag - ah| < r <= ag + ah, and the plateau
+    of one blob inside the other."""
+    r = np.asarray(r, dtype=np.float64)
+    rs = np.maximum(r, 1e-14)
+    s2 = ag * ag + ah * ah
+    pref = 1.0 / (8.0 * np.pi * eta)
+    c1_far = (1.0 + s2 / (3.0 * rs * rs)) / rs
+    c2_far = (1.0 - s2 / (rs * rs)) / rs**3
+    dd2 = (ah - ag) ** 2
+    ft = 4.0 / 3.0
+    c1_mid = ((16.0 * (ag + ah) * rs**3 - (dd2 + 3.0 * rs * rs) ** 2)
+              / (32.0 * rs**3)) * ft / (ag * ah)
+    c2_mid = (3.0 * (dd2 - rs * rs) ** 2 / (32.0 * rs**5)) * ft / (ag * ah)
+    c1_near = np.full_like(rs, ft / max(ag, ah))
+    far = r > (ag + ah)
+    mid = (~far) & (r > abs(ah - ag))
+    c1 = np.where(far, c1_far, np.where(mid, c1_mid, c1_near))
+    c2 = np.where(far, c2_far, np.where(mid, c2_mid, 0.0))
+    return pref * c1, pref * c2 * r * r
+
+
+def wave_freespace_scalars_radii(r, ag, ah, eta, xi, *, n_k=4001):
+    """Free-space inverse transform of the wave kernel with the per-group
+    shape factors sinc(k ag) sinc(k ah): (c_perp, c_par), M^w_free =
+    c_perp (I - rr) + c_par rr."""
+    from scipy.integrate import simpson
+
+    r = np.asarray(r, dtype=np.float64)
+    k_max = 2.0 * xi * math.sqrt(math.log(1e22))
+    k = np.linspace(0.0, k_max, n_k)
+    k[0] = 1e-30
+    sinc_g = np.sin(k * ag) / (k * ag)
+    sinc_h = np.sin(k * ah) / (k * ah)
+    phi = (1.0 + k * k / (4 * xi * xi)) * np.exp(-k * k / (4 * xi * xi))
+    g_times_k2 = sinc_g * sinc_h * phi / eta
+    x = np.outer(r, k)
+    perp_w, par_w = _bessel_weights(x)
+    c_perp = simpson(g_times_k2[None, :] * perp_w, x=k, axis=1) / (
+        2 * np.pi**2)
+    c_par = simpson(g_times_k2[None, :] * par_w, x=k, axis=1) / (
+        2 * np.pi**2)
+    return c_perp, c_par
+
+
+def pair_remainder_radii(r, ag, ah, eta, xi):
+    """Real-space remainder scalars (alpha_r, beta_r) of the group pair
+    (ag, ah) at radii r, by direct quadrature: RPY_radii(r) minus
+    M^w_free(r; sinc_g sinc_h). The r = 0 entry is the (g, g) self
+    remainder."""
+    r = np.asarray(r, dtype=np.float64)
+    alpha, beta = rpy_radii_scalar_functions(r, ag, ah, eta)
+    c_perp, c_par = wave_freespace_scalars_radii(r, ag, ah, eta, xi)
+    return alpha - c_perp, beta - (c_par - c_perp)
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -230,6 +295,10 @@ class EwaldParams:
     # is well under tol)
     n_cheb: int = 0
     tol: float = 1e-4          # accuracy target the params were built for
+    # distinct blob radii (mixed-radii mode) when non-empty: per-group wave
+    # shape factors and per-group-pair near tables; `a` then sizes the grid
+    # and r_cut (pass max(radii)), and make_plan needs group_of
+    radii: Tuple[float, ...] = ()
 
     @property
     def spacing(self):
@@ -281,11 +350,10 @@ def default_params(a, eta, box, *, tol=1e-4, r_cut_factor=None,
     defaults to ~6a, then xi = s/r_cut and the grid resolves
     oversample * k_max. The window support follows the ES error model
     err ~ exp(5.5 - 1.81 P) at oversample 1.5. When the grid would exceed
-    grid_max on an axis, r_cut is inflated so the grid stays bounded."""
+    grid_max on an axis, r_cut is inflated so the grid stays bounded.
+    radii= (the distinct blob radii) selects the mixed-radii mode."""
     if "radii" in kw:
-        raise NotImplementedError("mixed blob radii in the spectral engine "
-                                  "are not ported yet (ROADMAP Queue 1, "
-                                  "item 15)")
+        kw["radii"] = tuple(float(x) for x in kw["radii"])
     if support is None:
         support = int(min(max(math.ceil(
             (5.5 - math.log(0.3 * tol)) / 1.81), 6), 14))
@@ -347,6 +415,89 @@ def _host_cheb(params: EwaldParams):
     return out, self_c
 
 
+def _radii_pair_edges(params: EwaldParams, g: int, h: int):
+    """Radial piece edges (0, e1, e2, r_cut) of group pair (g, h): the
+    RPY radii scalars kink at |ag - ah| (one blob inside the other) and at
+    ag + ah (touching). The first edge is floored at 1e-3 r_cut so that a
+    same-radius pair keeps three well-conditioned pieces."""
+    ag, ah = params.radii[g], params.radii[h]
+    e1 = max(abs(ag - ah), 1e-3 * params.r_cut)
+    e2 = ag + ah
+    if not e1 < e2 < params.r_cut:
+        raise ValueError(
+            f"radii pair ({ag}, {ah}) needs r_cut > ag + ah "
+            f"(r_cut={params.r_cut}); raise r_cut_factor")
+    return (0.0, e1, e2, params.r_cut)
+
+
+@functools.lru_cache(maxsize=16)
+def _host_cheb_radii(params: EwaldParams):
+    """Piecewise-Chebyshev fits of the per-group-pair remainder scalars
+    (mixed-radii mode), each piece fit at 4K Chebyshev nodes of its own
+    evaluated by direct quadrature (pair_remainder_radii), K grown until
+    the fit error is under 0.05 tol of 1/(6 pi eta min(radii)). Returns
+    (coeffs (G, G, 3 pieces, 2 functions, K), self_coeffs (G,)).
+
+    Two departures from the JAX package, which give the same numbers:
+    the self coefficients, which do not depend on K, are computed once
+    before the K loop, not in each of its rounds; and a loop that ends at
+    its largest K above the target warns (RuntimeWarning) instead of
+    returning the fit silently: a radius gap between 1e-10 and the
+    1e-3 r_cut edge floor puts the kink at |ag - ah| inside a piece."""
+    from numpy.polynomial import chebyshev as npcheb
+
+    G = len(params.radii)
+    scale = 1.0 / (6 * np.pi * params.eta * min(params.radii))
+    target = 0.05 * params.tol
+    selfs = np.array([pair_remainder_radii(
+        np.asarray([0.0]), ag, ag, params.eta, params.xi)[0][0]
+        for ag in params.radii])
+    for K in ([params.n_cheb] if params.n_cheb
+              else (10, 12, 14, 16, 20, 24, 28, 32)):
+        out = np.zeros((G, G, 3, 2, K))
+        err = 0.0
+        nodes = np.cos(np.pi * (np.arange(4 * K) + 0.5) / (4 * K))
+        for g in range(G):
+            for h in range(g, G):
+                edges = _radii_pair_edges(params, g, h)
+                for i in range(3):
+                    lo, hi = edges[i], edges[i + 1]
+                    r = 0.5 * (hi + lo) + 0.5 * (hi - lo) * nodes
+                    al, be = pair_remainder_radii(
+                        r, params.radii[g], params.radii[h], params.eta,
+                        params.xi)
+                    for j, tab in enumerate((al, be)):
+                        out[g, h, i, j] = npcheb.chebfit(nodes, tab, K - 1)
+                        err = max(err, np.abs(
+                            npcheb.chebval(nodes, out[g, h, i, j])
+                            - tab).max() / scale)
+                out[h, g] = out[g, h]
+        if params.n_cheb or err < target:
+            break
+    else:
+        warnings.warn(
+            f"mixed-radii remainder fit: {K} Chebyshev terms leave a "
+            f"relative error {err:.3g} above the target {target:.3g} (radii "
+            f"{params.radii}; a radius gap below 1e-3 r_cut puts a kink "
+            "inside a piece)", RuntimeWarning, stacklevel=2)
+    return out, selfs
+
+
+def radii_edge_table(params: EwaldParams):
+    """(G, G, 8) per group pair: the piece edges e1, e2 and each piece's
+    (mid, 2 / width), the piece map of kernel P2 (numpy float64)."""
+    G = len(params.radii)
+    out = np.zeros((G, G, 8))
+    for g in range(G):
+        for h in range(G):
+            e = _radii_pair_edges(params, min(g, h), max(g, h))
+            out[g, h, :2] = e[1:3]
+            for i in range(3):
+                out[g, h, 2 + 2 * i] = 0.5 * (e[i] + e[i + 1])
+                out[g, h, 3 + 2 * i] = 2.0 / (e[i + 1] - e[i])
+    return out
+
+
 def _axis_freqs(params: EwaldParams):
     """Per-axis angular frequencies; the z axis is the rfft half-spectrum."""
     (gx, gy, gz) = params.grid
@@ -384,11 +535,13 @@ def _host_whats(params: EwaldParams):
                  for kd, hd in zip(ks, params.spacing))
 
 
-def _device_kernel(params: EwaldParams, dtype, device):
+def _device_kernel(params: EwaldParams, dtype, device, include_sinc=True):
     """k-space multiplier (gx, gy, gz//2+1) and unit wave vectors
     (3, gx, gy, gz//2+1) on the rfft half-spectrum, assembled on the
     device from 1-D host inputs. The normalization h^3 / w^^2 assumes the
-    default "backward" FFT norm (1/n^3 on the inverse)."""
+    default "backward" FFT norm (1/n^3 on the inverse). include_sinc=False
+    leaves out the sinc(ka)^2 shape factor (the mixed-radii mode applies
+    per-group factors, _group_sinc)."""
     whats = _host_whats(params)
     ks = [torch.as_tensor(kd, dtype=dtype, device=device)
           for kd in _axis_freqs(params)]
@@ -398,7 +551,8 @@ def _device_kernel(params: EwaldParams, dtype, device):
     k2 = kx * kx + ky * ky + kz * kz
     k2_safe = torch.where(k2 > 0, k2, torch.ones_like(k2))
     k = torch.sqrt(k2_safe)
-    sinc2 = (torch.sin(k * params.a) / (k * params.a)) ** 2
+    sinc2 = ((torch.sin(k * params.a) / (k * params.a)) ** 2
+             if include_sinc else 1.0)
     phi = (1.0 + k2 / (4 * params.xi**2)) * torch.exp(
         -k2 / (4 * params.xi**2))
     h3 = float(np.prod(params.spacing))
@@ -410,6 +564,17 @@ def _device_kernel(params: EwaldParams, dtype, device):
                         (kz / k).expand(k2.shape)])
     khat[:, 0, 0, 0] = 0.0
     return kern, khat
+
+
+def _group_sinc(params: EwaldParams, dtype, device):
+    """Per-group shape factors sinc(k a_g), (G, gx, gy, gz//2+1), on the
+    device (mixed-radii mode)."""
+    ks = [torch.as_tensor(kd, dtype=dtype, device=device)
+          for kd in _axis_freqs(params)]
+    k2 = (ks[0][:, None, None] ** 2 + ks[1][None, :, None] ** 2
+          + ks[2][None, None, :] ** 2)
+    k = torch.sqrt(torch.where(k2 > 0, k2, torch.ones_like(k2)))
+    return torch.stack([torch.sin(k * ag) / (k * ag) for ag in params.radii])
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +591,7 @@ class SpectralPlan:
     sort_pos: torch.Tensor    # (N, 3) positions the cells were sorted at;
     #                           update_plan measures drift against these
     cheb: torch.Tensor        # (2 pieces, 2 functions, K) coefficients
-    self_coeff: float
+    self_coeff: object        # float; (N, 1) per particle with radii
     cell_table: torch.Tensor  # (n_cells cap,) int32 particle ids (pad N)
     cell_slot: torch.Tensor   # (N,) flat (cell, slot) row per particle
     n_dropped_cells: torch.Tensor  # 0-d: cell-capacity overflows
@@ -434,19 +599,45 @@ class SpectralPlan:
     kernel: torch.Tensor      # (gx, gy, gz//2+1) scalar k-space multiplier
     khat: torch.Tensor        # (3, gx, gy, gz//2+1) unit wave vectors
     params: EwaldParams
+    # mixed-radii mode (params.radii non-empty), None otherwise; kernel then
+    # carries no shape factor
+    group_of: Optional[torch.Tensor] = None    # (N,) int32 radius group
+    group_members: Optional[tuple] = None      # per group its particle ids
+    gsinc: Optional[torch.Tensor] = None       # (G, gx, gy, gz//2+1)
+    cheb_radii: Optional[torch.Tensor] = None  # (G, G, 3, 2, K)
+    radii_edges: Optional[torch.Tensor] = None  # (G, G, 8) radii_edge_table
 
 
 def _box(params, like):
     return torch.as_tensor(params.box, dtype=like.dtype, device=like.device)
 
 
-def make_plan(params: EwaldParams, positions) -> SpectralPlan:
+def make_plan(params: EwaldParams, positions, group_of=None) -> SpectralPlan:
     """Build the reusable machinery for M v products at fixed positions
-    (one plan per configuration)."""
+    (one plan per configuration). The mixed-radii mode (params.radii
+    non-empty) needs group_of, each particle's radius group (N,)."""
     dtype, dev = positions.dtype, positions.device
     box = _box(params, positions)
     pos = (positions - torch.floor(positions / box) * box).contiguous()
     cheb, self_c = _host_cheb(params)
+    radii = {}
+    if params.radii:
+        if group_of is None:
+            raise ValueError("params.radii set: make_plan needs group_of")
+        group_of = torch.as_tensor(group_of, device=dev).to(
+            torch.int32).contiguous()
+        cr, selfs = _host_cheb_radii(params)
+        radii = dict(
+            group_of=group_of,
+            group_members=tuple(torch.nonzero(group_of == g).flatten()
+                                for g in range(len(params.radii))),
+            gsinc=_group_sinc(params, dtype, dev),
+            cheb_radii=torch.as_tensor(cr, dtype=dtype,
+                                       device=dev).contiguous(),
+            radii_edges=torch.as_tensor(radii_edge_table(params),
+                                        dtype=dtype, device=dev).contiguous())
+        self_c = torch.as_tensor(selfs, dtype=dtype,
+                                 device=dev)[group_of.long()][:, None]
     dims = tuple(max(int(L // params.r_cut), 1) for L in params.box)
     if min(dims) < 4:
         raise ValueError(
@@ -463,13 +654,15 @@ def make_plan(params: EwaldParams, positions) -> SpectralPlan:
     params = dataclasses.replace(params, cell_capacity=int(cap))
     cell_table, cell_slot, _, n_dropped = cells.cell_bin(pos, box, dims,
                                                          int(cap))
-    kern, khat = _device_kernel(params, dtype, dev)
+    kern, khat = _device_kernel(params, dtype, dev,
+                                include_sinc=not params.radii)
     return SpectralPlan(
         positions=pos, sort_pos=pos,
         cheb=torch.as_tensor(cheb, dtype=dtype, device=dev).contiguous(),
-        self_coeff=float(self_c), cell_table=cell_table,
-        cell_slot=cell_slot, n_dropped_cells=n_dropped, cell_dims=dims,
-        kernel=kern, khat=khat, params=params)
+        self_coeff=self_c if params.radii else float(self_c),
+        cell_table=cell_table, cell_slot=cell_slot,
+        n_dropped_cells=n_dropped, cell_dims=dims, kernel=kern, khat=khat,
+        params=params, **radii)
 
 
 def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
@@ -479,7 +672,8 @@ def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
     and half a grid spacing, a full rebuild past that. The near field
     stays exact on the refresh branch (the old stencil still covers every
     pair within r_cut); the gridding keeps each particle's sort-time x
-    planes, as the JAX package does. One host sync decides the branch."""
+    planes, as the JAX package does; a rebuild keeps the radius groups.
+    One host sync decides the branch."""
     p = plan.params
     box = _box(p, plan.positions)
     pos_w = positions - torch.floor(positions / box) * box
@@ -493,7 +687,7 @@ def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
     if bool(torch.all(torch.amax(torch.abs(delta), dim=0) <= budget)):
         return dataclasses.replace(
             plan, positions=(plan.sort_pos + delta).contiguous())
-    return make_plan(p, positions)
+    return make_plan(p, positions, group_of=plan.group_of)
 
 
 # ---------------------------------------------------------------------------
@@ -547,37 +741,39 @@ def _stamps(plan: SpectralPlan, sl):
     return flat.reshape(m, -1), wts.reshape(m, -1)
 
 
-def _chunks(plan: SpectralPlan):
-    """Particle slices whose stamp temporaries stay near 2^24 entries (a
-    few hundred MB at C = 6 in float32): few chunks, few launches."""
-    n = plan.positions.shape[0]
+def _chunks(plan: SpectralPlan, n):
+    """Slices of n particles whose stamp temporaries stay near 2^24
+    entries (a few hundred MB at C = 6 in float32): few chunks, few
+    launches."""
     step = max(1, (1 << 24) // plan.params.support ** 3)
     return [slice(i, min(i + step, n)) for i in range(0, n, step)]
 
 
-def spread(plan: SpectralPlan, forces):
+def spread(plan: SpectralPlan, forces, ids=None):
     """S f: (N, C) forces -> (C, gx, gy, gz) grid (C = 3 per right-hand
-    side; stacked sides share the window weights)."""
+    side; stacked sides share the window weights). With ids, the
+    particles ids only, forces (len(ids), C)."""
     gx, gy, gz = plan.params.grid
-    n = plan.positions.shape[0]
+    n = plan.positions.shape[0] if ids is None else ids.shape[0]
     f = forces.reshape(n, -1)
     grid = torch.zeros((gx * gy * gz, f.shape[1]), dtype=f.dtype,
                        device=f.device)
-    for sl in _chunks(plan):
-        idx, w = _stamps(plan, sl)
+    for sl in _chunks(plan, n):
+        idx, w = _stamps(plan, sl if ids is None else ids[sl])
         vals = w[:, :, None] * f[sl][:, None, :]
         grid.index_add_(0, idx.reshape(-1), vals.reshape(-1, f.shape[1]))
     return grid.T.reshape(-1, gx, gy, gz)
 
 
-def interpolate(plan: SpectralPlan, ug):
-    """S^T u: (C, gx, gy, gz) grid -> (N, C), the transpose of `spread`."""
+def interpolate(plan: SpectralPlan, ug, ids=None):
+    """S^T u: (C, gx, gy, gz) grid -> (N, C), the transpose of `spread`;
+    with ids, the rows of the particles ids only, (len(ids), C)."""
     C = ug.shape[0]
     rows = ug.reshape(C, -1).T.contiguous()              # (G, C)
-    out = torch.empty((plan.positions.shape[0], C), dtype=ug.dtype,
-                      device=ug.device)
-    for sl in _chunks(plan):
-        idx, w = _stamps(plan, sl)
+    n = plan.positions.shape[0] if ids is None else ids.shape[0]
+    out = torch.empty((n, C), dtype=ug.dtype, device=ug.device)
+    for sl in _chunks(plan, n):
+        idx, w = _stamps(plan, sl if ids is None else ids[sl])
         out[sl] = torch.sum(w[:, :, None] * rows[idx], dim=1)
     return out
 
@@ -592,9 +788,41 @@ def k_scale(plan: SpectralPlan, gk):
     return out.reshape(shape)
 
 
+def _wave_matvec_radii(plan: SpectralPlan, forces):
+    """Mixed-radii wave product, M_w = D^T C D with D = sum_g sinc_g F
+    S_g (the JAX package's _wave_matvec_radii): each group's particles
+    spread into C channels of their own, the k-space sum folds the
+    groups' factors, and each group's particles interpolate the result
+    with their group's factor. The JAX package grids G C channels for
+    every particle, each particle's force in its group's block; here a
+    group's particles grid their C channels alone, the same sums without
+    the blocks of zeros (G times fewer stamps and gathered values)."""
+    n = plan.positions.shape[0]
+    f = forces.reshape(n, -1)
+    gsum = 0
+    for g, ids in enumerate(plan.group_members):
+        gk = torch.fft.rfftn(spread(plan, f[ids], ids), dim=(1, 2, 3))
+        gsum = gsum + plan.gsinc[g] * gk
+    return _interpolate_groups(plan, k_scale(plan, gsum), f.shape[1])
+
+
+def _interpolate_groups(plan: SpectralPlan, uk, C):
+    """(N, C) rows from the k-space field uk (C, ...): each group's
+    particles interpolate F^{-1} sinc_g uk."""
+    out = torch.empty((plan.positions.shape[0], C), dtype=plan.kernel.dtype,
+                      device=uk.device)
+    for g, ids in enumerate(plan.group_members):
+        ug = torch.fft.irfftn(plan.gsinc[g] * uk, s=plan.params.grid,
+                              dim=(1, 2, 3))
+        out[ids] = interpolate(plan, ug, ids)
+    return out
+
+
 def wave_matvec(plan: SpectralPlan, forces):
     """u^w = S^T F^{-1} B F S f (spread, rFFT, scale, irFFT, interpolate).
     forces (N, C) with C = 3 B."""
+    if plan.gsinc is not None:
+        return _wave_matvec_radii(plan, forces)
     grid = spread(plan, forces)
     gk = torch.fft.rfftn(grid, dim=(1, 2, 3))
     ug = torch.fft.irfftn(k_scale(plan, gk), s=plan.params.grid,
@@ -606,10 +834,14 @@ def wave_sqrt_noise(plan: SpectralPlan, w):
     """u with Cov(u) = M_wave exactly, from real grid white noise w
     (3, gx, gy, gz): u = S^T F^{-1} K^{1/2} F w (the PSE split of
     Fiore/Balboa/Donev/Swan 2017; K^{1/2} is pointwise in k: the square
-    root of the scalar kernel times the projector)."""
+    root of the scalar kernel times the projector). With mixed radii the
+    target-side group factors multiply it and each particle reads its own
+    group's block: Cov(u) = D^T C^{1/2} C^{1/2} D = M_w exactly."""
     gk = torch.fft.rfftn(w.to(plan.positions.dtype), dim=(1, 2, 3))
     kdotg = torch.sum(plan.khat * gk, dim=0, keepdim=True)
     uk = torch.sqrt(plan.kernel)[None] * (gk - plan.khat * kdotg)
+    if plan.gsinc is not None:
+        return _interpolate_groups(plan, uk, 3)
     ug = torch.fft.irfftn(uk, s=plan.params.grid, dim=(1, 2, 3))
     return interpolate(plan, ug)
 
@@ -620,10 +852,17 @@ def wave_sqrt_noise(plan: SpectralPlan, w):
 
 
 def real_matvec(plan: SpectralPlan, forces):
-    """Near-field remainder (kernel K6) plus the self term, (N, 3B)."""
+    """Near-field remainder (kernel K6; with mixed radii kernel P2) plus
+    the self term, (N, 3B)."""
     p = plan.params
     n = plan.positions.shape[0]
     f = forces.reshape(n, -1).contiguous()
+    if plan.cheb_radii is not None:
+        rows = cell_kernels.near_rpy_radii(
+            plan.positions, f, plan.group_of, plan.cell_table,
+            plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
+            plan.radii_edges, r_cut=p.r_cut)
+        return rows + plan.self_coeff * f
     rows = cell_kernels.near_rpy(
         plan.positions, f, plan.cell_table, plan.cell_dims, p.box,
         p.cell_capacity, plan.cheb, two_a=2.0 * p.a, r_cut=p.r_cut)

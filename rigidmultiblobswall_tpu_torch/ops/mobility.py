@@ -9,9 +9,14 @@ tensor. `dense_mobility_tiled` materializes the tt operator of one
 configuration (the plain version of kernel K3, ops/mobility_cuda.py).
 `source_target_matvec` is the source-target product of velocity fields,
 with per-blob radii, image boxes and the free surface (plain PyTorch, as
-it is XLA there). The SFM engine (mobility_sfm.py) is not ported;
-in_plane, free_surface, pseudo-periodic images and per-blob radii of the
-pair products are still to be ported (ROADMAP Queue 1, item 4).
+it is XLA there). The square product with per-blob radii,
+`mobility_radii_trans_times_force` (and its stacked form), runs kernel P1
+on a CUDA tensor (ops/mobility_cuda.radii_matvec) and
+`source_target_matvec` on a CPU tensor; `dense_mobility_radii`
+materializes it for the preconditioner blocks and the dense solves. The
+SFM engine (mobility_sfm.py) is not ported; in_plane, free_surface and
+pseudo-periodic images of the pair products are still to be ported
+(ROADMAP Queue 1, item 4).
 
 Wall overlap regularization: products use z_eff = max(z, a) and
 M <- B^T M(z_eff) B with the diagonal damping B_ii = min(z_i/a, 1).
@@ -354,3 +359,71 @@ def source_target_matvec(r_src, r_tgt, vec, radius_src, radius_tgt, eta, *,
     if wall:
         out = out * damp_t[:, None]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Square products and dense matrices with per-blob radii
+# ---------------------------------------------------------------------------
+
+
+def mobility_radii_multi(r_vectors, vec, radii, eta, *,
+                         domain="single_wall",
+                         periodic_length=(0.0, 0.0, 0.0)):
+    """Stacked square tt products with per-blob radii, vec (B, N, 3) ->
+    (B, N, 3): kernel P1 on a CUDA tensor (ops/mobility_cuda.radii_matvec,
+    B = 1 or 2 a launch, wider stacks in consecutive pairs), the
+    source-target product with sources = targets on a CPU tensor (its
+    r = 0 branch is the self mobility 4/(3 a))."""
+    from .mobility_cuda import RADII_MAX_RHS, radii_matvec
+
+    _check_supported("tt", domain, periodic_length)
+    wall = domain == "single_wall"
+    radii = torch.broadcast_to(torch.as_tensor(
+        radii, dtype=r_vectors.dtype, device=r_vectors.device),
+        (r_vectors.shape[0],))
+    return torch.cat([radii_matvec(r_vectors, vec[b0:b0 + RADII_MAX_RHS],
+                                   radii, eta, wall=wall)
+                      for b0 in range(0, vec.shape[0], RADII_MAX_RHS)])
+
+
+def mobility_radii_trans_times_force(r_vectors, vec, radii, eta, *,
+                                     domain="single_wall",
+                                     periodic_length=(0.0, 0.0, 0.0)):
+    """The square tt product with per-blob radii (the JAX package's
+    mobility_radii_trans_times_force), (N, 3) -> (N, 3)."""
+    n = r_vectors.shape[0]
+    return mobility_radii_multi(r_vectors, vec.reshape(1, n, 3), radii, eta,
+                                domain=domain,
+                                periodic_length=periodic_length)[0]
+
+
+def dense_mobility_radii(r_vectors, radii, eta, *, domain="single_wall"):
+    """Dense (3N, 3N) tt mobility with per-blob radii, for any leading
+    batch dimensions ((..., N, 3) -> (..., 3N, 3N)): the product of
+    mobility_radii_trans_times_force materialized, for the per-body
+    preconditioner blocks and the dense solves (plain PyTorch, as it is
+    XLA in the JAX package). No periodic images."""
+    _check_supported("tt", domain, ())
+    n = r_vectors.shape[-2]
+    batch = r_vectors.shape[:-2]
+    dtype = r_vectors.dtype
+    radii = torch.broadcast_to(torch.as_tensor(
+        radii, dtype=dtype, device=r_vectors.device), (*batch, n))
+    wall = domain == "single_wall"
+    if wall:
+        damp = torch.clamp(r_vectors[..., 2] / radii, max=1.0)
+        r_vectors = torch.cat([r_vectors[..., :2], torch.maximum(
+            r_vectors[..., 2], radii)[..., None]], dim=-1)
+    d = r_vectors[..., :, None, :] - r_vectors[..., None, :, :]
+    at = radii[..., :, None]
+    bs = radii[..., None, :]
+    m = rpy.rpy_tt_radii(d, at, bs)
+    if wall:
+        zt = r_vectors[..., :, None, 2]
+        zs = r_vectors[..., None, :, 2]
+        m = m + rpy.wall_tt_radii(d[..., 0], d[..., 1], zt + zs, zt, zs, at,
+                                  bs)
+    m = m / (8.0 * math.pi * eta)
+    if wall:
+        m = m * damp[..., :, None, None, None] * damp[..., None, :, None, None]
+    return m.transpose(-3, -2).reshape(*batch, 3 * n, 3 * n)

@@ -19,7 +19,14 @@ of its kernels, and of the MCMC pair energy (M1):
      pairs of each configuration of a batch, under the minimum image on the
      periodic axes (XLA in the JAX package: ops/forces.py:506
      blob_blob_energy and models/mcmc.py:25 total_energy;
-     `csrc/blob_energy.cu` here), in float64.
+     `csrc/blob_energy.cu` here), in float64;
+  P1 `radii_matvec`: the square tt product with per-blob radii (the
+     different-radii RPY block and its wall image system, ops/rpy.py
+     rpy_tt_radii and wall_tt_radii), B = 1 or 2 right-hand sides
+     (XLA in the JAX package: ops/mobility.py:540
+     mobility_radii_trans_times_force, the source-target product with
+     sources = targets; `csrc/pair_radii.cu` here, on K1's symmetric
+     sweep).
 Each wrapper launches its kernel for CUDA tensors (float32 or float64) and
 runs its plain PyTorch version for CPU tensors; any other device raises.
 The (3,3,N,N) component planes of the JAX package exist to avoid the
@@ -59,6 +66,10 @@ COINCIDENT = ("zero", "one")
 ENERGY_CHUNK_VALUES = 1 << 24
 # number of K3 / K4 launches made by `dense_tt` / `symm_matvec`
 DENSE_LAUNCHES = {"dense_tt": 0, "symm_matvec": 0}
+# number of P1 launches made by `radii_matvec`, by B, and the most
+# right-hand sides a launch takes (the kernel's template instances)
+RADII_LAUNCHES = {1: 0, 2: 0}
+RADII_MAX_RHS = 2
 # K4's tile edge in blobs (csrc/symm_planes.cu kBlobs): the kernel reads
 # the tiles M[3 T I : 3 T (I+1), 3 T J : 3 T (J+1)] with J >= I only
 SYMM_TILE = 64
@@ -448,3 +459,63 @@ def symm_matvec(m, vec):
         _build.check(name, err)
         DENSE_LAUNCHES["symm_matvec"] += 1
     return out.reshape(shape)
+
+
+def radii_matvec_plain(r_vectors, vec, radii, eta, *, wall):
+    """Plain PyTorch P1: the source-target product of ops/mobility.py with
+    the blobs as both sources and targets, for each right-hand side of
+    vec (B, N, 3)."""
+    domain = "single_wall" if wall else "no_wall"
+    return torch.stack([mob.source_target_matvec(
+        r_vectors, r_vectors, v, radii, radii, eta, domain=domain)
+        for v in vec])
+
+
+def radii_matvec(r_vectors, vec, radii, eta, *, wall):
+    """P1 wrapper: u_b = B M(z_eff) B v_b for per-blob radii (N,), the
+    different-radii RPY block plus, with `wall`, its wall image system at
+    the heights z_eff = max(z, a_i), damped by B_ii = min(z_i / a_i, 1);
+    vec (B, N, 3) -> (B, N, 3), 1 <= B <= RADII_MAX_RHS. The CUDA kernel
+    (the symmetric sweep over pair_kernels.plan_groups' tile groups) for
+    CUDA tensors, `radii_matvec_plain` for CPU tensors."""
+    if r_vectors.device.type == "cpu":
+        return radii_matvec_plain(r_vectors, vec, radii, eta, wall=wall)
+    n = r_vectors.shape[0]
+    n_rhs = vec.shape[0]
+    if (r_vectors.ndim != 2 or r_vectors.shape[1] != 3 or vec.ndim != 3
+            or vec.shape[1:] != (n, 3) or radii.shape != (n,)
+            or not 1 <= n_rhs <= RADII_MAX_RHS):
+        raise ValueError(f"radii_matvec: shapes r {tuple(r_vectors.shape)}, "
+                         f"vec {tuple(vec.shape)}, radii "
+                         f"{tuple(radii.shape)}; expected (N,3), (B,N,3) "
+                         f"with B in 1..{RADII_MAX_RHS}, (N,)")
+    if 6 * n >= 2 ** 31:
+        raise ValueError("radii_matvec: too many blobs for 32-bit indexing")
+    dtype = torch.promote_types(r_vectors.dtype, vec.dtype)
+    r = r_vectors.to(dtype)
+    a = radii.to(dtype)
+    v = vec.to(dtype)
+    damp = None
+    if wall:
+        damp = torch.clamp(r[:, 2] / a, max=1.0)
+        r = torch.cat([r[:, :2], torch.maximum(r[:, 2], a)[:, None]], dim=1)
+        v = v * damp[None, :, None]
+    q = torch.cat([r, a[:, None]], dim=1).contiguous()          # (N, 4)
+    V = v.permute(1, 0, 2).reshape(n, 3 * n_rhs).contiguous()   # b-major
+    _check_cuda("radii_matvec", q, V)
+    out = torch.empty_like(V)
+    if n == 0:
+        return out.reshape(n, n_rhs, 3).permute(1, 0, 2)
+    groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(V))
+    ws = torch.empty((groups, n, 3 * n_rhs), dtype=dtype, device=V.device)
+    name = f"pair_radii_sym_{'f32' if dtype == torch.float32 else 'f64'}"
+    err = getattr(_build.library(), name)(
+        q.data_ptr(), V.data_ptr(), out.data_ptr(), ws.data_ptr(), n, n_rhs,
+        groups, per, int(bool(wall)),
+        torch.cuda.current_stream(V.device).cuda_stream)
+    _build.check(name, err)
+    RADII_LAUNCHES[n_rhs] += 1
+    out = out * (1.0 / (8.0 * math.pi * eta))
+    if wall:
+        out = out * damp[:, None]
+    return out.reshape(n, n_rhs, 3).permute(1, 0, 2)

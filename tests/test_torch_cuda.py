@@ -2,7 +2,8 @@
 K3, K4, K5, K6, K7, K8, L1 (every Laplace operator) and M1 (the MCMC pair
 energy, both mask flavours, batches) against their plain PyTorch
 versions, on the card, and the 16-sphere lubrication step on K1 grand
-and K2 and an MCMC chain on M1 against the CPU. Every test here is marked `gpu` and
+and K2 and an MCMC chain on M1 against the CPU; P1 (the radii pair
+product) and P2 (the mixed-radii near field) against theirs. Every test here is marked `gpu` and
 skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
@@ -1604,3 +1605,99 @@ def test_mcmc_chain_on_card_matches_cpu(cuda):
     assert int(gm.accepted) == int(cm.accepted) > 0
     assert torch.allclose(gt.pos.cpu(), ct.pos, rtol=0, atol=1e-9)
     assert torch.allclose(ge.cpu(), ce, rtol=1e-9, atol=0)
+
+
+def _radii_scene(n, seed=0):
+    """Blobs above the wall with radii in [0.08, 0.3]: a coincident pair of
+    unequal radii, one blob inside another, an overlapping pair."""
+    rng = np.random.default_rng(seed)
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, 0.4 * n ** 0.5, (n, 2))
+    r[:, 2] = rng.uniform(0.05, 4, n)
+    rad = rng.uniform(0.08, 0.3, n)
+    if n > 9:
+        r[5] = r[4]
+        r[7], rad[6], rad[7] = r[6] + 0.01, 0.1, 0.3
+        r[9] = r[8] + 0.2
+    return r, rad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wall", [True, False])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+@pytest.mark.parametrize("n", [1, 100, 129, 3000, 20000])
+def test_p1_matches_plain_bit_identical_on_repeat(cuda, n, n_rhs, wall,
+                                                  dtype):
+    """P1 against the source-target product in float64 (the first 500
+    targets): float64 to 1e-12, float32 to 3e-6 x max|ref| (the JAX
+    package's f32 bound), twice bit-identical; one launch counted."""
+    r, rad = _radii_scene(n)
+    v = np.random.default_rng(1).normal(size=(n_rhs, n, 3))
+    args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
+    before = mc.RADII_LAUNCHES[n_rhs]
+    got = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
+    again = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
+    torch.cuda.synchronize()
+    assert mc.RADII_LAUNCHES[n_rhs] == before + 2
+    assert torch.equal(got, again)
+    sub = min(n, 500)
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    r64, v64, a64 = (x.double() for x in args)
+    ref = torch.stack([mob.source_target_matvec(
+        r64, r64[:sub], vb, a64, a64[:sub], 1.3, wall=wall) for vb in v64])
+    bound = 1e-12 if dtype == torch.float64 else 3e-6
+    err = (got[:, :sub].double() - ref).abs().max() / ref.abs().max()
+    assert err <= bound, float(err)
+
+
+def test_p1_refuses_what_it_does_not_take(cuda):
+    r = torch.zeros((4, 3), device=cuda)
+    a = torch.full((4,), 0.1, device=cuda)
+    with pytest.raises(ValueError, match="B in 1..2"):
+        mc.radii_matvec(r, torch.zeros((3, 4, 3), device=cuda), a, 1.0,
+                        wall=True)
+    with pytest.raises(ValueError, match="shapes"):
+        mc.radii_matvec(r, torch.zeros((1, 4, 3), device=cuda), a[:3], 1.0,
+                        wall=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+@pytest.mark.parametrize("radii", [(0.25, 0.45), (0.2, 0.3, 0.45),
+                                   (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4,
+                                    0.45)])
+def test_p2_matches_plain_bit_identical_on_repeat(cuda, radii, n_rhs, dtype):
+    """P2 against its float64 plain version on a random periodic box (a
+    coincident pair, one blob inside another) for G = 2, 3 and 8 groups:
+    float64 to 1e-12, float32 to 3e-6 x max|ref|, twice bit-identical."""
+    rng = np.random.default_rng(len(radii))
+    n, L = 2000, 14.0
+    r = rng.uniform(0, L, (n, 3))
+    r[7] = r[6]
+    r[9] = r[8] + 0.05
+    groups = rng.integers(0, len(radii), n).astype(np.int32)
+    # tolerance 1e-3: the tables of 36 group pairs in a few seconds
+    p = ewald.default_params(max(radii), 1.0, (L, L, L), tol=1e-3,
+                             cell_capacity=64, radii=radii)
+    plan = ewald.make_plan(p, torch.as_tensor(r, dtype=dtype, device=cuda),
+                           group_of=torch.as_tensor(groups, device=cuda))
+    assert int(plan.n_dropped_cells) == 0
+    f = torch.as_tensor(rng.normal(size=(n, 3 * n_rhs)), dtype=dtype,
+                        device=cuda)
+    args = (plan.positions, f, plan.group_of, plan.cell_table,
+            plan.cell_dims, p.box, plan.params.cell_capacity)
+    before = ck.LAUNCHES[f"near_rpy_radii_b{n_rhs}"]
+    got = ck.near_rpy_radii(*args, plan.cheb_radii, plan.radii_edges,
+                            r_cut=p.r_cut)
+    again = ck.near_rpy_radii(*args, plan.cheb_radii, plan.radii_edges,
+                              r_cut=p.r_cut)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[f"near_rpy_radii_b{n_rhs}"] == before + 2
+    assert torch.equal(got, again)
+    ref = ck.near_rpy_radii_plain(
+        plan.positions.double(), f.double(), *args[2:],
+        plan.cheb_radii.double(), plan.radii_edges, r_cut=p.r_cut)
+    bound = 1e-12 if dtype == torch.float64 else 3e-6
+    err = (got.double() - ref).abs().max() / ref.abs().max()
+    assert err <= bound, float(err)

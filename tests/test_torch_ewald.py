@@ -301,15 +301,18 @@ def test_from_reference_carries_spectral_fields_and_refuses_the_rest():
     tw = tsys.from_reference(wall, device="cpu")
     assert (tw.domain, tw.spectral_wall_height) == ("single_wall_spectral",
                                                     2.0)
+    # per-blob radii are carried across, and the spectral parameters take
+    # them (the mixed-radii mode)
     radii = dataclasses.replace(js, types=(dataclasses.replace(
         js.types[0], blob_radii=np.linspace(0.1, 0.2, 12)),))
-    with pytest.raises(NotImplementedError, match="15"):
-        tsys.from_reference(radii, device="cpu")
+    tr = tsys.from_reference(radii, device="cpu")
+    assert tr.has_mixed_radii
+    np.testing.assert_array_equal(tr.blob_radii, radii.blob_radii)
     with pytest.raises(NotImplementedError, match="item 20"):
         tsys.from_reference(dataclasses.replace(js, mesh=object()),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tew.default_params(A, ETA, BOX, radii=(0.1, 0.2))
+    assert tew.default_params(A, ETA, BOX, radii=(0.1, 0.2)).radii == (0.1,
+                                                                       0.2)
     plan = tsad.maybe_dense_mobility(ts, torch.zeros((4, 3),
                                                      dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="item 20"):

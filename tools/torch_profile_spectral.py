@@ -9,10 +9,14 @@ timed on the host clock around `torch.cuda.synchronize()`, then one step
 under torch.profiler (CUDA activity). Prints the card's name and power
 limit, the unprofiled ms/step with iteration counts, the device's busy
 time and idle share in the profiled step, the top kernels, and the
-device time grouped by what it serves (K6, K5, FFT, the spread's
-index_add_, the interpolation's gathers, the rest).
+device time grouped by what it serves (K6 or P2, K5, FFT, the spread's
+index_add_, the interpolation's gathers, the rest). With --radii the
+scene is chip_smoke.py's phase 19: the same box with bench.py's shell and
+a 1.2x shell (blob radius 0.157) alternating, on the mixed-radii plan
+(near field on kernel P2, G = 2 channel blocks gridded).
 
 Usage: python3 tools/torch_profile_spectral.py [n_shells] [--steps N]
+       [--radii]
 """
 
 import argparse
@@ -35,7 +39,8 @@ from rigidmultiblobswall_tpu_torch.models.system import (  # noqa: E402
 from rigidmultiblobswall_tpu_torch.ops import forces  # noqa: E402
 
 # kernel-name fragments per group, first match wins
-GROUPS = (("K6 near_rpy", ("near_rpy",)), ("K5 nl_forces", ("nl_forces",)),
+GROUPS = (("K6/P2 near_rpy", ("near_rpy",)),
+          ("K5 nl_forces", ("nl_forces",)),
           ("FFT (cuFFT)", ("fft", "FFT")),
           ("spread: index_add_", ("index_add", "indexFuncLarge",
                                   "indexFuncSmall")),
@@ -57,6 +62,8 @@ def main():
                    default=chip_smoke.N_SPECTRAL)
     p.add_argument("--steps", type=int, default=3,
                    help="unprofiled timed steps after the warm-up")
+    p.add_argument("--radii", action="store_true",
+                   help="phase 19's mixture of two blob radii (kernel P2)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_spectral: needs a CUDA card")
@@ -64,8 +71,13 @@ def main():
 
     dev = torch.device("cuda")
     side = math.ceil(args.n_shells ** (1 / 3) - 1e-9)   # bench.py's lattice
-    system = chip_smoke.spectral_system(args.n_shells, side * 1.6)
-    pos, quat = chip_smoke.spectral_lattice(args.n_shells, side)
+    if args.radii:
+        system = chip_smoke.radii_spectral_system(args.n_shells, side * 1.6)
+        pos, quat = chip_smoke.alternate(
+            *chip_smoke.spectral_lattice(args.n_shells, side))
+    else:
+        system = chip_smoke.spectral_system(args.n_shells, side * 1.6)
+        pos, quat = chip_smoke.spectral_lattice(args.n_shells, side)
     state = make_state(pos, quat, dtype=torch.float32, device=dev)
     system = saddle.auto_spectral_capacities(system, state, log=print)
     system = forces.auto_force_cell_capacity(

@@ -29,8 +29,12 @@ hydrodynamics, backward Euler), one warm-up and --steps timed steps each,
 then one step under the profiler: busy and idle share, and the shares of
 K1, the batched LU (factor and solves) and the batched Cholesky.
 
+With --radii it profiles chip_smoke.py's phase 18 scene instead: the
+same lattice with bench.py's shell and a 1.2x shell (blob radius 0.157)
+alternating, every product on kernel P1.
+
 Usage: python3 tools/torch_profile_step.py [n_shells] [--steps N]
-       [--scheme NAME] [--phoretic | --mcmc | --fibers]
+       [--scheme NAME] [--phoretic | --mcmc | --fibers | --radii]
 """
 
 import argparse
@@ -224,6 +228,8 @@ def main():
                    help="phase 16's MCMC chain, --steps moves a run")
     p.add_argument("--fibers", action="store_true",
                    help="phase 17's carpet and free fibers, a step each")
+    p.add_argument("--radii", action="store_true",
+                   help="phase 18's mixture of two blob radii (kernel P1)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
@@ -244,6 +250,9 @@ def main():
         kT = 0.0 if args.scheme.startswith("deterministic") else 0.05
         system, _ = chip_smoke.phoretic_system(args.n_shells, kT=kT)
         pos, quat = chip_smoke.lattice(args.n_shells)
+    elif args.radii:
+        system = chip_smoke.radii_system(args.n_shells)
+        pos, quat = chip_smoke.alternate(*chip_smoke.lattice(args.n_shells))
     else:
         system = chip_smoke.bench_system(args.n_shells)
         pos, quat = chip_smoke.lattice(args.n_shells)
