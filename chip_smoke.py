@@ -250,9 +250,12 @@ is non-zero and no result line is printed):
      another, coincident; B = 1 and 2; float32 within 3e-6 x max|ref| or
      twice the float32 plain version's error, float64 to 1e-12; twice
      bit-identical) and at phase 18's 49,152 blobs (two kernel records,
-     B = 1 and 2); phase 4 runs 8 shells of the mixture x 3 steps of
-     forward Euler and Slip-Trapz card against CPU, phase 5 a four-column
-     input through the CLI (Slip-Trapz, mobility, body_mobility).
+     B = 1 and 2; the bound counts the far form for the pairs outside
+     contact and the full one for those inside and the self pairs, and
+     the log adds the share of the all-regime count); phase 4 runs 8
+     shells of the mixture x 3 steps of forward Euler and Slip-Trapz card
+     against CPU, phase 5 a four-column input through the CLI
+     (Slip-Trapz, mobility, body_mobility).
  19. mixed radii on the spectral engine at full width
      (spectral-98k-radii): phase 8's box (8192 shells, 98,304 blobs, L =
      33.6, tolerance 1e-4, grid at most 256, linked-cell forces, float32)
@@ -5045,13 +5048,42 @@ def phase_fiber_path(pk, mc):
 # 0.131) and a 1.2x one (radius 0.6, blob radius 0.157)
 RADII_SHELLS = ((0.5, A_BENCH), (0.6, 0.157))
 # P1's float32 operations per unordered pair, counted from
-# csrc/pair_radii.cu's condense (an FMA as 2): the three RPY regimes ~56,
-# the five wall terms ~124 more; applying the condensed block both ways
-# (diag_apply and diag_apply_t, 18 each) per right-hand side; and its
-# special functions: two rsqrt and the reciprocal of a b
-P1_PAIR_FLOPS = {True: 180, False: 56}
+# csrc/pair_radii.cu (an FMA as 2): make_geo 11 and the far RPY form of
+# condense 13 for a pair outside contact (the far path, condense<FULL =
+# false>), 27 more for the overlapping and inside regimes selected over it
+# (the full path: the pairs inside contact and the self pairs), the wall
+# image system 80 on either path; applying the block both ways (diag_apply
+# and diag_apply_t, 18 each) per right-hand side; its special functions:
+# the rsqrt of r^2 and, with the wall, of R^2
+P1_FAR_FLOPS = {True: 104, False: 24}
+P1_NEAR_FLOPS = 27
 P1_APPLY_FLOPS = 36
-P1_PAIR_MUFU = 3
+P1_PAIR_MUFU = {True: 2, False: 1}
+# the all-regime count: every pair's three RPY regimes ~56 and five wall
+# terms ~124 term by term, a reciprocal beside the two rsqrt; the bound
+# that P1's shares were taken against before the far path, kept so that
+# shares of the two designs compare
+P1_ALL_REGIMES_FLOPS = 180
+P1_ALL_REGIMES_MUFU = 3
+
+
+def p1_bound(n, contacts, n_rhs, wall=True):
+    """P1's bound records over n blobs with `contacts` unordered pairs of
+    distinct blobs inside contact: (the bound of these inputs, the far
+    form for the pairs outside contact and the full one for those inside
+    and the n self pairs; the bound by the all-regime count)."""
+    pairs = n * (n + 1) // 2
+    near = contacts + n
+    flops = (pairs * (P1_FAR_FLOPS[wall] + P1_APPLY_FLOPS * n_rhs)
+             + near * P1_NEAR_FLOPS)
+    nbytes = 4 * n * (4 + 2 * 3 * n_rhs)
+    rec = bound_record(nbytes, flops, pairs * P1_PAIR_MUFU[wall])
+    every = bound_record(nbytes, pairs * (P1_ALL_REGIMES_FLOPS
+                                          + P1_APPLY_FLOPS * n_rhs),
+                         pairs * P1_ALL_REGIMES_MUFU)
+    return rec, every
+
+
 # P2 beyond K6's per-pair count: the piece map (two compares, a select and
 # the (mid, 2 / width) multiply-add)
 P2_PIECE_FLOPS = 6
@@ -5107,17 +5139,20 @@ def alternate(pos, quat):
     return pos[order], quat[order]
 
 
-def min_blob_gap(r, radii):
+def blob_contacts(r, radii):
     """The smallest surface gap r_ij - a_i - a_j over the distinct blob
-    pairs (negative where blobs overlap), in row chunks on the card."""
-    gap = float("inf")
+    pairs (negative where blobs overlap) and the number of unordered pairs
+    of distinct blobs inside contact (gap <= 0), in row chunks on the
+    card."""
+    gap, contacts = float("inf"), 0
     for i0 in range(0, r.shape[0], 4096):
         d = torch.cdist(r[i0:i0 + 4096].double(), r.double())
         d = d - radii[i0:i0 + 4096, None].double() - radii[None].double()
         idx = torch.arange(i0, min(i0 + 4096, r.shape[0]), device=r.device)
         d[idx - i0, idx] = float("inf")
         gap = min(gap, float(d.min()))
-    return gap
+        contacts += int((d <= 0).sum())
+    return gap, contacts // 2
 
 
 def p1_vs_plain(mc, r, v, radii, wall, sub=None):
@@ -5202,6 +5237,9 @@ def phase_radii_kernels(mc, report):
     nb = rb.shape[0]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     groups, per = pk.plan_groups(nb, n_sm)
+    gap, contacts = blob_contacts(rb, radii)
+    log(f"P1 at phase 18's shape: smallest blob surface gap {gap:.4f}, "
+        f"{contacts} pairs of distinct blobs inside contact")
     g = torch.Generator(device=dev).manual_seed(18)
     sub = 1024
     records = {}
@@ -5214,9 +5252,7 @@ def phase_radii_kernels(mc, report):
         plain_ms = cuda_ms(lambda: mc.radii_matvec_plain(
             rb, v, radii, 1.0, wall=True), 1, warmup=False)
         pairs = nb * (nb + 1) // 2
-        flops = pairs * (P1_PAIR_FLOPS[True] + P1_APPLY_FLOPS * n_rhs)
-        nbytes = 4 * nb * (4 + 2 * 3 * n_rhs)
-        rec = bound_record(nbytes, flops, pairs * P1_PAIR_MUFU)
+        rec, every = p1_bound(nb, contacts, n_rhs)
         regs = instance_registers(report, "radii_sym_kernel",
                                   f"<float, {n_rhs}, true>")
         plan = f"{groups} tile groups of {per} tiles"
@@ -5227,9 +5263,15 @@ def phase_radii_kernels(mc, report):
             f"{p32 / scale:.3e}); repeat bit-identical {same}; kernel "
             f"{ms:.3f} ms, plain f32 {plain_ms:.1f} ms; bound "
             f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, {pairs} unordered "
-            f"pairs at {P1_PAIR_FLOPS[True] + P1_APPLY_FLOPS * n_rhs} "
-            f"operations and {P1_PAIR_MUFU} special functions; "
-            f"{rec['bound_ms'] / ms:.1%} of it); ptxas {regs}")
+            f"pairs, {contacts} of distinct blobs inside contact: "
+            f"{P1_FAR_FLOPS[True] + P1_APPLY_FLOPS * n_rhs} operations and "
+            f"{P1_PAIR_MUFU[True]} special functions a pair, "
+            f"{P1_NEAR_FLOPS} more a pair inside contact or self; "
+            f"{rec['bound_ms'] / ms:.1%} of it); the all-regime count "
+            f"({P1_ALL_REGIMES_FLOPS + P1_APPLY_FLOPS * n_rhs} operations a "
+            f"pair) {every['bound_ms']:.3f} ms, "
+            f"{every['bound_ms'] / ms:.1%} of it; "
+            f"ptxas {regs}")
         check(err <= bound * scale, f"P1 disagrees at {nb} blobs B={n_rhs}")
         check(same, f"P1 not bit-identical on repeat at {nb} blobs")
         records[n_rhs] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -5410,7 +5452,7 @@ def phase_radii_path(pk, mc, ck, lap):
     state0 = make_state(pos, quat, dtype=torch.float32, device=dev)
     r0 = kin.blob_positions(system, state0)
     radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
-    gap = min_blob_gap(r0, radii)
+    gap, _ = blob_contacts(r0, radii)
     log(f"multibody-49k-radii: {system.num_blobs} blobs, {N_SHELLS // 2} "
         f"shells (blob radius {RADII_SHELLS[0][1]}) and {N_SHELLS // 2} 1.2x "
         f"shells (blob radius {RADII_SHELLS[1][1]}) alternating on phase 6's "

@@ -14,28 +14,48 @@
 // seconds a product, and a Slip-Trapz step takes some forty products.
 //
 // What bounds it on the H100: float32 instruction issue, as K1's sweeps
-// (csrc/pair_blocks.cuh): an unordered pair costs ~180 operations to
-// condense its block (the three RPY regimes ~56, the five wall terms ~124)
-// into the five scalars of pairk::Diag and 36 a right-hand side to apply
-// it both ways, with two rsqrt and one reciprocal; the inputs are 16 bytes
-// a blob and a right-hand side's 12.
+// (csrc/pair_blocks.cuh). The inputs are 20 bytes a blob and a right-hand
+// side's 12; an unordered pair off contact costs 104 float32 operations
+// (an FMA as 2: the geometry 11, the far RPY form 13, the wall image
+// system 80) to condense its block into the five scalars of pairk::Diag
+// and 36 a right-hand side to apply it both ways, with two rsqrt and no
+// division (chip_smoke.py P1_FAR_FLOPS). In the SASS the far path issues
+// 107 instructions a pair at B = 1 and 133 at B = 2, against 182 and 208
+// when every pair formed all three regimes and a division
+// (tools/torch_profile_kernels.py --kernels p1).
 //
-// Design: K1's symmetric sweep (pairk::sym_kernel) with a fourth staged
-// coordinate, the radius. The block of unequal radii is reciprocal,
-// M(j, i) = M(i, j)^T (the wall's terms 3 and 4 trade (a^2, z_s) for
-// (b^2, z_t); tests/test_torch_radii.py holds the plain blocks to it at
-// 1e-13), and it has the structure of K1's condensed tt block: an
-// in-plane part A I + S d d^T, the z column P d, the z row Q d^T and the
-// zz entry. So each unordered pair is condensed once and applied both
-// ways by pairk::diag_apply and diag_apply_t. The three RPY regimes (far:
-// r > a + b; overlapping: |b - a| < r <= a + b; one inside the other: r <=
-// |b - a|, coincident blobs included) are all evaluated and selected, with
-// no branch; one reciprocal of a b a pair and rsqrt of r^2 and of R^2 take
-// the place of the divisions. Self pairs (r = 0) take the inside regime,
-// 4 / (3 a), and the wall terms at dx = dy = 0, Rz = 2 z: the self
-// mobility of the plain version. The group plan, the workspace of one
-// slice a group and the fixed-order slice sum are K1's, so the product is
-// bit-identical on repeat.
+// Design: K1's symmetric sweep (pairk::sym_kernel) with two more staged
+// coordinates, the radius and its reciprocal. The block of unequal radii
+// is reciprocal, M(j, i) = M(i, j)^T (the wall's terms 3 and 4 trade
+// (a^2, z_s) for (b^2, z_t); tests/test_torch_radii.py holds the plain
+// blocks to it at 1e-13), and it has the structure of K1's condensed tt
+// block: an in-plane part A I + S d d^T, the z column P d, the z row Q d^T
+// and the zz entry. So each unordered pair is condensed once and applied
+// both ways by pairk::diag_apply and diag_apply_t. What each pair costs:
+// - the RPY regimes: far (r > a + b, tested as r^2 > (a + b)^2 before any
+//   rsqrt), overlapping (|b - a| < r <= a + b) and one inside the other
+//   (r <= |b - a|, coincident blobs included). Off the diagonal tile, a
+//   tile pair whose bounding boxes lie further apart than their largest
+//   radii add up to takes the far path, condense<FULL = false>, the far
+//   form alone, at every step with no test a pair; in any other tile pair
+//   each rotation step votes across the warp (__all_sync) and takes the
+//   far path when its 32 pairs are all far. Other steps, and the diagonal
+//   tile with its self pairs, take the full path, condense<FULL = true>,
+//   which forms the same far form and selects the other regimes over it
+//   by the same test. A far pair gets the same bits on either path, and
+//   its block is applied both ways, so the product stays bit-identical on
+//   repeat. Where no two blobs touch, no step leaves the far path;
+// - the reciprocals: 1/a is staged beside a by the wrapper (its exact
+//   division), so 1 / (a b) is one multiply, on the full path only;
+// - the target's a^2, (2/3) a^2 and (2/3) z_t are formed once a tile;
+// - the wall image system: each of the five condensed entries collected
+//   by powers of u = 1/R^2 (derived from ops/rpy.py wall_tt_radii), with
+//   e = Rz^2 u <= 1 absorbing the Rz^2 of the higher powers, and
+//   evaluated by Horner's rule in u, each power of W = 1/R formed once.
+// Self pairs (r = 0) take the inside regime, 4 / (3 a), and the wall
+// terms at dx = dy = 0, Rz = 2 z: the self mobility of the plain version.
+// The group plan, the workspace of one slice a group and the fixed-order
+// slice sum are K1's.
 
 #include "pair_blocks.cuh"
 
@@ -47,125 +67,265 @@ using pairk::kTile;
 using pairk::kWarps;
 using pairk::rsqrt_t;
 
-// resident blocks an SM that __launch_bounds__ asks for: 4 in float32 (at
-// most 128 registers a thread: the condensing keeps ~40 values live beside
-// the sweep's state); float64 uncapped
+// resident blocks an SM that __launch_bounds__ asks for in float32: 6,
+// at most 85 registers a thread (ptxas gives B = 1 72 and B = 2 76; 4
+// left B = 2 at 85 and ~4 % slower, 8 spills; PERF.md §6). float64
+// uncapped
 template <typename T>
 constexpr int min_blocks() {
-  return sizeof(T) == 4 ? 4 : 1;
+  return sizeof(T) == 4 ? 6 : 1;
 }
 
-// a staged row: x, y, z_eff, a and the 3B vector entries, padded to whole
+// a staged blob: x, y, z_eff, a, 1/a
+constexpr int kQ = 5;
+
+// a staged row: the blob and the 3B vector entries, padded to whole
 // 16-byte loads
 template <typename T, int B>
-using Row = pairk::RowLen<T, 3 * B + 1>;
+using Row = pairk::RowLen<T, 3 * B + kQ - 3>;
 
-// the condensed block of (target t, source s) for d = r_t - r_s, heights
-// zt, zs (shifted) and radii at, as
-template <typename T, bool WALL>
-__device__ __forceinline__ Diag<T> condense(T dx, T dy, T dz, T zt, T zs,
-                                            T at, T as) {
-  // RPY of unequal radii: c1 I + c2 d d^T
-  const T xy2 = dx * dx + dy * dy;
-  const T r2_raw = xy2 + dz * dz;
-  const bool zero = !(r2_raw > T(0));
-  const T r2 = zero ? T(1) : r2_raw;
-  const T invr = rsqrt_t(r2);
-  const T r = r2 * invr;
+// the target's terms, formed once a tile
+template <typename T>
+struct Target {
+  T x, y, z, a, ia;  // the staged blob
+  T a2, ca, z23;     // a^2, (2/3) a^2, (2/3) z
+};
+
+template <typename T>
+__device__ __forceinline__ Target<T> make_target(const T* p) {
+  Target<T> t;
+  t.x = p[0];
+  t.y = p[1];
+  t.z = p[2];
+  t.a = p[3];
+  t.ia = p[4];
+  t.a2 = t.a * t.a;
+  t.ca = T(2.0 / 3.0) * t.a2;
+  t.z23 = T(2.0 / 3.0) * t.z;
+  return t;
+}
+
+// the geometry of (target t, source s), d = r_t - r_s, and its regime
+template <typename T>
+struct Geo {
+  T dx, dy, dz, xy2, r2;
+  bool far;  // r > a_t + a_s
+};
+
+template <typename T>
+__device__ __forceinline__ Geo<T> make_geo(const Target<T>& t, const T* s) {
+  Geo<T> g;
+  g.dx = t.x - s[0];
+  g.dy = t.y - s[1];
+  g.dz = t.z - s[2];
+  g.xy2 = g.dx * g.dx + g.dy * g.dy;
+  g.r2 = g.xy2 + g.dz * g.dz;
+  const T sum = t.a + s[3];
+  g.far = g.r2 > sum * sum;
+  return g;
+}
+
+// the condensed block of (target t, source s = (x, y, z_eff, a, 1/a)).
+// FULL = false: the far RPY form, for steps whose pairs are all far;
+// FULL = true: the far form, with the overlapping and inside regimes
+// selected over it where the pair is not far
+template <typename T, bool WALL, bool FULL>
+__device__ __forceinline__ Diag<T> condense(const Geo<T>& g,
+                                            const Target<T>& t,
+                                            const T* s) {
+  const T b2 = s[3] * s[3];
+  const T s2 = t.a2 + b2;
+  // RPY far form: c1 = (1 + s2 / (3 r^2)) / r, c2 = (1 - s2 / r^2) / r^3
+  const T invr = rsqrt_t(g.r2);
   const T invr2 = invr * invr;
   const T invr3 = invr2 * invr;
-  const T at2 = at * at, as2 = as * as;
-  const T s2 = at2 + as2;
-  const T inv_ab = T(1) / (at * as);
-  const T c1_far = (T(1) + s2 * invr2 * T(1.0 / 3.0)) * invr;
-  const T c2_far = (T(1) - s2 * invr2) * invr3;
-  const T sum = at + as;
-  const T dif = as - at;
-  const T dd2 = dif * dif;
-  const T q = dd2 + T(3) * r2;
-  // (4/3) ((a + b) / 2 - (dd2 + 3 r^2)^2 / (32 r^3)) / (a b)
-  const T c1_mid = (T(0.5) * sum - q * q * invr3 * T(1.0 / 32.0)) *
-                   (T(4.0 / 3.0) * inv_ab);
-  const T w = dd2 - r2;
-  // (dd2 - r^2)^2 / (8 a b r^5)
-  const T c2_mid = w * w * invr3 * invr2 * (T(0.125) * inv_ab);
-  // 4 / (3 max(a, b)) = (4/3) min(a, b) / (a b)
-  const T c1_in = T(4.0 / 3.0) * (at < as ? at : as) * inv_ab;
-  const bool far = !zero && r > sum;
-  const bool mid = !zero && !far && r > (dif < T(0) ? -dif : dif);
-  const T c1 = far ? c1_far : (mid ? c1_mid : c1_in);
-  const T c2 = far ? c2_far : (mid ? c2_mid : T(0));
+  const T x = s2 * invr2;
+  T c1 = (T(1) + x * T(1.0 / 3.0)) * invr;
+  T c2 = invr3 - x * invr3;
+  if (FULL) {
+    // r^2 = 0 (self and coincident pairs) makes the far and overlapping
+    // forms inf or NaN; neither is selected for them
+    const T dif = s[3] - t.a;
+    const T dd2 = dif * dif;
+    const T inv_ab = t.ia * s[4];
+    const T q = dd2 + T(3) * g.r2;
+    // (4/3) ((a + b) / 2 - (dd2 + 3 r^2)^2 / (32 r^3)) / (a b)
+    const T c1_mid = (T(0.5) * (t.a + s[3]) - q * q * invr3 *
+                      T(1.0 / 32.0)) * (T(4.0 / 3.0) * inv_ab);
+    const T w = dd2 - g.r2;
+    // (dd2 - r^2)^2 / (8 a b r^5)
+    const T c2_mid = w * w * invr3 * invr2 * (T(0.125) * inv_ab);
+    // 4 / (3 max(a, b))
+    const T c1_in = T(4.0 / 3.0) * (t.ia < s[4] ? t.ia : s[4]);
+    const bool mid = g.r2 > dd2;
+    c1 = g.far ? c1 : (mid ? c1_mid : c1_in);
+    c2 = g.far ? c2 : (mid ? c2_mid : T(0));
+  }
   Diag<T> m;
+  const T p = c2 * g.dz;
   m.A = c1;
   m.S = c2;
-  m.P = c2 * dz;
-  m.Q = m.P;
-  m.mzz = c1 + c2 * dz * dz;
+  m.P = p;
+  m.Q = p;
+  m.mzz = p * g.dz + c1;
   if (WALL) {
-    // wall_tt_radii on (dx, dy, Rz = zt + zs), x3 = zt, y3 = zs: every
-    // entry is A_w delta (in plane) + S_w d d^T, P_w d (the z column), Q_w
-    // d^T (the z row) and Z_w (zz); W_k = 1 / R^k
-    const T Rz = zt + zs;
-    const T W = rsqrt_t(Rz * Rz + xy2);
-    const T u = W * W;
-    const T W3 = W * u, W5 = W3 * u, W7 = W5 * u, W9 = W7 * u;
+    // wall_tt_radii on (dx, dy, Rz = zt + zs), x3 = zt, y3 = zs, with W =
+    // 1/R, u = W^2, e = Rz^2 u, G = ca zs + cb zt (ca, cb = (2/3) a^2,
+    // (2/3) b^2), cab = ca b^2, K, M = (a^2 + b^2) / 3 +- 2 zt zs:
+    //   A_w = W (-1 - u K + u^2 (3 G Rz + cab (1 - 5 e)))
+    //   S_w = W^3 (-1 + 3 u K - u^2 (15 G Rz + cab (5 - 35 e)))
+    //   P_w = W^3 (-dz + u (D - E) + F),  Q_w = W^3 (-dz + u (D + E) - F)
+    //   Z_w = W (-(1 + e) + u (3 e - 1) M
+    //            + u^2 (G Rz (15 e - 9) + cab (-3 + 30 e - 35 e^2)))
+    // with D = (a^2 - b^2) Rz, E = 3 (2 zt zs Rz + G) and F = Rz u^2 (15 G
+    // Rz + cab (15 - 35 e)); each added to the RPY entry by one FMA
+    const T zs = s[2];
+    const T Rz = t.z + zs;
     const T Rz2 = Rz * Rz;
-    const T xy3 = zt * zs;
-    const T ca = T(2.0 / 3.0) * at2, cb = T(2.0 / 3.0) * as2;
-    const T cab = ca * as2;
-    // term 1, the image of the RPY far form
-    const T t1c1 = (T(1) + s2 * u * T(1.0 / 3.0)) * W;
-    const T t1c2 = (T(1) - s2 * u) * W3;
-    T Aw = -t1c1, Sw = -t1c2;
-    T Pw = t1c2 * Rz, Qw = -Pw;
-    T Zw = t1c1 + t1c2 * Rz2;
-    // term 2, the Stokes doublet and source dipole of the x3 y3 factor
-    Aw -= T(2) * xy3 * W3;
-    Sw += T(6) * xy3 * W5;
-    const T p2 = T(6) * xy3 * Rz * W5;
-    Pw += -T(2) * zt * W3 - p2;
-    Qw += T(2) * zs * W3 + p2;
-    Zw += T(2) * (xy3 * (W3 - T(3) * Rz2 * W5) - W - Rz * (zt + zs) * W3);
-    // terms 3 and 4, the a^2 (with z_s) and b^2 (with z_t) corrections
-    const T f5 = T(3) * W5, f7 = T(15) * Rz2 * W7;
-    const T ga = ca * zs, gb = cb * zt;
-    Aw += (ga + gb) * T(3) * Rz * W5;
-    Sw -= (ga + gb) * T(15) * Rz * W7;
-    Pw += ca * (f5 * Rz - zs * (f5 - f7)) - gb * (f5 - f7);
-    Qw += ga * (f5 - f7) - cb * (f5 * Rz - zt * (f5 - f7));
-    const T zz34 = -W3 + f5 * Rz2;
-    const T zzh = T(9) * Rz * W5 - T(15) * Rz2 * Rz * W7;
-    Zw += ca * (zz34 - zs * zzh) + cb * (zz34 - zt * zzh);
-    // term 5, the a^2 b^2 source dipole of the image
-    Aw += cab * (W5 - T(5) * Rz2 * W7);
-    Sw -= cab * (T(5) * W7 - T(35) * Rz2 * W9);
-    const T p5 = cab * Rz * (T(15) * W7 - T(35) * Rz2 * W9);
-    Pw += p5;
-    Qw -= p5;
-    Zw += cab * (T(-3) * W5 + T(30) * Rz2 * W7 - T(35) * Rz2 * Rz2 * W9);
-    m.A += Aw;
-    m.S += Sw;
-    m.P += Pw;
-    m.Q += Qw;
-    m.mzz += Zw;
+    const T W = rsqrt_t(Rz2 + g.xy2);
+    const T u = W * W;
+    const T W3 = W * u;
+    const T e = Rz2 * u;
+    const T x2 = T(2) * (t.z * zs);
+    const T h = s2 * T(1.0 / 3.0);
+    const T K = h + x2;
+    const T M = h - x2;
+    const T G = t.ca * zs + b2 * t.z23;
+    const T GR = G * Rz;
+    const T cab = t.ca * b2;
+    const T cabe = cab * e;
+    const T b15 = T(15) * GR - T(35) * cabe;
+    const T bA = (T(3) * GR + cab) - T(5) * cabe;
+    m.A = W * (u * (u * bA - K) - T(1)) + m.A;
+    const T bS = b15 + T(5) * cab;
+    m.S = W3 * (u * (T(3) * K - u * bS) - T(1)) + m.S;
+    const T D = (t.a2 - b2) * Rz;
+    const T E = T(3) * (x2 * Rz + G);
+    const T F = (Rz * u) * (u * (b15 + T(15) * cab));
+    m.P = W3 * (u * (D - E) + (F - g.dz)) + m.P;
+    m.Q = W3 * (u * (D + E) - (F + g.dz)) + m.Q;
+    const T bZ = GR * (T(15) * e - T(9)) +
+                 cab * ((T(30) - T(35) * e) * e - T(3));
+    m.mzz = W * (u * (u * bZ + (T(3) * e - T(1)) * M) - (T(1) + e)) +
+            m.mzz;
   }
   return m;
 }
 
-// target i's share of the pair (i, j): M_ij v_j
-template <typename T, int B, bool WALL>
-__device__ __forceinline__ void accumulate(const T* pi, const T* pj,
-                                           const T* vj, T* acc_i) {
-  const T dx = pi[0] - pj[0], dy = pi[1] - pj[1], dz = pi[2] - pj[2];
-  const Diag<T> m =
-      condense<T, WALL>(dx, dy, dz, pi[2], pj[2], pi[3], pj[3]);
+// the bounding box of a tile's 128 rows and their largest radius, on every
+// thread of the block (p the calling thread's row, rows past n as staged);
+// s_box is free on entry and on return
+template <typename T>
+struct Box {
+  T hi[3], lo[3], amax;
+};
+
+template <typename T>
+__device__ __forceinline__ Box<T> tile_box(const T* p, T (*s_box)[7]) {
+  // maxima of (x, y, z, -x, -y, -z, a) over the warp, then the block
+  T v[7] = {p[0], p[1], p[2], -p[0], -p[1], -p[2], p[3]};
 #pragma unroll
-  for (int b = 0; b < B; ++b)
-    pairk::diag_apply(m, dx, dy, vj + 3 * b, acc_i + 3 * b);
+  for (int c = 0; c < 7; ++c) {
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off /= 2)
+      v[c] = max(v[c], __shfl_xor_sync(0xffffffffu, v[c], off));
+  }
+  if (threadIdx.x % kLanes == 0) {
+#pragma unroll
+    for (int c = 0; c < 7; ++c) s_box[threadIdx.x / kLanes][c] = v[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 7; ++c) {
+    v[c] = s_box[0][c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v[c] = max(v[c], s_box[w][c]);
+  }
+  __syncthreads();
+  Box<T> b;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b.hi[k] = v[k];
+    b.lo[k] = -v[3 + k];
+  }
+  b.amax = v[6];
+  return b;
+}
+
+// every pair of the two tiles far: the boxes further apart than the sum of
+// their largest radii, with a margin for the rounding of each pair's own
+// r^2 and (a + b)^2
+template <typename T>
+__device__ __forceinline__ bool boxes_far(const Box<T>& a, const Box<T>& b) {
+  T d2 = T(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T g = max(max(a.lo[k] - b.hi[k], b.lo[k] - a.hi[k]), T(0));
+    d2 += g * g;
+  }
+  const T s = a.amax + b.amax;
+  return d2 > s * s * T(1.0001);
+}
+
+// the off-diagonal tile pair (target tile of the block's rows, source tile
+// tb): each quarter of tile tb rotates through the warp, 32 steps of 32
+// pairs, its sums returned to its lanes; the four warps' source sums are
+// left in s_sum[warp]. ALL_FAR: every step far (the tile boxes far apart),
+// else each step by its warp vote
+template <typename T, int B, bool WALL, bool ALL_FAR>
+__device__ __forceinline__ void rotate(const T* __restrict__ q,
+                                       const T* __restrict__ vec, int n,
+                                       int tb, const Target<T>& tgt,
+                                       const T* vi, T* acc,
+                                       T (*s_sum)[kTile][3 * B]) {
+  constexpr int NV = 3 * B;
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+#pragma unroll 1
+  for (int quarter = 0; quarter < kWarps; ++quarter) {
+    const int j = tb * kTile + quarter * kLanes + lane;
+    T pj[kQ] = {T(0), T(0), T(1), T(1), T(1)}, vj[NV], accj[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      vj[c] = T(0);
+      accj[c] = T(0);
+    }
+    if (j < n) {
+#pragma unroll
+      for (int c = 0; c < kQ; ++c) pj[c] = q[kQ * j + c];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) vj[c] = vec[(size_t)j * NV + c];
+    }
+    const int next = (lane + 1) % kLanes;
+#pragma unroll 1
+    for (int step = 0; step < kLanes; ++step) {
+      const Geo<T> g = make_geo(tgt, pj);
+      // one path for the warp's 32 pairs: the far form when all are far
+      const bool far = ALL_FAR || __all_sync(0xffffffffu, g.far);
+      const Diag<T> m = far ? condense<T, WALL, false>(g, tgt, pj)
+                            : condense<T, WALL, true>(g, tgt, pj);
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        pairk::diag_apply(m, g.dx, g.dy, vj + 3 * b, acc + 3 * b);
+        pairk::diag_apply_t(m, g.dx, g.dy, vi + 3 * b, accj + 3 * b);
+      }
+#pragma unroll
+      for (int c = 0; c < kQ; ++c)
+        pj[c] = __shfl_sync(0xffffffffu, pj[c], next);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        vj[c] = __shfl_sync(0xffffffffu, vj[c], next);
+        accj[c] = __shfl_sync(0xffffffffu, accj[c], next);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      s_sum[warp][quarter * kLanes + lane][c] = accj[c];
+  }
 }
 
 // One block: one pair of tile groups (GA, GB), GA <= GB, as
-// pairk::sym_kernel, on rows (x, y, z_eff, a).
+// pairk::sym_kernel, on rows (x, y, z_eff, a, 1/a).
 template <typename T, int B, bool WALL>
 __global__ void __launch_bounds__(kTile, (min_blocks<T>()))
 radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
@@ -175,6 +335,7 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   constexpr int L = Row<T, B>::value;
   __shared__ __align__(16) T s_src[kTile][L];
   __shared__ T s_sum[kWarps][kTile][NV];
+  __shared__ T s_box[kWarps][7];
 
   int ga, gb;
   pairk::group_pair(blockIdx.x, n_groups, ga, gb);
@@ -183,8 +344,6 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   const int a_end = min(n_tiles, a_begin + tiles_per_group);
   const int b_begin = gb * tiles_per_group;
   const int b_end = min(n_tiles, b_begin + tiles_per_group);
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
   T* ws_a = ws + (size_t)gb * n * NV;  // target-side sums of group GA
   T* ws_b = ws + (size_t)ga * n * NV;  // source-side sums of group GB
 #pragma unroll 1
@@ -201,8 +360,8 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
 #pragma unroll 1
   for (int ta = a_begin; ta < a_end; ++ta) {
     const int i = ta * kTile + threadIdx.x;
-    // rows past n: far away, unit radius, zero vector
-    T pi[4] = {T(0), T(0), T(1), T(1)}, vi[NV], acc[NV];
+    // rows past n: a blob of unit radius at (0, 0, 1) with a zero vector
+    T pi[kQ] = {T(0), T(0), T(1), T(1), T(1)}, vi[NV], acc[NV];
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
       vi[c] = T(0);
@@ -210,68 +369,45 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
     }
     if (i < n) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) pi[c] = q[4 * i + c];
+      for (int c = 0; c < kQ; ++c) pi[c] = q[kQ * i + c];
 #pragma unroll
       for (int c = 0; c < NV; ++c) vi[c] = vec[(size_t)i * NV + c];
     }
+    const Target<T> tgt = make_target(pi);
+    const Box<T> box_a = tile_box(pi, s_box);
 #pragma unroll 1
     for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
       if (tb == ta) {  // the diagonal tile: every ordered pair, self included
         __syncthreads();  // s_src may still be read for the previous tile
         T* row = s_src[threadIdx.x];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) row[c] = pi[c];
+        for (int c = 0; c < kQ; ++c) row[c] = pi[c];
 #pragma unroll
-        for (int c = 0; c < NV; ++c) row[4 + c] = vi[c];
+        for (int c = 0; c < NV; ++c) row[kQ + c] = vi[c];
         __syncthreads();
         const int count = min(kTile, n - ta * kTile);
         for (int k = 0; k < count; ++k) {
           T src[L];
           pairk::load_row<L>(s_src[k], src);
-          accumulate<T, B, WALL>(pi, src, src + 4, acc);
+          const Geo<T> g = make_geo(tgt, src);
+          const Diag<T> m = condense<T, WALL, true>(g, tgt, src);
+#pragma unroll
+          for (int b = 0; b < B; ++b)
+            pairk::diag_apply(m, g.dx, g.dy, src + kQ + 3 * b, acc + 3 * b);
         }
         continue;
       }
-      // off the diagonal: each quarter of tile b rotates through the warp
-#pragma unroll 1
-      for (int quarter = 0; quarter < kWarps; ++quarter) {
-        const int j = tb * kTile + quarter * kLanes + lane;
-        T pj[4] = {T(0), T(0), T(1), T(1)}, vj[NV], accj[NV];
+      // off the diagonal: the tile pair's path, then its rotations
+      const int j = tb * kTile + threadIdx.x;
+      T pj[kQ] = {T(0), T(0), T(1), T(1), T(1)};
+      if (j < n) {
 #pragma unroll
-        for (int c = 0; c < NV; ++c) {
-          vj[c] = T(0);
-          accj[c] = T(0);
-        }
-        if (j < n) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) pj[c] = q[4 * j + c];
-#pragma unroll
-          for (int c = 0; c < NV; ++c) vj[c] = vec[(size_t)j * NV + c];
-        }
-        const int next = (lane + 1) % kLanes;
-#pragma unroll 1
-        for (int step = 0; step < kLanes; ++step) {
-          const T dx = pi[0] - pj[0], dy = pi[1] - pj[1], dz = pi[2] - pj[2];
-          const Diag<T> m =
-              condense<T, WALL>(dx, dy, dz, pi[2], pj[2], pi[3], pj[3]);
-#pragma unroll
-          for (int b = 0; b < B; ++b) {
-            pairk::diag_apply(m, dx, dy, vj + 3 * b, acc + 3 * b);
-            pairk::diag_apply_t(m, dx, dy, vi + 3 * b, accj + 3 * b);
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            pj[c] = __shfl_sync(0xffffffffu, pj[c], next);
-#pragma unroll
-          for (int c = 0; c < NV; ++c) {
-            vj[c] = __shfl_sync(0xffffffffu, vj[c], next);
-            accj[c] = __shfl_sync(0xffffffffu, accj[c], next);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < NV; ++c)
-          s_sum[warp][quarter * kLanes + lane][c] = accj[c];
+        for (int c = 0; c < kQ; ++c) pj[c] = q[kQ * j + c];
       }
+      if (boxes_far(box_a, tile_box(pj, s_box)))
+        rotate<T, B, WALL, true>(q, vec, n, tb, tgt, vi, acc, s_sum);
+      else
+        rotate<T, B, WALL, false>(q, vec, n, tb, tgt, vi, acc, s_sum);
       __syncthreads();
       pairk::add_source_sums<T, NV>(s_sum, ws_b, tb * kTile + threadIdx.x, n);
       __syncthreads();  // s_sum is refilled by the next tile pair
@@ -300,7 +436,7 @@ int launch_bw(const T* q, const T* vec, T* out, T* ws, int n, int n_groups,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q (n,4) rows (x, y, z_eff, a), vec (n, 3 n_rhs) b-major columns, out
+// q (n,5) rows (x, y, z_eff, a, 1/a), vec (n, 3 n_rhs) b-major columns, out
 // (n, 3 n_rhs), ws (n_groups, n, 3 n_rhs); all contiguous on the device;
 // n > 0, n_rhs 1 or 2, groups of tiles_per_group 128-blob tiles covering
 // n. Returns the CUDA error code of the launches.

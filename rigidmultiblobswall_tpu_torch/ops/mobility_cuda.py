@@ -500,7 +500,8 @@ def radii_matvec(r_vectors, vec, radii, eta, *, wall):
         damp = torch.clamp(r[:, 2] / a, max=1.0)
         r = torch.cat([r[:, :2], torch.maximum(r[:, 2], a)[:, None]], dim=1)
         v = v * damp[None, :, None]
-    q = torch.cat([r, a[:, None]], dim=1).contiguous()          # (N, 4)
+    # (N, 5) rows (x, y, z_eff, a, 1/a), 1/a by the exact division
+    q = torch.cat([r, a[:, None], (1.0 / a)[:, None]], dim=1).contiguous()
     V = v.permute(1, 0, 2).reshape(n, 3 * n_rhs).contiguous()   # b-major
     _check_cuda("radii_matvec", q, V)
     out = torch.empty_like(V)

@@ -1662,6 +1662,104 @@ def test_p1_refuses_what_it_does_not_take(cuda):
                         wall=True)
 
 
+def _far_scene(n, seed):
+    """n blobs on a jittered cubic lattice of spacing 0.7 above the wall,
+    radii in [0.08, 0.3]: every pair of distinct blobs is at least 0.64
+    apart, outside contact."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(n ** (1 / 3)))
+    idx = np.arange(n)
+    r = np.stack([idx % side, (idx // side) % side, idx // side ** 2],
+                 axis=1) * 0.7
+    r = r + rng.uniform(-0.03, 0.03, (n, 3))
+    r[:, 2] += 0.2
+    return r, rng.uniform(0.08, 0.3, n)
+
+
+# pairs inside contact placed across the symmetric sweep's tiles at 20,000
+# blobs (79 groups of two 128-blob tiles): 5 and 300 coincident (tile 0 of
+# group 0 against tile 2 of group 1), 127 overlapping 128 (tiles 0 and 1 of
+# group 0), 40 inside 200 (warp 1 of tile 0 against quarter 2 of tile 1),
+# 1000 and 19000 coincident (groups 3 and 74)
+STRADDLING = ((5, 300, (0.0, 0.0, 0.0), 0.12, 0.28),
+              (127, 128, (0.2, 0.0, 0.0), 0.15, 0.25),
+              (40, 200, (0.0, 0.02, 0.01), 0.1, 0.3),
+              (1000, 19000, (0.0, 0.0, 0.0), 0.2, 0.2))
+
+
+def _straddling_scene(n, seed):
+    """_far_scene with STRADDLING's pairs moved into contact."""
+    r, rad = _far_scene(n, seed)
+    for i, j, d, ai, aj in STRADDLING:
+        r[j] = r[i] + d
+        rad[i], rad[j] = ai, aj
+    return r, rad
+
+
+def _contacts(r, rad, dev):
+    """The number of unordered pairs of distinct blobs inside contact,
+    r_ij <= a_i + a_j."""
+    rt = torch.as_tensor(r, device=dev)
+    at = torch.as_tensor(rad, device=dev)
+    count = 0
+    for i0 in range(0, len(r), 2000):
+        gap = (torch.cdist(rt[i0:i0 + 2000], rt) - at[i0:i0 + 2000, None]
+               - at[None])
+        rows = torch.arange(i0, min(i0 + 2000, len(r)), device=dev)
+        gap[rows - i0, rows] = float("inf")
+        count += int((gap <= 0).sum())
+    return count // 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wall", [True, False])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+@pytest.mark.parametrize("scene", ["far", "straddling"])
+def test_p1_far_and_full_paths_match_plain(cuda, scene, n_rhs, wall, dtype):
+    """P1 where every pair of distinct blobs is far (every step of the
+    rotation on the far path) and where pairs inside contact, coincident
+    ones included, straddle tiles and tile groups off the diagonal (their
+    steps on the full path), at 20,000 blobs: against the float64
+    source-target product on the rows of those pairs and 256 others,
+    float64 to 1e-13 x max|ref|, float32 within max(u32 sqrt(N), twice the
+    float32 plain version's error) as chip_smoke.py's phase 3 holds it;
+    twice bit-identical."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    n = 20000
+    # STRADDLING's placement across tiles and groups is that of this plan,
+    # the H100 SXM's (132 SMs), which radii_matvec takes from the card
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pk.plan_groups(n, n_sm) == (79, 2), n_sm
+    r, rad = (_far_scene if scene == "far" else _straddling_scene)(n, 3)
+    assert _contacts(r, rad, cuda) == (0 if scene == "far" else 4)
+    v = np.random.default_rng(4).normal(size=(n_rhs, n, 3))
+    args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
+    got = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
+    again = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    rows = sorted({k for pair in STRADDLING for k in pair[:2]}
+                  | set(range(0, n, n // 256)))
+    rows = torch.tensor(rows, device=cuda)
+
+    def plain(dt):
+        rr, vv, aa = (x.to(dt) for x in args)
+        return torch.stack([mob.source_target_matvec(
+            rr, rr[rows], vb, aa, aa[rows], 1.3, wall=wall) for vb in vv])
+
+    ref = plain(torch.float64)
+    scale = ref.abs().max()
+    err = (got[:, rows].double() - ref).abs().max() / scale
+    if dtype == torch.float64:
+        assert err <= 1e-13, float(err)
+    else:
+        p32 = (plain(torch.float32).double() - ref).abs().max() / scale
+        bound = max(float(np.finfo(np.float32).eps / 2 * np.sqrt(n)),
+                    2 * float(p32))
+        assert err <= bound, (float(err), bound)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_rhs", [1, 2])
 @pytest.mark.parametrize("radii", [(0.25, 0.45), (0.2, 0.3, 0.45),

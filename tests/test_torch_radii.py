@@ -8,8 +8,10 @@ port against the JAX package, float64 on the CPU (1e-10 unless stated):
   dense_mobility_radii on single_wall and no_wall (the plain version of
   kernel P1); the different-radii blocks are reciprocal, M(j, i) =
   M(i, j)^T, to 1e-13 (P1's symmetric sweep rests on it), and P1's
-  condensed block (csrc/pair_radii.cu's arithmetic, emulated in numpy)
-  is the plain block.
+  condensed block (csrc/pair_radii.cu's arithmetic, emulated in numpy) is
+  the plain block, on its far path and its full path; an emulated warp
+  rotation takes the far path exactly when its 32 pairs are far, with the
+  same bits for a far pair on either path.
 - The saddle operator, the block-diagonal preconditioner,
   dense_blob_mobility and the velocity field with per-blob source radii;
   the matrix-free engine never materializes with mixed radii; the wall
@@ -210,73 +212,79 @@ def test_radii_blocks_are_reciprocal(wall):
     assert float(asym.abs().max() / m.abs().max()) < 1e-13
 
 
-def _p1_block(d, zt, zs, at, as_, wall):
-    """csrc/pair_radii.cu's condense() in numpy (its operations in its
-    order, float64): the five scalars (A, S, P, Q, zz) of the pair's block
-    expanded to 3 x 3."""
+def _p1_condense(d, zt, zs, at, as_, wall, full):
+    """csrc/pair_radii.cu's make_target, make_geo and condense<T, WALL,
+    FULL> in numpy (their operations in their order, float64; 1/a staged
+    by the exact division): the pair's far flag and the five scalars (A, S,
+    P, Q, zz) of its block."""
+    # the target's terms, formed once a tile
+    ia, a2 = 1 / at, at * at
+    ca, z23 = 2 / 3 * a2, 2 / 3 * zt
+    # the geometry and the regime
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     xy2 = dx * dx + dy * dy
-    r2_raw = xy2 + dz * dz
-    zero = ~(r2_raw > 0)
-    r2 = np.where(zero, 1.0, r2_raw)
-    invr = 1.0 / np.sqrt(r2)
-    r = r2 * invr
-    invr2 = invr * invr
-    invr3 = invr2 * invr
-    at2, as2 = at * at, as_ * as_
-    s2 = at2 + as2
-    inv_ab = 1.0 / (at * as_)
-    c1_far = (1 + s2 * invr2 * (1 / 3)) * invr
-    c2_far = (1 - s2 * invr2) * invr3
-    dif = as_ - at
-    dd2 = dif * dif
-    q = dd2 + 3 * r2
-    c1_mid = (0.5 * (at + as_) - q * q * invr3 / 32) * (4 / 3 * inv_ab)
-    w = dd2 - r2
-    c2_mid = w * w * invr3 * invr2 * (0.125 * inv_ab)
-    c1_in = 4 / 3 * np.minimum(at, as_) * inv_ab
-    far = ~zero & (r > at + as_)
-    mid = ~zero & ~far & (r > np.abs(dif))
-    c1 = np.where(far, c1_far, np.where(mid, c1_mid, c1_in))
-    c2 = np.where(far, c2_far, np.where(mid, c2_mid, 0.0))
-    A, S, P, Q, Z = c1, c2, c2 * dz, c2 * dz, c1 + c2 * dz * dz
+    r2 = xy2 + dz * dz
+    sum_ = at + as_
+    far = r2 > sum_ * sum_
+    # the far RPY form (r^2 = 0 gives inf and NaN, never selected)
+    b2 = as_ * as_
+    s2 = a2 + b2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        invr = 1 / np.sqrt(r2)
+        invr2 = invr * invr
+        invr3 = invr2 * invr
+        x = s2 * invr2
+        c1 = (1 + x * (1 / 3)) * invr
+        c2 = invr3 - x * invr3
+        if full:
+            dif = as_ - at
+            dd2 = dif * dif
+            inv_ab = ia * (1 / as_)
+            q = dd2 + 3 * r2
+            c1_mid = (0.5 * (at + as_) - q * q * invr3 * (1 / 32)) * (
+                4 / 3 * inv_ab)
+            w = dd2 - r2
+            c2_mid = w * w * invr3 * invr2 * (0.125 * inv_ab)
+            c1_in = 4 / 3 * np.minimum(ia, 1 / as_)
+            mid = r2 > dd2
+            c1 = np.where(far, c1, np.where(mid, c1_mid, c1_in))
+            c2 = np.where(far, c2, np.where(mid, c2_mid, 0.0))
+    p = c2 * dz
+    A, S, P, Q, Z = c1, c2, p, p, p * dz + c1
     if wall:
+        # each entry by Horner's rule in u = 1/R^2, e = Rz^2 u
         Rz = zt + zs
-        W = 1 / np.sqrt(Rz * Rz + xy2)
+        Rz2 = Rz * Rz
+        W = 1 / np.sqrt(Rz2 + xy2)
         u = W * W
         W3 = W * u
-        W5 = W3 * u
-        W7 = W5 * u
-        W9 = W7 * u
-        Rz2, xy3 = Rz * Rz, zt * zs
-        ca, cb = 2 / 3 * at2, 2 / 3 * as2
-        cab = ca * as2
-        t1c1 = (1 + s2 * u / 3) * W
-        t1c2 = (1 - s2 * u) * W3
-        Aw, Sw, Pw, Qw = -t1c1, -t1c2, t1c2 * Rz, -t1c2 * Rz
-        Zw = t1c1 + t1c2 * Rz2
-        Aw = Aw - 2 * xy3 * W3
-        Sw = Sw + 6 * xy3 * W5
-        p2 = 6 * xy3 * Rz * W5
-        Pw = Pw - 2 * zt * W3 - p2
-        Qw = Qw + 2 * zs * W3 + p2
-        Zw = Zw + 2 * (xy3 * (W3 - 3 * Rz2 * W5) - W - Rz * (zt + zs) * W3)
-        f5, f7 = 3 * W5, 15 * Rz2 * W7
-        ga, gb = ca * zs, cb * zt
-        Aw = Aw + (ga + gb) * 3 * Rz * W5
-        Sw = Sw - (ga + gb) * 15 * Rz * W7
-        Pw = Pw + ca * (f5 * Rz - zs * (f5 - f7)) - gb * (f5 - f7)
-        Qw = Qw + ga * (f5 - f7) - cb * (f5 * Rz - zt * (f5 - f7))
-        zz34 = -W3 + f5 * Rz2
-        zzh = 9 * Rz * W5 - 15 * Rz2 * Rz * W7
-        Zw = Zw + ca * (zz34 - zs * zzh) + cb * (zz34 - zt * zzh)
-        Aw = Aw + cab * (W5 - 5 * Rz2 * W7)
-        Sw = Sw - cab * (5 * W7 - 35 * Rz2 * W9)
-        p5 = cab * Rz * (15 * W7 - 35 * Rz2 * W9)
-        Pw = Pw + p5
-        Qw = Qw - p5
-        Zw = Zw + cab * (-3 * W5 + 30 * Rz2 * W7 - 35 * Rz2 * Rz2 * W9)
-        A, S, P, Q, Z = A + Aw, S + Sw, P + Pw, Q + Qw, Z + Zw
+        e = Rz2 * u
+        x2 = 2 * (zt * zs)
+        h = s2 * (1 / 3)
+        K, M = h + x2, h - x2
+        G = ca * zs + b2 * z23
+        GR = G * Rz
+        cab = ca * b2
+        cabe = cab * e
+        b15 = 15 * GR - 35 * cabe
+        bA = (3 * GR + cab) - 5 * cabe
+        A = W * (u * (u * bA - K) - 1) + A
+        bS = b15 + 5 * cab
+        S = W3 * (u * (3 * K - u * bS) - 1) + S
+        D = (a2 - b2) * Rz
+        E = 3 * (x2 * Rz + G)
+        F = (Rz * u) * (u * (b15 + 15 * cab))
+        P = W3 * (u * (D - E) + (F - dz)) + P
+        Q = W3 * (u * (D + E) - (F + dz)) + Q
+        bZ = GR * (15 * e - 9) + cab * ((30 - 35 * e) * e - 3)
+        Z = W * (u * (u * bZ + (3 * e - 1) * M) - (1 + e)) + Z
+    return far, np.stack([A, S, P, Q, Z], axis=-1)
+
+
+def _p1_expand(d, c):
+    """The 3 x 3 block of the five condensed scalars c (..., 5)."""
+    dx, dy = d[..., 0], d[..., 1]
+    A, S, P, Q, Z = np.moveaxis(c, -1, 0)
     m = np.zeros(dx.shape + (3, 3))
     m[..., 0, 0] = A + S * dx * dx
     m[..., 1, 1] = A + S * dy * dy
@@ -287,25 +295,119 @@ def _p1_block(d, zt, zs, at, as_, wall):
     return m
 
 
+def _plain_blocks(r, rad, ti, si, wall):
+    """The plain blocks M(r_t, r_s; a_t, a_s) of the pairs (ti, si)."""
+    d = torch.tensor(r[ti] - r[si])
+    a, z = torch.tensor(rad), torch.tensor(r[:, 2])
+    ref = trpy.rpy_tt_radii(d, a[ti], a[si])
+    if wall:
+        ref = ref + trpy.wall_tt_radii(d[..., 0], d[..., 1], z[ti] + z[si],
+                                       z[ti], z[si], a[ti], a[si])
+    return ref.numpy()
+
+
 @pytest.mark.parametrize("wall", [True, False])
 def test_p1_condensed_block_is_the_plain_block(wall):
-    """Kernel P1's condensing (the three RPY regimes as selects, the five
-    wall terms folded into A, S, P, Q and zz) gives the plain blocks of
-    every pair, self pairs and one blob inside another included."""
+    """Kernel P1's condensing (the far form with the overlapping and inside
+    regimes selected over it, the wall terms by Horner's rule in 1/R^2,
+    the staged 1/a) gives the plain blocks of every pair, self pairs and
+    one blob inside another included, and the far path alone gives them
+    for the far pairs."""
     r, rad, _ = _blobs(60, seed=4)
     r[:, 2] = np.maximum(r[:, 2], rad)
-    d = r[:, None] - r[None]
+    ti, si = np.indices((60, 60))
+    d = r[ti] - r[si]
     z = r[:, 2]
-    ones = np.ones(d.shape[:2])
-    got = _p1_block(d, z[:, None] * ones, z[None] * ones, rad[:, None] * ones,
-                    rad[None] * ones, wall)
-    dt, a, zt = torch.tensor(d), torch.tensor(rad), torch.tensor(z)
-    ref = trpy.rpy_tt_radii(dt, a[:, None], a[None])
-    if wall:
-        ref = ref + trpy.wall_tt_radii(dt[..., 0], dt[..., 1],
-                                       zt[:, None] + zt[None], zt[:, None],
-                                       zt[None], a[:, None], a[None])
-    assert _rel(got, ref) < 1e-13
+    far, c = _p1_condense(d, z[ti], z[si], rad[ti], rad[si], wall, True)
+    ref = _plain_blocks(r, rad, ti, si, wall)
+    assert _rel(_p1_expand(d, c), ref) < 1e-13
+    assert 0 < far.sum() < far.size - 60
+    _, c_far = _p1_condense(d, z[ti], z[si], rad[ti], rad[si], wall, False)
+    assert _rel(_p1_expand(d[far], c_far[far]), ref[far]) < 1e-13
+
+
+def _warp_scene(inside, seed):
+    """A warp's 32 targets and a quarter's 32 sources (rows 0-31 and
+    32-63) above the wall, radii in [0.1, 0.3], far apart but for `inside`:
+    'none'; 'one' (target 3 overlapping source 32 + 7); 'all' (all 64 within
+    0.05 of a point, so every pair is inside contact); 'coincident' (target
+    9 at source 32 + 20)."""
+    rng = np.random.default_rng(seed)
+    rad = rng.uniform(0.1, 0.3, 64)
+    idx = np.arange(64)
+    r = np.stack([idx % 4, (idx // 4) % 4, idx // 16], axis=1) * 0.8 + 0.4
+    r = r + rng.uniform(-0.05, 0.05, (64, 3))
+    if inside == "one":
+        r[32 + 7] = r[3] + (0.3, 0.0, 0.0)
+        rad[3], rad[32 + 7] = 0.2, 0.25
+    elif inside == "all":
+        r = np.array([1.0, 1.0, 0.6]) + rng.uniform(-0.025, 0.025, (64, 3))
+    elif inside == "coincident":
+        r[32 + 20] = r[9]
+    return r, rad
+
+
+def _boxes_far(rt, at, rs, as_):
+    """csrc/pair_radii.cu's boxes_far on the two tiles' rows: their
+    bounding boxes further apart than their largest radii add up to, with
+    the kernel's margin."""
+    gap = np.maximum(np.maximum(rt.min(0) - rs.max(0), rs.min(0) - rt.max(0)),
+                     0)
+    s = at.max() + as_.max()
+    return (gap * gap).sum() > s * s * 1.0001
+
+
+@pytest.mark.parametrize("wall", [True, False])
+@pytest.mark.parametrize("inside", ["none", "one", "all", "coincident"])
+def test_p1_warp_vote_paths(wall, inside):
+    """One rotation of P1's sweep off the diagonal tile, emulated: at each
+    of the 32 steps lane l pairs target l with source (l + step) mod 32 and
+    the warp takes the far path only when all 32 pairs are far. The far
+    path's block equals the full path's bit for bit on every far pair
+    (float64); every step holding a pair inside contact or a coincident
+    pair takes the full path, and the tile box test (which sends every step
+    of a tile pair down the far path) never passes such a warp; and the
+    sums, M_ij v_j to the target and the transposed block M_ij^T v_i to
+    the source, are the plain products of M(i, j) and M(j, i) to
+    1e-13."""
+    r, rad = _warp_scene(inside, seed=7)
+    r[:, 2] = np.maximum(r[:, 2], rad)
+    z = r[:, 2]
+    v = np.random.default_rng(8).normal(size=(64, 3))
+    lanes = np.arange(32)
+    acc_t = np.zeros((32, 3))
+    acc_s = np.zeros((32, 3))
+    full_steps = []
+    for step in range(32):
+        ti, si = lanes, 32 + (lanes + step) % 32
+        d = r[ti] - r[si]
+        args = (d, z[ti], z[si], rad[ti], rad[si], wall)
+        far, c_full = _p1_condense(*args, True)
+        _, c_far = _p1_condense(*args, False)
+        assert np.array_equal(c_far[far], c_full[far])
+        gap = np.linalg.norm(d, axis=-1) - rad[ti] - rad[si]
+        assert np.array_equal(far, gap > 0)
+        m = _p1_expand(d, c_far if far.all() else c_full)
+        if not far.all():
+            full_steps.append(step)
+        acc_t += np.einsum("lab,lb->la", m, v[si])
+        acc_s[si - 32] += np.einsum("lba,lb->la", m, v[ti])
+    want = {"none": [], "one": [(7 - 3) % 32], "all": list(range(32)),
+            "coincident": [(20 - 9) % 32]}[inside]
+    assert full_steps == want
+    # the tile box test never sends a pair inside contact down the far path
+    if _boxes_far(r[:32], rad[:32], r[32:], rad[32:]):
+        assert not full_steps
+    if inside == "none":   # apart along z, the two tiles' boxes are far
+        r_apart = r[32:] + (0.0, 0.0, 4.0)
+        assert _boxes_far(r[:32], rad[:32], r_apart, rad[32:])
+    ti, si = np.indices((32, 32))
+    m_ts = _plain_blocks(r, rad, ti, si + 32, wall)
+    m_st = _plain_blocks(r, rad, si + 32, ti, wall)
+    ref_t = np.einsum("tsab,sb->ta", m_ts, v[32:])
+    ref_s = np.einsum("stab,tb->sa", m_st.transpose(1, 0, 2, 3), v[:32])
+    assert _rel(acc_t, ref_t) < 1e-13
+    assert _rel(acc_s, ref_s) < 1e-13
 
 
 def test_stacked_products_are_the_single_ones():

@@ -1,9 +1,10 @@
-"""Step times of chip_smoke.py's phase 6 (multibody-49k, Slip-Trapz) and
+"""Step times of chip_smoke.py's phase 6 (multibody-49k, Slip-Trapz),
 phase 15 (multibody-49k-phoretic: forward Euler and Slip-Trapz, the
-concentration field) on a CUDA card, for the package and chip_smoke.py of
-one checkout, in one process:
+concentration field) and phase 18 (multibody-49k-radii: forward Euler and
+Slip-Trapz on kernel P1) on a CUDA card, for the package and chip_smoke.py
+of one checkout, in one process:
 
-    python3 tools/torch_phase_times.py [--root DIR] [--phases 6,15]
+    python3 tools/torch_phase_times.py [--root DIR] [--phases 6,15,18]
 
 DIR defaults to this checkout; another one (e.g. the parent commit
 unpacked with `git archive` into a directory that .gitignore lists)
@@ -31,10 +32,10 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
     p.add_argument("--phases", default="6,15",
-                   help="comma-separated subset of 6 and 15")
+                   help="comma-separated subset of 6, 15 and 18")
     args = p.parse_args()
     phases = [x.strip() for x in args.phases.split(",") if x.strip()]
-    if not set(phases) <= {"6", "15"}:
+    if not set(phases) <= {"6", "15", "18"}:
         raise SystemExit(f"torch_phase_times: unknown phases {phases}")
     if not torch.cuda.is_available():
         raise SystemExit("torch_phase_times: needs a CUDA card")
@@ -43,6 +44,8 @@ def main():
     os.chdir(root)
     import chip_smoke as cs
     from rigidmultiblobswall_tpu_torch.ops import _build
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import laplace as lap
     from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
     from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
 
@@ -62,10 +65,12 @@ def main():
         cs.phase_main_path(pk, mc)
     if "15" in phases:
         cs.phase_phoretic_path(pk, mc)
+    if "18" in phases:
+        cs.phase_radii_path(pk, mc, ck, lap)
     summary = []
     for line in lines:
-        m = re.match(r"(main path|multibody-49k-phoretic \w+) .*?: "
-                     r"([0-9.]+) ms/step", line)
+        m = re.match(r"(main path|multibody-49k-(?:phoretic|radii) \w+) "
+                     r".*?: ([0-9.]+) ms/step", line)
         if m:
             summary.append(f"{m.group(1)} {m.group(2)}")
     print(f"phase times {root}: " + "; ".join(summary) + " ms/step",

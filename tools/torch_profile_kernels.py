@@ -1,7 +1,7 @@
-"""Kernels K1, K2, K5, K6, K7, K8 and L1 at the main paths' shapes on a
-CUDA card.
+"""Kernels K1, K2, K5, K6, K7, K8, L1 and P1 at the main paths' shapes on
+a CUDA card.
 
-    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7,k8,l1]
+    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7,k8,l1,p1]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -58,7 +58,11 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   operator, the single layer and the surface gradient on the symmetric
   sweep, the field's D and S on the directed sweep; but for --baseline
   also each one's plan and bound, and dD and T (not on the path) on the
-  symmetric sweep.
+  symmetric sweep;
+- p1 (csrc/pair_radii.cu): B = 1 and 2 at chip_smoke.py phase 18's shape
+  (49,152 blobs of two radii above the wall) as the path calls it; but
+  for --baseline also its plan, the pairs inside contact, its bound and
+  the all-regime one (chip_smoke.py p1_bound).
 But for --baseline it prints the ptxas registers and spills of the chosen
 kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
@@ -68,7 +72,8 @@ calls (for k8 also the LDS, FFMA, FADD and FMUL of each loop of its
 instances' SASS: the Clenshaw loops; for l1, of the path's float32 wall
 instances, each pair loop's MUFU, SHFL, LDS, FFMA,
 FADD, FMUL and FSEL a pair, a pair counted by its two MUFU.RSQ, the real
-source's and the image's); --sass-out (default
+source's and the image's; for p1, each path through each pair loop, its
+instructions and those ops a pair); --sass-out (default
 build/kernels_sass.txt) receives
 the counts and those instances' listing. Checks against the plain
 versions are chip_smoke.py's and the card tests'.
@@ -103,7 +108,8 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
              "l1": ("l1_sym<float, 4, true", "l1_sym<float, 0, true",
                     "l1_sym<float, 5, true",
                     "l1_directed<float, 1, true, false",
-                    "l1_directed<float, 0, true, false")}
+                    "l1_directed<float, 0, true, false"),
+             "p1": ("radii_sym_kernel<",)}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -731,9 +737,58 @@ def profile_l1(cs, dev, detail):
               f"{ms:.3f} ms, {share}", flush=True)
 
 
+# ---------------------------------------------------------------- P1
+
+def p1_scene(cs, dev):
+    """chip_smoke.py phase 18's blobs and radii (4096 bidisperse shells,
+    49,152 blobs), float32."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system = cs.radii_system(cs.N_SHELLS)
+    pos, quat = cs.alternate(*cs.lattice(cs.N_SHELLS))
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    rb = kin.blob_positions(system, state).contiguous()
+    return rb, torch.tensor(system.blob_radii, dtype=torch.float32,
+                            device=dev)
+
+
+def profile_p1(cs, dev, detail):
+    """Prints P1's time at phase 18's shape, B = 1 and 2, as the path calls
+    it (mobility_cuda.radii_matvec) and, with detail, its plan and both
+    bounds (chip_smoke.py p1_bound)."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    rb, radii = p1_scene(cs, dev)
+    nb = rb.shape[0]
+    g = torch.Generator(device=dev).manual_seed(18)
+    vs = {b: torch.randn((b, nb, 3), generator=g, device=dev)
+          for b in (1, 2)}
+    # an older checkout's chip_smoke.py (--root) may lack P1's bounds
+    detail = detail and hasattr(cs, "p1_bound")
+    for n_rhs, v in vs.items():
+        ms = cs.cuda_ms(lambda: mc.radii_matvec(rb, v, radii, 1.0,
+                                                wall=True), 10)
+        head = f"  P1 {nb} blobs B={n_rhs} f32 wall"
+        if not detail:
+            print(f"{head}: {ms:.3f} ms", flush=True)
+            continue
+        _, contacts = cs.blob_contacts(rb, radii)
+        rec, every = cs.p1_bound(nb, contacts, n_rhs)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        groups, per = pk.plan_groups(nb, n_sm)
+        print(f"{head}, symmetric sweep, {groups} groups of {per} tiles, "
+              f"{contacts} pairs inside contact: {ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+              f"{rec['bound_ms'] / ms:.1%}; the all-regime count "
+              f"{every['bound_ms']:.3f} ms, {every['bound_ms'] / ms:.1%}",
+              flush=True)
+
+
 PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
             "k6": profile_k6, "k7": profile_k7, "k8": profile_k8,
-            "l1": profile_l1}
+            "l1": profile_l1, "p1": profile_p1}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -771,7 +826,8 @@ def sass_counts(lib_path, kernels, out_path):
         names = [d.replace("(anonymous namespace)::", "").split("(", 1)[0]
                  for d in dem.splitlines()]
     counts, listing = [], []
-    loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1") if k in kernels}
+    loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1", "p1")
+                if k in kernels}
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
             continue
@@ -789,6 +845,8 @@ def sass_counts(lib_path, kernels, out_path):
             counts += [f"  {ln}" for ln in sass_loops(body)]
         if any(f in name for f in loops_of.get("l1", ())):
             counts += [f"  {ln}" for ln in sass_pair_loops(body)]
+        if any(f in name for f in loops_of.get("p1", ())):
+            counts += [f"  {ln}" for ln in sass_step_paths(body)]
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
         counts = [f"no instance found (cuobjdump exit {out.returncode}: "
@@ -868,12 +926,80 @@ def sass_pair_loops(body):
     return out or ["no loop with MUFU.RSQ"]
 
 
+STEP_OPS = PAIR_OPS + ("VOTE",)
+PRED_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_step_paths(body):
+    """P1's pair loops, one pair a thread an iteration (the innermost loops
+    holding MUFU.RSQ): the rotation's (SHFL; "voted" where it holds the
+    warp vote, VOTE) and the diagonal tile's (LDS). Each path through a
+    loop's body from its head to its back branch, by the branches taken,
+    with its instructions a pair and STEP_OPS; in the voted rotation the
+    shortest path is the far one, the longest the full one."""
+    instrs = []
+    for ln in body:
+        m = PRED_LINE.search(ln)
+        if m:
+            instrs.append((int(m.group(1), 16), bool(m.group(2)),
+                           m.group(3), m.group(4)))
+    index = {a: k for k, (a, _, _, _) in enumerate(instrs)}
+
+    def target(k):
+        _, _, op, rest = instrs[k]
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.split(".")[0] != "BRA" or t is None:
+            return None
+        return index.get(int(t.group(1), 16))
+
+    out = []
+    for hi in range(len(instrs)):
+        lo = target(hi)
+        if lo is None or lo > hi:
+            continue
+        ops = [o for _, _, o, _ in instrs[lo:hi + 1]]
+        inner = any((t := target(k)) is not None and lo <= t < k
+                    for k in range(lo, hi))
+        if inner or not any(o.startswith("MUFU.RSQ") for o in ops):
+            continue
+        kind = ("rotation" if any(o.startswith("SHFL") for o in ops)
+                else "diagonal tile")
+        if any(o.startswith("VOTE") for o in ops):
+            kind += ", voted"
+        paths, stack = set(), [(lo, ())]
+        while stack and len(paths) < 64:
+            k, path = stack.pop()
+            while lo <= k <= hi:
+                path = path + (instrs[k][2],)
+                t = target(k)
+                if instrs[k][2].split(".")[0] == "EXIT":
+                    break
+                if t is None:
+                    k += 1
+                    continue
+                if k == hi or t <= k:
+                    break   # the back branch
+                pred, rest = instrs[k][1], instrs[k][3]
+                if pred or re.match(r"\s*!?U?P\d", rest):
+                    stack.append((k + 1, path))
+                k = t
+            paths.add(path)
+        for path in sorted(paths, key=len):
+            hist = {o: sum(x.split(".")[0] == o for x in path)
+                    for o in STEP_OPS}
+            out.append(f"{kind} loop {instrs[lo][0]:#x}-{instrs[hi][0]:#x}"
+                       f", a path: {len(path)} instructions a pair: "
+                       + ", ".join(f"{o} {v}" for o, v in hist.items()))
+    return out or ["no pair loop (MUFU.RSQ)"]
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
-    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1",
+    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1",
                    help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
-                        "l1")
+                        "l1, p1")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",
