@@ -15,8 +15,8 @@ is non-zero and no result line is printed):
      csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) and
      L1, the Laplace layer sums (csrc/laplace_layers.cu), M1, the
      MCMC pair energy (csrc/blob_energy.cu), P1, the radii pair product
-     (csrc/pair_radii.cu), and P2, the mixed-radii near field
-     (csrc/near_rpy.cu's radii instance), with one nvcc per source,
+     (csrc/pair_radii.cu), and P2, the mixed-radii near field's pair list
+     and list product (csrc/near_radii.cu), with one nvcc per source,
      all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
@@ -260,13 +260,15 @@ is non-zero and no result line is printed):
      (spectral-98k-radii): phase 8's box (8192 shells, 98,304 blobs, L =
      33.6, tolerance 1e-4, grid at most 256, linked-cell forces, float32)
      with phase 18's mixture, two radius groups; the plan's host tables
-     timed, P2 (the mixed-radii near field, csrc/near_rpy.cu's radii
-     instance) at its shape against its float64 plain version (the first
-     256 target cells, B = 1 and 2, twice bit-identical; a kernel record),
-     then one warm-up and three timed Slip-Trapz steps: ms/step,
-     iterations, overflows (0), peak device memory and the launches (P2
-     and K5 must run, K6 must not). Phase 3 also holds P2 on a random
-     3000-blob periodic box of three radius groups.
+     timed, P2 (the mixed-radii near field, csrc/near_radii.cu: the
+     plan's pair list and the product over it) at its shape against its
+     float64 plain versions (the first 256 target cells; the product with
+     B = 1 and 2, twice bit-identical; the build and the products timed
+     apart, a kernel record each), then one warm-up and three timed
+     Slip-Trapz steps: ms/step, iterations, overflows (0), peak device
+     memory and the launches (P2's builds and products and K5 must run,
+     K6 must not). Phase 3 also holds P2 on a random 3000-blob periodic
+     box of three radius groups, with its build and product timed.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -299,7 +301,8 @@ and the operations at 67 TFLOP/s, the H100's published float32 peak, or for
 K5, L1 and M1 their special functions at 16 a clock an SM, whichever
 is larger; K2, K7, L1 and M1 also name their design, L1 its plan; K8,
 L1 and M1 have a record per instance; P1 and P2 name their plan and
-registers, P1 with a record per B);
+registers, P1 with a record per B, P2 one for its build and one per B;
+M1's batch carries the floor an empty launch sets);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -4416,7 +4419,11 @@ def phase_m1_kernels(pk, mc, kin, make_state):
     float32 as the chain calls it and float64: the 49,152 blobs of phase
     6's scene (several tiles a group) and the rejection sampler's batch of
     4096 twelve-blob configurations, each timed in float32 with its plain
-    version and its bound. Returns the two records."""
+    version and its bound; the batch takes the small instance, timed
+    beside the tile sweep on the same batch and an empty launch. Returns
+    the two records."""
+    from rigidmultiblobswall_tpu_torch.ops import _build
+
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     n = 3000
@@ -4460,10 +4467,27 @@ def phase_m1_kernels(pk, mc, kin, make_state):
         groups, per = pk.plan_groups(nb, n_sm)
         f32_ms = pairs * ENERGY_PAIR_FLOPS / PEAK_F32_FLOPS * 1e3
         sfu_ms = pairs * ENERGY_PAIR_MUFU / PEAK_SFU_PER_S * 1e3
-        log(f"M1 {what} f32 ({groups} tile groups of {per} tiles, "
-            f"{groups * (groups + 1) // 2} group pairs x {n_conf} "
-            f"configurations) vs plain f64: max err {err:.3e}, / max|ref| "
-            f"= {rel:.3e} (bound {bound:.2e}{plain_txt}); repeat "
+        small = nb <= mc.ENERGY_SMALL_MAX
+        if small:
+            # the small instance beside the tile sweep on the same batch,
+            # and the floor an empty launch of the library sets
+            tile_ms = cuda_ms(lambda: mc.energy_kernel(
+                rb, **kw, periodic_length=(0.0, 0.0, 0.0), small=False), 10)
+            lib = _build.library()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            floor_ms = cuda_ms(lambda: _build.check(
+                "launch_floor", lib.launch_floor(stream)), 10)
+            design = (f"the small instance, one warp a configuration, "
+                      f"{n_conf} configurations in one launch (the tile "
+                      f"sweep {tile_ms:.4f} ms; an empty launch "
+                      f"{floor_ms:.4f} ms)")
+            rec.update(launch_floor_ms=floor_ms, tile_sweep_ms=tile_ms)
+        else:
+            design = (f"{groups} tile groups of {per} tiles, "
+                      f"{groups * (groups + 1) // 2} group pairs x {n_conf} "
+                      f"configurations")
+        log(f"M1 {what} f32 ({design}) vs plain f64: max err {err:.3e}, / "
+            f"max|ref| = {rel:.3e} (bound {bound:.2e}{plain_txt}); repeat "
             f"bit-identical {same}; kernel {ms:.3f} ms, plain f32 "
             f"{plain_ms:.1f} ms; bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}, {pairs} unordered pairs: float32 "
@@ -4480,9 +4504,11 @@ def phase_m1_kernels(pk, mc, kin, make_state):
             f"{same64}")
         check(rel64 <= bound64, f"M1 f64 disagrees at {what} ({rel64:.3e})")
         check(same64, f"M1 f64 not bit-identical on repeat at {what}")
-        records[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            design="symmetric sweep over tile groups, "
-                                   "fixed-order float64 sums", **rec)
+        records[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            design=("one warp a configuration, fixed-order float64 sums"
+                    if small else "symmetric sweep over tile groups, "
+                    "fixed-order float64 sums"), **rec)
     return records
 
 
@@ -5087,6 +5113,29 @@ def p1_bound(n, contacts, n_rhs, wall=True):
 # P2 beyond K6's per-pair count: the piece map (two compares, a select and
 # the (mid, 2 / width) multiply-add)
 P2_PIECE_FLOPS = 6
+# P2's list (csrc/near_radii.cu pairs_kernel), an FMA as 2: a candidate's
+# three differences, r^2 (5) and its compare with r_cut^2
+P2_LIST_CAND_FLOPS = 9
+
+
+def p2_product_bound(n, inside, listed, K, n_rhs):
+    """P2's product bound record: the pairs inside r_cut at K6's count
+    with the piece map (8 + 6 + 6 + 6K + 18 B operations), against the
+    bytes of the list (offsets and entries), the rows (N, 4), the
+    strengths in and the rows out, each once."""
+    flops = inside * (8 + P2_PIECE_FLOPS + 6 + 6 * K + 18 * n_rhs)
+    nbytes = 4 * (n + 1 + listed) + 4 * n * (4 + 2 * 3 * n_rhs)
+    return bound_record(nbytes, flops)
+
+
+def p2_list_bound(n, cand, listed, table):
+    """P2's list bound record: every candidate pair of the stencils tested
+    once (P2_LIST_CAND_FLOPS), against the bytes of the positions, groups
+    and cell table read once and of the offsets, entries and rows (N, 4)
+    written once."""
+    nbytes = 4 * n * (3 + 1) + 4 * table.numel() + 4 * (n + 1 + listed) \
+        + 16 * n
+    return bound_record(nbytes, cand * P2_LIST_CAND_FLOPS)
 
 
 def instance_registers(report, *needles):
@@ -5190,10 +5239,8 @@ def phase_radii_kernels(mc, report):
     1e-12 and float32 within 3e-6 x max|ref| or twice the float32 plain
     version's error (printed beside it), each twice bit-identical; then at
     phase 18's shape (49,152 blobs, the first 1024 targets), B = 1 and 2,
-    timed with its plain version and its bound. P2 against its float64
-    plain version on a small G = 3 periodic box and at phase 19's shape
-    (the first 256 target cells). Returns P1's two records (P2's comes
-    from phase 19)."""
+    timed with its plain version and its bound. Returns P1's two records
+    (P2 is phase_p2_small's and phase 19's)."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     n = 3000
@@ -5280,17 +5327,19 @@ def phase_radii_kernels(mc, report):
 
 
 def p2_vs_plain(ck, plan, f, cells_range=None):
-    """P2 against its float64 plain version on the plan's cells (or
-    cells_range), twice bit-identical; with float32 inputs also the
-    float32 plain version's error. Returns (max err, max|ref|, plain f32
-    err or None, bit-identical)."""
+    """P2's product over the plan's list against the float64 plain sweep
+    (the walk's plain version) on the plan's cells (or cells_range),
+    twice bit-identical and bit-identical to the stateless call (its own
+    list); with float32 inputs also the float32 plain version's error.
+    Returns (max err, max|ref|, plain f32 err or None, bit-identical)."""
     p = plan.params
     args = (plan.cell_table, plan.cell_dims, p.box, p.cell_capacity)
-    got = ck.near_rpy_radii(plan.positions, f, plan.group_of, *args,
-                            plan.cheb_radii, plan.radii_edges, r_cut=p.r_cut)
-    same = torch.equal(got, ck.near_rpy_radii(
-        plan.positions, f, plan.group_of, *args, plan.cheb_radii,
-        plan.radii_edges, r_cut=p.r_cut))
+    call = (plan.positions, f, plan.group_of, *args, plan.cheb_radii,
+            plan.radii_edges)
+    got = ck.near_rpy_radii(*call, r_cut=p.r_cut, pairs=plan.radii_pairs)
+    same = (torch.equal(got, ck.near_rpy_radii(*call, r_cut=p.r_cut,
+                                               pairs=plan.radii_pairs))
+            and torch.equal(got, ck.near_rpy_radii(*call, r_cut=p.r_cut)))
     torch.cuda.synchronize()
     def plain(dtype):
         return ck.near_rpy_radii_plain(
@@ -5309,12 +5358,80 @@ def p2_vs_plain(ck, plan, f, cells_range=None):
     return err, ref[rows].abs().max().item(), p32, same
 
 
+def p2_list_vs_plain(ck, plan, cells_range=None):
+    """P2's list (the plan's, and a second build bit-identical to it)
+    against the plain list's in float64 on the plan's cells (or
+    cells_range): the same entries in the same order but for pairs within
+    the positions' rounding of r_cut (|r^2 / r_cut^2 - 1| <= 8 ulps), each
+    counted. Returns (pairs of those targets in the list, pairs that
+    differ, the largest |r - r_cut| of one of them (0 when none), the
+    second build bit-identical)."""
+    p = plan.params
+    got = plan.radii_pairs
+    again = ck.near_radii_pairs(plan.positions, plan.group_of,
+                                plan.cell_table, plan.cell_dims, p.box,
+                                p.cell_capacity, r_cut=p.r_cut)
+    same = (torch.equal(got.offsets, again.offsets)
+            and torch.equal(got.entries, again.entries))
+    ref = ck.near_radii_pairs_plain(
+        plan.positions.double(), plan.group_of, plan.cell_table,
+        plan.cell_dims, p.box, p.cell_capacity, r_cut=p.r_cut,
+        cells_range=cells_range)
+    rows = _rows_of(plan.cell_table, plan.positions.shape[0],
+                    p.cell_capacity, cells_range)
+    mine = torch.zeros(plan.positions.shape[0], dtype=torch.bool,
+                       device=rows.device)
+    mine[rows] = True
+
+    n = plan.positions.shape[0]
+
+    def keys(pairs):
+        """(target, image code, source) of each pair of those targets, as
+        one int64, in the list's order"""
+        tid, sid, wrap = ck.decode_pairs(pairs)
+        keep = mine[tid]
+        code = ((wrap[keep, 0] + 1) * 9 + (wrap[keep, 1] + 1) * 3
+                + wrap[keep, 2] + 1)
+        return (tid[keep] * 27 + code) * n + sid[keep]
+
+    kg, kr = keys(got), keys(ref)
+    differ = torch.cat([kg[~torch.isin(kg, kr)], kr[~torch.isin(kr, kg)]])
+    worst = 0.0
+    if differ.numel():
+        tid, sid = differ // n // 27, differ % n
+        code = differ // n % 27
+        wrap = torch.stack([code // 9, code // 3 % 3, code % 3], 1) - 1
+        pos = plan.positions.double()
+        d = pos[tid] - pos[sid] - wrap.double() * torch.tensor(
+            p.box, dtype=torch.float64, device=pos.device)
+        r = d.norm(dim=1)
+        worst = float((r - p.r_cut).abs().max())
+        ulps = float(((r / p.r_cut) ** 2 - 1).abs().max()) / float(
+            torch.finfo(plan.positions.dtype).eps)
+        check(ulps <= 8, f"P2 list: a pair {ulps:.1f} ulps from r_cut "
+              "differs from the plain list")
+    common_g = kg[torch.isin(kg, kr)]
+    common_r = kr[torch.isin(kr, kg)]
+    check(torch.equal(common_g, common_r), "P2 list: the order of the "
+          "pairs differs from the plain list's")
+    return kg.numel(), int(differ.numel()), worst, same
+
+
+def p2_list_text(listed, differ, worst, same):
+    return (f"{listed} pairs, {differ} differing from the plain list "
+            f"(float64) within rounding of r_cut (largest |r - r_cut| "
+            f"{worst:.3e}); a second build bit-identical {same}")
+
+
 def phase_p2_small(ck, ewald):
     """Phase 3, P2 on a random periodic box of 3000 blobs in three radius
-    groups (a coincident pair, a pair one inside the other): B = 1 and 2,
-    float32 at 3e-6 x max|ref| (or twice the float32 plain version's
-    error, printed beside it) and float64 at 1e-12 against the plain
-    version in float64, twice bit-identical."""
+    groups (a coincident pair, a pair one inside the other): the plan's
+    pair list against the plain list's in float64, then the product
+    over it with B = 1 and 2, float32 at 3e-6 x max|ref| (or twice the
+    float32 plain version's error, printed beside it) and float64 at
+    1e-12 against the plain sweep in float64, twice bit-identical and
+    bit-identical to the stateless call; in float32 the build and the
+    product (B = 1) timed apart beside their plain versions and bounds."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(5)
     n, L = 3000, 14.0
@@ -5330,6 +5447,10 @@ def phase_p2_small(ck, ewald):
                                                   device=dev),
                                group_of=torch.as_tensor(groups, device=dev))
         check(int(plan.n_dropped_cells) == 0, "P2 scene overflows")
+        listed, differ, worst, same = p2_list_vs_plain(ck, plan)
+        log(f"P2 list {n} blobs G=3 {dtype}: "
+            f"{p2_list_text(listed, differ, worst, same)}")
+        check(same, f"P2 list {dtype} not bit-identical on repeat")
         for n_rhs in (1, 2):
             f = torch.as_tensor(f6[:, :3 * n_rhs], dtype=dtype,
                                 device=dev).contiguous()
@@ -5343,6 +5464,57 @@ def phase_p2_small(ck, ewald):
                 f"bit-identical {same}")
             check(err <= bound_b * scale, f"P2 disagrees ({err / scale:.3e})")
             check(same, f"P2 B={n_rhs} {dtype} not bit-identical on repeat")
+        if dtype == torch.float32:
+            p2_timed(ck, plan, f6, what=f"{n} blobs G=3")
+
+
+def p2_timed(ck, plan, f_np, what, rhs=(1,)):
+    """P2's build and product (each B of rhs) on this plan, timed apart
+    (CUDA events) beside their plain versions (the plain list build and the
+    plain product over the same list, float32) and their bounds; logs
+    them and returns (build record, {B: product record}, (candidates,
+    inside, listed))."""
+    p = plan.params
+    n = plan.positions.shape[0]
+    args = (plan.positions, plan.group_of, plan.cell_table, plan.cell_dims,
+            p.box, p.cell_capacity)
+    build_ms = cuda_ms(lambda: ck.near_radii_pairs(*args, r_cut=p.r_cut), 10)
+    build_plain_ms = cuda_ms(lambda: ck.near_radii_pairs_plain(
+        *args, r_cut=p.r_cut), 1, warmup=False)
+    cand, inside = ck.pair_counts(plan.positions, plan.cell_table,
+                                  plan.cell_dims, p.box, p.cell_capacity,
+                                  p.r_cut)
+    listed = int(plan.radii_pairs.offsets[-1])
+    build = p2_list_bound(n, cand, listed, plan.cell_table)
+    log(f"P2 list {what} f32: build {build_ms:.3f} ms (count and fill), "
+        f"plain {build_plain_ms:.1f} ms; {cand} candidate pairs, {listed} "
+        f"listed ({inside} inside r_cut by pair_counts), "
+        f"{4 * (n + 1 + listed) / 2 ** 20:.1f} MiB; bound "
+        f"{build['bound_ms']:.4f} ms ({build['bound_by']}, "
+        f"{build['bound_ms'] / build_ms:.1%} of it)")
+    build.update(ms=build_ms, plain_ms=build_plain_ms)
+    K = plan.cheb_radii.shape[-1]
+    products = {}
+    for n_rhs in rhs:
+        f = torch.as_tensor(f_np[:, :3 * n_rhs], dtype=plan.positions.dtype,
+                            device=plan.positions.device).contiguous()
+        call = (plan.positions, f, plan.group_of, plan.cell_table,
+                plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
+                plan.radii_edges)
+        ms = cuda_ms(lambda: ck.near_rpy_radii(
+            *call, r_cut=p.r_cut, pairs=plan.radii_pairs), 10)
+        plain_ms = cuda_ms(lambda: ck.near_rpy_radii_pairs_plain(
+            plan.radii_pairs, f, plan.cheb_radii, plan.radii_edges, p.box,
+            r_cut=p.r_cut), 1, warmup=False)
+        rec = p2_product_bound(n, inside, listed, K, n_rhs)
+        log(f"P2 product {what} B={n_rhs} f32: {ms:.3f} ms, plain over the "
+            f"list {plain_ms:.1f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {inside} pairs inside r_cut at "
+            f"{8 + P2_PIECE_FLOPS + 6 + 6 * K + 18 * n_rhs} operations, "
+            f"K = {K}; {rec['bound_ms'] / ms:.1%} of it)")
+        rec.update(ms=ms, plain_ms=plain_ms)
+        products[n_rhs] = rec
+    return build, products, (cand, inside, listed)
 
 
 def phase_radii_parity(mc):
@@ -5521,13 +5693,15 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
     """Phase 19, spectral-98k-radii: phase 8's box (8192 shells, 98,304
     blobs, L = 33.6, tolerance 1e-4, grid at most 256, linked-cell forces)
     with the mixture alternating on its lattice, G = 2, float32: the plan
-    and its host tables (timed), P2 at its shape against the float64 plain
-    version (the first 256 target cells, B = 1 and 2, float32 within u32
-    sqrt(27 cap) or twice the float32 plain version's error, twice
-    bit-identical; B = 1 timed with its plain version and bound), then one
-    warm-up and three timed Slip-Trapz steps: ms/step, iterations, peak
-    memory, launches (P2 and K5 must run, K6 must not). Returns P2's record
-    with its launches over the steps."""
+    and its host tables (timed), P2 at its shape: the plan's pair list
+    against the plain list's in float64 (the first 256 target cells),
+    the product over it against the float64 plain sweep (B = 1 and 2,
+    float32 within u32 sqrt(27 cap) or twice the float32 plain version's
+    error, twice bit-identical), the build and the products timed apart
+    with their plain versions and bounds; then one warm-up and three timed
+    Slip-Trapz steps: ms/step, iterations, peak memory, launches (P2's
+    builds and products and K5 must run, K6 must not). Returns P2's
+    records (the build, B = 1, B = 2) with their launches over the steps."""
     from rigidmultiblobswall_tpu_torch.models import integrators, saddle
     from rigidmultiblobswall_tpu_torch.models import kinematics as kin
     from rigidmultiblobswall_tpu_torch.models.system import make_state
@@ -5553,9 +5727,14 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
         f"{int(plan.n_dropped_cells)}")
     g = torch.Generator(device=dev).manual_seed(19)
     sub = (0, 256)
-    record = None
+    listed, differ, worst, same = p2_list_vs_plain(ck, plan, sub)
+    log(f"P2 list {n} blobs f32, first {sub[1]} target cells: "
+        f"{p2_list_text(listed, differ, worst, same)}")
+    check(same, f"P2 list not bit-identical on repeat at {n} blobs")
+    f_all = torch.randn((n, 6), generator=g, device=dev)
+    errs = {}
     for n_rhs in (1, 2):
-        f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        f = f_all[:, :3 * n_rhs].contiguous()
         err, scale, p32, same = p2_vs_plain(ck, plan, f, cells_range=sub)
         bound_rel = max(u32_sqrt(27 * p.cell_capacity), 2 * p32 / scale)
         log(f"P2 {n} blobs B={n_rhs} f32, first {sub[1]} target cells vs "
@@ -5565,32 +5744,25 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
             f"{same}")
         check(err <= bound_rel * scale, f"P2 disagrees at {n} blobs")
         check(same, f"P2 B={n_rhs} not bit-identical on repeat at {n} blobs")
-        if n_rhs == 1:
-            args = (plan.positions, f, plan.group_of, plan.cell_table,
-                    plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
-                    plan.radii_edges)
-            ms = cuda_ms(lambda: ck.near_rpy_radii(*args, r_cut=p.r_cut), 10)
-            plain_ms = cuda_ms(lambda: ck.near_rpy_radii_plain(
-                *args, r_cut=p.r_cut), 1, warmup=False)
-            cand, inside = ck.pair_counts(plan.positions, plan.cell_table,
-                                          plan.cell_dims, p.box,
-                                          p.cell_capacity, p.r_cut)
-            K = plan.cheb_radii.shape[-1]
-            flops = inside * (8 + P2_PIECE_FLOPS + 6 + 6 * K + 18)
-            nbytes = (4 * (n * 3 + 2 * n * 3) + 4 * n
-                      + plan.cell_table.numel() * 4)
-            rec = bound_record(nbytes, flops)
-            regs = instance_registers(report, "near_rpy_kernel",
-                                      "<float, 1, true>")
-            log(f"P2 {n} blobs B=1 f32: kernel {ms:.3f} ms, plain f32 "
-                f"{plain_ms:.1f} ms; {cand} candidate pairs, {inside} inside "
-                f"r_cut; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-                f"{rec['bound_ms'] / ms:.1%} of it); ptxas {regs}")
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          registers=regs,
-                          plan=f"one block a target cell, {plan.cell_dims} "
-                               f"cells x cap {p.cell_capacity}, G = "
-                               f"{len(p.radii)}", **rec)
+        errs[n_rhs] = err
+    build, products, _ = p2_timed(ck, plan, f_all.cpu().numpy(),
+                                  f"{n} blobs", rhs=(1, 2))
+    plan_txt = (f"{plan.cell_dims} cells x cap {p.cell_capacity}, G = "
+                f"{len(p.radii)}")
+    records = {"build": dict(
+        max_abs_err=worst, registers=instance_registers(
+            report, "pairs_kernel<float, true>"),
+        plan=f"one block a target cell, {plan_txt}, {listed} pairs of the "
+             f"first {sub[1]} cells checked, {differ} within rounding of "
+             f"r_cut", **build)}
+    for n_rhs, rec in products.items():
+        records[n_rhs] = dict(
+            max_abs_err=errs[n_rhs], registers=instance_registers(
+                report, "product_kernel", f"<float, {n_rhs}>"),
+            plan=f"one warp a target over the plan's list, {plan_txt}",
+            **rec)
+    for key, rec in records.items():
+        log(f"P2 {key} ptxas {rec['registers']}")
     del plan
 
     step = integrators.make_stepper(
@@ -5620,6 +5792,7 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     launches = {"P2 B=1": ck.LAUNCHES["near_rpy_radii_b1"],
                 "P2 B=2": ck.LAUNCHES["near_rpy_radii_b2"],
+                "P2 build": ck.LAUNCHES["near_radii_pairs"],
                 "K5": ck.LAUNCHES["nl_forces"],
                 "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"]}
     others = _other_launches(pk, mc, ck, lap)
@@ -5633,13 +5806,16 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
           "spectral-98k-radii: positions not finite")
     check(min(det) > 0 and min(sto) > 0 and max(ovf) == 0,
           f"spectral-98k-radii: gmres {det}, lanczos {sto}, overflows {ovf}")
-    check(launches["P2 B=1"] > 0 and launches["K5"] > 0,
+    check(min(launches["P2 B=1"], launches["P2 B=2"], launches["P2 build"],
+              launches["K5"]) > 0,
           f"spectral-98k-radii: P2 or K5 not launched ({launches})")
     check(launches["K6"] == 0, f"spectral-98k-radii: K6 launched "
           f"({launches})")
-    record["launches"] = launches["P2 B=1"] + launches["P2 B=2"]
+    records["build"]["launches"] = launches["P2 build"]
+    for n_rhs in (1, 2):
+        records[n_rhs]["launches"] = launches[f"P2 B={n_rhs}"]
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
-    return record
+    return records
 
 
 def main():
@@ -5732,7 +5908,7 @@ def main():
     fiber_launches = phase_fiber_path(pk, mc)               # phase 17
     from rigidmultiblobswall_tpu_torch.ops import laplace as lap
     p1_launches = phase_radii_path(pk, mc, ck, lap)         # phase 18
-    p2_record = phase_radii_spectral_path(pk, mc, ck, lap, report)  # 19
+    p2_records = phase_radii_spectral_path(pk, mc, ck, lap, report)  # 19
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -5869,10 +6045,14 @@ def main():
             source="rigidmultiblobswall_tpu_torch/csrc/pair_radii.cu",
             replaces="rigidmultiblobswall_tpu/ops/mobility.py:540",
             launches=p1_launches[n_rhs], **p1_records[n_rhs]))
-    kernels.append(dict(
-        name="P2 near_rpy_radii", route="cuda",
-        source="rigidmultiblobswall_tpu_torch/csrc/near_rpy.cu",
-        replaces="rigidmultiblobswall_tpu/ops/ewald.py:1222", **p2_record))
+    for key, name in (("build", "P2 near_radii_pairs (the list build)"),
+                      (1, "P2 near_rpy_radii (the list product)"),
+                      (2, "P2 near_rpy_radii B=2 (the list product)")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="rigidmultiblobswall_tpu_torch/csrc/near_radii.cu",
+            replaces="rigidmultiblobswall_tpu/ops/ewald.py:1222",
+            **p2_records[key]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,22 @@
 // order) to one partial; sum_partials adds each configuration's partials in
 // a fixed order. No atomics: the result is bit-identical on repeat. The
 // energy is returned in float64 for float32 positions too.
+//
+// The small-configuration instance (energy_small_kernel), for n <= one
+// 128-blob tile (the wrapper's fixed rule, ops/mobility_cuda.py
+// ENERGY_SMALL_MAX): the rejection sampler's batch of 4096 twelve-blob
+// shells gave the tile sweep one 128-thread block a configuration with 12
+// threads live, and a second launch. Here one warp takes a configuration
+// (kSmallWarps a block) in one launch: it stages the configuration's n
+// blobs in its slice of shared memory as padded 16-byte rows and walks
+// the n (n - 1) / 2 unordered pairs over its 32 lanes in a fixed order,
+// pair k = lane, lane + 32, ... being (i, i + s mod n) with s = k / n + 1
+// and i = k mod n: the rotations s = 1 .. (n - 1) / 2 of every blob and,
+// for an even n, rotation n / 2 of the first n / 2 blobs, so each
+// unordered pair once (66 pairs in three steps at n = 12). A lane forms
+// each term with pair_energy in the positions' type and adds it into its
+// float64 sum; a fixed xor tree reduces the warp and lane 0 writes out[p].
+// No partials, no second launch, no atomics: bit-identical on repeat.
 
 #include <cuda_runtime.h>
 
@@ -181,6 +197,66 @@ sum_partials(const double* __restrict__ partials, double* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
+// configurations a block of the small instance, one warp each
+constexpr int kSmallWarps = 8;
+
+// An empty kernel, one warp: the floor that one launch through this
+// library sets on the card, timed beside the small instance's batch
+// (chip_smoke.py phase 3).
+__global__ void empty_kernel() {}
+
+// One warp: configuration p = blockIdx.x kSmallWarps + warp of r_all
+// (n_conf, n, 3), n <= kTile, its energy into out[p]; its rows in dynamic
+// shared memory (kSmallWarps n padded 16-byte rows a block).
+template <typename T, bool PERIODIC, bool ONE>
+__global__ void __launch_bounds__(kSmallWarps * kLanes)
+energy_small_kernel(const T* __restrict__ r_all, double* __restrict__ out,
+                    int n_conf, int n, EnergyLaw<T> law, Box<T> box) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const long long p = static_cast<long long>(blockIdx.x) * kSmallWarps + warp;
+  if (p >= n_conf) return;   // the whole warp: nothing below syncs the block
+  T* rows = reinterpret_cast<T*>(smem) + static_cast<size_t>(warp) * 4 * n;
+  const T* q = r_all + static_cast<size_t>(p) * n * 3;
+  for (int i = lane; i < n; i += kLanes) {
+    rows[4 * i + 0] = q[3 * i + 0];
+    rows[4 * i + 1] = q[3 * i + 1];
+    rows[4 * i + 2] = q[3 * i + 2];
+    rows[4 * i + 3] = T(0);
+  }
+  __syncwarp();
+  const int pairs = n * (n - 1) / 2;
+  double acc = 0.0;
+  for (int k = lane; k < pairs; k += kLanes) {
+    const int s = k / n + 1;
+    const int i = k - (s - 1) * n;
+    const int j = i + s < n ? i + s : i + s - n;
+    T a[4], b[4];
+    pairk::load_row<4>(rows + 4 * i, a);
+    pairk::load_row<4>(rows + 4 * j, b);
+    acc += static_cast<double>(pair_energy<T, PERIODIC, ONE>(
+        law, box, a[0] - b[0], a[1] - b[1], a[2] - b[2]));
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) out[p] = acc;
+}
+
+template <typename T, bool PERIODIC, bool ONE>
+int launch_small(const T* r, double* out, int n_conf, int n,
+                 const EnergyLaw<T>& law, const Box<T>& box,
+                 cudaStream_t s) {
+  const long long blocks =
+      (static_cast<long long>(n_conf) + kSmallWarps - 1) / kSmallWarps;
+  const size_t bytes = sizeof(T) * 4 * kSmallWarps * static_cast<size_t>(n);
+  energy_small_kernel<T, PERIODIC, ONE>
+      <<<static_cast<unsigned>(blocks), kSmallWarps * kLanes, bytes, s>>>(
+          r, out, n_conf, n, law, box);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool PERIODIC, bool ONE>
 int launch(const T* r, double* partials, double* out, int n_conf, int n,
            int n_groups, int tiles_per_group, const EnergyLaw<T>& law,
@@ -201,6 +277,20 @@ int launch(const T* r, double* partials, double* out, int n_conf, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the law and the box of a launch (L a host array, the box with 0 on an
+// open axis, or null); returns whether an axis is periodic
+template <typename T>
+bool host_law(double eps, double c, double two_a, double inv_b,
+              const double* L, EnergyLaw<T>& law, Box<T>& box) {
+  law = EnergyLaw<T>{T(eps), T(c), T(two_a), T(inv_b)};
+  box = Box<T>{};
+  const bool periodic =
+      L != nullptr && (L[0] > 0.0 || L[1] > 0.0 || L[2] > 0.0);
+  if (periodic)
+    for (int a = 0; a < 3; ++a) box.L[a] = T(L[a]);
+  return periodic;
+}
+
 template <typename T>
 int dispatch(const T* r, double* partials, double* out, int n_conf, int n,
              int n_groups, int tiles_per_group, double eps, double c,
@@ -212,12 +302,9 @@ int dispatch(const T* r, double* partials, double* out, int n_conf, int n,
       static_cast<long long>(n_groups) * tiles_per_group * kTile < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const EnergyLaw<T> law{T(eps), T(c), T(two_a), T(inv_b)};
-  Box<T> box{};
-  const bool periodic =
-      L != nullptr && (L[0] > 0.0 || L[1] > 0.0 || L[2] > 0.0);
-  if (periodic)
-    for (int a = 0; a < 3; ++a) box.L[a] = T(L[a]);
+  EnergyLaw<T> law;
+  Box<T> box;
+  const bool periodic = host_law(eps, c, two_a, inv_b, L, law, box);
 #define ENERGY_CASE(P, O)                                                    \
   if (periodic == P && (one != 0) == O)                                      \
     return launch<T, P, O>(r, partials, out, n_conf, n, n_groups,            \
@@ -227,6 +314,27 @@ int dispatch(const T* r, double* partials, double* out, int n_conf, int n,
   ENERGY_CASE(true, false)
   ENERGY_CASE(true, true)
 #undef ENERGY_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dispatch_small(const T* r, double* out, int n_conf, int n, double eps,
+                   double c, double two_a, double inv_b, const double* L,
+                   int one, void* stream) {
+  if (r == nullptr || out == nullptr || n_conf < 1 || n < 2 || n > kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  EnergyLaw<T> law;
+  Box<T> box;
+  const bool periodic = host_law(eps, c, two_a, inv_b, L, law, box);
+#define SMALL_CASE(P, O)                                                     \
+  if (periodic == P && (one != 0) == O)                                      \
+    return launch_small<T, P, O>(r, out, n_conf, n, law, box, s);
+  SMALL_CASE(false, false)
+  SMALL_CASE(false, true)
+  SMALL_CASE(true, false)
+  SMALL_CASE(true, true)
+#undef SMALL_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -252,3 +360,23 @@ int dispatch(const T* r, double* partials, double* out, int n_conf, int n,
 
 ENERGY_ENTRY(blob_energy_f32, float)
 ENERGY_ENTRY(blob_energy_f64, double)
+
+// The small-configuration instance: r (n_conf, n, 3) contiguous on the
+// device with 2 <= n <= 128, out (n_conf,) float64 on the device; the law,
+// L and one as above. One launch; returns its CUDA error code.
+#define ENERGY_SMALL_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(const T* r, double* out, int n_conf, int n,            \
+                      double eps, double c, double two_a, double inv_b,      \
+                      const double* L, int one, void* stream) {              \
+    return dispatch_small<T>(r, out, n_conf, n, eps, c, two_a, inv_b, L,     \
+                             one, stream);                                   \
+  }
+
+ENERGY_SMALL_ENTRY(blob_energy_small_f32, float)
+ENERGY_SMALL_ENTRY(blob_energy_small_f64, double)
+
+// The empty kernel's launch; returns its CUDA error code.
+extern "C" int launch_floor(void* stream) {
+  empty_kernel<<<1, kLanes, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}

@@ -40,21 +40,6 @@
 // out is zeroed by the caller and each row belongs to one warp; every order
 // depends only on the data and the launch: no atomics, bit-identical on
 // repeat.
-//
-// Kernel P2, the instance RADII = true: the same sum with mixed blob radii
-// (ops/ewald.py's mixed-radii mode), alpha and beta from the series of the
-// pair's radius groups (g, h) = (group[i], group[j]), in three pieces on
-// (0, e1), [e1, e2), [e2, r_cut) with e1 = max(|a_g - a_h|, 1e-3 r_cut)
-// and e2 = a_g + a_h (ops/ewald.radii_edge_table). It replaces no Pallas
-// kernel: the JAX package sums it in XLA (ops/ewald.py:1222-1345,
-// _xla_near_tile_fn's radii branch, which evaluates every group pair's
-// three pieces on every pair and masks). Here the block stages the whole
-// (G, G, 3 pieces) table beside its (G, G) piece maps in shared memory (G
-// <= 8: 52 KB of float32 series at K = 32), each staged row carries its
-// particle's group in w, and a pair picks its one piece by the JAX
-// package's tests (r < e1, r < e2) and runs one Clenshaw recurrence per
-// function, as K6 does. Its bound is K6's: the pairs inside r_cut and
-// their two series.
 
 #include "cell_sweep.cuh"
 
@@ -81,64 +66,22 @@ __host__ __device__ constexpr int f_row() {
   return B == 1 ? 4 : 8;
 }
 
-// shared-memory values of the remainder's tables: K6's two pieces, or P2's
-// (G, G, 3) pieces and their (G, G, 8) piece maps (each a multiple of 16
-// bytes, so the staged tile after them stays aligned)
-template <bool RADII>
-__host__ __device__ constexpr int table_len(int G) {
-  return RADII ? 3 * G * G * kChebPiece + 8 * G * G : 2 * kChebPiece;
-}
-
 // dynamic shared memory of a launch: table rows, the staged tile and its
 // strengths, a chunk of the cell's targets, every warp's ring, target ids
-template <typename T, int B, bool RADII>
-size_t smem_bytes(int cap, int G) {
+template <typename T, int B>
+size_t smem_bytes(int cap) {
   constexpr int warps = cellk::kThreads / 32;
   const int nt = cellk::target_slots(cap);
-  return sizeof(T) * (table_len<RADII>(G) +
-                      (4 + f_row<B>()) * Walk<T>::kSrc + 4 * nt) +
+  return sizeof(T) * (2 * kChebPiece + (4 + f_row<B>()) * Walk<T>::kSrc +
+                      4 * nt) +
          sizeof(unsigned) * warps * kRingSlots + sizeof(int) * nt;
 }
 
-// P2's tables: cheb (G, G, 3 pieces, 2 functions, K) staged as K6's rows,
-// one row block of kChebPiece a (g, h, piece), zero-padded to
-// even_terms(K) terms, then the piece maps edges (G, G, 8). No barrier.
-template <typename T>
-__device__ __forceinline__ void stage_radii(const T* __restrict__ cheb,
-                                            const T* __restrict__ edges,
-                                            int K, int G, T* rows) {
-  const int K2 = cellk::even_terms(K);
-  const int pieces = 3 * G * G;
-  for (int i = threadIdx.x; i < pieces * 2 * K2; i += blockDim.x) {
-    const int p = i / (2 * K2), k = (i / 2) % K2, fn = i % 2;
-    rows[p * kChebPiece + 2 * k + fn] =
-        k < K ? cheb[(2 * p + fn) * K + k] : T(0);
-  }
-  T* maps = rows + pieces * kChebPiece;
-  for (int i = threadIdx.x; i < 8 * G * G; i += blockDim.x) maps[i] = edges[i];
-}
-
-// alpha(r) and beta(r) / r^2 of the groups gt, gs (the staged rows' w) at
-// r (invr = 1 / r) from P2's staged tables: the piece by r < e1, r < e2,
-// t = (r - mid) (2 / width), then the piece's two series
-template <typename T>
-__device__ __forceinline__ void eval_radii(const T* rows, int K2, int G,
-                                           T r, T invr, T gt, T gs, T& al,
-                                           T& bfac) {
-  const int gp = static_cast<int>(gt) * G + static_cast<int>(gs);
-  const T* e = rows + 3 * G * G * kChebPiece + 8 * gp;
-  const int piece = r < e[0] ? 0 : (r < e[1] ? 1 : 2);
-  const T ts = (r - e[2 + 2 * piece]) * e[3 + 2 * piece];
-  T be;
-  cellk::series2(rows + (3 * gp + piece) * kChebPiece, K2, ts, al, be);
-  bfac = be * invr * invr;
-}
-
 // One pair of a batch: target row tgt, source row src and strengths fs
-// (staged), into u; P2 (RADII) reads the groups from the rows' w.
-template <typename T, int B, bool RADII>
+// (staged), into u.
+template <typename T, int B>
 __device__ __forceinline__ void eval_pair(const cellk::Remainder<T>& rem,
-                                          int G, const T* cheb, const T* tgt,
+                                          const T* cheb, const T* tgt,
                                           const T* src, const T* fs, T* u) {
   T t[4], s[4], fv[f_row<B>()];
   cellk::load_vec<4>(tgt, t);
@@ -147,10 +90,7 @@ __device__ __forceinline__ void eval_pair(const cellk::Remainder<T>& rem,
   const T r2 = dx * dx + dy * dy + dz * dz;
   const T invr = cellk::rsqrt_t(r2);
   T al, bfac;
-  if constexpr (RADII)
-    eval_radii(cheb, rem.K2, G, r2 * invr, invr, t[3], s[3], al, bfac);
-  else
-    rem.eval(cheb, r2 * invr, invr, al, bfac);
+  rem.eval(cheb, r2 * invr, invr, al, bfac);
   cellk::load_vec<f_row<B>()>(fs, fv);
 #pragma unroll
   for (int b = 0; b < B; ++b) {
@@ -180,16 +120,13 @@ __device__ __forceinline__ void flush(T* acc, int cur, const int* ids,
 }
 
 // resident 256-thread blocks an SM that __launch_bounds__ asks for: float32
-// four (64 registers); float64 uncapped. RADII: P2, with group (n,) the
-// particles' radius groups, cheb and edges P2's tables of G groups (K6:
-// group and edges unused, G 0); rem's rc2 and K2 serve both.
-template <typename T, int B, bool RADII>
+// four (64 registers); float64 uncapped
+template <typename T, int B>
 __global__ void __launch_bounds__(cellk::kThreads, (cellk::min_blocks<T>(4)))
 near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
-                const int* __restrict__ table, const int* __restrict__ group,
-                const T* __restrict__ cheb, const T* __restrict__ edges,
+                const int* __restrict__ table, const T* __restrict__ cheb,
                 T* __restrict__ out, Grid g, double Lx, double Ly, double Lz,
-                int K, int G, cellk::Remainder<T> rem) {
+                int K, cellk::Remainder<T> rem) {
   constexpr int NF = 3 * B;
   constexpr int FR = f_row<B>();
   constexpr int kSrc = Walk<T>::kSrc;
@@ -197,7 +134,7 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x / 32;
   T* s_cheb = reinterpret_cast<T*>(smem);
-  T* s_src = s_cheb + table_len<RADII>(G);    // (kSrc, 4)
+  T* s_src = s_cheb + 2 * kChebPiece;         // (kSrc, 4)
   T* s_f = s_src + 4 * kSrc;                  // (kSrc, FR)
   T* s_tgt = s_f + FR * kSrc;                 // (target_slots, 4)
   unsigned* s_ring =
@@ -206,10 +143,7 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   __shared__ cellk::Stencil st;
 
   if (cellk::empty_cell(table, blockIdx.x, g)) return;   // uniform
-  if constexpr (RADII)
-    stage_radii(cheb, edges, K, G, s_cheb);
-  else
-    cellk::stage_cheb(cheb, K, s_cheb);
+  cellk::stage_cheb(cheb, K, s_cheb);
   cellk::load_stencil(st, table, blockIdx.x, g, Lx, Ly, Lz);  // a barrier
   const int n_tgt = st.start[14] - st.start[13];
   const int* own = table + static_cast<size_t>(st.cell[13]) * g.cap;
@@ -224,16 +158,12 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   for (int t0 = 0; t0 < n_tgt; t0 += kTgt) {
     const int nt = min(kTgt, n_tgt - t0);
     cellk::stage_targets(st, own + t0, nt, pos, s_tgt, s_id);
-    if constexpr (RADII) {  // the same threads' rows: no barrier between
-      for (int t = threadIdx.x; t < nt; t += blockDim.x)
-        s_tgt[4 * t + 3] = T(group[s_id[t]]);
-    }
     for (int s0 = 0; s0 < total; s0 += kSrc) {
       const int m = min(kSrc, total - s0);
       cellk::stage_sources(st, table, g, s0, m, [&](int s, int id, int k) {
         T* row = s_src + 4 * s;
         cellk::local_source(st, pos, id, k, row);
-        row[3] = RADII ? T(group[id]) : T(0);
+        row[3] = T(0);
         T* fr = s_f + FR * s;
         for (int q = 0; q < FR; ++q)
           fr[q] = q < NF ? f[static_cast<size_t>(NF) * id + q] : T(0);
@@ -284,8 +214,8 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
               const unsigned e = ring[(head + lane) % kRing];
               const int j = static_cast<int>(e & 0xffffu);
               te = static_cast<int>(e >> 16);
-              eval_pair<T, B, RADII>(rem, G, s_cheb, s_tgt + 4 * te,
-                                     s_src + 4 * j, s_f + FR * j, u);
+              eval_pair<T, B>(rem, s_cheb, s_tgt + 4 * te, s_src + 4 * j,
+                              s_f + FR * j, u);
             }
             head += count;
             // each lane's entry joins its target's run; a run that moves
@@ -316,27 +246,24 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   }
 }
 
-// K6 (RADII false: group and edges null, G 0, two_a the pieces' edge) or
-// P2 (RADII: two_a unused)
-template <typename T, int B, bool RADII>
-int launch(const T* pos, const T* f, const int* table, const int* group,
-           const T* cheb, const T* edges, T* out, int n, int nx, int ny,
-           int nz, int cap, int K, int G, double Lx, double Ly, double Lz,
-           double two_a, double r_cut, void* stream) {
-  if (K < 1 || K > kMaxCheb || cap < 1 || (RADII && (G < 1 || G > 8)))
+template <typename T, int B>
+int launch(const T* pos, const T* f, const int* table, const T* cheb,
+           T* out, int n, int nx, int ny, int nz, int cap, int K, double Lx,
+           double Ly, double Lz, double two_a, double r_cut, void* stream) {
+  if (K < 1 || K > kMaxCheb || cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   // the staged tile and the rings take more than the 48 KB of static
   // shared memory: raise the instance's limit to this launch's size
-  const size_t bytes = smem_bytes<T, B, RADII>(cap, G);
+  const size_t bytes = smem_bytes<T, B>(cap);
   const cudaError_t attr = cudaFuncSetAttribute(
-      near_rpy_kernel<T, B, RADII>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      near_rpy_kernel<T, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Grid g{n, nx, ny, nz, cap};
-  near_rpy_kernel<T, B, RADII><<<nx * ny * nz, cellk::kThreads, bytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      pos, f, table, group, cheb, edges, out, g, Lx, Ly, Lz, K, G,
-      cellk::make_remainder<T>(K, RADII ? 0.5 * r_cut : two_a, r_cut));
+  near_rpy_kernel<T, B><<<nx * ny * nz, cellk::kThreads, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pos, f, table, cheb, out, g, Lx, Ly, Lz, K,
+      cellk::make_remainder<T>(K, two_a, r_cut));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,31 +278,11 @@ int launch(const T* pos, const T* f, const int* table, const int* group,
                       const T* cheb, T* out, int n, int nx, int ny, int nz, \
                       int cap, int K, double Lx, double Ly, double Lz,      \
                       double two_a, double r_cut, void* stream) {           \
-    return launch<T, B, false>(pos, f, table, nullptr, cheb, nullptr, out,  \
-                               n, nx, ny, nz, cap, K, 0, Lx, Ly, Lz, two_a,  \
-                               r_cut, stream);                              \
+    return launch<T, B>(pos, f, table, cheb, out, n, nx, ny, nz, cap, K, Lx, \
+                        Ly, Lz, two_a, r_cut, stream);                      \
   }
 
 NEAR_ENTRY(near_rpy_f32_b1, float, 1)
 NEAR_ENTRY(near_rpy_f32_b2, float, 2)
 NEAR_ENTRY(near_rpy_f64_b1, double, 1)
 NEAR_ENTRY(near_rpy_f64_b2, double, 2)
-
-// P2: pos (n,3), f (n,3B), table as K6's, group (n,) int32 radius groups,
-// cheb (G,G,3,2,K) and edges (G,G,8) (ops/ewald.radii_edge_table), out
-// (n,3B) zeroed by the caller; all contiguous on the device.
-#define NEAR_RADII_ENTRY(NAME, T, B)                                         \
-  extern "C" int NAME(const T* pos, const T* f, const int* table,           \
-                      const int* group, const T* cheb, const T* edges,      \
-                      T* out, int n, int nx, int ny, int nz, int cap, int K, \
-                      int G, double Lx, double Ly, double Lz, double r_cut, \
-                      void* stream) {                                       \
-    return launch<T, B, true>(pos, f, table, group, cheb, edges, out, n, nx, \
-                              ny, nz, cap, K, G, Lx, Ly, Lz, 0.0, r_cut,    \
-                              stream);                                      \
-  }
-
-NEAR_RADII_ENTRY(near_rpy_radii_f32_b1, float, 1)
-NEAR_RADII_ENTRY(near_rpy_radii_f32_b2, float, 2)
-NEAR_RADII_ENTRY(near_rpy_radii_f64_b1, double, 1)
-NEAR_RADII_ENTRY(near_rpy_radii_f64_b2, double, 2)

@@ -36,7 +36,7 @@ _D = ctypes.c_double
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
 # csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu,
 # csrc/wall_rot_near.cu, csrc/laplace_layers.cu, csrc/blob_energy.cu,
-# csrc/pair_radii.cu);
+# csrc/pair_radii.cu, csrc/near_radii.cu);
 # pointers and the stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -77,7 +77,12 @@ SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"pair_radii_sym_{t}": (_P,) * 4 + (_I,) * 5 + (_P,)
        for t in ("f32", "f64")},
-    **{f"near_rpy_radii_{t}_b{b}": (_P,) * 7 + (_I,) * 7 + (_D,) * 4 + (_P,)
+    **{f"blob_energy_small_{t}": (_P,) * 2 + (_I,) * 2 + (_D,) * 4
+       + (_PD, _I, _P) for t in ("f32", "f64")},
+    "launch_floor": (_P,),
+    **{f"near_radii_pairs_{t}": (_P,) * 5 + (_I,) * 5 + (_D,) * 4 + (_I, _P)
+       for t in ("f32", "f64")},
+    **{f"near_rpy_radii_{t}_b{b}": (_P,) * 7 + (_I,) * 3 + (_D,) * 3 + (_P,)
        for t in ("f32", "f64") for b in (1, 2)},
 }
 

@@ -17,7 +17,10 @@ periodic box or a wall slab, beside their plain PyTorch versions.
   and e2 = a_g + a_h; counterpart of the radii branch of
   rigidmultiblobswall_tpu/ops/ewald.py's XLA cell sweep
   (`_xla_near_tile_fn`, ewald.py:1222-1345; the JAX package has no Pallas
-  kernel for it); CUDA source `csrc/near_rpy.cu`, B = 1 and 2.
+  kernel for it); CUDA source `csrc/near_radii.cu`, B = 1 and 2. Its
+  pairs are listed once per set of positions (`near_radii_pairs`, the
+  list `RadiiPairs` that a mixed-radii plan on the card carries), and a
+  product walks the list, one warp a target.
 - K7 `wall_near`: the near field of the spectral wall engine over the
   combined set of N real points and their N images (the RPY remainder
   on mirrored strengths, plus the screened image channels of real
@@ -49,12 +52,14 @@ JAX package's Pallas path. K5 has no cutoff test: the sum runs over the
 whole stencil, as both JAX paths do.
 
 On a CUDA tensor a wrapper launches its kernel and counts the launch in
-`LAUNCHES`; on a CPU tensor it runs the plain version, a cell-tiled
-dense sweep in PyTorch; any other case raises.
+`LAUNCHES` (P2's list builds as "near_radii_pairs"); on a CPU tensor it
+runs the plain version, a cell-tiled dense sweep in PyTorch; any other
+case raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -64,6 +69,7 @@ from . import _build, cells, mobility_cuda
 # kernel launches made by the wrappers in this process
 LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
             "near_rpy_radii_b1": 0, "near_rpy_radii_b2": 0,
+            "near_radii_pairs": 0,
             "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_grand": 0,
             "wall_rot_near_rt": 0, "wall_rot_near_tr": 0,
             "wall_rot_near_rr": 0}
@@ -74,6 +80,9 @@ MAX_CHEB_ROT = 48    # K8's rot remainder table (csrc/wall_rot_near.cu)
 MAX_GROUPS = 8       # P2's radius groups (its table: G^2 x 3 pieces)
 ROT_GROUP = 8        # K8 stages its series zero-padded to whole groups
 _TILE_CELLS = 16     # plain versions: target cells per tile
+# P2's pair list: a source id in the low PAIR_ID_BITS bits of an entry,
+# its image code above (csrc/near_radii.cu)
+PAIR_ID_BITS = 27
 
 
 def _tiles(pos, cell_table, dims, box, cap, cells_range):
@@ -202,6 +211,34 @@ def near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb, *,
     return out
 
 
+def _radii_series(r, gt, gs, cheb_radii, edges, r_cut):
+    """alpha(r) and beta(r) of the pairs at distances r (M,) of radius
+    groups gt, gs (M,): each group pair's three pieces evaluated at the
+    clipped t of each piece and the one r falls in (r < e1, r < e2)
+    selected, as the JAX package's XLA sweep does; edges (G, G, 8) on the
+    host."""
+    al = torch.zeros_like(r)
+    be = torch.zeros_like(r)
+    G = cheb_radii.shape[0]
+    for g in range(G):
+        for h in range(g, G):
+            mask = ((gt == g) & (gs == h)) | ((gt == h) & (gs == g))
+            e1, e2 = float(edges[g, h, 0]), float(edges[g, h, 1])
+            lims = (0.0, e1, e2, r_cut)
+            vals = []
+            for i in range(3):
+                lo, hi = lims[i], lims[i + 1]
+                t = torch.clamp((2.0 * r - (hi + lo)) / (hi - lo), -1.0, 1.0)
+                vals.append((_clenshaw(cheb_radii[g, h, i, 0], t),
+                             _clenshaw(cheb_radii[g, h, i, 1], t)))
+            in1, in2 = r < e1, r < e2
+            for j, acc in enumerate((al, be)):
+                q = torch.where(in1, vals[0][j],
+                                torch.where(in2, vals[1][j], vals[2][j]))
+                acc += torch.where(mask, q, torch.zeros_like(q))
+    return al, be
+
+
 def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
                          cheb_radii, edges, *, r_cut, cells_range=None):
     """Plain PyTorch P2 (the radii branch of the JAX package's XLA cell
@@ -217,7 +254,6 @@ def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
                                  device=pos.device)
     edges = torch.as_tensor(edges, dtype=torch.float64).cpu()
     grp = group_of.long()
-    G = cheb_radii.shape[0]
     for t_ids, t_valid, tp, s_ids, s_valid, sp in _tiles(
             pos, cell_table, dims, box, cap, cells_range):
         fs = f[s_ids].to(pos.dtype)                       # (TC,27,cap,nc)
@@ -226,28 +262,10 @@ def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
         inside = (t_valid[:, :, None, None] & s_valid[:, None]
                   & (r2 > 0) & (r2 < r_cut * r_cut))
         r2_in = r2[inside]
-        r = torch.sqrt(r2_in)
         gt = grp[t_ids][:, :, None, None].expand_as(r2)[inside]
         gs = grp[s_ids][:, None].expand_as(r2)[inside]
-        al_in = torch.zeros_like(r)
-        be_in = torch.zeros_like(r)
-        for g in range(G):
-            for h in range(g, G):
-                mask = ((gt == g) & (gs == h)) | ((gt == h) & (gs == g))
-                e1, e2 = float(edges[g, h, 0]), float(edges[g, h, 1])
-                lims = (0.0, e1, e2, r_cut)
-                vals = []
-                for i in range(3):
-                    lo, hi = lims[i], lims[i + 1]
-                    t = torch.clamp((2.0 * r - (hi + lo)) / (hi - lo),
-                                    -1.0, 1.0)
-                    vals.append((_clenshaw(cheb_radii[g, h, i, 0], t),
-                                 _clenshaw(cheb_radii[g, h, i, 1], t)))
-                in1, in2 = r < e1, r < e2
-                for j, acc in enumerate((al_in, be_in)):
-                    q = torch.where(in1, vals[0][j],
-                                    torch.where(in2, vals[1][j], vals[2][j]))
-                    acc += torch.where(mask, q, torch.zeros_like(q))
+        al_in, be_in = _radii_series(torch.sqrt(r2_in), gt, gs, cheb_radii,
+                                     edges, r_cut)
         al = torch.zeros_like(r2)
         bfac = torch.zeros_like(r2)
         al[inside] = al_in
@@ -259,6 +277,124 @@ def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
                 + torch.einsum("tiskb,tiskc->tibc", bfac[..., None] * ddotf,
                                d)).reshape(*t_ids.shape, nc)
         _scatter_rows(out, t_ids, t_valid, rows)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RadiiPairs:
+    """P2's pair list at one set of positions (`near_radii_pairs`): target
+    i's sources are entries[offsets[i]:offsets[i + 1]], the pairs with
+    0 < r < r_cut in the stencil's order, each j | code << PAIR_ID_BITS
+    (an int32 holding those 32 bits) with code = 9 (wx + 1) + 3 (wy + 1) +
+    (wz + 1), the wrap counts of the source's image x_j + w box. A
+    particle dropped by cell overflow has no pairs. rows (N, 4) holds the
+    positions with the radius group in w, as the product reads a source."""
+
+    positions: torch.Tensor   # (N, 3) the positions it was built at
+    group_of: torch.Tensor    # (N,) int32 the radius groups
+    offsets: torch.Tensor     # (N + 1,) int32
+    entries: torch.Tensor     # (P,) int32
+    rows: torch.Tensor        # (N, 4)
+
+
+def _pair_rows(pos, group_of):
+    return torch.cat([pos, group_of.to(pos.dtype)[:, None]],
+                     dim=1).contiguous()
+
+
+def decode_pairs(pairs):
+    """(target, source, wrap counts (P, 3)) of every entry of the list, in
+    its order, int64."""
+    n = pairs.positions.shape[0]
+    counts = (pairs.offsets[1:] - pairs.offsets[:-1]).long()
+    tid = torch.repeat_interleave(
+        torch.arange(n, device=pairs.entries.device), counts)
+    key = pairs.entries.long() & 0xFFFFFFFF
+    code = key >> PAIR_ID_BITS
+    wrap = torch.stack([code // 9, code // 3 % 3, code % 3], dim=1) - 1
+    return tid, key & ((1 << PAIR_ID_BITS) - 1), wrap
+
+
+def _pair_d(pos, tid, sid, wrap, box):
+    """d = x_i - (x_j + w box) formed in float64 and rounded once to the
+    positions' type, as the kernel forms it (csrc/near_radii.cu pair_d)."""
+    p64 = pos.double()
+    shift = wrap.double() * torch.as_tensor(box, dtype=torch.float64,
+                                            device=pos.device)
+    return (p64[tid] - (p64[sid] + shift)).to(pos.dtype)
+
+
+def near_radii_pairs_plain(pos, group_of, cell_table, dims, box, cap, *,
+                           r_cut, cells_range=None):
+    """Plain PyTorch P2 list: every pair of the 27-cell stencil with
+    0 < r^2 < r_cut^2, d formed as the product forms it (`_pair_d`), each
+    target's pairs in the stencil's order (RadiiPairs); the targets
+    outside `cells_range` (a (first, last) range of target cells) get
+    none."""
+    n = pos.shape[0]
+    dev = pos.device
+    n_cells = int(dims[0]) * int(dims[1]) * int(dims[2])
+    ids = cell_table.reshape(n_cells, cap).long()
+    valid = ids < n
+    ids_c = torch.where(valid, ids, torch.zeros_like(ids))
+    nbr = cells.neighbor_table(dims, device=dev)
+    wraps = cells.wrap_counts(dims, device=dev)          # (cells, 27, 3)
+    codes = ((wraps[..., 0] + 1) * 9 + (wraps[..., 1] + 1) * 3
+             + wraps[..., 2] + 1)                         # (cells, 27)
+    lo, hi = cells_range if cells_range is not None else (0, n_cells)
+    hi = min(hi, n_cells)
+    tids = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    keys = list(tids)
+    for c0 in range(lo, hi, _TILE_CELLS):
+        c = torch.arange(c0, min(c0 + _TILE_CELLS, hi), device=dev)
+        t_ids, s_ids = ids_c[c], ids_c[nbr[c]]          # (TC,cap), (TC,27,cap)
+        tc, cap_t = t_ids.shape
+        tid = t_ids[:, :, None, None].expand(tc, cap_t, 27, cap)
+        sid = s_ids[:, None].expand(tc, cap_t, 27, cap)
+        wrap = wraps[c][:, None, :, None, :].expand(tc, cap_t, 27, cap, 3)
+        d = _pair_d(pos, tid.reshape(-1), sid.reshape(-1),
+                    wrap.reshape(-1, 3), box).reshape(tc, cap_t, 27, cap, 3)
+        r2 = torch.sum(d * d, dim=-1)
+        inside = (valid[c][:, :, None, None] & valid[nbr[c]][:, None]
+                  & (r2 > 0) & (r2 < r_cut * r_cut))
+        cc, i, k, j = inside.nonzero(as_tuple=True)
+        tids.append(t_ids[cc, i])
+        keys.append(s_ids[cc, k, j] | (codes[c][cc, k] << PAIR_ID_BITS))
+    tid = torch.cat(tids)
+    # each target lies in one tile, its pairs already in the stencil's order
+    order = torch.sort(tid, stable=True).indices
+    key = torch.cat(keys)[order]
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(torch.bincount(tid, minlength=n), 0)
+    entries = torch.where(key >= 2 ** 31, key - 2 ** 32, key).to(torch.int32)
+    return RadiiPairs(pos, group_of, offsets.to(torch.int32), entries,
+                      _pair_rows(pos, group_of))
+
+
+def near_rpy_radii_pairs_plain(pairs, forces, cheb_radii, edges, box, *,
+                               r_cut):
+    """Plain PyTorch P2 product over a pair list: (N, 3B) near-field rows
+    without the self term, each pair's d as the kernel forms it and its
+    series as `near_rpy_radii_plain` evaluates them."""
+    pos = pairs.positions
+    n = pos.shape[0]
+    f = forces.reshape(n, -1).to(pos.dtype)
+    nc = f.shape[1]
+    cheb_radii = torch.as_tensor(cheb_radii, dtype=pos.dtype,
+                                 device=pos.device)
+    edges = torch.as_tensor(edges, dtype=torch.float64).cpu()
+    tid, sid, wrap = decode_pairs(pairs)
+    d = _pair_d(pos, tid, sid, wrap, box)
+    r2 = torch.sum(d * d, dim=-1)
+    grp = pairs.group_of.long()
+    al, be = _radii_series(torch.sqrt(r2), grp[tid], grp[sid], cheb_radii,
+                           edges, r_cut)
+    f3 = f[sid].reshape(-1, nc // 3, 3)                  # (P, B, 3)
+    ddotf = torch.einsum("pc,pbc->pb", d, f3)
+    rows = (al[:, None, None] * f3
+            + ((be / r2)[:, None] * ddotf)[..., None] * d[:, None])
+    out = torch.zeros((n, nc), dtype=pos.dtype, device=pos.device)
+    out.index_add_(0, tid, rows.reshape(-1, nc))
     return out
 
 
@@ -556,14 +692,73 @@ def near_rpy(pos, forces, cell_table, dims, box, cap, cheb, *, two_a,
     return out
 
 
-def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
-                   cheb_radii, edges, *, r_cut):
-    """P2 wrapper: the CUDA kernel for CUDA tensors,
-    `near_rpy_radii_plain` for CPU tensors. pos (N,3), forces (N,3B),
-    group_of (N,) int32 radius groups, cheb_radii (G, G, 3 pieces, 2
-    functions, K), edges (G, G, 8) (ewald.radii_edge_table) -> (N,3B)
-    without the self term."""
+def _check_groups(what, group_of, pos):
+    n = pos.shape[0]
+    if (group_of.device != pos.device or group_of.dtype != torch.int32
+            or group_of.shape != (n,) or not group_of.is_contiguous()):
+        raise ValueError(f"{what}: group_of must be a contiguous int32 "
+                         f"({n},) tensor on {pos.device}")
+
+
+def near_radii_pairs(pos, group_of, cell_table, dims, box, cap, *, r_cut):
+    """P2's pair list at these positions (RadiiPairs): the CUDA kernel's
+    count and fill passes for CUDA tensors, with the scan of the counts
+    between them (one host sync for the list's length), and
+    `near_radii_pairs_plain` for CPU tensors. pos (N,3) in the box (or
+    drifted from it by less than the plan's budget), group_of (N,) int32,
+    the cell table of ops/cells.cell_bin."""
     if pos.device.type == "cpu":
+        return near_radii_pairs_plain(pos, group_of, cell_table, dims, box,
+                                      cap, r_cut=r_cut)
+    _check("near_radii_pairs", pos, cell_table, dims, cap)
+    _check_groups("near_radii_pairs", group_of, pos)
+    n = pos.shape[0]
+    if n >= 2 ** PAIR_ID_BITS:
+        raise ValueError(f"near_radii_pairs: {n} particles; an entry holds "
+                         f"ids below 2^{PAIR_ID_BITS}")
+    dev = pos.device
+    if n == 0:
+        return RadiiPairs(pos, group_of, torch.zeros(1, dtype=torch.int32,
+                                                     device=dev),
+                          torch.zeros(0, dtype=torch.int32, device=dev),
+                          _pair_rows(pos, group_of))
+    name = f"near_radii_pairs_{'f32' if pos.dtype == torch.float32 else 'f64'}"
+    fn = getattr(_build.library(), name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    grid = (*(int(d) for d in dims), int(cap), *(float(L) for L in box),
+            float(r_cut))
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    _build.check(name, fn(pos.data_ptr(), cell_table.data_ptr(),
+                          count.data_ptr(), None, None, n, *grid, 0, stream))
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(count, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    if total >= 2 ** 31:
+        raise ValueError(f"near_radii_pairs: {total} pairs; the offsets "
+                         "are int32")
+    offsets = offsets.to(torch.int32)
+    entries = torch.empty(total, dtype=torch.int32, device=dev)
+    _build.check(name, fn(pos.data_ptr(), cell_table.data_ptr(), None,
+                          offsets.data_ptr(), entries.data_ptr(), n, *grid, 1,
+                          stream))
+    LAUNCHES["near_radii_pairs"] += 1
+    return RadiiPairs(pos, group_of, offsets, entries,
+                      _pair_rows(pos, group_of))
+
+
+def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
+                   cheb_radii, edges, *, r_cut, pairs=None):
+    """P2 wrapper: the CUDA kernel for CUDA tensors, the plain versions for
+    CPU tensors (`near_rpy_radii_plain`, or `near_rpy_radii_pairs_plain`
+    over `pairs`). pos (N,3), forces (N,3B), group_of (N,) int32 radius
+    groups, cheb_radii (G, G, 3 pieces, 2 functions, K), edges (G, G, 8)
+    (ewald.radii_edge_table), pairs the list `near_radii_pairs` built at
+    these very pos and group_of (built here when None) -> (N,3B) without
+    the self term."""
+    if pos.device.type == "cpu":
+        if pairs is not None:
+            return near_rpy_radii_pairs_plain(pairs, forces, cheb_radii,
+                                              edges, box, r_cut=r_cut)
         return near_rpy_radii_plain(pos, forces, group_of, cell_table, dims,
                                     box, cap, cheb_radii, edges,
                                     r_cut=r_cut)
@@ -584,21 +779,24 @@ def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
                          f"with G <= {MAX_GROUPS}, K <= {MAX_CHEB}, edges "
                          f"(G, G, 8); got {tuple(cheb_radii.shape)}, "
                          f"{tuple(edges.shape)}")
-    if (group_of.device != pos.device or group_of.dtype != torch.int32
-            or group_of.shape != (n,) or not group_of.is_contiguous()):
-        raise ValueError("near_rpy_radii: group_of must be a contiguous "
-                         f"int32 ({n},) tensor on {pos.device}")
+    _check_groups("near_rpy_radii", group_of, pos)
+    if pairs is None:
+        pairs = near_radii_pairs(pos, group_of, cell_table, dims, box, cap,
+                                 r_cut=r_cut)
+    elif pairs.positions is not pos or pairs.group_of is not group_of:
+        raise ValueError("near_rpy_radii: the pair list was built at other "
+                         "positions or radius groups")
     n_rhs = forces.shape[1] // 3
-    out = torch.zeros_like(forces)
+    out = torch.empty_like(forces)
     if n == 0:
         return out
     name = (f"near_rpy_radii_{'f32' if pos.dtype == torch.float32 else 'f64'}"
             f"_b{n_rhs}")
     err = getattr(_build.library(), name)(
-        pos.data_ptr(), forces.data_ptr(), cell_table.data_ptr(),
-        group_of.data_ptr(), cheb_radii.data_ptr(), edges.data_ptr(),
-        out.data_ptr(), n, *(int(d) for d in dims), int(cap),
-        int(cheb_radii.shape[4]), G, *(float(L) for L in box), float(r_cut),
+        pairs.rows.data_ptr(), forces.data_ptr(), pairs.offsets.data_ptr(),
+        pairs.entries.data_ptr(), cheb_radii.data_ptr(), edges.data_ptr(),
+        out.data_ptr(), n, int(cheb_radii.shape[4]), G,
+        *(float(L) for L in box),
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES[f"near_rpy_radii_b{n_rhs}"] += 1

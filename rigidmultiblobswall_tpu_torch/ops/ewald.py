@@ -35,7 +35,9 @@ kernel carries per-group shape factors sinc(k a_g), each group's
 particles gridded on channels of their own (exact polydisperse PSE, SPD
 by congruence), the near field takes per-group-pair three-piece
 Chebyshev series (kernel P2, ops/cell_kernels.near_rpy_radii), and the
-self term is per particle, as in the JAX package's mixed-radii mode.
+self term is per particle, as in the JAX package's mixed-radii mode. A
+plan on the card lists P2's pairs once (cell_kernels.near_radii_pairs),
+at its build and at every refresh, and each product walks the list.
 """
 
 from __future__ import annotations
@@ -606,6 +608,8 @@ class SpectralPlan:
     gsinc: Optional[torch.Tensor] = None       # (G, gx, gy, gz//2+1)
     cheb_radii: Optional[torch.Tensor] = None  # (G, G, 3, 2, K)
     radii_edges: Optional[torch.Tensor] = None  # (G, G, 8) radii_edge_table
+    # P2's pair list at `positions` (a plan on the card), None on the CPU
+    radii_pairs: Optional[cell_kernels.RadiiPairs] = None
 
 
 def _box(params, like):
@@ -656,13 +660,25 @@ def make_plan(params: EwaldParams, positions, group_of=None) -> SpectralPlan:
                                                          int(cap))
     kern, khat = _device_kernel(params, dtype, dev,
                                 include_sinc=not params.radii)
-    return SpectralPlan(
+    return _with_pairs(SpectralPlan(
         positions=pos, sort_pos=pos,
         cheb=torch.as_tensor(cheb, dtype=dtype, device=dev).contiguous(),
         self_coeff=self_c if params.radii else float(self_c),
         cell_table=cell_table, cell_slot=cell_slot,
         n_dropped_cells=n_dropped, cell_dims=dims, kernel=kern, khat=khat,
-        params=params, **radii)
+        params=params, **radii))
+
+
+def _with_pairs(plan: SpectralPlan) -> SpectralPlan:
+    """The plan with P2's pair list at its positions: listed on the card in
+    the mixed-radii mode, none otherwise (the CPU's plain sweep lists
+    nothing)."""
+    if plan.cheb_radii is None or plan.positions.device.type != "cuda":
+        return plan
+    p = plan.params
+    return dataclasses.replace(plan, radii_pairs=cell_kernels.near_radii_pairs(
+        plan.positions, plan.group_of, plan.cell_table, plan.cell_dims,
+        p.box, p.cell_capacity, r_cut=p.r_cut))
 
 
 def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
@@ -673,7 +689,8 @@ def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
     stays exact on the refresh branch (the old stencil still covers every
     pair within r_cut); the gridding keeps each particle's sort-time x
     planes, as the JAX package does; a rebuild keeps the radius groups.
-    One host sync decides the branch."""
+    Either branch lists P2's pairs anew on the card (mixed radii). One host
+    sync decides the branch, and the list's length takes another."""
     p = plan.params
     box = _box(p, plan.positions)
     pos_w = positions - torch.floor(positions / box) * box
@@ -685,8 +702,9 @@ def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
     budget = torch.as_tensor(np.maximum(budget, 0.0), dtype=box.dtype,
                              device=box.device)
     if bool(torch.all(torch.amax(torch.abs(delta), dim=0) <= budget)):
-        return dataclasses.replace(
-            plan, positions=(plan.sort_pos + delta).contiguous())
+        # new positions: P2's list is made anew, never carried over
+        return _with_pairs(dataclasses.replace(
+            plan, positions=(plan.sort_pos + delta).contiguous()))
     return make_plan(p, positions, group_of=plan.group_of)
 
 
@@ -861,7 +879,7 @@ def real_matvec(plan: SpectralPlan, forces):
         rows = cell_kernels.near_rpy_radii(
             plan.positions, f, plan.group_of, plan.cell_table,
             plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
-            plan.radii_edges, r_cut=p.r_cut)
+            plan.radii_edges, r_cut=p.r_cut, pairs=plan.radii_pairs)
         return rows + plan.self_coeff * f
     rows = cell_kernels.near_rpy(
         plan.positions, f, plan.cell_table, plan.cell_dims, p.box,

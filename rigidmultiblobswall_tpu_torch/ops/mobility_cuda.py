@@ -19,7 +19,9 @@ of its kernels, and of the MCMC pair energy (M1):
      pairs of each configuration of a batch, under the minimum image on the
      periodic axes (XLA in the JAX package: ops/forces.py:506
      blob_blob_energy and models/mcmc.py:25 total_energy;
-     `csrc/blob_energy.cu` here), in float64;
+     `csrc/blob_energy.cu` here), in float64: a sweep over tile groups,
+     or for configurations of at most ENERGY_SMALL_MAX blobs one warp a
+     configuration;
   P1 `radii_matvec`: the square tt product with per-blob radii (the
      different-radii RPY block and its wall image system, ops/rpy.py
      rpy_tt_radii and wall_tt_radii), B = 1 or 2 right-hand sides
@@ -57,6 +59,12 @@ ONE_BOX_LAUNCHES = 0
 UNDERFLOW = {torch.float32: 110.0, torch.float64: 750.0}
 # number of M1 launches made by `blob_pair_energy`
 ENERGY_LAUNCHES = 0
+# the most blobs a configuration has that M1 takes with its small
+# instance (one warp a configuration, one launch); larger configurations
+# take the tile sweep. On the H100 at 4096 configurations the small
+# instance's device time is below the tile sweep's up to 48 blobs and
+# within 6 % of it at 64; at 80 and above the tile sweep is faster
+ENERGY_SMALL_MAX = 64
 # the two mask flavours of a pair of distinct coincident blobs (r^2 = 0):
 # 'zero' adds nothing (the JAX package's forces.blob_blob_energy), 'one'
 # adds u(r = 1) (its mcmc.total_energy, which masks only the diagonal)
@@ -314,10 +322,11 @@ def blob_pair_energy(r_vectors, *, repulsion_strength, debye_length,
     n, 3) (blob_blob_energy_plain), (P,) in float64. The CUDA kernel for
     CUDA tensors (float32 or float64 positions), the plain version for CPU
     tensors; no pair (n < 2) or no repulsion gives zeros without a launch.
-    On the card the kernel sweeps each configuration's unordered pairs
-    over `pair_kernels.plan_groups`' tile groups, one partial a block,
-    summed in a fixed order."""
-    global ENERGY_LAUNCHES
+    On the card, configurations of at most ENERGY_SMALL_MAX blobs take the
+    small instance (one warp a configuration); larger ones the sweep of
+    each configuration's unordered pairs over `pair_kernels.plan_groups`'
+    tile groups, one partial a block, summed in a fixed order. Either is
+    one call, counted once in ENERGY_LAUNCHES."""
     periodic_length = tuple(float(x) for x in periodic_length)
     law = dict(repulsion_strength=repulsion_strength,
                debye_length=debye_length, blob_radius=blob_radius,
@@ -333,29 +342,49 @@ def blob_pair_energy(r_vectors, *, repulsion_strength, debye_length,
         return torch.zeros(n_conf, dtype=torch.float64, device=r.device)
     if r.device.type == "cpu":
         return blob_blob_energy_plain(r, **law, coincident=coincident)
+    return energy_kernel(r, **law, coincident=coincident,
+                         small=n <= ENERGY_SMALL_MAX)
+
+
+def energy_kernel(r, *, repulsion_strength, debye_length, blob_radius,
+                  periodic_length, coincident, small):
+    """One M1 launch on the card: the small instance (small, n <= 128
+    blobs a configuration) or the tile sweep; `blob_pair_energy` picks the
+    instance by n (ENERGY_SMALL_MAX)."""
+    global ENERGY_LAUNCHES
     if r.device.type != "cuda":
         raise ValueError(f"blob_pair_energy: unsupported device {r.device}")
     if r.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"blob_pair_energy: dtype {r.dtype} "
                         "(float32/float64 only)")
+    n_conf, n = r.shape[0], r.shape[1]
     if 3 * n >= 2 ** 31:
         raise ValueError("blob_pair_energy: too many blobs for 32-bit "
                          "indexing")
+    if small and not 2 <= n <= pair_kernels.TILE:
+        raise ValueError(f"blob_pair_energy: the small instance takes 2 to "
+                         f"{pair_kernels.TILE} blobs, got {n}")
     r = r.contiguous()
-    groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(r))
-    partials = torch.empty((n_conf, groups * (groups + 1) // 2),
-                           dtype=torch.float64, device=r.device)
     out = torch.empty(n_conf, dtype=torch.float64, device=r.device)
     box = None
     if any(L > 0 for L in periodic_length):
         box = (ctypes.c_double * 3)(*periodic_length)
-    name = ("blob_energy_f32" if r.dtype == torch.float32
-            else "blob_energy_f64")
-    err = getattr(_build.library(), name)(
-        r.data_ptr(), partials.data_ptr(), out.data_ptr(), n_conf, n, groups,
-        per, *energy_law(repulsion_strength, debye_length, blob_radius), box,
-        int(coincident == "one"),
-        torch.cuda.current_stream(r.device).cuda_stream)
+    prec = "f32" if r.dtype == torch.float32 else "f64"
+    law = energy_law(repulsion_strength, debye_length, blob_radius)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    lib = _build.library()
+    if small:
+        name = f"blob_energy_small_{prec}"
+        err = getattr(lib, name)(r.data_ptr(), out.data_ptr(), n_conf, n,
+                                 *law, box, int(coincident == "one"), stream)
+    else:
+        groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(r))
+        partials = torch.empty((n_conf, groups * (groups + 1) // 2),
+                               dtype=torch.float64, device=r.device)
+        name = f"blob_energy_{prec}"
+        err = getattr(lib, name)(
+            r.data_ptr(), partials.data_ptr(), out.data_ptr(), n_conf, n,
+            groups, per, *law, box, int(coincident == "one"), stream)
     _build.check(name, err)
     ENERGY_LAUNCHES += 1
     return out

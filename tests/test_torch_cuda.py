@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels K1 (every coupling), K2 (open and periodic),
 K3, K4, K5, K6, K7, K8, L1 (every Laplace operator) and M1 (the MCMC pair
-energy, both mask flavours, batches) against their plain PyTorch
-versions, on the card, and the 16-sphere lubrication step on K1 grand
-and K2 and an MCMC chain on M1 against the CPU; P1 (the radii pair
-product) and P2 (the mixed-radii near field) against theirs. Every test here is marked `gpu` and
-skips when no CUDA device is present. The file imports no JAX, so the
+energy, both mask flavours, batches, its small-configuration instance)
+against their plain PyTorch versions, on the card, and the 16-sphere
+lubrication step on K1 grand and K2 and an MCMC chain on M1 against the
+CPU; P1 (the radii pair product) and P2 (the mixed-radii near field: its
+pair list and the list product) against theirs. Every test here is
+marked `gpu` and skips when no CUDA device is present. The file imports no JAX, so the
 machine with the card runs it without the repository's JAX conftest:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_cuda.py
@@ -1799,3 +1800,177 @@ def test_p2_matches_plain_bit_identical_on_repeat(cuda, radii, n_rhs, dtype):
     bound = 1e-12 if dtype == torch.float64 else 3e-6
     err = (got.double() - ref).abs().max() / ref.abs().max()
     assert err <= bound, float(err)
+
+
+def _p2_plan(cuda, radii, dtype, n=2000, seed=None):
+    """make_plan on a random periodic box of n blobs in len(radii) groups
+    (a coincident pair, one blob inside another), tolerance 1e-3."""
+    rng = np.random.default_rng(len(radii) if seed is None else seed)
+    L = 14.0
+    r = rng.uniform(0, L, (n, 3))
+    r[7] = r[6]
+    r[9] = r[8] + 0.05
+    groups = rng.integers(0, len(radii), n).astype(np.int32)
+    p = ewald.default_params(max(radii), 1.0, (L, L, L), tol=1e-3,
+                             cell_capacity=64, radii=radii)
+    plan = ewald.make_plan(p, torch.as_tensor(r, dtype=dtype, device=cuda),
+                           group_of=torch.as_tensor(groups, device=cuda))
+    assert int(plan.n_dropped_cells) == 0
+    return plan, rng
+
+
+def _pair_keys(pairs):
+    tid, sid, wrap = ck.decode_pairs(pairs)
+    return [(int(t), int(s), tuple(w)) for t, s, w in
+            zip(tid.tolist(), sid.tolist(), wrap.tolist())]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("radii", [(0.25, 0.45), (0.2, 0.3, 0.45)])
+def test_p2_list_matches_plain_list(cuda, radii, dtype):
+    """The kernel's list against the plain list's on the same positions:
+    the same entries in the same order, but for pairs whose r^2 lies
+    within 4 ulps of r_cut^2 in the positions' type (the kernel forms r^2
+    with two FMAs, the plain version without): none in float64, at most 3
+    in float32. The plan on the card carries the kernel's list."""
+    plan, _ = _p2_plan(cuda, radii, dtype)
+    p = plan.params
+    got = plan.radii_pairs
+    assert got is not None and got.positions is plan.positions
+    before = ck.LAUNCHES["near_radii_pairs"]
+    again = ck.near_radii_pairs(plan.positions, plan.group_of,
+                                plan.cell_table, plan.cell_dims, p.box,
+                                p.cell_capacity, r_cut=p.r_cut)
+    assert ck.LAUNCHES["near_radii_pairs"] == before + 1
+    assert torch.equal(got.offsets, again.offsets)
+    assert torch.equal(got.entries, again.entries)
+    ref = ck.near_radii_pairs_plain(
+        plan.positions, plan.group_of, plan.cell_table, plan.cell_dims,
+        p.box, p.cell_capacity, r_cut=p.r_cut)
+    kg, kr = _pair_keys(got), _pair_keys(ref)
+    differ = set(kg) ^ set(kr)
+    assert len(differ) <= (0 if dtype == torch.float64 else 3), len(differ)
+    ulp = torch.finfo(dtype).eps
+    pos = plan.positions.double()
+    for t, s, w in differ:
+        d = pos[t] - pos[s] - torch.tensor(
+            [wa * La for wa, La in zip(w, p.box)], dtype=torch.float64,
+            device=cuda)
+        assert abs(float(d @ d) / p.r_cut ** 2 - 1.0) <= 4 * ulp
+    assert [k for k in kg if k not in differ] == \
+        [k for k in kr if k not in differ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+@pytest.mark.parametrize("radii", [(0.25, 0.45), (0.2, 0.3, 0.45)])
+def test_p2_list_product_matches_plain(cuda, radii, n_rhs, dtype):
+    """The list product against its float64 plain version over the same
+    list: float64 to 1e-12, float32 to 3e-6 x max|ref|, twice
+    bit-identical, one product launch a call; the stateless call (its own
+    list) gives the same bits as the plan's cached list, and a refreshed
+    plan lists its new positions."""
+    plan, rng = _p2_plan(cuda, radii, dtype, seed=10 + len(radii))
+    p = plan.params
+    f = torch.as_tensor(rng.normal(size=(plan.positions.shape[0],
+                                         3 * n_rhs)), dtype=dtype,
+                        device=cuda)
+    args = (plan.positions, f, plan.group_of, plan.cell_table,
+            plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
+            plan.radii_edges)
+    before = dict(ck.LAUNCHES)
+    got = ck.near_rpy_radii(*args, r_cut=p.r_cut, pairs=plan.radii_pairs)
+    again = ck.near_rpy_radii(*args, r_cut=p.r_cut, pairs=plan.radii_pairs)
+    torch.cuda.synchronize()
+    key = f"near_rpy_radii_b{n_rhs}"
+    assert ck.LAUNCHES[key] == before[key] + 2
+    assert ck.LAUNCHES["near_radii_pairs"] == before["near_radii_pairs"]
+    assert torch.equal(got, again)
+    assert torch.equal(got, ck.near_rpy_radii(*args, r_cut=p.r_cut))
+    assert ck.LAUNCHES["near_radii_pairs"] == before["near_radii_pairs"] + 1
+    pairs64 = dataclasses.replace(
+        plan.radii_pairs, positions=plan.positions.double())
+    ref = ck.near_rpy_radii_pairs_plain(pairs64, f.double(),
+                                        plan.cheb_radii.double(),
+                                        plan.radii_edges, p.box,
+                                        r_cut=p.r_cut)
+    bound = 1e-12 if dtype == torch.float64 else 3e-6
+    err = (got.double() - ref).abs().max() / ref.abs().max()
+    assert err <= bound, float(err)
+    # the refresh branch: new positions, a new list, the same bits as the
+    # stateless call there
+    moved = plan.positions + 1e-3
+    near = ewald.update_plan(plan, moved)
+    assert near.sort_pos is plan.sort_pos
+    assert near.radii_pairs.positions is near.positions
+    fresh = ck.near_rpy_radii(near.positions, f, *args[2:], r_cut=p.r_cut)
+    assert torch.equal(ck.near_rpy_radii(
+        near.positions, f, *args[2:], r_cut=p.r_cut,
+        pairs=near.radii_pairs), fresh)
+    assert torch.equal(ewald.real_matvec(near, f),
+                       fresh + near.self_coeff * f)
+    with pytest.raises(ValueError, match="other positions"):
+        ck.near_rpy_radii(near.positions, f, *args[2:], r_cut=p.r_cut,
+                          pairs=plan.radii_pairs)
+
+
+def _energy_kernels(fn):
+    """The names of the CUDA kernels fn() runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if "energy" in e.key or "partials" in e.key
+            for _ in range(e.count)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("coincident", ["zero", "one"])
+@pytest.mark.parametrize("box", sorted(M1_BOXES))
+@pytest.mark.parametrize("n", [2, 3, 12, 31, 32, 33, 128])
+def test_m1_small_instance_matches_plain(cuda, n, box, coincident, dtype):
+    """M1's small instance (up to 128 blobs a configuration, one warp
+    each; blob_pair_energy takes it up to ENERGY_SMALL_MAX) on 37
+    configurations against its float64 plain version: float64 to 1e-12 of
+    each configuration's energy, float32 within u32 sqrt(pairs), twice the
+    float32 plain version's error or the rounding of its terms' inputs
+    (_m1_term_bound), relative to the largest energy; twice bit-identical,
+    one launch a call counted once."""
+    r = _m1_scene(cuda, n, n_conf=37, seed=n).to(dtype)
+    kw = dict(M1_LAW, periodic_length=M1_BOXES[box], coincident=coincident)
+    before = mc.ENERGY_LAUNCHES
+    got = mc.energy_kernel(r, **kw, small=True)
+    again = mc.energy_kernel(r, **kw, small=True)
+    torch.cuda.synchronize()
+    assert mc.ENERGY_LAUNCHES == before + 2
+    assert got.dtype == torch.float64 and got.shape == (37,)
+    assert torch.equal(got, again)
+    ref = mc.blob_blob_energy_plain(r.double(), **kw)
+    if dtype == torch.float64:
+        err = ((got - ref).abs() / ref.abs().clamp(min=1e-300)).max()
+        assert float(err) <= 1e-12
+        return
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max()) / scale
+    plain = float((mc.blob_blob_energy_plain(r, **kw) - ref).abs().max())
+    terms = max(_m1_term_bound(r[p:p + 1].double(), kw)
+                for p in range(r.shape[0]))
+    bound = max(2 ** -24 * (n * (n - 1) / 2) ** 0.5, 2 * plain / scale,
+                terms / scale)
+    assert err <= bound, (err, bound)
+
+
+def test_m1_small_instance_is_one_launch(cuda):
+    """The rejection sampler's batch (4096 twelve-blob configurations) runs
+    one kernel, the small instance, and ENERGY_SMALL_MAX + 1 blobs the
+    tile sweep and its sum of partials: the instance follows n alone."""
+    kw = dict(M1_LAW, periodic_length=M1_BOXES["xy"], coincident="one")
+    small = _m1_scene(cuda, 12, n_conf=4096).float()
+    names = _energy_kernels(lambda: mc.blob_pair_energy(small, **kw))
+    assert len(names) == 1 and "energy_small_kernel" in names[0], names
+    big = _m1_scene(cuda, mc.ENERGY_SMALL_MAX + 1, n_conf=2).float()
+    names = _energy_kernels(lambda: mc.blob_pair_energy(big, **kw))
+    assert len(names) == 2 and not any("small" in x for x in names), names

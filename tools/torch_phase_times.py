@@ -1,8 +1,11 @@
 """Step times of chip_smoke.py's phase 6 (multibody-49k, Slip-Trapz),
-phase 15 (multibody-49k-phoretic: forward Euler and Slip-Trapz, the
-concentration field) and phase 18 (multibody-49k-radii: forward Euler and
-Slip-Trapz on kernel P1) on a CUDA card, for the package and chip_smoke.py
-of one checkout, in one process:
+phase 8 (spectral-98k, Slip-Trapz on K6), phase 15 (multibody-49k-phoretic:
+forward Euler and Slip-Trapz, the concentration field), phase 16
+(multibody-49k-mcmc: the chain's ms a step on M1 and the rejection
+sampler's proposals a second on M1's batch), phase 18 (multibody-49k-radii:
+forward Euler and Slip-Trapz on kernel P1) and phase 19
+(spectral-98k-radii: Slip-Trapz on kernel P2) on a CUDA card, for the
+package and chip_smoke.py of one checkout, in one process:
 
     python3 tools/torch_phase_times.py [--root DIR] [--phases 6,15,18]
 
@@ -11,7 +14,8 @@ unpacked with `git archive` into a directory that .gitignore lists)
 builds its own kernels into its own build/kernels/. Each phase runs as
 chip_smoke.py runs it, with its checks; its log lines, which carry the
 ms/step, the solver counts and the launches, are printed as they come,
-then one summary line `phase times <root>: ...`. To compare two
+then one summary line `phase times <root>: ...` (ms a step; phase 16's
+chain in ms a step and its sampler in proposals a second). To compare two
 checkouts, run them in turns in one chip call (parent, change, change,
 parent): step times are host-clock and spread between calls.
 """
@@ -32,10 +36,10 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
     p.add_argument("--phases", default="6,15",
-                   help="comma-separated subset of 6, 15 and 18")
+                   help="comma-separated subset of 6, 8, 15, 16, 18 and 19")
     args = p.parse_args()
     phases = [x.strip() for x in args.phases.split(",") if x.strip()]
-    if not set(phases) <= {"6", "15", "18"}:
+    if not set(phases) <= {"6", "8", "15", "16", "18", "19"}:
         raise SystemExit(f"torch_phase_times: unknown phases {phases}")
     if not torch.cuda.is_available():
         raise SystemExit("torch_phase_times: needs a CUDA card")
@@ -63,18 +67,29 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     if "6" in phases:
         cs.phase_main_path(pk, mc)
+    if "8" in phases:
+        cs.phase_spectral_path(pk, mc, ck)
     if "15" in phases:
         cs.phase_phoretic_path(pk, mc)
+    if "16" in phases:
+        cs.phase_mcmc_path(pk, mc)
     if "18" in phases:
         cs.phase_radii_path(pk, mc, ck, lap)
+    if "19" in phases:
+        cs.phase_radii_spectral_path(pk, mc, ck, lap,
+                                     cs.ptxas_report(_build.build_log))
+    patterns = (
+        r"(main path|multibody-49k-(?:phoretic|radii) \w+"
+        r"|spectral path|spectral-98k-radii) .*?: ([0-9.]+) ms/step",
+        r"(multibody-49k-mcmc) .*? ([0-9.]+) ms per step",
+        r"(rejection sampler), .*? s, ([0-9]+) proposals per second")
     summary = []
     for line in lines:
-        m = re.match(r"(main path|multibody-49k-(?:phoretic|radii) \w+) "
-                     r".*?: ([0-9.]+) ms/step", line)
-        if m:
-            summary.append(f"{m.group(1)} {m.group(2)}")
-    print(f"phase times {root}: " + "; ".join(summary) + " ms/step",
-          flush=True)
+        for pat in patterns:
+            m = re.match(pat, line)
+            if m:
+                summary.append(f"{m.group(1)} {m.group(2)}")
+    print(f"phase times {root}: " + "; ".join(summary), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Kernels K1, K2, K5, K6, K7, K8, L1 and P1 at the main paths' shapes on
-a CUDA card.
+"""Kernels K1, K2, K5, K6, K7, K8, L1, P1, P2 and M1 at the main paths'
+shapes on a CUDA card.
 
-    python3 tools/torch_profile_kernels.py [--kernels k1,k2,k5,k6,k7,k8,l1,p1]
+    python3 tools/torch_profile_kernels.py \
+        [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -62,7 +63,16 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
 - p1 (csrc/pair_radii.cu): B = 1 and 2 at chip_smoke.py phase 18's shape
   (49,152 blobs of two radii above the wall) as the path calls it; but
   for --baseline also its plan, the pairs inside contact, its bound and
-  the all-regime one (chip_smoke.py p1_bound).
+  the all-regime one (chip_smoke.py p1_bound);
+- p2 (csrc/near_radii.cu): at chip_smoke.py phase 19's plan (98,304 blobs
+  of two radius groups), the list build and the product over the plan's
+  list, B = 1 and 2, as the path calls them (with an older checkout whose
+  P2 walks the stencil, that walk); but for --baseline also the plan's
+  work, the list's size, both bounds and the stateless call;
+- m1 (csrc/blob_energy.cu): the rejection sampler's batch (4096 twelve-blob
+  configurations) as the path calls it; but for --baseline also the
+  floor an empty launch sets, and the small instance beside the tile
+  sweep at n = 12 to 128 blobs and 4096, 64 and 1 configurations.
 But for --baseline it prints the ptxas registers and spills of the chosen
 kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
@@ -109,7 +119,9 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
                     "l1_sym<float, 5, true",
                     "l1_directed<float, 1, true, false",
                     "l1_directed<float, 0, true, false"),
-             "p1": ("radii_sym_kernel<",)}
+             "p1": ("radii_sym_kernel<",),
+             "p2": ("pairs_kernel<", "product_kernel<"),
+             "m1": ("energy_small_kernel<", "energy_kernel<")}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -786,9 +798,185 @@ def profile_p1(cs, dev, detail):
               flush=True)
 
 
+# ---------------------------------------------------------------- P2
+
+
+def p2_plan(cs, dev):
+    """chip_smoke.py phase 19's plan (98,304 blobs of two radius groups in
+    phase 8's box), float32, sized as that phase sizes it."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models import saddle
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system = cs.radii_spectral_system(cs.N_SPECTRAL, cs.L_SPECTRAL)
+    pos, quat = cs.alternate(*cs.spectral_lattice(cs.N_SPECTRAL,
+                                                  cs.SPECTRAL_SIDE))
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    system = saddle.auto_spectral_capacities(system, state)
+    return saddle.maybe_dense_mobility(system,
+                                       kin.blob_positions(system, state))
+
+
+def profile_p2(cs, dev, detail):
+    """Prints P2's times at phase 19's plan as the path calls it: the
+    list build (a plan's, once a configuration) and the product over the
+    plan's list, B = 1 and 2; with a checkout whose P2 has no list (the
+    walk), the stateless product. With detail also the plan's work
+    (candidates, pairs inside r_cut, the list's length) and the bounds
+    (chip_smoke.py p2_list_bound, p2_product_bound)."""
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+
+    plan = p2_plan(cs, dev)
+    p = plan.params
+    n = plan.positions.shape[0]
+    listed = hasattr(ck, "near_radii_pairs")
+    args = (plan.cell_table, plan.cell_dims, p.box, p.cell_capacity)
+    g = torch.Generator(device=dev).manual_seed(19)
+    head = f"  P2 {n} blobs G={len(p.radii)}"
+    if listed:
+        def build():
+            return ck.near_radii_pairs(plan.positions, plan.group_of, *args,
+                                       r_cut=p.r_cut)
+
+        ms = cs.cuda_ms(build, 10)
+        line = f"{head} list build f32: {ms:.3f} ms"
+        if detail:
+            parts = device_parts(build, 10)
+            line += (f" (device {sum(parts.values()):.3f} ms a build: "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                     + ")")
+            cand, inside = ck.pair_counts(plan.positions, *args, p.r_cut)
+            n_list = int(plan.radii_pairs.offsets[-1])
+            rec = cs.p2_list_bound(n, cand, n_list, plan.cell_table)
+            line += (f"; {cand} candidates, {inside} pairs inside r_cut, "
+                     f"{n_list} listed ({4 * (n + 1 + n_list) / 2 ** 20:.1f}"
+                     f" MiB); bound {rec['bound_ms']:.4f} ms "
+                     f"({rec['bound_by']}), {rec['bound_ms'] / ms:.1%}")
+        print(line, flush=True)
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        call = (plan.positions, f, plan.group_of, *args, plan.cheb_radii,
+                plan.radii_edges)
+        kw = dict(r_cut=p.r_cut)
+        if listed:
+            kw["pairs"] = plan.radii_pairs
+        def product(call=call, kw=kw):
+            return ck.near_rpy_radii(*call, **kw)
+
+        ms = cs.cuda_ms(product, 10)
+        line = (f"{head} {'list product' if listed else 'walk'} "
+                f"B={n_rhs} f32: {ms:.3f} ms")
+        if detail:
+            line += f" (device {device_ms(product, 10):.3f})"
+        if detail and listed:
+            cand, inside = ck.pair_counts(plan.positions, *args, p.r_cut)
+            rec = cs.p2_product_bound(n, inside, int(
+                plan.radii_pairs.offsets[-1]), plan.cheb_radii.shape[-1],
+                n_rhs)
+            both = cs.cuda_ms(lambda: ck.near_rpy_radii(
+                *call, r_cut=p.r_cut), 10)
+            line += (f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}),"
+                     f" {rec['bound_ms'] / ms:.1%}; the stateless call "
+                     f"(build and product) {both:.3f} ms")
+        print(line, flush=True)
+
+
+# ---------------------------------------------------------------- M1
+
+
+def profile_m1(cs, dev, detail):
+    """Prints M1's time on batches of n-blob configurations of one shell's
+    box (chip_smoke.py shell_batch's box, uniform blobs), as the path
+    calls it (mobility_cuda.blob_pair_energy), and with detail each
+    instance on the same batch (the small instance and the tile sweep,
+    mobility_cuda.energy_kernel): the crossover of the fixed rule
+    ENERGY_SMALL_MAX; also the floor an empty launch of the library sets.
+    With a checkout that has one instance, the path's call only."""
+    from rigidmultiblobswall_tpu_torch.ops import _build
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+
+    kw = dict(repulsion_strength=0.2, debye_length=0.2,
+              blob_radius=cs.A_BENCH, coincident="one")
+    both = detail and hasattr(mc, "energy_kernel")
+    if both:
+        lib = _build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        floor = cs.cuda_ms(lambda: _build.check(
+            "launch_floor", lib.launch_floor(stream)), 20)
+        print(f"  M1 an empty launch: {floor:.4f} ms", flush=True)
+    rb = cs.shell_batch(cs.N_MCMC_BATCH)
+    ms = cs.cuda_ms(lambda: mc.blob_pair_energy(rb, **kw), 20)
+    busy = device_ms(lambda: mc.blob_pair_energy(rb, **kw), 20)
+    print(f"  M1 batch {cs.N_MCMC_BATCH} x 12 f32 as the path calls it: "
+          f"{ms:.4f} ms a call, its kernels {busy:.4f} ms of device time",
+          flush=True)
+    rm = m1_scene(cs, dev)
+    ms = cs.cuda_ms(lambda: mc.blob_pair_energy(rm, **kw), 10)
+    print(f"  M1 {rm.shape[1]} blobs f32 as the path calls it: {ms:.3f} ms",
+          flush=True)
+    if not both:
+        return
+    g = torch.Generator(device=dev).manual_seed(16)
+    box = 5.0 * (2 * 0.5 + 2 * cs.A_BENCH)
+    for n_conf in (cs.N_MCMC_BATCH, 64, 1):
+        for n in (12, 32, 48, 64, 80, 96, 128):
+            r = torch.rand((n_conf, n, 3), generator=g, device=dev) * box
+            t = {}
+            for small in (True, False):
+                def call(small=small):
+                    return mc.energy_kernel(
+                        r, **kw, periodic_length=(0.0, 0.0, 0.0),
+                        small=small)
+                t[small] = (cs.cuda_ms(call, 20), device_ms(call, 20))
+            print(f"  M1 {n_conf} x {n} f32: small {t[True][0]:.4f} ms a "
+                  f"call ({t[True][1]:.4f} device), tile sweep "
+                  f"{t[False][0]:.4f} ({t[False][1]:.4f})", flush=True)
+
+
+def m1_scene(cs, dev):
+    """chip_smoke.py phase 16's blobs: phase 6's 4096 shells (49,152
+    blobs) as one configuration, float32."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system = cs.bench_system(cs.N_SHELLS)
+    pos, quat = cs.lattice(cs.N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    return kin.blob_positions(system, state)[None].contiguous()
+
+
+def device_parts(fn, reps):
+    """The device time of each CUDA kernel fn() runs, ms a call by kernel
+    name (torch.profiler), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            name = (e.key.replace("(anonymous namespace)::", "")
+                    .split("(")[0].replace("void ", "").split("<")[0]
+                    .strip())
+            parts[name] = parts.get(name, 0.0) + us / 1e3 / reps
+    return parts
+
+
+def device_ms(fn, reps):
+    """The device time of fn()'s CUDA kernels, ms a call."""
+    return sum(device_parts(fn, reps).values())
+
+
 PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
             "k6": profile_k6, "k7": profile_k7, "k8": profile_k8,
-            "l1": profile_l1, "p1": profile_p1}
+            "l1": profile_l1, "p1": profile_p1, "p2": profile_p2,
+            "m1": profile_m1}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -997,9 +1185,9 @@ def sass_step_paths(body):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
-    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1",
+    p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1,p2,m1",
                    help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
-                        "l1, p1")
+                        "l1, p1, p2, m1")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",

@@ -9,11 +9,12 @@ timed on the host clock around `torch.cuda.synchronize()`, then one step
 under torch.profiler (CUDA activity). Prints the card's name and power
 limit, the unprofiled ms/step with iteration counts, the device's busy
 time and idle share in the profiled step, the top kernels, and the
-device time grouped by what it serves (K6 or P2, K5, FFT, the spread's
-index_add_, the interpolation's gathers, the rest). With --radii the
-scene is chip_smoke.py's phase 19: the same box with bench.py's shell and
-a 1.2x shell (blob radius 0.157) alternating, on the mixed-radii plan
-(near field on kernel P2, G = 2 channel blocks gridded).
+device time grouped by what it serves (K6, or P2's list product and
+list build, K5, FFT, the spread's index_add_, the interpolation's
+gathers, the rest). With --radii the scene is chip_smoke.py's phase 19:
+the same box with bench.py's shell and a 1.2x shell (blob radius 0.157)
+alternating, on the mixed-radii plan (near field on kernel P2, G = 2
+channel blocks gridded).
 
 Usage: python3 tools/torch_profile_spectral.py [n_shells] [--steps N]
        [--radii]
@@ -39,7 +40,9 @@ from rigidmultiblobswall_tpu_torch.models.system import (  # noqa: E402
 from rigidmultiblobswall_tpu_torch.ops import forces  # noqa: E402
 
 # kernel-name fragments per group, first match wins
-GROUPS = (("K6/P2 near_rpy", ("near_rpy",)),
+GROUPS = (("K6 near_rpy", ("near_rpy",)),
+          ("P2 list product", ("product_kernel",)),
+          ("P2 list build", ("pairs_kernel",)),
           ("K5 nl_forces", ("nl_forces",)),
           ("FFT (cuFFT)", ("fft", "FFT")),
           ("spread: index_add_", ("index_add", "indexFuncLarge",
