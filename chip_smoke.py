@@ -16,7 +16,8 @@ is non-zero and no result line is printed):
      L1, the Laplace layer sums (csrc/laplace_layers.cu), M1, the
      MCMC pair energy (csrc/blob_energy.cu), P1, the radii pair product
      (csrc/pair_radii.cu), and P2, the mixed-radii near field's pair list
-     and list product (csrc/near_radii.cu), with one nvcc per source,
+     and list product (csrc/near_radii.cu), K1's and K3's image-box
+     instances among them, with one nvcc per source,
      all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
@@ -269,6 +270,27 @@ is non-zero and no result line is printed):
      memory and the launches (P2's builds and products and K5 must run,
      K6 must not). Phase 3 also holds P2 on a random 3000-blob periodic
      box of three radius groups, with its build and product timed.
+ 20. the direct engine's pseudo-periodic image boxes (ROADMAP item 4) at
+     full width, float32, each path on K1's and K3's image-box instances
+     (csrc/pair_blocks.cuh ImageBoxes, csrc/dense_tt.cu), K2's periodic
+     instances and M1's minimum image, no open K1 or K3 launch:
+     20a multibody-49k-pseudo-periodic (phase 6's scene in a (25.6, 25.6,
+     0) box, the lattice's own period; forward Euler and Slip-Trapz,
+     matrix-free), 20b multibody-12k-dense-pseudo-periodic (phase 9's
+     scene in (17.6, 17.6, 0), one materialized Slip-Trapz step), 20c
+     rollers-32k-pseudo-periodic (phase 7's rollers in (291.2, 291.2, 0),
+     stochastic and deterministic Adams-Bashforth), 20d
+     lubrication-4k-pseudo-periodic (phase 12's spheres in (153.6, 153.6,
+     0), step_trapezoidal), 20e an MCMC chain on 20a's scene, and 20f the
+     .random_state round trip through the CLI on the card (4 steps
+     against 2 + 2 restarted from the .clones and .random_state, float64,
+     the same frames); ms a step, solver counts and launches of each.
+     Each image instance on these paths is first held against its plain
+     version in float64 at the path's shape (the first 1024 target rows;
+     K3 the whole matrix) within 3e-6 x max|ref|, twice bit-identical,
+     with its time, the plain version's at full size, its bound (each
+     unordered pair's boxes condensed once) and its registers; the sliced
+     sweep's instance at 20a's sources in the log.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -302,7 +324,8 @@ K5, L1 and M1 their special functions at 16 a clock an SM, whichever
 is larger; K2, K7, L1 and M1 also name their design, L1 its plan; K8,
 L1 and M1 have a record per instance; P1 and P2 name their plan and
 registers, P1 with a record per B, P2 one for its build and one per B;
-M1's batch carries the floor an empty launch sets);
+M1's batch carries the floor an empty launch sets; K1's and K3's
+image-box instances a record each at phase 20's shapes);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -2173,21 +2196,24 @@ def periodic_scene(n, box, seed=3):
     return r
 
 
-def force_abs_scale(mc, r, rows, *, repulsion_strength, debye_length,
+def force_abs_scale(r, rows, *, repulsion_strength, debye_length,
                     blob_radius, periodic_length):
     """max over the rows of sum_j |F_ij| (every image box), float64: the
     scale of a force sum's rounding where its terms cancel (a lattice's
     neighbors nearly balance, so max|F_i| alone understates it). A pair's
     |F| is (eps/b) exp(-max(r - 2a, 0)/b), 0 at r = 0."""
+    from rigidmultiblobswall_tpu_torch.ops.pair_kernels import (
+        box_offsets, min_image)
+
     r = r.double()
     L = torch.as_tensor(periodic_length, dtype=r.dtype, device=r.device)
     eob = repulsion_strength / debye_length
     scale = 0.0
     for i0 in range(rows.start, rows.stop, 128):
-        d0 = mc.min_image(r[i0:min(i0 + 128, rows.stop), None] - r[None],
-                          periodic_length)
+        d0 = min_image(r[i0:min(i0 + 128, rows.stop), None] - r[None],
+                       periodic_length)
         total = torch.zeros(d0.shape[0], dtype=r.dtype, device=r.device)
-        for box in mc.box_offsets(periodic_length):
+        for box in box_offsets(periodic_length):
             rn = torch.linalg.norm(d0 + torch.as_tensor(
                 box, dtype=r.dtype, device=r.device) * L, dim=-1)
             mag = eob * torch.exp(-torch.clamp(rn - 2 * blob_radius, min=0)
@@ -2426,7 +2452,7 @@ def phase_wall_rollers_path(pk, mc, ck):
     # the sum of the pair forces' sizes, not max|F|; and a pair across the
     # periodic edge takes its float32 displacement from coordinates and a
     # box near L: its rounding, ~u32 2 L, moves the force by that over b
-    scale = force_abs_scale(mc, r, rows, **kw2)
+    scale = force_abs_scale(r, rows, **kw2)
     rel = err / scale
     ref32 = mc.blob_blob_forces_plain(r, rows=rows, **kw2)[:1024]
     rel32 = (ref32.double() - ref).abs().max().item() / scale
@@ -2444,7 +2470,7 @@ def phase_wall_rollers_path(pk, mc, ck):
                        + n * (n - 1) // 2 * K2_MIN_IMAGE_FLOPS * n_axes,
                        pairs * FORCE_PAIR_MUFU)
     log(f"K2 periodic {n} rollers f32 box {sus.periodic_length} ({n_boxes} "
-        f"of {len(mc.box_offsets(sus.periodic_length))} image boxes summed: "
+        f"of {len(pk.box_offsets(sus.periodic_length))} image boxes summed: "
         f"the one-box instance), "
         f"first 1024 rows vs plain f64 (every box): max err {err:.3e}, / "
         f"max_i sum_j |F_ij| = {rel:.3e} (bound u32 4 L / b = "
@@ -2704,9 +2730,11 @@ def phase_dense_kernels(pk, mc, mob, kin, make_state):
     ms = cuda_ms(lambda: mc.dense_tt(r, eta, a, wall=True), 5)
     plain_ms = cuda_ms(lambda: mc.dense_tt_plain(r, eta, a, wall=True), 1,
                        warmup=False)
+    # the matrix is symmetric: the function needs each unordered pair's
+    # block once (the bytes term writes the whole matrix)
     records["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          **bound_record(4 * (n3 * n3 + n3),
-                                        n * n * K3_PAIR_FLOPS))
+                                        n * (n + 1) // 2 * K3_PAIR_FLOPS))
     log(f"K3 {n} blobs f32 vs plain f64: max err {err:.3e}, / max|ref| = "
         f"{err / scale:.3e} (bound 3e-6); kernel {ms:.3f} ms, plain f32 "
         f"{plain_ms:.1f} ms, bound {records['K3']['bound_ms']:.3f} ms "
@@ -4345,6 +4373,8 @@ def m1_term_bound(mc, r, kw):
     exponent's magnitude |r - 2a| / b), summed over the unordered pairs in
     float64 (tests/test_torch_cuda.py _m1_term_bound), in the plain
     version's chunks."""
+    from rigidmultiblobswall_tpu_torch.ops.pair_kernels import min_image
+
     r = r.double()
     n_conf, n = r.shape[0], r.shape[1]
     eps, b = kw["repulsion_strength"], kw["debye_length"]
@@ -4357,8 +4387,8 @@ def m1_term_bound(mc, r, kw):
         rp = r[p0:p0 + per]
         for i0 in range(0, n, tile):
             ri = rp[:, i0:i0 + tile]
-            dist = mc.min_image(ri[:, :, None, :] - rp[:, None, :, :],
-                                box).norm(dim=-1)
+            dist = min_image(ri[:, :, None, :] - rp[:, None, :, :],
+                             box).norm(dim=-1)
             u = torch.where(dist > two_a, eps * torch.exp(-(dist - two_a) / b),
                             eps + eps * (two_a - dist) / b)
             term = u * (2.0 + (dist - two_a).abs() / b)
@@ -4914,9 +4944,11 @@ def phase_twin_cli():
 
 def _reset_counts(pk, mc, ck, lap):
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    pk.IMAGE_LAUNCHES.update(dict.fromkeys(pk.IMAGE_LAUNCHES, 0))
     mc.RADII_LAUNCHES.update(dict.fromkeys(mc.RADII_LAUNCHES, 0))
     pk.SYM_LAUNCHES.update(dict.fromkeys(pk.SYM_LAUNCHES, 0))
     mc.LAUNCHES = mc.PERIODIC_LAUNCHES = mc.ENERGY_LAUNCHES = 0
+    mc.ONE_BOX_LAUNCHES = mc.DENSE_IMAGE_LAUNCHES = 0
     mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
     lap.LAUNCHES.update(dict.fromkeys(lap.LAUNCHES, 0))
@@ -4927,7 +4959,8 @@ def _other_launches(pk, mc, ck, lap, allowed=()):
     of K1)."""
     return {"K1": sum(n for k, n in pk.LAUNCHES.items() if k not in allowed),
             "K2": mc.LAUNCHES + mc.PERIODIC_LAUNCHES,
-            "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+            "K3/K4": sum(mc.DENSE_LAUNCHES.values())
+            + mc.DENSE_IMAGE_LAUNCHES,
             "K5-K8": sum(ck.LAUNCHES.values()),
             "L1": sum(lap.LAUNCHES.values()), "M1": mc.ENERGY_LAUNCHES,
             "P1": sum(mc.RADII_LAUNCHES.values())}
@@ -5818,6 +5851,473 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Pseudo-periodic image boxes of the direct engine (ROADMAP Queue 1, item
+# 4) and the .random_state restart (item 11): phase 20
+# ---------------------------------------------------------------------------
+
+# the boxes: each lattice's own period in x and y, so the images continue
+# it (20a: 16 shells a side at 1.6; 20b: phase 9's 11; 20c: phase 7's 182
+# rollers, the box phase 11 runs; 20d: phase 12's 64 spheres at 2.4)
+L_PSEUDO = 16 * 1.6
+L_PSEUDO_DENSE = 11 * 1.6
+L_PSEUDO_ROLLERS = 182 * 1.6
+L_PSEUDO_LUB = 64 * 2.4
+# the image instances' float32 bound against the float64 plain version (the
+# JAX package's, tests/test_pair_kernels.py:49)
+IMG_BOUND = 3e-6
+# the minimum image a pair takes in float64 on each periodic axis: a
+# difference, a multiply-add, a truncation and a multiply-add, counted as
+# two float32 operations each (the H100's float64 rate is half its float32
+# one, 34 TFLOP/s)
+K1_IMAGE_FLOPS = 8
+
+
+def xy_box(L):
+    return (float(L), float(L), 0.0)
+
+
+def img_k1_record(pk, coupling, q, v, L, sub, what, report):
+    """An image-box instance of K1 at a path's full shape (float32, wall,
+    self pairs; q in units of a, L the box in units of a), called as the
+    path calls it (the square product, the symmetric sweep): the first
+    `sub` target rows against the plain version in float64 within
+    IMG_BOUND x max|ref|, twice bit-identical, its time, the plain
+    version's at full size, its registers. The bound counts each box of
+    each unordered pair condensed once (tr's and rt's other cross block
+    with it) and applied both ways, and the pair's minimum image."""
+    n = q.shape[0]
+    nc = pk.NCOMP[coupling]
+    n_rhs = v.shape[1] // nc
+    boxes = (L, pk.box_offsets(L))
+    kw = dict(coupling=coupling, wall=True, self_interaction=True,
+              boxes=boxes)
+    got = pk.pair_matvec(q, None, v, **kw)
+    again = pk.pair_matvec(q, None, v, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
+    err = (got[:sub].double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    ms = cuda_ms(lambda: pk.pair_matvec(q, None, v, **kw), 5)
+    plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1,
+                       warmup=False)
+    apply = K1_APPLY_FLOPS[coupling]
+    per_pair = (K1_PAIR_FLOPS[coupling] + K1_SYM_EXTRA_FLOPS.get(coupling, 0)
+                - apply + 2 * apply * n_rhs) / 2
+    n_boxes = len(boxes[1])
+    periodic = sum(1 for x in L if x > 0)
+    flops = n * n * (n_boxes * per_pair + K1_IMAGE_FLOPS * periodic / 2)
+    nbytes = 4 * n * (3 + 2 * nc * n_rhs)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound_record(nbytes, flops))
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    groups, tiles = pk.plan_groups(n, n_sm)
+    regs = instance_registers(
+        report, "sym_kernel<float",
+        {"tt": "DiagCoupling<false>", "rr": "DiagCoupling<true>",
+         "tr": "CrossCoupling<true", "rt": "CrossCoupling<false",
+         "grand": "Grand"}[coupling], f", {n_rhs}, true, pairk::ImageBoxes")
+    log(f"K1 {coupling} images {what} B={n_rhs} f32, {n_boxes} boxes of "
+        f"{L}, the symmetric sweep ({groups} groups of {tiles} tiles): first "
+        f"{sub} target rows vs plain f64 max err {err:.3e}, / max|ref| = "
+        f"{rel:.3e} (bound {IMG_BOUND:.0e}); repeat bit-identical {same}; "
+        f"kernel {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+        f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%} of it), plain f32 "
+        f"{plain_ms:.1f} ms; registers {regs}")
+    check(rel <= IMG_BOUND, f"K1 {coupling} images B={n_rhs} disagrees at "
+          f"{what} ({rel:.3e})")
+    check(same, f"K1 {coupling} images B={n_rhs} not bit-identical on "
+          f"repeat at {what}")
+    return rec
+
+
+def img_k1_sliced_check(pk, q, v, L, sub, what):
+    """The sliced sweep's image-box instance (no path of phase 20 takes it:
+    every product there is square) at a path's sources: the first `sub`
+    rows as targets of a two-tensor call, against the plain version in
+    float64."""
+    boxes = (L, pk.box_offsets(L))
+    kw = dict(coupling="tt", wall=True, self_interaction=True, boxes=boxes)
+    got = pk.pair_matvec(q, q[:sub].contiguous(), v, **kw)
+    torch.cuda.synchronize()
+    ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
+    rel = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    n_rhs = v.shape[1] // 3
+    log(f"K1 tt images {what} B={n_rhs}, the sliced sweep ({sub} targets): "
+        f"vs plain f64 / max|ref| = {rel:.3e} (bound {IMG_BOUND:.0e})")
+    check(rel <= IMG_BOUND, f"K1 tt images B={n_rhs}, sliced, disagrees at "
+          f"{what}")
+
+
+def _img_launches(pk):
+    """The image instances' launches by (coupling, B), every sweep, and
+    those on the sliced sweep."""
+    out = {}
+    for (c, b, _), n in pk.IMAGE_LAUNCHES.items():
+        if n:
+            key = f"K1 {c} images" + ("" if b == 1 else f" B={b}")
+            out[key] = out.get(key, 0) + n
+    sliced = sum(n for (_, _, s), n in pk.IMAGE_LAUNCHES.items()
+                 if s == "sliced")
+    return out, sliced
+
+
+def _img_steps(step, state, gen, carry, n_timed):
+    """One warm-up and n_timed steps of step(state, gen, carry) -> (state,
+    carry, aux) (host clock, each bracketed by a synchronize); returns
+    (state, carry, ms list, aux list)."""
+    times, auxes = [], []
+    for k in range(n_timed + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, carry, aux = step(state, gen, carry)
+        torch.cuda.synchronize()
+        if k:
+            times.append((time.perf_counter() - t0) * 1e3)
+        auxes.append(aux)
+    return state, carry, times, auxes
+
+
+def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
+    """Phase 20, the direct engine's pseudo-periodic image boxes and the
+    .random_state restart at full width, float32 (each path on K1's and
+    K3's image-box instances, K2's periodic instances and M1's minimum
+    image; no open K1 or K3 launch may run):
+      20a multibody-49k-pseudo-periodic: phase 6's scene (4096 shells,
+          49,152 blobs) in a (25.6, 25.6, 0) box, matrix-free, forward
+          Euler and Slip-Trapz, one warm-up and two timed steps each;
+      20b multibody-12k-dense-pseudo-periodic: phase 9's 1024 shells in a
+          (17.6, 17.6, 0) box, one Slip-Trapz step on the materialized
+          engine (K3's image instance and K4);
+      20c rollers-32k-pseudo-periodic: phase 7's 32,768 rollers in a
+          (291.2, 291.2, 0) box, stochastic and deterministic
+          Adams-Bashforth, one warm-up and two timed steps each;
+      20d lubrication-4k-pseudo-periodic: phase 12's 4096 spheres in a
+          (153.6, 153.6, 0) box, step_trapezoidal, one warm-up and two
+          timed steps;
+      20e a 100 + 100-step MCMC chain on 20a's scene (M1's minimum
+          image), its final energy against the plain version's;
+      20f the .random_state round trip through the CLI on the card: a
+          4-step run against 2 steps restarted from its .clones and
+          .random_state for 2 more (float64, the same frames).
+    Each image instance on these paths is held against its plain version
+    at the path's shape (img_k1_record; K3 on the whole matrix) first.
+    Returns (records, launches) for the kernel JSON line."""
+    from rigidmultiblobswall_tpu_torch.models import integrators, lubrication
+    from rigidmultiblobswall_tpu_torch.models import mcmc, rollers, saddle
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    records, launches = {}, {}
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    # 20a: the kernels at the path's shape, then the two schemes
+    box = xy_box(L_PSEUDO)
+    system = bench_system(N_SHELLS, periodic_length=box)
+    pos, quat = lattice(N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state).contiguous()
+    n = r.shape[0]
+    q = (mob.shift_heights(r, A_BENCH) / A_BENCH).contiguous()
+    La = tuple(x / A_BENCH for x in box)
+    what = f"{n} blobs"
+    for n_rhs in (1, 2):
+        v = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        records["tt" if n_rhs == 1 else "tt_b2"] = img_k1_record(
+            pk, "tt", q, v, La, 1024, what, report)
+    for vs in (v[:, :3].contiguous(), v):
+        img_k1_sliced_check(pk, q, vs, La, 512, what)
+    check(saddle.maybe_dense_mobility(system, r) is None,
+          "20a: 49,152 blobs materialized")
+    a_launches = {}
+    for scheme in ("deterministic_forward_euler", "stochastic_Slip_Trapz"):
+        st = make_state(pos, quat, dtype=torch.float32, device=dev)
+        step = integrators.make_stepper(
+            system, scheme, 1e-3, lanczos_tolerance=5e-4,
+            lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+            gmres_maxiter=300, max_rejections=3)
+        carry = integrators.init_carry(system, state=st)
+        _reset_counts(pk, mc, ck, lap)
+        st, carry, times, auxes = _img_steps(
+            step, st, torch.Generator(device=dev).manual_seed(0), carry, 2)
+        img, sliced = _img_launches(pk)
+        open_k1 = sum(pk.LAUNCHES.values())
+        for k, v_ in img.items():
+            a_launches[k] = a_launches.get(k, 0) + v_
+        log(f"20a multibody-49k-pseudo-periodic {n} blobs in {box} {scheme} "
+            f"f32: {_fmt(times)} ms/step (after a warm-up); gmres "
+            f"{[a.det_iterations for a in auxes]}, lanczos "
+            f"{[a.stoch_iterations for a in auxes]}, rejections "
+            f"{[a.rejections for a in auxes]}; launches over the 3 steps "
+            f"{img}, K2 periodic {mc.PERIODIC_LAUNCHES} (one-box "
+            f"{mc.ONE_BOX_LAUNCHES}); open K1 {open_k1}, K2 {mc.LAUNCHES}, "
+            f"K3/K4 {sum(mc.DENSE_LAUNCHES.values())}, K3 images "
+            f"{mc.DENSE_IMAGE_LAUNCHES}")
+        check(bool(torch.isfinite(st.pos).all()), f"20a {scheme}: positions")
+        check(min(a.det_iterations for a in auxes) > 0, f"20a {scheme}: "
+              "no GMRES iterations")
+        check(img.get("K1 tt images", 0) > 0 and mc.PERIODIC_LAUNCHES > 0,
+              f"20a {scheme}: K1 tt images or periodic K2 not launched")
+        check(open_k1 == 0 and mc.LAUNCHES == 0 and sliced == 0
+              and sum(mc.DENSE_LAUNCHES.values()) == 0
+              and mc.DENSE_IMAGE_LAUNCHES == 0,
+              f"20a {scheme}: an open or sliced kernel ran")
+        if scheme == "stochastic_Slip_Trapz":
+            check(img.get("K1 tt images B=2", 0) > 0,
+                  "20a Slip-Trapz: K1 tt images B=2 not launched")
+    launches.update(a_launches)
+
+    # 20e: MCMC on 20a's scene (before its state moves on)
+    st = make_state(pos, quat, dtype=torch.float32, device=dev)
+    _reset_counts(pk, mc, ck, lap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, traj, energies = mcmc.run_mcmc(
+        system, st, torch.Generator(device=dev).manual_seed(3),
+        n_steps=100, save_every=20, initial_step=-100)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rb = kin.blob_positions(system, final.state)
+    kw = dict(repulsion_strength=system.repulsion_strength,
+              debye_length=system.debye_length,
+              blob_radius=system.blob_radius, periodic_length=box,
+              coincident="one")
+    # phase 16's check: the plain version's energy of the final state on
+    # the chain's own float32 blobs (pairs under the minimum image)
+    one_body = float(mcmc._Energy(system).one_body(rb[None])[0])
+    pair_ref = float(mc.blob_blob_energy_plain(rb[None].double(), **kw)[0])
+    pair_f32 = float(mc.blob_blob_energy_plain(rb[None], **kw)[0])
+    e_ref = one_body + pair_ref
+    rel = abs(float(final.energy) - e_ref) / abs(pair_ref)
+    bound = max(float(m1_term_bound(mc, rb[None], kw)[0]),
+                2 * abs(pair_f32 - pair_ref)) / abs(pair_ref)
+    log(f"20e MCMC on 20a's scene in {box}: 200 steps (100 burn-in) in "
+        f"{secs:.3f} s, {secs / 200 * 1e3:.3f} ms a step, accepted "
+        f"{int(final.accepted)}; M1 launches {mc.ENERGY_LAUNCHES}, K1 "
+        f"{sum(pk.LAUNCHES.values()) + sum(pk.IMAGE_LAUNCHES.values())}; "
+        f"final energy {float(final.energy):.10g} against the plain "
+        f"version's {e_ref:.10g} (pairs {pair_ref:.10g}): relative to the "
+        f"pair energy {rel:.3e} (bound {bound:.2e})")
+    check(mc.ENERGY_LAUNCHES == 201, f"20e: M1 launched "
+          f"{mc.ENERGY_LAUNCHES} times over 200 steps")
+    check(0 < int(final.accepted) < 200 and bool(
+        torch.isfinite(energies).all()), "20e: the chain")
+    check(rel <= bound, f"20e: final energy against the plain version "
+          f"({rel:.3e})")
+
+    # 20b: K3's image instance and K1 tt's at 12,288 blobs, one step
+    box = xy_box(L_PSEUDO_DENSE)
+    system = bench_system(N_DENSE, periodic_length=box)
+    pos, quat = lattice(N_DENSE)
+    st = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, st).contiguous()
+    n = r.shape[0]
+    n3 = 3 * n
+    eta = system.eta
+    m = mc.dense_tt(r, eta, A_BENCH, wall=True, periodic_length=box)
+    torch.cuda.synchronize()
+    ref = mc.dense_tt_plain(r.double(), eta, A_BENCH, wall=True,
+                            periodic_length=box)
+    err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
+    del ref, m
+    ms = cuda_ms(lambda: mc.dense_tt(r, eta, A_BENCH, wall=True,
+                                     periodic_length=box), 3)
+    plain_ms = cuda_ms(lambda: mc.dense_tt_plain(
+        r, eta, A_BENCH, wall=True, periodic_length=box), 1, warmup=False)
+    n_boxes = len(pk.box_offsets(box))
+    # the box-summed matrix is symmetric too: each unordered pair's box sum
+    # and minimum image once
+    records["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound_record(4 * (n3 * n3 + n3),
+                                        n * (n + 1) // 2 * (
+                                            n_boxes * K3_PAIR_FLOPS
+                                            + 2 * K1_IMAGE_FLOPS)))
+    regs = instance_registers(report, "dense_tt_kernel<float, true",
+                              "ImageBoxes")
+    log(f"K3 images {n} blobs in {box} f32 vs plain f64: max err "
+        f"{err:.3e}, / max|ref| = {err / scale:.3e} (bound "
+        f"{IMG_BOUND:.0e}); kernel {ms:.3f} ms, bound "
+        f"{records['K3']['bound_ms']:.3f} ms ({records['K3']['bound_by']}, "
+        f"{records['K3']['bound_ms'] / ms:.1%} of it), plain f32 "
+        f"{plain_ms:.1f} ms; registers {regs}")
+    check(err <= IMG_BOUND * scale, f"K3 images disagree at {n} blobs")
+    q = (mob.shift_heights(r, A_BENCH) / A_BENCH).contiguous()
+    v = torch.randn((n, 3), generator=g, device=dev)
+    records["tt_12k"] = img_k1_record(
+        pk, "tt", q, v, tuple(x / A_BENCH for x in box), 1024, f"{n} blobs",
+        report)
+    step = integrators.make_stepper(
+        system, "stochastic_Slip_Trapz", 1e-3, lanczos_tolerance=5e-4,
+        lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+        gmres_maxiter=300, max_rejections=3)
+    carry = integrators.init_carry(system, state=st)
+    _reset_counts(pk, mc, ck, lap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, carry, aux = step(st, torch.Generator(device=dev).manual_seed(0),
+                          carry)
+    torch.cuda.synchronize()
+    b_ms = (time.perf_counter() - t0) * 1e3
+    img, _ = _img_launches(pk)
+    dense = dict(mc.DENSE_LAUNCHES, dense_tt_images=mc.DENSE_IMAGE_LAUNCHES)
+    log(f"20b multibody-12k-dense-pseudo-periodic {n} blobs in {box} "
+        f"stochastic_Slip_Trapz f32, materialized: one step {b_ms:.1f} ms "
+        f"(the first: builds included); gmres {aux.det_iterations}, lanczos "
+        f"{aux.stoch_iterations}, rejections {aux.rejections}; launches "
+        f"{dense}, {img}, K2 periodic {mc.PERIODIC_LAUNCHES}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(bool(torch.isfinite(st.pos).all()), "20b: positions")
+    check(dense["dense_tt_images"] > 0 and dense["symm_matvec"] > 0
+          and dense["dense_tt"] == 0 and sum(pk.LAUNCHES.values()) == 0,
+          f"20b: K3 images / K4 not launched, or an open K1/K3 ran "
+          f"({dense})")
+    launches["K3 images"] = dense["dense_tt_images"]
+    launches["K1 tt images 12k"] = img.get("K1 tt images", 0)
+    del st, carry
+
+    # 20c: the rollers' kernels at 32,768 rollers, then both schemes
+    box = xy_box(L_PSEUDO_ROLLERS)
+    r0 = torch.as_tensor(roller_lattice(N_ROLLERS), device=dev)
+    q = (mob.shift_heights(r0, A_ROLLER) / A_ROLLER).contiguous()
+    La = tuple(x / A_ROLLER for x in box)
+    what = f"{N_ROLLERS} rollers"
+    for coupling, n_rhs in (("grand", 1), ("tr", 1), ("tr", 2), ("rr", 1),
+                            ("rr", 2), ("rt", 1)):
+        v = torch.randn((N_ROLLERS, pk.NCOMP[coupling] * n_rhs),
+                        generator=g, device=dev)
+        records[coupling if n_rhs == 1 else f"{coupling}_b2"] = (
+            img_k1_record(pk, coupling, q, v, La, 1024, what, report))
+    sus = roller_suspension(N_ROLLERS, periodic_length=box)
+    c_launches = {}
+    for scheme in ("stochastic_adams_bashforth_rollers",
+                   "deterministic_adams_bashforth_rollers"):
+        step = rollers.make_stepper(sus, scheme, 1e-3, max_rejections=3)
+        _reset_counts(pk, mc, ck, lap)
+        rr_, _, times, auxes = _img_steps(
+            step, r0.clone(), torch.Generator(device=dev).manual_seed(0),
+            rollers.init_carry(sus, positions=r0), 2)
+        img, sliced = _img_launches(pk)
+        for k, v_ in img.items():
+            c_launches[k] = c_launches.get(k, 0) + v_
+        log(f"20c rollers-32k-pseudo-periodic {N_ROLLERS} rollers in {box} "
+            f"{scheme} f32: {_fmt(times)} ms/step (after a warm-up); gmres "
+            f"{[a.det_iterations for a in auxes]}, lanczos "
+            f"{[a.stoch_iterations for a in auxes]}, rejections "
+            f"{[a.rejections for a in auxes]}, wall overlaps "
+            f"{[a.wall_overlaps for a in auxes]}; launches {img}, K2 "
+            f"periodic {mc.PERIODIC_LAUNCHES}; open K1 "
+            f"{sum(pk.LAUNCHES.values())}")
+        check(bool(torch.isfinite(rr_).all()), f"20c {scheme}: positions")
+        check(sum(pk.LAUNCHES.values()) == 0 and sliced == 0
+              and mc.LAUNCHES == 0, f"20c {scheme}: an open or sliced "
+              "kernel ran")
+        check(mc.PERIODIC_LAUNCHES > 0, f"20c {scheme}: periodic K2 not "
+              "launched")
+    for k in ("K1 grand images", "K1 tr images", "K1 tr images B=2",
+              "K1 rr images", "K1 rr images B=2", "K1 rt images",
+              "K1 tt images"):
+        check(c_launches.get(k, 0) > 0, f"20c: {k} not launched "
+              f"({c_launches})")
+    launches.update({k: v_ for k, v_ in c_launches.items()
+                     if k != "K1 tt images"})
+
+    # 20d: lubrication, K1 grand's image instance at 4096 spheres
+    box = xy_box(L_PSEUDO_LUB)
+    p = torch.as_tensor(lub_lattice(N_LUB), device=dev)
+    q = (mob.shift_heights(p, 1.0) / 1.0).contiguous()
+    v = torch.randn((N_LUB, 6), generator=g, device=dev)
+    records["grand_lub"] = img_k1_record(pk, "grand", q, v, box, 1024,
+                                         f"{N_LUB} spheres", report)
+    sol = lub_solver(N_LUB, dev, periodic_length=box)
+    ft_calc = lub_ft_calc(periodic_length=box)
+    qt = torch.tensor([[1.0, 0.0, 0.0, 0.0]] * N_LUB, dtype=torch.float32,
+                      device=dev)
+    _reset_counts(pk, mc, ck, lap)
+    p, qt, times, auxes = _img_steps(
+        lambda p, gen, qt: lubrication.step_trapezoidal(
+            sol, p, qt, gen, ft_calc, omega=25.0, cut_torque=0.2),
+        p, torch.Generator(device=dev).manual_seed(0), qt, 2)
+    img, sliced = _img_launches(pk)
+    ovf = [int(a.neighbor_overflow) for a in auxes]
+    log(f"20d lubrication-4k-pseudo-periodic {N_LUB} spheres in {box} "
+        f"step_trapezoidal f32: {_fmt(times)} ms/step (after a warm-up); "
+        f"gmres {[a.det_iterations for a in auxes]}, lanczos "
+        f"{[a.stoch_iterations for a in auxes]}, rejections "
+        f"{[int(a.rejections_wall) + int(a.rejections_jump) for a in auxes]}"
+        f", neighbor overflow {ovf}; launches {img}, K2 periodic "
+        f"{mc.PERIODIC_LAUNCHES} (one-box {mc.ONE_BOX_LAUNCHES}); open K1 "
+        f"{sum(pk.LAUNCHES.values())}")
+    check(bool(torch.isfinite(p).all()) and max(ovf) == 0,
+          "20d: positions or neighbor overflow")
+    check(img.get("K1 grand images", 0) > 0 and mc.PERIODIC_LAUNCHES > 0
+          and sum(pk.LAUNCHES.values()) == 0 and mc.LAUNCHES == 0,
+          f"20d: K1 grand images / periodic K2 not launched, or an open "
+          f"kernel ran ({img})")
+    launches["K1 grand images lub"] = img.get("K1 grand images", 0)
+
+    # 20f: the .random_state round trip through the CLI on the card
+    phase_random_state_cli(L_PSEUDO)
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return records, launches
+
+
+def phase_random_state_cli(L):
+    """20f: a generated 64-shell input in an (L, L, 0) box through the CLI
+    on the card in float64 (Slip-Trapz at kT 0.05): 4 steps against 2
+    restarted from the first 2 steps' .clones and .random_state (the
+    run's generator on the card and torch's default generators); the
+    frames agree (bit-identical is logged) and the file's header names the
+    port."""
+    from rigidmultiblobswall_tpu_torch import cli
+
+    pos, quat = lattice(64, seed=0)
+    cwd = os.getcwd()
+    settings = ("scheme stochastic_Slip_Trapz\ndt 0.001\nn_save 2\n"
+                f"solver_tolerance 1e-8\nperiodic_length {L} {L} 0\n")
+    frames = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, n_steps, extra in (("whole", 4, ""), ("first", 2, ""),
+                                     ("second", 2, "random_state "
+                                      "first.random_state\n")):
+            dd = os.path.join(d, name)
+            os.makedirs(dd)
+            inp = write_shell_input(dd, pos, quat,
+                                    settings + f"n_steps {n_steps}\n" + extra)
+            if name == "second":
+                shutil.copy(os.path.join(d, "first",
+                                         "run.shell.00000002.clones"),
+                            os.path.join(dd, "shell.clones"))
+                shutil.copy(os.path.join(d, "first", "run.random_state"),
+                            os.path.join(dd, "first.random_state"))
+            os.chdir(dd)
+            try:
+                cli.main(["--input-file", inp, "--f64", "--device", DEVICE])
+            finally:
+                os.chdir(cwd)
+            for k in (0, 2, 4):
+                f = os.path.join(dd, "run.shell.%08d.clones" % k)
+                if os.path.exists(f):
+                    frames[name, k] = np.loadtxt(f, skiprows=1)
+        with open(os.path.join(d, "whole", "run.random_state")) as f:
+            header = f.readline().strip()
+            roles = [line.split()[:3] for line in f]
+    ref, got = frames["whole", 4], frames["second", 2]
+    disp = np.abs(ref[:, :3] - frames["whole", 0][:, :3]).max()
+    err = np.abs(got - ref).max()
+    log(f"20f the .random_state round trip on the card (64 shells in "
+        f"({L}, {L}, 0), Slip-Trapz kT 0.05, f64): 4 steps against 2 + 2 "
+        f"restarted, max difference {err:.3e} of a displacement "
+        f"{disp:.3e} (bit-identical {err == 0}); generators {roles}")
+    check(header == cli.RANDOM_STATE_HEADER, "20f: the file's header")
+    check(disp > 1e-5 and err <= 1e-10 * disp, f"20f: the restarted run's "
+          f"frame differs from the whole run's ({err:.3e})")
+    check(np.array_equal(frames["first", 2], frames["whole", 2]),
+          "20f: the first two steps differ")
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -5909,6 +6409,8 @@ def main():
     from rigidmultiblobswall_tpu_torch.ops import laplace as lap
     p1_launches = phase_radii_path(pk, mc, ck, lap)         # phase 18
     p2_records = phase_radii_spectral_path(pk, mc, ck, lap, report)  # 19
+    img_records, img_launches = phase_pseudo_periodic(      # phase 20
+        pk, mc, ck, lap, mob, kin, report)
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -6053,6 +6555,35 @@ def main():
             source="rigidmultiblobswall_tpu_torch/csrc/near_radii.cu",
             replaces="rigidmultiblobswall_tpu/ops/ewald.py:1222",
             **p2_records[key]))
+    # the image-box instances of K1 and K3 at phase 20's shapes, with their
+    # launches over 20a (tt), 20b (K3, tt at 12,288 blobs), 20c (the
+    # rollers' couplings) and 20d (grand at 4096 spheres); the XLA paths of
+    # the JAX package they replace
+    k1_img = "rigidmultiblobswall_tpu/ops/mobility.py:239"
+    for key, name, src, launch in (
+            ("tt", "K1 pair_tt images", k1_src["tt"], "K1 tt images"),
+            ("tt_b2", "K1 pair_tt images B=2", k1_src["tt"],
+             "K1 tt images B=2"),
+            ("tt_12k", f"K1 pair_tt images at {N_DENSE * 12} blobs",
+             k1_src["tt"], "K1 tt images 12k"),
+            ("grand", "K1 pair_grand images", None, "K1 grand images"),
+            ("tr", "K1 pair_tr images", None, "K1 tr images"),
+            ("tr_b2", "K1 pair_tr images B=2", None, "K1 tr images B=2"),
+            ("rr", "K1 pair_rr images", None, "K1 rr images"),
+            ("rr_b2", "K1 pair_rr images B=2", None, "K1 rr images B=2"),
+            ("rt", "K1 pair_rt images", None, "K1 rt images"),
+            ("grand_lub", f"K1 pair_grand images at {N_LUB} spheres", None,
+             "K1 grand images lub")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=src or "rigidmultiblobswall_tpu_torch/csrc/"
+            "pair_couplings.cu", replaces=k1_img,
+            launches=img_launches[launch], **img_records[key]))
+    kernels.append(dict(
+        name="K3 dense_tt images", route="cuda",
+        source="rigidmultiblobswall_tpu_torch/csrc/dense_tt.cu",
+        replaces="rigidmultiblobswall_tpu/ops/mobility.py:649",
+        launches=img_launches["K3 images"], **img_records["K3"]))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,8 +51,8 @@ the same input files and output formats:
     Lub_Cut or lub_cutoff, lub_cutoff_wall, max_neighbors, firm_delta,
     repulsion_strength_firm and lubrication_tables_dir; .clones every
     n_save steps and .info with the wall and jump rejection and the
-    iteration counters. A periodic box is refused (ROADMAP Queue 1, item
-    4).
+    iteration counters; a periodic_length runs the pseudo-periodic image
+    boxes.
 Every run also writes .inputfile, .git (the package's commit, from `git
 rev-parse HEAD`; empty outside a git checkout, absent where git cannot
 run) and .bodies_info. Runs on the card in
@@ -76,8 +76,17 @@ State, called where the JAX CLI calls its own:
 A file written for the JAX package (it imports jax) or for the reference
 ends the run with a pointer to these signatures.
 
-The .random_state restart is still to be ported (ROADMAP Queue 1, item
-11); an input that asks for it is refused, not ignored.
+A dynamic run writes <output>.random_state at its end, the state of every
+generator it draws from: the run's noise generator (on its device) and
+torch's default generators of the CPU and, on the card, of the device,
+which user hooks may draw from. An input with `random_state <file>`
+restores them at the start, before the first draw, so a run stopped and
+restarted from its .clones and .random_state draws what one uninterrupted
+run draws. The file is text, a header line naming the port and its
+generators, then one line a generator (its role, its device, the length
+of its state and the state's bytes); a file of the JAX CLI (the uint32
+words of a JAX PRNG key) or one of other generators is refused: the port's
+generators are torch's, so neither CLI can take the other's state.
 """
 
 from __future__ import annotations
@@ -304,6 +313,75 @@ def _generator(cfg, state):
         cfg.seed if cfg.seed is not None else 0)
 
 
+RANDOM_STATE_HEADER = ("# rigidmultiblobswall_tpu_torch random_state v1: "
+                       "torch.Generator states, one a line: role device "
+                       "n_bytes bytes")
+
+
+def _run_generators(generator):
+    """{role: generator} of a dynamic run: its noise generator and torch's
+    default generators of the CPU and, for a run on the card, of its
+    device."""
+    gens = {"run": generator, "torch_cpu": torch.default_generator}
+    if generator.device.type == "cuda":
+        index = generator.device.index
+        gens["torch_cuda"] = torch.cuda.default_generators[
+            torch.cuda.current_device() if index is None else index]
+    return gens
+
+
+def write_random_state(path, generator):
+    """Write the states of the run's generators (_run_generators) to
+    path, as text."""
+    lines = [RANDOM_STATE_HEADER]
+    for role, gen in _run_generators(generator).items():
+        b = gen.get_state().tolist()
+        lines.append(f"{role} {gen.device} {len(b)} "
+                     + " ".join(map(str, b)))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def read_random_state(path, generator):
+    """Restore the run's generators (_run_generators) from a file of
+    write_random_state; a file of another kind (the JAX CLI's key words),
+    of other generators or devices, or of a wrong length raises
+    ValueError and restores nothing."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if not lines or lines[0] != RANDOM_STATE_HEADER:
+        raise ValueError(
+            f"random_state {path}: not a .random_state file of the PyTorch "
+            f"port (its first line must be {RANDOM_STATE_HEADER!r}); a file "
+            "of the JAX CLI holds a JAX PRNG key, which torch's generators "
+            "cannot take")
+    gens = _run_generators(generator)
+    states = {}
+    for line in lines[1:]:
+        words = line.split()
+        if len(words) < 3 or not words[2].isdigit():
+            raise ValueError(f"random_state {path}: malformed line "
+                             f"{line[:60]!r}")
+        role, device, n = words[0], words[1], int(words[2])
+        if role not in gens or str(gens[role].device) != device:
+            raise ValueError(
+                f"random_state {path}: generator {role} on {device}; this "
+                "run draws from " + ", ".join(
+                    f"{r} on {g.device}" for r, g in gens.items()))
+        want = gens[role].get_state().numel()
+        if n != want or len(words) != 3 + n:
+            raise ValueError(
+                f"random_state {path}: generator {role} holds "
+                f"{len(words) - 3} bytes (header {n}); its state is {want}")
+        states[role] = torch.tensor([int(x) for x in words[3:]],
+                                    dtype=torch.uint8)
+    if set(states) != set(gens):
+        raise ValueError(f"random_state {path}: generators {sorted(states)}; "
+                         f"this run draws from {sorted(gens)}")
+    for role, st in states.items():
+        gens[role].set_state(st)
+
+
 def _write_config_frame(f, pos, quat):
     """One frame of a .config file: the body count, then x y z and the
     quaternion of each body."""
@@ -447,7 +525,7 @@ def _run_lubrication(cfg, system, state, args):
         debye_length_wall=cfg.debye_length_wall,
         repulsion_strength_firm=float(opts.get("repulsion_strength_firm",
                                                0.0)),
-        firm_delta=firm_delta)
+        firm_delta=firm_delta, periodic_length=tuple(cfg.periodic_length))
     if "euler" in cfg.scheme:
         def step(pos, quats, generator):
             return lub.step_euler_maruyama(sol, pos, quats, generator,
@@ -492,6 +570,8 @@ def _run_lubrication(cfg, system, state, args):
 
 def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
     generator = _generator(cfg, state)
+    if cfg.random_state is not None:
+        read_random_state(cfg.random_state, generator)
     # the wall slab's height and the fixed capacities sized from the
     # initial configuration (no-ops for the pairwise engine and the direct
     # forces)
@@ -631,6 +711,7 @@ def _run_dynamic(cfg, system, state, args, start_time, user_mod=None):
         f.write("stochastic_iterations_count      %d\n" % stoch_iters)
         f.write("unconverged_solve_steps          %d\n" % unconverged_steps)
         f.write("capacity_overflow_steps          %d\n" % overflow_steps)
+    write_random_state(cfg.output_name + ".random_state", generator)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,29 @@
 // the rr core 1 and 0, the cross core 0 and 0. The wall terms evaluated at
 // the self geometry (dx = dy = 0, Rz = 2z) ARE the wall self-mobility of
 // every block and are kept.
+//
+// Image-box instances (the pseudo-periodic boxes of the JAX package's
+// ops/mobility.py pairwise_matvec with a periodic_length, XLA there): both
+// sweeps take a pair geometry policy, OpenBox for the open domain and
+// ImageBoxes for a box of lengths L (in blob radii, 0 on an open axis).
+// ImageBoxes takes d = r_t - r_s to the minimum image in the truncation
+// form d - trunc(d/L + sign(d)/2) L, in float64, in the home box, then
+// condenses and applies the block of every box d + b L of the wrapper's
+// list (b in {-1, 0, 1} on each periodic axis, (0, 0, 0) first, at most
+// 27): the offset is added to the home box's d, which the minimum image
+// keeps within L/2, so d + b L rounds once from it. No box is pruned (the
+// blocks decay as 1/r). The self pair is the self block in the home box only; in every
+// other box a blob's own image is an ordinary pair at d = b L with both
+// heights z_i, whose blocks do not cancel, so the diagonal tile's directed
+// pass adds them. The symmetric sweep applies each box's condensed block
+// both ways, as in the open domain: min_image is odd in d and the box list
+// is symmetric under b -> -b, so pair (j, i) in box -b has the displacement
+// -(d + b L) and its block M(-(d + b L); z_j, z_i) = M(d + b L; z_i, z_j)^T
+// (the reciprocity of every single block that the open sweep rests on).
+// Applying each box both ways keeps the condensed scalars of the open
+// instance (no 3x3 sum a pair); a pair's boxes are summed apart and join
+// the running sums once (visit_sum), so the float32 rounding of a row's
+// sum does not grow with the number of boxes.
 
 #pragma once
 
@@ -89,13 +112,15 @@ struct Pair {
   T zt, zs, Rz, invR;     // wall image: Rz = zt + zs, invR = 1/|R|
 };
 
+// the pair of displacement (dx, dy, dz) = r_t - r_s (of an image box, where
+// it is not the difference of the heights) at the heights zt and zs
 template <typename T, bool WALL>
-__device__ __forceinline__ Pair<T> make_pair(T xt, T yt, T zt, T xs, T ys,
-                                             T zs, bool self) {
+__device__ __forceinline__ Pair<T> make_pair_d(T dx, T dy, T dz, T zt, T zs,
+                                               bool self) {
   Pair<T> p;
-  p.dx = xt - xs;
-  p.dy = yt - ys;
-  p.dz = zt - zs;
+  p.dx = dx;
+  p.dy = dy;
+  p.dz = dz;
   const T xy2 = p.dx * p.dx + p.dy * p.dy;
   p.r2 = xy2 + p.dz * p.dz;
   p.self = self;
@@ -110,6 +135,79 @@ __device__ __forceinline__ Pair<T> make_pair(T xt, T yt, T zt, T xs, T ys,
   }
   return p;
 }
+
+template <typename T, bool WALL>
+__device__ __forceinline__ Pair<T> make_pair(T xt, T yt, T zt, T xs, T ys,
+                                             T zs, bool self) {
+  return make_pair_d<T, WALL>(xt - xs, yt - ys, zt - zs, zt, zs, self);
+}
+
+// The pair geometry policies of the sweeps: visit hands the coupling the
+// pair (or pairs) of a target and a source; Stage is the type a caller that
+// forms the positions itself (kernel K3) forms them in. OpenBox: the open
+// domain, one pair.
+template <typename T>
+struct OpenBox {
+  using Stage = T;
+  // resident blocks an SM the float32 sweeps ask for (Shape), and whether
+  // a pair's terms are summed apart before they join the running sums
+  static constexpr int kMinBlocksF32 = 8;
+  static constexpr bool kPairSums = false;
+  template <bool WALL, typename F>
+  __device__ __forceinline__ void visit(T xt, T yt, T zt, T xs, T ys, T zs,
+                                        bool self, F&& f) const {
+    f(make_pair<T, WALL>(xt, yt, zt, xs, ys, zs, self));
+  }
+};
+
+// ImageBoxes: the minimum image in the home box, then one pair a box of
+// the list, the self flag in the home box (off[0] = 0) only. The image is
+// chosen in float64 whatever T is: d = x_t - x_s is exact there for float32
+// inputs, so the float32 instances pick the image that the float64 plain
+// version picks from the same inputs. (Formed in float32, d/L would round
+// across the half-box of some pairs and pick the other image; the box sum
+// jumps there, by the cross and wall blocks' odd parts at 1.5 L, since
+// the list holds b in {-1, 0, 1} only.) The quotient is d (1/L) with 1/L
+// rounded once on the host, against the plain version's d / L: the two
+// choices differ only for d/L within a float64 ulp of a half-integer.
+constexpr int kMaxBoxes = 27;
+template <typename T>
+struct ImageBoxes {
+  using Stage = double;
+  // a pair's boxes are summed apart first (the sweeps' pair sums), so a
+  // running sum takes one term a pair, as in the open domain, not one a
+  // box: 27 boxes a pair in a long float32 sum cost ~sqrt(27) in rounding.
+  // The pair sums take NV (2 NV on the symmetric sweep) more registers, so
+  // the float32 sweeps ask for 6 resident blocks an SM (80 registers)
+  static constexpr int kMinBlocksF32 = 6;
+  static constexpr bool kPairSums = true;
+  double L[3];           // box lengths / a, 0 on an open axis
+  double inv_L[3];       // 1 / L, 0 on an open axis
+  int n;                 // boxes in the list, 1..kMaxBoxes
+  T off[kMaxBoxes][3];   // b L / a, the home box first
+  // d - trunc(d/L + sign(d)/2) L on a periodic axis (the JAX package's
+  // _min_image), d itself on an open one
+  template <typename U>
+  __device__ __forceinline__ T image(U xt, U xs, int a) const {
+    if (!(L[a] > 0.0)) return T(xt) - T(xs);
+    const double d = static_cast<double>(xt) - static_cast<double>(xs);
+    const double half = d > 0.0 ? 0.5 : (d < 0.0 ? -0.5 : 0.0);
+    const double k = trunc(d * inv_L[a] + half);
+    return static_cast<T>(d - k * L[a]);
+  }
+  // positions of type U: T, or float64 where the caller forms them (K3)
+  template <bool WALL, typename U, typename F>
+  __device__ __forceinline__ void visit(U xt, U yt, U zt, U xs, U ys, U zs,
+                                        bool self, F&& f) const {
+    const T dx = image(xt, xs, 0);
+    const T dy = image(yt, ys, 1);
+    const T dz = image(zt, zs, 2);
+#pragma unroll 1
+    for (int b = 0; b < n; ++b)
+      f(make_pair_d<T, WALL>(dx + off[b][0], dy + off[b][1], dz + off[b][2],
+                             T(zt), T(zs), self && b == 0));
+  }
+};
 
 // condensed diagonal block (tt, rr): m_ab v_b with five scalars
 template <typename T>
@@ -480,10 +578,11 @@ struct Grand {
 };
 
 // resident blocks an SM that __launch_bounds__ asks for: 8 in float32 (64
-// registers a thread at most), none in float64 (off the hot paths)
-template <typename T>
+// registers a thread at most; the image boxes' instances 6, 80
+// registers), none in float64 (off the hot paths)
+template <typename T, typename G = OpenBox<T>>
 struct Shape {
-  static constexpr int kMinBlocks = sizeof(T) == 4 ? 8 : 1;
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? G::kMinBlocksF32 : 1;
 };
 
 // a staged source row: x, y, z and the NV vector entries, padded to whole
@@ -516,15 +615,37 @@ __device__ __forceinline__ void load_row(const double* row, double* dst) {
   }
 }
 
+// The pairs of a target and a source added into `acc` by add(p, sum): each
+// straight into acc, or with PAIR_SUMS into a sum of the pair's own that
+// then joins acc
+template <typename T, int NV, bool WALL, bool PAIR_SUMS, typename G,
+          typename F>
+__device__ __forceinline__ void visit_sum(const G& geom, T xt, T yt, T zt,
+                                          T xs, T ys, T zs, bool self,
+                                          T* acc, F&& add) {
+  if constexpr (PAIR_SUMS) {
+    T sum[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) sum[c] = T(0);
+    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
+                              [&](const Pair<T>& p) { add(p, sum); });
+#pragma unroll
+    for (int c = 0; c < NV; ++c) acc[c] += sum[c];
+  } else {
+    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
+                              [&](const Pair<T>& p) { add(p, acc); });
+  }
+}
+
 // One block: 128 target rows against the sources of slice blockIdx.y,
 // sources [blockIdx.y * tiles_per_slice * 128, +tiles_per_slice * 128)
 // clipped to n_src. Writes out[blockIdx.y][i][:] (the workspace when
 // S > 1).
-template <typename T, typename C, int B, bool WALL>
-__global__ void __launch_bounds__(kTile, (Shape<T>::kMinBlocks))
+template <typename T, typename C, int B, bool WALL, typename G>
+__global__ void __launch_bounds__(kTile, (Shape<T, G>::kMinBlocks))
 pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
             const T* __restrict__ vec, T* __restrict__ out, int n_src,
-            int n_tgt, int tiles_per_slice, int self_interaction) {
+            int n_tgt, int tiles_per_slice, int self_interaction, G geom) {
   constexpr int NV = C::kComp * B;
   constexpr int L = RowLen<T, NV>::value;
   __shared__ __align__(16) T s_src[kTile][L];
@@ -564,9 +685,11 @@ pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
     for (int k = 0; k < count; ++k) {
       T src[L];
       load_row<L>(s_src[k], src);
-      const Pair<T> p = make_pair<T, WALL>(xt, yt, zt, src[0], src[1],
-                                           src[2], k == self_k);
-      C::template accumulate<T, B, WALL>(p, src + 3, part);
+      visit_sum<T, NV, WALL, G::kPairSums>(
+          geom, xt, yt, zt, src[0], src[1], src[2], k == self_k, part,
+          [&](const Pair<T>& p, T* sum) {
+            C::template accumulate<T, B, WALL>(p, src + 3, sum);
+          });
     }
 #pragma unroll
     for (int c = 0; c < NV; ++c) acc[c] += part[c];
@@ -652,11 +775,11 @@ __device__ __forceinline__ void add_source_sums(T (*s_sum)[kTile][NV], T* dst,
   }
 }
 
-template <typename T, typename C, int B, bool WALL>
-__global__ void __launch_bounds__(kTile, (Shape<T>::kMinBlocks))
+template <typename T, typename C, int B, bool WALL, typename G>
+__global__ void __launch_bounds__(kTile, (Shape<T, G>::kMinBlocks))
 sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
            T* __restrict__ ws, int n, int n_groups, int tiles_per_group,
-           int self_interaction) {
+           int self_interaction, G geom) {
   constexpr int NV = C::kComp * B;
   constexpr int L = RowLen<T, NV>::value;
   __shared__ __align__(16) T s_src[kTile][L];
@@ -717,9 +840,11 @@ sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
         for (int k = 0; k < count; ++k) {
           T src[L];
           load_row<L>(s_src[k], src);
-          const Pair<T> p = make_pair<T, WALL>(xi, yi, zi, src[0], src[1],
-                                               src[2], k == self_k);
-          C::template accumulate<T, B, WALL>(p, src + 3, acc);
+          visit_sum<T, NV, WALL, G::kPairSums>(
+              geom, xi, yi, zi, src[0], src[1], src[2], k == self_k, acc,
+              [&](const Pair<T>& p, T* sum) {
+                C::template accumulate<T, B, WALL>(p, src + 3, sum);
+              });
         }
         continue;
       }
@@ -743,8 +868,27 @@ sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
         const int next = (lane + 1) % kLanes;
 #pragma unroll 2
         for (int step = 0; step < kLanes; ++step) {
-          const Pair<T> p = make_pair<T, WALL>(xi, yi, zi, xj, yj, zj, false);
-          C::template accumulate_both<T, B, WALL>(p, vj, acc, vi, accj);
+          if constexpr (G::kPairSums) {
+            T sum_i[NV], sum_j[NV];
+#pragma unroll
+            for (int c = 0; c < NV; ++c) sum_i[c] = sum_j[c] = T(0);
+            geom.template visit<WALL>(
+                xi, yi, zi, xj, yj, zj, false, [&](const Pair<T>& p) {
+                  C::template accumulate_both<T, B, WALL>(p, vj, sum_i, vi,
+                                                          sum_j);
+                });
+#pragma unroll
+            for (int c = 0; c < NV; ++c) {
+              acc[c] += sum_i[c];
+              accj[c] += sum_j[c];
+            }
+          } else {
+            geom.template visit<WALL>(
+                xi, yi, zi, xj, yj, zj, false, [&](const Pair<T>& p) {
+                  C::template accumulate_both<T, B, WALL>(p, vj, acc, vi,
+                                                          accj);
+                });
+          }
           xj = __shfl_sync(0xffffffffu, xj, next);
           yj = __shfl_sync(0xffffffffu, yj, next);
           zj = __shfl_sync(0xffffffffu, zj, next);
@@ -769,14 +913,14 @@ sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   }
 }
 
-template <typename T, typename C, int B, bool WALL>
+template <typename T, typename C, int B, bool WALL, typename G>
 int launch_bw(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
               int n_src, int n_tgt, int n_slices, int tiles_per_slice,
-              int self_interaction, cudaStream_t s) {
+              int self_interaction, const G& geom, cudaStream_t s) {
   const dim3 grid((n_tgt + kTile - 1) / kTile, n_slices);
-  pair_kernel<T, C, B, WALL><<<grid, kTile, 0, s>>>(
+  pair_kernel<T, C, B, WALL, G><<<grid, kTile, 0, s>>>(
       q_src, q_tgt, vec, n_slices > 1 ? ws : out, n_src, n_tgt,
-      tiles_per_slice, self_interaction);
+      tiles_per_slice, self_interaction, geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
   const long long n = static_cast<long long>(n_tgt) * C::kComp * B;
@@ -785,16 +929,16 @@ int launch_bw(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename C, int B>
+template <typename T, typename C, int B, typename G>
 int launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
              int n_src, int n_tgt, int n_slices, int tiles_per_slice,
-             int wall, int self_interaction, cudaStream_t s) {
+             int wall, int self_interaction, const G& geom, cudaStream_t s) {
   return wall ? launch_bw<T, C, B, true>(q_src, q_tgt, vec, out, ws, n_src,
                                          n_tgt, n_slices, tiles_per_slice,
-                                         self_interaction, s)
+                                         self_interaction, geom, s)
               : launch_bw<T, C, B, false>(q_src, q_tgt, vec, out, ws, n_src,
                                           n_tgt, n_slices, tiles_per_slice,
-                                          self_interaction, s);
+                                          self_interaction, geom, s);
 }
 
 // q_src (n_src,3), q_tgt (n_tgt,3), vec (n_src, kComp*n_rhs) b-major
@@ -803,10 +947,10 @@ int launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
 // 1 <= n_rhs <= kMaxRhs, n_src, n_tgt > 0, slices of tiles_per_slice
 // 128-source tiles covering n_src. Returns the CUDA error code of the
 // launches (0 on success).
-template <typename T, typename C>
+template <typename T, typename C, typename G>
 int launch(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
            int n_src, int n_tgt, int n_rhs, int n_slices,
-           int tiles_per_slice, int wall, int self_interaction,
+           int tiles_per_slice, int wall, int self_interaction, const G& geom,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_slices < 1 || n_slices > 65535 || tiles_per_slice < 1 ||
@@ -816,12 +960,12 @@ int launch(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
   if (n_rhs == 1)
     return launch_b<T, C, 1>(q_src, q_tgt, vec, out, ws, n_src, n_tgt,
                              n_slices, tiles_per_slice, wall,
-                             self_interaction, s);
+                             self_interaction, geom, s);
   if constexpr (C::kMaxRhs >= 2) {
     if (n_rhs == 2)
       return launch_b<T, C, 2>(q_src, q_tgt, vec, out, ws, n_src, n_tgt,
                                n_slices, tiles_per_slice, wall,
-                               self_interaction, s);
+                               self_interaction, geom, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -832,29 +976,36 @@ int resident(K kernel, int* blocks_per_sm) {
       blocks_per_sm, kernel, kTile, 0));
 }
 
-// the launch shape the wrapper plans with: resident blocks an SM holds of
-// the instance
-template <typename T, typename C>
-int shape(int n_rhs, int wall, int* blocks_per_sm) {
+template <typename T, typename C, typename G>
+int shape_g(int n_rhs, int wall, int* blocks_per_sm) {
   if (n_rhs == 1)
-    return wall ? resident(pair_kernel<T, C, 1, true>, blocks_per_sm)
-                : resident(pair_kernel<T, C, 1, false>, blocks_per_sm);
+    return wall ? resident(pair_kernel<T, C, 1, true, G>, blocks_per_sm)
+                : resident(pair_kernel<T, C, 1, false, G>, blocks_per_sm);
   if constexpr (C::kMaxRhs >= 2) {
     if (n_rhs == 2)
-      return wall ? resident(pair_kernel<T, C, 2, true>, blocks_per_sm)
-                  : resident(pair_kernel<T, C, 2, false>, blocks_per_sm);
+      return wall ? resident(pair_kernel<T, C, 2, true, G>, blocks_per_sm)
+                  : resident(pair_kernel<T, C, 2, false, G>, blocks_per_sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, typename C, int B, bool WALL>
+// the launch shape the wrapper plans with: resident blocks an SM holds of
+// the instance (the open or the image-box one)
+template <typename T, typename C>
+int shape(int n_rhs, int wall, int images, int* blocks_per_sm) {
+  return images ? shape_g<T, C, ImageBoxes<T>>(n_rhs, wall, blocks_per_sm)
+                : shape_g<T, C, OpenBox<T>>(n_rhs, wall, blocks_per_sm);
+}
+
+template <typename T, typename C, int B, bool WALL, typename G>
 int launch_sym_bw(const T* q, const T* vec, T* out, T* ws, int n,
                   int n_groups, int tiles_per_group, int self_interaction,
-                  cudaStream_t s) {
+                  const G& geom, cudaStream_t s) {
   const long long n_pairs =
       static_cast<long long>(n_groups) * (n_groups + 1) / 2;
-  sym_kernel<T, C, B, WALL><<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
-      q, vec, ws, n, n_groups, tiles_per_group, self_interaction);
+  sym_kernel<T, C, B, WALL, G>
+      <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
+          q, vec, ws, n, n_groups, tiles_per_group, self_interaction, geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = static_cast<long long>(n) * C::kComp * B;
@@ -863,90 +1014,181 @@ int launch_sym_bw(const T* q, const T* vec, T* out, T* ws, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename C, int B, typename G>
+int launch_sym_b(const T* q, const T* vec, T* out, T* ws, int n,
+                 int n_groups, int tiles_per_group, int wall,
+                 int self_interaction, const G& geom, cudaStream_t s) {
+  return wall ? launch_sym_bw<T, C, B, true>(q, vec, out, ws, n, n_groups,
+                                             tiles_per_group,
+                                             self_interaction, geom, s)
+              : launch_sym_bw<T, C, B, false>(q, vec, out, ws, n, n_groups,
+                                              tiles_per_group,
+                                              self_interaction, geom, s);
+}
+
 // q (n,3), vec (n, kComp*n_rhs) b-major columns, out (n, kComp*n_rhs), ws
 // (n_groups, n, kComp*n_rhs); all contiguous on the device; n > 0,
 // 1 <= n_rhs <= kMaxRhs, groups of tiles_per_group 128-blob tiles
 // covering n. Returns the CUDA error code of the launches.
-template <typename T, typename C>
+template <typename T, typename C, typename G>
 int launch_sym(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
                int n_groups, int tiles_per_group, int wall,
-               int self_interaction, void* stream) {
+               int self_interaction, const G& geom, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || ws == nullptr || n_groups < 1 || n_groups > 65535 ||
       tiles_per_group < 1 ||
       static_cast<long long>(n_groups) * tiles_per_group * kTile < n)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rhs == 1)
-    return wall ? launch_sym_bw<T, C, 1, true>(q, vec, out, ws, n, n_groups,
-                                               tiles_per_group,
-                                               self_interaction, s)
-                : launch_sym_bw<T, C, 1, false>(q, vec, out, ws, n, n_groups,
-                                                tiles_per_group,
-                                                self_interaction, s);
+    return launch_sym_b<T, C, 1>(q, vec, out, ws, n, n_groups,
+                                 tiles_per_group, wall, self_interaction,
+                                 geom, s);
   if constexpr (C::kMaxRhs >= 2) {
     if (n_rhs == 2)
-      return wall ? launch_sym_bw<T, C, 2, true>(q, vec, out, ws, n, n_groups,
-                                                 tiles_per_group,
-                                                 self_interaction, s)
-                  : launch_sym_bw<T, C, 2, false>(q, vec, out, ws, n,
-                                                  n_groups, tiles_per_group,
-                                                  self_interaction, s);
+      return launch_sym_b<T, C, 2>(q, vec, out, ws, n, n_groups,
+                                   tiles_per_group, wall, self_interaction,
+                                   geom, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the image boxes of the host arrays L (3,) and off (n_boxes, 3), both in
+// blob radii; false when they are missing, the count is out of range or
+// the first box is not the home box
+template <typename T>
+bool image_boxes(const double* L, int n_boxes, const double* off,
+                 ImageBoxes<T>& g) {
+  if (L == nullptr || off == nullptr || n_boxes < 1 || n_boxes > kMaxBoxes ||
+      off[0] != 0.0 || off[1] != 0.0 || off[2] != 0.0)
+    return false;
+  for (int a = 0; a < 3; ++a) {
+    g.L[a] = L[a] > 0.0 ? L[a] : 0.0;
+    g.inv_L[a] = L[a] > 0.0 ? 1.0 / L[a] : 0.0;
+  }
+  g.n = n_boxes;
+  for (int b = 0; b < n_boxes; ++b)
+    for (int a = 0; a < 3; ++a) g.off[b][a] = T(off[3 * b + a]);
+  return true;
+}
+
+template <typename T, typename C>
+int launch_img(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
+               int n_src, int n_tgt, int n_rhs, int n_slices,
+               int tiles_per_slice, int wall, int self_interaction,
+               const double* L, int n_boxes, const double* off,
+               void* stream) {
+  ImageBoxes<T> g{};
+  if (!image_boxes(L, n_boxes, off, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, C>(q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs,
+                      n_slices, tiles_per_slice, wall, self_interaction, g,
+                      stream);
+}
+
+template <typename T, typename C>
+int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
+                   int n_groups, int tiles_per_group, int wall,
+                   int self_interaction, const double* L, int n_boxes,
+                   const double* off, void* stream) {
+  ImageBoxes<T> g{};
+  if (!image_boxes(L, n_boxes, off, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_sym<T, C>(q, vec, out, ws, n, n_rhs, n_groups,
+                          tiles_per_group, wall, self_interaction, g, stream);
 }
 
 }  // namespace pairk
 
 // per coupling: one f32 and one f64 C entry point with the signature
 // (q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,
-// tiles_per_slice, wall, self_interaction, stream), and
-// NAME_shape(f64, n_rhs, wall, &blocks_per_sm)
+// tiles_per_slice, wall, self_interaction, stream), their image-box
+// instances NAME_img_f32 / _f64 with (L, n_boxes, off) before the stream
+// (host arrays in blob radii: the box, 0 on an open axis, and the boxes'
+// offsets b L, the home box first), and NAME_shape(f64, n_rhs, wall,
+// images, &blocks_per_sm)
 #define PAIRK_ENTRY(NAME, COUPLING)                                          \
   extern "C" int NAME##_f32(const float* q_src, const float* q_tgt,          \
                             const float* vec, float* out, float* ws,         \
                             int n_src, int n_tgt, int n_rhs, int n_slices,   \
                             int tiles_per_slice, int wall,                   \
                             int self_interaction, void* stream) {            \
-    return pairk::launch<float, COUPLING>(q_src, q_tgt, vec, out, ws, n_src, \
-                                          n_tgt, n_rhs, n_slices,            \
-                                          tiles_per_slice, wall,             \
-                                          self_interaction, stream);         \
+    return pairk::launch<float, COUPLING>(                                   \
+        q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
+        tiles_per_slice, wall, self_interaction, pairk::OpenBox<float>(),    \
+        stream);                                                             \
   }                                                                          \
   extern "C" int NAME##_f64(const double* q_src, const double* q_tgt,        \
                             const double* vec, double* out, double* ws,      \
                             int n_src, int n_tgt, int n_rhs, int n_slices,   \
                             int tiles_per_slice, int wall,                   \
                             int self_interaction, void* stream) {            \
-    return pairk::launch<double, COUPLING>(q_src, q_tgt, vec, out, ws,       \
-                                           n_src, n_tgt, n_rhs, n_slices,    \
-                                           tiles_per_slice, wall,            \
-                                           self_interaction, stream);        \
+    return pairk::launch<double, COUPLING>(                                  \
+        q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
+        tiles_per_slice, wall, self_interaction, pairk::OpenBox<double>(),   \
+        stream);                                                             \
   }                                                                          \
-  extern "C" int NAME##_shape(int f64, int n_rhs, int wall,                  \
+  extern "C" int NAME##_img_f32(                                             \
+      const float* q_src, const float* q_tgt, const float* vec, float* out,  \
+      float* ws, int n_src, int n_tgt, int n_rhs, int n_slices,              \
+      int tiles_per_slice, int wall, int self_interaction, const double* L,  \
+      int n_boxes, const double* off, void* stream) {                        \
+    return pairk::launch_img<float, COUPLING>(                               \
+        q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
+        tiles_per_slice, wall, self_interaction, L, n_boxes, off, stream);   \
+  }                                                                          \
+  extern "C" int NAME##_img_f64(                                             \
+      const double* q_src, const double* q_tgt, const double* vec,           \
+      double* out, double* ws, int n_src, int n_tgt, int n_rhs,              \
+      int n_slices, int tiles_per_slice, int wall, int self_interaction,     \
+      const double* L, int n_boxes, const double* off, void* stream) {       \
+    return pairk::launch_img<double, COUPLING>(                              \
+        q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
+        tiles_per_slice, wall, self_interaction, L, n_boxes, off, stream);   \
+  }                                                                          \
+  extern "C" int NAME##_shape(int f64, int n_rhs, int wall, int images,      \
                               int* blocks_per_sm) {                          \
-    return f64 ? pairk::shape<double, COUPLING>(n_rhs, wall, blocks_per_sm)  \
-               : pairk::shape<float, COUPLING>(n_rhs, wall, blocks_per_sm);  \
+    return f64 ? pairk::shape<double, COUPLING>(n_rhs, wall, images,         \
+                                                blocks_per_sm)               \
+               : pairk::shape<float, COUPLING>(n_rhs, wall, images,          \
+                                               blocks_per_sm);               \
   }
 
 // the symmetric sweep of a square product: NAME_f32 / NAME_f64 (q, vec,
 // out, ws, n, n_rhs, n_groups, tiles_per_group, wall, self_interaction,
-// stream)
+// stream), and its image-box instances NAME_img_f32 / _f64 with (L,
+// n_boxes, off) before the stream
 #define PAIRK_SYM_ENTRY(NAME, COUPLING)                                      \
   extern "C" int NAME##_f32(const float* q, const float* vec, float* out,    \
                             float* ws, int n, int n_rhs, int n_groups,       \
                             int tiles_per_group, int wall,                   \
                             int self_interaction, void* stream) {            \
-    return pairk::launch_sym<float, COUPLING>(q, vec, out, ws, n, n_rhs,     \
-                                              n_groups, tiles_per_group,     \
-                                              wall, self_interaction,        \
-                                              stream);                       \
+    return pairk::launch_sym<float, COUPLING>(                               \
+        q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
+        self_interaction, pairk::OpenBox<float>(), stream);                  \
   }                                                                          \
   extern "C" int NAME##_f64(const double* q, const double* vec, double* out, \
                             double* ws, int n, int n_rhs, int n_groups,      \
                             int tiles_per_group, int wall,                   \
                             int self_interaction, void* stream) {            \
-    return pairk::launch_sym<double, COUPLING>(q, vec, out, ws, n, n_rhs,    \
-                                               n_groups, tiles_per_group,    \
-                                               wall, self_interaction,       \
-                                               stream);                      \
+    return pairk::launch_sym<double, COUPLING>(                              \
+        q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
+        self_interaction, pairk::OpenBox<double>(), stream);                 \
+  }                                                                          \
+  extern "C" int NAME##_img_f32(                                             \
+      const float* q, const float* vec, float* out, float* ws, int n,        \
+      int n_rhs, int n_groups, int tiles_per_group, int wall,                \
+      int self_interaction, const double* L, int n_boxes,                    \
+      const double* off, void* stream) {                                     \
+    return pairk::launch_sym_img<float, COUPLING>(                           \
+        q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
+        self_interaction, L, n_boxes, off, stream);                          \
+  }                                                                          \
+  extern "C" int NAME##_img_f64(                                             \
+      const double* q, const double* vec, double* out, double* ws, int n,    \
+      int n_rhs, int n_groups, int tiles_per_group, int wall,                \
+      int self_interaction, const double* L, int n_boxes,                    \
+      const double* off, void* stream) {                                     \
+    return pairk::launch_sym_img<double, COUPLING>(                          \
+        q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
+        self_interaction, L, n_boxes, off, stream);                          \
   }

@@ -13,7 +13,9 @@
 // products), rt and grand with B = 1; each with and without the wall, in
 // float32 and float64, on the sliced sweep (a product with its own target
 // set) and on the symmetric sweep (the square product, which is every
-// product of the rollers path).
+// product of the rollers path); each of these also in its image-box
+// instance (NAME_img_f32 / _f64, pair_blocks.cuh ImageBoxes), the
+// pseudo-periodic boxes of a periodic_length on the direct engine.
 
 #include "pair_blocks.cuh"
 

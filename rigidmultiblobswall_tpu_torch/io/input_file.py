@@ -36,8 +36,9 @@ tracer_radius are read for the CLI's VTK fields (models/fields.py). A
 four-column .vertex file (structure, obstacle or articulated sub-body)
 gives its type per-blob radii (BodyType.blob_radii). Not ported yet, and
 refused with NotImplementedError rather than ignored: a .Laplace file on
-an articulated entry (the JAX package reads only its .slip), and the option
-random_state (item 11), which `read_input` refuses. The options
+an articulated entry (the JAX package reads only its .slip). The option
+random_state names a .random_state file that a dynamic run restores its
+generators from (cli.py). The options
 call_HydroGrid, cells, green_particles, sample_HydroGrid and
 save_HydroGrid stay in `options`, read by the CLI's dynamic loop.
 """
@@ -78,6 +79,8 @@ class InputConfig:
     scheme: str = "deterministic_forward_euler"
     output_name: str = "run"
     seed: Optional[int] = None
+    # a .random_state file to restore the generators from
+    random_state: Optional[str] = None
     repulsion_strength_wall: float = 1.0
     debye_length_wall: float = 1.0
     repulsion_strength: float = 1.0
@@ -125,7 +128,6 @@ def read_input(path) -> InputConfig:
         tail = ntpath.split(files[1])[1]
         return tail[:-7] if tail.endswith(".clones") else tail
 
-    _refuse_unported_options(options)
     cfg = InputConfig(options=options, structures=structures,
                       structures_ID=[_id(s) for s in structures],
                       obstacles=obstacles,
@@ -144,6 +146,7 @@ def read_input(path) -> InputConfig:
     cfg.scheme = str(g("scheme") or "deterministic_forward_euler")
     cfg.output_name = str(g("output_name") or "run")
     cfg.seed = int(g("seed")) if g("seed") else None
+    cfg.random_state = g("random_state")
     cfg.repulsion_strength_wall = float(g("repulsion_strength_wall") or 1.0)
     cfg.debye_length_wall = float(g("debye_length_wall") or 1.0)
     cfg.repulsion_strength = float(g("repulsion_strength") or 1.0)
@@ -209,21 +212,6 @@ _NO_OBSTACLE_SCHEMES = (
     "Fixman",
     "stochastic_traction_AB",
     "stochastic_Slip_Mid_DLA")
-
-
-# options the JAX CLI acts on that the port does not support yet, and the
-# ROADMAP item that ports each
-_UNPORTED_OPTIONS = {
-    "random_state": "the .random_state restart (ROADMAP Queue 1, item 11)",
-}
-
-
-def _refuse_unported_options(options):
-    for key, what in _UNPORTED_OPTIONS.items():
-        if key in options:
-            raise NotImplementedError(
-                f"input option {key!r}: {what} is not ported yet; the "
-                "PyTorch port refuses it rather than ignore it")
 
 
 # the names of the link expressions' math environment (the JAX

@@ -28,8 +28,10 @@ The new algebra (blocks, neighbor selection, block-sparse products,
 batched factorizations) is plain PyTorch, as it is XLA in the JAX
 package; the forces of `make_ft_calc` run kernel K2. Every normal comes
 from `draw_normal` and an explicit torch.Generator, in the order the JAX
-steppers draw them from their keys. Pseudo-periodic boxes wait for K1's
-image boxes (ROADMAP Queue 1, item 4) and are refused.
+steppers draw them from their keys. In a pseudo-periodic box
+(`periodic_length`) the pair geometry of Delta_R and the jump check take
+the minimum image, the grand mobility K1's image-box instance and the
+forces K2's periodic instance, as in the JAX package.
 
 The tables are the port's own copy of the packaged .npz
 (rigidmultiblobswall_tpu_torch/data/lubrication_tables.npz);
@@ -52,6 +54,7 @@ from ..ops import mobility as mob
 from ..ops import quaternion as quat
 from ..ops.gmres import gmres
 from ..ops.lanczos import stochastic_forcing_lanczos
+from ..ops.pair_kernels import min_image
 from .integrators import draw_normal
 from .system import resolve_device
 
@@ -371,10 +374,6 @@ class LubSolver:
     def __post_init__(self):
         object.__setattr__(self, "periodic_length",
                            tuple(float(x) for x in self.periodic_length))
-        if any(L > 0 for L in self.periodic_length):
-            raise NotImplementedError(
-                "lubrication in a pseudo-periodic box needs K1's periodic "
-                "image boxes, not ported yet (ROADMAP Queue 1, item 4)")
         if self.tables is None:
             object.__setattr__(self, "tables", LubricationTables.load())
         device = resolve_device(self.device)
@@ -446,7 +445,8 @@ def compute_delta_r_blocks(sol: LubSolver, pos) -> DeltaRBlocks:
     dtype = pos.dtype
     B = sol.num_bodies
 
-    d = (pos[:, None, :] - pos[None, :, :]) / sol.a
+    d = min_image(pos[:, None, :] - pos[None, :, :],
+                  sol.periodic_length) / sol.a
     r2 = torch.sum(d * d, dim=-1)
     self_mask = torch.eye(B, dtype=torch.bool, device=pos.device)
     r_norm = torch.sqrt(torch.where(self_mask, 4.0, r2))
@@ -490,7 +490,8 @@ def compute_delta_r_sparse(sol: LubSolver, pos) -> SparseDeltaR:
     B = sol.num_bodies
     dev = pos.device
 
-    d_all = (pos[:, None, :] - pos[None, :, :]) / sol.a
+    L = sol.periodic_length
+    d_all = min_image(pos[:, None, :] - pos[None, :, :], L) / sol.a
     r2 = torch.sum(d_all * d_all, dim=-1)
     self_mask = torch.eye(B, dtype=torch.bool, device=dev)
     in_range = (~self_mask) & (r2 < sol.cutoff * sol.cutoff)
@@ -504,7 +505,7 @@ def compute_delta_r_sparse(sol: LubSolver, pos) -> SparseDeltaR:
                       torch.arange(B, device=dev)[:, None])      # self-pad
 
     pos_k = pos[idx]                                             # (B,K,3)
-    d = (pos[:, None, :] - pos_k) / sol.a
+    d = min_image(pos[:, None, :] - pos_k, L) / sol.a
     r_norm = torch.sqrt(torch.where(mask, torch.sum(d * d, dim=-1), 16.0))
     r_hat = -d / r_norm[..., None]
 
@@ -596,11 +597,13 @@ def make_lub_pc(sol: LubSolver, blocks):
 
 def wall_mobility_mult(sol: LubSolver, pos, X):
     """Grand RPY wall mobility times an interleaved (F,T) vector
-    (Lub_Solver.py:277-307): one kernel K1 grand product."""
+    (Lub_Solver.py:277-307): one kernel K1 grand product (its image-box
+    instance in a pseudo-periodic box)."""
     B = sol.num_bodies
     ft = X.reshape(B, 6)
     u, w = mob.grand_mobility_matvec(pos, ft[:, 0:3], ft[:, 3:6], sol.eta,
-                                     sol.a, domain="single_wall")
+                                     sol.a, domain="single_wall",
+                                     periodic_length=sol.periodic_length)
     return torch.cat([u, w], dim=1).reshape(-1)
 
 
@@ -791,13 +794,16 @@ class LubStepAux(NamedTuple):
 
 def make_ft_calc(*, a, g, repulsion_strength, debye_length,
                  repulsion_strength_wall, debye_length_wall,
-                 repulsion_strength_firm=0.0, firm_delta=1e-2):
+                 repulsion_strength_firm=0.0, firm_delta=1e-2,
+                 periodic_length=(0.0, 0.0, 0.0)):
     """ft_calc(pos) -> (B, 6) interleaved force-torques of the
     Uniform_Rollers composition (the JAX CLI's, cli.py:296-323): gravity,
     wall Yukawa and pair soft repulsion on the sphere centers (kernel
     K2), and with repulsion_strength_firm > 0 the firm wall and pair terms
     (main_rollers.py:141-143): the same Yukawa forms at the effective
-    radius a (1 - firm_delta) with Debye length 2 a firm_delta / ln 10."""
+    radius a (1 - firm_delta) with Debye length 2 a firm_delta / ln 10;
+    the pair terms under the minimum image and the image boxes of
+    periodic_length (K2's periodic instance)."""
     debye_firm = 2.0 * a * firm_delta / math.log(1e1)
 
     def ft_calc(pos):
@@ -807,7 +813,8 @@ def make_ft_calc(*, a, g, repulsion_strength, debye_length,
             debye_length_wall=debye_length_wall)
         f = f + force_ops.blob_blob_forces(
             pos, repulsion_strength=repulsion_strength,
-            debye_length=debye_length, blob_radius=a)
+            debye_length=debye_length, blob_radius=a,
+            periodic_length=periodic_length)
         if repulsion_strength_firm > 0.0:
             f = f + force_ops.blob_external_forces(
                 pos, g=0.0, blob_radius=a * (1.0 - firm_delta),
@@ -815,7 +822,8 @@ def make_ft_calc(*, a, g, repulsion_strength, debye_length,
                 debye_length_wall=debye_firm)
             f = f + force_ops.blob_blob_forces(
                 pos, repulsion_strength=repulsion_strength_firm,
-                debye_length=debye_firm, blob_radius=a * (1.0 - firm_delta))
+                debye_length=debye_firm, blob_radius=a * (1.0 - firm_delta),
+                periodic_length=periodic_length)
         return torch.cat([f, torch.zeros_like(f)], dim=1)
 
     return ft_calc
@@ -825,7 +833,7 @@ def _check_jump(sol: LubSolver, pos_new, pos_old):
     """Wall + max-displacement rejection (Lub_Solver.py:1027-1079), as
     device booleans."""
     wall_bad = torch.any(pos_new[:, 2] < 0.0)
-    disp = pos_new - pos_old
+    disp = min_image(pos_new - pos_old, sol.periodic_length)
     jump_bad = torch.any(torch.linalg.norm(disp, dim=1) > 2.0 * sol.a)
     return wall_bad, jump_bad
 

@@ -7,12 +7,14 @@ zero torque) or with a prescribed angular velocity, in which case the
 torque solves M_rr T = omega - M_rt F by unpreconditioned GMRES.
 
 Two product engines, as in the JAX package:
-- the direct O(N^2) engine (domains single_wall and no_wall): every
+- the direct O(N^2) engine (domains single_wall and no_wall, open or with
+  the pseudo-periodic image boxes of a periodic_length): every
   hydrodynamic product is kernel K1 (ops/pair_kernels.py) in one of its
   couplings: grand in each Lanczos iteration, rr (B = 2) in each lockstep
   GMRES iteration, tr (B = 2) for the torque velocities, rt for the omega
-  right-hand side and the RFD drift, tt for the force velocities; the
-  blob-blob forces are kernel K2;
+  right-hand side and the RFD drift, tt for the force velocities; with a
+  periodic_length each runs K1's image-box instance; the blob-blob forces
+  are kernel K2 (its periodic instance in a periodic box);
 - the O(N log N) wall-spectral engine (domain single_wall_spectral,
   periodic_length (Lx, Ly, 0) and a slab top spectral_wall_height): tt by
   ops/ewald_wall.py (near field kernel K7), the rot blocks by
@@ -32,8 +34,6 @@ noise comes from `draw_normal` and an explicit torch.Generator, drawn in
 the order the JAX package draws it from its key. The hooks force_fn(sus,
 r) and torque_fn(sus, r) (torch functions, (N, 3) each) add blob forces
 and prescribe the torques where the JAX package applies its own.
-Pseudo-periodic image boxes of the direct engine wait for ROADMAP Queue
-1, item 4.
 """
 
 from __future__ import annotations
@@ -97,11 +97,6 @@ class RollerSuspension:
         if self.domain not in DOMAINS:
             raise NotImplementedError(
                 f"domain {self.domain!r}: the rollers port covers {DOMAINS}")
-        if (self.domain != "single_wall_spectral"
-                and any(L > 0 for L in self.periodic_length)):
-            raise NotImplementedError("pseudo-periodic image boxes of the "
-                                      "direct engine are not ported yet "
-                                      "(ROADMAP Queue 1, item 4)")
 
     @property
     def mobility_kwargs(self):

@@ -23,6 +23,9 @@ The mobility engine of a configuration is `m_dense`:
     and the stacked pairs of the lockstep solves run kernel K4);
   - None for the matrix-free pairwise engine (kernel K1), above the
     budget;
+  with a periodic_length both hold the pseudo-periodic image boxes (K3's
+  and K1's image-box instances), as the JAX package's engine choice does
+  (saddle.py:120-143);
   - an ops/ewald.SpectralPlan for domain 'periodic_spectral', an
     ops/ewald_wall.WallPlan for 'single_wall_spectral', built once per
     configuration and refreshed for nearby ones.
@@ -141,11 +144,13 @@ MATERIALIZE_BUDGET_BYTES = int(os.environ.get("RMW_MATERIALIZE_BUDGET",
 
 def dense_mobility(system: System, r_blobs):
     """The materialized (3N, 3N) mobility of a pairwise-domain
-    configuration, with no budget check: kernel K3 on the card, the plain
-    builder on the CPU."""
+    configuration, with no budget check: kernel K3 on the card (its
+    image-box instance with a periodic_length), the plain builder on the
+    CPU."""
     return mobility_cuda.dense_tt(r_blobs.contiguous(), system.eta,
                                   system.blob_radius,
-                                  wall=system.domain == "single_wall")
+                                  wall=system.domain == "single_wall",
+                                  periodic_length=system.periodic_length)
 
 
 def maybe_dense_mobility(system: System, r_blobs):

@@ -11,7 +11,8 @@ dataclasses take the place of the JAX pytrees:
     state's.
 
 The port covers the wall-bounded and unbounded direct pairwise engine
-(`domain` 'single_wall' or 'no_wall', no periodic images), the
+(`domain` 'single_wall' or 'no_wall', open or with the pseudo-periodic
+image boxes of a `periodic_length`), the
 triply-periodic spectral Ewald engine (`domain` 'periodic_spectral') and
 the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
 slab top `spectral_wall_height`), with per-blob radii on the pairwise
@@ -176,7 +177,7 @@ class System:
         if self.domain not in DOMAINS:
             raise NotImplementedError(
                 f"domain {self.domain!r}: the port covers {DOMAINS} so far "
-                "(other domains: ROADMAP Queue 1, items 4 and 19)")
+                "(in_plane and free_surface: ROADMAP Queue 1, item 4)")
         periodic = [L > 0 for L in self.periodic_length]
         if self.domain == "periodic_spectral":
             if not all(periodic):
@@ -187,10 +188,11 @@ class System:
                 raise ValueError("single_wall_spectral needs periodic_length "
                                  "> 0 on x and y and 0 on z (the wall engine "
                                  "is doubly periodic in-plane)")
-        elif any(periodic):
+        elif any(periodic) and self.has_mixed_radii:
             raise NotImplementedError(
-                "pseudo-periodic image boxes are not ported yet "
-                "(ROADMAP Queue 1, item 4)")
+                "per-blob radii with pseudo-periodic image boxes (kernel "
+                "P1's image-box instance) are not ported yet (ROADMAP Queue "
+                "1, item 4)")
         if self.blob_blob_force_method not in BLOB_BLOB_METHODS:
             raise ValueError(f"blob_blob_force_method "
                              f"{self.blob_blob_force_method!r}; one of "

@@ -39,8 +39,11 @@ _D = ctypes.c_double
 # csrc/pair_radii.cu, csrc/near_radii.cu);
 # pointers and the stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
+_PAIR_SYM = (_P,) * 4 + (_I,) * 6 + (_P,)
 _PI = ctypes.POINTER(ctypes.c_int)
 _PD = ctypes.POINTER(ctypes.c_double)
+# the image boxes' arguments before the stream: L (3,), n_boxes, offsets
+_BOXES = (_PD, _I, _PD)
 _NL = (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P)
 _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
          _P)
@@ -49,9 +52,13 @@ _ROT = (_P,) * 7 + (_I,) * 9 + (_D,) * 12 + (_P,)
 SIGNATURES = {
     **{f"pair_{c}_{t}": _PAIR for c in ("tt", "tr", "rt", "rr", "grand")
        for t in ("f32", "f64")},
-    **{f"pair_{c}_shape": (_I, _I, _I, _PI)
+    **{f"pair_{c}_img_{t}": _PAIR[:-1] + _BOXES + (_P,)
+       for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
+    **{f"pair_{c}_shape": (_I, _I, _I, _I, _PI)
        for c in ("tt", "tr", "rt", "rr", "grand")},
-    **{f"pair_{c}_sym_{t}": (_P,) * 4 + (_I,) * 6 + (_P,)
+    **{f"pair_{c}_sym_{t}": _PAIR_SYM
+       for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
+    **{f"pair_{c}_sym_img_{t}": _PAIR_SYM[:-1] + _BOXES + (_P,)
        for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
     **{f"blob_forces_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3 + (_P,)
        for t in ("f32", "f64")},
@@ -61,6 +68,8 @@ SIGNATURES = {
        + (_PD, _P) for t in ("f32", "f64")},
     "dense_tt_f32": (_P, _P, _I, _D, _D, _I, _P),
     "dense_tt_f64": (_P, _P, _I, _D, _D, _I, _P),
+    "dense_tt_img_f32": (_P, _P, _I, _D, _D, _I) + _BOXES + (_P,),
+    "dense_tt_img_f64": (_P, _P, _I, _D, _D, _I) + _BOXES + (_P,),
     "symm_matvec_f32": (_P, _P, _P, _P, _I, _I, _P),
     "symm_matvec_f64": (_P, _P, _P, _P, _I, _I, _P),
     "nl_forces_f32": _NL,

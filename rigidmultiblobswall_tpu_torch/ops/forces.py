@@ -10,9 +10,10 @@ the linked-cell sweep kernel K5 (ops/cell_kernels.py) on a CUDA tensor,
 their plain versions on a CPU tensor; `body_body_forces_torques`, the
 Yukawa force between body centers, is plain PyTorch on both (XLA in the
 JAX package too); `blob_blob_energy`, the repulsion's pair energy of the
-MCMC sampler, runs kernel M1 (XLA there). The linked-cell path's fallback
-to the direct periodic sweep in boxes under 4 cells, and neighbor lists
-in open boxes, are still to be ported (ROADMAP Queue 1, items 4 and 14).
+MCMC sampler, runs kernel M1 (XLA there). In a box with a periodic axis
+under 4 cells of the cutoff the linked-cell path falls back to the direct
+periodic sweep (K2's image boxes), as the JAX package does; neighbor lists
+in open boxes are still to be ported (ROADMAP Queue 1, item 14).
 
 Physics: gravity plus the wall repulsion of
 U(z) = U0 + U0 (a-z)/b for z < a, U0 exp(-(z-a)/b) otherwise, and the
@@ -28,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from . import cell_kernels, cells, mobility_cuda
+from . import cell_kernels, cells, mobility_cuda, pair_kernels
 
 
 def blob_external_forces(r_vectors, *, g=0.0, blob_mass=1.0, blob_radius=1.0,
@@ -48,7 +49,7 @@ def blob_blob_forces(r_vectors, *, repulsion_strength=0.0, debye_length=1.0,
                      blob_radius=1.0, periodic_length=(0.0, 0.0, 0.0)):
     """Pairwise soft repulsion, direct O(N^2) sweep, (N,3) -> (N,3); with
     a periodic_length, the minimum image plus the image boxes of
-    mobility_cuda.box_offsets (the JAX package's forces.py:48-109)."""
+    pair_kernels.box_offsets (the JAX package's forces.py:48-109)."""
     if repulsion_strength == 0.0:
         return torch.zeros_like(r_vectors)
     return mobility_cuda.blob_blob_forces(
@@ -68,8 +69,8 @@ def body_body_forces_torques(locations, *, repulsion_strength=0.0,
     out = locations.new_zeros((nb, 6))
     if repulsion_strength == 0.0 or nb < 2:
         return out
-    d = mobility_cuda.min_image(locations[:, None, :] - locations[None, :, :],
-                                periodic_length)
+    d = pair_kernels.min_image(locations[:, None, :] - locations[None, :, :],
+                               periodic_length)
     r2 = torch.sum(d * d, dim=-1)
     skip = (torch.eye(nb, dtype=torch.bool, device=locations.device)
             | (r2 == 0.0))
@@ -106,12 +107,21 @@ def _cutoff(blob_radius, debye_length, cutoff):
                                          + 30.0 * float(debye_length))
 
 
+def direct_fallback(periodic_length, cutoff):
+    """True when a periodic axis holds fewer than 4 cells of the cutoff:
+    the wrapped 27-cell stencil would count a pair twice, so the
+    linked-cell path takes the direct periodic sweep instead (the JAX
+    package's forces.py:144-151)."""
+    return any(float(L) > 0 and int(float(L) // cutoff) < 4
+               for L in periodic_length)
+
+
 def neighbor_cell_dims(periodic_length, cutoff, grid_dim, z_extent=None):
     """Cells per axis, min(L // cutoff, grid_dim), of a fully periodic box,
     or of an xy-periodic wall slab with its z cells (wall_slab). Raises
-    NotImplementedError for the layouts the port does not cover: open
-    boxes, and boxes under 4 cells of the cutoff (where the JAX package
-    takes the direct periodic sweep)."""
+    NotImplementedError for open boxes, which the port does not cover;
+    boxes under 4 cells of the cutoff take the direct sweep
+    (direct_fallback) and have no cells."""
     slab = wall_slab(periodic_length, cutoff, z_extent)
     if slab is not None:
         periodic_length = tuple(periodic_length)[:2]
@@ -125,11 +135,10 @@ def neighbor_cell_dims(periodic_length, cutoff, grid_dim, z_extent=None):
                 "of a declared z extent")
         nd = int(L // cutoff)
         if nd < 4:
-            raise NotImplementedError(
+            raise ValueError(
                 f"box {tuple(periodic_length)} holds fewer than 4 cells of "
-                f"the cutoff {cutoff}: the JAX package falls back to the "
-                "direct sweep with periodic images, not ported yet (ROADMAP "
-                "Queue 1, item 4)")
+                f"the cutoff {cutoff}: the direct periodic sweep serves it "
+                "(direct_fallback)")
         dims.append(min(nd, int(grid_dim)))
     if min(dims) < 4:
         raise ValueError(f"blob_blob_grid_dim {grid_dim}: the 27-cell "
@@ -171,13 +180,19 @@ def blob_blob_forces_neighbor_list(r_vectors, *, repulsion_strength=0.0,
     the 27 cells around its own. A blob beyond its cell's capacity is
     dropped as a source and a target (its row is zero), as on the JAX
     package's Pallas path; size cell_capacity with
-    `auto_force_cell_capacity`. (N,3) -> (N,3)."""
+    `auto_force_cell_capacity`. A box with a periodic axis under 4 cells
+    of the cutoff takes the direct periodic sweep (direct_fallback).
+    (N,3) -> (N,3)."""
     if repulsion_strength == 0.0:
         return torch.zeros_like(r_vectors)
+    rc = _cutoff(blob_radius, debye_length, cutoff)
+    if direct_fallback(periodic_length, rc):
+        return blob_blob_forces(
+            r_vectors, repulsion_strength=repulsion_strength,
+            debye_length=debye_length, blob_radius=blob_radius,
+            periodic_length=periodic_length)
     pos, dims, box, cell_table, _ = _force_cells(
-        r_vectors, periodic_length,
-        _cutoff(blob_radius, debye_length, cutoff), grid_dim, cell_capacity,
-        z_extent)
+        r_vectors, periodic_length, rc, grid_dim, cell_capacity, z_extent)
     return cell_kernels.nl_forces(
         pos, cell_table, dims, box, int(cell_capacity),
         eps_over_b=repulsion_strength / debye_length,
@@ -218,11 +233,14 @@ def neighbor_list_overflow(system, r_blobs) -> int:
     binning of blob_blob_forces_neighbor_list, on the positions' device):
     the blobs it drops, plus on a wall slab the blobs above z_clip, whose
     height it clips. Nonzero means blobs lost or misplaced their
-    repulsion. 0 when the method is not in use."""
+    repulsion. 0 when the method is not in use or the box takes the
+    direct sweep (direct_fallback)."""
     if system.blob_blob_force_method != "neighbor_list":
         return 0
     rc = _cutoff(system.blob_radius, system.debye_length,
                  system.blob_blob_cutoff)
+    if direct_fallback(system.periodic_length, rc):
+        return 0
     z_extent = force_z_extent(system)
     n_dropped = int(_force_cells(
         r_blobs, system.periodic_length, rc, system.blob_blob_grid_dim,
@@ -238,11 +256,14 @@ def auto_force_cell_capacity(system, r_blobs, *, margin=1.25, log=None):
     r_blobs (host, once at start-up) in the binning the sweep uses (on a
     wall slab, its clipped z cells): max occupancy x margin, rounded up
     to 8, when that exceeds the system's capacity. Returns the System;
-    a no-op for other force methods."""
+    a no-op for other force methods and for boxes that take the direct
+    sweep (direct_fallback)."""
     if system.blob_blob_force_method != "neighbor_list":
         return system
     rc = _cutoff(system.blob_radius, system.debye_length,
                  system.blob_blob_cutoff)
+    if direct_fallback(system.periodic_length, rc):
+        return system
     z_extent = force_z_extent(system)
     dims = np.asarray(neighbor_cell_dims(
         system.periodic_length, rc, system.blob_blob_grid_dim, z_extent))

@@ -2,11 +2,14 @@
 
 Counterpart of rigidmultiblobswall_tpu/ops/mobility.py for the couplings
 'tt', 'tr', 'rt', 'rr' and the grand (trans + rot) product, in the domains
-'single_wall' and 'no_wall' without periodic images. Every O(N^2) product
-goes through `pair_kernels.pair_matvec`: kernel K1 on a CUDA tensor, its
-plain PyTorch version (the JAX package's generic tiled path) on a CPU
-tensor. `dense_mobility_tiled` materializes the tt operator of one
-configuration (the plain version of kernel K3, ops/mobility_cuda.py).
+'single_wall' and 'no_wall', open or with the pseudo-periodic image boxes
+of a periodic_length (the minimum image, then the +-1 boxes on each
+periodic axis). Every O(N^2) product goes through
+`pair_kernels.pair_matvec`: kernel K1 (its image-box instance with a
+periodic_length) on a CUDA tensor, its plain PyTorch version (the JAX
+package's generic tiled path) on a CPU tensor. `dense_mobility_tiled`
+materializes the tt operator of one configuration (the plain version of
+kernel K3, ops/mobility_cuda.py).
 `source_target_matvec` is the source-target product of velocity fields,
 with per-blob radii, image boxes and the free surface (plain PyTorch, as
 it is XLA there). The square product with per-blob radii,
@@ -14,9 +17,9 @@ it is XLA there). The square product with per-blob radii,
 on a CUDA tensor (ops/mobility_cuda.radii_matvec) and
 `source_target_matvec` on a CPU tensor; `dense_mobility_radii`
 materializes it for the preconditioner blocks and the dense solves. The
-SFM engine (mobility_sfm.py) is not ported; in_plane, free_surface and
-pseudo-periodic images of the pair products are still to be ported
-(ROADMAP Queue 1, item 4).
+SFM engine (mobility_sfm.py) is not ported; in_plane and free_surface of
+the pair products, and per-blob radii with image boxes (kernel P1's image
+instance), are still to be ported (ROADMAP Queue 1, item 4).
 
 Wall overlap regularization: products use z_eff = max(z, a) and
 M <- B^T M(z_eff) B with the diagonal damping B_ii = min(z_i/a, 1).
@@ -45,21 +48,18 @@ def damping_factors(r_vectors, blob_radius):
     return torch.clamp(r_vectors[..., 2] / blob_radius, max=1.0)
 
 
-def _check_supported(coupling, domain, periodic_length):
+def _check_supported(coupling, domain):
     if coupling not in _PREF_POW:
         raise ValueError(f"unknown coupling {coupling!r}")
     if domain not in ("single_wall", "no_wall"):
         raise NotImplementedError(
             f"domain {domain!r} is not ported yet (ROADMAP Queue 1, item 4)")
-    if any(float(L) > 0 for L in periodic_length):
-        raise NotImplementedError("pseudo-periodic image boxes are not "
-                                  "ported yet (ROADMAP Queue 1, item 4)")
 
 
 def _block(coupling, domain, d, zt, zs, self_mask):
     """3x3 mobility block for d = (r_t - r_s)/a and heights zt, zs in
     units of a."""
-    _check_supported(coupling, domain, ())
+    _check_supported(coupling, domain)
     return pair_kernels.block(coupling, d, zt, zs, self_mask,
                               wall=domain == "single_wall")
 
@@ -83,8 +83,11 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     product, targets = sources (K1 tt then takes its symmetric sweep). A
     stack wider than the kernel's instances (pair_kernels.MAX_RHS, e.g.
     the k columns of a Krylov recycle refresh) runs as consecutive groups
-    of MAX_RHS right-hand sides, in order, one K1 launch each."""
-    _check_supported(coupling, domain, periodic_length)
+    of MAX_RHS right-hand sides, in order, one K1 launch each. A
+    periodic_length with an axis L > 0 sums the image boxes (K1's image-box
+    instance on the card)."""
+    _check_supported(coupling, domain)
+    boxes = pair_kernels.image_boxes(periodic_length, a)
     n_rhs, n_src = vec.shape[0], r_src.shape[0]
     n_tgt = n_src if r_tgt is None else r_tgt.shape[0]
     dtype = torch.promote_types(r_src.dtype, vec.dtype)
@@ -100,7 +103,8 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     out = torch.cat([
         pair_kernels.pair_matvec(
             q_src, q_tgt, V[:, c0:c0 + group].contiguous(),
-            coupling=coupling, wall=wall, self_interaction=self_interaction)
+            coupling=coupling, wall=wall, self_interaction=self_interaction,
+            boxes=boxes)
         for c0 in range(0, 3 * n_rhs, group)], dim=1)
     out = out * (1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling]))
     if wall:
@@ -152,8 +156,10 @@ def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
     """(U, W) = M_grand (F, T) for single-blob bodies (rollers path): the
     four coupling blocks in ONE K1 pass over the pair geometry
     (mobility.py:386-409). T enters scaled by 1/a and W leaves scaled by
-    a, so the kernel's sums see magnitudes of one order."""
-    _check_supported("tt", domain, periodic_length)
+    a, so the kernel's sums see magnitudes of one order. A periodic_length
+    with an axis L > 0 sums the image boxes (K1 grand's image-box
+    instance)."""
+    _check_supported("tt", domain)
     n = r_vectors.shape[0]
     dtype = torch.promote_types(r_vectors.dtype, force.dtype)
     wall = domain == "single_wall"
@@ -164,8 +170,9 @@ def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
         F = F * damp[:, None]
         T = T * damp[:, None]
     vin = torch.cat([F, T * (1.0 / a)], dim=1).contiguous()
-    out = pair_kernels.pair_matvec(q, None, vin, coupling="grand", wall=wall,
-                                   self_interaction=True)
+    out = pair_kernels.pair_matvec(
+        q, None, vin, coupling="grand", wall=wall, self_interaction=True,
+        boxes=pair_kernels.image_boxes(periodic_length, a))
     pref = 1.0 / (8.0 * math.pi * eta * a)
     u = out[:, :3] * pref
     w = out[:, 3:] * (pref / a)
@@ -253,13 +260,21 @@ def dense_mobility_tiled(r_vectors, eta, a, *, domain="single_wall",
     component planes: those avoid the TPU's padding of a minor length-3
     axis; here the interleaved matrix serves the stacked products as one
     matmul. The plain version of kernel K3 (ops/mobility_cuda.dense_tt).
-    Periodic images are not ported (ROADMAP Queue 1, item 4)."""
-    _check_supported(coupling, domain, periodic_length)
+    A periodic_length with an axis L > 0 sums every image box into each
+    block after the minimum image, the self block in the home box only
+    (JAX mobility.py:618-680)."""
+    _check_supported(coupling, domain)
     n = r_vectors.shape[0]
     wall = domain == "single_wall"
     q, damp = _normalized(r_vectors, a, wall, r_vectors.dtype)
     if row_tile is None:
-        row_tile = pair_kernels._default_row_tile(n, n, q.element_size())
+        row_tile = pair_kernels._default_row_tile(
+            n, n, q.element_size(),
+            budget_bytes=pair_kernels.PLAIN_TILE_BYTES)
+    boxes = pair_kernels.image_boxes(periodic_length, a)
+    L, offsets = boxes if boxes is not None else ((0.0, 0.0, 0.0),
+                                                  [(0, 0, 0)])
+    Lvec = torch.tensor(L, dtype=q.dtype, device=q.device)
     src_ids = torch.arange(n, device=q.device)
     zs = q[:, 2][None, :]
     pref = 1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling])
@@ -267,9 +282,18 @@ def dense_mobility_tiled(r_vectors, eta, a, *, domain="single_wall",
     for i0 in range(0, n, row_tile):
         qt = q[i0:i0 + row_tile]
         rows = torch.arange(i0, i0 + qt.shape[0], device=q.device)
-        d = qt[:, None, :] - q[None, :, :]
-        self_mask = rows[:, None] == src_ids[None, :]
-        m = _block(coupling, domain, d, qt[:, 2][:, None], zs, self_mask)
+        d0 = qt[:, None, :] - q[None, :, :]
+        if boxes is not None:
+            d0 = pair_kernels.min_image(d0, L)
+        m = None
+        for box in offsets:
+            home = box == (0, 0, 0)
+            self_mask = (rows[:, None] == src_ids[None, :]) & home
+            d = d0 if home else d0 + torch.tensor(
+                box, dtype=q.dtype, device=q.device) * Lvec
+            mb = _block(coupling, domain, d, qt[:, 2][:, None], zs,
+                        self_mask)
+            m = mb if m is None else m + mb
         m = m * pref
         if wall:
             m = (m * damp[i0:i0 + qt.shape[0], None, None, None]
@@ -297,7 +321,7 @@ def source_target_matvec(r_src, r_tgt, vec, radius_src, radius_tgt, eta, *,
     Counterpart of the JAX package's source_target_matvec, whose lax.map
     row tiles become chunks of row_tile targets (default: a (chunk, Ns, 3,
     3) block within 64 MiB). Plain PyTorch, as it is XLA there."""
-    from .mobility_cuda import box_offsets, min_image
+    box_offsets, min_image = pair_kernels.box_offsets, pair_kernels.min_image
 
     if domain is not None:
         wall = domain == "single_wall"
@@ -373,10 +397,16 @@ def mobility_radii_multi(r_vectors, vec, radii, eta, *,
     (B, N, 3): kernel P1 on a CUDA tensor (ops/mobility_cuda.radii_matvec,
     B = 1 or 2 a launch, wider stacks in consecutive pairs), the
     source-target product with sources = targets on a CPU tensor (its
-    r = 0 branch is the self mobility 4/(3 a))."""
+    r = 0 branch is the self mobility 4/(3 a)). No image boxes: P1 has no
+    image-box instance yet."""
     from .mobility_cuda import RADII_MAX_RHS, radii_matvec
 
-    _check_supported("tt", domain, periodic_length)
+    _check_supported("tt", domain)
+    if any(float(L) > 0 for L in periodic_length):
+        raise NotImplementedError(
+            "per-blob radii with pseudo-periodic image boxes (kernel P1's "
+            "image-box instance) are not ported yet (ROADMAP Queue 1, "
+            "item 4)")
     wall = domain == "single_wall"
     radii = torch.broadcast_to(torch.as_tensor(
         radii, dtype=r_vectors.dtype, device=r_vectors.device),
@@ -403,7 +433,7 @@ def dense_mobility_radii(r_vectors, radii, eta, *, domain="single_wall"):
     mobility_radii_trans_times_force materialized, for the per-body
     preconditioner blocks and the dense solves (plain PyTorch, as it is
     XLA in the JAX package). No periodic images."""
-    _check_supported("tt", domain, ())
+    _check_supported("tt", domain)
     n = r_vectors.shape[-2]
     batch = r_vectors.shape[:-2]
     dtype = r_vectors.dtype

@@ -11,7 +11,10 @@ of its kernels, and of the MCMC pair energy (M1):
   K3 `dense_tt`: the tt mobility of one configuration, materialized as the
      interleaved (3N, 3N) matrix with the height shift, 1/(8 pi eta a) and
      the wall damping folded in (`dense_tt_pallas` and its caller
-     models/saddle.py:130-139 there, `csrc/dense_tt.cu` here);
+     models/saddle.py:130-139 there, `csrc/dense_tt.cu` here), with an
+     image-box instance that sums the pseudo-periodic boxes of a
+     periodic_length into each block (ops/mobility.py
+     dense_mobility_tiled with images, XLA there);
   K4 `symm_matvec`: u = M v from the upper-triangle tiles of that matrix,
      for one right-hand side or the lockstep solves' pairs
      (`symm_planes_matvec` there, `csrc/symm_planes.cu` here);
@@ -72,8 +75,10 @@ COINCIDENT = ("zero", "one")
 # values of the plain energy's largest (configurations, rows, n, 3)
 # difference tensor
 ENERGY_CHUNK_VALUES = 1 << 24
-# number of K3 / K4 launches made by `dense_tt` / `symm_matvec`
+# number of K3 / K4 launches made by `dense_tt` / `symm_matvec`, and of
+# K3's image-box instance
 DENSE_LAUNCHES = {"dense_tt": 0, "symm_matvec": 0}
+DENSE_IMAGE_LAUNCHES = 0
 # number of P1 launches made by `radii_matvec`, by B, and the most
 # right-hand sides a launch takes (the kernel's template instances)
 RADII_LAUNCHES = {1: 0, 2: 0}
@@ -81,28 +86,6 @@ RADII_MAX_RHS = 2
 # K4's tile edge in blobs (csrc/symm_planes.cu kBlobs): the kernel reads
 # the tiles M[3 T I : 3 T (I+1), 3 T J : 3 T (J+1)] with J >= I only
 SYMM_TILE = 64
-
-
-def box_offsets(periodic_length):
-    """The image boxes (b_x, b_y, b_z) of the direct periodic sweep, b in
-    {-1, 0, 1} on each periodic axis (L > 0), (0, 0, 0) first (the JAX
-    package's ops/mobility.py _box_offsets)."""
-    axes = [(-1, 0, 1) if float(L) > 0 else (0,) for L in periodic_length]
-    return [(0, 0, 0)] + [(bx, by, bz) for bx in axes[0] for by in axes[1]
-                          for bz in axes[2] if (bx, by, bz) != (0, 0, 0)]
-
-
-def min_image(d, periodic_length):
-    """Displacements into the extended unit cell, truncation form
-    d - trunc(d/L + sign(d)/2) L on each periodic axis (the JAX package's
-    ops/mobility.py _min_image)."""
-    d = d.clone()
-    for axis, L in enumerate(float(x) for x in periodic_length):
-        if L > 0:
-            comp = d[..., axis]
-            d[..., axis] = comp - torch.trunc(
-                comp / L + 0.5 * torch.sign(comp)) * L
-    return d
 
 
 def image_boxes(periodic_length, debye_length, blob_radius, dtype):
@@ -123,7 +106,7 @@ def image_boxes(periodic_length, debye_length, blob_radius, dtype):
     exponent where exp underflows (103.97 in float32, 745.13 in float64),
     which covers that margin (and the 1e-6 below) while
     2^-21 |d/L| (110 + 2a/b) < 6, e.g. |d| < 10^4 L for 2a/b < 1000."""
-    boxes = box_offsets(periodic_length)
+    boxes = pair_kernels.box_offsets(periodic_length)
     periodic = [float(L) for L in periodic_length if float(L) > 0]
     if periodic:
         r_min = 0.5 * min(periodic) * (1.0 - 1e-6)
@@ -145,7 +128,7 @@ def blob_blob_forces_plain(r_vectors, *, repulsion_strength, debye_length,
     row_tile = int(min(max((1 << 26) // (max(n, 1) * 8), 8), max(n, 1)))
     eps_over_b = repulsion_strength / debye_length
     two_a = 2.0 * blob_radius
-    offsets = box_offsets(periodic_length)
+    offsets = pair_kernels.box_offsets(periodic_length)
     L = torch.as_tensor([float(x) for x in periodic_length], dtype=dtype,
                         device=dev)
     ids = torch.arange(n, device=dev)
@@ -154,8 +137,8 @@ def blob_blob_forces_plain(r_vectors, *, repulsion_strength, debye_length,
     for i0 in range(lo, hi, row_tile):
         ri = r_vectors[i0:min(i0 + row_tile, hi)]
         rids = torch.arange(i0, i0 + ri.shape[0], device=dev)
-        d0 = min_image(ri[:, None, :] - r_vectors[None, :, :],
-                       periodic_length)
+        d0 = pair_kernels.min_image(
+            ri[:, None, :] - r_vectors[None, :, :], periodic_length)
         acc = torch.zeros_like(ri)
         for box in offsets:
             if box == (0, 0, 0):
@@ -299,8 +282,8 @@ def blob_blob_energy_plain(r_vectors, *, repulsion_strength, debye_length,
         r = r_vectors[p0:p0 + per]
         for i0 in range(0, n, tile):
             ri = r[:, i0:i0 + tile]
-            d = min_image(ri[:, :, None, :] - r[:, None, :, :],
-                          periodic_length)
+            d = pair_kernels.min_image(
+                ri[:, :, None, :] - r[:, None, :, :], periodic_length)
             r2 = torch.sum(d * d, dim=-1)
             # the upper triangle j > i: each unordered pair once
             live = ids[None, :] > ids[i0:i0 + ri.shape[1], None]
@@ -405,19 +388,26 @@ def _check_cuda(what, *tensors):
             raise ValueError(f"{what}: tensor is not contiguous")
 
 
-def dense_tt_plain(r_vectors, eta, a, *, wall):
+def dense_tt_plain(r_vectors, eta, a, *, wall,
+                   periodic_length=(0.0, 0.0, 0.0)):
     """Plain PyTorch K3: the row-tiled (3N, 3N) builder of ops/mobility.py
-    with the scaling folded in."""
+    with the scaling folded in (and the image boxes of periodic_length)."""
     return mob.dense_mobility_tiled(
-        r_vectors, eta, a, domain="single_wall" if wall else "no_wall")
+        r_vectors, eta, a, domain="single_wall" if wall else "no_wall",
+        periodic_length=periodic_length)
 
 
-def dense_tt(r_vectors, eta, a, *, wall):
+def dense_tt(r_vectors, eta, a, *, wall, periodic_length=(0.0, 0.0, 0.0)):
     """K3 wrapper: the tt mobility of the configuration r_vectors (N,3) as
-    the interleaved (3N, 3N) matrix, in the dtype of r_vectors. The CUDA
-    kernel for CUDA tensors, `dense_tt_plain` for CPU tensors."""
+    the interleaved (3N, 3N) matrix, in the dtype of r_vectors, summed over
+    the image boxes of periodic_length when it has a periodic axis (K3's
+    image-box instance, counted in DENSE_IMAGE_LAUNCHES). The CUDA kernel
+    for CUDA tensors, `dense_tt_plain` for CPU tensors."""
+    global DENSE_IMAGE_LAUNCHES
+    periodic_length = tuple(float(x) for x in periodic_length)
     if r_vectors.device.type == "cpu":
-        return dense_tt_plain(r_vectors, eta, a, wall=wall)
+        return dense_tt_plain(r_vectors, eta, a, wall=wall,
+                              periodic_length=periodic_length)
     r = r_vectors
     _check_cuda("dense_tt", r)
     if r.ndim != 2 or r.shape[1] != 3:
@@ -429,13 +419,20 @@ def dense_tt(r_vectors, eta, a, *, wall):
     out = torch.empty((3 * n, 3 * n), dtype=r.dtype, device=r.device)
     if n == 0:
         return out
-    name = "dense_tt_f32" if r.dtype == torch.float32 else "dense_tt_f64"
-    fn = getattr(_build.library(), name)
-    err = fn(r.data_ptr(), out.data_ptr(), n, float(a),
-             1.0 / (8.0 * math.pi * float(eta) * float(a)), int(bool(wall)),
-             torch.cuda.current_stream(r.device).cuda_stream)
+    suffix = "f32" if r.dtype == torch.float32 else "f64"
+    boxes = pair_kernels.image_boxes(periodic_length, float(a))
+    name, extra = f"dense_tt_{suffix}", ()
+    if boxes is not None:
+        name, extra = f"dense_tt_img_{suffix}", pair_kernels._box_args(boxes)
+    err = getattr(_build.library(), name)(
+        r.data_ptr(), out.data_ptr(), n, float(a),
+        1.0 / (8.0 * math.pi * float(eta) * float(a)), int(bool(wall)),
+        *extra, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(name, err)
-    DENSE_LAUNCHES["dense_tt"] += 1
+    if boxes is None:
+        DENSE_LAUNCHES["dense_tt"] += 1
+    else:
+        DENSE_IMAGE_LAUNCHES += 1
     return out
 
 

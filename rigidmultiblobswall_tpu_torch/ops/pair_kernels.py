@@ -23,8 +23,17 @@ as b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
   allocates, and a second kernel adds them in a fixed order;
 - on a CPU tensor it runs `pair_plain`, the row-tiled sum of the blocks
   of ops/rpy.py (the JAX package's generic tiled path,
-  mobility.py:228-284, without periodic images). Tests and the chip
-  smoke compare the kernel against it.
+  mobility.py:228-284). Tests and the chip smoke compare the kernel
+  against it.
+
+`boxes=(L, offsets)` asks for the pseudo-periodic image boxes (the JAX
+package's pairwise_matvec with a periodic_length, XLA there): L the box in
+units of a (0 on an open axis), offsets the boxes of `box_offsets`, home
+box first. Each pair's d = q_t - q_s goes to its minimum image
+(`min_image`), then every box adds the block at d + b L, the self block in
+the home box only. On the card both sweeps take their image-box instances
+(`pair_{coupling}[_sym]_img_*`), counted in `IMAGE_LAUNCHES[coupling, B,
+sweep]` and not in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -49,11 +58,49 @@ MAX_RHS = {"tt": 2, "tr": 2, "rt": 1, "rr": 2, "grand": 1}
 # and those of them on the symmetric sweep
 LAUNCHES = {(c, b): 0 for c in NCOMP for b in range(1, MAX_RHS[c] + 1)}
 SYM_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# launches of the image-box instances, by (coupling, B, sweep), sweep
+# "sym" (the square product) or "sliced"
+IMAGE_LAUNCHES = {(c, b, s): 0 for (c, b) in LAUNCHES
+                  for s in ("sym", "sliced")}
+# the most image boxes a launch takes (csrc/pair_blocks.cuh kMaxBoxes)
+MAX_BOXES = 27
 
 
 def launches(coupling):
     """K1 launches of `coupling` in this process, every B."""
     return sum(n for (c, _), n in LAUNCHES.items() if c == coupling)
+
+
+def box_offsets(periodic_length):
+    """The image boxes (b_x, b_y, b_z) of the direct periodic sweep, b in
+    {-1, 0, 1} on each periodic axis (L > 0), (0, 0, 0) first (the JAX
+    package's ops/mobility.py _box_offsets)."""
+    axes = [(-1, 0, 1) if float(L) > 0 else (0,) for L in periodic_length]
+    return [(0, 0, 0)] + [(bx, by, bz) for bx in axes[0] for by in axes[1]
+                          for bz in axes[2] if (bx, by, bz) != (0, 0, 0)]
+
+
+def min_image(d, periodic_length):
+    """Displacements into the extended unit cell, truncation form
+    d - trunc(d/L + sign(d)/2) L on each periodic axis (the JAX package's
+    ops/mobility.py _min_image)."""
+    d = d.clone()
+    for axis, L in enumerate(float(x) for x in periodic_length):
+        if L > 0:
+            comp = d[..., axis]
+            d[..., axis] = comp - torch.trunc(
+                comp / L + 0.5 * torch.sign(comp)) * L
+    return d
+
+
+def image_boxes(periodic_length, a):
+    """The `boxes` argument of pair_matvec for a box of periodic_length
+    in physical units and blob radius a: (L / a, box_offsets), or None
+    without a periodic axis."""
+    if not any(float(L) > 0 for L in periodic_length):
+        return None
+    return (tuple(float(L) / a for L in periodic_length),
+            box_offsets(periodic_length))
 
 
 # sources a tile of the sweep (csrc/pair_blocks.cuh kTile); a slice is a
@@ -117,13 +164,14 @@ def _sm_count(index):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(coupling, f64, n_rhs, wall):
-    """Resident blocks an SM holds of a compiled K1 instance, from the
-    CUDA occupancy calculator."""
+def _resident_blocks(coupling, f64, n_rhs, wall, images=False):
+    """Resident blocks an SM holds of a compiled K1 instance (the open or
+    the image-box one), from the CUDA occupancy calculator."""
     blocks = ctypes.c_int(0)
     name = f"pair_{coupling}_shape"
     _build.check(name, getattr(_build.library(), name)(
-        int(f64), n_rhs, int(bool(wall)), ctypes.byref(blocks)))
+        int(f64), n_rhs, int(bool(wall)), int(bool(images)),
+        ctypes.byref(blocks)))
     if blocks.value < 1:
         raise RuntimeError(f"{name}: the instance does not fit an SM")
     return blocks.value
@@ -134,15 +182,22 @@ def _n_sm(t):
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
-def launch_plan(coupling, q_src, q_tgt, vec, *, wall):
+def launch_plan(coupling, q_src, q_tgt, vec, *, wall, images=False):
     """(S, tiles_per_slice) of the sliced sweep `pair_matvec` launches on
-    these CUDA tensors."""
+    these CUDA tensors (of its image-box instance with `images`)."""
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // NCOMP[coupling]
     blocks = _resident_blocks(coupling, vec.dtype == torch.float64, n_rhs,
-                              wall)
+                              wall, images)
     return plan_slices(n_tgt, n_src, _n_sm(vec), blocks,
                        vec.shape[1] * vec.element_size())
+
+
+# the plain versions of K1 and K3 (pair_plain, mobility.dense_mobility_tiled)
+# keep one (tile, Ns, nc, nc) block within this many bytes, on any device:
+# a tile costs ~100 elementwise launches, host-bound on the card, so larger
+# tiles make fewer of them
+PLAIN_TILE_BYTES = 1 << 30
 
 
 def _default_row_tile(n_src, n_tgt, itemsize, ncomp=3, budget_bytes=1 << 26):
@@ -184,38 +239,74 @@ def block(coupling, d, zt, zs, self_mask, wall):
     return m
 
 
-def pair_plain(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
+def _apply_blocks(coupling, d, zt, zs, self_mask, wall, v):
+    """sum_s M(d_ts) v_s, (tile, Ns, ...) geometry and v (Ns, B, nc) ->
+    (tile, B, nc); grand as its four 3x3 blocks, (U, W a) = (tt F + tr T,
+    rt F + rr T), without forming the 6x6 blocks."""
+    if coupling != "grand":
+        return torch.einsum("tsab,skb->tka",
+                            block(coupling, d, zt, zs, self_mask, wall), v)
+    f, t = v[..., :3], v[..., 3:]
+
+    def mul(c, x):
+        return torch.einsum("tsab,skb->tka",
+                            block(c, d, zt, zs, self_mask, wall), x)
+
+    return torch.cat([mul("tt", f) + mul("tr", t),
+                      mul("rt", f) + mul("rr", t)], dim=-1)
+
+
+def pair_plain(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
+               boxes=None):
     """Plain PyTorch K1: out[i] = sum_j M(q_tgt[i], q_src[j]) vec[j] for
     each right-hand side, computed from materialized (tile, Ns, nc, nc)
     blocks. Target row i pairs with source row i as `self` when
-    self_interaction is set (targets are the leading sources)."""
+    self_interaction is set (targets are the leading sources). With boxes
+    = (L, offsets) the sum runs over the image boxes as the JAX package's
+    tile_fn does: d to its minimum image, then the block of every box at
+    d + b L, the self mask in the home box only."""
     nc = NCOMP[coupling]
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // nc
     v = vec.reshape(n_src, n_rhs, nc)
-    row_tile = _default_row_tile(n_src, n_tgt, q_src.element_size(), nc)
+    row_tile = _default_row_tile(n_src, n_tgt, q_src.element_size(), nc,
+                                 PLAIN_TILE_BYTES)
     src_ids = torch.arange(n_src, device=q_src.device)
     zs = q_src[:, 2][None, :]
+    L, offsets = boxes if boxes is not None else ((0.0, 0.0, 0.0),
+                                                  [(0, 0, 0)])
+    Lvec = torch.tensor(L, dtype=q_src.dtype, device=q_src.device)
     out = torch.empty((n_tgt, nc * n_rhs), dtype=q_src.dtype,
                       device=q_src.device)
     for i0 in range(0, n_tgt, row_tile):
         qt = q_tgt[i0:i0 + row_tile]
         rows = torch.arange(i0, i0 + qt.shape[0], device=q_src.device)
-        d = qt[:, None, :] - q_src[None, :, :]
-        self_mask = (rows[:, None] == src_ids[None, :]) & self_interaction
-        m = block(coupling, d, qt[:, 2][:, None], zs, self_mask, wall)
-        out[i0:i0 + qt.shape[0]] = torch.einsum(
-            "tsab,skb->tka", m, v).reshape(qt.shape[0], nc * n_rhs)
+        d0 = qt[:, None, :] - q_src[None, :, :]
+        if boxes is not None:
+            d0 = min_image(d0, L)
+        acc = None
+        for box in offsets:
+            home = box == (0, 0, 0)
+            self_mask = ((rows[:, None] == src_ids[None, :])
+                         & (self_interaction and home))
+            d = d0 if home else d0 + torch.tensor(
+                box, dtype=q_src.dtype, device=q_src.device) * Lvec
+            part = _apply_blocks(coupling, d, qt[:, 2][:, None], zs,
+                                 self_mask, wall, v)
+            acc = part if acc is None else acc + part
+        out[i0:i0 + qt.shape[0]] = acc.reshape(qt.shape[0], nc * n_rhs)
     return out
 
 
-def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
+def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
+                boxes=None):
     """K1 wrapper: the CUDA kernel of `coupling` for CUDA tensors,
     `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt (Nt,3) or None for
     the square product (the targets are the sources), vec (Ns,nc B) ->
-    (Nt,nc B). On the card a square product takes the symmetric sweep
-    over `plan_groups`' groups, a two-tensor product the sliced sweep
-    over `launch_plan`'s slices."""
+    (Nt,nc B); boxes (L, offsets) or None (the module's docstring). On
+    the card a square product takes the symmetric sweep over
+    `plan_groups`' groups, a two-tensor product the sliced sweep over
+    `launch_plan`'s slices, each in its image-box instance with boxes."""
     if coupling not in NCOMP:
         raise ValueError(f"unknown coupling {coupling!r}")
     square = q_tgt is None
@@ -223,8 +314,8 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
         q_tgt = q_src
     if q_src.device.type == "cpu":
         return pair_plain(q_src, q_tgt, vec, coupling=coupling, wall=wall,
-                          self_interaction=self_interaction)
-    _check(coupling, q_src, q_tgt, vec)
+                          self_interaction=self_interaction, boxes=boxes)
+    _check(coupling, q_src, q_tgt, vec, boxes)
     nc = NCOMP[coupling]
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // nc
@@ -233,34 +324,59 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction):
     if n_tgt == 0 or n_src == 0:
         return out.zero_()
     suffix = "f32" if vec.dtype == torch.float32 else "f64"
+    img = "" if boxes is None else "_img"
     stream = torch.cuda.current_stream(vec.device).cuda_stream
     if square:
-        name = f"pair_{coupling}_sym_{suffix}"
+        name = f"pair_{coupling}_sym{img}_{suffix}"
         groups, per = plan_groups(n_src, _n_sm(vec))
         ws = torch.empty((groups, n_src, nc * n_rhs), dtype=vec.dtype,
                          device=vec.device)
         args = (q_src.data_ptr(), vec.data_ptr(), out.data_ptr(),
                 ws.data_ptr(), n_src, n_rhs, groups, per, int(bool(wall)),
-                int(bool(self_interaction)), stream)
+                int(bool(self_interaction)))
     else:
-        name = f"pair_{coupling}_{suffix}"
-        n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, wall=wall)
+        name = f"pair_{coupling}{img}_{suffix}"
+        n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, wall=wall,
+                                      images=boxes is not None)
         ws = (torch.empty((n_slices, n_tgt, nc * n_rhs), dtype=vec.dtype,
                           device=vec.device) if n_slices > 1 else None)
         args = (q_src.data_ptr(), q_tgt.data_ptr(), vec.data_ptr(),
                 out.data_ptr(), None if ws is None else ws.data_ptr(), n_src,
                 n_tgt, n_rhs, n_slices, tiles, int(bool(wall)),
-                int(bool(self_interaction)), stream)
-    err = getattr(_build.library(), name)(*args)
+                int(bool(self_interaction)))
+    if boxes is not None:
+        args += _box_args(boxes)
+    err = getattr(_build.library(), name)(*args, stream)
     _build.check(name, err)
+    if boxes is not None:
+        IMAGE_LAUNCHES[coupling, n_rhs, "sym" if square else "sliced"] += 1
+        return out
     LAUNCHES[coupling, n_rhs] += 1
     if square:
         SYM_LAUNCHES[coupling, n_rhs] += 1
     return out
 
 
-def _check(coupling, q_src, q_tgt, vec):
+def _box_args(boxes):
+    """The image boxes' C arguments: L (3,), the count and the offsets
+    b L, as host double arrays."""
+    L, offsets = boxes
+    off = [b * x for box in offsets for b, x in zip(box, L)]
+    return ((ctypes.c_double * 3)(*L), len(offsets),
+            (ctypes.c_double * len(off))(*off))
+
+
+def _check(coupling, q_src, q_tgt, vec, boxes=None):
     what = f"pair_matvec({coupling})"
+    if boxes is not None:
+        L, offsets = boxes
+        if (len(L) != 3 or not any(float(x) > 0 for x in L)
+                or not 1 <= len(offsets) <= MAX_BOXES
+                or tuple(offsets[0]) != (0, 0, 0)):
+            raise ValueError(f"{what}: image boxes L {tuple(L)} with "
+                             f"{len(offsets)} offsets; expected a periodic "
+                             f"axis and 1 to {MAX_BOXES} boxes, the home box "
+                             "first")
     if q_src.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q_src.device}")
     dtype = vec.dtype

@@ -4,8 +4,10 @@ Counterpart of rigidmultiblobswall_tpu/ops/rpy.py for the unbounded and
 single-wall blocks of every coupling: `rpy_tt`, `rpy_rr`, `rpy_cross`,
 `wall_tt`, `wall_rr`, `wall_rot_force`, `wall_trans_torque`, and the
 different-radii blocks of the source-target product, `rpy_tt_radii` and
-`wall_tt_radii` (physical units). The in-plane and free-surface blocks of
-the pair products are still to be ported (ROADMAP Queue 1, item 4).
+`wall_tt_radii` (physical units); the pseudo-periodic image boxes sum
+these blocks over the boxes (ops/pair_kernels.py). The in-plane and
+free-surface blocks of the pair products are still to be ported (ROADMAP
+Queue 1, item 4).
 Pure elementwise math mapping batched pair geometry to 3x3 blocks
 (..., 3, 3), in units of the blob radius a (the radii blocks excepted);
 callers apply 1/(8 pi eta a^k), k = 1 (tt), 2 (tr, rt), 3 (rr).

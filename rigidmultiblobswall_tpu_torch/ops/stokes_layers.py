@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .mobility_cuda import box_offsets, min_image
+from .pair_kernels import box_offsets, min_image
 
 
 def pressure_stokeslet(r_src, r_tgt, force, *, wall=False,

@@ -129,9 +129,14 @@ def test_open_boxes_and_small_boxes_raise():
     kw = dict(FORCE_KW, periodic_length=(L, L, 0.0))
     with pytest.raises(NotImplementedError, match="item"):
         tforces.blob_blob_forces_neighbor_list(r, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tforces.blob_blob_forces_neighbor_list(r, **dict(FORCE_KW,
-                                                         cutoff=3.0))
+    # a box under 4 cells of the cutoff (formerly refused) takes the
+    # direct periodic sweep, as the JAX package does
+    small = dict(FORCE_KW, cutoff=3.0)
+    ref = np.asarray(jforces.blob_blob_forces_neighbor_list(
+        jnp.asarray(r.numpy()), **small))
+    got = to_np(tforces.blob_blob_forces_neighbor_list(r, **small))
+    assert np.abs(ref).max() > 0
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
     # a z extent shapes only xy-periodic wall slabs (the wall-slab branch,
     # tests/test_torch_wall_spectral.py); a periodic box ignores it, as
     # the JAX package does

@@ -114,6 +114,24 @@ def test_cli_slip_trapz_matches_jax(tmp_path, monkeypatch):
     assert info == info_jax
 
 
+def test_cli_pseudo_periodic_box_matches_jax(tmp_path, monkeypatch):
+    """A `periodic_length 3.2 3.2 0` line on the single_wall direct engine
+    (the four shells' 2 x 2 lattice at its own period, so every product
+    sums the image boxes and the forces take K2's periodic sweep): the
+    same final .clones (1e-8) and .info as the JAX CLI."""
+    out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz",
+                    extra="periodic_length 3.2 3.2 0\n")
+    final = "run.shell.%08d.clones" % N_STEPS
+    ref = _clones(out["jax"] / final)
+    got = _clones(out["torch"] / final)
+    start = _clones(out["torch"] / "run.shell.00000000.clones")
+    # the images balance the lattice's in-plane pushes: the shells settle
+    assert np.abs(got[:, :3] - start[:, :3]).max() > 5e-5
+    np.testing.assert_allclose(got, ref, atol=1e-8, rtol=0)
+    assert (_info(out["torch"] / "run.info")
+            == _info(out["jax"] / "run.info"))
+
+
 def test_cli_periodic_spectral_matches_jax(tmp_path, monkeypatch):
     """8 shells in a 3.2 box on the spectral engine (tolerance 0.2, a 32^3
     grid) with tree blob forces (linked cells; debye length 0.015 keeps
@@ -411,8 +429,8 @@ def test_cli_articulated_matches_jax(tmp_path, monkeypatch, scheme):
     """The articulated_dumbbells example (8 single-blob bodies in four
     dumbbells) through both CLIs, 4 steps saved every 2, run from the
     example's copy (its .list_vertex names blob.vertex relative to the
-    working directory): the same set of files (the JAX .random_state
-    excepted, ROADMAP Queue 1, item 11), the same .clones of the
+    working directory): the same set of files (.random_state included),
+    the same .clones of the
     articulated ID in the clones file's order to 1e-9 of the
     displacement, and the same .info, .bodies_info, .inputfile and
     .git."""
@@ -434,8 +452,7 @@ def test_cli_articulated_matches_jax(tmp_path, monkeypatch, scheme):
         main(["--input-file", str(d / "input.dat")] + argv)
         out[name] = d
     names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
-    assert names["jax"] - names["torch"] == {"run_dumbbells.random_state"}
-    assert names["torch"] - names["jax"] == set()
+    assert names["torch"] == names["jax"]
     start = _clones(src / "dumbbells.clones")
     for k in (0, 2, 4):
         f = "run_dumbbells.dumbbells.%08d.clones" % k
@@ -462,8 +479,7 @@ def test_cli_obstacles_match_jax(tmp_path, monkeypatch, scheme):
                     extra="obstacle shell.vertex wall.clones\n",
                     files={"wall.clones": "2\n" + obst})
     names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
-    assert names["jax"] - names["torch"] == {"run.random_state"}
-    assert names["torch"] - names["jax"] == set()
+    assert names["torch"] == names["jax"]
     for sid, n in (("shell", 4), ("wall", 2)):
         final = "run.%s.%08d.clones" % (sid, N_STEPS)
         got, ref = _clones(out["torch"] / final), _clones(out["jax"] / final)
@@ -552,17 +568,76 @@ def test_cli_save_velocities_matches_jax(tmp_path, monkeypatch):
     assert got.shape == (N_STEPS, 6 * 4) and np.abs(got).max() > 0
 
 
-@pytest.mark.parametrize("line, item", [
-    ("random_state run.random_state", "item 11"),
-])
-def test_cli_refuses_unported_options(tmp_path, monkeypatch, line, item):
-    """Options the JAX CLI acts on and the port does not support yet are
-    refused, naming the ROADMAP item that ports them, not ignored."""
-    inp = _write_scene(tmp_path, "stochastic_Slip_Trapz", extra=line + "\n")
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+def _random_state_run(d, n_steps, start=None, extra=""):
+    """A Slip-Trapz run at kT 0.05 on the generated scene in d (float64 on
+    the CPU), n_steps steps saved every 2, from the .clones file `start`
+    when given."""
+    inp = _write_scene(d, "stochastic_Slip_Trapz", kT=0.05,
+                       extra=f"n_steps {n_steps}\nn_save 2\n" + extra)
+    if start is not None:
+        shutil.copy(start, d / "shell.clones")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
         tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "run.inputfile")
+    finally:
+        os.chdir(cwd)
+    return d
+
+
+def test_cli_random_state_round_trip(tmp_path):
+    """A 4-step run against 2 steps and 2 more restarted from the first
+    run's last .clones and its .random_state: the same frames. Without the
+    file the restart draws other noise."""
+    whole = _random_state_run(tmp_path / "whole", 4)
+    first = _random_state_run(tmp_path / "first", 2)
+    mid = first / "run.shell.00000002.clones"
+    second = tmp_path / "second"
+    second.mkdir()
+    shutil.copy(first / "run.random_state", second / "first.random_state")
+    _random_state_run(second, 2, start=mid,
+                      extra="random_state first.random_state\n")
+    np.testing.assert_array_equal(_clones(mid),
+                                  _clones(whole / "run.shell.00000002.clones"))
+    start = _clones(whole / "run.shell.00000000.clones")
+    ref = _clones(whole / "run.shell.00000004.clones")
+    got = _clones(second / "run.shell.00000002.clones")
+    assert np.abs(ref[:, :3] - start[:, :3]).max() > 1e-4
+    np.testing.assert_array_equal(got, ref)
+    header = (whole / "run.random_state").read_text().splitlines()[0]
+    assert header == tcli.RANDOM_STATE_HEADER
+    other = _random_state_run(tmp_path / "other", 2, start=mid)
+    assert np.abs(_clones(other / "run.shell.00000002.clones")
+                  - ref).max() > 1e-8
+
+
+@pytest.mark.parametrize("kind", ["jax", "short", "other_generators"])
+def test_cli_refuses_a_foreign_random_state(tmp_path, monkeypatch, kind):
+    """A .random_state the port did not write for this run is refused
+    before any step, with a message naming what is wrong: the JAX CLI's
+    (its PRNG key's uint32 words, as JAX cli.py:616-617 writes them), one
+    cut short, and one from generators this run does not have."""
+    src = _random_state_run(tmp_path / "src", 2)
+    lines = (src / "run.random_state").read_text().splitlines()
+    if kind == "jax":
+        text = "0\n42\n"
+        match = "JAX"
+    elif kind == "short":
+        text = "\n".join(lines[:1] + [lines[1].rsplit(" ", 1)[0]]
+                         + lines[2:]) + "\n"
+        match = "bytes"
+    else:
+        text = "\n".join(lines[:2]) + "\n"
+        match = "this run draws from"
+    d = tmp_path / kind
+    d.mkdir()
+    (d / "given.random_state").write_text(text)
+    inp = _write_scene(d, "stochastic_Slip_Trapz", kT=0.05,
+                       extra="random_state given.random_state\n")
+    monkeypatch.chdir(d)
+    with pytest.raises(ValueError, match=match):
+        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
+    assert not (d / "run.shell.00000000.clones").exists()
 
 
 def _same_vtk(out, name, tol=1e-5):
@@ -710,8 +785,9 @@ def test_cli_lubrication_matches_jax(tmp_path, monkeypatch):
 def test_cli_lubrication_brownian_and_refusals(tmp_path, monkeypatch,
                                                capsys):
     """At kT > 0 the run writes the four .info counters and, with
-    --print-residual, one line a step; a periodic box is refused before
-    the run (K1's image boxes, ROADMAP item 4)."""
+    --print-residual, one line a step; in a periodic box (5.3 x 5.3, so
+    each sphere's images come within the cutoff) the run matches the JAX
+    CLI's at kT = 0 (1e-9 of the displacement, the same .info counts)."""
     inp = _write_lubrication_scene(tmp_path / "b", kT=0.004)
     monkeypatch.chdir(tmp_path / "b")
     tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu",
@@ -724,12 +800,21 @@ def test_cli_lubrication_brownian_and_refusals(tmp_path, monkeypatch,
     assert capsys.readouterr().out.count("lubrication step") == 3
     pos = _clones(tmp_path / "b" / "run.spheres.00000003.clones")
     assert pos.shape == (4, 7) and np.all(np.isfinite(pos))
-    inp = _write_lubrication_scene(tmp_path / "p",
-                                   extra="periodic_length 10 10 0\n")
-    monkeypatch.chdir(tmp_path / "p")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tcli.main(["--input-file", str(inp), "--f64", "--device", "cpu"])
-    assert not (tmp_path / "p" / "run.spheres.00000000.clones").exists()
+    for name, main, argv in (("jax", jcli.main, []),
+                             ("torch", tcli.main,
+                              ["--f64", "--device", "cpu"])):
+        inp = _write_lubrication_scene(tmp_path / name,
+                                       extra="periodic_length 5.3 5.3 0\n")
+        monkeypatch.chdir(tmp_path / name)
+        main(["--input-file", str(inp)] + argv)
+    start = _clones(tmp_path / "jax" / "spheres.clones")
+    ref = _clones(tmp_path / "jax" / "run.spheres.00000003.clones")
+    got = _clones(tmp_path / "torch" / "run.spheres.00000003.clones")
+    disp = np.abs(ref[:, :3] - start[:, :3]).max()
+    assert disp > 1e-4
+    np.testing.assert_allclose(got, ref, atol=1e-9 * disp, rtol=0)
+    assert (_info(tmp_path / "torch" / "run.info")
+            == _info(tmp_path / "jax" / "run.info"))
 
 
 def test_cli_lubrication_example_runs_on_cpu(tmp_path, monkeypatch):
@@ -755,14 +840,13 @@ def test_cli_lubrication_example_runs_on_cpu(tmp_path, monkeypatch):
 def test_cli_writes_the_files_jax_writes(tmp_path, monkeypatch):
     """One Slip-Trapz run of each CLI on the same input writes the same set
     of files, the provenance stamp .git (`git rev-parse HEAD` in the
-    package's directory) included, with the same content. The JAX CLI's
-    .random_state (its PRNG key at the end of the run) is the one file the
-    port does not write yet (ROADMAP Queue 1, item 11)."""
+    package's directory) included, with the same content, and
+    .random_state (the JAX CLI's holds its PRNG key, the port's its
+    generators' states: the contents differ by design)."""
     out = _run_both(tmp_path, monkeypatch, "stochastic_Slip_Trapz")
     names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
-    assert "run.git" in names["jax"]
-    assert names["jax"] - names["torch"] == {"run.random_state"}
-    assert names["torch"] - names["jax"] == set()
+    assert "run.git" in names["jax"] and "run.random_state" in names["jax"]
+    assert names["torch"] == names["jax"]
     assert ((out["torch"] / "run.git").read_text()
             == (out["jax"] / "run.git").read_text())
 
@@ -807,7 +891,7 @@ def test_cli_mcmc_modes_write_what_jax_writes(tmp_path, monkeypatch, scheme,
              "n_estimate 500\n" + ("g 0.001\n" if rejection else ""))
     out = _run_both(tmp_path, monkeypatch, scheme, kT=1.0, extra=extra)
     names = {k: {p.name for p in d.iterdir()} for k, d in out.items()}
-    assert names["torch"] == names["jax"] - {"run.random_state"}
+    assert names["torch"] == names["jax"]
     if scheme == "MCMC":
         clones = sorted(n for n in names["torch"] if n.endswith(".clones")
                         and n.startswith("run.shell."))

@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels K1 (every coupling), K2 (open and periodic),
-K3, K4, K5, K6, K7, K8, L1 (every Laplace operator) and M1 (the MCMC pair
+"""Hand-written CUDA kernels K1 (every coupling, open and on the
+pseudo-periodic image boxes), K2 (open and periodic), K3 (open and on the
+image boxes), K4, K5, K6, K7, K8, L1 (every Laplace operator) and M1 (the MCMC pair
 energy, both mask flavours, batches, its small-configuration instance)
 against their plain PyTorch versions, on the card, and the 16-sphere
 lubrication step on K1 grand and K2 and an MCMC chain on M1 against the
@@ -274,6 +275,127 @@ def test_k1_never_takes_the_plain_path(cuda, monkeypatch):
             pk.pair_matvec(q, q_tgt, v, coupling=coupling, wall=True,
                            self_interaction=True)
     torch.cuda.synchronize()
+
+
+# the image boxes of K1 and K3: (wall, box in units of a) above the wall
+# periodic in x and y (9 boxes), and without it periodic on all three
+# axes (27 boxes); the scenes span about twice the box
+IMAGE_BOXES = [(True, (23.0, 19.0, 0.0)), (False, (23.0, 19.0, 21.0))]
+
+
+def _image_scene(n, seed=0, a=0.3):
+    """_scene spread over [0, 40] a in x and y (the boxes' images of every
+    pair in play), a coincident pair."""
+    rng = np.random.default_rng(seed)
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, 12, (n, 2))
+    r[:, 2] = rng.uniform(0.05, 4, n)
+    if n > 5:
+        r[5] = r[4]
+    q = r.copy()
+    q[:, 2] = np.maximum(q[:, 2], a)
+    return r, q / a
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("wall, L", IMAGE_BOXES)
+@pytest.mark.parametrize("n", [2, 300])
+@pytest.mark.parametrize("coupling, n_rhs", INSTANCES)
+def test_k1_image_boxes_match_plain(cuda, coupling, n_rhs, n, wall, L,
+                                    square, dtype, bound):
+    """Every K1 instance's image-box instance, on the symmetric sweep (the
+    square call) and the sliced sweep: two blobs (one tile: the self
+    blocks and each blob's own images in the diagonal pass) and 300
+    (ragged tiles, a coincident pair), against the
+    plain version in float64, counted in IMAGE_LAUNCHES and not in
+    LAUNCHES."""
+    r, q = _image_scene(n, seed=21)
+    q = q if wall else r / 0.3
+    boxes = (L, pk.box_offsets(L))
+    nc = pk.NCOMP[coupling]
+    v = np.random.default_rng(22).normal(size=(n, nc * n_rhs))
+    qt = torch.as_tensor(q, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling=coupling, wall=wall, self_interaction=True,
+              boxes=boxes)
+    sweep = "sym" if square else "sliced"
+    before, open_before = dict(pk.IMAGE_LAUNCHES), dict(pk.LAUNCHES)
+    got = pk.pair_matvec(qt, None if square else qt, vt, **kw)
+    torch.cuda.synchronize()
+    assert (pk.IMAGE_LAUNCHES[coupling, n_rhs, sweep]
+            == before[coupling, n_rhs, sweep] + 1)
+    assert pk.LAUNCHES == open_before
+    ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
+    scale = ref.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= bound * scale
+    # the images matter
+    plain_open = pk.pair_plain(qt.double(), qt.double(), vt.double(),
+                               **dict(kw, boxes=None))
+    assert (plain_open - ref).abs().max().item() > 1e-3 * scale
+
+
+@pytest.mark.parametrize("coupling, n_rhs", [("tt", 1), ("tt", 2),
+                                             ("grand", 1), ("tr", 2)])
+def test_k1_image_boxes_groups_and_repeat(cuda, coupling, n_rhs):
+    """17,000 blobs in an (L, L, 0) box: the symmetric sweep in groups of
+    several tiles and the sliced sweep in several slices, float32, against
+    the plain version in float64 on the first 256 targets, each twice
+    bit-identical."""
+    _, q = _image_scene(17000, seed=23, a=0.05)     # 240 a a side
+    L = (144.0, 144.0, 0.0)
+    boxes = (L, pk.box_offsets(L))
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pk.plan_groups(17000, n_sm)[1] > 1
+    qt = torch.as_tensor(q, dtype=torch.float32, device=cuda)
+    vt = torch.randn((17000, pk.NCOMP[coupling] * n_rhs), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(4))
+    kw = dict(coupling=coupling, wall=True, self_interaction=True,
+              boxes=boxes)
+    ref = pk.pair_plain(qt.double(), qt[:256].double(), vt.double(), **kw)
+    for q_tgt in (None, qt):
+        got = pk.pair_matvec(qt, q_tgt, vt, **kw)
+        assert torch.equal(got, pk.pair_matvec(qt, q_tgt, vt, **kw))
+        err = (got[:256].double() - ref).abs().max().item()
+        assert err <= 3e-6 * ref.abs().max().item()
+
+
+def test_k1_image_boxes_rejected(cuda):
+    """A box list without a periodic axis, with more than 27 boxes, or
+    without the home box first is refused before any launch."""
+    q = torch.rand((10, 3), device=cuda) + 1.0
+    v = torch.rand((10, 3), device=cuda)
+    for boxes in (((0.0, 0.0, 0.0), [(0, 0, 0)]),
+                  ((5.0, 5.0, 5.0), [(0, 0, 0)] * 28),
+                  ((5.0, 5.0, 0.0), [(1, 0, 0), (0, 0, 0)])):
+        with pytest.raises(ValueError, match="image boxes"):
+            pk.pair_matvec(q, None, v, coupling="tt", wall=True,
+                           self_interaction=True, boxes=boxes)
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("wall, L", IMAGE_BOXES)
+@pytest.mark.parametrize("n", [1, 100, 260])
+def test_k3_image_boxes_match_plain(cuda, n, wall, L, dtype, bound):
+    """K3's image-box instance against the plain builder with images in
+    float64: the self block's images (one blob: the tt self block and its
+    images are even in d, never zero), N below and off the
+    block edges, a coincident pair; counted apart from the open K3."""
+    r, _ = _image_scene(n, seed=24)
+    box = tuple(x * 0.3 for x in L)                  # physical units
+    rt = torch.as_tensor(r, dtype=dtype, device=cuda)
+    before = (mc.DENSE_IMAGE_LAUNCHES, dict(mc.DENSE_LAUNCHES))
+    got = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
+    torch.cuda.synchronize()
+    assert mc.DENSE_IMAGE_LAUNCHES == before[0] + 1
+    assert mc.DENSE_LAUNCHES == before[1]
+    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, wall=wall,
+                            periodic_length=box)
+    assert got.shape == ref.shape == (3 * n, 3 * n)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= bound * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
@@ -1461,7 +1583,7 @@ def _m1_term_bound(r, kw):
     relative error of ex2.approx and of r from rsqrt.approx) of each term
     times (2 + its exponent's magnitude ln 2), summed over the unordered
     pairs of r (1, n, 3) in float64."""
-    d = mc.min_image(r[0][:, None, :] - r[0][None, :, :],
+    d = pk.min_image(r[0][:, None, :] - r[0][None, :, :],
                      kw["periodic_length"])
     iu = torch.triu_indices(r.shape[1], r.shape[1], 1, device=r.device)
     dist = d.norm(dim=-1)[iu[0], iu[1]]

@@ -11,6 +11,7 @@ from rigidmultiblobswall_tpu.ops import forces as jforces
 from rigidmultiblobswall_tpu.ops import mobility_pallas as jmp
 from rigidmultiblobswall_tpu_torch.ops import forces as tforces
 from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as tmc
+from rigidmultiblobswall_tpu_torch.ops import pair_kernels as tpk
 
 from torch_parity import random_blobs, rel_err, to_np
 
@@ -97,14 +98,14 @@ def test_periodic_blob_blob_forces_match_jax(case):
     boxes = tmc.image_boxes(L, kw["debye_length"], kw["blob_radius"],
                             torch.float32)
     assert len(boxes) == (1 if case == "large_xy" else
-                          len(tmc.box_offsets(L)))
+                          len(tpk.box_offsets(L)))
 
 
 def _home_box_sweep(r, L, kw):
     """The plain sweep's home box alone: the minimum image, no other
     box."""
     n = r.shape[0]
-    d = tmc.min_image(r[:, None, :] - r[None, :, :], L)
+    d = tpk.min_image(r[:, None, :] - r[None, :, :], L)
     r2 = torch.sum(d * d, -1)
     skip = torch.eye(n, dtype=torch.bool)
     rn = torch.sqrt(torch.where(skip | (r2 == 0), 1.0, r2))
@@ -176,7 +177,7 @@ def _forces_of_images(d0, L, debye_length):
     two_a = 2.0 * KW["blob_radius"]
     self_pair = torch.eye(d0.shape[0], dtype=torch.bool)
     acc = torch.zeros_like(d0[:, 0])
-    for box in tmc.box_offsets(L):
+    for box in tpk.box_offsets(L):
         home = box == (0, 0, 0)
         skip = self_pair if home else torch.zeros_like(self_pair)
         d = d0 if home else d0 + torch.as_tensor(
@@ -206,7 +207,7 @@ def test_one_box_minimum_image_at_half_a_box(dtype):
         r = _half_box_scene(L, dtype)
         d = r[:, None, :] - r[None, :, :]
         picked = _one_box_image(d, L)
-        assert not torch.equal(picked, tmc.min_image(d, L))
+        assert not torch.equal(picked, tpk.min_image(d, L))
         kw = dict(KW, debye_length=b, periodic_length=L)
         boxes = tmc.image_boxes(L, b, KW["blob_radius"], dtype)
         by_division = tmc.blob_blob_forces_plain(r, **kw)
@@ -217,6 +218,6 @@ def test_one_box_minimum_image_at_half_a_box(dtype):
             assert torch.equal(by_reciprocal, by_division)
         else:
             assert len(boxes) == 9
-            assert torch.equal(_forces_of_images(tmc.min_image(d, L), L, b),
+            assert torch.equal(_forces_of_images(tpk.min_image(d, L), L, b),
                                by_division)
             assert not torch.allclose(by_reciprocal, by_division)

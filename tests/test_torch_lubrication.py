@@ -467,9 +467,17 @@ def test_from_reference_and_refusals():
         assert torch.equal(got, torch.as_tensor(getattr(jsol.tables,
                                                         f.name)))
     assert tsol.mob_factor == pytest.approx(jsol.mob_factor, rel=1e-15)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tlub.LubSolver(num_bodies=4, periodic_length=(10.0, 10.0, 0.0),
-                       device="cpu")
+    # a periodic box (formerly refused) carries across, and its Delta_R
+    # blocks match JAX's on the same positions (a pair across the x edge)
+    jbox, tbox = _solvers(4, periodic_length=(10.0, 10.0, 0.0))
+    assert tbox.periodic_length == jbox.periodic_length
+    pos = np.array([[0.2, 0.0, 1.2], [9.6, 0.3, 1.3], [4.0, 4.0, 1.1],
+                    [6.1, 4.2, 1.25]])
+    jb = jlub.compute_delta_r_blocks(jbox, jnp.asarray(pos))
+    tb = tlub.compute_delta_r_blocks(tbox, torch.as_tensor(pos))
+    assert _rel(tb.offdiag, jb.offdiag) <= TOL
+    assert _rel(tb.diag, jb.diag) <= TOL
+    assert float(tb.offdiag[0, 1].abs().max()) > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tlub.LubSolver(num_bodies=4)

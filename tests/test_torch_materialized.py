@@ -156,8 +156,14 @@ def test_engine_choice_follows_the_budget(monkeypatch):
 
 
 def test_plain_builder_refuses_images():
+    """free_surface stays refused; the image boxes (formerly refused here)
+    give JAX's component planes on the same inputs."""
     r = torch.as_tensor(_blobs(20, seed=1))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmob.dense_mobility_tiled(r, ETA, A, periodic_length=(8.0, 8.0, 0.0))
+    box = (8.0, 8.0, 0.0)
+    got = tmob.dense_mobility_tiled(r, ETA, A, periodic_length=box)
+    planes = np.asarray(jmob.dense_mobility_tiled(
+        jnp.asarray(r.numpy()), ETA, A, periodic_length=box))
+    ref = planes.transpose(2, 0, 3, 1).reshape(60, 60)
+    assert np.abs(to_np(got) - ref).max() <= 1e-12 * np.abs(ref).max()
     with pytest.raises(NotImplementedError, match="item 4"):
         tmob.dense_mobility_tiled(r, ETA, A, domain="free_surface")

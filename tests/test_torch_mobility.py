@@ -110,18 +110,32 @@ def test_dense_mobility_matches_jax(domain):
 
 
 def test_unported_couplings_and_domains_raise():
+    """in_plane and free_surface are refused; the pseudo-periodic image
+    boxes (formerly refused here) match the JAX package on the same
+    inputs."""
     r = torch.zeros((2, 3), dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         tmob.pairwise_matvec(r, r, r, 1.0, 1.0, coupling="tr",
                              domain="in_plane")
     with pytest.raises(NotImplementedError):
         tmob.pairwise_matvec(r, r, r, 1.0, 1.0, domain="free_surface")
-    with pytest.raises(NotImplementedError):
-        tmob.pairwise_matvec(r, r, r, 1.0, 1.0,
-                             periodic_length=(5.0, 5.0, 0.0))
-    with pytest.raises(NotImplementedError):
-        tmob.grand_mobility_matvec(r, r, r, 1.0, 1.0,
-                                   periodic_length=(5.0, 5.0, 0.0))
+    # the two coincident blobs at z = 0: above the wall fully damped (zero,
+    # as in JAX), without the wall their images and self blocks
+    rj = jnp.zeros((2, 3))
+    ones, onesj = torch.ones_like(r), jnp.ones((2, 3))
+    for domain in ("single_wall", "no_wall"):
+        box = dict(periodic_length=(5.0, 5.0, 0.0), domain=domain)
+        ref = np.asarray(jmob.pairwise_matvec(rj, rj, onesj, 1.0, 1.0,
+                                              method="generic", **box))
+        got = tmob.pairwise_matvec(r, r, ones, 1.0, 1.0, **box)
+        ref_u, ref_w = (np.asarray(x) for x in jmob.grand_mobility_matvec(
+            rj, onesj, onesj, 1.0, 1.0, **box))
+        u, w = tmob.grand_mobility_matvec(r, ones, ones, 1.0, 1.0, **box)
+        for t, want in ((got, ref), (u, ref_u), (w, ref_w)):
+            if domain == "single_wall":
+                assert not want.any() and not t.any()
+            else:
+                assert rel_err(t, want) < 1e-12
     with pytest.raises(ValueError):
         tmob.pairwise_matvec(r, r, r, 1.0, 1.0, coupling="grand")
 

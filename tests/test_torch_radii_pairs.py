@@ -31,6 +31,7 @@ from rigidmultiblobswall_tpu_torch.ops import cell_kernels as tck
 from rigidmultiblobswall_tpu_torch.ops import cells as tcells
 from rigidmultiblobswall_tpu_torch.ops import ewald as tew
 from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as tmc
+from rigidmultiblobswall_tpu_torch.ops import pair_kernels as tpk
 
 from torch_parity import to_np
 
@@ -293,7 +294,7 @@ def test_m1_small_lane_sums_match_plain(n, box, coincident):
     got = np.zeros(r.shape[0])
     for p in range(r.shape[0]):
         rt = torch.tensor(r[p])
-        dist = to_np(tmc.min_image(rt[:, None] - rt[None], box).norm(dim=-1))
+        dist = to_np(tpk.min_image(rt[:, None] - rt[None], box).norm(dim=-1))
         lanes = np.zeros(LANES)
         for lane, prs in enumerate(_small_pairs(n)):
             for i, j in prs:

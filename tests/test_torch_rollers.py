@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from rigidmultiblobswall_tpu.models import rollers as jrol
+from rigidmultiblobswall_tpu.ops import mobility as jmob
 from rigidmultiblobswall_tpu_torch.models import rollers as trol
 from rigidmultiblobswall_tpu_torch.ops import mobility as tmob
 
@@ -210,10 +211,25 @@ def test_from_reference_and_refusals():
     with pytest.raises(ValueError, match="spectral_wall_height"):
         trol._roller_spectral_params(dataclasses.replace(
             tspec, spectral_wall_height=0.0))
-    # the direct engine's periodic image boxes are not ported
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trol.RollerSuspension(num_rollers=N,
-                              periodic_length=(8.0, 8.0, 0.0))
+    # the direct engine's periodic image boxes (formerly refused) carry
+    # across, and its grand product matches JAX's on the same inputs
+    jbox = jrol.RollerSuspension(num_rollers=N,
+                                 periodic_length=(8.0, 8.0, 0.0))
+    tbox = trol.RollerSuspension(num_rollers=N,
+                                 periodic_length=(8.0, 8.0, 0.0))
+    assert tbox == trol.from_reference(jbox)
+    r = _positions(seed=3)
+    f, t = np.random.default_rng(4).normal(size=(2, N, 3))
+    u_ref, w_ref = jmob.grand_mobility_matvec(
+        jnp.asarray(r), jnp.asarray(f), jnp.asarray(t), jbox.eta,
+        jbox.blob_radius, **jbox.mobility_kwargs)
+    u, w = tmob.grand_mobility_matvec(
+        torch.as_tensor(r), torch.as_tensor(f), torch.as_tensor(t),
+        tbox.eta, tbox.blob_radius, **tbox.mobility_kwargs)
+    np.testing.assert_allclose(to_np(u), np.asarray(u_ref), rtol=0,
+                               atol=1e-12 * np.abs(np.asarray(u_ref)).max())
+    np.testing.assert_allclose(to_np(w), np.asarray(w_ref), rtol=0,
+                               atol=1e-12 * np.abs(np.asarray(w_ref)).max())
     with pytest.raises(ValueError):
         trol.make_stepper(tsus, "no_such_scheme", DT)
 
