@@ -272,7 +272,8 @@ is non-zero and no result line is printed):
      box of three radius groups, with its build and product timed.
  20. the direct engine's pseudo-periodic image boxes (ROADMAP item 4) at
      full width, float32, each path on K1's and K3's image-box instances
-     (csrc/pair_blocks.cuh ImageBoxes, csrc/dense_tt.cu), K2's periodic
+     (csrc/pair_blocks.cuh, csrc/dense_tt.cu; every box of phase 20 takes
+     the in-plane far policy, PlaneBoxes), K2's periodic
      instances and M1's minimum image, no open K1 or K3 launch:
      20a multibody-49k-pseudo-periodic (phase 6's scene in a (25.6, 25.6,
      0) box, the lattice's own period; forward Euler and Slip-Trapz,
@@ -289,8 +290,13 @@ is non-zero and no result line is printed):
      version in float64 at the path's shape (the first 1024 target rows;
      K3 the whole matrix) within 3e-6 x max|ref|, twice bit-identical,
      with its time, the plain version's at full size, its bound (each
-     unordered pair's boxes condensed once) and its registers; the sliced
-     sweep's instance at 20a's sources in the log.
+     unordered pair's boxes condensed once) and its registers, K3's lower
+     triangle the exact transpose of its upper; the sliced sweep's
+     instance at 20a's sources in the log. Phase 3 holds the same
+     instances at 300 blobs under each image policy (the in-plane far one
+     above the wall, at its margin and without the wall; the general one
+     at L/a = 3 and periodic in z), both sweeps, K3 included, and checks
+     the open K3 at 12,288 blobs its exact transpose too.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -2704,6 +2710,121 @@ def phase_dense_kernels_small(mc):
                       "strictly-lower tile")
 
 
+# the image policies phase 3 holds K1's and K3's image instances to
+# (ops/pair_kernels.py plane_far): (wall, box in units of a, whether the
+# in-plane far policy takes it)
+IMAGE_POLICIES = {"in-plane above the wall": (True, (23.0, 19.0, 0.0), True),
+                  "in-plane at its margin": (True, (4.05, 4.2, 0.0), True),
+                  "in-plane, no wall": (False, (23.0, 19.0, 0.0), True),
+                  "general, L/a = 3": (True, (3.0, 3.0, 0.0), False),
+                  "general, periodic in z": (False, (23.0, 19.0, 21.0),
+                                             False)}
+# the couplings held under every policy: the diagonal ones (box sums) and
+# the cross and grand ones (per-box applies)
+IMAGE_COUPLINGS = (("tt", 1), ("tt", 2), ("rr", 1), ("rr", 2), ("tr", 1),
+                   ("tr", 2), ("rt", 1), ("grand", 1))
+
+
+def image_scene(n, L, a=0.3, seed=12):
+    """n blobs over 40 a in x and y with heights to 4 (some below a), a
+    coincident pair and pairs at the half-box tie on x and on y (in
+    units of a): (r, q) with q the shifted heights in units of a."""
+    rng = np.random.default_rng(seed)
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, 12, (n, 2))
+    r[:, 2] = rng.uniform(0.05, 4, n)
+    r[5] = r[4]
+    if L[0] > 0:
+        r[1, 0] = r[0, 0] + 0.5 * L[0] * a
+        r[2, 1] = r[0, 1] - 0.5 * L[1] * a
+    q = r.copy()
+    q[:, 2] = np.maximum(q[:, 2], a)
+    return r, q / a
+
+
+def phase_image_kernels_small(pk, mc):
+    """Phase 3, K1's and K3's image instances at 300 blobs under each
+    policy of IMAGE_POLICIES (the in-plane far one, PlaneBoxes, and the
+    general one, ImageBoxes): K1 tt, rr and tr with B = 1 and 2, rt and
+    grand under every policy, on the symmetric sweep and the sliced
+    sweep; K3 with images and open. float32 against the plain version in
+    float64 within 3e-6 x max|ref| (float64 K1 at 1e-12), twice
+    bit-identical; K3's lower triangle the exact transpose of its
+    upper."""
+    dev = torch.device(DEVICE)
+    n = 300
+    worst = 0.0
+    for policy, (wall, L, plane) in IMAGE_POLICIES.items():
+        boxes = (L, pk.box_offsets(L))
+        check(pk.plane_far(boxes) == plane, f"plane_far({L})")
+        r, q = image_scene(n, L)
+        q = q if wall else r / 0.3
+        errs = []
+        for coupling, n_rhs in IMAGE_COUPLINGS:
+            v = np.random.default_rng(13).normal(
+                size=(n, pk.NCOMP[coupling] * n_rhs))
+            kw = dict(coupling=coupling, wall=wall, self_interaction=True,
+                      boxes=boxes)
+            for dtype, bound in ((torch.float32, 3e-6),
+                                 (torch.float64, 1e-12)):
+                qt = torch.as_tensor(q, dtype=dtype, device=dev)
+                vt = torch.as_tensor(v, dtype=dtype, device=dev)
+                ref = pk.pair_plain(qt.double(), qt.double(), vt.double(),
+                                    **kw)
+                for q_tgt in (None, qt):
+                    got = pk.pair_matvec(qt, q_tgt, vt, **kw)
+                    same = torch.equal(got, pk.pair_matvec(qt, q_tgt, vt,
+                                                           **kw))
+                    torch.cuda.synchronize()
+                    rel = ((got.double() - ref).abs().max()
+                           / ref.abs().max()).item()
+                    sweep = "sym" if q_tgt is None else "sliced"
+                    errs.append(f"{coupling} B={n_rhs} {sweep}"
+                                f"{'' if dtype == torch.float32 else ' f64'}"
+                                f" {rel:.2e}")
+                    check(rel <= bound and same, f"K1 {coupling} images "
+                          f"B={n_rhs} {sweep} {dtype} under {policy}: "
+                          f"{rel:.3e}, repeat bit-identical {same}")
+                    if dtype == torch.float32:
+                        worst = max(worst, rel)
+        rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
+        box = tuple(x * 0.3 for x in L)
+        m = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
+        same = torch.equal(m, mc.dense_tt(rt, 0.8, 0.3, wall=wall,
+                                          periodic_length=box))
+        transposed = torch.equal(m, m.T)
+        ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, wall=wall,
+                                periodic_length=box)
+        e3 = ((m.double() - ref).abs().max() / ref.abs().max()).item()
+        geom = "PlaneBoxes" if plane else "ImageBoxes"
+        log(f"K1/K3 images {n} blobs, {policy} {L} ({geom}), "
+            f"f32 unless marked, vs plain f64 / max|ref|: K1 "
+            f"{', '.join(errs)}; K3 {e3:.2e}, its lower triangle the exact "
+            f"transpose {transposed}, repeat bit-identical {same}")
+        check(e3 <= 3e-6 and transposed and same, f"K3 images under "
+              f"{policy}: {e3:.3e}, transpose {transposed}, repeat {same}")
+        worst = max(worst, e3)
+    for wall in (True, False):
+        r, _ = image_scene(n, (0.0, 0.0, 0.0))
+        rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
+        m = mc.dense_tt(rt, 0.8, 0.3, wall=wall)
+        check(torch.equal(m, m.T), f"open K3 wall={wall}: not its exact "
+              "transpose")
+    log(f"K1/K3 image instances at {n} blobs: worst float32 error "
+        f"{worst:.3e} of max|ref| (bound 3e-6); open K3 its exact "
+        "transpose")
+
+
+def exact_transpose(m, chunk=3072):
+    """Whether the (3N, 3N) matrix m equals its transpose bit for bit,
+    compared by row blocks (no copy of the matrix)."""
+    for r0 in range(0, m.shape[0], chunk):
+        r1 = min(r0 + chunk, m.shape[0])
+        if not torch.equal(m[r0:r1], m[:, r0:r1].T):
+            return False
+    return True
+
+
 def phase_dense_kernels(pk, mc, mob, kin, make_state):
     """Phase 3 at the materialized path's shape: 12,288 blobs of the
     1024-shell lattice, float32. K3 against its plain version in float64,
@@ -2727,6 +2848,7 @@ def phase_dense_kernels(pk, mc, mob, kin, make_state):
     ref = mc.dense_tt_plain(r.double(), eta, a, wall=True)
     err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
     del ref
+    transposed = exact_transpose(m)
     ms = cuda_ms(lambda: mc.dense_tt(r, eta, a, wall=True), 5)
     plain_ms = cuda_ms(lambda: mc.dense_tt_plain(r, eta, a, wall=True), 1,
                        warmup=False)
@@ -2736,11 +2858,14 @@ def phase_dense_kernels(pk, mc, mob, kin, make_state):
                          **bound_record(4 * (n3 * n3 + n3),
                                         n * (n + 1) // 2 * K3_PAIR_FLOPS))
     log(f"K3 {n} blobs f32 vs plain f64: max err {err:.3e}, / max|ref| = "
-        f"{err / scale:.3e} (bound 3e-6); kernel {ms:.3f} ms, plain f32 "
+        f"{err / scale:.3e} (bound 3e-6); lower triangle the exact "
+        f"transpose {transposed}; kernel {ms:.3f} ms, plain f32 "
         f"{plain_ms:.1f} ms, bound {records['K3']['bound_ms']:.3f} ms "
-        f"({records['K3']['bound_by']}); matrix {m.numel() * 4 / 2**30:.2f} "
-        f"GiB")
+        f"({records['K3']['bound_by']}, "
+        f"{records['K3']['bound_ms'] / ms:.1%} of it); matrix "
+        f"{m.numel() * 4 / 2**30:.2f} GiB")
     check(err <= 3e-6 * scale, f"K3 disagrees at {n} blobs")
+    check(transposed, f"K3 at {n} blobs: not its exact transpose")
 
     g = torch.Generator(device=dev).manual_seed(6)
     v = torch.randn((n, 3), generator=g, device=dev)
@@ -5871,6 +5996,15 @@ IMG_BOUND = 3e-6
 # two float32 operations each (the H100's float64 rate is half its float32
 # one, 34 TFLOP/s)
 K1_IMAGE_FLOPS = 8
+# the diagonal couplings' box sum (csrc/pair_blocks.cuh BlockSum): adding a
+# box's condensed block (two multiplies, two adds, seven FMAs), closing the
+# sum once a pair (two adds) and applying the closed 3 x 3 block (nine FMAs)
+# to one right-hand side, once each way. A pair's boxes summed so need
+# fewer operations than applying each box both ways from B = 2 on: the
+# recount beside the bound above (the smaller of the two ways)
+K1_BOX_SUM_FLOPS = 18
+K1_BOX_CLOSE_FLOPS = 2
+K1_BLOCK_APPLY_FLOPS = 18
 
 
 def xy_box(L):
@@ -5911,15 +6045,26 @@ def img_k1_record(pk, coupling, q, v, L, sub, what, report):
     nbytes = 4 * n * (3 + 2 * nc * n_rhs)
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                **bound_record(nbytes, flops))
+    if coupling in ("tt", "rr"):
+        # the recount: the same function with a pair's boxes summed first
+        summed = (n_boxes * (K1_PAIR_FLOPS[coupling] - apply
+                             + K1_BOX_SUM_FLOPS) + K1_BOX_CLOSE_FLOPS
+                  + 2 * K1_BLOCK_APPLY_FLOPS * n_rhs) / 2
+        rec["recount_ms"] = bound_record(nbytes, n * n * (
+            min(n_boxes * per_pair, summed)
+            + K1_IMAGE_FLOPS * periodic / 2))["bound_ms"]
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     groups, tiles = pk.plan_groups(n, n_sm)
+    geom = "PlaneBoxes" if pk.plane_far(boxes) else "ImageBoxes"
     regs = instance_registers(
         report, "sym_kernel<float",
         {"tt": "DiagCoupling<false>", "rr": "DiagCoupling<true>",
          "tr": "CrossCoupling<true", "rt": "CrossCoupling<false",
-         "grand": "Grand"}[coupling], f", {n_rhs}, true, pairk::ImageBoxes")
+         "grand": "Grand"}[coupling], f", {n_rhs}, true, pairk::{geom}")
+    rec["registers"] = regs
     log(f"K1 {coupling} images {what} B={n_rhs} f32, {n_boxes} boxes of "
-        f"{L}, the symmetric sweep ({groups} groups of {tiles} tiles): first "
+        f"{L} ({geom}), the symmetric sweep ({groups} groups of {tiles} "
+        f"tiles): first "
         f"{sub} target rows vs plain f64 max err {err:.3e}, / max|ref| = "
         f"{rel:.3e} (bound {IMG_BOUND:.0e}); repeat bit-identical {same}; "
         f"kernel {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
@@ -6121,7 +6266,11 @@ def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
     ref = mc.dense_tt_plain(r.double(), eta, A_BENCH, wall=True,
                             periodic_length=box)
     err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
-    del ref, m
+    del ref
+    transposed = exact_transpose(m)
+    same = torch.equal(m, mc.dense_tt(r, eta, A_BENCH, wall=True,
+                                      periodic_length=box))
+    del m
     ms = cuda_ms(lambda: mc.dense_tt(r, eta, A_BENCH, wall=True,
                                      periodic_length=box), 3)
     plain_ms = cuda_ms(lambda: mc.dense_tt_plain(
@@ -6134,15 +6283,21 @@ def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
                                         n * (n + 1) // 2 * (
                                             n_boxes * K3_PAIR_FLOPS
                                             + 2 * K1_IMAGE_FLOPS)))
-    regs = instance_registers(report, "dense_tt_kernel<float, true",
-                              "ImageBoxes")
-    log(f"K3 images {n} blobs in {box} f32 vs plain f64: max err "
+    geom = ("PlaneBoxes" if pk.plane_far(pk.image_boxes(box, A_BENCH))
+            else "ImageBoxes")
+    regs = instance_registers(report, "dense_tt_kernel<float, true", geom)
+    records["K3"]["registers"] = regs
+    log(f"K3 images {n} blobs in {box} ({geom}) f32 vs plain f64: max err "
         f"{err:.3e}, / max|ref| = {err / scale:.3e} (bound "
-        f"{IMG_BOUND:.0e}); kernel {ms:.3f} ms, bound "
+        f"{IMG_BOUND:.0e}); lower triangle the exact transpose "
+        f"{transposed}, repeat bit-identical {same}; kernel {ms:.3f} ms, "
+        f"bound "
         f"{records['K3']['bound_ms']:.3f} ms ({records['K3']['bound_by']}, "
         f"{records['K3']['bound_ms'] / ms:.1%} of it), plain f32 "
         f"{plain_ms:.1f} ms; registers {regs}")
     check(err <= IMG_BOUND * scale, f"K3 images disagree at {n} blobs")
+    check(transposed and same, f"K3 images at {n} blobs: exact transpose "
+          f"{transposed}, repeat bit-identical {same}")
     q = (mob.shift_heights(r, A_BENCH) / A_BENCH).contiguous()
     v = torch.randn((n, 3), generator=g, device=dev)
     records["tt_12k"] = img_k1_record(
@@ -6260,6 +6415,16 @@ def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
 
     # 20f: the .random_state round trip through the CLI on the card
     phase_random_state_cli(L_PSEUDO)
+    # each instance's time, share of its bound and registers (kept out of
+    # the kernel JSON line's records)
+    for key, rec in records.items():
+        recount = rec.pop("recount_ms", None)
+        recount = ("" if recount is None else f"; recounted with a pair's "
+                   f"boxes summed {recount:.3f} ms, {recount / rec['ms']:.1%}")
+        log(f"phase 20 {key}: {rec['ms']:.3f} ms, "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of its bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}){recount}; "
+            f"registers {rec.pop('registers')}")
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
     return records, launches
 
@@ -6357,6 +6522,7 @@ def main():
     phase_wall_kernels(ck)
     phase_rot_kernels(ck, mc)
     phase_dense_kernels_small(mc)
+    phase_image_kernels_small(pk, mc)
     records.update(phase_dense_kernels(pk, mc, mob, kin, make_state))
     art_records = phase_articulated_kernels(pk, mc, mob, kin, make_state)
     l1_records = phase_l1_kernels()

@@ -51,7 +51,8 @@
 //   near and self forms sit in one rarely entered branch;
 // - __launch_bounds__ asks for 8 resident blocks an SM in float32 (Shape
 //   below): 64 registers a thread at most (ptxas on sm_90a, PERF.md §6
-//   lists each instance's count). float64 is not capped.
+//   lists each instance's count); the image-box instances 6, 80
+//   registers. float64 is not capped.
 // Ragged edges are masked by index; there is no padding of the inputs.
 //
 // Near/far switch: the near forms for r <= 2 (the JAX package switches
@@ -65,25 +66,38 @@
 // Image-box instances (the pseudo-periodic boxes of the JAX package's
 // ops/mobility.py pairwise_matvec with a periodic_length, XLA there): both
 // sweeps take a pair geometry policy, OpenBox for the open domain and
-// ImageBoxes for a box of lengths L (in blob radii, 0 on an open axis).
-// ImageBoxes takes d = r_t - r_s to the minimum image in the truncation
-// form d - trunc(d/L + sign(d)/2) L, in float64, in the home box, then
-// condenses and applies the block of every box d + b L of the wrapper's
-// list (b in {-1, 0, 1} on each periodic axis, (0, 0, 0) first, at most
-// 27): the offset is added to the home box's d, which the minimum image
-// keeps within L/2, so d + b L rounds once from it. No box is pruned (the
-// blocks decay as 1/r). The self pair is the self block in the home box only; in every
+// ImageBoxes or PlaneBoxes for a box of lengths L (in blob radii, 0 on an
+// open axis). Each takes d = r_t - r_s to the minimum image in the
+// truncation form d - trunc(d/L + sign(d)/2) L, in float64, in the home
+// box, then condenses the block of every box d + b L of the wrapper's list
+// (b in {-1, 0, 1} on each periodic axis, (0, 0, 0) first, at most 27): the
+// offset is added to the home box's d, which the minimum image keeps within
+// L/2, so d + b L rounds once from it. No box is pruned (the blocks decay
+// as 1/r). The self pair is the self block in the home box only; in every
 // other box a blob's own image is an ordinary pair at d = b L with both
 // heights z_i, whose blocks do not cancel, so the diagonal tile's directed
-// pass adds them. The symmetric sweep applies each box's condensed block
-// both ways, as in the open domain: min_image is odd in d and the box list
-// is symmetric under b -> -b, so pair (j, i) in box -b has the displacement
+// pass adds them. The symmetric sweep applies a pair's box sum both ways,
+// as in the open domain: min_image is odd in d and the box list is
+// symmetric under b -> -b, so pair (j, i) in box -b has the displacement
 // -(d + b L) and its block M(-(d + b L); z_j, z_i) = M(d + b L; z_i, z_j)^T
 // (the reciprocity of every single block that the open sweep rests on).
-// Applying each box both ways keeps the condensed scalars of the open
-// instance (no 3x3 sum a pair); a pair's boxes are summed apart and join
-// the running sums once (visit_sum), so the float32 rounding of a row's
-// sum does not grow with the number of boxes.
+// - PlaneBoxes, chosen on the host (with_boxes; ops/pair_kernels.py
+//   plane_far mirrors the choice for the launch plan) for the 3 x 3 list of
+//   a box periodic in x and y and open in z with both L above
+//   kPlaneFarMin: z is never imaged, so dz, Rz and the heights' products
+//   are the same in every box, and the in-plane offsets and their squares
+//   are formed once a column and a row; the boxes off the home box lie at r
+//   >= L/2 > 2 and take the far form alone, their near, zero and self
+//   predicates compiled out. ImageBoxes takes every other list (a box
+//   periodic in z, L <= kPlaneFarMin, one periodic axis).
+// - The diagonal couplings (tt, rr) sum a pair's boxes into one 3 x 3 block
+//   (BlockSum, ~10 multiply-adds a box) and apply it once to the target and
+//   once transposed to the source, 9 B multiply-adds each way, in place of
+//   the 2 x 10 B of applying each box both ways. The cross and grand
+//   couplings apply each box both ways into a sum of the pair's own (a box
+//   sum of grand's four blocks would hold 36 sums). Either way a pair's
+//   boxes are summed apart and join the running sums once, so the float32
+//   rounding of a row's sum does not grow with the number of boxes.
 
 #pragma once
 
@@ -112,20 +126,22 @@ struct Pair {
   T zt, zs, Rz, invR;     // wall image: Rz = zt + zs, invR = 1/|R|
 };
 
-// the pair of displacement (dx, dy, dz) = r_t - r_s (of an image box, where
-// it is not the difference of the heights) at the heights zt and zs
+// the pair of displacement (dx, dy, dz) = r_t - r_s at the heights zt and
+// zs from its squared in-plane distance xy2; with `far` (a constant where
+// the caller's loop unrolls: PlaneBoxes' boxes off the home box) the pair
+// is known to lie at r > 2, and its self, zero and near flags are the
+// constant false that folds the couplings' near branches away
 template <typename T, bool WALL>
-__device__ __forceinline__ Pair<T> make_pair_d(T dx, T dy, T dz, T zt, T zs,
-                                               bool self) {
+__device__ __forceinline__ Pair<T> box_pair(T dx, T dy, T xy2, T dz, T zt,
+                                            T zs, bool self, bool far) {
   Pair<T> p;
   p.dx = dx;
   p.dy = dy;
   p.dz = dz;
-  const T xy2 = p.dx * p.dx + p.dy * p.dy;
-  p.r2 = xy2 + p.dz * p.dz;
-  p.self = self;
-  p.zero = self || (p.r2 == T(0));
-  p.near = !(p.r2 > T(4));
+  p.r2 = xy2 + dz * dz;
+  p.self = !far && self;
+  p.zero = !far && (self || (p.r2 == T(0)));
+  p.near = !far && !(p.r2 > T(4));
   p.invr = rsqrt_t(p.r2);
   p.zt = zt;
   p.zs = zs;
@@ -134,6 +150,15 @@ __device__ __forceinline__ Pair<T> make_pair_d(T dx, T dy, T dz, T zt, T zs,
     p.invR = rsqrt_t(p.Rz * p.Rz + xy2);
   }
   return p;
+}
+
+// the pair of displacement (dx, dy, dz) = r_t - r_s (of an image box, where
+// it is not the difference of the heights) at the heights zt and zs
+template <typename T, bool WALL>
+__device__ __forceinline__ Pair<T> make_pair_d(T dx, T dy, T dz, T zt, T zs,
+                                               bool self) {
+  return box_pair<T, WALL>(dx, dy, dx * dx + dy * dy, dz, zt, zs, self,
+                           false);
 }
 
 template <typename T, bool WALL>
@@ -149,10 +174,7 @@ __device__ __forceinline__ Pair<T> make_pair(T xt, T yt, T zt, T xs, T ys,
 template <typename T>
 struct OpenBox {
   using Stage = T;
-  // resident blocks an SM the float32 sweeps ask for (Shape), and whether
-  // a pair's terms are summed apart before they join the running sums
-  static constexpr int kMinBlocksF32 = 8;
-  static constexpr bool kPairSums = false;
+  static constexpr bool kImages = false;
   template <bool WALL, typename F>
   __device__ __forceinline__ void visit(T xt, T yt, T zt, T xs, T ys, T zs,
                                         bool self, F&& f) const {
@@ -160,43 +182,44 @@ struct OpenBox {
   }
 };
 
+// d - trunc(d/L + sign(d)/2) L on a periodic axis (the JAX package's
+// _min_image), in float64 whatever the instance's type: d = x_t - x_s is
+// exact there for float32 inputs, so the float32 instances pick the image
+// that the float64 plain version picks from the same inputs. (Formed in
+// float32, d/L would round across the half-box of some pairs and pick the
+// other image; the box sum jumps there, by the cross and wall blocks' odd
+// parts at 1.5 L, since the list holds b in {-1, 0, 1} only.) The quotient
+// is d (1/L) with 1/L rounded once on the host, against the plain
+// version's d / L: the two choices differ only for d/L within a float64
+// ulp of a half-integer. The image is odd in d, ties included.
+__device__ __forceinline__ double min_image(double d, double L,
+                                            double inv_L) {
+  const double half = d > 0.0 ? 0.5 : (d < 0.0 ? -0.5 : 0.0);
+  return d - trunc(d * inv_L + half) * L;
+}
+
 // ImageBoxes: the minimum image in the home box, then one pair a box of
-// the list, the self flag in the home box (off[0] = 0) only. The image is
-// chosen in float64 whatever T is: d = x_t - x_s is exact there for float32
-// inputs, so the float32 instances pick the image that the float64 plain
-// version picks from the same inputs. (Formed in float32, d/L would round
-// across the half-box of some pairs and pick the other image; the box sum
-// jumps there, by the cross and wall blocks' odd parts at 1.5 L, since
-// the list holds b in {-1, 0, 1} only.) The quotient is d (1/L) with 1/L
-// rounded once on the host, against the plain version's d / L: the two
-// choices differ only for d/L within a float64 ulp of a half-integer.
+// the list, the self flag in the home box (off[0] = 0) only.
 constexpr int kMaxBoxes = 27;
 template <typename T>
 struct ImageBoxes {
   using Stage = double;
-  // a pair's boxes are summed apart first (the sweeps' pair sums), so a
-  // running sum takes one term a pair, as in the open domain, not one a
-  // box: 27 boxes a pair in a long float32 sum cost ~sqrt(27) in rounding.
-  // The pair sums take NV (2 NV on the symmetric sweep) more registers, so
-  // the float32 sweeps ask for 6 resident blocks an SM (80 registers)
-  static constexpr int kMinBlocksF32 = 6;
-  static constexpr bool kPairSums = true;
+  static constexpr bool kImages = true;
   double L[3];           // box lengths / a, 0 on an open axis
   double inv_L[3];       // 1 / L, 0 on an open axis
   int n;                 // boxes in the list, 1..kMaxBoxes
   T off[kMaxBoxes][3];   // b L / a, the home box first
-  // d - trunc(d/L + sign(d)/2) L on a periodic axis (the JAX package's
-  // _min_image), d itself on an open one
+  // the minimum image on a periodic axis, d itself on an open one
   template <typename U>
   __device__ __forceinline__ T image(U xt, U xs, int a) const {
     if (!(L[a] > 0.0)) return T(xt) - T(xs);
-    const double d = static_cast<double>(xt) - static_cast<double>(xs);
-    const double half = d > 0.0 ? 0.5 : (d < 0.0 ? -0.5 : 0.0);
-    const double k = trunc(d * inv_L[a] + half);
-    return static_cast<T>(d - k * L[a]);
+    return static_cast<T>(min_image(static_cast<double>(xt) -
+                                        static_cast<double>(xs),
+                                    L[a], inv_L[a]));
   }
-  // positions of type U: T, or float64 where the caller forms them (K3)
-  template <bool WALL, typename U, typename F>
+  // positions of type U: T, or float64 where the caller forms them (K3);
+  // the boxes run in a loop whatever UNROLL asks
+  template <bool WALL, bool UNROLL = true, typename U, typename F>
   __device__ __forceinline__ void visit(U xt, U yt, U zt, U xs, U ys, U zs,
                                         bool self, F&& f) const {
     const T dx = image(xt, xs, 0);
@@ -206,6 +229,69 @@ struct ImageBoxes {
     for (int b = 0; b < n; ++b)
       f(make_pair_d<T, WALL>(dx + off[b][0], dy + off[b][1], dz + off[b][2],
                              T(zt), T(zs), self && b == 0));
+  }
+};
+
+// PlaneBoxes: the nine boxes of L = (Lx, Ly, 0) in box_offsets' order,
+// each L above kPlaneFarMin blob radii (plane_boxes checks both). The minimum
+// image keeps |dx| <= Lx/2 and |dy| <= Ly/2, so every box but the home one
+// lies at r >= min(Lx, Ly)/2 > 2.02, outside the near forms with a margin
+// that no float32 rounding of d + b L crosses: those boxes take the far
+// form alone (box_pair: no near, zero or self predicate; the couplings'
+// near branches fold away). The loop over the boxes is unrolled, so dz, Rz
+// and zs zt are formed once a pair and shared, and the columns' dx + bx Lx
+// and rows' dy + by Ly with their squares once each: a box costs xy2, r^2,
+// R^2, the two rsqrt and the condense. A caller whose per-box work holds
+// many sums (grand's four blocks applied both ways) asks for UNROLL
+// false: the home box, then the eight far boxes in a loop, each forming
+// its own offsets, which keeps its registers from spilling.
+constexpr double kPlaneFarMin = 4.04;
+template <typename T>
+struct PlaneBoxes {
+  using Stage = double;
+  static constexpr bool kImages = true;
+  double L[2];           // Lx / a, Ly / a
+  double inv_L[2];
+  T Lx, Ly;              // the same rounded to T: the offsets b L
+  template <bool WALL, bool UNROLL = true, typename U, typename F>
+  __device__ __forceinline__ void visit(U xt, U yt, U zt, U xs, U ys, U zs,
+                                        bool self, F&& f) const {
+    const T dx = static_cast<T>(min_image(
+        static_cast<double>(xt) - static_cast<double>(xs), L[0], inv_L[0]));
+    const T dy = static_cast<T>(min_image(
+        static_cast<double>(yt) - static_cast<double>(ys), L[1], inv_L[1]));
+    const T zt_ = T(zt), zs_ = T(zs);
+    const T dz = zt_ - zs_;
+    if constexpr (!UNROLL) {
+      f(make_pair_d<T, WALL>(dx, dy, dz, zt_, zs_, self));
+#pragma unroll 1
+      for (int k = 1; k < 9; ++k) {
+        const int idx = k - 1 + (k >= 5 ? 1 : 0);
+        // b L exact, so dx + b Lx rounds as the unrolled dx -+ Lx does
+        const T x = dx + T(idx / 3 - 1) * Lx;
+        const T y = dy + T(idx % 3 - 1) * Ly;
+        f(box_pair<T, WALL>(x, y, x * x + y * y, dz, zt_, zs_, false,
+                            true));
+      }
+      return;
+    }
+    const T ox[3] = {dx - Lx, dx, dx + Lx};
+    const T oy[3] = {dy - Ly, dy, dy + Ly};
+    T ox2[3], oy2[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ox2[c] = ox[c] * ox[c];
+      oy2[c] = oy[c] * oy[c];
+    }
+    // box k: the home box (column 1, row 1), then (bx, by) row-major over
+    // {-1, 0, 1}^2 without (0, 0); unrolled, so every index is a constant
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int idx = k == 0 ? 4 : k - 1 + (k >= 5 ? 1 : 0);
+      const int c = idx / 3, r = idx % 3;
+      f(box_pair<T, WALL>(ox[c], oy[r], ox2[c] + oy2[r], dz, zt_, zs_,
+                          self, k != 0));
+    }
   }
 };
 
@@ -424,6 +510,45 @@ __device__ __forceinline__ void diag_apply_t(const Diag<T>& m, T dx, T dy,
   acc[2] = m.P * w + (m.mzz * v[2] + acc[2]);
 }
 
+// A pair's diagonal blocks (tt, rr) summed over its boxes as one 3 x 3
+// matrix: diag_apply's block is [[A + S dx^2, S dx dy, P dx], [S dx dy, A
+// + S dy^2, P dy], [Q dx, Q dy, mzz]], so the sum keeps sum A, sum S dx^2,
+// sum S dx dy, sum S dy^2, sum P dx, sum P dy, sum Q dx, sum Q dy and
+// sum mzz (add: two multiplies, six multiply-adds and two adds a box);
+// close() folds sum A into the diagonal once a pair.
+template <typename T>
+struct BlockSum {
+  T a, xx, xy, yy, xz, yz, zx, zy, zz;
+  __device__ __forceinline__ void add(const Diag<T>& m, T dx, T dy) {
+    const T sdx = m.S * dx, sdy = m.S * dy;
+    a += m.A;
+    xx = sdx * dx + xx;
+    xy = sdx * dy + xy;
+    yy = sdy * dy + yy;
+    xz = m.P * dx + xz;
+    yz = m.P * dy + yz;
+    zx = m.Q * dx + zx;
+    zy = m.Q * dy + zy;
+    zz += m.mzz;
+  }
+  __device__ __forceinline__ void close() {
+    xx += a;
+    yy += a;
+  }
+  // acc += M v (closed)
+  __device__ __forceinline__ void apply(const T* v, T* acc) const {
+    acc[0] = xx * v[0] + (xy * v[1] + (xz * v[2] + acc[0]));
+    acc[1] = xy * v[0] + (yy * v[1] + (yz * v[2] + acc[1]));
+    acc[2] = zx * v[0] + (zy * v[1] + (zz * v[2] + acc[2]));
+  }
+  // acc += M^T v (closed): the source's share of the pair
+  __device__ __forceinline__ void apply_t(const T* v, T* acc) const {
+    acc[0] = xx * v[0] + (xy * v[1] + (zx * v[2] + acc[0]));
+    acc[1] = xy * v[0] + (yy * v[1] + (zy * v[2] + acc[1]));
+    acc[2] = xz * v[0] + (yz * v[1] + (zz * v[2] + acc[2]));
+  }
+};
+
 // TRANSPOSE applies the block's transpose: the core c [d x] changes sign
 // and the wall pattern flips between -Mw and -Mw^T (cross_shared above)
 template <typename T, bool WALL, bool IS_TR, bool TRANSPOSE = false>
@@ -465,6 +590,7 @@ __device__ __forceinline__ void cross_apply(const Cross<T>& m,
 // trade places, M_tr(j,i) = M_rt(i,j)^T.
 template <bool IS_RR>
 struct DiagCoupling {
+  static constexpr bool kDiag = true;   // image boxes: one BlockSum a pair
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = 2;
   template <typename T, bool WALL>
@@ -498,6 +624,8 @@ using RR = DiagCoupling<true>;
 
 template <bool IS_TR, int MAX_RHS>
 struct CrossCoupling {
+  static constexpr bool kDiag = false;
+  static constexpr bool kUnrollBoxes = true;   // PlaneBoxes' boxes
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = MAX_RHS;
   template <typename T, int B, bool WALL>
@@ -528,6 +656,10 @@ using TR = CrossCoupling<true, 2>;
 using RT = CrossCoupling<false, 1>;
 
 struct Grand {
+  static constexpr bool kDiag = false;
+  // PlaneBoxes' far boxes in a loop: unrolled, grand's four blocks both
+  // ways spill and run 10 % slower at 4096 spheres (no faster at 32,768)
+  static constexpr bool kUnrollBoxes = false;
   static constexpr int kComp = 6;
   static constexpr int kMaxRhs = 1;
   template <typename T, int B, bool WALL>
@@ -578,11 +710,13 @@ struct Grand {
 };
 
 // resident blocks an SM that __launch_bounds__ asks for: 8 in float32 (64
-// registers a thread at most; the image boxes' instances 6, 80
-// registers), none in float64 (off the hot paths)
+// registers a thread at most), 6 (80 registers) for the image boxes, none
+// in float64 (off the hot paths). At 8 the in-plane tt instances spill at
+// B = 2 and run 2.5 % (B = 1) and 8.5 % (B = 2) slower at 49,152 blobs
+// (tools/torch_profile_kernels.py, PERF.md §6)
 template <typename T, typename G = OpenBox<T>>
 struct Shape {
-  static constexpr int kMinBlocks = sizeof(T) == 4 ? G::kMinBlocksF32 : 1;
+  static constexpr int kMinBlocks = sizeof(T) != 4 ? 1 : (G::kImages ? 6 : 8);
 };
 
 // a staged source row: x, y, z and the NV vector entries, padded to whole
@@ -615,25 +749,92 @@ __device__ __forceinline__ void load_row(const double* row, double* dst) {
   }
 }
 
-// The pairs of a target and a source added into `acc` by add(p, sum): each
-// straight into acc, or with PAIR_SUMS into a sum of the pair's own that
-// then joins acc
-template <typename T, int NV, bool WALL, bool PAIR_SUMS, typename G,
-          typename F>
-__device__ __forceinline__ void visit_sum(const G& geom, T xt, T yt, T zt,
-                                          T xs, T ys, T zs, bool self,
-                                          T* acc, F&& add) {
-  if constexpr (PAIR_SUMS) {
+// A pair's boxes as one block: the diagonal couplings' BlockSum over every
+// box of the policy (the home box's self flag from `self`)
+template <typename T, typename C, bool WALL, typename G, typename U>
+__device__ __forceinline__ BlockSum<T> sum_blocks(const G& geom, U xt, U yt,
+                                                  U zt, U xs, U ys, U zs,
+                                                  bool self) {
+  BlockSum<T> m{};
+  geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
+                            [&](const Pair<T>& p) {
+                              m.add(C::template condense<T, WALL>(p), p.dx,
+                                    p.dy);
+                            });
+  m.close();
+  return m;
+}
+
+// The pairs of a target and a source in every box of the policy added into
+// the target's sums acc (M v_s, vs the source's B vectors): the open
+// domain's one pair straight in; with image boxes a pair's boxes summed
+// apart first, into one BlockSum (tt, rr) or a sum of the pair's own.
+template <typename T, typename C, int B, bool WALL, typename G>
+__device__ __forceinline__ void add_pair(const G& geom, T xt, T yt, T zt,
+                                         T xs, T ys, T zs, bool self,
+                                         const T* vs, T* acc) {
+  if constexpr (!G::kImages) {
+    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
+                              [&](const Pair<T>& p) {
+                                C::template accumulate<T, B, WALL>(p, vs,
+                                                                   acc);
+                              });
+  } else if constexpr (C::kDiag) {
+    const BlockSum<T> m =
+        sum_blocks<T, C, WALL>(geom, xt, yt, zt, xs, ys, zs, self);
+#pragma unroll
+    for (int b = 0; b < B; ++b) m.apply(vs + 3 * b, acc + 3 * b);
+  } else {
+    constexpr int NV = C::kComp * B;
     T sum[NV];
 #pragma unroll
     for (int c = 0; c < NV; ++c) sum[c] = T(0);
-    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
-                              [&](const Pair<T>& p) { add(p, sum); });
+    geom.template visit<WALL, C::kUnrollBoxes>(
+        xt, yt, zt, xs, ys, zs, self, [&](const Pair<T>& p) {
+          C::template accumulate<T, B, WALL>(p, vs, sum);
+        });
 #pragma unroll
     for (int c = 0; c < NV; ++c) acc[c] += sum[c];
+  }
+}
+
+// Both shares of a pair i != j of the symmetric sweep: M_ij v_j into acc_i
+// and the source's share into acc_j (accumulate_both), the boxes summed
+// apart as in add_pair; a diagonal coupling's box sum M is applied as M
+// to v_j and as M^T to v_i.
+template <typename T, typename C, int B, bool WALL, typename G>
+__device__ __forceinline__ void add_pair_both(const G& geom, T xi, T yi,
+                                              T zi, T xj, T yj, T zj,
+                                              const T* vj, T* acc_i,
+                                              const T* vi, T* acc_j) {
+  if constexpr (!G::kImages) {
+    geom.template visit<WALL>(xi, yi, zi, xj, yj, zj, false,
+                              [&](const Pair<T>& p) {
+                                C::template accumulate_both<T, B, WALL>(
+                                    p, vj, acc_i, vi, acc_j);
+                              });
+  } else if constexpr (C::kDiag) {
+    const BlockSum<T> m =
+        sum_blocks<T, C, WALL>(geom, xi, yi, zi, xj, yj, zj, false);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      m.apply(vj + 3 * b, acc_i + 3 * b);
+      m.apply_t(vi + 3 * b, acc_j + 3 * b);
+    }
   } else {
-    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
-                              [&](const Pair<T>& p) { add(p, acc); });
+    constexpr int NV = C::kComp * B;
+    T sum_i[NV], sum_j[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) sum_i[c] = sum_j[c] = T(0);
+    geom.template visit<WALL, C::kUnrollBoxes>(
+        xi, yi, zi, xj, yj, zj, false, [&](const Pair<T>& p) {
+          C::template accumulate_both<T, B, WALL>(p, vj, sum_i, vi, sum_j);
+        });
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      acc_i[c] += sum_i[c];
+      acc_j[c] += sum_j[c];
+    }
   }
 }
 
@@ -685,11 +886,8 @@ pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
     for (int k = 0; k < count; ++k) {
       T src[L];
       load_row<L>(s_src[k], src);
-      visit_sum<T, NV, WALL, G::kPairSums>(
-          geom, xt, yt, zt, src[0], src[1], src[2], k == self_k, part,
-          [&](const Pair<T>& p, T* sum) {
-            C::template accumulate<T, B, WALL>(p, src + 3, sum);
-          });
+      add_pair<T, C, B, WALL>(geom, xt, yt, zt, src[0], src[1], src[2],
+                              k == self_k, src + 3, part);
     }
 #pragma unroll
     for (int c = 0; c < NV; ++c) acc[c] += part[c];
@@ -840,11 +1038,8 @@ sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
         for (int k = 0; k < count; ++k) {
           T src[L];
           load_row<L>(s_src[k], src);
-          visit_sum<T, NV, WALL, G::kPairSums>(
-              geom, xi, yi, zi, src[0], src[1], src[2], k == self_k, acc,
-              [&](const Pair<T>& p, T* sum) {
-                C::template accumulate<T, B, WALL>(p, src + 3, sum);
-              });
+          add_pair<T, C, B, WALL>(geom, xi, yi, zi, src[0], src[1], src[2],
+                                  k == self_k, src + 3, acc);
         }
         continue;
       }
@@ -866,29 +1061,13 @@ sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
           for (int c = 0; c < NV; ++c) vj[c] = vec[(size_t)j * NV + c];
         }
         const int next = (lane + 1) % kLanes;
-#pragma unroll 2
+        // an image pair's boxes (PlaneBoxes: 9 unrolled condenses) take
+        // one step a turn
+        constexpr int kStepUnroll = G::kImages ? 1 : 2;
+#pragma unroll (kStepUnroll)
         for (int step = 0; step < kLanes; ++step) {
-          if constexpr (G::kPairSums) {
-            T sum_i[NV], sum_j[NV];
-#pragma unroll
-            for (int c = 0; c < NV; ++c) sum_i[c] = sum_j[c] = T(0);
-            geom.template visit<WALL>(
-                xi, yi, zi, xj, yj, zj, false, [&](const Pair<T>& p) {
-                  C::template accumulate_both<T, B, WALL>(p, vj, sum_i, vi,
-                                                          sum_j);
-                });
-#pragma unroll
-            for (int c = 0; c < NV; ++c) {
-              acc[c] += sum_i[c];
-              accj[c] += sum_j[c];
-            }
-          } else {
-            geom.template visit<WALL>(
-                xi, yi, zi, xj, yj, zj, false, [&](const Pair<T>& p) {
-                  C::template accumulate_both<T, B, WALL>(p, vj, acc, vi,
-                                                          accj);
-                });
-          }
+          add_pair_both<T, C, B, WALL>(geom, xi, yi, zi, xj, yj, zj, vj, acc,
+                                       vi, accj);
           xj = __shfl_sync(0xffffffffu, xj, next);
           yj = __shfl_sync(0xffffffffu, yj, next);
           zj = __shfl_sync(0xffffffffu, zj, next);
@@ -990,9 +1169,11 @@ int shape_g(int n_rhs, int wall, int* blocks_per_sm) {
 }
 
 // the launch shape the wrapper plans with: resident blocks an SM holds of
-// the instance (the open or the image-box one)
+// the instance, images 0 (open), 1 (ImageBoxes) or 2 (PlaneBoxes)
 template <typename T, typename C>
 int shape(int n_rhs, int wall, int images, int* blocks_per_sm) {
+  if (images == 2)
+    return shape_g<T, C, PlaneBoxes<T>>(n_rhs, wall, blocks_per_sm);
   return images ? shape_g<T, C, ImageBoxes<T>>(n_rhs, wall, blocks_per_sm)
                 : shape_g<T, C, OpenBox<T>>(n_rhs, wall, blocks_per_sm);
 }
@@ -1071,18 +1252,52 @@ bool image_boxes(const double* L, int n_boxes, const double* off,
   return true;
 }
 
+// the same list as PlaneBoxes: false unless L = (Lx, Ly, 0) with Lx and Ly
+// above kPlaneFarMin and off is box_offsets' nine boxes b L in its order
+template <typename T>
+bool plane_boxes(const double* L, int n_boxes, const double* off,
+                 PlaneBoxes<T>& g) {
+  if (L == nullptr || off == nullptr || n_boxes != 9 ||
+      !(L[0] > kPlaneFarMin) || !(L[1] > kPlaneFarMin) || L[2] != 0.0)
+    return false;
+  for (int k = 0; k < 9; ++k) {
+    const int idx = k == 0 ? 4 : k - 1 + (k >= 5 ? 1 : 0);
+    if (off[3 * k] != (idx / 3 - 1) * L[0] ||
+        off[3 * k + 1] != (idx % 3 - 1) * L[1] || off[3 * k + 2] != 0.0)
+      return false;
+  }
+  for (int a = 0; a < 2; ++a) {
+    g.L[a] = L[a];
+    g.inv_L[a] = 1.0 / L[a];
+  }
+  g.Lx = T(L[0]);
+  g.Ly = T(L[1]);
+  return true;
+}
+
+// runs launch_fn(policy) with the list's policy: PlaneBoxes when the list
+// is one (plane_boxes), ImageBoxes otherwise
+template <typename T, typename F>
+int with_boxes(const double* L, int n_boxes, const double* off,
+               F&& launch_fn) {
+  PlaneBoxes<T> plane{};
+  if (plane_boxes(L, n_boxes, off, plane)) return launch_fn(plane);
+  ImageBoxes<T> g{};
+  if (!image_boxes(L, n_boxes, off, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fn(g);
+}
+
 template <typename T, typename C>
 int launch_img(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
                int n_src, int n_tgt, int n_rhs, int n_slices,
                int tiles_per_slice, int wall, int self_interaction,
-               const double* L, int n_boxes, const double* off,
-               void* stream) {
-  ImageBoxes<T> g{};
-  if (!image_boxes(L, n_boxes, off, g))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch<T, C>(q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs,
-                      n_slices, tiles_per_slice, wall, self_interaction, g,
-                      stream);
+               const double* L, int n_boxes, const double* off, void* stream) {
+  return with_boxes<T>(L, n_boxes, off, [&](const auto& g) {
+    return launch<T, C>(q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs,
+                        n_slices, tiles_per_slice, wall, self_interaction, g,
+                        stream);
+  });
 }
 
 template <typename T, typename C>
@@ -1090,11 +1305,11 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
                    int n_groups, int tiles_per_group, int wall,
                    int self_interaction, const double* L, int n_boxes,
                    const double* off, void* stream) {
-  ImageBoxes<T> g{};
-  if (!image_boxes(L, n_boxes, off, g))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_sym<T, C>(q, vec, out, ws, n, n_rhs, n_groups,
-                          tiles_per_group, wall, self_interaction, g, stream);
+  return with_boxes<T>(L, n_boxes, off, [&](const auto& g) {
+    return launch_sym<T, C>(q, vec, out, ws, n, n_rhs, n_groups,
+                            tiles_per_group, wall, self_interaction, g,
+                            stream);
+  });
 }
 
 }  // namespace pairk
@@ -1104,8 +1319,9 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
 // tiles_per_slice, wall, self_interaction, stream), their image-box
 // instances NAME_img_f32 / _f64 with (L, n_boxes, off) before the stream
 // (host arrays in blob radii: the box, 0 on an open axis, and the boxes'
-// offsets b L, the home box first), and NAME_shape(f64, n_rhs, wall,
-// images, &blocks_per_sm)
+// offsets b L, the home box first; with_boxes picks the policy), and
+// NAME_shape(f64, n_rhs, wall, images, &blocks_per_sm), images 0, 1 or 2
+// (open, ImageBoxes, PlaneBoxes)
 #define PAIRK_ENTRY(NAME, COUPLING)                                          \
   extern "C" int NAME##_f32(const float* q_src, const float* q_tgt,          \
                             const float* vec, float* out, float* ws,         \
@@ -1178,7 +1394,7 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
       const float* q, const float* vec, float* out, float* ws, int n,        \
       int n_rhs, int n_groups, int tiles_per_group, int wall,                \
       int self_interaction, const double* L, int n_boxes,                    \
-      const double* off, void* stream) {                                     \
+      const double* off, void* stream) {                                    \
     return pairk::launch_sym_img<float, COUPLING>(                           \
         q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
         self_interaction, L, n_boxes, off, stream);                          \
@@ -1187,7 +1403,7 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
       const double* q, const double* vec, double* out, double* ws, int n,    \
       int n_rhs, int n_groups, int tiles_per_group, int wall,                \
       int self_interaction, const double* L, int n_boxes,                    \
-      const double* off, void* stream) {                                     \
+      const double* off, void* stream) {                                    \
     return pairk::launch_sym_img<double, COUPLING>(                          \
         q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
         self_interaction, L, n_boxes, off, stream);                          \

@@ -70,6 +70,7 @@ SIGNATURES = {
     "dense_tt_f64": (_P, _P, _I, _D, _D, _I, _P),
     "dense_tt_img_f32": (_P, _P, _I, _D, _D, _I) + _BOXES + (_P,),
     "dense_tt_img_f64": (_P, _P, _I, _D, _D, _I) + _BOXES + (_P,),
+    "dense_tt_shape": (_I, _I, _I, _PI),
     "symm_matvec_f32": (_P, _P, _P, _P, _I, _I, _P),
     "symm_matvec_f64": (_P, _P, _P, _P, _I, _I, _P),
     "nl_forces_f32": _NL,

@@ -33,7 +33,12 @@ box first. Each pair's d = q_t - q_s goes to its minimum image
 (`min_image`), then every box adds the block at d + b L, the self block in
 the home box only. On the card both sweeps take their image-box instances
 (`pair_{coupling}[_sym]_img_*`), counted in `IMAGE_LAUNCHES[coupling, B,
-sweep]` and not in LAUNCHES.
+sweep]` and not in LAUNCHES. The kernels choose their policy from the
+list on the host (csrc/pair_blocks.cuh with_boxes): the in-plane one
+(PlaneBoxes: the box's 3 x 3 list above the wall or in an open slab, the
+boxes off the home box in the far form alone) where it holds, the general
+one (ImageBoxes) elsewhere. `plane_far` states the same rule for the
+launch plan's occupancy query and the logs.
 """
 
 from __future__ import annotations
@@ -91,6 +96,29 @@ def min_image(d, periodic_length):
             d[..., axis] = comp - torch.trunc(
                 comp / L + 0.5 * torch.sign(comp)) * L
     return d
+
+
+# the in-plane policy's least periodic length in blob radii
+# (csrc/pair_blocks.cuh kPlaneFarMin and plane_boxes, which decide): the minimum image keeps |d| <= L/2
+# on a periodic axis, so every box off the home box lies at r >= L/2, and
+# above 2.02 (1 % over contact, r = 2) no float32 rounding of d + b L
+# brings one into the near forms
+PLANE_FAR_MIN = 4.04
+
+
+def plane_far(boxes):
+    """Whether the image boxes (L, offsets) of pair_matvec (in units of
+    a) take the in-plane far policy: L = (Lx, Ly, 0) with Lx and Ly above
+    PLANE_FAR_MIN and the offsets box_offsets' nine boxes in its order.
+    Every other list (a box periodic in z, L / a <= PLANE_FAR_MIN, one
+    periodic axis, another list or order) takes the general policy."""
+    if boxes is None:
+        return False
+    L, offsets = boxes
+    L = tuple(float(x) for x in L)
+    return (len(L) == 3 and L[2] == 0.0
+            and min(L[0], L[1]) > PLANE_FAR_MIN
+            and [tuple(b) for b in offsets] == box_offsets(L))
 
 
 def image_boxes(periodic_length, a):
@@ -164,13 +192,14 @@ def _sm_count(index):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(coupling, f64, n_rhs, wall, images=False):
-    """Resident blocks an SM holds of a compiled K1 instance (the open or
-    the image-box one), from the CUDA occupancy calculator."""
+def _resident_blocks(coupling, f64, n_rhs, wall, images=0):
+    """Resident blocks an SM holds of a compiled K1 instance, from the CUDA
+    occupancy calculator: images 0 the open instance, 1 the general image
+    boxes', 2 the in-plane one's."""
     blocks = ctypes.c_int(0)
     name = f"pair_{coupling}_shape"
     _build.check(name, getattr(_build.library(), name)(
-        int(f64), n_rhs, int(bool(wall)), int(bool(images)),
+        int(f64), n_rhs, int(bool(wall)), int(images),
         ctypes.byref(blocks)))
     if blocks.value < 1:
         raise RuntimeError(f"{name}: the instance does not fit an SM")
@@ -182,9 +211,10 @@ def _n_sm(t):
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
-def launch_plan(coupling, q_src, q_tgt, vec, *, wall, images=False):
+def launch_plan(coupling, q_src, q_tgt, vec, *, wall, boxes=None):
     """(S, tiles_per_slice) of the sliced sweep `pair_matvec` launches on
-    these CUDA tensors (of its image-box instance with `images`)."""
+    these CUDA tensors (of its image-box instance with `boxes`)."""
+    images = 0 if boxes is None else 2 if plane_far(boxes) else 1
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // NCOMP[coupling]
     blocks = _resident_blocks(coupling, vec.dtype == torch.float64, n_rhs,
@@ -337,7 +367,7 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
     else:
         name = f"pair_{coupling}{img}_{suffix}"
         n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, wall=wall,
-                                      images=boxes is not None)
+                                      boxes=boxes)
         ws = (torch.empty((n_slices, n_tgt, nc * n_rhs), dtype=vec.dtype,
                           device=vec.device) if n_slices > 1 else None)
         args = (q_src.data_ptr(), q_tgt.data_ptr(), vec.data_ptr(),
@@ -359,7 +389,8 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
 
 def _box_args(boxes):
     """The image boxes' C arguments: L (3,), the count and the offsets
-    b L, as host double arrays."""
+    b L, as host double arrays (the kernels choose their policy from
+    them, as plane_far does)."""
     L, offsets = boxes
     off = [b * x for box in offsets for b, x in zip(box, L)]
     return ((ctypes.c_double * 3)(*L), len(offsets),

@@ -337,7 +337,8 @@ def test_k1_image_boxes_match_plain(cuda, coupling, n_rhs, n, wall, L,
 
 
 @pytest.mark.parametrize("coupling, n_rhs", [("tt", 1), ("tt", 2),
-                                             ("grand", 1), ("tr", 2)])
+                                             ("grand", 1), ("tr", 2),
+                                             ("rr", 1), ("rr", 2)])
 def test_k1_image_boxes_groups_and_repeat(cuda, coupling, n_rhs):
     """17,000 blobs in an (L, L, 0) box: the symmetric sweep in groups of
     several tiles and the sliced sweep in several slices, float32, against
@@ -372,6 +373,90 @@ def test_k1_image_boxes_rejected(cuda):
         with pytest.raises(ValueError, match="image boxes"):
             pk.pair_matvec(q, None, v, coupling="tt", wall=True,
                            self_interaction=True, boxes=boxes)
+
+
+# the image policies of K1 and K3 (ops/pair_kernels.py plane_far): (wall,
+# box in units of a, whether the in-plane far policy takes it); the scenes
+# hold pairs at the half-box tie
+IMAGE_POLICIES = {"plane_wall": (True, (23.0, 19.0, 0.0), True),
+                  "plane_open": (False, (23.0, 19.0, 0.0), True),
+                  "plane_margin": (True, (4.05, 4.2, 0.0), True),
+                  "general_L3": (True, (3.0, 3.0, 0.0), False),
+                  "general_z": (False, (23.0, 19.0, 21.0), False)}
+
+
+def _tie_scene(n, L, seed, a=0.3):
+    """_image_scene with pairs at the half-box tie on x and on y (in
+    units of a, as the kernels and the plain version form d)."""
+    r, q = _image_scene(n, seed=seed, a=a)
+    q[1, 0] = q[0, 0] + 0.5 * L[0]
+    q[2, 1] = q[0, 1] - 0.5 * L[1]
+    r[1, 0], r[2, 1] = q[1, 0] * a, q[2, 1] * a
+    return r, q
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("policy", sorted(IMAGE_POLICIES))
+@pytest.mark.parametrize("coupling, n_rhs", [("tt", 1), ("tt", 2),
+                                             ("rr", 1), ("rr", 2),
+                                             ("tr", 1), ("tr", 2),
+                                             ("rt", 1), ("grand", 1)])
+def test_k1_image_policies_match_plain(cuda, coupling, n_rhs, policy,
+                                       square, dtype, bound):
+    """The diagonal couplings' box sums (BlockSum) and the cross and grand
+    couplings' per-box applies on both sweeps under each policy: the
+    in-plane far one above the wall, without it and at its margin (L / a
+    just above 4.04), the general one at L / a = 3 and for a box periodic
+    in z; 300 blobs with a coincident pair and ties, against the plain
+    version in float64, twice bit-identical."""
+    wall, L, plane = IMAGE_POLICIES[policy]
+    r, q = _tie_scene(300, L, seed=25)
+    q = q if wall else r / 0.3
+    boxes = (L, pk.box_offsets(L))
+    assert pk.plane_far(boxes) == plane
+    v = np.random.default_rng(26).normal(
+        size=(300, pk.NCOMP[coupling] * n_rhs))
+    qt = torch.as_tensor(q, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling=coupling, wall=wall, self_interaction=True,
+              boxes=boxes)
+    got = pk.pair_matvec(qt, None if square else qt, vt, **kw)
+    again = pk.pair_matvec(qt, None if square else qt, vt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
+    assert ((got.double() - ref).abs().max().item()
+            <= bound * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n", [33, 100, 1000])
+@pytest.mark.parametrize("policy", ["open_wall", "open"]
+                         + sorted(IMAGE_POLICIES))
+def test_k3_triangle_is_an_exact_transpose(cuda, policy, n, dtype, bound):
+    """K3 on the upper triangle of tiles, the lower written as the exact
+    transpose (bit for bit), open and under each image policy, N off the
+    tile edges (32 blobs a float32 tile, 16 a float64 one); against the
+    plain builder in float64, twice bit-identical."""
+    if policy.startswith("open"):
+        wall, L = policy == "open_wall", (0.0, 0.0, 0.0)
+    else:
+        wall, L, _ = IMAGE_POLICIES[policy]
+    r, _ = _tie_scene(n, L, seed=27) if L[0] else _image_scene(n, seed=27)
+    box = tuple(x * 0.3 for x in L)
+    rt = torch.as_tensor(r, dtype=dtype, device=cuda)
+    got = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
+    again = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, again)
+    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, wall=wall,
+                            periodic_length=box)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= bound * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
@@ -2037,9 +2122,12 @@ def test_p2_list_product_matches_plain(cuda, radii, n_rhs, dtype):
 
 
 def _energy_kernels(fn):
-    """The names of the CUDA kernels fn() runs (torch.profiler)."""
+    """The names of the CUDA kernels fn() runs (torch.profiler), from a
+    second call: the first, outside the profiler's window, builds and
+    loads the library and its kernels' modules."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()

@@ -9,8 +9,8 @@ package, float64 on the CPU, on the same numpy inputs:
   planes, and the brute-force oracle of the JAX package's
   tests/test_mobility.py;
 - the premise of K1's symmetric image sweep (the box sum is reciprocal,
-  so each box's block applied both ways gives the product), emulated in
-  numpy;
+  so a pair's box sum, or each box's block, applied both ways gives the
+  product), emulated in numpy;
 - the multibody steppers on both engines, the rollers and lubrication
   steps, an MCMC chain and the small-box force fallback.
 The CUDA instances run only on the card (tests/test_torch_cuda.py).
@@ -212,11 +212,13 @@ def test_box_sum_is_reciprocal(coupling, domain, L):
 @pytest.mark.parametrize("domain, L", BOXES, ids=BOX_IDS)
 def test_symmetric_image_sweep_emulated(coupling, domain, L):
     """K1's symmetric image sweep in numpy (csrc/pair_blocks.cuh sym_kernel
-    with ImageBoxes): each unordered pair i < j, for each box, condenses
-    the block M(d + bL; z_i, z_j) once and adds M v_j to i and the pair's
-    other block transposed (tt, rr, grand: M^T; tr: M_rt^T; rt: M_tr^T) to
-    j; the diagonal runs every box directed, the self block in the home
-    box only. It equals the plain product at 1e-12."""
+    with ImageBoxes): each unordered pair i < j condenses the block M(d +
+    bL; z_i, z_j) of each box once; tt and rr sum the pair's boxes into
+    one block M (BlockSum) and add M v_j to i and M^T v_i to j, the others
+    add each box's M v_j to i and the pair's other block transposed (grand:
+    M^T; tr: M_rt^T; rt: M_tr^T) to j; the diagonal runs every box
+    directed, the self block in the home box only. It equals the plain
+    product at 1e-12."""
     wall = domain == "single_wall"
     r, _ = random_blobs(n=11, seed=15)
     q, _ = tmob._normalized(torch.as_tensor(r), A, wall, torch.float64)
@@ -234,6 +236,7 @@ def test_symmetric_image_sweep_emulated(coupling, domain, L):
         zi = q[i, 2].reshape(1, 1)
         for j in range(i, len(r)):
             zj = q[j, 2].reshape(1, 1)
+            block_sum = 0
             for box in offsets:
                 d = (d0[i, j] + torch.tensor(box, dtype=torch.float64)
                      * Lt)[None, None]
@@ -243,10 +246,16 @@ def test_symmetric_image_sweep_emulated(coupling, domain, L):
                                         wall)[0, 0] @ v[i]
                     continue
                 m = tpk.block(coupling, d, zi, zj, no, wall)[0, 0]
+                if coupling in ("tt", "rr"):
+                    block_sum = block_sum + m
+                    continue
                 out[i] += m @ v[j]
                 m_o = (m if other == coupling else
                        tpk.block(other, d, zi, zj, no, wall)[0, 0])
                 out[j] += m_o.T @ v[i]
+            if i != j and coupling in ("tt", "rr"):
+                out[i] += block_sum @ v[j]
+                out[j] += block_sum.T @ v[i]
     ref = tpk.pair_plain(q, q, v, coupling=coupling, wall=wall,
                          self_interaction=True, boxes=boxes)
     assert rel_err(out, to_np(ref)) < 1e-12

@@ -2,7 +2,7 @@
 shapes on a CUDA card.
 
     python3 tools/torch_profile_kernels.py \
-        [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1]
+        [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1,k1img,k3img]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -73,12 +73,30 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   configurations) as the path calls it; but for --baseline also the
   floor an empty launch sets, and the small instance beside the tile
   sweep at n = 12 to 128 blobs and 4096, 64 and 1 configurations.
+- k1img (csrc/pair_blocks.cuh, the image-box instances): K1 at chip_smoke.py
+  phase 20's shapes and boxes as the paths call them (tt B = 1 and 2 at
+  20a's 49,152 blobs, tt at 20b's 12,288, grand, tr, rr (B = 1 and 2) and
+  rt at 20c's 32,768 rollers, grand at 20d's 4096 spheres) and the open
+  tt at 49,152 blobs beside them, with each instance's policy (PlaneBoxes
+  or ImageBoxes); but for --baseline also each one's resident blocks an
+  SM and bound (chip_smoke.py img_k1_record's count);
+- k3img (csrc/dense_tt.cu): K3 with images at 20b's 12,288 blobs in its
+  box and the open K3 at 12,288 blobs; but for --baseline also their
+  resident blocks an SM (where the library has dense_tt_shape) and
+  bounds.
+For alternating runs against another tree, run the tool once a tree in
+turns (--root DIR --baseline, then --baseline here, and again): each
+process prints its times; the SASS of a tree is counted by a run without
+--baseline, with --root for the other tree.
 But for --baseline it prints the ptxas registers and spills of the chosen
 kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
 (cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
 and F2I conversions (which run at the MUFU's rate) and the subroutine
-calls (for k8 also the LDS, FFMA, FADD and FMUL of each loop of its
+calls (for k1img and k3img also the instructions a box on the far path:
+the shortest path through each pair loop, an inner loop over the boxes
+taken 9 times, over the boxes its MUFU.RSQ count; for k8 also the LDS,
+FFMA, FADD and FMUL of each loop of its
 instances' SASS: the Clenshaw loops; for l1, of the path's float32 wall
 instances, each pair loop's MUFU, SHFL, LDS, FFMA,
 FADD, FMUL and FSEL a pair, a pair counted by its two MUFU.RSQ, the real
@@ -121,7 +139,21 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
                     "l1_directed<float, 0, true, false"),
              "p1": ("radii_sym_kernel<",),
              "p2": ("pairs_kernel<", "product_kernel<"),
-             "m1": ("energy_small_kernel<", "energy_kernel<")}
+             "m1": ("energy_small_kernel<", "energy_kernel<"),
+             # the float32 wall image instances of K1 on both sweeps (the
+             # policy PlaneBoxes or, in an older tree, ImageBoxes) and K3
+             "k1img": tuple(
+                 f"kernel<float, pairk::{c}, {b}, true, pairk::{g}"
+                 for c, b in (("DiagCoupling<false>", 1),
+                              ("DiagCoupling<false>", 2),
+                              ("DiagCoupling<true>", 1),
+                              ("DiagCoupling<true>", 2),
+                              ("CrossCoupling<true, 2>", 1),
+                              ("CrossCoupling<true, 2>", 2),
+                              ("CrossCoupling<false, 1>", 1),
+                              ("Grand", 1))
+                 for g in ("PlaneBoxes", "ImageBoxes")),
+             "k3img": ("dense_tt_kernel<float, true",)}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -219,6 +251,138 @@ def profile_k1(cs, dev, detail):
                    / path.abs().max()).item()
             print(f"{head} S={s} ({tiles} tiles a slice): {ms:.3f} ms, "
                   f"max diff to the path's call / max {rel:.2e}", flush=True)
+
+
+# ------------------------------------------------- K1's and K3's images
+
+
+def k1img_scenes(cs, dev):
+    """(tag, coupling, q, v, L) at chip_smoke.py phase 20's shapes and
+    boxes (L in units of a; None for the open tt beside them), float32."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    out = []
+    g = torch.Generator(device=dev).manual_seed(20)
+    for n_shells, box, tags in ((cs.N_SHELLS, cs.L_PSEUDO,
+                                 ("tt49k", "tt49k_b2", "tt49k_open")),
+                                (cs.N_DENSE, cs.L_PSEUDO_DENSE,
+                                 ("tt12k",))):
+        pos, quat = cs.lattice(n_shells)
+        state = make_state(pos, quat, dtype=torch.float32, device=dev)
+        r = kin.blob_positions(cs.bench_system(n_shells), state)
+        q = (mob.shift_heights(r, cs.A_BENCH) / cs.A_BENCH).contiguous()
+        L = (box / cs.A_BENCH, box / cs.A_BENCH, 0.0)
+        for tag in tags:
+            nv = 6 if tag.endswith("b2") else 3
+            out.append((tag, "tt", q, torch.randn(
+                (q.shape[0], nv), generator=g, device=dev),
+                None if tag.endswith("open") else L))
+    r = torch.as_tensor(cs.roller_lattice(cs.N_ROLLERS), device=dev)
+    q = (mob.shift_heights(r, cs.A_ROLLER) / cs.A_ROLLER).contiguous()
+    L = (cs.L_PSEUDO_ROLLERS / cs.A_ROLLER,) * 2 + (0.0,)
+    for tag, coupling, nv in (("grand", "grand", 6), ("tr", "tr", 3),
+                              ("tr_b2", "tr", 6), ("rr", "rr", 3),
+                              ("rr_b2", "rr", 6), ("rt", "rt", 3)):
+        out.append((tag, coupling, q, torch.randn(
+            (q.shape[0], nv), generator=g, device=dev), L))
+    p = torch.as_tensor(cs.lub_lattice(cs.N_LUB), device=dev)
+    q = mob.shift_heights(p, 1.0).contiguous()
+    out.append(("grand_lub", "grand", q, torch.randn(
+        (q.shape[0], 6), generator=g, device=dev),
+        (cs.L_PSEUDO_LUB, cs.L_PSEUDO_LUB, 0.0)))
+    return out
+
+
+def image_policy(pk, boxes):
+    """(images argument of the shape entries, policy name) of a box list:
+    PlaneBoxes where this tree has the in-plane policy and takes it."""
+    if boxes is None:
+        return 0, "open"
+    if hasattr(pk, "plane_far") and pk.plane_far(boxes):
+        return 2, "PlaneBoxes"
+    return 1, "ImageBoxes"
+
+
+def profile_k1img(cs, dev, detail):
+    """K1's image instances at phase 20's shapes as the paths call them
+    (the square product, the symmetric sweep), 10 launches a time, and
+    the open tt at 49,152 blobs; with detail their resident blocks and
+    bounds (chip_smoke.py img_k1_record's count)."""
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    for tag, coupling, q, v, L in k1img_scenes(cs, dev):
+        boxes = None if L is None else (L, pk.box_offsets(L))
+        kw = dict(coupling=coupling, wall=True, self_interaction=True,
+                  boxes=boxes)
+        n, nc = q.shape[0], pk.NCOMP[coupling]
+        n_rhs = v.shape[1] // nc
+        images, policy = image_policy(pk, boxes)
+        ms = cs.cuda_ms(lambda: pk.pair_matvec(q, None, v, **kw), 10)
+        head = f"  K1img {tag} {n} x B={n_rhs} ({policy})"
+        if not detail:
+            print(f"{head}: {ms:.3f} ms", flush=True)
+            continue
+        blocks = pk._resident_blocks(coupling, False, n_rhs, True,
+                                     images if hasattr(pk, "plane_far")
+                                     else bool(images))
+        apply = cs.K1_APPLY_FLOPS[coupling]
+        per_pair = (cs.K1_PAIR_FLOPS[coupling]
+                    + cs.K1_SYM_EXTRA_FLOPS.get(coupling, 0) - apply
+                    + 2 * apply * n_rhs) / 2
+        n_boxes = 1 if boxes is None else len(boxes[1])
+        periodic = 0 if L is None else sum(1 for x in L if x > 0)
+        rec = cs.bound_record(4 * n * (3 + 2 * nc * n_rhs),
+                              n * n * (n_boxes * per_pair
+                                       + cs.K1_IMAGE_FLOPS * periodic / 2))
+        print(f"{head}: {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}), "
+              f"{blocks} resident blocks an SM", flush=True)
+
+
+def profile_k3img(cs, dev, detail):
+    """K3 with images at 20b's 12,288 blobs in its box and the open K3
+    at 12,288 blobs, 5 launches a time; with detail their resident
+    blocks (where the library has dense_tt_shape) and bounds."""
+    import ctypes
+
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    box = (cs.L_PSEUDO_DENSE, cs.L_PSEUDO_DENSE, 0.0)
+    system = cs.bench_system(cs.N_DENSE)
+    pos, quat = cs.lattice(cs.N_DENSE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state).contiguous()
+    n = r.shape[0]
+    lib = pk._build.library()
+    for tag, L in (("images", box), ("open", (0.0, 0.0, 0.0))):
+        images, policy = image_policy(pk, pk.image_boxes(L, cs.A_BENCH))
+        ms = cs.cuda_ms(lambda: mc.dense_tt(r, system.eta, cs.A_BENCH,
+                                            wall=True, periodic_length=L),
+                        5)
+        torch.cuda.empty_cache()
+        head = f"  K3img {tag} {n} blobs ({policy})"
+        if not detail:
+            print(f"{head}: {ms:.3f} ms", flush=True)
+            continue
+        blocks = "n/a (no dense_tt_shape)"
+        if hasattr(lib, "dense_tt_shape"):
+            b = ctypes.c_int(0)
+            pk._build.check("dense_tt_shape", lib.dense_tt_shape(
+                0, images, 1, ctypes.byref(b)))
+            blocks = b.value
+        n3 = 3 * n
+        n_boxes = 9 if images else 1
+        rec = cs.bound_record(4 * (n3 * n3 + n3), n * (n + 1) // 2 * (
+            n_boxes * cs.K3_PAIR_FLOPS
+            + (2 * cs.K1_IMAGE_FLOPS if images else 0)))
+        print(f"{head}: {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}), {blocks} "
+              f"resident blocks an SM", flush=True)
 
 
 # ---------------------------------------------------------------- K2
@@ -976,7 +1140,8 @@ def device_ms(fn, reps):
 PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
             "k6": profile_k6, "k7": profile_k7, "k8": profile_k8,
             "l1": profile_l1, "p1": profile_p1, "p2": profile_p2,
-            "m1": profile_m1}
+            "m1": profile_m1, "k1img": profile_k1img,
+            "k3img": profile_k3img}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -1014,7 +1179,8 @@ def sass_counts(lib_path, kernels, out_path):
         names = [d.replace("(anonymous namespace)::", "").split("(", 1)[0]
                  for d in dem.splitlines()]
     counts, listing = [], []
-    loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1", "p1")
+    loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1", "p1", "k1img",
+                                                "k3img")
                 if k in kernels}
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
@@ -1035,6 +1201,9 @@ def sass_counts(lib_path, kernels, out_path):
             counts += [f"  {ln}" for ln in sass_pair_loops(body)]
         if any(f in name for f in loops_of.get("p1", ())):
             counts += [f"  {ln}" for ln in sass_step_paths(body)]
+        if any(f in name for k in ("k1img", "k3img")
+               for f in loops_of.get(k, ())):
+            counts += [f"  {ln}" for ln in sass_box_paths(body)]
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
         counts = [f"no instance found (cuobjdump exit {out.returncode}: "
@@ -1182,12 +1351,127 @@ def sass_step_paths(body):
     return out or ["no pair loop (MUFU.RSQ)"]
 
 
+def sass_box_paths(body, n_boxes=9, rsq_per_box=2):
+    """The far path of each pair loop of an image instance (wall: two
+    MUFU.RSQ a box, r's and R's). The pair loops are the innermost loops
+    holding MUFU.RSQ, but for those holding a single box's (box loops, one
+    box an iteration), which stand for their trips inside their enclosing
+    loop, the pair loop: n_boxes each (an older tree's, two in a rotation
+    unrolled twice), less the boxes the pair loop condenses outside them
+    (PlaneBoxes' loop form: the home box, then a loop over eight). Per
+    pair loop the shortest of the paths from its head to its back branch
+    that condense every box (the most MUFU.RSQ: a branch past a skipped
+    pair's work is not taken, nor one out of the loop), its instructions
+    and MUFU.RSQ, and the instructions a box: the path's count over its
+    boxes (its MUFU.RSQ / rsq_per_box)."""
+    instrs = []
+    for ln in body:
+        m = PRED_LINE.search(ln)
+        if m:
+            instrs.append((int(m.group(1), 16), bool(m.group(2)),
+                           m.group(3), m.group(4)))
+    index = {a: k for k, (a, _, _, _) in enumerate(instrs)}
+
+    def target(k):
+        t = re.search(r"0x([0-9a-f]+)", instrs[k][3])
+        if instrs[k][2].split(".")[0] != "BRA" or t is None:
+            return None
+        return index.get(int(t.group(1), 16))
+
+    def is_rsq(k):
+        return instrs[k][2].startswith("MUFU.RSQ")
+
+    loops = sorted((target(k), k) for k in range(len(instrs))
+                   if target(k) is not None and target(k) < k)
+    rsq_loops = [(lo, hi) for lo, hi in loops
+                 if any(is_rsq(k) for k in range(lo, hi + 1))]
+    innermost = [(lo, hi) for lo, hi in rsq_loops
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in rsq_loops)]
+
+    def shortest(lo, hi, inner):
+        """(instructions, MUFU.RSQ) of the shortest full path from lo
+        through the back branch at hi; inner maps the head of each inner
+        loop to (its back branch, trips, instructions, MUFU.RSQ)."""
+        best = {hi + 1: (0, 0)}
+        skip = set()
+        for ilo, (ihi, _, _, _) in inner.items():
+            skip.update(range(ilo + 1, ihi + 1))
+        for k in range(hi, lo - 1, -1):
+            if k in inner:
+                ihi, trips, c_in, q_in = inner[k]
+                c, q = best.get(ihi + 1, (math.inf, 0))
+                best[k] = (c + trips * c_in, q + trips * q_in)
+                continue
+            if k in skip:
+                continue
+            own = (1, 1 if is_rsq(k) else 0)
+            if k == hi:
+                best[k] = own
+                continue
+            op = instrs[k][2].split(".")[0]
+            t = target(k)
+            conditional = (instrs[k][1]
+                           or re.match(r"\s*!?U?P\d", instrs[k][3]))
+            if op == "EXIT":
+                cands = []
+            elif t is None:
+                cands = [k + 1]
+            else:
+                cands = [t] if lo <= t <= hi else []
+                if conditional:
+                    cands.append(k + 1)
+            # the most boxes (a branch past the work, a skipped pair, is
+            # not a far path), then the fewest instructions
+            c, q = min((best.get(x, (math.inf, 0)) for x in cands),
+                       key=lambda cq: (-cq[1], cq[0]),
+                       default=(math.inf, 0))
+            best[k] = (c + own[0], q + own[1])
+        return best[lo]
+
+    pair_loops = {}
+    for lo, hi in innermost:
+        if sum(is_rsq(k) for k in range(lo, hi + 1)) > rsq_per_box:
+            pair_loops.setdefault((lo, hi), {})
+            continue
+        outer = [(a, b) for a, b in loops
+                 if a <= lo and hi <= b and (a, b) != (lo, hi)]
+        if outer:
+            c, q = shortest(lo, hi, {})
+            pair_loops.setdefault(min(outer, key=lambda ab: ab[1] - ab[0]),
+                                  {})[lo] = (hi, n_boxes, c, q)
+    out = []
+    for (lo, hi), inner in sorted(pair_loops.items()):
+        if inner:
+            # boxes condensed outside the box loops (a home box before a
+            # loop over the others) leave the loops fewer trips
+            _, q_out = shortest(lo, hi, {a: (b, 0, c, q) for a, (b, _, c, q)
+                                         in inner.items()})
+            trips = n_boxes - q_out // (rsq_per_box * len(inner))
+            inner = {a: (b, trips, c, q) for a, (b, _, c, q) in inner.items()}
+        cost, q = shortest(lo, hi, inner)
+        ops = [instrs[k][2] for k in range(lo, hi + 1)]
+        kind = ("rotation" if any(o.startswith("SHFL") for o in ops)
+                else "directed")
+        boxes = q / rsq_per_box
+        per_box = f"{cost / boxes:.1f}" if boxes else "n/a"
+        loops_in = ", ".join(f"{instrs[a][0]:#x}-{instrs[b[0]][0]:#x}"
+                             for a, b in sorted(inner.items()))
+        trips = next(iter(inner.values()))[1] if inner else 0
+        out.append(f"{kind} pair loop {instrs[lo][0]:#x}-{instrs[hi][0]:#x}"
+                   + (f" (box loops {loops_in}, {trips} trips each)"
+                      if inner else "")
+                   + f": far path {cost} instructions, {q} MUFU.RSQ, "
+                   f"{boxes:g} boxes, {per_box} instructions a box")
+    return out or ["no pair loop (MUFU.RSQ)"]
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
     p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1,p2,m1",
                    help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
-                        "l1, p1, p2, m1")
+                        "l1, p1, p2, m1, k1img, k3img")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",
