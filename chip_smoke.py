@@ -270,7 +270,7 @@ is non-zero and no result line is printed):
      memory and the launches (P2's builds and products and K5 must run,
      K6 must not). Phase 3 also holds P2 on a random 3000-blob periodic
      box of three radius groups, with its build and product timed.
- 20. the direct engine's pseudo-periodic image boxes (ROADMAP item 4) at
+ 20. the direct engine's pseudo-periodic image boxes at
      full width, float32, each path on K1's and K3's image-box instances
      (csrc/pair_blocks.cuh, csrc/dense_tt.cu; every box of phase 20 takes
      the in-plane far policy, PlaneBoxes), K2's periodic
@@ -297,6 +297,30 @@ is non-zero and no result line is printed):
      above the wall, at its margin and without the wall; the general one
      at L/a = 3 and periodic in z), both sweeps, K3 included, and checks
      the open K3 at 12,288 blobs its exact transpose too.
+ 21. the last single-device domains at full width, float32
+     (phase_domains): in_plane, free_surface, per-blob radii in image
+     boxes and on the free surface, linked-cell forces in open and partly
+     periodic boxes. 21k holds every new instance at small shapes in
+     float32 and float64 (K1's free-surface tt, B = 1, 2, open and under
+     both image policies, both sweeps; in_plane tt and tr on the wall
+     instances, u_z exactly 0; K3's free-surface instance; P1's image
+     boxes and free surface; K5's open instance with overflowing cells),
+     twice bit-identical, then at its path's shape against its float64
+     plain version, timed over five rounds alternating with the wall's
+     (or open) instance of the same sweep, the plain version's whole
+     sweep timed where it takes under PLAIN_WHOLE_S (else plain_ms null
+     and plain_rows_ms, its time on its first plain_rows target rows, in
+     the record); 21a multibody-49k-free-surface
+     (forward Euler and Slip-Trapz, one Slip-Trapz step in 20a's box),
+     21b monolayer-49k-in-plane (64 x 64 shells at height 2.0, open box,
+     linked-cell forces; every K1 product's u_z exactly 0, the bodies' z
+     velocities within the solver tolerance, no cell overflowing), 21c
+     that monolayer bidisperse in (102.4, 102.4, 0) above the wall (P1
+     images, K5 partly periodic), 21d phase 9's 1024 shells on the free
+     surface (open and in 20b's box) and in_plane, materialized, 21e
+     phase 18's scene on the free surface (open and in 20a's box), 21f two
+     64-shell input files through the CLI, card float64 against CPU
+     float64 to 1e-10 of the displacement.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -331,7 +355,8 @@ is larger; K2, K7, L1 and M1 also name their design, L1 its plan; K8,
 L1 and M1 have a record per instance; P1 and P2 name their plan and
 registers, P1 with a record per B, P2 one for its build and one per B;
 M1's batch carries the floor an empty launch sets; K1's and K3's
-image-box instances a record each at phase 20's shapes);
+image-box instances a record each at phase 20's shapes, and phase 21's
+instances at theirs);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -633,7 +658,8 @@ def k1_vs_plain(pk, coupling, qt, vt, wall):
     as the paths call it (q_tgt None: tt and grand on their symmetric
     sweep) and with two tensors (the sliced sweep); returns (max err /
     max|ref|, timing text for float32)."""
-    kw = dict(coupling=coupling, wall=wall, self_interaction=True)
+    kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+              self_interaction=True)
     ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
     rel = 0.0
     for q_tgt in (None, qt):
@@ -661,7 +687,7 @@ def k1_full_record(pk, coupling, q, v, sub, bound, what):
     n = q.shape[0]
     nc = pk.NCOMP[coupling]
     n_rhs = v.shape[1] // nc
-    kw = dict(coupling=coupling, wall=True, self_interaction=True)
+    kw = dict(coupling=coupling, mode="wall", self_interaction=True)
     apply = K1_APPLY_FLOPS[coupling]
     directed = K1_PAIR_FLOPS[coupling] + apply * (n_rhs - 1)
     # the group pairs of the upper triangle, summed over G slices
@@ -711,7 +737,8 @@ def k1_instances_at(pk, coupling, q, v, sub, what):
     n_rhs = v.shape[1] // pk.NCOMP[coupling]
     bounds = {torch.float32: u32_sqrt(n), torch.float64: 1e-12}
     for wall in (True, False):
-        kw = dict(coupling=coupling, wall=wall, self_interaction=True)
+        kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+                  self_interaction=True)
         ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
         for dtype, bound in bounds.items():
             if wall and dtype == torch.float32:
@@ -976,7 +1003,7 @@ def run_steps(system, pos, quat, dtype, device, n_steps, tol):
 def phase_slice_parity(mc):
     """Phase 4: 8 shells, kT = 0, 3 steps, card against CPU; the 96 blobs
     take the materialized engine (K3, K4)."""
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     pos, quat = lattice(8, seed=5)
     system = bench_system(8, kT=0.0)
     pos64, quat64 = pos.astype(np.float64), quat.astype(np.float64)
@@ -994,9 +1021,9 @@ def phase_slice_parity(mc):
         f"{disp:.3e}), max error / max displacement: GPU f64 vs CPU f64 "
         f"{e64:.3e} (bound 1e-9), GPU f32 vs CPU f64 {e32:.3e} (bound "
         f"1e-2); gmres {aux.det_iterations}, lanczos {aux.stoch_iterations}; "
-        f"launches {mc.DENSE_LAUNCHES}")
+        f"launches {dense_launches(mc)}")
     check(disp > 0 and e64 <= 1e-9 and e32 <= 1e-2, "slice parity")
-    check(min(mc.DENSE_LAUNCHES.values()) > 0,
+    check(min(dense_launches(mc).values()) > 0,
           "the 8-shell slice did not run on K3/K4")
 
 
@@ -1196,7 +1223,7 @@ def phase_main_path(pk, mc):
     torch.cuda.reset_peak_memory_stats()
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     t0 = time.perf_counter()
     state, carry, aux = step(state, gen, carry)       # warm-up
     torch.cuda.synchronize()
@@ -1229,8 +1256,8 @@ def phase_main_path(pk, mc):
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     # 87 GB of matrix at 49,152 blobs: above the budget, matrix-free
-    check(max(mc.DENSE_LAUNCHES.values()) == 0,
-          f"K3/K4 launched above the budget: {mc.DENSE_LAUNCHES}")
+    check(max(dense_launches(mc).values()) == 0,
+          f"K3/K4 launched above the budget: {dense_launches(mc)}")
     return launches
 
 
@@ -2595,7 +2622,7 @@ def phase_lub_path(pk, mc, ck):
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
     mc.LAUNCHES = 0
     mc.PERIODIC_LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     t0 = time.perf_counter()
     p, qt, aux = step(p, qt, gen)                     # warm-up
     torch.cuda.synchronize()
@@ -2618,7 +2645,7 @@ def phase_lub_path(pk, mc, ck):
     others = {"K1 other couplings": sum(
         n for (c, _), n in pk.LAUNCHES.items() if c != "grand"),
         "K2 periodic": mc.PERIODIC_LAUNCHES,
-        "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+        "K3/K4": sum(dense_launches(mc).values()),
         "K5-K8": sum(ck.LAUNCHES.values())}
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     log(f"lubrication path {N_LUB} spheres step_trapezoidal (omega 25, "
@@ -2680,9 +2707,10 @@ def phase_dense_kernels_small(mc):
             vt = torch.as_tensor(v, dtype=dtype, device=dev)
             v2t = torch.as_tensor(v2, dtype=dtype, device=dev)
             for wall in (True, False):
-                m = mc.dense_tt(rt, 1.0, 0.3, wall=wall)
+                mode = mc.pair_kernels.wall_mode(wall)
+                m = mc.dense_tt(rt, 1.0, 0.3, mode=mode)
                 torch.cuda.synchronize()
-                ref = mc.dense_tt_plain(rt.double(), 1.0, 0.3, wall=wall)
+                ref = mc.dense_tt_plain(rt.double(), 1.0, 0.3, mode=mode)
                 e3 = ((m.double() - ref).abs().max() / ref.abs().max()).item()
                 u = mc.symm_matvec(m, vt)
                 torch.cuda.synchronize()
@@ -2763,7 +2791,8 @@ def phase_image_kernels_small(pk, mc):
         for coupling, n_rhs in IMAGE_COUPLINGS:
             v = np.random.default_rng(13).normal(
                 size=(n, pk.NCOMP[coupling] * n_rhs))
-            kw = dict(coupling=coupling, wall=wall, self_interaction=True,
+            kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+                      self_interaction=True,
                       boxes=boxes)
             for dtype, bound in ((torch.float32, 3e-6),
                                  (torch.float64, 1e-12)):
@@ -2789,11 +2818,14 @@ def phase_image_kernels_small(pk, mc):
                         worst = max(worst, rel)
         rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
         box = tuple(x * 0.3 for x in L)
-        m = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
-        same = torch.equal(m, mc.dense_tt(rt, 0.8, 0.3, wall=wall,
+        m = mc.dense_tt(rt, 0.8, 0.3, mode=pk.wall_mode(wall),
+                        periodic_length=box)
+        same = torch.equal(m, mc.dense_tt(rt, 0.8, 0.3,
+                                          mode=pk.wall_mode(wall),
                                           periodic_length=box))
         transposed = torch.equal(m, m.T)
-        ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, wall=wall,
+        ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3,
+                                mode=pk.wall_mode(wall),
                                 periodic_length=box)
         e3 = ((m.double() - ref).abs().max() / ref.abs().max()).item()
         geom = "PlaneBoxes" if plane else "ImageBoxes"
@@ -2807,7 +2839,7 @@ def phase_image_kernels_small(pk, mc):
     for wall in (True, False):
         r, _ = image_scene(n, (0.0, 0.0, 0.0))
         rt = torch.as_tensor(r, dtype=torch.float32, device=dev)
-        m = mc.dense_tt(rt, 0.8, 0.3, wall=wall)
+        m = mc.dense_tt(rt, 0.8, 0.3, mode=pk.wall_mode(wall))
         check(torch.equal(m, m.T), f"open K3 wall={wall}: not its exact "
               "transpose")
     log(f"K1/K3 image instances at {n} blobs: worst float32 error "
@@ -2843,14 +2875,14 @@ def phase_dense_kernels(pk, mc, mob, kin, make_state):
     n3 = 3 * n
     eta, a = system.eta, A_BENCH
     records = {}
-    m = mc.dense_tt(r, eta, a, wall=True)
+    m = mc.dense_tt(r, eta, a, mode="wall")
     torch.cuda.synchronize()
-    ref = mc.dense_tt_plain(r.double(), eta, a, wall=True)
+    ref = mc.dense_tt_plain(r.double(), eta, a, mode="wall")
     err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
     del ref
     transposed = exact_transpose(m)
-    ms = cuda_ms(lambda: mc.dense_tt(r, eta, a, wall=True), 5)
-    plain_ms = cuda_ms(lambda: mc.dense_tt_plain(r, eta, a, wall=True), 1,
+    ms = cuda_ms(lambda: mc.dense_tt(r, eta, a, mode="wall"), 5)
+    plain_ms = cuda_ms(lambda: mc.dense_tt_plain(r, eta, a, mode="wall"), 1,
                        warmup=False)
     # the matrix is symmetric: the function needs each unordered pair's
     # block once (the bytes term writes the whole matrix)
@@ -2995,7 +3027,7 @@ def run_dense_path(system, scheme, pos, quat, pk, mc, n_timed=3):
     torch.cuda.reset_peak_memory_stats()
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     t0 = time.perf_counter()
     state, carry, aux = step(state, gen, carry)           # warm-up
     torch.cuda.synchronize()
@@ -3010,7 +3042,7 @@ def run_dense_path(system, scheme, pos, quat, pk, mc, n_timed=3):
         rej.append(aux.rejections)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
-    launches = dict(mc.DENSE_LAUNCHES, K1_tt=pk.launches("tt"),
+    launches = dict(dense_launches(mc), K1_tt=pk.launches("tt"),
                     K2=mc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(bool(torch.isfinite(state.pos).all()),
@@ -3155,13 +3187,13 @@ def phase_scheme_parity(pk, mc):
     beside 2 obstacle shells under Slip-Mid and GDC-RFD."""
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     for scheme in ITEM17_SCHEMES:
         scheme_parity_case(bench_system(8), scheme, "8 shells")
     for scheme in ("stochastic_Slip_Mid", "stochastic_GDC_RFD"):
         scheme_parity_case(obstacle_system(6, 2), scheme,
                            "6 shells + 2 obstacles", n_free=6)
-    launches = dict(mc.DENSE_LAUNCHES, K1_tt=pk.launches("tt"),
+    launches = dict(dense_launches(mc), K1_tt=pk.launches("tt"),
                     K2=mc.LAUNCHES)
     log(f"item-17 parity launches {launches}")
     check(min(launches.values()) > 0,
@@ -3234,7 +3266,7 @@ def run_scheme_path(system, scheme, state, pk, mc, n_steps, recycle_k=0,
     gen = torch.Generator(device=state.pos.device).manual_seed(0)
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     if warmup:
         state, carry, _ = step(state, gen, carry)
     torch.cuda.synchronize()
@@ -3248,7 +3280,7 @@ def run_scheme_path(system, scheme, state, pk, mc, n_steps, recycle_k=0,
     ms = (time.perf_counter() - t0) / n_steps * 1e3
     launches = {"K1 tt": pk.LAUNCHES["tt", 1],
                 "K1 tt B=2": pk.LAUNCHES["tt", 2], "K2": mc.LAUNCHES,
-                **mc.DENSE_LAUNCHES}
+                **dense_launches(mc)}
     check(bool(torch.isfinite(state.pos).all()),
           f"{scheme}: positions not finite")
     return state, counts, ms, launches, carry
@@ -3283,8 +3315,7 @@ def phase_item17_path(pk, mc):
                                   else [])
         check(all(launches[k] > 0 for k in want),
               f"{scheme}: a kernel of its path did not run: {launches}")
-        check(mc.DENSE_LAUNCHES["dense_tt"] == 0
-              and mc.DENSE_LAUNCHES["symm_matvec"] == 0,
+        check(max(dense_launches(mc).values()) == 0,
               f"{scheme}: K3/K4 launched above the budget")
         check(min(c[0] for c in counts) > 0, f"{scheme}: no GMRES iterations")
 
@@ -3540,7 +3571,7 @@ def phase_articulated_parity(pk, mc):
     dumbbells (K1 grand) under both roller schemes, 3 steps each."""
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     pos, quat = chain_lattice(8)
     for scheme, moving in (("articulated_deterministic_forward_euler", False),
                            ("articulated_deterministic_midpoint", False),
@@ -3553,7 +3584,7 @@ def phase_articulated_parity(pk, mc):
                    "articulated_deterministic_midpoint_rollers"):
         articulated_parity_case(dumbbell_system(16), scheme, pos, quat,
                                 "16 dumbbells", dt=1e-2)
-    launches = dict(mc.DENSE_LAUNCHES, K1_grand=pk.launches("grand"),
+    launches = dict(dense_launches(mc), K1_grand=pk.launches("grand"),
                     K2=mc.LAUNCHES)
     log(f"articulated parity launches {launches}")
     check(min(launches.values()) > 0,
@@ -3711,7 +3742,7 @@ def run_articulated_path(system, scheme, pos, quat, pk, mc, n_timed=3):
     carry = integrators.init_carry(system, state=state)
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     art.GN_ITERATIONS.clear()
     state, carry, _ = step(state, None, carry)
     torch.cuda.synchronize()
@@ -3725,7 +3756,7 @@ def run_articulated_path(system, scheme, pos, quat, pk, mc, n_timed=3):
     launches = {"K1 tt": pk.LAUNCHES["tt", 1], "K1 grand": pk.launches(
         "grand"), "K1 other": sum(n for (c, b), n in pk.LAUNCHES.items()
                                   if c not in ("tt", "grand") or b != 1),
-                "K2": mc.LAUNCHES, **mc.DENSE_LAUNCHES}
+                "K2": mc.LAUNCHES, **dense_launches(mc)}
     check(bool(torch.isfinite(state.pos).all()
                and torch.isfinite(state.quat).all()),
           f"{scheme}: positions not finite")
@@ -4332,7 +4363,7 @@ def run_phoretic_path(system, scheme, pos, quat, pk, mc, solves):
         torch.cuda.reset_peak_memory_stats()
         pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
         mc.LAUNCHES = mc.PERIODIC_LAUNCHES = 0
-        mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+        reset_dense(mc)
         ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
         for key in lap.LAUNCHES:
             lap.LAUNCHES[key] = lap.SYM_LAUNCHES[key] = 0
@@ -4356,7 +4387,7 @@ def run_phoretic_path(system, scheme, pos, quat, pk, mc, solves):
                 "K1 other": sum(n for (c, _), n in pk.LAUNCHES.items()
                                 if c != "tt"),
                 "K2": mc.LAUNCHES, "K2 periodic": mc.PERIODIC_LAUNCHES,
-                "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+                "K3/K4": sum(dense_launches(mc).values()),
                 "K5-K8": sum(ck.LAUNCHES.values()),
                 "L1 symmetric": sum(lap.SYM_LAUNCHES.values())}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4858,7 +4889,7 @@ def phase_mcmc_path(pk, mc):
     n_burn, n_chain, save = 100, 200, 20
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = mc.PERIODIC_LAUNCHES = mc.ENERGY_LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    reset_dense(mc)
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4873,7 +4904,8 @@ def phase_mcmc_path(pk, mc):
     secs = time.perf_counter() - t0
     launches = mc.ENERGY_LAUNCHES
     others = {"K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES
-              + mc.PERIODIC_LAUNCHES, "K3/K4": sum(mc.DENSE_LAUNCHES.values()),
+              + mc.PERIODIC_LAUNCHES,
+              "K3/K4": sum(dense_launches(mc).values()),
               "K5-K8": sum(ck.LAUNCHES.values())}
     moves = n_burn + n_chain
     accepted = int(final.accepted)
@@ -5073,10 +5105,36 @@ def _reset_counts(pk, mc, ck, lap):
     mc.RADII_LAUNCHES.update(dict.fromkeys(mc.RADII_LAUNCHES, 0))
     pk.SYM_LAUNCHES.update(dict.fromkeys(pk.SYM_LAUNCHES, 0))
     mc.LAUNCHES = mc.PERIODIC_LAUNCHES = mc.ENERGY_LAUNCHES = 0
-    mc.ONE_BOX_LAUNCHES = mc.DENSE_IMAGE_LAUNCHES = 0
-    mc.DENSE_LAUNCHES.update(dict.fromkeys(mc.DENSE_LAUNCHES, 0))
+    mc.ONE_BOX_LAUNCHES = 0
+    reset_dense(mc)
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
     lap.LAUNCHES.update(dict.fromkeys(lap.LAUNCHES, 0))
+
+
+def reset_dense(mc):
+    """Sets the launch counts of K3 (by instance) and K4 to 0."""
+    mc.DENSE_TT_LAUNCHES.update(dict.fromkeys(mc.DENSE_TT_LAUNCHES, 0))
+    mc.SYMM_LAUNCHES = 0
+
+
+def dense_launches(mc):
+    """K3's launches outside image boxes (any domain mode) and K4's."""
+    return {"dense_tt": sum(k for (_, img), k in mc.DENSE_TT_LAUNCHES.items()
+                            if not img),
+            "symm_matvec": mc.SYMM_LAUNCHES}
+
+
+def dense_image_launches(mc):
+    """K3's launches in image boxes (any domain mode)."""
+    return sum(k for (_, img), k in mc.DENSE_TT_LAUNCHES.items() if img)
+
+
+def p1_open_launches(mc):
+    """P1's launches outside image boxes on the wall and in the open
+    domain, by B (phase 18's instances)."""
+    return {b: sum(k for (kb, m, img), k in mc.RADII_LAUNCHES.items()
+                   if kb == b and m != "free_surface" and not img)
+            for b in range(1, mc.RADII_MAX_RHS + 1)}
 
 
 def _other_launches(pk, mc, ck, lap, allowed=()):
@@ -5084,8 +5142,7 @@ def _other_launches(pk, mc, ck, lap, allowed=()):
     of K1)."""
     return {"K1": sum(n for k, n in pk.LAUNCHES.items() if k not in allowed),
             "K2": mc.LAUNCHES + mc.PERIODIC_LAUNCHES,
-            "K3/K4": sum(mc.DENSE_LAUNCHES.values())
-            + mc.DENSE_IMAGE_LAUNCHES,
+            "K3/K4": sum(mc.DENSE_TT_LAUNCHES.values()) + mc.SYMM_LAUNCHES,
             "K5-K8": sum(ck.LAUNCHES.values()),
             "L1": sum(lap.LAUNCHES.values()), "M1": mc.ENERGY_LAUNCHES,
             "P1": sum(mc.RADII_LAUNCHES.values())}
@@ -5367,8 +5424,10 @@ def p1_vs_plain(mc, r, v, radii, wall, sub=None):
     the first `sub` targets), twice bit-identical; with float32 inputs also
     the float32 plain version's error. Returns (max err, max|ref|, plain
     f32 err or None, bit-identical)."""
-    got = mc.radii_matvec(r, v, radii, 1.0, wall=wall)
-    same = torch.equal(got, mc.radii_matvec(r, v, radii, 1.0, wall=wall))
+    domain = "single_wall" if wall else "no_wall"
+    got = mc.radii_matvec(r, v, radii, 1.0, domain=domain)
+    same = torch.equal(got, mc.radii_matvec(r, v, radii, 1.0,
+                                            domain=domain))
     torch.cuda.synchronize()
     rt = r if sub is None else r[:sub]
     at = radii if sub is None else radii[:sub]
@@ -5452,14 +5511,15 @@ def phase_radii_kernels(mc, report):
         v = torch.randn((n_rhs, nb, 3), generator=g, device=dev)
         err, scale, p32, same = p1_vs_plain(mc, rb, v, radii, True, sub)
         bound = max(u32_sqrt(nb), 2 * p32 / scale)
-        ms = cuda_ms(lambda: mc.radii_matvec(rb, v, radii, 1.0, wall=True),
+        ms = cuda_ms(lambda: mc.radii_matvec(rb, v, radii, 1.0,
+                                             domain="single_wall"),
                      10)
         plain_ms = cuda_ms(lambda: mc.radii_matvec_plain(
-            rb, v, radii, 1.0, wall=True), 1, warmup=False)
+            rb, v, radii, 1.0, domain="single_wall"), 1, warmup=False)
         pairs = nb * (nb + 1) // 2
         rec, every = p1_bound(nb, contacts, n_rhs)
         regs = instance_registers(report, "radii_sym_kernel",
-                                  f"<float, {n_rhs}, true>")
+                                  f"<float, {n_rhs}, 1, ", "RadiiOpen")
         plan = f"{groups} tile groups of {per} tiles"
         log(f"P1 {nb} blobs (phase 18's mixture) B={n_rhs} f32, the "
             f"symmetric sweep ({plan}): first {sub} target rows vs plain "
@@ -5814,7 +5874,7 @@ def phase_radii_path(pk, mc, ck, lap):
             sto.append(aux.stoch_iterations)
             rej.append(aux.rejections)
         peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-        p1 = dict(mc.RADII_LAUNCHES)
+        p1 = p1_open_launches(mc)
         others = _other_launches(pk, mc, ck, lap)
         log(f"multibody-49k-radii {scheme} f32: {sum(times) / 3:.1f} ms/step "
             f"over 3 steps ({_fmt(times)}; warm-up {warm_ms:.1f}); gmres "
@@ -6024,7 +6084,7 @@ def img_k1_record(pk, coupling, q, v, L, sub, what, report):
     nc = pk.NCOMP[coupling]
     n_rhs = v.shape[1] // nc
     boxes = (L, pk.box_offsets(L))
-    kw = dict(coupling=coupling, wall=True, self_interaction=True,
+    kw = dict(coupling=coupling, mode="wall", self_interaction=True,
               boxes=boxes)
     got = pk.pair_matvec(q, None, v, **kw)
     again = pk.pair_matvec(q, None, v, **kw)
@@ -6083,7 +6143,7 @@ def img_k1_sliced_check(pk, q, v, L, sub, what):
     rows as targets of a two-tensor call, against the plain version in
     float64."""
     boxes = (L, pk.box_offsets(L))
-    kw = dict(coupling="tt", wall=True, self_interaction=True, boxes=boxes)
+    kw = dict(coupling="tt", mode="wall", self_interaction=True, boxes=boxes)
     got = pk.pair_matvec(q, q[:sub].contiguous(), v, **kw)
     torch.cuda.synchronize()
     ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
@@ -6198,16 +6258,16 @@ def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
             f"{[a.rejections for a in auxes]}; launches over the 3 steps "
             f"{img}, K2 periodic {mc.PERIODIC_LAUNCHES} (one-box "
             f"{mc.ONE_BOX_LAUNCHES}); open K1 {open_k1}, K2 {mc.LAUNCHES}, "
-            f"K3/K4 {sum(mc.DENSE_LAUNCHES.values())}, K3 images "
-            f"{mc.DENSE_IMAGE_LAUNCHES}")
+            f"K3/K4 {sum(dense_launches(mc).values())}, K3 images "
+            f"{dense_image_launches(mc)}")
         check(bool(torch.isfinite(st.pos).all()), f"20a {scheme}: positions")
         check(min(a.det_iterations for a in auxes) > 0, f"20a {scheme}: "
               "no GMRES iterations")
         check(img.get("K1 tt images", 0) > 0 and mc.PERIODIC_LAUNCHES > 0,
               f"20a {scheme}: K1 tt images or periodic K2 not launched")
         check(open_k1 == 0 and mc.LAUNCHES == 0 and sliced == 0
-              and sum(mc.DENSE_LAUNCHES.values()) == 0
-              and mc.DENSE_IMAGE_LAUNCHES == 0,
+              and sum(dense_launches(mc).values()) == 0
+              and dense_image_launches(mc) == 0,
               f"20a {scheme}: an open or sliced kernel ran")
         if scheme == "stochastic_Slip_Trapz":
             check(img.get("K1 tt images B=2", 0) > 0,
@@ -6261,20 +6321,20 @@ def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
     n = r.shape[0]
     n3 = 3 * n
     eta = system.eta
-    m = mc.dense_tt(r, eta, A_BENCH, wall=True, periodic_length=box)
+    m = mc.dense_tt(r, eta, A_BENCH, mode="wall", periodic_length=box)
     torch.cuda.synchronize()
-    ref = mc.dense_tt_plain(r.double(), eta, A_BENCH, wall=True,
+    ref = mc.dense_tt_plain(r.double(), eta, A_BENCH, mode="wall",
                             periodic_length=box)
     err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
     del ref
     transposed = exact_transpose(m)
-    same = torch.equal(m, mc.dense_tt(r, eta, A_BENCH, wall=True,
+    same = torch.equal(m, mc.dense_tt(r, eta, A_BENCH, mode="wall",
                                       periodic_length=box))
     del m
-    ms = cuda_ms(lambda: mc.dense_tt(r, eta, A_BENCH, wall=True,
+    ms = cuda_ms(lambda: mc.dense_tt(r, eta, A_BENCH, mode="wall",
                                      periodic_length=box), 3)
     plain_ms = cuda_ms(lambda: mc.dense_tt_plain(
-        r, eta, A_BENCH, wall=True, periodic_length=box), 1, warmup=False)
+        r, eta, A_BENCH, mode="wall", periodic_length=box), 1, warmup=False)
     n_boxes = len(pk.box_offsets(box))
     # the box-summed matrix is symmetric too: each unordered pair's box sum
     # and minimum image once
@@ -6317,7 +6377,8 @@ def phase_pseudo_periodic(pk, mc, ck, lap, mob, kin, report):
     torch.cuda.synchronize()
     b_ms = (time.perf_counter() - t0) * 1e3
     img, _ = _img_launches(pk)
-    dense = dict(mc.DENSE_LAUNCHES, dense_tt_images=mc.DENSE_IMAGE_LAUNCHES)
+    dense = dict(dense_launches(mc),
+                 dense_tt_images=dense_image_launches(mc))
     log(f"20b multibody-12k-dense-pseudo-periodic {n} blobs in {box} "
         f"stochastic_Slip_Trapz f32, materialized: one step {b_ms:.1f} ms "
         f"(the first: builds included); gmres {aux.det_iterations}, lanczos "
@@ -6483,6 +6544,905 @@ def phase_random_state_cli(L):
           "20f: the first two steps differ")
 
 
+L_FS_IMAGES = 16 * 1.6          # 20a's box: phase 6's lattice period
+MONOLAYER_SIDE = 64             # 21b, 21c: 64 x 64 shells, 4096 of them
+MONOLAYER_SPACING = 1.6
+MONOLAYER_HEIGHT = 2.0
+L_MONOLAYER = MONOLAYER_SIDE * MONOLAYER_SPACING
+# 21b's linked cells: bench physics' cutoff 2a + 30 b and grid_dim
+MONOLAYER_CUTOFF = 2 * A_BENCH + 30 * 0.2
+MONOLAYER_GRID = 16
+# the free surface's tt block condensed from one pair geometry (an FMA as
+# 2, csrc/pair_blocks.cuh fs_condense): the geometry with the image's
+# height and |R|^2 13, the RPY core 11, the image's far form and its fold
+# into the condensed block 16; applied as K1's (K1_APPLY_FLOPS), two
+# rsqrt a pair
+K1_FS_CONDENSE_FLOPS = 40
+K1_FS_MUFU = 2
+# P1's free surface beyond its open far path (P1_FAR_FLOPS[False]): the
+# image's |R|^2 (3), its far RPY form (13) and its fold into the block
+# (8); one more rsqrt
+P1_FS_FLOPS = 24
+# a box's condensed block added into a pair's box sum (csrc/pair_blocks.cuh
+# BlockSum.add: two multiplies, two adds, seven FMAs), and P1's closed
+# block applied both ways (nine FMAs each way) per right-hand side
+P1_BOX_SUM_FLOPS = 18
+P1_BLOCK_APPLY_FLOPS = 36
+
+
+def k5_bound_f32(cap):
+    """K5's float32 bound against its float64 plain version: a row's sum
+    over a stencil of 27 cap sources rounds by u32 sqrt(27 cap) of its
+    magnitude, and each term's approximate rsqrt and exp2 (~2 ulp) set a
+    floor of IMG_BOUND that a small capacity's short sums reach."""
+    return max(IMG_BOUND, float(np.finfo(np.float32).eps / 2
+                                * np.sqrt(27 * cap)))
+
+
+def alternating_ms(fns, rounds=5):
+    """Mean device time of each function over `rounds` rounds that run
+    every function once in turn, each run between CUDA events (after one
+    warm-up of each)."""
+    for fn in fns:
+        fn()
+    total = [0.0] * len(fns)
+    for _ in range(rounds):
+        for k, fn in enumerate(fns):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            total[k] += e0.elapsed_time(e1)
+    return [t / rounds for t in total]
+
+
+# the longest plain sweep phase 21 times whole: an instance's plain
+# version is first timed on its first `rows` target rows, and only where
+# those predict a whole sweep under this many seconds is the whole sweep
+# timed (once) as its plain_ms
+PLAIN_WHOLE_S = 10.0
+
+
+def plain_fields(fn, n, rows):
+    """The plain version's fields of a phase 21 record: plain_ms, its time
+    over all n target rows (fn(n), one timed call), where its first `rows`
+    rows (fn(rows), timed first) take under PLAIN_WHOLE_S * rows / n
+    seconds; else plain_ms None, and the time measured on those rows as
+    plain_rows_ms beside plain_rows (the whole sweep takes minutes at
+    these shapes, more than the run's time limit leaves)."""
+    rows = min(rows, n)
+    part = cuda_ms(lambda: fn(rows), 1, warmup=False)
+    if rows == n:
+        return dict(plain_ms=part)
+    if part * n / rows < PLAIN_WHOLE_S * 1e3:
+        return dict(plain_ms=cuda_ms(lambda: fn(n), 1, warmup=False))
+    return dict(plain_ms=None, plain_rows=rows, plain_rows_ms=part)
+
+
+def plain_text(rec):
+    """The plain version's time as a log fragment."""
+    if rec["plain_ms"] is not None:
+        return f"plain f32 {rec['plain_ms']:.1f} ms"
+    return (f"plain f32 not timed whole: {rec['plain_rows_ms']:.1f} ms on "
+            f"its first {rec['plain_rows']} target rows")
+
+
+def monolayer(n_side=MONOLAYER_SIDE, spacing=MONOLAYER_SPACING,
+              height=MONOLAYER_HEIGHT, seed=0):
+    """n_side^2 shells on a square lattice at one height (float32, numpy
+    seed), their quaternions random."""
+    idx = np.arange(n_side * n_side)
+    pos = np.stack([(idx % n_side) * spacing, (idx // n_side) * spacing,
+                    np.full(idx.shape, height)], axis=1).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    quat = rng.normal(size=(len(idx), 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    return pos, quat
+
+
+def fs_k1_check(pk, q, v, boxes, sub, what, bound):
+    """K1's free-surface instance on the square call (the paths' sweep)
+    against its plain version in float64 on the first `sub` target rows,
+    within bound x max|ref|, twice bit-identical."""
+    kw = dict(coupling="tt", mode="free_surface", self_interaction=True,
+              boxes=boxes)
+    got = pk.pair_matvec(q, None, v, **kw)
+    same = torch.equal(got, pk.pair_matvec(q, None, v, **kw))
+    ref = pk.pair_plain(q.double(), q[:sub].double(), v.double(), **kw)
+    err = (got[:sub].double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    n_rhs = v.shape[1] // 3
+    log(f"K1 tt_fs {what} B={n_rhs} {q.dtype}: first {sub} target rows vs "
+        f"plain f64 / max|ref| = {rel:.3e} (bound {bound:.0e}); repeat "
+        f"bit-identical {same}")
+    check(rel <= bound and same, f"K1 tt_fs {what} B={n_rhs} {q.dtype}: "
+          f"{rel:.3e}, bit-identical {same}")
+    return err
+
+
+def fs_k1_record(pk, q, v, L, report, what):
+    """K1's free-surface instance at a path's full shape in float32 (the
+    home box with L None, else its image boxes), timed alternating with
+    the wall's tt instance on the same inputs; its bound counts each
+    unordered pair's free-surface block condensed once (each box's, and
+    the pair's minimum image, with boxes) and applied both ways."""
+    n = q.shape[0]
+    n_rhs = v.shape[1] // 3
+    boxes = None if L is None else (L, pk.box_offsets(L))
+    err = fs_k1_check(pk, q, v, boxes, 1024, what, IMG_BOUND)
+    fs = dict(coupling="tt", mode="free_surface", self_interaction=True,
+              boxes=boxes)
+    wall = dict(fs, mode="wall")
+    ms, wall_ms = alternating_ms([lambda: pk.pair_matvec(q, None, v, **fs),
+                                  lambda: pk.pair_matvec(q, None, v,
+                                                         **wall)])
+    rows = max(1, pk._default_row_tile(n, n, 4, 3, pk.PLAIN_TILE_BYTES)) * 2
+    plain = plain_fields(lambda k: pk.pair_plain(q, q[:k], v, **fs), n, rows)
+    apply = K1_APPLY_FLOPS["tt"]
+    if boxes is None:
+        per_pair = K1_FS_CONDENSE_FLOPS + 2 * apply * n_rhs
+        mufu = K1_FS_MUFU
+    else:
+        nb = len(boxes[1])
+        periodic = sum(1 for x in L if x > 0)
+        per_pair = (nb * (K1_FS_CONDENSE_FLOPS + K1_BOX_SUM_FLOPS)
+                    + K1_BOX_CLOSE_FLOPS + 2 * K1_BLOCK_APPLY_FLOPS * n_rhs
+                    + K1_IMAGE_FLOPS * periodic)
+        mufu = nb * K1_FS_MUFU
+    pairs = n * (n + 1) // 2
+    rec = dict(max_abs_err=err, ms=ms, **plain,
+               **bound_record(4 * n * (3 + 6 * n_rhs), pairs * per_pair,
+                              pairs * mufu))
+    geom = ("OpenBox" if boxes is None else "PlaneBoxes"
+            if pk.plane_far(boxes) else "ImageBoxes")
+    rec["registers"] = instance_registers(
+        report, "sym_kernel<float, pairk::FreeSurface", f", {n_rhs}, true",
+        geom)
+    log(f"K1 tt_fs {what} B={n_rhs} f32 ({geom}): kernel {ms:.3f} ms "
+        f"(the wall's tt instance {wall_ms:.3f} ms, alternating), bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.1%} of it), {plain_text(rec)}; registers "
+        f"{rec['registers']}")
+    return rec
+
+
+def radii_mode_record(mc, mob, pk, r, v, radii, domain, box, report, what,
+                      n_rhs):
+    """P1's image-box or free-surface instance at a path's full shape in
+    float32 against its float64 plain version on the first 1024 targets
+    (within IMG_BOUND x max|ref|), twice bit-identical, timed alternating
+    with the open wall instance on the same inputs. The bound counts each
+    unordered pair once: its far form (the free surface's image with it)
+    per box, the box sum and the closed block's apply both ways, the
+    minimum image; the pairs inside contact take the full path."""
+    n = r.shape[0]
+    kw = dict(domain=domain, periodic_length=box)
+    got = mc.radii_matvec(r, v, radii, 1.0, **kw)
+    same = torch.equal(got, mc.radii_matvec(r, v, radii, 1.0, **kw))
+    sub = 1024
+    ref = torch.stack([mob.source_target_matvec(
+        r.double(), r[:sub].double(), vb.double(), radii.double(),
+        radii[:sub].double(), 1.0, domain=domain, periodic_length=box)
+        for vb in v])
+    err = (got[:, :sub].double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    log(f"P1 {domain} in {box} {what} B={n_rhs} f32: first {sub} targets vs "
+        f"plain f64 / max|ref| = {rel:.3e} (bound {IMG_BOUND:.0e}); repeat "
+        f"bit-identical {same}")
+    check(rel <= IMG_BOUND and same, f"P1 {domain} {box} B={n_rhs} at "
+          f"{what}: {rel:.3e}, bit-identical {same}")
+    ms, open_ms = alternating_ms([
+        lambda: mc.radii_matvec(r, v, radii, 1.0, **kw),
+        lambda: mc.radii_matvec(r, v, radii, 1.0, domain="single_wall")])
+    plain = plain_fields(lambda k: torch.stack([
+        mob.source_target_matvec(r, r[:k], vb, radii, radii[:k], 1.0,
+                                 domain=domain, periodic_length=box)
+        for vb in v]), n, 2 * pk._default_row_tile(n, n, 4))
+    wall = domain == "single_wall"
+    far = P1_FAR_FLOPS[wall] + (P1_FS_FLOPS if domain == "free_surface"
+                                else 0)
+    mufu = P1_PAIR_MUFU[wall] + (domain == "free_surface")
+    periodic = sum(1 for x in box if x > 0)
+    nb = len(pk.box_offsets(box))
+    if periodic:
+        per_pair = (nb * (far + P1_BOX_SUM_FLOPS) + K1_BOX_CLOSE_FLOPS
+                    + P1_BLOCK_APPLY_FLOPS * n_rhs
+                    + K1_IMAGE_FLOPS * periodic)
+    else:
+        per_pair = far + P1_APPLY_FLOPS * n_rhs
+    pairs = n * (n + 1) // 2
+    rec = dict(max_abs_err=err, ms=ms, **plain,
+               **bound_record(4 * n * (5 + 6 * n_rhs), pairs * per_pair,
+                              pairs * nb * mufu))
+    geom = ("RadiiOpen" if not periodic else "PlaneBoxes"
+            if min(box[0], box[1]) > 4.04 * float(radii.max())
+            and box[2] == 0 else "ImageBoxes")
+    code = pk.MODE_CODE[mob.DOMAIN_MODE[domain]]
+    rec["registers"] = instance_registers(
+        report, "radii_sym_kernel", f"<float, {n_rhs}, {code}, ", geom)
+    log(f"P1 {domain} in {box} {what} B={n_rhs} f32 ({geom}): kernel "
+        f"{ms:.3f} ms (the open wall instance {open_ms:.3f} ms, "
+        f"alternating), bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.1%} of it), {plain_text(rec)}; registers "
+        f"{rec['registers']}")
+    return rec
+
+
+def k5_open_record(ck, forces, r, L3, cap, report, what):
+    """K5's open instance at a path's layout in float32 against its plain
+    version in float64 (the u32 sqrt(27 cap) bound of the cell sweeps),
+    twice bit-identical, timed; returns its record and the layout's
+    overflow."""
+    pos, dims, table, dropped, frame, members = forces.open_force_cells(
+        r, L3, MONOLAYER_CUTOFF, MONOLAYER_GRID, cap)
+    law = dict(eps_over_b=0.2 / 0.2, inv_b=1 / 0.2, two_a=2 * A_BENCH)
+    got = ck.nl_forces_open(pos, table, dims, L3, frame, members, cap, **law)
+    same = torch.equal(got, ck.nl_forces_open(pos, table, dims, L3, frame,
+                                              members, cap, **law))
+    ref = ck.nl_forces_open_plain(pos.double(), table, dims, L3, members,
+                                  cap, **law)
+    err = (got.double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    bound = k5_bound_f32(cap)
+    ms = cuda_ms(lambda: ck.nl_forces_open(pos, table, dims, L3, frame,
+                                           members, cap, **law), 10)
+    plain_ms = cuda_ms(lambda: ck.nl_forces_open_plain(
+        pos, table, dims, L3, members, cap, **law), 1, warmup=False)
+    # the work: every blob against the listed blobs of its stencil's
+    # valid cells
+    n = pos.shape[0]
+    listed = (table.reshape(-1, cap) < n).sum(1).reshape(*dims).double()
+    occ = (members[1][1:] - members[1][:-1]).reshape(*dims).double()
+    stencil = torch.zeros_like(listed)
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            for oz in (-1, 0, 1):
+                s = listed
+                for ax, o in ((0, ox), (1, oy), (2, oz)):
+                    if o == 0:
+                        continue
+                    # s[c] = listed[c + o], wrapped; an open axis's edge
+                    # cell has no neighbor past it
+                    s = torch.roll(s, shifts=-o, dims=ax)
+                    if L3[ax] <= 0:
+                        idx = [slice(None)] * 3
+                        idx[ax] = slice(-1, None) if o > 0 else slice(0, 1)
+                        s[tuple(idx)] = 0
+                stencil += s
+    cand = int((occ * stencil).sum())
+    rec, text = k5_bound(n, table, cand, cand - n)
+    rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    rec["registers"] = instance_registers(report, "nl_forces_kernel<float, "
+                                          "true>")
+    log(f"K5 open {what} {n} blobs in {L3}, dims {dims}, cap {cap} f32: vs "
+        f"plain f64 max err {err:.3e}, / max|ref| = {rel:.3e} (bound "
+        f"{bound:.2e}); repeat bit-identical {same}; dropped {int(dropped)}; "
+        f"{cand} candidate pairs ({cand / n:.0f} a blob); kernel {ms:.4f} "
+        f"ms, plain f32 {plain_ms:.1f} ms; {text}, "
+        f"{rec['bound_ms'] / ms:.1%} of it; registers {rec['registers']}")
+    check(rel <= bound and same, f"K5 open {what}: {rel:.3e}, "
+          f"bit-identical {same}")
+    return rec, int(dropped)
+
+
+def phase_domains_small(pk, mc, ck, forces, mob):
+    """21k at small shapes: every new instance against its plain version in
+    float32 (IMG_BOUND x max|ref|; K5 the u32 sqrt(27 cap) bound) and
+    float64 (1e-12), twice bit-identical: K1 free-surface tt (B = 1, 2,
+    the open box, ImageBoxes, PlaneBoxes, both sweeps), in_plane tt and
+    tr on the wall instances (u_z exactly 0), K3 free-surface (open and
+    both policies), P1 images (B = 1, 2, both policies, the wall and the
+    open domain) and free-surface (open and images), K5 open and partly
+    periodic with overflowing cells."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(21)
+    n = 2000
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(0, 12, (n, 2))
+    r[:, 2] = rng.uniform(0.05, 4, n)
+    r[5] = r[4]
+    r[10, 2] = 0.0
+    r[11] = r[10]
+    bounds = {torch.float32: IMG_BOUND, torch.float64: 1e-12}
+    for L in (None, (40.0, 40.0, 0.0), (40.0, 40.0, 13.0), (3.0, 3.0, 0.0)):
+        boxes = None if L is None else (L, pk.box_offsets(L))
+        for n_rhs in (1, 2):
+            v = rng.normal(size=(n, 3 * n_rhs))
+            for dtype, bound in bounds.items():
+                q = torch.as_tensor(r / 0.3, dtype=dtype, device=dev)
+                vt = torch.as_tensor(v, dtype=dtype, device=dev)
+                fs_k1_check(pk, q, vt, boxes, n, f"{n} blobs in {L}", bound)
+                kw = dict(coupling="tt", mode="free_surface",
+                          self_interaction=True, boxes=boxes)
+                sliced = pk.pair_matvec(q, q[:300].contiguous(), vt, **kw)
+                ref = pk.pair_plain(q.double(), q[:300].double(),
+                                    vt.double(), **kw)
+                rel = ((sliced.double() - ref).abs().max()
+                       / ref.abs().max()).item()
+                check(rel <= bound, f"K1 tt_fs sliced in {L} B={n_rhs} "
+                      f"{dtype}: {rel:.3e}")
+    for coupling in ("tt", "tr"):
+        for L in ((0.0, 0.0, 0.0), (12.0, 12.0, 0.0)):
+            v = rng.normal(size=(2, n, 3))
+            kw = dict(coupling=coupling, domain="in_plane",
+                      periodic_length=L)
+            ref = mob.pairwise_matvec_multi(
+                torch.as_tensor(r, device=dev), None,
+                torch.as_tensor(v, device=dev), 0.8, 0.3, **kw)
+            for dtype, bound in bounds.items():
+                got = mob.pairwise_matvec_multi(
+                    torch.as_tensor(r, dtype=dtype, device=dev), None,
+                    torch.as_tensor(v, dtype=dtype, device=dev), 0.8, 0.3,
+                    **kw)
+                rel = ((got.double() - ref).abs().max()
+                       / ref.abs().max()).item()
+                log(f"in_plane {coupling} {n} blobs in {L} {dtype} on the "
+                    f"wall instance: vs f64 / max|ref| = {rel:.3e} (bound "
+                    f"{bound:.0e}); u_z exactly 0 {not got[..., 2].any()}")
+                check(rel <= bound and not got[..., 2].any(),
+                      f"in_plane {coupling} {L} {dtype}: {rel:.3e}")
+    for L in ((0.0, 0.0, 0.0), (12.0, 12.0, 0.0), (12.0, 12.0, 4.0)):
+        for dtype, bound in bounds.items():
+            rt = torch.as_tensor(r[:700], dtype=dtype, device=dev)
+            m = mc.dense_tt(rt, 0.8, 0.3, mode="free_surface",
+                            periodic_length=L)
+            same = torch.equal(m, mc.dense_tt(rt, 0.8, 0.3,
+                                              mode="free_surface",
+                                              periodic_length=L))
+            ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3,
+                                    mode="free_surface", periodic_length=L)
+            rel = ((m.double() - ref).abs().max() / ref.abs().max()).item()
+            log(f"K3 dense_tt_fs 700 blobs in {L} {dtype}: vs plain f64 / "
+                f"max|ref| = {rel:.3e} (bound {bound:.0e}); exact transpose "
+                f"{torch.equal(m, m.T)}, repeat bit-identical {same}")
+            check(rel <= bound and same and torch.equal(m, m.T),
+                  f"K3 dense_tt_fs {L} {dtype}: {rel:.3e}")
+    rad = rng.uniform(0.08, 0.3, n)
+    rp = r.copy()
+    rp[:, :2] *= 0.5
+    for domain, L in (("single_wall", (9.0, 8.0, 0.0)),
+                      ("no_wall", (9.0, 8.0, 0.0)),
+                      ("single_wall", (1.0, 1.0, 0.0)),
+                      ("no_wall", (9.0, 8.0, 7.0)),
+                      ("free_surface", (0.0, 0.0, 0.0)),
+                      ("free_surface", (9.0, 8.0, 0.0)),
+                      ("free_surface", (9.0, 8.0, 7.0))):
+        for n_rhs in (1, 2):
+            v = rng.normal(size=(n_rhs, n, 3))
+            for dtype, bound in bounds.items():
+                args = [torch.as_tensor(x, dtype=dtype, device=dev)
+                        for x in (rp, v, rad)]
+                kw = dict(domain=domain, periodic_length=L)
+                got = mc.radii_matvec(*args, 1.0, **kw)
+                same = torch.equal(got, mc.radii_matvec(*args, 1.0, **kw))
+                ref = mc.radii_matvec_plain(*(x.double() for x in args),
+                                            1.0, **kw)
+                rel = ((got.double() - ref).abs().max()
+                       / ref.abs().max()).item()
+                log(f"P1 {domain} {n} blobs in {L} B={n_rhs} {dtype}: vs "
+                    f"plain f64 / max|ref| = {rel:.3e} (bound {bound:.0e}); "
+                    f"repeat bit-identical {same}")
+                check(rel <= bound and same, f"P1 {domain} {L} B={n_rhs} "
+                      f"{dtype}: {rel:.3e}")
+    for L3 in ((0.0, 0.0, 0.0), (30.0, 30.0, 0.0)):
+        for cap in (256, 6):
+            rr = np.empty((6000, 3))
+            rr[:, :2] = rng.uniform(-2.0, 32.0, (6000, 2))
+            rr[:, 2] = rng.uniform(0.2, 2.0, 6000)
+            for dtype in bounds:
+                pos, dims, table, dropped, frame, members = (
+                    forces.open_force_cells(
+                        torch.as_tensor(rr, dtype=dtype, device=dev), L3,
+                        1.9, 16, cap))
+                law = dict(eps_over_b=1.0, inv_b=4.0, two_a=0.4)
+                got = ck.nl_forces_open(pos, table, dims, L3, frame,
+                                        members, cap, **law)
+                same = torch.equal(got, ck.nl_forces_open(
+                    pos, table, dims, L3, frame, members, cap, **law))
+                ref = ck.nl_forces_open_plain(pos.double(), table, dims, L3,
+                                              members, cap, **law)
+                rel = ((got.double() - ref).abs().max()
+                       / ref.abs().max()).item()
+                bound = (1e-12 if dtype == torch.float64 else k5_bound_f32(
+                    cap))
+                log(f"K5 open 6000 blobs in {L3} cap {cap} {dtype}: dropped "
+                    f"{int(dropped)}; vs plain f64 / max|ref| = {rel:.3e} "
+                    f"(bound {bound:.2e}); repeat bit-identical {same}")
+                check(rel <= bound and same, f"K5 open {L3} cap {cap} "
+                      f"{dtype}: {rel:.3e}")
+
+
+GMRES_MAXITER = 300
+
+
+def _domain_steps(system, scheme, pos, quat, n_steps):
+    """n_steps of `scheme` (float32 on the card), each timed on the host
+    clock between synchronizes (the first includes the engine's builds);
+    returns (final state, ms list, aux list)."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    dev = torch.device(DEVICE)
+    st = make_state(pos, quat, dtype=torch.float32, device=dev)
+    step = integrators.make_stepper(
+        system, scheme, 1e-3, lanczos_tolerance=5e-4, lanczos_max_iter=32,
+        lanczos_check_every=4, gmres_restart=60, gmres_maxiter=GMRES_MAXITER,
+        max_rejections=3)
+    carry = integrators.init_carry(system, state=st)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times, auxes = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, carry, aux = step(st, gen, carry)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        auxes.append(aux)
+    return st, times, auxes
+
+
+# why some of phase 21's runs stop at GMRES's cap, as the JAX package's
+# do on the same semantics (tests/test_torch_domains.py)
+CAPPED_BOX_FS = ("the free surface's 3 x 3 box sum is indefinite at the "
+                 "lattice's packing")
+CAPPED_IN_PLANE = ("Slip-Trapz's random finite difference slips blobs "
+                   "along z, where the projected mobility has no rows: "
+                   "the saddle system is inconsistent")
+
+
+def _converged(auxes, what, capped=None):
+    """Whether each step's solves converged (each GMRES residual under the
+    solver tolerance), as a log fragment. A run with `capped` None fails
+    the check if one did not; `capped` names why a run's solves may stop
+    at GMRES's cap, logged with the run marked NOT CONVERGED (its step
+    times are then of solves cut at the cap)."""
+    conv = [bool(a.solves_converged) for a in auxes]
+    if capped is None:
+        check(all(conv), f"{what}: a solve did not converge ({conv})")
+    if all(conv):
+        return f"converged {conv}"
+    return (f"converged {conv}, NOT CONVERGED: GMRES at its cap of "
+            f"{GMRES_MAXITER} a solve, since {capped}")
+
+
+def _launch_counts(pk, mc, ck):
+    """The launches of the instances phase 21 follows, by record name."""
+    out = {f"K1 tt_fs B={b}": pk.LAUNCHES["tt_fs", b] for b in (1, 2)}
+    out.update({f"K1 tt_fs images B={b}": pk.IMAGE_LAUNCHES["tt_fs", b,
+                                                             "sym"]
+                for b in (1, 2)})
+    out.update({f"K1 tt B={b}": pk.LAUNCHES["tt", b] for b in (1, 2)})
+    out["K3 fs"] = mc.DENSE_TT_LAUNCHES["free_surface", False]
+    out["K3 fs images"] = mc.DENSE_TT_LAUNCHES["free_surface", True]
+    out["K3"] = mc.DENSE_TT_LAUNCHES["wall", False]
+    out["K4"] = mc.SYMM_LAUNCHES
+    for (b, m, img), k in mc.RADII_LAUNCHES.items():
+        if k:
+            out[f"P1 {m}{' images' if img else ''} B={b}"] = k
+    out["K5 open"] = ck.LAUNCHES["nl_forces_open"]
+    out["K2"] = mc.LAUNCHES
+    out["K2 periodic"] = mc.PERIODIC_LAUNCHES
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_domains(pk, mc, ck, lap, mob, kin, report):
+    """Phase 21, the last single-device domains at full width, float32
+    (21f float64): in_plane and free_surface on the direct engine,
+    per-blob radii in image boxes and on the free surface, and linked-cell
+    forces in open and partly periodic boxes (K1's free-surface tt
+    instance, open and in image boxes; in_plane on K1's wall instances
+    between projections; K3's free-surface instance; P1's image-box and
+    free-surface instances; K5's open instance):
+      21k the kernel checks at small shapes (phase_domains_small), and
+          each instance at its path's shape against its plain version,
+          timed over five alternating runs;
+      21a free_surface on phase 6's scene (4096 shells, 49,152 blobs),
+          matrix-free, forward Euler and Slip-Trapz, then one Slip-Trapz
+          step in phase 20a's (25.6, 25.6, 0) box;
+      21b the in_plane monolayer: the 4096 shells on a 64 x 64 lattice at
+          spacing 1.6 and height 2.0 in an open box, linked-cell forces
+          (cutoff 2a + 30 b, grid_dim 16, the capacity sized at the
+          start), forward Euler and Slip-Trapz; every K1 product's u_z
+          exactly 0, the bodies' z velocities within the solver tolerance
+          of the largest in-plane one, no cell overflowing;
+      21c that monolayer in (102.4, 102.4, 0) above the wall with phase
+          18's bidisperse shells: one forward Euler and one Slip-Trapz
+          step (P1's image boxes, K5 partly periodic);
+      21d phase 9's 1024 shells under free_surface (open, and in phase
+          20b's (17.6, 17.6, 0) box) and under in_plane, one materialized
+          Slip-Trapz step each;
+      21e phase 18's bidisperse scene under free_surface, two forward
+          Euler steps, then one in 20a's box;
+      21f two 64-shell input files through the CLI on the card and on the
+          CPU in float64 (a numba_free_surface implementation line;
+          domain in_plane with tree forces), to 1e-10.
+    Every run's solves must converge, but for the free surface's in a box
+    and in_plane's Slip-Trapz, whose saddle systems are indefinite or
+    inconsistent on the JAX package's semantics (CAPPED_BOX_FS,
+    CAPPED_IN_PLANE): their runs are logged NOT CONVERGED where GMRES
+    stops at its cap. Returns (records, launches) for the kernel JSON
+    line."""
+    from rigidmultiblobswall_tpu_torch.models import solvers
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    records, launches = {}, {}
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    phase_domains_small(pk, mc, ck, forces, mob)
+    log(f"21k small shapes: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21a: free_surface on phase 6's scene
+    system = bench_system(N_SHELLS, domain="free_surface")
+    pos, quat = lattice(N_SHELLS)
+    st = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, st).contiguous()
+    n = r.shape[0]
+    q = (r / A_BENCH).contiguous()
+    box = xy_box(L_FS_IMAGES)
+    La = tuple(x / A_BENCH for x in box)
+    for n_rhs in (1, 2):
+        v = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        records[f"fs_b{n_rhs}"] = fs_k1_record(pk, q, v, None, report,
+                                               f"{n} blobs")
+        fs_k1_check(pk, q.double(), v.double(), None, 256, f"{n} blobs",
+                    1e-12)
+        records[f"fs_img_b{n_rhs}"] = fs_k1_record(pk, q, v, La, report,
+                                                   f"{n} blobs in {box}")
+        fs_k1_check(pk, q.double(), v.double(), (La, pk.box_offsets(La)),
+                    128, f"{n} blobs in {box}", 1e-12)
+    a_launches = {}
+    for scheme, sys_, n_steps in (
+            ("deterministic_forward_euler", system, 3),
+            ("stochastic_Slip_Trapz", system, 3),
+            ("stochastic_Slip_Trapz",
+             bench_system(N_SHELLS, domain="free_surface",
+                          periodic_length=box), 1)):
+        _reset_counts(pk, mc, ck, lap)
+        st, times, auxes = _domain_steps(sys_, scheme, pos, quat, n_steps)
+        counts = _launch_counts(pk, mc, ck)
+        for k, v_ in counts.items():
+            a_launches[k] = a_launches.get(k, 0) + v_
+        where = "" if sys_ is system else f" in {box}"
+        conv = _converged(auxes, f"21a {scheme}{where}",
+                          None if sys_ is system else CAPPED_BOX_FS)
+        log(f"21a multibody-49k-free-surface{where} {n} blobs {scheme} f32: "
+            f"{_fmt(times)} ms/step (the first with the engine's set-up); "
+            f"gmres "
+            f"{[a.det_iterations for a in auxes]}, {conv}, lanczos "
+            f"{[a.stoch_iterations for a in auxes]}, rejections "
+            f"{[a.rejections for a in auxes]}; launches {counts}")
+        check(bool(torch.isfinite(st.pos).all()), f"21a {scheme}: positions")
+        check(min(a.det_iterations for a in auxes) > 0, f"21a {scheme}: no "
+              "GMRES iterations")
+        want = ("K1 tt_fs B=1" if sys_ is system
+                else "K1 tt_fs images B=1")
+        check(counts.get(want, 0) > 0 and counts.get("K2", 0) + counts.get(
+            "K2 periodic", 0) > 0 and "K1 tt B=1" not in counts,
+              f"21a {scheme}{where}: {want} or K2 not launched, or the "
+              f"wall's tt ran ({counts})")
+        if scheme == "stochastic_Slip_Trapz":
+            want = want.replace("B=1", "B=2")
+            check(counts.get(want, 0) > 0, f"21a Slip-Trapz{where}: {want} "
+                  "not launched")
+    launches.update(a_launches)
+    log(f"21a: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21b: the in_plane monolayer, open box, linked-cell forces
+    mpos, mquat = monolayer()
+    system = bench_system(len(mpos), domain="in_plane",
+                          blob_blob_force_method="neighbor_list",
+                          blob_blob_cutoff=MONOLAYER_CUTOFF,
+                          blob_blob_grid_dim=MONOLAYER_GRID)
+    st = make_state(mpos, mquat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, st).contiguous()
+    n = r.shape[0]
+    system = forces.auto_force_cell_capacity(system, r, log=log)
+    cap = system.blob_blob_cell_capacity
+    records["K5_open"], dropped = k5_open_record(
+        ck, forces, r, (0.0, 0.0, 0.0), cap, report, "21b")
+    check(dropped == 0, "21b: a cell overflowed at the start")
+    uz = []
+    orig = mob.pairwise_matvec_multi
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        if k.get("domain") == "in_plane":
+            uz.append(out[..., 2].abs().max())
+        return out
+
+    b_launches = {}
+    mob.pairwise_matvec_multi = spy
+    try:
+        for scheme in ("deterministic_forward_euler",
+                       "stochastic_Slip_Trapz"):
+            _reset_counts(pk, mc, ck, lap)
+            st, times, auxes = _domain_steps(system, scheme, mpos, mquat, 2)
+            counts = _launch_counts(pk, mc, ck)
+            for k, v_ in counts.items():
+                b_launches[k] = b_launches.get(k, 0) + v_
+            rb = kin.blob_positions(system, st)
+            over = forces.force_cells_dropped(system, rb)
+            dz = float((st.pos[:, 2] - MONOLAYER_HEIGHT).abs().max())
+            conv = _converged(auxes, f"21b {scheme}", CAPPED_IN_PLANE if
+                              scheme == "stochastic_Slip_Trapz" else None)
+            log(f"21b monolayer-49k-in-plane {n} blobs in an open box, "
+                f"linked cells (cap {cap}) {scheme} f32: {_fmt(times)} "
+                f"ms/step (the first with the set-up); gmres "
+                f"{[a.det_iterations for a in auxes]}, {conv}, lanczos "
+                f"{[a.stoch_iterations for a in auxes]}, rejections "
+                f"{[a.rejections for a in auxes]}; launches {counts}; cells "
+                f"overflowing {over}; largest height change {dz:.3e}")
+            check(bool(torch.isfinite(st.pos).all()) and over == 0,
+                  f"21b {scheme}: positions or overflow ({over})")
+            check(counts.get("K1 tt B=1", 0) > 0
+                  and counts.get("K5 open", 0) > 0,
+                  f"21b {scheme}: K1 tt (wall) or K5 open not launched "
+                  f"({counts})")
+    finally:
+        mob.pairwise_matvec_multi = orig
+    largest_uz = float(torch.stack(uz).max()) if uz else float("nan")
+    check(uz and largest_uz == 0.0, f"21b: a K1 product's u_z was not 0 "
+          f"({largest_uz}, {len(uz)} products)")
+    st = make_state(mpos, mquat, dtype=torch.float32, device=dev)
+    sol = solvers.solve_mobility_problem(system, st, restart=60,
+                                         maxiter=300)
+    U = sol.velocities
+    vz = float(U[:, 2].abs().max())
+    vxy = float(U[:, :2].abs().max())
+    log(f"21b: {len(uz)} in_plane products, largest |u_z| {largest_uz}; "
+        f"the solve's bodies: largest |v_z| {vz:.3e} against the largest "
+        f"in-plane {vxy:.3e} (bound {system.solver_tolerance:.0e} of it)")
+    check(vz <= system.solver_tolerance * vxy, f"21b: body z velocity "
+          f"{vz:.3e} over {system.solver_tolerance} x {vxy:.3e}")
+    launches.update({f"21b {k}": v_ for k, v_ in b_launches.items()})
+    log(f"21b: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21c: the bidisperse monolayer in (102.4, 102.4, 0) above the wall
+    box = xy_box(L_MONOLAYER)
+    system = radii_system(len(mpos), periodic_length=box,
+                          blob_blob_force_method="neighbor_list",
+                          blob_blob_cutoff=MONOLAYER_CUTOFF,
+                          blob_blob_grid_dim=MONOLAYER_GRID)
+    cpos, cquat = alternate(mpos, mquat)
+    st = make_state(cpos, cquat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, st).contiguous()
+    n = r.shape[0]
+    radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
+    system = forces.auto_force_cell_capacity(system, r, log=log)
+    cap = system.blob_blob_cell_capacity
+    records["K5_partly"], dropped = k5_open_record(
+        ck, forces, r, box, cap, report, "21c")
+    check(dropped == 0, "21c: a cell overflowed at the start")
+    for n_rhs in (1, 2):
+        v = torch.randn((n_rhs, n, 3), generator=g, device=dev)
+        records[f"p1_img_b{n_rhs}"] = radii_mode_record(
+            mc, mob, pk, r, v, radii, "single_wall", box, report, f"{n} blobs",
+            n_rhs)
+    c_launches = {}
+    for scheme in ("deterministic_forward_euler", "stochastic_Slip_Trapz"):
+        _reset_counts(pk, mc, ck, lap)
+        st, times, auxes = _domain_steps(system, scheme, cpos, cquat, 1)
+        counts = _launch_counts(pk, mc, ck)
+        for k, v_ in counts.items():
+            c_launches[k] = c_launches.get(k, 0) + v_
+        over = forces.force_cells_dropped(system,
+                                          kin.blob_positions(system, st))
+        conv = _converged(auxes, f"21c {scheme}")
+        log(f"21c monolayer-49k-radii-pseudo-periodic {n} blobs in {box} "
+            f"{scheme} f32: one step {_fmt(times)} ms (with the set-up); "
+            f"gmres {[a.det_iterations for a in auxes]}, {conv}, "
+            f"lanczos {[a.stoch_iterations for a in auxes]}; launches "
+            f"{counts}; cells overflowing {over}")
+        check(bool(torch.isfinite(st.pos).all()) and over == 0,
+              f"21c {scheme}: positions or overflow")
+        check(counts.get("P1 wall images B=1", 0) > 0
+              and counts.get("K5 open", 0) > 0, f"21c {scheme}: P1 images "
+              f"or K5 open not launched ({counts})")
+    launches.update({f"21c {k}": v_ for k, v_ in c_launches.items()})
+    log(f"21c: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21d: phase 9's 1024 shells, materialized
+    pos_d, quat_d = lattice(N_DENSE)
+    st = make_state(pos_d, quat_d, dtype=torch.float32, device=dev)
+    sys_fs = bench_system(N_DENSE, domain="free_surface")
+    r = kin.blob_positions(sys_fs, st).contiguous()
+    nd = r.shape[0]
+    n3 = 3 * nd
+    m = mc.dense_tt(r, 1.0, A_BENCH, mode="free_surface")
+    ref = mc.dense_tt_plain(r.double(), 1.0, A_BENCH, mode="free_surface")
+    err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
+    del ref
+    transposed = exact_transpose(m)
+    same = torch.equal(m, mc.dense_tt(r, 1.0, A_BENCH, mode="free_surface"))
+    del m
+    ms, wall_ms = alternating_ms([
+        lambda: mc.dense_tt(r, 1.0, A_BENCH, mode="free_surface"),
+        lambda: mc.dense_tt(r, 1.0, A_BENCH, mode="wall")])
+    plain_ms = cuda_ms(lambda: mc.dense_tt_plain(
+        r, 1.0, A_BENCH, mode="free_surface"), 1, warmup=False)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound_record(4 * (n3 * n3 + n3), nd * (nd + 1) // 2 * (
+                   K1_FS_CONDENSE_FLOPS + K3_PAIR_FLOPS - 70),
+                   nd * (nd + 1) // 2 * K1_FS_MUFU))
+    rec["registers"] = instance_registers(report, "dense_tt_kernel<float, "
+                                          "false, pairk::OpenBox<float>, "
+                                          "true>")
+    records["K3_fs"] = rec
+    log(f"K3 dense_tt_fs {nd} blobs f32 vs plain f64: max err {err:.3e}, / "
+        f"max|ref| = {err / scale:.3e} (bound {IMG_BOUND:.0e}); exact "
+        f"transpose {transposed}, repeat bit-identical {same}; kernel "
+        f"{ms:.3f} ms (the wall's K3 {wall_ms:.3f} ms, alternating), bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.1%} of it), plain f32 {plain_ms:.1f} ms; "
+        f"registers {rec['registers']}")
+    check(err <= IMG_BOUND * scale and transposed and same,
+          f"K3 dense_tt_fs at {nd} blobs")
+    dbox = xy_box(L_PSEUDO_DENSE)
+    m = mc.dense_tt(r, 1.0, A_BENCH, mode="free_surface",
+                    periodic_length=dbox)
+    ref = mc.dense_tt_plain(r.double(), 1.0, A_BENCH, mode="free_surface",
+                            periodic_length=dbox)
+    err, scale = _chunked_err(m, lambda r0, r1: ref[r0:r1], n3)
+    del ref
+    transposed = exact_transpose(m)
+    del m
+    ms, img_wall_ms = alternating_ms([
+        lambda: mc.dense_tt(r, 1.0, A_BENCH, mode="free_surface",
+                            periodic_length=dbox),
+        lambda: mc.dense_tt(r, 1.0, A_BENCH, mode="wall",
+                            periodic_length=dbox)])
+    plain_ms = cuda_ms(lambda: mc.dense_tt_plain(
+        r, 1.0, A_BENCH, mode="free_surface", periodic_length=dbox), 1,
+        warmup=False)
+    nbx = len(pk.box_offsets(dbox))
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound_record(4 * (n3 * n3 + n3), nd * (nd + 1) // 2 * (
+                   nbx * (K1_FS_CONDENSE_FLOPS + K1_BOX_SUM_FLOPS)
+                   + K3_PAIR_FLOPS - 70 + 2 * K1_IMAGE_FLOPS),
+                   nd * (nd + 1) // 2 * nbx * K1_FS_MUFU))
+    rec["registers"] = instance_registers(report, "dense_tt_kernel<float, "
+                                          "false, pairk::PlaneBoxes<float>, "
+                                          "true>")
+    records["K3_fs_img"] = rec
+    log(f"K3 dense_tt_fs images {nd} blobs in {dbox} f32 vs plain f64: max "
+        f"err {err:.3e}, / max|ref| = {err / scale:.3e}; exact transpose "
+        f"{transposed}; kernel {ms:.3f} ms (the wall's K3 images "
+        f"{img_wall_ms:.3f} ms, alternating), bound {rec['bound_ms']:.3f} "
+        f"ms ({rec['bound_by']}, {rec['bound_ms'] / ms:.1%} of it), plain "
+        f"f32 {plain_ms:.1f} ms; registers {rec['registers']}")
+    check(err <= IMG_BOUND * scale and transposed, f"K3 dense_tt_fs images "
+          f"at {nd} blobs")
+    d_launches = {}
+    for name, sys_ in (("free_surface", sys_fs),
+                       ("free_surface in a box",
+                        bench_system(N_DENSE, domain="free_surface",
+                                     periodic_length=dbox)),
+                       ("in_plane", bench_system(N_DENSE,
+                                                 domain="in_plane"))):
+        _reset_counts(pk, mc, ck, lap)
+        torch.cuda.reset_peak_memory_stats()
+        st, times, auxes = _domain_steps(sys_, "stochastic_Slip_Trapz",
+                                         pos_d, quat_d, 1)
+        counts = _launch_counts(pk, mc, ck)
+        for k, v_ in counts.items():
+            d_launches[k] = d_launches.get(k, 0) + v_
+        conv = _converged(auxes, f"21d {name}", {
+            "free_surface": None, "free_surface in a box": CAPPED_BOX_FS,
+            "in_plane": CAPPED_IN_PLANE}[name])
+        log(f"21d multibody-12k-dense {name} {nd} blobs "
+            f"stochastic_Slip_Trapz f32, materialized: one step "
+            f"{_fmt(times)} ms (the builds included); gmres "
+            f"{[a.det_iterations for a in auxes]}, {conv}, lanczos "
+            f"{[a.stoch_iterations for a in auxes]}; launches {counts}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check(bool(torch.isfinite(st.pos).all()), f"21d {name}: positions")
+        want = {"free_surface": "K3 fs", "free_surface in a box":
+                "K3 fs images", "in_plane": "K3"}[name]
+        check(counts.get(want, 0) > 0 and counts.get("K4", 0) > 0,
+              f"21d {name}: {want} or K4 not launched ({counts})")
+    launches.update({f"21d {k}": v_ for k, v_ in d_launches.items()})
+    log(f"21d: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21e: phase 18's bidisperse scene on the free surface
+    system = radii_system(N_SHELLS, domain="free_surface")
+    epos, equat = alternate(*lattice(N_SHELLS))
+    st = make_state(epos, equat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, st).contiguous()
+    n = r.shape[0]
+    radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
+    box = xy_box(L_FS_IMAGES)
+    v = torch.randn((1, n, 3), generator=g, device=dev)
+    records["p1_fs"] = radii_mode_record(
+        mc, mob, pk, r, v, radii, "free_surface", (0.0, 0.0, 0.0), report,
+        f"{n} blobs", 1)
+    records["p1_fs_img"] = radii_mode_record(
+        mc, mob, pk, r, v, radii, "free_surface", box, report, f"{n} blobs",
+        1)
+    e_launches = {}
+    for sys_, n_steps in ((system, 2),
+                          (radii_system(N_SHELLS, domain="free_surface",
+                                        periodic_length=box), 1)):
+        _reset_counts(pk, mc, ck, lap)
+        st, times, auxes = _domain_steps(sys_, "deterministic_forward_euler",
+                                         epos, equat, n_steps)
+        counts = _launch_counts(pk, mc, ck)
+        for k, v_ in counts.items():
+            e_launches[k] = e_launches.get(k, 0) + v_
+        where = "" if sys_ is system else f" in {box}"
+        conv = _converged(auxes, f"21e{where}",
+                          None if sys_ is system else CAPPED_BOX_FS)
+        log(f"21e multibody-49k-radii-free-surface{where} {n} blobs forward "
+            f"Euler f32: {_fmt(times)} ms/step (the first with the set-up); "
+            f"gmres "
+            f"{[a.det_iterations for a in auxes]}, {conv}; launches "
+            f"{counts}")
+        check(bool(torch.isfinite(st.pos).all()), f"21e{where}: positions")
+        want = "P1 free_surface B=1" if sys_ is system else (
+            "P1 free_surface images B=1")
+        check(counts.get(want, 0) > 0, f"21e{where}: {want} not launched "
+              f"({counts})")
+    launches.update({f"21e {k}": v_ for k, v_ in e_launches.items()})
+    log(f"21e: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21f: the CLI
+    phase_domains_cli()
+    for key, rec in records.items():
+        log(f"phase 21 {key}: {rec['ms']:.4f} ms, "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of its bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); registers "
+            f"{rec.pop('registers')}")
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return records, launches
+
+
+def phase_domains_cli():
+    """21f: two generated 64-shell input files (bench physics at kT 0,
+    solver tolerance 1e-12) through the CLI on the card and on the CPU in
+    float64, 3 steps: one selecting the free surface by a
+    numba_free_surface implementation line (phase 6's lattice,
+    Slip-Trapz), one with domain in_plane and tree blob-blob forces (21b's
+    monolayer at 8 x 8 shells, forward Euler: Slip-Trapz's random finite
+    difference puts a z slip on blobs without z mobility, and its solve
+    runs GMRES to the cap, as the JAX package's does); the .clones agree
+    to 1e-10 of the displacement."""
+    for name, extra in (
+            ("free_surface", "mobility_vector_prod_implementation "
+             "numba_free_surface\n"),
+            ("in_plane_tree", "domain in_plane\n"
+             "blob_blob_force_implementation tree\n")):
+        pos, quat = (lattice(64, seed=4) if name == "free_surface"
+                     else monolayer(8, seed=4))
+        scheme = ("stochastic_Slip_Trapz" if name == "free_surface"
+                  else "deterministic_forward_euler")
+        pos = pos.astype(np.float64)
+
+        def make(dd):
+            inp = write_shell_input(dd, pos, quat, (
+                f"scheme {scheme}\ndt 0.002\nn_steps 3\nn_save 3\n"
+                "solver_tolerance 1e-12\n" + extra))
+            text = open(inp).read().replace("kT 0.05", "kT 0.0")
+            if "tree" in extra:
+                text = text.replace(
+                    "blob_blob_force_implementation python\n", "")
+            open(inp, "w").write(text)
+            return "input.dat"
+
+        out = run_cli_pair(make)
+        err, disp = clones_error(out, ["run.shell.00000003.clones"], pos)
+        log(f"21f CLI {name} 64 shells {scheme} f64: card "
+            f"{out['card'][1]:.2f} s, "
+            f"CPU {out['host'][1]:.2f} s; card vs CPU max err {err:.3e}, "
+            f"largest displacement {disp:.3e} (bound 1e-10 of it)")
+        check(disp > 0 and err <= 1e-10 * disp, f"21f CLI {name}: "
+              f"{err:.3e} of {disp:.3e}")
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -6576,6 +7536,8 @@ def main():
     p1_launches = phase_radii_path(pk, mc, ck, lap)         # phase 18
     p2_records = phase_radii_spectral_path(pk, mc, ck, lap, report)  # 19
     img_records, img_launches = phase_pseudo_periodic(      # phase 20
+        pk, mc, ck, lap, mob, kin, report)
+    dom_records, dom_launches = phase_domains(              # phase 21
         pk, mc, ck, lap, mob, kin, report)
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
@@ -6750,6 +7712,51 @@ def main():
         source="rigidmultiblobswall_tpu_torch/csrc/dense_tt.cu",
         replaces="rigidmultiblobswall_tpu/ops/mobility.py:649",
         launches=img_launches["K3 images"], **img_records["K3"]))
+    # phase 21's new instances at their paths' shapes, with their launches
+    # over the path that runs them: K1's free-surface tt (21a), K3's
+    # free-surface instance (21d), P1's image boxes (21c) and free surface
+    # (21e), K5's open instance (21b open, 21c partly periodic); the JAX
+    # package's functions they replace (XLA there, but K1's and K5's Pallas
+    # kernels on the TPU's own domains)
+    fs_src = "rigidmultiblobswall_tpu_torch/csrc/pair_fs.cu"
+    p1_src = "rigidmultiblobswall_tpu_torch/csrc/pair_radii.cu"
+    k3_src = "rigidmultiblobswall_tpu_torch/csrc/dense_tt.cu"
+    k5_src = "rigidmultiblobswall_tpu_torch/csrc/nl_forces.cu"
+    for key, name, src, rep, launch in (
+            ("fs_b1", "K1 pair_tt_fs", fs_src,
+             "rigidmultiblobswall_tpu/ops/rpy.py:466", "K1 tt_fs B=1"),
+            ("fs_b2", "K1 pair_tt_fs B=2", fs_src,
+             "rigidmultiblobswall_tpu/ops/rpy.py:466", "K1 tt_fs B=2"),
+            ("fs_img_b1", "K1 pair_tt_fs images", fs_src, k1_img,
+             "K1 tt_fs images B=1"),
+            ("fs_img_b2", "K1 pair_tt_fs images B=2", fs_src, k1_img,
+             "K1 tt_fs images B=2"),
+            ("K3_fs", "K3 dense_tt_fs", k3_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:617", "21d K3 fs"),
+            ("K3_fs_img", "K3 dense_tt_fs images", k3_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:649",
+             "21d K3 fs images"),
+            ("p1_img_b1", "P1 pair_radii images", p1_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:479",
+             "21c P1 wall images B=1"),
+            ("p1_img_b2", "P1 pair_radii images B=2", p1_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:479",
+             "21c P1 wall images B=2"),
+            ("p1_fs", "P1 pair_radii free surface", p1_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:493",
+             "21e P1 free_surface B=1"),
+            ("p1_fs_img", "P1 pair_radii free surface images", p1_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:493",
+             "21e P1 free_surface images B=1"),
+            ("K5_open", "K5 nl_forces open", k5_src,
+             "rigidmultiblobswall_tpu/ops/forces.py:186", "21b K5 open"),
+            ("K5_partly", "K5 nl_forces open, partly periodic", k5_src,
+             "rigidmultiblobswall_tpu/ops/forces.py:186", "21c K5 open")):
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=dom_launches.get(launch, 0),
+                            **dom_records[key]))
+        check(kernels[-1]["launches"] > 0, f"phase 21: {name} was not "
+              "launched on its path")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

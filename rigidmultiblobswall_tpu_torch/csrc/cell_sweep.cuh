@@ -170,12 +170,23 @@ __device__ __forceinline__ void scan27(const int* count, int* start) {
   }
 }
 
-// Fill the stencil of cell c (all threads call; ends in a barrier). Each
-// stencil cell's count of live slots (a prefix) comes from prefix_below,
-// one group of 8 threads a cell.
-__device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
-                                    int c, const Grid& g, double Lx,
-                                    double Ly, double Lz) {
+// The cell frame of a box with open axes (K5's open instance): the cells
+// of axis a start at lo[a] with the edge cs[a]; L[a] > 0 wraps the axis
+// as a periodic box does (lo 0, cs L / n), L[a] == 0 leaves it open, and
+// its stencil stops at the grid's edges: a neighbor cell past an open
+// edge holds no source (the JAX package's forces.py:214-231 masks it)
+// and its particles take no image shift.
+struct Frame {
+  double lo[3], cs[3], L[3];
+};
+
+// Fill the stencil of cell c in the frame f (all threads call; ends in a
+// barrier). Each stencil cell's count of live slots (a prefix) comes from
+// prefix_below, one group of 8 threads a cell; a cell past an open edge
+// counts none.
+__device__ inline void load_stencil(Stencil& st,
+                                    const int* __restrict__ table, int c,
+                                    const Grid& g, const Frame& f) {
   __shared__ int count[27];
   const int member = threadIdx.x % 8;
   const unsigned group = 0xffu << (threadIdx.x % 32 / 8 * 8);
@@ -183,19 +194,28 @@ __device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
     const int c3[3] = {c / (g.ny * g.nz), (c / g.nz) % g.ny, c % g.nz};
     const int dims[3] = {g.nx, g.ny, g.nz};
     const int off[3] = {k / 9 - 1, (k / 3) % 3 - 1, k % 3 - 1};
-    const double box[3] = {Lx, Ly, Lz};
     int nb[3];
+    bool inside = true;   // uniform across the group of the cell k
     for (int a = 0; a < 3; ++a) {
       const int raw = c3[a] + off[a];
-      const int wrap = raw < 0 ? -1 : (raw >= dims[a] ? 1 : 0);
-      nb[a] = raw - wrap * dims[a];
-      const double corner = c3[a] * (box[a] / dims[a]);
-      if (member == 0) st.offset[k][a] = wrap * box[a] - corner;
+      const double corner = f.lo[a] + c3[a] * f.cs[a];
+      double shift = 0.0;
+      if (f.L[a] > 0.0) {
+        const int wrap = raw < 0 ? -1 : (raw >= dims[a] ? 1 : 0);
+        nb[a] = raw - wrap * dims[a];
+        shift = wrap * f.L[a];
+      } else {
+        inside = inside && raw >= 0 && raw < dims[a];
+        nb[a] = min(max(raw, 0), dims[a] - 1);
+      }
+      if (member == 0) st.offset[k][a] = shift - corner;
       if (member == 0 && k == 13) st.corner[a] = corner;
     }
     const int cell = (nb[0] * g.ny + nb[1]) * g.nz + nb[2];
-    const int lo = prefix_below(table + static_cast<size_t>(cell) * g.cap,
-                                g.cap, g.n, member, group);
+    const int lo = inside ? prefix_below(table + static_cast<size_t>(cell) *
+                                                     g.cap,
+                                         g.cap, g.n, member, group)
+                          : 0;
     if (member == 0) {
       st.cell[k] = cell;
       count[k] = lo;
@@ -204,6 +224,17 @@ __device__ inline void load_stencil(Stencil& st, const int* __restrict__ table,
   __syncthreads();
   scan27(count, st.start);
   __syncthreads();
+}
+
+// load_stencil in the periodic box of lengths Lx, Ly, Lz (cells of edge
+// L / n from 0)
+__device__ inline void load_stencil(Stencil& st,
+                                    const int* __restrict__ table, int c,
+                                    const Grid& g, double Lx, double Ly,
+                                    double Lz) {
+  const Frame f{{0.0, 0.0, 0.0}, {Lx / g.nx, Ly / g.ny, Lz / g.nz},
+                {Lx, Ly, Lz}};
+  load_stencil(st, table, c, g, f);
 }
 
 // The real particles (ids below n_real) of each stencil cell: a prefix of

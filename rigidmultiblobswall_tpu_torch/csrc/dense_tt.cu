@@ -49,8 +49,18 @@
 // both precisions. The box sum is symmetric like the open matrix (the
 // minimum image is odd in d, ties included, and the list is symmetric
 // under b -> -b), so the triangle grid carries over.
+//
+// The free-surface instances (domain code 2 of dense_tt_* and
+// dense_tt_img_*; the JAX package's dense_mobility_tiled with domain
+// free_surface, XLA there) condense pairk::FreeSurface's block, the RPY
+// block plus its image reflected in the slip plane z = 0, on the same
+// grid, open and in the image boxes: it is symmetric as tt's
+// (pair_blocks.cuh fs_condense), and the blobs are staged without the
+// wall's shift and damping.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "pair_blocks.cuh"
 
@@ -89,11 +99,14 @@ __device__ __forceinline__ void stage(const T* __restrict__ r, int g, int n,
 }
 
 // a: the blob radius, rounded to T for the open instance's staging (as
-// the host did before) and kept in float64 for the image boxes'
-template <typename T, bool WALL, typename G>
+// the host did before) and kept in float64 for the image boxes'. FS: the
+// free surface's block (pairk::FreeSurface on the wall's pair geometry),
+// staged without the wall's shift and damping (WALL false)
+template <typename T, bool WALL, typename G, bool FS = false>
 __global__ void __launch_bounds__(kThreads)
 dense_tt_kernel(const T* __restrict__ r, T* __restrict__ out, int n,
                 int n_tiles, double a, T pref, G geom) {
+  using C = std::conditional_t<FS, pairk::FreeSurface, pairk::TT>;
   using S = typename G::Stage;
   constexpr int kB = Tile<T>::kBlobs;
   constexpr int kR = Tile<T>::kRows;
@@ -120,7 +133,7 @@ dense_tt_kernel(const T* __restrict__ r, T* __restrict__ out, int n,
     if (diag && li > lj) continue;  // mirrored from (lj, li)
     const S* t = s_i[li];
     const S* s = s_j[lj];
-    const pairk::BlockSum<T> m = pairk::sum_blocks<T, pairk::TT, WALL>(
+    const pairk::BlockSum<T> m = pairk::sum_blocks<T, C, WALL || FS>(
         geom, t[0], t[1], t[2], s[0], s[1], s[2], i0 + li == j0 + lj);
     const T scale = pref * T(t[3]) * T(s[3]);
     const T e[9] = {m.xx, m.xy, m.xz, m.xy, m.yy, m.yz, m.zx, m.zy, m.zz};
@@ -165,16 +178,21 @@ dense_tt_kernel(const T* __restrict__ r, T* __restrict__ out, int n,
   }
 }
 
+// the domain code `mode` selects the instance: 0 open, 1 the wall, 2 the
+// free surface; any other code is refused
 template <typename T, typename G>
-int launch(const T* r, T* out, int n, double a, double pref, int wall,
+int launch(const T* r, T* out, int n, double a, double pref, int mode,
            const G& geom, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_tiles = (n + Tile<T>::kBlobs - 1) / Tile<T>::kBlobs;
   const long long blocks = n_tiles * (n_tiles + 1) / 2;
-  if (n < 1 || blocks > 0x7fffffffLL)
+  if (n < 1 || blocks > 0x7fffffffLL || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid = static_cast<unsigned>(blocks);
-  if (wall)
+  if (mode == 2)
+    dense_tt_kernel<T, false, G, true><<<grid, kThreads, 0, s>>>(
+        r, out, n, static_cast<int>(n_tiles), a, T(pref), geom);
+  else if (mode == 1)
     dense_tt_kernel<T, true, G><<<grid, kThreads, 0, s>>>(
         r, out, n, static_cast<int>(n_tiles), a, T(pref), geom);
   else
@@ -184,67 +202,73 @@ int launch(const T* r, T* out, int n, double a, double pref, int wall,
 }
 
 template <typename T>
-int launch_img(const T* r, T* out, int n, double a, double pref, int wall,
-               const double* L, int n_boxes, const double* off, void* stream) {
+int launch_img(const T* r, T* out, int n, double a, double pref, int mode,
+               const double* L, int n_boxes, const double* off,
+               void* stream) {
   return pairk::with_boxes<T>(L, n_boxes, off, [&](const auto& g) {
-    return launch<T>(r, out, n, a, pref, wall, g, stream);
+    return launch<T>(r, out, n, a, pref, mode, g, stream);
   });
 }
 
 template <typename T, typename G>
-int resident(int wall, int* blocks_per_sm) {
+int resident(int mode, int* blocks_per_sm) {
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm,
-      wall ? dense_tt_kernel<T, true, G> : dense_tt_kernel<T, false, G>,
+      mode == 2   ? dense_tt_kernel<T, false, G, true>
+      : mode == 1 ? dense_tt_kernel<T, true, G>
+                  : dense_tt_kernel<T, false, G>,
       kThreads, 0));
 }
 
 template <typename T>
-int shape(int images, int wall, int* blocks_per_sm) {
+int shape(int images, int mode, int* blocks_per_sm) {
   if (images == 2)
-    return resident<T, pairk::PlaneBoxes<T>>(wall, blocks_per_sm);
-  return images ? resident<T, pairk::ImageBoxes<T>>(wall, blocks_per_sm)
-                : resident<T, pairk::OpenBox<T>>(wall, blocks_per_sm);
+    return resident<T, pairk::PlaneBoxes<T>>(mode, blocks_per_sm);
+  return images ? resident<T, pairk::ImageBoxes<T>>(mode, blocks_per_sm)
+                : resident<T, pairk::OpenBox<T>>(mode, blocks_per_sm);
 }
 
 }  // namespace
 
 // resident blocks an SM holds of an instance: images 0 (open), 1
-// (ImageBoxes) or 2 (PlaneBoxes); for the profiling tool
-extern "C" int dense_tt_shape(int f64, int images, int wall,
+// (ImageBoxes) or 2 (PlaneBoxes), mode as dense_tt_f32's; for the
+// profiling tool
+extern "C" int dense_tt_shape(int f64, int images, int mode,
                               int* blocks_per_sm) {
-  return f64 ? shape<double>(images, wall, blocks_per_sm)
-             : shape<float>(images, wall, blocks_per_sm);
+  return f64 ? shape<double>(images, mode, blocks_per_sm)
+             : shape<float>(images, mode, blocks_per_sm);
 }
 
 // r (n,3) raw blob positions, out (3n,3n) row-major; both contiguous on
-// the device, n > 0. The image-box instances also take L (3,), the box in
-// blob radii (0 on an open axis), off (n_boxes, 3), the boxes' offsets
-// b L in blob radii, the home box first (host arrays; pairk::with_boxes
-// picks the policy). Returns the CUDA error code of the launch.
+// the device, n > 0; mode the domain code (0 open, 1 wall, 2 free
+// surface). The image-box instances also take L (3,), the box in blob
+// radii (0 on an open axis), off (n_boxes, 3), the boxes' offsets b L in
+// blob radii, the home box first (host arrays; pairk::with_boxes picks
+// the policy). Returns the CUDA error code of the launch.
 extern "C" int dense_tt_f32(const float* r, float* out, int n, double a,
-                            double pref, int wall, void* stream) {
-  return launch<float>(r, out, n, a, pref, wall, pairk::OpenBox<float>(),
+                            double pref, int mode, void* stream) {
+  return launch<float>(r, out, n, a, pref, mode, pairk::OpenBox<float>(),
                        stream);
 }
 
 extern "C" int dense_tt_f64(const double* r, double* out, int n, double a,
-                            double pref, int wall, void* stream) {
-  return launch<double>(r, out, n, a, pref, wall, pairk::OpenBox<double>(),
+                            double pref, int mode, void* stream) {
+  return launch<double>(r, out, n, a, pref, mode, pairk::OpenBox<double>(),
                         stream);
 }
 
 extern "C" int dense_tt_img_f32(const float* r, float* out, int n, double a,
-                                double pref, int wall, const double* L,
+                                double pref, int mode, const double* L,
                                 int n_boxes, const double* off,
                                 void* stream) {
-  return launch_img<float>(r, out, n, a, pref, wall, L, n_boxes, off, stream);
+  return launch_img<float>(r, out, n, a, pref, mode, L, n_boxes, off, stream);
 }
 
 extern "C" int dense_tt_img_f64(const double* r, double* out, int n, double a,
-                                double pref, int wall, const double* L,
+                                double pref, int mode, const double* L,
                                 int n_boxes, const double* off,
                                 void* stream) {
-  return launch_img<double>(r, out, n, a, pref, wall, L, n_boxes, off,
+  return launch_img<double>(r, out, n, a, pref, mode, L, n_boxes, off,
                             stream);
 }

@@ -8,7 +8,14 @@
 //
 // Replaces the Pallas TPU kernel rigidmultiblobswall_tpu/ops/forces.py
 // (_nl_force_kernel; wrapper _neighbor_forces_pallas), periodic box and
-// wall slab (the wrapper's guard_z).
+// wall slab (the wrapper's guard_z), and, in its open instance
+// (nl_forces_open_*), the generic linked-cell path of the same file
+// (forces.py:187-269, XLA there) in a box with open axes: the cells of an
+// open axis sized from the data's extent (cell_sweep.cuh Frame), the
+// stencil stopped at its edges, and the targets of a cell every particle
+// binned into it, a cell's overflow included (its own row is summed; it
+// is dropped as a source only, as that path drops it), read from the
+// wrapper's stable sort of the cell ids (order, starts).
 //
 // What bounds it on the H100: the special-function unit and instruction
 // issue. Every candidate pair costs one rsqrt and one exp2 (MUFU, 16 a
@@ -38,7 +45,6 @@
 namespace {
 
 using cellk::Grid;
-using cellk::kTgt;
 
 using forcek::Law;
 
@@ -68,11 +74,14 @@ __device__ __forceinline__ void add_pair(const Law<T>& law, const T* t,
 
 // resident 256-thread blocks an SM that __launch_bounds__ asks for: float32
 // four (64 registers); float64 uncapped
-template <typename T>
+// the cells of the frame f (cell_sweep.cuh); OPEN: the open instance, the
+// targets order[starts[c] .. starts[c + 1]); else the cell's live slots
+template <typename T, bool OPEN>
 __global__ void __launch_bounds__(cellk::kThreads, (cellk::min_blocks<T>(4)))
 nl_forces_kernel(const T* __restrict__ pos, const int* __restrict__ table,
-                 T* __restrict__ out, Grid g, double Lx, double Ly,
-                 double Lz, Law<T> law) {
+                 const int* __restrict__ order,
+                 const int* __restrict__ starts, T* __restrict__ out, Grid g,
+                 cellk::Frame f, Law<T> law) {
   constexpr int kSrc = Walk<T>::kSrc;
   static_assert(kSrc % 32 == 0, "a padded tile holds whole warp-steps");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -82,9 +91,14 @@ nl_forces_kernel(const T* __restrict__ pos, const int* __restrict__ table,
   __shared__ cellk::Stencil st;
 
   if (cellk::empty_cell(table, blockIdx.x, g)) return;   // uniform
-  cellk::load_stencil(st, table, blockIdx.x, g, Lx, Ly, Lz);
-  const int n_tgt = st.start[14] - st.start[13];
-  const int* own = table + static_cast<size_t>(st.cell[13]) * g.cap;
+  cellk::load_stencil(st, table, blockIdx.x, g, f);
+  const int n_tgt = OPEN ? starts[blockIdx.x + 1] - starts[blockIdx.x]
+                         : st.start[14] - st.start[13];
+  const int* own = OPEN ? order + starts[blockIdx.x]
+                        : table + static_cast<size_t>(st.cell[13]) * g.cap;
+  // targets staged at a time: the open instance's cell may hold more
+  // particles than its cap
+  const int chunk = cellk::target_slots(g.cap);
   const int total = st.start[27];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -94,8 +108,8 @@ nl_forces_kernel(const T* __restrict__ pos, const int* __restrict__ table,
   // points coincide and take mag = 0 as well
   const T far = cellk::far_coord<T>();
 
-  for (int t0 = 0; t0 < n_tgt; t0 += kTgt) {
-    const int nt = min(kTgt, n_tgt - t0);
+  for (int t0 = 0; t0 < n_tgt; t0 += chunk) {
+    const int nt = min(chunk, n_tgt - t0);
     cellk::stage_targets(st, own + t0, nt, pos, s_tgt, s_id);
     for (int s0 = 0; s0 < total; s0 += kSrc) {
       const int m = min(kSrc, total - s0);
@@ -143,20 +157,21 @@ nl_forces_kernel(const T* __restrict__ pos, const int* __restrict__ table,
   }
 }
 
-template <typename T>
-int launch(const T* pos, const int* table, T* out, int n, int nx, int ny,
-           int nz, int cap, double Lx, double Ly, double Lz,
-           double eps_over_b, double c, double c2a, void* stream) {
+template <typename T, bool OPEN>
+int launch(const T* pos, const int* table, const int* order,
+           const int* starts, T* out, int n, int nx, int ny, int nz, int cap,
+           const cellk::Frame& f, double eps_over_b, double c, double c2a,
+           void* stream) {
   if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_bytes<T>(cap);
   const cudaError_t attr = cudaFuncSetAttribute(
-      nl_forces_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      nl_forces_kernel<T, OPEN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Grid g{n, nx, ny, nz, cap};
-  nl_forces_kernel<T><<<nx * ny * nz, cellk::kThreads, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      pos, table, out, g, Lx, Ly, Lz,
+  nl_forces_kernel<T, OPEN><<<nx * ny * nz, cellk::kThreads, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      pos, table, order, starts, out, g, f,
       Law<T>{T(eps_over_b), T(c), T(c2a)});
   return static_cast<int>(cudaGetLastError());
 }
@@ -174,9 +189,32 @@ int launch(const T* pos, const int* table, T* out, int n, int nx, int ny,
                       int ny, int nz, int cap, double Lx, double Ly,         \
                       double Lz, double eps_over_b, double c, double c2a,    \
                       void* stream) {                                        \
-    return launch<T>(pos, table, out, n, nx, ny, nz, cap, Lx, Ly, Lz,        \
-                     eps_over_b, c, c2a, stream);                            \
+    const cellk::Frame f{{0.0, 0.0, 0.0}, {Lx / nx, Ly / ny, Lz / nz},       \
+                         {Lx, Ly, Lz}};                                      \
+    return launch<T, false>(pos, table, nullptr, nullptr, out, n, nx, ny,    \
+                            nz, cap, f, eps_over_b, c, c2a, stream);         \
   }
 
 NL_ENTRY(nl_forces_f32, float)
 NL_ENTRY(nl_forces_f64, double)
+
+// the open instance: pos (n,3), wrapped on the periodic axes, raw on the
+// open ones; table from the binning of ops/forces.py _force_cells; order
+// (n,) int32 the particles sorted stably by cell id and starts
+// (nx ny nz + 1,) int32 each cell's first entry in order; lo, cs and L
+// (3,) host arrays, the frame of cell_sweep.cuh (L 0 on an open axis)
+#define NL_OPEN_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const T* pos, const int* table, const int* order,      \
+                      const int* starts, T* out, int n, int nx, int ny,      \
+                      int nz, int cap, const double* lo, const double* cs,   \
+                      const double* L, double eps_over_b, double c,          \
+                      double c2a, void* stream) {                            \
+    const cellk::Frame f{{lo[0], lo[1], lo[2]},                              \
+                         {cs[0], cs[1], cs[2]},                              \
+                         {L[0], L[1], L[2]}};                                \
+    return launch<T, true>(pos, table, order, starts, out, n, nx, ny, nz,    \
+                           cap, f, eps_over_b, c, c2a, stream);              \
+  }
+
+NL_OPEN_ENTRY(nl_forces_open_f32, float)
+NL_OPEN_ENTRY(nl_forces_open_f64, double)

@@ -103,6 +103,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace pairk {
 
 constexpr int kTile = 128;
@@ -124,6 +126,8 @@ struct Pair {
   bool self, zero;        // zero: self pair or coincident blobs
   bool near;              // r <= 2, zero pairs included: the rare branch
   T zt, zs, Rz, invR;     // wall image: Rz = zt + zs, invR = 1/|R|
+  T R2;                   // |R|^2, R = (dx, dy, Rz)
+  bool img_near;          // |R| <= 2 (the free surface's image)
 };
 
 // the pair of displacement (dx, dy, dz) = r_t - r_s at the heights zt and
@@ -147,7 +151,10 @@ __device__ __forceinline__ Pair<T> box_pair(T dx, T dy, T xy2, T dz, T zt,
   p.zs = zs;
   if (WALL) {
     p.Rz = zt + zs;
-    p.invR = rsqrt_t(p.Rz * p.Rz + xy2);
+    p.R2 = p.Rz * p.Rz + xy2;
+    p.invR = rsqrt_t(p.R2);
+    // a far box lies at xy2 > 4, and so does its image
+    p.img_near = !far && !(p.R2 > T(4));
   }
   return p;
 }
@@ -373,6 +380,45 @@ __device__ __forceinline__ Diag<T> tt_condense(const Pair<T>& p) {
   return m;
 }
 
+// The free-surface tt block (a slip plane at z = 0; ops/rpy.py
+// free_surface_tt): the RPY block at d plus the RPY block at the image
+// R = (dx, dy, Rz), Rz = zt + zs, with its z column reflected, M_RPY(R)
+// diag(1, 1, -1). With the image's coefficients e1, e2 the reflected
+// block is [[e1 + e2 dx^2, e2 dx dy, -e2 Rz dx], [.., e1 + e2 dy^2,
+// -e2 Rz dy], [e2 Rz dx, e2 Rz dy, -(e1 + e2 Rz^2)]]: K1's condensed
+// Diag with A += e1, S += e2, P -= e2 Rz, Q += e2 Rz, mzz -= e1 + e2 Rz^2.
+// Under d -> -d (the pair (j, i)) Rz stays, so P and Q trade places up to
+// sign and M(j, i) = M(i, j)^T: the symmetric sweep and a pair's box sum
+// hold as for tt. The image takes no self rule: at |R| <= 2 its near form
+// (the self pair's included), at R = 0 (both blobs on the plane, one
+// above the other's image) the coincident pair's 0. The pair geometry is
+// the wall's (WALL = true): Rz, 1/|R| and the image's near flag; the
+// heights are not shifted and nothing is damped.
+template <typename T>
+__device__ __forceinline__ Diag<T> fs_condense(const Pair<T>& p) {
+  Diag<T> m = tt_condense<T, false>(p);
+  const T W = p.invR;
+  const T W2 = W * W;
+  T e1 = (T(1) + T(2.0 / 3.0) * W2) * W;
+  T e2 = (T(1) - T(2) * W2) * W2 * W;
+  if (__builtin_expect(p.img_near, 0)) {
+    if (p.R2 == T(0)) {
+      e1 = T(0);
+      e2 = T(0);
+    } else {
+      e1 = T(4.0 / 3.0) - T(0.375) * (p.R2 * W);
+      e2 = T(0.125) * W;
+    }
+  }
+  const T e2Rz = e2 * p.Rz;
+  m.A += e1;
+  m.S += e2;
+  m.P -= e2Rz;
+  m.Q += e2Rz;
+  m.mzz -= e2Rz * p.Rz + e1;
+  return m;
+}
+
 template <typename T, bool WALL>
 __device__ __forceinline__ Diag<T> rr_condense(const Pair<T>& p) {
   const T invr = p.invr;
@@ -591,6 +637,7 @@ __device__ __forceinline__ void cross_apply(const Cross<T>& m,
 template <bool IS_RR>
 struct DiagCoupling {
   static constexpr bool kDiag = true;   // image boxes: one BlockSum a pair
+  static constexpr bool kFreeSurface = false;
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = 2;
   template <typename T, bool WALL>
@@ -622,9 +669,42 @@ struct DiagCoupling {
 using TT = DiagCoupling<false>;
 using RR = DiagCoupling<true>;
 
+// The free surface's tt coupling (csrc/pair_fs.cu): fs_condense on the
+// wall's pair geometry (kFreeSurface: its instances are launched with
+// WALL = true whatever the wall flag), applied as tt's
+struct FreeSurface {
+  static constexpr bool kDiag = true;
+  static constexpr bool kFreeSurface = true;
+  static constexpr int kComp = 3;
+  static constexpr int kMaxRhs = 2;
+  template <typename T, bool WALL>
+  __device__ __forceinline__ static Diag<T> condense(const Pair<T>& p) {
+    static_assert(WALL, "the free surface takes the wall's pair geometry");
+    return fs_condense<T>(p);
+  }
+  template <typename T, int B, bool WALL>
+  __device__ static void accumulate(const Pair<T>& p, const T* v, T* part) {
+    const Diag<T> m = condense<T, WALL>(p);
+#pragma unroll
+    for (int b = 0; b < B; ++b) diag_apply(m, p.dx, p.dy, v + 3 * b,
+                                           part + 3 * b);
+  }
+  template <typename T, int B, bool WALL>
+  __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
+                                         T* acc_i, const T* vi, T* acc_j) {
+    const Diag<T> m = condense<T, WALL>(p);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      diag_apply(m, p.dx, p.dy, vj + 3 * b, acc_i + 3 * b);
+      diag_apply_t(m, p.dx, p.dy, vi + 3 * b, acc_j + 3 * b);
+    }
+  }
+};
+
 template <bool IS_TR, int MAX_RHS>
 struct CrossCoupling {
   static constexpr bool kDiag = false;
+  static constexpr bool kFreeSurface = false;
   static constexpr bool kUnrollBoxes = true;   // PlaneBoxes' boxes
   static constexpr int kComp = 3;
   static constexpr int kMaxRhs = MAX_RHS;
@@ -657,6 +737,7 @@ using RT = CrossCoupling<false, 1>;
 
 struct Grand {
   static constexpr bool kDiag = false;
+  static constexpr bool kFreeSurface = false;
   // PlaneBoxes' far boxes in a loop: unrolled, grand's four blocks both
   // ways spill and run 10 % slower at 4096 spheres (no faster at 32,768)
   static constexpr bool kUnrollBoxes = false;
@@ -1108,16 +1189,30 @@ int launch_bw(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
+// f(std::integral_constant<bool, WALL>) for the domain code `mode` of
+// the entry points (0 open, 1 wall, 2 free surface): the couplings serve
+// 0 and 1, the free surface 2 alone, on the wall's pair geometry (its
+// WALL = false instances are never compiled); any other code is refused
+template <typename C, typename F>
+int with_wall(int mode, F&& f) {
+  if constexpr (C::kFreeSurface)
+    return mode == 2 ? f(std::true_type{})
+                     : static_cast<int>(cudaErrorInvalidValue);
+  else
+    return mode == 1   ? f(std::true_type{})
+           : mode == 0 ? f(std::false_type{})
+                       : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, typename C, int B, typename G>
 int launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
              int n_src, int n_tgt, int n_slices, int tiles_per_slice,
              int wall, int self_interaction, const G& geom, cudaStream_t s) {
-  return wall ? launch_bw<T, C, B, true>(q_src, q_tgt, vec, out, ws, n_src,
-                                         n_tgt, n_slices, tiles_per_slice,
-                                         self_interaction, geom, s)
-              : launch_bw<T, C, B, false>(q_src, q_tgt, vec, out, ws, n_src,
-                                          n_tgt, n_slices, tiles_per_slice,
-                                          self_interaction, geom, s);
+  return with_wall<C>(wall, [&](auto w) {
+    return launch_bw<T, C, B, decltype(w)::value>(
+        q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_slices, tiles_per_slice,
+        self_interaction, geom, s);
+  });
 }
 
 // q_src (n_src,3), q_tgt (n_tgt,3), vec (n_src, kComp*n_rhs) b-major
@@ -1157,15 +1252,15 @@ int resident(K kernel, int* blocks_per_sm) {
 
 template <typename T, typename C, typename G>
 int shape_g(int n_rhs, int wall, int* blocks_per_sm) {
-  if (n_rhs == 1)
-    return wall ? resident(pair_kernel<T, C, 1, true, G>, blocks_per_sm)
-                : resident(pair_kernel<T, C, 1, false, G>, blocks_per_sm);
-  if constexpr (C::kMaxRhs >= 2) {
-    if (n_rhs == 2)
-      return wall ? resident(pair_kernel<T, C, 2, true, G>, blocks_per_sm)
-                  : resident(pair_kernel<T, C, 2, false, G>, blocks_per_sm);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_wall<C>(wall, [&](auto w) {
+    constexpr bool W = decltype(w)::value;
+    if (n_rhs == 1) return resident(pair_kernel<T, C, 1, W, G>, blocks_per_sm);
+    if constexpr (C::kMaxRhs >= 2) {
+      if (n_rhs == 2)
+        return resident(pair_kernel<T, C, 2, W, G>, blocks_per_sm);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 // the launch shape the wrapper plans with: resident blocks an SM holds of
@@ -1199,12 +1294,11 @@ template <typename T, typename C, int B, typename G>
 int launch_sym_b(const T* q, const T* vec, T* out, T* ws, int n,
                  int n_groups, int tiles_per_group, int wall,
                  int self_interaction, const G& geom, cudaStream_t s) {
-  return wall ? launch_sym_bw<T, C, B, true>(q, vec, out, ws, n, n_groups,
-                                             tiles_per_group,
-                                             self_interaction, geom, s)
-              : launch_sym_bw<T, C, B, false>(q, vec, out, ws, n, n_groups,
-                                              tiles_per_group,
-                                              self_interaction, geom, s);
+  return with_wall<C>(wall, [&](auto w) {
+    return launch_sym_bw<T, C, B, decltype(w)::value>(
+        q, vec, out, ws, n, n_groups, tiles_per_group, self_interaction, geom,
+        s);
+  });
 }
 
 // q (n,3), vec (n, kComp*n_rhs) b-major columns, out (n, kComp*n_rhs), ws
@@ -1253,12 +1347,13 @@ bool image_boxes(const double* L, int n_boxes, const double* off,
 }
 
 // the same list as PlaneBoxes: false unless L = (Lx, Ly, 0) with Lx and Ly
-// above kPlaneFarMin and off is box_offsets' nine boxes b L in its order
+// above min_len (kPlaneFarMin blob radii; P1 scales it by its largest
+// radius) and off is box_offsets' nine boxes b L in its order
 template <typename T>
 bool plane_boxes(const double* L, int n_boxes, const double* off,
-                 PlaneBoxes<T>& g) {
+                 PlaneBoxes<T>& g, double min_len = kPlaneFarMin) {
   if (L == nullptr || off == nullptr || n_boxes != 9 ||
-      !(L[0] > kPlaneFarMin) || !(L[1] > kPlaneFarMin) || L[2] != 0.0)
+      !(L[0] > min_len) || !(L[1] > min_len) || L[2] != 0.0)
     return false;
   for (int k = 0; k < 9; ++k) {
     const int idx = k == 0 ? 4 : k - 1 + (k >= 5 ? 1 : 0);
@@ -1316,8 +1411,10 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
 
 // per coupling: one f32 and one f64 C entry point with the signature
 // (q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,
-// tiles_per_slice, wall, self_interaction, stream), their image-box
-// instances NAME_img_f32 / _f64 with (L, n_boxes, off) before the stream
+// tiles_per_slice, wall, self_interaction, stream), `wall` the domain
+// code of with_wall (the couplings 0 or 1, the free surface 2), their
+// image-box instances NAME_img_f32 / _f64 with (L, n_boxes, off) before
+// the stream
 // (host arrays in blob radii: the box, 0 on an open axis, and the boxes'
 // offsets b L, the home box first; with_boxes picks the policy), and
 // NAME_shape(f64, n_rhs, wall, images, &blocks_per_sm), images 0, 1 or 2

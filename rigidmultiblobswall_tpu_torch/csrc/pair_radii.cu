@@ -56,6 +56,31 @@
 // terms at dx = dy = 0, Rz = 2 z: the self mobility of the plain version.
 // The group plan, the workspace of one slice a group and the fixed-order
 // slice sum are K1's.
+//
+// The domain modes (MODE): 0 the open domain, 1 the wall, 2 the free
+// surface, a slip plane at z = 0 (the JAX package's source_target_matvec
+// :488-492): the block adds the different-radii RPY block at the image
+// R = (dx, dy, z_t + z_s) with its z column reflected, the heights raw
+// and nothing damped. The image's block has the three regimes of its own
+// distance |R| and the same Diag structure (A += e1, S += e2, P -= e2 Rz,
+// Q += e2 Rz, mzz -= e1 + e2 Rz^2); its coefficients are symmetric in the
+// radii, so the block stays reciprocal. A pair takes the far path only
+// when both it and its image are far; the tile test adds that both tiles
+// lie above the plane (then |R| >= r).
+//
+// The image-box instances (pair_radii_sym_img_*; the pseudo-periodic
+// boxes of source_target_matvec with a periodic_length, XLA there) take
+// K1's policies (pair_blocks.cuh): each pair's minimum image formed in
+// float64, then every box of the list summed into one pairk::BlockSum and
+// applied both ways. ImageBoxes: each box's path by its own warp vote
+// (every lane walks the same boxes). PlaneBoxes, chosen on the host when
+// both in-plane lengths exceed kPlaneFarMin times the largest radius: the
+// home box by the vote, the eight others in the far form alone (they lie
+// at r >= L / 2 > 2.02 max(a) >= a + b, and so do their images). No tile
+// test: the minimum image moves a pair out of its tiles' boxes. The self
+// pair takes the inside regime in the home box only (r = 0 there; in every
+// other box a blob's image is an ordinary pair at d = b L), as the plain
+// version, which has no self mask, computes it.
 
 #include "pair_blocks.cuh"
 
@@ -69,12 +94,20 @@ using pairk::rsqrt_t;
 
 // resident blocks an SM that __launch_bounds__ asks for in float32: 6,
 // at most 85 registers a thread (ptxas gives B = 1 72 and B = 2 76; 4
-// left B = 2 at 85 and ~4 % slower, 8 spills; PERF.md §6). float64
-// uncapped
-template <typename T>
+// left B = 2 at 85 and ~4 % slower, 8 spills; PERF.md §6); the image
+// boxes' instances, which hold a pair's box sum besides, 4 (128
+// registers). float64 uncapped
+template <typename T, typename G>
 constexpr int min_blocks() {
-  return sizeof(T) == 4 ? 6 : 1;
+  return sizeof(T) == 4 ? (G::kImages ? 4 : 6) : 1;
 }
+
+// the open domain's pair geometry: one pair, d = r_t - r_s
+struct RadiiOpen {
+  static constexpr bool kImages = false;
+};
+
+constexpr int kOpen = 0, kWall = 1, kFreeSurface = 2;
 
 // a staged blob: x, y, z_eff, a, 1/a
 constexpr int kQ = 5;
@@ -105,62 +138,91 @@ __device__ __forceinline__ Target<T> make_target(const T* p) {
   return t;
 }
 
-// the geometry of (target t, source s), d = r_t - r_s, and its regime
+// the geometry of (target t, source s) at the displacement d of a box, and
+// its regime; on the free surface also its image's
 template <typename T>
 struct Geo {
   T dx, dy, dz, xy2, r2;
-  bool far;  // r > a_t + a_s
+  bool far;        // r > a_t + a_s (and on the free surface |R| too)
+  bool far_d;      // r > a_t + a_s
+  T R2;            // the free surface's |R|^2, R = (dx, dy, z_t + z_s)
+  bool far_i;      // |R| > a_t + a_s
 };
 
-template <typename T>
-__device__ __forceinline__ Geo<T> make_geo(const Target<T>& t, const T* s) {
+template <typename T, int MODE>
+__device__ __forceinline__ Geo<T> make_geo_d(const Target<T>& t, const T* s,
+                                             T dx, T dy, T dz) {
   Geo<T> g;
-  g.dx = t.x - s[0];
-  g.dy = t.y - s[1];
-  g.dz = t.z - s[2];
+  g.dx = dx;
+  g.dy = dy;
+  g.dz = dz;
   g.xy2 = g.dx * g.dx + g.dy * g.dy;
   g.r2 = g.xy2 + g.dz * g.dz;
   const T sum = t.a + s[3];
-  g.far = g.r2 > sum * sum;
+  const T sum2 = sum * sum;
+  g.far_d = g.r2 > sum2;
+  g.far = g.far_d;
+  if (MODE == kFreeSurface) {
+    const T Rz = t.z + s[2];
+    g.R2 = g.xy2 + Rz * Rz;
+    g.far_i = g.R2 > sum2;
+    g.far = g.far_d && g.far_i;
+  }
   return g;
 }
 
-// the condensed block of (target t, source s = (x, y, z_eff, a, 1/a)).
-// FULL = false: the far RPY form, for steps whose pairs are all far;
-// FULL = true: the far form, with the overlapping and inside regimes
-// selected over it where the pair is not far
-template <typename T, bool WALL, bool FULL>
+template <typename T, int MODE>
+__device__ __forceinline__ Geo<T> make_geo(const Target<T>& t, const T* s) {
+  return make_geo_d<T, MODE>(t, s, t.x - s[0], t.y - s[1], t.z - s[2]);
+}
+
+// (c1, c2) of the different-radii RPY block at the squared distance r2
+// (rpy_tt_radii). FULL = false: the far form; FULL = true: the far form,
+// with the overlapping and inside regimes selected over it where `far` is
+// false. r^2 = 0 (self and coincident pairs) makes the far and
+// overlapping forms inf or NaN; neither is selected for them
+template <typename T, bool FULL>
+__device__ __forceinline__ void rpy_coeffs(T r2, bool far,
+                                           const Target<T>& t, const T* s,
+                                           T s2, T& c1, T& c2) {
+  // RPY far form: c1 = (1 + s2 / (3 r^2)) / r, c2 = (1 - s2 / r^2) / r^3
+  const T invr = rsqrt_t(r2);
+  const T invr2 = invr * invr;
+  const T invr3 = invr2 * invr;
+  const T x = s2 * invr2;
+  c1 = (T(1) + x * T(1.0 / 3.0)) * invr;
+  c2 = invr3 - x * invr3;
+  if (FULL) {
+    const T dif = s[3] - t.a;
+    const T dd2 = dif * dif;
+    const T inv_ab = t.ia * s[4];
+    const T q = dd2 + T(3) * r2;
+    // (4/3) ((a + b) / 2 - (dd2 + 3 r^2)^2 / (32 r^3)) / (a b)
+    const T c1_mid = (T(0.5) * (t.a + s[3]) - q * q * invr3 *
+                      T(1.0 / 32.0)) * (T(4.0 / 3.0) * inv_ab);
+    const T w = dd2 - r2;
+    // (dd2 - r^2)^2 / (8 a b r^5)
+    const T c2_mid = w * w * invr3 * invr2 * (T(0.125) * inv_ab);
+    // 4 / (3 max(a, b))
+    const T c1_in = T(4.0 / 3.0) * (t.ia < s[4] ? t.ia : s[4]);
+    const bool mid = r2 > dd2;
+    c1 = far ? c1 : (mid ? c1_mid : c1_in);
+    c2 = far ? c2 : (mid ? c2_mid : T(0));
+  }
+}
+
+// the condensed block of (target t, source s = (x, y, z_eff, a, 1/a)) at
+// the geometry g. FULL = false: the far RPY form (of the pair and, on the
+// free surface, its image), for steps whose pairs are all far; FULL =
+// true: every regime by its own test
+template <typename T, int MODE, bool FULL>
 __device__ __forceinline__ Diag<T> condense(const Geo<T>& g,
                                             const Target<T>& t,
                                             const T* s) {
   const T b2 = s[3] * s[3];
   const T s2 = t.a2 + b2;
-  // RPY far form: c1 = (1 + s2 / (3 r^2)) / r, c2 = (1 - s2 / r^2) / r^3
-  const T invr = rsqrt_t(g.r2);
-  const T invr2 = invr * invr;
-  const T invr3 = invr2 * invr;
-  const T x = s2 * invr2;
-  T c1 = (T(1) + x * T(1.0 / 3.0)) * invr;
-  T c2 = invr3 - x * invr3;
-  if (FULL) {
-    // r^2 = 0 (self and coincident pairs) makes the far and overlapping
-    // forms inf or NaN; neither is selected for them
-    const T dif = s[3] - t.a;
-    const T dd2 = dif * dif;
-    const T inv_ab = t.ia * s[4];
-    const T q = dd2 + T(3) * g.r2;
-    // (4/3) ((a + b) / 2 - (dd2 + 3 r^2)^2 / (32 r^3)) / (a b)
-    const T c1_mid = (T(0.5) * (t.a + s[3]) - q * q * invr3 *
-                      T(1.0 / 32.0)) * (T(4.0 / 3.0) * inv_ab);
-    const T w = dd2 - g.r2;
-    // (dd2 - r^2)^2 / (8 a b r^5)
-    const T c2_mid = w * w * invr3 * invr2 * (T(0.125) * inv_ab);
-    // 4 / (3 max(a, b))
-    const T c1_in = T(4.0 / 3.0) * (t.ia < s[4] ? t.ia : s[4]);
-    const bool mid = g.r2 > dd2;
-    c1 = g.far ? c1 : (mid ? c1_mid : c1_in);
-    c2 = g.far ? c2 : (mid ? c2_mid : T(0));
-  }
+  T c1, c2;
+  rpy_coeffs<T, FULL>(g.r2, g.far_d, t, s, s2, c1, c2);
   Diag<T> m;
   const T p = c2 * g.dz;
   m.A = c1;
@@ -168,7 +230,18 @@ __device__ __forceinline__ Diag<T> condense(const Geo<T>& g,
   m.P = p;
   m.Q = p;
   m.mzz = p * g.dz + c1;
-  if (WALL) {
+  if (MODE == kFreeSurface) {
+    T e1, e2;
+    rpy_coeffs<T, FULL>(g.R2, g.far_i, t, s, s2, e1, e2);
+    const T Rz = t.z + s[2];
+    const T e2Rz = e2 * Rz;
+    m.A += e1;
+    m.S += e2;
+    m.P -= e2Rz;
+    m.Q += e2Rz;
+    m.mzz -= e2Rz * Rz + e1;
+  }
+  if (MODE == kWall) {
     // wall_tt_radii on (dx, dy, Rz = zt + zs), x3 = zt, y3 = zs, with W =
     // 1/R, u = W^2, e = Rz^2 u, G = ca zs + cb zt (ca, cb = (2/3) a^2,
     // (2/3) b^2), cab = ca b^2, K, M = (a^2 + b^2) / 3 +- 2 zt zs:
@@ -202,13 +275,75 @@ __device__ __forceinline__ Diag<T> condense(const Geo<T>& g,
     const T D = (t.a2 - b2) * Rz;
     const T E = T(3) * (x2 * Rz + G);
     const T F = (Rz * u) * (u * (b15 + T(15) * cab));
-    m.P = W3 * (u * (D - E) + (F - g.dz)) + m.P;
-    m.Q = W3 * (u * (D + E) - (F + g.dz)) + m.Q;
+    // the image system's own dz is the heights' difference, whatever
+    // box the pair's d is in (a box periodic in z moves d alone)
+    const T dzw = t.z - zs;
+    m.P = W3 * (u * (D - E) + (F - dzw)) + m.P;
+    m.Q = W3 * (u * (D + E) - (F + dzw)) + m.Q;
     const T bZ = GR * (T(15) * e - T(9)) +
                  cab * ((T(30) - T(35) * e) * e - T(3));
     m.mzz = W * (u * (u * bZ + (T(3) * e - T(1)) * M) - (T(1) + e)) +
             m.mzz;
   }
+  return m;
+}
+
+// a box's block added into a pair's box sum; VOTE: the far form where the
+// warp's 32 pairs of the box are all far (every lane calls), else every
+// regime by its test
+template <typename T, int MODE, bool VOTE>
+__device__ __forceinline__ void add_box(pairk::BlockSum<T>& m,
+                                        const Geo<T>& g, const Target<T>& t,
+                                        const T* s) {
+  const bool far = VOTE && __all_sync(0xffffffffu, g.far);
+  m.add(far ? condense<T, MODE, false>(g, t, s)
+            : condense<T, MODE, true>(g, t, s),
+        g.dx, g.dy);
+}
+
+// The pair (t, s) summed over the image boxes into one closed block: the
+// minimum image in float64 (ImageBoxes::image), then every box of the
+// list, each by its own vote (VOTE) or every regime
+template <typename T, int MODE, bool VOTE>
+__device__ __forceinline__ pairk::BlockSum<T> box_sum(
+    const pairk::ImageBoxes<T>& g, const Target<T>& t, const T* s) {
+  const T dx = g.image(t.x, s[0], 0);
+  const T dy = g.image(t.y, s[1], 1);
+  const T dz = g.image(t.z, s[2], 2);
+  pairk::BlockSum<T> m{};
+#pragma unroll 1
+  for (int b = 0; b < g.n; ++b)
+    add_box<T, MODE, VOTE>(m, make_geo_d<T, MODE>(t, s, dx + g.off[b][0],
+                                                  dy + g.off[b][1],
+                                                  dz + g.off[b][2]),
+                           t, s);
+  m.close();
+  return m;
+}
+
+// PlaneBoxes: the home box by the vote (VOTE) or every regime, the eight
+// boxes off it in the far form alone (the host's choice guarantees them
+// far, images included)
+template <typename T, int MODE, bool VOTE>
+__device__ __forceinline__ pairk::BlockSum<T> box_sum(
+    const pairk::PlaneBoxes<T>& g, const Target<T>& t, const T* s) {
+  const T dx = static_cast<T>(pairk::min_image(
+      static_cast<double>(t.x) - static_cast<double>(s[0]), g.L[0],
+      g.inv_L[0]));
+  const T dy = static_cast<T>(pairk::min_image(
+      static_cast<double>(t.y) - static_cast<double>(s[1]), g.L[1],
+      g.inv_L[1]));
+  const T dz = t.z - s[2];
+  pairk::BlockSum<T> m{};
+  add_box<T, MODE, VOTE>(m, make_geo_d<T, MODE>(t, s, dx, dy, dz), t, s);
+#pragma unroll 1
+  for (int k = 1; k < 9; ++k) {
+    const int idx = k - 1 + (k >= 5 ? 1 : 0);
+    const Geo<T> geo = make_geo_d<T, MODE>(
+        t, s, dx + T(idx / 3 - 1) * g.Lx, dy + T(idx % 3 - 1) * g.Ly, dz);
+    m.add(condense<T, MODE, false>(geo, t, s), geo.dx, geo.dy);
+  }
+  m.close();
   return m;
 }
 
@@ -257,6 +392,7 @@ __device__ __forceinline__ Box<T> tile_box(const T* p, T (*s_box)[7]) {
 // r^2 and (a + b)^2
 template <typename T>
 __device__ __forceinline__ bool boxes_far(const Box<T>& a, const Box<T>& b) {
+  // (the free surface's instances also ask above_plane)
   T d2 = T(0);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -267,17 +403,26 @@ __device__ __forceinline__ bool boxes_far(const Box<T>& a, const Box<T>& b) {
   return d2 > s * s * T(1.0001);
 }
 
+// both tiles at z >= 0: then every pair's image lies at |R| >= r
+template <typename T>
+__device__ __forceinline__ bool above_plane(const Box<T>& a,
+                                            const Box<T>& b) {
+  return a.lo[2] >= T(0) && b.lo[2] >= T(0);
+}
+
 // the off-diagonal tile pair (target tile of the block's rows, source tile
 // tb): each quarter of tile tb rotates through the warp, 32 steps of 32
 // pairs, its sums returned to its lanes; the four warps' source sums are
-// left in s_sum[warp]. ALL_FAR: every step far (the tile boxes far apart),
-// else each step by its warp vote
-template <typename T, int B, bool WALL, bool ALL_FAR>
+// left in s_sum[warp]. Open domain: ALL_FAR every step far (the tile
+// boxes far apart), else each step by its warp vote; image boxes: a
+// pair's box sum (box_sum, each box by its vote)
+template <typename T, int B, int MODE, bool ALL_FAR, typename G>
 __device__ __forceinline__ void rotate(const T* __restrict__ q,
                                        const T* __restrict__ vec, int n,
                                        int tb, const Target<T>& tgt,
                                        const T* vi, T* acc,
-                                       T (*s_sum)[kTile][3 * B]) {
+                                       T (*s_sum)[kTile][3 * B],
+                                       const G& geom) {
   constexpr int NV = 3 * B;
   const int lane = threadIdx.x % kLanes;
   const int warp = threadIdx.x / kLanes;
@@ -299,15 +444,24 @@ __device__ __forceinline__ void rotate(const T* __restrict__ q,
     const int next = (lane + 1) % kLanes;
 #pragma unroll 1
     for (int step = 0; step < kLanes; ++step) {
-      const Geo<T> g = make_geo(tgt, pj);
-      // one path for the warp's 32 pairs: the far form when all are far
-      const bool far = ALL_FAR || __all_sync(0xffffffffu, g.far);
-      const Diag<T> m = far ? condense<T, WALL, false>(g, tgt, pj)
-                            : condense<T, WALL, true>(g, tgt, pj);
+      if constexpr (G::kImages) {
+        const pairk::BlockSum<T> m = box_sum<T, MODE, true>(geom, tgt, pj);
 #pragma unroll
-      for (int b = 0; b < B; ++b) {
-        pairk::diag_apply(m, g.dx, g.dy, vj + 3 * b, acc + 3 * b);
-        pairk::diag_apply_t(m, g.dx, g.dy, vi + 3 * b, accj + 3 * b);
+        for (int b = 0; b < B; ++b) {
+          m.apply(vj + 3 * b, acc + 3 * b);
+          m.apply_t(vi + 3 * b, accj + 3 * b);
+        }
+      } else {
+        const Geo<T> g = make_geo<T, MODE>(tgt, pj);
+        // one path for the warp's 32 pairs: the far form when all are far
+        const bool far = ALL_FAR || __all_sync(0xffffffffu, g.far);
+        const Diag<T> m = far ? condense<T, MODE, false>(g, tgt, pj)
+                              : condense<T, MODE, true>(g, tgt, pj);
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          pairk::diag_apply(m, g.dx, g.dy, vj + 3 * b, acc + 3 * b);
+          pairk::diag_apply_t(m, g.dx, g.dy, vi + 3 * b, accj + 3 * b);
+        }
       }
 #pragma unroll
       for (int c = 0; c < kQ; ++c)
@@ -325,12 +479,13 @@ __device__ __forceinline__ void rotate(const T* __restrict__ q,
 }
 
 // One block: one pair of tile groups (GA, GB), GA <= GB, as
-// pairk::sym_kernel, on rows (x, y, z_eff, a, 1/a).
-template <typename T, int B, bool WALL>
-__global__ void __launch_bounds__(kTile, (min_blocks<T>()))
+// pairk::sym_kernel, on rows (x, y, z_eff, a, 1/a), in the domain MODE
+// and the pair geometry G (RadiiOpen, or an image-box policy).
+template <typename T, int B, int MODE, typename G>
+__global__ void __launch_bounds__(kTile, (min_blocks<T, G>()))
 radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
                  T* __restrict__ ws, int n, int n_groups,
-                 int tiles_per_group) {
+                 int tiles_per_group, G geom) {
   constexpr int NV = 3 * B;
   constexpr int L = Row<T, B>::value;
   __shared__ __align__(16) T s_src[kTile][L];
@@ -374,7 +529,8 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
       for (int c = 0; c < NV; ++c) vi[c] = vec[(size_t)i * NV + c];
     }
     const Target<T> tgt = make_target(pi);
-    const Box<T> box_a = tile_box(pi, s_box);
+    Box<T> box_a;
+    if constexpr (!G::kImages) box_a = tile_box(pi, s_box);
 #pragma unroll 1
     for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
       if (tb == ta) {  // the diagonal tile: every ordered pair, self included
@@ -389,25 +545,42 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
         for (int k = 0; k < count; ++k) {
           T src[L];
           pairk::load_row<L>(s_src[k], src);
-          const Geo<T> g = make_geo(tgt, src);
-          const Diag<T> m = condense<T, WALL, true>(g, tgt, src);
+          if constexpr (G::kImages) {
+            const pairk::BlockSum<T> m =
+                box_sum<T, MODE, false>(geom, tgt, src);
 #pragma unroll
-          for (int b = 0; b < B; ++b)
-            pairk::diag_apply(m, g.dx, g.dy, src + kQ + 3 * b, acc + 3 * b);
+            for (int b = 0; b < B; ++b)
+              m.apply(src + kQ + 3 * b, acc + 3 * b);
+          } else {
+            const Geo<T> g = make_geo<T, MODE>(tgt, src);
+            const Diag<T> m = condense<T, MODE, true>(g, tgt, src);
+#pragma unroll
+            for (int b = 0; b < B; ++b)
+              pairk::diag_apply(m, g.dx, g.dy, src + kQ + 3 * b,
+                                acc + 3 * b);
+          }
         }
         continue;
       }
       // off the diagonal: the tile pair's path, then its rotations
-      const int j = tb * kTile + threadIdx.x;
-      T pj[kQ] = {T(0), T(0), T(1), T(1), T(1)};
-      if (j < n) {
+      bool all_far = false;
+      if constexpr (!G::kImages) {
+        const int j = tb * kTile + threadIdx.x;
+        T pj[kQ] = {T(0), T(0), T(1), T(1), T(1)};
+        if (j < n) {
 #pragma unroll
-        for (int c = 0; c < kQ; ++c) pj[c] = q[kQ * j + c];
+          for (int c = 0; c < kQ; ++c) pj[c] = q[kQ * j + c];
+        }
+        const Box<T> box_b = tile_box(pj, s_box);
+        all_far = boxes_far(box_a, box_b) &&
+                  (MODE != kFreeSurface || above_plane(box_a, box_b));
       }
-      if (boxes_far(box_a, tile_box(pj, s_box)))
-        rotate<T, B, WALL, true>(q, vec, n, tb, tgt, vi, acc, s_sum);
+      if constexpr (G::kImages)
+        rotate<T, B, MODE, false>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);
+      else if (all_far)
+        rotate<T, B, MODE, true>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);
       else
-        rotate<T, B, WALL, false>(q, vec, n, tb, tgt, vi, acc, s_sum);
+        rotate<T, B, MODE, false>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);
       __syncthreads();
       pairk::add_source_sums<T, NV>(s_sum, ws_b, tb * kTile + threadIdx.x, n);
       __syncthreads();  // s_sum is refilled by the next tile pair
@@ -419,14 +592,14 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   }
 }
 
-template <typename T, int B, bool WALL>
-int launch_bw(const T* q, const T* vec, T* out, T* ws, int n, int n_groups,
-              int tiles_per_group, cudaStream_t s) {
+template <typename T, int B, int MODE, typename G>
+int launch_bm(const T* q, const T* vec, T* out, T* ws, int n, int n_groups,
+              int tiles_per_group, const G& geom, cudaStream_t s) {
   const long long n_pairs =
       static_cast<long long>(n_groups) * (n_groups + 1) / 2;
-  radii_sym_kernel<T, B, WALL><<<static_cast<unsigned>(n_pairs), kTile, 0,
-                                 s>>>(q, vec, ws, n, n_groups,
-                                      tiles_per_group);
+  radii_sym_kernel<T, B, MODE, G>
+      <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
+          q, vec, ws, n, n_groups, tiles_per_group, geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = static_cast<long long>(n) * 3 * B;
@@ -436,29 +609,64 @@ int launch_bw(const T* q, const T* vec, T* out, T* ws, int n, int n_groups,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int B, typename G>
+int launch_b(const T* q, const T* vec, T* out, T* ws, int n, int n_groups,
+             int tiles_per_group, int mode, const G& geom, cudaStream_t s) {
+  switch (mode) {
+    case kOpen:
+      return launch_bm<T, B, kOpen>(q, vec, out, ws, n, n_groups,
+                                    tiles_per_group, geom, s);
+    case kWall:
+      return launch_bm<T, B, kWall>(q, vec, out, ws, n, n_groups,
+                                    tiles_per_group, geom, s);
+    case kFreeSurface:
+      return launch_bm<T, B, kFreeSurface>(q, vec, out, ws, n, n_groups,
+                                           tiles_per_group, geom, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // q (n,5) rows (x, y, z_eff, a, 1/a), vec (n, 3 n_rhs) b-major columns, out
 // (n, 3 n_rhs), ws (n_groups, n, 3 n_rhs); all contiguous on the device;
 // n > 0, n_rhs 1 or 2, groups of tiles_per_group 128-blob tiles covering
-// n. Returns the CUDA error code of the launches.
-template <typename T>
+// n; mode 0 (open), 1 (wall) or 2 (free surface). Returns the CUDA error
+// code of the launches.
+template <typename T, typename G>
 int launch(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
-           int n_groups, int tiles_per_group, int wall, void* stream) {
+           int n_groups, int tiles_per_group, int mode, const G& geom,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || ws == nullptr || n_groups < 1 || n_groups > 65535 ||
       tiles_per_group < 1 ||
       static_cast<long long>(n_groups) * tiles_per_group * kTile < n)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rhs == 1)
-    return wall ? launch_bw<T, 1, true>(q, vec, out, ws, n, n_groups,
-                                        tiles_per_group, s)
-                : launch_bw<T, 1, false>(q, vec, out, ws, n, n_groups,
-                                         tiles_per_group, s);
+    return launch_b<T, 1>(q, vec, out, ws, n, n_groups, tiles_per_group,
+                          mode, geom, s);
   if (n_rhs == 2)
-    return wall ? launch_bw<T, 2, true>(q, vec, out, ws, n, n_groups,
-                                        tiles_per_group, s)
-                : launch_bw<T, 2, false>(q, vec, out, ws, n, n_groups,
-                                         tiles_per_group, s);
+    return launch_b<T, 2>(q, vec, out, ws, n, n_groups, tiles_per_group,
+                          mode, geom, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the image boxes of the host arrays L (3,) and off (n_boxes, 3) in
+// physical units: PlaneBoxes when the list is the in-plane one with both
+// lengths above kPlaneFarMin times the largest radius a_max, ImageBoxes
+// otherwise
+template <typename T>
+int launch_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
+               int n_groups, int tiles_per_group, int mode, const double* L,
+               int n_boxes, const double* off, double a_max, void* stream) {
+  pairk::PlaneBoxes<T> plane{};
+  if (a_max > 0.0 && pairk::plane_boxes(L, n_boxes, off, plane,
+                                        pairk::kPlaneFarMin * a_max))
+    return launch<T>(q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group,
+                     mode, plane, stream);
+  pairk::ImageBoxes<T> g{};
+  if (!pairk::image_boxes(L, n_boxes, off, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T>(q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group,
+                   mode, g, stream);
 }
 
 }  // namespace
@@ -466,15 +674,42 @@ int launch(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
 extern "C" int pair_radii_sym_f32(const float* q, const float* vec,
                                   float* out, float* ws, int n, int n_rhs,
                                   int n_groups, int tiles_per_group,
-                                  int wall, void* stream) {
+                                  int mode, void* stream) {
   return launch<float>(q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group,
-                       wall, stream);
+                       mode, RadiiOpen(), stream);
 }
 
 extern "C" int pair_radii_sym_f64(const double* q, const double* vec,
                                   double* out, double* ws, int n, int n_rhs,
                                   int n_groups, int tiles_per_group,
-                                  int wall, void* stream) {
+                                  int mode, void* stream) {
   return launch<double>(q, vec, out, ws, n, n_rhs, n_groups,
-                        tiles_per_group, wall, stream);
+                        tiles_per_group, mode, RadiiOpen(), stream);
+}
+
+// the image-box instances: the same arguments, then L (3,), the box in
+// physical units (0 on an open axis), the count and the boxes' offsets b
+// L (host arrays, the home box first), and the largest radius
+extern "C" int pair_radii_sym_img_f32(const float* q, const float* vec,
+                                      float* out, float* ws, int n,
+                                      int n_rhs, int n_groups,
+                                      int tiles_per_group, int mode,
+                                      const double* L, int n_boxes,
+                                      const double* off, double a_max,
+                                      void* stream) {
+  return launch_img<float>(q, vec, out, ws, n, n_rhs, n_groups,
+                           tiles_per_group, mode, L, n_boxes, off, a_max,
+                           stream);
+}
+
+extern "C" int pair_radii_sym_img_f64(const double* q, const double* vec,
+                                      double* out, double* ws, int n,
+                                      int n_rhs, int n_groups,
+                                      int tiles_per_group, int mode,
+                                      const double* L, int n_boxes,
+                                      const double* off, double a_max,
+                                      void* stream) {
+  return launch_img<double>(q, vec, out, ws, n, n_rhs, n_groups,
+                            tiles_per_group, mode, L, n_boxes, off, a_max,
+                            stream);
 }

@@ -5,13 +5,14 @@ parses the whitespace-separated key-value format with '#' comments and
 repeated structure entries; `build_system` builds the port's System and
 initial State from the referenced .vertex/.clones files.
 
-Domains: single_wall, no_wall, periodic_spectral and
-single_wall_spectral (periodic_length Lx Ly 0; both spectral domains read
+Domains: single_wall, no_wall, in_plane, free_surface (also selected by
+the reference's `*_free_surface` implementation names), periodic_spectral
+and single_wall_spectral (periodic_length Lx Ly 0; both spectral domains read
 spectral_tolerance, spectral_grid_max and spectral_cell_capacity, and
 the wall slab's height is sized at the start of a run,
 saddle.auto_wall_height); a tree/neighbor blob_blob_force_implementation
-selects the linked-cell forces. `save_velocities True` makes a dynamic
-run write .velocities.dat (cli.py). The lubrication schemes' options
+selects the linked-cell forces, in any box. `save_velocities True` makes
+a dynamic run write .velocities.dat (cli.py). The lubrication schemes' options
 (omega, cut_torque, Lub_Cut or lub_cutoff, lub_cutoff_wall,
 max_neighbors, firm_delta, repulsion_strength_firm and
 lubrication_tables_dir) stay in `options`, read by the CLI's lubrication

@@ -41,7 +41,9 @@ def evaluate_velocity_field(system: System, state: State, lam, grid_coords,
                             tracer_radius=0.0):
     """Velocity at grid_coords (P, 3) induced by blob forces lam (N, 3),
     each blob a source of its own radius (System.blob_radii), on the
-    state's device and dtype."""
+    state's device and dtype. The wall's image system on single_wall and
+    in_plane, as the JAX package's fields.py:40 takes it (unprojected);
+    every other domain unbounded."""
     r_blobs = kin.blob_positions(system, state)
     tgt = torch.as_tensor(grid_coords, dtype=r_blobs.dtype,
                           device=r_blobs.device)
@@ -49,7 +51,7 @@ def evaluate_velocity_field(system: System, state: State, lam, grid_coords,
                               device=r_blobs.device)
     return mob.source_target_matvec(
         r_blobs, tgt, lam.reshape(-1, 3), radius_src, tracer_radius,
-        system.eta, wall=system.domain == "single_wall",
+        system.eta, wall=system.domain in ("single_wall", "in_plane"),
         periodic_length=system.periodic_length)
 
 

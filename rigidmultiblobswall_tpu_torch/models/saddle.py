@@ -144,13 +144,18 @@ MATERIALIZE_BUDGET_BYTES = int(os.environ.get("RMW_MATERIALIZE_BUDGET",
 
 def dense_mobility(system: System, r_blobs):
     """The materialized (3N, 3N) mobility of a pairwise-domain
-    configuration, with no budget check: kernel K3 on the card (its
-    image-box instance with a periodic_length), the plain builder on the
-    CPU."""
-    return mobility_cuda.dense_tt(r_blobs.contiguous(), system.eta,
-                                  system.blob_radius,
-                                  wall=system.domain == "single_wall",
-                                  periodic_length=system.periodic_length)
+    configuration, with no budget check: kernel K3 on the card in the
+    domain's mode (its image-box instance with a periodic_length;
+    in_plane: the wall instance with the z rows and columns zeroed on the
+    device, the P M P of its blocks), the plain builder on the CPU."""
+    m = mobility_cuda.dense_tt(r_blobs.contiguous(), system.eta,
+                               system.blob_radius,
+                               mode=mob.DOMAIN_MODE[system.domain],
+                               periodic_length=system.periodic_length)
+    if system.domain == "in_plane":
+        m[2::3] = 0.0
+        m[:, 2::3] = 0.0
+    return m
 
 
 def maybe_dense_mobility(system: System, r_blobs):
@@ -407,8 +412,11 @@ def build_block_diag_pc(system: System, state: State,
     blocks), batched per type, a type with radii of its own other than
     blob_radius on its per-blob radii (mob.dense_mobility_radii); with
     articulated bodies, each instance's constraint resistance at the links
-    of `time`."""
-    pc_domain = {"periodic_spectral": "no_wall",
+    of `time`. in_plane bodies take the single-wall blocks."""
+    # the in_plane mobility is singular in z: its PC factors the
+    # single-wall blocks (the JAX package's saddle.py:605-612)
+    pc_domain = {"in_plane": "single_wall",
+                 "periodic_spectral": "no_wall",
                  "single_wall_spectral": "single_wall"}.get(system.domain,
                                                             system.domain)
     per_type = []

@@ -10,18 +10,20 @@ dataclasses take the place of the JAX pytrees:
     tensors, in type-group order; the device and dtype of a run are the
     state's.
 
-The port covers the wall-bounded and unbounded direct pairwise engine
-(`domain` 'single_wall' or 'no_wall', open or with the pseudo-periodic
-image boxes of a `periodic_length`), the
+The port covers the direct pairwise engine (`domain` 'single_wall',
+'no_wall', 'in_plane' (the single wall with the z components projected
+away) or 'free_surface' (a slip plane at z = 0), open or with the
+pseudo-periodic image boxes of a `periodic_length`), the
 triply-periodic spectral Ewald engine (`domain` 'periodic_spectral') and
 the xy-periodic spectral wall engine (`domain` 'single_wall_spectral',
 slab top `spectral_wall_height`), with per-blob radii on the pairwise
-domains and the periodic spectral engine (`BodyType.blob_radii`; the
-mobility takes them, the forces keep `blob_radius`), with the default
-force set: direct or linked-cell blob-blob repulsion and the body-body Yukawa
-force, bodies with prescribed kinematics (obstacles), active slip
-(`BodyType.slip_ref`), articulated bodies (`System.articulated`, a
-tuple of models/articulated.ArticulatedType) and the user hooks
+domains but in_plane and on the periodic spectral engine
+(`BodyType.blob_radii`; the mobility takes them, the forces keep
+`blob_radius`), with the default force set: direct or linked-cell
+blob-blob repulsion and the body-body Yukawa force, bodies with
+prescribed kinematics (obstacles), active slip (`BodyType.slip_ref`),
+articulated bodies (`System.articulated`, a tuple of
+models/articulated.ArticulatedType) and the user hooks
 (`blob_force_fn`, `body_force_torque_fn`, `slip_fn`: torch functions of
 the port's System and State, called where the JAX package calls its
 own). Fields the JAX System
@@ -40,8 +42,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-DOMAINS = ("single_wall", "no_wall", "periodic_spectral",
-           "single_wall_spectral")
+DOMAINS = ("single_wall", "no_wall", "in_plane", "free_surface",
+           "periodic_spectral", "single_wall_spectral")
 BLOB_BLOB_METHODS = ("direct", "none", "neighbor_list")
 # 'python' is the reference's backend name; both select the one Yukawa law
 BODY_BODY_METHODS = ("none", "python", "yukawa")
@@ -176,8 +178,7 @@ class System:
                            tuple(float(x) for x in self.periodic_length))
         if self.domain not in DOMAINS:
             raise NotImplementedError(
-                f"domain {self.domain!r}: the port covers {DOMAINS} so far "
-                "(in_plane and free_surface: ROADMAP Queue 1, item 4)")
+                f"domain {self.domain!r}: the port covers {DOMAINS}")
         periodic = [L > 0 for L in self.periodic_length]
         if self.domain == "periodic_spectral":
             if not all(periodic):
@@ -188,22 +189,16 @@ class System:
                 raise ValueError("single_wall_spectral needs periodic_length "
                                  "> 0 on x and y and 0 on z (the wall engine "
                                  "is doubly periodic in-plane)")
-        elif any(periodic) and self.has_mixed_radii:
+        elif self.domain == "in_plane" and self.has_mixed_radii:
             raise NotImplementedError(
-                "per-blob radii with pseudo-periodic image boxes (kernel "
-                "P1's image-box instance) are not ported yet (ROADMAP Queue "
-                "1, item 4)")
+                "per-blob radii on in_plane: the JAX package's radii "
+                "products treat in_plane as an unbounded domain (no wall, "
+                "no projection), so the port refuses them rather than run "
+                "other physics (ROADMAP Queue 3, differs on purpose)")
         if self.blob_blob_force_method not in BLOB_BLOB_METHODS:
             raise ValueError(f"blob_blob_force_method "
                              f"{self.blob_blob_force_method!r}; one of "
                              f"{BLOB_BLOB_METHODS}")
-        if (self.blob_blob_force_method == "neighbor_list"
-                and not all(periodic)
-                and self.domain != "single_wall_spectral"):
-            raise NotImplementedError(
-                "linked-cell blob forces in open boxes are not ported yet "
-                "(ROADMAP Queue 1, item 14); the port covers periodic boxes "
-                "and the spectral wall engine's slab")
 
     @property
     def num_bodies(self) -> int:

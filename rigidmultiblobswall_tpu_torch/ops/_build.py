@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 # C signatures of the entry points (csrc/pair_tt.cu, csrc/pair_couplings.cu,
+# csrc/pair_fs.cu,
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
 # csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu,
 # csrc/wall_rot_near.cu, csrc/laplace_layers.cu, csrc/blob_energy.cu,
@@ -49,17 +50,19 @@ _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
          _P)
 _WALL = (_P,) * 6 + (_I,) * 9 + (_D,) * 11 + (_P,)
 _ROT = (_P,) * 7 + (_I,) * 9 + (_D,) * 12 + (_P,)
+# K1's instances (csrc/pair_tt.cu, pair_couplings.cu, pair_fs.cu)
+_COUPLINGS = ("tt", "tr", "rt", "rr", "grand", "tt_fs")
 SIGNATURES = {
-    **{f"pair_{c}_{t}": _PAIR for c in ("tt", "tr", "rt", "rr", "grand")
+    **{f"pair_{c}_{t}": _PAIR for c in _COUPLINGS
        for t in ("f32", "f64")},
     **{f"pair_{c}_img_{t}": _PAIR[:-1] + _BOXES + (_P,)
-       for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
+       for c in _COUPLINGS for t in ("f32", "f64")},
     **{f"pair_{c}_shape": (_I, _I, _I, _I, _PI)
-       for c in ("tt", "tr", "rt", "rr", "grand")},
+       for c in _COUPLINGS},
     **{f"pair_{c}_sym_{t}": _PAIR_SYM
-       for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
+       for c in _COUPLINGS for t in ("f32", "f64")},
     **{f"pair_{c}_sym_img_{t}": _PAIR_SYM[:-1] + _BOXES + (_P,)
-       for c in ("tt", "tr", "rt", "rr", "grand") for t in ("f32", "f64")},
+       for c in _COUPLINGS for t in ("f32", "f64")},
     **{f"blob_forces_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3 + (_P,)
        for t in ("f32", "f64")},
     **{f"blob_forces_periodic_{t}": (_P,) * 3 + (_I,) * 3 + (_D,) * 3
@@ -75,6 +78,8 @@ SIGNATURES = {
     "symm_matvec_f64": (_P, _P, _P, _P, _I, _I, _P),
     "nl_forces_f32": _NL,
     "nl_forces_f64": _NL,
+    **{f"nl_forces_open_{t}": (_P,) * 5 + (_I,) * 5 + (_PD,) * 3
+       + (_D,) * 3 + (_P,) for t in ("f32", "f64")},
     **{f"near_rpy_{t}_b{b}": _NEAR for t in ("f32", "f64") for b in (1, 2)},
     **{f"wall_near_{t}_b{b}": _WALL for t in ("f32", "f64") for b in (1, 2)},
     **{f"wall_rot_near_{t}_{w}": _ROT for t in ("f32", "f64")
@@ -87,6 +92,8 @@ SIGNATURES = {
        for t in ("f32", "f64")},
     **{f"pair_radii_sym_{t}": (_P,) * 4 + (_I,) * 5 + (_P,)
        for t in ("f32", "f64")},
+    **{f"pair_radii_sym_img_{t}": (_P,) * 4 + (_I,) * 5 + _BOXES
+       + (_D, _P) for t in ("f32", "f64")},
     **{f"blob_energy_small_{t}": (_P,) * 2 + (_I,) * 2 + (_D,) * 4
        + (_PD, _I, _P) for t in ("f32", "f64")},
     "launch_floor": (_P,),

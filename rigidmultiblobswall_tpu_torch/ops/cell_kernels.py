@@ -3,7 +3,12 @@ periodic box or a wall slab, beside their plain PyTorch versions.
 
 - K5 `nl_forces`: the linked-cell soft blob-blob repulsion, counterpart
   of rigidmultiblobswall_tpu/ops/forces.py (`_nl_force_kernel`, wrapper
-  `_neighbor_forces_pallas`); CUDA source `csrc/nl_forces.cu`.
+  `_neighbor_forces_pallas`); CUDA source `csrc/nl_forces.cu`. Its open
+  instance `nl_forces_open` takes a box with open axes (the generic path
+  of that file, forces.py:187-269, XLA there): the cells of an open axis
+  from the data's extent (ops/forces.py open_force_cells), the stencil
+  stopped at the edges of an open axis and wrapped on a periodic one, and
+  every blob a target, a cell's overflow included.
 - K6 `near_rpy`: the near-field RPY remainder of the periodic spectral
   engine, u_i = sum_j alpha(r) f_j + (beta(r)/r^2)(d.f_j) d over
   0 < r < r_cut, with alpha and beta from a two-piece Chebyshev series
@@ -59,15 +64,17 @@ case raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
 import torch
 
-from . import _build, cells, mobility_cuda
+from . import _build, cells, mobility_cuda, pair_kernels
 
 # kernel launches made by the wrappers in this process
-LAUNCHES = {"nl_forces": 0, "near_rpy_b1": 0, "near_rpy_b2": 0,
+LAUNCHES = {"nl_forces": 0, "nl_forces_open": 0, "near_rpy_b1": 0,
+            "near_rpy_b2": 0,
             "near_rpy_radii_b1": 0, "near_rpy_radii_b2": 0,
             "near_radii_pairs": 0,
             "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_grand": 0,
@@ -130,6 +137,64 @@ def nl_forces_plain(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b,
         mag = torch.where(inside, mag, torch.zeros_like(mag))
         rows = torch.sum(mag[..., None] * d, dim=(2, 3))
         _scatter_rows(out, t_ids, t_valid, rows)
+    return out
+
+
+def nl_forces_open_plain(pos, cell_table, dims, periodic_length, members,
+                         cap, *, eps_over_b, inv_b, two_a, rows=None):
+    """Plain PyTorch K5, open instance: the JAX package's generic
+    linked-cell sweep (forces.py:233-269). Each blob's row sums over the
+    table's blobs of the 27 cells around its own cell (members: cells.
+    cell_members' (order, starts) of the binning), the stencil clipped
+    and masked at the edges of an open axis and wrapped on a periodic
+    one, d under the minimum image on the periodic axes, its own id
+    skipped; a blob beyond its cell's capacity is no source but keeps its
+    row. `rows` (a range of target blobs) limits the rows computed; the
+    others stay zero."""
+    n = pos.shape[0]
+    dev, dtype = pos.device, pos.dtype
+    nx, ny, nz = (int(d) for d in dims)
+    L = tuple(float(x) for x in periodic_length)
+    order, starts = (t.long() for t in members)
+    cid = torch.empty(n, dtype=torch.int64, device=dev)
+    cid[order] = torch.searchsorted(
+        starts, torch.arange(n, device=dev), right=True) - 1
+    c3 = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=1)
+    offs = torch.as_tensor(cells._O27, dtype=torch.int64, device=dev)
+    dims_t = torch.tensor((nx, ny, nz), dtype=torch.int64, device=dev)
+    table = torch.cat([cell_table.long(),
+                       torch.full((1,), n, dtype=torch.int64, device=dev)])
+    pos_pad = torch.cat([pos, torch.full((1, 3), 1e30, dtype=dtype,
+                                         device=dev)])
+    out = torch.zeros_like(pos)
+    lo_r, hi_r = (0, n) if rows is None else (rows.start, min(rows.stop, n))
+    tile = max(1, min(n, (1 << 24) // max(27 * cap * 3, 1)))
+    ar = torch.arange(cap, device=dev)
+    for i0 in range(lo_r, hi_r, tile):
+        ids = torch.arange(i0, min(i0 + tile, hi_r), device=dev)
+        cand3 = c3[ids][:, None, :] + offs[None]             # (T, 27, 3)
+        valid = torch.ones(cand3.shape[:2], dtype=torch.bool, device=dev)
+        for a in range(3):
+            if L[a] > 0:
+                cand3[..., a] = torch.remainder(cand3[..., a], dims_t[a])
+            else:
+                valid &= (cand3[..., a] >= 0) & (cand3[..., a] < dims_t[a])
+                cand3[..., a] = cand3[..., a].clamp(0, int(dims_t[a]) - 1)
+        ncid = (cand3[..., 0] * ny + cand3[..., 1]) * nz + cand3[..., 2]
+        src = table[ncid[..., None] * cap + ar].reshape(len(ids), -1)
+        mask = (valid[..., None].expand(-1, -1, cap).reshape(len(ids), -1)
+                & (src < n) & (src != ids[:, None]))
+        src = torch.where(mask, src, torch.full_like(src, n))
+        d = pair_kernels.min_image(pos[ids][:, None, :] - pos_pad[src], L)
+        r2 = torch.sum(d * d, dim=-1)
+        live = mask & (r2 > 0)
+        r = torch.sqrt(torch.where(live, r2, torch.ones_like(r2)))
+        mag = torch.where(r > two_a,
+                          eps_over_b * torch.exp((two_a - r) * inv_b) / r,
+                          eps_over_b / r)
+        mag = torch.where(live, mag, torch.zeros_like(mag))
+        d = torch.where(live[..., None], d, torch.zeros_like(d))
+        out[ids] = torch.sum(mag[..., None] * d, dim=1)
     return out
 
 
@@ -601,9 +666,10 @@ def wall_rot_near_plain(pos, f, t, cell_table, dims, box, cap, cheb,
     return out
 
 
-def _check(what, pos, cell_table, dims, cap, extra=(), guard_z=False):
-    if min(int(d) for d in dims[:2]) < 4 or int(dims[2]) < (2 if guard_z
-                                                          else 4):
+def _check(what, pos, cell_table, dims, cap, extra=(), guard_z=False,
+           open_axes=False):
+    if not open_axes and (min(int(d) for d in dims[:2]) < 4
+                          or int(dims[2]) < (2 if guard_z else 4)):
         raise ValueError(f"{what}: cell dims {tuple(dims)}; the stencil "
                          "needs at least 4 cells a side (2 on z below an "
                          "empty guard layer)")
@@ -652,6 +718,52 @@ def nl_forces(pos, cell_table, dims, box, cap, *, eps_over_b, inv_b, two_a,
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES["nl_forces"] += 1
+    return out
+
+
+def nl_forces_open(pos, cell_table, dims, periodic_length, frame, members,
+                   cap, *, eps_over_b, inv_b, two_a):
+    """K5 wrapper, open instance: the CUDA kernel for CUDA tensors,
+    `nl_forces_open_plain` for CPU tensors. pos (N,3) wrapped on the
+    periodic axes, cell_table from cells.cell_bin on the open frame's cell
+    ids, frame (lo, edge) of cells.open_frame, members (order, starts) of
+    cells.cell_members -> (N,3)."""
+    kw = dict(eps_over_b=eps_over_b, inv_b=inv_b, two_a=two_a)
+    if pos.device.type == "cpu":
+        return nl_forces_open_plain(pos, cell_table, dims, periodic_length,
+                                    members, cap, **kw)
+    L = tuple(float(x) for x in periodic_length)
+    for a, x in enumerate(L):
+        if x > 0 and int(dims[a]) < 4:
+            raise ValueError(f"nl_forces_open: cell dims {tuple(dims)}; a "
+                             "periodic axis needs at least 4 cells")
+    order, starts = members
+    n_cells = int(dims[0]) * int(dims[1]) * int(dims[2])
+    _check("nl_forces_open", pos, cell_table, dims, cap, open_axes=True)
+    if (order.dtype != torch.int32
+            or starts.dtype != torch.int32
+            or order.shape != (pos.shape[0],)
+            or starts.shape != (n_cells + 1,)
+            or order.device != pos.device or starts.device != pos.device):
+        raise ValueError("nl_forces_open: order and starts must be "
+                         f"({pos.shape[0]},) and ({n_cells + 1},) int32 on "
+                         f"{pos.device}")
+    out = torch.zeros_like(pos)
+    if pos.shape[0] == 0:
+        return out
+    lo, edge = (t.double().cpu().tolist() for t in frame)
+    name = ("nl_forces_open_"
+            f"{'f32' if pos.dtype == torch.float32 else 'f64'}")
+    arr = ctypes.c_double * 3
+    err = getattr(_build.library(), name)(
+        pos.data_ptr(), cell_table.data_ptr(), order.contiguous().data_ptr(),
+        starts.contiguous().data_ptr(), out.data_ptr(), pos.shape[0],
+        *(int(d) for d in dims), int(cap), arr(*lo), arr(*edge),
+        arr(*(x if x > 0 else 0.0 for x in L)),
+        *mobility_cuda.fold_law(eps_over_b, inv_b, two_a),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _build.check(name, err)
+    LAUNCHES["nl_forces_open"] += 1
     return out
 
 

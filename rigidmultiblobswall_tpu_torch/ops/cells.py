@@ -1,5 +1,6 @@
-"""Fixed-capacity linked cells of a periodic box (PyTorch), shared by the
-two short-range pair sweeps: the near field of the spectral engine
+"""Fixed-capacity linked cells of a periodic box, or of a box with open
+axes sized from the data (PyTorch), shared by the two short-range pair
+sweeps: the near field of the spectral engine
 (kernel K6, ops/ewald.py) and the linked-cell blob forces (kernel K5,
 ops/forces.py).
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 
-def cell_bin(pos, box, dims, cap):
+def cell_bin(pos, box, dims, cap, cid=None):
     """Bin wrapped positions (N,3) into a fixed-capacity cell table.
 
     Returns (cell_table, cell_slot, cid, n_dropped):
@@ -32,12 +33,14 @@ def cell_bin(pos, box, dims, cap):
       cid:        (N,) int64 cell id per particle;
       n_dropped:  0-d int64 tensor, particles beyond their cell's cap.
     The sort is stable, so which particles overflow a cell matches the
-    JAX package (jnp.argsort)."""
+    JAX package (jnp.argsort). `cid` given (open_cell_ids) bins by it in
+    place of the periodic cells of box."""
     nx, ny, nz = (int(d) for d in dims)
     n = pos.shape[0]
     n_cells = nx * ny * nz
     dev = pos.device
-    cid = cell_ids(pos, box, dims)
+    if cid is None:
+        cid = cell_ids(pos, box, dims)
     order = torch.sort(cid, stable=True).indices
     sc = cid[order]
     slot = torch.arange(n, device=dev) - torch.searchsorted(sc, sc)
@@ -54,6 +57,56 @@ def cell_bin(pos, box, dims, cap):
                             torch.full_like(cid, n_cells * cap))
     n_dropped = torch.sum(~in_cap)
     return cell_table, cell_slot, cid, n_dropped
+
+
+def open_frame(pos, periodic_length, dims, cutoff):
+    """The cells of a box with open axes (the JAX package's generic
+    linked-cell path, forces.py:187-201): per axis (lo, edge), lo 0 and
+    edge L / n on a periodic axis (positions wrapped there), and on an
+    open axis lo the data's minimum and edge max(extent / n, cutoff)
+    (1 + 1e-6), in the positions' dtype. Returns (lo, edge), two (3,)
+    tensors on the positions' device."""
+    lo, edge = [], []
+    for a, (L, nd) in enumerate(zip(periodic_length, dims)):
+        x = pos[:, a]
+        if float(L) > 0:
+            lo.append(torch.zeros((), dtype=pos.dtype, device=pos.device))
+            edge.append(torch.tensor(float(L) / int(nd), dtype=pos.dtype,
+                                     device=pos.device))
+        else:
+            m = torch.min(x)
+            lo.append(m)
+            edge.append(torch.clamp((torch.max(x) - m) / int(nd),
+                                    min=float(cutoff)) * (1.0 + 1e-6))
+    return torch.stack(lo), torch.stack(edge)
+
+
+def open_cell_ids(pos, periodic_length, dims, lo, edge):
+    """(N,) int64 cell id of each position in the frame (lo, edge) of
+    open_frame: floor((x - lo) / edge) clipped to [0, n - 1] per axis (a
+    periodic axis: x / (L / n), as cell_ids)."""
+    nx, ny, nz = (int(d) for d in dims)
+    dims_t = torch.tensor((nx, ny, nz), dtype=torch.int64,
+                          device=pos.device)
+    c3 = []
+    for a, L in enumerate(periodic_length):
+        x = pos[:, a] if float(L) > 0 else pos[:, a] - lo[a]
+        c3.append(torch.floor(x / edge[a]).to(torch.int64))
+    c3 = torch.minimum(torch.clamp(torch.stack(c3, dim=1), min=0),
+                       dims_t - 1)
+    return (c3[:, 0] * ny + c3[:, 1]) * nz + c3[:, 2]
+
+
+def cell_members(cid, n_cells):
+    """Every particle of each cell, overflow included: (order, starts),
+    order (N,) int32 the particle ids sorted stably by cell id (as
+    cell_bin sorts them) and starts (n_cells + 1,) int32 each cell's first
+    entry in order."""
+    order = torch.sort(cid, stable=True).indices
+    counts = torch.bincount(cid, minlength=n_cells)
+    starts = torch.zeros(n_cells + 1, dtype=torch.int64, device=cid.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    return order.to(torch.int32), starts.to(torch.int32)
 
 
 def cell_ids(pos, box, dims):

@@ -3,17 +3,21 @@
 Counterpart of rigidmultiblobswall_tpu/ops/forces.py:
 `blob_external_forces`, the direct `blob_blob_forces` (open or with
 periodic images) and the linked-cell `blob_blob_forces_neighbor_list` of
-a fully periodic box or an xy-periodic wall slab, with its overflow count
-and start-up capacity sizing. The direct pair sweep runs kernel K2
-(ops/mobility_cuda.py; its periodic instance with periodic images) and
+a fully periodic box, an xy-periodic wall slab, or an open or partly
+periodic box, with its overflow count and start-up capacity sizing. The
+direct pair sweep runs kernel K2 (ops/mobility_cuda.py; its periodic
+instance with periodic images) and
 the linked-cell sweep kernel K5 (ops/cell_kernels.py) on a CUDA tensor,
 their plain versions on a CPU tensor; `body_body_forces_torques`, the
 Yukawa force between body centers, is plain PyTorch on both (XLA in the
 JAX package too); `blob_blob_energy`, the repulsion's pair energy of the
 MCMC sampler, runs kernel M1 (XLA there). In a box with a periodic axis
 under 4 cells of the cutoff the linked-cell path falls back to the direct
-periodic sweep (K2's image boxes), as the JAX package does; neighbor lists
-in open boxes are still to be ported (ROADMAP Queue 1, item 14).
+periodic sweep (K2's image boxes), as the JAX package does. In a box with
+an open axis (and not the wall slab) the linked cells follow the JAX
+package's generic path: the cells of an open axis sized from the data's
+extent, the stencil stopped at its edges, and a blob beyond its cell's
+capacity dropped as a source only (K5's open instance).
 
 Physics: gravity plus the wall repulsion of
 U(z) = U0 + U0 (a-z)/b for z < a, U0 exp(-(z-a)/b) otherwise, and the
@@ -117,10 +121,10 @@ def direct_fallback(periodic_length, cutoff):
 
 
 def neighbor_cell_dims(periodic_length, cutoff, grid_dim, z_extent=None):
-    """Cells per axis, min(L // cutoff, grid_dim), of a fully periodic box,
-    or of an xy-periodic wall slab with its z cells (wall_slab). Raises
-    NotImplementedError for open boxes, which the port does not cover;
-    boxes under 4 cells of the cutoff take the direct sweep
+    """Cells per axis: min(L // cutoff, grid_dim) on a periodic axis,
+    grid_dim on an open one (the JAX package's forces.py:143-153), or of
+    an xy-periodic wall slab with its z cells (wall_slab). Boxes with a
+    periodic axis under 4 cells of the cutoff take the direct sweep
     (direct_fallback) and have no cells."""
     slab = wall_slab(periodic_length, cutoff, z_extent)
     if slab is not None:
@@ -128,24 +132,31 @@ def neighbor_cell_dims(periodic_length, cutoff, grid_dim, z_extent=None):
     dims = []
     for L in (float(x) for x in periodic_length):
         if L <= 0:
-            raise NotImplementedError(
-                "linked-cell blob forces in open or partly periodic boxes "
-                "are not ported yet (ROADMAP Queue 1, item 14); the port "
-                "covers fully periodic boxes and xy-periodic wall slabs "
-                "of a declared z extent")
+            dims.append(int(grid_dim))
+            continue
         nd = int(L // cutoff)
         if nd < 4:
             raise ValueError(
                 f"box {tuple(periodic_length)} holds fewer than 4 cells of "
                 f"the cutoff {cutoff}: the direct periodic sweep serves it "
                 "(direct_fallback)")
-        dims.append(min(nd, int(grid_dim)))
-    if min(dims) < 4:
-        raise ValueError(f"blob_blob_grid_dim {grid_dim}: the 27-cell "
-                         "stencil needs at least 4 cells a side")
+        nd = min(nd, int(grid_dim))
+        if nd < 4:
+            raise ValueError(f"blob_blob_grid_dim {grid_dim}: the wrapped "
+                             "27-cell stencil needs at least 4 cells a side")
+        dims.append(nd)
+    if min(dims) < 1:
+        raise ValueError(f"blob_blob_grid_dim {grid_dim}: at least 1")
     if slab is not None:
         dims.append(slab[0])
     return tuple(dims)
+
+
+def open_layout(periodic_length, z_extent, cutoff):
+    """Whether the linked cells take the open layout (K5's open instance):
+    an axis is open and the box is not a wall slab."""
+    return (any(float(L) <= 0 for L in periodic_length)
+            and wall_slab(periodic_length, cutoff, z_extent) is None)
 
 
 def wall_slab(periodic_length, cutoff, z_extent):
@@ -173,16 +184,22 @@ def blob_blob_forces_neighbor_list(r_vectors, *, repulsion_strength=0.0,
                                    cutoff=None, grid_dim=16,
                                    cell_capacity=32, z_extent=None):
     """Linked-cell O(N 27 cap) pair force (the reference's kd-tree
-    variant; default cutoff 2a + 30 b) of a fully periodic box, or of an
-    xy-periodic wall slab whose blobs the caller declares below z_extent
-    (the spectral wall engine's slab height; wall_slab): blobs bin into
-    cells of edge >= cutoff, and each blob interacts with every blob of
-    the 27 cells around its own. A blob beyond its cell's capacity is
-    dropped as a source and a target (its row is zero), as on the JAX
-    package's Pallas path; size cell_capacity with
-    `auto_force_cell_capacity`. A box with a periodic axis under 4 cells
-    of the cutoff takes the direct periodic sweep (direct_fallback).
-    (N,3) -> (N,3)."""
+    variant; default cutoff 2a + 30 b): blobs bin into cells of edge >=
+    cutoff, and each blob interacts with every blob of the 27 cells around
+    its own. Three layouts:
+    - a fully periodic box: a blob beyond its cell's capacity is dropped
+      as a source and a target (its row is zero), as on the JAX package's
+      Pallas path;
+    - an xy-periodic wall slab whose blobs the caller declares below
+      z_extent (the spectral wall engine's slab height; wall_slab): the
+      same, z clipped into the slab;
+    - a box with an open axis (open_layout): the JAX package's generic
+      path, the cells of an open axis from the data's extent, the stencil
+      stopped at its edges, no minimum image there, and a blob beyond its
+      cell's capacity dropped as a source only (its own row is summed).
+    Size cell_capacity with `auto_force_cell_capacity`. A box with a
+    periodic axis under 4 cells of the cutoff takes the direct periodic
+    sweep (direct_fallback). (N,3) -> (N,3)."""
     if repulsion_strength == 0.0:
         return torch.zeros_like(r_vectors)
     rc = _cutoff(blob_radius, debye_length, cutoff)
@@ -191,20 +208,27 @@ def blob_blob_forces_neighbor_list(r_vectors, *, repulsion_strength=0.0,
             r_vectors, repulsion_strength=repulsion_strength,
             debye_length=debye_length, blob_radius=blob_radius,
             periodic_length=periodic_length)
+    law = dict(eps_over_b=repulsion_strength / debye_length,
+               inv_b=1.0 / debye_length, two_a=2.0 * blob_radius)
+    if open_layout(periodic_length, z_extent, rc):
+        pos, dims, table, _, frame, members = open_force_cells(
+            r_vectors, periodic_length, rc, grid_dim, cell_capacity)
+        return cell_kernels.nl_forces_open(
+            pos, table, dims, periodic_length, frame, members,
+            int(cell_capacity), **law)
     pos, dims, box, cell_table, _ = _force_cells(
         r_vectors, periodic_length, rc, grid_dim, cell_capacity, z_extent)
     return cell_kernels.nl_forces(
-        pos, cell_table, dims, box, int(cell_capacity),
-        eps_over_b=repulsion_strength / debye_length,
-        inv_b=1.0 / debye_length, two_a=2.0 * blob_radius,
+        pos, cell_table, dims, box, int(cell_capacity), **law,
         guard_z=float(periodic_length[2]) == 0.0)     # the wall slab
 
 
 def _force_cells(r_vectors, periodic_length, cutoff, grid_dim, cap,
                  z_extent=None):
-    """The linked-cell layout of the force sweep: binned positions (xy
-    wrapped; z wrapped, or clipped into a wall slab), cells per axis, the
-    binning box, the cell table and the count of dropped blobs (0-d)."""
+    """The linked-cell layout of the force sweep in a periodic box or a
+    wall slab: binned positions (xy wrapped; z wrapped, or clipped into a
+    wall slab), cells per axis, the binning box, the cell table and the
+    count of dropped blobs (0-d)."""
     dims = neighbor_cell_dims(periodic_length, cutoff, grid_dim, z_extent)
     slab = wall_slab(periodic_length, cutoff, z_extent)
     L = tuple(float(x) for x in periodic_length)
@@ -221,6 +245,29 @@ def _force_cells(r_vectors, periodic_length, cutoff, grid_dim, cap,
     return pos, dims, box, cell_table, n_dropped
 
 
+def open_force_cells(r_vectors, periodic_length, cutoff, grid_dim, cap):
+    """The linked-cell layout of a box with open axes (open_layout; the
+    JAX package's generic path, forces.py:187-212): positions wrapped on
+    the periodic axes and raw on the open ones, cells per axis, the cell
+    table, the count of dropped blobs (0-d), the frame (lo, edge) of
+    cells.open_frame and every cell's members (order, starts) of
+    cells.cell_members."""
+    dims = neighbor_cell_dims(periodic_length, cutoff, grid_dim)
+    L = tuple(float(x) for x in periodic_length)
+    dev = r_vectors.device
+    periodic = torch.tensor([x > 0 for x in L], device=dev)
+    box_t = torch.tensor([x if x > 0 else 1.0 for x in L],
+                         dtype=r_vectors.dtype, device=dev)
+    pos = torch.where(periodic, _wrap(r_vectors, box_t),
+                      r_vectors).contiguous()
+    lo, edge = cells.open_frame(pos, L, dims, cutoff)
+    cid = cells.open_cell_ids(pos, L, dims, lo, edge)
+    table, _, _, n_dropped = cells.cell_bin(pos, None, dims, int(cap),
+                                            cid=cid)
+    members = cells.cell_members(cid, dims[0] * dims[1] * dims[2])
+    return pos, dims, table, n_dropped, (lo, edge), members
+
+
 def force_z_extent(system):
     """The z extent a System declares for its linked-cell forces: the wall
     engine's slab height (single_wall_spectral), else None."""
@@ -233,8 +280,29 @@ def neighbor_list_overflow(system, r_blobs) -> int:
     binning of blob_blob_forces_neighbor_list, on the positions' device):
     the blobs it drops, plus on a wall slab the blobs above z_clip, whose
     height it clips. Nonzero means blobs lost or misplaced their
-    repulsion. 0 when the method is not in use or the box takes the
-    direct sweep (direct_fallback)."""
+    repulsion. 0 when the method is not in use, the box takes the direct
+    sweep (direct_fallback), or the layout is open (open_layout: its
+    overflow drops sources only; the JAX package does not monitor it, and
+    `force_cells_dropped` counts it)."""
+    if system.blob_blob_force_method != "neighbor_list":
+        return 0
+    rc = _cutoff(system.blob_radius, system.debye_length,
+                 system.blob_blob_cutoff)
+    z_extent = force_z_extent(system)
+    if (direct_fallback(system.periodic_length, rc)
+            or open_layout(system.periodic_length, z_extent, rc)):
+        return 0
+    n_dropped = force_cells_dropped(system, r_blobs)
+    slab = wall_slab(system.periodic_length, rc, z_extent)
+    if slab is not None:
+        n_dropped += int(torch.sum(r_blobs[:, 2] > slab[2]))
+    return n_dropped
+
+
+def force_cells_dropped(system, r_blobs) -> int:
+    """The blobs beyond their cell's capacity in the linked-cell force
+    layout of `system` at r_blobs, whatever the layout (0 when the method
+    is not in use or the box takes the direct sweep)."""
     if system.blob_blob_force_method != "neighbor_list":
         return 0
     rc = _cutoff(system.blob_radius, system.debye_length,
@@ -242,22 +310,21 @@ def neighbor_list_overflow(system, r_blobs) -> int:
     if direct_fallback(system.periodic_length, rc):
         return 0
     z_extent = force_z_extent(system)
-    n_dropped = int(_force_cells(
-        r_blobs, system.periodic_length, rc, system.blob_blob_grid_dim,
-        system.blob_blob_cell_capacity, z_extent)[4])
-    slab = wall_slab(system.periodic_length, rc, z_extent)
-    if slab is not None:
-        n_dropped += int(torch.sum(r_blobs[:, 2] > slab[2]))
-    return n_dropped
+    args = (r_blobs, system.periodic_length, rc, system.blob_blob_grid_dim,
+            system.blob_blob_cell_capacity)
+    if open_layout(system.periodic_length, z_extent, rc):
+        return int(open_force_cells(*args)[3])
+    return int(_force_cells(*args, z_extent)[4])
 
 
 def auto_force_cell_capacity(system, r_blobs, *, margin=1.25, log=None):
     """Size the linked-cell force capacity from the actual occupancy at
     r_blobs (host, once at start-up) in the binning the sweep uses (on a
-    wall slab, its clipped z cells): max occupancy x margin, rounded up
-    to 8, when that exceeds the system's capacity. Returns the System;
-    a no-op for other force methods and for boxes that take the direct
-    sweep (direct_fallback)."""
+    wall slab, its clipped z cells; on an open axis, cells from the data's
+    extent, as the JAX package's auto_force_cell_capacity sizes them):
+    max occupancy x margin, rounded up to 8, when that exceeds the
+    system's capacity. Returns the System; a no-op for other force
+    methods and for boxes that take the direct sweep (direct_fallback)."""
     if system.blob_blob_force_method != "neighbor_list":
         return system
     rc = _cutoff(system.blob_radius, system.debye_length,
@@ -277,8 +344,14 @@ def auto_force_cell_capacity(system, r_blobs, *, margin=1.25, log=None):
         x[:, 2] = np.clip(x[:, 2], 0.0, slab[2])
     occs = []
     for d in range(3):
-        x[:, d] = x[:, d] % L3[d]
-        occs.append(np.clip(x[:, d] // (L3[d] / dims[d]), 0,
+        if L3[d] > 0:
+            x[:, d] = x[:, d] % L3[d]
+            cs = L3[d] / dims[d]
+            lo = 0.0
+        else:
+            lo = x[:, d].min()
+            cs = max((x[:, d].max() - lo) / dims[d], rc) * (1 + 1e-6)
+        occs.append(np.clip((x[:, d] - lo) // cs, 0,
                             dims[d] - 1).astype(int))
     cid = (occs[0] * dims[1] + occs[1]) * dims[2] + occs[2]
     occ = int(np.bincount(cid).max())

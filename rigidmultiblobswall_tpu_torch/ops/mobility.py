@@ -2,27 +2,35 @@
 
 Counterpart of rigidmultiblobswall_tpu/ops/mobility.py for the couplings
 'tt', 'tr', 'rt', 'rr' and the grand (trans + rot) product, in the domains
-'single_wall' and 'no_wall', open or with the pseudo-periodic image boxes
-of a periodic_length (the minimum image, then the +-1 boxes on each
-periodic axis). Every O(N^2) product goes through
-`pair_kernels.pair_matvec`: kernel K1 (its image-box instance with a
-periodic_length) on a CUDA tensor, its plain PyTorch version (the JAX
-package's generic tiled path) on a CPU tensor. `dense_mobility_tiled`
-materializes the tt operator of one configuration (the plain version of
-kernel K3, ops/mobility_cuda.py).
+'single_wall' and 'no_wall' (every coupling), 'in_plane' (tt and tr) and
+'free_surface' (tt), open or with the pseudo-periodic image boxes of a
+periodic_length (the minimum image, then the +-1 boxes on each periodic
+axis). Every O(N^2) product goes through `pair_kernels.pair_matvec`:
+kernel K1 (its image-box instance with a periodic_length) on a CUDA
+tensor, its plain PyTorch version (the JAX package's generic tiled path)
+on a CPU tensor, in the domain mode `DOMAIN_MODE` names. The in-plane
+domain is the single wall with the z components projected away: its
+blocks are P M P, P = diag(1, 1, 0), so its products zero v_z before K1's
+wall instance and u_z after it. The free surface (a slip plane at z = 0)
+adds to each tt block its image reflected in the plane, without the
+height shift and the damping. `dense_mobility_tiled` materializes the tt
+operator of one configuration (the plain version of kernel K3,
+ops/mobility_cuda.py).
 `source_target_matvec` is the source-target product of velocity fields,
 with per-blob radii, image boxes and the free surface (plain PyTorch, as
 it is XLA there). The square product with per-blob radii,
 `mobility_radii_trans_times_force` (and its stacked form), runs kernel P1
-on a CUDA tensor (ops/mobility_cuda.radii_matvec) and
-`source_target_matvec` on a CPU tensor; `dense_mobility_radii`
-materializes it for the preconditioner blocks and the dense solves. The
-SFM engine (mobility_sfm.py) is not ported; in_plane and free_surface of
-the pair products, and per-blob radii with image boxes (kernel P1's image
-instance), are still to be ported (ROADMAP Queue 1, item 4).
+on a CUDA tensor (ops/mobility_cuda.radii_matvec; its image-box and
+free-surface instances) and `source_target_matvec` on a CPU tensor;
+`dense_mobility_radii` materializes it for the preconditioner blocks and
+the dense solves. Per-blob radii on 'in_plane' are refused: the JAX
+package's radii products treat that domain as unbounded (no wall, no
+projection), which is not the in-plane physics. The SFM engine
+(mobility_sfm.py) is not ported.
 
-Wall overlap regularization: products use z_eff = max(z, a) and
-M <- B^T M(z_eff) B with the diagonal damping B_ii = min(z_i/a, 1).
+Wall overlap regularization (single_wall, in_plane): products use z_eff =
+max(z, a) and M <- B^T M(z_eff) B with the diagonal damping B_ii =
+min(z_i/a, 1).
 """
 
 from __future__ import annotations
@@ -34,6 +42,12 @@ import torch
 from . import pair_kernels, rpy
 
 _PREF_POW = {"tt": 1, "tr": 2, "rt": 2, "rr": 3}
+
+# the K1 domain mode of each pairwise domain (pair_kernels.MODES)
+DOMAIN_MODE = {"single_wall": "wall", "no_wall": "open",
+               "in_plane": "wall", "free_surface": "free_surface"}
+# the couplings each domain has (the JAX package's _block)
+_DOMAIN_COUPLINGS = {"in_plane": ("tt", "tr"), "free_surface": ("tt",)}
 
 
 def shift_heights(r_vectors, blob_radius):
@@ -51,17 +65,32 @@ def damping_factors(r_vectors, blob_radius):
 def _check_supported(coupling, domain):
     if coupling not in _PREF_POW:
         raise ValueError(f"unknown coupling {coupling!r}")
-    if domain not in ("single_wall", "no_wall"):
+    if domain not in DOMAIN_MODE:
         raise NotImplementedError(
-            f"domain {domain!r} is not ported yet (ROADMAP Queue 1, item 4)")
+            f"domain {domain!r}: the pair products cover "
+            f"{tuple(DOMAIN_MODE)}")
+    allowed = _DOMAIN_COUPLINGS.get(domain)
+    if allowed is not None and coupling not in allowed:
+        raise NotImplementedError(
+            "in_plane supports 'tt' and 'tr' only" if domain == "in_plane"
+            else "free_surface only supports 'tt'")
+
+
+def _regularized(domain):
+    """Whether the domain takes the wall's height shift and damping."""
+    return domain in ("single_wall", "in_plane")
 
 
 def _block(coupling, domain, d, zt, zs, self_mask):
     """3x3 mobility block for d = (r_t - r_s)/a and heights zt, zs in
-    units of a."""
+    units of a (in_plane: the wall block with its z row and column
+    zeroed)."""
     _check_supported(coupling, domain)
-    return pair_kernels.block(coupling, d, zt, zs, self_mask,
-                              wall=domain == "single_wall")
+    m = pair_kernels.block(coupling, d, zt, zs, self_mask,
+                           DOMAIN_MODE[domain])
+    if domain == "in_plane":
+        m = m * rpy.z_coupling_mask(m.dtype, m.device)
+    return m
 
 
 def _normalized(r_vectors, a, wall, dtype):
@@ -85,13 +114,14 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     the k columns of a Krylov recycle refresh) runs as consecutive groups
     of MAX_RHS right-hand sides, in order, one K1 launch each. A
     periodic_length with an axis L > 0 sums the image boxes (K1's image-box
-    instance on the card)."""
+    instance on the card). in_plane: K1's wall instance between the
+    projections v_z = 0 and u_z = 0."""
     _check_supported(coupling, domain)
     boxes = pair_kernels.image_boxes(periodic_length, a)
     n_rhs, n_src = vec.shape[0], r_src.shape[0]
     n_tgt = n_src if r_tgt is None else r_tgt.shape[0]
     dtype = torch.promote_types(r_src.dtype, vec.dtype)
-    wall = domain == "single_wall"
+    wall = _regularized(domain)
     q_src, damp_s = _normalized(r_src, a, wall, dtype)
     q_tgt, damp_t = ((None, damp_s) if r_tgt is None
                      else _normalized(r_tgt, a, wall, dtype))
@@ -99,16 +129,21 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     if wall:
         v = v * damp_s[None, :, None]
     V = v.permute(1, 0, 2).reshape(n_src, 3 * n_rhs)
+    if domain == "in_plane":
+        V = V.clone()
+        V[:, 2::3] = 0.0
     group = 3 * pair_kernels.MAX_RHS[coupling]
     out = torch.cat([
         pair_kernels.pair_matvec(
             q_src, q_tgt, V[:, c0:c0 + group].contiguous(),
-            coupling=coupling, wall=wall, self_interaction=self_interaction,
-            boxes=boxes)
+            coupling=coupling, mode=DOMAIN_MODE[domain],
+            self_interaction=self_interaction, boxes=boxes)
         for c0 in range(0, 3 * n_rhs, group)], dim=1)
     out = out * (1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling]))
     if wall:
         out = out * damp_t[:, None]
+    if domain == "in_plane":
+        out[:, 2::3] = 0.0
     return out.reshape(n_tgt, n_rhs, 3).permute(1, 0, 2)
 
 
@@ -158,8 +193,9 @@ def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
     (mobility.py:386-409). T enters scaled by 1/a and W leaves scaled by
     a, so the kernel's sums see magnitudes of one order. A periodic_length
     with an axis L > 0 sums the image boxes (K1 grand's image-box
-    instance)."""
-    _check_supported("tt", domain)
+    instance). The rot couplings exist on single_wall and no_wall only."""
+    if domain not in ("single_wall", "no_wall"):
+        _check_supported("rr", domain)
     n = r_vectors.shape[0]
     dtype = torch.promote_types(r_vectors.dtype, force.dtype)
     wall = domain == "single_wall"
@@ -171,7 +207,8 @@ def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
         T = T * damp[:, None]
     vin = torch.cat([F, T * (1.0 / a)], dim=1).contiguous()
     out = pair_kernels.pair_matvec(
-        q, None, vin, coupling="grand", wall=wall, self_interaction=True,
+        q, None, vin, coupling="grand", mode=pair_kernels.wall_mode(wall),
+        self_interaction=True,
         boxes=pair_kernels.image_boxes(periodic_length, a))
     pref = 1.0 / (8.0 * math.pi * eta * a)
     u = out[:, :3] * pref
@@ -188,7 +225,7 @@ def dense_mobility(r_vectors, eta, a, domain="single_wall", coupling="tt"):
     preconditioner blocks."""
     n = r_vectors.shape[-2]
     batch = r_vectors.shape[:-2]
-    wall = domain == "single_wall"
+    wall = _regularized(domain)
     if wall:
         damp = damping_factors(r_vectors, a)
         r_vectors = shift_heights(r_vectors, a)
@@ -265,7 +302,7 @@ def dense_mobility_tiled(r_vectors, eta, a, *, domain="single_wall",
     (JAX mobility.py:618-680)."""
     _check_supported(coupling, domain)
     n = r_vectors.shape[0]
-    wall = domain == "single_wall"
+    wall = _regularized(domain)
     q, damp = _normalized(r_vectors, a, wall, r_vectors.dtype)
     if row_tile is None:
         row_tile = pair_kernels._default_row_tile(
@@ -390,29 +427,37 @@ def source_target_matvec(r_src, r_tgt, vec, radius_src, radius_tgt, eta, *,
 # ---------------------------------------------------------------------------
 
 
+RADII_DOMAINS = ("single_wall", "no_wall", "free_surface")
+
+
+def _check_radii(domain):
+    if domain not in RADII_DOMAINS:
+        raise NotImplementedError(
+            f"per-blob radii on domain {domain!r}: the port covers "
+            f"{RADII_DOMAINS}" + (
+                "; on in_plane the JAX package's radii products drop the "
+                "wall and the projection, so the port refuses them rather "
+                "than run other physics" if domain == "in_plane" else ""))
+
+
 def mobility_radii_multi(r_vectors, vec, radii, eta, *,
                          domain="single_wall",
                          periodic_length=(0.0, 0.0, 0.0)):
     """Stacked square tt products with per-blob radii, vec (B, N, 3) ->
     (B, N, 3): kernel P1 on a CUDA tensor (ops/mobility_cuda.radii_matvec,
-    B = 1 or 2 a launch, wider stacks in consecutive pairs), the
-    source-target product with sources = targets on a CPU tensor (its
-    r = 0 branch is the self mobility 4/(3 a)). No image boxes: P1 has no
-    image-box instance yet."""
+    B = 1 or 2 a launch, wider stacks in consecutive pairs; its image-box
+    instance with a periodic_length, its free-surface instance on
+    free_surface), the source-target product with sources = targets on a
+    CPU tensor (its r = 0 branch is the self mobility 4/(3 a))."""
     from .mobility_cuda import RADII_MAX_RHS, radii_matvec
 
-    _check_supported("tt", domain)
-    if any(float(L) > 0 for L in periodic_length):
-        raise NotImplementedError(
-            "per-blob radii with pseudo-periodic image boxes (kernel P1's "
-            "image-box instance) are not ported yet (ROADMAP Queue 1, "
-            "item 4)")
-    wall = domain == "single_wall"
+    _check_radii(domain)
     radii = torch.broadcast_to(torch.as_tensor(
         radii, dtype=r_vectors.dtype, device=r_vectors.device),
         (r_vectors.shape[0],))
     return torch.cat([radii_matvec(r_vectors, vec[b0:b0 + RADII_MAX_RHS],
-                                   radii, eta, wall=wall)
+                                   radii, eta, domain=domain,
+                                   periodic_length=periodic_length)
                       for b0 in range(0, vec.shape[0], RADII_MAX_RHS)])
 
 
@@ -432,8 +477,9 @@ def dense_mobility_radii(r_vectors, radii, eta, *, domain="single_wall"):
     batch dimensions ((..., N, 3) -> (..., 3N, 3N)): the product of
     mobility_radii_trans_times_force materialized, for the per-body
     preconditioner blocks and the dense solves (plain PyTorch, as it is
-    XLA in the JAX package). No periodic images."""
-    _check_supported("tt", domain)
+    XLA in the JAX package); free_surface adds the reflected image. No
+    periodic images."""
+    _check_radii(domain)
     n = r_vectors.shape[-2]
     batch = r_vectors.shape[:-2]
     dtype = r_vectors.dtype
@@ -448,11 +494,16 @@ def dense_mobility_radii(r_vectors, radii, eta, *, domain="single_wall"):
     at = radii[..., :, None]
     bs = radii[..., None, :]
     m = rpy.rpy_tt_radii(d, at, bs)
+    zt = r_vectors[..., :, None, 2]
+    zs = r_vectors[..., None, :, 2]
     if wall:
-        zt = r_vectors[..., :, None, 2]
-        zs = r_vectors[..., None, :, 2]
         m = m + rpy.wall_tt_radii(d[..., 0], d[..., 1], zt + zs, zt, zs, at,
                                   bs)
+    elif domain == "free_surface":
+        d_img = torch.cat([d[..., :2], (zt + zs)[..., None]], dim=-1)
+        refl = torch.tensor([1.0, 1.0, -1.0], dtype=dtype,
+                            device=r_vectors.device)
+        m = m + rpy.rpy_tt_radii(d_img, at, bs) * refl
     m = m / (8.0 * math.pi * eta)
     if wall:
         m = m * damp[..., :, None, None, None] * damp[..., None, :, None, None]

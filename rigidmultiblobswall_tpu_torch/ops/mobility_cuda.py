@@ -14,7 +14,10 @@ of its kernels, and of the MCMC pair energy (M1):
      models/saddle.py:130-139 there, `csrc/dense_tt.cu` here), with an
      image-box instance that sums the pseudo-periodic boxes of a
      periodic_length into each block (ops/mobility.py
-     dense_mobility_tiled with images, XLA there);
+     dense_mobility_tiled with images, XLA there), and free-surface
+     instances (the block plus its image reflected in a slip plane at
+     z = 0; dense_mobility_tiled's free_surface domain), open and in
+     the boxes;
   K4 `symm_matvec`: u = M v from the upper-triangle tiles of that matrix,
      for one right-hand side or the lockstep solves' pairs
      (`symm_planes_matvec` there, `csrc/symm_planes.cu` here);
@@ -31,7 +34,9 @@ of its kernels, and of the MCMC pair energy (M1):
      (XLA in the JAX package: ops/mobility.py:540
      mobility_radii_trans_times_force, the source-target product with
      sources = targets; `csrc/pair_radii.cu` here, on K1's symmetric
-     sweep).
+     sweep), with its image-box instances (the boxes of a
+     periodic_length) and its free-surface ones (source_target_matvec's
+     free_surface branch), open and in the boxes.
 Each wrapper launches its kernel for CUDA tensors (float32 or float64) and
 runs its plain PyTorch version for CPU tensors; any other device raises.
 The (3,3,N,N) component planes of the JAX package exist to avoid the
@@ -75,14 +80,18 @@ COINCIDENT = ("zero", "one")
 # values of the plain energy's largest (configurations, rows, n, 3)
 # difference tensor
 ENERGY_CHUNK_VALUES = 1 << 24
-# number of K3 / K4 launches made by `dense_tt` / `symm_matvec`, and of
-# K3's image-box instance
-DENSE_LAUNCHES = {"dense_tt": 0, "symm_matvec": 0}
-DENSE_IMAGE_LAUNCHES = 0
-# number of P1 launches made by `radii_matvec`, by B, and the most
-# right-hand sides a launch takes (the kernel's template instances)
-RADII_LAUNCHES = {1: 0, 2: 0}
+# number of K3 launches made by `dense_tt`, by (mode, images): mode of
+# pair_kernels.MODES, images True for the image-box instances
+DENSE_TT_LAUNCHES = {(m, i): 0 for m in pair_kernels.MODES
+                     for i in (False, True)}
+# number of K4 launches made by `symm_matvec`
+SYMM_LAUNCHES = 0
+# the most right-hand sides a P1 launch takes (the kernel's template
+# instances), and the P1 launches made by `radii_matvec`, by (B, mode,
+# images) as DENSE_TT_LAUNCHES
 RADII_MAX_RHS = 2
+RADII_LAUNCHES = {(b, m, i): 0 for b in range(1, RADII_MAX_RHS + 1)
+                  for m in pair_kernels.MODES for i in (False, True)}
 # K4's tile edge in blobs (csrc/symm_planes.cu kBlobs): the kernel reads
 # the tiles M[3 T I : 3 T (I+1), 3 T J : 3 T (J+1)] with J >= I only
 SYMM_TILE = 64
@@ -388,25 +397,34 @@ def _check_cuda(what, *tensors):
             raise ValueError(f"{what}: tensor is not contiguous")
 
 
-def dense_tt_plain(r_vectors, eta, a, *, wall,
+# the pairwise domain of each K3 mode (pair_kernels.MODES)
+_MODE_DOMAIN = {"open": "no_wall", "wall": "single_wall",
+                "free_surface": "free_surface"}
+
+
+def dense_tt_plain(r_vectors, eta, a, *, mode,
                    periodic_length=(0.0, 0.0, 0.0)):
     """Plain PyTorch K3: the row-tiled (3N, 3N) builder of ops/mobility.py
-    with the scaling folded in (and the image boxes of periodic_length)."""
+    with the scaling folded in (and the image boxes of periodic_length),
+    in the domain mode of pair_kernels.MODES."""
     return mob.dense_mobility_tiled(
-        r_vectors, eta, a, domain="single_wall" if wall else "no_wall",
+        r_vectors, eta, a, domain=_MODE_DOMAIN[pair_kernels._mode(mode)],
         periodic_length=periodic_length)
 
 
-def dense_tt(r_vectors, eta, a, *, wall, periodic_length=(0.0, 0.0, 0.0)):
+def dense_tt(r_vectors, eta, a, *, mode, periodic_length=(0.0, 0.0, 0.0)):
     """K3 wrapper: the tt mobility of the configuration r_vectors (N,3) as
-    the interleaved (3N, 3N) matrix, in the dtype of r_vectors, summed over
-    the image boxes of periodic_length when it has a periodic axis (K3's
-    image-box instance, counted in DENSE_IMAGE_LAUNCHES). The CUDA kernel
-    for CUDA tensors, `dense_tt_plain` for CPU tensors."""
-    global DENSE_IMAGE_LAUNCHES
+    the interleaved (3N, 3N) matrix, in the dtype of r_vectors, in the
+    domain mode of pair_kernels.MODES (wall: the height shift and damping
+    folded in; free_surface: the reflected image, neither shift nor
+    damping), summed over the image boxes of periodic_length when it has
+    a periodic axis (K3's image-box instance); launches count in
+    DENSE_TT_LAUNCHES by (mode, images). The CUDA kernel for CUDA
+    tensors, `dense_tt_plain` for CPU tensors."""
     periodic_length = tuple(float(x) for x in periodic_length)
+    pair_kernels._mode(mode)
     if r_vectors.device.type == "cpu":
-        return dense_tt_plain(r_vectors, eta, a, wall=wall,
+        return dense_tt_plain(r_vectors, eta, a, mode=mode,
                               periodic_length=periodic_length)
     r = r_vectors
     _check_cuda("dense_tt", r)
@@ -423,16 +441,15 @@ def dense_tt(r_vectors, eta, a, *, wall, periodic_length=(0.0, 0.0, 0.0)):
     boxes = pair_kernels.image_boxes(periodic_length, float(a))
     name, extra = f"dense_tt_{suffix}", ()
     if boxes is not None:
-        name, extra = f"dense_tt_img_{suffix}", pair_kernels._box_args(boxes)
+        name = f"dense_tt_img_{suffix}"
+        extra = pair_kernels._box_args(boxes)
     err = getattr(_build.library(), name)(
         r.data_ptr(), out.data_ptr(), n, float(a),
-        1.0 / (8.0 * math.pi * float(eta) * float(a)), int(bool(wall)),
-        *extra, torch.cuda.current_stream(r.device).cuda_stream)
+        1.0 / (8.0 * math.pi * float(eta) * float(a)),
+        pair_kernels.MODE_CODE[mode], *extra,
+        torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(name, err)
-    if boxes is None:
-        DENSE_LAUNCHES["dense_tt"] += 1
-    else:
-        DENSE_IMAGE_LAUNCHES += 1
+    DENSE_TT_LAUNCHES[mode, boxes is not None] += 1
     return out
 
 
@@ -450,6 +467,7 @@ def symm_matvec(m, vec):
     M's upper-triangle tiles on the card (one launch per pair of
     right-hand sides); `symm_matvec_plain` for CPU tensors. Returns (N,3)
     or (b, N, 3)."""
+    global SYMM_LAUNCHES
     if m.device.type == "cpu":
         return symm_matvec_plain(m, vec)
     n3 = m.shape[0]
@@ -483,29 +501,41 @@ def symm_matvec(m, vec):
         err = fn(m.data_ptr(), vb.data_ptr(), partials.data_ptr(),
                  out[b0:b0 + 2].data_ptr(), n3, vb.shape[0], stream)
         _build.check(name, err)
-        DENSE_LAUNCHES["symm_matvec"] += 1
+        SYMM_LAUNCHES += 1
     return out.reshape(shape)
 
 
-def radii_matvec_plain(r_vectors, vec, radii, eta, *, wall):
+def radii_matvec_plain(r_vectors, vec, radii, eta, *, domain,
+                       periodic_length=(0.0, 0.0, 0.0)):
     """Plain PyTorch P1: the source-target product of ops/mobility.py with
     the blobs as both sources and targets, for each right-hand side of
     vec (B, N, 3)."""
-    domain = "single_wall" if wall else "no_wall"
     return torch.stack([mob.source_target_matvec(
-        r_vectors, r_vectors, v, radii, radii, eta, domain=domain)
-        for v in vec])
+        r_vectors, r_vectors, v, radii, radii, eta, domain=domain,
+        periodic_length=periodic_length) for v in vec])
 
 
-def radii_matvec(r_vectors, vec, radii, eta, *, wall):
-    """P1 wrapper: u_b = B M(z_eff) B v_b for per-blob radii (N,), the
-    different-radii RPY block plus, with `wall`, its wall image system at
-    the heights z_eff = max(z, a_i), damped by B_ii = min(z_i / a_i, 1);
-    vec (B, N, 3) -> (B, N, 3), 1 <= B <= RADII_MAX_RHS. The CUDA kernel
-    (the symmetric sweep over pair_kernels.plan_groups' tile groups) for
-    CUDA tensors, `radii_matvec_plain` for CPU tensors."""
+def radii_matvec(r_vectors, vec, radii, eta, *, domain="single_wall",
+                 periodic_length=(0.0, 0.0, 0.0)):
+    """P1 wrapper: u_b = M v_b for per-blob radii (N,), vec (B, N, 3) ->
+    (B, N, 3), 1 <= B <= RADII_MAX_RHS, in the domain single_wall (the
+    different-radii RPY block plus its wall image system at the heights
+    z_eff = max(z, a_i), damped by B_ii = min(z_i / a_i, 1)), no_wall (the
+    RPY block) or free_surface (plus its image reflected in the slip plane
+    z = 0); a periodic_length with an axis L > 0 sums the image boxes
+    after the minimum image (P1's image-box instance: the in-plane policy
+    of csrc/pair_blocks.cuh PlaneBoxes when both in-plane lengths exceed
+    pair_kernels.PLANE_FAR_MIN times the largest radius, the general one
+    otherwise). The CUDA kernel (the symmetric sweep over
+    pair_kernels.plan_groups' tile groups) for CUDA tensors,
+    `radii_matvec_plain` for CPU tensors. Launches count in RADII_LAUNCHES
+    by (B, mode, images)."""
+    periodic_length = tuple(float(x) for x in periodic_length)
+    if domain not in mob.RADII_DOMAINS:
+        raise NotImplementedError(f"radii_matvec: domain {domain!r}")
     if r_vectors.device.type == "cpu":
-        return radii_matvec_plain(r_vectors, vec, radii, eta, wall=wall)
+        return radii_matvec_plain(r_vectors, vec, radii, eta, domain=domain,
+                                  periodic_length=periodic_length)
     n = r_vectors.shape[0]
     n_rhs = vec.shape[0]
     if (r_vectors.ndim != 2 or r_vectors.shape[1] != 3 or vec.ndim != 3
@@ -517,6 +547,8 @@ def radii_matvec(r_vectors, vec, radii, eta, *, wall):
                          f"with B in 1..{RADII_MAX_RHS}, (N,)")
     if 6 * n >= 2 ** 31:
         raise ValueError("radii_matvec: too many blobs for 32-bit indexing")
+    wall = domain == "single_wall"
+    mode = mob.DOMAIN_MODE[domain]
     dtype = torch.promote_types(r_vectors.dtype, vec.dtype)
     r = r_vectors.to(dtype)
     a = radii.to(dtype)
@@ -535,13 +567,23 @@ def radii_matvec(r_vectors, vec, radii, eta, *, wall):
         return out.reshape(n, n_rhs, 3).permute(1, 0, 2)
     groups, per = pair_kernels.plan_groups(n, pair_kernels._n_sm(V))
     ws = torch.empty((groups, n, 3 * n_rhs), dtype=dtype, device=V.device)
-    name = f"pair_radii_sym_{'f32' if dtype == torch.float32 else 'f64'}"
-    err = getattr(_build.library(), name)(
-        q.data_ptr(), V.data_ptr(), out.data_ptr(), ws.data_ptr(), n, n_rhs,
-        groups, per, int(bool(wall)),
-        torch.cuda.current_stream(V.device).cuda_stream)
+    boxes = pair_kernels.image_boxes(periodic_length, 1.0)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    lib = _build.library()
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    args = (q.data_ptr(), V.data_ptr(), out.data_ptr(), ws.data_ptr(), n,
+            n_rhs, groups, per, pair_kernels.MODE_CODE[mode])
+    if boxes is None:
+        name = f"pair_radii_sym_{suffix}"
+        err = getattr(lib, name)(*args, stream)
+    else:
+        # the largest radius, for the in-plane policy's far test (one
+        # host read a product)
+        name = f"pair_radii_sym_img_{suffix}"
+        err = getattr(lib, name)(*args, *pair_kernels._box_args(boxes),
+                                 float(a.max()), stream)
     _build.check(name, err)
-    RADII_LAUNCHES[n_rhs] += 1
+    RADII_LAUNCHES[n_rhs, mode, boxes is not None] += 1
     out = out * (1.0 / (8.0 * math.pi * eta))
     if wall:
         out = out * damp[:, None]

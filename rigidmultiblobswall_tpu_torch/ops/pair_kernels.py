@@ -6,14 +6,17 @@ Counterpart of rigidmultiblobswall_tpu/ops/pair_kernels.py
 
 `pair_matvec` takes normalized inputs (lengths / a, wall heights already
 shifted to max(z, a), vector already damped; the caller applies
-1/(8 pi eta a^k) and the target damping) and B right-hand sides stacked
-as b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
+1/(8 pi eta a^k) and the target damping), a domain mode of MODES (open,
+wall, free_surface: the tt block plus its image reflected in a slip plane
+at z = 0, without shift or damping) and B right-hand sides stacked as
+b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
 
 - on a CUDA tensor it launches the hand-written kernel of the coupling
   (`csrc/pair_tt.cu`, `csrc/pair_couplings.cu`, both on
-  `csrc/pair_blocks.cuh`; float32 or float64) and counts the launch in
-  `LAUNCHES[coupling, B]`. A square product (q_tgt None: the targets
-  are the sources) takes the symmetric sweep, which condenses each
+  `csrc/pair_blocks.cuh`; the free surface's tt `csrc/pair_fs.cu`;
+  float32 or float64) and counts the launch in `LAUNCHES[instance, B]`
+  (INSTANCES: the coupling, or "tt_fs"). A square product (q_tgt None:
+  the targets are the sources) takes the symmetric sweep, which condenses each
   unordered pair once over `plan_groups`' groups of tiles and applies it
   both ways (counted also in `SYM_LAUNCHES`): tt, rr and grand are
   symmetric, M_ji = M_ij^T, and tr and rt trade places, M_tr(j,i) =
@@ -59,9 +62,20 @@ NCOMP = {"tt": 3, "tr": 3, "rt": 3, "rr": 3, "grand": 6}
 # Slip-Trapz; rr and tr: the rollers' det+stochastic torque solve)
 MAX_RHS = {"tt": 2, "tr": 2, "rt": 1, "rr": 2, "grand": 1}
 
-# K1 launches made by `pair_matvec` in this process, by (coupling, B),
+# the domain modes of the pair products: the open domain, the single wall
+# (Swan-Brady image system) and the free surface (a slip plane at z = 0,
+# tt only)
+MODES = ("open", "wall", "free_surface")
+# the domain code the C entry points of K1, K3 and P1 take for a mode
+MODE_CODE = {"open": 0, "wall": 1, "free_surface": 2}
+
+# the kernel instances of pair_matvec: every coupling, and the free
+# surface's tt ("tt_fs", csrc/pair_fs.cu)
+INSTANCES = {**MAX_RHS, "tt_fs": 2}
+
+# K1 launches made by `pair_matvec` in this process, by (instance, B),
 # and those of them on the symmetric sweep
-LAUNCHES = {(c, b): 0 for c in NCOMP for b in range(1, MAX_RHS[c] + 1)}
+LAUNCHES = {(c, b): 0 for c in INSTANCES for b in range(1, INSTANCES[c] + 1)}
 SYM_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # launches of the image-box instances, by (coupling, B, sweep), sweep
 # "sym" (the square product) or "sliced"
@@ -192,14 +206,14 @@ def _sm_count(index):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(coupling, f64, n_rhs, wall, images=0):
-    """Resident blocks an SM holds of a compiled K1 instance, from the CUDA
-    occupancy calculator: images 0 the open instance, 1 the general image
-    boxes', 2 the in-plane one's."""
+def _resident_blocks(instance, f64, n_rhs, mode, images=0):
+    """Resident blocks an SM holds of a compiled K1 instance (INSTANCES)
+    in a domain mode (MODES), from the CUDA occupancy calculator: images 0
+    the open instance, 1 the general image boxes', 2 the in-plane one's."""
     blocks = ctypes.c_int(0)
-    name = f"pair_{coupling}_shape"
+    name = f"pair_{instance}_shape"
     _build.check(name, getattr(_build.library(), name)(
-        int(f64), n_rhs, int(bool(wall)), int(images),
+        int(f64), n_rhs, MODE_CODE[mode], int(images),
         ctypes.byref(blocks)))
     if blocks.value < 1:
         raise RuntimeError(f"{name}: the instance does not fit an SM")
@@ -211,14 +225,25 @@ def _n_sm(t):
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
-def launch_plan(coupling, q_src, q_tgt, vec, *, wall, boxes=None):
+def wall_mode(wall):
+    """The domain mode of a wall flag: "wall" or "open"."""
+    return "wall" if wall else "open"
+
+
+def instance(coupling, mode):
+    """The K1 instance (INSTANCES) of a coupling in a domain mode."""
+    return "tt_fs" if _mode(mode) == "free_surface" else coupling
+
+
+def launch_plan(coupling, q_src, q_tgt, vec, *, mode, boxes=None):
     """(S, tiles_per_slice) of the sliced sweep `pair_matvec` launches on
     these CUDA tensors (of its image-box instance with `boxes`)."""
     images = 0 if boxes is None else 2 if plane_far(boxes) else 1
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // NCOMP[coupling]
-    blocks = _resident_blocks(coupling, vec.dtype == torch.float64, n_rhs,
-                              wall, images)
+    blocks = _resident_blocks(instance(coupling, mode),
+                              vec.dtype == torch.float64, n_rhs, mode,
+                              images)
     return plan_slices(n_tgt, n_src, _n_sm(vec), blocks,
                        vec.shape[1] * vec.element_size())
 
@@ -237,14 +262,26 @@ def _default_row_tile(n_src, n_tgt, itemsize, ncomp=3, budget_bytes=1 << 26):
     return int(min(max(budget_bytes // per_row, 8), max(n_tgt, 1)))
 
 
-def block(coupling, d, zt, zs, self_mask, wall):
+def _mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; one of {MODES}")
+    return mode
+
+
+def block(coupling, d, zt, zs, self_mask, mode):
     """3x3 block of tt/tr/rt/rr, or the 6x6 grand block, for d = (r_t -
-    r_s)/a and heights zt, zs in units of a (mobility.py:_block)."""
+    r_s)/a and heights zt, zs in units of a, in the domain mode of MODES
+    (mobility.py:_block; free_surface has the tt block only)."""
     if coupling == "grand":
-        b = {c: block(c, d, zt, zs, self_mask, wall)
+        b = {c: block(c, d, zt, zs, self_mask, mode)
              for c in ("tt", "tr", "rt", "rr")}
         return torch.cat([torch.cat([b["tt"], b["tr"]], dim=-1),
                           torch.cat([b["rt"], b["rr"]], dim=-1)], dim=-2)
+    if _mode(mode) == "free_surface":
+        if coupling != "tt":
+            raise NotImplementedError("free_surface only supports 'tt'")
+        return rpy.free_surface_tt(d, zt + zs, self_mask)
+    wall = mode == "wall"
     dx, dy = d[..., 0], d[..., 1]
     if coupling == "tt":
         m = rpy.rpy_tt(d, self_mask)
@@ -269,32 +306,33 @@ def block(coupling, d, zt, zs, self_mask, wall):
     return m
 
 
-def _apply_blocks(coupling, d, zt, zs, self_mask, wall, v):
+def _apply_blocks(coupling, d, zt, zs, self_mask, mode, v):
     """sum_s M(d_ts) v_s, (tile, Ns, ...) geometry and v (Ns, B, nc) ->
     (tile, B, nc); grand as its four 3x3 blocks, (U, W a) = (tt F + tr T,
     rt F + rr T), without forming the 6x6 blocks."""
     if coupling != "grand":
         return torch.einsum("tsab,skb->tka",
-                            block(coupling, d, zt, zs, self_mask, wall), v)
+                            block(coupling, d, zt, zs, self_mask, mode), v)
     f, t = v[..., :3], v[..., 3:]
 
     def mul(c, x):
         return torch.einsum("tsab,skb->tka",
-                            block(c, d, zt, zs, self_mask, wall), x)
+                            block(c, d, zt, zs, self_mask, mode), x)
 
     return torch.cat([mul("tt", f) + mul("tr", t),
                       mul("rt", f) + mul("rr", t)], dim=-1)
 
 
-def pair_plain(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
+def pair_plain(q_src, q_tgt, vec, *, coupling="tt", mode, self_interaction,
                boxes=None):
     """Plain PyTorch K1: out[i] = sum_j M(q_tgt[i], q_src[j]) vec[j] for
     each right-hand side, computed from materialized (tile, Ns, nc, nc)
-    blocks. Target row i pairs with source row i as `self` when
-    self_interaction is set (targets are the leading sources). With boxes
-    = (L, offsets) the sum runs over the image boxes as the JAX package's
-    tile_fn does: d to its minimum image, then the block of every box at
-    d + b L, the self mask in the home box only."""
+    blocks in the domain mode of MODES. Target row i pairs with source row
+    i as `self` when self_interaction is set (targets are the leading
+    sources). With boxes = (L, offsets) the sum runs over the image boxes
+    as the JAX package's tile_fn does: d to its minimum image, then the
+    block of every box at d + b L, the self mask in the home box only."""
+    _mode(mode)
     nc = NCOMP[coupling]
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // nc
@@ -322,28 +360,31 @@ def pair_plain(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
             d = d0 if home else d0 + torch.tensor(
                 box, dtype=q_src.dtype, device=q_src.device) * Lvec
             part = _apply_blocks(coupling, d, qt[:, 2][:, None], zs,
-                                 self_mask, wall, v)
+                                 self_mask, mode, v)
             acc = part if acc is None else acc + part
         out[i0:i0 + qt.shape[0]] = acc.reshape(qt.shape[0], nc * n_rhs)
     return out
 
 
-def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
-                boxes=None):
-    """K1 wrapper: the CUDA kernel of `coupling` for CUDA tensors,
-    `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt (Nt,3) or None for
-    the square product (the targets are the sources), vec (Ns,nc B) ->
-    (Nt,nc B); boxes (L, offsets) or None (the module's docstring). On
-    the card a square product takes the symmetric sweep over
-    `plan_groups`' groups, a two-tensor product the sliced sweep over
+def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", mode,
+                self_interaction, boxes=None):
+    """K1 wrapper: the CUDA kernel of `coupling` in the domain `mode`
+    (MODES; free_surface: the tt coupling's free-surface instance) for
+    CUDA tensors, `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt
+    (Nt,3) or None for the square product (the targets are the sources),
+    vec (Ns,nc B) -> (Nt,nc B); boxes (L, offsets) or None (the module's
+    docstring). On the card a square product takes the symmetric sweep
+    over `plan_groups`' groups, a two-tensor product the sliced sweep over
     `launch_plan`'s slices, each in its image-box instance with boxes."""
     if coupling not in NCOMP:
         raise ValueError(f"unknown coupling {coupling!r}")
+    if _mode(mode) == "free_surface" and coupling != "tt":
+        raise NotImplementedError("free_surface only supports 'tt'")
     square = q_tgt is None
     if square:
         q_tgt = q_src
     if q_src.device.type == "cpu":
-        return pair_plain(q_src, q_tgt, vec, coupling=coupling, wall=wall,
+        return pair_plain(q_src, q_tgt, vec, coupling=coupling, mode=mode,
                           self_interaction=self_interaction, boxes=boxes)
     _check(coupling, q_src, q_tgt, vec, boxes)
     nc = NCOMP[coupling]
@@ -353,37 +394,39 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", wall, self_interaction,
                       device=vec.device)
     if n_tgt == 0 or n_src == 0:
         return out.zero_()
+    inst = instance(coupling, mode)
+    code = MODE_CODE[mode]
     suffix = "f32" if vec.dtype == torch.float32 else "f64"
     img = "" if boxes is None else "_img"
     stream = torch.cuda.current_stream(vec.device).cuda_stream
     if square:
-        name = f"pair_{coupling}_sym{img}_{suffix}"
+        name = f"pair_{inst}_sym{img}_{suffix}"
         groups, per = plan_groups(n_src, _n_sm(vec))
         ws = torch.empty((groups, n_src, nc * n_rhs), dtype=vec.dtype,
                          device=vec.device)
         args = (q_src.data_ptr(), vec.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), n_src, n_rhs, groups, per, int(bool(wall)),
+                ws.data_ptr(), n_src, n_rhs, groups, per, code,
                 int(bool(self_interaction)))
     else:
-        name = f"pair_{coupling}{img}_{suffix}"
-        n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, wall=wall,
+        name = f"pair_{inst}{img}_{suffix}"
+        n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, mode=mode,
                                       boxes=boxes)
         ws = (torch.empty((n_slices, n_tgt, nc * n_rhs), dtype=vec.dtype,
                           device=vec.device) if n_slices > 1 else None)
         args = (q_src.data_ptr(), q_tgt.data_ptr(), vec.data_ptr(),
                 out.data_ptr(), None if ws is None else ws.data_ptr(), n_src,
-                n_tgt, n_rhs, n_slices, tiles, int(bool(wall)),
+                n_tgt, n_rhs, n_slices, tiles, code,
                 int(bool(self_interaction)))
     if boxes is not None:
         args += _box_args(boxes)
     err = getattr(_build.library(), name)(*args, stream)
     _build.check(name, err)
     if boxes is not None:
-        IMAGE_LAUNCHES[coupling, n_rhs, "sym" if square else "sliced"] += 1
+        IMAGE_LAUNCHES[inst, n_rhs, "sym" if square else "sliced"] += 1
         return out
-    LAUNCHES[coupling, n_rhs] += 1
+    LAUNCHES[inst, n_rhs] += 1
     if square:
-        SYM_LAUNCHES[coupling, n_rhs] += 1
+        SYM_LAUNCHES[inst, n_rhs] += 1
     return out
 
 

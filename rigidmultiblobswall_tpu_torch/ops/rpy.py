@@ -5,9 +5,10 @@ single-wall blocks of every coupling: `rpy_tt`, `rpy_rr`, `rpy_cross`,
 `wall_tt`, `wall_rr`, `wall_rot_force`, `wall_trans_torque`, and the
 different-radii blocks of the source-target product, `rpy_tt_radii` and
 `wall_tt_radii` (physical units); the pseudo-periodic image boxes sum
-these blocks over the boxes (ops/pair_kernels.py). The in-plane and
-free-surface blocks of the pair products are still to be ported (ROADMAP
-Queue 1, item 4).
+these blocks over the boxes (ops/pair_kernels.py). The free-surface tt
+block `free_surface_tt` (RPY plus its image reflected in the slip plane)
+and the in-plane blocks `rpy_tt_in_plane`, `wall_tt_in_plane` (the z row
+and column zeroed by `z_coupling_mask`).
 Pure elementwise math mapping batched pair geometry to 3x3 blocks
 (..., 3, 3), in units of the blob radius a (the radii blocks excepted);
 callers apply 1/(8 pi eta a^k), k = 1 (tt), 2 (tr, rt), 3 (rr).
@@ -399,3 +400,39 @@ def wall_tt_radii(dx, dy, rz, x3, y3, a_tgt, b_src):
                  - 35.0 * rz**4 * inv_r9)
 
     return _mat3((xx, xy, xz, yx, yy, yz, zx, zy, zz))
+
+
+def free_surface_tt(d, rz_img, self_mask):
+    """TT block above a free surface (a slip plane at z = 0): RPY plus its
+    image with the z column reflected, M += M_RPY(d_img) diag(1, 1, -1),
+    d_img = (dx, dy, rz_img), rz_img = (z_t + z_s)/a. The image applies to
+    the self pair too; an image at d_img = 0 is a coincident pair (0)."""
+    m = rpy_tt(d, self_mask)
+    d_img = torch.cat([d[..., :2], rz_img[..., None].expand_as(d[..., :1])],
+                      dim=-1)
+    m_img = rpy_tt(d_img, torch.zeros_like(self_mask))
+    refl = torch.tensor([1.0, 1.0, -1.0], dtype=m.dtype, device=m.device)
+    return m + m_img * refl
+
+
+def z_coupling_mask(dtype, device=None):
+    """(3, 3) ones with the z row and the z column zeroed: the in-plane
+    domain's blocks are P M P with P = diag(1, 1, 0)."""
+    mask = torch.ones((3, 3), dtype=dtype, device=device)
+    mask[2, :] = 0.0
+    mask[:, 2] = 0.0
+    return mask
+
+
+def rpy_tt_in_plane(d, self_mask):
+    """TT block with the z row and column zeroed (the reference's in-plane
+    product forces u_z = 0)."""
+    m = rpy_tt(d, self_mask)
+    return m * z_coupling_mask(m.dtype, m.device)
+
+
+def wall_tt_in_plane(dx, dy, rz, hs, self_mask):
+    """Wall TT correction with the z couplings zeroed; the self term
+    corrects the xx and yy components only."""
+    m = wall_tt(dx, dy, rz, hs, self_mask)
+    return m * z_coupling_mask(m.dtype, m.device)

@@ -55,12 +55,13 @@ def _k1_vs_plain(cuda, coupling, n_rhs, wall, dtype, q_src, q_tgt,
     qt = torch.as_tensor(q_tgt, dtype=dtype, device=cuda)
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
     before = pk.launches(coupling)
-    got = pk.pair_matvec(qs, qt, vt, coupling=coupling, wall=wall,
+    got = pk.pair_matvec(qs, qt, vt, coupling=coupling,
+                         mode=pk.wall_mode(wall),
                          self_interaction=self_interaction)
     torch.cuda.synchronize()
     assert pk.launches(coupling) == before + 1
     ref = pk.pair_plain(qs.double(), qt.double(), vt.double(),
-                        coupling=coupling, wall=wall,
+                        coupling=coupling, mode=pk.wall_mode(wall),
                         self_interaction=self_interaction)
     assert got.shape == ref.shape
     return (got.double() - ref).abs().max().item() / ref.abs().max().item()
@@ -119,8 +120,8 @@ def test_k1_ragged_source_target(cuda):
     qt = torch.as_tensor(q, device=cuda)
     v = torch.randn(300, 3, dtype=torch.float64, device=cuda)
     got = pk.pair_matvec(qt, qt[:77].contiguous(), v, coupling="tt",
-                         wall=True, self_interaction=False)
-    ref = pk.pair_plain(qt, qt[:77], v, coupling="tt", wall=True,
+                         mode="wall", self_interaction=False)
+    ref = pk.pair_plain(qt, qt[:77], v, coupling="tt", mode="wall",
                         self_interaction=False)
     assert (got - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
 
@@ -144,7 +145,8 @@ def _k1_rel(cuda, coupling, n_rhs, dtype, q_src, q_tgt, square, sub=None,
     qs = torch.as_tensor(q_src, dtype=dtype, device=cuda)
     qt = torch.as_tensor(q_tgt, dtype=dtype, device=cuda)
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
-    kw = dict(coupling=coupling, wall=wall, self_interaction=self_interaction)
+    kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+              self_interaction=self_interaction)
     got = pk.pair_matvec(qs, None if square else qt, vt, **kw)
     torch.cuda.synchronize()
     sub = qt.shape[0] if sub is None else sub
@@ -157,7 +159,7 @@ def _plan(cuda, coupling, n_rhs, dtype, n_src, n_tgt):
     q = torch.ones((n_src, 3), dtype=dtype, device=cuda)
     v = torch.ones((n_src, pk.NCOMP[coupling] * n_rhs), dtype=dtype,
                    device=cuda)
-    return pk.launch_plan(coupling, q, q[:n_tgt], v, wall=True)
+    return pk.launch_plan(coupling, q, q[:n_tgt], v, mode="wall")
 
 
 @pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
@@ -212,7 +214,7 @@ def test_k1_bit_identical_on_repeat(cuda, coupling):
     qt = torch.as_tensor(q, dtype=torch.float32, device=cuda)
     vt = torch.randn((17000, pk.NCOMP[coupling]), device=cuda,
                      generator=torch.Generator(device=cuda).manual_seed(3))
-    kw = dict(coupling=coupling, wall=True, self_interaction=True)
+    kw = dict(coupling=coupling, mode="wall", self_interaction=True)
     a = pk.pair_matvec(qt, None, vt, **kw)
     b = pk.pair_matvec(qt, None, vt, **kw)
     sliced = pk.pair_matvec(qt, qt, vt, **kw)
@@ -246,7 +248,8 @@ def test_k1_symmetric_sweep(cuda, coupling, n_rhs, n, wall, self_interaction,
     qt = torch.as_tensor(q, dtype=dtype, device=cuda)
     v = np.random.default_rng(2).normal(size=(n, pk.NCOMP[coupling] * n_rhs))
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
-    kw = dict(coupling=coupling, wall=wall, self_interaction=self_interaction)
+    kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+              self_interaction=self_interaction)
     before = pk.LAUNCHES[coupling, n_rhs]
     sym_before = pk.SYM_LAUNCHES[coupling, n_rhs]
     got = pk.pair_matvec(qt, None, vt, **kw)
@@ -272,7 +275,7 @@ def test_k1_never_takes_the_plain_path(cuda, monkeypatch):
     for coupling, n_rhs in INSTANCES:
         v = torch.rand((300, pk.NCOMP[coupling] * n_rhs), device=cuda)
         for q_tgt in (q, None):
-            pk.pair_matvec(q, q_tgt, v, coupling=coupling, wall=True,
+            pk.pair_matvec(q, q_tgt, v, coupling=coupling, mode="wall",
                            self_interaction=True)
     torch.cuda.synchronize()
 
@@ -318,7 +321,8 @@ def test_k1_image_boxes_match_plain(cuda, coupling, n_rhs, n, wall, L,
     v = np.random.default_rng(22).normal(size=(n, nc * n_rhs))
     qt = torch.as_tensor(q, dtype=dtype, device=cuda)
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
-    kw = dict(coupling=coupling, wall=wall, self_interaction=True,
+    kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+              self_interaction=True,
               boxes=boxes)
     sweep = "sym" if square else "sliced"
     before, open_before = dict(pk.IMAGE_LAUNCHES), dict(pk.LAUNCHES)
@@ -352,7 +356,7 @@ def test_k1_image_boxes_groups_and_repeat(cuda, coupling, n_rhs):
     qt = torch.as_tensor(q, dtype=torch.float32, device=cuda)
     vt = torch.randn((17000, pk.NCOMP[coupling] * n_rhs), device=cuda,
                      generator=torch.Generator(device=cuda).manual_seed(4))
-    kw = dict(coupling=coupling, wall=True, self_interaction=True,
+    kw = dict(coupling=coupling, mode="wall", self_interaction=True,
               boxes=boxes)
     ref = pk.pair_plain(qt.double(), qt[:256].double(), vt.double(), **kw)
     for q_tgt in (None, qt):
@@ -371,7 +375,7 @@ def test_k1_image_boxes_rejected(cuda):
                   ((5.0, 5.0, 5.0), [(0, 0, 0)] * 28),
                   ((5.0, 5.0, 0.0), [(1, 0, 0), (0, 0, 0)])):
         with pytest.raises(ValueError, match="image boxes"):
-            pk.pair_matvec(q, None, v, coupling="tt", wall=True,
+            pk.pair_matvec(q, None, v, coupling="tt", mode="wall",
                            self_interaction=True, boxes=boxes)
 
 
@@ -420,7 +424,8 @@ def test_k1_image_policies_match_plain(cuda, coupling, n_rhs, policy,
         size=(300, pk.NCOMP[coupling] * n_rhs))
     qt = torch.as_tensor(q, dtype=dtype, device=cuda)
     vt = torch.as_tensor(v, dtype=dtype, device=cuda)
-    kw = dict(coupling=coupling, wall=wall, self_interaction=True,
+    kw = dict(coupling=coupling, mode=pk.wall_mode(wall),
+              self_interaction=True,
               boxes=boxes)
     got = pk.pair_matvec(qt, None if square else qt, vt, **kw)
     again = pk.pair_matvec(qt, None if square else qt, vt, **kw)
@@ -448,12 +453,15 @@ def test_k3_triangle_is_an_exact_transpose(cuda, policy, n, dtype, bound):
     r, _ = _tie_scene(n, L, seed=27) if L[0] else _image_scene(n, seed=27)
     box = tuple(x * 0.3 for x in L)
     rt = torch.as_tensor(r, dtype=dtype, device=cuda)
-    got = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
-    again = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
+    got = mc.dense_tt(rt, 0.8, 0.3, mode=pk.wall_mode(wall),
+                      periodic_length=box)
+    again = mc.dense_tt(rt, 0.8, 0.3, mode=pk.wall_mode(wall),
+                        periodic_length=box)
     torch.cuda.synchronize()
     assert torch.equal(got, got.T)
     assert torch.equal(got, again)
-    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, wall=wall,
+    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3,
+                            mode=pk.wall_mode(wall),
                             periodic_length=box)
     err = (got.double() - ref).abs().max().item()
     assert err <= bound * ref.abs().max().item()
@@ -471,12 +479,14 @@ def test_k3_image_boxes_match_plain(cuda, n, wall, L, dtype, bound):
     r, _ = _image_scene(n, seed=24)
     box = tuple(x * 0.3 for x in L)                  # physical units
     rt = torch.as_tensor(r, dtype=dtype, device=cuda)
-    before = (mc.DENSE_IMAGE_LAUNCHES, dict(mc.DENSE_LAUNCHES))
-    got = mc.dense_tt(rt, 0.8, 0.3, wall=wall, periodic_length=box)
+    before = dict(mc.DENSE_TT_LAUNCHES)
+    got = mc.dense_tt(rt, 0.8, 0.3, mode=pk.wall_mode(wall),
+                      periodic_length=box)
     torch.cuda.synchronize()
-    assert mc.DENSE_IMAGE_LAUNCHES == before[0] + 1
-    assert mc.DENSE_LAUNCHES == before[1]
-    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, wall=wall,
+    key = (pk.wall_mode(wall), True)
+    assert mc.DENSE_TT_LAUNCHES == {**before, key: before[key] + 1}
+    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3,
+                            mode=pk.wall_mode(wall),
                             periodic_length=box)
     assert got.shape == ref.shape == (3 * n, 3 * n)
     err = (got.double() - ref).abs().max().item()
@@ -548,13 +558,13 @@ def test_wrappers_reject_bad_input(cuda):
     q = torch.zeros((4, 3), device=cuda)
     with pytest.raises(ValueError):
         pk.pair_matvec(q, q, torch.zeros((4, 3), device=cuda).t(),
-                       coupling="tt", wall=True, self_interaction=True)
+                       coupling="tt", mode="wall", self_interaction=True)
     with pytest.raises(ValueError):
-        pk.pair_matvec(q, q, q.double(), coupling="tt", wall=True,
+        pk.pair_matvec(q, q, q.double(), coupling="tt", mode="wall",
                        self_interaction=True)
     with pytest.raises(ValueError):
         pk.pair_matvec(q, q, torch.zeros((4, 9), device=cuda),
-                       coupling="tt", wall=True, self_interaction=True)
+                       coupling="tt", mode="wall", self_interaction=True)
     with pytest.raises(TypeError):
         mc.blob_blob_forces(q.half(), repulsion_strength=1.0,
                             debye_length=1.0, blob_radius=1.0)
@@ -571,12 +581,12 @@ def test_k1_coupling_wrappers_reject_bad_input(cuda, coupling):
            torch.zeros((nc, 4), device=cuda).t()]          # not contiguous
     for vec in bad:
         with pytest.raises(ValueError):
-            pk.pair_matvec(q, q, vec, coupling=coupling, wall=True,
+            pk.pair_matvec(q, q, vec, coupling=coupling, mode="wall",
                            self_interaction=True)
     with pytest.raises(TypeError):
         pk.pair_matvec(q.half(), q.half(),
                        torch.zeros((4, nc), device=cuda).half(),
-                       coupling=coupling, wall=True, self_interaction=True)
+                       coupling=coupling, mode="wall", self_interaction=True)
 
 
 # ---------------------------------------------------------------------------
@@ -887,11 +897,13 @@ def _dense_scene(cuda, n, dtype, seed=5):
 def test_k3_matches_plain(cuda, n, wall, dtype, bound):
     """N below one 16 x 32 block, and N not a multiple of either edge."""
     r = _dense_scene(cuda, n, dtype)
-    before = mc.DENSE_LAUNCHES["dense_tt"]
-    got = mc.dense_tt(r, 0.8, 0.3, wall=wall)
+    key = (pk.wall_mode(wall), False)
+    before = mc.DENSE_TT_LAUNCHES[key]
+    got = mc.dense_tt(r, 0.8, 0.3, mode=pk.wall_mode(wall))
     torch.cuda.synchronize()
-    assert mc.DENSE_LAUNCHES["dense_tt"] == before + 1
-    ref = mc.dense_tt_plain(r.double(), 0.8, 0.3, wall=wall)
+    assert mc.DENSE_TT_LAUNCHES[key] == before + 1
+    ref = mc.dense_tt_plain(r.double(), 0.8, 0.3,
+                            mode=pk.wall_mode(wall))
     assert got.shape == ref.shape == (3 * n, 3 * n)
     err = (got.double() - ref).abs().max().item()
     assert err <= bound * ref.abs().max().item()
@@ -904,13 +916,13 @@ def test_k4_matches_plain_reads_upper_tiles_only(cuda, n, dtype, bound):
     three (a B = 2 and a B = 1 launch), bit-identical on repeat, and blind
     to the strictly-lower tiles (overwritten by NaN)."""
     r = _dense_scene(cuda, n, dtype, seed=6)
-    m = mc.dense_tt(r, 1.0, 0.3, wall=True)
+    m = mc.dense_tt(r, 1.0, 0.3, mode="wall")
     v = torch.as_tensor(np.random.default_rng(7).normal(size=(n, 3)),
                         dtype=dtype, device=cuda)
-    before = mc.DENSE_LAUNCHES["symm_matvec"]
+    before = mc.SYMM_LAUNCHES
     got = mc.symm_matvec(m, v)
     torch.cuda.synchronize()
-    assert mc.DENSE_LAUNCHES["symm_matvec"] == before + 1
+    assert mc.SYMM_LAUNCHES == before + 1
     ref = mc.symm_matvec_plain(m.double(), v.double())
     err = (got.double() - ref).abs().max().item()
     assert got.shape == (n, 3) and err <= bound * ref.abs().max().item()
@@ -932,12 +944,12 @@ def test_dense_wrappers_reject_bad_input(cuda):
     r = torch.zeros((4, 3), device=cuda)
     m = torch.zeros((12, 12), device=cuda)
     with pytest.raises(TypeError):
-        mc.dense_tt(r.half(), 1.0, 1.0, wall=True)
+        mc.dense_tt(r.half(), 1.0, 1.0, mode="wall")
     with pytest.raises(ValueError):
         mc.dense_tt(torch.zeros((3, 4), device=cuda).t(), 1.0, 1.0,
-                    wall=True)
+                    mode="wall")
     with pytest.raises(ValueError):
-        mc.dense_tt(torch.zeros((4, 2), device=cuda), 1.0, 1.0, wall=True)
+        mc.dense_tt(torch.zeros((4, 2), device=cuda), 1.0, 1.0, mode="wall")
     for mm, vv in ((m, r.double()),                          # mixed dtype
                    (torch.zeros((12, 9), device=cuda), r),    # not square
                    (m, torch.zeros((5, 3), device=cuda)),     # rows
@@ -1465,10 +1477,12 @@ def test_articulated_forward_euler_on_card_matches_cpu(cuda):
     no rounding spread), the constraints met after each step; K2, K3 and
     K4 launched."""
     pos, ref = _chain_run("cpu", torch.float64)
-    before = (mc.LAUNCHES, dict(mc.DENSE_LAUNCHES))
+    before = (mc.LAUNCHES, sum(mc.DENSE_TT_LAUNCHES.values()),
+              mc.SYMM_LAUNCHES)
     _, got = _chain_run(cuda, torch.float64)
     assert mc.LAUNCHES > before[0]
-    assert all(mc.DENSE_LAUNCHES[k] > before[1][k] for k in before[1])
+    assert sum(mc.DENSE_TT_LAUNCHES.values()) > before[1]
+    assert mc.SYMM_LAUNCHES > before[2]
     disp = np.abs(ref - pos).max()
     assert disp > 1e-4
     assert np.abs(got - ref).max() <= 1e-9 * disp
@@ -1842,11 +1856,14 @@ def test_p1_matches_plain_bit_identical_on_repeat(cuda, n, n_rhs, wall,
     r, rad = _radii_scene(n)
     v = np.random.default_rng(1).normal(size=(n_rhs, n, 3))
     args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
-    before = mc.RADII_LAUNCHES[n_rhs]
-    got = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
-    again = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
+    key = (n_rhs, pk.wall_mode(wall), False)
+    before = mc.RADII_LAUNCHES[key]
+    got = mc.radii_matvec(*args[:2], args[2], 1.3,
+                          domain=("single_wall" if wall else "no_wall"))
+    again = mc.radii_matvec(*args[:2], args[2], 1.3,
+                            domain=("single_wall" if wall else "no_wall"))
     torch.cuda.synchronize()
-    assert mc.RADII_LAUNCHES[n_rhs] == before + 2
+    assert mc.RADII_LAUNCHES[key] == before + 2
     assert torch.equal(got, again)
     sub = min(n, 500)
     from rigidmultiblobswall_tpu_torch.ops import mobility as mob
@@ -1864,10 +1881,10 @@ def test_p1_refuses_what_it_does_not_take(cuda):
     a = torch.full((4,), 0.1, device=cuda)
     with pytest.raises(ValueError, match="B in 1..2"):
         mc.radii_matvec(r, torch.zeros((3, 4, 3), device=cuda), a, 1.0,
-                        wall=True)
+                        domain="single_wall")
     with pytest.raises(ValueError, match="shapes"):
         mc.radii_matvec(r, torch.zeros((1, 4, 3), device=cuda), a[:3], 1.0,
-                        wall=True)
+                        domain="single_wall")
 
 
 def _far_scene(n, seed):
@@ -1943,8 +1960,10 @@ def test_p1_far_and_full_paths_match_plain(cuda, scene, n_rhs, wall, dtype):
     assert _contacts(r, rad, cuda) == (0 if scene == "far" else 4)
     v = np.random.default_rng(4).normal(size=(n_rhs, n, 3))
     args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
-    got = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
-    again = mc.radii_matvec(*args[:2], args[2], 1.3, wall=wall)
+    got = mc.radii_matvec(*args[:2], args[2], 1.3,
+                          domain=("single_wall" if wall else "no_wall"))
+    again = mc.radii_matvec(*args[:2], args[2], 1.3,
+                            domain=("single_wall" if wall else "no_wall"))
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     rows = sorted({k for pair in STRADDLING for k in pair[:2]}
@@ -2184,3 +2203,183 @@ def test_m1_small_instance_is_one_launch(cuda):
     big = _m1_scene(cuda, mc.ENERGY_SMALL_MAX + 1, n_conf=2).float()
     names = _energy_kernels(lambda: mc.blob_pair_energy(big, **kw))
     assert len(names) == 2 and not any("small" in x for x in names), names
+
+
+# ---------------------------------------------------------------------------
+# The free surface, in_plane, P1's image boxes and K5's open instance
+# ---------------------------------------------------------------------------
+
+FS_POLICIES = {"open": None, "plane": (23.0, 19.0, 0.0),
+               "general": (23.0, 19.0, 21.0), "general_L3": (3.0, 3.0, 0.0)}
+
+
+def _surface_scene(n, seed, L=None):
+    """_image_scene (or _tie_scene in a box) with its heights raw: blobs
+    on the plane (one pair coincident there, its image at R = 0) and
+    below a."""
+    r, _ = _tie_scene(n, L, seed) if L else _image_scene(n, seed=seed)
+    if n > 12:
+        r[10, 2] = 0.0
+        r[11] = r[10]
+    return r / 0.3
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("policy", sorted(FS_POLICIES))
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_k1_free_surface_matches_plain(cuda, n_rhs, policy, square, dtype,
+                                       bound):
+    """K1's free-surface tt instance, both sweeps, open and under each
+    image policy, against the plain version in float64, twice
+    bit-identical, counted under "tt_fs"."""
+    L = FS_POLICIES[policy]
+    q = _surface_scene(300, 31, L)
+    boxes = None if L is None else (L, pk.box_offsets(L))
+    v = np.random.default_rng(32).normal(size=(300, 3 * n_rhs))
+    qt = torch.as_tensor(q, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling="tt", mode="free_surface", self_interaction=True,
+              boxes=boxes)
+    before = (dict(pk.LAUNCHES), dict(pk.IMAGE_LAUNCHES))
+    got = pk.pair_matvec(qt, None if square else qt, vt, **kw)
+    again = pk.pair_matvec(qt, None if square else qt, vt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
+    assert ((got.double() - ref).abs().max().item()
+            <= bound * ref.abs().max().item())
+    if boxes is None:
+        assert pk.LAUNCHES["tt_fs", n_rhs] == before[0]["tt_fs", n_rhs] + 2
+    else:
+        key = ("tt_fs", n_rhs, "sym" if square else "sliced")
+        assert pk.IMAGE_LAUNCHES[key] == before[1][key] + 2
+    assert pk.LAUNCHES["tt", n_rhs] == before[0]["tt", n_rhs]
+
+
+@pytest.mark.parametrize("coupling", ["tt", "tr"])
+@pytest.mark.parametrize("L", [(0.0, 0.0, 0.0), (6.9, 5.7, 0.0)])
+def test_in_plane_products_on_the_wall_instance(cuda, L, coupling):
+    """in_plane's products on K1's wall instance between the projections:
+    u_z exactly 0 and the rest the CPU's float64 product."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    r, _ = _image_scene(400, seed=33)
+    v = np.random.default_rng(34).normal(size=(2, 400, 3))
+    kw = dict(coupling=coupling, domain="in_plane", periodic_length=L)
+    got = mob.pairwise_matvec_multi(
+        torch.as_tensor(r, dtype=torch.float32, device=cuda), None,
+        torch.as_tensor(v, dtype=torch.float32, device=cuda), 0.8, 0.3,
+        **kw)
+    ref = mob.pairwise_matvec_multi(torch.as_tensor(r), None,
+                                    torch.as_tensor(v), 0.8, 0.3, **kw)
+    assert not got[..., 2].any()
+    assert ((got.double().cpu() - ref).abs().max().item()
+            <= 3e-6 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("policy", sorted(FS_POLICIES))
+@pytest.mark.parametrize("n", [33, 260])
+def test_k3_free_surface_matches_plain(cuda, n, policy, dtype, bound):
+    """K3's free-surface instance, open and under each image policy: the
+    exact transpose of itself, against the plain builder in float64,
+    twice bit-identical, counted in DENSE_TT_LAUNCHES."""
+    L = FS_POLICIES[policy]
+    r = _surface_scene(n, 35, L) * 0.3
+    box = (0.0, 0.0, 0.0) if L is None else tuple(x * 0.3 for x in L)
+    rt = torch.as_tensor(r, dtype=dtype, device=cuda)
+    key = ("free_surface", L is not None)
+    before = mc.DENSE_TT_LAUNCHES[key]
+    got = mc.dense_tt(rt, 0.8, 0.3, mode="free_surface", periodic_length=box)
+    again = mc.dense_tt(rt, 0.8, 0.3, mode="free_surface",
+                        periodic_length=box)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.T) and torch.equal(got, again)
+    assert mc.DENSE_TT_LAUNCHES[key] == before + 2
+    ref = mc.dense_tt_plain(rt.double(), 0.8, 0.3, mode="free_surface",
+                            periodic_length=box)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= bound * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("box", [(0.0, 0.0, 0.0), (9.0, 8.0, 0.0),
+                                 (9.0, 8.0, 7.0), (1.0, 1.0, 0.0)])
+@pytest.mark.parametrize("domain", ["single_wall", "no_wall",
+                                    "free_surface"])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_p1_images_and_free_surface_match_plain(cuda, n_rhs, domain, box,
+                                                dtype):
+    """P1's image-box instance (the in-plane policy at (9, 8, 0), the
+    general one at (1, 1, 0), under its far margin, and for a box
+    periodic in z) and its free-surface instance against the
+    source-target product in float64: float64 to 1e-12, float32 to 3e-6
+    x max|ref|, twice bit-identical."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    n = 700
+    r, rad = _radii_scene(n, seed=36)
+    r[:, :2] *= 2.0
+    r[20, 2] = 0.0
+    r[21] = r[20]
+    v = np.random.default_rng(37).normal(size=(n_rhs, n, 3))
+    args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
+    kw = dict(domain=domain, periodic_length=box)
+    mode = {"single_wall": "wall", "no_wall": "open",
+            "free_surface": "free_surface"}[domain]
+    key = (n_rhs, mode, box[0] > 0)
+    before = mc.RADII_LAUNCHES[key]
+    got = mc.radii_matvec(*args, 1.3, **kw)
+    again = mc.radii_matvec(*args, 1.3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert mc.RADII_LAUNCHES[key] == before + 2
+    sub = 300
+    r64, v64, a64 = (x.double() for x in args)
+    ref = torch.stack([mob.source_target_matvec(
+        r64, r64[:sub], vb, a64, a64[:sub], 1.3, domain=domain,
+        periodic_length=box) for vb in v64])
+    bound = 1e-12 if dtype == torch.float64 else 3e-6
+    err = (got[:, :sub].double() - ref).abs().max() / ref.abs().max()
+    assert err <= bound, float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cap", [512, 6])
+@pytest.mark.parametrize("L3", [(0.0, 0.0, 0.0), (30.0, 30.0, 0.0),
+                                (30.0, 0.0, 0.0)])
+def test_k5_open_matches_plain(cuda, L3, cap, dtype):
+    """K5's open instance in an open and a partly periodic box, with ample
+    capacity and with overflowing cells (whose extra blobs keep their own
+    rows), against its plain version in float64, twice bit-identical."""
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    rng = np.random.default_rng(38)
+    n = 6000
+    r = np.empty((n, 3))
+    r[:, :2] = rng.uniform(-2.0, 32.0, (n, 2))
+    r[:, 2] = rng.uniform(0.2, 2.0, n)
+    r[7] = r[6]
+    pos, dims, table, dropped, frame, members = forces.open_force_cells(
+        torch.as_tensor(r, dtype=dtype, device=cuda), L3, 1.9, 16, cap)
+    assert (int(dropped) > 0) == (cap == 6)
+    law = dict(eps_over_b=0.2 / 0.25, inv_b=1 / 0.25, two_a=0.4)
+    before = ck.LAUNCHES["nl_forces_open"]
+    got = ck.nl_forces_open(pos, table, dims, L3, frame, members, cap,
+                            **law)
+    again = ck.nl_forces_open(pos, table, dims, L3, frame, members, cap,
+                              **law)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ck.LAUNCHES["nl_forces_open"] == before + 2
+    ref = ck.nl_forces_open_plain(pos.double(), table, dims, L3, members,
+                                  cap, **law)
+    # float32: the JAX package's f32 bound (3e-6 x max|ref|) where the
+    # stencil's sum rounds below it (each term's approximate rsqrt and
+    # exp2 set that floor at a small capacity)
+    bound = (max(3e-6, _cell_bound(dtype, cap)) if dtype == torch.float32
+             else _cell_bound(dtype, cap))
+    assert _rel_err(got, ref) <= bound

@@ -299,7 +299,7 @@ def test_in_plane_block_sum_sweep_emulated(coupling, wall, n_rhs):
                 if i != j:
                     out[j, 3 * b:3 * b + 3] += m.T @ v[i, 3 * b:3 * b + 3]
     ref = tpk.pair_plain(q, q, torch.as_tensor(v), coupling=coupling,
-                         wall=wall, self_interaction=True,
+                         mode=tpk.wall_mode(wall), self_interaction=True,
                          boxes=_boxes(L))
     assert rel_err(out, to_np(ref)) < 1e-12
 
@@ -322,7 +322,7 @@ def test_k3_triangle_grid_emulated(kb, n, L):
     r = rng.uniform(0.0, 6.0, (n, 3))
     r[:, 2] = rng.uniform(0.05, 3.0, n)
     rt = torch.as_tensor(r)
-    ref = to_np(tmc.dense_tt_plain(rt, ETA, A, wall=True,
+    ref = to_np(tmc.dense_tt_plain(rt, ETA, A, mode="wall",
                                    periodic_length=L))
     n_tiles = -(-n // kb)
     out = np.full((3 * n, 3 * n), np.nan)

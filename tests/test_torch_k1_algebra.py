@@ -361,7 +361,7 @@ def test_square_call_is_the_two_tensor_product(coupling, nv):
     rng = np.random.default_rng(7)
     q = torch.as_tensor(rng.uniform(1, 6, (150, 3)))
     v = torch.as_tensor(rng.normal(size=(150, nv)))
-    kw = dict(coupling=coupling, wall=True, self_interaction=True)
+    kw = dict(coupling=coupling, mode="wall", self_interaction=True)
     assert torch.equal(pk.pair_matvec(q, None, v, **kw),
                        pk.pair_matvec(q, q, v, **kw))
     if coupling != "grand":

@@ -56,7 +56,7 @@ def test_k3_plain_matches_jax_tiled(n, domain):
     ref = _interleave(jmob.dense_mobility_tiled(jnp.asarray(r), ETA, A,
                                                 domain=domain))
     got = mc.dense_tt(torch.as_tensor(r), ETA, A,
-                      wall=domain == "single_wall")
+                      mode=tmob.DOMAIN_MODE[domain])
     assert got.shape == (3 * n, 3 * n)
     assert _max_rel(got, ref) <= 1e-12
     # the row tiles of the plain builder do not change a bit of it
@@ -81,7 +81,8 @@ def test_k3_plain_matches_jax_pallas_interpret(domain):
     if wall:
         damp = jmob.damping_factors(r, A)
         planes = planes * damp[None, None, :, None] * damp[None, None, None, :]
-    got = mc.dense_tt(torch.as_tensor(np.array(r)), ETA, A, wall=wall)
+    got = mc.dense_tt(torch.as_tensor(np.array(r)), ETA, A,
+                      mode=tmob.pair_kernels.wall_mode(wall))
     assert _max_rel(got, _interleave(planes)) <= 3e-6
 
 
@@ -150,20 +151,26 @@ def test_engine_choice_follows_the_budget(monkeypatch):
     assert tsad.refresh_dense_mobility(ts, m_t, r_t, build=False) is None
     r_new = r_t + 0.01
     assert torch.equal(tsad.refresh_dense_mobility(ts, m_t, r_new),
-                       mc.dense_tt(r_new, ts.eta, ts.blob_radius, wall=True))
+                       mc.dense_tt(r_new, ts.eta, ts.blob_radius, mode="wall"))
     monkeypatch.setattr(tsad, "MATERIALIZE_BUDGET_BYTES", 0)
     assert tsad.maybe_dense_mobility(ts, r_t) is None
 
 
 def test_plain_builder_refuses_images():
-    """free_surface stays refused; the image boxes (formerly refused here)
-    give JAX's component planes on the same inputs."""
+    """The image boxes and the free surface (formerly refused here) give
+    JAX's component planes on the same inputs; a coupling a domain lacks
+    stays refused, as JAX refuses it."""
     r = torch.as_tensor(_blobs(20, seed=1))
-    box = (8.0, 8.0, 0.0)
-    got = tmob.dense_mobility_tiled(r, ETA, A, periodic_length=box)
-    planes = np.asarray(jmob.dense_mobility_tiled(
-        jnp.asarray(r.numpy()), ETA, A, periodic_length=box))
-    ref = planes.transpose(2, 0, 3, 1).reshape(60, 60)
-    assert np.abs(to_np(got) - ref).max() <= 1e-12 * np.abs(ref).max()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmob.dense_mobility_tiled(r, ETA, A, domain="free_surface")
+    for domain, box in (("single_wall", (8.0, 8.0, 0.0)),
+                        ("free_surface", (0.0, 0.0, 0.0)),
+                        ("free_surface", (8.0, 8.0, 0.0))):
+        got = tmob.dense_mobility_tiled(r, ETA, A, domain=domain,
+                                        periodic_length=box)
+        planes = np.asarray(jmob.dense_mobility_tiled(
+            jnp.asarray(r.numpy()), ETA, A, domain=domain,
+            periodic_length=box))
+        ref = planes.transpose(2, 0, 3, 1).reshape(60, 60)
+        assert np.abs(to_np(got) - ref).max() <= 1e-12 * np.abs(ref).max()
+    with pytest.raises(NotImplementedError, match="free_surface"):
+        tmob.dense_mobility_tiled(r, ETA, A, domain="free_surface",
+                                  coupling="rr")

@@ -76,7 +76,7 @@ def test_plain_k1_matches_pallas_kernel_f32(wall, n_rhs):
         wall=wall, self_interaction=True, interpret=True))
     qt = torch.as_tensor(q)
     got = tpk.pair_matvec(qt, qt, torch.as_tensor(v), coupling="tt",
-                          wall=wall, self_interaction=True)
+                          mode=tpk.wall_mode(wall), self_interaction=True)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(to_np(got), ref,
                                atol=3e-6 * np.abs(ref).max(), rtol=0)
@@ -110,15 +110,26 @@ def test_dense_mobility_matches_jax(domain):
 
 
 def test_unported_couplings_and_domains_raise():
-    """in_plane and free_surface are refused; the pseudo-periodic image
-    boxes (formerly refused here) match the JAX package on the same
-    inputs."""
+    """in_plane's tr and free_surface's tt (formerly refused here) match
+    the JAX package's products; the couplings those domains lack stay
+    refused, as JAX refuses them; the pseudo-periodic image boxes
+    (formerly refused here) match the JAX package on the same inputs."""
     r = torch.zeros((2, 3), dtype=torch.float64)
+    rb, vb = random_blobs(n=15, seed=21)
+    for coupling, domain in (("tr", "in_plane"), ("tt", "free_surface")):
+        ref = np.asarray(jmob.pairwise_matvec(
+            jnp.asarray(rb), jnp.asarray(rb), jnp.asarray(vb), 1.0, 1.0,
+            coupling=coupling, domain=domain, method="generic"))
+        got = tmob.pairwise_matvec(torch.as_tensor(rb), None,
+                                   torch.as_tensor(vb), 1.0, 1.0,
+                                   coupling=coupling, domain=domain)
+        assert rel_err(got, ref) < 1e-12
     with pytest.raises(NotImplementedError):
-        tmob.pairwise_matvec(r, r, r, 1.0, 1.0, coupling="tr",
+        tmob.pairwise_matvec(r, r, r, 1.0, 1.0, coupling="rr",
                              domain="in_plane")
     with pytest.raises(NotImplementedError):
-        tmob.pairwise_matvec(r, r, r, 1.0, 1.0, domain="free_surface")
+        tmob.pairwise_matvec(r, r, r, 1.0, 1.0, coupling="tr",
+                             domain="free_surface")
     # the two coincident blobs at z = 0: above the wall fully damped (zero,
     # as in JAX), without the wall their images and self blocks
     rj = jnp.zeros((2, 3))
@@ -227,7 +238,7 @@ def test_plain_k1_couplings_match_pallas_kernel_f32(coupling, n_rhs, wall):
         wall=wall, self_interaction=True, interpret=True))
     qt = torch.as_tensor(q)
     got = tpk.pair_matvec(qt, qt, torch.as_tensor(v), coupling=coupling,
-                          wall=wall, self_interaction=True)
+                          mode=tpk.wall_mode(wall), self_interaction=True)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(to_np(got), ref,
                                atol=3e-6 * np.abs(ref).max(), rtol=0)

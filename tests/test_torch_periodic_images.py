@@ -110,7 +110,8 @@ def test_dense_matrix_matches_jax(domain, L):
         jnp.asarray(r), ETA, A, domain=domain, periodic_length=L))
     ref = planes.transpose(2, 0, 3, 1).reshape(3 * len(r), 3 * len(r))
     rt = torch.as_tensor(r)
-    got = tmc.dense_tt(rt, ETA, A, wall=domain == "single_wall",
+    got = tmc.dense_tt(rt, ETA, A,
+                       mode=tmob.DOMAIN_MODE[domain],
                        periodic_length=L)
     assert rel_err(got, ref) < 1e-12
     assert rel_err(got, ref.T) < 1e-12
@@ -176,7 +177,8 @@ def _box_sum(coupling, d, zt, zs, L, offsets, wall):
     for box in offsets:
         db = d0 + torch.tensor(box, dtype=torch.float64) * torch.tensor(
             L, dtype=torch.float64)
-        m = m + tpk.block(coupling, db[:, None, :], zt_, zs_, no, wall)[0, 0]
+        m = m + tpk.block(coupling, db[:, None, :], zt_, zs_, no,
+                          tpk.wall_mode(wall))[0, 0]
     return m.numpy()
 
 
@@ -204,7 +206,7 @@ def test_box_sum_is_reciprocal(coupling, domain, L):
     if wall:
         m = tpk.block("tt", torch.tensor([[[0.7, -0.4, 0.5]]]),
                       torch.tensor([[3.0]]), torch.tensor([[2.5]]),
-                      torch.zeros((1, 1), dtype=torch.bool), True)[0, 0]
+                      torch.zeros((1, 1), dtype=torch.bool), "wall")[0, 0]
         assert (m - m.T).abs().max() > 1e-4
 
 
@@ -243,20 +245,22 @@ def test_symmetric_image_sweep_emulated(coupling, domain, L):
                 if i == j:
                     self_ = torch.full((1, 1), box == (0, 0, 0))
                     out[i] += tpk.block(coupling, d, zi, zi, self_,
-                                        wall)[0, 0] @ v[i]
+                                        tpk.wall_mode(wall))[0, 0] @ v[i]
                     continue
-                m = tpk.block(coupling, d, zi, zj, no, wall)[0, 0]
+                m = tpk.block(coupling, d, zi, zj, no,
+                              tpk.wall_mode(wall))[0, 0]
                 if coupling in ("tt", "rr"):
                     block_sum = block_sum + m
                     continue
                 out[i] += m @ v[j]
                 m_o = (m if other == coupling else
-                       tpk.block(other, d, zi, zj, no, wall)[0, 0])
+                       tpk.block(other, d, zi, zj, no, tpk.wall_mode(wall))[0,
+                                                                            0])
                 out[j] += m_o.T @ v[i]
             if i != j and coupling in ("tt", "rr"):
                 out[i] += block_sum @ v[j]
                 out[j] += block_sum.T @ v[i]
-    ref = tpk.pair_plain(q, q, v, coupling=coupling, wall=wall,
+    ref = tpk.pair_plain(q, q, v, coupling=coupling, mode=tpk.wall_mode(wall),
                          self_interaction=True, boxes=boxes)
     assert rel_err(out, to_np(ref)) < 1e-12
 
@@ -339,24 +343,38 @@ def test_fully_periodic_open_box_step_matches_jax(monkeypatch):
 
 def test_system_accepts_boxes_on_the_direct_domains():
     """single_wall and no_wall take a periodic_length; per-blob radii with
-    images, in_plane and linked cells in a partly periodic box stay
-    refused, each naming its item."""
+    images, in_plane and linked cells in a partly periodic box (formerly
+    refused, each naming its item) build as the JAX package builds them;
+    in_plane with per-blob radii stays refused (the port differs from
+    JAX there on purpose)."""
+    from rigidmultiblobswall_tpu.models import system as jsys
     from rigidmultiblobswall_tpu_torch.models import system as tsys
 
     t = tsys.BodyType(name="s", ref_config=np.zeros((1, 3)), count=1)
     for dom, L in (("single_wall", (5.0, 5.0, 0.0)),
-                   ("no_wall", (5.0, 5.0, 5.0))):
+                   ("no_wall", (5.0, 5.0, 5.0)),
+                   ("in_plane", (5.0, 5.0, 0.0)),
+                   ("free_surface", (5.0, 5.0, 0.0))):
         assert tsys.System(types=(t,), domain=dom,
                            periodic_length=L).periodic_length == L
     mixed = tsys.BodyType(name="m", ref_config=np.zeros((2, 3)), count=1,
                           blob_radii=np.array([1.0, 1.5]))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsys.System(types=(mixed,), periodic_length=(5.0, 5.0, 0.0))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsys.System(types=(t,), domain="in_plane")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tsys.System(types=(t,), periodic_length=(5.0, 5.0, 0.0),
-                    blob_blob_force_method="neighbor_list")
+    jmixed = jsys.BodyType(name="m", ref_config=np.zeros((2, 3)), count=1,
+                           blob_radii=np.array([1.0, 1.5]))
+    for dom in ("single_wall", "free_surface"):
+        js = jsys.System(types=(jmixed,), domain=dom,
+                         periodic_length=(5.0, 5.0, 0.0))
+        ts = tsys.from_reference(js, device="cpu")
+        assert ts.has_mixed_radii and ts.domain == dom
+        assert ts.periodic_length == (5.0, 5.0, 0.0)
+    js = jsys.System(types=(jsys.BodyType(
+        name="s", ref_config=np.zeros((1, 3)), count=1),),
+        periodic_length=(5.0, 5.0, 0.0),
+        blob_blob_force_method="neighbor_list")
+    assert tsys.from_reference(js, device="cpu").blob_blob_force_method == (
+        "neighbor_list")
+    with pytest.raises(NotImplementedError, match="in_plane"):
+        tsys.System(types=(mixed,), domain="in_plane")
 
 
 @pytest.mark.parametrize("scheme", ["stochastic_adams_bashforth_rollers",

@@ -422,11 +422,21 @@ def test_stacked_products_are_the_single_ones():
     for b in range(3):
         assert torch.equal(multi[b], tmob.mobility_radii_trans_times_force(
             rt, v[b], at, ETA))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmob.mobility_radii_multi(rt, v, at, ETA, domain="free_surface")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmob.mobility_radii_multi(rt, v, at, ETA,
-                                  periodic_length=(5.0, 5.0, 0.0))
+    # the free surface and the image boxes (formerly refused here): the
+    # JAX package's source-target product on the same inputs
+    for domain, box in (("free_surface", (0.0, 0.0, 0.0)),
+                        ("single_wall", (5.0, 5.0, 0.0))):
+        multi = tmob.mobility_radii_multi(rt, v, at, ETA, domain=domain,
+                                          periodic_length=box)
+        for b in range(3):
+            ref = np.asarray(jmob.mobility_radii_trans_times_force(
+                jnp.asarray(r), jnp.asarray(v[b].numpy()),
+                jnp.asarray(rad), ETA, domain=domain, periodic_length=box))
+            assert _rel(multi[b], ref) < 1e-12
+    # in_plane stays refused: the JAX package's radii products treat it as
+    # an unbounded domain
+    with pytest.raises(NotImplementedError, match="in_plane"):
+        tmob.mobility_radii_multi(rt, v, at, ETA, domain="in_plane")
     assert tmc.RADII_MAX_RHS == 2
 
 
@@ -552,6 +562,66 @@ def test_steps_match_jax(monkeypatch, scheme, kT):
     assert taux.det_iterations == int(jaux.det_iterations)
     assert taux.stoch_iterations == int(jaux.stoch_iterations)
     assert taux.rejections == 0
+
+
+# the radii products with image boxes (P1's image-box instance on the
+# card) and on the free surface (its free-surface instance)
+RADII_BOXES = [("single_wall", (3.1, 2.7, 0.0)), ("no_wall", (3.1, 2.7, 0.0)),
+               ("no_wall", (3.1, 2.7, 3.4)), ("free_surface", (0.0, 0.0, 0.0)),
+               ("free_surface", (3.1, 2.7, 0.0)),
+               ("free_surface", (3.1, 2.7, 3.4))]
+
+
+@pytest.mark.parametrize("domain, box", RADII_BOXES)
+def test_radii_images_and_free_surface_match_jax(domain, box):
+    """mobility_radii_multi (B = 2, the plain version of P1) against the
+    JAX package's source_target_matvec through
+    mobility_radii_trans_times_force, blobs on and near the plane
+    included; the free surface's radii blocks are reciprocal."""
+    r, rad, _ = _blobs(seed=17)
+    r[3, 2] = 0.0
+    r[4] = r[3]
+    rng = np.random.default_rng(18)
+    v = rng.normal(size=(2, r.shape[0], 3))
+    got = tmob.mobility_radii_multi(torch.tensor(r), torch.tensor(v),
+                                    torch.tensor(rad), ETA, domain=domain,
+                                    periodic_length=box)
+    for b in range(2):
+        ref = np.asarray(jmob.mobility_radii_trans_times_force(
+            jnp.asarray(r), jnp.asarray(v[b]), jnp.asarray(rad), ETA,
+            domain=domain, periodic_length=box))
+        assert _rel(got[b], ref) < 1e-12
+    if domain == "free_surface" and box[0] == 0.0:
+        m = to_np(tmob.dense_mobility_radii(torch.tensor(r),
+                                            torch.tensor(rad), ETA,
+                                            domain=domain))
+        assert np.abs(m - m.T).max() < 1e-13 * np.abs(m).max()
+        ref = np.asarray(jmob.dense_mobility_radii(
+            jnp.asarray(r), jnp.asarray(rad), ETA, domain=domain))
+        assert _rel(m, ref) < 1e-12
+
+
+@pytest.mark.parametrize("domain, box", [("single_wall", (3.6, 3.6, 0.0)),
+                                         ("free_surface", (0.0, 0.0, 0.0))])
+def test_radii_steps_in_boxes_and_on_the_free_surface_match_jax(domain, box):
+    """Two forward Euler steps of the 4-shell bidisperse scene in an
+    (L, L, 0) box above the wall and on the free surface: positions to
+    1e-9 of the displacement, equal GMRES counts."""
+    js, jst, ts, tst = _bidisperse(domain=domain, periodic_length=box)
+    scheme = "deterministic_forward_euler"
+    jstep = jax.jit(jint.make_stepper(js, scheme, 2e-3))
+    jc, s = jint.init_carry(js, state=jst), jst
+    tstep = tint.make_stepper(ts, scheme, 2e-3)
+    tc, t = tint.init_carry(ts, state=tst), tst
+    gen = torch.Generator().manual_seed(0)
+    for k in _keys(2):
+        s, jc, jaux = jstep(s, k, jc)
+        t, tc, taux = tstep(t, gen, tc)
+    disp = np.abs(np.asarray(s.pos) - np.asarray(jst.pos)).max()
+    assert disp > 1e-5
+    np.testing.assert_allclose(to_np(t.pos), np.asarray(s.pos),
+                               atol=1e-9 * disp, rtol=0)
+    assert taux.det_iterations == int(jaux.det_iterations)
 
 
 def _write_radii_scene(d, scheme):

@@ -45,15 +45,15 @@ def main(argv):
         state = make_state(pos, quat, dtype=torch.float32, device=dev)
         r = kin.blob_positions(system, state).contiguous()
         n = r.shape[0]
-        m = mc.dense_tt(r, system.eta, system.blob_radius, wall=True)
+        m = mc.dense_tt(r, system.eta, system.blob_radius, mode="wall")
         v = torch.randn((n, 3), device=dev)
         q = (mob.shift_heights(r, system.blob_radius)
              / system.blob_radius).contiguous()
         k3 = cs.cuda_ms(lambda: mc.dense_tt(r, system.eta, system.blob_radius,
-                                            wall=True), 3, warmup=False)
+                                            mode="wall"), 3, warmup=False)
         k4 = cs.cuda_ms(lambda: mc.symm_matvec(m, v), 10)
         k1 = cs.cuda_ms(lambda: pk.pair_matvec(q, None, v, coupling="tt",
-                                               wall=True,
+                                               mode="wall",
                                                self_interaction=True), 10)
         del m
         # a matrix-sized block left cached would not fit the next one

@@ -2,7 +2,8 @@
 shapes on a CUDA card.
 
     python3 tools/torch_profile_kernels.py \
-        [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1,k1img,k3img]
+        [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1,k1img,k3img,k1fs,k3fs,
+                   p1img,k5open] [--plain-whole]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -84,6 +85,19 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   box and the open K3 at 12,288 blobs; but for --baseline also their
   resident blocks an SM (where the library has dense_tt_shape) and
   bounds.
+- k1fs (csrc/pair_fs.cu): K1's free-surface tt at chip_smoke.py phase
+  21a's 49,152 blobs (B = 1 and 2), open and in 20a's (25.6, 25.6, 0) box,
+  beside the wall's tt instance on the same inputs; k3fs
+  (csrc/dense_tt.cu): K3's free-surface instance at 21d's 12,288 blobs,
+  open and in 20b's box; p1img (csrc/pair_radii.cu): P1's image boxes at
+  21c's bidisperse monolayer in (102.4, 102.4, 0) (B = 1 and 2) and its
+  free surface at 21e's scene (open and in 20a's box); k5open
+  (csrc/nl_forces.cu): K5's open instance at 21b's monolayer (open box)
+  and 21c's (partly periodic), the capacity sized as the paths size it;
+  their bounds are chip_smoke.py phase 21's. With --plain-whole, k1fs and
+  p1img also time each instance's plain version over its whole sweep
+  once (the image boxes' take 0.5-3 min each: chip_smoke.py times them
+  on their first row tiles alone).
 For alternating runs against another tree, run the tool once a tree in
 turns (--root DIR --baseline, then --baseline here, and again): each
 process prints its times; the SASS of a tree is counted by a run without
@@ -93,7 +107,8 @@ kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
 (cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
 and F2I conversions (which run at the MUFU's rate) and the subroutine
-calls (for k1img and k3img also the instructions a box on the far path:
+calls (for k1img, k3img and the image instances of k1fs and k3fs also
+the instructions a box on the far path:
 the shortest path through each pair loop, an inner loop over the boxes
 taken 9 times, over the boxes its MUFU.RSQ count; for k8 also the LDS,
 FFMA, FADD and FMUL of each loop of its
@@ -108,6 +123,7 @@ versions are chip_smoke.py's and the card tests'.
 """
 
 import argparse
+import dataclasses
 import inspect
 import math
 import os
@@ -153,7 +169,15 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
                               ("CrossCoupling<false, 1>", 1),
                               ("Grand", 1))
                  for g in ("PlaneBoxes", "ImageBoxes")),
-             "k3img": ("dense_tt_kernel<float, true",)}
+             "k3img": ("dense_tt_kernel<float, true",),
+             "k1fs": ("pairk::FreeSurface",),
+             "k3fs": ("dense_tt_kernel<float, false, pairk::OpenBox<float>, "
+                      "true", "dense_tt_kernel<float, false, "
+                      "pairk::PlaneBoxes<float>, true"),
+             "p1img": ("radii_sym_kernel<float, 1, 1, pairk::",
+                       "radii_sym_kernel<float, 2, 1, pairk::",
+                       "radii_sym_kernel<float, 1, 2, "),
+             "k5open": ("nl_forces_kernel<float, true",)}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -222,7 +246,7 @@ def profile_k1(cs, dev, detail):
     from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
 
     for tag, coupling, q, v in k1_scenes(cs, dev):
-        kw = dict(coupling=coupling, wall=True, self_interaction=True)
+        kw = dict(coupling=coupling, mode="wall", self_interaction=True)
         n_rhs = v.shape[1] // pk.NCOMP[coupling]
         head = f"  K1 {tag} {q.shape[0]} x B={n_rhs}"
         ms = cs.cuda_ms(lambda: pk.pair_matvec(q, None, v, **kw), 10)
@@ -235,7 +259,7 @@ def profile_k1(cs, dev, detail):
         print(f"{head} symmetric sweep, {g} groups of {per} tiles: "
               f"{ms:.3f} ms", flush=True)
         path = pk.pair_matvec(q, None, v, **kw).double()
-        s, tiles = pk.launch_plan(coupling, q, q, v, wall=True)
+        s, tiles = pk.launch_plan(coupling, q, q, v, mode="wall")
         ms = cs.cuda_ms(lambda: pk.pair_matvec(q, q, v, **kw), 10)
         rel = ((pk.pair_matvec(q, q, v, **kw).double() - path).abs()
                .max() / path.abs().max()).item()
@@ -314,7 +338,7 @@ def profile_k1img(cs, dev, detail):
 
     for tag, coupling, q, v, L in k1img_scenes(cs, dev):
         boxes = None if L is None else (L, pk.box_offsets(L))
-        kw = dict(coupling=coupling, wall=True, self_interaction=True,
+        kw = dict(coupling=coupling, mode="wall", self_interaction=True,
                   boxes=boxes)
         n, nc = q.shape[0], pk.NCOMP[coupling]
         n_rhs = v.shape[1] // nc
@@ -324,7 +348,7 @@ def profile_k1img(cs, dev, detail):
         if not detail:
             print(f"{head}: {ms:.3f} ms", flush=True)
             continue
-        blocks = pk._resident_blocks(coupling, False, n_rhs, True,
+        blocks = pk._resident_blocks(coupling, False, n_rhs, "wall",
                                      images if hasattr(pk, "plane_far")
                                      else bool(images))
         apply = cs.K1_APPLY_FLOPS[coupling]
@@ -362,7 +386,7 @@ def profile_k3img(cs, dev, detail):
     for tag, L in (("images", box), ("open", (0.0, 0.0, 0.0))):
         images, policy = image_policy(pk, pk.image_boxes(L, cs.A_BENCH))
         ms = cs.cuda_ms(lambda: mc.dense_tt(r, system.eta, cs.A_BENCH,
-                                            wall=True, periodic_length=L),
+                                            mode="wall", periodic_length=L),
                         5)
         torch.cuda.empty_cache()
         head = f"  K3img {tag} {n} blobs ({policy})"
@@ -383,6 +407,147 @@ def profile_k3img(cs, dev, detail):
         print(f"{head}: {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
               f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}), {blocks} "
               f"resident blocks an SM", flush=True)
+
+
+# ------------------------------------------- phase 21's new instances
+
+
+def _fs_scene(cs, dev):
+    """21a's 49,152 blobs (phase 6's lattice) in units of a, raw heights."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+
+    system = cs.bench_system(cs.N_SHELLS, domain="free_surface")
+    pos, quat = cs.lattice(cs.N_SHELLS)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    return (kin.blob_positions(system, state) / cs.A_BENCH).contiguous()
+
+
+# --plain-whole: time the plain versions of k1fs and p1img whole
+PLAIN_WHOLE = False
+
+
+def plain_whole(cs, fn):
+    """The plain version's whole sweep, timed once, as a log fragment
+    (empty without --plain-whole)."""
+    if not PLAIN_WHOLE:
+        return ""
+    ms = cs.cuda_ms(fn, 1, warmup=False)
+    torch.cuda.empty_cache()
+    return f"; plain f32 whole sweep {ms:.1f} ms"
+
+
+def profile_k1fs(cs, dev, detail):
+    """K1's free-surface tt at 21a's shape, open and in 20a's box, beside
+    the wall's tt instance (alternating, chip_smoke.py alternating_ms)."""
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    q = _fs_scene(cs, dev)
+    n = q.shape[0]
+    g = torch.Generator(device=dev).manual_seed(21)
+    La = tuple(x / cs.A_BENCH for x in (cs.L_FS_IMAGES,) * 2) + (0.0,)
+    for n_rhs in (1, 2):
+        v = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        for L in (None, La):
+            boxes = None if L is None else (L, pk.box_offsets(L))
+            kw = dict(coupling="tt", self_interaction=True, boxes=boxes)
+            fs, wall = cs.alternating_ms([
+                lambda: pk.pair_matvec(q, None, v, mode="free_surface", **kw),
+                lambda: pk.pair_matvec(q, None, v, mode="wall", **kw)])
+            tag = "open" if L is None else "images"
+            plain = plain_whole(cs, lambda: pk.pair_plain(
+                q, q, v, mode="free_surface", **kw))
+            print(f"  K1fs {tag} {n} x B={n_rhs}: {fs:.3f} ms (the wall's "
+                  f"tt {wall:.3f} ms){plain}", flush=True)
+
+
+def profile_k3fs(cs, dev, detail):
+    """K3's free-surface instance at 21d's 12,288 blobs, open and in 20b's
+    box, beside the wall's K3 (alternating)."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+
+    system = cs.bench_system(cs.N_DENSE, domain="free_surface")
+    pos, quat = cs.lattice(cs.N_DENSE)
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state).contiguous()
+    for tag, L in (("open", (0.0, 0.0, 0.0)),
+                   ("images", (cs.L_PSEUDO_DENSE, cs.L_PSEUDO_DENSE, 0.0))):
+        fs, wall = cs.alternating_ms([
+            lambda: mc.dense_tt(r, 1.0, cs.A_BENCH, mode="free_surface",
+                                periodic_length=L),
+            lambda: mc.dense_tt(r, 1.0, cs.A_BENCH, mode="wall",
+                                periodic_length=L)])
+        torch.cuda.empty_cache()
+        print(f"  K3fs {tag} {r.shape[0]} blobs: {fs:.3f} ms (the wall's K3 "
+              f"{wall:.3f} ms)", flush=True)
+
+
+def profile_p1img(cs, dev, detail):
+    """P1's image boxes at 21c's bidisperse monolayer in its box (B = 1
+    and 2) and its free surface at 21e's scene, open and in 20a's box,
+    beside the open wall instance (alternating)."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    mpos, mquat = cs.alternate(*cs.monolayer())
+    epos, equat = cs.alternate(*cs.lattice(cs.N_SHELLS))
+    box_c = (cs.L_MONOLAYER, cs.L_MONOLAYER, 0.0)
+    box_e = (cs.L_FS_IMAGES, cs.L_FS_IMAGES, 0.0)
+    for tag, pos, quat, domain, box, rhs in (
+            ("images", mpos, mquat, "single_wall", box_c, (1, 2)),
+            ("free surface", epos, equat, "free_surface", (0.0,) * 3, (1,)),
+            ("free surface images", epos, equat, "free_surface", box_e,
+             (1,))):
+        system = cs.radii_system(len(pos))
+        state = make_state(pos, quat, dtype=torch.float32, device=dev)
+        r = kin.blob_positions(system, state).contiguous()
+        radii = torch.tensor(system.blob_radii, dtype=torch.float32,
+                             device=dev)
+        for n_rhs in rhs:
+            v = torch.randn((n_rhs, r.shape[0], 3), generator=g, device=dev)
+            ms, open_ms = cs.alternating_ms([
+                lambda: mc.radii_matvec(r, v, radii, 1.0, domain=domain,
+                                        periodic_length=box),
+                lambda: mc.radii_matvec(r, v, radii, 1.0,
+                                        domain="single_wall")])
+            plain = plain_whole(cs, lambda: mc.radii_matvec_plain(
+                r, v, radii, 1.0, domain=domain, periodic_length=box))
+            print(f"  P1 {tag} {r.shape[0]} x B={n_rhs} in {box}: {ms:.3f} "
+                  f"ms (the open wall instance {open_ms:.3f} ms){plain}",
+                  flush=True)
+
+
+def profile_k5open(cs, dev, detail):
+    """K5's open instance at 21b's monolayer (open box) and 21c's (partly
+    periodic), the capacity sized as the paths size it."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import cell_kernels as ck
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    mpos, mquat = cs.monolayer()
+    system = cs.bench_system(len(mpos), domain="in_plane")
+    state = make_state(mpos, mquat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state).contiguous()
+    law = dict(eps_over_b=1.0, inv_b=5.0, two_a=2 * cs.A_BENCH)
+    for tag, L3 in (("open", (0.0, 0.0, 0.0)),
+                    ("partly periodic", (cs.L_MONOLAYER,) * 2 + (0.0,))):
+        sized = forces.auto_force_cell_capacity(dataclasses.replace(
+            system, periodic_length=L3,
+            blob_blob_force_method="neighbor_list",
+            blob_blob_cutoff=cs.MONOLAYER_CUTOFF,
+            blob_blob_grid_dim=cs.MONOLAYER_GRID), r)
+        cap = sized.blob_blob_cell_capacity
+        pos, dims, table, _, frame, members = forces.open_force_cells(
+            r, L3, cs.MONOLAYER_CUTOFF, cs.MONOLAYER_GRID, cap)
+        ms = cs.cuda_ms(lambda: ck.nl_forces_open(
+            pos, table, dims, L3, frame, members, cap, **law), 10)
+        print(f"  K5open {tag} {r.shape[0]} blobs, dims {dims}, cap {cap}: "
+              f"{ms:.4f} ms", flush=True)
 
 
 # ---------------------------------------------------------------- K2
@@ -941,11 +1106,15 @@ def profile_p1(cs, dev, detail):
     g = torch.Generator(device=dev).manual_seed(18)
     vs = {b: torch.randn((b, nb, 3), generator=g, device=dev)
           for b in (1, 2)}
-    # an older checkout's chip_smoke.py (--root) may lack P1's bounds
+    # an older checkout's chip_smoke.py (--root) may lack P1's bounds, and
+    # its radii_matvec may take the wall flag in place of the domain
     detail = detail and hasattr(cs, "p1_bound")
+    kw = (dict(domain="single_wall")
+          if "domain" in inspect.signature(mc.radii_matvec).parameters
+          else dict(wall=True))
     for n_rhs, v in vs.items():
-        ms = cs.cuda_ms(lambda: mc.radii_matvec(rb, v, radii, 1.0,
-                                                wall=True), 10)
+        ms = cs.cuda_ms(lambda: mc.radii_matvec(rb, v, radii, 1.0, **kw),
+                        10)
         head = f"  P1 {nb} blobs B={n_rhs} f32 wall"
         if not detail:
             print(f"{head}: {ms:.3f} ms", flush=True)
@@ -1141,7 +1310,9 @@ PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
             "k6": profile_k6, "k7": profile_k7, "k8": profile_k8,
             "l1": profile_l1, "p1": profile_p1, "p2": profile_p2,
             "m1": profile_m1, "k1img": profile_k1img,
-            "k3img": profile_k3img}
+            "k3img": profile_k3img, "k1fs": profile_k1fs,
+            "k3fs": profile_k3fs, "p1img": profile_p1img,
+            "k5open": profile_k5open}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -1180,7 +1351,7 @@ def sass_counts(lib_path, kernels, out_path):
                  for d in dem.splitlines()]
     counts, listing = [], []
     loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1", "p1", "k1img",
-                                                "k3img")
+                                                "k3img", "k1fs", "k3fs")
                 if k in kernels}
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
@@ -1201,8 +1372,8 @@ def sass_counts(lib_path, kernels, out_path):
             counts += [f"  {ln}" for ln in sass_pair_loops(body)]
         if any(f in name for f in loops_of.get("p1", ())):
             counts += [f"  {ln}" for ln in sass_step_paths(body)]
-        if any(f in name for k in ("k1img", "k3img")
-               for f in loops_of.get(k, ())):
+        if any(f in name for k in ("k1img", "k3img", "k1fs", "k3fs")
+               for f in loops_of.get(k, ())) and "Boxes" in name:
             counts += [f"  {ln}" for ln in sass_box_paths(body)]
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
@@ -1471,15 +1642,21 @@ def main():
     p.add_argument("--root", default=str(ROOT))
     p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1,p2,m1",
                    help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
-                        "l1, p1, p2, m1, k1img, k3img")
+                        "l1, p1, p2, m1, k1img, k3img, k1fs, k3fs, p1img, "
+                        "k5open")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",
                    help="only the times of the paths' calls")
+    p.add_argument("--plain-whole", action="store_true",
+                   help="k1fs and p1img: also time each instance's plain "
+                        "version over its whole sweep")
     p.add_argument("--sass-out",
                    default=str(ROOT / "build" / "kernels_sass.txt"),
                    help="where the SASS counts and listing go")
     args = p.parse_args()
+    global PLAIN_WHOLE
+    PLAIN_WHOLE = args.plain_whole
     kernels = [k.strip() for k in args.kernels.split(",") if k.strip()]
     bad = [k for k in kernels if k not in PROFILES]
     if bad:
