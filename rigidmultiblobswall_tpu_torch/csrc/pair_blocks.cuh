@@ -98,6 +98,11 @@
 //   sum of grand's four blocks would hold 36 sums). Either way a pair's
 //   boxes are summed apart and join the running sums once, so the float32
 //   rounding of a row's sum does not grow with the number of boxes.
+// - The free surface's tt (FreeSurface) under PlaneBoxes sums no block:
+//   dz and Rz are the same in every box, so each box adds the four
+//   coefficients of the pair and of its image into FsMoments' eleven sums,
+//   and dz and Rz are folded in once a pair when they close into the
+//   pair's block (sum_blocks).
 
 #pragma once
 
@@ -117,6 +122,14 @@ __device__ __forceinline__ float rsqrt_t(float x) {
   return y;
 }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+
+// a multiply-add the compiler keeps fused whatever it makes of a * b + c
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
 
 // geometry of one (target, source) pair, shared by every block
 template <typename T>
@@ -282,6 +295,17 @@ struct PlaneBoxes {
       }
       return;
     }
+    boxes(dx, dy, [&](T x, T y, T xy2, bool far) {
+      f(box_pair<T, WALL>(x, y, xy2, dz, zt_, zs_, self, far));
+    });
+  }
+  // f(x, y, x^2 + y^2, far) on the nine boxes of the minimum image (dx,
+  // dy): the home box (column 1, row 1; far false), then (bx, by)
+  // row-major over {-1, 0, 1}^2 without (0, 0), x = dx + bx Lx and y = dy
+  // + by Ly; the offsets and their squares formed once a column and a row,
+  // and unrolled, so every index is a constant
+  template <typename F>
+  __device__ __forceinline__ void boxes(T dx, T dy, F&& f) const {
     const T ox[3] = {dx - Lx, dx, dx + Lx};
     const T oy[3] = {dy - Ly, dy, dy + Ly};
     T ox2[3], oy2[3];
@@ -290,14 +314,11 @@ struct PlaneBoxes {
       ox2[c] = ox[c] * ox[c];
       oy2[c] = oy[c] * oy[c];
     }
-    // box k: the home box (column 1, row 1), then (bx, by) row-major over
-    // {-1, 0, 1}^2 without (0, 0); unrolled, so every index is a constant
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
       const int idx = k == 0 ? 4 : k - 1 + (k >= 5 ? 1 : 0);
       const int c = idx / 3, r = idx % 3;
-      f(box_pair<T, WALL>(ox[c], oy[r], ox2[c] + oy2[r], dz, zt_, zs_,
-                          self, k != 0));
+      f(ox[c], oy[r], ox2[c] + oy2[r], k != 0);
     }
   }
 };
@@ -315,23 +336,38 @@ struct Cross {
   T c, F1, K, G3, H;
 };
 
-template <typename T, bool WALL>
-__device__ __forceinline__ Diag<T> tt_condense(const Pair<T>& p) {
-  // unbounded RPY core: m_ab = c1 delta_ab + c2 d_a d_b, the far form
-  // replaced in the rare near branch
-  const T invr = p.invr;
-  const T invr2 = invr * invr;
-  T c1 = (T(1) + T(2.0 / 3.0) * invr2) * invr;
-  T c2 = (T(1) - T(2) * invr2) * invr2 * invr;
+// unbounded RPY core: m_ab = c1 delta_ab + c2 d_a d_b; tt_near replaces
+// the far form (c1, c2) in the rare near branch
+template <typename T>
+__device__ __forceinline__ void tt_near(const Pair<T>& p, T& c1, T& c2) {
   if (__builtin_expect(p.near, 0)) {
     if (p.zero) {
       c1 = p.self ? T(4.0 / 3.0) : T(0);
       c2 = T(0);
     } else {  // 4/3 (1 - 9 r / 32), (4/3) (3/32) / r
-      c1 = T(4.0 / 3.0) - T(0.375) * (p.r2 * invr);
-      c2 = T(0.125) * invr;
+      c1 = T(4.0 / 3.0) - T(0.375) * (p.r2 * p.invr);
+      c2 = T(0.125) * p.invr;
     }
   }
+}
+
+// the far form (c1, c2) at 1/r = w by explicit multiply-adds: written as
+// tt_condense writes it, 2 w^2 compiles to w^2 + w^2 and 1 - 2 w^2 to a
+// second add (the free surface's box sums, sum_blocks)
+template <typename T>
+__device__ __forceinline__ void rpy_far(T w, T& c1, T& c2) {
+  const T w2 = w * w;
+  c1 = fma_t(T(2.0 / 3.0), w2, T(1)) * w;
+  c2 = fma_t(T(-2), w2, T(1)) * (w2 * w);
+}
+
+template <typename T, bool WALL>
+__device__ __forceinline__ Diag<T> tt_condense(const Pair<T>& p) {
+  const T invr = p.invr;
+  const T invr2 = invr * invr;
+  T c1 = (T(1) + T(2.0 / 3.0) * invr2) * invr;
+  T c2 = (T(1) - T(2) * invr2) * invr2 * invr;
+  tt_near(p, c1, c2);
   Diag<T> m;
   if (WALL) {
     // Swan-Brady image system of ops/rpy.py's wall_tt on raw (dx, dy, Rz)
@@ -395,21 +431,27 @@ __device__ __forceinline__ Diag<T> tt_condense(const Pair<T>& p) {
 // the wall's (WALL = true): Rz, 1/|R| and the image's near flag; the
 // heights are not shifted and nothing is damped.
 template <typename T>
+__device__ __forceinline__ void fs_image_near(const Pair<T>& p, T& e1,
+                                              T& e2) {
+  if (__builtin_expect(p.img_near, 0)) {
+    if (p.R2 == T(0)) {
+      e1 = T(0);
+      e2 = T(0);
+    } else {
+      e1 = T(4.0 / 3.0) - T(0.375) * (p.R2 * p.invR);
+      e2 = T(0.125) * p.invR;
+    }
+  }
+}
+
+template <typename T>
 __device__ __forceinline__ Diag<T> fs_condense(const Pair<T>& p) {
   Diag<T> m = tt_condense<T, false>(p);
   const T W = p.invR;
   const T W2 = W * W;
   T e1 = (T(1) + T(2.0 / 3.0) * W2) * W;
   T e2 = (T(1) - T(2) * W2) * W2 * W;
-  if (__builtin_expect(p.img_near, 0)) {
-    if (p.R2 == T(0)) {
-      e1 = T(0);
-      e2 = T(0);
-    } else {
-      e1 = T(4.0 / 3.0) - T(0.375) * (p.R2 * W);
-      e2 = T(0.125) * W;
-    }
-  }
+  fs_image_near(p, e1, e2);
   const T e2Rz = e2 * p.Rz;
   m.A += e1;
   m.S += e2;
@@ -592,6 +634,53 @@ struct BlockSum {
     acc[0] = xx * v[0] + (xy * v[1] + (zx * v[2] + acc[0]));
     acc[1] = xy * v[0] + (yy * v[1] + (zy * v[2] + acc[1]));
     acc[2] = xz * v[0] + (yz * v[1] + (zz * v[2] + acc[2]));
+  }
+};
+
+// The free surface's block (fs_condense; P1's with per-blob radii alike)
+// summed over PlaneBoxes' boxes by its coefficients. A box's block is
+// BlockSum's with A = c1 + e1, S = c2 + e2, P = c2 dz - e2 Rz, Q = c2 dz +
+// e2 Rz and mzz = c1 - e1 + c2 dz^2 - e2 Rz^2, (c1, c2) the RPY core's and
+// (e1, e2) its image's, and z is never imaged: dz and Rz are the same in
+// every box. So the box sum needs only the sums of c1, e1, c2, e2, (c2 +
+// e2) dx^2, (c2 + e2) dx dy, (c2 + e2) dy^2, c2 dx, c2 dy, e2 dx and e2 dy
+// (add: one add, two multiplies, four adds and seven multiply-adds a box),
+// and close() folds dz and Rz in once a pair.
+template <typename T>
+struct FsMoments {
+  T c1, e1, c2, e2;
+  T xx, xy, yy;      // of (c2 + e2) dx^2, dx dy, dy^2
+  T cx, cy, ex, ey;  // of c2 dx, c2 dy, e2 dx, e2 dy
+  __device__ __forceinline__ void add(T c1_, T c2_, T e1_, T e2_, T dx,
+                                      T dy) {
+    const T s = c2_ + e2_;
+    const T sdx = s * dx, sdy = s * dy;
+    c1 += c1_;
+    e1 += e1_;
+    c2 += c2_;
+    e2 += e2_;
+    xx = sdx * dx + xx;
+    xy = sdx * dy + xy;
+    yy = sdy * dy + yy;
+    cx = c2_ * dx + cx;
+    cy = c2_ * dy + cy;
+    ex = e2_ * dx + ex;
+    ey = e2_ * dy + ey;
+  }
+  // the closed box sum (BlockSum after its close())
+  __device__ __forceinline__ BlockSum<T> close(T dz, T Rz) const {
+    BlockSum<T> m;
+    m.a = c1 + e1;
+    m.xx = xx + m.a;
+    m.xy = xy;
+    m.yy = yy + m.a;
+    const T cxz = cx * dz, cyz = cy * dz;
+    m.xz = cxz - ex * Rz;
+    m.yz = cyz - ey * Rz;
+    m.zx = ex * Rz + cxz;
+    m.zy = ey * Rz + cyz;
+    m.zz = ((c1 - e1) + c2 * (dz * dz)) - e2 * (Rz * Rz);
+    return m;
   }
 };
 
@@ -794,7 +883,8 @@ struct Grand {
 // registers a thread at most), 6 (80 registers) for the image boxes, none
 // in float64 (off the hot paths). At 8 the in-plane tt instances spill at
 // B = 2 and run 2.5 % (B = 1) and 8.5 % (B = 2) slower at 49,152 blobs
-// (tools/torch_profile_kernels.py, PERF.md §6)
+// (tools/torch_profile_kernels.py, PERF.md §6); the free surface's image
+// instances run as fast at 4, 5 and 8 as at 6
 template <typename T, typename G = OpenBox<T>>
 struct Shape {
   static constexpr int kMinBlocks = sizeof(T) != 4 ? 1 : (G::kImages ? 6 : 8);
@@ -831,19 +921,38 @@ __device__ __forceinline__ void load_row(const double* row, double* dst) {
 }
 
 // A pair's boxes as one block: the diagonal couplings' BlockSum over every
-// box of the policy (the home box's self flag from `self`)
+// box of the policy (the home box's self flag from `self`); the free
+// surface's under PlaneBoxes by its coefficients (FsMoments), the home box
+// with its near and zero forms, the others in the far form
 template <typename T, typename C, bool WALL, typename G, typename U>
 __device__ __forceinline__ BlockSum<T> sum_blocks(const G& geom, U xt, U yt,
                                                   U zt, U xs, U ys, U zs,
                                                   bool self) {
-  BlockSum<T> m{};
-  geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
-                            [&](const Pair<T>& p) {
-                              m.add(C::template condense<T, WALL>(p), p.dx,
-                                    p.dy);
-                            });
-  m.close();
-  return m;
+  if constexpr (C::kFreeSurface && std::is_same_v<G, PlaneBoxes<T>>) {
+    static_assert(WALL, "the free surface takes the wall's pair geometry");
+    FsMoments<T> s{};
+    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
+                              [&](const Pair<T>& p) {
+                                T c1, c2, e1, e2;
+                                rpy_far(p.invr, c1, c2);
+                                tt_near(p, c1, c2);
+                                rpy_far(p.invR, e1, e2);
+                                fs_image_near(p, e1, e2);
+                                s.add(c1, c2, e1, e2, p.dx, p.dy);
+                              });
+    // PlaneBoxes' own dz and Rz (visit, box_pair)
+    const T zt_ = T(zt), zs_ = T(zs);
+    return s.close(zt_ - zs_, zt_ + zs_);
+  } else {
+    BlockSum<T> m{};
+    geom.template visit<WALL>(xt, yt, zt, xs, ys, zs, self,
+                              [&](const Pair<T>& p) {
+                                m.add(C::template condense<T, WALL>(p), p.dx,
+                                      p.dy);
+                              });
+    m.close();
+    return m;
+  }
 }
 
 // The pairs of a target and a source in every box of the policy added into

@@ -16,6 +16,22 @@
 // ops/mobility.py passes them raw). Every product of the paths is square,
 // so the symmetric sweep serves them; the sliced sweep is there for the
 // two-tensor calls and the plan's occupancy query.
+//
+// Design of the image boxes under PlaneBoxes (the paths' boxes), where a
+// pair's nine boxes are ~90 % of its work: z is never imaged, so dz and Rz
+// are the same in every box, and a box's block differs from the next only
+// by its coefficients (c1, c2 of the pair, e1, e2 of its image) and its
+// in-plane offsets. So no box is condensed: every box adds its four
+// coefficients into the sums pair_blocks.cuh FsMoments keeps (sum_blocks'
+// free-surface branch), and dz and Rz are folded in once a pair when the
+// sum closes into the pair's one block, applied both ways. A far box
+// costs its r^2 and |R|^2 (on the offsets' squares, formed once a column
+// and a row), two rsqrt, the two far RPY forms (pair_blocks.cuh rpy_far,
+// by explicit multiply-adds) and the sums' add, where condensing it and
+// adding the block cost ~48 SASS instructions. The home box keeps its near
+// and zero forms (tt_near, fs_image_near) and adds into the same sums. The
+// instances keep the image boxes' 6 resident blocks an SM (80 registers):
+// 4, 5 and 8 run no faster (PERF.md §6).
 
 #include "pair_blocks.cuh"
 

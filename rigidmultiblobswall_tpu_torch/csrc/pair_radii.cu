@@ -77,10 +77,26 @@
 // both in-plane lengths exceed kPlaneFarMin times the largest radius: the
 // home box by the vote, the eight others in the far form alone (they lie
 // at r >= L / 2 > 2.02 max(a) >= a + b, and so do their images). No tile
-// test: the minimum image moves a pair out of its tiles' boxes. The self
-// pair takes the inside regime in the home box only (r = 0 there; in every
-// other box a blob's image is an ordinary pair at d = b L), as the plain
-// version, which has no self mask, computes it.
+// test on the distance: the minimum image moves a pair out of its tiles'
+// boxes. The self pair takes the inside regime in the home box only (r = 0
+// there; in every other box a blob's image is an ordinary pair at d = b
+// L), as the plain version, which has no self mask, computes it.
+//
+// The free surface under PlaneBoxes (fs_box_sum), where a pair's nine
+// boxes are nearly all of its work: z is never imaged, so dz, Rz and s2 =
+// a^2 + b^2 are the same in every box, and no box is condensed. Every box
+// adds the coefficients of the pair and of its image (c1, c2, e1, e2) into
+// the sums pair_blocks.cuh FsMoments keeps, and dz and Rz are folded in
+// once a pair when the sum closes into its one block. The eight far boxes
+// are unrolled, their in-plane offsets and squares formed once a column and
+// a row: each costs two adds, two rsqrt, the two far RPY forms and the
+// sums' add, no regime flag and no Geo. The home box takes its regimes by
+// the warp vote, as before, into the same sums; its image's regime is
+// settled once a tile pair by a z test (images_far: the tiles' lowest
+// heights against their largest radii, z being the same in every box), so
+// where it passes the image takes the far form and the vote asks about the
+// direct pair alone, and where it fails (a blob at or below its radius)
+// the image keeps its own test.
 
 #include "pair_blocks.cuh"
 
@@ -92,22 +108,28 @@ using pairk::kTile;
 using pairk::kWarps;
 using pairk::rsqrt_t;
 
-// resident blocks an SM that __launch_bounds__ asks for in float32: 6,
-// at most 85 registers a thread (ptxas gives B = 1 72 and B = 2 76; 4
-// left B = 2 at 85 and ~4 % slower, 8 spills; PERF.md §6); the image
-// boxes' instances, which hold a pair's box sum besides, 4 (128
-// registers). float64 uncapped
-template <typename T, typename G>
-constexpr int min_blocks() {
-  return sizeof(T) == 4 ? (G::kImages ? 4 : 6) : 1;
-}
-
 // the open domain's pair geometry: one pair, d = r_t - r_s
 struct RadiiOpen {
   static constexpr bool kImages = false;
 };
 
 constexpr int kOpen = 0, kWall = 1, kFreeSurface = 2;
+
+// resident blocks an SM that __launch_bounds__ asks for in float32: 6,
+// at most 85 registers a thread (ptxas gives B = 1 72 and B = 2 76; 4
+// left B = 2 at 85 and ~4 % slower, 8 spills; PERF.md §6); the image
+// boxes' instances, which hold a pair's box sum besides, 4 (128
+// registers), but the free surface's under PlaneBoxes: 6 (80 registers,
+// no spill; at 4 and 5 it takes 128 and 96 and runs 8 % and 3 % slower at
+// 21e's scene, PERF.md §6). float64 uncapped
+template <typename T, int MODE, typename G>
+constexpr int min_blocks() {
+  if (sizeof(T) != 4) return 1;
+  return !G::kImages || (MODE == kFreeSurface &&
+                         std::is_same_v<G, pairk::PlaneBoxes<T>>)
+             ? 6
+             : 4;
+}
 
 // a staged blob: x, y, z_eff, a, 1/a
 constexpr int kQ = 5;
@@ -303,10 +325,12 @@ __device__ __forceinline__ void add_box(pairk::BlockSum<T>& m,
 
 // The pair (t, s) summed over the image boxes into one closed block: the
 // minimum image in float64 (ImageBoxes::image), then every box of the
-// list, each by its own vote (VOTE) or every regime
-template <typename T, int MODE, bool VOTE>
+// list, each by its own vote (VOTE) or every regime (IMG_FAR is
+// PlaneBoxes' alone: false here)
+template <typename T, int MODE, bool VOTE, bool IMG_FAR = false>
 __device__ __forceinline__ pairk::BlockSum<T> box_sum(
     const pairk::ImageBoxes<T>& g, const Target<T>& t, const T* s) {
+  static_assert(!IMG_FAR, "ImageBoxes takes no tile test");
   const T dx = g.image(t.x, s[0], 0);
   const T dy = g.image(t.y, s[1], 1);
   const T dz = g.image(t.z, s[2], 2);
@@ -321,10 +345,51 @@ __device__ __forceinline__ pairk::BlockSum<T> box_sum(
   return m;
 }
 
+// The free surface under PlaneBoxes: every box's coefficients summed into
+// pairk::FsMoments, closed into one block once a pair. The home box by the
+// vote (VOTE) or every regime, its image in the far form where the tile
+// pair's z test settled it far (IMG_FAR; the vote then asks about the
+// direct pair alone); the eight others in the far form alone, their
+// in-plane offsets and squares formed once a column and a row, and dz^2,
+// Rz^2 and s2 = a^2 + b^2 once a pair: a far box costs two adds, two
+// rsqrt, the two far RPY forms and the moments' add
+template <typename T, bool VOTE, bool IMG_FAR>
+__device__ __forceinline__ pairk::BlockSum<T> fs_box_sum(
+    const pairk::PlaneBoxes<T>& g, const Target<T>& t, const T* s, T dx,
+    T dy, T dz) {
+  const T Rz = t.z + s[2];
+  const T s2 = t.a2 + s[3] * s[3];
+  pairk::FsMoments<T> m{};
+  {
+    const Geo<T> geo = make_geo_d<T, kFreeSurface>(t, s, dx, dy, dz);
+    const bool far =
+        VOTE && __all_sync(0xffffffffu, IMG_FAR ? geo.far_d : geo.far);
+    T c1, c2, e1, e2;
+    if (far) {
+      rpy_coeffs<T, false>(geo.r2, true, t, s, s2, c1, c2);
+      rpy_coeffs<T, false>(geo.R2, true, t, s, s2, e1, e2);
+    } else {
+      rpy_coeffs<T, true>(geo.r2, geo.far_d, t, s, s2, c1, c2);
+      rpy_coeffs<T, !IMG_FAR>(geo.R2, geo.far_i, t, s, s2, e1, e2);
+    }
+    m.add(c1, c2, e1, e2, dx, dy);
+  }
+  const T dz2 = dz * dz, Rz2 = Rz * Rz;
+  // the eight others in pairk::PlaneBoxes' order (the home box is above)
+  g.boxes(dx, dy, [&](T x, T y, T xy2, bool far) {
+    if (!far) return;
+    T c1, c2, e1, e2;
+    rpy_coeffs<T, false>(xy2 + dz2, true, t, s, s2, c1, c2);
+    rpy_coeffs<T, false>(xy2 + Rz2, true, t, s, s2, e1, e2);
+    m.add(c1, c2, e1, e2, x, y);
+  });
+  return m.close(dz, Rz);
+}
+
 // PlaneBoxes: the home box by the vote (VOTE) or every regime, the eight
 // boxes off it in the far form alone (the host's choice guarantees them
-// far, images included)
-template <typename T, int MODE, bool VOTE>
+// far, images included); the free surface's by fs_box_sum
+template <typename T, int MODE, bool VOTE, bool IMG_FAR = false>
 __device__ __forceinline__ pairk::BlockSum<T> box_sum(
     const pairk::PlaneBoxes<T>& g, const Target<T>& t, const T* s) {
   const T dx = static_cast<T>(pairk::min_image(
@@ -334,17 +399,23 @@ __device__ __forceinline__ pairk::BlockSum<T> box_sum(
       static_cast<double>(t.y) - static_cast<double>(s[1]), g.L[1],
       g.inv_L[1]));
   const T dz = t.z - s[2];
-  pairk::BlockSum<T> m{};
-  add_box<T, MODE, VOTE>(m, make_geo_d<T, MODE>(t, s, dx, dy, dz), t, s);
+  static_assert(!IMG_FAR || MODE == kFreeSurface,
+                "the tile's z test is the free surface's");
+  if constexpr (MODE == kFreeSurface) {
+    return fs_box_sum<T, VOTE, IMG_FAR>(g, t, s, dx, dy, dz);
+  } else {
+    pairk::BlockSum<T> m{};
+    add_box<T, MODE, VOTE>(m, make_geo_d<T, MODE>(t, s, dx, dy, dz), t, s);
 #pragma unroll 1
-  for (int k = 1; k < 9; ++k) {
-    const int idx = k - 1 + (k >= 5 ? 1 : 0);
-    const Geo<T> geo = make_geo_d<T, MODE>(
-        t, s, dx + T(idx / 3 - 1) * g.Lx, dy + T(idx % 3 - 1) * g.Ly, dz);
-    m.add(condense<T, MODE, false>(geo, t, s), geo.dx, geo.dy);
+    for (int k = 1; k < 9; ++k) {
+      const int idx = k - 1 + (k >= 5 ? 1 : 0);
+      const Geo<T> geo = make_geo_d<T, MODE>(
+          t, s, dx + T(idx / 3 - 1) * g.Lx, dy + T(idx % 3 - 1) * g.Ly, dz);
+      m.add(condense<T, MODE, false>(geo, t, s), geo.dx, geo.dy);
+    }
+    m.close();
+    return m;
   }
-  m.close();
-  return m;
 }
 
 // the bounding box of a tile's 128 rows and their largest radius, on every
@@ -410,13 +481,26 @@ __device__ __forceinline__ bool above_plane(const Box<T>& a,
   return a.lo[2] >= T(0) && b.lo[2] >= T(0);
 }
 
+// the free surface's image boxes: every pair's image far in every box, z_t
+// + z_s > a_t + a_s from the tiles' lowest heights and largest radii alone
+// (z is never imaged, and |R| >= z_t + z_s), with boxes_far's margin for
+// the rounding of each pair's |R|^2 and (a + b)^2
+template <typename T>
+__device__ __forceinline__ bool images_far(const Box<T>& a,
+                                           const Box<T>& b) {
+  const T z = a.lo[2] + b.lo[2];
+  const T s = a.amax + b.amax;
+  return z > T(0) && z * z > s * s * T(1.0001);
+}
+
 // the off-diagonal tile pair (target tile of the block's rows, source tile
 // tb): each quarter of tile tb rotates through the warp, 32 steps of 32
 // pairs, its sums returned to its lanes; the four warps' source sums are
-// left in s_sum[warp]. Open domain: ALL_FAR every step far (the tile
+// left in s_sum[warp]. Open domain: TILE_FAR every step far (the tile
 // boxes far apart), else each step by its warp vote; image boxes: a
-// pair's box sum (box_sum, each box by its vote)
-template <typename T, int B, int MODE, bool ALL_FAR, typename G>
+// pair's box sum (box_sum, each box by its vote; TILE_FAR: the free
+// surface's images settled far by images_far)
+template <typename T, int B, int MODE, bool TILE_FAR, typename G>
 __device__ __forceinline__ void rotate(const T* __restrict__ q,
                                        const T* __restrict__ vec, int n,
                                        int tb, const Target<T>& tgt,
@@ -445,7 +529,8 @@ __device__ __forceinline__ void rotate(const T* __restrict__ q,
 #pragma unroll 1
     for (int step = 0; step < kLanes; ++step) {
       if constexpr (G::kImages) {
-        const pairk::BlockSum<T> m = box_sum<T, MODE, true>(geom, tgt, pj);
+        const pairk::BlockSum<T> m =
+            box_sum<T, MODE, true, TILE_FAR>(geom, tgt, pj);
 #pragma unroll
         for (int b = 0; b < B; ++b) {
           m.apply(vj + 3 * b, acc + 3 * b);
@@ -454,7 +539,7 @@ __device__ __forceinline__ void rotate(const T* __restrict__ q,
       } else {
         const Geo<T> g = make_geo<T, MODE>(tgt, pj);
         // one path for the warp's 32 pairs: the far form when all are far
-        const bool far = ALL_FAR || __all_sync(0xffffffffu, g.far);
+        const bool far = TILE_FAR || __all_sync(0xffffffffu, g.far);
         const Diag<T> m = far ? condense<T, MODE, false>(g, tgt, pj)
                               : condense<T, MODE, true>(g, tgt, pj);
 #pragma unroll
@@ -480,14 +565,20 @@ __device__ __forceinline__ void rotate(const T* __restrict__ q,
 
 // One block: one pair of tile groups (GA, GB), GA <= GB, as
 // pairk::sym_kernel, on rows (x, y, z_eff, a, 1/a), in the domain MODE
-// and the pair geometry G (RadiiOpen, or an image-box policy).
+// and the pair geometry G (RadiiOpen, or an image-box policy). The tile
+// test: the open domain's boxes_far (and above_plane on the free surface),
+// the free surface's PlaneBoxes images_far; the other image instances
+// take none.
 template <typename T, int B, int MODE, typename G>
-__global__ void __launch_bounds__(kTile, (min_blocks<T, G>()))
+__global__ void __launch_bounds__(kTile, (min_blocks<T, MODE, G>()))
 radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
                  T* __restrict__ ws, int n, int n_groups,
                  int tiles_per_group, G geom) {
   constexpr int NV = 3 * B;
   constexpr int L = Row<T, B>::value;
+  constexpr bool kFsPlane =
+      MODE == kFreeSurface && std::is_same_v<G, pairk::PlaneBoxes<T>>;
+  constexpr bool kTileTest = !G::kImages || kFsPlane;
   __shared__ __align__(16) T s_src[kTile][L];
   __shared__ T s_sum[kWarps][kTile][NV];
   __shared__ T s_box[kWarps][7];
@@ -530,7 +621,7 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
     }
     const Target<T> tgt = make_target(pi);
     Box<T> box_a;
-    if constexpr (!G::kImages) box_a = tile_box(pi, s_box);
+    if constexpr (kTileTest) box_a = tile_box(pi, s_box);
 #pragma unroll 1
     for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
       if (tb == ta) {  // the diagonal tile: every ordered pair, self included
@@ -542,12 +633,20 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
         for (int c = 0; c < NV; ++c) row[kQ + c] = vi[c];
         __syncthreads();
         const int count = min(kTile, n - ta * kTile);
+        // the free surface's z test on the diagonal tile too: on an H100 at
+        // 21e's scene, B = 2 takes 17.7 ms with it, 19.0-19.3 without
+        // (PERF.md §6)
+        bool diag_far = false;
+        if constexpr (kFsPlane) diag_far = images_far(box_a, box_a);
         for (int k = 0; k < count; ++k) {
           T src[L];
           pairk::load_row<L>(s_src[k], src);
           if constexpr (G::kImages) {
-            const pairk::BlockSum<T> m =
-                box_sum<T, MODE, false>(geom, tgt, src);
+            pairk::BlockSum<T> m;
+            if (diag_far)
+              m = box_sum<T, MODE, false, kFsPlane>(geom, tgt, src);
+            else
+              m = box_sum<T, MODE, false>(geom, tgt, src);
 #pragma unroll
             for (int b = 0; b < B; ++b)
               m.apply(src + kQ + 3 * b, acc + 3 * b);
@@ -563,8 +662,8 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
         continue;
       }
       // off the diagonal: the tile pair's path, then its rotations
-      bool all_far = false;
-      if constexpr (!G::kImages) {
+      bool tile_far = false;
+      if constexpr (kTileTest) {
         const int j = tb * kTile + threadIdx.x;
         T pj[kQ] = {T(0), T(0), T(1), T(1), T(1)};
         if (j < n) {
@@ -572,12 +671,15 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
           for (int c = 0; c < kQ; ++c) pj[c] = q[kQ * j + c];
         }
         const Box<T> box_b = tile_box(pj, s_box);
-        all_far = boxes_far(box_a, box_b) &&
-                  (MODE != kFreeSurface || above_plane(box_a, box_b));
+        if constexpr (kFsPlane)
+          tile_far = images_far(box_a, box_b);
+        else
+          tile_far = boxes_far(box_a, box_b) &&
+                     (MODE != kFreeSurface || above_plane(box_a, box_b));
       }
-      if constexpr (G::kImages)
+      if constexpr (!kTileTest)
         rotate<T, B, MODE, false>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);
-      else if (all_far)
+      else if (tile_far)
         rotate<T, B, MODE, true>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);
       else
         rotate<T, B, MODE, false>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);

@@ -2305,6 +2305,20 @@ def test_k3_free_surface_matches_plain(cuda, n, policy, dtype, bound):
     assert err <= bound * ref.abs().max().item()
 
 
+def _p1_box_scene(n, raised):
+    """_radii_scene spread over twice the area, a coincident pair on the
+    plane; `raised`: every blob lifted by 0.35, above the largest radius
+    (0.3), so P1's free-surface z test settles every image far."""
+    r, rad = _radii_scene(n, seed=36)
+    r[:, :2] *= 2.0
+    r[20, 2] = 0.0
+    r[21] = r[20]
+    if raised:
+        r[:, 2] += 0.35
+    return r, rad
+
+
+@pytest.mark.parametrize("raised", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("box", [(0.0, 0.0, 0.0), (9.0, 8.0, 0.0),
                                  (9.0, 8.0, 7.0), (1.0, 1.0, 0.0)])
@@ -2312,19 +2326,19 @@ def test_k3_free_surface_matches_plain(cuda, n, policy, dtype, bound):
                                     "free_surface"])
 @pytest.mark.parametrize("n_rhs", [1, 2])
 def test_p1_images_and_free_surface_match_plain(cuda, n_rhs, domain, box,
-                                                dtype):
+                                                dtype, raised):
     """P1's image-box instance (the in-plane policy at (9, 8, 0), the
     general one at (1, 1, 0), under its far margin, and for a box
     periodic in z) and its free-surface instance against the
     source-target product in float64: float64 to 1e-12, float32 to 3e-6
-    x max|ref|, twice bit-identical."""
+    x max|ref|, twice bit-identical. The free surface's in-plane instance
+    with blobs below their radius (its tile z test refused: the home
+    box's image by its regime) and with every blob raised above it (the
+    test passed: the image in the far form)."""
     from rigidmultiblobswall_tpu_torch.ops import mobility as mob
 
     n = 700
-    r, rad = _radii_scene(n, seed=36)
-    r[:, :2] *= 2.0
-    r[20, 2] = 0.0
-    r[21] = r[20]
+    r, rad = _p1_box_scene(n, raised)
     v = np.random.default_rng(37).normal(size=(n_rhs, n, 3))
     args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
     kw = dict(domain=domain, periodic_length=box)
@@ -2345,6 +2359,46 @@ def test_p1_images_and_free_surface_match_plain(cuda, n_rhs, domain, box,
     bound = 1e-12 if dtype == torch.float64 else 3e-6
     err = (got[:, :sub].double() - ref).abs().max() / ref.abs().max()
     assert err <= bound, float(err)
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_wall_images_match_plain_beside_the_free_surface(cuda, n_rhs,
+                                                         dtype, bound):
+    """The wall's in-plane image instances, whose code the free surface's
+    box sums left as it was, on the free-surface tests' scenes: K1 tt
+    (the symmetric sweep, BlockSum) and P1 (min_blocks 4, the far boxes in
+    a loop) against their plain versions, twice bit-identical."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    L = FS_POLICIES["plane"]
+    boxes = (L, pk.box_offsets(L))
+    assert pk.plane_far(boxes)
+    q = _surface_scene(300, 31, L)
+    q[:, 2] = np.maximum(q[:, 2], 1.0)
+    v = np.random.default_rng(32).normal(size=(300, 3 * n_rhs))
+    qt = torch.as_tensor(q, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling="tt", mode="wall", self_interaction=True, boxes=boxes)
+    got = pk.pair_matvec(qt, None, vt, **kw)
+    assert torch.equal(got, pk.pair_matvec(qt, None, vt, **kw))
+    ref = pk.pair_plain(qt.double(), qt.double(), vt.double(), **kw)
+    assert ((got.double() - ref).abs().max().item()
+            <= bound * ref.abs().max().item())
+    for raised in (False, True):
+        r, rad = _p1_box_scene(700, raised)
+        vr = np.random.default_rng(37).normal(size=(n_rhs, 700, 3))
+        args = [torch.as_tensor(x, dtype=dtype, device=cuda)
+                for x in (r, vr, rad)]
+        kw = dict(domain="single_wall", periodic_length=(9.0, 8.0, 0.0))
+        got = mc.radii_matvec(*args, 1.3, **kw)
+        assert torch.equal(got, mc.radii_matvec(*args, 1.3, **kw))
+        r64, v64, a64 = (x.double() for x in args)
+        ref = torch.stack([mob.source_target_matvec(
+            r64, r64[:300], vb, a64, a64[:300], 1.3, **kw) for vb in v64])
+        err = (got[:, :300].double() - ref).abs().max() / ref.abs().max()
+        assert err <= bound, float(err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

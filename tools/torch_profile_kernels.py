@@ -91,10 +91,12 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   (csrc/dense_tt.cu): K3's free-surface instance at 21d's 12,288 blobs,
   open and in 20b's box; p1img (csrc/pair_radii.cu): P1's image boxes at
   21c's bidisperse monolayer in (102.4, 102.4, 0) (B = 1 and 2) and its
-  free surface at 21e's scene (open and in 20a's box); k5open
+  free surface at 21e's scene (open, and in 20a's box at B = 1 and 2); k5open
   (csrc/nl_forces.cu): K5's open instance at 21b's monolayer (open box)
   and 21c's (partly periodic), the capacity sized as the paths size it;
-  their bounds are chip_smoke.py phase 21's. With --plain-whole, k1fs and
+  their bounds are chip_smoke.py phase 21's. k1fs and p1img print each
+  float32 instance's error against its float64 plain version on the first
+  ERR_ROWS target rows, over max|ref|. With --plain-whole, k1fs and
   p1img also time each instance's plain version over its whole sweep
   once (the image boxes' take 0.5-3 min each: chip_smoke.py times them
   on their first row tiles alone).
@@ -107,7 +109,7 @@ kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
 (cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
 and F2I conversions (which run at the MUFU's rate) and the subroutine
-calls (for k1img, k3img and the image instances of k1fs and k3fs also
+calls (for k1img, k3img and the image instances of k1fs, k3fs and p1img also
 the instructions a box on the far path:
 the shortest path through each pair loop, an inner loop over the boxes
 taken 9 times, over the boxes its MUFU.RSQ count; for k8 also the LDS,
@@ -176,7 +178,8 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
                       "pairk::PlaneBoxes<float>, true"),
              "p1img": ("radii_sym_kernel<float, 1, 1, pairk::",
                        "radii_sym_kernel<float, 2, 1, pairk::",
-                       "radii_sym_kernel<float, 1, 2, "),
+                       "radii_sym_kernel<float, 1, 2, ",
+                       "radii_sym_kernel<float, 2, 2, "),
              "k5open": ("nl_forces_kernel<float, true",)}
 
 # slice counts K1's sliced sweep is timed at, per shape
@@ -437,6 +440,16 @@ def plain_whole(cs, fn):
     return f"; plain f32 whole sweep {ms:.1f} ms"
 
 
+# the target rows k1fs and p1img hold against the float64 plain version
+ERR_ROWS = 1024
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| over ref's rows (got's first rows)."""
+    rows = got[..., :ref.shape[-2], :].double()
+    return ((rows - ref).abs().max() / ref.abs().max()).item()
+
+
 def profile_k1fs(cs, dev, detail):
     """K1's free-surface tt at 21a's shape, open and in 20a's box, beside
     the wall's tt instance (alternating, chip_smoke.py alternating_ms)."""
@@ -457,8 +470,13 @@ def profile_k1fs(cs, dev, detail):
             tag = "open" if L is None else "images"
             plain = plain_whole(cs, lambda: pk.pair_plain(
                 q, q, v, mode="free_surface", **kw))
+            err = rel_err(
+                pk.pair_matvec(q, None, v, mode="free_surface", **kw),
+                pk.pair_plain(q.double(), q[:ERR_ROWS].double(), v.double(),
+                              mode="free_surface", **kw))
             print(f"  K1fs {tag} {n} x B={n_rhs}: {fs:.3f} ms (the wall's "
-                  f"tt {wall:.3f} ms){plain}", flush=True)
+                  f"tt {wall:.3f} ms){plain}; f32 err / max|ref| {err:.3e}",
+                  flush=True)
 
 
 def profile_k3fs(cs, dev, detail):
@@ -490,6 +508,7 @@ def profile_p1img(cs, dev, detail):
     beside the open wall instance (alternating)."""
     from rigidmultiblobswall_tpu_torch.models import kinematics as kin
     from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
     from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
 
     g = torch.Generator(device=dev).manual_seed(21)
@@ -501,7 +520,7 @@ def profile_p1img(cs, dev, detail):
             ("images", mpos, mquat, "single_wall", box_c, (1, 2)),
             ("free surface", epos, equat, "free_surface", (0.0,) * 3, (1,)),
             ("free surface images", epos, equat, "free_surface", box_e,
-             (1,))):
+             (1, 2))):
         system = cs.radii_system(len(pos))
         state = make_state(pos, quat, dtype=torch.float32, device=dev)
         r = kin.blob_positions(system, state).contiguous()
@@ -516,9 +535,17 @@ def profile_p1img(cs, dev, detail):
                                         domain="single_wall")])
             plain = plain_whole(cs, lambda: mc.radii_matvec_plain(
                 r, v, radii, 1.0, domain=domain, periodic_length=box))
+            rd, k = r.double(), ERR_ROWS
+            err = rel_err(
+                mc.radii_matvec(r, v, radii, 1.0, domain=domain,
+                                periodic_length=box),
+                torch.stack([mob.source_target_matvec(
+                    rd, rd[:k], vb.double(), radii.double(),
+                    radii[:k].double(), 1.0, domain=domain,
+                    periodic_length=box) for vb in v]))
             print(f"  P1 {tag} {r.shape[0]} x B={n_rhs} in {box}: {ms:.3f} "
-                  f"ms (the open wall instance {open_ms:.3f} ms){plain}",
-                  flush=True)
+                  f"ms (the open wall instance {open_ms:.3f} ms){plain}; "
+                  f"f32 err / max|ref| {err:.3e}", flush=True)
 
 
 def profile_k5open(cs, dev, detail):
@@ -1351,7 +1378,8 @@ def sass_counts(lib_path, kernels, out_path):
                  for d in dem.splitlines()]
     counts, listing = [], []
     loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1", "p1", "k1img",
-                                                "k3img", "k1fs", "k3fs")
+                                                "k3img", "k1fs", "k3fs",
+                                                "p1img")
                 if k in kernels}
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
@@ -1372,7 +1400,8 @@ def sass_counts(lib_path, kernels, out_path):
             counts += [f"  {ln}" for ln in sass_pair_loops(body)]
         if any(f in name for f in loops_of.get("p1", ())):
             counts += [f"  {ln}" for ln in sass_step_paths(body)]
-        if any(f in name for k in ("k1img", "k3img", "k1fs", "k3fs")
+        if any(f in name for k in ("k1img", "k3img", "k1fs", "k3fs",
+                                   "p1img")
                for f in loops_of.get(k, ())) and "Boxes" in name:
             counts += [f"  {ln}" for ln in sass_box_paths(body)]
         listing += [f"Function : {name} ({key})"] + body
