@@ -318,7 +318,9 @@ is non-zero and no result line is printed):
      that monolayer bidisperse in (102.4, 102.4, 0) above the wall (P1
      images, K5 partly periodic), 21d phase 9's 1024 shells on the free
      surface (open and in 20b's box) and in_plane, materialized, 21e
-     phase 18's scene on the free surface (open and in 20a's box), 21f two
+     phase 18's scene on the free surface (forward Euler and one
+     Slip-Trapz step open, forward Euler in 20a's box; the runs in a box
+     and 21d's in_plane at CAPPED_MAXITER GMRES sweeps a solve), 21f two
      64-shell input files through the CLI, card float64 against CPU
      float64 to 1e-10 of the displacement.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
@@ -6716,9 +6718,10 @@ def fs_k1_record(pk, q, v, L, report, what):
     if recount is not None:
         rec["recount_ms"] = bound_record(nbytes, recount,
                                          pairs * mufu)["bound_ms"]
-    rec["registers"] = instance_registers(
-        report, "sym_kernel<float, pairk::FreeSurface", f", {n_rhs}, true",
-        geom)
+    rec["registers"] = (instance_registers(
+        report, f"pairk::sym2_kernel<float, {n_rhs}>") if boxes is None
+        else instance_registers(report, "sym_kernel<float, pairk::FreeSurface",
+                                f", {n_rhs}, true", geom))
     log(f"K1 tt_fs {what} B={n_rhs} f32 ({geom}): kernel {ms:.3f} ms "
         f"(the wall's tt instance {wall_ms:.3f} ms, alternating), bound "
         f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
@@ -6785,8 +6788,10 @@ def radii_mode_record(mc, mob, pk, r, v, radii, domain, box, report, what,
         rec["recount_ms"] = bound_record(nbytes, recount,
                                          pairs * nb * mufu)["bound_ms"]
     code = pk.MODE_CODE[mob.DOMAIN_MODE[domain]]
-    rec["registers"] = instance_registers(
-        report, "radii_sym_kernel", f"<float, {n_rhs}, {code}, ", geom)
+    rec["registers"] = (instance_registers(
+        report, f"radii_sym2_kernel<float, {n_rhs}>")
+        if domain == "free_surface" and not periodic else instance_registers(
+            report, "radii_sym_kernel", f"<float, {n_rhs}, {code}, ", geom))
     log(f"P1 {domain} in {box} {what} B={n_rhs} f32 ({geom}): kernel "
         f"{ms:.3f} ms (the open wall instance {open_ms:.3f} ms, "
         f"alternating), bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
@@ -6980,12 +6985,21 @@ def phase_domains_small(pk, mc, ck, forces, mob):
 
 
 GMRES_MAXITER = 300
+# GMRES's cap in the smoke's runs whose solves stop at the cap on the
+# reference's semantics (the free surface in a box, in_plane's Slip-Trapz
+# at 21d): they check that their kernels launch on the path and that the
+# step stays finite, and rank nothing (their launches are of solves that
+# do not converge); tools/torch_phase_times.py --phases 21 runs them at
+# GMRES_MAXITER
+CAPPED_MAXITER = 60
 
 
-def _domain_steps(system, scheme, pos, quat, n_steps):
-    """n_steps of `scheme` (float32 on the card), each timed on the host
-    clock between synchronizes (the first includes the engine's builds);
-    returns (final state, ms list, aux list)."""
+def _domain_steps(system, scheme, pos, quat, n_steps,
+                  maxiter=GMRES_MAXITER):
+    """n_steps of `scheme` (float32 on the card) with GMRES capped at
+    maxiter sweeps a solve, each timed on the host clock between
+    synchronizes (the first includes the engine's builds); returns (final
+    state, ms list, aux list)."""
     from rigidmultiblobswall_tpu_torch.models import integrators
     from rigidmultiblobswall_tpu_torch.models.system import make_state
 
@@ -6993,7 +7007,7 @@ def _domain_steps(system, scheme, pos, quat, n_steps):
     st = make_state(pos, quat, dtype=torch.float32, device=dev)
     step = integrators.make_stepper(
         system, scheme, 1e-3, lanczos_tolerance=5e-4, lanczos_max_iter=32,
-        lanczos_check_every=4, gmres_restart=60, gmres_maxiter=GMRES_MAXITER,
+        lanczos_check_every=4, gmres_restart=60, gmres_maxiter=maxiter,
         max_rejections=3)
     carry = integrators.init_carry(system, state=st)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -7017,19 +7031,19 @@ CAPPED_IN_PLANE = ("Slip-Trapz's random finite difference slips blobs "
                    "the saddle system is inconsistent")
 
 
-def _converged(auxes, what, capped=None):
+def _converged(auxes, what, capped=None, maxiter=GMRES_MAXITER):
     """Whether each step's solves converged (each GMRES residual under the
     solver tolerance), as a log fragment. A run with `capped` None fails
     the check if one did not; `capped` names why a run's solves may stop
-    at GMRES's cap, logged with the run marked NOT CONVERGED (its step
-    times are then of solves cut at the cap)."""
+    at GMRES's cap (maxiter), logged with the run marked NOT CONVERGED
+    (its step times are then of solves cut at the cap)."""
     conv = [bool(a.solves_converged) for a in auxes]
     if capped is None:
         check(all(conv), f"{what}: a solve did not converge ({conv})")
     if all(conv):
         return f"converged {conv}"
     return (f"converged {conv}, NOT CONVERGED: GMRES at its cap of "
-            f"{GMRES_MAXITER} a solve, since {capped}")
+            f"{maxiter} a solve, since {capped}")
 
 
 def _launch_counts(pk, mc, ck):
@@ -7079,7 +7093,8 @@ def phase_domains(pk, mc, ck, lap, mob, kin, report):
           20b's (17.6, 17.6, 0) box) and under in_plane, one materialized
           Slip-Trapz step each;
       21e phase 18's bidisperse scene under free_surface, two forward
-          Euler steps, then one in 20a's box;
+          Euler steps and one Slip-Trapz step (P1 free surface B = 2),
+          then forward Euler in 20a's box;
       21f two 64-shell input files through the CLI on the card and on the
           CPU in float64 (a numba_free_surface implementation line;
           domain in_plane with tree forces), to 1e-10.
@@ -7087,8 +7102,9 @@ def phase_domains(pk, mc, ck, lap, mob, kin, report):
     and in_plane's Slip-Trapz, whose saddle systems are indefinite or
     inconsistent on the JAX package's semantics (CAPPED_BOX_FS,
     CAPPED_IN_PLANE): their runs are logged NOT CONVERGED where GMRES
-    stops at its cap. Returns (records, launches) for the kernel JSON
-    line."""
+    stops at its cap, CAPPED_MAXITER in the free surface's boxes (21a,
+    21d, 21e) and at 21d's in_plane step. Returns (records, launches) for
+    the kernel JSON line."""
     from rigidmultiblobswall_tpu_torch.models import solvers
     from rigidmultiblobswall_tpu_torch.models.system import make_state
     from rigidmultiblobswall_tpu_torch.ops import forces
@@ -7127,14 +7143,16 @@ def phase_domains(pk, mc, ck, lap, mob, kin, report):
             ("stochastic_Slip_Trapz",
              bench_system(N_SHELLS, domain="free_surface",
                           periodic_length=box), 1)):
+        cap = GMRES_MAXITER if sys_ is system else CAPPED_MAXITER
         _reset_counts(pk, mc, ck, lap)
-        st, times, auxes = _domain_steps(sys_, scheme, pos, quat, n_steps)
+        st, times, auxes = _domain_steps(sys_, scheme, pos, quat, n_steps,
+                                         cap)
         counts = _launch_counts(pk, mc, ck)
         for k, v_ in counts.items():
             a_launches[k] = a_launches.get(k, 0) + v_
         where = "" if sys_ is system else f" in {box}"
         conv = _converged(auxes, f"21a {scheme}{where}",
-                          None if sys_ is system else CAPPED_BOX_FS)
+                          None if sys_ is system else CAPPED_BOX_FS, cap)
         log(f"21a multibody-49k-free-surface{where} {n} blobs {scheme} f32: "
             f"{_fmt(times)} ms/step (the first with the engine's set-up); "
             f"gmres "
@@ -7349,16 +7367,18 @@ def phase_domains(pk, mc, ck, lap, mob, kin, report):
                                      periodic_length=dbox)),
                        ("in_plane", bench_system(N_DENSE,
                                                  domain="in_plane"))):
+        capped = {"free_surface": None,
+                  "free_surface in a box": CAPPED_BOX_FS,
+                  "in_plane": CAPPED_IN_PLANE}[name]
+        cap = GMRES_MAXITER if capped is None else CAPPED_MAXITER
         _reset_counts(pk, mc, ck, lap)
         torch.cuda.reset_peak_memory_stats()
         st, times, auxes = _domain_steps(sys_, "stochastic_Slip_Trapz",
-                                         pos_d, quat_d, 1)
+                                         pos_d, quat_d, 1, cap)
         counts = _launch_counts(pk, mc, ck)
         for k, v_ in counts.items():
             d_launches[k] = d_launches.get(k, 0) + v_
-        conv = _converged(auxes, f"21d {name}", {
-            "free_surface": None, "free_surface in a box": CAPPED_BOX_FS,
-            "in_plane": CAPPED_IN_PLANE}[name])
+        conv = _converged(auxes, f"21d {name}", capped, cap)
         log(f"21d multibody-12k-dense {name} {nd} blobs "
             f"stochastic_Slip_Trapz f32, materialized: one step "
             f"{_fmt(times)} ms (the builds included); gmres "
@@ -7382,36 +7402,47 @@ def phase_domains(pk, mc, ck, lap, mob, kin, report):
     n = r.shape[0]
     radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
     box = xy_box(L_FS_IMAGES)
-    v = torch.randn((1, n, 3), generator=g, device=dev)
+    v = torch.randn((2, n, 3), generator=g, device=dev)
     records["p1_fs"] = radii_mode_record(
+        mc, mob, pk, r, v[:1], radii, "free_surface", (0.0, 0.0, 0.0),
+        report, f"{n} blobs", 1)
+    records["p1_fs_b2"] = radii_mode_record(
         mc, mob, pk, r, v, radii, "free_surface", (0.0, 0.0, 0.0), report,
-        f"{n} blobs", 1)
+        f"{n} blobs", 2)
     records["p1_fs_img"] = radii_mode_record(
-        mc, mob, pk, r, v, radii, "free_surface", box, report, f"{n} blobs",
-        1)
+        mc, mob, pk, r, v[:1], radii, "free_surface", box, report,
+        f"{n} blobs", 1)
     e_launches = {}
-    for sys_, n_steps in ((system, 2),
-                          (radii_system(N_SHELLS, domain="free_surface",
-                                        periodic_length=box), 1)):
+    # two forward Euler steps and one Slip-Trapz step (its lockstep pair
+    # on P1 free surface B = 2), then forward Euler in the box
+    for sys_, scheme, n_steps in (
+            (system, "deterministic_forward_euler", 2),
+            (system, "stochastic_Slip_Trapz", 1),
+            (radii_system(N_SHELLS, domain="free_surface",
+                          periodic_length=box),
+             "deterministic_forward_euler", 1)):
+        cap = GMRES_MAXITER if sys_ is system else CAPPED_MAXITER
         _reset_counts(pk, mc, ck, lap)
-        st, times, auxes = _domain_steps(sys_, "deterministic_forward_euler",
-                                         epos, equat, n_steps)
+        st, times, auxes = _domain_steps(sys_, scheme, epos, equat, n_steps,
+                                         cap)
         counts = _launch_counts(pk, mc, ck)
         for k, v_ in counts.items():
             e_launches[k] = e_launches.get(k, 0) + v_
         where = "" if sys_ is system else f" in {box}"
-        conv = _converged(auxes, f"21e{where}",
-                          None if sys_ is system else CAPPED_BOX_FS)
-        log(f"21e multibody-49k-radii-free-surface{where} {n} blobs forward "
-            f"Euler f32: {_fmt(times)} ms/step (the first with the set-up); "
+        conv = _converged(auxes, f"21e {scheme}{where}",
+                          None if sys_ is system else CAPPED_BOX_FS, cap)
+        log(f"21e multibody-49k-radii-free-surface{where} {n} blobs {scheme} "
+            f"f32: {_fmt(times)} ms/step (the first with the set-up); "
             f"gmres "
-            f"{[a.det_iterations for a in auxes]}, {conv}; launches "
-            f"{counts}")
+            f"{[a.det_iterations for a in auxes]}, {conv}, lanczos "
+            f"{[a.stoch_iterations for a in auxes]}; launches {counts}")
         check(bool(torch.isfinite(st.pos).all()), f"21e{where}: positions")
         want = "P1 free_surface B=1" if sys_ is system else (
             "P1 free_surface images B=1")
-        check(counts.get(want, 0) > 0, f"21e{where}: {want} not launched "
-              f"({counts})")
+        if scheme == "stochastic_Slip_Trapz":
+            want = "P1 free_surface B=2"
+        check(counts.get(want, 0) > 0, f"21e {scheme}{where}: {want} not "
+              f"launched ({counts})")
     launches.update({f"21e {k}": v_ for k, v_ in e_launches.items()})
     log(f"21e: {time.perf_counter() - t_phase:.1f} s")
 
@@ -7774,6 +7805,9 @@ def main():
             ("p1_fs", "P1 pair_radii free surface", p1_src,
              "rigidmultiblobswall_tpu/ops/mobility.py:493",
              "21e P1 free_surface B=1"),
+            ("p1_fs_b2", "P1 pair_radii free surface B=2", p1_src,
+             "rigidmultiblobswall_tpu/ops/mobility.py:493",
+             "21e P1 free_surface B=2"),
             ("p1_fs_img", "P1 pair_radii free surface images", p1_src,
              "rigidmultiblobswall_tpu/ops/mobility.py:493",
              "21e P1 free_surface images B=1"),

@@ -52,7 +52,9 @@
 // - __launch_bounds__ asks for 8 resident blocks an SM in float32 (Shape
 //   below): 64 registers a thread at most (ptxas on sm_90a, PERF.md §6
 //   lists each instance's count); the image-box instances 6, 80
-//   registers. float64 is not capped.
+//   registers; the open free surface's two-targets sweep (sym2_kernel)
+//   12 blocks of 64 threads at B = 1 (80 registers), 10 at B = 2 (96;
+//   Shape2). float64 is not capped.
 // Ragged edges are masked by index; there is no padding of the inputs.
 //
 // Near/far switch: the near forms for r <= 2 (the JAX package switches
@@ -461,6 +463,38 @@ __device__ __forceinline__ Diag<T> fs_condense(const Pair<T>& p) {
   return m;
 }
 
+// The free-surface block of the open sweep with two targets a lane
+// (sym2_kernel): the RPY core's and its image's coefficients at w = 1/r and
+// W = 1/|R| as c1 = w + (2/3) w^3 and c2 = (1 - 2 w^2) w^3, five
+// instructions each, the near and zero forms where the pair's flags ask
+// (the constant false in a far tile pair), and the Diag folded as
+// fs_condense's: A = c1 + e1, S = c2 + e2, P = c2 dz - e2 Rz, Q = c2 dz +
+// e2 Rz, mzz = c1 + c2 dz^2 - (e1 + e2 Rz^2)
+template <typename T>
+__device__ __forceinline__ void fs_coeffs(T w, T& c1, T& c2) {
+  const T w2 = w * w;
+  const T w3 = w2 * w;
+  c1 = fma_t(T(2.0 / 3.0), w3, w);
+  c2 = fma_t(T(-2), w2, T(1)) * w3;
+}
+
+template <typename T>
+__device__ __forceinline__ Diag<T> fs_condense2(const Pair<T>& p) {
+  T c1, c2, e1, e2;
+  fs_coeffs(p.invr, c1, c2);
+  tt_near(p, c1, c2);
+  fs_coeffs(p.invR, e1, e2);
+  fs_image_near(p, e1, e2);
+  const T cdz = c2 * p.dz, eRz = e2 * p.Rz;
+  Diag<T> m;
+  m.A = c1 + e1;
+  m.S = c2 + e2;
+  m.P = cdz - eRz;
+  m.Q = cdz + eRz;
+  m.mzz = fma_t(cdz, p.dz, c1) - fma_t(eRz, p.Rz, e1);
+  return m;
+}
+
 template <typename T, bool WALL>
 __device__ __forceinline__ Diag<T> rr_condense(const Pair<T>& p) {
   const T invr = p.invr;
@@ -760,7 +794,9 @@ using RR = DiagCoupling<true>;
 
 // The free surface's tt coupling (csrc/pair_fs.cu): fs_condense on the
 // wall's pair geometry (kFreeSurface: its instances are launched with
-// WALL = true whatever the wall flag), applied as tt's
+// WALL = true whatever the wall flag), applied as tt's; its open
+// symmetric sweep is sym2_kernel's (two targets a lane, the tile far test,
+// fs_condense2)
 struct FreeSurface {
   static constexpr bool kDiag = true;
   static constexpr bool kFreeSurface = true;
@@ -777,16 +813,6 @@ struct FreeSurface {
 #pragma unroll
     for (int b = 0; b < B; ++b) diag_apply(m, p.dx, p.dy, v + 3 * b,
                                            part + 3 * b);
-  }
-  template <typename T, int B, bool WALL>
-  __device__ static void accumulate_both(const Pair<T>& p, const T* vj,
-                                         T* acc_i, const T* vi, T* acc_j) {
-    const Diag<T> m = condense<T, WALL>(p);
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      diag_apply(m, p.dx, p.dy, vj + 3 * b, acc_i + 3 * b);
-      diag_apply_t(m, p.dx, p.dy, vi + 3 * b, acc_j + 3 * b);
-    }
   }
 };
 
@@ -1163,6 +1189,116 @@ __device__ __forceinline__ void add_source_sums(T (*s_sum)[kTile][NV], T* dst,
   }
 }
 
+// The tile far test of the free surface's sweeps (sym2_kernel here, and
+// csrc/pair_radii.cu's): the bounding box of a tile's rows and their
+// largest radius (1 in K1's units of a), and tests on two tiles' boxes.
+template <typename T>
+struct Box {
+  T hi[3], lo[3], amax;
+};
+
+// the box of a tile from each thread's maxima v = (x, y, z, -x, -y, -z, a)
+// over its rows, on every thread of the block's NW warps; s_box is free on
+// entry and on return
+template <typename T, int NW>
+__device__ __forceinline__ Box<T> tile_box_v(T (&v)[7], T (*s_box)[7]) {
+#pragma unroll
+  for (int c = 0; c < 7; ++c) {
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off /= 2)
+      v[c] = max(v[c], __shfl_xor_sync(0xffffffffu, v[c], off));
+  }
+  if (threadIdx.x % kLanes == 0) {
+#pragma unroll
+    for (int c = 0; c < 7; ++c) s_box[threadIdx.x / kLanes][c] = v[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 7; ++c) {
+    v[c] = s_box[0][c];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) v[c] = max(v[c], s_box[w][c]);
+  }
+  __syncthreads();
+  Box<T> b;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b.hi[k] = v[k];
+    b.lo[k] = -v[3 + k];
+  }
+  b.amax = v[6];
+  return b;
+}
+
+// the box of a 128-row tile one row a thread of kWarps warps, p = (x, y,
+// z, a) the calling thread's row (rows past n as staged)
+template <typename T>
+__device__ __forceinline__ Box<T> tile_box(const T* p, T (*s_box)[7]) {
+  T v[7] = {p[0], p[1], p[2], -p[0], -p[1], -p[2], p[3]};
+  return tile_box_v<T, kWarps>(v, s_box);
+}
+
+// every pair of the two tiles far: the boxes further apart than the sum of
+// their largest radii, with a margin for the rounding of each pair's own
+// r^2 and (a + b)^2
+template <typename T>
+__device__ __forceinline__ bool boxes_far(const Box<T>& a, const Box<T>& b) {
+  // (the free surface's instances also ask above_plane or images_far)
+  T d2 = T(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T g = max(max(a.lo[k] - b.hi[k], b.lo[k] - a.hi[k]), T(0));
+    d2 += g * g;
+  }
+  const T s = a.amax + b.amax;
+  return d2 > s * s * T(1.0001);
+}
+
+// both tiles at z >= 0: then every pair's image lies at |R| >= r
+template <typename T>
+__device__ __forceinline__ bool above_plane(const Box<T>& a,
+                                            const Box<T>& b) {
+  return a.lo[2] >= T(0) && b.lo[2] >= T(0);
+}
+
+// every pair's image of the two tiles far (the free surface; in every image
+// box, z being never imaged): z_t + z_s > a_t + a_s from the tiles' lowest
+// heights and largest radii alone (|R| >= z_t + z_s), with boxes_far's
+// margin for the rounding of each pair's |R|^2 and (a + b)^2
+template <typename T>
+__device__ __forceinline__ bool images_far(const Box<T>& a,
+                                           const Box<T>& b) {
+  const T z = a.lo[2] + b.lo[2];
+  const T s = a.amax + b.amax;
+  return z > T(0) && z * z > s * s * T(1.0001);
+}
+
+// Two targets a lane (sym2_kernel, radii_sym2_kernel): a block of
+// kThreads2 threads, two warps, over a 128-row tile; the tile row a thread
+// holds as its target h (0 or 1), and stages, sums and writes: lane l of
+// warp w holds rows 64 w + l and 64 w + 32 + l
+constexpr int kThreads2 = 2 * kLanes;
+constexpr int kWarps2 = kThreads2 / kLanes;
+__device__ __forceinline__ int row2(int h) {
+  return (threadIdx.x / kLanes) * 2 * kLanes + h * kLanes +
+         threadIdx.x % kLanes;
+}
+
+// the box of a 128-row tile held two rows a thread (row2), p0 and p1 = (x,
+// y, z, a)
+template <typename T>
+__device__ __forceinline__ Box<T> tile_box2(const T* p0, const T* p1,
+                                            T (*s_box)[7]) {
+  T v[7];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v[k] = max(p0[k], p1[k]);
+    v[3 + k] = max(-p0[k], -p1[k]);
+  }
+  v[6] = max(p0[3], p1[3]);
+  return tile_box_v<T, kWarps2>(v, s_box);
+}
+
 template <typename T, typename C, int B, bool WALL, typename G>
 __global__ void __launch_bounds__(kTile, (Shape<T, G>::kMinBlocks))
 sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
@@ -1282,6 +1418,225 @@ sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   }
 }
 
+// The open free surface's symmetric sweep (C::kFreeSurface without image
+// boxes), two targets a lane: the group pairs, 128-row tiles and workspace
+// slices of sym_kernel, each row by the thread that holds it (row2). Off the
+// diagonal each warp holds 64 targets of tile a, and each 32-source chunk of
+// tile b rotates through it: a step condenses a source against both of a
+// lane's targets, so one shuffle of its position, vector and running sum
+// serves two pairs. Each pair's block is fs_condense2's (fs_condense's
+// coefficients in fewer instructions). A tile pair whose boxes pass the far
+// test (every pair at r > 2 and every image at |R| > 2, radius 1: boxes_far
+// and images_far) takes the far form alone (box_pair with every flag the
+// constant false: tt_near and fs_image_near fold away); other tile pairs,
+// and the diagonal tile's directed pass with its self pairs, take the full
+// form. A far pair gets the same bits either way, and each sum is added in a
+// fixed order, so the product is bit-identical on repeat.
+
+// resident blocks of 64 threads an SM that sym2_kernel asks for in float32
+// (over ops/pair_kernels.py plan_groups' groups, as sym_kernel): B = 1 12, 80
+// registers (10 and 16 no faster); B = 2 10, 96 registers, ~5 % faster than
+// at 12 (80) or 16 (64, spilling) at 21a's 49,152 blobs; a step loop not
+// unrolled no faster (PERF.md §6)
+template <typename T, int B>
+struct Shape2 {
+  static constexpr int kMinBlocks = sizeof(T) != 4 ? 1 : (B == 1 ? 12 : 10);
+};
+constexpr int kStepUnroll2 = 2;
+
+// the chunks of source tile tb rotated through the warp against its 2 x 32
+// targets (xi, yi, zi, vi); the chunks' source sums left in s_sum[warp]
+template <typename T, int B, bool FAR>
+__device__ __forceinline__ void rotate2(const T* __restrict__ q,
+                                        const T* __restrict__ vec, int n,
+                                        int tb, const T (&xi)[2],
+                                        const T (&yi)[2], const T (&zi)[2],
+                                        T (&vi)[2][3 * B],
+                                        T (&acc)[2][3 * B],
+                                        T (*s_sum)[kTile][3 * B]) {
+  constexpr int NV = 3 * B;
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int next = (lane + 1) % kLanes;
+#pragma unroll 1
+  for (int chunk = 0; chunk < kTile / kLanes; ++chunk) {
+    const int j = tb * kTile + chunk * kLanes + lane;
+    T xj = T(0), yj = T(0), zj = T(1), vj[NV], accj[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      vj[c] = T(0);
+      accj[c] = T(0);
+    }
+    if (j < n) {
+      xj = q[3 * j + 0];
+      yj = q[3 * j + 1];
+      zj = q[3 * j + 2];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) vj[c] = vec[(size_t)j * NV + c];
+    }
+#pragma unroll (kStepUnroll2)
+    for (int step = 0; step < kLanes; ++step) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const T dx = xi[h] - xj, dy = yi[h] - yj;
+        const Diag<T> m = fs_condense2(box_pair<T, true>(
+            dx, dy, dx * dx + dy * dy, zi[h] - zj, zi[h], zj, false, FAR));
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          diag_apply(m, dx, dy, vj + 3 * b, acc[h] + 3 * b);
+          diag_apply_t(m, dx, dy, vi[h] + 3 * b, accj + 3 * b);
+        }
+      }
+      xj = __shfl_sync(0xffffffffu, xj, next);
+      yj = __shfl_sync(0xffffffffu, yj, next);
+      zj = __shfl_sync(0xffffffffu, zj, next);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        vj[c] = __shfl_sync(0xffffffffu, vj[c], next);
+        accj[c] = __shfl_sync(0xffffffffu, accj[c], next);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      s_sum[warp][chunk * kLanes + lane][c] = accj[c];
+  }
+}
+
+template <typename T, int B>
+__global__ void __launch_bounds__(kThreads2, (Shape2<T, B>::kMinBlocks))
+sym2_kernel(const T* __restrict__ q, const T* __restrict__ vec,
+            T* __restrict__ ws, int n, int n_groups, int tiles_per_group,
+            int self_interaction) {
+  constexpr int NV = 3 * B;
+  constexpr int L = RowLen<T, NV>::value;
+  __shared__ __align__(16) T s_src[kTile][L];
+  __shared__ T s_sum[kWarps2][kTile][NV];
+  __shared__ T s_box[kWarps2][7];
+
+  int ga, gb;
+  group_pair(blockIdx.x, n_groups, ga, gb);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int a_begin = ga * tiles_per_group;
+  const int a_end = min(n_tiles, a_begin + tiles_per_group);
+  const int b_begin = gb * tiles_per_group;
+  const int b_end = min(n_tiles, b_begin + tiles_per_group);
+  T* ws_a = ws + (size_t)gb * n * NV;  // target-side sums of group GA
+  T* ws_b = ws + (size_t)ga * n * NV;  // source-side sums of group GB
+#pragma unroll 1
+  for (int t = 0; t < tiles_per_group; ++t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ra = (a_begin + t) * kTile + row2(h);
+      const int rb = (b_begin + t) * kTile + row2(h);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        if (ra < n) ws_a[(size_t)ra * NV + c] = T(0);
+        if (rb < n) ws_b[(size_t)rb * NV + c] = T(0);
+      }
+    }
+  }
+
+#pragma unroll 1
+  for (int ta = a_begin; ta < a_end; ++ta) {
+    // rows past n: a blob at (0, 0, 1) with a zero vector
+    T pi[2][4], vi[2][NV], acc[2][NV];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ta * kTile + row2(h);
+      pi[h][0] = T(0);
+      pi[h][1] = T(0);
+      pi[h][2] = T(1);
+      pi[h][3] = T(1);  // the radius, in units of a
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        vi[h][c] = T(0);
+        acc[h][c] = T(0);
+      }
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) pi[h][c] = q[3 * i + c];
+#pragma unroll
+        for (int c = 0; c < NV; ++c) vi[h][c] = vec[(size_t)i * NV + c];
+      }
+    }
+    const T xi[2] = {pi[0][0], pi[1][0]};
+    const T yi[2] = {pi[0][1], pi[1][1]};
+    const T zi[2] = {pi[0][2], pi[1][2]};
+    const Box<T> box_a = tile_box2(pi[0], pi[1], s_box);
+#pragma unroll 1
+    for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
+      if (tb == ta) {  // the diagonal tile: every ordered pair
+        __syncthreads();  // s_src may still be read for the previous tile
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          T* row = s_src[row2(h)];
+          row[0] = xi[h];
+          row[1] = yi[h];
+          row[2] = zi[h];
+#pragma unroll
+          for (int c = 0; c < NV; ++c) row[3 + c] = vi[h][c];
+        }
+        __syncthreads();
+        const int count = min(kTile, n - ta * kTile);
+        for (int k = 0; k < count; ++k) {
+          T src[L];
+          load_row<L>(s_src[k], src);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const Pair<T> p = make_pair<T, true>(
+                xi[h], yi[h], zi[h], src[0], src[1], src[2],
+                self_interaction && k == row2(h));
+            const Diag<T> m = fs_condense2(p);
+#pragma unroll
+            for (int b = 0; b < B; ++b)
+              diag_apply(m, p.dx, p.dy, src + 3 + 3 * b, acc[h] + 3 * b);
+          }
+        }
+        continue;
+      }
+      // off the diagonal: the tile pair's far test, then its rotations
+      T pj[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = tb * kTile + row2(h);
+        pj[h][0] = T(0);
+        pj[h][1] = T(0);
+        pj[h][2] = T(1);
+        pj[h][3] = T(1);
+        if (j < n) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) pj[h][c] = q[3 * j + c];
+        }
+      }
+      const Box<T> box_b = tile_box2(pj[0], pj[1], s_box);
+      if (boxes_far(box_a, box_b) && images_far(box_a, box_b))
+        rotate2<T, B, true>(q, vec, n, tb, xi, yi, zi, vi, acc, s_sum);
+      else
+        rotate2<T, B, false>(q, vec, n, tb, xi, yi, zi, vi, acc, s_sum);
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tb * kTile + row2(h);
+        if (row < n) {
+#pragma unroll
+          for (int c = 0; c < NV; ++c)
+            ws_b[(size_t)row * NV + c] +=
+                s_sum[0][row2(h)][c] + s_sum[1][row2(h)][c];
+        }
+      }
+      __syncthreads();  // s_sum is refilled by the next tile pair
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ta * kTile + row2(h);
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) ws_a[(size_t)i * NV + c] += acc[h][c];
+      }
+    }
+  }
+}
+
 template <typename T, typename C, int B, bool WALL, typename G>
 int launch_bw(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
               int n_src, int n_tgt, int n_slices, int tiles_per_slice,
@@ -1388,9 +1743,15 @@ int launch_sym_bw(const T* q, const T* vec, T* out, T* ws, int n,
                   const G& geom, cudaStream_t s) {
   const long long n_pairs =
       static_cast<long long>(n_groups) * (n_groups + 1) / 2;
-  sym_kernel<T, C, B, WALL, G>
-      <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
-          q, vec, ws, n, n_groups, tiles_per_group, self_interaction, geom);
+  if constexpr (C::kFreeSurface && !G::kImages)
+    sym2_kernel<T, B>
+        <<<static_cast<unsigned>(n_pairs), kThreads2, 0, s>>>(
+            q, vec, ws, n, n_groups, tiles_per_group, self_interaction);
+  else
+    sym_kernel<T, C, B, WALL, G>
+        <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
+            q, vec, ws, n, n_groups, tiles_per_group, self_interaction,
+            geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = static_cast<long long>(n) * C::kComp * B;

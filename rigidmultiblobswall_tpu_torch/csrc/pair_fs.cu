@@ -15,7 +15,24 @@
 // ~45; the heights are neither shifted nor damped (the caller's
 // ops/mobility.py passes them raw). Every product of the paths is square,
 // so the symmetric sweep serves them; the sliced sweep is there for the
-// two-tensor calls and the plan's occupancy query.
+// two-tensor calls and the plan's occupancy query. On the one-target
+// symmetric sweep (sym_kernel) a pair's far path issued 72 SASS
+// instructions at B = 1 (98 at B = 2): 51 float32, 2 MUFU, 9 shuffles of
+// the rotating source and 9 branches and predicates of the near and
+// zero flags (tools/torch_profile_kernels.py --kernels fsopen, PERF.md
+// §6), against ~47 float32 operations of the pair's own work.
+//
+// Design of the open sweep (pair_blocks.cuh sym2_kernel, which the
+// coupling's kFreeSurface takes without image boxes): blocks of 64 threads
+// over the same 128-row tiles, two targets a lane, so each shuffle of a
+// rotating source's position, vector and running sum serves two pairs; a
+// tile pair whose bounding boxes lie more than 2 apart and whose lowest
+// heights add up to more than 2 (boxes_far and images_far) takes the far
+// form with every flag the constant false, no branch a pair; and the
+// coefficients in five instructions each (fs_condense2). Its far path issues
+// 54.2 instructions a pair at B = 1 (77.2 at B = 2; 47 and 67 of them
+// float32), at 12 blocks an SM and 80 registers (B = 2: 10 and 96, ~5 %
+// faster than 12; Shape2), the step loop unrolled by two.
 //
 // Design of the image boxes under PlaneBoxes (the paths' boxes), where a
 // pair's nine boxes are ~90 % of its work: z is never imaged, so dz and Rz
@@ -40,5 +57,5 @@
 // surface's domain code 2 in place of the wall flag (any other refused)
 PAIRK_ENTRY(pair_tt_fs, pairk::FreeSurface)
 // pair_tt_fs_sym_f32 / _f64 and pair_tt_fs_sym_img_f32 / _f64: the
-// symmetric sweep and its image boxes
+// symmetric sweep (two targets a lane, sym2_kernel) and its image boxes
 PAIRK_SYM_ENTRY(pair_tt_fs_sym, pairk::FreeSurface)

@@ -22,7 +22,11 @@
 // division (chip_smoke.py P1_FAR_FLOPS). In the SASS the far path issues
 // 107 instructions a pair at B = 1 and 133 at B = 2, against 182 and 208
 // when every pair formed all three regimes and a division
-// (tools/torch_profile_kernels.py --kernels p1).
+// (tools/torch_profile_kernels.py --kernels p1). On the free surface (two
+// far forms) the far path of the one-target sweep issued 67 instructions a
+// pair at B = 1 (51 float32, 10 shuffles of five coordinates and the
+// vector and sum), 59.5 on the two-targets sweep below
+// (tools/torch_profile_kernels.py --kernels fsopen, PERF.md §6).
 //
 // Design: K1's symmetric sweep (pairk::sym_kernel) with two more staged
 // coordinates, the radius and its reciprocal. The block of unequal radii
@@ -66,7 +70,13 @@
 // Q += e2 Rz, mzz -= e1 + e2 Rz^2); its coefficients are symmetric in the
 // radii, so the block stays reciprocal. A pair takes the far path only
 // when both it and its image are far; the tile test adds that both tiles
-// lie above the plane (then |R| >= r).
+// lie above the plane (then |R| >= r). The open free surface runs its own
+// sweep, radii_sym2_kernel: pairk::sym2_kernel's two targets a lane in
+// blocks of 64 threads, the same tile test, a far tile pair rotating four
+// coordinates (x, y, z, a; 1/a is the full path's alone) and unrolled by
+// two, one warp vote a step for both of a lane's pairs elsewhere; 12
+// blocks an SM (80 registers; B = 1 spills 16 bytes; 10 blocks, 96
+// registers without a spill, ran no faster).
 //
 // The image-box instances (pair_radii_sym_img_*; the pseudo-periodic
 // boxes of source_target_matvec with a periodic_length, XLA there) take
@@ -102,7 +112,11 @@
 
 namespace {
 
+using pairk::above_plane;
+using pairk::Box;
+using pairk::boxes_far;
 using pairk::Diag;
+using pairk::images_far;
 using pairk::kLanes;
 using pairk::kTile;
 using pairk::kWarps;
@@ -418,81 +432,6 @@ __device__ __forceinline__ pairk::BlockSum<T> box_sum(
   }
 }
 
-// the bounding box of a tile's 128 rows and their largest radius, on every
-// thread of the block (p the calling thread's row, rows past n as staged);
-// s_box is free on entry and on return
-template <typename T>
-struct Box {
-  T hi[3], lo[3], amax;
-};
-
-template <typename T>
-__device__ __forceinline__ Box<T> tile_box(const T* p, T (*s_box)[7]) {
-  // maxima of (x, y, z, -x, -y, -z, a) over the warp, then the block
-  T v[7] = {p[0], p[1], p[2], -p[0], -p[1], -p[2], p[3]};
-#pragma unroll
-  for (int c = 0; c < 7; ++c) {
-#pragma unroll
-    for (int off = kLanes / 2; off > 0; off /= 2)
-      v[c] = max(v[c], __shfl_xor_sync(0xffffffffu, v[c], off));
-  }
-  if (threadIdx.x % kLanes == 0) {
-#pragma unroll
-    for (int c = 0; c < 7; ++c) s_box[threadIdx.x / kLanes][c] = v[c];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < 7; ++c) {
-    v[c] = s_box[0][c];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v[c] = max(v[c], s_box[w][c]);
-  }
-  __syncthreads();
-  Box<T> b;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    b.hi[k] = v[k];
-    b.lo[k] = -v[3 + k];
-  }
-  b.amax = v[6];
-  return b;
-}
-
-// every pair of the two tiles far: the boxes further apart than the sum of
-// their largest radii, with a margin for the rounding of each pair's own
-// r^2 and (a + b)^2
-template <typename T>
-__device__ __forceinline__ bool boxes_far(const Box<T>& a, const Box<T>& b) {
-  // (the free surface's instances also ask above_plane)
-  T d2 = T(0);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const T g = max(max(a.lo[k] - b.hi[k], b.lo[k] - a.hi[k]), T(0));
-    d2 += g * g;
-  }
-  const T s = a.amax + b.amax;
-  return d2 > s * s * T(1.0001);
-}
-
-// both tiles at z >= 0: then every pair's image lies at |R| >= r
-template <typename T>
-__device__ __forceinline__ bool above_plane(const Box<T>& a,
-                                            const Box<T>& b) {
-  return a.lo[2] >= T(0) && b.lo[2] >= T(0);
-}
-
-// the free surface's image boxes: every pair's image far in every box, z_t
-// + z_s > a_t + a_s from the tiles' lowest heights and largest radii alone
-// (z is never imaged, and |R| >= z_t + z_s), with boxes_far's margin for
-// the rounding of each pair's |R|^2 and (a + b)^2
-template <typename T>
-__device__ __forceinline__ bool images_far(const Box<T>& a,
-                                           const Box<T>& b) {
-  const T z = a.lo[2] + b.lo[2];
-  const T s = a.amax + b.amax;
-  return z > T(0) && z * z > s * s * T(1.0001);
-}
-
 // the off-diagonal tile pair (target tile of the block's rows, source tile
 // tb): each quarter of tile tb rotates through the warp, 32 steps of 32
 // pairs, its sums returned to its lanes; the four warps' source sums are
@@ -565,10 +504,10 @@ __device__ __forceinline__ void rotate(const T* __restrict__ q,
 
 // One block: one pair of tile groups (GA, GB), GA <= GB, as
 // pairk::sym_kernel, on rows (x, y, z_eff, a, 1/a), in the domain MODE
-// and the pair geometry G (RadiiOpen, or an image-box policy). The tile
-// test: the open domain's boxes_far (and above_plane on the free surface),
-// the free surface's PlaneBoxes images_far; the other image instances
-// take none.
+// and the pair geometry G (RadiiOpen, or an image-box policy; the open
+// free surface takes radii_sym2_kernel below). The tile test: the open
+// domain's boxes_far, the free surface's PlaneBoxes images_far; the other
+// image instances take none.
 template <typename T, int B, int MODE, typename G>
 __global__ void __launch_bounds__(kTile, (min_blocks<T, MODE, G>()))
 radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
@@ -579,6 +518,8 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   constexpr bool kFsPlane =
       MODE == kFreeSurface && std::is_same_v<G, pairk::PlaneBoxes<T>>;
   constexpr bool kTileTest = !G::kImages || kFsPlane;
+  static_assert(MODE != kFreeSurface || G::kImages,
+                "the open free surface takes radii_sym2_kernel");
   __shared__ __align__(16) T s_src[kTile][L];
   __shared__ T s_sum[kWarps][kTile][NV];
   __shared__ T s_box[kWarps][7];
@@ -621,7 +562,7 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
     }
     const Target<T> tgt = make_target(pi);
     Box<T> box_a;
-    if constexpr (kTileTest) box_a = tile_box(pi, s_box);
+    if constexpr (kTileTest) box_a = pairk::tile_box(pi, s_box);
 #pragma unroll 1
     for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
       if (tb == ta) {  // the diagonal tile: every ordered pair, self included
@@ -670,12 +611,11 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
 #pragma unroll
           for (int c = 0; c < kQ; ++c) pj[c] = q[kQ * j + c];
         }
-        const Box<T> box_b = tile_box(pj, s_box);
+        const Box<T> box_b = pairk::tile_box(pj, s_box);
         if constexpr (kFsPlane)
           tile_far = images_far(box_a, box_b);
         else
-          tile_far = boxes_far(box_a, box_b) &&
-                     (MODE != kFreeSurface || above_plane(box_a, box_b));
+          tile_far = boxes_far(box_a, box_b);
       }
       if constexpr (!kTileTest)
         rotate<T, B, MODE, false>(q, vec, n, tb, tgt, vi, acc, s_sum, geom);
@@ -694,14 +634,229 @@ radii_sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   }
 }
 
+// The open free surface with two targets a lane (radii_sym2_kernel): the
+// layout of pairk::sym2_kernel (64 threads, rows by pairk::row2) on rows
+// (x, y, z, a, 1/a). The tile test is the open domain's (boxes_far and
+// above_plane); a far tile pair rotates four coordinates of a source,
+// leaving out 1/a, which only the full path reads, and unrolls its steps by
+// two. Other tile pairs vote once a step for both of a lane's pairs.
+template <typename T>
+constexpr int min_blocks2() {
+  return sizeof(T) != 4 ? 1 : 12;
+}
+
+template <typename T, int B, bool TILE_FAR>
+__device__ __forceinline__ void rotate2(const T* __restrict__ q,
+                                        const T* __restrict__ vec, int n,
+                                        int tb, const Target<T> (&tgt)[2],
+                                        T (&vi)[2][3 * B],
+                                        T (&acc)[2][3 * B],
+                                        T (*s_sum)[kTile][3 * B]) {
+  constexpr int NV = 3 * B;
+  // the far path reads a source's x, y, z and a
+  constexpr int NQ = TILE_FAR ? 4 : kQ;
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int next = (lane + 1) % kLanes;
+#pragma unroll 1
+  for (int chunk = 0; chunk < kTile / kLanes; ++chunk) {
+    const int j = tb * kTile + chunk * kLanes + lane;
+    T pj[kQ] = {T(0), T(0), T(1), T(1), T(1)}, vj[NV], accj[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      vj[c] = T(0);
+      accj[c] = T(0);
+    }
+    if (j < n) {
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) pj[c] = q[kQ * j + c];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) vj[c] = vec[(size_t)j * NV + c];
+    }
+#pragma unroll (TILE_FAR ? 2 : 1)
+    for (int step = 0; step < kLanes; ++step) {
+      const Geo<T> g[2] = {make_geo<T, kFreeSurface>(tgt[0], pj),
+                           make_geo<T, kFreeSurface>(tgt[1], pj)};
+      // one path for the warp's 64 pairs: the far form when all are far
+      const bool far =
+          TILE_FAR || __all_sync(0xffffffffu, g[0].far && g[1].far);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Diag<T> m =
+            far ? condense<T, kFreeSurface, false>(g[h], tgt[h], pj)
+                : condense<T, kFreeSurface, true>(g[h], tgt[h], pj);
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          pairk::diag_apply(m, g[h].dx, g[h].dy, vj + 3 * b,
+                            acc[h] + 3 * b);
+          pairk::diag_apply_t(m, g[h].dx, g[h].dy, vi[h] + 3 * b,
+                              accj + 3 * b);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NQ; ++c)
+        pj[c] = __shfl_sync(0xffffffffu, pj[c], next);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        vj[c] = __shfl_sync(0xffffffffu, vj[c], next);
+        accj[c] = __shfl_sync(0xffffffffu, accj[c], next);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      s_sum[warp][chunk * kLanes + lane][c] = accj[c];
+  }
+}
+
+// One block of the open free surface: one pair of tile groups (GA, GB), GA
+// <= GB, as pairk::sym2_kernel; the diagonal tile's directed pass with its
+// self pairs takes every regime by its test
+template <typename T, int B>
+__global__ void __launch_bounds__(pairk::kThreads2, (min_blocks2<T>()))
+radii_sym2_kernel(const T* __restrict__ q, const T* __restrict__ vec,
+                  T* __restrict__ ws, int n, int n_groups,
+                  int tiles_per_group) {
+  constexpr int NV = 3 * B;
+  constexpr int L = Row<T, B>::value;
+  using pairk::row2;
+  __shared__ __align__(16) T s_src[kTile][L];
+  __shared__ T s_sum[pairk::kWarps2][kTile][NV];
+  __shared__ T s_box[pairk::kWarps2][7];
+
+  int ga, gb;
+  pairk::group_pair(blockIdx.x, n_groups, ga, gb);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int a_begin = ga * tiles_per_group;
+  const int a_end = min(n_tiles, a_begin + tiles_per_group);
+  const int b_begin = gb * tiles_per_group;
+  const int b_end = min(n_tiles, b_begin + tiles_per_group);
+  T* ws_a = ws + (size_t)gb * n * NV;  // target-side sums of group GA
+  T* ws_b = ws + (size_t)ga * n * NV;  // source-side sums of group GB
+#pragma unroll 1
+  for (int t = 0; t < tiles_per_group; ++t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ra = (a_begin + t) * kTile + row2(h);
+      const int rb = (b_begin + t) * kTile + row2(h);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        if (ra < n) ws_a[(size_t)ra * NV + c] = T(0);
+        if (rb < n) ws_b[(size_t)rb * NV + c] = T(0);
+      }
+    }
+  }
+
+#pragma unroll 1
+  for (int ta = a_begin; ta < a_end; ++ta) {
+    // rows past n: a blob of unit radius at (0, 0, 1) with a zero vector
+    T pi[2][kQ], vi[2][NV], acc[2][NV];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ta * kTile + row2(h);
+      pi[h][0] = T(0);
+      pi[h][1] = T(0);
+      pi[h][2] = T(1);
+      pi[h][3] = T(1);
+      pi[h][4] = T(1);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        vi[h][c] = T(0);
+        acc[h][c] = T(0);
+      }
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < kQ; ++c) pi[h][c] = q[kQ * i + c];
+#pragma unroll
+        for (int c = 0; c < NV; ++c) vi[h][c] = vec[(size_t)i * NV + c];
+      }
+    }
+    const Target<T> tgt[2] = {make_target(pi[0]), make_target(pi[1])};
+    const Box<T> box_a = pairk::tile_box2(pi[0], pi[1], s_box);
+#pragma unroll 1
+    for (int tb = ga == gb ? ta : b_begin; tb < b_end; ++tb) {
+      if (tb == ta) {  // the diagonal tile: every ordered pair, self included
+        __syncthreads();  // s_src may still be read for the previous tile
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          T* row = s_src[row2(h)];
+#pragma unroll
+          for (int c = 0; c < kQ; ++c) row[c] = pi[h][c];
+#pragma unroll
+          for (int c = 0; c < NV; ++c) row[kQ + c] = vi[h][c];
+        }
+        __syncthreads();
+        const int count = min(kTile, n - ta * kTile);
+        for (int k = 0; k < count; ++k) {
+          T src[L];
+          pairk::load_row<L>(s_src[k], src);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const Geo<T> g = make_geo<T, kFreeSurface>(tgt[h], src);
+            const Diag<T> m = condense<T, kFreeSurface, true>(g, tgt[h], src);
+#pragma unroll
+            for (int b = 0; b < B; ++b)
+              pairk::diag_apply(m, g.dx, g.dy, src + kQ + 3 * b,
+                                acc[h] + 3 * b);
+          }
+        }
+        continue;
+      }
+      // off the diagonal: the tile pair's path, then its rotations
+      T pj[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = tb * kTile + row2(h);
+        pj[h][0] = T(0);
+        pj[h][1] = T(0);
+        pj[h][2] = T(1);
+        pj[h][3] = T(1);
+        if (j < n) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pj[h][c] = q[kQ * j + c];
+        }
+      }
+      const Box<T> box_b = pairk::tile_box2(pj[0], pj[1], s_box);
+      if (boxes_far(box_a, box_b) && above_plane(box_a, box_b))
+        rotate2<T, B, true>(q, vec, n, tb, tgt, vi, acc, s_sum);
+      else
+        rotate2<T, B, false>(q, vec, n, tb, tgt, vi, acc, s_sum);
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tb * kTile + row2(h);
+        if (row < n) {
+#pragma unroll
+          for (int c = 0; c < NV; ++c)
+            ws_b[(size_t)row * NV + c] +=
+                s_sum[0][row2(h)][c] + s_sum[1][row2(h)][c];
+        }
+      }
+      __syncthreads();  // s_sum is refilled by the next tile pair
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ta * kTile + row2(h);
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) ws_a[(size_t)i * NV + c] += acc[h][c];
+      }
+    }
+  }
+}
+
 template <typename T, int B, int MODE, typename G>
 int launch_bm(const T* q, const T* vec, T* out, T* ws, int n, int n_groups,
               int tiles_per_group, const G& geom, cudaStream_t s) {
   const long long n_pairs =
       static_cast<long long>(n_groups) * (n_groups + 1) / 2;
-  radii_sym_kernel<T, B, MODE, G>
-      <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
-          q, vec, ws, n, n_groups, tiles_per_group, geom);
+  if constexpr (MODE == kFreeSurface && !G::kImages)
+    radii_sym2_kernel<T, B>
+        <<<static_cast<unsigned>(n_pairs), pairk::kThreads2, 0, s>>>(
+            q, vec, ws, n, n_groups, tiles_per_group);
+  else
+    radii_sym_kernel<T, B, MODE, G>
+        <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
+            q, vec, ws, n, n_groups, tiles_per_group, geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = static_cast<long long>(n) * 3 * B;

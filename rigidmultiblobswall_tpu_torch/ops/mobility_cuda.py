@@ -527,7 +527,9 @@ def radii_matvec(r_vectors, vec, radii, eta, *, domain="single_wall",
     of csrc/pair_blocks.cuh PlaneBoxes when both in-plane lengths exceed
     pair_kernels.PLANE_FAR_MIN times the largest radius, the general one
     otherwise). The CUDA kernel (the symmetric sweep over
-    pair_kernels.plan_groups' tile groups) for CUDA tensors,
+    pair_kernels.plan_groups' tile groups; the open free surface's with
+    two targets a lane, csrc/pair_radii.cu radii_sym2_kernel) for CUDA
+    tensors,
     `radii_matvec_plain` for CPU tensors. Launches count in RADII_LAUNCHES
     by (B, mode, images)."""
     periodic_length = tuple(float(x) for x in periodic_length)

@@ -22,7 +22,10 @@ b-major columns, vec (Ns, nc B) -> (Nt, nc B), nc = 3 (6 for grand):
   symmetric, M_ji = M_ij^T, and tr and rt trade places, M_tr(j,i) =
   M_rt(i,j)^T. A two-tensor product takes the sliced sweep, which splits
   the sources into S slices of whole 128-source tiles (`plan_slices`, so
-  that the card fills). Both write partial sums into a workspace that the wrapper
+  that the card fills). The open free surface's symmetric sweep holds two
+  targets a lane and takes the far form alone on tile pairs whose boxes
+  lie apart (csrc/pair_blocks.cuh sym2_kernel).
+  Both write partial sums into a workspace that the wrapper
   allocates, and a second kernel adds them in a fixed order;
 - on a CPU tensor it runs `pair_plain`, the row-tiled sum of the blocks
   of ops/rpy.py (the JAX package's generic tiled path,

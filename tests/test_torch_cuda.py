@@ -2361,6 +2361,102 @@ def test_p1_images_and_free_surface_match_plain(cuda, n_rhs, domain, box,
     assert err <= bound, float(err)
 
 
+def _fs_tile_scene(n, seed, cols=6):
+    """Blobs of unit radius in the sweeps' 128-row tiles, each tile a 5 x 5
+    x 3 cell of a grid of cells 8 apart with `cols` columns, heights in
+    [1.2, 4.2], so that most tile pairs pass the open free surface's far
+    test (boxes 3 apart, images beyond 2.4); tile 2 holds a blob below its
+    radius (its tile pairs refused by images_far), tile 5's cell overlaps
+    tile 4's (refused by boxes_far), tile 3 a coincident pair and tile 4 a
+    coincident pair on the plane (its image at R = 0), tile 6 a blob at z
+    = 1 (its image touching), and the last tile is ragged."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) // 128
+    r = np.empty((n, 3))
+    r[:, 0] = 8.0 * (t % cols) + rng.uniform(0, 5, n)
+    r[:, 1] = 8.0 * (t // cols) + rng.uniform(0, 5, n)
+    r[:, 2] = rng.uniform(1.2, 4.2, n)
+    r[t == 5, 0] -= 6.0
+    r[2 * 128 + 7, 2] = 0.5
+    r[3 * 128 + 1] = r[3 * 128]
+    r[4 * 128 + 3, 2] = 0.0
+    r[4 * 128 + 4] = r[4 * 128 + 3]
+    r[6 * 128 + 9, 2] = 1.0
+    return r
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n, rows", [(1842, None), (40000, 1024)])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_k1_free_surface_two_targets_match_plain(cuda, n_rhs, n, rows,
+                                                 dtype, bound):
+    """K1 tt_fs's open symmetric sweep, two targets a lane with the tile
+    far test (csrc/pair_blocks.cuh sym2_kernel), on _fs_tile_scene (far
+    tile pairs, pairs refused by each test, coincident pairs, a ragged
+    tile; at 40,000 blobs groups of two tiles) against the plain version
+    in float64 on every row or the leading `rows`, twice bit-identical,
+    counted in LAUNCHES and SYM_LAUNCHES."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if n == 40000:
+        assert pk.plan_groups(n, n_sm)[1] > 1
+    q = _fs_tile_scene(n, 40, cols=6 if n < 5000 else 18)
+    v = np.random.default_rng(41).normal(size=(n, 3 * n_rhs))
+    qt = torch.as_tensor(q, dtype=dtype, device=cuda)
+    vt = torch.as_tensor(v, dtype=dtype, device=cuda)
+    kw = dict(coupling="tt", mode="free_surface", self_interaction=True)
+    before = (pk.LAUNCHES["tt_fs", n_rhs], pk.SYM_LAUNCHES["tt_fs", n_rhs])
+    got = pk.pair_matvec(qt, None, vt, **kw)
+    again = pk.pair_matvec(qt, None, vt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (pk.LAUNCHES["tt_fs", n_rhs], pk.SYM_LAUNCHES["tt_fs", n_rhs]) == (
+        before[0] + 2, before[1] + 2)
+    k = rows or n
+    ref = pk.pair_plain(qt.double(), qt[:k].double(), vt.double(), **kw)
+    assert ((got[:k].double() - ref).abs().max().item()
+            <= bound * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n, rows", [(1842, None), (40000, 1024)])
+@pytest.mark.parametrize("n_rhs", [1, 2])
+def test_p1_free_surface_two_targets_match_plain(cuda, n_rhs, n, rows,
+                                                 dtype, bound):
+    """P1's open free surface, two targets a lane with the tile far test
+    (csrc/pair_radii.cu radii_sym2_kernel), on _fs_tile_scene scaled to
+    radii in [0.08, 0.3] (times 0.3): tile 2's blob below the plane (its
+    tile pairs refused by above_plane), tile 5's cell over tile 4's, tile
+    3 a coincident pair of unequal radii and one blob inside another,
+    against the source-target product in float64 on every row or the
+    leading `rows`, twice bit-identical, counted in RADII_LAUNCHES."""
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    r = _fs_tile_scene(n, 42, cols=6 if n < 5000 else 18) * 0.3
+    r[2 * 128 + 7, 2] = -0.1
+    rad = np.random.default_rng(43).uniform(0.08, 0.3, n)
+    rad[3 * 128], rad[3 * 128 + 1] = 0.1, 0.3
+    r[3 * 128 + 5] = r[3 * 128 + 2] + 0.01
+    rad[3 * 128 + 2], rad[3 * 128 + 5] = 0.3, 0.1
+    v = np.random.default_rng(44).normal(size=(n_rhs, n, 3))
+    args = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (r, v, rad)]
+    key = (n_rhs, "free_surface", False)
+    before = mc.RADII_LAUNCHES[key]
+    got = mc.radii_matvec(*args, 1.3, domain="free_surface")
+    again = mc.radii_matvec(*args, 1.3, domain="free_surface")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert mc.RADII_LAUNCHES[key] == before + 2
+    k = rows or n
+    r64, v64, a64 = (x.double() for x in args)
+    ref = torch.stack([mob.source_target_matvec(
+        r64, r64[:k], vb, a64, a64[:k], 1.3, domain="free_surface")
+        for vb in v64])
+    err = (got[:, :k].double() - ref).abs().max() / ref.abs().max()
+    assert err <= bound, float(err)
+
+
 @pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
                                           (torch.float64, 1e-12)])
 @pytest.mark.parametrize("n_rhs", [1, 2])

@@ -6,9 +6,11 @@ sampler's proposals a second on M1's batch), phase 18 (multibody-49k-radii:
 forward Euler and Slip-Trapz on kernel P1), phase 19
 (spectral-98k-radii: Slip-Trapz on kernel P2) and phase 21's free-surface
 steps (21a: forward Euler and Slip-Trapz on K1 tt_fs, then one Slip-Trapz
-step in 20a's box on its image instance; 21e: forward Euler on P1's
-free-surface instance, then one step in the box; the box's solves stop
-at GMRES's cap, as chip_smoke.py logs them) on a CUDA card, for the
+step in 20a's box on its image instance; 21e: forward Euler and
+Slip-Trapz on P1's free-surface instance (B = 1 and the lockstep pair's
+B = 2), then one forward Euler step in the box; the box's solves stop at
+GMRES's cap, GMRES_MAXITER here, as chip_smoke.py logs them) on a CUDA
+card, for the
 package and chip_smoke.py of one checkout, in one process:
 
     python3 tools/torch_phase_times.py [--root DIR] [--phases 6,15,18,21]
@@ -53,6 +55,8 @@ def free_surface_steps(cs, log, pk, mc, ck, lap):
              st, pos, quat, 1, f" in {box}"),
             ("21e", cs.radii_system(cs.N_SHELLS, domain="free_surface"),
              fe, epos, equat, 2, ""),
+            ("21e", cs.radii_system(cs.N_SHELLS, domain="free_surface"),
+             st, epos, equat, 2, ""),
             ("21e", cs.radii_system(cs.N_SHELLS, domain="free_surface",
                                     periodic_length=box),
              fe, epos, equat, 1, f" in {box}"))

@@ -3,7 +3,7 @@ shapes on a CUDA card.
 
     python3 tools/torch_profile_kernels.py \
         [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1,k1img,k3img,k1fs,k3fs,
-                   p1img,k5open] [--plain-whole]
+                   p1img,k5open,fsopen] [--plain-whole]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -100,6 +100,13 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   p1img also time each instance's plain version over its whole sweep
   once (the image boxes' take 0.5-3 min each: chip_smoke.py times them
   on their first row tiles alone).
+- fsopen (csrc/pair_fs.cu, csrc/pair_radii.cu): the open free-surface
+  sweeps, each alternating with the instances beside it on the same
+  inputs: K1 tt_fs open, the wall's open tt and tt_fs images at 21a's
+  49,152 blobs, P1 free surface open, the open wall P1 and the free
+  surface's P1 images at 21e's bidisperse scene, B = 1 and 2; but for
+  --baseline also the open free-surface instances' bounds, a repeat
+  check and their float32 error on the first ERR_ROWS rows.
 For alternating runs against another tree, run the tool once a tree in
 turns (--root DIR --baseline, then --baseline here, and again): each
 process prints its times; the SASS of a tree is counted by a run without
@@ -109,7 +116,9 @@ kernels' instances (when this process built the library) and
 counts, per instance of the chosen kernels in the library's SASS
 (cuobjdump), the MUFU.EX2, MUFU.RSQ and MUFU.RCP instructions, the FRND
 and F2I conversions (which run at the MUFU's rate) and the subroutine
-calls (for k1img, k3img and the image instances of k1fs, k3fs and p1img also
+calls (for fsopen also each pair loop's far path, its instructions a pair in
+all and by class: FP32, MUFU, SHFL, branch or predicate, other;
+for k1img, k3img and the image instances of k1fs, k3fs and p1img also
 the instructions a box on the far path:
 the shortest path through each pair loop, an inner loop over the boxes
 taken 9 times, over the boxes its MUFU.RSQ count; for k8 also the LDS,
@@ -180,7 +189,20 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
                        "radii_sym_kernel<float, 2, 1, pairk::",
                        "radii_sym_kernel<float, 1, 2, ",
                        "radii_sym_kernel<float, 2, 2, "),
-             "k5open": ("nl_forces_kernel<float, true",)}
+             "k5open": ("nl_forces_kernel<float, true",),
+             # the open symmetric sweeps of the free surface and their
+             # neighbours: the wall's tt (B = 1, 2), K1 tt_fs on one target
+             # a lane (sym_kernel) or two (sym2_kernel), P1's free surface
+             # and open wall on one target a lane or two (radii_sym2_kernel)
+             "fsopen": tuple(
+                 f"sym_kernel<float, pairk::{c}, {b}, true, pairk::OpenBox"
+                 for c in ("DiagCoupling<false>", "FreeSurface")
+                 for b in (1, 2))
+             + ("pairk::sym2_kernel<float",
+                "radii_sym_kernel<float, 1, 2, RadiiOpen",
+                "radii_sym_kernel<float, 2, 2, RadiiOpen",
+                "radii_sym_kernel<float, 1, 1, RadiiOpen",
+                "radii_sym2_kernel<float")}
 
 # slice counts K1's sliced sweep is timed at, per shape
 SWEEP = {"tt49k": (8, 24, 48, 96),
@@ -546,6 +568,92 @@ def profile_p1img(cs, dev, detail):
             print(f"  P1 {tag} {r.shape[0]} x B={n_rhs} in {box}: {ms:.3f} "
                   f"ms (the open wall instance {open_ms:.3f} ms){plain}; "
                   f"f32 err / max|ref| {err:.3e}", flush=True)
+
+
+def profile_fsopen(cs, dev, detail):
+    """The open free-surface sweeps and the instances beside them, each
+    alternating with the others on the same inputs (chip_smoke.py
+    alternating_ms): K1 tt_fs open, the wall's open tt and tt_fs images at
+    21a's 49,152 blobs (B = 1 and 2); P1 free surface open, the open wall
+    instance and the free surface's images at 21e's bidisperse scene (B =
+    1 and 2). But for --baseline also each open free-surface instance's
+    bound and share (chip_smoke.py's counts), whether two launches are
+    bit-identical and its float32 error against its float64 plain version
+    on the first ERR_ROWS target rows."""
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+    from rigidmultiblobswall_tpu_torch.ops import mobility_cuda as mc
+    from rigidmultiblobswall_tpu_torch.ops import pair_kernels as pk
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    q = _fs_scene(cs, dev)
+    n = q.shape[0]
+    pairs = n * (n + 1) // 2
+    La = tuple(x / cs.A_BENCH for x in (cs.L_FS_IMAGES,) * 2) + (0.0,)
+    img = (La, pk.box_offsets(La))
+    for n_rhs in (1, 2):
+        v = torch.randn((n, 3 * n_rhs), generator=g, device=dev)
+        fs = dict(coupling="tt", mode="free_surface", self_interaction=True)
+
+        def call(**kw):
+            return pk.pair_matvec(q, None, v, **dict(fs, **kw))
+
+        ms, wall, images = cs.alternating_ms([
+            call, lambda: call(mode="wall"), lambda: call(boxes=img)])
+        line = (f"  K1 tt_fs open {n} x B={n_rhs}: {ms:.3f} ms; the wall's "
+                f"open tt {wall:.3f} ms; tt_fs images {images:.3f} ms")
+        if detail:
+            rec = cs.bound_record(
+                4 * n * (3 + 6 * n_rhs),
+                pairs * (cs.K1_FS_CONDENSE_FLOPS
+                         + 2 * cs.K1_APPLY_FLOPS["tt"] * n_rhs),
+                pairs * cs.K1_FS_MUFU)
+            got = call()
+            same = torch.equal(got, call())
+            err = rel_err(got, pk.pair_plain(
+                q.double(), q[:ERR_ROWS].double(), v.double(), **fs))
+            line += (f"; bound {rec['bound_ms']:.3f} ms "
+                     f"({rec['bound_ms'] / ms:.1%}), repeat bit-identical "
+                     f"{same}, f32 err / max|ref| {err:.3e}")
+        print(line, flush=True)
+    system = cs.radii_system(cs.N_SHELLS, domain="free_surface")
+    pos, quat = cs.alternate(*cs.lattice(cs.N_SHELLS))
+    state = make_state(pos, quat, dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state).contiguous()
+    radii = torch.tensor(system.blob_radii, dtype=torch.float32, device=dev)
+    n = r.shape[0]
+    pairs = n * (n + 1) // 2
+    box = (cs.L_FS_IMAGES, cs.L_FS_IMAGES, 0.0)
+    for n_rhs in (1, 2):
+        v = torch.randn((n_rhs, n, 3), generator=g, device=dev)
+
+        def call(**kw):
+            return mc.radii_matvec(r, v, radii, 1.0,
+                                   **dict(dict(domain="free_surface"), **kw))
+
+        ms, wall, images = cs.alternating_ms([
+            call, lambda: call(domain="single_wall"),
+            lambda: call(periodic_length=box)])
+        line = (f"  P1 free surface open {n} x B={n_rhs}: {ms:.3f} ms; the "
+                f"open wall instance {wall:.3f} ms; free surface images "
+                f"{images:.3f} ms")
+        if detail:
+            rec = cs.bound_record(
+                4 * n * (5 + 6 * n_rhs),
+                pairs * (cs.P1_FAR_FLOPS[False] + cs.P1_FS_FLOPS
+                         + cs.P1_APPLY_FLOPS * n_rhs),
+                pairs * (cs.P1_PAIR_MUFU[False] + 1))
+            got = call()
+            same = torch.equal(got, call())
+            rd, k = r.double(), ERR_ROWS
+            err = rel_err(got, torch.stack([mob.source_target_matvec(
+                rd, rd[:k], vb.double(), radii.double(), radii[:k].double(),
+                1.0, domain="free_surface") for vb in v]))
+            line += (f"; bound {rec['bound_ms']:.3f} ms "
+                     f"({rec['bound_ms'] / ms:.1%}), repeat bit-identical "
+                     f"{same}, f32 err / max|ref| {err:.3e}")
+        print(line, flush=True)
 
 
 def profile_k5open(cs, dev, detail):
@@ -1339,7 +1447,7 @@ PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
             "m1": profile_m1, "k1img": profile_k1img,
             "k3img": profile_k3img, "k1fs": profile_k1fs,
             "k3fs": profile_k3fs, "p1img": profile_p1img,
-            "k5open": profile_k5open}
+            "k5open": profile_k5open, "fsopen": profile_fsopen}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -1379,7 +1487,7 @@ def sass_counts(lib_path, kernels, out_path):
     counts, listing = [], []
     loops_of = {k: set(INSTANCES[k]) for k in ("k8", "l1", "p1", "k1img",
                                                 "k3img", "k1fs", "k3fs",
-                                                "p1img")
+                                                "p1img", "fsopen")
                 if k in kernels}
     for name, key in zip(names, mangled):
         if not any(f in name for f in frags):
@@ -1404,6 +1512,8 @@ def sass_counts(lib_path, kernels, out_path):
                                    "p1img")
                for f in loops_of.get(k, ())) and "Boxes" in name:
             counts += [f"  {ln}" for ln in sass_box_paths(body)]
+        if any(f in name for f in loops_of.get("fsopen", ())):
+            counts += [f"  {ln}" for ln in sass_pair_paths(body)]
         listing += [f"Function : {name} ({key})"] + body
     if not counts:
         counts = [f"no instance found (cuobjdump exit {out.returncode}: "
@@ -1666,13 +1776,111 @@ def sass_box_paths(body, n_boxes=9, rsq_per_box=2):
     return out or ["no pair loop (MUFU.RSQ)"]
 
 
+# the classes sass_pair_paths counts a pair: the float32 pipe, the
+# special functions, the shuffles, and the branches, predicates, votes and
+# selects around them; every other instruction is "other" (integer,
+# moves, loads)
+OP_CLASSES = {"FP32": ("FFMA", "FADD", "FMUL", "FMNMX", "FSWZADD"),
+              "MUFU": ("MUFU",),
+              "SHFL": ("SHFL",),
+              "branch/predicate": ("BRA", "BSSY", "BSYNC", "FSETP", "ISETP",
+                                   "PLOP3", "PSETP", "VOTE", "VOTEU", "FSEL",
+                                   "SEL", "P2R", "R2P", "WARPSYNC", "BMOV")}
+
+
+def op_class(op):
+    base = op.split(".")[0]
+    for name, ops in OP_CLASSES.items():
+        if base in ops:
+            return name
+    return "other"
+
+
+def sass_pair_paths(body, rsq_per_pair=2):
+    """The far path of each pair loop of an open sweep (the innermost
+    loops holding MUFU.RSQ: the rotation's, with SHFL, and the diagonal
+    tile's): the shortest of the paths from its head to its back branch
+    that take the most MUFU.RSQ (a branch past a pair's work, or out of the
+    loop, is not taken; the near and zero forms sit behind branches), its
+    pairs (MUFU.RSQ / rsq_per_pair: r's and the image's R's), and its
+    instructions a pair, in all and by OP_CLASSES."""
+    instrs = []
+    for ln in body:
+        m = PRED_LINE.search(ln)
+        if m:
+            instrs.append((int(m.group(1), 16), bool(m.group(2)),
+                           m.group(3), m.group(4)))
+    index = {a: k for k, (a, _, _, _) in enumerate(instrs)}
+
+    def target(k):
+        t = re.search(r"0x([0-9a-f]+)", instrs[k][3])
+        if instrs[k][2].split(".")[0] != "BRA" or t is None:
+            return None
+        return index.get(int(t.group(1), 16))
+
+    loops = sorted((target(k), k) for k in range(len(instrs))
+                   if target(k) is not None and target(k) < k)
+    rsq_loops = [(lo, hi) for lo, hi in loops
+                 if any(instrs[k][2].startswith("MUFU.RSQ")
+                        for k in range(lo, hi + 1))]
+    out = []
+    for lo, hi in rsq_loops:
+        # not innermost, or an out-of-line block's branch back into a loop
+        # (it starts inside another loop and ends past it)
+        if any((lo <= a and b <= hi or a < lo <= b < hi) and (a, b) != (lo, hi)
+               for a, b in rsq_loops):
+            continue
+        # best[k]: (MUFU.RSQ, instructions, class counts) of the best path
+        # from k through the back branch
+        best = {hi + 1: (0, 0, {})}
+        for k in range(hi, lo - 1, -1):
+            op = instrs[k][2]
+            own_q = 1 if op.startswith("MUFU.RSQ") else 0
+            t = target(k)
+            conditional = (instrs[k][1]
+                           or re.match(r"\s*!?U?P\d", instrs[k][3]))
+            if k == hi or op.split(".")[0] == "EXIT":
+                cands = [hi + 1] if k == hi else []
+            elif t is None:
+                cands = [k + 1]
+            else:
+                cands = [t] if lo <= t <= hi and t > k else []
+                if conditional:
+                    cands.append(k + 1)
+            opts = [best[x] for x in cands if x in best]
+            if not opts:
+                continue
+            q, c, hist = min(opts, key=lambda v: (-v[0], v[1]))
+            hist = dict(hist)
+            cls = op_class(op)
+            hist[cls] = hist.get(cls, 0) + 1
+            best[k] = (q + own_q, c + 1, hist)
+        if lo not in best:
+            continue
+        q, c, hist = best[lo]
+        ops = [instrs[k][2] for k in range(lo, hi + 1)]
+        kind = ("rotation" if any(o.startswith("SHFL") for o in ops)
+                else "diagonal tile")
+        if any(o.startswith("VOTE") for o in ops):
+            kind += ", voted"
+        pairs = q / rsq_per_pair
+        if not pairs:
+            continue
+        out.append(f"{kind} loop {instrs[lo][0]:#x}-{instrs[hi][0]:#x}: "
+                   f"far path {c} instructions, {pairs:g} pairs, "
+                   f"{c / pairs:.1f} a pair: "
+                   + ", ".join(f"{name} {hist.get(name, 0) / pairs:.2f}"
+                               for name in (*OP_CLASSES, "other")))
+    return out or ["no pair loop (MUFU.RSQ)"]
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=str(ROOT))
     p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1,p2,m1",
                    help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
                         "l1, p1, p2, m1, k1img, k3img, k1fs, k3fs, p1img, "
-                        "k5open")
+                        "k5open, fsopen")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",
