@@ -289,8 +289,10 @@ is non-zero and no result line is printed):
      Each image instance on these paths is first held against its plain
      version in float64 at the path's shape (the first 1024 target rows;
      K3 the whole matrix) within 3e-6 x max|ref|, twice bit-identical,
-     with its time, the plain version's at full size, its bound (each
-     unordered pair's boxes condensed once) and its registers, K3's lower
+     with its time, the plain version's (the whole sweep where its
+     first rows predict under PLAIN_WHOLE_S, else plain_rows_ms), its
+     bound (each unordered pair's boxes condensed once) and its
+     registers, K3's lower
      triangle the exact transpose of its upper; the sliced sweep's
      instance at 20a's sources in the log. Phase 3 holds the same
      instances at 300 blobs under each image policy (the in-plane far one
@@ -323,6 +325,27 @@ is non-zero and no result line is printed):
      and 21d's in_plane at CAPPED_MAXITER GMRES sweeps a solve), 21f two
      64-shell input files through the CLI, card float64 against CPU
      float64 to 1e-10 of the displacement.
+ 22. multiple devices (phase_multi_device; parallel/): the rank-share
+     instances first, in this process (K1's symmetric sweep over a
+     rank's group pairs, tt B = 1, 2 at 49,152 blobs and grand at 32,768
+     rollers; its sliced sweep over rank 1's rows with row0; K6 over
+     cells at spectral-98k, K7 over columns at spectral-wall-98k, P2 over
+     targets at spectral-98k-radii): the shares summed against the full
+     launch (K1 within P22_TOL, the others bit for bit), a share against
+     its float64 plain version, its time, its plain version's and its
+     bound (the full instance's, scaled to the share). Then two gloo
+     ranks sharing the card (parallel/spawn.py, phase22_rank) run phase
+     22's products (K1 tt B = 1, 2, tt on two tensors, grand,
+     spectral-98k B = 1, 2, spectral-98k-radii, spectral-wall-98k B = 1,
+     2) and one forward-Euler and one Slip-Trapz step of phase 6's
+     scene, held to the same run in this process (D = 1: products within
+     P22_TOL x max|ref|, the wall's within P22_TOL_WALL, steps within
+     P22_STEP_TOL, solver counts within one), rank 0 the products again
+     over a one-rank NCCL group; then parallel.dryrun.dryrun_multichip(2)
+     at the JAX entry point's sizes. The log holds D = 1 and D = 2 ms a
+     product and a step and the bytes each collective moved; the
+     records' launches are the ranks'. Two ranks on one card measure the
+     decomposition's overhead, not scaling.
 Phase 4 also runs 8 shells x 3 steps of each of phase 13's five schemes
 at kT = 0.05 and 6 shells beside 2 obstacle shells under Slip-Mid and
 GDC-RFD (the obstacles unchanged) on the card against the CPU with the
@@ -357,11 +380,12 @@ is larger; K2, K7, L1 and M1 also name their design, L1 its plan; K8,
 L1 and M1 have a record per instance; P1 and P2 name their plan and
 registers, P1 with a record per B, P2 one for its build and one per B;
 M1's batch carries the floor an empty launch sets; K1's and K3's
-image-box instances a record each at phase 20's shapes, and phase 21's
-instances at theirs);
+image-box instances a record each at phase 20's shapes, phase 21's
+instances at theirs, and phase 22's rank-share instances at its);
 the last line is {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -6079,7 +6103,9 @@ def img_k1_record(pk, coupling, q, v, L, sub, what, report):
     path calls it (the square product, the symmetric sweep): the first
     `sub` target rows against the plain version in float64 within
     IMG_BOUND x max|ref|, twice bit-identical, its time, the plain
-    version's at full size, its registers. The bound counts each box of
+    version's (plain_fields: the whole sweep where its first `sub` rows
+    predict under PLAIN_WHOLE_S, else those rows' time), its registers.
+    The bound counts each box of
     each unordered pair condensed once (tr's and rt's other cross block
     with it) and applied both ways, and the pair's minimum image."""
     n = q.shape[0]
@@ -6096,8 +6122,7 @@ def img_k1_record(pk, coupling, q, v, L, sub, what, report):
     err = (got[:sub].double() - ref).abs().max().item()
     rel = err / ref.abs().max().item()
     ms = cuda_ms(lambda: pk.pair_matvec(q, None, v, **kw), 5)
-    plain_ms = cuda_ms(lambda: pk.pair_plain(q, q, v, **kw), 1,
-                       warmup=False)
+    plain = plain_fields(lambda k: pk.pair_plain(q, q[:k], v, **kw), n, sub)
     apply = K1_APPLY_FLOPS[coupling]
     per_pair = (K1_PAIR_FLOPS[coupling] + K1_SYM_EXTRA_FLOPS.get(coupling, 0)
                 - apply + 2 * apply * n_rhs) / 2
@@ -6105,7 +6130,7 @@ def img_k1_record(pk, coupling, q, v, L, sub, what, report):
     periodic = sum(1 for x in L if x > 0)
     flops = n * n * (n_boxes * per_pair + K1_IMAGE_FLOPS * periodic / 2)
     nbytes = 4 * n * (3 + 2 * nc * n_rhs)
-    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    rec = dict(max_abs_err=err, ms=ms, **plain,
                **bound_record(nbytes, flops))
     if coupling in ("tt", "rr"):
         # the recount: the same function with a pair's boxes summed first
@@ -6130,8 +6155,8 @@ def img_k1_record(pk, coupling, q, v, L, sub, what, report):
         f"{sub} target rows vs plain f64 max err {err:.3e}, / max|ref| = "
         f"{rel:.3e} (bound {IMG_BOUND:.0e}); repeat bit-identical {same}; "
         f"kernel {ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-        f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%} of it), plain f32 "
-        f"{plain_ms:.1f} ms; registers {regs}")
+        f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%} of it), "
+        f"{plain_text(rec)}; registers {regs}")
     check(rel <= IMG_BOUND, f"K1 {coupling} images B={n_rhs} disagrees at "
           f"{what} ({rel:.3e})")
     check(same, f"K1 {coupling} images B={n_rhs} not bit-identical on "
@@ -6610,7 +6635,7 @@ def alternating_ms(fns, rounds=5):
     return [t / rounds for t in total]
 
 
-# the longest plain sweep phase 21 times whole: an instance's plain
+# the longest plain sweep phases 20 and 21 time whole: an instance's plain
 # version is first timed on its first `rows` target rows, and only where
 # those predict a whole sweep under this many seconds is the whole sweep
 # timed (once) as its plain_ms
@@ -7503,6 +7528,550 @@ def phase_domains_cli():
               f"{err:.3e} of {disp:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: multiple devices (rigidmultiblobswall_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+# two gloo ranks share the one card (NCCL puts one rank on a card); one
+# NCCL rank (world size 1) runs the products through the same code
+N_RANKS = 2
+# D = 2 against D = 1: products within P22_TOL x max|ref| (the wall
+# products within K7's float32 bound, the JAX package's 2e-5), steps within
+# the JAX entry point's _assert_parity tolerance
+P22_TOL = 3e-6
+P22_TOL_WALL = 2e-5
+P22_STEP_TOL = 5e-5
+P22_REPS = 3
+# the group's collective timeout and the ranks' run limit (s)
+P22_TIMEOUT_S = 120.0
+P22_RUN_S = 420.0
+SHARE_SRC = {"K1": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu",
+             "grand": "rigidmultiblobswall_tpu_torch/csrc/pair_couplings.cu",
+             "K6": "rigidmultiblobswall_tpu_torch/csrc/near_rpy.cu",
+             "K7": "rigidmultiblobswall_tpu_torch/csrc/wall_near.cu",
+             "P2": "rigidmultiblobswall_tpu_torch/csrc/near_radii.cu"}
+
+
+def p22_scenes(dev):
+    """Phase 22's inputs on `dev`, built alike on every rank and in the
+    parent from numpy seeds: phase 6's scene (49,152 blobs) with B = 1
+    and 2 vectors, phase 7's 32,768 rollers with forces and torques, and
+    the systems of phases 8 (spectral-98k), 19 (spectral-98k-radii) and 10
+    (spectral-wall-98k) with their plans (capacities sized as there) and
+    forces. float32."""
+    from rigidmultiblobswall_tpu_torch.models import saddle
+    from rigidmultiblobswall_tpu_torch.models import kinematics as kin
+    from rigidmultiblobswall_tpu_torch.models.system import make_state
+    from rigidmultiblobswall_tpu_torch.ops import forces
+
+    rng = np.random.default_rng(22)
+    system = bench_system(N_SHELLS)
+    state = make_state(*lattice(N_SHELLS), dtype=torch.float32, device=dev)
+    r = kin.blob_positions(system, state)
+    n = r.shape[0]
+
+    def vec(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                               device=dev)
+
+    out = dict(system=system, state=state, r=r, v1=vec(1, n, 3),
+               v2=vec(2, n, 3),
+               rollers=torch.as_tensor(roller_lattice(N_ROLLERS),
+                                       device=dev),
+               f_roll=vec(N_ROLLERS, 3), t_roll=vec(N_ROLLERS, 3))
+    for key, sys_, (pos, quat) in (
+            ("spectral", spectral_system(N_SPECTRAL, L_SPECTRAL),
+             spectral_lattice(N_SPECTRAL, SPECTRAL_SIDE)),
+            ("radii", radii_spectral_system(N_SPECTRAL, L_SPECTRAL),
+             alternate(*spectral_lattice(N_SPECTRAL, SPECTRAL_SIDE))),
+            ("wall", wall_system(N_WALL, L_WALL),
+             wall_lattice(N_WALL, WALL_SIDE))):
+        st = make_state(pos, quat, dtype=torch.float32, device=dev)
+        sys_ = saddle.auto_spectral_capacities(sys_, st)
+        rb = kin.blob_positions(sys_, st)
+        sys_ = forces.auto_force_cell_capacity(sys_, rb)
+        out[key] = saddle.maybe_dense_mobility(sys_, rb)
+        out[f"f_{key}"] = vec(2, rb.shape[0], 3)
+    return out
+
+
+def p22_products(sc):
+    """(name, fn(mesh)) of phase 22's products on the scenes `sc`: K1 tt
+    square B = 1 and 2 (the group-pair shares), tt on two tensors (the row
+    share, row0), grand on the rollers, spectral-98k B = 1 and 2 (K6's
+    cells, the distributed FFT), spectral-98k-radii (P2's targets, the
+    wave replicated), spectral-wall-98k B = 1 and 2 (K7's columns, the
+    ky-padded transpose)."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald, ewald_wall
+    from rigidmultiblobswall_tpu_torch.ops import mobility as mob
+
+    kw = dict(domain="single_wall")
+    r = sc["r"]
+    return [
+        ("K1 tt B=1", lambda m: mob.pairwise_matvec_multi(
+            r, None, sc["v1"], 1.0, A_BENCH, mesh=m, **kw)),
+        ("K1 tt B=2", lambda m: mob.pairwise_matvec_multi(
+            r, None, sc["v2"], 1.0, A_BENCH, mesh=m, **kw)),
+        ("K1 tt two tensors", lambda m: mob.pairwise_matvec(
+            r, r, sc["v1"][0], 1.0, A_BENCH, mesh=m, **kw)),
+        ("K1 grand", lambda m: torch.cat(mob.grand_mobility_matvec(
+            sc["rollers"], sc["f_roll"], sc["t_roll"], 1.0, A_ROLLER,
+            mesh=m, **kw), dim=1)),
+        ("spectral-98k B=1", lambda m: ewald.matvec(
+            sc["spectral"], sc["f_spectral"][0], mesh=m)),
+        ("spectral-98k B=2", lambda m: ewald.matvec_multi(
+            sc["spectral"], sc["f_spectral"], mesh=m)),
+        ("spectral-98k-radii B=1", lambda m: ewald.matvec(
+            sc["radii"], sc["f_radii"][0], mesh=m)),
+        ("spectral-wall-98k B=1", lambda m: ewald_wall.matvec(
+            sc["wall"], sc["f_wall"][0], mesh=m)),
+        ("spectral-wall-98k B=2", lambda m: ewald_wall.matvec_multi(
+            sc["wall"], sc["f_wall"], mesh=m)),
+    ]
+
+
+def _synced_ms(fn, reps):
+    """Host-clock ms a call of fn() over reps calls after one warm-up,
+    bracketed by torch.cuda.synchronize() (a collective's host staging
+    runs outside the stream, so CUDA events would not see it)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def p22_run(mesh, sc, steps=True):
+    """Phase 22's products (each timed over P22_REPS calls after a
+    warm-up) and, with steps, one forward-Euler and one Slip-Trapz step of
+    phase 6's scene from its start (each run twice, the second timed),
+    under `mesh` (None: one device). Returns numpy outputs, ms, and the
+    steps' positions, solver counts and ms."""
+    from rigidmultiblobswall_tpu_torch.models import integrators
+
+    res = {}
+    for name, fn in p22_products(sc):
+        out, ms = _synced_ms(lambda: fn(mesh), P22_REPS)
+        res[name] = dict(out=out.float().cpu().numpy(), ms=ms)
+    if not steps:
+        return res
+    system = dataclasses.replace(sc["system"], mesh=mesh)
+    for scheme in ("deterministic_forward_euler", "stochastic_Slip_Trapz"):
+        step = integrators.make_stepper(
+            system, scheme, 1e-3, lanczos_tolerance=5e-4,
+            lanczos_max_iter=32, lanczos_check_every=4, gmres_restart=60,
+            gmres_maxiter=300, max_rejections=3)
+        # the same step twice from phase 6's start, the second timed
+        for _ in range(2):
+            carry = integrators.init_carry(system, state=sc["state"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, aux = step(sc["state"],
+                                 torch.Generator().manual_seed(22), carry)
+            torch.cuda.synchronize()
+        res[scheme] = dict(out=state.pos.cpu().numpy(),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           counts=(aux.det_iterations, aux.stoch_iterations))
+    return res
+
+
+def phase22_rank(mesh, payload):
+    """The ranks' part of phase 22 (a parallel/spawn.py target): the
+    scenes, the products and steps under the gloo mesh, and on rank 0 one
+    NCCL rank (a one-rank group) running the products through the same
+    code. Returns rank 0's outputs and the phase's counts."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald, ewald_wall
+    from rigidmultiblobswall_tpu_torch.parallel import dryrun as pdry
+    from rigidmultiblobswall_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    sc = p22_scenes(mesh.device)
+    scenes_s = time.perf_counter() - t0
+    run = p22_run(mesh, sc)
+    res = dict(run=run, scenes_s=scenes_s,
+               counts={k: list(v) for k, v in pmesh.COUNTS.items()},
+               share_launches=pdry.share_launches(),
+               replicated=dict(spectral=dict(ewald.REPLICATED_WAVE),
+                               wall=dict(ewald_wall.REPLICATED_WAVE)))
+    group = torch.distributed.new_group([0], backend="nccl")
+    if mesh.rank == 0:
+        pmesh.reset_counts()
+        nccl = pmesh.Mesh(group, 0, 1, mesh.device)
+        res["nccl"] = p22_run(nccl, sc, steps=False)
+        res["nccl_counts"] = {k: list(v) for k, v in pmesh.COUNTS.items()}
+    torch.distributed.barrier()
+    return res
+
+
+def share_plain_fields(fn, total, part):
+    """A rank-share record's plain fields, as plain_fields: plain_ms, the
+    plain version over the whole share (fn(total), one timed call) where
+    its first `part` units (fn(part), timed first) predict under
+    PLAIN_WHOLE_S; else plain_ms None and that part's time as
+    plain_part_ms beside plain_part."""
+    part = min(part, total)
+    t = cuda_ms(lambda: fn(part), 1, warmup=False)
+    if part == total:
+        return dict(plain_ms=t)
+    if t * total / part < PLAIN_WHOLE_S * 1e3:
+        return dict(plain_ms=cuda_ms(lambda: fn(total), 1, warmup=False))
+    return dict(plain_ms=None, plain_part=part, plain_part_ms=t)
+
+
+def k1_share_records(pk, mob, sc):
+    """K1's rank-share instances at phase 22's shapes, float32 on the
+    wall: the symmetric sweep over each rank's group pairs (tt B = 1 and
+    2 at 49,152 blobs, grand at 32,768 rollers) and the sliced sweep over
+    rank 1's rows (tt, row0 = N/2). Each: the ranks' shares summed against
+    the full launch (P22_TOL x max|ref|), a share's rows against the plain
+    version in float64 (u32 sqrt(N); rank 0's partial holds group 0's rows
+    whole, rank 1's rows are its own), twice bit-identical, its time, its
+    plain version's over the whole share, and the full instance's bound
+    scaled to the share."""
+    records = {}
+    q_b = mob._normalized(sc["r"], A_BENCH, True, torch.float32)[0]
+    q_r = mob._normalized(sc["rollers"], A_ROLLER, True, torch.float32)[0]
+    g = torch.Generator(device=q_b.device).manual_seed(221)
+    for key, coupling, q, n_rhs in (("tt", "tt", q_b, 1),
+                                    ("tt_b2", "tt", q_b, 2),
+                                    ("grand", "grand", q_r, 1)):
+        n = q.shape[0]
+        nc = pk.NCOMP[coupling]
+        v = torch.randn((n, nc * n_rhs), generator=g, device=q.device)
+        kw = dict(coupling=coupling, mode="wall", self_interaction=True)
+        groups, per = pk.group_plan(q)
+        total = groups * (groups + 1) // 2
+        shares = [(total * k // N_RANKS, total * (k + 1) // N_RANKS)
+                  for k in range(N_RANKS)]
+        parts = [pk.pair_matvec(q, None, v, pairs=s, **kw) for s in shares]
+        full = pk.pair_matvec(q, None, v, **kw)
+        sum_rel = ((sum(parts) - full).abs().max()
+                   / full.abs().max()).item()
+        same = torch.equal(parts[0], pk.pair_matvec(q, None, v,
+                                                    pairs=shares[0], **kw))
+        rows = min(per * pk.TILE, n)
+        ref = pk.pair_plain(q.double(), q[:rows].double(), v.double(), **kw)
+        err = (parts[0][:rows].double() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ms = cuda_ms(lambda: pk.pair_matvec(q, None, v, pairs=shares[0],
+                                            **kw), 10)
+        plain_ms = cuda_ms(lambda: pk.pair_share_plain(
+            q, v, pairs=shares[0], **kw), 1, warmup=False)
+        # the share's directed pairs: a diagonal group pair's na^2, an
+        # off-diagonal one's 2 na nb, at k1_full_record's cost a pair
+        size = [min(n, (i + 1) * per * pk.TILE) - i * per * pk.TILE
+                for i in range(groups)]
+        directed = 0
+        for p in range(*shares[0]):
+            ga, gb = pk.group_pair(p, groups)
+            directed += size[ga] * size[gb] * (1 if ga == gb else 2)
+        apply = K1_APPLY_FLOPS[coupling]
+        per_pair = (K1_PAIR_FLOPS[coupling] + K1_SYM_EXTRA_FLOPS.get(
+            coupling, 0) - apply + 2 * apply * n_rhs) / 2
+        nbytes = 4 * n * (3 + 2 * nc * n_rhs)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bound_record(nbytes, directed * per_pair))
+        log(f"phase 22 K1 {coupling} B={n_rhs} rank share, {n} blobs, "
+            f"group pairs {shares[0]} of {total} ({groups} groups of {per} "
+            f"tiles): shares summed vs full launch / max|ref| = "
+            f"{sum_rel:.3e} (tol {P22_TOL:g}); group 0's {rows} rows vs "
+            f"plain f64 {rel:.3e} (bound {u32_sqrt(n):.2e}); repeat "
+            f"bit-identical {same}; {ms:.3f} ms, bound {rec['bound_ms']:.3f} "
+            f"ms ({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}), "
+            f"{plain_text_share(rec)}")
+        check(sum_rel <= P22_TOL, f"K1 {coupling} B={n_rhs} shares do not "
+              "sum to the full product")
+        check(rel <= u32_sqrt(n), f"K1 {coupling} B={n_rhs} share disagrees "
+              "with its plain version")
+        check(same, f"K1 {coupling} B={n_rhs} share not bit-identical")
+        records[key] = rec
+    # the sliced sweep over rank 1's rows
+    n = q_b.shape[0]
+    v = torch.randn((n, 3), generator=g, device=q_b.device)
+    kw = dict(coupling="tt", mode="wall", self_interaction=True)
+    r0 = n // 2
+    qt = q_b[r0:].contiguous()
+    got = pk.pair_matvec(q_b, qt, v, row0=r0, **kw)
+    full = pk.pair_matvec(q_b, q_b, v, **kw)[r0:]
+    sum_rel = ((got - full).abs().max() / full.abs().max()).item()
+    sub = 1024
+    ref = pk.pair_plain(q_b.double(), qt[:sub].double(), v.double(),
+                        row0=r0, **kw)
+    err = (got[:sub].double() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    same = torch.equal(got, pk.pair_matvec(q_b, qt, v, row0=r0, **kw))
+    ms = cuda_ms(lambda: pk.pair_matvec(q_b, qt, v, row0=r0, **kw), 10)
+    plain = share_plain_fields(lambda k: pk.pair_plain(
+        q_b, qt[:k], v, row0=r0, **kw), n - r0, 1024)
+    rec = dict(max_abs_err=err, ms=ms, **plain, **bound_record(
+        4 * (n * 6 + (n - r0) * 6), (n - r0) * n * K1_PAIR_FLOPS["tt"]))
+    log(f"phase 22 K1 tt rank share on two tensors, rows [{r0}, {n}) of "
+        f"{n} (row0 {r0}): vs the full sliced launch's rows / max|ref| = "
+        f"{sum_rel:.3e} (tol {P22_TOL:g}); first {sub} rows vs plain f64 "
+        f"{rel:.3e} (bound {u32_sqrt(n):.2e}); repeat bit-identical {same}; "
+        f"{ms:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.1%}), {plain_text_share(rec)}")
+    check(sum_rel <= P22_TOL, "K1 tt row share disagrees with the full "
+          "launch's rows")
+    check(rel <= u32_sqrt(n), "K1 tt row share disagrees with its plain "
+          "version")
+    check(same, "K1 tt row share not bit-identical")
+    records["tt_rows"] = rec
+    return records
+
+
+def plain_text_share(rec):
+    if rec["plain_ms"] is not None:
+        return f"plain f32 {rec['plain_ms']:.1f} ms"
+    return (f"plain f32 {rec['plain_part_ms']:.1f} ms on its first "
+            f"{rec['plain_part']} units (the whole share is not timed)")
+
+
+def cell_share_records(ck, sc):
+    """K6's, P2's and K7's rank-share instances at phase 22's shapes
+    (spectral-98k, spectral-98k-radii, spectral-wall-98k), float32: the
+    ranks' shares (K6 cells, P2 targets, K7 (x, y) columns) summed must
+    equal the full launch bit for bit (disjoint rows, the others zero);
+    rank 1's share's first rows against the plain version in float64; its
+    time, its plain version's, and the full instance's bound scaled by its
+    share of the targets."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall
+
+    records = {}
+    g = torch.Generator(device=sc["r"].device).manual_seed(222)
+    # K6
+    plan = sc["spectral"]
+    p = plan.params
+    n = plan.positions.shape[0]
+    cap = p.cell_capacity
+    C = int(np.prod(plan.cell_dims))
+    args = (plan.cell_table, plan.cell_dims, p.box, cap)
+    kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=g.device)
+        shares = [(C * k // N_RANKS, C * (k + 1) // N_RANKS)
+                  for k in range(N_RANKS)]
+        parts = [ck.near_rpy(plan.positions, f, *args, plan.cheb,
+                             cells_range=s, **kw) for s in shares]
+        exact = torch.equal(sum(parts), ck.near_rpy(
+            plan.positions, f, *args, plan.cheb, **kw))
+        c0 = shares[1][0]
+        sub = (c0, c0 + 256)
+        got = ck.near_rpy(plan.positions, f, *args, plan.cheb,
+                          cells_range=sub, **kw)
+        ref = ck.near_rpy_plain(plan.positions.double(), f.double(), *args,
+                                plan.cheb.double(), cells_range=sub, **kw)
+        rows = _rows_of(plan.cell_table, n, cap, sub)
+        err = (got.double()[rows] - ref[rows]).abs().max().item()
+        scale = ref[rows].abs().max().item()
+        ms = cuda_ms(lambda: ck.near_rpy(plan.positions, f, *args,
+                                         plan.cheb, cells_range=shares[1],
+                                         **kw), 10)
+        plain = share_plain_fields(lambda k: ck.near_rpy_plain(
+            plan.positions, f, *args, plan.cheb, cells_range=(c0, c0 + k),
+            **kw), shares[1][1] - c0, 256)
+        frac = len(_rows_of(plan.cell_table, n, cap, shares[1])) / n
+        flops = k6_flops(ck, plan, n_rhs)[0] * frac
+        nbytes = (4 * (n * 3 + 2 * n * 3 * n_rhs)
+                  + plan.cell_table.numel() * 4) * frac
+        rec = dict(max_abs_err=err, ms=ms, **plain,
+                   **bound_record(nbytes, flops))
+        bound = u32_sqrt(27 * cap)
+        log(f"phase 22 K6 B={n_rhs} rank share, cells {shares[1]} of {C} "
+            f"({frac:.1%} of the targets): shares summed bit-identical to "
+            f"the full launch {exact}; cells {sub} vs plain f64 / max|ref| "
+            f"{err / scale:.3e} (bound {bound:.2e}); {ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / ms:.1%}), {plain_text_share(rec)}")
+        check(exact, f"K6 B={n_rhs} shares do not sum to the full launch")
+        check(err <= bound * scale, f"K6 B={n_rhs} share disagrees")
+        records[f"K6_b{n_rhs}"] = rec
+    # P2
+    plan = sc["radii"]
+    p = plan.params
+    n = plan.positions.shape[0]
+    f = torch.randn((n, 3), generator=g, device=g.device)
+    call = (plan.positions, f, plan.group_of, plan.cell_table,
+            plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
+            plan.radii_edges)
+    shares = [(n * k // N_RANKS, n * (k + 1) // N_RANKS)
+              for k in range(N_RANKS)]
+    parts = [ck.near_rpy_radii(*call, r_cut=p.r_cut, pairs=plan.radii_pairs,
+                               targets=s) for s in shares]
+    exact = torch.equal(sum(parts), ck.near_rpy_radii(
+        *call, r_cut=p.r_cut, pairs=plan.radii_pairs))
+    t0 = shares[1][0]
+    sub = (t0, t0 + 2048)
+    ref = ck.near_rpy_radii_pairs_plain(
+        plan.radii_pairs, f.double(), plan.cheb_radii.double(),
+        plan.radii_edges, p.box, r_cut=p.r_cut, targets=sub)
+    err = (parts[1][sub[0]:sub[1]].double()
+           - ref[sub[0]:sub[1]]).abs().max().item()
+    scale = ref[sub[0]:sub[1]].abs().max().item()
+    ms = cuda_ms(lambda: ck.near_rpy_radii(
+        *call, r_cut=p.r_cut, pairs=plan.radii_pairs, targets=shares[1]), 10)
+    plain = share_plain_fields(lambda k: ck.near_rpy_radii_pairs_plain(
+        plan.radii_pairs, f, plan.cheb_radii, plan.radii_edges, p.box,
+        r_cut=p.r_cut, targets=(t0, t0 + k)), shares[1][1] - t0, 4096)
+    offsets = plan.radii_pairs.offsets.long()
+    listed = int(offsets[shares[1][1]] - offsets[t0])
+    frac = (shares[1][1] - t0) / n
+    rec = dict(max_abs_err=err, ms=ms, **plain, **p2_product_bound(
+        shares[1][1] - t0, listed, listed, plan.cheb_radii.shape[-1], 1))
+    bound = u32_sqrt(27 * p.cell_capacity)
+    log(f"phase 22 P2 rank share, targets {shares[1]} of {n} ({listed} "
+        f"listed pairs): shares summed bit-identical to the full launch "
+        f"{exact}; targets {sub} vs plain f64 / max|ref| {err / scale:.3e} "
+        f"(bound {bound:.2e}); {ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}), "
+        f"{plain_text_share(rec)}")
+    check(exact, "P2 shares do not sum to the full launch")
+    check(err <= bound * scale, "P2 share disagrees")
+    records["P2"] = rec
+    # K7
+    plan = sc["wall"]
+    n = plan.n_real
+    wargs, wkw = ewald_wall.near_args(plan)
+    nx, ny, nz = plan.cell_dims
+    cz = ewald_wall._kept_layers(plan.params, plan.cell_dims)
+    cols = nx * ny
+    shares = [(cols * k // N_RANKS, cols * (k + 1) // N_RANKS)
+              for k in range(N_RANKS)]
+    dargs = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in wargs)
+    cap = plan.params.cell_capacity
+    for n_rhs in (1, 2):
+        f = torch.randn((n, 3 * n_rhs), generator=g, device=g.device)
+        parts = [ck.wall_near(plan.pos_all, f, *wargs, cz_range=cz,
+                              columns=s, **wkw) for s in shares]
+        exact = torch.equal(sum(parts), ck.wall_near(
+            plan.pos_all, f, *wargs, cz_range=cz, **wkw))
+        k0 = shares[1][0]
+        sub = (k0 * nz, (k0 + 16) * nz)
+        got = ck.wall_near(plan.pos_all, f, *wargs, cz_range=cz,
+                           columns=(k0, k0 + 16), **wkw)
+        ref = ck.wall_near_plain(plan.pos_all.double(), f.double(), *dargs,
+                                 cells_range=sub, **wkw)
+        rows = _rows_of(plan.cell_table, n, cap, sub)
+        err = (got.double()[rows] - ref[rows]).abs().max().item()
+        scale = ref[rows].abs().max().item()
+        ms = cuda_ms(lambda: ck.wall_near(plan.pos_all, f, *wargs,
+                                          cz_range=cz, columns=shares[1],
+                                          **wkw), 10)
+        plain = share_plain_fields(lambda k: ck.wall_near_plain(
+            plan.pos_all, f, *wargs, cells_range=(k0 * nz, (k0 + k) * nz),
+            **wkw), shares[1][1] - k0, 16)
+        frac = len(_rows_of(plan.cell_table, n, cap,
+                            (k0 * nz, shares[1][1] * nz))) / n
+        flops = k7_flops(ck, plan, n_rhs)[0] * frac
+        nbytes = (4 * (2 * n * 3 + 2 * n * 3 * n_rhs)
+                  + plan.cell_table.numel() * 4) * frac
+        rec = dict(max_abs_err=err, ms=ms, **plain,
+                   **bound_record(nbytes, flops))
+        log(f"phase 22 K7 B={n_rhs} rank share, columns {shares[1]} of "
+            f"{cols} ({frac:.1%} of the real targets): shares summed "
+            f"bit-identical to the full launch {exact}; 16 columns vs plain "
+            f"f64 / max|ref| {err / scale:.3e} (bound 2e-05); {ms:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / ms:.1%}), {plain_text_share(rec)}")
+        check(exact, f"K7 B={n_rhs} shares do not sum to the full launch")
+        check(err <= 2e-5 * scale, f"K7 B={n_rhs} share disagrees")
+        records[f"K7_b{n_rhs}"] = rec
+    return records
+
+
+def phase_multi_device(pk, mob, ck):
+    """Phase 22: the multi-device paths (parallel/), ranks D = 2 sharing
+    the card over gloo against D = 1 on the same inputs, and one NCCL rank.
+    The rank-share kernel records first (in this process); then the
+    ranks (parallel/spawn.py) run phase 22's products (K1 tt B = 1 and 2,
+    tt on two tensors, grand; spectral-98k B = 1 and 2, spectral-98k-radii,
+    spectral-wall-98k B = 1 and 2) and one forward-Euler and one
+    Slip-Trapz step of phase 6's scene, while this process runs them
+    unsharded; then parallel.dryrun.dryrun_multichip(2) at the JAX entry
+    point's sizes. Two ranks on one card measure the decomposition and its
+    collectives, not scaling. Returns the records and the ranks' launches
+    of each rank-share instance over the phase."""
+    from rigidmultiblobswall_tpu_torch.parallel import dryrun as pdry
+    from rigidmultiblobswall_tpu_torch.parallel import spawn as pspawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    sc = p22_scenes(dev)
+    log(f"phase 22 scenes and plans in {time.perf_counter() - t0:.1f} s")
+    records = k1_share_records(pk, mob, sc)
+    records.update(cell_share_records(ck, sc))
+    log(f"phase 22 records: {time.perf_counter() - t_phase:.1f} s")
+
+    # the ranks, started now: they build their scenes while this process
+    # runs the unsharded twins
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    ranks = pool.submit(pspawn.spawn, N_RANKS, "chip_smoke:phase22_rank",
+                        None, backend="gloo", device="cuda:0",
+                        timeout_s=P22_TIMEOUT_S, run_s=P22_RUN_S)
+    single = p22_run(None, sc)
+    del sc
+    torch.cuda.empty_cache()
+    res = ranks.result()
+    pool.shutdown()
+    log(f"phase 22 ranks: {time.perf_counter() - t0:.1f} s (their scenes "
+        f"and plans {res['scenes_s']:.1f} s)")
+    run, nccl = res["run"], res["nccl"]
+    for name, ref in single.items():
+        got = run[name]
+        scale = max(np.abs(ref["out"]).max(), 1.0 if "counts" in ref
+                    else 0.0)
+        rel = float(np.abs(got["out"] - ref["out"]).max() / scale)
+        tol = (P22_STEP_TOL if "counts" in ref else
+               P22_TOL_WALL if "wall" in name else P22_TOL)
+        text = (f"phase 22 {name}: D=1 {ref['ms']:.2f} ms, D={N_RANKS} "
+                f"{got['ms']:.2f} ms; D={N_RANKS} vs D=1 / max|ref| "
+                f"{rel:.3e} (tol {tol:g})")
+        if name in nccl:
+            nrel = float(np.abs(nccl[name]["out"] - ref["out"]).max()
+                         / scale)
+            text += (f"; NCCL D=1 {nccl[name]['ms']:.2f} ms, vs D=1 "
+                     f"{nrel:.3e}")
+            check(nrel <= tol, f"phase 22 {name}: the NCCL rank disagrees")
+        if "counts" in ref:
+            diff = [abs(a - b) for a, b in zip(got["counts"], ref["counts"])]
+            text += (f"; gmres, lanczos D=1 {ref['counts']}, D={N_RANKS} "
+                     f"{got['counts']}" + (f" (differ by {diff})"
+                                           if any(diff) else ""))
+            check(max(diff) <= 1, f"phase 22 {name}: solver counts differ "
+                  f"by more than one: {ref['counts']} {got['counts']}")
+        log(text)
+        check(np.all(np.isfinite(got["out"])), f"phase 22 {name} not finite")
+        check(rel <= tol, f"phase 22 {name}: D={N_RANKS} disagrees with D=1")
+    for label, counts in (("gloo", res["counts"]),
+                          ("NCCL", res["nccl_counts"])):
+        log(f"phase 22 collectives ({label}, rank 0): " + ", ".join(
+            f"{k} {c} calls {b / 2 ** 20:.1f} MiB" for k, (c, b) in
+            counts.items()))
+    log(f"phase 22 replicated wave products: {res['replicated']}")
+    check(res["replicated"]["wall"]["grid"] == 0
+          and res["replicated"]["spectral"]["grid"] == 0,
+          "phase 22: a wave part ran replicated on a divisible grid")
+    t0 = time.perf_counter()
+    dry = pdry.dryrun_multichip(N_RANKS, device="cuda:0", run_s=P22_RUN_S)
+    for which, r in dry["paths"].items():
+        log(f"phase 22 dryrun_multichip({N_RANKS}) {which}: rel "
+            f"{r['rel']:.3e} (tol 5e-05), counts {r['counts']} (single rank "
+            f"{r['counts_single']}), {r['s'] * 1e3:.0f} ms (single rank "
+            f"{r['s_single'] * 1e3:.0f} ms)")
+    log(f"phase 22 dryrun: {time.perf_counter() - t0:.1f} s")
+    launches = dict(res["share_launches"])
+    for k, v in dry["share_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 22 rank-share launches (rank 0): {launches}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return records, launches
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -7599,6 +8168,7 @@ def main():
         pk, mc, ck, lap, mob, kin, report)
     dom_records, dom_launches = phase_domains(              # phase 21
         pk, mc, ck, lap, mob, kin, report)
+    p22_records, p22_launches = phase_multi_device(pk, mob, ck)  # 22
 
     k1_src = {"tt": "rigidmultiblobswall_tpu_torch/csrc/pair_tt.cu"}
     # each record counts the launches of its own instance (rt and grand
@@ -7820,6 +8390,42 @@ def main():
                             **dom_records[key]))
         check(kernels[-1]["launches"] > 0, f"phase 21: {name} was not "
               "launched on its path")
+    # phase 22's rank-share instances at its shapes, with the ranks'
+    # launches over the phase (rank 0's; every rank launches as many)
+    for key, name, src, rep, launch in (
+            ("tt", "K1 pair_tt rank share (group pairs)", SHARE_SRC["K1"],
+             "rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+             "K1 tt B=1 sym"),
+            ("tt_b2", "K1 pair_tt rank share (group pairs) B=2",
+             SHARE_SRC["K1"],
+             "rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+             "K1 tt B=2 sym"),
+            ("grand", "K1 pair_grand rank share (group pairs)",
+             SHARE_SRC["grand"],
+             "rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+             "K1 grand B=1 sym"),
+            ("tt_rows", "K1 pair_tt rank share (rows from row0)",
+             SHARE_SRC["K1"],
+             "rigidmultiblobswall_tpu/ops/pair_kernels.py:254",
+             "K1 tt B=1 sliced"),
+            ("K6_b1", "K6 near_rpy rank share (cells)", SHARE_SRC["K6"],
+             "rigidmultiblobswall_tpu/ops/ewald.py:1375", "near_rpy_b1"),
+            ("K6_b2", "K6 near_rpy rank share (cells) B=2", SHARE_SRC["K6"],
+             "rigidmultiblobswall_tpu/ops/ewald.py:1375", "near_rpy_b2"),
+            ("P2", "P2 near_rpy_radii rank share (targets)",
+             SHARE_SRC["P2"], "rigidmultiblobswall_tpu/ops/ewald.py:1222",
+             "near_rpy_radii_b1"),
+            ("K7_b1", "K7 wall_near rank share (columns)", SHARE_SRC["K7"],
+             "rigidmultiblobswall_tpu/ops/ewald_wall.py:942",
+             "wall_near_b1"),
+            ("K7_b2", "K7 wall_near rank share (columns) B=2",
+             SHARE_SRC["K7"], "rigidmultiblobswall_tpu/ops/ewald_wall.py:942",
+             "wall_near_b2")):
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=p22_launches.get(launch, 0),
+                            **p22_records[key]))
+        check(kernels[-1]["launches"] > 0, f"phase 22: {name} was not "
+              "launched by the ranks")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -265,7 +265,7 @@ product_kernel(const T* __restrict__ rows, const T* __restrict__ f,
                const unsigned* __restrict__ entries,
                const T* __restrict__ cheb, const T* __restrict__ edges,
                T* __restrict__ out, int n, int K, int G, double Lx,
-               double Ly, double Lz) {
+               double Ly, double Lz, int t0, int t1) {
   constexpr int NF = 3 * B;
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_tab = reinterpret_cast<T*>(smem);
@@ -278,7 +278,8 @@ product_kernel(const T* __restrict__ rows, const T* __restrict__ f,
   const int warps = blockDim.x / 32;
   const int lane = threadIdx.x % 32;
 
-  for (int i = blockIdx.x * warps + threadIdx.x / 32; i < n;
+  // targets [t0, t1) (a rank's share, or every target), one warp each
+  for (int i = t0 + blockIdx.x * warps + threadIdx.x / 32; i < t1;
        i += gridDim.x * warps) {
     T ti[4];
     cellk::load_vec<4>(rows + 4 * static_cast<size_t>(i), ti);
@@ -328,10 +329,11 @@ template <typename T, int B>
 int launch_product(const T* rows, const T* f, const int* offsets,
                    const unsigned* entries, const T* cheb, const T* edges,
                    T* out, int n, int K, int G, double Lx, double Ly,
-                   double Lz, void* stream) {
-  if (K < 1 || K > kMaxCheb || G < 1 || G > kMaxGroups || n < 0)
+                   double Lz, int t0, int t1, void* stream) {
+  if (K < 1 || K > kMaxCheb || G < 1 || G > kMaxGroups || n < 0 || t0 < 0 ||
+      t1 < t0 || t1 > n)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+  if (t1 == t0) return 0;
   // the tables take up to 108 KB in float64 at G = 8: raise the
   // instance's limit of dynamic shared memory to this launch's size
   const size_t bytes = sizeof(T) * table_len(G) + sizeof(double) * 3 * kCodes;
@@ -349,13 +351,15 @@ int launch_product(const T* rows, const T* f, const int* offsets,
         &per_sm, product_kernel<T, B>, kThreads, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int warps = kThreads / 32;
-  const long long want = (static_cast<long long>(n) + warps - 1) / warps;
+  const long long want =
+      (static_cast<long long>(t1 - t0) + warps - 1) / warps;
   const long long fit = static_cast<long long>(per_sm > 0 ? per_sm : 1) *
                         (n_sm > 0 ? n_sm : 1);
   const int grid = static_cast<int>(want < fit ? want : fit);
   product_kernel<T, B><<<grid, kThreads, bytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      rows, f, offsets, entries, cheb, edges, out, n, K, G, Lx, Ly, Lz);
+      rows, f, offsets, entries, cheb, edges, out, n, K, G, Lx, Ly, Lz, t0,
+      t1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,15 +386,17 @@ PAIRS_ENTRY(near_radii_pairs_f64, double)
 
 // The product: rows (n,4) the list's positions with the radius group in w,
 // f (n,3B) b-major columns, offsets and entries the list, cheb (G,G,3,2,K)
-// and edges (G,G,8) (ops/ewald.radii_edge_table); out (n,3B), every row
-// written; all contiguous on the device.
+// and edges (G,G,8) (ops/ewald.radii_edge_table); out (n,3B), the rows of
+// the targets [t0, t1) written (every row for [0, n); a rank's share
+// leaves the others as the caller set them); all contiguous on the device.
 #define PRODUCT_ENTRY(NAME, T, B)                                            \
   extern "C" int NAME(const T* rows, const T* f, const int* offsets,        \
                       const unsigned* entries, const T* cheb,               \
                       const T* edges, T* out, int n, int K, int G,          \
-                      double Lx, double Ly, double Lz, void* stream) {      \
+                      double Lx, double Ly, double Lz, int t0, int t1,      \
+                      void* stream) {                                       \
     return launch_product<T, B>(rows, f, offsets, entries, cheb, edges, out, \
-                                n, K, G, Lx, Ly, Lz, stream);               \
+                                n, K, G, Lx, Ly, Lz, t0, t1, stream);       \
   }
 
 PRODUCT_ENTRY(near_rpy_radii_f32_b1, float, 1)

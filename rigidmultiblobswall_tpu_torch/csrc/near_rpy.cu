@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(cellk::kThreads, (cellk::min_blocks<T>(4)))
 near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
                 const int* __restrict__ table, const T* __restrict__ cheb,
                 T* __restrict__ out, Grid g, double Lx, double Ly, double Lz,
-                int K, cellk::Remainder<T> rem) {
+                int K, cellk::Remainder<T> rem, int cell0) {
   constexpr int NF = 3 * B;
   constexpr int FR = f_row<B>();
   constexpr int kSrc = Walk<T>::kSrc;
@@ -142,9 +142,12 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
   int* s_id = reinterpret_cast<int*>(s_ring + warps * kRingSlots);
   __shared__ cellk::Stencil st;
 
-  if (cellk::empty_cell(table, blockIdx.x, g)) return;   // uniform
+  // the block's target cell: cells [cell0, cell0 + gridDim.x) of a
+  // launch (a rank's share, or every cell)
+  const int cell = cell0 + static_cast<int>(blockIdx.x);
+  if (cellk::empty_cell(table, cell, g)) return;   // uniform
   cellk::stage_cheb(cheb, K, s_cheb);
-  cellk::load_stencil(st, table, blockIdx.x, g, Lx, Ly, Lz);  // a barrier
+  cellk::load_stencil(st, table, cell, g, Lx, Ly, Lz);  // a barrier
   const int n_tgt = st.start[14] - st.start[13];
   const int* own = table + static_cast<size_t>(st.cell[13]) * g.cap;
   const int total = st.start[27];
@@ -249,9 +252,12 @@ near_rpy_kernel(const T* __restrict__ pos, const T* __restrict__ f,
 template <typename T, int B>
 int launch(const T* pos, const T* f, const int* table, const T* cheb,
            T* out, int n, int nx, int ny, int nz, int cap, int K, double Lx,
-           double Ly, double Lz, double two_a, double r_cut, void* stream) {
-  if (K < 1 || K > kMaxCheb || cap < 1)
+           double Ly, double Lz, double two_a, double r_cut, int c0, int c1,
+           void* stream) {
+  if (K < 1 || K > kMaxCheb || cap < 1 || c0 < 0 || c1 < c0 ||
+      c1 > nx * ny * nz)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (c1 == c0) return 0;   // an empty share launches nothing
   // the staged tile and the rings take more than the 48 KB of static
   // shared memory: raise the instance's limit to this launch's size
   const size_t bytes = smem_bytes<T, B>(cap);
@@ -260,10 +266,10 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
       static_cast<int>(bytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Grid g{n, nx, ny, nz, cap};
-  near_rpy_kernel<T, B><<<nx * ny * nz, cellk::kThreads, bytes,
+  near_rpy_kernel<T, B><<<c1 - c0, cellk::kThreads, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
       pos, f, table, cheb, out, g, Lx, Ly, Lz, K,
-      cellk::make_remainder<T>(K, two_a, r_cut));
+      cellk::make_remainder<T>(K, two_a, r_cut), c0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,14 +278,17 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
 // pos (n,3) plan positions, f (n,3B) b-major columns, table (nx ny nz cap,)
 // int32 from ops/cells.cell_bin, cheb (2,2,K) the piecewise coefficients,
 // out (n,3B) zeroed by the caller (dropped particles keep their zero row);
-// all contiguous on the device. Returns the CUDA error code of the launch.
+// the target cells [c0, c1) of the nx ny nz (a rank's share writes the
+// rows of its cells' particles alone); all contiguous on the device.
+// Returns the CUDA error code of the launch.
 #define NEAR_ENTRY(NAME, T, B)                                               \
   extern "C" int NAME(const T* pos, const T* f, const int* table,           \
                       const T* cheb, T* out, int n, int nx, int ny, int nz, \
                       int cap, int K, double Lx, double Ly, double Lz,      \
-                      double two_a, double r_cut, void* stream) {           \
+                      double two_a, double r_cut, int c0, int c1,           \
+                      void* stream) {                                       \
     return launch<T, B>(pos, f, table, cheb, out, n, nx, ny, nz, cap, K, Lx, \
-                        Ly, Lz, two_a, r_cut, stream);                      \
+                        Ly, Lz, two_a, r_cut, c0, c1, stream);              \
   }
 
 NEAR_ENTRY(near_rpy_f32_b1, float, 1)

@@ -1057,12 +1057,13 @@ __device__ __forceinline__ void add_pair_both(const G& geom, T xi, T yi,
 // One block: 128 target rows against the sources of slice blockIdx.y,
 // sources [blockIdx.y * tiles_per_slice * 128, +tiles_per_slice * 128)
 // clipped to n_src. Writes out[blockIdx.y][i][:] (the workspace when
-// S > 1).
+// S > 1). Target i is source row0 + i for the self pair.
 template <typename T, typename C, int B, bool WALL, typename G>
 __global__ void __launch_bounds__(kTile, (Shape<T, G>::kMinBlocks))
 pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
             const T* __restrict__ vec, T* __restrict__ out, int n_src,
-            int n_tgt, int tiles_per_slice, int self_interaction, G geom) {
+            int n_tgt, int tiles_per_slice, int self_interaction, int row0,
+            G geom) {
   constexpr int NV = C::kComp * B;
   constexpr int L = RowLen<T, NV>::value;
   __shared__ __align__(16) T s_src[kTile][L];
@@ -1092,9 +1093,10 @@ pair_kernel(const T* __restrict__ q_src, const T* __restrict__ q_tgt,
     }
     __syncthreads();
     const int count = min(kTile, j_end - base);
-    // the tile index of the target's self pair (never matched when the
-    // target is not in this tile)
-    const int self_k = self_interaction ? i - base : -1;
+    // the tile index of the target's self pair, source row0 + i (never
+    // matched when that source is not in this tile); row0 > 0 when the
+    // targets are rows [row0, row0 + n_tgt) of the sources (a rank's share)
+    const int self_k = self_interaction ? i + row0 - base : -1;
     // per-tile partial sums, added once per tile
     T part[NV];
 #pragma unroll
@@ -1303,14 +1305,14 @@ template <typename T, typename C, int B, bool WALL, typename G>
 __global__ void __launch_bounds__(kTile, (Shape<T, G>::kMinBlocks))
 sym_kernel(const T* __restrict__ q, const T* __restrict__ vec,
            T* __restrict__ ws, int n, int n_groups, int tiles_per_group,
-           int self_interaction, G geom) {
+           int self_interaction, long long pair0, G geom) {
   constexpr int NV = C::kComp * B;
   constexpr int L = RowLen<T, NV>::value;
   __shared__ __align__(16) T s_src[kTile][L];
   __shared__ T s_sum[kWarps][kTile][NV];
 
   int ga, gb;
-  group_pair(blockIdx.x, n_groups, ga, gb);
+  group_pair(pair0 + blockIdx.x, n_groups, ga, gb);
   const int n_tiles = (n + kTile - 1) / kTile;
   const int a_begin = ga * tiles_per_group;
   const int a_end = min(n_tiles, a_begin + tiles_per_group);
@@ -1506,7 +1508,7 @@ template <typename T, int B>
 __global__ void __launch_bounds__(kThreads2, (Shape2<T, B>::kMinBlocks))
 sym2_kernel(const T* __restrict__ q, const T* __restrict__ vec,
             T* __restrict__ ws, int n, int n_groups, int tiles_per_group,
-            int self_interaction) {
+            int self_interaction, long long pair0) {
   constexpr int NV = 3 * B;
   constexpr int L = RowLen<T, NV>::value;
   __shared__ __align__(16) T s_src[kTile][L];
@@ -1514,7 +1516,7 @@ sym2_kernel(const T* __restrict__ q, const T* __restrict__ vec,
   __shared__ T s_box[kWarps2][7];
 
   int ga, gb;
-  group_pair(blockIdx.x, n_groups, ga, gb);
+  group_pair(pair0 + blockIdx.x, n_groups, ga, gb);
   const int n_tiles = (n + kTile - 1) / kTile;
   const int a_begin = ga * tiles_per_group;
   const int a_end = min(n_tiles, a_begin + tiles_per_group);
@@ -1640,11 +1642,12 @@ sym2_kernel(const T* __restrict__ q, const T* __restrict__ vec,
 template <typename T, typename C, int B, bool WALL, typename G>
 int launch_bw(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
               int n_src, int n_tgt, int n_slices, int tiles_per_slice,
-              int self_interaction, const G& geom, cudaStream_t s) {
+              int self_interaction, int row0, const G& geom,
+              cudaStream_t s) {
   const dim3 grid((n_tgt + kTile - 1) / kTile, n_slices);
   pair_kernel<T, C, B, WALL, G><<<grid, kTile, 0, s>>>(
       q_src, q_tgt, vec, n_slices > 1 ? ws : out, n_src, n_tgt,
-      tiles_per_slice, self_interaction, geom);
+      tiles_per_slice, self_interaction, row0, geom);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
   const long long n = static_cast<long long>(n_tgt) * C::kComp * B;
@@ -1671,11 +1674,12 @@ int with_wall(int mode, F&& f) {
 template <typename T, typename C, int B, typename G>
 int launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
              int n_src, int n_tgt, int n_slices, int tiles_per_slice,
-             int wall, int self_interaction, const G& geom, cudaStream_t s) {
+             int wall, int self_interaction, int row0, const G& geom,
+             cudaStream_t s) {
   return with_wall<C>(wall, [&](auto w) {
     return launch_bw<T, C, B, decltype(w)::value>(
         q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_slices, tiles_per_slice,
-        self_interaction, geom, s);
+        self_interaction, row0, geom, s);
   });
 }
 
@@ -1683,27 +1687,28 @@ int launch_b(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
 // columns, out (n_tgt, kComp*n_rhs), ws (n_slices, n_tgt, kComp*n_rhs)
 // when n_slices > 1 (else unused); all contiguous on the device;
 // 1 <= n_rhs <= kMaxRhs, n_src, n_tgt > 0, slices of tiles_per_slice
-// 128-source tiles covering n_src. Returns the CUDA error code of the
-// launches (0 on success).
+// 128-source tiles covering n_src; target i is source row0 + i for the
+// self pair (0 <= row0). Returns the CUDA error code of the launches (0
+// on success).
 template <typename T, typename C, typename G>
 int launch(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
            int n_src, int n_tgt, int n_rhs, int n_slices,
-           int tiles_per_slice, int wall, int self_interaction, const G& geom,
-           void* stream) {
+           int tiles_per_slice, int wall, int self_interaction, int row0,
+           const G& geom, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_slices < 1 || n_slices > 65535 || tiles_per_slice < 1 ||
+  if (n_slices < 1 || n_slices > 65535 || tiles_per_slice < 1 || row0 < 0 ||
       static_cast<long long>(n_slices) * tiles_per_slice * kTile < n_src ||
       (n_slices > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rhs == 1)
     return launch_b<T, C, 1>(q_src, q_tgt, vec, out, ws, n_src, n_tgt,
                              n_slices, tiles_per_slice, wall,
-                             self_interaction, geom, s);
+                             self_interaction, row0, geom, s);
   if constexpr (C::kMaxRhs >= 2) {
     if (n_rhs == 2)
       return launch_b<T, C, 2>(q_src, q_tgt, vec, out, ws, n_src, n_tgt,
                                n_slices, tiles_per_slice, wall,
-                               self_interaction, geom, s);
+                               self_interaction, row0, geom, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1740,18 +1745,22 @@ int shape(int n_rhs, int wall, int images, int* blocks_per_sm) {
 template <typename T, typename C, int B, bool WALL, typename G>
 int launch_sym_bw(const T* q, const T* vec, T* out, T* ws, int n,
                   int n_groups, int tiles_per_group, int self_interaction,
-                  const G& geom, cudaStream_t s) {
-  const long long n_pairs =
-      static_cast<long long>(n_groups) * (n_groups + 1) / 2;
-  if constexpr (C::kFreeSurface && !G::kImages)
-    sym2_kernel<T, B>
-        <<<static_cast<unsigned>(n_pairs), kThreads2, 0, s>>>(
-            q, vec, ws, n, n_groups, tiles_per_group, self_interaction);
-  else
-    sym_kernel<T, C, B, WALL, G>
-        <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
-            q, vec, ws, n, n_groups, tiles_per_group, self_interaction,
-            geom);
+                  long long pair0, long long n_pairs, const G& geom,
+                  cudaStream_t s) {
+  // a rank's share launches no block when its range is empty: its
+  // (zeroed) workspace still sums into a zero partial
+  if (n_pairs > 0) {
+    if constexpr (C::kFreeSurface && !G::kImages)
+      sym2_kernel<T, B>
+          <<<static_cast<unsigned>(n_pairs), kThreads2, 0, s>>>(
+              q, vec, ws, n, n_groups, tiles_per_group, self_interaction,
+              pair0);
+    else
+      sym_kernel<T, C, B, WALL, G>
+          <<<static_cast<unsigned>(n_pairs), kTile, 0, s>>>(
+              q, vec, ws, n, n_groups, tiles_per_group, self_interaction,
+              pair0, geom);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = static_cast<long long>(n) * C::kComp * B;
@@ -1763,36 +1772,46 @@ int launch_sym_bw(const T* q, const T* vec, T* out, T* ws, int n,
 template <typename T, typename C, int B, typename G>
 int launch_sym_b(const T* q, const T* vec, T* out, T* ws, int n,
                  int n_groups, int tiles_per_group, int wall,
-                 int self_interaction, const G& geom, cudaStream_t s) {
+                 int self_interaction, long long pair0, long long n_pairs,
+                 const G& geom, cudaStream_t s) {
   return with_wall<C>(wall, [&](auto w) {
     return launch_sym_bw<T, C, B, decltype(w)::value>(
-        q, vec, out, ws, n, n_groups, tiles_per_group, self_interaction, geom,
-        s);
+        q, vec, out, ws, n, n_groups, tiles_per_group, self_interaction,
+        pair0, n_pairs, geom, s);
   });
 }
 
 // q (n,3), vec (n, kComp*n_rhs) b-major columns, out (n, kComp*n_rhs), ws
 // (n_groups, n, kComp*n_rhs); all contiguous on the device; n > 0,
 // 1 <= n_rhs <= kMaxRhs, groups of tiles_per_group 128-blob tiles
-// covering n. Returns the CUDA error code of the launches.
+// covering n. The sweep takes the group pairs [pair0, pair0 + n_pairs) of
+// the G (G + 1) / 2 (a rank's share; all of them for the whole product):
+// out is then that share's partial product, provided the caller zeroed
+// ws (the slices of the pairs left out are never written). Returns the
+// CUDA error code of the launches.
 template <typename T, typename C, typename G>
 int launch_sym(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
                int n_groups, int tiles_per_group, int wall,
-               int self_interaction, const G& geom, void* stream) {
+               int self_interaction, int pair0, int n_pairs, const G& geom,
+               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total =
+      static_cast<long long>(n_groups) * (n_groups + 1) / 2;
   if (n < 1 || ws == nullptr || n_groups < 1 || n_groups > 65535 ||
       tiles_per_group < 1 ||
-      static_cast<long long>(n_groups) * tiles_per_group * kTile < n)
+      static_cast<long long>(n_groups) * tiles_per_group * kTile < n ||
+      pair0 < 0 || n_pairs < 0 ||
+      static_cast<long long>(pair0) + n_pairs > total)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rhs == 1)
     return launch_sym_b<T, C, 1>(q, vec, out, ws, n, n_groups,
                                  tiles_per_group, wall, self_interaction,
-                                 geom, s);
+                                 pair0, n_pairs, geom, s);
   if constexpr (C::kMaxRhs >= 2) {
     if (n_rhs == 2)
       return launch_sym_b<T, C, 2>(q, vec, out, ws, n, n_groups,
                                    tiles_per_group, wall, self_interaction,
-                                   geom, s);
+                                   pair0, n_pairs, geom, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1856,24 +1875,25 @@ int with_boxes(const double* L, int n_boxes, const double* off,
 template <typename T, typename C>
 int launch_img(const T* q_src, const T* q_tgt, const T* vec, T* out, T* ws,
                int n_src, int n_tgt, int n_rhs, int n_slices,
-               int tiles_per_slice, int wall, int self_interaction,
+               int tiles_per_slice, int wall, int self_interaction, int row0,
                const double* L, int n_boxes, const double* off, void* stream) {
   return with_boxes<T>(L, n_boxes, off, [&](const auto& g) {
     return launch<T, C>(q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs,
-                        n_slices, tiles_per_slice, wall, self_interaction, g,
-                        stream);
+                        n_slices, tiles_per_slice, wall, self_interaction,
+                        row0, g, stream);
   });
 }
 
 template <typename T, typename C>
 int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
                    int n_groups, int tiles_per_group, int wall,
-                   int self_interaction, const double* L, int n_boxes,
-                   const double* off, void* stream) {
+                   int self_interaction, int pair0, int n_pairs,
+                   const double* L, int n_boxes, const double* off,
+                   void* stream) {
   return with_boxes<T>(L, n_boxes, off, [&](const auto& g) {
     return launch_sym<T, C>(q, vec, out, ws, n, n_rhs, n_groups,
-                            tiles_per_group, wall, self_interaction, g,
-                            stream);
+                            tiles_per_group, wall, self_interaction, pair0,
+                            n_pairs, g, stream);
   });
 }
 
@@ -1881,10 +1901,11 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
 
 // per coupling: one f32 and one f64 C entry point with the signature
 // (q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,
-// tiles_per_slice, wall, self_interaction, stream), `wall` the domain
-// code of with_wall (the couplings 0 or 1, the free surface 2), their
-// image-box instances NAME_img_f32 / _f64 with (L, n_boxes, off) before
-// the stream
+// tiles_per_slice, wall, self_interaction, row0, stream), `wall` the
+// domain code of with_wall (the couplings 0 or 1, the free surface 2),
+// row0 the source row of target 0 for the self pair (0, or a rank's first
+// row when its targets are a share of the sources), their image-box
+// instances NAME_img_f32 / _f64 with (L, n_boxes, off) before the stream
 // (host arrays in blob radii: the box, 0 on an open axis, and the boxes'
 // offsets b L, the home box first; with_boxes picks the policy), and
 // NAME_shape(f64, n_rhs, wall, images, &blocks_per_sm), images 0, 1 or 2
@@ -1894,39 +1915,42 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
                             const float* vec, float* out, float* ws,         \
                             int n_src, int n_tgt, int n_rhs, int n_slices,   \
                             int tiles_per_slice, int wall,                   \
-                            int self_interaction, void* stream) {            \
+                            int self_interaction, int row0, void* stream) {  \
     return pairk::launch<float, COUPLING>(                                   \
         q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
-        tiles_per_slice, wall, self_interaction, pairk::OpenBox<float>(),    \
-        stream);                                                             \
+        tiles_per_slice, wall, self_interaction, row0,                       \
+        pairk::OpenBox<float>(), stream);                                    \
   }                                                                          \
   extern "C" int NAME##_f64(const double* q_src, const double* q_tgt,        \
                             const double* vec, double* out, double* ws,      \
                             int n_src, int n_tgt, int n_rhs, int n_slices,   \
                             int tiles_per_slice, int wall,                   \
-                            int self_interaction, void* stream) {            \
+                            int self_interaction, int row0, void* stream) {  \
     return pairk::launch<double, COUPLING>(                                  \
         q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
-        tiles_per_slice, wall, self_interaction, pairk::OpenBox<double>(),   \
-        stream);                                                             \
+        tiles_per_slice, wall, self_interaction, row0,                       \
+        pairk::OpenBox<double>(), stream);                                   \
   }                                                                          \
   extern "C" int NAME##_img_f32(                                             \
       const float* q_src, const float* q_tgt, const float* vec, float* out,  \
       float* ws, int n_src, int n_tgt, int n_rhs, int n_slices,              \
-      int tiles_per_slice, int wall, int self_interaction, const double* L,  \
-      int n_boxes, const double* off, void* stream) {                        \
+      int tiles_per_slice, int wall, int self_interaction, int row0,         \
+      const double* L, int n_boxes, const double* off, void* stream) {       \
     return pairk::launch_img<float, COUPLING>(                               \
         q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
-        tiles_per_slice, wall, self_interaction, L, n_boxes, off, stream);   \
+        tiles_per_slice, wall, self_interaction, row0, L, n_boxes, off,      \
+        stream);                                                             \
   }                                                                          \
   extern "C" int NAME##_img_f64(                                             \
       const double* q_src, const double* q_tgt, const double* vec,           \
       double* out, double* ws, int n_src, int n_tgt, int n_rhs,              \
       int n_slices, int tiles_per_slice, int wall, int self_interaction,     \
-      const double* L, int n_boxes, const double* off, void* stream) {       \
+      int row0, const double* L, int n_boxes, const double* off,             \
+      void* stream) {                                                        \
     return pairk::launch_img<double, COUPLING>(                              \
         q_src, q_tgt, vec, out, ws, n_src, n_tgt, n_rhs, n_slices,           \
-        tiles_per_slice, wall, self_interaction, L, n_boxes, off, stream);   \
+        tiles_per_slice, wall, self_interaction, row0, L, n_boxes, off,      \
+        stream);                                                             \
   }                                                                          \
   extern "C" int NAME##_shape(int f64, int n_rhs, int wall, int images,      \
                               int* blocks_per_sm) {                          \
@@ -1938,40 +1962,43 @@ int launch_sym_img(const T* q, const T* vec, T* out, T* ws, int n, int n_rhs,
 
 // the symmetric sweep of a square product: NAME_f32 / NAME_f64 (q, vec,
 // out, ws, n, n_rhs, n_groups, tiles_per_group, wall, self_interaction,
-// stream), and its image-box instances NAME_img_f32 / _f64 with (L,
+// pair0, n_pairs, stream), the group pairs [pair0, pair0 + n_pairs) of
+// launch_sym, and its image-box instances NAME_img_f32 / _f64 with (L,
 // n_boxes, off) before the stream
 #define PAIRK_SYM_ENTRY(NAME, COUPLING)                                      \
   extern "C" int NAME##_f32(const float* q, const float* vec, float* out,    \
                             float* ws, int n, int n_rhs, int n_groups,       \
                             int tiles_per_group, int wall,                   \
-                            int self_interaction, void* stream) {            \
+                            int self_interaction, int pair0, int n_pairs,    \
+                            void* stream) {                                  \
     return pairk::launch_sym<float, COUPLING>(                               \
         q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
-        self_interaction, pairk::OpenBox<float>(), stream);                  \
+        self_interaction, pair0, n_pairs, pairk::OpenBox<float>(), stream);  \
   }                                                                          \
   extern "C" int NAME##_f64(const double* q, const double* vec, double* out, \
                             double* ws, int n, int n_rhs, int n_groups,      \
                             int tiles_per_group, int wall,                   \
-                            int self_interaction, void* stream) {            \
+                            int self_interaction, int pair0, int n_pairs,    \
+                            void* stream) {                                  \
     return pairk::launch_sym<double, COUPLING>(                              \
         q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
-        self_interaction, pairk::OpenBox<double>(), stream);                 \
+        self_interaction, pair0, n_pairs, pairk::OpenBox<double>(), stream); \
   }                                                                          \
   extern "C" int NAME##_img_f32(                                             \
       const float* q, const float* vec, float* out, float* ws, int n,        \
       int n_rhs, int n_groups, int tiles_per_group, int wall,                \
-      int self_interaction, const double* L, int n_boxes,                    \
-      const double* off, void* stream) {                                    \
+      int self_interaction, int pair0, int n_pairs, const double* L,         \
+      int n_boxes, const double* off, void* stream) {                        \
     return pairk::launch_sym_img<float, COUPLING>(                           \
         q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
-        self_interaction, L, n_boxes, off, stream);                          \
+        self_interaction, pair0, n_pairs, L, n_boxes, off, stream);          \
   }                                                                          \
   extern "C" int NAME##_img_f64(                                             \
       const double* q, const double* vec, double* out, double* ws, int n,    \
       int n_rhs, int n_groups, int tiles_per_group, int wall,                \
-      int self_interaction, const double* L, int n_boxes,                    \
-      const double* off, void* stream) {                                    \
+      int self_interaction, int pair0, int n_pairs, const double* L,         \
+      int n_boxes, const double* off, void* stream) {                        \
     return pairk::launch_sym_img<double, COUPLING>(                          \
         q, vec, out, ws, n, n_rhs, n_groups, tiles_per_group, wall,          \
-        self_interaction, L, n_boxes, off, stream);                          \
+        self_interaction, pair0, n_pairs, L, n_boxes, off, stream);          \
   }

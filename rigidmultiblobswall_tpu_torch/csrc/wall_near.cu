@@ -219,7 +219,7 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
                  const int* __restrict__ table, const T* __restrict__ cheb,
                  const T* __restrict__ img, T* __restrict__ out, Grid g,
                  int n_real, int cz_lo, int nkz, double Lx, double Ly,
-                 double Lz, double z0, WallScalars<T> sc) {
+                 double Lz, double z0, WallScalars<T> sc, int col0) {
   constexpr int NF = 3 * B;
   constexpr int kSrc = Walk<T>::kSrc;
   static_assert(kSrc % 64 == 0, "a padded tile holds whole 64-steps");
@@ -243,7 +243,10 @@ wall_near_kernel(const T* __restrict__ pos, const T* __restrict__ f,
     const int p = i / (kImg * sc.Ki), q = (i / sc.Ki) % kImg, k = i % sc.Ki;
     s_img[p * kImgPiece + k * kImgRow + q] = img[i];
   }
-  const int c = (blockIdx.x / nkz) * g.nz + cz_lo + blockIdx.x % nkz;
+  // (x, y) column col0 + blockIdx.x / nkz of a launch (a rank's share of
+  // the columns, or every one), z layer cz_lo + blockIdx.x % nkz
+  const int c = (col0 + static_cast<int>(blockIdx.x) / nkz) * g.nz + cz_lo +
+                static_cast<int>(blockIdx.x) % nkz;
   // no real target (the reals are a prefix of the live slots): uniform
   if (table[static_cast<size_t>(c) * g.cap] >= n_real) return;
   cellk::load_stencil(st, table, c, g, Lx, Ly, Lz);   // ends in a barrier
@@ -305,10 +308,12 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
            int K, int Ki, int cz_lo, int cz_hi, double Lx, double Ly,
            double Lz, double two_a, double r_cut, double z0, double a,
            double pref_img, double ir_lo, double ir_mid, double ir_hi,
-           void* stream) {
+           int col0, int col1, void* stream) {
   if (K < 1 || K > kMaxCheb || Ki < 1 || Ki > kMaxCheb || cz_lo < 0 ||
-      cz_hi >= nz || cz_hi < cz_lo || cap < 1)
+      cz_hi >= nz || cz_hi < cz_lo || cap < 1 || col0 < 0 || col1 < col0 ||
+      col1 > nx * ny)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (col1 == col0) return 0;   // an empty share launches nothing
   // the staged tile, the targets and the rings take more than the 48 KB of
   // static shared memory: raise the instance's limit to this launch's size
   const size_t bytes = smem_bytes<T, B>(cap);
@@ -324,10 +329,10 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
       T(2.0 / (ir_mid - ir_lo)), T(0.5 * (ir_hi + ir_mid)),
       T(2.0 / (ir_hi - ir_mid))};
   const int nkz = cz_hi - cz_lo + 1;
-  wall_near_kernel<T, B><<<nx * ny * nkz, cellk::kThreads, bytes,
+  wall_near_kernel<T, B><<<(col1 - col0) * nkz, cellk::kThreads, bytes,
                            static_cast<cudaStream_t>(stream)>>>(
       pos, f, table, cheb, img, out, g, n_real, cz_lo, nkz, Lx, Ly, Lz, z0,
-      sc);
+      sc, col0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,8 +343,10 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
 // from ops/cells.cell_bin over (Lx, Ly, Lz) (sentinel 2 n_real), cheb
 // (2, 2, K) the RPY remainder's pieces, img (2, 10, Ki) the image radial
 // series, out (n_real, 3B) zeroed by the caller (dropped particles keep
-// their zero row); target cells on the z layers [cz_lo, cz_hi]; all
-// contiguous on the device. Returns the CUDA error code of the launch.
+// their zero row); target cells on the z layers [cz_lo, cz_hi] of the
+// (x, y) columns [col0, col1) of the nx ny (a rank's share writes the rows
+// of its columns' real particles alone); all contiguous on the device.
+// Returns the CUDA error code of the launch.
 #define WALL_ENTRY(NAME, T, B)                                                \
   extern "C" int NAME(const T* pos, const T* f, const int* table,            \
                       const T* cheb, const T* img, T* out, int n_real,       \
@@ -347,10 +354,11 @@ int launch(const T* pos, const T* f, const int* table, const T* cheb,
                       int cz_lo, int cz_hi, double Lx, double Ly, double Lz, \
                       double two_a, double r_cut, double z0, double a,       \
                       double pref_img, double ir_lo, double ir_mid,          \
-                      double ir_hi, void* stream) {                          \
+                      double ir_hi, int col0, int col1, void* stream) {      \
     return launch<T, B>(pos, f, table, cheb, img, out, n_real, nx, ny, nz,   \
                         cap, K, Ki, cz_lo, cz_hi, Lx, Ly, Lz, two_a, r_cut,  \
-                        z0, a, pref_img, ir_lo, ir_mid, ir_hi, stream);      \
+                        z0, a, pref_img, ir_lo, ir_mid, ir_hi, col0, col1,   \
+                        stream);                                             \
   }
 
 WALL_ENTRY(wall_near_f32_b1, float, 1)

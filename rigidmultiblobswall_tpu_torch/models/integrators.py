@@ -78,6 +78,7 @@ from ..ops import forces as force_ops
 from ..ops.gmres import RecycleState
 from ..ops import quaternion as quat
 from ..ops.lanczos import stochastic_forcing_lanczos
+from ..parallel import mesh as mesh_mod
 from . import articulated as art_mod
 from . import kinematics as kin
 from . import saddle, solvers
@@ -1009,7 +1010,9 @@ def make_stepper(system: System, scheme: str, dt: float, *,
     (init_carry(recycle_k=k)); with recycle_k > 0 a carry without one
     starts an empty one of k directions at the first step. Every attempt
     of a step starts from the step's recycle state, and the carry keeps
-    the last attempt's."""
+    the last attempt's. Under system.mesh every rank runs the step: its
+    decisions are rank 0's (parallel/mesh.replicated), and every rank
+    leaves it with rank 0's state."""
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; "
                          f"available: {sorted(_SCHEMES)}")
@@ -1022,6 +1025,16 @@ def make_stepper(system: System, scheme: str, dt: float, *,
                       check_every=lanczos_check_every)
 
     def run(state: State, generator: torch.Generator, carry: Carry, pc):
+        with mesh_mod.replicated(system.mesh):
+            new_state, new_carry, aux = run_step(state, generator, carry, pc)
+            if mesh_mod.is_sharded(system.mesh):
+                new_state = State(
+                    pos=mesh_mod.broadcast(system.mesh, new_state.pos),
+                    quat=mesh_mod.broadcast(system.mesh, new_state.quat))
+        return new_state, new_carry, aux
+
+    def run_step(state: State, generator: torch.Generator, carry: Carry,
+                 pc):
         # the spectral engine, resolved once here: the carried plan at this
         # step's start configuration (built here when the carry has none);
         # the pairwise engines are built by the attempt. The wall engine's

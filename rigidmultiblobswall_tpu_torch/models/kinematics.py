@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import quaternion as quat
+from ..parallel.mesh import host_bool
 from .system import State, System
 
 
@@ -137,10 +138,11 @@ def min_blob_height(system: System, state: State):
 
 def valid_configuration(system: System, state: State) -> bool:
     """True when every blob lies above the wall (always for the domains
-    without one). A host bool: the caller's retry loop branches on it."""
+    without one). A host bool: the caller's retry loop branches on it
+    (rank 0's under a mesh, parallel/mesh.host)."""
     if system.domain in ("no_wall", "periodic_spectral"):
         return True
-    return bool(min_blob_height(system, state) > 0.0)
+    return host_bool(min_blob_height(system, state) > 0.0)
 
 
 def advance(state: State, velocities, dt) -> State:

@@ -42,6 +42,7 @@ reads reference-format text tables instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -55,6 +56,7 @@ from ..ops import quaternion as quat
 from ..ops.gmres import gmres
 from ..ops.lanczos import stochastic_forcing_lanczos
 from ..ops.pair_kernels import min_image
+from ..parallel import mesh as mesh_mod
 from .integrators import draw_normal
 from .system import resolve_device
 
@@ -367,6 +369,8 @@ class LubSolver:
     use_pc: bool = True           # precondition (I + M dR) like Lub_Solver
     tables: Optional[LubricationTables] = None
     device: Optional[object] = None
+    # parallel/mesh.Mesh: the wall mobility products split across its ranks
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False)
     # the tables as tensors on the device, set at construction
     device_tables: LubricationTables = dataclasses.field(
         default=None, init=False, repr=False)
@@ -381,25 +385,33 @@ class LubSolver:
         object.__setattr__(self, "device_tables", self.tables.to(device))
 
     @property
+    def mobility_kwargs(self):
+        kw = dict(domain="single_wall", periodic_length=self.periodic_length)
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
+        return kw
+
+    @property
     def mob_factor(self):
         return (6.0 * math.pi * self.eta * self.a,
                 6.0 * math.pi * self.eta * self.a ** 2,
                 6.0 * math.pi * self.eta * self.a ** 3)
 
 
-def from_reference(ref_sol, device=None) -> LubSolver:
+def from_reference(ref_sol, device=None, mesh=None) -> LubSolver:
     """Carry a JAX-package `LubSolver` and its tables (numpy) across to
-    the port's, on `device` (default the card). The device mesh is
-    dropped (one card)."""
+    the port's, on `device` (default the card). A JAX mesh cannot cross to
+    torch: the port's solver takes `mesh` (a parallel/mesh.Mesh, or None)
+    whatever the reference's."""
     tables = ref_sol.tables
     if tables is not None:
         tables = LubricationTables(**{
             f.name: np.asarray(getattr(tables, f.name), np.float64)
             for f in dataclasses.fields(LubricationTables)})
-    skip = ("tables", "device", "device_tables")
+    skip = ("tables", "device", "device_tables", "mesh")
     fields = {f.name: getattr(ref_sol, f.name)
               for f in dataclasses.fields(LubSolver) if f.name not in skip}
-    return LubSolver(**fields, tables=tables, device=device)
+    return LubSolver(**fields, tables=tables, device=device, mesh=mesh)
 
 
 class DeltaRBlocks(NamedTuple):
@@ -602,8 +614,7 @@ def wall_mobility_mult(sol: LubSolver, pos, X):
     B = sol.num_bodies
     ft = X.reshape(B, 6)
     u, w = mob.grand_mobility_matvec(pos, ft[:, 0:3], ft[:, 3:6], sol.eta,
-                                     sol.a, domain="single_wall",
-                                     periodic_length=sol.periodic_length)
+                                     sol.a, **sol.mobility_kwargs)
     return torch.cat([u, w], dim=1).reshape(-1)
 
 
@@ -848,6 +859,23 @@ def _accept(sol, pos, quats, pos_new, quat_new):
             torch.where(reject, quats, quat_new), wall_bad, jump_bad)
 
 
+def _on_mesh(step):
+    """The step under sol.mesh: every rank runs it, its decisions are rank
+    0's (parallel/mesh.replicated), and every rank leaves it with rank 0's
+    positions and orientations."""
+    @functools.wraps(step)
+    def wrapped(sol, pos, quats, *args, **kw):
+        with mesh_mod.replicated(sol.mesh):
+            pos_out, quat_out, aux = step(sol, pos, quats, *args, **kw)
+            if mesh_mod.is_sharded(sol.mesh):
+                pos_out = mesh_mod.broadcast(sol.mesh, pos_out)
+                quat_out = mesh_mod.broadcast(sol.mesh, quat_out)
+        return pos_out, quat_out, aux
+
+    return wrapped
+
+
+@_on_mesh
 def step_euler_maruyama(sol: LubSolver, pos, quats, generator, ft_calc):
     """Lubrication-corrected EM step (Update_Bodies, Lub_Solver.py:641-663,
     :722-747). ft_calc(pos) -> (B,6) interleaved. With kT > 0 draws W1 and
@@ -881,6 +909,7 @@ def step_euler_maruyama(sol: LubSolver, pos, quats, generator, ft_calc):
     return pos_out, quat_out, aux
 
 
+@_on_mesh
 def step_trapezoidal(sol: LubSolver, pos, quats, generator, ft_calc,
                      omega=None, cut_torque=None):
     """Stochastic trapezoidal update (Update_Bodies_Trap,

@@ -49,6 +49,7 @@ from ..ops import forces as force_ops
 from ..ops import mobility as mob
 from ..ops.gmres import gmres, gmres_lockstep
 from ..ops.lanczos import stochastic_forcing_lanczos
+from ..parallel import mesh as mesh_mod
 from .integrators import draw_normal
 from .system import DOMAINS
 
@@ -88,6 +89,8 @@ class RollerSuspension:
     # and extra blob forces force_fn(sus, r) -> (N, 3)
     torque_fn: Optional[Callable] = None
     force_fn: Optional[Callable] = None
+    # parallel/mesh.Mesh: the pairwise products split across its ranks
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "periodic_length",
@@ -100,7 +103,10 @@ class RollerSuspension:
 
     @property
     def mobility_kwargs(self):
-        return dict(domain=self.domain, periodic_length=self.periodic_length)
+        kw = dict(domain=self.domain, periodic_length=self.periodic_length)
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
+        return kw
 
 
 class RollerAux(NamedTuple):
@@ -143,14 +149,15 @@ def init_carry(sus: RollerSuspension, dtype=torch.float64, positions=None,
         first_step=True, plan=plan, rot_tables=tables)
 
 
-def from_reference(ref_sus) -> RollerSuspension:
+def from_reference(ref_sus, mesh=None) -> RollerSuspension:
     """Carry a JAX-package `RollerSuspension` across to the port's, its
-    spectral fields included. The device mesh is dropped (one card), as
-    is spectral_bucket_capacity, a TPU gridding knob without counterpart
-    here (the port grids without segment layouts). A suspension with a
-    force or torque hook is refused: its hook is a JAX-traced closure the
-    port cannot run (the port's RollerSuspension takes torch hooks of its
-    own)."""
+    spectral fields included. A JAX mesh cannot cross to torch: the port's
+    suspension takes `mesh` (a parallel/mesh.Mesh, or None) whatever the
+    reference's. spectral_bucket_capacity, a TPU gridding knob, has no
+    counterpart here (the port grids without segment layouts). A
+    suspension with a force or torque hook is refused: its hook is a
+    JAX-traced closure the port cannot run (the port's RollerSuspension
+    takes torch hooks of its own)."""
     for hook in ("torque_fn", "force_fn"):
         if getattr(ref_sus, hook, None) is not None:
             raise NotImplementedError(
@@ -159,8 +166,8 @@ def from_reference(ref_sus) -> RollerSuspension:
                 f"RollerSuspension its own torch hook ({hook}=...)")
     fields = {f.name: getattr(ref_sus, f.name)
               for f in dataclasses.fields(RollerSuspension)
-              if f.name not in ("torque_fn", "force_fn")}
-    return RollerSuspension(**fields)
+              if f.name not in ("torque_fn", "force_fn", "mesh")}
+    return RollerSuspension(**fields, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -711,7 +718,9 @@ def make_stepper(sus: RollerSuspension, scheme: str, dt: float, *,
     is returned and the retries reported in RollerAux.rejections. On the
     wall-spectral domain the carry holds the plan (built at r when it
     holds none), refreshed at the accepted positions; its cell drops at
-    r are reported in RollerAux.plan_drops."""
+    r are reported in RollerAux.plan_drops. Under sus.mesh every rank
+    runs the step: its decisions are rank 0's (parallel/mesh.replicated),
+    and every rank leaves it with rank 0's positions."""
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown roller scheme {scheme!r}; "
                          f"available: {sorted(_SCHEMES)}")
@@ -719,6 +728,13 @@ def make_stepper(sus: RollerSuspension, scheme: str, dt: float, *,
     wall = sus.domain in ("single_wall", "single_wall_spectral")
 
     def step(r, generator: torch.Generator, carry: RollerCarry):
+        with mesh_mod.replicated(sus.mesh):
+            r_new, carry, aux = run_step(r, generator, carry)
+            if mesh_mod.is_sharded(sus.mesh):
+                r_new = mesh_mod.broadcast(sus.mesh, r_new)
+        return r_new, carry, aux
+
+    def run_step(r, generator, carry):
         if sus.domain == "single_wall_spectral" and carry.plan is None:
             built = init_carry(sus, positions=r)
             carry = carry._replace(plan=built.plan,
@@ -729,7 +745,7 @@ def make_stepper(sus: RollerSuspension, scheme: str, dt: float, *,
             r_new, v, t, det_it, st_it = body_fn(sus, dt, generator, r,
                                                  carry)
             attempts += 1
-            ok = not wall or float(r_new[:, 2].min()) >= 0.0
+            ok = not wall or mesh_mod.host_float(r_new[:, 2].min()) >= 0.0
             if ok or attempts >= max_rejections:
                 break
         overlaps = (int((r_new[:, 2] < sus.blob_radius).sum())

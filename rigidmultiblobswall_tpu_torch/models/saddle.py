@@ -221,9 +221,11 @@ def _mobility_apply(system, r_blobs, m_dense, lam):
     (a SpectralPlan, the materialized matrix, or None for the matrix-free
     pairwise engine)."""
     if is_wall_spectral(system):
-        return ewald_wall.matvec(_plan(system, m_dense), lam.reshape(-1, 3))
+        return ewald_wall.matvec(_plan(system, m_dense), lam.reshape(-1, 3),
+                                 mesh=system.mesh)
     if is_spectral(system):
-        return ewald.matvec(_plan(system, m_dense), lam.reshape(-1, 3))
+        return ewald.matvec(_plan(system, m_dense), lam.reshape(-1, 3),
+                            mesh=system.mesh)
     if m_dense is not None:
         # kernel K4 on the card, in both dtypes (the JAX package's cut at
         # n >= 1024 and float32, saddle.py:426-427, was the TPU's)
@@ -232,15 +234,17 @@ def _mobility_apply(system, r_blobs, m_dense, lam):
         return _radii_product(system, r_blobs, lam.reshape(1, -1, 3))[0]
     return mob.mobility_trans_times_force(
         r_blobs, lam.reshape(-1, 3), system.eta, system.blob_radius,
-        domain=system.domain, periodic_length=system.periodic_length)
+        **system.mobility_kwargs)
 
 
 def _mobility_apply_multi(system, r_blobs, m_dense, lam):
     """Stacked M products, lam (b, N, 3) -> (b, N, 3), one engine sweep."""
     if is_wall_spectral(system):
-        return ewald_wall.matvec_multi(_plan(system, m_dense), lam)
+        return ewald_wall.matvec_multi(_plan(system, m_dense), lam,
+                                       mesh=system.mesh)
     if is_spectral(system):
-        return ewald.matvec_multi(_plan(system, m_dense), lam)
+        return ewald.matvec_multi(_plan(system, m_dense), lam,
+                                  mesh=system.mesh)
     if m_dense is not None:
         # kernel K4 with two right-hand sides a launch: one read of the
         # upper triangle serves the lockstep pair (JAX's einsum,
@@ -253,8 +257,7 @@ def _mobility_apply_multi(system, r_blobs, m_dense, lam):
         return _radii_product(system, r_blobs, lam)
     return mob.pairwise_matvec_multi(
         r_blobs, None, lam, system.eta, system.blob_radius,
-        coupling="tt", domain=system.domain,
-        periodic_length=system.periodic_length, self_interaction=True)
+        coupling="tt", self_interaction=True, **system.mobility_kwargs)
 
 
 def _radii_product(system, r_blobs, lam):

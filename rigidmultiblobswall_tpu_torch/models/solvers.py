@@ -21,6 +21,7 @@ body_force_torque_fn hooks the force assembly.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -31,6 +32,7 @@ from ..ops import forces as force_ops
 from ..ops import gmres as gmres_mod
 from ..ops import mobility as mob
 from ..ops.gmres import gmres, gmres_lockstep
+from ..parallel import mesh as mesh_mod
 from . import articulated as art_mod
 from . import kinematics as kin
 from . import saddle
@@ -46,6 +48,17 @@ class MobilitySolution(NamedTuple):
     recycle: object = None    # the harvested ops/gmres.RecycleState
     #                           (collect_recycle)
     phi: torch.Tensor = None  # (C,3) articulated constraint forces
+
+
+def _replicated(solve):
+    """The solve's host decisions are rank 0's under system.mesh
+    (parallel/mesh.replicated), so every rank iterates alike."""
+    @functools.wraps(solve)
+    def wrapped(system, *args, **kw):
+        with mesh_mod.replicated(system.mesh):
+            return solve(system, *args, **kw)
+
+    return wrapped
 
 
 def force_torque_calculator(system: System, state: State, r_blobs):
@@ -134,6 +147,7 @@ def _impose_prescribed(system: System, U):
     return torch.where(mask, _prescribed_velocities(system, U), U)
 
 
+@_replicated
 def solve_mobility_problem(system: System, state: State, *, rhs=None,
                            slip=None, force_torque=None, noise_slip=None,
                            noise_ft=None,
@@ -191,6 +205,7 @@ def solve_mobility_problem(system: System, state: State, *, rhs=None,
                             phi=phi)
 
 
+@_replicated
 def solve_mobility_problem_lockstep(system: System, state: State, *, rhs,
                                     pc: Optional[saddle.BlockDiagPC] = None,
                                     x0=None, tol: Optional[float] = None,
@@ -285,10 +300,11 @@ def _grand_matvec(system: System, r, ft):
     kernel K1 grand on the card."""
     u, w = mob.grand_mobility_matvec(
         r, ft[:, 0:3], ft[:, 3:6], system.eta, system.blob_radius,
-        domain=system.domain, periodic_length=system.periodic_length)
+        **system.mobility_kwargs)
     return torch.cat([u, w], dim=1)
 
 
+@_replicated
 def solve_mobility_problem_single_blob(system: System, state: State, *,
                                        tol=None, restart: int = 60,
                                        maxiter: int = 1000, time=0.0,

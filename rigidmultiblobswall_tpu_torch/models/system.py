@@ -28,7 +28,10 @@ models/articulated.ArticulatedType) and the user hooks
 the port's System and State, called where the JAX package calls its
 own). Fields the JAX System
 carries for other engines and models are not present; `from_reference`
-refuses a JAX system that sets them.
+refuses a JAX system that sets them. `System.mesh`, a parallel/mesh.Mesh
+of several ranks, splits the pairwise products and the spectral
+products across them (`mobility_kwargs` carries it, as the JAX
+package's does).
 
 Entry points put their tensors on the card unless the caller passes
 device="cpu"; without CUDA they raise rather than fall back.
@@ -166,6 +169,8 @@ class System:
     blob_force_fn: Optional[Callable] = None
     body_force_torque_fn: Optional[Callable] = None
     slip_fn: Optional[Callable] = None
+    # parallel/mesh.Mesh; None (or one rank) = one device
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "types", tuple(self.types))
@@ -203,6 +208,15 @@ class System:
     @property
     def num_bodies(self) -> int:
         return sum(t.count for t in self.types)
+
+    @property
+    def mobility_kwargs(self):
+        """The pairwise products' keyword arguments: the domain, the
+        periodic length and, when set, the mesh."""
+        kw = dict(domain=self.domain, periodic_length=self.periodic_length)
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
+        return kw
 
     @property
     def num_blobs(self) -> int:
@@ -292,7 +306,7 @@ def make_state(positions, quaternions, dtype=torch.float64,
 
 
 def from_reference(ref_system, positions=None, quaternions=None, *,
-                   dtype=torch.float64, device=None):
+                   dtype=torch.float64, device=None, mesh=None):
     """Carry a JAX-package `System` (and optionally its `State` arrays,
     passed as numpy) across to the port's objects on `device` (default
     the card) and `dtype`.
@@ -307,11 +321,10 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
     and one .const file). The JAX System's TPU gridding knobs (spectral_bucket_capacity,
     spectral_plane_batch, spectral_precision) have no counterpart: the
     port grids without segment layouts or matrix units, so they are
-    ignored. Returns the System, or (System, State) when positions are
-    given."""
-    if getattr(ref_system, "mesh", None) is not None:
-        raise NotImplementedError("multi-device meshes (ROADMAP Queue 1, "
-                                  "item 20)")
+    ignored. A JAX mesh cannot cross to torch: the port's System takes
+    `mesh` (a parallel/mesh.Mesh, or None for one device) whatever the
+    reference's. Returns the System, or (System, State) when positions
+    are given."""
     for name in ("blob_force_fn", "body_force_torque_fn", "slip_fn"):
         if getattr(ref_system, name, None) is not None:
             raise NotImplementedError(
@@ -368,6 +381,7 @@ def from_reference(ref_system, positions=None, quaternions=None, *,
         articulated=tuple(articulated),
         nonlinear_solver_tolerance=float(getattr(
             ref_system, "nonlinear_solver_tolerance", 1e-8)),
+        mesh=mesh,
     )
     if positions is None:
         return system

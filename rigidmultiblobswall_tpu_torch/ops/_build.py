@@ -39,16 +39,16 @@ _D = ctypes.c_double
 # csrc/wall_rot_near.cu, csrc/laplace_layers.cu, csrc/blob_energy.cu,
 # csrc/pair_radii.cu, csrc/near_radii.cu);
 # pointers and the stream MUST be c_void_p or ctypes truncates them
-_PAIR = (_P,) * 5 + (_I,) * 7 + (_P,)
-_PAIR_SYM = (_P,) * 4 + (_I,) * 6 + (_P,)
+_PAIR = (_P,) * 5 + (_I,) * 8 + (_P,)
+_PAIR_SYM = (_P,) * 4 + (_I,) * 8 + (_P,)
 _PI = ctypes.POINTER(ctypes.c_int)
 _PD = ctypes.POINTER(ctypes.c_double)
 # the image boxes' arguments before the stream: L (3,), n_boxes, offsets
 _BOXES = (_PD, _I, _PD)
 _NL = (_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P)
 _NEAR = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D,
-         _P)
-_WALL = (_P,) * 6 + (_I,) * 9 + (_D,) * 11 + (_P,)
+         _I, _I, _P)
+_WALL = (_P,) * 6 + (_I,) * 9 + (_D,) * 11 + (_I, _I, _P)
 _ROT = (_P,) * 7 + (_I,) * 9 + (_D,) * 12 + (_P,)
 # K1's instances (csrc/pair_tt.cu, pair_couplings.cu, pair_fs.cu)
 _COUPLINGS = ("tt", "tr", "rt", "rr", "grand", "tt_fs")
@@ -99,7 +99,8 @@ SIGNATURES = {
     "launch_floor": (_P,),
     **{f"near_radii_pairs_{t}": (_P,) * 5 + (_I,) * 5 + (_D,) * 4 + (_I, _P)
        for t in ("f32", "f64")},
-    **{f"near_rpy_radii_{t}_b{b}": (_P,) * 7 + (_I,) * 3 + (_D,) * 3 + (_P,)
+    **{f"near_rpy_radii_{t}_b{b}": (_P,) * 7 + (_I,) * 3 + (_D,) * 3
+       + (_I, _I, _P)
        for t in ("f32", "f64") for b in (1, 2)},
 }
 

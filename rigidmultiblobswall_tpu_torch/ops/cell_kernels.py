@@ -60,6 +60,12 @@ On a CUDA tensor a wrapper launches its kernel and counts the launch in
 `LAUNCHES` (P2's list builds as "near_radii_pairs"); on a CPU tensor it
 runs the plain version, a cell-tiled dense sweep in PyTorch; any other
 case raises.
+
+A rank's share (parallel/mesh.py): K6 takes `cells_range`, a range of
+its target cells, K7 `columns`, a range of the nx ny (x, y) cell
+columns, and P2 `targets`, a range of target rows; each writes the rows
+of its share alone and leaves the others zero, so the ranks' outputs sum
+exactly to the whole. Those launches count also in `SHARE_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -80,6 +86,10 @@ LAUNCHES = {"nl_forces": 0, "nl_forces_open": 0, "near_rpy_b1": 0,
             "wall_near_b1": 0, "wall_near_b2": 0, "wall_rot_near_grand": 0,
             "wall_rot_near_rt": 0, "wall_rot_near_tr": 0,
             "wall_rot_near_rr": 0}
+# launches of a rank's share (cells_range, columns or targets given)
+SHARE_LAUNCHES = {"near_rpy_b1": 0, "near_rpy_b2": 0, "near_rpy_radii_b1": 0,
+                  "near_rpy_radii_b2": 0, "wall_near_b1": 0,
+                  "wall_near_b2": 0}
 
 MAX_RHS = 2          # K6 and K7 template instances: B = 1 and B = 2
 MAX_CHEB = 32        # Chebyshev terms per piece the kernels' tables hold
@@ -305,7 +315,8 @@ def _radii_series(r, gt, gs, cheb_radii, edges, r_cut):
 
 
 def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
-                         cheb_radii, edges, *, r_cut, cells_range=None):
+                         cheb_radii, edges, *, r_cut, cells_range=None,
+                         targets=None):
     """Plain PyTorch P2 (the radii branch of the JAX package's XLA cell
     sweep, ewald.py:1260-1290): (N, 3B) near-field rows without the self
     term. Each group pair's three pieces are all evaluated at the clipped
@@ -324,6 +335,8 @@ def near_rpy_radii_plain(pos, forces, group_of, cell_table, dims, box, cap,
         fs = f[s_ids].to(pos.dtype)                       # (TC,27,cap,nc)
         d = tp[:, :, None, None, :] - sp[:, None]
         r2 = torch.sum(d * d, dim=-1)                     # (TC,cap,27,cap)
+        if targets is not None:
+            t_valid = t_valid & (t_ids >= targets[0]) & (t_ids < targets[1])
         inside = (t_valid[:, :, None, None] & s_valid[:, None]
                   & (r2 > 0) & (r2 < r_cut * r_cut))
         r2_in = r2[inside]
@@ -437,10 +450,11 @@ def near_radii_pairs_plain(pos, group_of, cell_table, dims, box, cap, *,
 
 
 def near_rpy_radii_pairs_plain(pairs, forces, cheb_radii, edges, box, *,
-                               r_cut):
+                               r_cut, targets=None):
     """Plain PyTorch P2 product over a pair list: (N, 3B) near-field rows
     without the self term, each pair's d as the kernel forms it and its
-    series as `near_rpy_radii_plain` evaluates them."""
+    series as `near_rpy_radii_plain` evaluates them; with targets (t0,
+    t1) the rows of those targets alone, the others zero."""
     pos = pairs.positions
     n = pos.shape[0]
     f = forces.reshape(n, -1).to(pos.dtype)
@@ -449,6 +463,9 @@ def near_rpy_radii_pairs_plain(pairs, forces, cheb_radii, edges, box, *,
                                  device=pos.device)
     edges = torch.as_tensor(edges, dtype=torch.float64).cpu()
     tid, sid, wrap = decode_pairs(pairs)
+    if targets is not None:
+        mine = (tid >= targets[0]) & (tid < targets[1])
+        tid, sid, wrap = tid[mine], sid[mine], wrap[mine]
     d = _pair_d(pos, tid, sid, wrap, box)
     r2 = torch.sum(d * d, dim=-1)
     grp = pairs.group_of.long()
@@ -768,14 +785,16 @@ def nl_forces_open(pos, cell_table, dims, periodic_length, frame, members,
 
 
 def near_rpy(pos, forces, cell_table, dims, box, cap, cheb, *, two_a,
-             r_cut):
+             r_cut, cells_range=None):
     """K6 wrapper: the CUDA kernel for CUDA tensors, `near_rpy_plain` for
     CPU tensors. pos (N,3), forces (N,3B), cheb (2 pieces, 2 functions, K)
-    -> (N,3B) without the self term."""
+    -> (N,3B) without the self term; with cells_range (c0, c1) the rows of
+    those target cells' particles alone, the others zero (a rank's
+    share)."""
     kw = dict(two_a=two_a, r_cut=r_cut)
     if pos.device.type == "cpu":
         return near_rpy_plain(pos, forces, cell_table, dims, box, cap, cheb,
-                              **kw)
+                              cells_range=cells_range, **kw)
     _check("near_rpy", pos, cell_table, dims, cap,
            (("forces", forces), ("cheb", cheb)))
     n = pos.shape[0]
@@ -791,17 +810,32 @@ def near_rpy(pos, forces, cell_table, dims, box, cap, cheb, *, two_a,
     out = torch.zeros_like(forces)
     if n == 0:
         return out
+    n_cells = int(dims[0]) * int(dims[1]) * int(dims[2])
+    c0, c1 = _share("near_rpy", cells_range, n_cells)
     name = (f"near_rpy_{'f32' if pos.dtype == torch.float32 else 'f64'}"
             f"_b{n_rhs}")
     err = getattr(_build.library(), name)(
         pos.data_ptr(), forces.data_ptr(), cell_table.data_ptr(),
         cheb.data_ptr(), out.data_ptr(), n, *(int(d) for d in dims),
         int(cap), int(cheb.shape[2]), *(float(L) for L in box),
-        float(two_a), float(r_cut),
+        float(two_a), float(r_cut), c0, c1,
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES[f"near_rpy_b{n_rhs}"] += 1
+    if cells_range is not None:
+        SHARE_LAUNCHES[f"near_rpy_b{n_rhs}"] += 1
     return out
+
+
+def _share(what, rng, total):
+    """(lo, hi) of a share range within [0, total] (all of it for
+    None)."""
+    if rng is None:
+        return 0, int(total)
+    lo, hi = int(rng[0]), int(rng[1])
+    if not 0 <= lo <= hi <= total:
+        raise ValueError(f"{what}: range {(lo, hi)} outside [0, {total}]")
+    return lo, hi
 
 
 def _check_groups(what, group_of, pos):
@@ -859,21 +893,23 @@ def near_radii_pairs(pos, group_of, cell_table, dims, box, cap, *, r_cut):
 
 
 def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
-                   cheb_radii, edges, *, r_cut, pairs=None):
+                   cheb_radii, edges, *, r_cut, pairs=None, targets=None):
     """P2 wrapper: the CUDA kernel for CUDA tensors, the plain versions for
     CPU tensors (`near_rpy_radii_plain`, or `near_rpy_radii_pairs_plain`
     over `pairs`). pos (N,3), forces (N,3B), group_of (N,) int32 radius
     groups, cheb_radii (G, G, 3 pieces, 2 functions, K), edges (G, G, 8)
     (ewald.radii_edge_table), pairs the list `near_radii_pairs` built at
     these very pos and group_of (built here when None) -> (N,3B) without
-    the self term."""
+    the self term; with targets (t0, t1) the rows of those targets alone,
+    the others zero (a rank's share)."""
     if pos.device.type == "cpu":
         if pairs is not None:
             return near_rpy_radii_pairs_plain(pairs, forces, cheb_radii,
-                                              edges, box, r_cut=r_cut)
+                                              edges, box, r_cut=r_cut,
+                                              targets=targets)
         return near_rpy_radii_plain(pos, forces, group_of, cell_table, dims,
                                     box, cap, cheb_radii, edges,
-                                    r_cut=r_cut)
+                                    r_cut=r_cut, targets=targets)
     _check("near_rpy_radii", pos, cell_table, dims, cap,
            (("forces", forces), ("cheb_radii", cheb_radii),
             ("edges", edges)))
@@ -899,7 +935,9 @@ def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
         raise ValueError("near_rpy_radii: the pair list was built at other "
                          "positions or radius groups")
     n_rhs = forces.shape[1] // 3
-    out = torch.empty_like(forces)
+    t0, t1 = _share("near_rpy_radii", targets, n)
+    # a share writes its own rows: the others must read zero
+    out = (torch.empty_like if targets is None else torch.zeros_like)(forces)
     if n == 0:
         return out
     name = (f"near_rpy_radii_{'f32' if pos.dtype == torch.float32 else 'f64'}"
@@ -908,26 +946,35 @@ def near_rpy_radii(pos, forces, group_of, cell_table, dims, box, cap,
         pairs.rows.data_ptr(), forces.data_ptr(), pairs.offsets.data_ptr(),
         pairs.entries.data_ptr(), cheb_radii.data_ptr(), edges.data_ptr(),
         out.data_ptr(), n, int(cheb_radii.shape[4]), G,
-        *(float(L) for L in box),
+        *(float(L) for L in box), t0, t1,
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES[f"near_rpy_radii_b{n_rhs}"] += 1
+    if targets is not None:
+        SHARE_LAUNCHES[f"near_rpy_radii_b{n_rhs}"] += 1
     return out
 
 
 def wall_near(pos, forces, cell_table, dims, box, cap, cheb, img_cheb, *,
-              two_a, r_cut, z0, a, pref_img, img_range, cz_range):
+              two_a, r_cut, z0, a, pref_img, img_range, cz_range,
+              columns=None):
     """K7 wrapper: the CUDA kernel for CUDA tensors, `wall_near_plain` for
     CPU tensors. pos (2N, 3) grid-shifted reals then images, forces
     (N, 3B) raw strengths, cheb (2, 2, K), img_cheb (2, 10, Ki), img_range
     the image series' (r_lo, r_mid, r_hi) / a, cz_range the z layers
     (lo, hi) of the target cells (those that can hold real particles)
-    -> (N, 3B) without the self term."""
+    -> (N, 3B) without the self term; with columns (k0, k1) the rows of
+    the real particles in those (x, y) cell columns alone, the others zero
+    (a rank's share)."""
     kw = dict(two_a=two_a, r_cut=r_cut, z0=z0, a=a, pref_img=pref_img,
               img_range=img_range)
     if pos.device.type == "cpu":
+        rng = None
+        if columns is not None:
+            nz = int(dims[2])
+            rng = (int(columns[0]) * nz, int(columns[1]) * nz)
         return wall_near_plain(pos, forces, cell_table, dims, box, cap, cheb,
-                               img_cheb, **kw)
+                               img_cheb, cells_range=rng, **kw)
     _check("wall_near", pos, cell_table, dims, cap,
            (("forces", forces), ("cheb", cheb), ("img_cheb", img_cheb)),
            guard_z=True)
@@ -953,6 +1000,7 @@ def wall_near(pos, forces, cell_table, dims, box, cap, cheb, img_cheb, *,
     out = torch.zeros_like(forces)
     if n == 0:
         return out
+    k0, k1 = _share("wall_near", columns, int(dims[0]) * int(dims[1]))
     name = (f"wall_near_{'f32' if pos.dtype == torch.float32 else 'f64'}"
             f"_b{n_rhs}")
     err = getattr(_build.library(), name)(
@@ -961,10 +1009,12 @@ def wall_near(pos, forces, cell_table, dims, box, cap, cheb, img_cheb, *,
         *(int(d) for d in dims), int(cap), int(cheb.shape[2]),
         int(img_cheb.shape[2]), cz_lo, cz_hi, *(float(L) for L in box),
         float(two_a), float(r_cut), float(z0), float(a), float(pref_img),
-        *(float(v) for v in img_range),
+        *(float(v) for v in img_range), k0, k1,
         torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check(name, err)
     LAUNCHES[f"wall_near_b{n_rhs}"] += 1
+    if columns is not None:
+        SHARE_LAUNCHES[f"wall_near_b{n_rhs}"] += 1
     return out
 
 

@@ -27,8 +27,20 @@ x the P planes round(x/h) + (0..P-1) - P//2 of its sort-time position
 every point within P h / 2 of its position; each weight is masked to
 |d| <= P h / 2. The JAX package's z-slab plane-matmul layout exists only
 because XLA on the TPU serializes colliding scatters and is not ported;
-a hand-written gridding kernel is later work (ROADMAP). The multi-device
-product (ROADMAP Queue 1, item 20) is not ported.
+a hand-written gridding kernel is later work (ROADMAP).
+
+The multi-device product (`matvec_sharded`, the JAX package's; a `mesh`
+of parallel/mesh.py on matvec and matvec_multi): the near field's target
+cells are shared across the ranks (kernel K6 over a cell range; P2 over a
+range of targets on a mixed-radii plan), and the wave field's x planes:
+each rank spreads and interpolates the stamps on its planes, the rFFT
+along z and the FFT along y run on its slab, an all_to_all turns the slab
+into a ky slice, the FFT along x and the k-scaling run there, and the
+inverse mirrors it. The near rows and the wave's interpolated rows of a
+rank add into one partial that `all_reduce_sum` completes. The wave
+stays replicated (every rank the whole wave product) when gx or gy does
+not divide into the ranks, or on a mixed-radii plan, as in the JAX
+package; `REPLICATED_WAVE` counts those products by reason.
 
 Mixed radii (`EwaldParams.radii`, `make_plan(group_of=...)`): the wave
 kernel carries per-group shape factors sinc(k a_g), each group's
@@ -44,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import math
 import warnings
 from typing import Optional, Tuple
@@ -52,6 +65,11 @@ import numpy as np
 import torch
 
 from . import cell_kernels, cells
+from ..parallel import mesh as mesh_mod
+
+log = logging.getLogger(__name__)
+# sharded products whose wave part ran replicated, by reason
+REPLICATED_WAVE = {"grid": 0, "radii": 0}
 
 # ---------------------------------------------------------------------------
 # Host side: closed-form RPY and the quadrature-built remainder tables
@@ -701,7 +719,8 @@ def update_plan(plan: SpectralPlan, positions) -> SpectralPlan:
                               np.asarray(p.spacing, np.float64))
     budget = torch.as_tensor(np.maximum(budget, 0.0), dtype=box.dtype,
                              device=box.device)
-    if bool(torch.all(torch.amax(torch.abs(delta), dim=0) <= budget)):
+    if mesh_mod.host_bool(torch.all(torch.amax(torch.abs(delta), dim=0)
+                                    <= budget)):
         # new positions: P2's list is made anew, never carried over
         return _with_pairs(dataclasses.replace(
             plan, positions=(plan.sort_pos + delta).contiguous()))
@@ -767,31 +786,62 @@ def _chunks(plan: SpectralPlan, n):
     return [slice(i, min(i + step, n)) for i in range(0, n, step)]
 
 
-def spread(plan: SpectralPlan, forces, ids=None):
+def _on_planes(plan: SpectralPlan, idx, w, planes):
+    """Stamps restricted to the x planes [x0, x0 + nx): indices into the
+    (nx, gy, gz) slab, the weights off the slab zeroed."""
+    if planes is None:
+        return idx, w
+    x0, nx = planes
+    gy, gz = plan.params.grid[1], plan.params.grid[2]
+    loc = idx - x0 * gy * gz
+    keep = (loc >= 0) & (loc < nx * gy * gz)
+    return (torch.where(keep, loc, torch.zeros_like(loc)),
+            torch.where(keep, w, torch.zeros_like(w)))
+
+
+def plane_particles(plan: SpectralPlan, planes):
+    """The ids of the particles that stamp any of the x planes [x0, x0 +
+    nx) (their sort-time planes, as _stamps takes them)."""
+    p = plan.params
+    x0, nx = planes
+    gx, P = p.grid[0], p.support
+    first = torch.round(plan.sort_pos[:, 0] / (p.box[0] / gx)).long() - P // 2
+    xs = torch.remainder(first[:, None]
+                         + torch.arange(P, device=first.device), gx)
+    return torch.nonzero(((xs >= x0) & (xs < x0 + nx)).any(dim=1)).flatten()
+
+
+def spread(plan: SpectralPlan, forces, ids=None, planes=None):
     """S f: (N, C) forces -> (C, gx, gy, gz) grid (C = 3 per right-hand
     side; stacked sides share the window weights). With ids, the
-    particles ids only, forces (len(ids), C)."""
+    particles ids only, forces (len(ids), C). With planes (x0, nx), the
+    slab of those x planes alone, (C, nx, gy, gz)."""
     gx, gy, gz = plan.params.grid
+    nxl = gx if planes is None else planes[1]
     n = plan.positions.shape[0] if ids is None else ids.shape[0]
     f = forces.reshape(n, -1)
-    grid = torch.zeros((gx * gy * gz, f.shape[1]), dtype=f.dtype,
+    grid = torch.zeros((nxl * gy * gz, f.shape[1]), dtype=f.dtype,
                        device=f.device)
     for sl in _chunks(plan, n):
-        idx, w = _stamps(plan, sl if ids is None else ids[sl])
+        idx, w = _on_planes(plan, *_stamps(plan, sl if ids is None
+                                           else ids[sl]), planes)
         vals = w[:, :, None] * f[sl][:, None, :]
         grid.index_add_(0, idx.reshape(-1), vals.reshape(-1, f.shape[1]))
-    return grid.T.reshape(-1, gx, gy, gz)
+    return grid.T.reshape(-1, nxl, gy, gz)
 
 
-def interpolate(plan: SpectralPlan, ug, ids=None):
+def interpolate(plan: SpectralPlan, ug, ids=None, planes=None):
     """S^T u: (C, gx, gy, gz) grid -> (N, C), the transpose of `spread`;
-    with ids, the rows of the particles ids only, (len(ids), C)."""
+    with ids, the rows of the particles ids only, (len(ids), C); with
+    planes (x0, nx), ug the (C, nx, gy, gz) slab of those planes and the
+    rows their stamps' share."""
     C = ug.shape[0]
     rows = ug.reshape(C, -1).T.contiguous()              # (G, C)
     n = plan.positions.shape[0] if ids is None else ids.shape[0]
     out = torch.empty((n, C), dtype=ug.dtype, device=ug.device)
     for sl in _chunks(plan, n):
-        idx, w = _stamps(plan, sl if ids is None else ids[sl])
+        idx, w = _on_planes(plan, *_stamps(plan, sl if ids is None
+                                           else ids[sl]), planes)
         out[sl] = torch.sum(w[:, :, None] * rows[idx], dim=1)
     return out
 
@@ -869,45 +919,109 @@ def wave_sqrt_noise(plan: SpectralPlan, w):
 # ---------------------------------------------------------------------------
 
 
+def near_rows(plan: SpectralPlan, f, mesh=None):
+    """The near-field remainder rows (N, 3B) without the self term: kernel
+    K6 (with mixed radii kernel P2); under a mesh of several ranks this
+    rank's share alone (K6's target cells, P2's targets), the other rows
+    zero."""
+    p = plan.params
+    sharded = mesh_mod.is_sharded(mesh)
+    if plan.cheb_radii is not None:
+        return cell_kernels.near_rpy_radii(
+            plan.positions, f, plan.group_of, plan.cell_table,
+            plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
+            plan.radii_edges, r_cut=p.r_cut, pairs=plan.radii_pairs,
+            targets=mesh.share(f.shape[0]) if sharded else None)
+    cells_range = (mesh.share(int(np.prod(plan.cell_dims))) if sharded
+                   else None)
+    return cell_kernels.near_rpy(
+        plan.positions, f, plan.cell_table, plan.cell_dims, p.box,
+        p.cell_capacity, plan.cheb, two_a=2.0 * p.a, r_cut=p.r_cut,
+        cells_range=cells_range)
+
+
 def real_matvec(plan: SpectralPlan, forces):
     """Near-field remainder (kernel K6; with mixed radii kernel P2) plus
     the self term, (N, 3B)."""
-    p = plan.params
     n = plan.positions.shape[0]
     f = forces.reshape(n, -1).contiguous()
-    if plan.cheb_radii is not None:
-        rows = cell_kernels.near_rpy_radii(
-            plan.positions, f, plan.group_of, plan.cell_table,
-            plan.cell_dims, p.box, p.cell_capacity, plan.cheb_radii,
-            plan.radii_edges, r_cut=p.r_cut, pairs=plan.radii_pairs)
-        return rows + plan.self_coeff * f
-    rows = cell_kernels.near_rpy(
-        plan.positions, f, plan.cell_table, plan.cell_dims, p.box,
-        p.cell_capacity, plan.cheb, two_a=2.0 * p.a, r_cut=p.r_cut)
-    return rows + plan.self_coeff * f
+    return near_rows(plan, f) + plan.self_coeff * f
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("the multi-device spectral product "
-                                  "(matvec_sharded) is not ported yet "
-                                  "(ROADMAP Queue 1, item 20)")
+def wave_share(plan: SpectralPlan, f, mesh):
+    """This rank's share of the wave rows (N, C) under a mesh whose size
+    divides gx and gy: its x planes spread, the distributed rFFT (z and y
+    on the slab, an all_to_all to a ky slice, x there), the k-scaling of
+    its ky slice, the inverse mirrored, and the interpolation from its
+    planes. The ranks' shares sum to wave_matvec."""
+    p = plan.params
+    gx, gy, gz = p.grid
+    nxl, nyl = gx // mesh.size, gy // mesh.size
+    planes = (mesh.rank * nxl, nxl)
+    y0 = mesh.rank * nyl
+    ids = plane_particles(plan, planes)
+    g = spread(plan, f[ids], ids, planes=planes)         # (C, nxl, gy, gz)
+    gk = torch.fft.fft(torch.fft.rfft(g, dim=3), dim=2)
+    gk = mesh_mod.all_to_all(mesh, gk, split_dim=2, concat_dim=1)
+    gk = torch.fft.fft(gk, dim=1)                        # (C, gx, nyl, nz2)
+    kern = plan.kernel[:, y0:y0 + nyl]
+    khat = plan.khat[:, :, y0:y0 + nyl]
+    gb = gk.reshape(-1, 3, *gk.shape[1:])
+    kdotg = torch.sum(khat[None] * gb, dim=1, keepdim=True)
+    uk = (kern[None, None] * (gb - khat[None] * kdotg)).reshape(gk.shape)
+    uk = torch.fft.ifft(uk, dim=1)
+    uk = mesh_mod.all_to_all(mesh, uk, split_dim=1, concat_dim=2)
+    ug = torch.fft.irfft(torch.fft.ifft(uk, dim=2), n=gz, dim=3)
+    rows = torch.zeros((f.shape[0], f.shape[1]), dtype=f.dtype,
+                       device=f.device)
+    rows[ids] = interpolate(plan, ug, ids, planes=planes)
+    return rows
+
+
+def matvec_sharded(plan: SpectralPlan, forces, mesh):
+    """M f under a mesh of several ranks, (N, 3B) -> (N, 3B) on every
+    rank (the module's docstring): the near rows of this rank's cells and
+    its share of the wave rows, summed over the ranks in one
+    all_reduce_sum, then the self term. The wave runs replicated when the
+    grid does not divide into the ranks or on a mixed-radii plan."""
+    n = plan.positions.shape[0]
+    f = forces.reshape(n, -1).contiguous()
+    gx, gy, _ = plan.params.grid
+    reason = ("radii" if plan.gsinc is not None
+              else "grid" if gx % mesh.size or gy % mesh.size else None)
+    partial = near_rows(plan, f, mesh)
+    if reason is None:
+        partial = partial + wave_share(plan, f, mesh)
+    out = mesh_mod.all_reduce_sum(mesh, partial)
+    if reason is not None:
+        if REPLICATED_WAVE[reason] == 0:
+            log.info("ewald.matvec_sharded: the wave part runs replicated "
+                     "(%s) on %d ranks, as the JAX package's does",
+                     "mixed radii" if reason == "radii"
+                     else f"grid {plan.params.grid}", mesh.size)
+        REPLICATED_WAVE[reason] += 1
+        out = out + wave_matvec(plan, f)
+    return out + plan.self_coeff * f
 
 
 def matvec(plan: SpectralPlan, forces, mesh=None):
-    """Full periodic RPY product M f, (N,3) -> (N,3)."""
-    _refuse_mesh(mesh)
+    """Full periodic RPY product M f, (N,3) -> (N,3); a mesh of several
+    ranks shares it out (matvec_sharded)."""
+    if mesh_mod.is_sharded(mesh):
+        return matvec_sharded(plan, forces, mesh).reshape(forces.shape)
     return real_matvec(plan, forces) + wave_matvec(plan, forces)
 
 
 def matvec_multi(plan: SpectralPlan, forces, mesh=None):
     """Stacked products M f_b, (B, N, 3) -> (B, N, 3), in one engine sweep:
     the window weights and the near-field Chebyshev scalars are shared
-    across the B right-hand sides."""
-    _refuse_mesh(mesh)
+    across the B right-hand sides (under a mesh, one sharded sweep)."""
     B, n = forces.shape[0], forces.shape[1]
     if B == 1:
-        return matvec(plan, forces[0])[None]
+        return matvec(plan, forces[0], mesh=mesh)[None]
     f = forces.permute(1, 0, 2).reshape(n, 3 * B)       # b-major channels
-    out = real_matvec(plan, f) + wave_matvec(plan, f)
+    if mesh_mod.is_sharded(mesh):
+        out = matvec_sharded(plan, f, mesh)
+    else:
+        out = real_matvec(plan, f) + wave_matvec(plan, f)
     return out.reshape(n, B, 3).permute(1, 0, 2)

@@ -35,13 +35,29 @@ and transforms z with torch.fft over the padded axis, restricted to the
 occupied planes as the JAX matrices are. The automatic near-field cell
 capacity counts the binned cells (`auto_cell_capacity`), where the JAX
 package takes a mean over the data slab's z layers and drops points of
-a roller monolayer. The multi-device product (item 20) is not ported.
+a roller monolayer.
+
+The multi-device product (a `mesh` of parallel/mesh.py on matvec and
+matvec_multi; the JAX package's matvec_sharded): the near field's kept
+(x, y) cell columns are shared across the ranks (kernel K7 over a column
+range), and the wave field's x planes: each rank spreads its planes, the
+y rFFT runs on its slab, a ky-padded all_to_all (gy // 2 + 1 padded to a
+multiple of the ranks) makes x local, and each rank applies its ky slice
+of the multipliers (the RPY projector, the image channels' T_m, whose
+table a rank builds for its slice alone) and the z-convolutions of the
+polish columns in its slice; the inverse mirrors it and each rank
+interpolates from its planes. The near rows and the wave's rows of a
+rank add into one partial that `all_reduce_sum` completes. The wave
+stays replicated when gx does not divide into the ranks, as in the JAX
+package (`REPLICATED_WAVE` counts those products). The noise sampler and
+its defect take no mesh, as there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import math
 from typing import Tuple
 
@@ -50,6 +66,11 @@ import torch
 
 from . import _wall_channels_gen as gen
 from . import cell_kernels, cells, ewald, wall_kernels
+from ..parallel import mesh as mesh_mod
+
+log = logging.getLogger(__name__)
+# sharded products whose wave part ran replicated (gx not divisible)
+REPLICATED_WAVE = {"grid": 0}
 
 # z cell height in units of r_cut: the excess over 1.0 is drift slack
 # shared between the plan refresh budget and binning robustness
@@ -471,14 +492,27 @@ def _near_tables(params: WallParams, dtype, device) -> _NearTables:
 
 
 @functools.lru_cache(maxsize=4)
-def _tables(params: WallParams, dtype, device) -> _Tables:
+def _tables(params: WallParams, dtype, device, ky_range=None) -> _Tables:
     """The wave side's device constants, cached so that plan rebuilds
     reuse them: the polish columns and the k-space multipliers over
-    (gx, gy2, gz)."""
+    (gx, gy2, gz), or over the ky slice ky_range = (y0, y1) of gy2 (a
+    rank's share: the multipliers of its slice, the polish columns in it
+    with flat indices into (gx, y1 - y0))."""
     p = params
+    gx, gy, gz = p.grid
+    gy2 = gy // 2 + 1
+    y0, y1 = (0, gy2) if ky_range is None else ky_range
     pol_idx, pol_kfft, pol_mask = _host_polish(p)
+    if ky_range is not None:
+        kxi, kyi = np.divmod(np.asarray(pol_idx), gy2)
+        keep = (kyi >= y0) & (kyi < y1)
+        pol_idx = kxi[keep] * (y1 - y0) + (kyi[keep] - y0)
+        pol_kfft = pol_kfft[keep]
+        pol_mask = np.asarray(pol_mask).reshape(gx, gy2)[:, y0:y1]
+    freqs = _axis_freqs(p)
+    freqs[1] = freqs[1][y0:y1]
     kx, ky, kz = (torch.as_tensor(k, dtype=dtype, device=device)
-                  for k in _axis_freqs(p))
+                  for k in freqs)
     KX = kx[:, None, None]
     KY = ky[None, :, None]
     KZ = kz[None, None, :]
@@ -490,11 +524,11 @@ def _tables(params: WallParams, dtype, device) -> _Tables:
     h3 = float(np.prod(p.spacing))
     w2 = [torch.as_tensor(w, dtype=dtype, device=device) ** 2
           for w in _host_whats(p)]
+    w2[1] = w2[1][y0:y1]
     norm = h3 / (w2[0][:, None, None] * w2[1][None, :, None]
                  * w2[2][None, None, :])
-    gx, gy, gz = p.grid
     mask = torch.as_tensor(pol_mask, device=device).reshape(
-        gx, gy // 2 + 1, 1).to(dtype)
+        gx, y1 - y0, 1).to(dtype)
     live = k2 > 0
     zero = torch.zeros((), dtype=dtype, device=device)
     kern = torch.where(live, (sinc ** 2 * phi / (p.eta * k2s)) * norm * mask,
@@ -510,7 +544,7 @@ def _tables(params: WallParams, dtype, device) -> _Tables:
     # application into 27 multiply-adds (evaluated per product, its
     # expression tree is hundreds of full-grid passes)
     cdt = _complex_dtype(dtype)
-    img_mult = torch.empty((3, 3, 3, gx, gy // 2 + 1, gz), dtype=cdt,
+    img_mult = torch.empty((3, 3, 3, gx, y1 - y0, gz), dtype=cdt,
                            device=device)
     for m in range(3):
         for j in range(3):
@@ -668,7 +702,8 @@ def update_wall_plan(plan: WallPlan, positions) -> WallPlan:
                               np.asarray(p.spacing, np.float64))
     budget = torch.as_tensor(np.maximum(budget, 0.0), dtype=box3.dtype,
                              device=box3.device)
-    if bool(torch.all(torch.amax(torch.abs(delta), dim=0) <= budget)):
+    if mesh_mod.host_bool(torch.all(torch.amax(torch.abs(delta), dim=0)
+                                    <= budget)):
         return dataclasses.replace(
             plan, pos_all=(plan.sort_pos + delta).contiguous(),
             heights=heights, damp=damp, n_clipped=n_clipped)
@@ -695,6 +730,20 @@ def near_args(plan: WallPlan):
     return args, kw
 
 
+def near_rows(plan: WallPlan, f, mesh=None):
+    """Kernel K7's rows (N, C) without the self term; under a mesh of
+    several ranks this rank's share of the (x, y) cell columns, the other
+    rows zero."""
+    args, kw = near_args(plan)
+    dims = plan.cell_dims
+    columns = (mesh.share(dims[0] * dims[1]) if mesh_mod.is_sharded(mesh)
+               else None)
+    return cell_kernels.wall_near(
+        plan.pos_all, f, *args,
+        cz_range=_kept_layers(plan.params, plan.cell_dims), columns=columns,
+        **kw)
+
+
 def near_matvec(plan: WallPlan, forces):
     """Near-field rows (N, C), C = 3B b-major: the RPY remainder over the
     pairs of the combined set (mirrored strengths at image rows) and the
@@ -702,11 +751,7 @@ def near_matvec(plan: WallPlan, forces):
     kernel K7, plus the self term."""
     n = plan.n_real
     f = forces.reshape(n, -1).contiguous()
-    args, kw = near_args(plan)
-    rows = cell_kernels.wall_near(
-        plan.pos_all, f, *args,
-        cz_range=_kept_layers(plan.params, plan.cell_dims), **kw)
-    return rows + plan.near_tables.self_coeff * f
+    return near_rows(plan, f) + plan.near_tables.self_coeff * f
 
 
 # ---------------------------------------------------------------------------
@@ -885,21 +930,123 @@ def wave_defect_matvec(plan: WallPlan, forces, factors):
 # ---------------------------------------------------------------------------
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("the multi-device wall product "
-                                  "(matvec_sharded) is not ported yet "
-                                  "(ROADMAP Queue 1, item 20)")
+def wave_share(plan: WallPlan, forces, mesh):
+    """This rank's share of wave_matvec's rows (N, C) under a mesh whose
+    size divides gx (the module's docstring); the ranks' shares sum to
+    wave_matvec."""
+    p = plan.params
+    n = plan.n_real
+    f = forces.reshape(n, -1)
+    B = f.shape[1] // 3
+    gx, gy, gz = p.grid
+    gy2 = gy // 2 + 1
+    D = mesh.size
+    nxl, nyl = gx // D, -(-gy2 // D)
+    planes = (mesh.rank * nxl, nxl)
+    y0 = min(mesh.rank * nyl, gy2)
+    y1 = min(y0 + nyl, gy2)
+    t = _tables(_key(p), f.dtype, f.device, (y0, y1))
+    (da, db), (ia, ib), (ra, rb) = _z_plane_ranges(p)
+    nr = rb - ra
+    pi = t.polish_idx
+    mirror = torch.as_tensor([1.0, 1.0, -1.0] * B, dtype=f.dtype,
+                             device=f.device)
+    f_all = torch.cat([f, -f * mirror])
+    h = plan.heights[:, None]
+    f_img = torch.cat([f, h * f, (h * h) * f], dim=1)   # (N, 9B) m-major
+
+    def slab(view, strengths):
+        ids = ewald.plane_particles(view, planes)
+        return ewald.spread(view, strengths[ids], ids, planes=planes)
+
+    def to_ky(g):
+        # (C, nxl, gy, nz) planes -> (C, gx, y1 - y0, nz): y rfft, the
+        # ky-padded all_to_all, x fft
+        c = torch.fft.rfft(g, dim=2)
+        c = torch.nn.functional.pad(c, (0, 0, 0, D * nyl - gy2))
+        c = mesh_mod.all_to_all(mesh, c, split_dim=2, concat_dim=1)
+        return torch.fft.fft(c, dim=1)[:, :, :y1 - y0]
+
+    Uk = torch.zeros((3 * B, gx, y1 - y0, gz), dtype=_complex_dtype(f.dtype),
+                     device=f.device)
+    prof_all, prof_img = [], [None] * (3 * B)
+    g_all = to_ky(slab(plan._view(slice(None)), f_all)[..., da:db])
+    for b in range(B):
+        cxy = g_all[3 * b:3 * b + 3]
+        prof_all.append(_profile(cxy, pi, da, gz))
+        ck = _zfft(cxy, da, gz)
+        kdotc = torch.sum(t.khat * ck, dim=0, keepdim=True)
+        Uk[3 * b:3 * b + 3] = t.kern[None] * (ck - t.khat * kdotc)
+    del g_all
+    g_img = to_ky(slab(plan._view(slice(n, None)), f_img)[..., ia:ib])
+    for m in range(3):
+        for b in range(B):
+            c0 = 3 * (B * m + b)
+            cxy = g_img[c0:c0 + 3]
+            prof_img[B * m + b] = _profile(cxy, pi, ia, gz)
+            ck = _zfft(cxy, ia, gz)
+            for i in range(3):
+                for j in range(3):
+                    Uk[3 * b + i].addcmul_(t.img_mult[m, i, j], ck[j])
+    del g_img
+
+    Uacc = torch.fft.ifft(Uk, dim=-1)[..., ra:rb].reshape(3 * B, -1, nr)
+    if pi.numel():   # a ky slice may hold no polish column
+        pa = torch.cat(prof_all).reshape(B, 3, -1, gz)
+        pim = torch.cat(prof_img).reshape(3, B, 3, -1, gz)
+        pin = torch.cat([pa[:, None], pim.movedim(0, 1)], dim=1)
+        pin_f = torch.fft.fft(pin, n=2 * gz, dim=-1)
+        out_f = torch.einsum("pcijL,bcjpL->bipL", t.polish_kfft, pin_f)
+        Uacc[:, pi] += torch.fft.ifft(out_f, dim=-1)[..., ra:rb].reshape(
+            3 * B, -1, nr)
+    # the inverse: x ifft on the ky slice, the all_to_all back to the
+    # rank's planes, the y irfft
+    Ux = torch.fft.ifft(Uacc.reshape(3 * B, gx, y1 - y0, nr), dim=1)
+    Ux = torch.nn.functional.pad(Ux, (0, 0, 0, nyl - (y1 - y0)))
+    Ux = mesh_mod.all_to_all(mesh, Ux, split_dim=1, concat_dim=2)
+    Ur = torch.fft.irfft(Ux[:, :, :gy2], n=gy, dim=2)   # (3B, nxl, gy, nr)
+    U = Ur.new_zeros((3 * B, nxl, gy, gz))
+    U[..., ra:rb] = Ur
+    view = plan._view(slice(0, n))
+    ids = ewald.plane_particles(view, planes)
+    rows = torch.zeros_like(f)
+    rows[ids] = ewald.interpolate(view, U, ids, planes=planes)
+    return rows
+
+
+def matvec_sharded(plan: WallPlan, f, mesh):
+    """The undamped product (N, C) -> (N, C) under a mesh of several
+    ranks, on every rank: the near rows of this rank's columns and its
+    share of the wave rows summed over the ranks in one all_reduce_sum,
+    then the self term; the wave replicated when gx does not divide into
+    the ranks."""
+    f = f.contiguous()
+    partial = near_rows(plan, f, mesh)
+    replicated = plan.params.grid[0] % mesh.size != 0
+    if not replicated:
+        partial = partial + wave_share(plan, f, mesh)
+    out = mesh_mod.all_reduce_sum(mesh, partial)
+    if replicated:
+        if REPLICATED_WAVE["grid"] == 0:
+            log.info("ewald_wall.matvec_sharded: the wave part runs "
+                     "replicated (gx %d on %d ranks), as the JAX package's "
+                     "does", plan.params.grid[0], mesh.size)
+        REPLICATED_WAVE["grid"] += 1
+        out = out + wave_matvec(plan, f)
+    return out + plan.near_tables.self_coeff * f
 
 
 def matvec(plan: WallPlan, forces, mesh=None):
     """Single-wall RPY product M f, (N, 3) -> (N, 3) (or (N, 3B) stacked
-    b-major), with the overlap damping B M(z_eff) B folded in."""
-    _refuse_mesh(mesh)
+    b-major), with the overlap damping B M(z_eff) B folded in; a mesh of
+    several ranks shares it out (matvec_sharded)."""
     n = plan.n_real
     d = plan.damp[:, None]
     f2 = forces.reshape(n, -1) * d
-    out = (near_matvec(plan, f2) + wave_matvec(plan, f2)) * d
+    if mesh_mod.is_sharded(mesh):
+        out = matvec_sharded(plan, f2, mesh) * d
+    else:
+        out = (near_matvec(plan, f2) + wave_matvec(plan, f2)) * d
     return out.reshape(forces.shape)
 
 

@@ -12,6 +12,10 @@ float64. That costs one device-to-host sync per iteration, to read the
 new Hessenberg column (with the deflated solve's projections onto C in
 the same read): a known cost of this first port (PERF.md). The
 recycling's small SVDs run in float64 whatever the Krylov dtype.
+
+Every value the host reads to take a decision goes through
+parallel/mesh.host: under a mesh of several ranks (inside
+mesh.replicated) it is rank 0's, so every rank iterates alike.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import host, host_float
 
 
 class GmresResult(NamedTuple):
@@ -77,7 +83,7 @@ def gmres(matvec: Callable, b: torch.Tensor, *, x0: Optional[torch.Tensor] = Non
         x0 = torch.zeros_like(b)
     m = int(min(restart, n, maxiter))
     max_cycles = max(1, -(-maxiter // m))
-    target = max(tol * float(torch.linalg.norm(b)), atol)
+    target = max(tol * host_float(torch.linalg.norm(b)), atol)
 
     def a_tilde(y):
         return matvec(M(y))
@@ -85,7 +91,7 @@ def gmres(matvec: Callable, b: torch.Tensor, *, x0: Optional[torch.Tensor] = Non
     # skip the A*0 product on a cold start (one pair sweep at scale)
     r0 = b if cold_start else b - matvec(x0)
     y = torch.zeros_like(b)
-    r, rnorm = r0, float(torch.linalg.norm(r0))
+    r, rnorm = r0, host_float(torch.linalg.norm(r0))
     iters = cycles = 0
     while cycles < max_cycles and rnorm > target:
         V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
@@ -104,7 +110,7 @@ def gmres(matvec: Callable, b: torch.Tensor, *, x0: Optional[torch.Tensor] = Non
             h2 = Vj @ w
             w = w - Vj.T @ h2
             wnorm_t = torch.linalg.norm(w)
-            hcol = torch.cat([h1 + h2, wnorm_t[None]]).double().cpu().numpy()
+            hcol = host(torch.cat([h1 + h2, wnorm_t[None]]))
             wnorm = float(hcol[-1])
             if wnorm > 0:
                 V[j + 1] = w / wnorm_t
@@ -129,7 +135,7 @@ def gmres(matvec: Callable, b: torch.Tensor, *, x0: Optional[torch.Tensor] = Non
             rnorm = res
         else:
             r = r0 - a_tilde(y)
-            rnorm = float(torch.linalg.norm(r))
+            rnorm = host_float(torch.linalg.norm(r))
     x = x0 + M(y)
     return GmresResult(x=x, residual_norm=rnorm, iterations=iters,
                        converged=rnorm <= target)
@@ -159,7 +165,7 @@ def gmres_lockstep(matvec: Callable, b: torch.Tensor, *,
         x0 = torch.zeros_like(b)
     m = int(min(restart, n, maxiter))
     max_cycles = max(1, -(-maxiter // m))
-    b_norm = torch.linalg.norm(b, dim=1).double().cpu().numpy()
+    b_norm = host(torch.linalg.norm(b, dim=1))
     target = np.maximum(tol * b_norm, atol)
 
     def a_tilde(Y):
@@ -172,7 +178,7 @@ def gmres_lockstep(matvec: Callable, b: torch.Tensor, *,
         alpha0 = r0 @ recycle.C.T
         y = alpha0 @ recycle.U
         r = r0 - alpha0 @ recycle.C
-    rnorm = torch.linalg.norm(r, dim=1).double().cpu().numpy()
+    rnorm = host(torch.linalg.norm(r, dim=1))
     iters = cycles = 0
     basis = (None, np.zeros((m + 1, m)), 0)
     while cycles < max_cycles and np.any(rnorm > target):
@@ -196,8 +202,7 @@ def gmres_lockstep(matvec: Callable, b: torch.Tensor, *,
             h2 = torch.einsum("bkn,bn->bk", Vj, w)
             w = w - torch.einsum("bkn,bk->bn", Vj, h2)
             wnorm_t = torch.linalg.norm(w, dim=1)
-            hcol = torch.cat([h1 + h2, wnorm_t[:, None]],
-                             dim=1).double().cpu().numpy()
+            hcol = host(torch.cat([h1 + h2, wnorm_t[:, None]], dim=1))
             wsafe = torch.where(wnorm_t > 0, wnorm_t, torch.ones_like(wnorm_t))
             V[:, j + 1] = torch.where(wnorm_t[:, None] > 0, w / wsafe[:, None],
                                       torch.zeros_like(w))
@@ -224,12 +229,11 @@ def gmres_lockstep(matvec: Callable, b: torch.Tensor, *,
             rnorm = res
         else:
             r = r0 - a_tilde(y)
-            rnorm = torch.linalg.norm(r, dim=1).double().cpu().numpy()
+            rnorm = host(torch.linalg.norm(r, dim=1))
     if recycle is not None and iters == 0:
         # the warm start did all the work: its projected residual cannot
         # see the recycle drift, so take the true one
-        rnorm = torch.linalg.norm(r0 - a_tilde(y),
-                                  dim=1).double().cpu().numpy()
+        rnorm = host(torch.linalg.norm(r0 - a_tilde(y), dim=1))
     x = x0 + M(y)
     result = GmresResult(x=x, residual_norm=rnorm, iterations=iters,
                          converged=rnorm <= target)
@@ -276,7 +280,7 @@ def refresh_recycle(a_tilde_multi: Callable, rec: RecycleState
     AU = a_tilde_multi(rec.U)
     Q, Rq = torch.linalg.qr(AU.T.double())
     Wr, S, Vh = torch.linalg.svd(Rq)
-    s = S.cpu().numpy()
+    s = host(S)
     keep = s > 1e-4 * max(s[0], 1e-30)
     if not keep.any():
         return rec._replace(valid=False)
@@ -320,7 +324,7 @@ def gmres_deflated(matvec: Callable, b: torch.Tensor, rec: RecycleState, *,
     k = rec.U.shape[0]
     m = int(min(restart, n, maxiter))
     max_cycles = max(1, -(-maxiter // m))
-    target = max(tol * float(torch.linalg.norm(b)), atol)
+    target = max(tol * host_float(torch.linalg.norm(b)), atol)
     C = rec.C if rec.valid else None
 
     def a_tilde(y):
@@ -328,7 +332,7 @@ def gmres_deflated(matvec: Callable, b: torch.Tensor, rec: RecycleState, *,
 
     r0 = b if cold_start else b - matvec(x0)
     y, r = _deflate_setup(rec, r0)
-    rnorm = float(torch.linalg.norm(r))
+    rnorm = host_float(torch.linalg.norm(r))
     iters = cycles = 0
     basis = (None, np.zeros((m + 1, m)), np.zeros((m, k)), 0)
     while cycles < max_cycles and rnorm > target:
@@ -356,7 +360,7 @@ def gmres_deflated(matvec: Callable, b: torch.Tensor, rec: RecycleState, *,
             if C is not None:
                 parts.append(cc)
             # one read: the Hessenberg column and the projections onto C
-            hcol = torch.cat(parts).double().cpu().numpy()
+            hcol = host(torch.cat(parts))
             if hcol[j + 1] > 0:
                 V[j + 1] = w / wnorm_t
             if C is not None:
@@ -381,11 +385,11 @@ def gmres_deflated(matvec: Callable, b: torch.Tensor, rec: RecycleState, *,
         cycles += 1
         basis = (V, Hraw, Bp, j)
         r = r0 - a_tilde(y)
-        rnorm = float(torch.linalg.norm(r))
+        rnorm = host_float(torch.linalg.norm(r))
     if iters == 0 and rec.valid:
         # the deflation did all the work: the projected residual cannot
         # see the operator's drift, so take the true one once
-        rnorm = float(torch.linalg.norm(r0 - a_tilde(y)))
+        rnorm = host_float(torch.linalg.norm(r0 - a_tilde(y)))
     x = x0 + M(y)
     result = GmresResult(x=x, residual_norm=rnorm, iterations=iters,
                          converged=rnorm <= target)
@@ -415,7 +419,7 @@ def harvest_recycle(rec: RecycleState, V, Hraw, Bp, j_used, k
     # U slots take part only when valid and non-degenerate (zero rows of
     # a partial harvest must not come back as fake smallest directions)
     u_live = (rec.valid
-              & (torch.linalg.norm(rec.U, dim=1) > 1e-20).cpu().numpy())
+              & (host(torch.linalg.norm(rec.U, dim=1)) > 1e-20))
     G = np.zeros((m + 1 + kold, kold + m))
     G[m + 1:, :kold] = np.diag(np.where(u_live, 1.0, BIG))
     G[:m + 1, kold:] = np.where(used[None, :], Hraw, 0.0)

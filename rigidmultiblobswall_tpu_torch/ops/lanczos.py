@@ -10,7 +10,8 @@ applied to the output.
 The Lanczos basis and the tridiagonal coefficients stay on the device;
 the host reads them only at a convergence check, every `check_every`
 iterations, where the small tridiagonal eigenproblem is solved on the
-host in float64.
+host in float64. Those reads go through parallel/mesh.host (rank 0's
+values under a mesh of several ranks).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import host, host_float
 
 
 class LanczosResult(NamedTuple):
@@ -53,8 +56,8 @@ def stochastic_forcing_lanczos(mobility_mult: Callable, z: torch.Tensor, *,
     def tridiag_noise(i):
         """noise_i = v_norm factor V^T Q sqrt(L)+ Q^T e1 over the leading
         (i+1) block of the tridiagonal matrix."""
-        d = h_diag[:i + 1].double().cpu().numpy()
-        s = h_sup[:i].double().cpu().numpy()
+        d = host(h_diag[:i + 1])
+        s = host(h_sup[:i])
         T = np.diag(d) + np.diag(s, -1) + np.diag(s, 1)
         lam, Q = np.linalg.eigh(T)
         coeff = Q @ (np.sqrt(np.maximum(lam, 0.0)) * Q[0, :])
@@ -82,12 +85,12 @@ def stochastic_forcing_lanczos(mobility_mult: Callable, z: torch.Tensor, *,
         V[i + 1] = w
         if (i + 1) % check_every == 0 or i + 1 >= m:
             new = tridiag_noise(i)
-            old_norm = float(torch.linalg.norm(noise))
-            diff = float(torch.linalg.norm(new - noise))
+            old_norm = host_float(torch.linalg.norm(noise))
+            diff = host_float(torch.linalg.norm(new - noise))
             converged = i > 0 and diff / max(old_norm, eps) < tolerance
             noise = new
         i += 1
-    if not float(v_norm) > 0:
+    if not host_float(v_norm) > 0:
         noise = torch.zeros_like(noise)
     if L_mult is not None:
         noise = L_mult(noise)

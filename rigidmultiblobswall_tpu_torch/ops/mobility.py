@@ -28,6 +28,14 @@ package's radii products treat that domain as unbounded (no wall, no
 projection), which is not the in-plane physics. The SFM engine
 (mobility_sfm.py) is not ported.
 
+A `mesh` (parallel/mesh.py) of several ranks splits the pair products:
+a square product's symmetric sweep by group pairs, each rank's partial
+summed by `all_reduce_sum` (each unordered pair computed once across the
+mesh, where the JAX package's row split computes it twice), a two-tensor
+product by target rows, gathered by `all_gather_rows`; both on kernel
+K1's rank-share instances on the card. The radii products and the dense
+matrices take no mesh, as in the JAX package.
+
 Wall overlap regularization (single_wall, in_plane): products use z_eff =
 max(z, a) and M <- B^T M(z_eff) B with the diagonal damping B_ii =
 min(z_i/a, 1).
@@ -103,10 +111,42 @@ def _normalized(r_vectors, a, wall, dtype):
     return (r * (1.0 / a)).contiguous(), damp
 
 
+def _sharded(q_src, q_tgt, V, group, *, mesh, **kw):
+    """pair_kernels.pair_matvec over the columns of V in groups of
+    `group`, on this rank's share of the mesh (module docstring), the
+    result replicated."""
+    from ..parallel import mesh as mesh_mod
+
+    cols = range(0, V.shape[1], group)
+    if not mesh_mod.is_sharded(mesh):
+        return torch.cat([pair_kernels.pair_matvec(
+            q_src, q_tgt, V[:, c0:c0 + group].contiguous(), **kw)
+            for c0 in cols], dim=1)
+    if q_tgt is None:
+        pairs = mesh.share(pair_kernels.group_pairs(q_src))
+        partial = torch.cat([pair_kernels.pair_matvec(
+            q_src, None, V[:, c0:c0 + group].contiguous(), pairs=pairs,
+            **kw) for c0 in cols], dim=1)
+        return mesh_mod.all_reduce_sum(mesh, partial)
+    n_tgt = q_tgt.shape[0]
+
+    def rows(row0, n_local):
+        out = V.new_zeros((n_local, V.shape[1]))
+        hi = min(row0 + n_local, n_tgt)
+        if hi > row0:
+            q = q_tgt[row0:hi].contiguous()
+            out[:hi - row0] = torch.cat([pair_kernels.pair_matvec(
+                q_src, q, V[:, c0:c0 + group].contiguous(), row0=row0,
+                **kw) for c0 in cols], dim=1)
+        return out
+
+    return mesh_mod.sharded_rows_apply(mesh, rows, n_tgt)[:n_tgt]
+
+
 def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
                           domain="single_wall",
                           periodic_length=(0.0, 0.0, 0.0),
-                          self_interaction=True):
+                          self_interaction=True, mesh=None):
     """Stacked products u_b = M v_b, vec (B, Ns, 3) -> (B, Nt, 3), sharing
     one pair sweep across the B right-hand sides. r_tgt None: the square
     product, targets = sources (K1 tt then takes its symmetric sweep). A
@@ -115,7 +155,8 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     of MAX_RHS right-hand sides, in order, one K1 launch each. A
     periodic_length with an axis L > 0 sums the image boxes (K1's image-box
     instance on the card). in_plane: K1's wall instance between the
-    projections v_z = 0 and u_z = 0."""
+    projections v_z = 0 and u_z = 0. A mesh of several ranks splits the
+    sweep (module docstring); every rank gets the whole result."""
     _check_supported(coupling, domain)
     boxes = pair_kernels.image_boxes(periodic_length, a)
     n_rhs, n_src = vec.shape[0], r_src.shape[0]
@@ -132,13 +173,9 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
     if domain == "in_plane":
         V = V.clone()
         V[:, 2::3] = 0.0
-    group = 3 * pair_kernels.MAX_RHS[coupling]
-    out = torch.cat([
-        pair_kernels.pair_matvec(
-            q_src, q_tgt, V[:, c0:c0 + group].contiguous(),
-            coupling=coupling, mode=DOMAIN_MODE[domain],
-            self_interaction=self_interaction, boxes=boxes)
-        for c0 in range(0, 3 * n_rhs, group)], dim=1)
+    out = _sharded(q_src, q_tgt, V, 3 * pair_kernels.MAX_RHS[coupling],
+                   mesh=mesh, coupling=coupling, mode=DOMAIN_MODE[domain],
+                   self_interaction=self_interaction, boxes=boxes)
     out = out * (1.0 / (8.0 * math.pi * eta * a ** _PREF_POW[coupling]))
     if wall:
         out = out * damp_t[:, None]
@@ -149,16 +186,16 @@ def pairwise_matvec_multi(r_src, r_tgt, vec, eta, a, *, coupling="tt",
 
 def pairwise_matvec(r_src, r_tgt, vec, eta, a, *, coupling="tt",
                     domain="single_wall", periodic_length=(0.0, 0.0, 0.0),
-                    self_interaction=True):
+                    self_interaction=True, mesh=None):
     """u_i = sum_j M^{coupling}_ij v_j over all (target, source) pairs.
 
     r_src (Ns,3), r_tgt (Nt,3) or None for the square product (targets =
-    sources), vec (Ns,3) -> (Nt,3)."""
+    sources), vec (Ns,3) -> (Nt,3); mesh as pairwise_matvec_multi's."""
     v = vec.reshape(1, r_src.shape[0], 3)
     return pairwise_matvec_multi(
         r_src, r_tgt, v, eta, a, coupling=coupling, domain=domain,
         periodic_length=periodic_length,
-        self_interaction=self_interaction)[0]
+        self_interaction=self_interaction, mesh=mesh)[0]
 
 
 def _square_product(coupling):
@@ -187,13 +224,14 @@ def mobility_rot_times_force_torque(r_vectors, force, torque, eta, a, **kw):
 
 def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
                           domain="single_wall",
-                          periodic_length=(0.0, 0.0, 0.0)):
+                          periodic_length=(0.0, 0.0, 0.0), mesh=None):
     """(U, W) = M_grand (F, T) for single-blob bodies (rollers path): the
     four coupling blocks in ONE K1 pass over the pair geometry
     (mobility.py:386-409). T enters scaled by 1/a and W leaves scaled by
     a, so the kernel's sums see magnitudes of one order. A periodic_length
     with an axis L > 0 sums the image boxes (K1 grand's image-box
-    instance). The rot couplings exist on single_wall and no_wall only."""
+    instance). The rot couplings exist on single_wall and no_wall only.
+    A mesh of several ranks splits the sweep by group pairs."""
     if domain not in ("single_wall", "no_wall"):
         _check_supported("rr", domain)
     n = r_vectors.shape[0]
@@ -206,10 +244,9 @@ def grand_mobility_matvec(r_vectors, force, torque, eta, a, *,
         F = F * damp[:, None]
         T = T * damp[:, None]
     vin = torch.cat([F, T * (1.0 / a)], dim=1).contiguous()
-    out = pair_kernels.pair_matvec(
-        q, None, vin, coupling="grand", mode=pair_kernels.wall_mode(wall),
-        self_interaction=True,
-        boxes=pair_kernels.image_boxes(periodic_length, a))
+    out = _sharded(q, None, vin, 6, mesh=mesh, coupling="grand",
+                   mode=pair_kernels.wall_mode(wall), self_interaction=True,
+                   boxes=pair_kernels.image_boxes(periodic_length, a))
     pref = 1.0 / (8.0 * math.pi * eta * a)
     u = out[:, :3] * pref
     w = out[:, 3:] * (pref / a)

@@ -45,6 +45,19 @@ list on the host (csrc/pair_blocks.cuh with_boxes): the in-plane one
 boxes off the home box in the far form alone) where it holds, the general
 one (ImageBoxes) elsewhere. `plane_far` states the same rule for the
 launch plan's occupancy query and the logs.
+
+A rank's share of a product (parallel/mesh.py): `pairs=(p0, p1)` runs a
+square product's symmetric sweep over the group pairs [p0, p1) of
+`plan_groups`' G (G + 1) / 2 only, into a zeroed workspace, and returns
+that share's partial (N, nc B), which the ranks' partials sum to the
+product (every unordered pair computed once across the mesh); a
+two-tensor product whose targets are the source rows [row0, row0 + Nt)
+passes `row0`, which puts the self pair on source row0 + i. Their
+launches (a call with pairs= or row0= given, 0 included) count in
+`SHARE_LAUNCHES[instance, B, sweep]` beside LAUNCHES;
+`pair_share_plain` and `pair_plain(..., row0=)` are the plain versions
+over the same group pairs or rows (on the CPU the groups are those of
+`PLAIN_SM` SMs, the H100's count).
 """
 
 from __future__ import annotations
@@ -84,8 +97,14 @@ SYM_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # "sym" (the square product) or "sliced"
 IMAGE_LAUNCHES = {(c, b, s): 0 for (c, b) in LAUNCHES
                   for s in ("sym", "sliced")}
+# launches of a rank's share (pairs= or row0= given), by (instance, B,
+# sweep), also counted in LAUNCHES or IMAGE_LAUNCHES
+SHARE_LAUNCHES = {(c, b, s): 0 for (c, b) in LAUNCHES
+                  for s in ("sym", "sliced")}
 # the most image boxes a launch takes (csrc/pair_blocks.cuh kMaxBoxes)
 MAX_BOXES = 27
+# the SMs whose group plan the plain share version follows on the CPU
+PLAIN_SM = 132
 
 
 def launches(coupling):
@@ -180,6 +199,30 @@ def plan_groups(n, n_sm):
         g += 1
     per = -(-tiles // min(g, tiles))
     return -(-tiles // per), per
+
+
+def group_pair(p, n_groups):
+    """(GA, GB) of upper-triangle pair p in row-major order over n_groups
+    groups (csrc/pair_blocks.cuh group_pair)."""
+    row, start = 0, 0
+    while start + n_groups - row <= p:
+        start += n_groups - row
+        row += 1
+    return row, row + p - start
+
+
+def group_plan(q):
+    """(G, tiles_per_group) of the symmetric sweep over q's rows: the
+    card's plan_groups on a CUDA tensor, PLAIN_SM's on the CPU."""
+    n_sm = _n_sm(q) if q.device.type == "cuda" else PLAIN_SM
+    return plan_groups(q.shape[0], n_sm)
+
+
+def group_pairs(q):
+    """The number of group pairs, G (G + 1) / 2, of the symmetric sweep
+    over q's rows (what a mesh shares out)."""
+    groups, _ = group_plan(q)
+    return groups * (groups + 1) // 2
 
 
 @functools.lru_cache(maxsize=512)
@@ -327,14 +370,15 @@ def _apply_blocks(coupling, d, zt, zs, self_mask, mode, v):
 
 
 def pair_plain(q_src, q_tgt, vec, *, coupling="tt", mode, self_interaction,
-               boxes=None):
+               boxes=None, row0=0):
     """Plain PyTorch K1: out[i] = sum_j M(q_tgt[i], q_src[j]) vec[j] for
     each right-hand side, computed from materialized (tile, Ns, nc, nc)
     blocks in the domain mode of MODES. Target row i pairs with source row
-    i as `self` when self_interaction is set (targets are the leading
-    sources). With boxes = (L, offsets) the sum runs over the image boxes
-    as the JAX package's tile_fn does: d to its minimum image, then the
-    block of every box at d + b L, the self mask in the home box only."""
+    row0 + i as `self` when self_interaction is set (the targets are
+    sources [row0, row0 + Nt)). With boxes = (L, offsets) the sum runs
+    over the image boxes as the JAX package's tile_fn does: d to its
+    minimum image, then the block of every box at d + b L, the self mask
+    in the home box only."""
     _mode(mode)
     nc = NCOMP[coupling]
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
@@ -351,7 +395,8 @@ def pair_plain(q_src, q_tgt, vec, *, coupling="tt", mode, self_interaction,
                       device=q_src.device)
     for i0 in range(0, n_tgt, row_tile):
         qt = q_tgt[i0:i0 + row_tile]
-        rows = torch.arange(i0, i0 + qt.shape[0], device=q_src.device)
+        rows = torch.arange(row0 + i0, row0 + i0 + qt.shape[0],
+                            device=q_src.device)
         d0 = qt[:, None, :] - q_src[None, :, :]
         if boxes is not None:
             d0 = min_image(d0, L)
@@ -369,8 +414,38 @@ def pair_plain(q_src, q_tgt, vec, *, coupling="tt", mode, self_interaction,
     return out
 
 
+def pair_share_plain(q, vec, *, coupling="tt", mode, self_interaction,
+                     boxes=None, pairs):
+    """Plain PyTorch K1 over a rank's share of the symmetric sweep: the
+    partial (N, nc B) of the group pairs [p0, p1) of group_plan's groups
+    (the targets of group GA against the sources of group GB, and, off the
+    diagonal, GB's against GA's), each unordered pair once. Each target
+    group takes one plain sweep against every source, the rows of the
+    groups it does not pair with in the share zeroed in the vector (and
+    the self pairs only when its diagonal pair is in the share)."""
+    n = q.shape[0]
+    groups, per = group_plan(q)
+    out = torch.zeros((n, vec.shape[1]), dtype=q.dtype, device=q.device)
+    rows = [slice(g * per * TILE, min(n, (g + 1) * per * TILE))
+            for g in range(groups)]
+    partners = {}
+    for p in range(*pairs):
+        ga, gb = group_pair(p, groups)
+        partners.setdefault(ga, set()).add(gb)
+        partners.setdefault(gb, set()).add(ga)
+    for g, src in partners.items():
+        keep = torch.zeros(n, dtype=vec.dtype, device=vec.device)
+        for h in src:
+            keep[rows[h]] = 1.0
+        a = rows[g]
+        out[a] = pair_plain(q, q[a], vec * keep[:, None], coupling=coupling,
+                            mode=mode, boxes=boxes, row0=a.start,
+                            self_interaction=self_interaction and g in src)
+    return out
+
+
 def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", mode,
-                self_interaction, boxes=None):
+                self_interaction, boxes=None, pairs=None, row0=None):
     """K1 wrapper: the CUDA kernel of `coupling` in the domain `mode`
     (MODES; free_surface: the tt coupling's free-surface instance) for
     CUDA tensors, `pair_plain` for CPU tensors. q_src (Ns,3), q_tgt
@@ -378,7 +453,11 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", mode,
     vec (Ns,nc B) -> (Nt,nc B); boxes (L, offsets) or None (the module's
     docstring). On the card a square product takes the symmetric sweep
     over `plan_groups`' groups, a two-tensor product the sliced sweep over
-    `launch_plan`'s slices, each in its image-box instance with boxes."""
+    `launch_plan`'s slices, each in its image-box instance with boxes.
+    A rank's share (the module's docstring): pairs=(p0, p1), a range of
+    group_pairs(q_src), for a square product, the partial of those group
+    pairs; row0 (an int, 0 included) for a two-tensor product whose
+    targets are source rows [row0, row0 + Nt)."""
     if coupling not in NCOMP:
         raise ValueError(f"unknown coupling {coupling!r}")
     if _mode(mode) == "free_surface" and coupling != "tt":
@@ -386,10 +465,29 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", mode,
     square = q_tgt is None
     if square:
         q_tgt = q_src
+    share = pairs is not None or row0 is not None
+    if (pairs is not None and not square) or (row0 is not None and square):
+        raise ValueError("pair_matvec: pairs= shares a square product, "
+                         "row0 a two-tensor product")
+    if pairs is not None:
+        pairs = (int(pairs[0]), int(pairs[1]))
+        if not 0 <= pairs[0] <= pairs[1] <= group_pairs(q_src):
+            raise ValueError(f"pair_matvec: group pairs {pairs} outside "
+                             f"[0, {group_pairs(q_src)}]")
     if q_src.device.type == "cpu":
+        if pairs is not None:
+            return pair_share_plain(q_src, vec, coupling=coupling, mode=mode,
+                                    self_interaction=self_interaction,
+                                    boxes=boxes, pairs=pairs)
         return pair_plain(q_src, q_tgt, vec, coupling=coupling, mode=mode,
-                          self_interaction=self_interaction, boxes=boxes)
+                          self_interaction=self_interaction, boxes=boxes,
+                          row0=row0 or 0)
     _check(coupling, q_src, q_tgt, vec, boxes)
+    row0 = row0 or 0
+    if row0 < 0 or (self_interaction and row0 + q_tgt.shape[0]
+                    > q_src.shape[0]):
+        raise ValueError(f"pair_matvec: row0 {row0} with {q_tgt.shape[0]} "
+                         f"targets of {q_src.shape[0]} sources")
     nc = NCOMP[coupling]
     n_src, n_tgt = q_src.shape[0], q_tgt.shape[0]
     n_rhs = vec.shape[1] // nc
@@ -405,11 +503,16 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", mode,
     if square:
         name = f"pair_{inst}_sym{img}_{suffix}"
         groups, per = plan_groups(n_src, _n_sm(vec))
-        ws = torch.empty((groups, n_src, nc * n_rhs), dtype=vec.dtype,
-                         device=vec.device)
+        total = groups * (groups + 1) // 2
+        p0, p1 = (0, total) if pairs is None else pairs
+        # a share leaves the slices of other ranks' pairs unwritten: they
+        # must read zero in the slice sum
+        alloc = torch.empty if (p0, p1) == (0, total) else torch.zeros
+        ws = alloc((groups, n_src, nc * n_rhs), dtype=vec.dtype,
+                   device=vec.device)
         args = (q_src.data_ptr(), vec.data_ptr(), out.data_ptr(),
                 ws.data_ptr(), n_src, n_rhs, groups, per, code,
-                int(bool(self_interaction)))
+                int(bool(self_interaction)), p0, p1 - p0)
     else:
         name = f"pair_{inst}{img}_{suffix}"
         n_slices, tiles = launch_plan(coupling, q_src, q_tgt, vec, mode=mode,
@@ -419,11 +522,13 @@ def pair_matvec(q_src, q_tgt, vec, *, coupling="tt", mode,
         args = (q_src.data_ptr(), q_tgt.data_ptr(), vec.data_ptr(),
                 out.data_ptr(), None if ws is None else ws.data_ptr(), n_src,
                 n_tgt, n_rhs, n_slices, tiles, code,
-                int(bool(self_interaction)))
+                int(bool(self_interaction)), int(row0))
     if boxes is not None:
         args += _box_args(boxes)
     err = getattr(_build.library(), name)(*args, stream)
     _build.check(name, err)
+    if share:
+        SHARE_LAUNCHES[inst, n_rhs, "sym" if square else "sliced"] += 1
     if boxes is not None:
         IMAGE_LAUNCHES[inst, n_rhs, "sym" if square else "sliced"] += 1
         return out

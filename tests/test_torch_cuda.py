@@ -2533,3 +2533,100 @@ def test_k5_open_matches_plain(cuda, L3, cap, dtype):
     bound = (max(3e-6, _cell_bound(dtype, cap)) if dtype == torch.float32
              else _cell_bound(dtype, cap))
     assert _rel_err(got, ref) <= bound
+
+
+# ---------------------------------------------------------------------------
+# The rank-share instances of K1, K6, K7 and P2 (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype, bound", [(torch.float32, 3e-6),
+                                          (torch.float64, 1e-12)])
+@pytest.mark.parametrize("coupling, n_rhs, mode, images", [
+    ("tt", 1, "wall", False), ("tt", 2, "wall", False),
+    ("grand", 1, "wall", False), ("tr", 2, "open", False),
+    ("rt", 1, "wall", False), ("rr", 2, "wall", False),
+    ("tt", 2, "free_surface", False), ("tt", 1, "free_surface", True),
+    ("tt", 1, "wall", True), ("grand", 1, "wall", True)])
+def test_k1_rank_shares_sum_to_the_product(cuda, coupling, n_rhs, mode,
+                                           images, dtype, bound):
+    """The symmetric sweep over three ranks' group pairs sums to the full
+    launch, each share matches its plain version (the plain sweep over
+    the same group pairs), and the sliced sweep over a share of the rows
+    with row0 puts the self pairs on their own rows."""
+    r, q = _scene(1500, seed=5)
+    nc = pk.NCOMP[coupling]
+    rng = np.random.default_rng(6)
+    qs = torch.as_tensor(q, dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.normal(size=(1500, nc * n_rhs)), dtype=dtype,
+                        device=cuda)
+    boxes = pk.image_boxes((60.0, 60.0, 0.0), 1.0) if images else None
+    kw = dict(coupling=coupling, mode=mode, self_interaction=True,
+              boxes=boxes)
+    total = pk.group_pairs(qs)
+    shares = [(total * k // 3, total * (k + 1) // 3) for k in range(3)]
+    parts = [pk.pair_matvec(qs, None, v, pairs=s, **kw) for s in shares]
+    full = pk.pair_matvec(qs, None, v, **kw)
+    assert _rel_err(sum(parts), full) <= bound
+    plain = pk.pair_share_plain(qs.double(), v.double(), pairs=shares[1],
+                                **kw)
+    assert _rel_err(parts[1], plain) <= bound
+    r0 = 500
+    rows = pk.pair_matvec(qs, qs[r0:1100].contiguous(), v, row0=r0, **kw)
+    ref = pk.pair_plain(qs.double(), qs[r0:1100].double(), v.double(),
+                        row0=r0, **kw)
+    assert _rel_err(rows, ref) <= bound
+
+
+def test_cell_rank_shares_sum_exactly(cuda):
+    """K6 over cell ranges, P2 over target ranges and K7 over column ranges
+    write disjoint rows: the shares of three ranks sum to the full launch
+    bit for bit, and a share leaves the other rows zero."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald_wall
+
+    rng = np.random.default_rng(9)
+    L, n = 20.0, 6000
+    pos = torch.as_tensor(rng.uniform(0, L, (n, 3)), dtype=torch.float32,
+                          device=cuda)
+    f = torch.as_tensor(rng.normal(size=(n, 6)), dtype=torch.float32,
+                        device=cuda)
+    plan = ewald.make_plan(ewald.default_params(0.131, 1.0, (L,) * 3,
+                                                tol=1e-3, grid_max=64), pos)
+    p = plan.params
+    C = int(np.prod(plan.cell_dims))
+    args = (plan.positions, f, plan.cell_table, plan.cell_dims, p.box,
+            p.cell_capacity, plan.cheb)
+    kw = dict(two_a=2 * p.a, r_cut=p.r_cut)
+    parts = [ck.near_rpy(*args, cells_range=(C * k // 3, C * (k + 1) // 3),
+                         **kw) for k in range(3)]
+    assert torch.equal(sum(parts), ck.near_rpy(*args, **kw))
+    assert not bool(parts[0][parts[1].abs().sum(dim=1) > 0].any())
+    pr = ewald.default_params(0.157, 1.0, (L,) * 3, tol=1e-3, grid_max=64,
+                              radii=(0.131, 0.157))
+    grp = torch.as_tensor(rng.integers(0, 2, n), dtype=torch.int32,
+                          device=cuda)
+    planr = ewald.make_plan(pr, pos, group_of=grp)
+    call = (planr.positions, f, planr.group_of, planr.cell_table,
+            planr.cell_dims, pr.box, planr.params.cell_capacity,
+            planr.cheb_radii, planr.radii_edges)
+    parts = [ck.near_rpy_radii(*call, r_cut=pr.r_cut, pairs=planr.radii_pairs,
+                               targets=(n * k // 3, n * (k + 1) // 3))
+             for k in range(3)]
+    assert torch.equal(sum(parts), ck.near_rpy_radii(
+        *call, r_cut=pr.r_cut, pairs=planr.radii_pairs))
+    assert not bool(parts[0][n // 3:].any())
+    wp = ewald_wall.default_wall_params(0.131, 1.0, (L, L), z_hi=2.6,
+                                        tol=1e-3)
+    posw = torch.as_tensor(np.stack([rng.uniform(0, L, n),
+                                     rng.uniform(0, L, n),
+                                     rng.uniform(0.2, 2.4, n)], 1),
+                           dtype=torch.float32, device=cuda)
+    wplan = ewald_wall.make_wall_plan(wp, posw)
+    nx, ny, _ = wplan.cell_dims
+    wargs, wkw = ewald_wall.near_args(wplan)
+    cz = ewald_wall._kept_layers(wplan.params, wplan.cell_dims)
+    parts = [ck.wall_near(wplan.pos_all, f, *wargs, cz_range=cz,
+                          columns=(nx * ny * k // 3, nx * ny * (k + 1) // 3),
+                          **wkw) for k in range(3)]
+    assert torch.equal(sum(parts), ck.wall_near(wplan.pos_all, f, *wargs,
+                                                cz_range=cz, **wkw))

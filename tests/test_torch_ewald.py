@@ -284,6 +284,8 @@ def test_spectral_traction_em_matches_jax_with_jax_noise(monkeypatch):
 
 
 def test_from_reference_carries_spectral_fields_and_refuses_the_rest():
+    """The spectral fields and radii cross; a JAX mesh is swapped for the
+    port's (a one-rank mesh runs the product unchanged)."""
     js, _, ts, _ = _path_scene()
     ts0 = tsys.from_reference(js, device="cpu")
     for name in ("spectral_tol", "spectral_grid_max",
@@ -308,16 +310,22 @@ def test_from_reference_carries_spectral_fields_and_refuses_the_rest():
     tr = tsys.from_reference(radii, device="cpu")
     assert tr.has_mixed_radii
     np.testing.assert_array_equal(tr.blob_radii, radii.blob_radii)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tsys.from_reference(dataclasses.replace(js, mesh=object()),
-                            device="cpu")
+    # a JAX mesh cannot cross: the port's System takes the caller's mesh
+    # (here one rank without a process group), or none
+    from rigidmultiblobswall_tpu_torch.parallel import mesh as pmesh
+
+    one = pmesh.make_mesh(1, device="cpu")
+    tm = tsys.from_reference(dataclasses.replace(js, mesh=object()),
+                             device="cpu", mesh=one)
+    assert tm.mesh is one and tm.mobility_kwargs["mesh"] is one
+    assert tsys.from_reference(dataclasses.replace(js, mesh=object()),
+                               device="cpu").mesh is None
     assert tew.default_params(A, ETA, BOX, radii=(0.1, 0.2)).radii == (0.1,
                                                                        0.2)
     plan = tsad.maybe_dense_mobility(ts, torch.zeros((4, 3),
                                                      dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tew.matvec(plan, torch.zeros((4, 3), dtype=torch.float64),
-                   mesh=object())
+    f = torch.as_tensor(np.random.default_rng(3).normal(size=(4, 3)))
+    assert torch.equal(tew.matvec(plan, f, mesh=one), tew.matvec(plan, f))
 
 
 def test_step_resolves_the_plan_once_and_products_need_it():

@@ -259,7 +259,7 @@ def sliced(pk, lib, coupling, q, v, want):
     err = getattr(lib, name)(
         q.data_ptr(), q.data_ptr(), v.data_ptr(), out.data_ptr(),
         ws.data_ptr(), n, n, nv // pk.NCOMP[coupling], n_slices, tiles, 1, 1,
-        torch.cuda.current_stream().cuda_stream)
+        0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
     return out, n_slices, tiles
