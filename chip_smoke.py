@@ -15,9 +15,10 @@ is non-zero and no result line is printed):
      csrc/wall_near.cu, csrc/wall_rot_near.cu on csrc/cell_sweep.cuh) and
      L1, the Laplace layer sums (csrc/laplace_layers.cu), M1, the
      MCMC pair energy (csrc/blob_energy.cu), P1, the radii pair product
-     (csrc/pair_radii.cu), and P2, the mixed-radii near field's pair list
-     and list product (csrc/near_radii.cu), K1's and K3's image-box
-     instances among them, with one nvcc per source,
+     (csrc/pair_radii.cu), P2, the mixed-radii near field's pair list
+     and list product (csrc/near_radii.cu), and G1 and G2, the spectral
+     gridding's spread and interpolation (csrc/gridding.cu), K1's and
+     K3's image-box instances among them, with one nvcc per source,
      all started together,
      into build/kernels/; prints the ptxas registers and spills of every
      kernel instance;
@@ -66,6 +67,11 @@ is non-zero and no result line is printed):
      three timed steps with
      the launch counts of K1, K2, K5 and K6 (B = 1 / 2) over the run;
      last, the same configuration through the CLI (its ms per step).
+     G1 and G2 at its shapes (C = 3 and 6 channels) before the steps,
+     with their launches over them (grid_vs_plain: float32 against the
+     float64 plain version within twice the float32 plain version's
+     error plus u32 sqrt(P^3) max|ref|, float64 at 1e-12, G2 twice
+     bit-identical), as at phases 10, 11, 19 and 22.
   9. the materialized path at full width (multibody-12k-dense): 1024
      twelve-blob shells = 12,288 blobs, bench.py's multibody physics,
      float32; stochastic_Slip_Trapz and stochastic_adams_bashforth, one
@@ -83,7 +89,9 @@ is non-zero and no result line is printed):
      the 27-cell algorithm's)
      and the wall-slab K5 (its own record, bound and launches) at its
      shapes against their plain versions (the first 256 cells, float64),
-     each twice bit-identical, then one warm-up step
+     each twice bit-identical, and G1 and G2 (the merged points' spread
+     at C = 3 and 6, the image points' at 9 and 18, the reals' rows at 3
+     and 6), then one warm-up step
      and three timed steps with the launch counts, drops and clipped
      blobs (which must be 0).
  11. the rollers on the wall engine at full width: bench.py's rollers
@@ -94,7 +102,9 @@ is non-zero and no result line is printed):
      the first 256 xy columns against the float64 plain version, the
      float32 plain version's error beside it, twice bit-identical) and
      periodic K2 (its one-box instance, the first 1024 rows against the
-     float64 plain version over every image box) at its shapes, then one
+     float64 plain version over every image box) and G1 and G2 (the
+     merged spread at C = 3, the image points' at 6 and 9, the reals'
+     rows at 3, 6 and 9) at its shapes, then one
      warm-up step and three
      timed steps through make_stepper: ms/step, solver counts,
      rejections, overlaps, plan drops (0), peak device memory and the
@@ -265,7 +275,8 @@ is non-zero and no result line is printed):
      plan's pair list and the product over it) at its shape against its
      float64 plain versions (the first 256 target cells; the product with
      B = 1 and 2, twice bit-identical; the build and the products timed
-     apart, a kernel record each), then one warm-up and three timed
+     apart, a kernel record each) and G1 and G2 on each radius group's
+     particles (ids, C = 3 and 6), then one warm-up and three timed
      Slip-Trapz steps: ms/step, iterations, overflows (0), peak device
      memory and the launches (P2's builds and products and K5 must run,
      K6 must not). Phase 3 also holds P2 on a random 3000-blob periodic
@@ -333,7 +344,10 @@ is non-zero and no result line is printed):
      targets at spectral-98k-radii): the shares summed against the full
      launch (K1 within P22_TOL, the others bit for bit), a share against
      its float64 plain version, its time, its plain version's and its
-     bound (the full instance's, scaled to the share). Then two gloo
+     bound (the full instance's, scaled to the share); G1 and G2 on rank
+     1's x planes with the particles that stamp them (spectral-98k, C = 3
+     and 6; spectral-wall-98k's merged, image and real points). Then two
+     gloo
      ranks sharing the card (parallel/spawn.py, phase22_rank) run phase
      22's products (K1 tt B = 1, 2, tt on two tensors, grand,
      spectral-98k B = 1, 2, spectral-98k-radii, spectral-wall-98k B = 1,
@@ -381,7 +395,9 @@ L1 and M1 have a record per instance; P1 and P2 name their plan and
 registers, P1 with a record per B, P2 one for its build and one per B;
 M1's batch carries the floor an empty launch sets; K1's and K3's
 image-box instances a record each at phase 20's shapes, phase 21's
-instances at theirs, and phase 22's rank-share instances at its);
+instances at theirs, phase 22's rank-share instances at its, and G1's
+and G2's instances at phases 8, 10, 11, 19 and 22's shapes, each with
+its launches over its phase);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -1363,6 +1379,131 @@ def u32_sqrt(n_terms):
     return float(np.finfo(np.float32).eps / 2 * np.sqrt(n_terms))
 
 
+# kernels G1 and G2 (csrc/gridding.cu), the JAX package's XLA gridding
+# they replace, and the float32 operations of an axis weight (the offset,
+# its minimum image, t, 1 - t^2, the exponent's scaling; sqrt and exp one
+# each): 3 P a point; a stamp's weight is 2 products, and each channel one
+# more (G1's product; G2's multiply-add counted as 2)
+GRID_SRC = "rigidmultiblobswall_tpu_torch/csrc/gridding.cu"
+GRID_REPLACES = {"spread": "rigidmultiblobswall_tpu/ops/ewald.py:1022",
+                 "interpolate": "rigidmultiblobswall_tpu/ops/ewald.py:1088"}
+GRID_AXIS_FLOPS = 14
+# G1's and G2's records for the kernels line, appended by each phase that
+# checks them at its shapes (grid_line_records)
+GRID_LINE = []
+
+
+def grid_vs_plain(view, C, what, g, ids=None, planes=None,
+                  kinds=("spread", "interpolate")):
+    """G1 and G2 at one of a path's shapes: `view` a float32 SpectralPlan
+    (or a wall engine's view), C channels, the points ids (or every
+    point) on the x planes `planes` (or every plane). Each in float32
+    against its plain version in float64 on the same positions, within
+    twice the float32 plain version's own error plus u32 sqrt(P^3)
+    max|ref|: both float32 versions take the same float32 offsets, whose
+    rounding (~u32 L against the window's half-width P h / 2) the
+    window's slope amplifies, and the kernels sum in another order; in
+    float64 at 1e-12; G2 twice bit-identical. Times the kernel (CUDA
+    events) and the float32 plain version (one call). Returns {kind:
+    record}; the bound counts the points' rows and the forces or rows
+    once and the grid's nodes once."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald
+
+    p = view.params
+    P = p.support
+    gx, gy, gz = p.grid
+    nxl = gx if planes is None else planes[1]
+    n = view.positions.shape[0] if ids is None else ids.numel()
+    dev = view.positions.device
+    view64 = dataclasses.replace(view, positions=view.positions.double(),
+                                 sort_pos=view.sort_pos.double())
+    calls = {"spread": (ewald.spread, ewald.spread_plain,
+                        lambda: torch.randn((n, C), generator=g,
+                                            device=dev)),
+             "interpolate": (ewald.interpolate, ewald.interpolate_plain,
+                             lambda: torch.randn((C, nxl, gy, gz),
+                                                 generator=g, device=dev))}
+    nbytes = (4 * 6 * n + (8 * n if ids is not None else 0) + 4 * n * C
+              + 4 * C * nxl * gy * gz)
+    out = {}
+    for kind in kinds:
+        kern, plain, make = calls[kind]
+        x = make()
+        got = kern(view, x, ids, planes)
+        ref = plain(view64, x.double(), ids, planes)
+        scale = ref.abs().max().item()
+        err = (got.double() - ref).abs().max().item()
+        e32 = (plain(view, x, ids, planes).double() - ref).abs().max().item()
+        err64 = (kern(view64, x.double(), ids, planes) - ref).abs().max(
+            ).item()
+        same = kind == "spread" or torch.equal(got, kern(view, x, ids,
+                                                         planes))
+        del got, ref
+        tol = 2 * e32 + u32_sqrt(P ** 3) * scale
+        ms = cuda_ms(lambda: kern(view, x, ids, planes), 5)
+        plain_ms = cuda_ms(lambda: plain(view, x, ids, planes), 1,
+                           warmup=False)
+        stamps = n * P ** 3
+        flops = n * 3 * P * GRID_AXIS_FLOPS + stamps * (
+            2 + C if kind == "spread" else 2 + 2 * C)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   **bound_record(nbytes, flops))
+        name = "G1 spread" if kind == "spread" else "G2 interpolate"
+        log(f"{name} {what}, C = {C}, {n} points, grid {(C, nxl, gy, gz)}, "
+            f"P = {P}{'' if planes is None else f', planes {planes}'}: f32 "
+            f"vs plain f64 / max|ref| {err / scale:.3e} (bound "
+            f"{tol / scale:.3e}: twice the f32 plain version's "
+            f"{e32 / scale:.3e} + u32 sqrt(P^3)); f64 {err64 / scale:.3e} "
+            f"(bound 1e-12)" + ("" if kind == "spread" else
+                                f"; repeat bit-identical {same}")
+            + f"; kernel {ms:.3f} ms, plain f32 {plain_ms:.2f} ms; "
+            f"{stamps * C:.4g} " + ("atomic adds" if kind == "spread" else
+                                    "stamp reads") + f" at most (P^3 C a "
+            f"point); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / ms:.1%} of it)")
+        check(err <= tol, f"{name} disagrees ({what}, C = {C})")
+        check(err64 <= 1e-12 * scale, f"{name} f64 disagrees ({what}, C = "
+              f"{C})")
+        check(same, f"{name} not bit-identical on repeat ({what}, C = {C})")
+        out[kind] = rec
+        del x
+    del view64
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_line_records(recs, label, counts):
+    """Appends phase `label`'s G1 and G2 records ({(kind, C, shape):
+    record}) to the kernels line, each with its instance's launches over
+    the phase's path (counts: grid_kernels.LAUNCHES, or the ranks' share
+    launches); each must have run there. An instance checked at two
+    shapes (phase 19's radius groups) is recorded at its first."""
+    seen = set()
+    for (kind, C, shape), rec in recs.items():
+        key = f"grid_{kind}_c{C}"
+        if key in seen:
+            continue
+        seen.add(key)
+        name = (f"{'G1 spread' if kind == 'spread' else 'G2 interpolate'} "
+                f"C={C} ({label}, {shape})")
+        GRID_LINE.append(dict(name=name, route="cuda", source=GRID_SRC,
+                              replaces=GRID_REPLACES[kind],
+                              launches=counts.get(key, 0), **rec))
+        check(counts.get(key, 0) > 0, f"{name} was not launched on its "
+              "path")
+
+
+def grid_phase(cases, g):
+    """grid_vs_plain over a phase's cases ((shape label, view, C, ids,
+    planes, kinds)); returns {(kind, C, shape label): record}."""
+    recs = {}
+    for shape, view, C, ids, planes, kinds in cases:
+        for kind, rec in grid_vs_plain(view, C, shape, g, ids, planes,
+                                       kinds).items():
+            recs[kind, C, shape] = rec
+    return recs
+
+
 def k5_vs_plain(ck, pos, table, dims, box, cap, kw, cells_range=None,
                 guard_z=False):
     """K5 against its plain version in float64 (on cells_range, or every
@@ -1746,6 +1887,7 @@ def phase_spectral_path(pk, mc, ck):
     from rigidmultiblobswall_tpu_torch.models import kinematics as kin
     from rigidmultiblobswall_tpu_torch.models.system import make_state
     from rigidmultiblobswall_tpu_torch.ops import cells, forces
+    from rigidmultiblobswall_tpu_torch.ops import grid_kernels as gk
 
     dev = torch.device(DEVICE)
     system = spectral_system(N_SPECTRAL, L_SPECTRAL)
@@ -1825,6 +1967,9 @@ def phase_spectral_path(pk, mc, ck):
         f"f32 {plain_ms:.1f} ms; {cand} candidate pairs; {bound_text}")
     check(err <= bound5 * scale, f"K5 disagrees at {n} blobs")
     check(same, f"K5 not bit-identical on repeat at {n} blobs")
+    # G1 and G2 at the path's shapes: B = 1 and the lockstep pair's B = 2
+    grid_recs = grid_phase([(f"{n} blobs", plan, C, None, None,
+                             ("spread", "interpolate")) for C in (3, 6)], g)
     del plan
 
     # the path: one warm-up step and three timed steps; the noise is drawn
@@ -1840,6 +1985,7 @@ def phase_spectral_path(pk, mc, ck):
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    gk.LAUNCHES.update(dict.fromkeys(gk.LAUNCHES, 0))
     t0 = time.perf_counter()
     carry = integrators.init_carry(system, state=state)
     state, carry, aux = step(state, gen, carry)           # warm-up
@@ -1861,7 +2007,8 @@ def phase_spectral_path(pk, mc, ck):
     launches = {"K5": ck.LAUNCHES["nl_forces"],
                 "K6 B=1": ck.LAUNCHES["near_rpy_b1"],
                 "K6 B=2": ck.LAUNCHES["near_rpy_b2"],
-                "K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES}
+                "K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES,
+                **{k: v for k, v in gk.LAUNCHES.items() if v}}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     p_out = state.pos
     log(f"spectral path {n} blobs ({N_SPECTRAL} shells) stochastic_Slip_"
@@ -1877,6 +2024,7 @@ def phase_spectral_path(pk, mc, ck):
           f"K5 or K6 not launched on the spectral path: {launches}")
     records["K5"]["launches"] = launches["K5"]
     records["K6"]["launches"] = launches["K6 B=1"] + launches["K6 B=2"]
+    grid_line_records(grid_recs, "spectral-98k", gk.LAUNCHES)
     return records
 
 
@@ -1982,6 +2130,7 @@ def phase_wall_path(pk, mc, ck):
     from rigidmultiblobswall_tpu_torch.models import kinematics as kin
     from rigidmultiblobswall_tpu_torch.models.system import make_state
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall, forces
+    from rigidmultiblobswall_tpu_torch.ops import grid_kernels as gk
 
     dev = torch.device(DEVICE)
     system = wall_system(N_WALL, L_WALL)
@@ -2086,7 +2235,18 @@ def phase_wall_path(pk, mc, ck):
         f"{plain5:.1f} ms; {cand} candidate pairs; {bound_text}")
     check(err <= bound5 * scale, f"wall-slab K5 disagrees at {n} blobs")
     check(same, f"wall-slab K5 not bit-identical on repeat at {n} blobs")
-    del plan, fpos, table
+    # G1 and G2 at the path's shapes: the merged real + image points (C =
+    # 3B), the image points' h^m channels (C = 9B) and the reals' rows
+    merged, image, real = (plan._view(sl) for sl in (
+        slice(None), slice(n, None), slice(0, n)))
+    grid_recs = grid_phase(
+        [(f"{2 * n} merged points", merged, C, None, None, ("spread",))
+         for C in (3, 6)]
+        + [(f"{n} image points", image, C, None, None, ("spread",))
+           for C in (9, 18)]
+        + [(f"{n} real points", real, C, None, None, ("interpolate",))
+           for C in (3, 6)], g)
+    del plan, fpos, table, merged, image, real
 
     # the path: one warm-up step and three timed steps, the noise drawn on
     # the card
@@ -2100,6 +2260,7 @@ def phase_wall_path(pk, mc, ck):
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     mc.LAUNCHES = 0
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    gk.LAUNCHES.update(dict.fromkeys(gk.LAUNCHES, 0))
     t0 = time.perf_counter()
     carry = integrators.init_carry(system, state=state)
     state, carry, aux = step(state, gen, carry)           # warm-up
@@ -2125,7 +2286,8 @@ def phase_wall_path(pk, mc, ck):
                 "K7 B=2": ck.LAUNCHES["wall_near_b2"],
                 "K5": ck.LAUNCHES["nl_forces"],
                 "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"],
-                "K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES}
+                "K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES,
+                **{k: v for k, v in gk.LAUNCHES.items() if v}}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     p_out = state.pos
     log(f"wall path {n} blobs ({N_WALL} shells) stochastic_Slip_Trapz f32: "
@@ -2149,6 +2311,7 @@ def phase_wall_path(pk, mc, ck):
     rec["launches"] = launches["K7 B=1"] + launches["K7 B=2"]
     rec["design"] = "compacted walk (redesigned)"
     k5_wall["launches"] = launches["K5"]
+    grid_line_records(grid_recs, "spectral-wall-98k", gk.LAUNCHES)
     return rec, k5_wall
 
 
@@ -2419,6 +2582,7 @@ def phase_wall_rollers_path(pk, mc, ck):
     and three timed steps. Returns the kernel records."""
     from rigidmultiblobswall_tpu_torch.models import rollers
     from rigidmultiblobswall_tpu_torch.ops import ewald_wall_rot as ewr
+    from rigidmultiblobswall_tpu_torch.ops import grid_kernels as gk
 
     dev = torch.device(DEVICE)
     sus = wall_roller_suspension(N_ROLLERS)
@@ -2542,6 +2706,18 @@ def phase_wall_rollers_path(pk, mc, ck):
     check(same, f"periodic K2 not bit-identical on repeat at {n} rollers")
     records["K2 periodic"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   **rec)
+    # G1 and G2 at the path's shapes: the tt engine's merged spread (C =
+    # 3) and image channels (C = 9), the rot spreads of the image points'
+    # moments (C = 6), the reals' rows (C = 3, the rot products' 6 and 9)
+    merged, image, real = (plan._view(sl) for sl in (
+        slice(None), slice(n, None), slice(0, n)))
+    grid_recs = grid_phase(
+        [(f"{2 * n} merged points", merged, 3, None, None, ("spread",))]
+        + [(f"{n} image points", image, C, None, None, ("spread",))
+           for C in (6, 9)]
+        + [(f"{n} real points", real, C, None, None, ("interpolate",))
+           for C in (3, 6, 9)], g)
+    del merged, image, real
 
     # the path: one warm-up step and three timed steps
     step = rollers.make_stepper(sus, "stochastic_adams_bashforth_rollers",
@@ -2551,6 +2727,7 @@ def phase_wall_rollers_path(pk, mc, ck):
     torch.cuda.reset_peak_memory_stats()
     pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
     ck.LAUNCHES.update(dict.fromkeys(ck.LAUNCHES, 0))
+    gk.LAUNCHES.update(dict.fromkeys(gk.LAUNCHES, 0))
     mc.LAUNCHES = 0
     mc.PERIODIC_LAUNCHES = 0
     mc.ONE_BOX_LAUNCHES = 0
@@ -2580,6 +2757,7 @@ def phase_wall_rollers_path(pk, mc, ck):
                 for inst in K8_INSTANCES}
     launches["K7"] = ck.LAUNCHES["wall_near_b1"] + ck.LAUNCHES["wall_near_b2"]
     launches["K2 periodic"] = mc.PERIODIC_LAUNCHES
+    launches.update({k: v for k, v in gk.LAUNCHES.items() if v})
     others = {"K1": sum(pk.LAUNCHES.values()), "K2": mc.LAUNCHES,
               "K5": ck.LAUNCHES["nl_forces"],
               "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"]}
@@ -2606,6 +2784,7 @@ def phase_wall_rollers_path(pk, mc, ck):
     for inst in K8_INSTANCES:
         records[f"K8 {inst}"]["launches"] = launches[f"K8 {inst}"]
     records["K2 periodic"]["launches"] = launches["K2 periodic"]
+    grid_line_records(grid_recs, "rollers-wall-spectral-32k", gk.LAUNCHES)
     return records
 
 
@@ -5950,6 +6129,7 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
     from rigidmultiblobswall_tpu_torch.models import kinematics as kin
     from rigidmultiblobswall_tpu_torch.models.system import make_state
     from rigidmultiblobswall_tpu_torch.ops import forces
+    from rigidmultiblobswall_tpu_torch.ops import grid_kernels as gk
 
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -6007,6 +6187,12 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
             **rec)
     for key, rec in records.items():
         log(f"P2 {key} ptxas {rec['registers']}")
+    # G1 and G2 at the path's shapes: each radius group's particles (ids)
+    # on the whole grid, B = 1 and 2
+    grid_recs = grid_phase(
+        [(f"radius group {k}, ids", plan, C, ids, None,
+          ("spread", "interpolate"))
+         for k, ids in enumerate(plan.group_members) for C in (3, 6)], g)
     del plan
 
     step = integrators.make_stepper(
@@ -6015,6 +6201,7 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
         gmres_maxiter=300, max_rejections=3)
     gen = torch.Generator(device=dev).manual_seed(0)
     _reset_counts(pk, mc, ck, lap)
+    gk.LAUNCHES.update(dict.fromkeys(gk.LAUNCHES, 0))
     held = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6038,7 +6225,8 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
                 "P2 B=2": ck.LAUNCHES["near_rpy_radii_b2"],
                 "P2 build": ck.LAUNCHES["near_radii_pairs"],
                 "K5": ck.LAUNCHES["nl_forces"],
-                "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"]}
+                "K6": ck.LAUNCHES["near_rpy_b1"] + ck.LAUNCHES["near_rpy_b2"],
+                **{k: v for k, v in gk.LAUNCHES.items() if v}}
     others = _other_launches(pk, mc, ck, lap)
     log(f"spectral-98k-radii stochastic_Slip_Trapz f32: "
         f"{sum(times) / 3:.1f} ms/step over 3 steps ({_fmt(times)}; plan + "
@@ -6058,6 +6246,7 @@ def phase_radii_spectral_path(pk, mc, ck, lap, report):
     records["build"]["launches"] = launches["P2 build"]
     for n_rhs in (1, 2):
         records[n_rhs]["launches"] = launches[f"P2 B={n_rhs}"]
+    grid_line_records(grid_recs, "spectral-98k-radii", gk.LAUNCHES)
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -7705,6 +7894,36 @@ def phase22_rank(mesh, payload):
     return res
 
 
+def grid_share_records(sc):
+    """G1 and G2 on rank 1's x planes (x0 = gx / D, gx / D planes, as
+    ewald.wave_share and ewald_wall.wave_share take them) at phase 22's
+    shapes, with the particles that stamp them (plane_particles):
+    spectral-98k (C = 3, 6), spectral-wall-98k's merged points (C = 3),
+    image points (C = 9) and real points' rows (C = 3). Returns
+    grid_phase's records."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald
+
+    g = torch.Generator(device=sc["r"].device).manual_seed(223)
+    plan = sc["spectral"]
+    nxl = plan.params.grid[0] // N_RANKS
+    planes = (nxl, nxl)
+    ids = ewald.plane_particles(plan, planes)
+    cases = [("spectral-98k, rank 1's planes", plan, C, ids, planes,
+              ("spread", "interpolate")) for C in (3, 6)]
+    wall = sc["wall"]
+    n = wall.n_real
+    nxl = wall.params.grid[0] // N_RANKS
+    planes = (nxl, nxl)
+    for what, sl, C, kind in (("merged points", slice(None), 3, "spread"),
+                              ("image points", slice(n, None), 9, "spread"),
+                              ("real points", slice(0, n), 3,
+                               "interpolate")):
+        view = wall._view(sl)
+        cases.append((f"spectral-wall-98k {what}, rank 1's planes", view, C,
+                      ewald.plane_particles(view, planes), planes, (kind,)))
+    return grid_phase(cases, g)
+
+
 def share_plain_fields(fn, total, part):
     """A rank-share record's plain fields, as plain_fields: plain_ms, the
     plain version over the whole share (fn(total), one timed call) where
@@ -8004,6 +8223,7 @@ def phase_multi_device(pk, mob, ck):
     log(f"phase 22 scenes and plans in {time.perf_counter() - t0:.1f} s")
     records = k1_share_records(pk, mob, sc)
     records.update(cell_share_records(ck, sc))
+    grid_recs = grid_share_records(sc)
     log(f"phase 22 records: {time.perf_counter() - t_phase:.1f} s")
 
     # the ranks, started now: they build their scenes while this process
@@ -8068,6 +8288,8 @@ def phase_multi_device(pk, mob, ck):
     for k, v in dry["share_launches"].items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 22 rank-share launches (rank 0): {launches}")
+    grid_line_records(grid_recs, "multi-device-2-ranks, rank 0's launches",
+                      launches)
     log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
     return records, launches
 
@@ -8426,6 +8648,10 @@ def main():
                             **p22_records[key]))
         check(kernels[-1]["launches"] > 0, f"phase 22: {name} was not "
               "launched by the ranks")
+    # G1 and G2 at phases 8, 10, 11, 19 and 22's shapes, each with its
+    # instance's launches over its phase
+    kernels.extend(GRID_LINE)
+    check(GRID_LINE, "no G1 or G2 record")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@ _D = ctypes.c_double
 # csrc/blob_forces.cu, csrc/dense_tt.cu, csrc/symm_planes.cu,
 # csrc/nl_forces.cu, csrc/near_rpy.cu, csrc/wall_near.cu,
 # csrc/wall_rot_near.cu, csrc/laplace_layers.cu, csrc/blob_energy.cu,
-# csrc/pair_radii.cu, csrc/near_radii.cu);
+# csrc/pair_radii.cu, csrc/near_radii.cu, csrc/gridding.cu);
 # pointers and the stream MUST be c_void_p or ctypes truncates them
 _PAIR = (_P,) * 5 + (_I,) * 8 + (_P,)
 _PAIR_SYM = (_P,) * 4 + (_I,) * 8 + (_P,)
@@ -102,6 +102,12 @@ SIGNATURES = {
     **{f"near_rpy_radii_{t}_b{b}": (_P,) * 7 + (_I,) * 3 + (_D,) * 3
        + (_I, _I, _P)
        for t in ("f32", "f64") for b in (1, 2)},
+    # G1 and G2 (csrc/gridding.cu): pos, sort_pos, ids, rows, src, dst,
+    # then n, stride, gx, gy, gz, x0, nxl, P, then Lx, Ly, Lz, beta, and
+    # the stream
+    **{f"grid_{k}_{t}_c{c}": (_P,) * 6 + (_I,) * 8 + (_D,) * 4 + (_P,)
+       for k in ("spread", "interp") for t in ("f32", "f64")
+       for c in (3, 6, 9, 18)},
 }
 
 _lib = None

@@ -19,15 +19,18 @@ one device. The mathematics (see the JAX module's docstring):
 The host-side parameter choice and quadrature (numpy, scipy) are copies
 of the JAX package's, so both pick the same grid, r_cut, xi, window
 support and Chebyshev coefficients. Gridding (`spread`, `interpolate`)
-is plain PyTorch on separable window weights: index_add_ to spread, a
-gather and a weighted sum to interpolate, in chunks of particles. A
+runs kernels G1 and G2 on the card (ops/grid_kernels.py: a warp a
+particle in sort-time x order, atomic adds into the channel-major grid,
+the rows read from it in place) and their plain versions on the CPU
+(`spread_plain`, `interpolate_plain`: index_add_ to spread, a gather and
+a weighted sum to interpolate, in chunks of particles), on separable
+window weights. A
 particle stamps, per axis, the grid points the JAX layout stamps: along
 x the P planes round(x/h) + (0..P-1) - P//2 of its sort-time position
 (the JAX segment layout keeps them across plan refreshes), along y and z
 every point within P h / 2 of its position; each weight is masked to
 |d| <= P h / 2. The JAX package's z-slab plane-matmul layout exists only
-because XLA on the TPU serializes colliding scatters and is not ported;
-a hand-written gridding kernel is later work (ROADMAP).
+because XLA on the TPU serializes colliding scatters and is not ported.
 
 The multi-device product (`matvec_sharded`, the JAX package's; a `mesh`
 of parallel/mesh.py on matvec and matvec_multi): the near field's target
@@ -64,7 +67,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import cell_kernels, cells
+from . import cell_kernels, cells, grid_kernels
 from ..parallel import mesh as mesh_mod
 
 log = logging.getLogger(__name__)
@@ -780,8 +783,8 @@ def _stamps(plan: SpectralPlan, sl):
 
 def _chunks(plan: SpectralPlan, n):
     """Slices of n particles whose stamp temporaries stay near 2^24
-    entries (a few hundred MB at C = 6 in float32): few chunks, few
-    launches."""
+    entries (a few hundred MB at C = 6 in float32): few chunks (the plain
+    versions', on the CPU)."""
     step = max(1, (1 << 24) // plan.params.support ** 3)
     return [slice(i, min(i + step, n)) for i in range(0, n, step)]
 
@@ -816,6 +819,18 @@ def spread(plan: SpectralPlan, forces, ids=None, planes=None):
     side; stacked sides share the window weights). With ids, the
     particles ids only, forces (len(ids), C). With planes (x0, nx), the
     slab of those x planes alone, (C, nx, gy, gz)."""
+    # kernel G1 on the card, the plain version on the CPU
+    if forces.device.type == "cpu":
+        return spread_plain(plan, forces, ids, planes)
+    n = plan.positions.shape[0] if ids is None else ids.shape[0]
+    return grid_kernels.grid_spread(
+        plan.positions, plan.sort_pos, forces.reshape(n, -1).contiguous(),
+        plan.params, ids=ids, planes=planes)
+
+
+def spread_plain(plan: SpectralPlan, forces, ids=None, planes=None):
+    """`spread` in plain PyTorch: the stamps' flat indices and weights in
+    chunks of particles (`_chunks`), added by index_add_."""
     gx, gy, gz = plan.params.grid
     nxl = gx if planes is None else planes[1]
     n = plan.positions.shape[0] if ids is None else ids.shape[0]
@@ -835,6 +850,17 @@ def interpolate(plan: SpectralPlan, ug, ids=None, planes=None):
     with ids, the rows of the particles ids only, (len(ids), C); with
     planes (x0, nx), ug the (C, nx, gy, gz) slab of those planes and the
     rows their stamps' share."""
+    # kernel G2 on the card, the plain version on the CPU
+    if ug.device.type == "cpu":
+        return interpolate_plain(plan, ug, ids, planes)
+    return grid_kernels.grid_interpolate(
+        plan.positions, plan.sort_pos, ug.contiguous(), plan.params,
+        ids=ids, planes=planes)
+
+
+def interpolate_plain(plan: SpectralPlan, ug, ids=None, planes=None):
+    """`interpolate` in plain PyTorch: the grid transposed to rows, the
+    stamps' values gathered and weighted in chunks of particles."""
     C = ug.shape[0]
     rows = ug.reshape(C, -1).T.contiguous()              # (G, C)
     n = plan.positions.shape[0] if ids is None else ids.shape[0]

@@ -261,12 +261,14 @@ def _product(mesh, case, device):
 
 def share_launches():
     """This process's launches of the kernels' rank-share instances: K1's
-    by (instance, B, sweep), K6's, K7's and P2's by name."""
-    from ..ops import cell_kernels, pair_kernels
+    by (instance, B, sweep), K6's, K7's and P2's by name, G1's and G2's on
+    the rank's x planes by instance."""
+    from ..ops import cell_kernels, grid_kernels, pair_kernels
 
     out = {f"K1 {c} B={b} {s}": v
            for (c, b, s), v in pair_kernels.SHARE_LAUNCHES.items() if v}
     out.update({k: v for k, v in cell_kernels.SHARE_LAUNCHES.items() if v})
+    out.update({k: v for k, v in grid_kernels.SHARE_LAUNCHES.items() if v})
     return out
 
 

@@ -1,9 +1,9 @@
-"""Kernels K1, K2, K5, K6, K7, K8, L1, P1, P2 and M1 at the main paths'
-shapes on a CUDA card.
+"""Kernels K1, K2, K5, K6, K7, K8, L1, P1, P2, M1, G1 and G2 at the main
+paths' shapes on a CUDA card.
 
     python3 tools/torch_profile_kernels.py \
         [--kernels k1,k2,k5,k6,k7,k8,l1,p1,p2,m1,k1img,k3img,k1fs,k3fs,
-                   p1img,k5open,fsopen] [--plain-whole]
+                   p1img,k5open,fsopen,grid] [--plain-whole]
     python3 tools/torch_profile_kernels.py --root DIR --baseline
         # only the times of the paths' calls, with the package (and
         # chip_smoke.py) of another checkout DIR, e.g. the parent commit
@@ -106,7 +106,12 @@ Times are CUDA events, the mean of 10 launches after a warm-up, float32:
   49,152 blobs, P1 free surface open, the open wall P1 and the free
   surface's P1 images at 21e's bidisperse scene, B = 1 and 2; but for
   --baseline also the open free-surface instances' bounds, a repeat
-  check and their float32 error on the first ERR_ROWS rows.
+  check and their float32 error on the first ERR_ROWS rows;
+- grid (csrc/gridding.cu): G1 and G2 at phase 8's plan (C = 3 and 6) and
+  phase 10's wall views (the merged spread at C = 3, the image points'
+  at 18, the reals' rows at 3) as the paths call them (the points in
+  their sort-time x order); but for --baseline also in the caller's
+  order of the points.
 For alternating runs against another tree, run the tool once a tree in
 turns (--root DIR --baseline, then --baseline here, and again): each
 process prints its times; the SASS of a tree is counted by a run without
@@ -166,6 +171,7 @@ INSTANCES = {"k1": ("pair_kernel<", "sym_kernel<", "slice_sum", "dense_tt"),
                     "l1_directed<float, 0, true, false"),
              "p1": ("radii_sym_kernel<",),
              "p2": ("pairs_kernel<", "product_kernel<"),
+             "grid": ("grid_spread_kernel<float", "grid_interp_kernel<float"),
              "m1": ("energy_small_kernel<", "energy_kernel<"),
              # the float32 wall image instances of K1 on both sweeps (the
              # policy PlaneBoxes or, in an older tree, ImageBoxes) and K3
@@ -1441,13 +1447,61 @@ def device_ms(fn, reps):
     return sum(device_parts(fn, reps).values())
 
 
+# ----------------------------------------------------------- G1, G2
+
+
+def profile_grid(cs, dev, detail):
+    """G1 and G2 at phase 8's plan (C = 3, 6) and phase 10's wall views
+    (the merged points' spread at C = 3, the image points' at 18, the
+    reals' rows at 3) as the paths call them (ops/ewald.py: the points in
+    their sort-time x order) and, for detail, in the caller's order of
+    the points (grid_kernels.walk replaced by the identity: the same
+    function), each the mean of 10 launches."""
+    from rigidmultiblobswall_tpu_torch.ops import ewald
+    from rigidmultiblobswall_tpu_torch.ops import grid_kernels as gk
+
+    plan, _ = periodic_scene(cs, dev)
+    wall = wall_plan(cs, dev)
+    n = wall.n_real
+    cases = [("spectral-98k", plan, C, kind) for C in (3, 6)
+             for kind in ("spread", "interpolate")]
+    cases += [("wall merged", wall._view(slice(None)), 3, "spread"),
+              ("wall images", wall._view(slice(n, None)), 18, "spread"),
+              ("wall reals", wall._view(slice(0, n)), 3, "interpolate")]
+    g = torch.Generator(device=dev).manual_seed(8)
+    for what, view, C, kind in cases:
+        m = view.positions.shape[0]
+        gx, gy, gz = view.params.grid
+        if kind == "spread":
+            x = torch.randn((m, C), generator=g, device=dev)
+            fn = ewald.spread
+        else:
+            x = torch.randn((C, gx, gy, gz), generator=g, device=dev)
+            fn = ewald.interpolate
+        ms = cs.cuda_ms(lambda: fn(view, x), 10)
+        line = (f"  {'G1' if kind == 'spread' else 'G2'} {kind} {what} "
+                f"{m} points C={C}: {ms:.3f} ms")
+        if detail:
+            walk, rows = gk.walk, torch.arange(m, device=dev)
+            gk.walk = lambda sort_pos, ids: (rows, rows)
+            try:
+                ms_c = cs.cuda_ms(lambda: fn(view, x), 10)
+            finally:
+                gk.walk = walk
+            line += f"; in the caller's order {ms_c:.3f} ms"
+        print(line, flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+
 PROFILES = {"k1": profile_k1, "k2": profile_k2, "k5": profile_k5,
             "k6": profile_k6, "k7": profile_k7, "k8": profile_k8,
             "l1": profile_l1, "p1": profile_p1, "p2": profile_p2,
             "m1": profile_m1, "k1img": profile_k1img,
             "k3img": profile_k3img, "k1fs": profile_k1fs,
             "k3fs": profile_k3fs, "p1img": profile_p1img,
-            "k5open": profile_k5open, "fsopen": profile_fsopen}
+            "k5open": profile_k5open, "fsopen": profile_fsopen,
+            "grid": profile_grid}
 
 
 # ------------------------------------------------------- ptxas and SASS
@@ -1880,7 +1934,7 @@ def main():
     p.add_argument("--kernels", default="k1,k2,k5,k6,k7,k8,l1,p1,p2,m1",
                    help="comma-separated subset of k1, k2, k5, k6, k7, k8, "
                         "l1, p1, p2, m1, k1img, k3img, k1fs, k3fs, p1img, "
-                        "k5open, fsopen")
+                        "k5open, fsopen, grid")
     p.add_argument("--ncu-child", action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--baseline", action="store_true",

@@ -5,8 +5,9 @@ Drives chip_smoke.py's rollers configuration (bench.py's `rollers` path:
 card, on the direct engine (domain single_wall) or, with --domain
 single_wall_spectral, on the wall-spectral engine (bench.py's
 BENCH_ROLLER_DOMAIN=single_wall_spectral: K8, K7, periodic K2, the
-gridding and the FFTs): one warm-up step, a few unprofiled steps timed
-on the host clock around `torch.cuda.synchronize()`, then one step under
+gridding's G1 and G2 and the FFTs): one warm-up step, a few unprofiled
+steps timed on the host clock around `torch.cuda.synchronize()`, then
+one step under
 torch.profiler (CUDA activity). Prints the card's name and power limit,
 the unprofiled ms/step with iteration counts, and per-kernel device time,
 launch count and share of the profiled step, grouped by what runs it;
@@ -43,7 +44,9 @@ def _self_device_us(evt):
 # kernel-name fragments -> what runs them (the port's kernels by their
 # CUDA names; PyTorch's own by the operation); tools/
 # torch_profile_lubrication.py groups with these too
-GROUPS = (("wall_rot_near", "K8 rot near field"),
+GROUPS = (("grid_spread", "G1 spread"),
+          ("grid_interp", "G2 interpolate"),
+          ("wall_rot_near", "K8 rot near field"),
           ("wall_near", "K7 tt near field"),
           ("force_sym_kernel", "K2 blob forces"),
           ("slice_sum", "K1/K2 slice sums"),

@@ -10,9 +10,9 @@ unprofiled steps timed on the host clock around `torch.cuda.synchronize()`,
 then one step under torch.profiler (CUDA activity). Prints the card's name
 and power limit, the unprofiled ms/step with iteration counts, the
 device's busy time and idle share in the profiled step, the top kernels,
-and the device time grouped by what it serves (K7, K5, FFT, the spread's
-index_add_, the interpolation's gathers, the image multipliers'
-elementwise products, the rest).
+and the device time grouped by what it serves (the gridding's kernels G1
+and G2, K7, K5, FFT, any index_add_ or gathers left, the image
+multipliers' elementwise products, the rest).
 
 Usage: python3 tools/torch_profile_wall.py [n_shells] [--steps N]
 """
@@ -38,7 +38,9 @@ from rigidmultiblobswall_tpu_torch.ops import (  # noqa: E402
     cell_kernels, forces)
 
 # kernel-name fragments per group, first match wins
-GROUPS = (("K7 wall_near", ("wall_near",)), ("K5 nl_forces", ("nl_forces",)),
+GROUPS = (("G1 spread", ("grid_spread",)),
+          ("G2 interpolate", ("grid_interp",)),
+          ("K7 wall_near", ("wall_near",)), ("K5 nl_forces", ("nl_forces",)),
           ("FFT (cuFFT)", ("fft", "FFT")),
           ("spread: index_add_", ("index_add", "indexFuncLarge",
                                   "indexFuncSmall")),
